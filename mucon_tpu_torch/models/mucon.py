@@ -1,0 +1,236 @@
+"""The MuCon network, eval path with free decoding (mucon_tpu/models/mucon.py).
+
+* ft: WaveNet dilated residual stack (16x temporal downsample), then
+  masked GroupNorm -> ReLU -> mask;
+* fs: BiLSTM encoder, its final (h, c) projected to the decoder init,
+  additive attention tanh(z W1 + l2(h)) . V, and a free-decode loop of
+  `DecoderCell` steps that stops once every video has emitted EOS;
+* fc: 1x1 conv head at Tz, then the per-video nearest upsample to T.
+
+Submodule and parameter names are the flax ones, so a JAX parameter tree
+maps onto `state_dict` by joining its path with dots
+(`mucon_tpu_torch.convert`).  Inference only: no dropout, no teacher
+forcing.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mucon_tpu_torch.models.layers import (
+    interpolate_nearest_time,
+    masked_group_norm,
+    scaled_normal_init_,
+    time_mask,
+    torch_linear_init_,
+)
+from mucon_tpu_torch.models.lstm import LSTMCellParams, MaskedBiLSTM
+from mucon_tpu_torch.models.outputs import MuConForwardOut
+from mucon_tpu_torch.models.temporal import Conv1x1, WaveNetBlock
+
+# nn.Linear with torch default init and a [in, out] kernel: the same
+# module as the pointwise conv (mucon.py:63 / temporal.py:48)
+TorchDense = Conv1x1
+
+
+class GroupNormMasked(nn.Module):
+    def __init__(self, num_groups: int, num_channels: int):
+        super().__init__()
+        self.num_groups = num_groups
+        self.scale = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x, lengths):
+        return masked_group_norm(x, lengths, self.num_groups, self.scale, self.bias)
+
+
+class Embed(nn.Module):
+    """flax nn.Embed: table `embedding` [num_embeddings, features], N(0, 1)."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+
+    def reset_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            self.embedding.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, ids):
+        return self.embedding[ids]
+
+
+class DecoderCell(nn.Module):
+    """One free-decode step (mucon.py:93-156): embed -> ReLU -> additive
+    attention over the encoder states -> attn-combine -> LSTM cell ->
+    transcript and length heads -> log-softmax and argmax over M+1."""
+
+    def __init__(self, hidden: int, enc_out_dim: int, num_classes: int):
+        super().__init__()
+        H, M = hidden, num_classes
+        self.embedding = Embed(M + 2, H)
+        self.attention_l2 = TorchDense(H, H)
+        self.attention_V = nn.Parameter(torch.empty(H))
+        self.attn_combine = TorchDense(enc_out_dim + H, H)
+        self.lstm = LSTMCellParams(H, H)
+        self.transcript_fc = TorchDense(H, H)
+        self.transcript_out = TorchDense(H, M + 1)
+        self.length_fc = TorchDense(H + M + 1, H // 2)
+        self.length_out = TorchDense(H // 2, 1)
+
+    def reset_parameters(self, generator: torch.Generator):
+        scaled_normal_init_(self.attention_V, self.attention_V.shape[0], generator)
+
+    def forward(self, h, c, token, enc_out, attn_pre, tz_mask):
+        emb = torch.relu(self.embedding(token))
+        q = self.attention_l2(h)
+        u = torch.tanh(attn_pre + q[:, None, :])  # [B x Tz x H]
+        scores = torch.where(tz_mask > 0, u @ self.attention_V, float("-inf"))
+        attn = torch.softmax(scores, dim=-1)
+        ctx = torch.bmm(attn[:, None, :], enc_out)[:, 0]  # [B x E]
+        combined = torch.relu(self.attn_combine(torch.cat([emb, ctx], dim=-1)))
+        h, c = self.lstm(combined, h, c)
+        logits = self.transcript_out(torch.relu(self.transcript_fc(h)))
+        s_input = torch.relu(torch.cat([combined, logits], dim=-1))
+        length = self.length_out(torch.relu(self.length_fc(s_input)))[:, 0]
+        logprobs = F.log_softmax(logits, dim=-1)
+        next_token = torch.argmax(logprobs, dim=-1)
+        return h, c, next_token, logprobs, length
+
+
+class MuConNet(nn.Module):
+    """Eval forward graph with early-exit free decoding."""
+
+    def __init__(
+        self,
+        num_classes: int,
+        input_feature_size: int,
+        max_decoding_steps: int,
+        ft_stages: Sequence[int] = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024),
+        ft_hidden: int = 128,
+        ft_pooling_layers: Sequence[int] = (1, 2, 4, 8),
+        ft_pooling_type: str = "max",
+        ft_leaky: bool = False,
+        ft_last_gn_groups: int = 32,
+        hidden: int = 128,
+    ):
+        super().__init__()
+        self.num_classes = num_classes
+        self.max_decoding_steps = max_decoding_steps
+        self.ft = WaveNetBlock(
+            input_feature_size, ft_stages, ft_hidden, ft_pooling_layers,
+            ft_pooling_type, ft_leaky,
+        )
+        self.ft_last_gn = GroupNormMasked(ft_last_gn_groups, ft_hidden)
+        self.fs_encoder_lstm = MaskedBiLSTM(ft_hidden, hidden)
+        enc_dim = 2 * hidden
+        self.fs_encoder_hidden_out = TorchDense(enc_dim, hidden)
+        self.fs_encoder_cn_out = TorchDense(enc_dim, hidden)
+        self.fs_decoder_attention_W1 = nn.Parameter(torch.empty(enc_dim, hidden))
+        # defined but unused, as in the reference (mucon.py:311-315): kept
+        # so the parameter inventory matches the JAX tree
+        self.fs_decoder_attention_l3_kernel = nn.Parameter(torch.empty(2 * hidden, hidden))
+        self.fs_decoder_attention_l3_bias = nn.Parameter(torch.empty(hidden))
+        self.decoder = DecoderCell(hidden, enc_dim, num_classes)
+        self.conv_classifier = Conv1x1(ft_hidden, num_classes)
+
+    def reset_parameters(self, generator: torch.Generator):
+        enc_dim = self.fs_decoder_attention_W1.shape[0]
+        scaled_normal_init_(self.fs_decoder_attention_W1, enc_dim, generator)
+        torch_linear_init_(self.fs_decoder_attention_l3_kernel, enc_dim, generator)
+        torch_linear_init_(self.fs_decoder_attention_l3_bias, enc_dim, generator)
+
+    def forward(
+        self,
+        feats,  # [B x T x D]
+        num_frames,  # [B]
+        tf_input,  # [B x S'] (SOS first)
+        z_precomputed=None,  # encoder output from the fused kernel stack
+        tz_precomputed=None,  # ... and its lengths
+        use_kernels: bool = True,
+    ) -> MuConForwardOut:
+        B, T, _ = feats.shape
+        S, M = self.max_decoding_steps, self.num_classes
+
+        if z_precomputed is not None:
+            z, tz_len = z_precomputed, tz_precomputed
+        else:
+            z, tz_len = self.ft(feats, num_frames)
+        z = torch.relu(self.ft_last_gn(z, tz_len))
+        z = z * time_mask(z.shape[1], tz_len, z.dtype)[:, :, None]
+
+        enc_out, (h_n, c_n) = self.fs_encoder_lstm(z, tz_len, use_kernels)
+        h = self.fs_encoder_hidden_out(h_n)
+        c = self.fs_encoder_cn_out(c_n)
+        attn_pre = enc_out @ self.fs_decoder_attention_W1  # [B x Tz x H]
+        tz_mask = time_mask(enc_out.shape[1], tz_len)
+
+        # early-exit free decode (mucon.py:330-365): runs until every video
+        # has emitted EOS; un-run steps keep zeros (the wire ships all S)
+        logprobs = feats.new_zeros(S, B, M + 1)
+        lengths = feats.new_zeros(S, B)
+        tokens = torch.zeros(S, B, dtype=torch.int64, device=feats.device)
+        token = tf_input[:, 0].to(torch.int64)
+        done = torch.zeros(B, dtype=torch.bool, device=feats.device)
+        for step in range(S):
+            h, c, token, lp, ln = self.decoder(h, c, token, enc_out, attn_pre, tz_mask)
+            logprobs[step], lengths[step], tokens[step] = lp, ln, token
+            done |= token == M
+            if bool(done.all()):  # one host sync per step
+                break
+        logprobs = logprobs.transpose(0, 1)  # [B x S x (M+1)]
+        lengths = lengths.transpose(0, 1)
+        tokens = tokens.transpose(0, 1)
+
+        # framewise head at Tz, then the nearest upsample (mucon.py:401-412)
+        seg_z = self.conv_classifier(z)
+        segmentation = interpolate_nearest_time(seg_z, tz_len, T, num_frames)
+
+        is_eos = tokens == M
+        first_eos = torch.argmax(is_eos.to(torch.int32), dim=1)
+        n_steps = torch.where(is_eos.any(dim=1), first_eos + 1, S)
+
+        return MuConForwardOut(
+            transcript=logprobs,
+            lengths=lengths,
+            segmentation=segmentation,
+            tokens=tokens,
+            n_steps=n_steps,
+            tz_lengths=tz_len,
+            segmentation_z=seg_z,
+        )
+
+
+def build_model(
+    num_classes: int,
+    max_decoding_steps: int,
+    input_feature_size: int,
+    *,
+    stages: Sequence[int] = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024),
+    hidden_size: int = 128,
+    pooling: bool = True,
+    pooling_layers: Sequence[int] = (1, 2, 4, 8),
+    pooling_type: str = "max",
+    leaky_relu: bool = False,
+    last_gn_num_groups: int = 32,
+    lstm_hidden_size: int = 128,
+) -> MuConNet:
+    """MuConNet from explicit fields (the defaults are the repo's default
+    config, mucon_tpu/config/defaults.py) — no config file or yaml needed.
+    The encoder and decoder LSTMs share `lstm_hidden_size`: the additive
+    attention adds their projections, so the JAX model needs them equal."""
+    return MuConNet(
+        num_classes=num_classes,
+        input_feature_size=input_feature_size,
+        max_decoding_steps=max_decoding_steps,
+        ft_stages=tuple(stages),
+        ft_hidden=hidden_size,
+        ft_pooling_layers=tuple(pooling_layers) if pooling else (),
+        ft_pooling_type=pooling_type,
+        ft_leaky=leaky_relu,
+        ft_last_gn_groups=last_gn_num_groups,
+        hidden=lstm_hidden_size,
+    )
