@@ -1,0 +1,112 @@
+"""Optimizers, schedulers and the partitioned gradient clip
+(mucon_tpu/harness/optim.py).
+
+The reference trains with torch's optimizers (trainers.py:18-56, 133-146):
+
+* the encoder and decoder parameter groups are clipped apart, each to a
+  global norm of 100;
+* SGD or Adam(amsgrad), weight decay coupled into the gradient after the
+  clip (torch adds wd * p to the gradient before momentum / moments — the
+  JAX package's optax chain clip -> add_decayed_weights -> sgd/amsgrad);
+* MultiStepLR / ReduceLROnPlateau, stepped once per epoch.
+
+No Pallas kernel sits on this path, so `torch.optim` runs the updates.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional
+
+import torch
+
+
+@torch.no_grad()
+def clip_grad_norm_partitioned(params_by_label: Dict[str, List[torch.Tensor]],
+                               max_norm: float) -> Dict[str, torch.Tensor]:
+    """Scale each group's gradients so that the group's global norm is at
+    most `max_norm`; returns the norms before clipping."""
+    norms = {}
+    for label, params in params_by_label.items():
+        grads = [p.grad for p in params if p.grad is not None]
+        if not grads:
+            continue
+        norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+        factor = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+        for g in grads:
+            g.mul_(factor)
+        norms[label] = norm
+    return norms
+
+
+def create_optimizer(params: Iterable[torch.Tensor], name: str = "SGD",
+                     learning_rate: float = 0.01, momentum: float = 0.0,
+                     weight_decay: float = 0.005) -> torch.optim.Optimizer:
+    """SGD(momentum, coupled wd) or Adam(amsgrad, coupled wd); the defaults
+    are the repo's (mucon_tpu/config/defaults.py:49-57)."""
+    params = list(params)
+    if name == "SGD":
+        return torch.optim.SGD(params, lr=learning_rate, momentum=momentum,
+                               weight_decay=weight_decay)
+    if name == "Adam":
+        return torch.optim.Adam(params, lr=learning_rate, amsgrad=True,
+                                weight_decay=weight_decay)
+    raise ValueError(f"Invalid optimizer name ({name})")
+
+
+def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+class Scheduler:
+    """Epoch-granular scheduler: call step(...) after each epoch, read .lr
+    before the next one."""
+
+    def __init__(self, base_lr: float):
+        self.base_lr = base_lr
+        self.lr = base_lr
+
+    def step(self, **kwargs) -> None:
+        raise NotImplementedError
+
+
+class MultiStepScheduler(Scheduler):
+    """torch MultiStepLR: lr *= gamma at each milestone epoch."""
+
+    def __init__(self, base_lr: float, milestones, gamma: float):
+        super().__init__(base_lr)
+        self.milestones = sorted(milestones)
+        self.gamma = gamma
+        self.epoch = 0
+
+    def step(self, **kwargs) -> None:
+        self.epoch += 1
+        if self.epoch in self.milestones:
+            self.lr *= self.gamma
+
+
+class PlateauScheduler(Scheduler):
+    """torch ReduceLROnPlateau (mode max/min, factor, patience)."""
+
+    def __init__(self, base_lr, mode="max", factor=0.1, patience=20):
+        super().__init__(base_lr)
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.best: Optional[float] = None
+        self.num_bad = 0
+
+    def step(self, metrics: float = None, **kwargs) -> None:
+        if metrics is None:
+            return
+        better = self.best is None or (
+            metrics > self.best if self.mode == "max" else metrics < self.best
+        )
+        if better:
+            self.best = metrics
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+            if self.num_bad > self.patience:
+                self.lr *= self.factor
+                self.num_bad = 0

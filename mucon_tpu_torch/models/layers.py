@@ -4,6 +4,9 @@ Every tensor is channel-last [B x T x C] with per-video lengths [B], as in
 the JAX package; padded frames are zeroed so a padded batch computes what
 the reference computes on exact-length tensors.
 
+Dropout is a mask tensor drawn by `dropout_mask` and multiplied in by the
+caller.
+
 The initializers draw the torch defaults the JAX package reproduces
 (layers.py:17-38) from an explicit `torch.Generator`; they give other
 numbers than `jax.random` for the same seed — the weight bridge
@@ -29,6 +32,21 @@ def torch_linear_init_(t: torch.Tensor, fan_in: int, generator: torch.Generator)
 def scaled_normal_init_(t: torch.Tensor, scale_dim: int, generator: torch.Generator):
     """randn(shape)/sqrt(scale_dim) — the reference's rand_p."""
     t.normal_(0.0, 1.0, generator=generator).div_(math.sqrt(scale_dim))
+
+
+def dropout_mask(generator: torch.Generator, rate: float, shape, device):
+    """Inverted-dropout mask: keep with probability 1 - rate, kept entries
+    scaled by 1 / (1 - rate) (flax nn.Dropout and the JAX package's
+    `_make_masks`, wavenet_train_pallas_v3.py:287).  None at rate 0.
+
+    Every dropout of the train path multiplies by such a mask, drawn from
+    an explicit generator (on `device`), so the kernel and plain paths see
+    the same masks.  torch draws Philox numbers where JAX draws threefry:
+    the two never match draw for draw, only in distribution."""
+    if rate <= 0.0:
+        return None
+    u = torch.rand(shape, generator=generator, device=device)
+    return (u >= rate).to(torch.float32) / (1.0 - rate)
 
 
 def time_mask(t_pad: int, lengths: torch.Tensor, dtype=torch.float32):

@@ -1,10 +1,10 @@
-"""LSTM cells and the masked bidirectional encoder, eval path
-(mucon_tpu/models/lstm.py).
+"""LSTM cells and the masked bidirectional encoder (mucon_tpu/models/lstm.py).
 
 torch nn.LSTM conventions (gate order i, f, g, o; two bias vectors) with
 the JAX package's layouts: w_ih [I, 4H], w_hh [H, 4H].  The input
 projection for all timesteps is one matmul; only the h @ w_hh recurrence
-is sequential, and it runs as one kernel (`ops/lstm_recurrence.py`).
+is sequential, and it runs as one kernel (`ops/lstm_recurrence.py`); in
+training its backward is a kernel too.
 Padded timesteps freeze the state, so the final (h, c) equal an
 exact-length LSTM's.
 """
@@ -20,6 +20,7 @@ from mucon_tpu_torch.models.layers import time_mask, torch_linear_init_
 from mucon_tpu_torch.ops.lstm_recurrence import (
     bilstm_recurrence,
     bilstm_recurrence_plain,
+    bilstm_recurrence_train,
 )
 
 
@@ -78,8 +79,10 @@ class MaskedBiLSTM(nn.Module):
         self.bwd = LSTMCellParams(input_size, hidden_size)
 
     def forward(
-        self, xs, lengths, use_kernels: bool = True
+        self, xs, lengths, use_kernels: bool = True, train: bool = False
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """`train` routes the recurrence to its differentiable kernel (the
+        JAX package's `kernel_differentiable`, lstm.py:199-202)."""
         m = time_mask(xs.shape[1], lengths, xs.dtype)  # [B x T]
         xs_r = _reverse_valid(xs, lengths)
         b_hh = torch.stack([self.fwd.b_hh, self.bwd.b_hh])  # [2 x 4H]
@@ -89,7 +92,10 @@ class MaskedBiLSTM(nn.Module):
         xp = xp.permute(2, 0, 1, 3).contiguous()  # [T x 2 x B x 4H]
         w_hh = torch.stack([self.fwd.w_hh, self.bwd.w_hh])  # [2 x H x 4H]
         m_t = m.t().contiguous()
-        recurrence = bilstm_recurrence if use_kernels else bilstm_recurrence_plain
+        if not use_kernels:
+            recurrence = bilstm_recurrence_plain
+        else:
+            recurrence = bilstm_recurrence_train if train else bilstm_recurrence
         outs, hc, cc = recurrence(xp, m_t, w_hh)
         out_f = outs[:, 0].transpose(0, 1)
         out_b = _reverse_valid(outs[:, 1].transpose(0, 1), lengths)

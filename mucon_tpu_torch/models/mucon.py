@@ -1,21 +1,25 @@
-"""The MuCon network, eval path with free decoding (mucon_tpu/models/mucon.py).
+"""The MuCon network (mucon_tpu/models/mucon.py).
 
 * ft: WaveNet dilated residual stack (16x temporal downsample), then
-  masked GroupNorm -> ReLU -> mask;
+  masked GroupNorm -> ReLU -> (train: dropout) -> mask;
 * fs: BiLSTM encoder, its final (h, c) projected to the decoder init,
-  additive attention tanh(z W1 + l2(h)) . V, and a free-decode loop of
-  `DecoderCell` steps that stops once every video has emitted EOS;
+  additive attention tanh(z W1 + l2(h)) . V, and a loop of `DecoderCell`
+  steps: eval decodes freely and stops once every video has emitted EOS;
+  train is teacher-forced over all S steps (the JAX package's nn.scan
+  branch, `tpu.use_pallas_decoder=False`), with the embedding dropout
+  mask drawn for the whole [S x B x H] trajectory;
 * fc: 1x1 conv head at Tz, then the per-video nearest upsample to T.
 
 Submodule and parameter names are the flax ones, so a JAX parameter tree
 maps onto `state_dict` by joining its path with dots
-(`mucon_tpu_torch.convert`).  Inference only: no dropout, no teacher
-forcing.
+(`mucon_tpu_torch.convert`).  Every dropout is a mask tensor passed in
+(`TrainMasks`), so the kernel and plain paths can share them.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +39,30 @@ from mucon_tpu_torch.models.temporal import Conv1x1, WaveNetBlock
 # nn.Linear with torch default init and a [in, out] kernel: the same
 # module as the pointwise conv (mucon.py:63 / temporal.py:48)
 TorchDense = Conv1x1
+
+# top-level parameter groups, clipped apart (mucon.py:48-60)
+ENCODE_MODULES = (
+    "ft",
+    "ft_last_gn",
+    "fs_encoder_lstm",
+    "fs_encoder_hidden_out",
+    "fs_encoder_cn_out",
+)
+DECODE_MODULES = (
+    "fs_decoder_attention_W1",
+    "fs_decoder_attention_l3",
+    "decoder",
+    "conv_classifier",
+)
+
+
+@dataclass
+class TrainMasks:
+    """The dropout masks of one train step (None where the rate is 0)."""
+
+    stack: Optional[List[torch.Tensor]]  # one [B x t_i x C] per WaveNet layer
+    last: Optional[torch.Tensor]  # [B x Tz x C] after the last GN + ReLU
+    embedding: Optional[torch.Tensor]  # [S x B x H] decoder input embeddings
 
 
 class GroupNormMasked(nn.Module):
@@ -64,9 +92,9 @@ class Embed(nn.Module):
 
 
 class DecoderCell(nn.Module):
-    """One free-decode step (mucon.py:93-156): embed -> ReLU -> additive
-    attention over the encoder states -> attn-combine -> LSTM cell ->
-    transcript and length heads -> log-softmax and argmax over M+1."""
+    """One decode step (mucon.py:93-156): embed -> ReLU -> (dropout mask)
+    -> additive attention over the encoder states -> attn-combine -> LSTM
+    cell -> transcript and length heads -> log-softmax and argmax over M+1."""
 
     def __init__(self, hidden: int, enc_out_dim: int, num_classes: int):
         super().__init__()
@@ -84,8 +112,10 @@ class DecoderCell(nn.Module):
     def reset_parameters(self, generator: torch.Generator):
         scaled_normal_init_(self.attention_V, self.attention_V.shape[0], generator)
 
-    def forward(self, h, c, token, enc_out, attn_pre, tz_mask):
+    def forward(self, h, c, token, enc_out, attn_pre, tz_mask, emb_mask=None):
         emb = torch.relu(self.embedding(token))
+        if emb_mask is not None:
+            emb = emb * emb_mask
         q = self.attention_l2(h)
         u = torch.tanh(attn_pre + q[:, None, :])  # [B x Tz x H]
         scores = torch.where(tz_mask > 0, u @ self.attention_V, float("-inf"))
@@ -102,7 +132,8 @@ class DecoderCell(nn.Module):
 
 
 class MuConNet(nn.Module):
-    """Eval forward graph with early-exit free decoding."""
+    """Forward graph: eval with early-exit free decoding, or train with
+    teacher forcing."""
 
     def __init__(
         self,
@@ -116,10 +147,16 @@ class MuConNet(nn.Module):
         ft_leaky: bool = False,
         ft_last_gn_groups: int = 32,
         hidden: int = 128,
+        ft_dropout: float = 0.25,
+        ft_last_dropout: float = 0.25,
+        dec_embed_dropout: float = 0.25,
     ):
         super().__init__()
         self.num_classes = num_classes
         self.max_decoding_steps = max_decoding_steps
+        self.ft_dropout = ft_dropout
+        self.ft_last_dropout = ft_last_dropout
+        self.dec_embed_dropout = dec_embed_dropout
         self.ft = WaveNetBlock(
             input_feature_size, ft_stages, ft_hidden, ft_pooling_layers,
             ft_pooling_type, ft_leaky,
@@ -151,6 +188,9 @@ class MuConNet(nn.Module):
         z_precomputed=None,  # encoder output from the fused kernel stack
         tz_precomputed=None,  # ... and its lengths
         use_kernels: bool = True,
+        train: bool = False,
+        transcript_len=None,  # [B] true N_i (train)
+        masks: Optional[TrainMasks] = None,  # dropout masks (train)
     ) -> MuConForwardOut:
         B, T, _ = feats.shape
         S, M = self.max_decoding_steps, self.num_classes
@@ -158,15 +198,45 @@ class MuConNet(nn.Module):
         if z_precomputed is not None:
             z, tz_len = z_precomputed, tz_precomputed
         else:
-            z, tz_len = self.ft(feats, num_frames)
+            z, tz_len = self.ft(feats, num_frames,
+                                masks.stack if masks is not None else None)
         z = torch.relu(self.ft_last_gn(z, tz_len))
+        if masks is not None and masks.last is not None:
+            z = z * masks.last
         z = z * time_mask(z.shape[1], tz_len, z.dtype)[:, :, None]
 
-        enc_out, (h_n, c_n) = self.fs_encoder_lstm(z, tz_len, use_kernels)
+        enc_out, (h_n, c_n) = self.fs_encoder_lstm(z, tz_len, use_kernels, train=train)
         h = self.fs_encoder_hidden_out(h_n)
         c = self.fs_encoder_cn_out(c_n)
         attn_pre = enc_out @ self.fs_decoder_attention_W1  # [B x Tz x H]
         tz_mask = time_mask(enc_out.shape[1], tz_len)
+
+        # framewise head at Tz, then the nearest upsample (mucon.py:401-412)
+        seg_z = self.conv_classifier(z)
+        segmentation = interpolate_nearest_time(seg_z, tz_len, T, num_frames)
+
+        if train:
+            # teacher-forced decode over all S steps (mucon.py:373-388); the
+            # loss reads the first N_i + 1 (mucon.py:417-418)
+            emb_masks = masks.embedding if masks is not None else None
+            lps, lns, toks = [], [], []
+            for step in range(S):
+                h, c, tok, lp, ln = self.decoder(
+                    h, c, tf_input[:, step], enc_out, attn_pre, tz_mask,
+                    None if emb_masks is None else emb_masks[step],
+                )
+                lps.append(lp)
+                lns.append(ln)
+                toks.append(tok)
+            return MuConForwardOut(
+                transcript=torch.stack(lps, dim=1),
+                lengths=torch.stack(lns, dim=1),
+                segmentation=segmentation,
+                tokens=torch.stack(toks, dim=1),
+                n_steps=transcript_len + 1,
+                tz_lengths=tz_len,
+                segmentation_z=seg_z,
+            )
 
         # early-exit free decode (mucon.py:330-365): runs until every video
         # has emitted EOS; un-run steps keep zeros (the wire ships all S)
@@ -184,10 +254,6 @@ class MuConNet(nn.Module):
         logprobs = logprobs.transpose(0, 1)  # [B x S x (M+1)]
         lengths = lengths.transpose(0, 1)
         tokens = tokens.transpose(0, 1)
-
-        # framewise head at Tz, then the nearest upsample (mucon.py:401-412)
-        seg_z = self.conv_classifier(z)
-        segmentation = interpolate_nearest_time(seg_z, tz_len, T, num_frames)
 
         is_eos = tokens == M
         first_eos = torch.argmax(is_eos.to(torch.int32), dim=1)
@@ -217,6 +283,10 @@ def build_model(
     leaky_relu: bool = False,
     last_gn_num_groups: int = 32,
     lstm_hidden_size: int = 128,
+    dropout_rate: float = 0.25,
+    last_dropout: bool = True,
+    last_dropout_rate: float = 0.25,
+    embedding_dropout: float = 0.25,
 ) -> MuConNet:
     """MuConNet from explicit fields (the defaults are the repo's default
     config, mucon_tpu/config/defaults.py) — no config file or yaml needed.
@@ -233,4 +303,7 @@ def build_model(
         ft_leaky=leaky_relu,
         ft_last_gn_groups=last_gn_num_groups,
         hidden=lstm_hidden_size,
+        ft_dropout=dropout_rate,
+        ft_last_dropout=last_dropout_rate if last_dropout else 0.0,
+        dec_embed_dropout=embedding_dropout,
     )

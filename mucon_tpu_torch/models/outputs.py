@@ -1,4 +1,4 @@
-"""Forward output container (mucon_tpu/models/outputs.py:19), field for field."""
+"""Forward and loss containers (mucon_tpu/models/outputs.py:19-41), field for field."""
 
 from dataclasses import dataclass
 
@@ -15,3 +15,12 @@ class MuConForwardOut:
     tz_lengths: torch.Tensor  # [B] encoder output lengths (T_i >> pools)
     segmentation_z: torch.Tensor = None  # [B x Tz x M] pre-upsample logits:
     # segmentation == nearest-upsample(segmentation_z) row for row
+
+
+@dataclass
+class MuConLoss:
+    main: torch.Tensor  # the weighted sum that is differentiated
+    transcript_loss: torch.Tensor
+    mucon_loss: torch.Tensor
+    length_loss: torch.Tensor
+    smoothing_loss: torch.Tensor

@@ -1,4 +1,4 @@
-"""WaveNet temporal encoder, eval path (mucon_tpu/models/temporal.py:32-163).
+"""WaveNet temporal encoder (mucon_tpu/models/temporal.py:32-163).
 
 Channel-last [B x T x C]; 1x1 convs are matmuls over channels, the k=3
 dilated conv is three shifted matmuls, and lengths are re-masked after
@@ -8,8 +8,11 @@ the weight bridge is a renaming of keys.
 
 This module path is the plain reference of the whole block; the fused
 residual stack (everything after the in-projection) is
-`mucon_tpu_torch.ops.wavenet_stack`, whose CUDA kernel it checks.
-Dropout is absent: the port is inference only.
+`mucon_tpu_torch.ops.wavenet_stack` (eval) and
+`mucon_tpu_torch.ops.wavenet_stack_train` (train), whose CUDA kernels it
+checks.  Dropout is a per-layer mask tensor ([B x t x C], from
+`layers.dropout_mask`) multiplied into the 1x1 conv's output before the
+residual; without masks the block is the eval forward.
 """
 
 from __future__ import annotations
@@ -39,7 +42,10 @@ def shift_time(x: torch.Tensor, offset: int) -> torch.Tensor:
 
 
 def nonlinearity(x: torch.Tensor, leaky: bool) -> torch.Tensor:
-    return torch.where(x > 0, x, 0.01 * x) if leaky else torch.clamp(x, min=0.0)
+    """ReLU or leaky ReLU; at exactly 0 the gradient is 0 (0.01 leaky), as
+    in the JAX package's train kernel (`_nonlin_grad_from_h`) and flax's
+    relu.  Exact zeros are common: dropped entries of a ReLU'd input."""
+    return torch.where(x > 0, x, 0.01 * x) if leaky else torch.relu(x)
 
 
 class Conv1x1(nn.Module):
@@ -86,18 +92,24 @@ class WaveNetLayer(nn.Module):
         self.DilatedConv3_0 = DilatedConv3(channels, channels, dilation)
         self.Conv1x1_0 = Conv1x1(channels, channels)
 
-    def forward(self, x, lengths):
-        y = nonlinearity(self.DilatedConv3_0(x), self.leaky)
-        return mask_time(self.Conv1x1_0(y) + x, lengths)
+    def forward(self, x, lengths, drop_mask=None):
+        y = self.Conv1x1_0(nonlinearity(self.DilatedConv3_0(x), self.leaky))
+        if drop_mask is not None:
+            y = y * drop_mask
+        return mask_time(y + x, lengths)
 
 
 def pool2_time(x: torch.Tensor, pooling_type: str) -> torch.Tensor:
-    """Downsample time by 2: max, or mean * 2 for "sum" (floor(T/2) rows)."""
+    """Downsample time by 2: max, or mean * 2 for "sum" (floor(T/2) rows).
+    The max routes its gradient to the FIRST element of a tied pair (torch
+    max_pool1d, as the JAX train kernel's `_pool2_bwd_xla`); `amax` would
+    split it."""
     B, T, C = x.shape
     pairs = x[:, : (T // 2) * 2].reshape(B, T // 2, 2, C)
+    a, b = pairs[:, :, 0], pairs[:, :, 1]
     if pooling_type == "max":
-        return pairs.amax(dim=2)
-    return pairs.mean(dim=2) * 2.0
+        return torch.where(b > a, b, a)
+    return (a + b) * 0.5 * 2.0
 
 
 class WaveNetBlock(nn.Module):
@@ -127,10 +139,13 @@ class WaveNetBlock(nn.Module):
         """nonlin(x @ W_in + b_in), masked — the D -> C projection."""
         return mask_time(nonlinearity(self.Conv1x1_0(x), self.leaky), lengths)
 
-    def forward(self, x, lengths) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x, lengths, drop_masks=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`drop_masks`: one [B x t_i x C] dropout mask per layer (train), or
+        None (eval)."""
         x = self.in_projection(x, lengths)
         for i in range(len(self.stages)):
-            x = getattr(self, f"WaveNetLayer_{i}")(x, lengths)
+            m = None if drop_masks is None else drop_masks[i]
+            x = getattr(self, f"WaveNetLayer_{i}")(x, lengths, m)
             if i in self.pooling_layers:
                 x = pool2_time(x, self.pooling_type)
                 lengths = lengths // 2

@@ -42,8 +42,11 @@ def wavenet_stack_plain(
     pooling_layers: Sequence[int],
     pooling_type: str = "max",
     leaky: bool = False,
+    drop_masks=None,
 ):
-    """Plain PyTorch eval stack. Returns (z [B x T/2^p x C], lengths >> p)."""
+    """Plain PyTorch stack. Returns (z [B x T/2^p x C], lengths >> p).
+    `drop_masks` (train): one dropout mask [B x t_i x C] per layer,
+    multiplied into the 1x1 conv's output before the residual."""
     x = mask_time(x, lengths)
     ln = lengths
     for i, d in enumerate(stages):
@@ -53,7 +56,10 @@ def wavenet_stack_plain(
             + shift_time(x, d) @ w3[i, 2]
             + b3[i]
         )
-        x = mask_time(nonlinearity(z, leaky) @ w1[i] + b1[i] + x, ln)
+        y = nonlinearity(z, leaky) @ w1[i] + b1[i]
+        if drop_masks is not None:
+            y = y * drop_masks[i]
+        x = mask_time(y + x, ln)
         if i in pooling_layers:
             x = pool2_time(x, pooling_type)
             ln = ln // 2

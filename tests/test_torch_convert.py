@@ -55,7 +55,9 @@ def test_port_imports_no_jax_or_flax():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')]\n"
         "assert not bad, bad\n"
-        "assert 'mucon_tpu_torch.cli.predict' in sys.modules\n"
+        "for m in ('cli.predict', 'harness.trainer', 'harness.optim', 'models.losses',\n"
+        "          'models.masks', 'ops.wavenet_stack_train'):\n"
+        "    assert 'mucon_tpu_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    env=dict(os.environ), timeout=300)
@@ -83,3 +85,40 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda.build()
     assert not (tmp_path / "kernels").exists()
+
+
+def test_kernel_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    """`cuda.build` starts one compiler process per source, links the
+    objects into one library, keeps the compiler output as its log and
+    removes the objects (a stand-in script plays nvcc)."""
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/usr/bin/env python3\n"
+        "import sys\n"
+        "args = sys.argv[1:]\n"
+        "out = args[args.index('-o') + 1]\n"
+        "open(out, 'w').write(' '.join(args))\n"
+        "print('ptxas info: ' + ('link' if '-shared' in args else args[-1]))\n"
+    )
+    fake.chmod(0o755)
+    monkeypatch.setattr(cuda, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(cuda, "BUILD_DIR", tmp_path / "kernels")
+    lib = cuda.build()
+    assert lib.exists() and lib.parent == tmp_path / "kernels"
+    link = lib.read_text().split()
+    assert link[:2] == ["-shared", "-o"] and len(link) == 3 + len(cuda.SOURCES)
+    log = lib.with_suffix(".log").read_text()
+    for src in cuda.SOURCES:
+        assert src in log
+    assert sorted(p.name for p in lib.parent.iterdir()) == sorted([lib.name, lib.with_suffix(".log").name])
+    assert cuda.build() == lib  # the same sources hash to the built library
+
+
+def test_train_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros(1, 32, 128)
+    w = torch.zeros(2, 8, 32)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        cuda.bilstm_train_forward(torch.zeros(2, 2, 1, 32), torch.ones(2, 1), w)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        cuda.wavenet_train_forward(x, torch.tensor([32]), *([x] * 6), None, stages=(1,),
+                                   pooling_layers=(), pooling_type="max", leaky=False)
