@@ -39,6 +39,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -67,17 +68,28 @@ TRAIN_KERNELS = ("wavenet_layer", "wavenet_train_fwd", "wavenet_train_sweep",
                  "bilstm_train_fwd", "bilstm_train_bwd")
 TRAIN_B, TRAIN_STEPS, DROP = 8, 3, 0.25
 # Forward outputs: max abs err <= FWD_BOUND * max|plain|.  Gradients:
-# relative L2 err <= GRAD_BOUND.  Not a max-abs bound: where a ReLU input
-# lies within f32 rounding of 0 (or a max-pool pair within rounding of a
-# tie), the kernel and the plain twin take the two sides of the kink, and
-# that one element's gradient differs by its own size, spread by the
-# layers below (on the card, one such flip in layer 7 moved 239 of dW3's
-# 540672 entries, relative L2 2e-4, max abs 0.15% of max|plain|).
-FWD_BOUND, GRAD_BOUND = 1e-4, 1e-3
+# relative L2 err <= GRAD_BOUND and max abs err <= GRAD_MAX_BOUND *
+# max|plain|.  The max-abs bound is the looser one: where a ReLU input lies
+# within f32 rounding of 0 (or a max-pool pair within rounding of a tie),
+# the kernel and the plain twin take the two sides of the kink, and that
+# one element's gradient differs by its own size, spread by the layers
+# below (on the card, one such flip in layer 7 moved 239 of dW3's 540672
+# entries, relative L2 2e-4, max abs 0.15% of max|plain|).  It still fails
+# an error confined to a few entries, which relative L2 alone cannot see.
+FWD_BOUND, GRAD_BOUND, GRAD_MAX_BOUND = 1e-4, 1e-3, 1e-2
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def vocab() -> SimpleNamespace:
+    """The vocabulary `collate_videos` and `predict_videos` read: M actions,
+    EOS = M, SOS = M + 1."""
+    return SimpleNamespace(
+        max_transcript_length=N_MAX, sos_token_id=M + 1, eos_token_id=M,
+        action_id_to_name={i: f"action_{i}" for i in range(M)},
+    )
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -317,17 +329,12 @@ def check_outputs(tag, out, preds, lengths):
 
 
 def serve(model, dev, rng, card: str):
-    from types import SimpleNamespace
-
     from mucon_tpu_torch import cuda
     from mucon_tpu_torch.cli.predict import collate_videos, predict_videos
     from mucon_tpu_torch.models.model import batch_to_tensors
     from mucon_tpu_torch.ops.eval_fused import build_fused_eval
 
-    db = SimpleNamespace(
-        max_transcript_length=N_MAX, sos_token_id=M + 1, eos_token_id=M,
-        action_id_to_name={i: f"action_{i}" for i in range(M)},
-    )
+    db = vocab()
     requests = {
         "A": [int(t) for t in rng.integers(1500, 2101, size=128)],  # bench.py eval batch
         "B": [517, 1203, 2100],
@@ -380,26 +387,27 @@ def serve(model, dev, rng, card: str):
 # -- phase 5: the train path -------------------------------------------------
 
 def held(name, pairs, grads: bool) -> float:
-    """Every (label, got, ref) pair within its bound (FWD_BOUND * max|ref|
-    on the max abs err, or GRAD_BOUND on the relative L2 err of a
-    gradient); returns the largest absolute error."""
+    """Every (label, got, ref) pair within its bounds (the max abs err
+    within FWD_BOUND * max|ref|; for a gradient, the max abs err within
+    GRAD_MAX_BOUND * max|ref| and the relative L2 err within GRAD_BOUND);
+    returns the largest absolute error."""
     import torch
 
     worst, parts = 0.0, []
     for label, got, ref in pairs:
         err = (got - ref).abs().max().item()
         worst = max(worst, err)
+        bound = (GRAD_MAX_BOUND if grads else FWD_BOUND) * ref.abs().max().item()
+        ok, part = err <= bound, f"{label} {err:.2e} <= {bound:.2e}"
         if grads:
             rel = (torch.linalg.vector_norm(got - ref) /
                    torch.linalg.vector_norm(ref).clamp_min(1e-30)).item()
-            ok, part = rel <= GRAD_BOUND, f"{label} rel L2 {rel:.2e} (max abs {err:.2e})"
-        else:
-            bound = FWD_BOUND * ref.abs().max().item()
-            ok, part = err <= bound, f"{label} {err:.2e} <= {bound:.2e}"
+            ok, part = ok and rel <= GRAD_BOUND, f"{part}, rel L2 {rel:.2e}"
         if not ok:
             raise AssertionError(f"{name} {label} out of bounds: {part}")
         parts.append(part)
-    bound = f"rel L2 <= {GRAD_BOUND:g}" if grads else f"max abs <= {FWD_BOUND:g} * max|plain|"
+    bound = (f"max abs <= {GRAD_MAX_BOUND:g} * max|plain|, rel L2 <= {GRAD_BOUND:g}"
+             if grads else f"max abs <= {FWD_BOUND:g} * max|plain|")
     say(f"kernel {name}: " + "; ".join(parts) + f" ({bound})")
     return worst
 
@@ -407,21 +415,16 @@ def held(name, pairs, grads: bool) -> float:
 def train_batch(rng, dev):
     """TRAIN_B seeded videos of 1500-2100 frames (padded to 2560) with
     transcripts of 1-30 actions, as the forward and the loss read them."""
-    from mucon_tpu.data import collate_padded
-    from mucon_tpu.data.general_dataset import Sample
-    from mucon_tpu.data.utils import create_tf_input, create_tf_target
+    from mucon_tpu_torch.cli.predict import collate_videos
     from mucon_tpu_torch.models.model import batch_to_tensors
 
-    samples = []
-    for i, t in enumerate(rng.integers(1500, 2101, size=TRAIN_B)):
-        tr = rng.integers(0, M, size=int(rng.integers(1, N_MAX + 1)))
-        samples.append(Sample(
-            feats=rng.standard_normal((int(t), D), dtype=np.float32),
-            gt_label=np.zeros(int(t), np.int64), transcript=tr,
-            transcript_tf_input=create_tf_input(tr, M + 1),
-            transcript_tf_target=create_tf_target(tr, M), video_name=f"train_{i}",
-        ))
-    return batch_to_tensors(collate_padded(samples, n_max=N_MAX, pad_multiple=512), dev)
+    feats, transcripts = [], []
+    for t in rng.integers(1500, 2101, size=TRAIN_B):
+        transcripts.append(rng.integers(0, M, size=int(rng.integers(1, N_MAX + 1))))
+        feats.append(rng.standard_normal((int(t), D), dtype=np.float32))
+    names = [f"train_{i}" for i in range(TRAIN_B)]
+    return batch_to_tensors(
+        collate_videos(feats, names, vocab(), 512, transcripts=transcripts), dev)
 
 
 def check_wavenet_train(model, arrays, gen, dev):

@@ -23,20 +23,23 @@ from mucon_tpu_torch.ops.eval_fused import build_fused_eval
 from mucon_tpu_torch.ops.viterbi import positions_to_results
 
 
-def collate_videos(feats_list, names, db, pad_multiple: int = 512):
-    """Pad raw [T x D] feature arrays into one PaddedBatch; transcripts are
-    unknown at serving time, so each video carries a dummy one."""
-    dummy_tr = np.zeros(1, np.int64)
+def collate_videos(feats_list, names, db, pad_multiple: int = 512, transcripts=None):
+    """Pad raw [T x D] feature arrays into one PaddedBatch.  `transcripts`
+    (one int array of action ids per video) feed the teacher-forced train
+    forward and the loss; at serving time they are unknown and each video
+    carries a dummy one."""
+    if transcripts is None:
+        transcripts = [np.zeros(1, np.int64)] * len(feats_list)
     samples = [
         Sample(
             feats=np.ascontiguousarray(f, np.float32),
             gt_label=np.zeros(f.shape[0], np.int64),
-            transcript=dummy_tr,
-            transcript_tf_input=create_tf_input(dummy_tr, sos_i=db.sos_token_id),
-            transcript_tf_target=create_tf_target(dummy_tr, eos_i=db.eos_token_id),
+            transcript=tr,
+            transcript_tf_input=create_tf_input(tr, sos_i=db.sos_token_id),
+            transcript_tf_target=create_tf_target(tr, eos_i=db.eos_token_id),
             video_name=name,
         )
-        for f, name in zip(feats_list, names)
+        for f, name, tr in zip(feats_list, names, transcripts)
     ]
     return collate_padded(samples, db.max_transcript_length, pad_multiple)
 

@@ -136,15 +136,12 @@ class SimpleTrainer:
             self.seed * 1_000_003 + self.iter_num
         )
 
-    def train_step(self, arrays: dict,
-                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    def train_step(self, arrays: dict) -> Dict[str, torch.Tensor]:
         """forward -> loss -> backward -> partitioned clip -> optimizer step
         (trainer.py:397-409).  Returns the loss terms (detached, on the
         device: reading them syncs)."""
-        if generator is None:
-            generator = self.step_generator()
         fwd = self.model.forward(arrays, use_kernels=self.use_kernels, train=True,
-                                 generator=generator)
+                                 generator=self.step_generator())
         loss = self.model.loss(fwd, arrays)
         self.optimizer.zero_grad(set_to_none=True)
         loss.main.backward()

@@ -13,7 +13,7 @@ from mucon_tpu.data import collate_padded
 from mucon_tpu.models import batch_to_arrays, create_model as create_jax_model
 from mucon_tpu.ops.eval_fused import build_fused_eval as jax_build_fused_eval
 from mucon_tpu.ops.eval_fused import unpack_eval_wire
-from mucon_tpu_torch.cli.predict import predict_videos
+from mucon_tpu_torch.cli.predict import collate_videos, predict_videos
 from mucon_tpu_torch.models.model import (
     batch_to_tensors,
     create_model,
@@ -27,6 +27,10 @@ torch.set_num_threads(1)
 FS = 10  # frame_sampling
 TOL = dict(rtol=1e-5, atol=1e-4)
 FLOAT_KEYS = ("rel_lengths", "vit_score")
+DB = SimpleNamespace(
+    max_transcript_length=NMAX, sos_token_id=M + 1, eos_token_id=M,
+    action_id_to_name={i: f"action_{i}" for i in range(M)},
+)
 
 
 @pytest.fixture(scope="module")
@@ -77,16 +81,22 @@ def test_fused_eval_matches_jax(slice_setup):
             np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
 
 
+def test_collate_videos_with_transcripts_matches_collate_padded(slice_setup):
+    _, samples, batch, _, _, _ = slice_setup
+    got = collate_videos([s.feats for s in samples], [s.video_name for s in samples],
+                         DB, 16, transcripts=[s.transcript for s in samples])
+    assert got.video_names == batch.video_names
+    for f in ("feats", "num_frames", "transcript", "transcript_len", "tf_input",
+              "tf_target", "absolute_lengths", "fully_supervised"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(batch, f), err_msg=f)
+
+
 def test_predict_videos_matches_jax(slice_setup):
     cfg, samples, _, jm, params, tm = slice_setup
-    db = SimpleNamespace(
-        max_transcript_length=NMAX, sos_token_id=M + 1, eos_token_id=M,
-        action_id_to_name={i: f"action_{i}" for i in range(M)},
-    )
     feats = [s.feats for s in samples]
     names = [s.video_name for s in samples]
-    ref = jax_predict_videos(jm, params, feats, names, cfg, db)
-    got = predict_videos(tm, feats, names, db, frame_sampling=FS,
+    ref = jax_predict_videos(jm, params, feats, names, cfg, DB)
+    got = predict_videos(tm, feats, names, DB, frame_sampling=FS,
                          batch_size=cfg.tpu.batch_size,
                          pad_multiple=cfg.tpu.pad_multiple)
     assert len(got) == len(ref) == 3
