@@ -15,9 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from mucon_tpu.data import collate_padded
-from mucon_tpu.data.general_dataset import Sample
-from mucon_tpu.data.utils import create_tf_input, create_tf_target
+from mucon_tpu_torch.data import Sample, collate_padded, create_tf_input, create_tf_target
 from mucon_tpu_torch.models.model import batch_to_tensors
 from mucon_tpu_torch.ops.eval_fused import build_fused_eval
 from mucon_tpu_torch.ops.viterbi import positions_to_results

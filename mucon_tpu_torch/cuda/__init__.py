@@ -16,6 +16,11 @@ PyTorch's current stream without synchronising, and adds one to
 show that its path went through the kernels.  `wavenet_train_sweep`
 counts one per layer sweep: its C launcher runs that layer's four
 kernels (dz, dx, weight-gradient partials, their fixed-order sum).
+
+The ten kernels: `wavenet_layer`, `bilstm_recurrence` and `dense_viterbi`
+(serving); `wavenet_train_fwd`, `wavenet_train_sweep`, `bilstm_train_fwd`,
+`bilstm_train_bwd`, `decoder_chain_fwd`, `decoder_chain_bwd` and
+`mucon_flint` (the train step).
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("wavenet_stack.cu", "bilstm.cu", "viterbi.cu", "wavenet_train.cu")
+SOURCES = ("wavenet_stack.cu", "bilstm.cu", "viterbi.cu", "wavenet_train.cu",
+           "decoder_chain.cu", "mucon_loss.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mucon_tpu_torch"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -40,7 +46,11 @@ NVCC_FLAGS = (
 KERNELS = (
     "wavenet_layer", "bilstm_recurrence", "dense_viterbi",
     "wavenet_train_fwd", "wavenet_train_sweep", "bilstm_train_fwd", "bilstm_train_bwd",
+    "decoder_chain_fwd", "decoder_chain_bwd", "mucon_flint",
 )
+# the decoder chain's score rows live in shared memory: the reverse kernel's
+# need for a Tz must fit the H100's per-block opt-in limit (227 KiB)
+MAX_SMEM_BYTES = 232448
 
 launch_counts = {name: 0 for name in KERNELS}
 
@@ -114,10 +124,16 @@ def load() -> ctypes.CDLL:
             lib.mucon_wavenet_train_sweep.argtypes = [P] * 16 + [I] * 9 + [P]
             lib.mucon_wavenet_train_splits.argtypes = [I]
             lib.mucon_bilstm_backward.argtypes = [P] * 10 + [I] * 3 + [P]
+            lib.mucon_decoder_chain_fwd.argtypes = [P] * 16 + [I] * 5 + [P]
+            lib.mucon_decoder_chain_bwd.argtypes = [P] * 24 + [I] * 5 + [P]
+            lib.mucon_decoder_chain_smem.argtypes = [I] * 3
+            lib.mucon_flint.argtypes = [P] * 9 + [I] * 4 + [P]
             for fn in (lib.mucon_wavenet_layer, lib.mucon_bilstm_recurrence,
                        lib.mucon_dense_viterbi, lib.mucon_wavenet_train_fwd,
                        lib.mucon_wavenet_train_sweep, lib.mucon_wavenet_train_splits,
-                       lib.mucon_bilstm_backward):
+                       lib.mucon_bilstm_backward, lib.mucon_decoder_chain_fwd,
+                       lib.mucon_decoder_chain_bwd, lib.mucon_decoder_chain_smem,
+                       lib.mucon_flint):
                 fn.restype = I
             lib.mucon_cuda_error_string.argtypes = [I]
             lib.mucon_cuda_error_string.restype = ctypes.c_char_p
@@ -412,3 +428,116 @@ def dense_viterbi(W, pois, k_valid, n_valid, frame_sampling: int, max_len: int):
     )
     _check_launch(lib, err, "dense_viterbi")
     return score, best_l, bps
+
+
+def _check_chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih, whh, bl):
+    """Shapes of the decoder chain's inputs -> (device, S, B, Tz, H, E)."""
+    dev = _cuda_device(emb)
+    S, B, H = emb.shape
+    Tz, E = enc.shape[1], enc.shape[2]
+    want = dict(enc=(B, Tz, E), pre=(B, Tz, H), maskf=(B, Tz), h0=(B, H), c0=(B, H),
+                wl2=(H, H), bl2=(H,), v=(H,), wc1=(H, H), wc2=(E, H), bc=(H,),
+                wih=(H, 4 * H), whh=(H, 4 * H), bl=(4 * H,))
+    got = dict(enc=enc, pre=pre, maskf=maskf, h0=h0, c0=c0, wl2=wl2, bl2=bl2, v=v,
+               wc1=wc1, wc2=wc2, bc=bc, wih=wih, whh=whh, bl=bl)
+    for name, shape in want.items():
+        if tuple(got[name].shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(got[name].shape)}, expected {shape}")
+    if min(S, B, Tz) < 1 or max(4 * H, E) > 1024:
+        raise ValueError(f"the chain kernels take S, B, Tz >= 1 and 4H, E <= 1024; got "
+                         f"S={S} B={B} Tz={Tz} H={H} E={E}")
+    _require(dev, torch.float32, emb=emb, **got)
+    lib = load()
+    if lib.mucon_decoder_chain_smem(H, E, Tz) > MAX_SMEM_BYTES:
+        raise ValueError(f"Tz={Tz} needs {lib.mucon_decoder_chain_smem(H, E, Tz)} bytes of "
+                         f"shared memory for the score rows; the limit is {MAX_SMEM_BYTES}")
+    return dev, S, B, Tz, H, E
+
+
+def decoder_chain_forward(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih,
+                          whh, bl):
+    """The teacher-forced chain's forward (one CTA per video) ->
+    (hs, cs, comb), each [S x B x H].  Arguments as `ops/decoder_chain.py`."""
+    dev, S, B, Tz, H, E = _check_chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1,
+                                       wc2, bc, wih, whh, bl)
+    wcat = torch.cat([wc1, wc2])  # [H + E, H]: [e; ctx] times one matrix
+    wg = torch.cat([wih, whh])  # [2H, 4H]: [comb; h] times one matrix
+    hs, cs, comb = (torch.empty(S, B, H, device=dev, dtype=torch.float32) for _ in range(3))
+    lib = load()
+    err = lib.mucon_decoder_chain_fwd(
+        emb.data_ptr(), enc.data_ptr(), pre.data_ptr(), maskf.data_ptr(), h0.data_ptr(),
+        c0.data_ptr(), wl2.data_ptr(), bl2.data_ptr(), v.data_ptr(), wcat.data_ptr(),
+        bc.data_ptr(), wg.data_ptr(), bl.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+        comb.data_ptr(), S, B, Tz, H, E, _stream(dev),
+    )
+    _check_launch(lib, err, "decoder_chain_fwd")
+    return hs, cs, comb
+
+
+def decoder_chain_backward(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2, bc,
+                           wih, whh, bl, dhs, dcs, dcomb):
+    """The reverse (dh, dc) chain from the step inputs h_in / c_in and the
+    cotangents of (hs, cs, comb) -> (dgate [S x B x 4H], dcpre [S x B x H],
+    dsc [S x B x Tz], dh0 [B x H], dc0 [B x H])."""
+    dev, S, B, Tz, H, E = _check_chain(emb, enc, pre, maskf, h_in[0], c_in[0], wl2, bl2, v,
+                                       wc1, wc2, bc, wih, whh, bl)
+    for name, t in (("h_in", h_in), ("c_in", c_in), ("dhs", dhs), ("dcs", dcs),
+                    ("dcomb", dcomb)):
+        if tuple(t.shape) != (S, B, H):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(S, B, H)}")
+    _require(dev, torch.float32, h_in=h_in, c_in=c_in, dhs=dhs, dcs=dcs, dcomb=dcomb)
+    wcat = torch.cat([wc1, wc2])
+    wg = torch.cat([wih, whh])
+    # W^T copies (once per call) so that the transposed products read rows
+    wgt = wg.t().contiguous()  # [4H, 2H]
+    wc2t = wc2.t().contiguous()  # [H, E]
+    wl2t = wl2.t().contiguous()  # [H, H]
+    f32 = dict(device=dev, dtype=torch.float32)
+    dgate = torch.empty(S, B, 4 * H, **f32)
+    dcpre = torch.empty(S, B, H, **f32)
+    dsc = torch.empty(S, B, Tz, **f32)
+    dh0 = torch.empty(B, H, **f32)
+    dc0 = torch.empty(B, H, **f32)
+    lib = load()
+    err = lib.mucon_decoder_chain_bwd(
+        emb.data_ptr(), enc.data_ptr(), pre.data_ptr(), maskf.data_ptr(), h_in.data_ptr(),
+        c_in.data_ptr(), wl2.data_ptr(), bl2.data_ptr(), v.data_ptr(), wcat.data_ptr(),
+        bc.data_ptr(), wg.data_ptr(), bl.data_ptr(), wgt.data_ptr(), wc2t.data_ptr(),
+        wl2t.data_ptr(), dhs.data_ptr(), dcs.data_ptr(), dcomb.data_ptr(),
+        dgate.data_ptr(), dcpre.data_ptr(), dsc.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+        S, B, Tz, H, E, _stream(dev),
+    )
+    _check_launch(lib, err, "decoder_chain_bwd")
+    return dgate, dcpre, dsc, dh0, dc0
+
+
+def mucon_flint(scale, xloc, sdiv, seg, target, n_len, t_valid, class_weights=None):
+    """Per-video flint losses [B] of the box template from the segment
+    placement scale / xloc / sdiv [B x N] (`ops/mucon_loss.py flint_prep`),
+    the frame logits seg [B x T x M], the targets [B x N] and the lengths;
+    `class_weights` [M] or None."""
+    dev = _cuda_device(seg)
+    B, T, M = seg.shape
+    N = scale.shape[1]
+    for name, t in (("scale", scale), ("xloc", xloc), ("sdiv", sdiv), ("target", target)):
+        if tuple(t.shape) != (B, N):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(B, N)}")
+    if class_weights is not None:
+        if tuple(class_weights.shape) != (M,):
+            raise ValueError(f"class_weights must be [{M}]")
+        _require(dev, torch.float32, class_weights=class_weights)
+    _require(dev, torch.float32, scale=scale, xloc=xloc, sdiv=sdiv, seg=seg)
+    if target.device != dev:
+        raise ValueError(f"target is on {target.device}, expected {dev}")
+    tgt = target.to(torch.int32).contiguous()
+    nl = _lengths_i32(n_len, B, dev, "n_len")
+    tv = _lengths_i32(t_valid, B, dev, "t_valid")
+    out = torch.empty(B, device=dev, dtype=torch.float32)
+    lib = load()
+    err = lib.mucon_flint(
+        scale.data_ptr(), xloc.data_ptr(), sdiv.data_ptr(), seg.data_ptr(), tgt.data_ptr(),
+        nl.data_ptr(), tv.data_ptr(), _ptr(class_weights), out.data_ptr(), B, N, T, M,
+        _stream(dev),
+    )
+    _check_launch(lib, err, "mucon_flint")
+    return out

@@ -2,11 +2,14 @@
 
 One train step: the teacher-forced forward under autograd with this
 step's dropout masks, the batch loss, backward, the encoder / decoder
-gradient clip, and the optimizer update — through the hand-written
-kernels of the residual stack and the BiLSTM recurrence when the model
-lives on the card.  `train()` runs epochs over a `PaddedBatchLoader` (the
-jax-free `mucon_tpu.data`), steps the scheduler after each epoch and
-records the loss scalars every `log_every` iterations.
+gradient clip, and the optimizer update.  When the model lives on the
+card and `use_kernels` is set, the step runs every train kernel of the
+JAX package as a hand-written CUDA kernel: the residual stack and the
+BiLSTM recurrence (forward and backward), the teacher-forced decoder
+chain (forward and backward), and, with `loss_cfg["use_loss_kernel"]`,
+the fused flint loss.  `train()` runs epochs over the port's
+`PaddedBatchLoader`, steps the scheduler after each epoch and records the
+loss scalars every `log_every` iterations.
 
 Each step's masks come from a fresh `torch.Generator` on the model's
 device, seeded from (seed, iteration): two trainers with the same seed and
@@ -26,7 +29,7 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from mucon_tpu.data import PaddedBatchLoader
+from mucon_tpu_torch.data import PaddedBatchLoader
 from mucon_tpu_torch.harness.optim import (
     MultiStepScheduler,
     PlateauScheduler,

@@ -10,6 +10,13 @@ the hinge length loss over N_i steps, the mutual-consistency NLL over N_i
 segments, the smoothing MSE over (T_i - 1) * M elements — then averaged
 over the videos.  Every term is written for the whole batch at once (no
 loop over videos).  The supervised variants' terms are not ported.
+
+Routing by config, as in the JAX package (losses.py:241-266): with
+`use_loss_kernel` (the JAX `tpu.use_pallas_loss`) and the `flint` loss
+with the `box` template, the mucon term is `ops/mucon_loss.py
+mucon_flint` — kernel F on the card, its plain twin on the CPU.  Any other
+type or template takes the plain term.  The JAX package's VMEM gate has no
+counterpart: the kernel walks the frames in tiles.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch.nn.functional as F
 
 from mucon_tpu_torch.models.masks import create_masks_padded
 from mucon_tpu_torch.models.outputs import MuConForwardOut, MuConLoss
+from mucon_tpu_torch.ops.mucon_loss import absolute_lengths, mucon_flint, mucon_flint_plain
 
 # the repo's default loss options (mucon_tpu/config/defaults.py:93-117),
 # under the keys of the JAX package's `loss_static_config`
@@ -44,6 +52,7 @@ LOSS_DEFAULTS = dict(
     smoothing_clamp=True,
     smoothing_clamp_min=0,
     smoothing_clamp_max=16,
+    use_loss_kernel=False,
 )
 
 
@@ -70,6 +79,7 @@ def loss_config_from_cfg(cfg) -> dict:
         smoothing_clamp=L.smoothing.clamp,
         smoothing_clamp_min=L.smoothing.clamp_min,
         smoothing_clamp_max=L.smoothing.clamp_max,
+        use_loss_kernel=bool(getattr(cfg.tpu, "use_pallas_loss", False)),
     )
 
 
@@ -136,25 +146,19 @@ def mucon_loss(cfg, lengths_raw, segmentation, target_transcript, n_len, t_valid
     logits; "arithmetic": mask-weighted framewise CE / T_i)."""
     B, T, M = segmentation.shape
     n_max = target_transcript.shape[1]
-    dev = segmentation.device
-    seg_valid = torch.arange(n_max, device=dev)[None, :] < n_len[:, None]
-    logits = torch.where(seg_valid, lengths_raw[:, :n_max], float("-inf"))
-    abs_lengths = t_valid.float()[:, None] * torch.softmax(logits, dim=1)
-    masks = create_masks_padded(T, t_valid, abs_lengths, seg_valid,
-                                overlap=cfg["mucon_overlap"],
-                                template=cfg["mucon_template"])  # [B x N_max x T]
     weights = _class_weights(M, cfg["mucon_weight_background"],
                              cfg["mucon_weight_background_index"],
-                             cfg["mucon_weight_background_value"], dev)
-    tgt = torch.clamp(target_transcript, 0, M - 1)
-
+                             cfg["mucon_weight_background_value"], segmentation.device)
     if cfg["mucon_type"] == "flint":
-        widened = abs_lengths * (1.0 + 2.0 * cfg["mucon_overlap"])
-        safe_len = torch.where(seg_valid, torch.clamp(widened, min=1e-12), 1.0)
-        window = torch.bmm(masks, segmentation) / safe_len[:, :, None]  # [B x N x M]
-        return _nll(F.log_softmax(window, dim=2), tgt, seg_valid.float(), weights,
-                    average=True)
+        return mucon_flint_plain(lengths_raw[:, :n_max], segmentation, target_transcript,
+                                 n_len, t_valid, cfg["mucon_overlap"], weights,
+                                 cfg["mucon_template"])
     if cfg["mucon_type"] == "arithmetic":
+        abs_lengths, seg_valid = absolute_lengths(lengths_raw[:, :n_max], n_len, t_valid)
+        masks = create_masks_padded(T, t_valid, abs_lengths, seg_valid,
+                                    overlap=cfg["mucon_overlap"],
+                                    template=cfg["mucon_template"])  # [B x N_max x T]
+        tgt = torch.clamp(target_transcript, 0, M - 1)
         lp = F.log_softmax(segmentation, dim=2)  # [B x T x M]
         ce = -torch.gather(lp, 2, tgt[:, None, :].expand(B, T, n_max)).transpose(1, 2)
         if weights is not None:
@@ -170,8 +174,17 @@ def compute_loss(cfg: dict, fwd: MuConForwardOut, tf_target, transcript, transcr
     `cfg` holds the `LOSS_DEFAULTS` keys."""
     t = transcript_loss(cfg, fwd.transcript, tf_target, fwd.n_steps).mean()
     ln = length_loss(cfg["length_width"], fwd.lengths, transcript_len).mean()
-    mc = mucon_loss(cfg, fwd.lengths, fwd.segmentation, transcript, transcript_len,
-                    num_frames).mean()
+    if cfg["use_loss_kernel"] and cfg["mucon_type"] == "flint" \
+            and cfg["mucon_template"] == "box":
+        M, n_max = fwd.segmentation.shape[2], transcript.shape[1]
+        weights = _class_weights(M, cfg["mucon_weight_background"],
+                                 cfg["mucon_weight_background_index"],
+                                 cfg["mucon_weight_background_value"], transcript.device)
+        mc = mucon_flint(fwd.lengths[:, :n_max], fwd.segmentation, transcript,
+                         transcript_len, num_frames, cfg["mucon_overlap"], weights).mean()
+    else:
+        mc = mucon_loss(cfg, fwd.lengths, fwd.segmentation, transcript, transcript_len,
+                        num_frames).mean()
     sm = smoothing_loss(cfg, fwd.segmentation, num_frames).mean()
     main = (cfg["mul_transcript"] * t + cfg["mul_length"] * ln
             + cfg["mul_mucon"] * mc + cfg["mul_smoothing"] * sm)

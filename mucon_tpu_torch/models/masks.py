@@ -72,24 +72,32 @@ def _sample_template(c: torch.Tensor, template: str) -> torch.Tensor:
     return torch.where(outside, 0.0, out)
 
 
+def mask_placement(t_valid, L, seg_valid, overlap: float = 0.0):
+    """Where each segment's template lands: frame t of a video samples the
+    template at pixel (scale * g(t) + xloc + 1) * (W - 1) / 2, with g the
+    align_corners grid of [-1, 1] over the valid frames.  Returns (scale,
+    xloc, widened L) [B x N_max]: the overlap widens the lengths in place
+    in the reference, so a caller dividing by them afterwards (the flint
+    loss) divides by the widened ones — the reference's quirk."""
+    t_valid = t_valid.to(torch.float32)[:, None]  # [B x 1]
+    pis = torch.cumsum(L, dim=1) - L
+    L = L * (1.0 + 2.0 * overlap)
+    pis = pis - L * (overlap / 2.0)
+    safe_L = torch.where(seg_valid, torch.clamp(L, min=1e-6), 1.0)
+    scale = t_valid / safe_L
+    xloc = -(pis + safe_L / 2.0 - t_valid / 2.0) / (safe_L / 2.0)
+    return scale, xloc, L
+
+
 def create_masks_padded(t_pad: int, t_valid, L, seg_valid, overlap: float = 0.0,
                         template: str = "box") -> torch.Tensor:
     """Segment masks [B x N_max x t_pad] from absolute lengths L [B x N_max]
     (0 at padded segments), true frame counts t_valid [B] and the segment
     validity seg_valid [B x N_max] (bool).  Exact zeros at padded segments
     and frames; at valid positions the values of the reference's
-    create_masks(T_i, L[:N_i]).  The overlap widens L in place, so a
-    caller dividing by the lengths afterwards (the flint loss) divides by
-    the widened ones — the reference's quirk."""
+    create_masks(T_i, L[:N_i]), placed by `mask_placement`."""
+    s, x, _ = mask_placement(t_valid, L, seg_valid, overlap)
     t_valid = t_valid.to(torch.float32)[:, None]  # [B x 1]
-    pis = torch.cumsum(L, dim=1) - L
-    L = L * (1.0 + 2.0 * overlap)
-    pis = pis - L * (overlap / 2.0)
-
-    safe_L = torch.where(seg_valid, torch.clamp(L, min=1e-6), 1.0)
-    s = t_valid / safe_L
-    x = -(pis + safe_L / 2.0 - t_valid / 2.0) / (safe_L / 2.0)
-
     t_ids = torch.arange(t_pad, dtype=torch.float32, device=L.device)
     # align_corners=True output grid over the valid extent
     g = -1.0 + 2.0 * t_ids[None, :] / torch.clamp(t_valid - 1.0, min=1.0)  # [B x T]

@@ -10,10 +10,12 @@ seeded `torch.Generator`, or loaded from a JAX parameter tree through
   hand-written kernels.
 * `forward(arrays, train=True, generator=g)` is the teacher-forced train
   forward under autograd, with dropout masks drawn from `g`: on a CUDA
-  device the residual stack and the BiLSTM recurrence run forward and
-  backward as hand-written kernels; the decoder runs as plain PyTorch (the
-  JAX package's `tpu.use_pallas_decoder=False`).
-* `loss(fwd, arrays)` is the batch objective (`models/losses.py`).
+  device the residual stack, the BiLSTM recurrence and the teacher-forced
+  decoder chain run forward and backward as hand-written kernels (the
+  JAX package with every `tpu.use_pallas*` train flag on).
+* `loss(fwd, arrays)` is the batch objective (`models/losses.py`); with
+  `loss_cfg["use_loss_kernel"]` (the JAX `tpu.use_pallas_loss`) its flint
+  term runs as the fused kernel of `ops/mucon_loss.py` on the card.
 
 `use_kernels=False` runs the plain PyTorch versions instead of the kernels.
 """
@@ -151,12 +153,13 @@ def create_model(
     max_decoding_steps: int,
     input_feature_size: int,
     *,
-    device="cpu",
+    device="cuda",
     seed: int = 0,
     loss_cfg: Optional[dict] = None,
     **fields,
 ) -> MuConModel:
-    """Build a MuConModel on `device` with weights drawn from
+    """Build a MuConModel on `device` (the card unless the caller asks
+    for the CPU) with weights drawn from
     `torch.Generator().manual_seed(seed)`; `fields` go to `build_model`,
     `loss_cfg` overrides `LOSS_DEFAULTS`."""
     device = resolve_device(device)
@@ -197,7 +200,7 @@ def model_fields_from_cfg(cfg) -> dict:
 
 
 def batch_to_tensors(batch, device) -> dict:
-    """Tensor view of a `mucon_tpu.data.PaddedBatch` on `device` (the
+    """Tensor view of a `data.PaddedBatch` on `device` (the
     keys the forward and the loss read; lengths and ids as int64)."""
     device = resolve_device(device)
     ids = lambda a: torch.as_tensor(a).to(device, torch.int64)  # noqa: E731

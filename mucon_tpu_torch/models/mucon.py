@@ -5,9 +5,10 @@
 * fs: BiLSTM encoder, its final (h, c) projected to the decoder init,
   additive attention tanh(z W1 + l2(h)) . V, and a loop of `DecoderCell`
   steps: eval decodes freely and stops once every video has emitted EOS;
-  train is teacher-forced over all S steps (the JAX package's nn.scan
-  branch, `tpu.use_pallas_decoder=False`), with the embedding dropout
-  mask drawn for the whole [S x B x H] trajectory;
+  train is teacher-forced over all S steps through the decoder chain
+  (`ops/decoder_chain.py decoder_teacher_forced`, the JAX package's
+  `tpu.use_pallas_decoder` route), with the embedding dropout mask drawn
+  for the whole [S x B x H] trajectory;
 * fc: 1x1 conv head at Tz, then the per-video nearest upsample to T.
 
 Submodule and parameter names are the flax ones, so a JAX parameter tree
@@ -35,6 +36,7 @@ from mucon_tpu_torch.models.layers import (
 from mucon_tpu_torch.models.lstm import LSTMCellParams, MaskedBiLSTM
 from mucon_tpu_torch.models.outputs import MuConForwardOut
 from mucon_tpu_torch.models.temporal import Conv1x1, WaveNetBlock
+from mucon_tpu_torch.ops.decoder_chain import decoder_teacher_forced
 
 # nn.Linear with torch default init and a [in, out] kernel: the same
 # module as the pointwise conv (mucon.py:63 / temporal.py:48)
@@ -92,9 +94,11 @@ class Embed(nn.Module):
 
 
 class DecoderCell(nn.Module):
-    """One decode step (mucon.py:93-156): embed -> ReLU -> (dropout mask)
-    -> additive attention over the encoder states -> attn-combine -> LSTM
-    cell -> transcript and length heads -> log-softmax and argmax over M+1."""
+    """One free-decoding step (mucon.py:93-156): embed -> ReLU -> additive
+    attention over the encoder states -> attn-combine -> LSTM cell ->
+    transcript and length heads -> log-softmax and argmax over M+1.  The
+    teacher-forced train decode runs the same weights through
+    `ops/decoder_chain.py` instead."""
 
     def __init__(self, hidden: int, enc_out_dim: int, num_classes: int):
         super().__init__()
@@ -112,10 +116,8 @@ class DecoderCell(nn.Module):
     def reset_parameters(self, generator: torch.Generator):
         scaled_normal_init_(self.attention_V, self.attention_V.shape[0], generator)
 
-    def forward(self, h, c, token, enc_out, attn_pre, tz_mask, emb_mask=None):
+    def forward(self, h, c, token, enc_out, attn_pre, tz_mask):
         emb = torch.relu(self.embedding(token))
-        if emb_mask is not None:
-            emb = emb * emb_mask
         q = self.attention_l2(h)
         u = torch.tanh(attn_pre + q[:, None, :])  # [B x Tz x H]
         scores = torch.where(tz_mask > 0, u @ self.attention_V, float("-inf"))
@@ -216,23 +218,19 @@ class MuConNet(nn.Module):
         segmentation = interpolate_nearest_time(seg_z, tz_len, T, num_frames)
 
         if train:
-            # teacher-forced decode over all S steps (mucon.py:373-388); the
-            # loss reads the first N_i + 1 (mucon.py:417-418)
-            emb_masks = masks.embedding if masks is not None else None
-            lps, lns, toks = [], [], []
-            for step in range(S):
-                h, c, tok, lp, ln = self.decoder(
-                    h, c, tf_input[:, step], enc_out, attn_pre, tz_mask,
-                    None if emb_masks is None else emb_masks[step],
-                )
-                lps.append(lp)
-                lns.append(ln)
-                toks.append(tok)
+            # teacher-forced decode over all S steps (model.py:251-269): the
+            # embedding, ReLU and dropout upstream of the chain, the heads
+            # after it; the loss reads the first N_i + 1 steps (mucon.py:417-418)
+            emb = torch.relu(self.decoder.embedding(tf_input[:, :S].t()))  # [S x B x H]
+            if masks is not None and masks.embedding is not None:
+                emb = emb * masks.embedding
+            lps, lns, toks = decoder_teacher_forced(self.decoder, emb, enc_out, attn_pre,
+                                                    tz_mask, h, c, use_kernel=use_kernels)
             return MuConForwardOut(
-                transcript=torch.stack(lps, dim=1),
-                lengths=torch.stack(lns, dim=1),
+                transcript=lps.transpose(0, 1),
+                lengths=lns.transpose(0, 1),
                 segmentation=segmentation,
-                tokens=torch.stack(toks, dim=1),
+                tokens=toks.transpose(0, 1),
                 n_steps=transcript_len + 1,
                 tz_lengths=tz_len,
                 segmentation_z=seg_z,

@@ -22,9 +22,15 @@ from typing import List
 import numpy as np
 import torch
 
-from mucon_tpu.decode.viterbi_host import Segment
-
 NEG = -1e30  # -inf stand-in that survives f32 arithmetic
+
+
+@dataclass
+class Segment:
+    """One decoded segment (mucon_tpu/decode/viterbi_host.py:39)."""
+
+    label: int
+    length: int
 
 
 @dataclass

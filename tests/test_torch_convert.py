@@ -34,7 +34,7 @@ def test_jax_params_round_trip_exactly():
     jm = create_jax_model(cfg, num_classes=M, max_decoding_steps=NMAX + 1,
                           input_feature_size=D)
     params = jax.device_get(jm.init_params(jax.random.PRNGKey(0)))
-    tm = create_model(M, NMAX + 1, D, **model_fields_from_cfg(cfg))
+    tm = create_model(M, NMAX + 1, D, device="cpu", **model_fields_from_cfg(cfg))
     tm.load_jax_params(params)  # strict: same key set, same shapes
     sd = tm.net.state_dict()
     assert "ft.WaveNetLayer_2.DilatedConv3_0.kernel" in sd
@@ -53,10 +53,11 @@ def test_port_imports_no_jax_or_flax():
         "for m in pkgutil.walk_packages(mucon_tpu_torch.__path__, 'mucon_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'mucon_tpu')]\n"
         "assert not bad, bad\n"
         "for m in ('cli.predict', 'harness.trainer', 'harness.optim', 'models.losses',\n"
-        "          'models.masks', 'ops.wavenet_stack_train'):\n"
+        "          'models.masks', 'ops.wavenet_stack_train', 'ops.decoder_chain',\n"
+        "          'ops.mucon_loss', 'data.batching'):\n"
         "    assert 'mucon_tpu_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
@@ -122,3 +123,27 @@ def test_train_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA kernel"):
         cuda.wavenet_train_forward(x, torch.tensor([32]), *([x] * 6), None, stages=(1,),
                                    pooling_layers=(), pooling_type="max", leaky=False)
+
+
+def test_create_model_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_model(M, NMAX + 1, D, **model_fields_from_cfg(small_cfg()))
+
+
+def test_decoder_and_loss_kernel_wrappers_refuse_cpu_tensors():
+    S, B, Tz, H = 2, 1, 3, 8
+    z = torch.zeros
+    chain = (z(S, B, H), z(B, Tz, 2 * H), z(B, Tz, H), torch.ones(B, Tz), z(B, H), z(B, H),
+             z(H, H), z(H), z(H), z(H, H), z(2 * H, H), z(H), z(H, 4 * H), z(H, 4 * H),
+             z(4 * H))
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        cuda.decoder_chain_forward(*chain)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        cuda.decoder_chain_backward(*chain[:4], z(S, B, H), z(S, B, H), *chain[6:],
+                                    *(z(S, B, H),) * 3)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        cuda.mucon_flint(z(B, 4), z(B, 4), torch.ones(B, 4), z(B, 16, 5),
+                         torch.zeros(B, 4, dtype=torch.long), torch.tensor([2]),
+                         torch.tensor([16]))

@@ -1,7 +1,8 @@
 """PyTorch port: the CUDA kernels against their plain twins on the card, at
 small and ragged shapes the serving and train paths do not reach (tile
 remainders, dilations past the sequence, sum pooling, leaky ReLU, B = 1,
-T = 1, fully masked videos, K = 1, infeasible DPs).  Needs a CUDA device and
+T = 1, fully masked videos, K = 1, infeasible DPs, a decoder chain of one
+step, one video, one frame or a thousand, one segment of the flint loss).  Needs a CUDA device and
 nvcc; skips without them.  Imports no jax, so it runs on the card:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -15,11 +16,17 @@ from mucon_tpu_torch import cuda
 from mucon_tpu_torch.models.layers import dropout_mask, mask_time
 from mucon_tpu_torch.models.model import batch_to_tensors, create_model
 from mucon_tpu_torch.models.temporal import WaveNetBlock
+from mucon_tpu_torch.ops.decoder_chain import (
+    DecoderChain,
+    decoder_chain_bwd_plain,
+    decoder_chain_plain,
+)
 from mucon_tpu_torch.ops.lstm_recurrence import (
     BiLSTMRecurrenceTrain,
     bilstm_recurrence,
     bilstm_recurrence_plain,
 )
+from mucon_tpu_torch.ops.mucon_loss import flint_prep, mucon_flint_plain
 from mucon_tpu_torch.ops.viterbi import NEG, dense_viterbi_plain
 from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi
 from mucon_tpu_torch.ops.wavenet_stack import (
@@ -32,6 +39,8 @@ from mucon_tpu_torch.ops.wavenet_stack_train import (
     wavenet_stack_train,
     wavenet_stack_train_plain,
 )
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture(scope="module")
@@ -227,7 +236,7 @@ def test_model_train_step_kernels_match_plain(dev):
     for use_kernels in (True, False):
         model = create_model(6, 9, 24, device=dev, seed=2, stages=(1, 2, 4, 8, 512),
                              pooling_layers=(1, 2), last_gn_num_groups=8,
-                             lstm_hidden_size=32)
+                             lstm_hidden_size=32, loss_cfg={"use_loss_kernel": use_kernels})
         gen = torch.Generator(device=dev).manual_seed(5)
         cuda.reset_launch_counts()
         fwd = model.forward(arrays, use_kernels=use_kernels, train=True, generator=gen)
@@ -238,6 +247,8 @@ def test_model_train_step_kernels_match_plain(dev):
     assert counts[False] == {k: 0 for k in cuda.KERNELS}  # the plain path launches nothing
     assert counts[True]["wavenet_train_fwd"] == 5 and counts[True]["wavenet_train_sweep"] == 6
     assert counts[True]["bilstm_train_fwd"] == 1 and counts[True]["bilstm_train_bwd"] == 1
+    assert counts[True]["decoder_chain_fwd"] == 1 and counts[True]["decoder_chain_bwd"] == 1
+    assert counts[True]["mucon_flint"] == 1
     (lk, gk), (lp, gp) = grads[True], grads[False]
     assert abs(lk.item() - lp.item()) <= 1e-4 * abs(lp.item())
     # the length head's bias shifts every step's length logit alike, which
@@ -250,3 +261,54 @@ def test_model_train_step_kernels_match_plain(dev):
             assert gk[n] is None, n
             continue
         _grads_close([gk[n]], [gp[n]], atol=floor)
+
+
+# S = 1, B = 1, Tz = 1; a video with one valid frame and H = 32 (E = 64, 128
+# threads); Tz = 1000, a score row many times the block's warps
+@pytest.mark.parametrize("S,H,tz,Tz", [(1, 128, (1,), 1), (5, 32, (37, 1, 20), 37),
+                                       (3, 128, (1000, 517), 1000)])
+def test_decoder_chain_kernels_edges(dev, S, H, tz, Tz):
+    g = torch.Generator().manual_seed(6)
+    B, E = len(tz), 2 * H
+    r = lambda *shape: (0.4 * torch.randn(*shape, generator=g)).to(dev)  # noqa: E731
+    maskf = (torch.arange(Tz)[None, :] < torch.tensor(tz)[:, None]).float().to(dev)
+    args = [torch.relu(r(S, B, H)), r(B, Tz, E) * maskf[:, :, None], r(B, Tz, H), maskf,
+            r(B, H), r(B, H), r(H, H), r(H), r(H), r(H, H), r(E, H), r(H), r(H, 4 * H),
+            r(H, 4 * H), r(4 * H)]
+    before = dict(cuda.launch_counts)
+    with torch.no_grad():
+        outk = cuda.decoder_chain_forward(*args)
+        _close(outk, decoder_chain_plain(*args), 1e-4)
+    cts = [r(S, B, H) for _ in range(3)]
+
+    def run(fn):
+        xs = [t.clone().requires_grad_(i != 3) for i, t in enumerate(args)]  # not maskf
+        torch.autograd.backward(fn(*xs), cts)
+        return [t.grad for i, t in enumerate(xs) if i != 3]
+
+    _grads_close(run(DecoderChain.apply), run(decoder_chain_plain))
+    h_in = torch.cat([args[4][None], outk[0][:-1]])
+    c_in = torch.cat([args[5][None], outk[1][:-1]])
+    bargs = (*args[:4], h_in, c_in, *args[6:], *cts)
+    with torch.no_grad():
+        _close(cuda.decoder_chain_backward(*bargs), decoder_chain_bwd_plain(*bargs), 1e-4)
+    assert cuda.launch_counts["decoder_chain_fwd"] == before["decoder_chain_fwd"] + 2
+    assert cuda.launch_counts["decoder_chain_bwd"] == before["decoder_chain_bwd"] + 2
+
+
+# one segment; a video of one frame; T = 200, not a multiple of the 64-frame tile
+@pytest.mark.parametrize("N,T,n_len,t_valid", [(1, 64, (1, 1), (64, 1)),
+                                               (12, 200, (12, 3, 1), (200, 65, 2))])
+def test_flint_kernel_edges(dev, N, T, n_len, t_valid):
+    g = torch.Generator().manual_seed(7)
+    B, M = len(n_len), 5
+    lr = (1.5 * torch.randn(B, N, generator=g)).to(dev)
+    seg = (2.0 * torch.randn(B, T, M, generator=g)).to(dev)
+    tgt = torch.randint(0, M, (B, N), generator=g).to(dev)
+    nl, tv = torch.tensor(n_len, device=dev), torch.tensor(t_valid, device=dev)
+    cw = torch.tensor([0.5, 1.0, 1.0, 2.0, 1.0], device=dev)
+    for w in (None, cw):
+        for overlap in (0.0, 0.25):
+            prep = flint_prep(lr, nl, tv, overlap)
+            _close([cuda.mucon_flint(*prep, seg, tgt, nl, tv, w)],
+                   [mucon_flint_plain(lr, seg, tgt, nl, tv, overlap, w)], 1e-4)

@@ -46,7 +46,7 @@ def slice_setup():
     jm = create_jax_model(cfg, num_classes=M, max_decoding_steps=NMAX + 1,
                           input_feature_size=D)
     params = jm.init_params(jax.random.PRNGKey(4), batch)
-    tm = create_model(M, NMAX + 1, D, **model_fields_from_cfg(cfg))
+    tm = create_model(M, NMAX + 1, D, device="cpu", **model_fields_from_cfg(cfg))
     tm.load_jax_params(jax.device_get(params))
     return cfg, samples, batch, jm, params, tm
 

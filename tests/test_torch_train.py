@@ -6,8 +6,12 @@ decay) against the JAX step's math (mucon_tpu/harness/trainer.py:397-409:
 `jax.grad` of the loss, the optax chain of `create_optimizer`) from the
 same weights and batch, with every dropout rate at 0 so that both sides
 compute the same function.  On CPU tensors the port runs the plain twins
-of its kernels; JAX runs its XLA path.  Also one epoch of
-`SimpleTrainer.train()` on a synthetic dataset.
+of its kernels (the decoder through `DecoderChain`, its backward glue
+included); JAX runs its XLA path, and in a second case the slice as a
+whole: its fused decoder chain and flint loss kernels in interpret mode
+(`tpu.use_pallas_decoder`, `tpu.use_pallas_loss`) against the port's
+`use_loss_kernel` route.  Also one epoch of `SimpleTrainer.train()` on a
+synthetic dataset.
 """
 
 import jax
@@ -93,14 +97,13 @@ def _jax_trajectory(cfg, jm, params, batch):
 
 
 def _port_trainer(cfg, params, seed=1):
-    tm = create_model(M, NMAX + 1, D, **model_fields_from_cfg(cfg),
+    tm = create_model(M, NMAX + 1, D, device="cpu", **model_fields_from_cfg(cfg),
                       loss_cfg=loss_config_from_cfg(cfg))
     tm.load_jax_params(params)
     return SimpleTrainer(None, tm, train_config_from_cfg(cfg), seed=seed)
 
 
-def test_train_step_trajectory_matches_jax(setup):
-    cfg, jm, params, batch = setup
+def _check_trajectory(cfg, jm, params, batch):
     ref_losses, ref_params = _jax_trajectory(cfg, jm, params, batch)
 
     trainer = _port_trainer(cfg, params)
@@ -118,11 +121,29 @@ def test_train_step_trajectory_matches_jax(setup):
         np.testing.assert_allclose(b[k], a[k], **TOL, err_msg=k)
 
 
+def test_train_step_trajectory_matches_jax(setup):
+    cfg, jm, params, batch = setup
+    _check_trajectory(cfg, jm, params, batch)
+
+
+def test_train_step_trajectory_matches_jax_kernel_route(setup):
+    """JAX with the fused decoder chain and flint loss (interpret mode);
+    the port with `use_loss_kernel` (routed from `tpu.use_pallas_loss`)."""
+    cfg, _, params, batch = setup
+    cfg = _cfg(0.0)
+    cfg.tpu.use_pallas_decoder = True
+    cfg.tpu.use_pallas_loss = True
+    assert loss_config_from_cfg(cfg)["use_loss_kernel"]
+    jm = create_jax_model(cfg, num_classes=M, max_decoding_steps=NMAX + 1,
+                          input_feature_size=D)
+    _check_trajectory(cfg, jm, params, batch)
+
+
 def test_state_dict_tree_feeds_the_jax_optimizer(setup):
     """The port's weights, brought back through the bridge, are a tree of
     the JAX parameters' structure that the JAX optimizer chain updates."""
     cfg, jm, params, batch = setup
-    tm = create_model(M, NMAX + 1, D, **model_fields_from_cfg(cfg))
+    tm = create_model(M, NMAX + 1, D, device="cpu", **model_fields_from_cfg(cfg))
     tree = state_dict_to_params(tm.net.state_dict())
     assert jax.tree.structure(tree) == jax.tree.structure(jax.device_get(params))
     tx = create_jax_optimizer(cfg, jm.param_partition(tree))
@@ -169,7 +190,7 @@ def test_train_one_epoch_on_synthetic_data(tmp_path):
     syn.num_videos, syn.num_classes, syn.feat_dim = 8, M, D
     syn.min_len, syn.max_len = 40, 90
     db = create_synthetic_dataset(cfg, train=True)
-    tm = create_model(db.num_actions, db.max_transcript_length + 1, D,
+    tm = create_model(db.num_actions, db.max_transcript_length + 1, D, device="cpu",
                       **model_fields_from_cfg(cfg), loss_cfg=loss_config_from_cfg(cfg))
     config = TrainConfig(num_epochs=1, batch_size=3, pad_multiple=16, log_every=1)
     trainer = SimpleTrainer(db, tm, config, seed=0)
