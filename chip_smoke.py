@@ -11,22 +11,28 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    process per source, all at once);
 3. checks each serving kernel against its plain PyTorch twin at the default model's
    full width (B=128, T=2560, C=128, 11 layers; Tz=160, H=128; K=85, N=30,
-   L=66) and times both with CUDA events;
+   L=66), the WaveNet stack and the MS-TCN++ stage (`ft_type="mstcnpp"`,
+   the same widths) both, and times both with CUDA events;
 4. serves two requests through `predict_videos` (the bench eval batch of 128
    videos of 1500-2100 frames, and 3 videos of 517/1203/2100 frames) with
-   the kernels and with the plain path, checks that the kernels were
-   launched and that both paths agree, and times both;
+   the kernels and with the plain path, for the WaveNet model and for the
+   MS-TCN++ model, checks that each path launched its kernels (and not the
+   other backbone's) and that both paths agree, and times both;
 5. trains: checks the seven train kernels (the WaveNet stack's forward and
    backward sweep, the BiLSTM recurrence with its cell stash and its
    reverse chain, the teacher-forced decoder chain's forward and reverse
    chain, the fused flint loss) against their plain twins at the default
    model's width (B=8, T=2560, dropout 0.25; the decoder chain also at
-   B=2, Tz=640), takes three `SimpleTrainer.train_step`s with the kernels
-   and the loss kernel (twice) and three with the plain twins and the plain
-   loss from the same weights, masks and batch (8 videos of 1500-2100
-   frames), checks that the train kernels were launched, that the kernel
-   path repeats bit for bit and that both paths agree, and times the step
-   and its stages;
+   B=2, Tz=640), and the v2 trainable stack's two kernels (three chunks)
+   against the plain twin and the v3 kernels with dropout 0.25 and 0;
+   takes three `SimpleTrainer.train_step`s with the kernels and the loss
+   kernel (twice) and three with the plain twins and the plain loss from
+   the same weights, masks and batch (8 videos of 1500-2100 frames), checks
+   that the train kernels were launched, that the kernel path repeats bit
+   for bit and that both paths agree, and times the step and its stages;
+   then the same three steps for the MS-TCN++ model (its stage's dropout
+   0.5, the others 0.25), whose stage trains as plain PyTorch: the BiLSTM,
+   decoder-chain and flint kernels must launch and no stack kernel;
 6. prints the kernel report JSON (each kernel's launches, error, time, the
    plain twin's time, the least time the card could take for the same work
    and, where one PyTorch call computes the same function, that call's
@@ -72,13 +78,25 @@ REPLACES = {
                           "mucon_tpu/ops/decoder_pallas.py:298"),
     "mucon_flint": ("mucon_tpu_torch/csrc/mucon_loss.cu",
                     "mucon_tpu/ops/mucon_loss_pallas.py:177"),
+    "mstcnpp_stack": ("mucon_tpu_torch/csrc/mstcnpp.cu",
+                      "mucon_tpu/ops/mstcnpp_pallas.py:151"),
+    "wavenet_train_v2_fwd": ("mucon_tpu_torch/csrc/wavenet_train_v2.cu",
+                             "mucon_tpu/ops/wavenet_train_pallas_v2.py:430"),
+    "wavenet_train_v2_sweep": ("mucon_tpu_torch/csrc/wavenet_train_v2.cu",
+                               "mucon_tpu/ops/wavenet_train_pallas_v2.py:557"),
 }
 SERVING_KERNELS = ("wavenet_layer", "bilstm_recurrence", "dense_viterbi")
+MSTCNPP_SERVING_KERNELS = ("mstcnpp_stack", "bilstm_recurrence", "dense_viterbi")
 # the train path: the stack's out-projection is a `wavenet_layer` launch
 TRAIN_KERNELS = ("wavenet_layer", "wavenet_train_fwd", "wavenet_train_sweep",
                  "bilstm_train_fwd", "bilstm_train_bwd", "decoder_chain_fwd",
                  "decoder_chain_bwd", "mucon_flint")
-TRAIN_B, TRAIN_STEPS, DROP = 8, 3, 0.25
+# the MS-TCN++ train step: its stage trains as plain PyTorch, as in the JAX package
+MSTCNPP_TRAIN_KERNELS = ("bilstm_train_fwd", "bilstm_train_bwd", "decoder_chain_fwd",
+                         "decoder_chain_bwd", "mucon_flint")
+STACK_KERNELS = ("wavenet_layer", "wavenet_train_fwd", "wavenet_train_sweep",
+                 "wavenet_train_v2_fwd", "wavenet_train_v2_sweep", "mstcnpp_stack")
+TRAIN_B, TRAIN_STEPS, MSTCNPP_STEPS, DROP = 8, 3, 3, 0.25
 # Forward outputs: max abs err <= FWD_BOUND * max|plain|.  Gradients:
 # relative L2 err <= GRAD_BOUND and max abs err <= GRAD_MAX_BOUND *
 # max|plain|.  The max-abs bound is the looser one: where a ReLU input lies
@@ -213,6 +231,37 @@ def check_wavenet(model, gen, dev):
                   8 * C * C * sum(rows) + 2 * C * C * rows_fin)
 
 
+def check_mstcnpp(model, gen, dev):
+    """Kernel M: the MS-TCN++ stage after its in-projection, against its
+    plain twin at full width."""
+    import torch
+    from mucon_tpu_torch.models.layers import mask_time
+    from mucon_tpu_torch.ops.mstcnpp_stack import (
+        mstcnpp_stack, mstcnpp_stack_plain, pack_mstcnpp_params,
+    )
+
+    ft = model.net.ft
+    B, T, C, L = 128, 2560, ft.Conv1x1_0.kernel.shape[1], ft.num_layers
+    lengths = torch.randint(1500, 2101, (B,), generator=gen).to(dev)
+    x = (torch.randn(B, T, C, generator=gen) * 0.6).to(dev)  # no ReLU after the in-projection
+    args = (mask_time(x, lengths), lengths, *pack_mstcnpp_params(ft))
+    kw = dict(pooling_layers=ft.pooling_layers)
+    zk, tk = mstcnpp_stack(*args, **kw)
+    zp, tp = mstcnpp_stack_plain(*args, **kw)
+    err = (zk - zp).abs().max().item()
+    bound = 1e-4 * zp.abs().max().item()
+    if not torch.equal(tk, tp) or not err <= bound:
+        raise AssertionError(f"mstcnpp_stack: max abs err {err} > {bound}")
+    ms, plain_ms = paired_ms(lambda: mstcnpp_stack(*args, **kw),
+                             lambda: mstcnpp_stack_plain(*args, **kw), reps=5)
+    say(f"kernel mstcnpp_stack B={B} T={T} C={C} L={L}: max abs err {err:.3e} <= "
+        f"{bound:.3e} (1e-4 * max|plain|); {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    rows, rows_fin = stack_rows(range(L), ft.pooling_layers, lengths)
+    # 12 launches: per valid row two k=3 convs and a 2C -> C 1x1, then the out-projection
+    return report(err, ms, plain_ms, 4 * C * (rows[0] + rows_fin) + nbytes(*args[1:]),
+                  16 * C * C * sum(rows) + 2 * C * C * rows_fin)
+
+
 def check_bilstm(model, gen, dev):
     import torch
     from mucon_tpu_torch.ops.lstm_recurrence import (
@@ -313,11 +362,23 @@ def path_score(W, pois, pos, kv: int, n_valid: int) -> float:
     return float(f(s + f(pois[n, run - 1])))
 
 
+def normaliser_step_margin(lam) -> float:
+    """Relative distance of the Poisson means to the steps of the
+    reference's normaliser (`ops/viterbi.py _poisson_rows`: floor(lam)
+    steps at integers, round(lam) at halves), where one ulp of lam moves
+    the whole row of the Viterbi length table."""
+    lam = np.asarray(lam, np.float64)
+    d = np.minimum(np.abs(lam - np.round(lam)), np.abs(lam - np.floor(lam) - 0.5))
+    return float((d / lam).min())
+
+
 def compare_request(tag, model, arrays, outk, outp, predk, predp):
     """Kernel vs plain on one request: integer outputs equal, vit_score
     within rel 1e-4; a mismatch passes only at a plain-path near tie (top-two
-    margin <= TIE for an argmax, or a Viterbi path whose plain-table score is
-    within TIE * |score| of the best).  Returns the list of mismatches."""
+    margin <= TIE for an argmax, a Viterbi path whose plain-table score is
+    within TIE * |score| of the best, or a score whose Poisson means lie
+    within TIE (relative) of a step of the normaliser).  Returns the list
+    of mismatches."""
     from mucon_tpu_torch.ops.eval_fused import eval_tables
     from mucon_tpu_torch.ops.viterbi import NEG
 
@@ -363,7 +424,11 @@ def compare_request(tag, model, arrays, outk, outp, predk, predp):
             raise AssertionError(f"{tag} video {b}: predicted transcript differs")
         sk, sp = float(outk["vit_score"][b]), float(outp["vit_score"][b])
         if not abs(sk - sp) <= 1e-4 * abs(sp):
-            raise AssertionError(f"{tag} video {b}: vit_score {sk} vs {sp}")
+            tb = plain_tables()[1]
+            lam = tb.lam[b, tb.trs[b, :int(outp["n_dec"][b])]].cpu()
+            allow(f"vit_score ({sk} vs {sp}) at a Poisson normaliser step", b,
+                  normaliser_step_margin(lam), TIE)
+            continue
         if not np.array_equal(outk["vit_pos"][b], outp["vit_pos"][b]):
             tb = plain_tables()[1]
             kv = int(outp["vit_k_valid"][b])
@@ -399,7 +464,10 @@ def check_outputs(tag, out, preds, lengths):
                f"{tag} {b}: Viterbi labels outside the transcript")
 
 
-def serve(model, dev, rng, card: str):
+def serve(tag, model, dev, rng, card: str, required, absent=()):
+    """Requests A and B through `predict_videos` and the fused eval, with
+    the kernels and plain: the kernels in `required` must launch on the
+    kernel path, those in `absent` must not.  Returns the launch counts."""
     from mucon_tpu_torch import cuda
     from mucon_tpu_torch.cli.predict import collate_videos, predict_videos
     from mucon_tpu_torch.models.model import batch_to_tensors
@@ -422,10 +490,14 @@ def serve(model, dev, rng, card: str):
     cuda.reset_launch_counts()
     pred_k = {k: predict(k, True) for k in requests}
     launches = dict(cuda.launch_counts)
-    say(f"launches on the serving path: {launches}")
-    missing = [name for name in SERVING_KERNELS if launches[name] == 0]
+    say(f"launches on the {tag} serving path: {launches}")
+    missing = [name for name in required if launches[name] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the serving path: {missing}")
+        raise AssertionError(f"kernels never launched on the {tag} serving path: {missing}")
+    stray = [name for name in absent if launches[name]]
+    if stray:
+        raise AssertionError(f"kernels of another backbone launched on the {tag} serving "
+                             f"path: {stray}")
     pred_p = {k: predict(k, False) for k in requests}
 
     run_k = build_fused_eval(model, frame_sampling=FRAME_SAMPLING, use_kernels=True)
@@ -435,20 +507,20 @@ def serve(model, dev, rng, card: str):
         outk, outp = run_k(arrays), run_p(arrays)
         check_outputs(k, outk, pred_k[k], requests[k])
         check_outputs(k, outp, pred_p[k], requests[k])
-        mism = compare_request(k, model, arrays, outk, outp, pred_k[k], pred_p[k])
+        mism = compare_request(f"{tag} {k}", model, arrays, outk, outp, pred_k[k], pred_p[k])
         for line in mism:
             say(f"near-tie mismatch (allowed): {line}")
         B = len(requests[k])
         no_eos = int((outk["n_steps"] == N_MAX + 1).sum())
-        say(f"request {k}: B={B} T_pad={arrays['feats'].shape[1]} kernel == plain "
+        say(f"{tag} request {k}: B={B} T_pad={arrays['feats'].shape[1]} kernel == plain "
             f"({len(mism)} near-tie mismatches); {no_eos}/{B} videos decoded all "
             f"{N_MAX + 1} steps without EOS")
         ms, plain_ms = paired_ms(lambda: run_k(arrays), lambda: run_p(arrays), reps=3)
-        say(f"request {k} fused eval (device-resident features): kernels {ms:.2f} "
+        say(f"{tag} request {k} fused eval (device-resident features): kernels {ms:.2f} "
             f"ms/batch = {1000 * B / ms:.1f} videos/s; plain {plain_ms:.2f} ms/batch "
             f"= {1000 * B / plain_ms:.1f} videos/s [{card}]")
         pk, pp = paired_ms(lambda: predict(k, True), lambda: predict(k, False), reps=1)
-        say(f"request {k} predict_videos (host features in, labels out): kernels "
+        say(f"{tag} request {k} predict_videos (host features in, labels out): kernels "
             f"{pk:.1f} ms/batch = {1000 * B / pk:.1f} videos/s; plain {pp:.1f} "
             f"ms/batch = {1000 * B / pp:.1f} videos/s [{card}]")
         del arrays
@@ -566,6 +638,118 @@ def check_wavenet_train(model, arrays, gen, dev):
                                         8 * C * C * sum(rows) + 2 * C * C * rows_fin),
             "wavenet_train_sweep": report(bwd_err, *bwd_ms, bwd_moved + 2 * nbytes(*weights),
                                           16 * C * C * sum(rows) + 4 * C * C * rows_fin)}
+
+
+def check_wavenet_train_v2(model, arrays, gen, dev):
+    """Kernels V-fwd and V-sweep: the v2 stack (max pooling) at the train
+    batch, with dropout DROP and with none.  Its path is one differentiable
+    call, forward and backward, with the counts reset just before; then its
+    forward and every gradient are held against the plain twin and against
+    the v3 kernels, and a second call must repeat the first bit for bit.
+    Returns (report lines, launches of the dropout run)."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.models.layers import dropout_mask, mask_time
+    from mucon_tpu_torch.ops.wavenet_stack import pack_wavenet_params
+    from mucon_tpu_torch.ops.wavenet_stack_train import (
+        stack_plan, wavenet_stack_train, wavenet_stack_train_plain,
+    )
+    from mucon_tpu_torch.ops.wavenet_stack_train_v2 import (
+        chunk_bounds, wavenet_stack_train_v2,
+    )
+
+    ft = model.net.ft
+    lengths = arrays["num_frames"]
+    with torch.no_grad():
+        x = ft.in_projection(arrays["feats"], lengths)
+    B, T, C = x.shape
+    L = len(ft.stages)
+    kw = dict(stages=ft.stages, pooling_layers=ft.pooling_layers, leaky=ft.leaky)
+    t_ins, _, _, t_fin = stack_plan(ft.stages, ft.pooling_layers, T)
+    g = torch.randn(B, t_fin, C, generator=gen).to(dev)
+    weights = [w.detach().clone() for w in pack_wavenet_params(ft)]
+    names = ("dx", "dw3", "db3", "dw1", "db1", "dw_last", "db_last")
+    mgen = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for drop in (DROP, 0.0):
+        masks = None if drop == 0.0 else [dropout_mask(mgen, drop, (B, t, C), dev)
+                                          for t in t_ins]
+
+        def fwd_bwd(fn, **extra):
+            xs = [t.clone().requires_grad_() for t in (x, *weights)]
+            z, _ = fn(xs[0], lengths, *xs[1:], drop_masks=masks, **kw, **extra)
+            z.backward(g)
+            return z.detach(), [t.grad for t in xs]
+
+        cuda.reset_launch_counts()
+        zk, gk = fwd_bwd(wavenet_stack_train_v2)
+        torch.cuda.synchronize()
+        counts = (cuda.launch_counts["wavenet_train_v2_fwd"],
+                  cuda.launch_counts["wavenet_train_v2_sweep"])
+        want = (3, 3) if masks is not None else (1, 3)
+        expect(counts == want, f"v2 launches (forward, sweep) {counts}, expected {want}")
+        say(f"v2 path, dropout {drop}: {counts[0]} forward and {counts[1]} sweep launches "
+            f"(chunks {chunk_bounds(L, 3)})")
+        if masks is not None:
+            launches = {"wavenet_train_v2_fwd": counts[0], "wavenet_train_v2_sweep": counts[1]}
+        zk2, gk2 = fwd_bwd(wavenet_stack_train_v2)
+        expect(torch.equal(zk, zk2) and all(torch.equal(a, b) for a, b in zip(gk, gk2)),
+               f"v2, dropout {drop}: two runs of the same inputs differ")
+        for ref, (zr, gr) in (("plain", fwd_bwd(wavenet_stack_train_plain,
+                                                pooling_type="max")),
+                              ("v3", fwd_bwd(wavenet_stack_train, pooling_type="max"))):
+            tag = f"against {ref}, dropout {drop}"
+            out[f"fwd {tag}"] = held(f"wavenet_train_v2_fwd {tag}", [("z", zk, zr)],
+                                     grads=False)
+            out[f"bwd {tag}"] = held(f"wavenet_train_v2_sweep {tag}", list(zip(names, gk, gr)),
+                                     grads=True)
+        say(f"kernels wavenet_train_v2_fwd and wavenet_train_v2_sweep, dropout {drop}: two "
+            f"runs agree bit for bit")
+
+    masks = [dropout_mask(mgen, DROP, (B, t, C), dev) for t in t_ins]
+    w3, b3, w1, b1, wl, bl = weights
+    xm = mask_time(x, lengths)
+    v2_kw = dict(kw, bounds=chunk_bounds(L, 3))
+    v3_kw = dict(kw, pooling_type="max")
+    _, stash = cuda.wavenet_train_v2_forward(xm, lengths, *weights, masks, **v2_kw)
+    _, stash3 = cuda.wavenet_train_forward(xm, lengths, *weights, masks, **v3_kw)
+    xs = [t.clone().requires_grad_() for t in (x, *weights)]
+    z_graph, _ = wavenet_stack_train_plain(xs[0], lengths, *xs[1:], drop_masks=masks,
+                                           **v3_kw)
+    with torch.no_grad():
+        fwd_ms = paired_ms(
+            lambda: cuda.wavenet_train_v2_forward(xm, lengths, *weights, masks, **v2_kw),
+            lambda: wavenet_stack_train_plain(x, lengths, *weights, drop_masks=masks, **v3_kw),
+            reps=5)
+        fwd_v3 = paired_ms(
+            lambda: cuda.wavenet_train_v2_forward(xm, lengths, *weights, masks, **v2_kw),
+            lambda: cuda.wavenet_train_forward(xm, lengths, *weights, masks, **v3_kw), reps=5)
+    bwd_ms = paired_ms(
+        lambda: cuda.wavenet_train_v2_backward(g, stash, lengths, w3, w1, b1, wl, masks,
+                                               **v2_kw),
+        lambda: torch.autograd.grad(z_graph, xs, g, retain_graph=True), reps=5)
+    bwd_v3 = paired_ms(
+        lambda: cuda.wavenet_train_v2_backward(g, stash, lengths, w3, w1, b1, wl, masks,
+                                               **v2_kw),
+        lambda: cuda.wavenet_train_backward(g, stash3, lengths, w3, w1, wl, masks, **v3_kw),
+        reps=5)
+    say(f"kernel wavenet_train_v2_fwd B={B} T={T} C={C} L={L} dropout {DROP} (3 chunks): "
+        f"{fwd_ms[0]:.3f} ms vs plain {fwd_ms[1]:.3f} ms; against v3 in turns {fwd_v3[0]:.3f} "
+        f"vs {fwd_v3[1]:.3f} ms; wavenet_train_v2_sweep {bwd_ms[0]:.3f} ms vs plain autograd "
+        f"{bwd_ms[1]:.3f} ms; against v3 in turns {bwd_v3[0]:.3f} vs {bwd_v3[1]:.3f} ms")
+    rows, rows_fin = stack_rows(ft.stages, ft.pooling_layers, lengths)
+    # forward: x and the masks in; each layer's h and output and z out (no u stash)
+    fwd_moved = 4 * C * (3 * sum(rows) + 2 * rows_fin)
+    # sweep: gz, the stash (layer inputs, h, x_fin) and the masks in; gx out
+    bwd_moved = 4 * C * (2 * rows_fin + 3 * sum(rows) + rows[0])
+    fwd_err = max(v for k, v in out.items() if k.startswith("fwd"))
+    bwd_err = max(v for k, v in out.items() if k.startswith("bwd"))
+    return ({"wavenet_train_v2_fwd": report(fwd_err, *fwd_ms, fwd_moved + nbytes(*weights),
+                                            8 * C * C * sum(rows) + 2 * C * C * rows_fin),
+             "wavenet_train_v2_sweep": report(bwd_err, *bwd_ms,
+                                              bwd_moved + 2 * nbytes(*weights),
+                                              16 * C * C * sum(rows) + 4 * C * C * rows_fin)},
+            launches)
 
 
 def check_bilstm_train(model, gen, dev):
@@ -848,10 +1032,12 @@ def stage_ms(trainer, arrays, reps: int = 3) -> dict:
 
 
 def train(dev, rng, card: str):
-    """Three train steps with the kernels (twice: the second run must repeat
-    the first bit for bit), and before each of them one plain step from the
-    kernel path's weights at that step, with the same masks and batch;
-    returns the kernel checks and the train path's launch counts.
+    """The train kernels' checks, then three train steps of the WaveNet
+    model with the kernels (twice: the second run must repeat the first bit
+    for bit), and before each of them one plain step from the kernel path's
+    weights at that step, with the same masks and batch (`compare_steps`);
+    returns the kernel checks, the launch counts (the train path's, and the
+    v2 path's for its two kernels) and the batch.
 
     Each plain step starts from the kernel path's weights, so that the
     comparison sees one step's rounding.  Trajectories would not: the two
@@ -871,21 +1057,15 @@ def train(dev, rng, card: str):
     head's update.  Deterministic, each path repeats bit for bit and the
     comparison sees the kernels' rounding only."""
     import torch
-    from mucon_tpu_torch import cuda
-    from mucon_tpu_torch.harness.trainer import SimpleTrainer, TrainConfig
-    from mucon_tpu_torch.models.model import create_model
 
     arrays = train_batch(rng, dev)
-    config = TrainConfig(batch_size=TRAIN_B)
-    # the kernel trainers take the loss kernel too (the JAX tpu.use_pallas_loss)
-    trainers = {k: SimpleTrainer(None, create_model(
-        M, N_MAX + 1, D, device=dev, seed=0,
-        loss_cfg=None if k == "p" else {"use_loss_kernel": True}),
-        config, seed=1, use_kernels=(k != "p")) for k in ("k", "k2", "p")}
+    trainers = make_trainers(dev, "wavenet")
     results = {}
     gen = torch.Generator().manual_seed(3)
     model = trainers["k"].model
     results.update(check_wavenet_train(model, arrays, gen, dev))
+    v2_results, v2_launches = check_wavenet_train_v2(model, arrays, gen, dev)
+    results.update(v2_results)
     results.update(check_bilstm_train(model, gen, dev))
     T_pad = arrays["feats"].shape[1]
     results.update(check_decoder_chain(model, arrays["num_frames"] >> 4, T_pad >> 4, gen, dev,
@@ -893,6 +1073,38 @@ def train(dev, rng, card: str):
     # long videos: T_pad = 10240, Tz = 640
     check_decoder_chain(model, torch.tensor([640, 333]), 640, gen, dev, timed=False)
     results.update(check_flint(arrays, gen, dev))
+    launches = compare_steps("WaveNet", trainers, arrays, TRAIN_STEPS, TRAIN_KERNELS,
+                             ("mstcnpp_stack", "wavenet_train_v2_fwd", "wavenet_train_v2_sweep"),
+                             card, stages=True)
+    launches.update(v2_launches)
+    return results, launches, arrays
+
+
+def make_trainers(dev, ft_type: str) -> dict:
+    """Three trainers of the default model with the backbone `ft_type`, from
+    one seed: "k" and "k2" with the kernels and the loss kernel (the JAX
+    tpu.use_pallas_loss), "p" plain."""
+    from mucon_tpu_torch.harness.trainer import SimpleTrainer, TrainConfig
+    from mucon_tpu_torch.models.model import create_model
+
+    config = TrainConfig(batch_size=TRAIN_B)
+    return {k: SimpleTrainer(None, create_model(
+        M, N_MAX + 1, D, device=dev, seed=0, ft_type=ft_type,
+        loss_cfg=None if k == "p" else {"use_loss_kernel": True}),
+        config, seed=1, use_kernels=(k != "p")) for k in ("k", "k2", "p")}
+
+
+def compare_steps(tag, trainers, arrays, n_steps: int, required, absent, card: str,
+                  stages: bool = False) -> dict:
+    """`n_steps` kernel steps, twice, and before each of them one plain step
+    from the kernel path's weights at that step with the same masks: the
+    kernels in `required` must launch in the first kernel run, those in
+    `absent` must not; the two kernel runs must agree bit for bit, and each
+    plain step within 1e-4 relative of the kernel step's losses and 1e-2 of
+    its update.  Times the step (and with `stages` its stages).  Returns
+    the first kernel run's launch counts."""
+    import torch
+    from mucon_tpu_torch import cuda
 
     def params(k):
         return {n: p.detach().clone() for n, p in trainers[k].model.net.named_parameters()}
@@ -915,53 +1127,60 @@ def train(dev, rng, card: str):
     torch.use_deterministic_algorithms(True)
     try:
         cuda.reset_launch_counts()
-        for _ in range(TRAIN_STEPS):
+        for _ in range(n_steps):
             step("k")
         torch.cuda.synchronize()
         launches = dict(cuda.launch_counts)
-        for at in range(TRAIN_STEPS):
+        for at in range(n_steps):
             step("k2")
             plain_step_from(snaps["k"][at], at)
     finally:
         torch.use_deterministic_algorithms(False)
-    say(f"launches on the train path ({TRAIN_STEPS} steps): {launches}")
-    missing = [name for name in TRAIN_KERNELS if launches[name] == 0]
+    say(f"launches on the {tag} train path ({n_steps} steps): {launches}")
+    missing = [name for name in required if launches[name] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the train path: {missing}")
+        raise AssertionError(f"kernels never launched on the {tag} train path: {missing}")
+    stray = [name for name in absent if launches[name]]
+    if stray:
+        raise AssertionError(f"kernels launched on the {tag} train path that it does not "
+                             f"run: {stray}")
     expect(losses["k"] == losses["k2"] and all(
         torch.equal(a, b[n]) for s, b in zip(snaps["k"], snaps["k2"]) for n, a in s.items()),
-        "two kernel runs of the same steps differ")
-    say(f"kernel path run twice: the same losses and parameters bit for bit after "
-        f"{TRAIN_STEPS} steps")
+        f"{tag}: two kernel runs of the same steps differ")
+    say(f"{tag} kernel path run twice: the same losses and parameters bit for bit after "
+        f"{n_steps} steps")
 
     for at, (lk, lp) in enumerate(zip(losses["k"], losses["p"])):
         expect(all(np.isfinite(v) for v in (*lk.values(), *lp.values())),
-               f"train step {at + 1}: non-finite loss")
+               f"{tag} train step {at + 1}: non-finite loss")
         rel = max(abs(lk[n] - lp[n]) / max(abs(lp[n]), 1e-12) for n in lp)
-        expect(rel <= 1e-4, f"train step {at + 1}: loss rel diff {rel} > 1e-4 ({lk} vs {lp})")
+        expect(rel <= 1e-4,
+               f"{tag} train step {at + 1}: loss rel diff {rel} > 1e-4 ({lk} vs {lp})")
         worst = (0.0, "")
         for n, before in snaps["k"][at].items():
             after = snaps["p"][at + 1][n]
             upd = (after - before).abs().max().item()
             err = (snaps["k"][at + 1][n] - after).abs().max().item()
             expect(err <= 1e-2 * upd + 1e-7,
-                   f"train step {at + 1}: {n} differs by {err} (update {upd})")
+                   f"{tag} train step {at + 1}: {n} differs by {err} (update {upd})")
             worst = max(worst, (err / max(upd, 1e-30), n))
-        say(f"train step {at + 1}: main loss {lk['main']:.6f} (kernels) vs {lp['main']:.6f} "
-            f"(plain, from the same weights), max rel diff over the 5 terms {rel:.2e} <= 1e-4; "
-            f"every parameter within 1e-2 * max|update| (worst {worst[0]:.2e}, {worst[1]})")
+        say(f"{tag} train step {at + 1}: main loss {lk['main']:.6f} (kernels) vs "
+            f"{lp['main']:.6f} (plain, from the same weights), max rel diff over the 5 terms "
+            f"{rel:.2e} <= 1e-4; every parameter within 1e-2 * max|update| (worst "
+            f"{worst[0]:.2e}, {worst[1]})")
 
     ms = paired_ms(lambda: trainers["k"].train_step(arrays),
                    lambda: trainers["p"].train_step(arrays), reps=3)
     T = arrays["feats"].shape[1]
-    say(f"train step B={TRAIN_B} T_pad={T} dropout {DROP}: kernels {ms[0]:.2f} ms = "
+    say(f"{tag} train step B={TRAIN_B} T_pad={T}: kernels {ms[0]:.2f} ms = "
         f"{1000 * TRAIN_B / ms[0]:.2f} videos/s; plain {ms[1]:.2f} ms = "
         f"{1000 * TRAIN_B / ms[1]:.2f} videos/s [{card}]")
-    for k, tag in (("k", "kernels"), ("p", "plain")):
-        stages = stage_ms(trainers[k], arrays)
-        say(f"train step stages ({tag}, ms): " + json.dumps(
-            {n: round(v, 3) for n, v in stages.items()}))
-    return results, launches
+    if stages:
+        for k, label in (("k", "kernels"), ("p", "plain")):
+            spans = stage_ms(trainers[k], arrays)
+            say(f"{tag} train step stages ({label}, ms): " + json.dumps(
+                {n: round(v, 3) for n, v in spans.items()}))
+    return launches
 
 
 def main() -> int:
@@ -994,18 +1213,26 @@ def main() -> int:
 
     dev = torch.device("cuda")
     model = create_model(M, N_MAX + 1, D, device=dev, seed=0)
+    model_m = create_model(M, N_MAX + 1, D, ft_type="mstcnpp", device=dev, seed=0)
     gen = torch.Generator().manual_seed(1)
     with torch.inference_mode():
         results = {
             "wavenet_layer": check_wavenet(model, gen, dev),
+            "mstcnpp_stack": check_mstcnpp(model_m, gen, dev),
             "bilstm_recurrence": check_bilstm(model, gen, dev),
             "dense_viterbi": check_viterbi(gen, dev),
         }
-        launches = serve(model, dev, np.random.default_rng(0), smi)
-    del model
-    train_results, train_launches = train(dev, np.random.default_rng(1), smi)
+        launches = serve("WaveNet", model, dev, np.random.default_rng(0), smi,
+                         SERVING_KERNELS, absent=("mstcnpp_stack",))
+        launches["mstcnpp_stack"] = serve(
+            "MS-TCN++", model_m, dev, np.random.default_rng(0), smi,
+            MSTCNPP_SERVING_KERNELS, absent=("wavenet_layer",))["mstcnpp_stack"]
+    del model, model_m
+    train_results, train_launches, arrays = train(dev, np.random.default_rng(1), smi)
     results.update(train_results)
     launches.update({k: train_launches[k] for k in train_results})
+    compare_steps("MS-TCN++", make_trainers(dev, "mstcnpp"), arrays, MSTCNPP_STEPS,
+                  MSTCNPP_TRAIN_KERNELS, STACK_KERNELS, smi, stages=True)
 
     kernels = []
     for name, line in results.items():

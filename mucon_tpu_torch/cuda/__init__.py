@@ -16,11 +16,15 @@ PyTorch's current stream without synchronising, and adds one to
 show that its path went through the kernels.  `wavenet_train_sweep`
 counts one per layer sweep: its C launcher runs that layer's four
 kernels (dz, dx, weight-gradient partials, their fixed-order sum).
+`wavenet_train_v2_fwd` and `wavenet_train_v2_sweep` count one per chunk:
+each is one cooperative launch over a chunk of layers.
 
-The ten kernels: `wavenet_layer`, `bilstm_recurrence` and `dense_viterbi`
-(serving); `wavenet_train_fwd`, `wavenet_train_sweep`, `bilstm_train_fwd`,
-`bilstm_train_bwd`, `decoder_chain_fwd`, `decoder_chain_bwd` and
-`mucon_flint` (the train step).
+The thirteen kernels: `wavenet_layer`, `mstcnpp_stack`, `bilstm_recurrence`
+and `dense_viterbi` (serving); `wavenet_train_fwd`, `wavenet_train_sweep`,
+`bilstm_train_fwd`, `bilstm_train_bwd`, `decoder_chain_fwd`,
+`decoder_chain_bwd` and `mucon_flint` (the train step);
+`wavenet_train_v2_fwd` and `wavenet_train_v2_sweep` (the v2 trainable
+stack, `ops/wavenet_stack_train_v2.py`).
 """
 
 from __future__ import annotations
@@ -35,9 +39,11 @@ from pathlib import Path
 
 import torch
 
+from mucon_tpu_torch.ops.wavenet_stack_train import stack_plan
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("wavenet_stack.cu", "bilstm.cu", "viterbi.cu", "wavenet_train.cu",
-           "decoder_chain.cu", "mucon_loss.cu")
+           "decoder_chain.cu", "mucon_loss.cu", "mstcnpp.cu", "wavenet_train_v2.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mucon_tpu_torch"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,7 +52,8 @@ NVCC_FLAGS = (
 KERNELS = (
     "wavenet_layer", "bilstm_recurrence", "dense_viterbi",
     "wavenet_train_fwd", "wavenet_train_sweep", "bilstm_train_fwd", "bilstm_train_bwd",
-    "decoder_chain_fwd", "decoder_chain_bwd", "mucon_flint",
+    "decoder_chain_fwd", "decoder_chain_bwd", "mucon_flint", "mstcnpp_stack",
+    "wavenet_train_v2_fwd", "wavenet_train_v2_sweep",
 )
 # the decoder chain's score rows live in shared memory: the reverse kernel's
 # need for a Tz must fit the H100's per-block opt-in limit (227 KiB)
@@ -128,12 +135,21 @@ def load() -> ctypes.CDLL:
             lib.mucon_decoder_chain_bwd.argtypes = [P] * 24 + [I] * 5 + [P]
             lib.mucon_decoder_chain_smem.argtypes = [I] * 3
             lib.mucon_flint.argtypes = [P] * 9 + [I] * 4 + [P]
+            lib.mucon_mstcnpp_layer.argtypes = [P] * 10 + [I] * 7 + [P]
+            lib.mucon_mstcnpp_proj.argtypes = [P] * 5 + [I] * 4 + [P]
+            # per-layer pointer and int tables are host arrays
+            PP, IP = ctypes.POINTER(P), ctypes.POINTER(I)
+            lib.mucon_wavenet_train_v2_fwd.argtypes = [PP, IP, I] + [P] * 8 + [I] * 5 + [P]
+            lib.mucon_wavenet_train_v2_sweep.argtypes = [PP, IP, I] + [P] * 16 + [I] * 5 + [P]
+            lib.mucon_wavenet_train_v2_work_floats.argtypes = [I]
             for fn in (lib.mucon_wavenet_layer, lib.mucon_bilstm_recurrence,
                        lib.mucon_dense_viterbi, lib.mucon_wavenet_train_fwd,
                        lib.mucon_wavenet_train_sweep, lib.mucon_wavenet_train_splits,
                        lib.mucon_bilstm_backward, lib.mucon_decoder_chain_fwd,
                        lib.mucon_decoder_chain_bwd, lib.mucon_decoder_chain_smem,
-                       lib.mucon_flint):
+                       lib.mucon_flint, lib.mucon_mstcnpp_layer, lib.mucon_mstcnpp_proj,
+                       lib.mucon_wavenet_train_v2_fwd, lib.mucon_wavenet_train_v2_sweep,
+                       lib.mucon_wavenet_train_v2_work_floats):
                 fn.restype = I
             lib.mucon_cuda_error_string.argtypes = [I]
             lib.mucon_cuda_error_string.restype = ctypes.c_char_p
@@ -541,3 +557,151 @@ def mucon_flint(scale, xloc, sdiv, seg, target, n_len, t_valid, class_weights=No
     )
     _check_launch(lib, err, "mucon_flint")
     return out
+
+
+def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
+                  pooling_layers):
+    """The eval MS-TCN++ stage of `ops/mstcnpp_stack.py` on the card: one
+    `mstcnpp_stack` launch per layer (d1 = 2^(L-1-i), d2 = 2^i) and one for
+    the out-projection.  x [B x T x 128] f32 -> (z [B x T/2^p x 128],
+    lengths >> p)."""
+    dev = _cuda_device(x)
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B x T x C], got {tuple(x.shape)}")
+    B, T, C = x.shape
+    L = w3a.shape[0]
+    if C != 128:
+        raise ValueError(f"the MS-TCN++ kernel takes C=128, got {C}")
+    for name, t, shape in (("w3a", w3a, (L, 3, C, C)), ("b3a", b3a, (L, C)),
+                           ("w3b", w3b, (L, 3, C, C)), ("b3b", b3b, (L, C)),
+                           ("w1t", w1t, (L, C, C)), ("w1b", w1b, (L, C, C)), ("b1", b1, (L, C)),
+                           ("w_out", w_out, (C, C)), ("b_out", b_out, (C,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    _require(dev, torch.float32, x=x, w3a=w3a, b3a=b3a, w3b=w3b, b3b=b3b, w1t=w1t, w1b=w1b,
+             b1=b1, w_out=w_out, b_out=b_out)
+    lens = _lengths_i32(lengths, B, dev, "lengths")
+    lib, stream = load(), _stream(dev)
+    h, t, shift = x, T, 0
+    for i in range(L):
+        pool = i in pooling_layers
+        if pool and t % 2:
+            raise ValueError(f"pooling layer {i} needs an even length, got {t}")
+        out = torch.empty(B, t // 2 if pool else t, C, device=dev, dtype=torch.float32)
+        err = lib.mucon_mstcnpp_layer(
+            h.data_ptr(), out.data_ptr(), lens.data_ptr(), w3a[i].data_ptr(),
+            b3a[i].data_ptr(), w3b[i].data_ptr(), b3b[i].data_ptr(), w1t[i].data_ptr(),
+            w1b[i].data_ptr(), b1[i].data_ptr(), B, t, C, 2 ** (L - 1 - i), 2 ** i, shift,
+            int(pool), stream,
+        )
+        _check_launch(lib, err, "mstcnpp_stack")
+        if pool:
+            t, shift = t // 2, shift + 1
+        h = out
+    z = torch.empty(B, t, C, device=dev, dtype=torch.float32)
+    err = lib.mucon_mstcnpp_proj(h.data_ptr(), z.data_ptr(), lens.data_ptr(),
+                                 w_out.data_ptr(), b_out.data_ptr(), B, t, C, shift, stream)
+    _check_launch(lib, err, "mstcnpp_stack")
+    return z, lengths >> shift
+
+
+def _tables(ptrs, ints):
+    """Host pointer and int tables of a v2 chunk launch."""
+    return (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints)
+
+
+def wavenet_train_v2_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks, *,
+                             stages, pooling_layers, leaky, bounds):
+    """Forward of the v2 trainable stack (max pooling): one cooperative
+    `wavenet_train_v2_fwd` launch per chunk [lo, hi) of `bounds`.  x
+    [B x T x 128] (masked), drop_masks one [B x t_i x 128] mask per layer or
+    None -> (z, stash) with stash = (xs, hs): the L + 1 layer inputs (xs[L]
+    the out-projection's input) and the L nonlin(z)."""
+    dev = _check_packed(x, stages, w3, b3, w1, b1, w_last, b_last)
+    B, T, C = x.shape
+    L = len(stages)
+    if L > 32:
+        raise ValueError(f"the v2 kernels take at most 32 layers, got {L}")
+    lens = _lengths_i32(lengths, B, dev, "lengths")
+    lib, stream = load(), _stream(dev)
+    t_ins, pooled, shifts, t_fin = stack_plan(stages, pooling_layers, T)
+    n_pools = sum(pooled)
+    f32 = dict(device=dev, dtype=torch.float32)
+    xs, hs, z = [x], [], None
+    for lo, hi in bounds:
+        ptrs, ints = [], []
+        for i in range(lo, hi):
+            t, shift, pool = t_ins[i], shifts[i], pooled[i]
+            m = None if drop_masks is None else drop_masks[i]
+            if m is not None:
+                if m.shape != (B, t, C):
+                    raise ValueError(f"dropout mask {i} has shape {tuple(m.shape)}, "
+                                     f"expected {(B, t, C)}")
+                _require(dev, torch.float32, mask=m)
+            hs.append(torch.empty(B, t, C, **f32))
+            xs.append(torch.empty(B, t // 2 if pool else t, C, **f32))
+            ptrs += [xs[i].data_ptr(), xs[i + 1].data_ptr(), hs[i].data_ptr(), _ptr(m)]
+            ints += [t, int(stages[i]), shift, int(pool)]
+        last = hi == L
+        if last:
+            z = torch.empty(B, t_fin, C, **f32)
+        err = lib.mucon_wavenet_train_v2_fwd(
+            *_tables(ptrs, ints), hi - lo, w3[lo].data_ptr(), b3[lo].data_ptr(),
+            w1[lo].data_ptr(), b1[lo].data_ptr(), _ptr(w_last if last else None),
+            _ptr(b_last if last else None), _ptr(z if last else None), lens.data_ptr(),
+            B, C, t_fin, n_pools, int(leaky), stream,
+        )
+        _check_launch(lib, err, "wavenet_train_v2_fwd")
+    return z, (xs, hs)
+
+
+def wavenet_train_v2_backward(gz, stash, lengths, w3, w1, b1, w_last, drop_masks, *,
+                              stages, pooling_layers, leaky, bounds):
+    """Backward of the v2 trainable stack: one cooperative
+    `wavenet_train_v2_sweep` launch per chunk, last chunk first (it also
+    sweeps the out-projection).  gz [B x t_fin x 128] -> (gx, dw3, db3, dw1,
+    db1, dw_last, db_last)."""
+    xs, hs = stash
+    dev = _cuda_device(gz)
+    B, T, C = xs[0].shape
+    L = len(stages)
+    if gz.shape != xs[L].shape:
+        raise ValueError(f"gz {tuple(gz.shape)} does not match z {tuple(xs[L].shape)}")
+    gz = gz.contiguous()
+    _require(dev, torch.float32, gz=gz)
+    lens = _lengths_i32(lengths, B, dev, "lengths")
+    lib, stream = load(), _stream(dev)
+    t_ins, pooled, shifts, t_fin = stack_plan(stages, pooling_layers, T)
+    n_pools = sum(pooled)
+    # W^T copies (once per call) so that the kernels read them row-major
+    w3t = w3.transpose(-1, -2).contiguous()
+    w1t = w1.transpose(-1, -2).contiguous()
+    wlt = w_last.t().contiguous()
+    f32 = dict(device=dev, dtype=torch.float32)
+    dw3, dw1 = torch.empty(L, 3, C, C, **f32), torch.empty(L, C, C, **f32)
+    db3, db1 = torch.empty(L, C, **f32), torch.empty(L, C, **f32)
+    dwl, dbl = torch.empty(C, C, **f32), torch.empty(C, **f32)
+    scratch = torch.empty(2 * B * T * C, **f32)  # gm and dz of the longest layer
+    work = torch.empty(lib.mucon_wavenet_train_v2_work_floats(B * T), **f32)
+    g_in = [torch.empty(B, t, C, **f32) for t in t_ins]
+    g_proj = torch.empty(B, t_fin, C, **f32)  # the gradient at x_fin
+    for lo, hi in reversed(bounds):
+        proj = hi == L
+        ptrs, ints = [], []
+        for i in range(lo, hi):
+            t, shift, pool = t_ins[i], shifts[i], pooled[i]
+            g = g_proj if i == L - 1 else g_in[i + 1]
+            m = None if drop_masks is None else drop_masks[i]
+            ptrs += [xs[i].data_ptr(), hs[i].data_ptr(), _ptr(m), g.data_ptr(),
+                     g_in[i].data_ptr()]
+            ints += [t, int(stages[i]), shift, int(pool)]
+        err = lib.mucon_wavenet_train_v2_sweep(
+            *_tables(ptrs, ints), hi - lo, w3t[lo].data_ptr(), w1[lo].data_ptr(),
+            w1t[lo].data_ptr(), b1[lo].data_ptr(), dw3[lo].data_ptr(), db3[lo].data_ptr(),
+            dw1[lo].data_ptr(), db1[lo].data_ptr(), _ptr(gz if proj else None),
+            _ptr(xs[L] if proj else None), _ptr(wlt if proj else None),
+            _ptr(dwl if proj else None), _ptr(dbl if proj else None), scratch.data_ptr(),
+            work.data_ptr(), lens.data_ptr(), B, C, t_fin, n_pools, int(leaky), stream,
+        )
+        _check_launch(lib, err, "wavenet_train_v2_sweep")
+    return g_in[0], dw3, db3, dw1, db1, dwl, dbl

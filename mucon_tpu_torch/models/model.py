@@ -5,14 +5,17 @@ seeded `torch.Generator`, or loaded from a JAX parameter tree through
 `mucon_tpu_torch.convert`).
 
 * `forward(arrays)` is the serving forward (no autograd): on a CUDA device
-  it runs the in-projection as a plain matmul and the residual stack, the
+  it runs the in-projection as a plain matmul and the backbone's stack
+  (WaveNet's residual stack or the MS-TCN++ stage; `noft` has none), the
   BiLSTM recurrence and (in `ops/eval_fused.py`) the Viterbi DP as
   hand-written kernels.
 * `forward(arrays, train=True, generator=g)` is the teacher-forced train
   forward under autograd, with dropout masks drawn from `g`: on a CUDA
-  device the residual stack, the BiLSTM recurrence and the teacher-forced
-  decoder chain run forward and backward as hand-written kernels (the
-  JAX package with every `tpu.use_pallas*` train flag on).
+  device the WaveNet residual stack, the BiLSTM recurrence and the
+  teacher-forced decoder chain run forward and backward as hand-written
+  kernels (the JAX package with every `tpu.use_pallas*` train flag on,
+  which trains the MS-TCN++ and `noft` backbones on XLA: here, plain
+  PyTorch).
 * `loss(fwd, arrays)` is the batch objective (`models/losses.py`); with
   `loss_cfg["use_loss_kernel"]` (the JAX `tpu.use_pallas_loss`) its flint
   term runs as the fused kernel of `ops/mucon_loss.py` on the card.
@@ -37,6 +40,7 @@ from mucon_tpu_torch.models.mucon import (
     build_model,
 )
 from mucon_tpu_torch.models.outputs import MuConForwardOut, MuConLoss
+from mucon_tpu_torch.ops.mstcnpp_stack import mstcnpp_stack, pack_mstcnpp_params
 from mucon_tpu_torch.ops.wavenet_stack import pack_wavenet_params, wavenet_stack
 from mucon_tpu_torch.ops.wavenet_stack_train import stack_plan, wavenet_stack_train
 
@@ -77,17 +81,21 @@ class MuConModel:
     def draw_masks(self, generator: Optional[torch.Generator], B: int,
                    T: int) -> Optional[TrainMasks]:
         """One train step's dropout masks for a [B x T] batch, drawn in a
-        fixed order (stack layers, last dropout, embeddings) so that two
-        generators seeded alike give two paths the same masks."""
+        fixed order (backbone layers, last dropout, embeddings) so that two
+        generators seeded alike give two paths the same masks.  The
+        backbone's masks are at each layer's input length, at its rate
+        (WaveNet's `dropout_rate`, the MS-TCN++ stage's 0.5; `noft` has
+        none)."""
         if generator is None:
             return None
         net, ft = self.net, self.net.ft
         C = ft.Conv1x1_0.kernel.shape[1]
-        t_ins, _, _, tz = stack_plan(ft.stages, ft.pooling_layers, T)
         draw = lambda rate, *shape: dropout_mask(generator, rate, shape, self.device)  # noqa: E731
+        n_layers = ft.num_layers if net.ft_type == "mstcnpp" else len(getattr(ft, "stages", ()))
+        t_ins, _, _, tz = stack_plan(range(n_layers), getattr(ft, "pooling_layers", ()), T)
         stack = [draw(net.ft_dropout, B, t, C) for t in t_ins]
         return TrainMasks(
-            stack=None if stack and stack[0] is None else stack,
+            stack=None if not stack or stack[0] is None else stack,
             last=draw(net.ft_last_dropout, B, tz, C),
             embedding=draw(net.dec_embed_dropout, self.max_decoding_steps, B,
                            net.decoder.attention_l2.kernel.shape[0]),
@@ -124,21 +132,33 @@ class MuConModel:
         return groups
 
     def _encode_kernels(self, feats, num_frames):
-        """The D -> C in-projection as a plain matmul (JAX also runs it
-        outside the kernel, model.py:450-453), then the fused residual
-        stack (model.py:416)."""
+        """The backbone's eval kernel (model.py:169-176), or (None, None)
+        where the JAX package has none (`noft`).  WaveNet: the D -> C
+        in-projection as a plain matmul (JAX also runs it outside the
+        kernel, model.py:450-453), then the fused residual stack
+        (model.py:416).  MS-TCN++: the in-projection as a plain masked
+        matmul with no ReLU (model.py:500-504), then the fused stage."""
         ft = self.net.ft
-        x = ft.in_projection(feats, num_frames)
-        return wavenet_stack(
-            x, num_frames, *pack_wavenet_params(ft),
-            stages=ft.stages, pooling_layers=ft.pooling_layers,
-            pooling_type=ft.pooling_type, leaky=ft.leaky,
-        )
+        if self.net.ft_type == "wavenet":
+            return wavenet_stack(
+                ft.in_projection(feats, num_frames), num_frames, *pack_wavenet_params(ft),
+                stages=ft.stages, pooling_layers=ft.pooling_layers,
+                pooling_type=ft.pooling_type, leaky=ft.leaky,
+            )
+        if self.net.ft_type == "mstcnpp":
+            return mstcnpp_stack(ft.in_projection(feats, num_frames), num_frames,
+                                 *pack_mstcnpp_params(ft), pooling_layers=ft.pooling_layers)
+        return None, None
 
     def _encode_kernels_train(self, feats, num_frames, masks: Optional[TrainMasks]):
-        """The in-projection as plain torch (model.py:326-329), then the
-        differentiable stack (`wavenet_stack_train`) with the step's masks."""
+        """WaveNet: the in-projection as plain torch (model.py:326-329),
+        then the differentiable stack (`wavenet_stack_train`) with the
+        step's masks.  The other backbones have no train kernel (the JAX
+        package trains MS-TCN++ on XLA, model.py:132-134): (None, None),
+        and the backbone runs as plain PyTorch under autograd."""
         ft = self.net.ft
+        if self.net.ft_type != "wavenet":
+            return None, None
         x = ft.in_projection(feats, num_frames)
         return wavenet_stack_train(
             x, num_frames, *pack_wavenet_params(ft),
@@ -175,10 +195,10 @@ def model_fields_from_cfg(cfg) -> dict:
     """`build_model` fields from a mucon_tpu config node (attribute access
     only: the caller loads the config; nothing here needs yaml)."""
     ft = cfg.model.ft
-    if ft.type != "wavenet" or not cfg.model.fs.encoder.bidirectional:
-        raise NotImplementedError(
-            "the port runs the wavenet encoder with a bidirectional LSTM only"
-        )
+    if ft.type not in ("wavenet", "mstcnpp", "noft"):
+        raise ValueError(f"Invalid ft type ({ft.type})")
+    if not cfg.model.fs.encoder.bidirectional:
+        raise NotImplementedError("the port runs a bidirectional LSTM encoder only")
     if cfg.model.fs.encoder.hidden_size != cfg.model.fs.decoder.hidden_size:
         raise ValueError("encoder and decoder hidden sizes must be equal")
     if not (ft.last_gn and ft.last_relu):
@@ -196,6 +216,7 @@ def model_fields_from_cfg(cfg) -> dict:
         last_dropout=ft.last_dropout,
         last_dropout_rate=ft.last_dropout_rate,
         embedding_dropout=cfg.model.fs.decoder.embedding_dropout,
+        ft_type=ft.type,
     )
 
 

@@ -1,7 +1,9 @@
 """The MuCon network (mucon_tpu/models/mucon.py).
 
-* ft: WaveNet dilated residual stack (16x temporal downsample), then
-  masked GroupNorm -> ReLU -> (train: dropout) -> mask;
+* ft: the backbone `ft_type` names — the WaveNet dilated residual stack
+  or the MS-TCN++ first stage (16x temporal downsample each), or the
+  one-conv `NoFt` — then masked GroupNorm -> ReLU -> (train: dropout) ->
+  mask;
 * fs: BiLSTM encoder, its final (h, c) projected to the decoder init,
   additive attention tanh(z W1 + l2(h)) . V, and a loop of `DecoderCell`
   steps: eval decodes freely and stops once every video has emitted EOS;
@@ -35,7 +37,7 @@ from mucon_tpu_torch.models.layers import (
 )
 from mucon_tpu_torch.models.lstm import LSTMCellParams, MaskedBiLSTM
 from mucon_tpu_torch.models.outputs import MuConForwardOut
-from mucon_tpu_torch.models.temporal import Conv1x1, WaveNetBlock
+from mucon_tpu_torch.models.temporal import Conv1x1, MSTCNPPFirstStage, NoFt, WaveNetBlock
 from mucon_tpu_torch.ops.decoder_chain import decoder_teacher_forced
 
 # nn.Linear with torch default init and a [in, out] kernel: the same
@@ -62,7 +64,7 @@ DECODE_MODULES = (
 class TrainMasks:
     """The dropout masks of one train step (None where the rate is 0)."""
 
-    stack: Optional[List[torch.Tensor]]  # one [B x t_i x C] per WaveNet layer
+    stack: Optional[List[torch.Tensor]]  # one [B x t_i x C] per backbone layer
     last: Optional[torch.Tensor]  # [B x Tz x C] after the last GN + ReLU
     embedding: Optional[torch.Tensor]  # [S x B x H] decoder input embeddings
 
@@ -152,17 +154,30 @@ class MuConNet(nn.Module):
         ft_dropout: float = 0.25,
         ft_last_dropout: float = 0.25,
         dec_embed_dropout: float = 0.25,
+        ft_type: str = "wavenet",
     ):
         super().__init__()
         self.num_classes = num_classes
         self.max_decoding_steps = max_decoding_steps
-        self.ft_dropout = ft_dropout
+        self.ft_type = ft_type
         self.ft_last_dropout = ft_last_dropout
         self.dec_embed_dropout = dec_embed_dropout
-        self.ft = WaveNetBlock(
-            input_feature_size, ft_stages, ft_hidden, ft_pooling_layers,
-            ft_pooling_type, ft_leaky,
-        )
+        # the backbone (mucon.py:240-266) and the rate of its per-layer dropout
+        if ft_type == "wavenet":
+            self.ft = WaveNetBlock(
+                input_feature_size, ft_stages, ft_hidden, ft_pooling_layers,
+                ft_pooling_type, ft_leaky,
+            )
+            self.ft_dropout = ft_dropout
+        elif ft_type == "mstcnpp":
+            self.ft = MSTCNPPFirstStage(input_feature_size, len(ft_stages), ft_hidden,
+                                        ft_hidden, ft_pooling_layers)
+            self.ft_dropout = MSTCNPPFirstStage.dropout_rate
+        elif ft_type == "noft":
+            self.ft = NoFt(input_feature_size, ft_hidden)
+            self.ft_dropout = 0.0
+        else:
+            raise ValueError(f"Invalid ft type ({ft_type})")
         self.ft_last_gn = GroupNormMasked(ft_last_gn_groups, ft_hidden)
         self.fs_encoder_lstm = MaskedBiLSTM(ft_hidden, hidden)
         enc_dim = 2 * hidden
@@ -285,18 +300,22 @@ def build_model(
     last_dropout: bool = True,
     last_dropout_rate: float = 0.25,
     embedding_dropout: float = 0.25,
+    ft_type: str = "wavenet",
 ) -> MuConNet:
     """MuConNet from explicit fields (the defaults are the repo's default
     config, mucon_tpu/config/defaults.py) — no config file or yaml needed.
     The encoder and decoder LSTMs share `lstm_hidden_size`: the additive
-    attention adds their projections, so the JAX model needs them equal."""
+    attention adds their projections, so the JAX model needs them equal.
+    `ft_type="mstcnpp"` runs len(stages) layers and pools at
+    `pooling_layers` whatever `pooling` says (mucon.py:258 does not gate
+    it); `dropout_rate` is WaveNet's only."""
     return MuConNet(
         num_classes=num_classes,
         input_feature_size=input_feature_size,
         max_decoding_steps=max_decoding_steps,
         ft_stages=tuple(stages),
         ft_hidden=hidden_size,
-        ft_pooling_layers=tuple(pooling_layers) if pooling else (),
+        ft_pooling_layers=tuple(pooling_layers) if pooling or ft_type == "mstcnpp" else (),
         ft_pooling_type=pooling_type,
         ft_leaky=leaky_relu,
         ft_last_gn_groups=last_gn_num_groups,
@@ -304,4 +323,5 @@ def build_model(
         ft_dropout=dropout_rate,
         ft_last_dropout=last_dropout_rate if last_dropout else 0.0,
         dec_embed_dropout=embedding_dropout,
+        ft_type=ft_type,
     )

@@ -1,4 +1,5 @@
-"""WaveNet temporal encoder (mucon_tpu/models/temporal.py:32-163).
+"""Temporal encoders (mucon_tpu/models/temporal.py): the WaveNet block
+(:32-163), the MS-TCN++ first stage (:166) and the one-conv `NoFt` (:200).
 
 Channel-last [B x T x C]; 1x1 convs are matmuls over channels, the k=3
 dilated conv is three shifted matmuls, and lengths are re-masked after
@@ -10,7 +11,8 @@ This module path is the plain reference of the whole block; the fused
 residual stack (everything after the in-projection) is
 `mucon_tpu_torch.ops.wavenet_stack` (eval) and
 `mucon_tpu_torch.ops.wavenet_stack_train` (train), whose CUDA kernels it
-checks.  Dropout is a per-layer mask tensor ([B x t x C], from
+checks; the MS-TCN++ stage's eval kernel is `ops/mstcnpp_stack.py` (it
+trains as plain PyTorch, as the JAX package trains it on XLA).  Dropout is a per-layer mask tensor ([B x t x C], from
 `layers.dropout_mask`) multiplied into the 1x1 conv's output before the
 residual; without masks the block is the eval forward.
 """
@@ -152,3 +154,64 @@ class WaveNetBlock(nn.Module):
                 x = mask_time(x, lengths)
         x = self.Conv1x1_1(nonlinearity(x, self.leaky))
         return mask_time(x, lengths), lengths
+
+
+class MSTCNPPFirstStage(nn.Module):
+    """Dual-dilation MS-TCN++ first stage (mucon_tpu/models/temporal.py:166).
+
+    Flax names: `Conv1x1_0` the D -> C in-projection; per layer i
+    `DilatedConv3_{2i}` (d1 = 2^(L-1-i), falling) and `DilatedConv3_{2i+1}`
+    (d2 = 2^i, rising), `Conv1x1_{i+1}` (2C -> C over their concat);
+    `Conv1x1_{L+1}` the out-projection.  Reference quirks kept: no ReLU
+    after the in-projection, none before the out-projection, dropout at
+    the module default 0.5, max pooling at `pooling_layers` always."""
+
+    dropout_rate = 0.5  # mucon.py never passes ft.dropout_rate to the stage
+
+    def __init__(self, input_dim: int, num_layers: int, num_f_maps: int, output_dim: int,
+                 pooling_layers: Sequence[int] = (1, 2, 4, 8)):
+        super().__init__()
+        self.num_layers = num_layers
+        self.pooling_layers = tuple(int(p) for p in pooling_layers)
+        C = num_f_maps
+        self.Conv1x1_0 = Conv1x1(input_dim, C)
+        for i in range(num_layers):
+            self.add_module(f"DilatedConv3_{2 * i}", DilatedConv3(C, C, 2 ** (num_layers - 1 - i)))
+            self.add_module(f"DilatedConv3_{2 * i + 1}", DilatedConv3(C, C, 2 ** i))
+            self.add_module(f"Conv1x1_{i + 1}", Conv1x1(2 * C, C))
+        self.add_module(f"Conv1x1_{num_layers + 1}", Conv1x1(C, output_dim))
+
+    def in_projection(self, x, lengths):
+        """x @ W_in + b_in, masked — no nonlinearity."""
+        return mask_time(self.Conv1x1_0(x), lengths)
+
+    def forward(self, x, lengths, drop_masks=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`drop_masks`: one [B x t_i x C] dropout mask per layer (train), or
+        None (eval)."""
+        f = self.in_projection(x, lengths)
+        for i in range(self.num_layers):
+            y1 = getattr(self, f"DilatedConv3_{2 * i}")(f)
+            y2 = getattr(self, f"DilatedConv3_{2 * i + 1}")(f)
+            y = torch.relu(getattr(self, f"Conv1x1_{i + 1}")(torch.cat([y1, y2], dim=-1)))
+            if drop_masks is not None:
+                y = y * drop_masks[i]
+            f = mask_time(y + f, lengths)
+            if i in self.pooling_layers:
+                f = pool2_time(f, "max")
+                lengths = lengths // 2
+                f = mask_time(f, lengths)
+        out = getattr(self, f"Conv1x1_{self.num_layers + 1}")(f)
+        return mask_time(out, lengths), lengths
+
+
+class NoFt(nn.Module):
+    """One masked 1x1 conv, no pooling (mucon_tpu/models/temporal.py:200)."""
+
+    def __init__(self, in_channels: int, out_dims: int):
+        super().__init__()
+        self.Conv1x1_0 = Conv1x1(in_channels, out_dims)
+
+    in_projection = MSTCNPPFirstStage.in_projection
+
+    def forward(self, x, lengths, drop_masks=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.in_projection(x, lengths), lengths

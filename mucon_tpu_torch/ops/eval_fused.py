@@ -34,7 +34,8 @@ from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi
 def eval_tables(fwd, num_frames, t_full: int, n_max: int, frame_sampling: int,
                 max_len: int = 2000) -> SimpleNamespace:
     """Free-decode eval tensors from a forward output (eval_fused.py:51-115):
-    seg_lp_z, y_z, n_dec, trs, rel, and the DP tables W, pois, k_valid."""
+    seg_lp_z, y_z, n_dec, trs, rel, the Poisson means lam [B x M], and the
+    DP tables W, pois, k_valid."""
     M = fwd.segmentation_z.shape[2]
     seg_lp_z = F.log_softmax(fwd.segmentation_z, dim=-1)
     up_idx = nearest_upsample_indices(fwd.tz_lengths, t_full, num_frames)
@@ -63,7 +64,7 @@ def eval_tables(fwd, num_frames, t_full: int, n_max: int, frame_sampling: int,
         l_max=max_len // frame_sampling,
     )
     return SimpleNamespace(
-        seg_lp_z=seg_lp_z, y_z=y_z, n_dec=n_dec, trs=trs, rel=rel,
+        seg_lp_z=seg_lp_z, y_z=y_z, n_dec=n_dec, trs=trs, rel=rel, lam=lam,
         W=W, pois=pois, k_valid=k_valid,
     )
 

@@ -1,0 +1,92 @@
+"""Fused MS-TCN++ first stage, eval (mucon_tpu/ops/mstcnpp_pallas.py).
+
+Everything after the in-projection: L dual-dilation layers (a dilated
+conv3 at d1 = 2^(L-1-i) and one at d2 = 2^i, their concat through a 2C -> C
+1x1 split into top and bottom halves, ReLU, residual, mask) with max
+pooling after `pooling_layers`, then the out-projection — no nonlinearity
+before it — and the mask.
+
+* `pack_mstcnpp_params` — the nine packed arrays of the JAX
+  `pack_mstcnpp_params` (mstcnpp_pallas.py:29).
+* `mstcnpp_stack_plain` — plain PyTorch, the twin of the TPU kernel
+  `_mstcnpp_kernel` (mstcnpp_pallas.py:72) on the same packed weights.
+* `mstcnpp_stack` — dispatch by device: a CPU tensor takes the plain twin,
+  a CUDA tensor launches the hand-written kernel (`csrc/mstcnpp.cu`, one
+  launch per layer plus one for the out-projection) or raises.
+
+The TPU version's batch slicing (`plan_mstcnpp_slices`,
+`mstcnpp_stack_pallas_sliced`) exists for the TPU's VMEM only and is not
+ported: the kernel here holds one tile of rows per CTA at any batch.
+Eval only, as in the JAX package: the stage trains as plain PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from mucon_tpu_torch.models.layers import mask_time
+from mucon_tpu_torch.models.temporal import pool2_time, shift_time
+
+
+def pack_mstcnpp_params(stage) -> tuple:
+    """(w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out) of an
+    `MSTCNPPFirstStage`: w3a / w3b [L, 3, C, C] (the d1 and d2 convs),
+    b3a / b3b [L, C], w1t / w1b [L, C, C] (the 2C -> C kernel's top and
+    bottom halves), b1 [L, C], w_out [C, C], b_out [C].  The in-projection
+    `Conv1x1_0` is not packed (it runs as a plain matmul before the stage)."""
+    L = stage.num_layers
+    conv = lambda j: getattr(stage, f"DilatedConv3_{j}")  # noqa: E731
+    w3a = torch.stack([conv(2 * i).kernel for i in range(L)])
+    b3a = torch.stack([conv(2 * i).bias for i in range(L)])
+    w3b = torch.stack([conv(2 * i + 1).kernel for i in range(L)])
+    b3b = torch.stack([conv(2 * i + 1).bias for i in range(L)])
+    w1 = torch.stack([getattr(stage, f"Conv1x1_{i + 1}").kernel for i in range(L)])
+    b1 = torch.stack([getattr(stage, f"Conv1x1_{i + 1}").bias for i in range(L)])
+    C = w3a.shape[-1]
+    out = getattr(stage, f"Conv1x1_{L + 1}")
+    return (w3a, b3a, w3b, b3b, w1[:, :C].contiguous(), w1[:, C:].contiguous(), b1,
+            out.kernel, out.bias)
+
+
+def _conv3(x, d: int, w, b):
+    """shift(-d) @ w[0] + x @ w[1] + shift(+d) @ w[2] + b (models.temporal
+    DilatedConv3's tap order)."""
+    return shift_time(x, -d) @ w[0] + x @ w[1] + shift_time(x, d) @ w[2] + b
+
+
+def mstcnpp_stack_plain(
+    x,  # [B x T x C] f32, after the in-projection (no ReLU)
+    lengths,  # [B] int
+    w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out,
+    pooling_layers: Sequence[int],
+):
+    """Plain PyTorch stage. Returns (z [B x T/2^p x C], lengths >> p)."""
+    L = w3a.shape[0]
+    f = mask_time(x, lengths)
+    ln = lengths
+    for i in range(L):
+        y1 = _conv3(f, 2 ** (L - 1 - i), w3a[i], b3a[i])
+        y2 = _conv3(f, 2 ** i, w3b[i], b3b[i])
+        y = y1 @ w1t[i] + y2 @ w1b[i] + b1[i]
+        f = mask_time(torch.relu(y) + f, ln)
+        if i in pooling_layers:
+            f = pool2_time(f, "max")
+            ln = ln // 2
+            f = mask_time(f, ln)
+    return mask_time(f @ w_out + b_out, ln), ln
+
+
+def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out,
+                  pooling_layers: Sequence[int]):
+    """`mstcnpp_stack_plain` on a CPU tensor; the CUDA kernel on a CUDA
+    tensor (raises for C != 128, an odd length at a pooling layer or
+    packed weights that do not match x)."""
+    args = (x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out)
+    pools = tuple(int(p) for p in pooling_layers)
+    if x.device.type == "cpu":
+        return mstcnpp_stack_plain(*args, pooling_layers=pools)
+    from mucon_tpu_torch import cuda
+
+    return cuda.mstcnpp_stack(*args, pooling_layers=pools)

@@ -46,6 +46,26 @@ def test_jax_params_round_trip_exactly():
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
+@pytest.mark.parametrize("ft_type,key", [
+    ("mstcnpp", "ft.DilatedConv3_5.kernel"),  # layer 2's d2 conv
+    ("noft", "ft.Conv1x1_0.kernel"),
+])
+def test_jax_params_round_trip_exactly_other_backbones(ft_type, key):
+    cfg = small_cfg()
+    cfg.model.ft.type = ft_type
+    jm = create_jax_model(cfg, num_classes=M, max_decoding_steps=NMAX + 1,
+                          input_feature_size=D)
+    params = jax.device_get(jm.init_params(jax.random.PRNGKey(1)))
+    tm = create_model(M, NMAX + 1, D, device="cpu", **model_fields_from_cfg(cfg))
+    tm.load_jax_params(params)
+    sd = tm.net.state_dict()
+    assert key in sd and set(sd) == set(params_to_state_dict(params))
+    a, b = _flatten(params), _flatten(state_dict_to_params(sd))
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
 def test_port_imports_no_jax_or_flax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -57,7 +77,8 @@ def test_port_imports_no_jax_or_flax():
         "assert not bad, bad\n"
         "for m in ('cli.predict', 'harness.trainer', 'harness.optim', 'models.losses',\n"
         "          'models.masks', 'ops.wavenet_stack_train', 'ops.decoder_chain',\n"
-        "          'ops.mucon_loss', 'data.batching'):\n"
+        "          'ops.mucon_loss', 'data.batching', 'ops.mstcnpp_stack',\n"
+        "          'ops.wavenet_stack_train_v2'):\n"
         "    assert 'mucon_tpu_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
@@ -147,3 +168,19 @@ def test_decoder_and_loss_kernel_wrappers_refuse_cpu_tensors():
         cuda.mucon_flint(z(B, 4), z(B, 4), torch.ones(B, 4), z(B, 16, 5),
                          torch.zeros(B, 4, dtype=torch.long), torch.tensor([2]),
                          torch.tensor([16]))
+
+
+def test_mstcnpp_and_v2_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros(1, 32, 128)
+    w3, w, b = torch.zeros(1, 3, 128, 128), torch.zeros(1, 128, 128), torch.zeros(1, 128)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        cuda.mstcnpp_stack(x, torch.tensor([32]), w3, b, w3, b, w, w, b, w[0], b[0],
+                           pooling_layers=())
+    packed = (w3, b, w, b, w[0], b[0])
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        cuda.wavenet_train_v2_forward(x, torch.tensor([32]), *packed, None, stages=(1,),
+                                      pooling_layers=(), leaky=False, bounds=[(0, 1)])
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        cuda.wavenet_train_v2_backward(x, ([x, x], [x]), torch.tensor([32]), w3, w, b, w[0],
+                                       None, stages=(1,), pooling_layers=(), leaky=False,
+                                       bounds=[(0, 1)])

@@ -2,7 +2,9 @@
 small and ragged shapes the serving and train paths do not reach (tile
 remainders, dilations past the sequence, sum pooling, leaky ReLU, B = 1,
 T = 1, fully masked videos, K = 1, infeasible DPs, a decoder chain of one
-step, one video, one frame or a thousand, one segment of the flint loss).  Needs a CUDA device and
+step, one video, one frame or a thousand, one segment of the flint loss,
+an MS-TCN++ stage at an odd length, the v2 stack in 1, 3 and 11 chunks
+with tied pool pairs).  Needs a CUDA device and
 nvcc; skips without them.  Imports no jax, so it runs on the card:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -15,7 +17,7 @@ import torch
 from mucon_tpu_torch import cuda
 from mucon_tpu_torch.models.layers import dropout_mask, mask_time
 from mucon_tpu_torch.models.model import batch_to_tensors, create_model
-from mucon_tpu_torch.models.temporal import WaveNetBlock
+from mucon_tpu_torch.models.temporal import MSTCNPPFirstStage, WaveNetBlock
 from mucon_tpu_torch.ops.decoder_chain import (
     DecoderChain,
     decoder_chain_bwd_plain,
@@ -25,6 +27,11 @@ from mucon_tpu_torch.ops.lstm_recurrence import (
     BiLSTMRecurrenceTrain,
     bilstm_recurrence,
     bilstm_recurrence_plain,
+)
+from mucon_tpu_torch.ops.mstcnpp_stack import (
+    mstcnpp_stack,
+    mstcnpp_stack_plain,
+    pack_mstcnpp_params,
 )
 from mucon_tpu_torch.ops.mucon_loss import flint_prep, mucon_flint_plain
 from mucon_tpu_torch.ops.viterbi import NEG, dense_viterbi_plain
@@ -39,6 +46,8 @@ from mucon_tpu_torch.ops.wavenet_stack_train import (
     wavenet_stack_train,
     wavenet_stack_train_plain,
 )
+
+from mucon_tpu_torch.ops.wavenet_stack_train_v2 import chunk_bounds, wavenet_stack_train_v2
 
 pytestmark = pytest.mark.cuda
 
@@ -312,3 +321,111 @@ def test_flint_kernel_edges(dev, N, T, n_len, t_valid):
             prep = flint_prep(lr, nl, tv, overlap)
             _close([cuda.mucon_flint(*prep, seg, tgt, nl, tv, w)],
                    [mucon_flint_plain(lr, seg, tgt, nl, tv, overlap, w)], 1e-4)
+
+
+def _init(module, seed):
+    g = torch.Generator().manual_seed(seed)
+    for m in module.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(g)
+    return g
+
+
+# 6 layers, pools after 0 and 1: T = 80 -> 40 -> 20 (tiles of 32 with a
+# remainder; d2 = 32 >= 20 in layer 5); T = 84 -> 42 -> 21, odd at the
+# non-pooling layers 2-5; B = 1; a video of length 0 is all padding
+@pytest.mark.parametrize("T,lengths", [(80, (80, 57, 0)), (84, (84,)), (84, (84, 3))])
+def test_mstcnpp_kernel_edges(dev, T, lengths):
+    stage = MSTCNPPFirstStage(16, 6, 128, 128, (0, 1))
+    g = _init(stage, 8)
+    B = len(lengths)
+    lengths = torch.tensor(lengths, device=dev)
+    x = mask_time(torch.randn(B, T, 128, generator=g).to(dev), lengths)
+    packed = [w.detach().to(dev) for w in pack_mstcnpp_params(stage)]
+    before = cuda.launch_counts["mstcnpp_stack"]
+    with torch.no_grad():
+        zk, tk = mstcnpp_stack(x, lengths, *packed, pooling_layers=(0, 1))
+        zp, tp = mstcnpp_stack_plain(x, lengths, *packed, pooling_layers=(0, 1))
+    assert cuda.launch_counts["mstcnpp_stack"] == before + 7
+    assert torch.equal(tk, tp) and zk.shape == (B, T // 4, 128)
+    _close([zk], [zp], 1e-4)
+    if lengths[-1] == 0:
+        assert torch.all(zk[-1] == 0)
+    with pytest.raises(ValueError, match="even length"):
+        mstcnpp_stack(x[:, :T - 2].contiguous(), lengths.clamp(max=T - 2), *packed,
+                      pooling_layers=(0, 1, 2))
+
+
+def test_mstcnpp_model_forward_kernels_match_plain(dev):
+    from types import SimpleNamespace
+
+    from mucon_tpu_torch.cli.predict import collate_videos
+
+    model = create_model(6, 9, 24, device=dev, seed=2, ft_type="mstcnpp", stages=(0,) * 7,
+                         pooling_layers=(1, 2), last_gn_num_groups=8, lstm_hidden_size=32)
+    db = SimpleNamespace(max_transcript_length=8, sos_token_id=7, eos_token_id=6)
+    rng = np.random.default_rng(0)
+    feats = [rng.standard_normal((t, 24), dtype=np.float32) for t in (200, 77, 131)]
+    arrays = batch_to_tensors(collate_videos(feats, ["a", "b", "c"], db, 64), dev)
+    cuda.reset_launch_counts()
+    fk = model.forward(arrays, use_kernels=True)
+    counts = dict(cuda.launch_counts)
+    fp = model.forward(arrays, use_kernels=False)
+    assert counts["mstcnpp_stack"] == 8 and counts["wavenet_layer"] == 0
+    assert counts["bilstm_recurrence"] == 1
+    assert cuda.launch_counts == counts  # the plain path launches nothing
+    for f in ("transcript", "lengths", "segmentation_z"):
+        a, b = getattr(fk, f), getattr(fp, f)
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item()), f
+
+
+# 11 layers (d up to 1024), pools after 0, 2, 5 and 8: T = 96 -> 48 -> 24 -> 12
+# -> 6; one chunk, three, or one a layer; a fully masked video; B = 1; exact
+# ties in layer 0's pool (its 1x1 conv zeroed over pairs of equal frames)
+@pytest.mark.parametrize("chunks,lengths,leaky,drop,tie", [
+    (1, (96, 50, 0), False, 0.25, False),
+    (3, (96,), True, 0.0, False),
+    (11, (96, 71), False, 0.25, True),
+])
+def test_wavenet_train_v2_kernels_edges(dev, chunks, lengths, leaky, drop, tie):
+    stages, pools = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024), (0, 2, 5, 8)
+    block = WaveNetBlock(16, stages, 128, pools, "max", leaky)
+    g = _init(block, 9)
+    B, T = len(lengths), 96
+    lengths = torch.tensor(lengths, device=dev)
+    t_ins, _, _, t_fin = stack_plan(stages, pools, T)
+    mgen = torch.Generator(device=dev).manual_seed(1)
+    masks = None if drop == 0.0 else [dropout_mask(mgen, drop, (B, t, 128), dev) for t in t_ins]
+    x = torch.relu(torch.randn(B, T, 128, generator=g))
+    weights = [w.detach().clone() for w in pack_wavenet_params(block)]
+    if tie:
+        x[:, 1::2] = x[:, 0::2]
+        weights[2][0] = 0.0
+        weights[3][0] = 0.0
+    x, weights = x.to(dev), [w.to(dev) for w in weights]
+    gz = torch.randn(B, t_fin, 128, generator=g).to(dev)
+    kw = dict(stages=stages, pooling_layers=pools, leaky=leaky)
+
+    def run(fn, **extra):
+        xs = [t.clone().requires_grad_() for t in (x, *weights)]
+        z, tz = fn(xs[0], lengths, *xs[1:], drop_masks=masks, **kw, **extra)
+        z.backward(gz)
+        return z.detach(), tz, [t.grad for t in xs]
+
+    before = dict(cuda.launch_counts)
+    zk, tk, gk = run(wavenet_stack_train_v2, sweep_chunks=chunks)
+    n = len(chunk_bounds(len(stages), chunks))
+    assert cuda.launch_counts["wavenet_train_v2_fwd"] == \
+        before["wavenet_train_v2_fwd"] + (1 if masks is None else n)
+    assert cuda.launch_counts["wavenet_train_v2_sweep"] == before["wavenet_train_v2_sweep"] + n
+    _, _, gk_again = run(wavenet_stack_train_v2, sweep_chunks=chunks)
+    assert all(torch.equal(a, b) for a, b in zip(gk, gk_again))
+    zp, tp, gp = run(wavenet_stack_train_plain, pooling_type="max")
+    assert torch.equal(tk, tp) and zk.shape == (B, t_fin, 128)
+    _close([zk], [zp], 1e-4)
+    _grads_close(gk, gp)
+    # the v3 kernels do the same arithmetic in the same order
+    z3, _, g3 = run(wavenet_stack_train, pooling_type="max")
+    assert torch.equal(zk, z3) and all(torch.equal(a, b) for a, b in zip(gk, g3))
+    if lengths[-1] == 0:
+        assert torch.all(gk[0][-1] == 0) and torch.all(zk[-1] == 0)
