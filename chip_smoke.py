@@ -12,7 +12,9 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
 3. checks each serving kernel against its plain PyTorch twin at the default model's
    full width (B=128, T=2560, C=128, 11 layers; Tz=160, H=128; K=85, N=30,
    L=66), the WaveNet stack and the MS-TCN++ stage (`ft_type="mstcnpp"`,
-   the same widths) both, and times both with CUDA events;
+   the same widths; also with one video of length 0 and with no padding,
+   and the share of its row tiles that lie past a video's length) both, and
+   times both with CUDA events;
 4. serves two requests through `predict_videos` (the bench eval batch of 128
    videos of 1500-2100 frames, and 3 videos of 517/1203/2100 frames) with
    the kernels and with the plain path, for the WaveNet model and for the
@@ -20,7 +22,9 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    other backbone's) and that both paths agree, and times both;
 5. trains: checks the seven train kernels (the WaveNet stack's forward and
    backward sweep, the BiLSTM recurrence with its cell stash and its
-   reverse chain, the teacher-forced decoder chain's forward and reverse
+   reverse chain — the parallel coefficient pass against its own plain
+   twin, two calls bit for bit, and the cluster chain's time per step with
+   and without the dw_hh einsum — the teacher-forced decoder chain's forward and reverse
    chain, the fused flint loss) against their plain twins at the default
    model's width (B=8, T=2560, dropout 0.25; the decoder chain also at
    B=2, Tz=640), and the v2 trainable stack's two kernels (three chunks)
@@ -107,9 +111,13 @@ TRAIN_B, TRAIN_STEPS, MSTCNPP_STEPS, DROP = 8, 3, 3, 0.25
 # entries, relative L2 2e-4, max abs 0.15% of max|plain|).  It still fails
 # an error confined to a few entries, which relative L2 alone cannot see.
 FWD_BOUND, GRAD_BOUND, GRAD_MAX_BOUND = 1e-4, 1e-3, 1e-2
-# the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s and f32
-# operations/s outside the tensor cores (every kernel here is f32 FMA code)
-HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s, f32
+# operations/s outside the tensor cores (f32 FMA code) and dense TF32
+# operations/s on them.  A matrix-product kernel with f32 parity on the
+# tensor cores pays three TF32 products per f32 product (hi/lo split
+# operands, `mucon_tpu_torch/ops/tf32.py`): its least time is its f32
+# operations over a third of the TF32 peak, 165 TFLOP/s.
+HBM_BYTES_PER_S, F32_OPS_PER_S, TF32_OPS_PER_S = 3.35e12, 67e12, 495e12
 
 
 def say(msg: str) -> None:
@@ -155,15 +163,22 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def report(err, ms, plain_ms, moved: float, ops: float, library_ms=None) -> dict:
+def report(err, ms, plain_ms, moved: float, ops: float, library_ms=None,
+           tf32x3: bool = False) -> dict:
     """A kernel's line of the report.  bound_ms, the least time the card
     could take for the same work, is the larger of the bytes the function
     must move (its inputs read once, its outputs written once, counting
     only the valid frames and steps of this run's data) over HBM's rate
-    and its f32 operations on this data over the f32 peak."""
-    bytes_ms, ops_ms = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * ops / F32_OPS_PER_S
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+    and its f32 operations on this data over the f32 peak; with `tf32x3`
+    (a matrix-product kernel on the tensor cores) over a third of the TF32
+    peak.  A kernel faster than its bound is a fault of the bound: fails."""
+    ops_rate = TF32_OPS_PER_S / 3 if tf32x3 else F32_OPS_PER_S
+    bytes_ms, ops_ms = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * ops / ops_rate
+    bound_ms = max(bytes_ms, ops_ms)
+    expect(ms >= bound_ms, f"a kernel's time {ms} ms is below its bound {bound_ms} ms")
+    by_ops = "operations (3xTF32)" if tf32x3 else "operations"
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes" if bytes_ms >= ops_ms else by_ops,
                 library_ms=library_ms)
 
 
@@ -235,6 +250,7 @@ def check_mstcnpp(model, gen, dev):
     """Kernel M: the MS-TCN++ stage after its in-projection, against its
     plain twin at full width."""
     import torch
+    from mucon_tpu_torch import cuda
     from mucon_tpu_torch.models.layers import mask_time
     from mucon_tpu_torch.ops.mstcnpp_stack import (
         mstcnpp_stack, mstcnpp_stack_plain, pack_mstcnpp_params,
@@ -256,10 +272,33 @@ def check_mstcnpp(model, gen, dev):
                              lambda: mstcnpp_stack_plain(*args, **kw), reps=5)
     say(f"kernel mstcnpp_stack B={B} T={T} C={C} L={L}: max abs err {err:.3e} <= "
         f"{bound:.3e} (1e-4 * max|plain|); {ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    # tiles the grid holds against tiles at or past their video's length
+    tm = cuda.mstcnpp_tile_rows()
+    tiles = skipped = 0
+    t, lens = T, lengths.cpu()
+    for i in range(L + 1):  # the L layers and the out-projection
+        n = -(-t // tm)
+        tiles += B * n
+        skipped += int((n - torch.minimum(-(-lens // tm), torch.tensor(n))).sum())
+        if i in ft.pooling_layers:
+            t, lens = t // 2, lens // 2
+    say(f"kernel mstcnpp_stack: {skipped} of {tiles} tiles of {tm} rows lie past their "
+        f"video's length and are skipped ({100 * skipped / tiles:.1f}%)")
+    # a video of length 0 among the others, and no padding at all
+    for tag, lens in (("one length 0", torch.cat([lengths[:1] * 0, lengths[1:]])),
+                      ("all lengths = T", torch.full_like(lengths, T))):
+        edge = (mask_time(x, lens), lens, *args[2:])
+        zk, tk = mstcnpp_stack(*edge, **kw)
+        zp, tp = mstcnpp_stack_plain(*edge, **kw)
+        e, bd = (zk - zp).abs().max().item(), 1e-4 * zp.abs().max().item()
+        ok = torch.equal(tk, tp) and e <= bd and (int(lens[0]) or not zk[0].any().item())
+        expect(ok, f"mstcnpp_stack, {tag}: max abs err {e} > {bd}, or a padded row not 0")
+        edge_ms = cuda_ms(lambda: mstcnpp_stack(*edge, **kw), reps=5)
+        say(f"kernel mstcnpp_stack, {tag}: max abs err {e:.3e} <= {bd:.3e}; {edge_ms:.3f} ms")
     rows, rows_fin = stack_rows(range(L), ft.pooling_layers, lengths)
     # 12 launches: per valid row two k=3 convs and a 2C -> C 1x1, then the out-projection
     return report(err, ms, plain_ms, 4 * C * (rows[0] + rows_fin) + nbytes(*args[1:]),
-                  16 * C * C * sum(rows) + 2 * C * C * rows_fin)
+                  16 * C * C * sum(rows) + 2 * C * C * rows_fin, tf32x3=True)
 
 
 def check_bilstm(model, gen, dev):
@@ -754,11 +793,12 @@ def check_wavenet_train_v2(model, arrays, gen, dev):
 
 def check_bilstm_train(model, gen, dev):
     """Kernel B: the recurrence with its cell stash and the reverse chain
-    (dxp, and dw_hh from it) against the plain twin under autograd."""
+    (dxp, and dw_hh from it) against the plain twin under autograd; the
+    chain's parallel coefficient pass against its own plain twin."""
     import torch
     from mucon_tpu_torch import cuda
     from mucon_tpu_torch.ops.lstm_recurrence import (
-        BiLSTMRecurrenceTrain, bilstm_recurrence_plain,
+        BiLSTMRecurrenceTrain, bilstm_bwd_coefs_plain, bilstm_recurrence_plain,
     )
 
     lstm = model.net.fs_encoder_lstm
@@ -785,6 +825,16 @@ def check_bilstm_train(model, gen, dev):
     bwd_err = held("bilstm_train_bwd", list(zip(("dxp", "dw_hh"), gk, gp)), grads=True)
 
     outs, _, _, cs = outk
+    with torch.no_grad():
+        coefs = cuda.bilstm_bwd_coefs(xp, m, w_hh, outs, cs)
+        held("bilstm_train_bwd coefficient pass",
+             list(zip(("A", "Ci", "Cf", "Cg", "Co", "F"), coefs,
+                      bilstm_bwd_coefs_plain(xp, m, w_hh, outs, cs))), grads=False)
+        twice = [cuda.bilstm_train_backward(xp, m, w_hh, outs, cs, *cts) for _ in range(2)]
+        expect(torch.equal(*twice), "bilstm_train_bwd: two calls of the same inputs differ")
+        say("kernel bilstm_train_bwd: two calls of the same inputs agree bit for bit")
+        coefs_ms = cuda_ms(lambda: cuda.bilstm_bwd_coefs(xp, m, w_hh, outs, cs), reps=10)
+        chain_ms = cuda_ms(lambda: cuda.bilstm_bwd_chain(coefs, m, w_hh, *cts), reps=10)
     h_prev = torch.cat([torch.zeros_like(outs[:1]), outs[:-1]])
 
     def kernel_bwd():
@@ -802,8 +852,11 @@ def check_bilstm_train(model, gen, dev):
     x = torch.randn(B, T, H, generator=gen).to(dev)
     lib_ms = [lstm_library_ms(x, tz, H, backward) for backward in (False, True)]
     say(f"kernel bilstm_train_fwd Tz={T} B={B} H={H}: {fwd_ms[0]:.3f} ms vs plain "
-        f"{fwd_ms[1]:.3f} ms; bilstm_train_bwd (chain + dw_hh einsum) {bwd_ms[0]:.3f} ms "
-        f"= {1000 * bwd_ms[0] / T:.2f} us/step vs plain autograd {bwd_ms[1]:.3f} ms; "
+        f"{fwd_ms[1]:.3f} ms; bilstm_train_bwd (coefficient pass + chain + dw_hh einsum) "
+        f"{bwd_ms[0]:.3f} ms = {1000 * bwd_ms[0] / T:.2f} us/step vs plain autograd "
+        f"{bwd_ms[1]:.3f} ms; alone, the coefficient pass {coefs_ms:.3f} ms and the cluster "
+        f"chain (width {cuda.load().mucon_bilstm_chain_width(H)}) {chain_ms:.3f} ms = "
+        f"{1000 * chain_ms / T:.2f} us/step; "
         f"cuDNN nn.LSTM (with the input projection) forward {lib_ms[0]:.3f} ms, "
         f"backward {lib_ms[1]:.3f} ms")
     nv = int(m.sum())  # valid steps of one direction

@@ -21,23 +21,45 @@
 // Training (replaces `_bilstm_train_fwd_kernel` / `_bilstm_train_call` and
 // `_bilstm_bwd_kernel` / `_bilstm_train_bwd_rule`, lstm_pallas.py:137, :249,
 // :177, :275): the same forward kernel also writes the cell trajectory cs
-// [T, 2, B, H] when given a pointer; `bilstm_bwd_kernel` runs the reverse
-// (dh, dc) chain over t = T-1 .. 0 per direction and batch tile:
+// [T, 2, B, H] when given a pointer.  The reverse (dh, dc) chain over
+// t = T-1 .. 0 is two kernels:
 //
-//   replay the gates from h_prev = outs[t-1], c_prev = cs[t-1] (0 at t = 0)
-//   dh_t = dh + douts[t];  split by the freeze mask m into the step's share
-//   (m dh_t, m dc) and the carried share ((1-m) dh_t, (1-m) dc)
-//   dxp[t] = dgate = (di i(1-i), df f(1-f), dg (1-g^2), do o(1-o))
-//   dh <- dgate w_hh^T + (1-m) dh_t,  dc <- dct f + (1-m) dc
+// 1. `bilstm_coefs_kernel`, parallel over every (t, dir, b) on the whole
+//    card.  h_prev = outs[t-1] and c_prev = cs[t-1] are stashed for every t
+//    (0 at t = 0), so the gate replay is not sequential: it computes
+//    gates = xp[t] + h_prev w_hh, i, f, o = sigmoid, g = tanh,
+//    tc = tanh(f c_prev + i g), and writes the six factors of the chain with
+//    the freeze mask m folded in, coefs [6, T, 2, B, H]:
+//      A = m o (1 - tc^2)   Ci = g i (1 - i)   Cf = c_prev f (1 - f)
+//      Cg = i (1 - g^2)     Co = m tc o (1 - o)   F = f
+// 2. `bilstm_chain_kernel`, the sequential part, one thread-block cluster
+//    per (direction, tile of BT videos):
+//      dht = dh + douts[t];  dct = dht A + m dc
+//      dxp[t] = dgate = (dct Ci, dct Cf, dct Cg, dht Co)
+//      dc <- dct F + (1-m) dc;  dh <- dgate w_hh^T + (1-m) dht
+//    (a padded step, m = 0, has dgate = 0 and passes dh + douts[t] and dc on
+//    unchanged).  CTA r of a cluster of CL owns the HS = H / CL columns j of
+//    dh and dc and keeps its [4H x HS] slice of w_hh^T in REGISTERS for all
+//    T steps: thread (q, j) holds the gate rows [q GPQ, (q+1) GPQ) of column
+//    j, read once from w_hh (contiguous there, so no transposed copy).
+//    dgate's columns {j, H+j, 2H+j, 3H+j} depend on the owner's dh[j] and
+//    dc[j] alone, so each step the owner computes them, writes them to dxp
+//    and into every CTA's dgate buffer through distributed shared memory;
+//    one cluster barrier (two dgate buffers, so one barrier a step is
+//    enough); then every thread's partial product of its gate rows for the
+//    BT videos from shared memory, and the partial sums added in a fixed
+//    order (no atomics: two calls agree bit for bit).  No weight traffic,
+//    one cluster barrier and one `__syncthreads` in a step.  The next step's
+//    coefficients are loaded before the barrier.  CL follows from H
+//    (`chain_plan`): 8 at H = 128 (HS = 16, 32 weights a thread), 1 where H
+//    is too small to split.
 //
-// dgate w_hh^T reads w_hh along its rows; the wrapper passes a transposed
-// copy w_hh^T [2, 4H, H] so that thread j (an output column) reads it
-// coalesced, with the 4H-long sum split over 4 thread groups and added in
-// shared memory.  Both products of a step are in the kernel; the w_hh
-// gradient (a sum over T of h_prev^T dgate) is left to the caller, as the
-// JAX package leaves it to XLA.
+// The w_hh gradient (a sum over T of h_prev^T dgate) is left to the caller,
+// as the JAX package leaves it to XLA.
 
 #include <cuda_runtime.h>
+
+#include "cluster.cuh"
 
 namespace {
 
@@ -110,117 +132,202 @@ __global__ void bilstm_kernel(const float* __restrict__ xp,    // [T, 2, B, 4H]
   }
 }
 
-__global__ void bilstm_bwd_kernel(const float* __restrict__ xp,     // [T, 2, B, 4H]
-                                  const float* __restrict__ m,      // [T, B]
-                                  const float* __restrict__ w_hh,   // [2, H, 4H]
-                                  const float* __restrict__ w_hht,  // [2, 4H, H]
-                                  const float* __restrict__ outs,   // [T, 2, B, H]
-                                  const float* __restrict__ cs,     // [T, 2, B, H]
-                                  const float* __restrict__ douts,  // [T, 2, B, H]
-                                  const float* __restrict__ dh_fin, // [2, B, H]
-                                  const float* __restrict__ dc_fin, // [2, B, H]
-                                  float* __restrict__ dxp,          // [T, 2, B, 4H]
-                                  int T, int B, int H) {
-  extern __shared__ float sm[];
+constexpr int RB = 8;     // (t, b) rows per CTA of the coefficient pass
+constexpr int NTC = 256;  // threads per CTA of the chain
+
+// The chain's six factors for every (t, dir, b, j) at once: a tiled
+// [T B x H] x [H x 4H] product per direction (each thread the four gate
+// columns of one j for RB rows), then the activations.  Same arithmetic and
+// order as the forward kernel's step, so the replayed gates are its gates.
+__global__ void bilstm_coefs_kernel(const float* __restrict__ xp,    // [T, 2, B, 4H]
+                                    const float* __restrict__ m,     // [T, B]
+                                    const float* __restrict__ w_hh,  // [2, H, 4H]
+                                    const float* __restrict__ outs,  // [T, 2, B, H]
+                                    const float* __restrict__ cs,    // [T, 2, B, H]
+                                    float* __restrict__ coefs,       // [6, T, 2, B, H]
+                                    int T, int B, int H) {
+  extern __shared__ float sm[];  // [RB][H] h_prev
   const int G = 4 * H;
-  float* hp = sm;            // [BT][H] h_prev
-  float* cp = hp + BT * H;   // [BT][H] c_prev
-  float* dh = cp + BT * H;   // [BT][H] carried dh
-  float* dc = dh + BT * H;   // [BT][H] carried dc
-  float* gs = dc + BT * H;   // [BT][G] gates, then dgate
-  float* red = gs + BT * G;  // [4][BT][H] partial sums of dgate w_hh^T
-
   const int dir = blockIdx.y;
-  const int b0 = blockIdx.x * BT;
-  const int nb = min(BT, B - b0);
+  const int row_first = blockIdx.x * RB;
+  const int rows = T * B;
   const float* w = w_hh + (size_t)dir * H * G;
-  const float* wt = w_hht + (size_t)dir * G * H;
 
-  for (int i = threadIdx.x; i < nb * H; i += blockDim.x) {
-    const int r = i / H, j = i - r * H;
-    dh[i] = dh_fin[((size_t)dir * B + b0 + r) * H + j];
-    dc[i] = dc_fin[((size_t)dir * B + b0 + r) * H + j];
+  for (int i = threadIdx.x; i < RB * H; i += blockDim.x) {
+    const int r = i / H, k = i - r * H;
+    const int row = row_first + r;
+    const int t = row / B, bb = row - t * B;
+    sm[i] = (row < rows && t > 0) ? outs[(((size_t)(t - 1) * 2 + dir) * B + bb) * H + k] : 0.f;
   }
+  __syncthreads();
+  const size_t plane = (size_t)T * 2 * B * H;
+  for (int j = threadIdx.x; j < H; j += blockDim.x) {
+    float acc[RB][4];
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+#pragma unroll 2
+    for (int k = 0; k < H; ++k) {
+      float wv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) wv[q] = __ldg(w + (size_t)k * G + q * H + j);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float h = sm[r * H + k];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(h, wv[q], acc[r][q]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const int row = row_first + r;
+      if (row >= rows) break;
+      const int t = row / B, bb = row - t * B;
+      const size_t o = (((size_t)t * 2 + dir) * B + bb) * H + j;
+      const float* xr = xp + (((size_t)t * 2 + dir) * B + bb) * G;
+      const float ig = sigmoidf(xr[j] + acc[r][0]);
+      const float fg = sigmoidf(xr[H + j] + acc[r][1]);
+      const float gg = tanhf(xr[2 * H + j] + acc[r][2]);
+      const float og = sigmoidf(xr[3 * H + j] + acc[r][3]);
+      const float c_prev = t > 0 ? cs[o - (size_t)2 * B * H] : 0.f;
+      const float tc = tanhf(fg * c_prev + ig * gg);
+      const float mt = m[(size_t)t * B + bb];
+      coefs[o] = mt * og * (1.f - tc * tc);
+      coefs[plane + o] = gg * ig * (1.f - ig);
+      coefs[2 * plane + o] = c_prev * fg * (1.f - fg);
+      coefs[3 * plane + o] = ig * (1.f - gg * gg);
+      coefs[4 * plane + o] = mt * tc * og * (1.f - og);
+      coefs[5 * plane + o] = fg;
+    }
+  }
+}
+
+// How the chain splits a hidden size H over a cluster: CL CTAs of HS = H / CL
+// columns; NQ = NTC / HS thread groups of GPQ gate rows each (a multiple of
+// 4, at most 128: the weights a thread keeps in registers).
+struct ChainPlan {
+  int cl, hs, nq, gpq;
+};
+
+bool chain_plan(int H, ChainPlan& p) {
+  p.cl = 1;
+  for (int c = 8; c > 1; c /= 2)
+    if (H % c == 0 && H / c >= 16) {
+      p.cl = c;
+      break;
+    }
+  p.hs = H / p.cl;
+  if (H <= 0 || BT * p.hs > NTC) return false;  // one thread per (video, column)
+  p.nq = NTC / p.hs;
+  p.gpq = ((4 * H + p.nq - 1) / p.nq + 3) & ~3;
+  return p.gpq <= 128;
+}
+
+// One cluster per (direction, batch tile); grid (CL, tiles, 2), cluster (CL, 1, 1).
+template <int WPT>  // weights per thread: >= gpq
+__global__ void __launch_bounds__(NTC) bilstm_chain_kernel(
+    const float* __restrict__ coefs,   // [6, T, 2, B, H]
+    const float* __restrict__ m,       // [T, B]
+    const float* __restrict__ w_hh,    // [2, H, 4H]
+    const float* __restrict__ douts,   // [T, 2, B, H]
+    const float* __restrict__ dh_fin,  // [2, B, H]
+    const float* __restrict__ dc_fin,  // [2, B, H]
+    float* __restrict__ dxp,           // [T, 2, B, 4H]
+    int T, int B, int H, int hs, int nq, int gpq) {
+  extern __shared__ float4 sm4[];
+  const int G = 4 * H;
+  float* dg = reinterpret_cast<float*>(sm4);  // [2][BT][G] dgate of a step, all columns
+  float* red = dg + 2 * BT * G;                // [nq][BT][hs] partial sums
+
+  const int cl = gridDim.x;
+  const int j0 = cluster::cluster_rank() * hs;
+  const int b0 = blockIdx.y * BT;
+  const int dir = blockIdx.z;
+  const int tid = threadIdx.x;
+
+  // product role: gate rows [g0, g1) of column j0 + pj, weights in registers
+  const bool prod = tid < nq * hs;
+  const int pj = tid % hs, kq = tid / hs;
+  const int g0 = kq * gpq, g1 = min(G, g0 + gpq);
+  float wreg[WPT];
+#pragma unroll
+  for (int i = 0; i < WPT; ++i)
+    wreg[i] = (prod && g0 + i < g1) ? w_hh[((size_t)dir * H + j0 + pj) * G + g0 + i] : 0.f;
+
+  // element role: (dh, dc) of video b0 + eb, column j0 + ej
+  const int eb = tid / hs, ej = tid - eb * hs;
+  const int bb = b0 + eb, j = j0 + ej;
+  const bool active = tid < BT * hs && bb < B;
+  float dh = 0.f, dc = 0.f;
+  if (active) {
+    dh = dh_fin[((size_t)dir * B + bb) * H + j];
+    dc = dc_fin[((size_t)dir * B + bb) * H + j];
+  }
+  for (int i = tid; i < 2 * BT * G; i += NTC) dg[i] = 0.f;  // rows of absent videos stay 0
+  cluster::cluster_sync();  // before any peer writes here
+
+  const size_t plane = (size_t)T * 2 * B * H;
+  float cf[6] = {}, dout = 0.f, mt = 0.f;  // the step's factors, loaded a step ahead
+  auto fetch = [&](int t) {
+    const size_t o = (((size_t)t * 2 + dir) * B + bb) * H + j;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) cf[k] = __ldg(coefs + k * plane + o);
+    dout = __ldg(douts + o);
+    mt = __ldg(m + (size_t)t * B + bb);
+  };
+  if (active && T > 0) fetch(T - 1);
+
   for (int t = T - 1; t >= 0; --t) {
-    for (int i = threadIdx.x; i < BT * H; i += blockDim.x) {
-      const int r = i / H, j = i - r * H;
-      float hv = 0.f, cv = 0.f;
-      if (t > 0 && r < nb) {
-        const size_t o = (((size_t)(t - 1) * 2 + dir) * B + b0 + r) * H + j;
-        hv = outs[o];
-        cv = cs[o];
+    const int buf = (T - 1 - t) & 1;
+    float dhp = 0.f;
+    if (active) {
+      const float dht = dh + dout;
+      const float dct = dht * cf[0] + mt * dc;
+      const float dq[4] = {dct * cf[1], dct * cf[2], dct * cf[3], dht * cf[4]};
+      dc = dct * cf[5] + (1.f - mt) * dc;
+      dhp = (1.f - mt) * dht;
+      float* dxr = dxp + (((size_t)t * 2 + dir) * B + bb) * G + j;
+      for (int p = 0; p < cl; ++p) {
+        float* pd = cluster::cluster_peer(dg, p) + (buf * BT + eb) * G + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pd[q * H] = dq[q];
       }
-      hp[i] = hv;
-      cp[i] = cv;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dxr[q * H] = dq[q];
+      if (t > 0) fetch(t - 1);
     }
-    __syncthreads();
-    const float* xpt = xp + (((size_t)t * 2 + dir) * B + b0) * G;
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {  // replay the gates
+    cluster::cluster_sync();  // every column of dgate[t] is in every CTA's buffer
+
+    if (prod) {
       float acc[BT];
 #pragma unroll
       for (int r = 0; r < BT; ++r) acc[r] = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float wv = __ldg(w + (size_t)k * G + g);
+      const float* dgb = dg + buf * BT * G + g0;
 #pragma unroll
-        for (int r = 0; r < BT; ++r) acc[r] = fmaf(hp[r * H + k], wv, acc[r]);
+      for (int i = 0; i < WPT; i += 4) {
+        if (g0 + i < g1) {
+#pragma unroll
+          for (int r = 0; r < BT; ++r) {
+            const float4 d = *reinterpret_cast<const float4*>(dgb + r * G + i);
+            acc[r] = fmaf(d.x, wreg[i], acc[r]);
+            acc[r] = fmaf(d.y, wreg[i + 1], acc[r]);
+            acc[r] = fmaf(d.z, wreg[i + 2], acc[r]);
+            acc[r] = fmaf(d.w, wreg[i + 3], acc[r]);
+          }
+        }
       }
 #pragma unroll
-      for (int r = 0; r < BT; ++r)
-        if (r < nb) gs[r * G + g] = xpt[(size_t)r * G + g] + acc[r];
+      for (int r = 0; r < BT; ++r) red[(kq * BT + r) * hs + pj] = acc[r];
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < nb * H; i += blockDim.x) {
-      const int r = i / H, j = i - r * H;
-      float* gr = gs + r * G;
-      const float ig = sigmoidf(gr[j]);
-      const float fg = sigmoidf(gr[H + j]);
-      const float gg = tanhf(gr[2 * H + j]);
-      const float og = sigmoidf(gr[3 * H + j]);
-      const float tc = tanhf(fg * cp[i] + ig * gg);
-      const size_t o = (((size_t)t * 2 + dir) * B + b0 + r) * H + j;
-      const float mt = m[(size_t)t * B + b0 + r];
-      const float dht = dh[i] + douts[o];
-      const float dhn = dht * mt, dcn = dc[i] * mt;
-      const float dct = dhn * og * (1.f - tc * tc) + dcn;
-      const float d_i = dct * gg * ig * (1.f - ig);
-      const float d_f = dct * cp[i] * fg * (1.f - fg);
-      const float d_g = dct * ig * (1.f - gg * gg);
-      const float d_o = dhn * tc * og * (1.f - og);
-      gr[j] = d_i;
-      gr[H + j] = d_f;
-      gr[2 * H + j] = d_g;
-      gr[3 * H + j] = d_o;
-      float* dxr = dxp + (((size_t)t * 2 + dir) * B + b0 + r) * G;
-      dxr[j] = d_i;
-      dxr[H + j] = d_f;
-      dxr[2 * H + j] = d_g;
-      dxr[3 * H + j] = d_o;
-      dc[i] = dct * fg + dc[i] * (1.f - mt);
-      dh[i] = dht * (1.f - mt);
+    if (active) {
+      float s = red[eb * hs + ej];
+      for (int q = 1; q < nq; ++q) s += red[(q * BT + eb) * hs + ej];
+      dh = dhp + s;
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < 4 * H; i += blockDim.x) {  // dgate w_hh^T
-      const int q = i / H, j = i - q * H;
-      float acc[BT];
-#pragma unroll
-      for (int r = 0; r < BT; ++r) acc[r] = 0.f;
-      for (int g = q * H; g < (q + 1) * H; ++g) {
-        const float wv = __ldg(wt + (size_t)g * H + j);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) acc[r] = fmaf(gs[r * G + g], wv, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < BT; ++r) red[(q * BT + r) * H + j] = acc[r];
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nb * H; i += blockDim.x) {
-      const int r = i / H, j = i - r * H;
-      dh[i] += ((red[r * H + j] + red[(BT + r) * H + j]) + red[(2 * BT + r) * H + j]) +
-               red[(3 * BT + r) * H + j];
-    }
-    __syncthreads();
   }
+  cluster::cluster_sync();  // no CTA leaves while a peer may still write to it
 }
 
 int set_smem(const void* fn, size_t bytes) {
@@ -247,22 +354,43 @@ extern "C" int mucon_bilstm_recurrence(const float* xp, const float* m,
   return cudaGetLastError();
 }
 
-// Reverse chain of the training recurrence: dxp [T, 2, B, 4H] from the
-// stashed outs / cs and the cotangents of outs, h_fin and c_fin.
-extern "C" int mucon_bilstm_backward(const float* xp, const float* m,
-                                     const float* w_hh, const float* w_hht,
-                                     const float* outs, const float* cs,
-                                     const float* douts, const float* dh_fin,
-                                     const float* dc_fin, float* dxp, int T, int B,
-                                     int H, cudaStream_t stream) {
-  if (T < 0 || B <= 0 || H <= 0 || 4 * H > 1024) return cudaErrorInvalidValue;
-  const int G = 4 * H;
-  const int threads = ((G + 31) / 32) * 32;
-  const size_t smem = (size_t)(4 * BT * H + BT * G + 4 * BT * H) * sizeof(float);
-  cudaError_t err = (cudaError_t)set_smem((const void*)bilstm_bwd_kernel, smem);
+// The chain's factors coefs [6, T, 2, B, H] (A, Ci, Cf, Cg, Co, F) from the
+// stashed trajectory: the parallel pass of the reverse chain.
+extern "C" int mucon_bilstm_bwd_coefs(const float* xp, const float* m, const float* w_hh,
+                                      const float* outs, const float* cs, float* coefs,
+                                      int T, int B, int H, cudaStream_t stream) {
+  if (T < 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
+  if (T == 0) return cudaSuccess;
+  const int threads = H < 128 ? ((H + 31) / 32) * 32 : 128;
+  const size_t smem = (size_t)RB * H * sizeof(float);
+  cudaError_t err = (cudaError_t)set_smem((const void*)bilstm_coefs_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((B + BT - 1) / BT, 2);
-  bilstm_bwd_kernel<<<grid, threads, smem, stream>>>(xp, m, w_hh, w_hht, outs, cs, douts,
-                                                     dh_fin, dc_fin, dxp, T, B, H);
+  const dim3 grid((T * B + RB - 1) / RB, 2);
+  bilstm_coefs_kernel<<<grid, threads, smem, stream>>>(xp, m, w_hh, outs, cs, coefs, T, B, H);
   return cudaGetLastError();
+}
+
+// The cluster width the chain takes for a hidden size H (0: H is refused).
+extern "C" int mucon_bilstm_chain_width(int H) {
+  ChainPlan p;
+  return chain_plan(H, p) ? p.cl : 0;
+}
+
+// The sequential pass of the reverse chain: dxp [T, 2, B, 4H] from the
+// factors and the cotangents of outs, h_fin and c_fin.
+extern "C" int mucon_bilstm_bwd_chain(const float* coefs, const float* m, const float* w_hh,
+                                      const float* douts, const float* dh_fin,
+                                      const float* dc_fin, float* dxp, int T, int B, int H,
+                                      cudaStream_t stream) {
+  ChainPlan p;
+  if (T < 0 || B <= 0 || !chain_plan(H, p)) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)(2 * BT * 4 * H + p.nq * BT * p.hs) * sizeof(float);
+  const dim3 grid(p.cl, (B + BT - 1) / BT, 2);
+  if (p.gpq <= 32)
+    return cluster::launch_cluster(bilstm_chain_kernel<32>, grid, dim3(NTC), p.cl, smem, stream,
+                                   coefs, m, w_hh, douts, dh_fin, dc_fin, dxp, T, B, H, p.hs,
+                                   p.nq, p.gpq);
+  return cluster::launch_cluster(bilstm_chain_kernel<128>, grid, dim3(NTC), p.cl, smem, stream,
+                                 coefs, m, w_hh, douts, dh_fin, dc_fin, dxp, T, B, H, p.hs,
+                                 p.nq, p.gpq);
 }

@@ -1,0 +1,160 @@
+// Tensor-core building blocks with f32 parity ("3xTF32"), for NVIDIA Hopper
+// (sm_90a; `mma.sync` TF32 and `cp.async` exist from sm_80 on).
+//
+// An f32 product on the tensor cores: each operand x is split into
+//   hi = tf32(x)        (round to nearest, ties away, to a 10-bit mantissa)
+//   lo = tf32(x - hi)   (the next 11 bits; x - hi is exact in f32)
+// (the rounding of cvt.rna.tf32.f32, done on the bits with two integer
+// operations: `cvt` runs at a quarter of their rate,
+// and cost the MS-TCN++ stage 1.2 of 6.2 ms on the H100)
+// and a b is accumulated in f32 as lo_a hi_b + hi_a lo_b + hi_a hi_b (small
+// terms first; lo_a lo_b, of relative size 2^-22, is dropped).  Three
+// `mma.sync.m16n8k8` TF32 products per f32 product: 495 / 3 = 165 TFLOP/s
+// against the FMA pipe's 67.  `ops/tf32.py` states the same arithmetic in
+// PyTorch.
+//
+// Fragment layouts of m16n8k8 (g = lane / 4, t = lane % 4):
+//   A [16 x 8], row-major:  a0 (g, t)   a1 (g + 8, t)   a2 (g, t + 4)   a3 (g + 8, t + 4)
+//   B [ 8 x 8], k x n:      b0 (k = t, n = g)           b1 (k = t + 4, n = g)
+//   C [16 x 8]:             c0 (g, 2t)  c1 (g, 2t + 1)  c2 (g + 8, 2t)  c3 (g + 8, 2t + 1)
+//
+// Shared-memory tiles are f32, row-major, with padded row strides so that a
+// fragment load touches 32 banks: an A tile's stride = 4 (mod 32) floats
+// (bank 4g + t), a B (weight) tile's stride = 8 (mod 32) (bank 8t + g).
+//
+// Also here: the `cp.async` wrappers that fill such tiles (16-byte copies,
+// zero-filled where the source row does not exist).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mma_tf32 {
+
+__device__ __forceinline__ uint32_t cvt_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Build knobs (defaults are what ships; `scripts/probe_mstcnpp_variants.py`
+// times the others):
+//   MMA_TF32_SPLIT     0: both halves by cvt.rna.tf32.f32; 1: by integer
+//                      arithmetic on the bits (add half an ulp of TF32, clear
+//                      the 13 dropped bits: the same rounding for finite x);
+//                      2: as 1, but lo left unrounded (the tensor core reads
+//                      the top 19 bits of an operand: lo is then truncated)
+//   MMA_TF32_PRODUCTS  3: the compensated product; 1: hi_a hi_b alone (plain
+//                      TF32, for timing only: it does not hold f32 parity)
+#ifndef MMA_TF32_SPLIT
+#define MMA_TF32_SPLIT 1
+#endif
+#ifndef MMA_TF32_PRODUCTS
+#define MMA_TF32_PRODUCTS 3
+#endif
+
+// tf32(x) for finite x (an infinity would become a NaN where cvt.rna keeps
+// it; the kernels' operands are finite)
+__device__ __forceinline__ uint32_t round_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+#if MMA_TF32_SPLIT == 0
+  hi = cvt_rna(x);
+  lo = cvt_rna(x - __uint_as_float(hi));
+#elif MMA_TF32_SPLIT == 1
+  hi = round_bits(x);
+  lo = round_bits(x - __uint_as_float(hi));
+#else
+  hi = round_bits(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+#endif
+}
+
+// d += a b for one m16n8k8 block of TF32 fragments
+__device__ __forceinline__ void mma_m16n8k8(float (&d)[4], const uint32_t (&a)[4],
+                                            const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// split A fragment of the 16 x 8 block at (row0, k0) of a row-major tile
+__device__ __forceinline__ void load_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                             const float* A, int lda, int row0, int k0,
+                                             int lane) {
+  const float* p = A + (row0 + (lane >> 2)) * lda + k0 + (lane & 3);
+  split(p[0], hi[0], lo[0]);
+  split(p[8 * lda], hi[1], lo[1]);
+  split(p[4], hi[2], lo[2]);
+  split(p[8 * lda + 4], hi[3], lo[3]);
+}
+
+// split B fragment of the 8 x 8 block at (k0, n0) of a row-major [K][N] tile
+__device__ __forceinline__ void load_b_split(uint32_t (&hi)[2], uint32_t (&lo)[2],
+                                             const float* W, int ldw, int k0, int n0,
+                                             int lane) {
+  const float* p = W + (k0 + (lane & 3)) * ldw + n0 + (lane >> 2);
+  split(p[0], hi[0], lo[0]);
+  split(p[4 * ldw], hi[1], lo[1]);
+}
+
+// acc[mt][nt] += A[a_row0 + 16 mt .., a_col0 .. a_col0 + KC) W[0 .. KC, n0 + 8 nt ..)
+// for one warp: MT x NTL blocks of 16 x 8 outputs, KC a multiple of 8.  The
+// three products of the split run as three passes over all MT x NTL blocks,
+// so that two `mma` into one accumulator lie MT x NTL `mma` apart.
+// (ptxas interleaves the next k-step's loads and splits with this step's
+// `mma` by itself: pipelining them by hand in the source changed nothing.)
+template <int MT, int NTL, int KC>
+__device__ __forceinline__ void warp_gemm(float (&acc)[MT][NTL][4], const float* A, int lda,
+                                          int a_row0, int a_col0, const float* W, int ldw,
+                                          int n0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KC; kk += 8) {
+    uint32_t ah[MT][4], al[MT][4], bh[NTL][2], bl[NTL][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      load_a_split(ah[mt], al[mt], A, lda, a_row0 + 16 * mt, a_col0 + kk, lane);
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt) load_b_split(bh[nt], bl[nt], W, ldw, kk, n0 + 8 * nt, lane);
+#if MMA_TF32_PRODUCTS == 3
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_m16n8k8(acc[mt][nt], al[mt], bh[nt]);
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_m16n8k8(acc[mt][nt], ah[mt], bl[nt]);
+#endif
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_m16n8k8(acc[mt][nt], ah[mt], bh[nt]);
+  }
+}
+
+// 16-byte asynchronous copy global -> shared; zeros when !valid (the source
+// address must still be a mapped one)
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(gmem), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+}  // namespace mma_tf32

@@ -1,234 +1,300 @@
-// Fused MS-TCN++ first stage (eval), one launch per dual-dilation layer plus
-// one for the out-projection, for NVIDIA Hopper (sm_90a).
+// Fused MS-TCN++ first stage (eval) on the tensor cores, one launch per
+// dual-dilation layer plus one for the out-projection, for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel `_mstcnpp_kernel` / `mstcnpp_stack_pallas`
 // (mucon_tpu/ops/mstcnpp_pallas.py:72, :151).  That kernel kept the whole
 // [B x T x C] batch in VMEM and ran all layers in one program; here a CTA owns
-// TM output rows of one video x all C = 128 channels of one layer, as the
-// WaveNet eval kernel (wavenet_stack.cu) does.  Layer i (d1 = 2^(L-1-i),
-// d2 = 2^i):
+// TM = 64 output rows of one video x all C = 128 channels of one layer.
+// Layer i (d1 = 2^(L-1-i), d2 = 2^i):
 //
 //   y1 = f[t-d1] W3a[0] + f[t] W3a[1] + f[t+d1] W3a[2] + b3a
 //   y2 = f[t-d2] W3b[0] + f[t] W3b[1] + f[t+d2] W3b[2] + b3b
 //   f' = relu(y1 W1t + y2 W1b + b1) + f[t], zeroed at t >= length
 //   pool layers: max of row pairs, zeroed at t/2 >= length/2
 //
-// The five input rows of an output row (t-d1, t+d1, t-d2, t+d2 and t) are
-// staged in shared memory; taps outside [0, T) or past the video's length
-// read zeros, so d >= T (d2 = 512, 1024 at T = 160) needs no special case.
-// y1 and y2 go to two shared tiles; the concat-then-1x1 is the two halves
-// of the 2C -> C kernel, summed.  The out-projection launch computes
-// f Wout + bout with NO nonlinearity (unlike WaveNet's), masked.
+// The out-projection launch computes f Wout + bout with NO nonlinearity
+// (unlike WaveNet's), masked.
 //
-// Shared memory per CTA at TM = 32: five tap tiles (80 KiB), two y tiles
-// (32 KiB) and one KC x C weight chunk (16 KiB) = 128 KiB, one CTA per SM.
+// Design.  A layer is eight [TM x C] x [C x C] products whose weights the
+// caller passes as one [8C x C] matrix (W3a, W3b, W1t, W1b stacked), so the
+// kernel is one k-loop over 8C weight rows in chunks of KC = 64:
 //
-// Bound: f32 FMAs on the CUDA cores (16 C^2 operations per valid row and
-// layer, twice WaveNet's), no tensor cores yet.  Plain SIMT tiling: each
-// thread keeps a 4-row x 4-column accumulator tile, weights are staged KC
-// rows at a time and read as float4, input rows are shared-memory broadcasts.
+// * Tensor cores with f32 parity: every product is `mma.sync.m16n8k8` TF32 on
+//   hi/lo-split operands, three products per f32 product (mma_tf32.cuh).
+//   The split is taken as a fragment leaves shared memory: the tiles stay
+//   f32, so a weight chunk costs half the shared memory and L2 traffic of a
+//   pre-split one.  8 warps as 2 x 4, each a 32-row x 32-column output block
+//   (2 x 4 fragments, 32 accumulators): the shape that loads and splits the
+//   fewest fragment elements per `mma` (16 for 24).
+// * Padding is skipped: a CTA whose first row is at or past the video's
+//   length writes its zeros and returns before staging anything.
+// * Three row tiles, not five: t-d1, t, t+d1 are staged first; the t-d1 tile
+//   is refilled with t-d2 once its 128 weight rows are consumed, the t+d1
+//   tile with t+d2 likewise, both by `cp.async` many chunks before their
+//   use.  y1 waits in registers during the d2 conv; then y1 and y2 overwrite
+//   the two outer tiles and re-enter as A operands of the 1x1.
+// * Overlap: weight chunks (and the refills) arrive by `cp.async` into a ring
+//   of STAGES = 2 buffers, the next chunk in flight while this one is
+//   multiplied; one `__syncthreads` per chunk (16 a layer: on the H100,
+//   chunks of 32 rows cost 0.35 ms more per stage call, a deeper ring bought
+//   nothing).
+// * Taps outside [0, T) or past the video's length are zero-filled by the
+//   copy itself, so d >= T (d = 512, 1024 at T = 160) needs no special case.
+//
+// Shared memory per CTA: three row tiles of TM x (C + 4) floats (99 KiB; the
+// stride keeps A-fragment loads conflict-free) and two KC x (C + 8) weight
+// buffers (68 KiB) = 167 KiB: one CTA of 8 warps per SM.  The out-projection
+// holds one row tile and the ring (101 KiB).
+//
+// Bound: the tensor cores at three TF32 products per f32 product (16 C^2
+// f32 operations per valid row and layer).
+//
+// The #define knobs below are for `scripts/probe_mstcnpp_variants.py`, which
+// times other tilings; the defaults are what ships.
 
 #include <cuda_runtime.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
+using namespace mma_tf32;
+
 constexpr int C = 128;                  // channels (the model's hidden_size)
-constexpr int TM = 32;                  // pre-pool output rows per CTA
-constexpr int NT = 256;                 // threads per CTA
-constexpr int KC = 32;                  // weight rows staged per chunk
-constexpr int RPT = TM / (NT / 32);     // rows per thread (4)
-constexpr int LAYER_SMEM = (5 * TM * C + 2 * TM * C + KC * C) * 4;
-constexpr int PROJ_SMEM = (TM * C + KC * C) * 4;
+#ifndef MSTCNPP_TM
+#define MSTCNPP_TM 64
+#endif
+constexpr int TM = MSTCNPP_TM;          // pre-pool output rows per CTA
+#ifndef MSTCNPP_MT
+#define MSTCNPP_MT 2
+#endif
+#ifndef MSTCNPP_KC
+#define MSTCNPP_KC 64
+#endif
+constexpr int MT = MSTCNPP_MT, NTL = 4;  // 16 x 8 fragments per warp
+constexpr int WM = TM / (16 * MT), WN = 128 / (8 * NTL);  // warps along rows, columns
+constexpr int NT = 32 * WM * WN;        // threads per CTA
+constexpr int KC = MSTCNPP_KC;          // weight rows per chunk
+#ifndef MSTCNPP_STAGES
+#define MSTCNPP_STAGES 2
+#endif
+#ifndef MSTCNPP_SKIP_PADDING
+#define MSTCNPP_SKIP_PADDING 1
+#endif
+// (MSTCNPP_SKIP_PADDING 0 multiplies the all-padding tiles too)
+constexpr int STAGES = MSTCNPP_STAGES;  // weight ring depth
+constexpr int LDA = C + 4;              // row tile stride (floats)
+constexpr int LDW = C + 8;              // weight chunk stride (floats)
+constexpr int TILE_F = TM * LDA;
+constexpr int WBUF_F = KC * LDW;
+constexpr int LAYER_SMEM = (3 * TILE_F + STAGES * WBUF_F) * 4;
+constexpr int PROJ_SMEM = (TILE_F + STAGES * WBUF_F) * 4;
+constexpr int LAYER_CHUNKS = 8 * C / KC;  // 8 [C x C] blocks
+constexpr int PROJ_CHUNKS = C / KC;
+constexpr int CPB = C / KC;               // chunks per [C x C] block
 
-static_assert(C == 128, "one warp covers C as 32 lanes x float4");
-static_assert(C % KC == 0 && RPT % 2 == 0, "chunking and row pairs");
+static_assert(C % KC == 0 && KC % 8 == 0 && TM == 16 * MT * WM && C == 8 * NTL * WN, "tiling");
+static_assert(LDA % 32 == 4 && LDW % 32 == 8 && STAGES >= 2, "bank-conflict-free strides");
 
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
-                                           int rows) {
-  const float4* s = reinterpret_cast<const float4*>(src);
-  float4* d = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < rows * (C / 4); i += NT) d[i] = __ldg(s + i);
-}
-
-// acc[r][q] += sum_kk A[row0 + r][a_col0 + kk] * Ws[kk][4 * tx + q]
-__device__ __forceinline__ void mma_chunk(float (&acc)[RPT][4], const float* A,
-                                          int a_col0, const float* Ws, int tx,
-                                          int row0) {
-#pragma unroll 8
-  for (int kk = 0; kk < KC; ++kk) {
-    const float4 w = reinterpret_cast<const float4*>(Ws + kk * C)[tx];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float a = A[(row0 + r) * C + a_col0 + kk];
-      acc[r][0] = fmaf(a, w.x, acc[r][0]);
-      acc[r][1] = fmaf(a, w.y, acc[r][1]);
-      acc[r][2] = fmaf(a, w.z, acc[r][2]);
-      acc[r][3] = fmaf(a, w.w, acc[r][3]);
-    }
+// KC weight rows (row-major, C wide) into one ring buffer
+__device__ __forceinline__ void stage_weights(float* Wb, const float* __restrict__ w) {
+  for (int i = threadIdx.x; i < KC * (C / 4); i += NT) {
+    const int r = i / (C / 4), c4 = i % (C / 4);
+    cp_async16(Wb + r * LDW + 4 * c4, w + (size_t)r * C + 4 * c4, true);
   }
 }
 
-// acc += A[0] W[0] + A[1] W[1] + A[2] W[2] for the three tap tiles A[k]
-// (W [3][C][C] in global memory), one KC-row weight chunk at a time
-__device__ __forceinline__ void conv3_acc(float (&acc)[RPT][4], const float* const (&A)[3],
-                                          float* Ws, const float* __restrict__ w,
-                                          int tx, int row0) {
-  for (int kc = 0; kc < 3 * C; kc += KC) {
-    __syncthreads();  // taps staged / previous chunk consumed
-    stage_rows(Ws, w + (size_t)kc * C, KC);
-    __syncthreads();
-    mma_chunk(acc, A[kc / C], kc % C, Ws, tx, row0);
+// rows t_first .. t_first + TM of one video into a row tile; zeros outside [0, lim)
+__device__ __forceinline__ void stage_rows(float* X, const float* __restrict__ fb,
+                                           int t_first, int lim) {
+  for (int i = threadIdx.x; i < TM * (C / 4); i += NT) {
+    const int r = i / (C / 4), c4 = i % (C / 4);
+    const int t = t_first + r;
+    const bool ok = t >= 0 && t < lim;
+    cp_async16(X + r * LDA + 4 * c4, fb + (size_t)(ok ? t : 0) * C + 4 * c4, ok);
   }
 }
 
-// Y[row0 + r][4 tx + q] = acc + b, then acc = 0
-__device__ __forceinline__ void store_tile(float (&acc)[RPT][4], float* Y,
-                                           const float* __restrict__ b, int tx, int row0) {
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int col = 4 * tx + q;
-      Y[(row0 + r) * C + col] = acc[r][q] + b[col];
-      acc[r][q] = 0.f;
-    }
-}
-
-__global__ void __launch_bounds__(NT) mstcnpp_layer_kernel(
-    const float* __restrict__ f,        // [B, T, C] layer input (masked)
-    float* __restrict__ y,              // [B, T or T/2, C] layer output
-    const int* __restrict__ lengths,    // [B] input frame counts
-    const float* __restrict__ w3a,      // [3, C, C] d1 conv
-    const float* __restrict__ b3a,      // [C]
-    const float* __restrict__ w3b,      // [3, C, C] d2 conv
-    const float* __restrict__ b3b,      // [C]
-    const float* __restrict__ w1t,      // [C, C] top half of the 2C -> C kernel
-    const float* __restrict__ w1b,      // [C, C] bottom half
-    const float* __restrict__ b1,       // [C]
-    int T, int d1, int d2, int len_shift, int pool) {
-  extern __shared__ float4 smem4[];
-  float* Fs = reinterpret_cast<float*>(smem4);  // [5][TM][C] t-d1, t+d1, t-d2, t+d2, t
-  float* Y1 = Fs + 5 * TM * C;                   // [TM][C] y1
-  float* Y2 = Y1 + TM * C;                       // [TM][C] y2
-  float* Ws = Y2 + TM * C;                       // [KC][C] weight chunk
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TM;
-  const int len = lengths[b] >> len_shift;
-  const int tx = threadIdx.x & 31;
-  const int row0 = (threadIdx.x >> 5) * RPT;
-  const float* fb = f + (size_t)b * T * C;
-  const int offs[5] = {-d1, d1, -d2, d2, 0};
-
-  for (int i = threadIdx.x; i < 5 * TM * (C / 4); i += NT) {
-    const int j = i / (TM * C / 4);
-    const int r = (i / (C / 4)) % TM;
-    const int c4 = i % (C / 4);
-    const int t = t0 + r + offs[j];
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t >= 0 && t < T && t < len)
-      v = __ldg(reinterpret_cast<const float4*>(fb + (size_t)t * C) + c4);
-    reinterpret_cast<float4*>(Fs)[i] = v;
-  }
-  const float* center = Fs + 4 * TM * C;
-
-  float acc[RPT][4] = {};
-  // tap order shift(-d) W[0] + x W[1] + shift(+d) W[2] (mstcnpp_pallas.py:60)
-  const float* const taps1[3] = {Fs, center, Fs + TM * C};
-  conv3_acc(acc, taps1, Ws, w3a, tx, row0);
-  store_tile(acc, Y1, b3a, tx, row0);
-  const float* const taps2[3] = {Fs + 2 * TM * C, center, Fs + 3 * TM * C};
-  conv3_acc(acc, taps2, Ws, w3b, tx, row0);
-  store_tile(acc, Y2, b3b, tx, row0);
-
-  for (int kc = 0; kc < 2 * C; kc += KC) {
-    __syncthreads();  // Y1 / Y2 complete / previous chunk consumed
-    stage_rows(Ws, (kc < C ? w1t + (size_t)kc * C : w1b + (size_t)(kc - C) * C), KC);
-    __syncthreads();
-    mma_chunk(acc, kc < C ? Y1 : Y2, kc % C, Ws, tx, row0);
-  }
-
-  float v[RPT][4];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int t = t0 + row0 + r;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int col = 4 * tx + q;
-      const float val = fmaxf(acc[r][q] + b1[col], 0.f) + center[(row0 + r) * C + col];
-      v[r][q] = t < len ? val : 0.f;
-    }
-  }
-
+// the tile's output rows from a finished row tile V (rows >= len already
+// zero); with `pool` the max of row pairs, zeroed at t/2 >= len/2.  V null
+// writes zeros (a tile past the video's length).
+__device__ __forceinline__ void store_rows(float* __restrict__ y, const float* V, int b,
+                                           int t0, int T, int len, int pool) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   if (!pool) {
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int t = t0 + row0 + r;
-      if (t < T)
-        reinterpret_cast<float4*>(y + ((size_t)b * T + t) * C)[tx] =
-            make_float4(v[r][0], v[r][1], v[r][2], v[r][3]);
+    for (int i = threadIdx.x; i < TM * (C / 4); i += NT) {
+      const int r = i / (C / 4), c4 = i % (C / 4);
+      const int t = t0 + r;
+      if (t >= T) break;
+      reinterpret_cast<float4*>(y + ((size_t)b * T + t) * C)[c4] =
+          V ? reinterpret_cast<const float4*>(V + r * LDA)[c4] : zero;
     }
     return;
   }
-  const int T2 = T / 2;
-  const int len2 = len >> 1;
-#pragma unroll
-  for (int r = 0; r < RPT; r += 2) {
-    const int t2 = (t0 + row0 + r) >> 1;
-    if (t2 >= T2) continue;
-    float p[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) p[q] = t2 < len2 ? fmaxf(v[r][q], v[r + 1][q]) : 0.f;
-    reinterpret_cast<float4*>(y + ((size_t)b * T2 + t2) * C)[tx] =
-        make_float4(p[0], p[1], p[2], p[3]);
+  const int T2 = T / 2, len2 = len >> 1;
+  for (int i = threadIdx.x; i < (TM / 2) * (C / 4); i += NT) {
+    const int r2 = i / (C / 4), c4 = i % (C / 4);
+    const int t2 = (t0 >> 1) + r2;
+    if (t2 >= T2) break;
+    float4 p = zero;
+    if (V && t2 < len2) {
+      const float4 a = reinterpret_cast<const float4*>(V + (2 * r2) * LDA)[c4];
+      const float4 c = reinterpret_cast<const float4*>(V + (2 * r2 + 1) * LDA)[c4];
+      p = make_float4(fmaxf(a.x, c.x), fmaxf(a.y, c.y), fmaxf(a.z, c.z), fmaxf(a.w, c.w));
+    }
+    reinterpret_cast<float4*>(y + ((size_t)b * T2 + t2) * C)[c4] = p;
   }
 }
 
-// z = mask(f Wout + bout): the out-projection, no nonlinearity
-__global__ void __launch_bounds__(NT) mstcnpp_proj_kernel(
-    const float* __restrict__ f, float* __restrict__ z, const int* __restrict__ lengths,
-    const float* __restrict__ w_out, const float* __restrict__ b_out, int T, int len_shift) {
+// visits the accumulator elements of this thread: fn(acc element, row, col)
+template <typename Fn>
+__device__ __forceinline__ void for_each_acc(float (&acc)[MT][NTL][4], int row0, int col0,
+                                             int lane, Fn fn) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        fn(acc[mt][nt][e], row0 + 16 * mt + (lane >> 2) + 8 * (e >> 1),
+           col0 + 8 * nt + 2 * (lane & 3) + (e & 1));
+}
+
+__global__ void __launch_bounds__(NT, 1) mstcnpp_layer_kernel(
+    const float* __restrict__ f,        // [B, T, C] layer input (masked)
+    float* __restrict__ y,              // [B, T or T/2, C] layer output
+    const int* __restrict__ lengths,    // [B] input frame counts
+    const float* __restrict__ w,        // [8C, C]: W3a [3C], W3b [3C], W1t [C], W1b [C]
+    const float* __restrict__ b3a,      // [C]
+    const float* __restrict__ b3b,      // [C]
+    const float* __restrict__ b1,       // [C]
+    int T, int d1, int d2, int len_shift, int pool) {
   extern __shared__ float4 smem4[];
-  float* Fs = reinterpret_cast<float*>(smem4);  // [TM][C]
-  float* Ws = Fs + TM * C;                       // [KC][C]
+  float* X0 = reinterpret_cast<float*>(smem4);  // t-d1, then t-d2, then y1
+  float* XC = X0 + TILE_F;                       // t, then the output rows
+  float* X1 = XC + TILE_F;                       // t+d1, then t+d2, then y2
+  float* Wr = X1 + TILE_F;                       // [STAGES][KC][LDW] weight ring
 
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * TM;
   const int len = lengths[b] >> len_shift;
-  const int tx = threadIdx.x & 31;
-  const int row0 = (threadIdx.x >> 5) * RPT;
-  for (int i = threadIdx.x; i < TM * (C / 4); i += NT) {
-    const int t = t0 + i / (C / 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t < T && t < len)
-      v = __ldg(reinterpret_cast<const float4*>(f + ((size_t)b * T + t) * C) + i % (C / 4));
-    reinterpret_cast<float4*>(Fs)[i] = v;
+  if (MSTCNPP_SKIP_PADDING && t0 >= len) {  // all padding: zeros, nothing staged or multiplied
+    store_rows(y, nullptr, b, t0, T, len, pool);
+    return;
   }
-  float acc[RPT][4] = {};
-  for (int kc = 0; kc < C; kc += KC) {
-    __syncthreads();
-    stage_rows(Ws, w_out + (size_t)kc * C, KC);
-    __syncthreads();
-    mma_chunk(acc, Fs, kc, Ws, tx, row0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = (warp / WN) * (16 * MT), col0 = (warp % WN) * (8 * NTL);
+  const float* fb = f + (size_t)b * T * C;
+  const int lim = min(T, len);
+
+  stage_rows(X0, fb, t0 - d1, lim);
+  stage_rows(XC, fb, t0, lim);
+  stage_rows(X1, fb, t0 + d1, lim);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    stage_weights(Wr + s * WBUF_F, w + (size_t)s * KC * C);
+    cp_async_commit();
   }
+
+  float acc[MT][NTL][4] = {}, y1[MT][NTL][4];
+  for (int c = 0; c < LAYER_CHUNKS; ++c) {
+    cp_async_wait<STAGES - 2>();  // chunk c (and what was staged with it) has landed
+    __syncthreads();              // ... for every thread; chunk c - 1 is consumed
+    const int nc = c + STAGES - 1;
+    if (nc < LAYER_CHUNKS) stage_weights(Wr + (nc % STAGES) * WBUF_F, w + (size_t)nc * KC * C);
+    if (c == CPB) stage_rows(X0, fb, t0 - d2, lim);      // W3a[0] done with t-d1
+    if (c == 3 * CPB) stage_rows(X1, fb, t0 + d2, lim);  // W3a[2] done with t+d1
+    cp_async_commit();
+
+    // block 0..7 of the weight rows: taps -d, 0, +d of each conv, then y1, y2
+    const int blk = c / CPB;
+    const float* A = (blk == 1 || blk == 4) ? XC : (blk % 3 == 0 ? X0 : X1);
+    warp_gemm<MT, NTL, KC>(acc, A, LDA, row0, (c % CPB) * KC, Wr + (c % STAGES) * WBUF_F, LDW,
+                           col0, lane);
+
+    if (c == 3 * CPB - 1) {  // y1 complete: it waits in registers
+      for_each_acc(acc, row0, col0, lane, [&](float& v, int, int col) { v += __ldg(b3a + col); });
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int t = t0 + row0 + r;
-    if (t >= T) continue;
-    float o[4];
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) o[q] = t < len ? acc[r][q] + b_out[4 * tx + q] : 0.f;
-    reinterpret_cast<float4*>(z + ((size_t)b * T + t) * C)[tx] =
-        make_float4(o[0], o[1], o[2], o[3]);
+        for (int nt = 0; nt < NTL; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            y1[mt][nt][e] = acc[mt][nt][e];
+            acc[mt][nt][e] = 0.f;
+          }
+    }
+    if (c == 6 * CPB - 1) {  // y2 complete: y1 and y2 become the 1x1's A tiles
+      __syncthreads();       // every warp is done with t-d2 and t+d2
+      for_each_acc(y1, row0, col0, lane, [&](float& v, int row, int col) {
+        X0[row * LDA + col] = v;
+      });
+      for_each_acc(acc, row0, col0, lane, [&](float& v, int row, int col) {
+        X1[row * LDA + col] = v + __ldg(b3b + col);
+        v = 0.f;
+      });
+    }
   }
+
+  // relu, residual and mask, in place over the center tile (one owner an element)
+  for_each_acc(acc, row0, col0, lane, [&](float& v, int row, int col) {
+    float* x = XC + row * LDA + col;
+    *x = t0 + row < len ? fmaxf(v + __ldg(b1 + col), 0.f) + *x : 0.f;
+  });
+  __syncthreads();
+  store_rows(y, XC, b, t0, T, len, pool);
+}
+
+// z = mask(f Wout + bout): the out-projection, no nonlinearity
+__global__ void __launch_bounds__(NT, 1) mstcnpp_proj_kernel(
+    const float* __restrict__ f, float* __restrict__ z, const int* __restrict__ lengths,
+    const float* __restrict__ w_out, const float* __restrict__ b_out, int T, int len_shift) {
+  extern __shared__ float4 smem4[];
+  float* XC = reinterpret_cast<float*>(smem4);  // [TM][LDA]
+  float* Wr = XC + TILE_F;                       // [STAGES][KC][LDW]
+
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * TM;
+  const int len = lengths[b] >> len_shift;
+  if (MSTCNPP_SKIP_PADDING && t0 >= len) {
+    store_rows(z, nullptr, b, t0, T, len, 0);
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = (warp / WN) * (16 * MT), col0 = (warp % WN) * (8 * NTL);
+
+  stage_rows(XC, f + (size_t)b * T * C, t0, min(T, len));
+  for (int s = 0; s < STAGES - 1; ++s) {
+    stage_weights(Wr + s * WBUF_F, w_out + (size_t)s * KC * C);
+    cp_async_commit();
+  }
+  float acc[MT][NTL][4] = {};
+  for (int c = 0; c < PROJ_CHUNKS; ++c) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int nc = c + STAGES - 1;
+    if (nc < PROJ_CHUNKS) stage_weights(Wr + (nc % STAGES) * WBUF_F, w_out + (size_t)nc * KC * C);
+    cp_async_commit();
+    warp_gemm<MT, NTL, KC>(acc, XC, LDA, row0, c * KC, Wr + (c % STAGES) * WBUF_F, LDW, col0,
+                           lane);
+  }
+  __syncthreads();  // every warp is done reading the input rows
+  for_each_acc(acc, row0, col0, lane, [&](float& v, int row, int col) {
+    XC[row * LDA + col] = t0 + row < len ? v + __ldg(b_out + col) : 0.f;
+  });
+  __syncthreads();
+  store_rows(z, XC, b, t0, T, len, 0);
 }
 
 }  // namespace
 
-// One dual-dilation layer (d1, d2); T must be even when pool = 1.
+// rows a CTA of the stage's kernels owns (a tile past a video's length is skipped)
+extern "C" int mucon_mstcnpp_tile_rows() { return TM; }
+
+// One dual-dilation layer (d1, d2); `w` is the layer's [8C, C] weight matrix
+// (W3a, W3b, W1t, W1b stacked).  T must be even when pool = 1.
 extern "C" int mucon_mstcnpp_layer(const float* f, float* y, const int* lengths,
-                                   const float* w3a, const float* b3a, const float* w3b,
-                                   const float* b3b, const float* w1t, const float* w1b,
+                                   const float* w, const float* b3a, const float* b3b,
                                    const float* b1, int B, int T, int channels, int d1,
                                    int d2, int len_shift, int pool, cudaStream_t stream) {
   if (channels != C || B <= 0 || T <= 0 || (pool && (T % 2))) return cudaErrorInvalidValue;
@@ -236,8 +302,8 @@ extern "C" int mucon_mstcnpp_layer(const float* f, float* y, const int* lengths,
       mstcnpp_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, LAYER_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + TM - 1) / TM, B);
-  mstcnpp_layer_kernel<<<grid, NT, LAYER_SMEM, stream>>>(
-      f, y, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, T, d1, d2, len_shift, pool);
+  mstcnpp_layer_kernel<<<grid, NT, LAYER_SMEM, stream>>>(f, y, lengths, w, b3a, b3b, b1, T, d1,
+                                                         d2, len_shift, pool);
   return cudaGetLastError();
 }
 
@@ -246,6 +312,9 @@ extern "C" int mucon_mstcnpp_proj(const float* f, float* z, const int* lengths,
                                   const float* w_out, const float* b_out, int B, int T,
                                   int channels, int len_shift, cudaStream_t stream) {
   if (channels != C || B <= 0 || T <= 0) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mstcnpp_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PROJ_SMEM);
+  if (err != cudaSuccess) return err;
   const dim3 grid((T + TM - 1) / TM, B);
   mstcnpp_proj_kernel<<<grid, NT, PROJ_SMEM, stream>>>(f, z, lengths, w_out, b_out, T,
                                                        len_shift);

@@ -3,7 +3,8 @@
 On first use the `.cu` sources are compiled with
 `nvcc -O3 -gencode arch=compute_90a,code=sm_90a -shared -Xcompiler -fPIC`
 into one shared library under `<repo>/build/mucon_tpu_torch/`, named by
-the sha256 of the sources and flags (a changed source builds anew).  The
+the sha256 of the sources, the headers (`csrc/*.cuh`) and the flags (a
+changed source or header builds anew).  The
 library exports `extern "C"` launchers that take raw device pointers,
 sizes and a `cudaStream_t` and return the `cudaGetLastError()` of the
 launch; it is loaded with ctypes, so no PyTorch headers are compiled and
@@ -16,6 +17,9 @@ PyTorch's current stream without synchronising, and adds one to
 show that its path went through the kernels.  `wavenet_train_sweep`
 counts one per layer sweep: its C launcher runs that layer's four
 kernels (dz, dx, weight-gradient partials, their fixed-order sum).
+`bilstm_train_bwd` counts one per `bilstm_train_backward` call: that call
+launches the reverse chain's two kernels (the parallel coefficient pass,
+then the cluster chain).
 `wavenet_train_v2_fwd` and `wavenet_train_v2_sweep` count one per chunk:
 each is one cooperative launch over a chunk of layers.
 
@@ -46,7 +50,7 @@ SOURCES = ("wavenet_stack.cu", "bilstm.cu", "viterbi.cu", "wavenet_train.cu",
            "decoder_chain.cu", "mucon_loss.cu", "mstcnpp.cu", "wavenet_train_v2.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mucon_tpu_torch"
 NVCC_FLAGS = (
-    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "-I", str(CSRC),
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNELS = (
@@ -80,10 +84,14 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; returns
     its path.  nvcc's output (including -Xptxas -v register and shared
-    memory use) is kept beside it as `<lib>.log`."""
+    memory use) is kept beside it as `<lib>.log`.  The environment variable
+    MUCON_NVCC_FLAGS adds flags (hashed like the rest)."""
     srcs = [CSRC / s for s in SOURCES]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    # extra flags (the kernels' -D build knobs) for a probe of variants
+    flags = (*NVCC_FLAGS, *os.environ.get("MUCON_NVCC_FLAGS", "").split())
+    # the include path is the checkout's own: hash the flags without it
+    h = hashlib.sha256(" ".join(f for f in flags if f != str(CSRC)).encode())
+    for s in (*srcs, *sorted(CSRC.glob("*.cuh"))):
         h.update(s.name.encode())
         h.update(s.read_bytes())
     lib = BUILD_DIR / f"libmucon_kernels_{h.hexdigest()[:16]}.so"
@@ -94,7 +102,7 @@ def build() -> Path:
     tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
     # one nvcc per source, all at once, then one link
     objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in srcs]
-    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    compile_flags = [f for f in flags if f != "-shared"]
     procs = [
         subprocess.Popen([nvcc, *compile_flags, "-c", "-o", str(o), str(s)],
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -130,12 +138,15 @@ def load() -> ctypes.CDLL:
             lib.mucon_wavenet_train_fwd.argtypes = [P] * 10 + [I] * 8 + [P]
             lib.mucon_wavenet_train_sweep.argtypes = [P] * 16 + [I] * 9 + [P]
             lib.mucon_wavenet_train_splits.argtypes = [I]
-            lib.mucon_bilstm_backward.argtypes = [P] * 10 + [I] * 3 + [P]
+            lib.mucon_bilstm_bwd_coefs.argtypes = [P] * 6 + [I] * 3 + [P]
+            lib.mucon_bilstm_bwd_chain.argtypes = [P] * 7 + [I] * 3 + [P]
+            lib.mucon_bilstm_chain_width.argtypes = [I]
             lib.mucon_decoder_chain_fwd.argtypes = [P] * 16 + [I] * 5 + [P]
             lib.mucon_decoder_chain_bwd.argtypes = [P] * 24 + [I] * 5 + [P]
             lib.mucon_decoder_chain_smem.argtypes = [I] * 3
             lib.mucon_flint.argtypes = [P] * 9 + [I] * 4 + [P]
-            lib.mucon_mstcnpp_layer.argtypes = [P] * 10 + [I] * 7 + [P]
+            lib.mucon_mstcnpp_layer.argtypes = [P] * 7 + [I] * 7 + [P]
+            lib.mucon_mstcnpp_tile_rows.argtypes = []
             lib.mucon_mstcnpp_proj.argtypes = [P] * 5 + [I] * 4 + [P]
             # per-layer pointer and int tables are host arrays
             PP, IP = ctypes.POINTER(P), ctypes.POINTER(I)
@@ -145,7 +156,9 @@ def load() -> ctypes.CDLL:
             for fn in (lib.mucon_wavenet_layer, lib.mucon_bilstm_recurrence,
                        lib.mucon_dense_viterbi, lib.mucon_wavenet_train_fwd,
                        lib.mucon_wavenet_train_sweep, lib.mucon_wavenet_train_splits,
-                       lib.mucon_bilstm_backward, lib.mucon_decoder_chain_fwd,
+                       lib.mucon_bilstm_bwd_coefs, lib.mucon_bilstm_bwd_chain,
+                       lib.mucon_bilstm_chain_width, lib.mucon_mstcnpp_tile_rows,
+                       lib.mucon_decoder_chain_fwd,
                        lib.mucon_decoder_chain_bwd, lib.mucon_decoder_chain_smem,
                        lib.mucon_flint, lib.mucon_mstcnpp_layer, lib.mucon_mstcnpp_proj,
                        lib.mucon_wavenet_train_v2_fwd, lib.mucon_wavenet_train_v2_sweep,
@@ -157,11 +170,13 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def _check_launch(lib, err: int, name: str) -> None:
+def _check_launch(lib, err: int, name: str, count: bool = True) -> None:
+    """Raise on a refused launch; else add one to the kernel's count (not
+    for the first of two kernels that count as one call)."""
     if err != 0:
         msg = lib.mucon_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {err})")
-    launch_counts[name] += 1
+    launch_counts[name] += count
 
 
 def _require(device, dtype, **tensors) -> None:
@@ -396,28 +411,89 @@ def bilstm_train_forward(xp, m, w_hh):
     return _bilstm_forward(xp, m, w_hh, True, "bilstm_train_fwd")
 
 
-def bilstm_train_backward(xp, m, w_hh, outs, cs, douts, dh, dc):
-    """Reverse (dh, dc) chain: dxp [T x 2 x B x 4H] from the stash and the
-    cotangents of (outs, h_fin, c_fin)."""
-    dev, T, B, H = _check_bilstm(xp, m, w_hh)
+# the chain kernel's tiling (csrc/bilstm.cu): videos per cluster, threads per CTA
+BILSTM_CHAIN_BT, BILSTM_CHAIN_THREADS = 8, 256
+
+
+def bilstm_chain_plan(H: int) -> tuple:
+    """How the reverse chain splits a hidden size H (`chain_plan` in
+    csrc/bilstm.cu): (cluster width CL, columns per CTA HS, thread groups
+    NQ, gate rows per group GPQ).  CL is the widest of 8, 4, 2 that leaves
+    each CTA at least 16 columns, else 1.  Raises for an H the kernel does
+    not take: more than 32 columns a CTA (one thread per video and column)
+    or more than 128 weights a thread."""
+    cl = next((c for c in (8, 4, 2) if H % c == 0 and H // c >= 16), 1)
+    hs = H // cl
+    if H < 1 or BILSTM_CHAIN_BT * hs > BILSTM_CHAIN_THREADS:
+        raise ValueError(f"the reverse chain cannot split H={H}: {hs} columns a CTA, "
+                         f"at most {BILSTM_CHAIN_THREADS // BILSTM_CHAIN_BT}")
+    nq = BILSTM_CHAIN_THREADS // hs
+    gpq = (-(-4 * H // nq) + 3) // 4 * 4
+    if gpq > 128:
+        raise ValueError(f"the reverse chain takes at most 128 weights a thread, "
+                         f"H={H} needs {gpq}")
+    return cl, hs, nq, gpq
+
+
+def _check_bilstm_bwd(dev, T, B, H, **tensors):
+    """The reverse chain's H limits and the shapes of its inputs:
+    [T x 2 x B x H] each, but dh and dc [2 x B x H] and coefs
+    [6 x T x 2 x B x H]."""
     if 4 * H > 1024:
         raise ValueError(f"the reverse chain takes 4H <= 1024, got H={H}")
-    for name, t, shape in (("outs", outs, (T, 2, B, H)), ("cs", cs, (T, 2, B, H)),
-                           ("douts", douts, (T, 2, B, H)), ("dh", dh, (2, B, H)),
-                           ("dc", dc, (2, B, H))):
+    bilstm_chain_plan(H)
+    for name, t in tensors.items():
+        shape = {"dh": (2, B, H), "dc": (2, B, H), "coefs": (6, T, 2, B, H)}.get(
+            name, (T, 2, B, H))
         if t.shape != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    _require(dev, torch.float32, outs=outs, cs=cs, douts=douts, dh=dh, dc=dc)
-    w_hht = w_hh.transpose(1, 2).contiguous()  # [2, 4H, H], read along rows
-    dxp = torch.empty_like(xp)
+    _require(dev, torch.float32, **tensors)
+
+
+def bilstm_bwd_coefs(xp, m, w_hh, outs, cs, *, count: bool = True):
+    """The parallel pass of the reverse chain (`ops/lstm_recurrence.py
+    bilstm_bwd_coefs_plain`): coefs [6 x T x 2 x B x H], the chain's factors
+    A, Ci, Cf, Cg, Co, F for every step at once."""
+    dev, T, B, H = _check_bilstm(xp, m, w_hh)
+    _check_bilstm_bwd(dev, T, B, H, outs=outs, cs=cs)
+    coefs = torch.empty(6, T, 2, B, H, device=dev, dtype=torch.float32)
     lib = load()
-    err = lib.mucon_bilstm_backward(
-        xp.data_ptr(), m.data_ptr(), w_hh.data_ptr(), w_hht.data_ptr(),
-        outs.data_ptr(), cs.data_ptr(), douts.data_ptr(), dh.data_ptr(),
-        dc.data_ptr(), dxp.data_ptr(), T, B, H, _stream(dev),
-    )
+    err = lib.mucon_bilstm_bwd_coefs(
+        xp.data_ptr(), m.data_ptr(), w_hh.data_ptr(), outs.data_ptr(), cs.data_ptr(),
+        coefs.data_ptr(), T, B, H, _stream(dev))
+    _check_launch(lib, err, "bilstm_train_bwd", count)
+    return coefs
+
+
+def bilstm_bwd_chain(coefs, m, w_hh, douts, dh, dc):
+    """The sequential pass (`bilstm_bwd_chain_plain`) on a thread-block
+    cluster per direction and 8 videos: dxp [T x 2 x B x 4H]."""
+    dev = _cuda_device(douts)
+    if douts.dim() != 4 or douts.shape[1] != 2:
+        raise ValueError(f"douts must be [T x 2 x B x H], got {tuple(douts.shape)}")
+    T, _, B, H = douts.shape
+    if m.shape != (T, B) or w_hh.shape != (2, H, 4 * H):
+        raise ValueError(f"bad shapes m {tuple(m.shape)} w_hh {tuple(w_hh.shape)} for "
+                         f"douts {tuple(douts.shape)}")
+    _require(dev, torch.float32, m=m, w_hh=w_hh)
+    _check_bilstm_bwd(dev, T, B, H, coefs=coefs, douts=douts, dh=dh, dc=dc)
+    dxp = torch.empty(T, 2, B, 4 * H, device=dev, dtype=torch.float32)
+    lib = load()
+    err = lib.mucon_bilstm_bwd_chain(
+        coefs.data_ptr(), m.data_ptr(), w_hh.data_ptr(), douts.data_ptr(), dh.data_ptr(),
+        dc.data_ptr(), dxp.data_ptr(), T, B, H, _stream(dev))
     _check_launch(lib, err, "bilstm_train_bwd")
     return dxp
+
+
+def bilstm_train_backward(xp, m, w_hh, outs, cs, douts, dh, dc):
+    """Reverse (dh, dc) chain: dxp [T x 2 x B x 4H] from the stash and the
+    cotangents of (outs, h_fin, c_fin).  Two kernels, counted as one
+    `bilstm_train_bwd` launch: the coefficient pass over all steps at once
+    (`bilstm_bwd_coefs`, into scratch allocated here), then the cluster
+    chain (`bilstm_bwd_chain`)."""
+    coefs = bilstm_bwd_coefs(xp, m, w_hh, outs, cs, count=False)
+    return bilstm_bwd_chain(coefs, m, w_hh, douts, dh, dc)
 
 
 def dense_viterbi(W, pois, k_valid, n_valid, frame_sampling: int, max_len: int):
@@ -559,11 +635,18 @@ def mucon_flint(scale, xloc, sdiv, seg, target, n_len, t_valid, class_weights=No
     return out
 
 
+def mstcnpp_tile_rows() -> int:
+    """Rows of a video that one CTA of the MS-TCN++ kernels owns; a tile whose
+    first row is at or past the video's length is skipped."""
+    return load().mucon_mstcnpp_tile_rows()
+
+
 def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
                   pooling_layers):
     """The eval MS-TCN++ stage of `ops/mstcnpp_stack.py` on the card: one
     `mstcnpp_stack` launch per layer (d1 = 2^(L-1-i), d2 = 2^i) and one for
-    the out-projection.  x [B x T x 128] f32 -> (z [B x T/2^p x 128],
+    the out-projection, each on the tensor cores in error-compensated TF32
+    (`ops/tf32.py`).  x [B x T x 128] f32 -> (z [B x T/2^p x 128],
     lengths >> p)."""
     dev = _cuda_device(x)
     if x.dim() != 3:
@@ -582,6 +665,9 @@ def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
              b1=b1, w_out=w_out, b_out=b_out)
     lens = _lengths_i32(lengths, B, dev, "lengths")
     lib, stream = load(), _stream(dev)
+    # a layer's eight [C x C] blocks as one [8C x C] matrix: the kernel's k-loop
+    # streams its rows in order (once per call; 4 MiB at 11 layers)
+    w = torch.cat([w3a.reshape(L, 3 * C, C), w3b.reshape(L, 3 * C, C), w1t, w1b], dim=1)
     h, t, shift = x, T, 0
     for i in range(L):
         pool = i in pooling_layers
@@ -589,10 +675,9 @@ def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
             raise ValueError(f"pooling layer {i} needs an even length, got {t}")
         out = torch.empty(B, t // 2 if pool else t, C, device=dev, dtype=torch.float32)
         err = lib.mucon_mstcnpp_layer(
-            h.data_ptr(), out.data_ptr(), lens.data_ptr(), w3a[i].data_ptr(),
-            b3a[i].data_ptr(), w3b[i].data_ptr(), b3b[i].data_ptr(), w1t[i].data_ptr(),
-            w1b[i].data_ptr(), b1[i].data_ptr(), B, t, C, 2 ** (L - 1 - i), 2 ** i, shift,
-            int(pool), stream,
+            h.data_ptr(), out.data_ptr(), lens.data_ptr(), w[i].data_ptr(),
+            b3a[i].data_ptr(), b3b[i].data_ptr(), b1[i].data_ptr(), B, t, C,
+            2 ** (L - 1 - i), 2 ** i, shift, int(pool), stream,
         )
         _check_launch(lib, err, "mstcnpp_stack")
         if pool:

@@ -10,13 +10,19 @@ final h, c [2, B, H].  Gate order i, f, g, o (torch nn.LSTM).
   `bilstm_recurrence_xla` (lstm_pallas.py:102); differentiable by autograd.
 * `bilstm_recurrence` — eval dispatch by device: CPU tensors take the plain
   version, CUDA tensors launch `csrc/bilstm.cu` or raise.
-* `BiLSTMRecurrenceTrain` — the trainable recurrence on the card
-  (`bilstm_recurrence_train`, lstm_pallas.py:254-290): the forward kernel
-  also stashes the cell trajectory, the backward kernel runs the reverse
-  (dh, dc) chain and emits dxp, and the w_hh gradient is one einsum over
-  the stashed h trajectory, outside the kernel as in the JAX package.
-* `bilstm_recurrence_train` — train dispatch: the plain twin on CPU
-  tensors, the Function on CUDA tensors.
+* `BiLSTMRecurrenceTrain` — the trainable recurrence with its own backward
+  (`bilstm_recurrence_train`, lstm_pallas.py:254-290): the forward also
+  stashes the cell trajectory; the backward is a parallel coefficient pass
+  over all steps (the gate replay is not sequential: every step's input
+  state is in the stash), the sequential (dh, dc) chain that emits dxp, and
+  the w_hh gradient as one einsum over the stashed h trajectory, outside
+  the kernels as in the JAX package.  It dispatches by device: CUDA tensors
+  launch `csrc/bilstm.cu`'s kernels or raise, CPU tensors take the plain
+  twins below.
+* `bilstm_bwd_coefs_plain`, `bilstm_bwd_chain_plain` — the plain twins of
+  the backward's two kernels.
+* `bilstm_recurrence_train` — train dispatch: autograd of the plain
+  recurrence on CPU tensors, the Function on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -59,25 +65,80 @@ def bilstm_recurrence(xp, m, w_hh):
     return cuda.bilstm_recurrence(xp, m, w_hh)
 
 
+def bilstm_bwd_coefs_plain(xp, m, w_hh, outs, cs):
+    """The six factors of the reverse chain for every step at once,
+    coefs [6, T, 2, B, H] = (A, Ci, Cf, Cg, Co, F), from the stash: step t
+    consumed h_prev = outs[t - 1] and c_prev = cs[t - 1] (zeros at t = 0), so
+    its gates are one batched product.  With tc = tanh(f c_prev + i g):
+    A = m o (1 - tc^2), Ci = g i (1 - i), Cf = c_prev f (1 - f),
+    Cg = i (1 - g^2), Co = m tc o (1 - o), F = f."""
+    H = w_hh.shape[1]
+    h_prev = torch.cat([torch.zeros_like(outs[:1]), outs[:-1]])
+    c_prev = torch.cat([torch.zeros_like(cs[:1]), cs[:-1]])
+    gates = xp + torch.einsum("tdbh,dhg->tdbg", h_prev, w_hh)
+    i, f, g, o = gates.split(H, dim=-1)
+    i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+    tc = torch.tanh(f * c_prev + i * g)
+    mm = m[:, None, :, None]
+    return torch.stack([mm * o * (1 - tc * tc), g * i * (1 - i), c_prev * f * (1 - f),
+                        i * (1 - g * g), mm * tc * o * (1 - o), f])
+
+
+def bilstm_bwd_chain_plain(coefs, m, w_hh, douts, dh, dc):
+    """The sequential pass: dxp [T, 2, B, 4H] from the factors and the
+    cotangents of (outs, h_fin, c_fin) — the arithmetic of the JAX reverse
+    kernel (lstm_pallas.py:212-233), regrouped around the factors.  A padded
+    step (m = 0) emits dgate = 0 and passes dh + douts[t] and dc on
+    unchanged."""
+    T = douts.shape[0]
+    w_t = w_hh.transpose(1, 2)  # [2, 4H, H]
+    dxp = [None] * T
+    for t in reversed(range(T)):
+        a, ci, cf, cg, co, f = coefs[:, t]
+        mm = m[t][None, :, None]
+        dht = dh + douts[t]
+        dct = dht * a + mm * dc
+        dgate = torch.cat([dct * ci, dct * cf, dct * cg, dht * co], dim=-1)
+        dxp[t] = dgate
+        dc = dct * f + (1 - mm) * dc
+        dh = torch.bmm(dgate, w_t) + (1 - mm) * dht
+    return torch.stack(dxp) if T else douts.new_zeros(0, 2, douts.shape[2], w_hh.shape[2])
+
+
+def _train_forward(xp, m, w_hh):
+    if xp.device.type == "cpu":
+        return bilstm_recurrence_plain(xp, m, w_hh, stash=True)
+    from mucon_tpu_torch import cuda
+
+    return cuda.bilstm_train_forward(xp, m, w_hh)
+
+
+def _train_backward(xp, m, w_hh, outs, cs, douts, dh, dc):
+    if xp.device.type == "cpu":
+        coefs = bilstm_bwd_coefs_plain(xp, m, w_hh, outs, cs)
+        return bilstm_bwd_chain_plain(coefs, m, w_hh, douts, dh, dc)
+    from mucon_tpu_torch import cuda
+
+    return cuda.bilstm_train_backward(xp, m, w_hh, outs, cs, douts, dh, dc)
+
+
 class BiLSTMRecurrenceTrain(torch.autograd.Function):
-    """The recurrence with a kernel backward (lstm_pallas.py:265-287)."""
+    """The recurrence with its own backward (lstm_pallas.py:265-287): the
+    CUDA kernels on CUDA tensors, their plain twins on CPU tensors."""
 
     @staticmethod
     def forward(ctx, xp, m, w_hh):
-        from mucon_tpu_torch import cuda
-
-        outs, h, c, cs = cuda.bilstm_train_forward(xp, m, w_hh)
+        xp, m, w_hh = xp.contiguous(), m.contiguous(), w_hh.contiguous()
+        outs, h, c, cs = _train_forward(xp, m, w_hh)
         ctx.save_for_backward(xp, m, w_hh, outs, cs)
         return outs, h, c
 
     @staticmethod
     def backward(ctx, douts, dh, dc):
-        from mucon_tpu_torch import cuda
-
         xp, m, w_hh, outs, cs = ctx.saved_tensors
         douts, dh, dc = (torch.zeros_like(ref) if g is None else g.contiguous()
                          for g, ref in ((douts, outs), (dh, cs[0]), (dc, cs[0])))
-        dxp = cuda.bilstm_train_backward(xp, m, w_hh, outs, cs, douts, dh, dc)
+        dxp = _train_backward(xp, m, w_hh, outs, cs, douts, dh, dc)
         # the gates of step t consumed h_prev = outs[t - 1] (zeros at t = 0)
         h_prev = torch.cat([torch.zeros_like(outs[:1]), outs[:-1]])
         dw = torch.einsum("tdbh,tdbg->dhg", h_prev, dxp)
@@ -85,8 +146,9 @@ class BiLSTMRecurrenceTrain(torch.autograd.Function):
 
 
 def bilstm_recurrence_train(xp, m, w_hh):
-    """Differentiable recurrence: the plain twin on CPU tensors, the CUDA
-    kernels (forward with cell stash, reverse chain) on CUDA tensors."""
+    """Differentiable recurrence: autograd of the plain twin on CPU tensors,
+    the CUDA kernels (forward with cell stash, coefficient pass and cluster
+    chain) on CUDA tensors."""
     if xp.device.type == "cpu":
         return bilstm_recurrence_plain(xp, m, w_hh)
     return BiLSTMRecurrenceTrain.apply(xp, m, w_hh)

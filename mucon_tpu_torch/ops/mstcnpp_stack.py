@@ -12,7 +12,9 @@ before it — and the mask.
   `_mstcnpp_kernel` (mstcnpp_pallas.py:72) on the same packed weights.
 * `mstcnpp_stack` — dispatch by device: a CPU tensor takes the plain twin,
   a CUDA tensor launches the hand-written kernel (`csrc/mstcnpp.cu`, one
-  launch per layer plus one for the out-projection) or raises.
+  launch per layer plus one for the out-projection, on the tensor cores in
+  error-compensated TF32, skipping the tiles past each video's length) or
+  raises.
 
 The TPU version's batch slicing (`plan_mstcnpp_slices`,
 `mstcnpp_stack_pallas_sliced`) exists for the TPU's VMEM only and is not
@@ -50,10 +52,17 @@ def pack_mstcnpp_params(stage) -> tuple:
             out.kernel, out.bias)
 
 
+def _mm(a, b):
+    """Every product of the plain stage, in full f32.  (The CUDA kernel's are
+    error-compensated TF32, `ops/tf32.py matmul_3xtf32_plain`; the tests swap
+    that in here to hold the split to the f32 twin.)"""
+    return a @ b
+
+
 def _conv3(x, d: int, w, b):
     """shift(-d) @ w[0] + x @ w[1] + shift(+d) @ w[2] + b (models.temporal
     DilatedConv3's tap order)."""
-    return shift_time(x, -d) @ w[0] + x @ w[1] + shift_time(x, d) @ w[2] + b
+    return _mm(shift_time(x, -d), w[0]) + _mm(x, w[1]) + _mm(shift_time(x, d), w[2]) + b
 
 
 def mstcnpp_stack_plain(
@@ -69,13 +78,13 @@ def mstcnpp_stack_plain(
     for i in range(L):
         y1 = _conv3(f, 2 ** (L - 1 - i), w3a[i], b3a[i])
         y2 = _conv3(f, 2 ** i, w3b[i], b3b[i])
-        y = y1 @ w1t[i] + y2 @ w1b[i] + b1[i]
+        y = _mm(y1, w1t[i]) + _mm(y2, w1b[i]) + b1[i]
         f = mask_time(torch.relu(y) + f, ln)
         if i in pooling_layers:
             f = pool2_time(f, "max")
             ln = ln // 2
             f = mask_time(f, ln)
-    return mask_time(f @ w_out + b_out, ln), ln
+    return mask_time(_mm(f, w_out) + b_out, ln), ln
 
 
 def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out,

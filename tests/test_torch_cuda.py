@@ -3,8 +3,9 @@ small and ragged shapes the serving and train paths do not reach (tile
 remainders, dilations past the sequence, sum pooling, leaky ReLU, B = 1,
 T = 1, fully masked videos, K = 1, infeasible DPs, a decoder chain of one
 step, one video, one frame or a thousand, one segment of the flint loss,
-an MS-TCN++ stage at an odd length, the v2 stack in 1, 3 and 11 chunks
-with tied pool pairs).  Needs a CUDA device and
+an MS-TCN++ stage at odd lengths and lengths on a tile edge, the BiLSTM
+reverse chain on clusters of 1, 2 and 8 CTAs, the v2 stack in 1, 3 and 11
+chunks with tied pool pairs).  Needs a CUDA device and
 nvcc; skips without them.  Imports no jax, so it runs on the card:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -25,6 +26,8 @@ from mucon_tpu_torch.ops.decoder_chain import (
 )
 from mucon_tpu_torch.ops.lstm_recurrence import (
     BiLSTMRecurrenceTrain,
+    bilstm_bwd_chain_plain,
+    bilstm_bwd_coefs_plain,
     bilstm_recurrence,
     bilstm_recurrence_plain,
 )
@@ -205,7 +208,11 @@ def test_wavenet_train_kernels_ragged(dev, pooling_type, leaky, T, lengths, drop
         assert torch.all(gk[0][-1] == 0) and torch.all(zk[-1] == 0)
 
 
-@pytest.mark.parametrize("T,B,H", [(1, 1, 128), (13, 11, 128), (6, 3, 8)])
+# T = 1; B not a multiple of the chain's 8-video tile; H = 8 and 32 (cluster
+# widths 1 and 2); the train batch; B = 128 (16 tiles x 2 directions = 32
+# clusters of 8 at once); H = 256 (128 weights a thread)
+@pytest.mark.parametrize("T,B,H", [(1, 1, 128), (13, 11, 128), (6, 3, 8), (6, 5, 32),
+                                   (160, 8, 128), (13, 128, 128), (3, 2, 256)])
 def test_bilstm_train_kernels_edges(dev, T, B, H):
     g = torch.Generator().manual_seed(4)
     xp = torch.randn(T, 2, B, 4 * H, generator=g).to(dev)
@@ -223,9 +230,41 @@ def test_bilstm_train_kernels_edges(dev, T, B, H):
         torch.autograd.backward(fn(a, m, w)[:3], cts)
         return a.grad, w.grad
 
+    before = cuda.launch_counts["bilstm_train_bwd"]
     gk, gp = run(BiLSTMRecurrenceTrain.apply), run(bilstm_recurrence_plain)
+    assert cuda.launch_counts["bilstm_train_bwd"] == before + 1  # two kernels, one count
     _close(gk, gp, 1e-4)
     assert torch.all(gk[0][:, :, -1] == 0)  # no gate of the masked video is used
+    # sums in a fixed order, no atomics: a second backward repeats the first
+    assert all(torch.equal(a, b) for a, b in zip(gk, run(BiLSTMRecurrenceTrain.apply)))
+    # each of the two kernels against its own plain twin
+    with torch.no_grad():
+        outs, _, _, cs = cuda.bilstm_train_forward(xp, m, w_hh)
+        coefs = cuda.bilstm_bwd_coefs(xp, m, w_hh, outs, cs)
+        _close(coefs, bilstm_bwd_coefs_plain(xp, m, w_hh, outs, cs), 1e-5)
+        _close([cuda.bilstm_bwd_chain(coefs, m, w_hh, *cts)],
+               [bilstm_bwd_chain_plain(coefs, m, w_hh, *cts)], 1e-5)
+    assert cuda.load().mucon_bilstm_chain_width(H) == cuda.bilstm_chain_plan(H)[0]
+
+
+def test_bilstm_chain_padded_steps_pass_state_through(dev):
+    """Padded steps (m = 0) with no cotangent emit dgate = 0 and hand (dh,
+    dc) on bit for bit: the valid prefix's dxp equals that of the chain cut
+    at the video's length."""
+    g = torch.Generator().manual_seed(5)
+    T, B, H, cut = 12, 3, 128, 5
+    xp = torch.randn(T, 2, B, 4 * H, generator=g).to(dev)
+    m = torch.zeros(T, B, device=dev)
+    m[:cut] = 1.0
+    w_hh = (torch.randn(2, H, 4 * H, generator=g) / H ** 0.5).to(dev)
+    douts = torch.randn(T, 2, B, H, generator=g).to(dev) * m[:, None, :, None]
+    dh, dc = (torch.randn(2, B, H, generator=g).to(dev) for _ in range(2))
+    outs, _, _, cs = cuda.bilstm_train_forward(xp, m, w_hh)
+    dxp = cuda.bilstm_train_backward(xp, m, w_hh, outs, cs, douts, dh, dc)
+    short = cuda.bilstm_train_backward(
+        xp[:cut].contiguous(), m[:cut].contiguous(), w_hh, outs[:cut].contiguous(),
+        cs[:cut].contiguous(), douts[:cut].contiguous(), dh, dc)
+    assert not dxp[cut:].any() and torch.equal(dxp[:cut], short)
 
 
 def test_model_train_step_kernels_match_plain(dev):
@@ -331,10 +370,15 @@ def _init(module, seed):
     return g
 
 
-# 6 layers, pools after 0 and 1: T = 80 -> 40 -> 20 (tiles of 32 with a
+# 6 layers, pools after 0 and 1: T = 80 -> 40 -> 20 (tiles of 64 with a
 # remainder; d2 = 32 >= 20 in layer 5); T = 84 -> 42 -> 21, odd at the
-# non-pooling layers 2-5; B = 1; a video of length 0 is all padding
-@pytest.mark.parametrize("T,lengths", [(80, (80, 57, 0)), (84, (84,)), (84, (84, 3))])
+# non-pooling layers 2-5; B = 1; a video of length 0 is all padding (its tiles
+# are skipped); T = 160 -> 80 -> 40: no padding at all; lengths that end on a
+# tile edge (64, 128) or one past it (65); odd lengths whose last row shares
+# its pool pair with padding (129, 63, 57), also across a tile edge (129)
+@pytest.mark.parametrize("T,lengths", [(80, (80, 57, 0)), (84, (84,)), (84, (84, 3)),
+                                       (160, (160, 160)), (160, (64, 128, 65)),
+                                       (160, (129, 63, 1))])
 def test_mstcnpp_kernel_edges(dev, T, lengths):
     stage = MSTCNPPFirstStage(16, 6, 128, 128, (0, 1))
     g = _init(stage, 8)
@@ -351,6 +395,8 @@ def test_mstcnpp_kernel_edges(dev, T, lengths):
     _close([zk], [zp], 1e-4)
     if lengths[-1] == 0:
         assert torch.all(zk[-1] == 0)
+    for b, n in enumerate(lengths.tolist()):  # rows past the pooled length are zeros
+        assert not zk[b, n // 4:].any()
     with pytest.raises(ValueError, match="even length"):
         mstcnpp_stack(x[:, :T - 2].contiguous(), lengths.clamp(max=T - 2), *packed,
                       pooling_layers=(0, 1, 2))

@@ -2,7 +2,10 @@
 custom-VJP kernel `bilstm_recurrence_train` (interpret mode): outs, final
 h and c, the cell stash, and the gradients dxp and dw_hh for one set of
 cotangents.  On CPU tensors the port's dispatch takes the plain twin under
-autograd, which is what `chip_smoke.py` holds the CUDA kernels against."""
+autograd, which is what `chip_smoke.py` holds the CUDA kernels against;
+`BiLSTMRecurrenceTrain` on CPU tensors runs the plain twins of its
+backward's two kernels (the coefficient pass, then the regrouped chain),
+held here against `jax.grad` through the JAX kernel and against autograd."""
 
 import jax
 import jax.numpy as jnp
@@ -12,7 +15,11 @@ import torch
 
 from mucon_tpu.ops.lstm_pallas import _bilstm_train_call, bilstm_recurrence_train as jax_train
 from mucon_tpu_torch.models.lstm import MaskedBiLSTM
+from mucon_tpu_torch.cuda import bilstm_chain_plan
 from mucon_tpu_torch.ops.lstm_recurrence import (
+    BiLSTMRecurrenceTrain,
+    bilstm_bwd_chain_plain,
+    bilstm_bwd_coefs_plain,
     bilstm_recurrence_plain,
     bilstm_recurrence_train,
 )
@@ -82,3 +89,71 @@ def test_masked_bilstm_train_routes_and_backpropagates():
     assert xs.grad.abs().sum() > 0 and torch.all(xs.grad[2, 2:] == 0)
     for name, p in lstm.named_parameters():
         assert p.grad is not None and p.grad.abs().sum() > 0, name
+
+
+def _torch_grads(fn, xp, m, w_hh, cts):
+    a, w = torch.from_numpy(xp).requires_grad_(), torch.from_numpy(w_hh).requires_grad_()
+    out = fn(a, torch.from_numpy(m), w)
+    torch.autograd.backward(out[:3], [torch.from_numpy(c) for c in cts])
+    return out, a.grad.numpy(), w.grad.numpy()
+
+
+# ragged masks with an all-padding video; T = 1; B not a multiple of the
+# chain kernel's 8-video tile
+@pytest.mark.parametrize("T,B,H,valid", [
+    (1, 1, 8, (1,)),
+    (13, 11, 16, (13, 1, 7, 0, 12, 5, 13, 2, 9, 4, 0)),
+    (6, 3, 8, (6, 2, 0)),
+])
+def test_function_twins_match_jax_kernel_and_autograd(T, B, H, valid):
+    """`BiLSTMRecurrenceTrain` on CPU tensors (plain forward with stash, the
+    coefficient pass, the regrouped chain, the einsum) against `jax.grad`
+    through the JAX kernel (rtol 1e-5, atol 1e-6: f32, another grouping of
+    the same products) and against autograd of the plain recurrence."""
+    xp, m, w_hh, cts = _inputs(T, B, H, valid, seed=2)
+    ref, vjp = jax.vjp(lambda a, w: jax_train(True, a, jnp.asarray(m), w),
+                       jnp.asarray(xp), jnp.asarray(w_hh))
+    dxp_ref, dw_ref = vjp(tuple(jnp.asarray(c) for c in cts))
+    out, dxp, dw = _torch_grads(BiLSTMRecurrenceTrain.apply, xp, m, w_hh, cts)
+    tol = dict(rtol=1e-5, atol=1e-6)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), **tol)
+    np.testing.assert_allclose(dxp, np.asarray(dxp_ref), **tol)
+    np.testing.assert_allclose(dw, np.asarray(dw_ref), **tol)
+    _, dxp_auto, dw_auto = _torch_grads(bilstm_recurrence_plain, xp, m, w_hh, cts)
+    np.testing.assert_allclose(dxp, dxp_auto, **tol)
+    np.testing.assert_allclose(dw, dw_auto, **tol)
+    assert not dxp[:, :, [i for i, v in enumerate(valid) if v == 0]].any()
+
+
+def test_padded_step_passes_state_through_exactly():
+    """At m = 0 the chain emits dgate = 0 and carries (dh + douts[t], dc)
+    on bit for bit: after padded steps with zero douts the state that
+    reaches the valid steps is the final cotangent itself."""
+    T, B, H, valid = 7, 2, 8, (3, 7)
+    xp, m, w_hh, cts = _inputs(T, B, H, valid, seed=3)
+    xp, m, w_hh = torch.from_numpy(xp), torch.from_numpy(m), torch.from_numpy(w_hh)
+    douts, dh, dc = (torch.from_numpy(c) for c in cts)
+    douts = douts * m[:, None, :, None]  # no cotangent at padded steps
+    with torch.no_grad():
+        outs, _, _, cs = bilstm_recurrence_plain(xp, m, w_hh, stash=True)
+        coefs = bilstm_bwd_coefs_plain(xp, m, w_hh, outs, cs)
+        dxp = bilstm_bwd_chain_plain(coefs, m, w_hh, douts, dh, dc)
+        # video 0 is padding from t = 3 on: cut there, the chain starts from (dh, dc)
+        cut = bilstm_bwd_chain_plain(coefs[:, :3], m[:3], w_hh, douts[:3], dh, dc)
+    assert not dxp[3:, :, 0].any()
+    assert torch.equal(dxp[:3, :, 0], cut[:, :, 0])
+    a, co = coefs[0], coefs[4]
+    assert not a[3:, :, 0].any() and not co[3:, :, 0].any()  # the mask is folded in
+
+
+@pytest.mark.parametrize("H,want", [(8, 1), (16, 1), (32, 2), (64, 4), (128, 8), (256, 8)])
+def test_chain_plan_covers_every_gate_row(H, want):
+    """The cluster split of the reverse chain: the width follows from H,
+    every CTA's columns have a thread per video, and the thread groups'
+    gate-row ranges (multiples of 4, at most 128 rows) cover all 4H rows."""
+    cl, hs, nq, gpq = bilstm_chain_plan(H)
+    assert cl == want and cl * hs == H and 8 * hs <= 256 and nq * hs <= 256
+    assert gpq % 4 == 0 and gpq <= 128 and nq * gpq >= 4 * H
+    with pytest.raises(ValueError):
+        bilstm_chain_plan(129)
