@@ -21,11 +21,16 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    MS-TCN++ model, checks that each path launched its kernels (and not the
    other backbone's) and that both paths agree, and times both;
 5. trains: checks the seven train kernels (the WaveNet stack's forward and
-   backward sweep, the BiLSTM recurrence with its cell stash and its
-   reverse chain — the parallel coefficient pass against its own plain
-   twin, two calls bit for bit, and the cluster chain's time per step with
-   and without the dw_hh einsum — the teacher-forced decoder chain's forward and reverse
-   chain, the fused flint loss) against their plain twins at the default
+   backward sweep, the BiLSTM recurrence with its cell stash — on
+   thread-block clusters, two calls bit for bit, its time per step, cluster
+   width and waves printed — and its reverse chain — the parallel
+   coefficient pass against its own plain twin, its replayed cell equal to
+   the stash bit for bit, two calls bit for bit, and the cluster chain's
+   time per step with and without the dw_hh einsum — the teacher-forced
+   decoder chain's forward and reverse chain — the replay pass against its
+   plain twin, its relu(cpre) and cell equal to the forward's comb and cs
+   bit for bit, the replay and the cluster chain timed apart — the fused
+   flint loss) against their plain twins at the default
    model's width (B=8, T=2560, dropout 0.25; the decoder chain also at
    B=2, Tz=640), and the v2 trainable stack's two kernels (three chunks)
    against the plain twin and the v3 kernels with dropout 0.25 and 0;
@@ -213,6 +218,17 @@ def lstm_library_ms(x, lengths, H: int, backward: bool) -> float:
     return cuda_ms(lambda: torch.autograd.grad(out, params, g, retain_graph=True), reps=5)
 
 
+def bilstm_launch(B: int, H: int) -> str:
+    """The forward recurrence's cluster launch at B videos, as printed."""
+    from mucon_tpu_torch import cuda
+
+    p = cuda.bilstm_fwd_launch(B, H)
+    waves = -(-p["clusters"] // p["active"])
+    return (f"clusters of {p['cl']} CTAs x {p['threads']} threads, 8 videos a cluster: "
+            f"{p['clusters']} clusters, the card holds {p['active']} at once: "
+            f"{waves} wave{'s' if waves > 1 else ''}")
+
+
 # -- phase 3: each kernel against its plain twin at full width ---------------
 
 def check_wavenet(model, gen, dev):
@@ -318,12 +334,15 @@ def check_bilstm(model, gen, dev):
     err = max((a - b).abs().max().item() for a, b in zip(outk, outp))
     if not err <= 1e-5:
         raise AssertionError(f"bilstm_recurrence: max abs err {err} > 1e-5")
+    expect(all(torch.equal(a, b) for a, b in zip(outk, bilstm_recurrence(xp, m, w_hh))),
+           "bilstm_recurrence: two calls of the same inputs differ")
     ms, plain_ms = paired_ms(lambda: bilstm_recurrence(xp, m, w_hh),
                              lambda: bilstm_recurrence_plain(xp, m, w_hh), reps=5)
     lib_ms = lstm_library_ms(torch.randn(B, T, H, generator=gen).to(dev), tz, H, False)
     say(f"kernel bilstm_recurrence Tz={T} B={B} H={H}: max abs err {err:.3e} "
-        f"<= 1e-5; {ms:.3f} ms vs plain {plain_ms:.3f} ms; cuDNN nn.LSTM (with the "
-        f"input projection) {lib_ms:.3f} ms")
+        f"<= 1e-5, two calls bit for bit; {ms:.3f} ms = {1000 * ms / T:.2f} us/step vs plain "
+        f"{plain_ms:.3f} ms; cuDNN nn.LSTM (with the input projection) {lib_ms:.3f} ms; "
+        f"{bilstm_launch(B, H)}")
     nv = int(m.sum())  # valid steps of one direction
     return report(err, ms, plain_ms, 4 * 2 * nv * 4 * H + nbytes(m, w_hh, *outk),
                   2 * 2 * nv * H * 4 * H, lib_ms)
@@ -812,8 +831,17 @@ def check_bilstm_train(model, gen, dev):
     with torch.no_grad():
         outk = cuda.bilstm_train_forward(xp, m, w_hh)
         outp = bilstm_recurrence_plain(xp, m, w_hh, stash=True)
+        expect(all(torch.equal(a, b) for a, b in zip(outk, cuda.bilstm_train_forward(xp, m, w_hh))),
+               "bilstm_train_fwd: two calls of the same inputs differ")
+        # the coefficient pass replays the forward's gates: its cell is the stash bit for bit
+        _, cell = cuda.bilstm_bwd_coefs(xp, m, w_hh, outk[0], outk[3], cell=True)
+        valid = m[:, None, :, None].expand_as(cell) > 0
+        expect(torch.equal(cell[valid], outk[3][valid]),
+               "bilstm_train_bwd: the coefficient pass's cell differs from the stash")
     fwd_err = held("bilstm_train_fwd", list(zip(("outs", "h", "c", "cs"), outk, outp)),
                    grads=False)
+    say("kernel bilstm_train_fwd: two calls bit for bit; the coefficient pass replays the "
+        f"stashed cell bit for bit at all {int(valid.sum())} valid (step, unit) cells")
 
     def fwd_bwd(fn):
         a, w = xp.clone().requires_grad_(), w_hh.clone().requires_grad_()
@@ -851,8 +879,9 @@ def check_bilstm_train(model, gen, dev):
                        reps=5)
     x = torch.randn(B, T, H, generator=gen).to(dev)
     lib_ms = [lstm_library_ms(x, tz, H, backward) for backward in (False, True)]
-    say(f"kernel bilstm_train_fwd Tz={T} B={B} H={H}: {fwd_ms[0]:.3f} ms vs plain "
-        f"{fwd_ms[1]:.3f} ms; bilstm_train_bwd (coefficient pass + chain + dw_hh einsum) "
+    say(f"kernel bilstm_train_fwd Tz={T} B={B} H={H}: {fwd_ms[0]:.3f} ms = "
+        f"{1000 * fwd_ms[0] / T:.2f} us/step vs plain {fwd_ms[1]:.3f} ms "
+        f"({bilstm_launch(B, H)}); bilstm_train_bwd (coefficient pass + chain + dw_hh einsum) "
         f"{bwd_ms[0]:.3f} ms = {1000 * bwd_ms[0] / T:.2f} us/step vs plain autograd "
         f"{bwd_ms[1]:.3f} ms; alone, the coefficient pass {coefs_ms:.3f} ms and the cluster "
         f"chain (width {cuda.load().mucon_bilstm_chain_width(H)}) {chain_ms:.3f} ms = "
@@ -897,7 +926,7 @@ def check_decoder_chain(model, tz_lengths, Tz: int, gen, dev, timed: bool):
     import torch
     from mucon_tpu_torch import cuda
     from mucon_tpu_torch.ops.decoder_chain import (
-        DecoderChain, decoder_chain_bwd_plain, decoder_chain_plain,
+        DecoderChain, decoder_chain_bwd_plain, decoder_chain_plain, decoder_chain_replay_plain,
     )
 
     S = model.max_decoding_steps
@@ -932,21 +961,34 @@ def check_decoder_chain(model, tz_lengths, Tz: int, gen, dev, timed: bool):
         rawp = decoder_chain_bwd_plain(*bargs)
         expect(all(torch.equal(a, b) for a, b in zip(rawk, cuda.decoder_chain_backward(*bargs))),
                "decoder_chain_bwd: two runs of the same inputs differ")
+        # the replay pass against its twin, and the forward's stash bit for bit
+        *replay, cell = cuda.decoder_chain_replay(*bargs[:15], count=False, cell=True)
+        held(f"decoder_chain_bwd replay pass {tag}",
+             list(zip(("acts", "cpre", "a", "u"), replay, decoder_chain_replay_plain(*bargs[:15]))),
+             grads=False)
+        expect(torch.equal(torch.relu(replay[1]), outk[2]) and torch.equal(cell, outk[1]),
+               "decoder_chain_bwd: the replay pass's relu(cpre) or cell differs from the stash")
     bwd_err = held(f"decoder_chain_bwd {tag}",
                    list(zip(("dgate", "dcpre", "dsc", "dh0", "dc0"), rawk, rawp)), grads=True)
     say(f"kernels decoder_chain_fwd and decoder_chain_bwd {tag}: two runs of each "
-        f"agree bit for bit")
+        f"agree bit for bit; the replay pass's relu(cpre) and cell equal the stashed comb "
+        f"and cs bit for bit")
     if not timed:
         return {}
+    chain_args = (c_in, args[1], args[8], args[10], args[12], args[13], args[6], *cts)
     with torch.no_grad():
         fwd_ms = paired_ms(lambda: cuda.decoder_chain_forward(*args),
                            lambda: decoder_chain_plain(*args), reps=5)
         bwd_ms = paired_ms(lambda: cuda.decoder_chain_backward(*bargs),
                            lambda: decoder_chain_bwd_plain(*bargs), reps=3)
+        replay_ms = cuda_ms(lambda: cuda.decoder_chain_replay(*bargs[:15]), reps=10)
+        chain_ms = cuda_ms(lambda: cuda.decoder_chain_bwd_chain(*replay, *chain_args), reps=10)
     say(f"kernel decoder_chain_fwd {tag}: {fwd_ms[0]:.3f} ms = "
         f"{1000 * fwd_ms[0] / S:.2f} us/step vs plain {fwd_ms[1]:.3f} ms; "
         f"decoder_chain_bwd {bwd_ms[0]:.3f} ms = {1000 * bwd_ms[0] / S:.2f} us/step vs "
-        f"plain {bwd_ms[1]:.3f} ms")
+        f"plain {bwd_ms[1]:.3f} ms; alone, the replay pass {replay_ms:.3f} ms and the "
+        f"cluster chain (width {cuda.decoder_chain_plan(H)[0]}, {B} clusters) {chain_ms:.3f} "
+        f"ms = {1000 * chain_ms / S:.2f} us/step")
     weights = nbytes(*args[6:])
     tzs = int(tz_lengths.sum())  # valid encoder frames over the videos
     # per step and video: q, the scores over the valid frames (tanh, multiply,

@@ -1,22 +1,38 @@
-// Two-direction masked LSTM recurrence as one persistent kernel, for NVIDIA
+// Two-direction masked LSTM recurrence and its reverse chain, for NVIDIA
 // Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_bilstm_kernel` / `bilstm_recurrence_pallas`
 // (mucon_tpu/ops/lstm_pallas.py:33, :90), which held w_hh, xp and the state in
-// VMEM and ran the time loop in-kernel.  Here the grid is 2 directions x
-// ceil(B / BT) batch tiles; each CTA runs the whole T loop for its tile with
-// h, c and the [BT x 4H] gate scratch in shared memory (24 KiB at H = 128).
+// VMEM and ran the time loop in-kernel.
 //
 //   gates = xp[t, dir, b] + h @ w_hh[dir]          (b_ih, b_hh folded in xp)
 //   i, f, o = sigmoid, g = tanh;  c' = f c + i g;  h' = o tanh(c')
 //   h = m h' + (1 - m) h,  c = m c' + (1 - m) c    (state freezes where m = 0)
 //   outs[t, dir, b] = h                            (written every step)
 //
-// Bound: the sequential chain.  w_hh per direction (128 x 512 f32 = 256 KiB)
-// exceeds shared memory, so every step reads it from global memory, where it
-// stays resident in L2; one thread per gate column reads it coalesced and
-// reuses each value for the BT rows of its tile.  A cluster / DSMEM split of
-// w_hh is later work.
+// Bound: the sequential chain, T dependent steps of a [BT x H] x [H x 4H]
+// product.  w_hh per direction (128 x 512 f32 = 256 KiB) exceeds one SM's
+// shared memory, so `bilstm_fwd_kernel` runs one thread-block cluster per
+// (direction, tile of BT videos) and keeps w_hh in the cluster's REGISTERS
+// for all T steps.  CTA r of a cluster of CL owns the HS = H / CL hidden
+// units j in [r HS, (r+1) HS) and so the 4 HS gate columns {j, H+j, 2H+j,
+// 3H+j}: all four gates of its units, so the activations and the c, h update
+// are local.  Its threads are NK k-groups x 4 HS columns; thread (kq, col)
+// holds w_hh[kq KC : (kq+1) KC, col] (KC = 32 at H = 128, CL = 8: 256
+// threads, 32 weights a thread).  Each step:
+//   1. every thread's partial products of its KC k-rows for the BT videos,
+//      h read from shared memory as float4 (broadcast within a warp);
+//   2. `__syncthreads`; the owner of (video, unit) adds the NK partials in
+//      group order (no atomics: two calls agree bit for bit), adds xp,
+//      applies the gates and the masked update, writes outs (and cs);
+//   3. it writes h into every peer's h buffer through distributed shared
+//      memory (two buffers, so one cluster barrier a step is enough),
+//      loads the next step's xp and m, and the cluster synchronises.
+// The width, threads and k-groups follow from H (`fwd_plan`, mirrored by
+// `cuda.bilstm_fwd_plan`).  At H = 128 the kernel keeps to 80 registers a
+// thread, so three CTAs share an SM and the 32 clusters of the serving
+// batch (B = 128) run in one wave (`mucon_bilstm_fwd_plan` reports the
+// clusters the card holds at once).
 //
 // Training (replaces `_bilstm_train_fwd_kernel` / `_bilstm_train_call` and
 // `_bilstm_bwd_kernel` / `_bilstm_train_bwd_rule`, lstm_pallas.py:137, :249,
@@ -27,8 +43,9 @@
 // 1. `bilstm_coefs_kernel`, parallel over every (t, dir, b) on the whole
 //    card.  h_prev = outs[t-1] and c_prev = cs[t-1] are stashed for every t
 //    (0 at t = 0), so the gate replay is not sequential: it computes
-//    gates = xp[t] + h_prev w_hh, i, f, o = sigmoid, g = tanh,
-//    tc = tanh(f c_prev + i g), and writes the six factors of the chain with
+//    gates = xp[t] + h_prev w_hh (summed in the forward kernel's order, so
+//    its gates and cell are the forward's bit for bit), i, f, o = sigmoid,
+//    g = tanh, tc = tanh(f c_prev + i g), and writes the six factors of the chain with
 //    the freeze mask m folded in, coefs [6, T, 2, B, H]:
 //      A = m o (1 - tc^2)   Ci = g i (1 - i)   Cf = c_prev f (1 - f)
 //      Cg = i (1 - g^2)     Co = m tc o (1 - o)   F = f
@@ -63,73 +80,164 @@
 
 namespace {
 
-constexpr int BT = 8;  // batch rows per CTA
+constexpr int BT = 8;  // videos per cluster of the forward and the reverse chain
 
 __device__ __forceinline__ float sigmoidf(float v) { return 1.f / (1.f + expf(-v)); }
 
-__global__ void bilstm_kernel(const float* __restrict__ xp,    // [T, 2, B, 4H]
-                              const float* __restrict__ m,     // [T, B]
-                              const float* __restrict__ w_hh,  // [2, H, 4H]
-                              float* __restrict__ outs,        // [T, 2, B, H]
-                              float* __restrict__ h_fin,       // [2, B, H]
-                              float* __restrict__ c_fin,       // [2, B, H]
-                              float* __restrict__ cs_out,      // [T, 2, B, H] or null
-                              int T, int B, int H) {
-  extern __shared__ float sm[];
-  const int G = 4 * H;
-  float* hs = sm;           // [BT][H]
-  float* cs = hs + BT * H;  // [BT][H]
-  float* gs = cs + BT * H;  // [BT][G]
+// f c + i g, rounded as one fused product-add of f c onto the rounded i g;
+// the forward and the coefficient pass both use it, so the replayed cell
+// is the stashed one bit for bit
+__device__ __forceinline__ float cell(float f, float c, float i, float g) {
+  return __fmaf_rn(f, c, __fmul_rn(i, g));
+}
 
-  const int dir = blockIdx.y;
-  const int b0 = blockIdx.x * BT;
-  const int nb = min(BT, B - b0);
-  const float* w = w_hh + (size_t)dir * H * G;
+// How the forward splits a hidden size H: CL CTAs of HS units, NT threads
+// each; NK groups of KC k-rows (a multiple of 4, at most 64: the weights a
+// thread keeps in registers) for each of the 4 HS gate columns.  NT is the
+// least of 256, 512 that holds the columns, one thread per (video,
+// unit) for BT = 8 videos, and KC <= 64 (the kernel's launch bound is 512).
+struct FwdPlan {
+  int cl, hs, nt, nk, kc;
+};
 
-  for (int i = threadIdx.x; i < 2 * BT * H; i += blockDim.x) sm[i] = 0.f;
-  __syncthreads();
+bool fwd_plan(int H, FwdPlan& p) {
+  if (H <= 0) return false;
+  p.cl = cluster::width_for(H);
+  p.hs = H / p.cl;
+  const int cols = 4 * p.hs;
+  for (p.nt = 256; p.nt <= 512; p.nt *= 2) {
+    if (cols > p.nt || 8 * p.hs > p.nt) continue;
+    p.nk = p.nt / cols;
+    p.kc = ((H + p.nk - 1) / p.nk + 3) & ~3;
+    if (p.kc <= 64) return true;
+  }
+  return false;
+}
+
+// One cluster per (direction, tile of BT videos); grid (CL, tiles, 2),
+// cluster (CL, 1, 1).  KC: the register array, >= the plan's kc; at KC = 32
+// (256 threads) three CTAs fit an SM, at most 80 registers a thread.
+template <int KC>
+__global__ void __launch_bounds__(KC <= 32 ? 256 : 512, KC <= 32 ? 3 : 1) bilstm_fwd_kernel(
+    const float* __restrict__ xp,    // [T, 2, B, 4H]
+    const float* __restrict__ m,     // [T, B]
+    const float* __restrict__ w_hh,  // [2, H, 4H]
+    float* __restrict__ outs,        // [T, 2, B, H]
+    float* __restrict__ h_fin,       // [2, B, H]
+    float* __restrict__ c_fin,       // [2, B, H]
+    float* __restrict__ cs_out,      // [T, 2, B, H] or null
+    int T, int B, int H, int hs, int nk, int kc) {
+  extern __shared__ float4 smf4[];
+  const int G = 4 * H, cols = 4 * hs, hp = nk * kc;  // hp: h row stride, 0 past H
+  float* hb = reinterpret_cast<float*>(smf4);  // [2][BT][hp] h of the step, all units
+  float* red = hb + 2 * BT * hp;               // [nk][BT][cols] partial sums
+
+  const int cl = gridDim.x;
+  const int j0 = cluster::cluster_rank() * hs;
+  const int b0 = blockIdx.y * BT;
+  const int dir = blockIdx.z;
+  const int tid = threadIdx.x;
+
+  // product role: k-rows [k0, k0 + kn) of gate column gcol, weights in registers
+  const int pc = tid % cols, kq = tid / cols;
+  const bool prod = kq < nk;
+  const int gcol = (pc / hs) * H + j0 + pc % hs;
+  const int k0 = kq * kc;
+  const int kn = prod ? max(0, min(kc, H - k0)) : 0;
+  float w[KC];
+#pragma unroll
+  for (int i = 0; i < KC; ++i)
+    w[i] = i < kn ? w_hh[((size_t)dir * H + k0 + i) * G + gcol] : 0.f;
+
+  // element role: (h, c) of video b0 + eb, unit j0 + ej
+  const int eb = tid / hs, ej = tid - eb * hs;
+  const int bb = b0 + eb, j = j0 + ej;
+  const bool active = eb < BT && bb < B;
+  float h = 0.f, c = 0.f;
+  for (int i = tid; i < 2 * BT * hp; i += blockDim.x) hb[i] = 0.f;  // absent videos stay 0
+  cluster::cluster_sync();  // before any peer writes here
+
+  float x[4] = {}, mt = 0.f;  // the step's xp and mask, loaded a step ahead
+  auto fetch = [&](int t) {
+    const float* xr = xp + (((size_t)t * 2 + dir) * B + bb) * G + j;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x[q] = __ldg(xr + q * H);
+    mt = __ldg(m + (size_t)t * B + bb);
+  };
+  if (active && T > 0) fetch(0);
 
   for (int t = 0; t < T; ++t) {
-    const float* xpt = xp + (((size_t)t * 2 + dir) * B + b0) * G;
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    const int buf = t & 1;
+    if (prod) {
       float acc[BT];
 #pragma unroll
       for (int r = 0; r < BT; ++r) acc[r] = 0.f;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float wv = __ldg(w + (size_t)k * G + g);
+      const float* hr = hb + buf * BT * hp + k0;
 #pragma unroll
-        for (int r = 0; r < BT; ++r) acc[r] = fmaf(hs[r * H + k], wv, acc[r]);
+      for (int i = 0; i < KC; i += 4) {
+        if (i < kn) {
+#pragma unroll
+          for (int r = 0; r < BT; ++r) {
+            const float4 v = *reinterpret_cast<const float4*>(hr + r * hp + i);
+            acc[r] = fmaf(v.x, w[i], acc[r]);
+            if (i + 1 < kn) acc[r] = fmaf(v.y, w[i + 1], acc[r]);
+            if (i + 2 < kn) acc[r] = fmaf(v.z, w[i + 2], acc[r]);
+            if (i + 3 < kn) acc[r] = fmaf(v.w, w[i + 3], acc[r]);
+          }
+        }
       }
 #pragma unroll
-      for (int r = 0; r < BT; ++r)
-        if (r < nb) gs[r * G + g] = xpt[(size_t)r * G + g] + acc[r];
+      for (int r = 0; r < BT; ++r) red[(kq * BT + r) * cols + pc] = acc[r];
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < nb * H; i += blockDim.x) {
-      const int r = i / H, j = i - r * H;
-      const float* gr = gs + r * G;
-      const float ig = sigmoidf(gr[j]);
-      const float fg = sigmoidf(gr[H + j]);
-      const float gg = tanhf(gr[2 * H + j]);
-      const float og = sigmoidf(gr[3 * H + j]);
-      const float c_new = fg * cs[i] + ig * gg;
-      const float h_new = og * tanhf(c_new);
-      const float mt = m[(size_t)t * B + b0 + r];
-      const float h = mt * h_new + (1.f - mt) * hs[i];
-      cs[i] = mt * c_new + (1.f - mt) * cs[i];
-      hs[i] = h;
-      const size_t o = (((size_t)t * 2 + dir) * B + b0 + r) * H + j;
+    if (active) {
+      float gt[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float* rp = red + eb * cols + q * hs + ej;
+        float s = rp[0];
+        for (int k = 1; k < nk; ++k) s += rp[k * BT * cols];
+        gt[q] = __fadd_rn(x[q], s);
+      }
+      const float c_new = cell(sigmoidf(gt[1]), c, sigmoidf(gt[0]), tanhf(gt[2]));
+      const float h_new = sigmoidf(gt[3]) * tanhf(c_new);
+      h = mt * h_new + (1.f - mt) * h;
+      c = mt * c_new + (1.f - mt) * c;
+      const size_t o = (((size_t)t * 2 + dir) * B + bb) * H + j;
       outs[o] = h;
-      if (cs_out) cs_out[o] = cs[i];
+      if (cs_out) cs_out[o] = c;
+      const int at = ((buf ^ 1) * BT + eb) * hp + j;
+      for (int p = 0; p < cl; ++p) cluster::cluster_peer(hb, p)[at] = h;
+      if (t + 1 < T) fetch(t + 1);
     }
-    __syncthreads();
+    cluster::cluster_sync();  // every unit of h[t] is in every CTA's buffer
   }
-  for (int i = threadIdx.x; i < nb * H; i += blockDim.x) {
-    const int r = i / H, j = i - r * H;
-    h_fin[((size_t)dir * B + b0 + r) * H + j] = hs[i];
-    c_fin[((size_t)dir * B + b0 + r) * H + j] = cs[i];
+  if (active) {
+    h_fin[((size_t)dir * B + bb) * H + j] = h;
+    c_fin[((size_t)dir * B + bb) * H + j] = c;
   }
+}
+
+using FwdKernel = void (*)(const float*, const float*, const float*, float*, float*, float*,
+                           float*, int, int, int, int, int, int);
+
+// KC = 32 takes 256 threads only (its launch bound)
+FwdKernel fwd_kernel(const FwdPlan& p) {
+  return p.kc <= 32 && p.nt == 256 ? bilstm_fwd_kernel<32> : bilstm_fwd_kernel<64>;
+}
+
+size_t fwd_smem(const FwdPlan& p) {
+  return (size_t)(2 * BT * p.nk * p.kc + p.nk * BT * 4 * p.hs) * sizeof(float);
+}
+
+// The forward's launch for B videos: the plan of H, the clusters of the
+// grid and how many of them the card holds at once (a grid of more runs in
+// waves).
+cudaError_t fwd_launch_plan(int B, int H, FwdPlan& p, int& clusters, int& active) {
+  if (B <= 0 || !fwd_plan(H, p)) return cudaErrorInvalidValue;
+  clusters = 2 * ((B + BT - 1) / BT);
+  return cluster::max_active_clusters(fwd_kernel(p), dim3(p.cl, clusters / 2, 2), dim3(p.nt),
+                                      p.cl, fwd_smem(p), &active);
 }
 
 constexpr int RB = 8;     // (t, b) rows per CTA of the coefficient pass
@@ -137,15 +245,19 @@ constexpr int NTC = 256;  // threads per CTA of the chain
 
 // The chain's six factors for every (t, dir, b, j) at once: a tiled
 // [T B x H] x [H x 4H] product per direction (each thread the four gate
-// columns of one j for RB rows), then the activations.  Same arithmetic and
-// order as the forward kernel's step, so the replayed gates are its gates.
+// columns of one j for RB rows), then the activations.  The k terms are
+// summed as the forward kernel sums them: an FMA chain over each of its nk
+// groups of kc rows, the groups' sums added in group order, then xp; the
+// cell is `cell`'s.  So the replayed gates and cell are the forward's, bit
+// for bit; `cell_out` (debug, may be null) receives the replayed cell.
 __global__ void bilstm_coefs_kernel(const float* __restrict__ xp,    // [T, 2, B, 4H]
                                     const float* __restrict__ m,     // [T, B]
                                     const float* __restrict__ w_hh,  // [2, H, 4H]
                                     const float* __restrict__ outs,  // [T, 2, B, H]
                                     const float* __restrict__ cs,    // [T, 2, B, H]
                                     float* __restrict__ coefs,       // [6, T, 2, B, H]
-                                    int T, int B, int H) {
+                                    float* __restrict__ cell_out,    // [T, 2, B, H] or null
+                                    int T, int B, int H, int nk, int kc) {
   extern __shared__ float sm[];  // [RB][H] h_prev
   const int G = 4 * H;
   const int dir = blockIdx.y;
@@ -162,22 +274,30 @@ __global__ void bilstm_coefs_kernel(const float* __restrict__ xp,    // [T, 2, B
   __syncthreads();
   const size_t plane = (size_t)T * 2 * B * H;
   for (int j = threadIdx.x; j < H; j += blockDim.x) {
-    float acc[RB][4];
+    float sum[RB][4];
+    for (int g = 0; g < nk; ++g) {
+      float acc[RB][4];
 #pragma unroll
-    for (int r = 0; r < RB; ++r)
+      for (int r = 0; r < RB; ++r)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+        for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
+      const int k1 = min(H, (g + 1) * kc);
 #pragma unroll 2
-    for (int k = 0; k < H; ++k) {
-      float wv[4];
+      for (int k = g * kc; k < k1; ++k) {
+        float wv[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) wv[q] = __ldg(w + (size_t)k * G + q * H + j);
+        for (int q = 0; q < 4; ++q) wv[q] = __ldg(w + (size_t)k * G + q * H + j);
 #pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const float h = sm[r * H + k];
+        for (int r = 0; r < RB; ++r) {
+          const float h = sm[r * H + k];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(h, wv[q], acc[r][q]);
+          for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(h, wv[q], acc[r][q]);
+        }
       }
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sum[r][q] = g == 0 ? acc[r][q] : sum[r][q] + acc[r][q];
     }
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
@@ -186,12 +306,14 @@ __global__ void bilstm_coefs_kernel(const float* __restrict__ xp,    // [T, 2, B
       const int t = row / B, bb = row - t * B;
       const size_t o = (((size_t)t * 2 + dir) * B + bb) * H + j;
       const float* xr = xp + (((size_t)t * 2 + dir) * B + bb) * G;
-      const float ig = sigmoidf(xr[j] + acc[r][0]);
-      const float fg = sigmoidf(xr[H + j] + acc[r][1]);
-      const float gg = tanhf(xr[2 * H + j] + acc[r][2]);
-      const float og = sigmoidf(xr[3 * H + j] + acc[r][3]);
+      const float ig = sigmoidf(__fadd_rn(xr[j], sum[r][0]));
+      const float fg = sigmoidf(__fadd_rn(xr[H + j], sum[r][1]));
+      const float gg = tanhf(__fadd_rn(xr[2 * H + j], sum[r][2]));
+      const float og = sigmoidf(__fadd_rn(xr[3 * H + j], sum[r][3]));
       const float c_prev = t > 0 ? cs[o - (size_t)2 * B * H] : 0.f;
-      const float tc = tanhf(fg * c_prev + ig * gg);
+      const float c_new = cell(fg, c_prev, ig, gg);
+      if (cell_out) cell_out[o] = c_new;
+      const float tc = tanhf(c_new);
       const float mt = m[(size_t)t * B + bb];
       coefs[o] = mt * og * (1.f - tc * tc);
       coefs[plane + o] = gg * ig * (1.f - ig);
@@ -211,12 +333,7 @@ struct ChainPlan {
 };
 
 bool chain_plan(int H, ChainPlan& p) {
-  p.cl = 1;
-  for (int c = 8; c > 1; c /= 2)
-    if (H % c == 0 && H / c >= 16) {
-      p.cl = c;
-      break;
-    }
+  p.cl = cluster::width_for(H);
   p.hs = H / p.cl;
   if (H <= 0 || BT * p.hs > NTC) return false;  // one thread per (video, column)
   p.nq = NTC / p.hs;
@@ -342,31 +459,43 @@ extern "C" int mucon_bilstm_recurrence(const float* xp, const float* m,
                                        const float* w_hh, float* outs, float* h_fin,
                                        float* c_fin, float* cs, int T, int B, int H,
                                        cudaStream_t stream) {
-  if (T < 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
-  const int G = 4 * H;
-  const int threads = G < 1024 ? ((G + 31) / 32) * 32 : 1024;
-  const size_t smem = (size_t)(2 * BT * H + BT * G) * sizeof(float);
-  cudaError_t err = (cudaError_t)set_smem((const void*)bilstm_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((B + BT - 1) / BT, 2);
-  bilstm_kernel<<<grid, threads, smem, stream>>>(xp, m, w_hh, outs, h_fin, c_fin, cs,
-                                                 T, B, H);
-  return cudaGetLastError();
+  FwdPlan p;
+  if (T < 0 || B <= 0 || !fwd_plan(H, p)) return cudaErrorInvalidValue;
+  return cluster::launch_cluster(fwd_kernel(p), dim3(p.cl, (B + BT - 1) / BT, 2), dim3(p.nt),
+                                 p.cl, fwd_smem(p), stream, xp, m, w_hh, outs, h_fin, c_fin,
+                                 cs, T, B, H, p.hs, p.nk, p.kc);
+}
+
+// The forward's launch for (B, H): out = {CL, NT, NK, KC, clusters, clusters
+// the card holds at once}.  Returns a cudaError (H refused:
+// cudaErrorInvalidValue).
+extern "C" int mucon_bilstm_fwd_plan(int B, int H, int* out) {
+  FwdPlan p;
+  int clusters = 0, active = 0;
+  const cudaError_t err = fwd_launch_plan(B, H, p, clusters, active);
+  if (err == cudaSuccess) {
+    const int v[6] = {p.cl, p.nt, p.nk, p.kc, clusters, active};
+    for (int i = 0; i < 6; ++i) out[i] = v[i];
+  }
+  return err;
 }
 
 // The chain's factors coefs [6, T, 2, B, H] (A, Ci, Cf, Cg, Co, F) from the
-// stashed trajectory: the parallel pass of the reverse chain.
+// stashed trajectory: the parallel pass of the reverse chain.  `cell` (may
+// be null) receives the replayed cell f c_prev + i g [T, 2, B, H].
 extern "C" int mucon_bilstm_bwd_coefs(const float* xp, const float* m, const float* w_hh,
                                       const float* outs, const float* cs, float* coefs,
-                                      int T, int B, int H, cudaStream_t stream) {
-  if (T < 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
+                                      float* cell, int T, int B, int H, cudaStream_t stream) {
+  FwdPlan p;
+  if (T < 0 || B <= 0 || !fwd_plan(H, p)) return cudaErrorInvalidValue;
   if (T == 0) return cudaSuccess;
   const int threads = H < 128 ? ((H + 31) / 32) * 32 : 128;
   const size_t smem = (size_t)RB * H * sizeof(float);
   cudaError_t err = (cudaError_t)set_smem((const void*)bilstm_coefs_kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T * B + RB - 1) / RB, 2);
-  bilstm_coefs_kernel<<<grid, threads, smem, stream>>>(xp, m, w_hh, outs, cs, coefs, T, B, H);
+  bilstm_coefs_kernel<<<grid, threads, smem, stream>>>(xp, m, w_hh, outs, cs, coefs, cell, T,
+                                                       B, H, p.nk, p.kc);
   return cudaGetLastError();
 }
 

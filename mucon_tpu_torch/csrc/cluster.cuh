@@ -8,6 +8,11 @@
 //                             writes made before it are visible after it
 //                             (arrive.release + wait.acquire)
 //   launch_cluster(...)       launch with a cluster of `width` CTAs along x
+//   max_active_clusters(...)  how many clusters of that launch the card holds
+//                             at once (a grid of more runs in waves)
+//   width_for(H)              the widest of 8, 4, 2 CTAs that leaves each at
+//                             least 16 of H units, else 1 (the recurrences'
+//                             split of a hidden size)
 //
 // Rules a caller keeps: a remote write is read only after a cluster_sync();
 // no CTA exits while a peer may still write to it (sync once after the last
@@ -33,27 +38,53 @@ __device__ __forceinline__ T* cluster_peer(T* smem, unsigned rank) {
 
 __device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
 
+// A launch configuration with a cluster of `width` CTAs along x; `attr`
+// must outlive it.  Sets the kernel's dynamic shared memory limit.
+template <typename... Params>
+inline cudaError_t cluster_config(void (*kernel)(Params...), dim3 grid, dim3 block,
+                                  unsigned width, size_t smem, cudaStream_t stream,
+                                  cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+  *cfg = {};
+  cfg->gridDim = grid;
+  cfg->blockDim = block;
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = width;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+inline int width_for(int H) {
+  for (int c = 8; c > 1; c /= 2)
+    if (H % c == 0 && H / c >= 16) return c;
+  return 1;
+}
+
 // grid.x must be a multiple of `width`; returns the launch's error
 template <typename... Params, typename... Args>
 inline cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, dim3 block,
                                   unsigned width, size_t smem, cudaStream_t stream,
                                   Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = cluster_config(kernel, grid, block, width, smem, stream, &attr, &cfg);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = width;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+// Clusters of this launch shape the card can hold at once, into *n
+template <typename... Params>
+inline cudaError_t max_active_clusters(void (*kernel)(Params...), dim3 grid, dim3 block,
+                                       unsigned width, size_t smem, int* n) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = cluster_config(kernel, grid, block, width, smem, nullptr, &attr, &cfg);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
 }
 
 }  // namespace cluster

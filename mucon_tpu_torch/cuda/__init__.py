@@ -19,7 +19,9 @@ counts one per layer sweep: its C launcher runs that layer's four
 kernels (dz, dx, weight-gradient partials, their fixed-order sum).
 `bilstm_train_bwd` counts one per `bilstm_train_backward` call: that call
 launches the reverse chain's two kernels (the parallel coefficient pass,
-then the cluster chain).
+then the cluster chain); `decoder_chain_bwd` likewise one per
+`decoder_chain_backward` call (the parallel replay pass, then the cluster
+chain).
 `wavenet_train_v2_fwd` and `wavenet_train_v2_sweep` count one per chunk:
 each is one cooperative launch over a chunk of layers.
 
@@ -59,8 +61,9 @@ KERNELS = (
     "decoder_chain_fwd", "decoder_chain_bwd", "mucon_flint", "mstcnpp_stack",
     "wavenet_train_v2_fwd", "wavenet_train_v2_sweep",
 )
-# the decoder chain's score rows live in shared memory: the reverse kernel's
-# need for a Tz must fit the H100's per-block opt-in limit (227 KiB)
+# the decoder chain's per-video tables ([Tz] score rows; the reverse chain's
+# [Tz x H / CL] slices) live in shared memory: a kernel's need for a Tz
+# must fit the H100's per-block opt-in limit (227 KiB)
 MAX_SMEM_BYTES = 232448
 
 launch_counts = {name: 0 for name in KERNELS}
@@ -138,12 +141,15 @@ def load() -> ctypes.CDLL:
             lib.mucon_wavenet_train_fwd.argtypes = [P] * 10 + [I] * 8 + [P]
             lib.mucon_wavenet_train_sweep.argtypes = [P] * 16 + [I] * 9 + [P]
             lib.mucon_wavenet_train_splits.argtypes = [I]
-            lib.mucon_bilstm_bwd_coefs.argtypes = [P] * 6 + [I] * 3 + [P]
+            lib.mucon_bilstm_fwd_plan.argtypes = [I, I, ctypes.POINTER(I)]
+            lib.mucon_bilstm_bwd_coefs.argtypes = [P] * 7 + [I] * 3 + [P]
             lib.mucon_bilstm_bwd_chain.argtypes = [P] * 7 + [I] * 3 + [P]
             lib.mucon_bilstm_chain_width.argtypes = [I]
             lib.mucon_decoder_chain_fwd.argtypes = [P] * 16 + [I] * 5 + [P]
-            lib.mucon_decoder_chain_bwd.argtypes = [P] * 24 + [I] * 5 + [P]
-            lib.mucon_decoder_chain_smem.argtypes = [I] * 3
+            lib.mucon_decoder_chain_replay.argtypes = [P] * 18 + [I] * 5 + [P]
+            lib.mucon_decoder_chain_bwd.argtypes = [P] * 18 + [I] * 5 + [P]
+            lib.mucon_decoder_chain_smem.argtypes = [I] * 4
+            lib.mucon_decoder_chain_width.argtypes = [I]
             lib.mucon_flint.argtypes = [P] * 9 + [I] * 4 + [P]
             lib.mucon_mstcnpp_layer.argtypes = [P] * 7 + [I] * 7 + [P]
             lib.mucon_mstcnpp_tile_rows.argtypes = []
@@ -156,10 +162,12 @@ def load() -> ctypes.CDLL:
             for fn in (lib.mucon_wavenet_layer, lib.mucon_bilstm_recurrence,
                        lib.mucon_dense_viterbi, lib.mucon_wavenet_train_fwd,
                        lib.mucon_wavenet_train_sweep, lib.mucon_wavenet_train_splits,
+                       lib.mucon_bilstm_fwd_plan,
                        lib.mucon_bilstm_bwd_coefs, lib.mucon_bilstm_bwd_chain,
                        lib.mucon_bilstm_chain_width, lib.mucon_mstcnpp_tile_rows,
-                       lib.mucon_decoder_chain_fwd,
+                       lib.mucon_decoder_chain_fwd, lib.mucon_decoder_chain_replay,
                        lib.mucon_decoder_chain_bwd, lib.mucon_decoder_chain_smem,
+                       lib.mucon_decoder_chain_width,
                        lib.mucon_flint, lib.mucon_mstcnpp_layer, lib.mucon_mstcnpp_proj,
                        lib.mucon_wavenet_train_v2_fwd, lib.mucon_wavenet_train_v2_sweep,
                        lib.mucon_wavenet_train_v2_work_floats):
@@ -372,6 +380,50 @@ def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
     return g, dw3, db3, dw1, db1, dwl, dbl
 
 
+def _cluster_width(H: int) -> int:
+    """The widest of 8, 4, 2 CTAs that leaves each at least 16 hidden
+    units, else 1 (`cluster::width_for` in csrc/cluster.cuh)."""
+    return next((c for c in (8, 4, 2) if H % c == 0 and H // c >= 16), 1)
+
+
+def bilstm_fwd_plan(H: int) -> tuple:
+    """How the forward recurrence splits a hidden size H (`fwd_plan` in
+    csrc/bilstm.cu): (cluster width CL, hidden units per CTA HS, threads
+    per CTA NT, k-groups NK, k-rows per group KC).  Each CTA's 4 HS gate
+    columns times NK groups of KC rows (a multiple of 4) cover the
+    [H x 4H] w_hh slice, KC weights a thread in registers.  NT is the least
+    of 256, 512 that holds the columns, a thread per unit for 8
+    videos, and KC <= 64; raises for an H that no NT fits."""
+    if H >= 1:
+        cl = _cluster_width(H)
+        hs = H // cl
+        for nt in (256, 512):
+            if 4 * hs > nt or 8 * hs > nt:
+                continue
+            nk = nt // (4 * hs)
+            kc = (-(-H // nk) + 3) // 4 * 4
+            if kc <= 64:
+                return cl, hs, nt, nk, kc
+    raise ValueError(f"the forward recurrence cannot split H={H} over a cluster "
+                     f"(at most 64 weights a thread)")
+
+
+BILSTM_FWD_PLAN_KEYS = ("cl", "threads", "nk", "kc", "clusters", "active")
+
+
+def bilstm_fwd_launch(B: int, H: int) -> dict:
+    """The forward's launch at B videos (`mucon_bilstm_fwd_plan`): the
+    plan's CL, NT, NK, KC, the clusters of the grid (one per direction and
+    8 videos) and how many the card holds at once (more run in waves)."""
+    lib = load()
+    out = (ctypes.c_int * 6)()
+    err = lib.mucon_bilstm_fwd_plan(B, H, out)
+    if err != 0:
+        raise RuntimeError(f"bilstm forward plan failed: "
+                           f"{lib.mucon_cuda_error_string(err).decode()}")
+    return dict(zip(BILSTM_FWD_PLAN_KEYS, out))
+
+
 def _check_bilstm(xp, m, w_hh):
     dev = _cuda_device(xp)
     T, two, B, G = xp.shape
@@ -380,6 +432,7 @@ def _check_bilstm(xp, m, w_hh):
         raise ValueError(f"bad shapes xp {tuple(xp.shape)} m {tuple(m.shape)} "
                          f"w_hh {tuple(w_hh.shape)}")
     _require(dev, torch.float32, xp=xp, m=m, w_hh=w_hh)
+    bilstm_fwd_plan(H)
     return dev, T, B, H
 
 
@@ -401,7 +454,9 @@ def _bilstm_forward(xp, m, w_hh, stash: bool, name: str):
 
 def bilstm_recurrence(xp, m, w_hh):
     """xp [T x 2 x B x 4H], m [T x B], w_hh [2 x H x 4H] (f32) ->
-    (outs [T x 2 x B x H], h [2 x B x H], c [2 x B x H])."""
+    (outs [T x 2 x B x H], h [2 x B x H], c [2 x B x H]): one
+    thread-block cluster per direction and 8 videos, w_hh resident in its
+    registers (`bilstm_fwd_plan`)."""
     return _bilstm_forward(xp, m, w_hh, False, "bilstm_recurrence")[:3]
 
 
@@ -418,11 +473,10 @@ BILSTM_CHAIN_BT, BILSTM_CHAIN_THREADS = 8, 256
 def bilstm_chain_plan(H: int) -> tuple:
     """How the reverse chain splits a hidden size H (`chain_plan` in
     csrc/bilstm.cu): (cluster width CL, columns per CTA HS, thread groups
-    NQ, gate rows per group GPQ).  CL is the widest of 8, 4, 2 that leaves
-    each CTA at least 16 columns, else 1.  Raises for an H the kernel does
-    not take: more than 32 columns a CTA (one thread per video and column)
-    or more than 128 weights a thread."""
-    cl = next((c for c in (8, 4, 2) if H % c == 0 and H // c >= 16), 1)
+    NQ, gate rows per group GPQ).  CL is `_cluster_width(H)`.  Raises for
+    an H the kernel does not take: more than 32 columns a CTA (one thread
+    per video and column) or more than 128 weights a thread."""
+    cl = _cluster_width(H)
     hs = H // cl
     if H < 1 or BILSTM_CHAIN_BT * hs > BILSTM_CHAIN_THREADS:
         raise ValueError(f"the reverse chain cannot split H={H}: {hs} columns a CTA, "
@@ -450,19 +504,22 @@ def _check_bilstm_bwd(dev, T, B, H, **tensors):
     _require(dev, torch.float32, **tensors)
 
 
-def bilstm_bwd_coefs(xp, m, w_hh, outs, cs, *, count: bool = True):
+def bilstm_bwd_coefs(xp, m, w_hh, outs, cs, *, count: bool = True, cell: bool = False):
     """The parallel pass of the reverse chain (`ops/lstm_recurrence.py
     bilstm_bwd_coefs_plain`): coefs [6 x T x 2 x B x H], the chain's factors
-    A, Ci, Cf, Cg, Co, F for every step at once."""
+    A, Ci, Cf, Cg, Co, F for every step at once.  With `cell` also the
+    replayed cell f c_prev + i g [T x 2 x B x H], which equals the forward's
+    stash cs at every valid step bit for bit: returns (coefs, cell)."""
     dev, T, B, H = _check_bilstm(xp, m, w_hh)
     _check_bilstm_bwd(dev, T, B, H, outs=outs, cs=cs)
     coefs = torch.empty(6, T, 2, B, H, device=dev, dtype=torch.float32)
+    replay = torch.empty(T, 2, B, H, device=dev, dtype=torch.float32) if cell else None
     lib = load()
     err = lib.mucon_bilstm_bwd_coefs(
         xp.data_ptr(), m.data_ptr(), w_hh.data_ptr(), outs.data_ptr(), cs.data_ptr(),
-        coefs.data_ptr(), T, B, H, _stream(dev))
+        coefs.data_ptr(), _ptr(replay), T, B, H, _stream(dev))
     _check_launch(lib, err, "bilstm_train_bwd", count)
-    return coefs
+    return (coefs, replay) if cell else coefs
 
 
 def bilstm_bwd_chain(coefs, m, w_hh, douts, dh, dc):
@@ -522,8 +579,10 @@ def dense_viterbi(W, pois, k_valid, n_valid, frame_sampling: int, max_len: int):
     return score, best_l, bps
 
 
-def _check_chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih, whh, bl):
-    """Shapes of the decoder chain's inputs -> (device, S, B, Tz, H, E)."""
+def _check_chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih, whh, bl,
+                 reverse: bool = False):
+    """Shapes of the decoder chain's inputs -> (device, S, B, Tz, H, E);
+    with `reverse`, also the reverse chain's limits (`decoder_chain_plan`)."""
     dev = _cuda_device(emb)
     S, B, H = emb.shape
     Tz, E = enc.shape[1], enc.shape[2]
@@ -538,11 +597,14 @@ def _check_chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih, w
     if min(S, B, Tz) < 1 or max(4 * H, E) > 1024:
         raise ValueError(f"the chain kernels take S, B, Tz >= 1 and 4H, E <= 1024; got "
                          f"S={S} B={B} Tz={Tz} H={H} E={E}")
+    if reverse:
+        decoder_chain_plan(H)
     _require(dev, torch.float32, emb=emb, **got)
     lib = load()
-    if lib.mucon_decoder_chain_smem(H, E, Tz) > MAX_SMEM_BYTES:
-        raise ValueError(f"Tz={Tz} needs {lib.mucon_decoder_chain_smem(H, E, Tz)} bytes of "
-                         f"shared memory for the score rows; the limit is {MAX_SMEM_BYTES}")
+    need = lib.mucon_decoder_chain_smem(H, E, Tz, int(reverse))
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"Tz={Tz} needs {need} bytes of shared memory a block; the limit "
+                         f"is {MAX_SMEM_BYTES}")
     return dev, S, B, Tz, H, E
 
 
@@ -566,41 +628,115 @@ def decoder_chain_forward(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, b
     return hs, cs, comb
 
 
-def decoder_chain_backward(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2, bc,
-                           wih, whh, bl, dhs, dcs, dcomb):
-    """The reverse (dh, dc) chain from the step inputs h_in / c_in and the
-    cotangents of (hs, cs, comb) -> (dgate [S x B x 4H], dcpre [S x B x H],
-    dsc [S x B x Tz], dh0 [B x H], dc0 [B x H])."""
+# the reverse chain's threads per CTA (csrc/decoder_chain.cu NTB)
+DECODER_CHAIN_THREADS = 256
+
+
+def decoder_chain_plan(H: int) -> tuple:
+    """How the reverse chain splits a hidden size H over a cluster
+    (`bwd_plan` in csrc/decoder_chain.cu): (cluster width CL, units per CTA
+    HS, dgate row groups NQ, rows per group RQ).  CL is `_cluster_width(H)`;
+    a CTA's 2 HS output columns of dgate [Wih; Whh]^T take NQ = 256 / (2 HS)
+    groups of RQ rows (a multiple of 4).  Raises for an H the kernel does
+    not take: HS not a multiple of 4 or above 32, H above 256 (a thread a
+    unit), or RQ above 64 (the weights a thread keeps in registers)."""
+    cl = _cluster_width(H)
+    hs = H // cl
+    if 4 <= H <= DECODER_CHAIN_THREADS and hs % 4 == 0 and hs <= 32:
+        nq = DECODER_CHAIN_THREADS // (2 * hs)
+        rq = (-(-4 * H // nq) + 3) // 4 * 4
+        if rq <= 64:
+            return cl, hs, nq, rq
+    raise ValueError(f"the reverse decoder chain cannot split H={H} over a cluster")
+
+
+def decoder_chain_replay(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2, bc, wih,
+                         whh, bl, *, count: bool = True, cell: bool = False):
+    """Pass 1 of the reverse chain (`ops/decoder_chain.py
+    decoder_chain_replay_plain`), one CTA per step and video, all at once
+    -> (acts [5 x S x B x H], cpre [S x B x H], a [S x B x Tz],
+    u [S x B x Tz x H]); with `cell` also the replayed cell [S x B x H].
+    cpre and the cell equal the forward kernel's (relu(cpre) its comb, the
+    cell its cs) bit for bit.  `a` is a view of rows padded to a multiple
+    of 4 frames."""
     dev, S, B, Tz, H, E = _check_chain(emb, enc, pre, maskf, h_in[0], c_in[0], wl2, bl2, v,
-                                       wc1, wc2, bc, wih, whh, bl)
-    for name, t in (("h_in", h_in), ("c_in", c_in), ("dhs", dhs), ("dcs", dcs),
-                    ("dcomb", dcomb)):
+                                       wc1, wc2, bc, wih, whh, bl, reverse=True)
+    for name, t in (("h_in", h_in), ("c_in", c_in)):
         if tuple(t.shape) != (S, B, H):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(S, B, H)}")
-    _require(dev, torch.float32, h_in=h_in, c_in=c_in, dhs=dhs, dcs=dcs, dcomb=dcomb)
+    _require(dev, torch.float32, h_in=h_in, c_in=c_in)
     wcat = torch.cat([wc1, wc2])
     wg = torch.cat([wih, whh])
-    # W^T copies (once per call) so that the transposed products read rows
-    wgt = wg.t().contiguous()  # [4H, 2H]
-    wc2t = wc2.t().contiguous()  # [H, E]
-    wl2t = wl2.t().contiguous()  # [H, H]
+    f32 = dict(device=dev, dtype=torch.float32)
+    acts = torch.empty(5, S, B, H, **f32)
+    cpre = torch.empty(S, B, H, **f32)
+    a = torch.empty(S, B, -(-Tz // 4) * 4, **f32)
+    u = torch.empty(S, B, Tz, H, **f32)
+    replay = torch.empty(S, B, H, **f32) if cell else None
+    lib = load()
+    err = lib.mucon_decoder_chain_replay(
+        emb.data_ptr(), enc.data_ptr(), pre.data_ptr(), maskf.data_ptr(), h_in.data_ptr(),
+        c_in.data_ptr(), wl2.data_ptr(), bl2.data_ptr(), v.data_ptr(), wcat.data_ptr(),
+        bc.data_ptr(), wg.data_ptr(), bl.data_ptr(), acts.data_ptr(), cpre.data_ptr(),
+        a.data_ptr(), u.data_ptr(), _ptr(replay), S, B, Tz, H, E, _stream(dev))
+    _check_launch(lib, err, "decoder_chain_bwd", count)
+    out = (acts, cpre, a[..., :Tz], u)
+    return (*out, replay) if cell else out
+
+
+def decoder_chain_bwd_chain(acts, cpre, a, u, c_in, enc, v, wc2, wih, whh, wl2, dhs, dcs,
+                            dcomb):
+    """Pass 2 of the reverse chain (`decoder_chain_bwd_chain_plain`) on one
+    thread-block cluster per video -> (dgate [S x B x 4H], dcpre [S x B x H],
+    dsc [S x B x Tz], dh0 [B x H], dc0 [B x H]).  `a` as
+    `decoder_chain_replay` returns it (rows padded to a multiple of 4)."""
+    dev = _cuda_device(c_in)
+    S, B, H = c_in.shape
+    Tz, E = enc.shape[1], enc.shape[2]
+    Tzp = -(-Tz // 4) * 4
+    decoder_chain_plan(H)
+    want = dict(acts=(5, S, B, H), cpre=(S, B, H), a=(S, B, Tz), u=(S, B, Tz, H),
+                enc=(B, Tz, E), v=(H,), wc2=(E, H), wih=(H, 4 * H), whh=(H, 4 * H),
+                wl2=(H, H), dhs=(S, B, H), dcs=(S, B, H), dcomb=(S, B, H))
+    got = dict(acts=acts, cpre=cpre, a=a, u=u, enc=enc, v=v, wc2=wc2, wih=wih, whh=whh,
+               wl2=wl2, dhs=dhs, dcs=dcs, dcomb=dcomb)
+    for name, shape in want.items():
+        if tuple(got[name].shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(got[name].shape)}, expected {shape}")
+    if a.stride() != (B * Tzp, Tzp, 1) or a.device != dev or a.dtype != torch.float32:
+        raise ValueError("a must be decoder_chain_replay's (f32 rows padded to 4 frames)")
+    _require(dev, torch.float32, c_in=c_in, **{k: t for k, t in got.items() if k != "a"})
+    lib = load()
+    if lib.mucon_decoder_chain_smem(H, E, Tz, 1) > MAX_SMEM_BYTES:
+        raise ValueError(f"Tz={Tz} needs more shared memory than {MAX_SMEM_BYTES} bytes")
+    wg = torch.cat([wih, whh])  # [2H, 4H]: row n is column n of [Wih; Whh]^T
     f32 = dict(device=dev, dtype=torch.float32)
     dgate = torch.empty(S, B, 4 * H, **f32)
     dcpre = torch.empty(S, B, H, **f32)
     dsc = torch.empty(S, B, Tz, **f32)
     dh0 = torch.empty(B, H, **f32)
     dc0 = torch.empty(B, H, **f32)
-    lib = load()
     err = lib.mucon_decoder_chain_bwd(
-        emb.data_ptr(), enc.data_ptr(), pre.data_ptr(), maskf.data_ptr(), h_in.data_ptr(),
-        c_in.data_ptr(), wl2.data_ptr(), bl2.data_ptr(), v.data_ptr(), wcat.data_ptr(),
-        bc.data_ptr(), wg.data_ptr(), bl.data_ptr(), wgt.data_ptr(), wc2t.data_ptr(),
-        wl2t.data_ptr(), dhs.data_ptr(), dcs.data_ptr(), dcomb.data_ptr(),
-        dgate.data_ptr(), dcpre.data_ptr(), dsc.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-        S, B, Tz, H, E, _stream(dev),
-    )
+        acts.data_ptr(), cpre.data_ptr(), a.data_ptr(), u.data_ptr(), c_in.data_ptr(),
+        enc.data_ptr(), v.data_ptr(), wc2.data_ptr(), wg.data_ptr(), wl2.data_ptr(),
+        dhs.data_ptr(), dcs.data_ptr(), dcomb.data_ptr(), dgate.data_ptr(), dcpre.data_ptr(),
+        dsc.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), S, B, Tz, H, E, _stream(dev))
     _check_launch(lib, err, "decoder_chain_bwd")
     return dgate, dcpre, dsc, dh0, dc0
+
+
+def decoder_chain_backward(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2, bc,
+                           wih, whh, bl, dhs, dcs, dcomb):
+    """The reverse (dh, dc) chain from the step inputs h_in / c_in and the
+    cotangents of (hs, cs, comb) -> (dgate [S x B x 4H], dcpre [S x B x H],
+    dsc [S x B x Tz], dh0 [B x H], dc0 [B x H]).  Two kernels, counted as one
+    `decoder_chain_bwd` launch: the replay of every step at once
+    (`decoder_chain_replay`, into scratch allocated here), then the cluster
+    chain (`decoder_chain_bwd_chain`)."""
+    acts, cpre, a, u = decoder_chain_replay(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v,
+                                            wc1, wc2, bc, wih, whh, bl, count=False)
+    return decoder_chain_bwd_chain(acts, cpre, a, u, c_in, enc, v, wc2, wih, whh, wl2, dhs,
+                                   dcs, dcomb)
 
 
 def mucon_flint(scale, xloc, sdiv, seg, target, n_len, t_valid, class_weights=None):

@@ -32,7 +32,6 @@ import torch
 from mucon_tpu_torch.data import PaddedBatchLoader
 from mucon_tpu_torch.harness.optim import (
     MultiStepScheduler,
-    PlateauScheduler,
     Scheduler,
     clip_grad_norm_partitioned,
     create_optimizer,
@@ -41,6 +40,12 @@ from mucon_tpu_torch.harness.optim import (
 from mucon_tpu_torch.models.model import MuConModel, batch_to_tensors
 
 logger = logging.getLogger("mucon_tpu_torch.train")
+
+# the reference steps its plateau scheduler on the epoch's eval s_mof_nbg
+# (mucon_tpu/harness/trainer.py:351-354); without an evaluator the rate
+# would never fall
+_PLATEAU = ("the plateau scheduler needs the evaluator's s_mof_nbg, which the "
+            "port does not compute yet")
 
 
 @dataclasses.dataclass
@@ -56,12 +61,9 @@ class TrainConfig:
     momentum: float = 0.0
     weight_decay: float = 0.005
     clip_grad_norm_value: float = 100.0  # per group: encoder, decoder
-    scheduler: str = "step"  # "none" | "step" | "plateau"
+    scheduler: str = "step"  # "none" | "step" ("plateau" raises: see _PLATEAU)
     milestones: Sequence[int] = (70,)
     gamma: float = 0.1
-    plateau_mode: str = "max"
-    plateau_factor: float = 0.1
-    plateau_patience: int = 20
     log_every: int = 20
 
 
@@ -74,6 +76,8 @@ def train_config_from_cfg(cfg) -> TrainConfig:
             "the port clips the encoder and decoder groups apart and takes "
             "one step per batch"
         )
+    if tr.scheduler.name == "plateau":
+        raise NotImplementedError(_PLATEAU)
     return TrainConfig(
         num_epochs=tr.num_epochs,
         batch_size=max(1, cfg.tpu.batch_size),
@@ -86,9 +90,6 @@ def train_config_from_cfg(cfg) -> TrainConfig:
         scheduler=tr.scheduler.name,
         milestones=tuple(tr.scheduler.step.milestones),
         gamma=tr.scheduler.step.gamma,
-        plateau_mode=tr.scheduler.plateau.mode,
-        plateau_factor=tr.scheduler.plateau.factor,
-        plateau_patience=tr.scheduler.plateau.patience,
     )
 
 
@@ -98,8 +99,7 @@ def create_scheduler(config: TrainConfig) -> Optional[Scheduler]:
     if config.scheduler == "step":
         return MultiStepScheduler(config.learning_rate, config.milestones, config.gamma)
     if config.scheduler == "plateau":
-        return PlateauScheduler(config.learning_rate, config.plateau_mode,
-                                config.plateau_factor, config.plateau_patience)
+        raise NotImplementedError(_PLATEAU)
     raise ValueError(f"Invalid scheduler name ({config.scheduler})")
 
 

@@ -203,6 +203,13 @@ def model_fields_from_cfg(cfg) -> dict:
         raise ValueError("encoder and decoder hidden sizes must be equal")
     if not (ft.last_gn and ft.last_relu):
         raise NotImplementedError("the port always applies the last GN + ReLU")
+    if cfg.tpu.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"the port computes in float32 only, got tpu.compute_dtype="
+            f"{cfg.tpu.compute_dtype!r}")
+    if not cfg.model.teacher_forcing:
+        raise NotImplementedError("the port trains teacher-forced only "
+                                  "(model.teacher_forcing=False)")
     return dict(
         stages=tuple(ft.stages),
         hidden_size=ft.hidden_size,

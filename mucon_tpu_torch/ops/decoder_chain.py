@@ -15,7 +15,11 @@ package leaves it to XLA:
 * `decoder_chain_plain` — PyTorch loop over S, the twin of
   `decoder_chain_xla` (decoder_pallas.py:353); differentiable by autograd.
 * `decoder_chain_bwd_plain` — the reverse (dh, dc) chain of
-  `_chain_bwd_kernel` (decoder_pallas.py:139) as a PyTorch loop.
+  `_chain_bwd_kernel` (decoder_pallas.py:139) as a PyTorch loop: the
+  composition of the plain twins of the reverse kernel's two passes,
+  `decoder_chain_replay_plain` (every step's forward replayed from the
+  stash, all at once) and `decoder_chain_bwd_chain_plain` (the sequential
+  chain).
 * `DecoderChain` — the chain with its backward rule (`_chain_bwd_rule`,
   decoder_pallas.py:280): on CUDA tensors the forward and reverse chains
   are the kernels of `csrc/decoder_chain.cu` (a launch that fails raises);
@@ -79,20 +83,36 @@ def decoder_chain_plain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc,
     return torch.stack(hs), torch.stack(cs), torch.stack(combs)
 
 
-def decoder_chain_bwd_plain(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2,
-                            bc, wih, whh, bl, dhs, dcs, dcomb_ext):
-    """Reverse (dh, dc) chain from the step inputs h_in / c_in [S x B x H]
-    and the cotangents of (hs, cs, comb) -> (dgate [S x B x 4H],
+def decoder_chain_replay_plain(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2, bc,
+                               wih, whh, bl):
+    """The forward step of every s at once from the step inputs h_in / c_in
+    [S x B x H] (no chain: they are stashed) -> (acts [5 x S x B x H] = i, f,
+    g, o, tanh(c_out); cpre [S x B x H]; a [S x B x Tz]; u [S x B x Tz x H]),
+    what the reverse chain needs of each step.  A loop over s of `_step`,
+    so that `decoder_chain_bwd_plain` repeats the step's arithmetic exactly."""
+    acts, cpres, atts, us = [], [], [], []
+    for s in range(emb.shape[0]):
+        _, c_out, _, cpre, (i, f, g, o), (_, u, a, _) = _step(
+            emb[s], h_in[s], c_in[s], enc, pre, maskf, wl2, bl2, v, wc1, wc2, bc, wih, whh, bl)
+        acts.append(torch.stack([i, f, g, o, torch.tanh(c_out)]))
+        cpres.append(cpre)
+        atts.append(a)
+        us.append(u)
+    return torch.stack(acts, dim=1), torch.stack(cpres), torch.stack(atts), torch.stack(us)
+
+
+def decoder_chain_bwd_chain_plain(acts, cpre, a, u, c_in, enc, v, wc2, wih, whh, wl2, dhs,
+                                  dcs, dcomb_ext):
+    """The sequential part of the reverse chain (`_chain_bwd_kernel`,
+    decoder_pallas.py:139) from the replayed steps -> (dgate [S x B x 4H],
     dcpre [S x B x H], dsc [S x B x Tz], dh0, dc0)."""
-    S = emb.shape[0]
-    dh_c = torch.zeros_like(h_in[0])
+    S = c_in.shape[0]
+    dh_c = torch.zeros_like(c_in[0])
     dc_c = torch.zeros_like(c_in[0])
     dgate, dcpre, dsc = [None] * S, [None] * S, [None] * S
     for s in reversed(range(S)):
+        i, f, g, o, tc = acts[:, s]
         c = c_in[s]
-        _, c_out, _, cpre, (i, f, g, o), (_, u, a, _) = _step(
-            emb[s], h_in[s], c, enc, pre, maskf, wl2, bl2, v, wc1, wc2, bc, wih, whh, bl)
-        tc = torch.tanh(c_out)
         dh = dh_c + dhs[s]
         dc = dc_c + dcs[s]
         dct = dh * o * (1.0 - tc * tc) + dc
@@ -100,13 +120,25 @@ def decoder_chain_bwd_plain(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, 
         dg = torch.cat([dct * g * i * (1.0 - i), dct * c * f * (1.0 - f),
                         dct * i * (1.0 - g * g), dh * tc * o * (1.0 - o)], dim=-1)
         dcomb = dg @ wih.t() + dcomb_ext[s]
-        dcp = dcomb * (cpre > 0.0).to(dcomb.dtype)
+        dcp = dcomb * (cpre[s] > 0.0).to(dcomb.dtype)
         da = torch.bmm(enc, (dcp @ wc2.t())[:, :, None])[:, :, 0]
-        ds = a * (da - torch.sum(a * da, dim=-1, keepdim=True))
-        dq = torch.sum(ds[:, :, None] * v * (1.0 - u * u), dim=1)
+        ds = a[s] * (da - torch.sum(a[s] * da, dim=-1, keepdim=True))
+        dq = torch.sum(ds[:, :, None] * v * (1.0 - u[s] * u[s]), dim=1)
         dh_c = dg @ whh.t() + dq @ wl2.t()
         dgate[s], dcpre[s], dsc[s] = dg, dcp, ds
     return torch.stack(dgate), torch.stack(dcpre), torch.stack(dsc), dh_c, dc_c
+
+
+def decoder_chain_bwd_plain(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2,
+                            bc, wih, whh, bl, dhs, dcs, dcomb_ext):
+    """Reverse (dh, dc) chain from the step inputs h_in / c_in [S x B x H]
+    and the cotangents of (hs, cs, comb) -> (dgate [S x B x 4H],
+    dcpre [S x B x H], dsc [S x B x Tz], dh0, dc0): the replay of every
+    step, then the chain."""
+    acts, cpre, a, u = decoder_chain_replay_plain(emb, enc, pre, maskf, h_in, c_in, wl2, bl2,
+                                                  v, wc1, wc2, bc, wih, whh, bl)
+    return decoder_chain_bwd_chain_plain(acts, cpre, a, u, c_in, enc, v, wc2, wih, whh, wl2,
+                                         dhs, dcs, dcomb_ext)
 
 
 def _chain_forward(*args):

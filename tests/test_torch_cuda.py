@@ -4,8 +4,11 @@ remainders, dilations past the sequence, sum pooling, leaky ReLU, B = 1,
 T = 1, fully masked videos, K = 1, infeasible DPs, a decoder chain of one
 step, one video, one frame or a thousand, one segment of the flint loss,
 an MS-TCN++ stage at odd lengths and lengths on a tile edge, the BiLSTM
-reverse chain on clusters of 1, 2 and 8 CTAs, the v2 stack in 1, 3 and 11
-chunks with tied pool pairs).  Needs a CUDA device and
+recurrence and its reverse chain on clusters of 1, 2 and 8 CTAs, the
+decoder chain's replay pass and cluster chain, the v2 stack in 1, 3 and 11
+chunks with tied pool pairs), and the bit-for-bit statements: two calls
+agree, the BiLSTM coefficient pass replays the stashed cell, the decoder
+chain's replay pass the stashed comb and cell.  Needs a CUDA device and
 nvcc; skips without them.  Imports no jax, so it runs on the card:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -23,6 +26,7 @@ from mucon_tpu_torch.ops.decoder_chain import (
     DecoderChain,
     decoder_chain_bwd_plain,
     decoder_chain_plain,
+    decoder_chain_replay_plain,
 )
 from mucon_tpu_torch.ops.lstm_recurrence import (
     BiLSTMRecurrenceTrain,
@@ -84,16 +88,24 @@ def test_wavenet_kernel_ragged(dev, pooling_type, leaky):
     assert (zk - zp).abs().max().item() <= 1e-4 * zp.abs().max().item()
 
 
-@pytest.mark.parametrize("B,H", [(11, 128), (3, 8)])
-def test_bilstm_kernel_tile_remainder(dev, B, H):
+# B not a multiple of the cluster's 8-video tile; H = 8 (a cluster of one
+# CTA); the serving batch, B = 128 at Tz = 160 (32 clusters of 8 CTAs)
+@pytest.mark.parametrize("T,B,H", [(13, 11, 128), (13, 3, 8), (160, 128, 128)])
+def test_bilstm_kernel_tile_remainder(dev, T, B, H):
     g = torch.Generator().manual_seed(1)
-    T = 13
     xp = torch.randn(T, 2, B, 4 * H, generator=g).to(dev)
     lengths = torch.randint(1, T + 1, (B,), generator=g)
     m = (torch.arange(T)[:, None] < lengths[None, :]).float().to(dev)
     w_hh = (torch.randn(2, H, 4 * H, generator=g) / H ** 0.5).to(dev)
-    for a, b in zip(bilstm_recurrence(xp, m, w_hh), bilstm_recurrence_plain(xp, m, w_hh)):
+    got = bilstm_recurrence(xp, m, w_hh)
+    for a, b in zip(got, bilstm_recurrence_plain(xp, m, w_hh)):
         assert (a - b).abs().max().item() <= 1e-5
+    # the partial sums are added in a fixed order: a second call repeats the first
+    assert all(torch.equal(a, b) for a, b in zip(got, bilstm_recurrence(xp, m, w_hh)))
+    launch = cuda.bilstm_fwd_launch(B, H)
+    cl, _, nt, nk, kc = cuda.bilstm_fwd_plan(H)
+    assert (launch["cl"], launch["threads"], launch["nk"], launch["kc"]) == (cl, nt, nk, kc)
+    assert launch["clusters"] == 2 * -(-B // 8) and launch["active"] >= 1
 
 
 @pytest.mark.parametrize("K,N", [(1, 4), (2, 1), (40, 9)])
@@ -212,7 +224,8 @@ def test_wavenet_train_kernels_ragged(dev, pooling_type, leaky, T, lengths, drop
 # widths 1 and 2); the train batch; B = 128 (16 tiles x 2 directions = 32
 # clusters of 8 at once); H = 256 (128 weights a thread)
 @pytest.mark.parametrize("T,B,H", [(1, 1, 128), (13, 11, 128), (6, 3, 8), (6, 5, 32),
-                                   (160, 8, 128), (13, 128, 128), (3, 2, 256)])
+                                   (160, 8, 128), (13, 128, 128), (3, 2, 256),
+                                   (160, 128, 128)])
 def test_bilstm_train_kernels_edges(dev, T, B, H):
     g = torch.Generator().manual_seed(4)
     xp = torch.randn(T, 2, B, 4 * H, generator=g).to(dev)
@@ -222,8 +235,14 @@ def test_bilstm_train_kernels_edges(dev, T, B, H):
     w_hh = (torch.randn(2, H, 4 * H, generator=g) / H ** 0.5).to(dev)
     cts = [torch.randn(*s, generator=g).to(dev) for s in ((T, 2, B, H), (2, B, H), (2, B, H))]
     with torch.no_grad():
-        _close(cuda.bilstm_train_forward(xp, m, w_hh),
-               bilstm_recurrence_plain(xp, m, w_hh, stash=True), 1e-5)
+        fwd = cuda.bilstm_train_forward(xp, m, w_hh)
+        _close(fwd, bilstm_recurrence_plain(xp, m, w_hh, stash=True), 1e-5)
+        assert all(torch.equal(a, b) for a, b in zip(fwd, cuda.bilstm_train_forward(xp, m, w_hh)))
+        assert not fwd[0][:, :, -1].any() and not fwd[3][:, :, -1].any()
+        # the coefficient pass replays the forward's cell bit for bit at every valid step
+        _, cell = cuda.bilstm_bwd_coefs(xp, m, w_hh, fwd[0], fwd[3], cell=True)
+        valid = m[:, None, :, None].expand_as(cell) > 0
+        assert torch.equal(cell[valid], fwd[3][valid])
 
     def run(fn):
         a, w = xp.clone().requires_grad_(), w_hh.clone().requires_grad_()
@@ -339,9 +358,20 @@ def test_decoder_chain_kernels_edges(dev, S, H, tz, Tz):
     c_in = torch.cat([args[5][None], outk[1][:-1]])
     bargs = (*args[:4], h_in, c_in, *args[6:], *cts)
     with torch.no_grad():
-        _close(cuda.decoder_chain_backward(*bargs), decoder_chain_bwd_plain(*bargs), 1e-4)
+        raw = cuda.decoder_chain_backward(*bargs)
+        _close(raw, decoder_chain_bwd_plain(*bargs), 1e-4)
+        # sums in a fixed order, no atomics: a second call repeats the first
+        assert all(torch.equal(a, b) for a, b in zip(raw, cuda.decoder_chain_backward(*bargs)))
+        # the replay pass against its twin, and the forward's stash bit for bit
+        acts, cpre, a, u, cell = cuda.decoder_chain_replay(*bargs[:15], count=False, cell=True)
+        _close([acts, cpre, a, u], decoder_chain_replay_plain(*bargs[:15]), 1e-4)
+        assert torch.equal(torch.relu(cpre), outk[2]) and torch.equal(cell, outk[1])
+        _close(cuda.decoder_chain_bwd_chain(acts, cpre, a, u, c_in, args[1], args[8],
+                                            args[10], args[12], args[13], args[6], *cts),
+               raw, 0.0)
     assert cuda.launch_counts["decoder_chain_fwd"] == before["decoder_chain_fwd"] + 2
-    assert cuda.launch_counts["decoder_chain_bwd"] == before["decoder_chain_bwd"] + 2
+    assert cuda.launch_counts["decoder_chain_bwd"] == before["decoder_chain_bwd"] + 4
+    assert cuda.load().mucon_decoder_chain_width(H) == cuda.decoder_chain_plan(H)[0]
 
 
 # one segment; a video of one frame; T = 200, not a multiple of the 64-frame tile

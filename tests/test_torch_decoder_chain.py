@@ -17,7 +17,10 @@ from mucon_tpu.ops.decoder_pallas import decoder_teacher_forced as jax_teacher_f
 from mucon_tpu_torch.models.model import create_model, model_fields_from_cfg
 from mucon_tpu_torch.ops.decoder_chain import (
     DecoderChain,
+    _step,
+    decoder_chain_bwd_plain,
     decoder_chain_plain,
+    decoder_chain_replay_plain,
     decoder_teacher_forced,
 )
 from tests.test_model import D, M, NMAX, small_cfg
@@ -30,12 +33,13 @@ NAMES = ("emb", "enc", "pre", "maskf", "h0", "c0", "wl2", "bl2", "v", "wc1", "wc
          "wih", "whh", "bl")
 
 
-def _inputs(seed, h=H, e=E):
+def _inputs(seed, h=H, e=E, s=S, tz=Tz, valid=TZ_VALID):
     rng = np.random.RandomState(seed)
-    r = lambda *s: (rng.randn(*s) * 0.4).astype(np.float32)  # noqa: E731
-    maskf = (np.arange(Tz)[None, :] < np.array(TZ_VALID)[:, None]).astype(np.float32)
-    return [np.maximum(r(S, B, h), 0.0), r(B, Tz, e) * maskf[:, :, None], r(B, Tz, h), maskf,
-            r(B, h), r(B, h), r(h, h), r(h), r(h), r(h, h), r(e, h), r(h), r(h, 4 * h),
+    r = lambda *sh: (rng.randn(*sh) * 0.4).astype(np.float32)  # noqa: E731
+    b = len(valid)
+    maskf = (np.arange(tz)[None, :] < np.array(valid)[:, None]).astype(np.float32)
+    return [np.maximum(r(s, b, h), 0.0), r(b, tz, e) * maskf[:, :, None], r(b, tz, h), maskf,
+            r(b, h), r(b, h), r(h, h), r(h), r(h), r(h, h), r(e, h), r(h), r(h, 4 * h),
             r(h, 4 * h), r(4 * h)]
 
 
@@ -98,3 +102,85 @@ def test_teacher_forced_decode_matches_jax(decoder_weights, use_kernel):
     np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), atol=1e-5)
     np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), atol=1e-5)
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
+
+
+def _reverse_loop(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2, bc, wih, whh, bl,
+                  dhs, dcs, dcomb_ext):
+    """The reverse chain as one loop that replays each step inside it (the
+    form of the JAX kernel, decoder_pallas.py:160-210)."""
+    dh_c, dc_c = torch.zeros_like(h_in[0]), torch.zeros_like(c_in[0])
+    out = [[None] * len(emb) for _ in range(3)]
+    for s in reversed(range(len(emb))):
+        c = c_in[s]
+        _, c_out, _, cpre, (i, f, g, o), (_, u, a, _) = _step(
+            emb[s], h_in[s], c, enc, pre, maskf, wl2, bl2, v, wc1, wc2, bc, wih, whh, bl)
+        tc = torch.tanh(c_out)
+        dh, dc = dh_c + dhs[s], dc_c + dcs[s]
+        dct = dh * o * (1.0 - tc * tc) + dc
+        dc_c = dct * f
+        dg = torch.cat([dct * g * i * (1.0 - i), dct * c * f * (1.0 - f),
+                        dct * i * (1.0 - g * g), dh * tc * o * (1.0 - o)], dim=-1)
+        dcp = (dg @ wih.t() + dcomb_ext[s]) * (cpre > 0.0).to(dg.dtype)
+        da = torch.bmm(enc, (dcp @ wc2.t())[:, :, None])[:, :, 0]
+        ds = a * (da - torch.sum(a * da, dim=-1, keepdim=True))
+        dq = torch.sum(ds[:, :, None] * v * (1.0 - u * u), dim=1)
+        dh_c = dg @ whh.t() + dq @ wl2.t()
+        out[0][s], out[1][s], out[2][s] = dg, dcp, ds
+    return (*(torch.stack(x) for x in out), dh_c, dc_c)
+
+
+def _reverse_args(args, seed):
+    """(inputs of the reverse chain, with the forward's trajectory as h_in /
+    c_in) and the forward's comb."""
+    t = list(map(torch.from_numpy, args))
+    hs, cs, comb = decoder_chain_plain(*t)
+    h_in, c_in = torch.cat([t[4][None], hs[:-1]]), torch.cat([t[5][None], cs[:-1]])
+    rng = np.random.RandomState(seed)
+    cts = [torch.from_numpy(rng.randn(*hs.shape).astype(np.float32)) for _ in range(3)]
+    return (*t[:4], h_in, c_in, *t[6:], *cts), comb
+
+
+def test_split_twins_compose_to_the_reverse_loop():
+    """The replay twin and the chain twin compose to the one-loop reverse
+    chain bit for bit, and the replayed relu(cpre) is the forward's comb bit
+    for bit (the statement the card holds the replay kernel to)."""
+    bargs, comb = _reverse_args(_inputs(4), seed=5)
+    with torch.no_grad():
+        got = decoder_chain_bwd_plain(*bargs)
+        want = _reverse_loop(*bargs)
+        _, cpre, a, u = decoder_chain_replay_plain(*bargs[:15])
+    for name, x, y in zip(("dgate", "dcpre", "dsc", "dh0", "dc0"), got, want):
+        assert torch.equal(x, y), name
+    assert torch.equal(torch.relu(cpre), comb)
+    assert a.shape == (S, B, Tz) and u.shape == (S, B, Tz, H)
+    assert not a[:, 2, TZ_VALID[2]:].any()  # masked frames weigh exactly 0
+
+
+# a masked tail (two of three videos padded); Tz = 1 (one frame a video)
+@pytest.mark.parametrize("s,tz,valid", [(5, 12, (12, 8, 3)), (3, 1, (1, 1))],
+                         ids=["masked_tail", "Tz1"])
+def test_composed_twins_match_jax_vjp(s, tz, valid):
+    """dh0 and dc0 of the composed twins, and every input gradient of
+    `DecoderChain` (its glue around them), against `jax.vjp` of the JAX
+    kernel in interpret mode (rtol 2e-4, atol 2e-5: the JAX kernel test's
+    own tolerances for two f32 orders of the same sums)."""
+    args = _inputs(7, s=s, tz=tz, valid=valid)
+    rng = np.random.RandomState(8)
+    cts = [rng.randn(s, len(valid), H).astype(np.float32) for _ in range(3)]
+    argnums = tuple(i for i in range(15) if i != 3)
+    _, vjp = jax.vjp(lambda *a: decoder_chain(True, *a[:3], jnp.asarray(args[3]), *a[3:]),
+                     *(jnp.asarray(args[i]) for i in argnums))
+    ref = vjp(tuple(map(jnp.asarray, cts)))
+    tol = dict(rtol=2e-4, atol=2e-5)
+    bargs, _ = _reverse_args(args, seed=0)
+    bargs = (*bargs[:15], *map(torch.from_numpy, cts))
+    with torch.no_grad():
+        *_, dh0, dc0 = decoder_chain_bwd_plain(*bargs)
+    np.testing.assert_allclose(dh0.numpy(), np.asarray(ref[3]), **tol)  # h0 is input 4
+    np.testing.assert_allclose(dc0.numpy(), np.asarray(ref[4]), **tol)
+    xs = [torch.from_numpy(a).requires_grad_(i != 3) for i, a in enumerate(args)]
+    outs = DecoderChain.apply(*xs)
+    torch.autograd.backward(outs, list(map(torch.from_numpy, cts)))
+    for i, want in zip(argnums, ref):
+        np.testing.assert_allclose(xs[i].grad.numpy(), np.asarray(want), **tol,
+                                   err_msg=NAMES[i])

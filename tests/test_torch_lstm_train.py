@@ -15,7 +15,7 @@ import torch
 
 from mucon_tpu.ops.lstm_pallas import _bilstm_train_call, bilstm_recurrence_train as jax_train
 from mucon_tpu_torch.models.lstm import MaskedBiLSTM
-from mucon_tpu_torch.cuda import bilstm_chain_plan
+from mucon_tpu_torch.cuda import bilstm_chain_plan, bilstm_fwd_plan
 from mucon_tpu_torch.ops.lstm_recurrence import (
     BiLSTMRecurrenceTrain,
     bilstm_bwd_chain_plain,
@@ -157,3 +157,29 @@ def test_chain_plan_covers_every_gate_row(H, want):
     assert gpq % 4 == 0 and gpq <= 128 and nq * gpq >= 4 * H
     with pytest.raises(ValueError):
         bilstm_chain_plan(129)
+
+
+@pytest.mark.parametrize("H,want", [(8, (1, 256)), (16, (1, 256)), (32, (2, 256)),
+                                    (64, (4, 256)), (128, (8, 256)), (256, (8, 512))])
+def test_fwd_plan_covers_every_gate_row_and_unit(H, want):
+    """The cluster split of the forward recurrence: over the CL CTAs, the
+    threads' (k-row, gate column) pairs cover w_hh [H x 4H] once each,
+    every CTA owns all four gates of its units, and each (video, unit) of
+    an 8-video tile has a thread."""
+    cl, hs, nt, nk, kc = bilstm_fwd_plan(H)
+    assert (cl, nt) == want and cl * hs == H
+    assert kc % 4 == 0 and kc <= 64 and 8 * hs <= nt and nk * 4 * hs <= nt
+    cols = 4 * hs
+    covered = []
+    for r in range(cl):
+        units = set()
+        for tid in range(nk * cols):
+            pc, kq = tid % cols, tid // cols
+            gcol = (pc // hs) * H + r * hs + pc % hs
+            units.add(gcol % H)
+            covered += [(k, gcol) for k in range(kq * kc, min(H, (kq + 1) * kc))]
+        assert units == set(range(r * hs, (r + 1) * hs))
+    assert sorted(covered) == [(k, g) for k in range(H) for g in range(4 * H)]
+    for bad in (0, 129, 512):
+        with pytest.raises(ValueError):
+            bilstm_fwd_plan(bad)

@@ -182,6 +182,36 @@ def test_dropout_masks_are_shared_by_seed(setup):
     assert abs((vals == 0).float().mean().item() - 0.25) < 0.02
 
 
+def _set(cfg, path, value):
+    *parents, leaf = path.split(".")
+    node = cfg
+    for p in parents:
+        node = getattr(node, p)
+    setattr(node, leaf, value)
+
+
+# options that change the reference's run and that the port cannot follow
+# yet: each raises from the config node instead of running another model
+@pytest.mark.parametrize("path,value,reader", [
+    ("trainer.scheduler.name", "plateau", train_config_from_cfg),
+    ("tpu.compute_dtype", "bfloat16", model_fields_from_cfg),
+    ("model.teacher_forcing", False, model_fields_from_cfg),
+])
+def test_unported_config_options_raise(path, value, reader):
+    cfg = _cfg(0.0)
+    reader(cfg)  # the default node reads
+    _set(cfg, path, value)
+    with pytest.raises(NotImplementedError):
+        reader(cfg)
+
+
+def test_plateau_trainer_config_raises():
+    with pytest.raises(NotImplementedError, match="s_mof_nbg"):
+        SimpleTrainer(None, create_model(M, NMAX + 1, D, device="cpu",
+                                         **model_fields_from_cfg(_cfg(0.0))),
+                      TrainConfig(scheduler="plateau"))
+
+
 def test_train_one_epoch_on_synthetic_data(tmp_path):
     cfg = _cfg(0.25)
     cfg.dataset.name = "synthetic"
