@@ -12,9 +12,9 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
 3. checks each serving kernel against its plain PyTorch twin at the default model's
    full width (B=128, T=2560, C=128, 11 layers; Tz=160, H=128; K=85, N=30,
    L=66), the WaveNet stack and the MS-TCN++ stage (`ft_type="mstcnpp"`,
-   the same widths; also with one video of length 0 and with no padding,
-   and the share of its row tiles that lie past a video's length) both, and
-   times both with CUDA events;
+   the same widths; both on the tensor cores in 3xTF32, each also with one
+   video of length 0 and with no padding, and the share of its row tiles
+   that lie past a video's length), and times both with CUDA events;
 4. serves two requests through `predict_videos` (the bench eval batch of 128
    videos of 1500-2100 frames, and 3 videos of 517/1203/2100 frames) with
    the kernels and with the plain path, for the WaveNet model and for the
@@ -27,9 +27,10 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    coefficient pass against its own plain twin, its replayed cell equal to
    the stash bit for bit, two calls bit for bit, and the cluster chain's
    time per step with and without the dw_hh einsum — the teacher-forced
-   decoder chain's forward and reverse chain — the replay pass against its
-   plain twin, its relu(cpre) and cell equal to the forward's comb and cs
-   bit for bit, the replay and the cluster chain timed apart — the fused
+   decoder chain's forward, on a thread-block cluster a video (its width,
+   clusters and waves printed), and reverse chain — the replay pass against
+   its plain twin, its relu(cpre) and cell equal to the forward's comb and
+   cs bit for bit, the replay and the cluster chain timed apart — the fused
    flint loss) against their plain twins at the default
    model's width (B=8, T=2560, dropout 0.25; the decoder chain also at
    B=2, Tz=640), and the v2 trainable stack's two kernels (three chunks)
@@ -231,8 +232,46 @@ def bilstm_launch(B: int, H: int) -> str:
 
 # -- phase 3: each kernel against its plain twin at full width ---------------
 
-def check_wavenet(model, gen, dev):
+def skipped_tiles(T: int, lengths, pooling_layers, n_layers: int, tm: int) -> tuple:
+    """(tiles at or past their video's length, tiles) over a stack's grids:
+    its layers and the out-projection, tm rows a tile."""
     import torch
+
+    tiles = skipped = 0
+    t, lens = T, lengths.cpu()
+    for i in range(n_layers + 1):
+        n = -(-t // tm)
+        tiles += len(lens) * n
+        skipped += int((n - torch.minimum(-(-lens // tm), torch.tensor(n))).sum())
+        if i in pooling_layers:
+            t, lens = t // 2, lens // 2
+    return skipped, tiles
+
+
+def check_edges(name, stack, plain, x, lengths, rest, kw):
+    """A stack kernel with a video of length 0 among the others, and with no
+    padding at all: against its plain twin, a padded row exactly 0, timed."""
+    import torch
+    from mucon_tpu_torch.models.layers import mask_time
+
+    T = x.shape[1]
+    for tag, lens in (("one length 0", torch.cat([lengths[:1] * 0, lengths[1:]])),
+                      ("all lengths = T", torch.full_like(lengths, T))):
+        edge = (mask_time(x, lens), lens, *rest)
+        zk, tk = stack(*edge, **kw)
+        zp, tp = plain(*edge, **kw)
+        e, bd = (zk - zp).abs().max().item(), 1e-4 * zp.abs().max().item()
+        ok = torch.equal(tk, tp) and e <= bd and (int(lens[0]) or not zk[0].any().item())
+        expect(ok, f"{name}, {tag}: max abs err {e} > {bd}, or a padded row not 0")
+        edge_ms = cuda_ms(lambda: stack(*edge, **kw), reps=5)
+        say(f"kernel {name}, {tag}: max abs err {e:.3e} <= {bd:.3e}; {edge_ms:.3f} ms")
+
+
+def check_wavenet(model, gen, dev):
+    """The WaveNet eval stack (tensor cores, 3xTF32) against its plain twin
+    at full width, also with a video of length 0 and with no padding."""
+    import torch
+    from mucon_tpu_torch import cuda
     from mucon_tpu_torch.models.layers import mask_time
     from mucon_tpu_torch.ops.wavenet_stack import (
         pack_wavenet_params, wavenet_stack, wavenet_stack_plain,
@@ -256,10 +295,15 @@ def check_wavenet(model, gen, dev):
     say(f"kernel wavenet_layer B={B} T={T} C={C} L={len(ft.stages)}: max abs err "
         f"{err:.3e} <= {bound:.3e} (1e-4 * max|plain|); {ms:.3f} ms vs plain "
         f"{plain_ms:.3f} ms")
+    tm = cuda.wavenet_tile_rows()
+    skipped, tiles = skipped_tiles(T, lengths, ft.pooling_layers, len(ft.stages), tm)
+    say(f"kernel wavenet_layer: {skipped} of {tiles} tiles of {tm} rows lie past their "
+        f"video's length and are skipped ({100 * skipped / tiles:.1f}%)")
+    check_edges("wavenet_layer", wavenet_stack, wavenet_stack_plain, x, lengths, args[2:], kw)
     rows, rows_fin = stack_rows(ft.stages, ft.pooling_layers, lengths)
     # 12 launches: per valid row a k=3 conv and a 1x1 conv, then the out-projection
     return report(err, ms, plain_ms, 4 * C * (rows[0] + rows_fin) + nbytes(*args[1:]),
-                  8 * C * C * sum(rows) + 2 * C * C * rows_fin)
+                  8 * C * C * sum(rows) + 2 * C * C * rows_fin, tf32x3=True)
 
 
 def check_mstcnpp(model, gen, dev):
@@ -288,29 +332,11 @@ def check_mstcnpp(model, gen, dev):
                              lambda: mstcnpp_stack_plain(*args, **kw), reps=5)
     say(f"kernel mstcnpp_stack B={B} T={T} C={C} L={L}: max abs err {err:.3e} <= "
         f"{bound:.3e} (1e-4 * max|plain|); {ms:.3f} ms vs plain {plain_ms:.3f} ms")
-    # tiles the grid holds against tiles at or past their video's length
     tm = cuda.mstcnpp_tile_rows()
-    tiles = skipped = 0
-    t, lens = T, lengths.cpu()
-    for i in range(L + 1):  # the L layers and the out-projection
-        n = -(-t // tm)
-        tiles += B * n
-        skipped += int((n - torch.minimum(-(-lens // tm), torch.tensor(n))).sum())
-        if i in ft.pooling_layers:
-            t, lens = t // 2, lens // 2
+    skipped, tiles = skipped_tiles(T, lengths, ft.pooling_layers, L, tm)
     say(f"kernel mstcnpp_stack: {skipped} of {tiles} tiles of {tm} rows lie past their "
         f"video's length and are skipped ({100 * skipped / tiles:.1f}%)")
-    # a video of length 0 among the others, and no padding at all
-    for tag, lens in (("one length 0", torch.cat([lengths[:1] * 0, lengths[1:]])),
-                      ("all lengths = T", torch.full_like(lengths, T))):
-        edge = (mask_time(x, lens), lens, *args[2:])
-        zk, tk = mstcnpp_stack(*edge, **kw)
-        zp, tp = mstcnpp_stack_plain(*edge, **kw)
-        e, bd = (zk - zp).abs().max().item(), 1e-4 * zp.abs().max().item()
-        ok = torch.equal(tk, tp) and e <= bd and (int(lens[0]) or not zk[0].any().item())
-        expect(ok, f"mstcnpp_stack, {tag}: max abs err {e} > {bd}, or a padded row not 0")
-        edge_ms = cuda_ms(lambda: mstcnpp_stack(*edge, **kw), reps=5)
-        say(f"kernel mstcnpp_stack, {tag}: max abs err {e:.3e} <= {bd:.3e}; {edge_ms:.3f} ms")
+    check_edges("mstcnpp_stack", mstcnpp_stack, mstcnpp_stack_plain, x, lengths, args[2:], kw)
     rows, rows_fin = stack_rows(range(L), ft.pooling_layers, lengths)
     # 12 launches: per valid row two k=3 convs and a 2C -> C 1x1, then the out-projection
     return report(err, ms, plain_ms, 4 * C * (rows[0] + rows_fin) + nbytes(*args[1:]),
@@ -573,6 +599,15 @@ def serve(tag, model, dev, rng, card: str, required, absent=()):
         say(f"{tag} request {k}: B={B} T_pad={arrays['feats'].shape[1]} kernel == plain "
             f"({len(mism)} near-tie mismatches); {no_eos}/{B} videos decoded all "
             f"{N_MAX + 1} steps without EOS")
+        if k == "A":  # the backbone's spans on the kernel path
+            import torch
+
+            feats_a, frames_a = arrays["feats"], arrays["num_frames"]
+            with torch.no_grad():
+                proj_ms = cuda_ms(lambda: model.net.ft.in_projection(feats_a, frames_a), reps=3)
+                enc_ms = cuda_ms(lambda: model._encode_kernels(feats_a, frames_a), reps=3)
+            say(f"{tag} request A spans: in-projection {proj_ms:.3f} ms, in-projection + "
+                f"stack kernel {enc_ms:.3f} ms: the stack {enc_ms - proj_ms:.3f} ms [{card}]")
         ms, plain_ms = paired_ms(lambda: run_k(arrays), lambda: run_p(arrays), reps=3)
         say(f"{tag} request {k} fused eval (device-resident features): kernels {ms:.2f} "
             f"ms/batch = {1000 * B / ms:.1f} videos/s; plain {plain_ms:.2f} ms/batch "
@@ -973,6 +1008,13 @@ def check_decoder_chain(model, tz_lengths, Tz: int, gen, dev, timed: bool):
     say(f"kernels decoder_chain_fwd and decoder_chain_bwd {tag}: two runs of each "
         f"agree bit for bit; the replay pass's relu(cpre) and cell equal the stashed comb "
         f"and cs bit for bit")
+    launch = cuda.decoder_chain_fwd_launch(B, H, E, Tz)
+    waves = -(-launch["clusters"] // launch["active"])
+    say(f"kernel decoder_chain_fwd {tag}: clusters of {launch['cl']} CTAs x "
+        f"{launch['threads']} threads, one a video: {launch['clusters']} clusters, the card "
+        f"holds {launch['active']} at once: {waves} wave{'s' if waves > 1 else ''}; each "
+        f"CTA's weights {'in shared memory' if launch['weights'] else 'from L2'}, its rows "
+        f"of maskf, pre and enc {'in shared memory' if launch['tables'] else 'from L2'}")
     if not timed:
         return {}
     chain_args = (c_in, args[1], args[8], args[10], args[12], args[13], args[6], *cts)
@@ -984,7 +1026,8 @@ def check_decoder_chain(model, tz_lengths, Tz: int, gen, dev, timed: bool):
         replay_ms = cuda_ms(lambda: cuda.decoder_chain_replay(*bargs[:15]), reps=10)
         chain_ms = cuda_ms(lambda: cuda.decoder_chain_bwd_chain(*replay, *chain_args), reps=10)
     say(f"kernel decoder_chain_fwd {tag}: {fwd_ms[0]:.3f} ms = "
-        f"{1000 * fwd_ms[0] / S:.2f} us/step vs plain {fwd_ms[1]:.3f} ms; "
+        f"{1000 * fwd_ms[0] / S:.2f} us/step on clusters of {launch['cl']} vs plain "
+        f"{fwd_ms[1]:.3f} ms; "
         f"decoder_chain_bwd {bwd_ms[0]:.3f} ms = {1000 * bwd_ms[0] / S:.2f} us/step vs "
         f"plain {bwd_ms[1]:.3f} ms; alone, the replay pass {replay_ms:.3f} ms and the "
         f"cluster chain (width {cuda.decoder_chain_plan(H)[0]}, {B} clusters) {chain_ms:.3f} "
@@ -999,8 +1042,52 @@ def check_decoder_chain(model, tz_lengths, Tz: int, gen, dev, timed: bool):
     # reverse: the replayed step, the transposed products, da, dsc and dq
     bwd_ops = step_ops + S * (B * (18 * H * H + 2 * H * E + 20 * H) + tzs * (2 * E + 4 * H + 3))
     bwd_moved = tables + weights + nbytes(emb, h_in, c_in, *cts, *rawk)
+    check_chain_shapes(S, tz_lengths, Tz, gen, dev)
     return {"decoder_chain_fwd": report(fwd_err, *fwd_ms, fwd_moved, step_ops),
             "decoder_chain_bwd": report(bwd_err, *bwd_ms, bwd_moved, bwd_ops)}
+
+
+# the forward chain off the model's shape, through its step's generic body:
+# the model's width with one context column fewer; H = 256, whose weights
+# do not fit a CTA (read from L2); an odd H (a cluster of one CTA, HS = 33
+# above a pass's 32 units)
+CHAIN_SHAPES = ((128, 255), (256, 512), (33, 66))
+
+
+def check_chain_shapes(S: int, tz_lengths, Tz: int, gen, dev):
+    """`decoder_chain_fwd` at CHAIN_SHAPES (H, E): against the plain twin
+    (`held`), two calls bit for bit, and timed beside the twin."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.ops.decoder_chain import decoder_chain_plain
+
+    tz = tz_lengths.to("cpu")
+    B = len(tz)
+    maskf = (torch.arange(Tz)[None, :] < tz[:, None]).float()
+    r = lambda *shape: 0.4 * torch.randn(*shape, generator=gen)  # noqa: E731
+    # matrices at a model's scale, 1 / sqrt(fan-in): 31 steps through weights
+    # of 0.4 would be chaotic and amplify two orders of the same sums
+    w = lambda k, *shape: torch.randn(*shape, generator=gen) / k ** 0.5  # noqa: E731
+    for H, E in CHAIN_SHAPES:
+        args = [t.to(dev) for t in (
+            torch.relu(r(S, B, H)), r(B, Tz, E) * maskf[:, :, None], r(B, Tz, H), maskf,
+            r(B, H), r(B, H), w(H, H, H), r(H), r(H), w(H + E, H, H), w(H + E, E, H), r(H),
+            w(2 * H, H, 4 * H), w(2 * H, H, 4 * H), r(4 * H))]
+        tag = f"B={B} S={S} Tz={Tz} H={H} E={E}"
+        with torch.no_grad():
+            outk = cuda.decoder_chain_forward(*args)
+            expect(all(torch.equal(a, b) for a, b in
+                       zip(outk, cuda.decoder_chain_forward(*args))),
+                   f"decoder_chain_fwd {tag}: two runs of the same inputs differ")
+            held(f"decoder_chain_fwd {tag}",
+                 list(zip(("hs", "cs", "comb"), outk, decoder_chain_plain(*args))), grads=False)
+            ms, plain_ms = paired_ms(lambda: cuda.decoder_chain_forward(*args),
+                                     lambda: decoder_chain_plain(*args), reps=3)
+        launch = cuda.decoder_chain_fwd_launch(B, H, E, Tz)
+        say(f"kernel decoder_chain_fwd {tag} (generic step body): {ms:.3f} ms = "
+            f"{1000 * ms / S:.2f} us/step on clusters of {launch['cl']} (HS {launch['hs']}), "
+            f"weights {'in shared memory' if launch['weights'] else 'from L2'}, vs plain "
+            f"{plain_ms:.3f} ms; two runs agree bit for bit")
 
 
 def check_flint(arrays, gen, dev):

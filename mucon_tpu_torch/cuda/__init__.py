@@ -61,9 +61,9 @@ KERNELS = (
     "decoder_chain_fwd", "decoder_chain_bwd", "mucon_flint", "mstcnpp_stack",
     "wavenet_train_v2_fwd", "wavenet_train_v2_sweep",
 )
-# the decoder chain's per-video tables ([Tz] score rows; the reverse chain's
-# [Tz x H / CL] slices) live in shared memory: a kernel's need for a Tz
-# must fit the H100's per-block opt-in limit (227 KiB)
+# the decoder chain's weights a CTA keeps, its [Tz / CL] score rows and the
+# reverse chain's [Tz x H / CL] slices live in shared memory: a kernel's need
+# for (H, E, Tz) must fit the H100's per-block opt-in limit (227 KiB)
 MAX_SMEM_BYTES = 232448
 
 launch_counts = {name: 0 for name in KERNELS}
@@ -136,6 +136,7 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             P, I = ctypes.c_void_p, ctypes.c_int
             lib.mucon_wavenet_layer.argtypes = [P] * 7 + [I] * 9 + [P]
+            lib.mucon_wavenet_tile_rows.argtypes = []
             lib.mucon_bilstm_recurrence.argtypes = [P] * 7 + [I] * 3 + [P]
             lib.mucon_dense_viterbi.argtypes = [P] * 7 + [I] * 6 + [P]
             lib.mucon_wavenet_train_fwd.argtypes = [P] * 10 + [I] * 8 + [P]
@@ -150,6 +151,7 @@ def load() -> ctypes.CDLL:
             lib.mucon_decoder_chain_bwd.argtypes = [P] * 18 + [I] * 5 + [P]
             lib.mucon_decoder_chain_smem.argtypes = [I] * 4
             lib.mucon_decoder_chain_width.argtypes = [I]
+            lib.mucon_decoder_chain_fwd_launch.argtypes = [I] * 4 + [ctypes.POINTER(I)]
             lib.mucon_flint.argtypes = [P] * 9 + [I] * 4 + [P]
             lib.mucon_mstcnpp_layer.argtypes = [P] * 7 + [I] * 7 + [P]
             lib.mucon_mstcnpp_tile_rows.argtypes = []
@@ -159,7 +161,8 @@ def load() -> ctypes.CDLL:
             lib.mucon_wavenet_train_v2_fwd.argtypes = [PP, IP, I] + [P] * 8 + [I] * 5 + [P]
             lib.mucon_wavenet_train_v2_sweep.argtypes = [PP, IP, I] + [P] * 16 + [I] * 5 + [P]
             lib.mucon_wavenet_train_v2_work_floats.argtypes = [I]
-            for fn in (lib.mucon_wavenet_layer, lib.mucon_bilstm_recurrence,
+            for fn in (lib.mucon_wavenet_layer, lib.mucon_wavenet_tile_rows,
+                       lib.mucon_bilstm_recurrence,
                        lib.mucon_dense_viterbi, lib.mucon_wavenet_train_fwd,
                        lib.mucon_wavenet_train_sweep, lib.mucon_wavenet_train_splits,
                        lib.mucon_bilstm_fwd_plan,
@@ -167,7 +170,7 @@ def load() -> ctypes.CDLL:
                        lib.mucon_bilstm_chain_width, lib.mucon_mstcnpp_tile_rows,
                        lib.mucon_decoder_chain_fwd, lib.mucon_decoder_chain_replay,
                        lib.mucon_decoder_chain_bwd, lib.mucon_decoder_chain_smem,
-                       lib.mucon_decoder_chain_width,
+                       lib.mucon_decoder_chain_width, lib.mucon_decoder_chain_fwd_launch,
                        lib.mucon_flint, lib.mucon_mstcnpp_layer, lib.mucon_mstcnpp_proj,
                        lib.mucon_wavenet_train_v2_fwd, lib.mucon_wavenet_train_v2_sweep,
                        lib.mucon_wavenet_train_v2_work_floats):
@@ -234,6 +237,12 @@ def _check_packed(x, stages, w3, b3, w1, b1, w_last, b_last) -> torch.device:
 def _ptr(t) -> int:
     """data_ptr of an optional tensor (0, a null pointer, for None)."""
     return 0 if t is None else t.data_ptr()
+
+
+def wavenet_tile_rows() -> int:
+    """Rows a CTA of `wavenet_layer` owns (csrc/wavenet_stack.cu TM); a
+    tile at or past its video's length is skipped."""
+    return load().mucon_wavenet_tile_rows()
 
 
 def _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky) -> torch.Tensor:
@@ -594,34 +603,85 @@ def _check_chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih, w
     for name, shape in want.items():
         if tuple(got[name].shape) != shape:
             raise ValueError(f"{name} has shape {tuple(got[name].shape)}, expected {shape}")
-    if min(S, B, Tz) < 1 or max(4 * H, E) > 1024:
-        raise ValueError(f"the chain kernels take S, B, Tz >= 1 and 4H, E <= 1024; got "
-                         f"S={S} B={B} Tz={Tz} H={H} E={E}")
+    if min(S, B, Tz, E) < 1:
+        raise ValueError(f"the chain kernels take S, B, Tz, E >= 1; got S={S} B={B} Tz={Tz} "
+                         f"E={E}")
+    decoder_chain_fwd_plan(H)
     if reverse:
         decoder_chain_plan(H)
     _require(dev, torch.float32, emb=emb, **got)
     lib = load()
     need = lib.mucon_decoder_chain_smem(H, E, Tz, int(reverse))
     if need > MAX_SMEM_BYTES:
-        raise ValueError(f"Tz={Tz} needs {need} bytes of shared memory a block; the limit "
-                         f"is {MAX_SMEM_BYTES}")
+        raise ValueError(f"H={H} E={E} Tz={Tz} needs {need} bytes of shared memory a block; "
+                         f"the limit is {MAX_SMEM_BYTES}")
     return dev, S, B, Tz, H, E
+
+
+# the forward chain's and the replay pass's threads per CTA (csrc/decoder_chain.cu NTF)
+DECODER_CHAIN_FWD_THREADS = 256
+
+
+def decoder_chain_fwd_plan(H: int) -> tuple:
+    """How the forward chain splits a hidden size H over a cluster
+    (`fwd_plan` in csrc/decoder_chain.cu): (cluster width CL, units per CTA
+    HS, threads per CTA).  CL is `_cluster_width(H)`.  A CTA sends every
+    rank its units' rows of h Wl2 (q is their sum, in rank order); the
+    combine layer and the gates are warp GEMVs (a warp's lanes split k):
+    in pass p, warp w takes the combine layer's columns 32 p + 4 w .. + 3
+    of the CTA's HS and the gate columns 64 p + 8 w .. + 7 of its 4 HS.
+    Raises for an H the kernel does not take: H above 256 (a thread a
+    unit where a CTA writes its units' state)."""
+    if 1 <= H <= DECODER_CHAIN_FWD_THREADS:
+        cl = _cluster_width(H)
+        return cl, H // cl, DECODER_CHAIN_FWD_THREADS
+    raise ValueError(f"the forward decoder chain cannot split H={H} over a cluster")
+
+
+DECODER_CHAIN_FWD_LAUNCH_KEYS = ("cl", "hs", "threads", "clusters", "active", "weights",
+                                 "tables")
+
+
+def decoder_chain_fwd_launch(B: int, H: int, E: int, Tz: int) -> dict:
+    """The forward chain's launch at B videos (`mucon_decoder_chain_fwd_launch`):
+    its CL, HS and threads, the clusters of the grid (one a video), how many
+    the card holds at once (more run in waves), whether each CTA's weights
+    sit in shared memory (1) or are read from L2 (0), and its rows of
+    maskf, pre and enc the same."""
+    decoder_chain_fwd_plan(H)
+    lib = load()
+    out = (ctypes.c_int * len(DECODER_CHAIN_FWD_LAUNCH_KEYS))()
+    err = lib.mucon_decoder_chain_fwd_launch(B, H, E, Tz, out)
+    if err != 0:
+        raise RuntimeError(f"decoder chain forward plan failed: "
+                           f"{lib.mucon_cuda_error_string(err).decode()}")
+    return dict(zip(DECODER_CHAIN_FWD_LAUNCH_KEYS, out))
+
+
+def _chain_columns(wc1, wc2, wih, whh):
+    """The forward step's weights by column, as its CTAs read them (k
+    fastest): [Wc1; Wc2]^T [H x (H + E)] and [Wih; Whh] as [H x 4 x 2H],
+    row 4 j + q the column q H + j (gate q of unit j)."""
+    H = whh.shape[0]
+    wcT = torch.cat([wc1, wc2]).t().contiguous()
+    wgT = torch.cat([wih, whh]).view(2 * H, 4, H).permute(2, 1, 0).contiguous()
+    return wcT, wgT
 
 
 def decoder_chain_forward(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih,
                           whh, bl):
-    """The teacher-forced chain's forward (one CTA per video) ->
-    (hs, cs, comb), each [S x B x H].  Arguments as `ops/decoder_chain.py`."""
+    """The teacher-forced chain's forward (one thread-block cluster per
+    video, `decoder_chain_fwd_plan`) -> (hs, cs, comb), each [S x B x H].
+    Arguments as `ops/decoder_chain.py`."""
     dev, S, B, Tz, H, E = _check_chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1,
                                        wc2, bc, wih, whh, bl)
-    wcat = torch.cat([wc1, wc2])  # [H + E, H]: [e; ctx] times one matrix
-    wg = torch.cat([wih, whh])  # [2H, 4H]: [comb; h] times one matrix
+    wcT, wgT = _chain_columns(wc1, wc2, wih, whh)
     hs, cs, comb = (torch.empty(S, B, H, device=dev, dtype=torch.float32) for _ in range(3))
     lib = load()
     err = lib.mucon_decoder_chain_fwd(
         emb.data_ptr(), enc.data_ptr(), pre.data_ptr(), maskf.data_ptr(), h0.data_ptr(),
-        c0.data_ptr(), wl2.data_ptr(), bl2.data_ptr(), v.data_ptr(), wcat.data_ptr(),
-        bc.data_ptr(), wg.data_ptr(), bl.data_ptr(), hs.data_ptr(), cs.data_ptr(),
+        c0.data_ptr(), wl2.data_ptr(), bl2.data_ptr(), v.data_ptr(), wcT.data_ptr(),
+        bc.data_ptr(), wgT.data_ptr(), bl.data_ptr(), hs.data_ptr(), cs.data_ptr(),
         comb.data_ptr(), S, B, Tz, H, E, _stream(dev),
     )
     _check_launch(lib, err, "decoder_chain_fwd")
@@ -653,7 +713,8 @@ def decoder_chain_plan(H: int) -> tuple:
 def decoder_chain_replay(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2, bc, wih,
                          whh, bl, *, count: bool = True, cell: bool = False):
     """Pass 1 of the reverse chain (`ops/decoder_chain.py
-    decoder_chain_replay_plain`), one CTA per step and video, all at once
+    decoder_chain_replay_plain`): every step and video at once, on clusters
+    of the forward's shape through its step function
     -> (acts [5 x S x B x H], cpre [S x B x H], a [S x B x Tz],
     u [S x B x Tz x H]); with `cell` also the replayed cell [S x B x H].
     cpre and the cell equal the forward kernel's (relu(cpre) its comb, the
@@ -665,8 +726,7 @@ def decoder_chain_replay(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2
         if tuple(t.shape) != (S, B, H):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(S, B, H)}")
     _require(dev, torch.float32, h_in=h_in, c_in=c_in)
-    wcat = torch.cat([wc1, wc2])
-    wg = torch.cat([wih, whh])
+    wcT, wgT = _chain_columns(wc1, wc2, wih, whh)
     f32 = dict(device=dev, dtype=torch.float32)
     acts = torch.empty(5, S, B, H, **f32)
     cpre = torch.empty(S, B, H, **f32)
@@ -676,8 +736,8 @@ def decoder_chain_replay(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2
     lib = load()
     err = lib.mucon_decoder_chain_replay(
         emb.data_ptr(), enc.data_ptr(), pre.data_ptr(), maskf.data_ptr(), h_in.data_ptr(),
-        c_in.data_ptr(), wl2.data_ptr(), bl2.data_ptr(), v.data_ptr(), wcat.data_ptr(),
-        bc.data_ptr(), wg.data_ptr(), bl.data_ptr(), acts.data_ptr(), cpre.data_ptr(),
+        c_in.data_ptr(), wl2.data_ptr(), bl2.data_ptr(), v.data_ptr(), wcT.data_ptr(),
+        bc.data_ptr(), wgT.data_ptr(), bl.data_ptr(), acts.data_ptr(), cpre.data_ptr(),
         a.data_ptr(), u.data_ptr(), _ptr(replay), S, B, Tz, H, E, _stream(dev))
     _check_launch(lib, err, "decoder_chain_bwd", count)
     out = (acts, cpre, a[..., :Tz], u)

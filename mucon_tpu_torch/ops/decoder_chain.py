@@ -14,6 +14,9 @@ package leaves it to XLA:
 
 * `decoder_chain_plain` — PyTorch loop over S, the twin of
   `decoder_chain_xla` (decoder_pallas.py:353); differentiable by autograd.
+* `decoder_chain_cluster_plain` — the same loop with the attention summed
+  as the forward kernel's cluster sums it: each of CL ranks takes a slice of
+  the frames, and the ranks' softmax partials are combined in rank order.
 * `decoder_chain_bwd_plain` — the reverse (dh, dc) chain of
   `_chain_bwd_kernel` (decoder_pallas.py:139) as a PyTorch loop: the
   composition of the plain twins of the reverse kernel's two passes,
@@ -52,15 +55,52 @@ def _attention(h, pre, enc, maskf, wl2, bl2, v):
     return q, u, a, ctx
 
 
+def _attention_by_ranks(h, pre, enc, maskf, wl2, bl2, v, cl: int):
+    """`_attention` as the forward kernel's cluster of `cl` CTAs computes it
+    (csrc/decoder_chain.cu `cluster_step`): rank r takes frames
+    [r Tz / cl, (r + 1) Tz / cl) and forms m_r = max of its scores,
+    ex = exp(sc - m_r) maskf, s_r = sum ex and ctx_r = ex enc; then, the
+    ranks in order, w_r = exp(m_r - m) (0 for a rank without a valid frame,
+    or without frames), ctx = sum w_r ctx_r / sum w_r s_r and a = ex w_r /
+    sum w_r s_r."""
+    q = h @ wl2 + bl2
+    u = torch.tanh(pre + q[:, None, :])
+    sc = torch.where(maskf > 0, torch.sum(u * v, dim=-1), NEG)
+    B, Tz = maskf.shape
+    parts = []
+    for r in range(cl):
+        t0, t1 = r * Tz // cl, (r + 1) * Tz // cl
+        if t1 > t0:
+            m_r = sc[:, t0:t1].max(dim=-1).values
+            ex = torch.exp(sc[:, t0:t1] - m_r[:, None]) * maskf[:, t0:t1]
+        else:
+            m_r = torch.full((B,), -torch.inf, dtype=sc.dtype, device=sc.device)
+            ex = sc[:, t0:t1]
+        parts.append((m_r, ex, ex.sum(dim=-1), torch.bmm(ex[:, None, :], enc[:, t0:t1])[:, 0]))
+    m = torch.stack([torch.where(s_r > 0, m_r, -torch.inf) for m_r, _, s_r, _ in parts]).amax(0)
+    tot = torch.zeros_like(m)
+    ctx = torch.zeros_like(enc[:, 0])
+    ws = []
+    for m_r, _, s_r, ctx_r in parts:
+        w_r = torch.where(s_r > 0, torch.exp(m_r - m), 0.0)
+        tot = tot + w_r * s_r
+        ctx = ctx + w_r[:, None] * ctx_r
+        ws.append(w_r)
+    a = torch.cat([ex * w_r[:, None] for (_, ex, _, _), w_r in zip(parts, ws)], dim=-1)
+    return q, u, a / tot[:, None], ctx / tot[:, None]
+
+
 def _gates(comb, h, wih, whh, bl):
     g = comb @ wih + h @ whh + bl
     i, f, gg, o = g.split(whh.shape[0], dim=-1)
     return torch.sigmoid(i), torch.sigmoid(f), torch.tanh(gg), torch.sigmoid(o)
 
 
-def _step(e, h, c, enc, pre, maskf, wl2, bl2, v, wc1, wc2, bc, wih, whh, bl):
-    """One decoder step -> (h, c, comb, cpre, gates, attention)."""
-    att = _attention(h, pre, enc, maskf, wl2, bl2, v)
+def _step(e, h, c, enc, pre, maskf, wl2, bl2, v, wc1, wc2, bc, wih, whh, bl, cl=None):
+    """One decoder step -> (h, c, comb, cpre, gates, attention); with `cl`,
+    the attention summed by ranks (`_attention_by_ranks`)."""
+    att = (_attention(h, pre, enc, maskf, wl2, bl2, v) if cl is None
+           else _attention_by_ranks(h, pre, enc, maskf, wl2, bl2, v, cl))
     cpre = e @ wc1 + att[3] @ wc2 + bc
     comb = torch.relu(cpre)
     i, f, g, o = _gates(comb, h, wih, whh, bl)
@@ -72,11 +112,24 @@ def decoder_chain_plain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc,
                         wih, whh, bl):
     """-> (hs, cs, comb), each [S x B x H]: the post-step hidden and cell
     trajectories and the pre-LSTM combined activation."""
+    return _chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih, whh, bl)
+
+
+def decoder_chain_cluster_plain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc,
+                                wih, whh, bl, *, cl: int):
+    """`decoder_chain_plain` with each step's attention summed over `cl`
+    ranks of frames, the partials combined in rank order, as the forward
+    kernel's cluster of `cl` CTAs sums it (`cuda.decoder_chain_fwd_plan`
+    gives the width for H)."""
+    return _chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih, whh, bl, cl=cl)
+
+
+def _chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih, whh, bl, cl=None):
     h, c = h0, c0
     hs, cs, combs = [], [], []
     for e in emb:
         h, c, comb, *_ = _step(e, h, c, enc, pre, maskf, wl2, bl2, v, wc1, wc2, bc,
-                               wih, whh, bl)
+                               wih, whh, bl, cl)
         hs.append(h)
         cs.append(c)
         combs.append(comb)

@@ -8,7 +8,7 @@ pooling after `pooling_layers`, then nonlin -> out-projection -> mask.
 * `wavenet_stack` — dispatch by device: a CPU tensor takes the plain
   version, a CUDA tensor launches the hand-written kernel
   (`csrc/wavenet_stack.cu`, one launch per layer plus one for the
-  out-projection) or raises.
+  out-projection, its products on the tensor cores in 3xTF32) or raises.
 """
 
 from __future__ import annotations
@@ -34,6 +34,13 @@ def pack_wavenet_params(block) -> tuple:
     return w3, b3, w1, b1, block.Conv1x1_1.kernel, block.Conv1x1_1.bias
 
 
+def _mm(a, b):
+    """Every product of the plain stack, in full f32.  (The CUDA kernel's are
+    error-compensated TF32, `ops/tf32.py matmul_3xtf32_plain`; the tests swap
+    that in here to hold the split to the f32 twin.)"""
+    return a @ b
+
+
 def wavenet_stack_plain(
     x,  # [B x T x C] f32, after the in-projection
     lengths,  # [B] int
@@ -51,12 +58,12 @@ def wavenet_stack_plain(
     ln = lengths
     for i, d in enumerate(stages):
         z = (
-            shift_time(x, -d) @ w3[i, 0]
-            + x @ w3[i, 1]
-            + shift_time(x, d) @ w3[i, 2]
+            _mm(shift_time(x, -d), w3[i, 0])
+            + _mm(x, w3[i, 1])
+            + _mm(shift_time(x, d), w3[i, 2])
             + b3[i]
         )
-        y = nonlinearity(z, leaky) @ w1[i] + b1[i]
+        y = _mm(nonlinearity(z, leaky), w1[i]) + b1[i]
         if drop_masks is not None:
             y = y * drop_masks[i]
         x = mask_time(y + x, ln)
@@ -64,7 +71,7 @@ def wavenet_stack_plain(
             x = pool2_time(x, pooling_type)
             ln = ln // 2
             x = mask_time(x, ln)
-    x = nonlinearity(x, leaky) @ w_last + b_last
+    x = _mm(nonlinearity(x, leaky), w_last) + b_last
     return mask_time(x, ln), ln
 
 

@@ -25,6 +25,7 @@ from mucon_tpu_torch.models.temporal import MSTCNPPFirstStage, WaveNetBlock
 from mucon_tpu_torch.ops.decoder_chain import (
     DecoderChain,
     decoder_chain_bwd_plain,
+    decoder_chain_cluster_plain,
     decoder_chain_plain,
     decoder_chain_replay_plain,
 )
@@ -86,6 +87,42 @@ def test_wavenet_kernel_ragged(dev, pooling_type, leaky):
     assert cuda.launch_counts["wavenet_layer"] == before + len(stages) + 1
     assert torch.equal(tk, tp) and zk.shape == (3, 20, 128)
     assert (zk - zp).abs().max().item() <= 1e-4 * zp.abs().max().item()
+
+
+# the tensor-core layer kernel's 64-row tiles: T = 200 is not a multiple of
+# 64 and d = 256 >= T, with a video of length 0 (every tile skipped); no
+# padding at all (no tile skipped); no layer, the out-projection alone at the
+# train path's B = 8 (t_fin = 160)
+@pytest.mark.parametrize("pooling_type,leaky,T,lengths,stages,pools", [
+    ("max", False, 200, (200, 0, 131), (1, 2, 256), (0,)),
+    ("sum", True, 128, (128, 128), (1, 2, 4), (0, 1)),
+    ("max", True, 160, (160, 131, 93, 120, 160, 100, 97, 150), (), ()),
+], ids=["ragged_length0_d_ge_T", "unpadded", "out_projection_B8"])
+def test_wavenet_tensor_core_tiles(dev, pooling_type, leaky, T, lengths, stages, pools):
+    g = torch.Generator().manual_seed(11)
+    block = WaveNetBlock(16, stages, 128, pools, pooling_type, leaky)
+    for m in block.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(g)
+    block = block.to(dev)
+    lens = torch.tensor(lengths, device=dev)
+    x = mask_time(torch.relu(torch.randn(len(lengths), T, 128, generator=g)).to(dev), lens)
+    w3, b3, w1, b1, wl, bl = (w.detach() for w in pack_wavenet_params(block)) if stages else \
+        (torch.empty(0, 3, 128, 128, device=dev), torch.empty(0, 128, device=dev),
+         torch.empty(0, 128, 128, device=dev), torch.empty(0, 128, device=dev),
+         block.Conv1x1_1.kernel.detach(), block.Conv1x1_1.bias.detach())
+    kw = dict(stages=stages, pooling_layers=pools, pooling_type=pooling_type, leaky=leaky)
+    args = (x, lens, w3, b3, w1, b1, wl, bl)
+    with torch.no_grad():
+        before = cuda.launch_counts["wavenet_layer"]
+        zk, tk = wavenet_stack(*args, **kw)
+        assert cuda.launch_counts["wavenet_layer"] == before + len(stages) + 1
+        zp, tp = wavenet_stack_plain(*args, **kw)
+        assert torch.equal(zk, wavenet_stack(*args, **kw)[0])
+    assert torch.equal(tk, tp) and zk.shape == zp.shape
+    assert (zk - zp).abs().max().item() <= 1e-4 * zp.abs().max().item()
+    for b, n in enumerate(tk.tolist()):
+        assert not zk[b, n:].any()  # padding, and a video of length 0, is exactly 0
 
 
 # B not a multiple of the cluster's 8-video tile; H = 8 (a cluster of one
@@ -374,6 +411,123 @@ def test_decoder_chain_kernels_edges(dev, S, H, tz, Tz):
     assert cuda.load().mucon_decoder_chain_width(H) == cuda.decoder_chain_plan(H)[0]
 
 
+def _max_fwd_tz(H, E):
+    """The largest Tz the forward chain's wrapper admits at (H, E)."""
+    lib, lo, hi = cuda.load(), 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if lib.mucon_decoder_chain_smem(H, E, mid, 0) <= cuda.MAX_SMEM_BYTES:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+# the forward chain on clusters: B = 1 at Tz = 1 (seven of eight ranks hold
+# no frame); B = 2 at Tz = 5 < CL; the train shape B = 8 at Tz = 160; B = 13
+# at a ragged Tz = 37; the largest Tz the forward admits (pre and enc read
+# from L2), where the reverse chain's own limit is lower
+@pytest.mark.parametrize("B,Tz,S", [(1, 1, 3), (2, 5, 4), (8, 160, 31), (13, 37, 5),
+                                    (1, None, 2)],
+                         ids=["B1_Tz1", "B2_Tz_below_CL", "B8_Tz160", "B13_Tz37", "B1_Tz_max"])
+def test_decoder_chain_forward_on_clusters(dev, B, Tz, S):
+    H, E = 128, 256
+    largest = Tz is None
+    Tz = _max_fwd_tz(H, E) if largest else Tz
+    g = torch.Generator().manual_seed(12)
+    tz = torch.randint(1, Tz + 1, (B,), generator=g)
+    tz[0] = Tz
+    r = lambda *shape: (0.4 * torch.randn(*shape, generator=g)).to(dev)  # noqa: E731
+    # matrices at the model's scale, 1 / sqrt(fan-in): a chain of 31 steps
+    # through weights of 0.4 would be chaotic and amplify two f32 orders of
+    # the same sums past any bound
+    w = lambda k, *shape: (torch.randn(*shape, generator=g) / k ** 0.5).to(dev)  # noqa: E731
+    maskf = (torch.arange(Tz)[None, :] < tz[:, None]).float().to(dev)
+    args = [torch.relu(r(S, B, H)), r(B, Tz, E) * maskf[:, :, None], r(B, Tz, H), maskf,
+            r(B, H), r(B, H), w(H, H, H), r(H), r(H), w(H + E, H, H), w(H + E, E, H), r(H),
+            w(2 * H, H, 4 * H), w(2 * H, H, 4 * H), r(4 * H)]
+    cl = cuda.decoder_chain_fwd_plan(H)[0]
+    launch = cuda.decoder_chain_fwd_launch(B, H, E, Tz)
+    assert (launch["cl"], launch["clusters"], launch["tables"]) == (cl, B, int(not largest))
+    before = cuda.launch_counts["decoder_chain_fwd"]
+    with torch.no_grad():
+        outk = cuda.decoder_chain_forward(*args)
+        again = cuda.decoder_chain_forward(*args)
+        assert all(torch.equal(a, b) for a, b in zip(outk, again))  # no atomics
+        _close(outk, decoder_chain_plain(*args), 1e-4)
+        _close(outk, decoder_chain_cluster_plain(*args, cl=cl), 1e-4)
+    assert cuda.launch_counts["decoder_chain_fwd"] == before + 2
+    if largest:
+        with pytest.raises(ValueError):
+            cuda.decoder_chain_forward(*_grow(args, Tz + 1))
+        return
+    h_in = torch.cat([args[4][None], outk[0][:-1]])
+    c_in = torch.cat([args[5][None], outk[1][:-1]])
+    with torch.no_grad():
+        *_, cpre, _, _, cell = cuda.decoder_chain_replay(*args[:4], h_in, c_in, *args[6:],
+                                                         count=False, cell=True)
+    assert torch.equal(torch.relu(cpre), outk[2]) and torch.equal(cell, outk[1])
+
+
+# the forward off the model's shape, through its step's generic body: the
+# model's width with E = 255; E = 1536, whose weights do not fit a CTA (read
+# from L2) while the reverse chain takes H; H = 256 (weights from L2) and an
+# odd H = 33 (a cluster of one CTA, HS above a pass's 32 units), which the
+# one-CTA forward took and the reverse chain does not (HS above 32, or not a
+# multiple of 4)
+@pytest.mark.parametrize("H,E,resident", [(128, 255, 1), (128, 1536, 0), (256, 512, 0),
+                                          (33, 66, 1)])
+def test_decoder_chain_forward_every_h(dev, H, E, resident):
+    S, Tz, tz = 5, 37, (37, 20, 1)
+    B = len(tz)
+    g = torch.Generator().manual_seed(13)
+    r = lambda *shape: (0.4 * torch.randn(*shape, generator=g)).to(dev)  # noqa: E731
+    w = lambda k, *shape: (torch.randn(*shape, generator=g) / k ** 0.5).to(dev)  # noqa: E731
+    maskf = (torch.arange(Tz)[None, :] < torch.tensor(tz)[:, None]).float().to(dev)
+    args = [torch.relu(r(S, B, H)), r(B, Tz, E) * maskf[:, :, None], r(B, Tz, H), maskf,
+            r(B, H), r(B, H), w(H, H, H), r(H), r(H), w(H + E, H, H), w(H + E, E, H), r(H),
+            w(2 * H, H, 4 * H), w(2 * H, H, 4 * H), r(4 * H)]
+    launch = cuda.decoder_chain_fwd_launch(B, H, E, Tz)
+    assert (launch["cl"], launch["hs"], launch["weights"]) == (
+        *cuda.decoder_chain_fwd_plan(H)[:2], resident)
+    with torch.no_grad():
+        outk = cuda.decoder_chain_forward(*args)
+        assert all(torch.equal(a, b) for a, b in zip(outk, cuda.decoder_chain_forward(*args)))
+        _close(outk, decoder_chain_plain(*args), 1e-4)
+        _close(outk, decoder_chain_cluster_plain(*args, cl=launch["cl"]), 1e-4)
+    cts = [r(S, B, H) for _ in range(3)]
+    h_in = torch.cat([args[4][None], outk[0][:-1]])
+    c_in = torch.cat([args[5][None], outk[1][:-1]])
+    bargs = (*args[:4], h_in, c_in, *args[6:], *cts)
+    try:
+        cuda.decoder_chain_plan(H)
+    except ValueError:
+        with pytest.raises(ValueError):
+            cuda.decoder_chain_backward(*bargs)
+        return
+
+    def run(fn):
+        xs = [t.clone().requires_grad_(i != 3) for i, t in enumerate(args)]  # not maskf
+        torch.autograd.backward(fn(*xs), cts)
+        return [t.grad for i, t in enumerate(xs) if i != 3]
+
+    _grads_close(run(DecoderChain.apply), run(decoder_chain_plain))
+    with torch.no_grad():
+        _close(cuda.decoder_chain_backward(*bargs), decoder_chain_bwd_plain(*bargs), 1e-4)
+        *_, cpre, _, _, cell = cuda.decoder_chain_replay(*bargs[:15], count=False, cell=True)
+    assert torch.equal(torch.relu(cpre), outk[2]) and torch.equal(cell, outk[1])
+
+
+def _grow(args, Tz):
+    """The chain's inputs with Tz frames (zero frames appended)."""
+    out = list(args)
+    for i in (1, 2, 3):
+        t = args[i]
+        pad = torch.zeros(*t.shape[:1], Tz - t.shape[1], *t.shape[2:], device=t.device)
+        out[i] = torch.cat([t, pad], dim=1)
+    return out
+
+
 # one segment; a video of one frame; T = 200, not a multiple of the 64-frame tile
 @pytest.mark.parametrize("N,T,n_len,t_valid", [(1, 64, (1, 1), (64, 1)),
                                                (12, 200, (12, 3, 1), (200, 65, 2))])
@@ -500,8 +654,26 @@ def test_wavenet_train_v2_kernels_edges(dev, chunks, lengths, leaky, drop, tie):
     assert torch.equal(tk, tp) and zk.shape == (B, t_fin, 128)
     _close([zk], [zp], 1e-4)
     _grads_close(gk, gp)
-    # the v3 kernels do the same arithmetic in the same order
+    # the v3 kernels do the same arithmetic in the same order, but for the
+    # out-projection: v3's is the `wavenet_layer` launch, on the tensor cores
+    # in 3xTF32, v2's the f32 FMA of its last chunk.  So every layer's input
+    # and nonlin(z) are equal bit for bit, v3's z is the eval kernel's
+    # out-projection of v2's last layer output bit for bit, and only the two
+    # projections differ, by 3xTF32 rounding
     z3, _, g3 = run(wavenet_stack_train, pooling_type="max")
-    assert torch.equal(zk, z3) and all(torch.equal(a, b) for a, b in zip(gk, g3))
+    with torch.no_grad():
+        _, (xs2, hs2) = cuda.wavenet_train_v2_forward(
+            x, lengths, *weights, masks, **kw, bounds=chunk_bounds(len(stages), chunks))
+        _, (xs3, hs3, _, x_fin3) = cuda.wavenet_train_forward(
+            x, lengths, *weights, masks, **kw, pooling_type="max")
+        assert all(torch.equal(a, b) for a, b in zip(xs2, [*xs3, x_fin3]))
+        assert len(hs2) == len(hs3) and all(torch.equal(a, b) for a, b in zip(hs2, hs3))
+        none = [torch.empty(0, *w.shape[1:], device=dev) for w in weights[:4]]
+        proj, _ = wavenet_stack(xs2[-1], lengths >> len(pools), *none, *weights[4:],
+                                stages=(), pooling_layers=(), pooling_type="max",
+                                leaky=leaky)
+    assert torch.equal(z3, proj)
+    _close([zk], [z3], 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(gk, g3))
     if lengths[-1] == 0:
         assert torch.all(gk[0][-1] == 0) and torch.all(zk[-1] == 0)

@@ -3,7 +3,10 @@ against the JAX package's (`mucon_tpu/ops/decoder_pallas.py`, its Pallas
 kernels in interpret mode) on the CPU: the plain forward, every input
 gradient of `DecoderChain` (its backward rule and weight-gradient glue,
 with the plain reverse chain inside), and the whole teacher-forced decode
-with the heads on the weights of an initialised model."""
+with the heads on the weights of an initialised model.  Also the forward
+kernel's cluster arithmetic (`decoder_chain_cluster_plain`: the attention
+summed by ranks of frames) against both, and its split of H over a cluster
+(`cuda.decoder_chain_fwd_plan`)."""
 
 import jax
 import jax.numpy as jnp
@@ -14,11 +17,15 @@ import torch
 from mucon_tpu.models import create_model as create_jax_model
 from mucon_tpu.ops.decoder_pallas import decoder_chain, decoder_chain_xla
 from mucon_tpu.ops.decoder_pallas import decoder_teacher_forced as jax_teacher_forced
+from mucon_tpu_torch.cuda import decoder_chain_fwd_plan
 from mucon_tpu_torch.models.model import create_model, model_fields_from_cfg
 from mucon_tpu_torch.ops.decoder_chain import (
     DecoderChain,
+    _attention,
+    _attention_by_ranks,
     _step,
     decoder_chain_bwd_plain,
+    decoder_chain_cluster_plain,
     decoder_chain_plain,
     decoder_chain_replay_plain,
     decoder_teacher_forced,
@@ -184,3 +191,76 @@ def test_composed_twins_match_jax_vjp(s, tz, valid):
     for i, want in zip(argnums, ref):
         np.testing.assert_allclose(xs[i].grad.numpy(), np.asarray(want), **tol,
                                    err_msg=NAMES[i])
+
+
+# a ragged split (13 frames over 4 ranks: 3, 3, 3, 4); fewer frames than
+# ranks (3 over 8: five ranks hold none); a fully masked rank (video 1 is
+# padding from frame 5 on: ranks 2 and 3 of 4 hold no valid frame)
+@pytest.mark.parametrize("tz,valid,cl", [(13, (13, 9, 2), 4), (3, (3, 1), 8),
+                                         (16, (16, 5, 9), 4)],
+                         ids=["ragged", "Tz_below_CL", "masked_rank"])
+def test_cluster_twin_matches_plain_and_jax(tz, valid, cl):
+    """The forward kernel's sums (rank partials of the softmax and the
+    context, combined in rank order) against the one-pass attention and
+    the JAX kernel in interpret mode: atol 1e-5, two orders of the same
+    sums; masked frames weigh exactly 0 and no rank gives a NaN."""
+    args = _inputs(9, tz=tz, valid=valid)
+    t = list(map(torch.from_numpy, args))
+    att_args = (t[4], t[2], t[1], t[3], t[6], t[7], t[8])  # h0, pre, enc, maskf, wl2, bl2, v
+    q, u, a, ctx = _attention_by_ranks(*att_args, cl=cl)
+    for name, x, y in zip(("q", "u", "a", "ctx"), (q, u, a, ctx), _attention(*att_args)):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), atol=1e-6, err_msg=name)
+    assert torch.equal(a * t[3], a)
+    np.testing.assert_allclose(a.sum(dim=-1).numpy(), 1.0, atol=1e-6)
+    got = decoder_chain_cluster_plain(*t, cl=cl)
+    for ref in (decoder_chain_plain(*t), decoder_chain(True, *map(jnp.asarray, args))):
+        for name, x, y in zip(("hs", "cs", "comb"), got, ref):
+            assert torch.isfinite(x).all()
+            np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("H,want", [(1, 1), (8, 1), (32, 2), (33, 1), (100, 4), (128, 8),
+                                    (129, 1), (256, 8)])
+def test_fwd_plan_covers_every_product_once(H, want):
+    """The cluster split of the forward chain (csrc/decoder_chain.cu
+    `cluster_step`): over the CL CTAs of 8 warps, the (k, column) pairs of
+    q (each CTA its units' rows, every column: the partials summed in rank
+    order), of the combine layer (E = 2H; the e rows, then the context's;
+    passes of 4 columns a warp) and of the gates (the h rows, then comb's;
+    passes of 8 columns a warp, column 4 jj + q the gate q of unit jj)
+    cover each matrix once, also where HS is above a pass's 32 units (an
+    odd H, a cluster of one CTA); the last two are warp GEMVs, lane l of a
+    warp taking k = l, l + 32, ...  The CTAs' units partition H, and their
+    frames partition [0, Tz), also where Tz < CL.  Every H the one-CTA
+    forward took (up to 256) is taken."""
+    cl, hs, nt = decoder_chain_fwd_plan(H)
+    assert cl == want and cl * hs == H and nt == 256
+    E, warps = 2 * H, nt // 32
+
+    def gemv(col0, C, ncol, k0, k1):
+        return [(k, col0 + c) for lane in range(32) for k in range(k0 + lane, k1, 32)
+                for c in range(C) if col0 + c < ncol]
+
+    q = [(r * hs + jj, n) for r in range(cl) for n in range(H) for jj in range(hs)]
+    assert sorted(q) == [(k, n) for k in range(H) for n in range(H)]
+    comb, gates, units = [], [], []
+    for r in range(cl):
+        j0 = r * hs
+        for w in range(warps):
+            comb += [(k, j0 + jj) for col0 in range(4 * w, hs, 4 * warps)
+                     for k0, k1 in ((0, H), (H, H + E))
+                     for k, jj in gemv(col0, 4, hs, k0, k1)]
+            gates += [(k, (col & 3) * H + j0 + (col >> 2)) for t in range(-(-4 * hs // 64))
+                      for k0, k1 in ((H, 2 * H), (0, H))
+                      for k, col in gemv(64 * t + 8 * w, 8, 4 * hs, k0, k1)]
+        units += range(j0, j0 + hs)
+    assert sorted(comb) == [(k, n) for k in range(H + E) for n in range(H)]
+    assert sorted(gates) == [(k, n) for k in range(2 * H) for n in range(4 * H)]
+    assert units == list(range(H))
+    for tz in (1, 3, 13, 160):
+        frames = [t for r in range(cl) for t in range(r * tz // cl, (r + 1) * tz // cl)]
+        assert frames == list(range(tz))
+        assert max((r + 1) * tz // cl - r * tz // cl for r in range(cl)) <= -(-tz // cl)
+    for bad in (0, 257, 512):
+        with pytest.raises(ValueError):
+            decoder_chain_fwd_plan(bad)
