@@ -21,7 +21,8 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    MS-TCN++ model, checks that each path launched its kernels (and not the
    other backbone's) and that both paths agree, and times both;
 5. trains: checks the seven train kernels (the WaveNet stack's forward and
-   backward sweep, the BiLSTM recurrence with its cell stash — on
+   backward sweep — on the tensor cores in 3xTF32, their grid a layer and
+   the shares of row tiles and rows skipped printed — the BiLSTM recurrence with its cell stash — on
    thread-block clusters, two calls bit for bit, its time per step, cluster
    width and waves printed — and its reverse chain — the parallel
    coefficient pass against its own plain twin, its replayed cell equal to
@@ -57,6 +58,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -177,15 +179,15 @@ def report(err, ms, plain_ms, moved: float, ops: float, library_ms=None,
     only the valid frames and steps of this run's data) over HBM's rate
     and its f32 operations on this data over the f32 peak; with `tf32x3`
     (a matrix-product kernel on the tensor cores) over a third of the TF32
-    peak.  A kernel faster than its bound is a fault of the bound: fails."""
+    peak (`ops_type` says which).  A kernel faster than its bound is a
+    fault of the bound: fails."""
     ops_rate = TF32_OPS_PER_S / 3 if tf32x3 else F32_OPS_PER_S
     bytes_ms, ops_ms = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * ops / ops_rate
     bound_ms = max(bytes_ms, ops_ms)
     expect(ms >= bound_ms, f"a kernel's time {ms} ms is below its bound {bound_ms} ms")
-    by_ops = "operations (3xTF32)" if tf32x3 else "operations"
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if bytes_ms >= ops_ms else by_ops,
-                library_ms=library_ms)
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                library_ms=library_ms, ops_type="3xTF32" if tf32x3 else "f32")
 
 
 def stack_rows(stages, pooling_layers, lengths) -> tuple:
@@ -301,9 +303,10 @@ def check_wavenet(model, gen, dev):
         f"video's length and are skipped ({100 * skipped / tiles:.1f}%)")
     check_edges("wavenet_layer", wavenet_stack, wavenet_stack_plain, x, lengths, args[2:], kw)
     rows, rows_fin = stack_rows(ft.stages, ft.pooling_layers, lengths)
-    # 12 launches: per valid row a k=3 conv and a 1x1 conv, then the out-projection
+    # 12 launches: per valid row a k=3 conv (its existing taps) and a 1x1
+    # conv, then the out-projection: the trainable stack's forward products
     return report(err, ms, plain_ms, 4 * C * (rows[0] + rows_fin) + nbytes(*args[1:]),
-                  8 * C * C * sum(rows) + 2 * C * C * rows_fin, tf32x3=True)
+                  stack_ops(C, ft.stages, ft.pooling_layers, lengths)[0], tf32x3=True)
 
 
 def check_mstcnpp(model, gen, dev):
@@ -721,16 +724,75 @@ def check_wavenet_train(model, arrays, gen, dev):
     say(f"kernel wavenet_train_fwd B={B} T={T} C={C} L={len(ft.stages)} dropout {DROP}: "
         f"{fwd_ms[0]:.3f} ms vs plain {fwd_ms[1]:.3f} ms; wavenet_train_sweep "
         f"{bwd_ms[0]:.3f} ms vs plain autograd {bwd_ms[1]:.3f} ms")
+    say(f"kernels wavenet_train_fwd / wavenet_train_sweep grid at B={B}: "
+        + train_grid(B, T, lengths, ft.stages, ft.pooling_layers))
     rows, rows_fin = stack_rows(ft.stages, ft.pooling_layers, lengths)
     pooled = sum(r for i, r in enumerate(rows) if i in ft.pooling_layers)
-    # forward: x and the masks in; each layer's h and output, the pre-pool u and z out
+    # forward: x, each layer's mask and output (the next layer's input, the
+    # last one x_fin), h and, where it pools, u, then z: valid rows only
     fwd_moved = 4 * C * (3 * sum(rows) + 2 * rows_fin + pooled)
-    # sweep: gz, the stash (layer inputs, h, u, x_fin) and the masks in; gx out
+    # sweep: gz, x_fin, each layer's input, h, mask and, where it pools, u in; gx out
     bwd_moved = 4 * C * (2 * rows_fin + 3 * sum(rows) + pooled + rows[0])
-    return {"wavenet_train_fwd": report(fwd_err, *fwd_ms, fwd_moved + nbytes(*weights),
-                                        8 * C * C * sum(rows) + 2 * C * C * rows_fin),
+    fwd_ops, bwd_ops = stack_ops(C, ft.stages, ft.pooling_layers, lengths)
+    return {"wavenet_train_fwd": report(fwd_err, *fwd_ms, fwd_moved + nbytes(*weights), fwd_ops,
+                                        tf32x3=True),
             "wavenet_train_sweep": report(bwd_err, *bwd_ms, bwd_moved + 2 * nbytes(*weights),
-                                          16 * C * C * sum(rows) + 4 * C * C * rows_fin)}
+                                          bwd_ops, tf32x3=True)}
+
+
+def stack_ops(C: int, stages, pooling_layers, lengths) -> tuple:
+    """f32 operations of the WaveNet stack's forward (the eval stack's too)
+    and of the trainable stack's sweep on this batch's valid rows, counting
+    only the taps whose shifted row exists (a row t < d has no x[t-d], a
+    row t >= len - d no x[t+d]; the kernels skip such products where a
+    whole tile or span lacks them).  A layer's
+    forward is a tap product per existing tap and the 1x1 (2 C^2 each per
+    row); its sweep the dz product, the dx tap products, dW1 and the dW3
+    tap products; the out-projection's forward one product a row, its
+    sweep two."""
+    lens = lengths.to("cpu").long()
+    fwd = bwd = 0
+    for i, d in enumerate(stages):
+        n = int(lens.sum())
+        m = int((lens - d).clamp_min(0).sum())  # rows with x[t-d]; as many with x[t+d]
+        fwd += 2 * C * C * (2 * n + 2 * m)
+        bwd += 2 * C * C * (4 * n + 4 * m)
+        if i in pooling_layers:
+            lens = lens >> 1
+    n = int(lens.sum())
+    return fwd + 2 * C * C * n, bwd + 4 * C * C * n
+
+
+def train_grid(B: int, T: int, lengths, stages, pooling_layers) -> str:
+    """The trainable stack's grid at each layer (`cuda.wavenet_train_plan`):
+    the forward's and the sweep's row tiles, their CTAs and how many lie
+    past their video's length, and the weight-gradient spans; with the
+    shares of tiles (both grids) and of rows skipped."""
+    from mucon_tpu_torch import cuda
+
+    lens = lengths.to("cpu").long()
+    parts, tiles, skipped, rows, valid = [], 0, 0, 0, 0
+    t = T
+    for i in range(len(stages) + 1):
+        jobs = 1 if i == len(stages) else 4
+        p = cuda.wavenet_train_plan(B, t, jobs)
+        span, grids = p["span_rows"], []
+        # the out-projection's forward is a `wavenet_layer` launch
+        for tm in (p["tile_rows"],) if jobs == 1 else (p["fwd_tile_rows"], p["tile_rows"]):
+            n = B * -(-t // tm)
+            live = int((-(-lens // tm)).clamp(max=-(-t // tm)).sum())
+            grids.append(f"{tm}-row tiles {live}/{n} CTAs")
+            tiles, skipped = tiles + n, skipped + n - live
+        spans = jobs * int((-(-lens // span)).sum())
+        grid = f"sweep {grids[0]}" if jobs == 1 else f"forward {grids[0]}, sweep {grids[1]}"
+        parts.append(f"{'proj' if jobs == 1 else i} T={t}: {grid}, spans of {span} rows "
+                     f"{spans} CTAs")
+        rows, valid = rows + B * t, valid + int(lens.sum())
+        if i in pooling_layers:
+            t, lens = t // 2, lens >> 1
+    return ("; ".join(parts) + f". Row tiles skipped {skipped} of {tiles} "
+            f"({100 * skipped / tiles:.1f}%); rows skipped {rows - valid} of {rows} "
+            f"({100 * (rows - valid) / rows:.1f}%)")
 
 
 def check_wavenet_train_v2(model, arrays, gen, dev):
@@ -1365,6 +1427,32 @@ def compare_steps(tag, trainers, arrays, n_steps: int, required, absent, card: s
     return launches
 
 
+def ptxas_summary(log: str) -> list:
+    """One line a kernel from nvcc's `-Xptxas -v` log: its name (demangled
+    where c++filt exists), its registers and its stack and spill bytes."""
+    import re
+
+    out, entry, props, spills = [], None, None, {}
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry = m.group(1)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = m.group(1)
+        elif "spill" in line:
+            spills[props] = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            out.append([entry, line.split(":", 1)[-1].strip(), spills.get(entry, "")])
+            entry = None
+    if shutil.which("c++filt") and out:
+        plain = subprocess.run(["c++filt"], input="\n".join(n for n, _, _ in out),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(plain) == len(out):
+            for kernel, name in zip(out, plain):
+                kernel[0] = name.replace("(anonymous namespace)::", "").replace(
+                    "void ", "").split("(")[0]
+    return [f"{name}: {used}; {spill}" for name, used, spill in out]
+
+
 def main() -> int:
     # cuBLAS is deterministic under torch.use_deterministic_algorithms only
     # with a fixed workspace (the train phase compares runs bit for bit)
@@ -1389,9 +1477,8 @@ def main() -> int:
     cuda.load()
     lib = cuda.build()  # the path of the library just built and loaded
     say(f"built {lib.name} from mucon_tpu_torch/csrc in {time.perf_counter() - t0:.1f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(lib.with_suffix(".log").read_text()):
+        say(f"  ptxas: {line}")
 
     dev = torch.device("cuda")
     model = create_model(M, N_MAX + 1, D, device=dev, seed=0)

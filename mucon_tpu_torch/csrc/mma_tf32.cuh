@@ -20,7 +20,9 @@
 //
 // Shared-memory tiles are f32, row-major, with padded row strides so that a
 // fragment load touches 32 banks: an A tile's stride = 4 (mod 32) floats
-// (bank 4g + t), a B (weight) tile's stride = 8 (mod 32) (bank 8t + g).
+// (bank 4g + t), a B (weight) tile's stride = 8 (mod 32) (bank 8t + g).  An
+// A operand read transposed from a row-major [K][M] tile (`load_at_split`,
+// for A^T B over a long k of rows) takes the B tile's stride (bank 8t + g).
 //
 // Also here: the `cp.async` wrappers that fill such tiles (16-byte copies,
 // zero-filled where the source row does not exist).
@@ -94,6 +96,18 @@ __device__ __forceinline__ void load_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4
   split(p[8 * lda + 4], hi[3], lo[3]);
 }
 
+// split A fragment of the 16 x 8 block at (m0, k0) of A^T, A a row-major
+// [K][M] tile: element (m, k) = A[k][m]
+__device__ __forceinline__ void load_at_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                              const float* A, int lda, int m0, int k0,
+                                              int lane) {
+  const float* p = A + (k0 + (lane & 3)) * lda + m0 + (lane >> 2);
+  split(p[0], hi[0], lo[0]);
+  split(p[8], hi[1], lo[1]);
+  split(p[4 * lda], hi[2], lo[2]);
+  split(p[4 * lda + 8], hi[3], lo[3]);
+}
+
 // split B fragment of the 8 x 8 block at (k0, n0) of a row-major [K][N] tile
 __device__ __forceinline__ void load_b_split(uint32_t (&hi)[2], uint32_t (&lo)[2],
                                              const float* W, int ldw, int k0, int n0,
@@ -104,38 +118,56 @@ __device__ __forceinline__ void load_b_split(uint32_t (&hi)[2], uint32_t (&lo)[2
 }
 
 // acc[mt][nt] += A[a_row0 + 16 mt .., a_col0 .. a_col0 + KC) W[0 .. KC, n0 + 8 nt ..)
-// for one warp: MT x NTL blocks of 16 x 8 outputs, KC a multiple of 8.  The
+// for one warp: MT x NTL blocks of 16 x 8 outputs, KC a multiple of 8 (with
+// AT, A^T: rows a_col0 .. of the [K][M] tile A, columns a_row0 + 16 mt ..).  The
 // three products of the split run as three passes over all MT x NTL blocks,
-// so that two `mma` into one accumulator lie MT x NTL `mma` apart.
+// so that two `mma` into one accumulator lie MT x NTL `mma` apart: the two
+// small ones into `small`, hi_a hi_b into `big` (the same array in
+// `warp_gemm`).  An `mma` rounds its f32 sum toward zero, so each one into
+// an accumulator adds an error of up to an ulp of it, of one sign; a caller
+// that needs f32 accuracy over a long k keeps the small terms apart and
+// adds a short k's `big` into its sum with an f32 add (round to nearest).
 // (ptxas interleaves the next k-step's loads and splits with this step's
 // `mma` by itself: pipelining them by hand in the source changed nothing.)
-template <int MT, int NTL, int KC>
-__device__ __forceinline__ void warp_gemm(float (&acc)[MT][NTL][4], const float* A, int lda,
-                                          int a_row0, int a_col0, const float* W, int ldw,
-                                          int n0, int lane) {
+template <int MT, int NTL, int KC, bool AT = false>
+__device__ __forceinline__ void warp_gemm2(float (&small)[MT][NTL][4],
+                                           float (&big)[MT][NTL][4], const float* A, int lda,
+                                           int a_row0, int a_col0, const float* W, int ldw,
+                                           int n0, int lane) {
 #pragma unroll
   for (int kk = 0; kk < KC; kk += 8) {
     uint32_t ah[MT][4], al[MT][4], bh[NTL][2], bl[NTL][2];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      load_a_split(ah[mt], al[mt], A, lda, a_row0 + 16 * mt, a_col0 + kk, lane);
+    for (int mt = 0; mt < MT; ++mt) {
+      if constexpr (AT)
+        load_at_split(ah[mt], al[mt], A, lda, a_row0 + 16 * mt, a_col0 + kk, lane);
+      else
+        load_a_split(ah[mt], al[mt], A, lda, a_row0 + 16 * mt, a_col0 + kk, lane);
+    }
 #pragma unroll
     for (int nt = 0; nt < NTL; ++nt) load_b_split(bh[nt], bl[nt], W, ldw, kk, n0 + 8 * nt, lane);
 #if MMA_TF32_PRODUCTS == 3
 #pragma unroll
     for (int nt = 0; nt < NTL; ++nt)
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma_m16n8k8(acc[mt][nt], al[mt], bh[nt]);
+      for (int mt = 0; mt < MT; ++mt) mma_m16n8k8(small[mt][nt], al[mt], bh[nt]);
 #pragma unroll
     for (int nt = 0; nt < NTL; ++nt)
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma_m16n8k8(acc[mt][nt], ah[mt], bl[nt]);
+      for (int mt = 0; mt < MT; ++mt) mma_m16n8k8(small[mt][nt], ah[mt], bl[nt]);
 #endif
 #pragma unroll
     for (int nt = 0; nt < NTL; ++nt)
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma_m16n8k8(acc[mt][nt], ah[mt], bh[nt]);
+      for (int mt = 0; mt < MT; ++mt) mma_m16n8k8(big[mt][nt], ah[mt], bh[nt]);
   }
+}
+
+template <int MT, int NTL, int KC, bool AT = false>
+__device__ __forceinline__ void warp_gemm(float (&acc)[MT][NTL][4], const float* A, int lda,
+                                          int a_row0, int a_col0, const float* W, int ldw,
+                                          int n0, int lane) {
+  warp_gemm2<MT, NTL, KC, AT>(acc, acc, A, lda, a_row0, a_col0, W, ldw, n0, lane);
 }
 
 // 16-byte asynchronous copy global -> shared; zeros when !valid (the source

@@ -16,7 +16,8 @@ PyTorch's current stream without synchronising, and adds one to
 `launch_counts[<kernel>]` per kernel launch — the count a run reads to
 show that its path went through the kernels.  `wavenet_train_sweep`
 counts one per layer sweep: its C launcher runs that layer's four
-kernels (dz, dx, weight-gradient partials, their fixed-order sum).
+kernels (dz, dx, weight-gradient partials, their fixed-order sum; the
+out-projection's sweep runs three, no dx).
 `bilstm_train_bwd` counts one per `bilstm_train_backward` call: that call
 launches the reverse chain's two kernels (the parallel coefficient pass,
 then the cluster chain); `decoder_chain_bwd` likewise one per
@@ -141,7 +142,7 @@ def load() -> ctypes.CDLL:
             lib.mucon_dense_viterbi.argtypes = [P] * 7 + [I] * 6 + [P]
             lib.mucon_wavenet_train_fwd.argtypes = [P] * 10 + [I] * 8 + [P]
             lib.mucon_wavenet_train_sweep.argtypes = [P] * 16 + [I] * 9 + [P]
-            lib.mucon_wavenet_train_splits.argtypes = [I]
+            lib.mucon_wavenet_train_plan.argtypes = [I, I, I, ctypes.POINTER(I)]
             lib.mucon_bilstm_fwd_plan.argtypes = [I, I, ctypes.POINTER(I)]
             lib.mucon_bilstm_bwd_coefs.argtypes = [P] * 7 + [I] * 3 + [P]
             lib.mucon_bilstm_bwd_chain.argtypes = [P] * 7 + [I] * 3 + [P]
@@ -164,7 +165,7 @@ def load() -> ctypes.CDLL:
             for fn in (lib.mucon_wavenet_layer, lib.mucon_wavenet_tile_rows,
                        lib.mucon_bilstm_recurrence,
                        lib.mucon_dense_viterbi, lib.mucon_wavenet_train_fwd,
-                       lib.mucon_wavenet_train_sweep, lib.mucon_wavenet_train_splits,
+                       lib.mucon_wavenet_train_sweep, lib.mucon_wavenet_train_plan,
                        lib.mucon_bilstm_fwd_plan,
                        lib.mucon_bilstm_bwd_coefs, lib.mucon_bilstm_bwd_chain,
                        lib.mucon_bilstm_chain_width, lib.mucon_mstcnpp_tile_rows,
@@ -286,13 +287,30 @@ def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
     return _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky), lengths >> shift
 
 
+def wavenet_train_plan(B: int, T: int, jobs: int = 4) -> dict:
+    """The grid of a `wavenet_train.cu` layer of B videos x T frames
+    (`plan_for`, chosen from the shape alone): the rows a CTA of the
+    forward (`fwd_tile_rows`) and of the sweep's dz and dx kernels
+    (`tile_rows`) owns (64, 32 or 16), and the rows a weight-gradient CTA
+    sums (`span_rows`, `spans` a video) with `jobs` products a layer (4;
+    1 for the out-projection)."""
+    out = (ctypes.c_int * 4)()
+    lib = load()
+    err = lib.mucon_wavenet_train_plan(B, T, jobs, out)
+    if err:
+        raise ValueError(f"no wavenet_train grid for B={B}, T={T}, jobs={jobs}")
+    return dict(fwd_tile_rows=out[0], tile_rows=out[1], span_rows=out[2], spans=out[3])
+
+
 def wavenet_train_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks, *,
                           stages, pooling_layers, pooling_type, leaky):
     """Forward of the trainable stack on the card: one `wavenet_train_fwd`
     launch per layer and one `wavenet_layer` out-projection launch.
     x [B x T x 128] (masked), drop_masks one [B x t_i x 128] mask per layer
     or None -> (z, stash) with stash = (xs, hs, us, x_fin): each layer's
-    input, nonlin(z) and (pooled layers, by index) pre-pool output."""
+    input, nonlin(z) and (pooled layers, by index) pre-pool output.  hs and
+    us hold the rows t < length only (the sweep reads no other); their rows
+    at t >= length are undefined."""
     dev = _check_packed(x, stages, w3, b3, w1, b1, w_last, b_last)
     B, T, C = x.shape
     lens = _lengths_i32(lengths, B, dev, "lengths")
@@ -357,7 +375,10 @@ def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
     n_pools = len(us)
     t_fin = x_fin.shape[1]
     dy = torch.empty(B, T, C, **f32)  # scratch, sized for the longest layer
-    work = torch.empty(lib.mucon_wavenet_train_splits(B * T) * 4 * (C + 1) * C, **f32)
+    # weight-gradient partials: B x spans x products of (C + 1) x C, the largest sweep's
+    parts = max(B * wavenet_train_plan(B, t, jobs)["spans"] * jobs
+                for t, jobs in ((x_fin.shape[1], 1), *((x.shape[1], 4) for x in xs)))
+    work = torch.empty(parts * (C + 1) * C, **f32)
 
     def sweep(g, u, x, h, m, w1t_i, w3t_i, dz, g_in, dw1_i, db1_i, dw3_i, db3_i,
               t, d, shift, pooled, proj):

@@ -14,6 +14,11 @@ product is three tensor-core products accumulated in f32:
 * `tf32_split` — (hi, lo) with hi = tf32(x), lo = tf32(x - hi).
 * `matmul_3xtf32_plain` — the three products with f32 accumulation: what
   the kernel's inner product computes, up to the order of the sum.
+* `Matmul3xTF32` — the same product under autograd, its two gradient
+  products (g b^T, and a^T g over the flattened rows) in 3xTF32 too: the
+  arithmetic of the trainable stack's forward and sweep kernels
+  (`csrc/wavenet_train.cu`).  The bit operations of `tf32_round` carry no
+  gradient, so the plain product alone cannot be differentiated.
 
 The stage's plain twin (`ops/mstcnpp_stack.py mstcnpp_stack_plain`) stays
 full f32; this module is what the tests hold the split against.
@@ -53,3 +58,22 @@ def matmul_3xtf32_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a_hi, a_lo = tf32_split(a)
     b_hi, b_lo = tf32_split(b)
     return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+class Matmul3xTF32(torch.autograd.Function):
+    """a [..., K] @ b [K, N] in 3xTF32, forward and backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return matmul_3xtf32_plain(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = matmul_3xtf32_plain(g, b.t().contiguous()) if ctx.needs_input_grad[0] else None
+        gb = None
+        if ctx.needs_input_grad[1]:
+            gb = matmul_3xtf32_plain(a.reshape(-1, a.shape[-1]).t().contiguous(),
+                                     g.reshape(-1, g.shape[-1]))
+        return ga, gb

@@ -8,7 +8,8 @@ pooling after `pooling_layers`, then nonlin -> out-projection -> mask.
 * `wavenet_stack` — dispatch by device: a CPU tensor takes the plain
   version, a CUDA tensor launches the hand-written kernel
   (`csrc/wavenet_stack.cu`, one launch per layer plus one for the
-  out-projection, its products on the tensor cores in 3xTF32) or raises.
+  out-projection, its products on the tensor cores in 3xTF32; the layer
+  kernel, `csrc/wavenet_layer.cuh`, is the trainable forward's) or raises.
 """
 
 from __future__ import annotations
@@ -35,9 +36,10 @@ def pack_wavenet_params(block) -> tuple:
 
 
 def _mm(a, b):
-    """Every product of the plain stack, in full f32.  (The CUDA kernel's are
-    error-compensated TF32, `ops/tf32.py matmul_3xtf32_plain`; the tests swap
-    that in here to hold the split to the f32 twin.)"""
+    """Every product of the plain stack, in full f32.  (The CUDA kernels',
+    eval and train, are error-compensated TF32, `ops/tf32.py`; the tests
+    swap `matmul_3xtf32_plain`, or under autograd `Matmul3xTF32`, in here
+    to hold the split to the f32 twin.)"""
     return a @ b
 
 

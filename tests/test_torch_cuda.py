@@ -5,10 +5,12 @@ T = 1, fully masked videos, K = 1, infeasible DPs, a decoder chain of one
 step, one video, one frame or a thousand, one segment of the flint loss,
 an MS-TCN++ stage at odd lengths and lengths on a tile edge, the BiLSTM
 recurrence and its reverse chain on clusters of 1, 2 and 8 CTAs, the
-decoder chain's replay pass and cluster chain, the v2 stack in 1, 3 and 11
-chunks with tied pool pairs), and the bit-for-bit statements: two calls
-agree, the BiLSTM coefficient pass replays the stashed cell, the decoder
-chain's replay pass the stashed comb and cell.  Needs a CUDA device and
+decoder chain's replay pass and cluster chain, the trainable stack at each
+of its row tiles and at B = 1 and 8, the v2 stack in 1, 3 and 11 chunks
+with tied pool pairs), and the bit-for-bit statements: two calls agree,
+the eval stack's layer is the trainable forward's, the BiLSTM coefficient
+pass replays the stashed cell, the decoder chain's replay pass the
+stashed comb and cell.  Needs a CUDA device and
 nvcc; skips without them.  Imports no jax, so it runs on the card:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -125,6 +127,32 @@ def test_wavenet_tensor_core_tiles(dev, pooling_type, leaky, T, lengths, stages,
         assert not zk[b, n:].any()  # padding, and a video of length 0, is exactly 0
 
 
+# The eval stack's layer is the trainable forward's kernel (wavenet_layer.cuh)
+# with no stash and no dropout: where the forward's plan takes the eval
+# stack's 64-row tiles at every layer (B = 32 at T = 640, 320, 160), the two
+# z agree bit for bit
+@pytest.mark.parametrize("pooling_type,leaky", [("max", False), ("sum", True)])
+def test_wavenet_eval_layer_is_train_forward(dev, pooling_type, leaky):
+    g = torch.Generator().manual_seed(5)
+    stages, pools = SHORT
+    block = WaveNetBlock(16, stages, 128, pools, pooling_type, leaky)
+    for m in block.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(g)
+    B, T = 32, 640
+    lens = torch.randint(0, T + 1, (B,), generator=g).to(dev)
+    x = mask_time(torch.relu(torch.randn(B, T, 128, generator=g)).to(dev), lens)
+    weights = [w.detach().to(dev) for w in pack_wavenet_params(block)]
+    kw = dict(stages=stages, pooling_layers=pools, pooling_type=pooling_type, leaky=leaky)
+    t_ins = stack_plan(stages, pools, T)[0]
+    assert all(cuda.wavenet_train_plan(B, t)["fwd_tile_rows"] == cuda.wavenet_tile_rows()
+               for t in t_ins)
+    with torch.no_grad():
+        z_eval, _ = wavenet_stack(x, lens, *weights, **kw)
+        z_train, _ = cuda.wavenet_train_forward(x, lens, *weights, None, **kw)
+    assert torch.equal(z_eval, z_train)
+
+
 # B not a multiple of the cluster's 8-video tile; H = 8 (a cluster of one
 # CTA); the serving batch, B = 128 at Tz = 160 (32 clusters of 8 CTAs)
 @pytest.mark.parametrize("T,B,H", [(13, 11, 128), (13, 3, 8), (160, 128, 128)])
@@ -212,16 +240,30 @@ def _grads_close(got, want, atol=1e-12):
         assert (torch.linalg.vector_norm(a - b) <= 1e-3 * torch.linalg.vector_norm(b) + atol)
 
 
-# T = 80 and 51 are not multiples of the 32-row tile; 51 pools to odd 25;
-# d = 64 and 128 reach past the pooled T; a video of length 0 is all padding
-@pytest.mark.parametrize("pooling_type,leaky,T,lengths,drop", [
-    ("max", False, 80, (80, 57, 0), 0.25),
-    ("sum", True, 80, (80, 33, 7), 0.0),
-    ("max", True, 51, (51,), 0.25),
-])
-def test_wavenet_train_kernels_ragged(dev, pooling_type, leaky, T, lengths, drop):
+SHORT = ((1, 2, 4, 64, 128), (0, 1))
+DEFAULT = ((1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024), (1, 2, 4, 8))
+
+
+# The row tiles are 64, 32 or 16 rows by (B, T) (`cuda.wavenet_train_plan`):
+# T = 80, 200 and 51 are not multiples of 64 or 32 (51 and 200 not of 16);
+# 51 pools to odd 25; lengths 64, 1536, 2048 and 2560 end on a tile edge;
+# d = 64 and 128 reach past the pooled T (SHORT), d = 512 and 1024 past
+# T = 160 (DEFAULT: the train path's stages); a video of length 0 is all
+# padding; B = 1 at T = 2560 takes 16-row tiles at every layer, B = 8 all
+# three (the forward 64 down to T = 640, then 32 and 16; the sweep 64 at
+# T = 2560, 32 at 1280, 16 below)
+@pytest.mark.parametrize("pooling_type,leaky,T,lengths,drop,plan", [
+    ("max", False, 80, (80, 57, 0), 0.25, SHORT),
+    ("sum", True, 80, (80, 33, 7), 0.0, SHORT),
+    ("max", True, 51, (51,), 0.25, SHORT),
+    ("max", False, 200, (200, 64, 0, 113), 0.25, SHORT),
+    ("sum", True, 2560, (2100,), 0.25, DEFAULT),
+    ("max", False, 2560, (2100, 1536, 1500, 2048, 1777, 1600, 1920, 2560), 0.25, DEFAULT),
+], ids=["T80", "T80_sum_leaky", "T51_odd_pool", "T200_edge_length0", "B1_T2560",
+        "B8_T2560"])
+def test_wavenet_train_kernels_ragged(dev, pooling_type, leaky, T, lengths, drop, plan):
     g = torch.Generator().manual_seed(3)
-    stages, pools = (1, 2, 4, 64, 128), (0, 1)
+    stages, pools = plan
     block = WaveNetBlock(16, stages, 128, pools, pooling_type, leaky)
     for m in block.modules():
         if hasattr(m, "reset_parameters"):
@@ -245,8 +287,9 @@ def test_wavenet_train_kernels_ragged(dev, pooling_type, leaky, T, lengths, drop
 
     before = dict(cuda.launch_counts)
     zk, tk, gk = run(wavenet_stack_train)
-    assert cuda.launch_counts["wavenet_train_fwd"] == before["wavenet_train_fwd"] + 5
-    assert cuda.launch_counts["wavenet_train_sweep"] == before["wavenet_train_sweep"] + 6
+    assert cuda.launch_counts["wavenet_train_fwd"] == before["wavenet_train_fwd"] + len(stages)
+    assert cuda.launch_counts["wavenet_train_sweep"] == \
+        before["wavenet_train_sweep"] + len(stages) + 1
     _, _, gk_again = run(wavenet_stack_train)  # fixed-order reduction: bitwise repeatable
     assert all(torch.equal(a, b) for a, b in zip(gk, gk_again))
     zp, tp, gp = run(wavenet_stack_train_plain)
@@ -654,26 +697,23 @@ def test_wavenet_train_v2_kernels_edges(dev, chunks, lengths, leaky, drop, tie):
     assert torch.equal(tk, tp) and zk.shape == (B, t_fin, 128)
     _close([zk], [zp], 1e-4)
     _grads_close(gk, gp)
-    # the v3 kernels do the same arithmetic in the same order, but for the
-    # out-projection: v3's is the `wavenet_layer` launch, on the tensor cores
-    # in 3xTF32, v2's the f32 FMA of its last chunk.  So every layer's input
-    # and nonlin(z) are equal bit for bit, v3's z is the eval kernel's
-    # out-projection of v2's last layer output bit for bit, and only the two
-    # projections differ, by 3xTF32 rounding
+    # v3 runs every product on the tensor cores in 3xTF32, v2 in f32 FMA: the
+    # two are held to each other as each is to the plain twin (chip_smoke.py's
+    # bounds); exact are v3 run twice and v3's z against the eval kernel's
+    # out-projection of v3's own last layer output
     z3, _, g3 = run(wavenet_stack_train, pooling_type="max")
+    z3_again, _, g3_again = run(wavenet_stack_train, pooling_type="max")
+    assert torch.equal(z3, z3_again) and all(torch.equal(a, b) for a, b in zip(g3, g3_again))
+    _close([zk], [z3], 1e-4)
+    _grads_close(gk, g3)
+    _close(gk, g3, 1e-2)
     with torch.no_grad():
-        _, (xs2, hs2) = cuda.wavenet_train_v2_forward(
-            x, lengths, *weights, masks, **kw, bounds=chunk_bounds(len(stages), chunks))
-        _, (xs3, hs3, _, x_fin3) = cuda.wavenet_train_forward(
-            x, lengths, *weights, masks, **kw, pooling_type="max")
-        assert all(torch.equal(a, b) for a, b in zip(xs2, [*xs3, x_fin3]))
-        assert len(hs2) == len(hs3) and all(torch.equal(a, b) for a, b in zip(hs2, hs3))
+        _, (_, _, _, x_fin3) = cuda.wavenet_train_forward(
+            mask_time(x, lengths), lengths, *weights, masks, **kw, pooling_type="max")
         none = [torch.empty(0, *w.shape[1:], device=dev) for w in weights[:4]]
-        proj, _ = wavenet_stack(xs2[-1], lengths >> len(pools), *none, *weights[4:],
+        proj, _ = wavenet_stack(x_fin3, lengths >> len(pools), *none, *weights[4:],
                                 stages=(), pooling_layers=(), pooling_type="max",
                                 leaky=leaky)
     assert torch.equal(z3, proj)
-    _close([zk], [z3], 1e-5)
-    assert all(torch.equal(a, b) for a, b in zip(gk, g3))
     if lengths[-1] == 0:
         assert torch.all(gk[0][-1] == 0) and torch.all(zk[-1] == 0)
