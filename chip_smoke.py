@@ -14,12 +14,20 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    L=66), the WaveNet stack and the MS-TCN++ stage (`ft_type="mstcnpp"`,
    the same widths; both on the tensor cores in 3xTF32, each also with one
    video of length 0 and with no padding, and the share of its row tiles
-   that lie past a video's length), and times both with CUDA events;
+   that lie past a video's length), and times both with CUDA events; the
+   Viterbi DP and its pointer walk (one launch) equal to the plain DP +
+   `traceback_positions` in all four outputs, and repeating bit for bit, at
+   B=128, at request B's three videos and at edge shapes (K = 1, N = 1,
+   k_valid < K, infeasible videos, the block body at N = 40 and L = 133, a
+   walk table in device memory at K = 4000), each timed beside the plain
+   pair with its plan printed;
 4. serves two requests through `predict_videos` (the bench eval batch of 128
    videos of 1500-2100 frames, and 3 videos of 517/1203/2100 frames) with
    the kernels and with the plain path, for the WaveNet model and for the
    MS-TCN++ model, checks that each path launched its kernels (and not the
-   other backbone's) and that both paths agree, and times both;
+   other backbone's), that the kernel path's fused eval launches the DP
+   once a batch and runs no Python pointer walk, and that both paths agree,
+   and times both (and the Viterbi DP + walk span of each);
 5. trains: checks the seven train kernels (the WaveNet stack's forward and
    backward sweep — on the tensor cores in 3xTF32, their grid a layer and
    the shares of row tiles and rows skipped printed — the BiLSTM recurrence with its cell stash — on
@@ -32,7 +40,8 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    clusters and waves printed), and reverse chain — the replay pass against
    its plain twin, its relu(cpre) and cell equal to the forward's comb and
    cs bit for bit, the replay and the cluster chain timed apart — the fused
-   flint loss) against their plain twins at the default
+   flint loss, on a thread-block cluster a video, two calls bit for bit)
+   against their plain twins at the default
    model's width (B=8, T=2560, dropout 0.25; the decoder chain also at
    B=2, Tz=640), and the v2 trainable stack's two kernels (three chunks)
    against the plain twin and the v3 kernels with dropout 0.25 and 0;
@@ -63,6 +72,7 @@ import subprocess
 import sys
 import time
 from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 
@@ -377,16 +387,16 @@ def check_bilstm(model, gen, dev):
                   2 * 2 * nv * H * 4 * H, lib_ms)
 
 
-def check_viterbi(gen, dev):
+def viterbi_tables(gen, nf, T_pad: int, dev):
+    """DP tables of random log-probs at Tz = T_pad / 16 for videos of nf
+    frames with random transcripts of 1-30 actions: (W, pois, k_valid,
+    n_valid)."""
     import torch
     import torch.nn.functional as F
     from mucon_tpu_torch.models.layers import nearest_upsample_indices
-    from mucon_tpu_torch.ops.viterbi import dense_viterbi_plain, viterbi_precompute_z
-    from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi
+    from mucon_tpu_torch.ops.viterbi import viterbi_precompute_z
 
-    B, T_pad, Tz = 128, 2560, 160
-    L = MAX_LEN // FRAME_SAMPLING
-    nf = torch.randint(1500, 2101, (B,), generator=gen)
+    B, Tz = len(nf), T_pad // 16
     seg_lp_z = F.log_softmax(torch.randn(B, Tz, M, generator=gen) * 2.0, dim=-1)
     n_valid = torch.randint(1, N_MAX + 1, (B,), generator=gen)
     trs = torch.randint(0, M, (B, N_MAX), generator=gen)
@@ -396,26 +406,98 @@ def check_viterbi(gen, dev):
     up_idx = nearest_upsample_indices(nf // 16, T_pad, nf)
     W, pois, kv = viterbi_precompute_z(
         seg_lp_z, up_idx, nf, trs, lam,
-        frame_sampling=FRAME_SAMPLING, max_len=MAX_LEN, l_max=L,
+        frame_sampling=FRAME_SAMPLING, max_len=MAX_LEN, l_max=MAX_LEN // FRAME_SAMPLING,
     )
-    args = (W, pois, kv, n_valid, FRAME_SAMPLING, MAX_LEN)
-    sk, lk, bk = dense_viterbi(*args)
-    sp, lp, bp = dense_viterbi_plain(*args)
-    err = (sk - sp).abs().max().item()
-    rel = ((sk - sp).abs() / sp.abs()).max().item()
-    if not rel <= 1e-5 or not torch.equal(lk, lp) or not torch.equal(bk, bp):
-        raise AssertionError(
-            f"dense_viterbi: score rel {rel}, best_l equal {torch.equal(lk, lp)}, "
-            f"bps equal {torch.equal(bk, bp)}"
-        )
-    ms, plain_ms = paired_ms(lambda: dense_viterbi(*args),
-                             lambda: dense_viterbi_plain(*args), reps=5)
-    say(f"kernel dense_viterbi B={B} K={W.shape[1]} N={W.shape[2]} L={L}: score "
-        f"max abs err {err:.3e} (rel {rel:.3e} <= 1e-5), best_l and bps exact; "
-        f"{ms:.3f} ms vs plain {plain_ms:.3f} ms")
+    return W, pois, kv, n_valid
+
+
+def viterbi_plain_pair(W, pois, k_valid, n_valid, S: int, max_len: int):
+    """The kernel's plain twin: `dense_viterbi_plain`, then `traceback_positions`."""
+    from mucon_tpu_torch.ops.viterbi import dense_viterbi_plain, traceback_positions
+
+    score, best_l, bps = dense_viterbi_plain(W, pois, k_valid, n_valid, S, max_len)
+    return score, best_l, bps, traceback_positions(bps, k_valid, n_valid, best_l)
+
+
+def check_decode(tag: str, args, reps: int = 5) -> tuple:
+    """`dense_viterbi_decode` against the plain pair: score, best_l, bps and
+    pos equal, and a second call equal to the first; timed beside the pair.
+    Returns (outputs, ms, plain ms)."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi_decode
+
+    got = dense_viterbi_decode(*args)
+    again = dense_viterbi_decode(*args)
+    want = viterbi_plain_pair(*args)
+    names = ("score", "best_l", "bps", "pos")
+    differ = [n for n, a, b in zip(names, got, want) if not torch.equal(a, b)]
+    expect(not differ, f"dense_viterbi {tag}: {differ} differ from the plain DP + walk")
+    expect(all(torch.equal(a, b) for a, b in zip(got, again)),
+           f"dense_viterbi {tag}: two calls of the same inputs differ")
+    ms, plain_ms = paired_ms(lambda: dense_viterbi_decode(*args),
+                             lambda: viterbi_plain_pair(*args), reps=reps)
+    W, pois = args[0], args[1]
+    B, K, N = W.shape
+    plan = cuda.viterbi_plan(B, N, pois.shape[2], K)
+    say(f"kernel dense_viterbi {tag} B={B} K={K} N={N} L={pois.shape[2]}: score, best_l, bps "
+        f"and pos equal to the plain DP + walk, two calls bit for bit; {ms:.4f} ms = "
+        f"{1000 * ms / max(K - 1, 1):.3f} us/window vs plain DP + walk {plain_ms:.3f} ms; "
+        f"{plan['body']} body ({plan['warps']} warp(s) a CTA, {plan['ctas']} CTAs, "
+        f"{plan['lc'] or 'no'} cells a lane, {plan['smem']} B shared, walk table in "
+        f"{plan['table']} memory)")
+    return got, ms, plain_ms
+
+
+# DP shapes off the serving path, (K, N, L, S, max_len): K = 1; N = 1;
+# k_valid < K with more positions than windows (infeasible videos); cells
+# l > 8 that may not grow (max_len 300: the warp body's gated shift); the
+# block body (N > 32, and L > 72 at frame sampling 15); a walk table too
+# large for shared memory
+VITERBI_EDGES = ((1, 4, 66, 30, MAX_LEN), (2, 1, 66, 30, MAX_LEN), (40, 9, 66, 30, MAX_LEN),
+                 (40, 9, 66, 30, 300), (85, 40, 66, 30, MAX_LEN), (85, 30, 133, 15, MAX_LEN),
+                 (4000, 30, 66, 30, MAX_LEN))
+
+
+def viterbi_edge_args(K: int, N: int, L: int, S: int, max_len: int, gen, dev):
+    """Six videos' tables as `tests/test_torch_cuda.py` builds them: W from
+    3 labels (exact ties), k_valid in 0..K, video 0 with N positions."""
+    import torch
+    from mucon_tpu_torch.ops.viterbi import NEG
+
+    B = 6
+    labels = torch.randint(0, 3, (B, N), generator=gen)
+    per_label = -torch.rand(K, 3, generator=gen) * 60.0
+    W = per_label[:, labels].permute(1, 0, 2).contiguous()
+    pois = -torch.rand(B, N, L, generator=gen) * 20.0
+    pois[:, :, -1] = NEG
+    k_valid = torch.randint(0, K + 1, (B,), generator=gen)
+    n_valid = torch.randint(1, N + 1, (B,), generator=gen)
+    n_valid[0] = N
+    return [t.to(dev) for t in (W, pois, k_valid, n_valid)] + [S, max_len]
+
+
+def check_viterbi(gen, dev):
+    """The DP and walk kernel against the plain DP + walk, bit for bit: at
+    B=128 (the report's line), at request B's three videos and at
+    VITERBI_EDGES."""
+    import torch
+
+    B, T_pad = 128, 2560
+    args = (*viterbi_tables(gen, torch.randint(1500, 2101, (B,), generator=gen), T_pad, dev),
+            FRAME_SAMPLING, MAX_LEN)
+    (sk, lk, bk, pk), ms, plain_ms = check_decode("request A's shape", args)
+    check_decode("request B's shape",
+                 (*viterbi_tables(gen, torch.tensor([517, 1203, 2100]), T_pad, dev),
+                  FRAME_SAMPLING, MAX_LEN))
+    for K, N, L, S, max_len in VITERBI_EDGES:
+        check_decode(f"edge S={S} max_len={max_len}",
+                     viterbi_edge_args(K, N, L, S, max_len, gen, dev), reps=2)
+    W, pois, kv, n_valid = args[:4]
+    L = pois.shape[2]
     cells = int((kv.cpu() * n_valid.cpu()).sum())  # valid (window, position) pairs
-    moved = 4 * cells + 4 * int(n_valid.sum()) * L + nbytes(sk, lk, bk)
-    return report(err, ms, plain_ms, moved, 2 * cells * L)
+    moved = 4 * cells + 4 * int(n_valid.sum()) * L + nbytes(sk, lk, bk, pk)
+    return report(0.0, ms, plain_ms, moved, 2 * cells * L)
 
 
 # -- phase 4: the serving path end to end ------------------------------------
@@ -551,6 +633,21 @@ def check_outputs(tag, out, preds, lengths):
                f"{tag} {b}: Viterbi labels outside the transcript")
 
 
+def viterbi_span(model, arrays, card: str) -> str:
+    """CUDA-event ms of the fused eval's Viterbi span on one request's
+    tables: the kernel (DP and walk in one launch) and the plain DP + walk."""
+    from mucon_tpu_torch.ops.eval_fused import eval_tables
+    from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi_decode
+
+    fwd = model.forward(arrays, use_kernels=True)
+    tb = eval_tables(fwd, arrays["num_frames"], arrays["feats"].shape[1],
+                     arrays["transcript"].shape[1], FRAME_SAMPLING, MAX_LEN)
+    args = (tb.W, tb.pois, tb.k_valid, tb.n_dec, FRAME_SAMPLING, MAX_LEN)
+    ms, plain_ms = paired_ms(lambda: dense_viterbi_decode(*args),
+                             lambda: viterbi_plain_pair(*args), reps=3)
+    return f"kernel {ms:.4f} ms, plain DP + walk {plain_ms:.3f} ms [{card}]"
+
+
 def serve(tag, model, dev, rng, card: str, required, absent=()):
     """Requests A and B through `predict_videos` and the fused eval, with
     the kernels and plain: the kernels in `required` must launch on the
@@ -558,6 +655,7 @@ def serve(tag, model, dev, rng, card: str, required, absent=()):
     from mucon_tpu_torch import cuda
     from mucon_tpu_torch.cli.predict import collate_videos, predict_videos
     from mucon_tpu_torch.models.model import batch_to_tensors
+    from mucon_tpu_torch.ops import eval_fused
     from mucon_tpu_torch.ops.eval_fused import build_fused_eval
 
     db = vocab()
@@ -591,7 +689,16 @@ def serve(tag, model, dev, rng, card: str, required, absent=()):
     run_p = build_fused_eval(model, frame_sampling=FRAME_SAMPLING, use_kernels=False)
     for k in requests:
         arrays = batch_to_tensors(collate_videos(feats[k], names[k], db), dev)
-        outk, outp = run_k(arrays), run_p(arrays)
+        with mock.patch.object(eval_fused, "traceback_positions",
+                               wraps=eval_fused.traceback_positions) as walk:
+            before = cuda.launch_counts["dense_viterbi"]
+            outk = run_k(arrays)
+            dp = cuda.launch_counts["dense_viterbi"] - before
+        expect(dp == 1 and walk.call_count == 0,
+               f"{tag} request {k}: the kernel path's fused eval launched dense_viterbi "
+               f"{dp} times and ran the Python pointer walk {walk.call_count} times "
+               f"(want 1, 0)")
+        outp = run_p(arrays)
         check_outputs(k, outk, pred_k[k], requests[k])
         check_outputs(k, outp, pred_p[k], requests[k])
         mism = compare_request(f"{tag} {k}", model, arrays, outk, outp, pred_k[k], pred_p[k])
@@ -611,6 +718,7 @@ def serve(tag, model, dev, rng, card: str, required, absent=()):
                 enc_ms = cuda_ms(lambda: model._encode_kernels(feats_a, frames_a), reps=3)
             say(f"{tag} request A spans: in-projection {proj_ms:.3f} ms, in-projection + "
                 f"stack kernel {enc_ms:.3f} ms: the stack {enc_ms - proj_ms:.3f} ms [{card}]")
+        say(f"{tag} request {k} Viterbi DP + walk: " + viterbi_span(model, arrays, card))
         ms, plain_ms = paired_ms(lambda: run_k(arrays), lambda: run_p(arrays), reps=3)
         say(f"{tag} request {k} fused eval (device-resident features): kernels {ms:.2f} "
             f"ms/batch = {1000 * B / ms:.1f} videos/s; plain {plain_ms:.2f} ms/batch "
@@ -1196,7 +1304,12 @@ def check_flint(arrays, gen, dev):
         ms = paired_ms(lambda: cuda.mucon_flint(*prep, seg, target, n_len, t_valid),
                        lambda: mucon_flint_plain(lengths_raw, seg, target, n_len, t_valid),
                        reps=10)
-    say(f"kernel mucon_flint B={B} T={T} N={N} M={M}: {ms[0]:.3f} ms vs plain {ms[1]:.3f} ms")
+        again = [cuda.mucon_flint(*prep, seg, target, n_len, t_valid, cw) for _ in range(2)]
+    expect(torch.equal(*again), "mucon_flint: two calls of the same inputs differ")
+    plan = cuda.flint_plan(B, T)
+    say(f"kernel mucon_flint B={B} T={T} N={N} M={M}: {ms[0]:.4f} ms vs plain {ms[1]:.3f} ms; "
+        f"clusters of {plan['width']} CTAs a video, {plan['ctas']} CTAs, at most "
+        f"{plan['frames']} frames a CTA; two calls bit for bit")
     nl, tv = n_len.cpu().long(), t_valid.cpu().long()
     cells = int((nl * tv).sum())  # (valid segment, valid frame) pairs
     # seg's valid frames and the per-segment vectors in, [B] out; per pair a

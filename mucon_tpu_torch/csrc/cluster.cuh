@@ -39,7 +39,8 @@ __device__ __forceinline__ T* cluster_peer(T* smem, unsigned rank) {
 __device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
 
 // A launch configuration with a cluster of `width` CTAs along x; `attr`
-// must outlive it.  Sets the kernel's dynamic shared memory limit.
+// must outlive it.  Raises the kernel's dynamic shared memory limit where
+// smem is above the default 48 KiB.
 template <typename... Params>
 inline cudaError_t cluster_config(void (*kernel)(Params...), dim3 grid, dim3 block,
                                   unsigned width, size_t smem, cudaStream_t stream,
@@ -55,6 +56,7 @@ inline cudaError_t cluster_config(void (*kernel)(Params...), dim3 grid, dim3 blo
   attr->val.clusterDim.z = 1;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
+  if (smem <= 48 * 1024) return cudaSuccess;  // within the default limit
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 

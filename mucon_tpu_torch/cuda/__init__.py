@@ -27,9 +27,10 @@ chain).
 each is one cooperative launch over a chunk of layers.
 
 The thirteen kernels: `wavenet_layer`, `mstcnpp_stack`, `bilstm_recurrence`
-and `dense_viterbi` (serving); `wavenet_train_fwd`, `wavenet_train_sweep`,
-`bilstm_train_fwd`, `bilstm_train_bwd`, `decoder_chain_fwd`,
-`decoder_chain_bwd` and `mucon_flint` (the train step);
+and `dense_viterbi` (serving; the DP and its pointer walk in one launch);
+`wavenet_train_fwd`, `wavenet_train_sweep`, `bilstm_train_fwd`,
+`bilstm_train_bwd`, `decoder_chain_fwd`, `decoder_chain_bwd` and
+`mucon_flint` (the train step);
 `wavenet_train_v2_fwd` and `wavenet_train_v2_sweep` (the v2 trainable
 stack, `ops/wavenet_stack_train_v2.py`).
 """
@@ -139,7 +140,9 @@ def load() -> ctypes.CDLL:
             lib.mucon_wavenet_layer.argtypes = [P] * 7 + [I] * 9 + [P]
             lib.mucon_wavenet_tile_rows.argtypes = []
             lib.mucon_bilstm_recurrence.argtypes = [P] * 7 + [I] * 3 + [P]
-            lib.mucon_dense_viterbi.argtypes = [P] * 7 + [I] * 6 + [P]
+            lib.mucon_dense_viterbi.argtypes = [P] * 8 + [I] * 8 + [P]
+            lib.mucon_viterbi_smem.argtypes = [I] * 5
+            lib.mucon_viterbi_smem.restype = ctypes.c_size_t
             lib.mucon_wavenet_train_fwd.argtypes = [P] * 10 + [I] * 8 + [P]
             lib.mucon_wavenet_train_sweep.argtypes = [P] * 16 + [I] * 9 + [P]
             lib.mucon_wavenet_train_plan.argtypes = [I, I, I, ctypes.POINTER(I)]
@@ -153,7 +156,7 @@ def load() -> ctypes.CDLL:
             lib.mucon_decoder_chain_smem.argtypes = [I] * 4
             lib.mucon_decoder_chain_width.argtypes = [I]
             lib.mucon_decoder_chain_fwd_launch.argtypes = [I] * 4 + [ctypes.POINTER(I)]
-            lib.mucon_flint.argtypes = [P] * 9 + [I] * 4 + [P]
+            lib.mucon_flint.argtypes = [P] * 9 + [I] * 5 + [P]
             lib.mucon_mstcnpp_layer.argtypes = [P] * 7 + [I] * 7 + [P]
             lib.mucon_mstcnpp_tile_rows.argtypes = []
             lib.mucon_mstcnpp_proj.argtypes = [P] * 5 + [I] * 4 + [P]
@@ -583,30 +586,82 @@ def bilstm_train_backward(xp, m, w_hh, outs, cs, douts, dh, dc):
     return bilstm_bwd_chain(coefs, m, w_hh, douts, dh, dc)
 
 
-def dense_viterbi(W, pois, k_valid, n_valid, frame_sampling: int, max_len: int):
+# csrc/viterbi.cu: windows of W staged in shared memory at a time, threads
+# of the block body, cells a lane of the warp body holds
+VITERBI_KC, VITERBI_BLOCK_THREADS, VITERBI_LANE_CELLS = 128, 256, 72
+
+
+def viterbi_plan(B: int, N: int, L: int, K=None) -> dict:
+    """The DP's launch (`csrc/viterbi.cu`): the warp body (one warp a
+    video, lane n holding row n's cells in registers: `lc` = 72 of them)
+    where N <= 32 and L <= 72, else the block body (one 256-thread CTA
+    a video, the state in shared memory); `ctas` = B either way.  With K,
+    also the dynamic shared memory a CTA takes (`smem`: W staged
+    VITERBI_KC windows at a time, the block body's state) and where the
+    walk's [K-1 x N] uint16 table lives: "shared" where it fits beside the
+    rest under MAX_SMEM_BYTES, else "global" (the walk reads the int32
+    bps).  Raises for N above 256, or a block body whose state does not
+    fit."""
+    if min(B, N, L) < 1 or N > VITERBI_BLOCK_THREADS:
+        raise ValueError(f"the DP takes B, L >= 1 and 1 <= N <= "
+                         f"{VITERBI_BLOCK_THREADS}; got B={B} N={N} L={L}")
+    lc = VITERBI_LANE_CELLS if N <= 32 and L <= VITERBI_LANE_CELLS else 0
+    threads = 32 if lc else VITERBI_BLOCK_THREADS
+    plan = dict(body="warp" if lc else "block", lc=lc, threads=threads, warps=threads // 32,
+                ctas=B)
+    if K is not None:
+        if K < 1:
+            raise ValueError("the DP needs at least one window")
+        staged = min(VITERBI_KC, max(K - 1, 1))
+        base = 4 * (staged * N + (0 if lc else 3 * N * L + 2 * N))
+        if base > MAX_SMEM_BYTES:
+            raise ValueError(f"the DP's state for N={N} L={L} needs {base} bytes of shared "
+                             f"memory; the limit is {MAX_SMEM_BYTES}")
+        table = base + 2 * (K - 1) * N <= MAX_SMEM_BYTES
+        plan.update(smem=base + (2 * (K - 1) * N if table else 0),
+                    table="shared" if table else "global")
+    return plan
+
+
+def viterbi_smem(K: int, N: int, L: int, lc: int, table: bool) -> int:
+    """The kernel file's own count of a launch's shared memory (a check of
+    `viterbi_plan`)."""
+    return load().mucon_viterbi_smem(K, N, L, lc, int(table))
+
+
+def dense_viterbi_decode(W, pois, k_valid, n_valid, frame_sampling: int, max_len: int):
     """W [B x K x N], pois [B x N x L] (f32), k_valid / n_valid [B] ->
-    (score [B], best_l [B] int32, bps [B x K-1 x N] int32)."""
+    (score [B], best_l [B] int32, bps [B x K-1 x N] int32, pos [B x K]
+    int64): the DP and the pointer walk in one launch (`viterbi_plan`)."""
     dev = _cuda_device(W)
     B, K, N = W.shape
     L = pois.shape[2]
     if pois.shape != (B, N, L):
         raise ValueError(f"pois {tuple(pois.shape)} does not match W {tuple(W.shape)}")
-    if K < 1:
-        raise ValueError("the DP needs at least one window")
+    if frame_sampling < 1:
+        raise ValueError(f"frame_sampling must be >= 1, got {frame_sampling}")
+    plan = viterbi_plan(B, N, L, K)
     _require(dev, torch.float32, W=W, pois=pois)
     kv = _lengths_i32(k_valid, B, dev, "k_valid")
     nv = _lengths_i32(n_valid, B, dev, "n_valid")
     score = torch.empty(B, device=dev, dtype=torch.float32)
     best_l = torch.empty(B, device=dev, dtype=torch.int32)
     bps = torch.empty(B, K - 1, N, device=dev, dtype=torch.int32)
+    pos = torch.empty(B, K, device=dev, dtype=torch.int64)
     lib = load()
     err = lib.mucon_dense_viterbi(
         W.data_ptr(), pois.data_ptr(), kv.data_ptr(), nv.data_ptr(),
-        score.data_ptr(), best_l.data_ptr(), bps.data_ptr(),
-        B, K, N, L, int(frame_sampling), int(max_len), _stream(dev),
+        score.data_ptr(), best_l.data_ptr(), bps.data_ptr(), pos.data_ptr(),
+        B, K, N, L, int(frame_sampling), int(max_len), plan["lc"],
+        int(plan["table"] == "shared"), _stream(dev),
     )
     _check_launch(lib, err, "dense_viterbi")
-    return score, best_l, bps
+    return score, best_l, bps, pos
+
+
+def dense_viterbi(W, pois, k_valid, n_valid, frame_sampling: int, max_len: int):
+    """`dense_viterbi_decode` without the positions: (score, best_l, bps)."""
+    return dense_viterbi_decode(W, pois, k_valid, n_valid, frame_sampling, max_len)[:3]
 
 
 def _check_chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih, whh, bl,
@@ -820,11 +875,32 @@ def decoder_chain_backward(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, w
                                    dcs, dcomb)
 
 
+# csrc/mucon_loss.cu: frames a tile, the widest cluster, the card's SMs
+FLINT_TILE, FLINT_MAX_CL, SMS = 64, 16, 132
+
+
+def flint_plan(B: int, T: int) -> dict:
+    """The flint kernel's launch at B videos of T padded frames: a cluster
+    of `width` CTAs a video, the widest power of two <= 16 with B width <=
+    132 (the card's SMs) and no more CTAs than T has 64-frame tiles (at
+    least 1); `ctas` = B width; a CTA takes at most `frames` = ceil(T /
+    width) of its video's frames (the kernel splits a video's valid frames
+    T_b into runs of ceil(T_b / width))."""
+    if B < 1 or T < 1:
+        raise ValueError(f"the flint kernel takes B, T >= 1; got B={B} T={T}")
+    cap = min(FLINT_MAX_CL, SMS // B, -(-T // FLINT_TILE))
+    width = 1
+    while 2 * width <= cap:
+        width *= 2
+    return dict(width=width, ctas=B * width, frames=-(-T // width))
+
+
 def mucon_flint(scale, xloc, sdiv, seg, target, n_len, t_valid, class_weights=None):
     """Per-video flint losses [B] of the box template from the segment
     placement scale / xloc / sdiv [B x N] (`ops/mucon_loss.py flint_prep`),
     the frame logits seg [B x T x M], the targets [B x N] and the lengths;
-    `class_weights` [M] or None."""
+    `class_weights` [M] or None.  A thread-block cluster a video
+    (`flint_plan`)."""
     dev = _cuda_device(seg)
     B, T, M = seg.shape
     N = scale.shape[1]
@@ -846,7 +922,7 @@ def mucon_flint(scale, xloc, sdiv, seg, target, n_len, t_valid, class_weights=No
     err = lib.mucon_flint(
         scale.data_ptr(), xloc.data_ptr(), sdiv.data_ptr(), seg.data_ptr(), tgt.data_ptr(),
         nl.data_ptr(), tv.data_ptr(), _ptr(class_weights), out.data_ptr(), B, N, T, M,
-        _stream(dev),
+        flint_plan(B, T)["width"], _stream(dev),
     )
     _check_launch(lib, err, "mucon_flint")
     return out

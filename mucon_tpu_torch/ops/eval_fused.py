@@ -6,7 +6,9 @@
     -> EOS-dropped transcript + masked-softmax relative lengths
     -> per-class Poisson means by one-hot averaging (evaluators.py:152-168)
     -> window tables from the pre-upsample log-probs (viterbi_precompute_z)
-    -> dense Viterbi DP (CUDA kernel on the card) -> pointer walk
+    -> dense Viterbi DP -> pointer walk (one CUDA kernel for both on the
+       kernel path; `dense_viterbi_plain` then `traceback_positions` on
+       the plain path)
 
 Everything stays on the device up to the [B x K] window positions; the
 host gets the same per-key dict that the JAX package's `unpack_eval_wire`
@@ -28,7 +30,7 @@ from mucon_tpu_torch.ops.viterbi import (
     traceback_positions,
     viterbi_precompute_z,
 )
-from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi
+from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi_decode
 
 
 def eval_tables(fwd, num_frames, t_full: int, n_max: int, frame_sampling: int,
@@ -90,11 +92,11 @@ def build_fused_eval(model, teacher_forcing: bool = False, frame_sampling: int =
     JAX `unpack_eval_wire`: tokens, n_steps, rel_lengths, n_dec,
     transcripts, vit_score, vit_best_l, vit_pos, vit_k_valid, tz_len,
     y_argmax_z, y_argmax.  `arrays` come from `batch_to_tensors`.
-    `use_kernels=False` runs the plain twins of the three kernels."""
+    `use_kernels=False` runs the plain twins of the three kernels (the
+    DP and the walk as two steps)."""
     if teacher_forcing:
         raise NotImplementedError("the port serves free decoding only")
     S = frame_sampling
-    viterbi = dense_viterbi if use_kernels else dense_viterbi_plain
 
     @torch.no_grad()
     def run(arrays: dict) -> dict:
@@ -103,8 +105,13 @@ def build_fused_eval(model, teacher_forcing: bool = False, frame_sampling: int =
         fwd = model.forward(arrays, use_kernels=use_kernels)
         tb = eval_tables(fwd, num_frames, t_full, arrays["transcript"].shape[1],
                          S, max_len)
-        score, best_l, bps = viterbi(tb.W, tb.pois, tb.k_valid, tb.n_dec, S, max_len)
-        vit_pos = traceback_positions(bps, tb.k_valid, tb.n_dec, best_l)
+        if use_kernels:
+            score, best_l, _, vit_pos = dense_viterbi_decode(
+                tb.W, tb.pois, tb.k_valid, tb.n_dec, S, max_len)
+        else:
+            score, best_l, bps = dense_viterbi_plain(tb.W, tb.pois, tb.k_valid, tb.n_dec, S,
+                                                     max_len)
+            vit_pos = traceback_positions(bps, tb.k_valid, tb.n_dec, best_l)
 
         def host(t, dtype=np.int64):
             return t.cpu().numpy().astype(dtype)

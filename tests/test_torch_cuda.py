@@ -1,14 +1,17 @@
 """PyTorch port: the CUDA kernels against their plain twins on the card, at
 small and ragged shapes the serving and train paths do not reach (tile
 remainders, dilations past the sequence, sum pooling, leaky ReLU, B = 1,
-T = 1, fully masked videos, K = 1, infeasible DPs, a decoder chain of one
+T = 1, fully masked videos, K = 1, infeasible DPs, the DP's two bodies and a
+walk table in device memory, a decoder chain of one
 step, one video, one frame or a thousand, one segment of the flint loss,
 an MS-TCN++ stage at odd lengths and lengths on a tile edge, the BiLSTM
 recurrence and its reverse chain on clusters of 1, 2 and 8 CTAs, the
 decoder chain's replay pass and cluster chain, the trainable stack at each
 of its row tiles and at B = 1 and 8, the v2 stack in 1, 3 and 11 chunks
 with tied pool pairs), and the bit-for-bit statements: two calls agree,
-the eval stack's layer is the trainable forward's, the BiLSTM coefficient
+the eval stack's layer is the trainable forward's, the DP's pointer walk
+is `traceback_positions`, the flint kernel's clusters sum in a fixed
+order, the BiLSTM coefficient
 pass replays the stashed cell, the decoder chain's replay pass the
 stashed comb and cell.  Needs a CUDA device and
 nvcc; skips without them.  Imports no jax, so it runs on the card:
@@ -44,8 +47,8 @@ from mucon_tpu_torch.ops.mstcnpp_stack import (
     pack_mstcnpp_params,
 )
 from mucon_tpu_torch.ops.mucon_loss import flint_prep, mucon_flint_plain
-from mucon_tpu_torch.ops.viterbi import NEG, dense_viterbi_plain
-from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi
+from mucon_tpu_torch.ops.viterbi import NEG, dense_viterbi_plain, traceback_positions
+from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi, dense_viterbi_decode
 from mucon_tpu_torch.ops.wavenet_stack import (
     pack_wavenet_params,
     wavenet_stack,
@@ -190,6 +193,40 @@ def test_viterbi_kernel_bit_exact(dev, K, N):
     want = dense_viterbi_plain(*args, S, 2000)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    _decode_exact(args, S, 2000)
+
+
+def _decode_exact(args, S, max_len):
+    """`dense_viterbi_decode` (DP and walk in one launch) equal to the plain
+    DP + `traceback_positions`, and to itself on a second call."""
+    got = dense_viterbi_decode(*args, S, max_len)
+    score, best_l, bps = dense_viterbi_plain(*args, S, max_len)
+    want = (score, best_l, bps, traceback_positions(bps, args[2], args[3], best_l))
+    for a, b, c in zip(got, want, dense_viterbi_decode(*args, S, max_len)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+# the warp body at L = 20, and with max_len 300 (cells l > 8 may not grow:
+# the gated shift); the block body (N = 40; L = 133 at frame sampling 15,
+# and gated); a walk table too large for shared memory (K = 4000), on both
+# bodies; k_valid past K and n_valid 0 or past N
+@pytest.mark.parametrize("K,N,L,S,max_len", [
+    (30, 7, 20, 30, 2000), (40, 9, 66, 30, 300), (50, 40, 66, 30, 2000),
+    (50, 12, 133, 15, 2000), (50, 12, 133, 15, 600), (4000, 30, 66, 30, 2000),
+    (4000, 33, 66, 30, 2000)])
+def test_viterbi_decode_bodies(dev, K, N, L, S, max_len):
+    g = torch.Generator().manual_seed(K + N + L)
+    B = 5
+    labels = torch.randint(0, 3, (B, N), generator=g)
+    W = (-torch.rand(K, 3, generator=g) * 60.0)[:, labels].permute(1, 0, 2).contiguous()
+    pois = -torch.rand(B, N, L, generator=g) * 20.0
+    k_valid = torch.tensor([K, K + 3, K // 2, 0, 1])
+    n_valid = torch.tensor([N, 1, N + 2, 0, N // 2 + 1])
+    plan = cuda.viterbi_plan(B, N, L, K)
+    assert plan["body"] == ("warp" if N <= 32 and L <= 72 else "block")
+    assert plan["table"] == ("global" if K == 4000 else "shared")
+    assert plan["smem"] == cuda.viterbi_smem(K, N, L, plan["lc"], plan["table"] == "shared")
+    _decode_exact([t.to(dev) for t in (W, pois, k_valid, n_valid)], S, max_len)
 
 
 def test_model_forward_kernels_match_plain(dev):
@@ -587,6 +624,27 @@ def test_flint_kernel_edges(dev, N, T, n_len, t_valid):
             prep = flint_prep(lr, nl, tv, overlap)
             _close([cuda.mucon_flint(*prep, seg, tgt, nl, tv, w)],
                    [mucon_flint_plain(lr, seg, tgt, nl, tv, overlap, w)], 1e-4)
+
+
+# the train batch (clusters of 16 CTAs, a valid length of 0 and T_b = 1),
+# and B = 3 at T = 200 (clusters of 4, runs shorter than a tile)
+@pytest.mark.parametrize("B,T", [(8, 2560), (3, 200)])
+def test_flint_kernel_clusters_repeat(dev, B, T):
+    g = torch.Generator().manual_seed(B)
+    N, M = 30, 48
+    lr = (1.5 * torch.randn(B, N, generator=g)).to(dev)
+    seg = (2.0 * torch.randn(B, T, M, generator=g)).to(dev)
+    tgt = torch.randint(0, M, (B, N), generator=g).to(dev)
+    nl = torch.randint(1, N + 1, (B,), generator=g).to(dev)
+    tv = torch.randint(1, T + 1, (B,), generator=g)
+    tv[0], tv[-1] = 0, 1
+    tv = tv.to(dev)
+    plan = cuda.flint_plan(B, T)
+    assert plan["width"] == (16 if B == 8 else 4) and plan["ctas"] == B * plan["width"]
+    prep = flint_prep(lr, nl, tv, 0.25)
+    got = cuda.mucon_flint(*prep, seg, tgt, nl, tv)
+    assert torch.equal(got, cuda.mucon_flint(*prep, seg, tgt, nl, tv))
+    _close([got], [mucon_flint_plain(lr, seg, tgt, nl, tv, 0.25)], 1e-4)
 
 
 def _init(module, seed):
