@@ -43,8 +43,11 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    flint loss, on a thread-block cluster a video, two calls bit for bit)
    against their plain twins at the default
    model's width (B=8, T=2560, dropout 0.25; the decoder chain also at
-   B=2, Tz=640), and the v2 trainable stack's two kernels (three chunks)
-   against the plain twin and the v3 kernels with dropout 0.25 and 0;
+   B=2, Tz=640), and the v2 trainable stack's two kernels (three chunks;
+   their cooperative grid printed) against the plain twin and, bit for bit
+   on v3's grid, the v3 kernels with dropout 0.25 and 0, the sweep's
+   recomputed u equal to the u the forward pooled (at the train batch and
+   at request B's lengths);
    takes three `SimpleTrainer.train_step`s with the kernels and the loss
    kernel (twice) and three with the plain twins and the plain loss from
    the same weights, masks and batch (8 videos of 1500-2100 frames), checks
@@ -903,12 +906,89 @@ def train_grid(B: int, T: int, lengths, stages, pooling_layers) -> str:
             f"({100 * (rows - valid) / rows:.1f}%)")
 
 
+def v2_grid(B: int, T: int, stages, pooling_layers) -> str:
+    """The v2 kernels' cooperative grids (`cuda.wavenet_train_v2_grid`) and
+    the tiles each layer takes (`cuda.wavenet_train_v2_plan`), as a line."""
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.ops.wavenet_stack_train_v2 import chunk_bounds
+
+    grid = cuda.wavenet_train_v2_grid()
+    L, parts, t = len(stages), [], T
+    for i in range(L + 1):
+        p = cuda.wavenet_train_v2_plan(B, t, 1 if i == L else 4)
+        sweep = (f"{p['sweep_tile_rows']} rows on {p['sweep_chunk_rows']}-row chunks, spans "
+                 f"of {p['span_rows']}")
+        if i == L:
+            parts.append(f"proj T={t}: forward {grid['fwd_max_tile_rows']} rows, sweep {sweep}")
+            break
+        recompute = (f", u recomputed on {p['fwd_chunk_rows']}-row chunks"
+                     if i in pooling_layers else "")
+        parts.append(f"{i} T={t}: forward {p['fwd_tile_rows']} rows on {p['fwd_chunk_rows']}-row "
+                     f"chunks, sweep {sweep}{recompute}")
+        t //= 2 if i in pooling_layers else 1
+    syncs = [(hi - lo - 1 + (hi == L), 2 * (hi - lo) + (hi == L)) for lo, hi in chunk_bounds(L, 3)]
+    return (f"forward {grid['fwd_ctas_per_sm']} CTA(s) an SM ({grid['fwd_smem_bytes'] / 1024:.1f} "
+            f"KiB), sweep {grid['sweep_ctas_per_sm']} ({grid['sweep_smem_bytes'] / 1024:.1f} KiB) "
+            f"x {grid['sms']} SMs; grid.sync() a chunk (forward, sweep) {syncs}; "
+            + "; ".join(parts))
+
+
+def check_v2_u(tag, ft, x, lengths, gen, dev) -> None:
+    """The v2 sweep's recomputed pre-pool output u against the u its forward
+    pooled and against v3's stashed u, bit for bit, on every pooled layer's
+    rows t < length: the copies the wrappers write when asked."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.models.layers import dropout_mask, mask_time
+    from mucon_tpu_torch.ops.wavenet_stack import pack_wavenet_params
+    from mucon_tpu_torch.ops.wavenet_stack_train import stack_plan
+    from mucon_tpu_torch.ops.wavenet_stack_train_v2 import chunk_bounds
+
+    B, T, C = x.shape
+    L = len(ft.stages)
+    kw = dict(stages=ft.stages, pooling_layers=ft.pooling_layers, leaky=ft.leaky)
+    t_ins, _, shifts, t_fin = stack_plan(ft.stages, ft.pooling_layers, T)
+    mgen = torch.Generator(device=dev).manual_seed(5)
+    masks = [dropout_mask(mgen, DROP, (B, t, C), dev) for t in t_ins]
+    weights = [w.detach().clone() for w in pack_wavenet_params(ft)]
+    w3, b3, w1, b1, wl, bl = weights
+    g = torch.randn(B, t_fin, C, generator=gen).to(dev)
+    xm = mask_time(x, lengths)
+    u_fwd, u_sweep = {}, {}
+    with torch.no_grad():
+        _, stash = cuda.wavenet_train_v2_forward(xm, lengths, *weights, masks, u_out=u_fwd,
+                                                 bounds=chunk_bounds(L, 3), **kw)
+        cuda.wavenet_train_v2_backward(g, stash, lengths, w3, w1, b1, wl, masks, u_out=u_sweep,
+                                       bounds=chunk_bounds(L, 3), **kw)
+        _, (_, _, u3, _) = cuda.wavenet_train_forward(xm, lengths, *weights, masks,
+                                                      pooling_type="max", **kw)
+    torch.cuda.synchronize()
+    expect(sorted(u_fwd) == sorted(u_sweep) == sorted(ft.pooling_layers),
+           f"v2 u copies of layers {sorted(u_fwd)}, {sorted(u_sweep)}")
+    rows = pairs = 0
+    for i in sorted(u_fwd):
+        lens = lengths >> shifts[i]
+        valid = torch.arange(t_ins[i], device=dev)[None, :] < lens[:, None]
+        a, b = u_fwd[i][valid], u_sweep[i][valid]
+        expect(torch.equal(a, b), f"v2 {tag}: layer {i}'s recomputed u differs from the pooled "
+               f"u ({(a != b).sum().item()} entries)")
+        expect(torch.equal(a, u3[i][valid]), f"v2 {tag}: layer {i}'s u differs from v3's")
+        rows += int(valid.sum())
+        pairs += int((lens >> 1).sum())
+    say(f"kernel wavenet_train_v2_sweep, {tag} (lengths {lengths.tolist()[:8]}): the recomputed "
+        f"u of layers {sorted(u_fwd)} equals the u the forward pooled bit for bit ({rows} rows, "
+        f"{pairs} pairs x {C} channels), and v3's stashed u")
+
+
 def check_wavenet_train_v2(model, arrays, gen, dev):
     """Kernels V-fwd and V-sweep: the v2 stack (max pooling) at the train
     batch, with dropout DROP and with none.  Its path is one differentiable
     call, forward and backward, with the counts reset just before; then its
     forward and every gradient are held against the plain twin and against
-    the v3 kernels, and a second call must repeat the first bit for bit.
+    the v3 kernels (bit for bit: v2 runs v3's bodies on v3's weight
+    chunks), and a second call must repeat the first bit for bit.  The
+    recomputed u must equal the u the forward pooled, at the train batch
+    and at request B's lengths.
     Returns (report lines, launches of the dropout run)."""
     import torch
     from mucon_tpu_torch import cuda
@@ -932,6 +1012,8 @@ def check_wavenet_train_v2(model, arrays, gen, dev):
     g = torch.randn(B, t_fin, C, generator=gen).to(dev)
     weights = [w.detach().clone() for w in pack_wavenet_params(ft)]
     names = ("dx", "dw3", "db3", "dw1", "db1", "dw_last", "db_last")
+    say(f"kernels wavenet_train_v2_fwd / wavenet_train_v2_sweep grid at B={B}: "
+        f"{v2_grid(B, T, ft.stages, ft.pooling_layers)}")
     mgen = torch.Generator(device=dev).manual_seed(4)
     out = {}
     for drop in (DROP, 0.0):
@@ -966,8 +1048,19 @@ def check_wavenet_train_v2(model, arrays, gen, dev):
                                      grads=False)
             out[f"bwd {tag}"] = held(f"wavenet_train_v2_sweep {tag}", list(zip(names, gk, gr)),
                                      grads=True)
+        # zr, gr: v3's
+        differ = [n for n, a, b in zip(("z", *names), (zk, *gk), (zr, *gr))
+                  if not torch.equal(a, b)]
+        expect(not differ, f"v2, dropout {drop}: {differ} differ from v3's")
         say(f"kernels wavenet_train_v2_fwd and wavenet_train_v2_sweep, dropout {drop}: two "
-            f"runs agree bit for bit")
+            f"runs agree bit for bit, and z and all seven gradients equal v3's bit for bit")
+
+    check_v2_u("train batch", ft, x, lengths, gen, dev)
+    lengths_b = torch.tensor([517, 1203, 2100], device=dev)
+    feats_b = torch.randn(3, T, arrays["feats"].shape[2], generator=gen).to(dev)
+    with torch.no_grad():
+        x_b = ft.in_projection(feats_b, lengths_b)
+    check_v2_u("request B", ft, x_b, lengths_b, gen, dev)
 
     masks = [dropout_mask(mgen, DROP, (B, t, C), dev) for t in t_ins]
     w3, b3, w1, b1, wl, bl = weights
@@ -1005,13 +1098,16 @@ def check_wavenet_train_v2(model, arrays, gen, dev):
     fwd_moved = 4 * C * (3 * sum(rows) + 2 * rows_fin)
     # sweep: gz, the stash (layer inputs, h, x_fin) and the masks in; gx out
     bwd_moved = 4 * C * (2 * rows_fin + 3 * sum(rows) + rows[0])
+    fwd_ops, bwd_ops = stack_ops(C, ft.stages, ft.pooling_layers, lengths)
+    # the sweep's u recompute: one [rows x C] x [C x C] product a pooled layer
+    recompute_ops = 2 * C * C * sum(r for i, r in enumerate(rows) if i in ft.pooling_layers)
     fwd_err = max(v for k, v in out.items() if k.startswith("fwd"))
     bwd_err = max(v for k, v in out.items() if k.startswith("bwd"))
     return ({"wavenet_train_v2_fwd": report(fwd_err, *fwd_ms, fwd_moved + nbytes(*weights),
-                                            8 * C * C * sum(rows) + 2 * C * C * rows_fin),
+                                            fwd_ops, tf32x3=True),
              "wavenet_train_v2_sweep": report(bwd_err, *bwd_ms,
                                               bwd_moved + 2 * nbytes(*weights),
-                                              16 * C * C * sum(rows) + 4 * C * C * rows_fin)},
+                                              bwd_ops + recompute_ops, tf32x3=True)},
             launches)
 
 

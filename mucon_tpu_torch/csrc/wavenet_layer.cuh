@@ -3,7 +3,9 @@
 // (wavenet_stack.cu, 64-row tiles, no stash) and the trainable stack's
 // forward (wavenet_train.cu, tiles chosen from the shape, with its stash and
 // dropout) launch the same kernel, so the two round a layer alike; the
-// trainable stack's sweep kernels are built from the same tile helpers.
+// trainable stack's sweep kernels are built from the same tile helpers.  The
+// v2 stack's cooperative kernels (wavenet_train_v2.cu) run the same tile
+// bodies (`layer_tile`, `proj_tile`) over a chunk of layers.
 //
 //   z  = x[t-d] W3[0] + x[t] W3[1] + x[t+d] W3[2] + b3   ([TM,3C] @ [3C,C])
 //   h  = nonlin(z)                                         (-> hs, if given)
@@ -67,23 +69,30 @@ constexpr int LDW = C + 8;              // weight chunk stride (floats)
 
 static_assert(LDA % 32 == 4 && LDW % 32 == 8, "bank-conflict-free strides");
 
-// A row tile of TM rows x C columns, 8 warps as WM x WN of 16 MT x 8 NTL outputs
-template <int TM_>
+// A row tile of TM rows x C columns, 8 warps as WM x WN of 16 MT x 8 NTL outputs,
+// its weight rows summed KC a chunk and staged KS a ring buffer.  An output
+// element's sum depends on KC (each chunk's hi x hi products are one partial,
+// see `tap_loop`) and not on TM or KS: a product that must repeat another bit
+// for bit takes that one's KC.
+template <int TM_, int KC_ = (TM_ == 64 ? 64 : 32), int KS_ = KC_>
 struct Tile {
   static constexpr int TM = TM_;
   static constexpr int MT = TM == 16 ? 1 : 2;
   static constexpr int WM = TM / (16 * MT);
   static constexpr int WN = (NT / 32) / WM;
   static constexpr int NTL = C / (8 * WN);
-  static constexpr int KC = TM == 64 ? 64 : 32;  // weight rows a chunk
+  static constexpr int KC = KC_;                 // weight rows a chunk
+  static constexpr int KS = KS_;                 // weight rows a ring buffer
+  static constexpr int SUB = KC / KS;            // ring buffers a chunk
   static constexpr int CPB = C / KC;             // chunks a [C x C] block
   static constexpr int TILE_F = TM * LDA;
-  static constexpr int WBUF_F = KC * LDW;
+  static constexpr int WBUF_F = KS * LDW;
   static constexpr int TAPS_SMEM = (3 * TILE_F + 2 * WBUF_F) * 4;  // three tiles, the ring
   static constexpr int ONE_SMEM = (TILE_F + 2 * WBUF_F) * 4;       // one tile, the ring
   static constexpr int MIN_BLOCKS = TM == 64 ? 1 : 2;
   static_assert(WM * WN * 32 == NT && TM == 16 * MT * WM && C == 8 * NTL * WN, "tiling");
   static_assert(CPB >= 2, "tap 1 spans two chunks (see tap_loop)");
+  static_assert(KC % KS == 0 && KS % 8 == 0, "a chunk is whole ring buffers of k-steps");
 };
 
 __device__ __forceinline__ float nonlin(float v, int leaky) {
@@ -187,25 +196,29 @@ __device__ __forceinline__ void store_pooled(float* __restrict__ y, float (&acc)
 // not 3 x 8 C / 8 ulps of the whole sum.  A chunk's partial is added one
 // chunk later (two partials, by the chunk's parity), when its products
 // have landed: added at once, it would hold every warp at the chunk's
-// barrier until the tensor cores drain.
-template <int TM, class Mid>
+// barrier until the tensor cores drain.  A chunk may be staged as SUB ring
+// buffers of KS rows (Tile<TM, KC, KS>): the partials, and so the sums, are
+// the same, in less shared memory.
+template <int TM, int KC_ = Tile<TM>::KC, int KS_ = KC_, class Mid>
 __device__ __forceinline__ void tap_loop(float (&acc)[Tile<TM>::MT][Tile<TM>::NTL][4],
                                          float* const (&A)[3], const float* const (&W)[4],
                                          bool first, bool last, float* Wr, int row0,
                                          int col0, int lane, Mid mid) {
-  using TL = Tile<TM>;
-  constexpr int KC = TL::KC, CPB = TL::CPB, MT = TL::MT, NTL = TL::NTL;
+  using TL = Tile<TM, KC_, KS_>;
+  constexpr int KC = TL::KC, KS = TL::KS, SUB = TL::SUB, CPB = TL::CPB, MT = TL::MT,
+                NTL = TL::NTL;
   const int conv_chunks = (1 + first + last) * CPB;
   const int chunks = conv_chunks + (W[3] ? CPB : 0);  // even: CPB is
   auto block_of = [&](int c) {
     const int k = c / CPB + !first;
     return k == 2 && !last ? 3 : k;
   };
-  // (selects, not an index: the pointer arrays stay in registers)
-  auto weights_of = [&](int c) {
-    const int k = block_of(c);
+  // ring buffer q's weight rows (selects, not an index: the pointer arrays
+  // stay in registers)
+  auto weights_of = [&](int q) {
+    const int c = q / SUB, k = block_of(c);
     const float* w = k == 0 ? W[0] : (k == 1 ? W[1] : (k == 2 ? W[2] : W[3]));
-    return w + (size_t)(c % CPB) * KC * C;
+    return w + ((size_t)(c % CPB) * KC + (q % SUB) * KS) * C;
   };
   float small[MT][NTL][4] = {}, part0[MT][NTL][4] = {}, part1[MT][NTL][4] = {};
   auto fold = [&](float (&from)[MT][NTL][4]) {
@@ -220,21 +233,27 @@ __device__ __forceinline__ void tap_loop(float (&acc)[Tile<TM>::MT][Tile<TM>::NT
         }
   };
   auto step = [&](int c, float (&cur)[MT][NTL][4], float (&prev)[MT][NTL][4]) {
-    cp_async_wait<0>();  // chunk c (and the row tiles) have landed
-    __syncthreads();     // ... for every thread; chunk c - 1 is consumed
-    if (c + 1 < chunks) stage_weights<KC>(Wr + ((c + 1) & 1) * TL::WBUF_F, weights_of(c + 1));
-    cp_async_commit();
     const int k = block_of(c);
-    warp_gemm2<MT, NTL, KC>(small, cur, k == 1 ? A[1] : (k == 2 ? A[2] : A[0]), LDA, row0,
-                            (c % CPB) * KC, Wr + (c & 1) * TL::WBUF_F, LDW, col0, lane);
-    fold(prev);  // chunk c - 1's partial
+#pragma unroll
+    for (int s = 0; s < SUB; ++s) {
+      const int q = c * SUB + s;
+      cp_async_wait<0>();  // buffer q (and the row tiles) have landed
+      __syncthreads();     // ... for every thread; buffer q - 1 is consumed
+      if (q + 1 < chunks * SUB)
+        stage_weights<KS>(Wr + ((q + 1) & 1) * TL::WBUF_F, weights_of(q + 1));
+      cp_async_commit();
+      warp_gemm2<MT, NTL, KS>(small, cur, k == 1 ? A[1] : (k == 2 ? A[2] : A[0]), LDA, row0,
+                              (c % CPB) * KC + s * KS, Wr + (q & 1) * TL::WBUF_F, LDW, col0,
+                              lane);
+      if (s == 0) fold(prev);  // chunk c - 1's partial
+    }
     if (c == conv_chunks - 1) {
       fold(cur);
       fold(small);
       mid(acc);
     }
   };
-  stage_weights<KC>(Wr, weights_of(0));
+  stage_weights<KS>(Wr, weights_of(0));
   cp_async_commit();
   for (int c = 0; c < chunks; c += 2) {
     step(c, part0, part1);
@@ -244,8 +263,33 @@ __device__ __forceinline__ void tap_loop(float (&acc)[Tile<TM>::MT][Tile<TM>::NT
   fold(small);
 }
 
+// u = mask (m * (acc + b1) + x) in the accumulators, x from the row tile XC
+// (row t0 + r at XC[r]): the layer's output before the pool.  The forward
+// and the v2 sweep's recompute of u both take it from here, so that the
+// recompute rounds as the forward did.
+template <int MT, int NTL>
+__device__ __forceinline__ void residual(float (&acc)[MT][NTL][4], const float* XC,
+                                         const float* __restrict__ b1,
+                                         const float* __restrict__ drop, int b, int T, int t0,
+                                         int lim, int row0, int col0, int lane) {
+  for_each_pair(acc, row0, col0, lane, [&](float& v0, float& v1, int row, int col) {
+    const int t = t0 + row;
+    if (t >= lim) {
+      v0 = v1 = 0.f;
+      return;
+    }
+    const float2 m = drop ? ld2(drop + ((size_t)b * T + t) * C + col) : make_float2(1.f, 1.f);
+    v0 = (v0 + __ldg(b1 + col)) * m.x + XC[row * LDA + col];
+    v1 = (v1 + __ldg(b1 + col + 1)) * m.y + XC[row * LDA + col + 1];
+  });
+}
+
+// One row tile of a layer: rows [t0, t0 + TM) of video b (shared memory:
+// Tile<TM>::TAPS_SMEM bytes at smem).  The layer input x is read through
+// `cp.async` (L2) only, so a cooperative kernel may read rows that other CTAs
+// wrote earlier in the same launch.
 template <int TM>
-__global__ void __launch_bounds__(NT, Tile<TM>::MIN_BLOCKS) wavenet_layer_kernel(
+__device__ __forceinline__ void layer_tile(
     const float* __restrict__ x,      // [B, T, C] layer input (masked)
     float* __restrict__ y,            // [B, T or T/2, C] layer output
     float* __restrict__ u_out,        // [B, T, C] pre-pool output or null
@@ -256,16 +300,14 @@ __global__ void __launch_bounds__(NT, Tile<TM>::MIN_BLOCKS) wavenet_layer_kernel
     const float* __restrict__ w1,     // [C, C]
     const float* __restrict__ b1,     // [C]
     const float* __restrict__ drop,   // [B, T, C] dropout mask or null
-    int T, int d, int len_shift, int pool, int pool_mean, int leaky) {
+    int b, int t0, int T, int d, int len_shift, int pool, int pool_mean, int leaky,
+    float* smem) {
   using TL = Tile<TM>;
-  extern __shared__ float4 smem4[];
-  float* X0 = reinterpret_cast<float*>(smem4);  // t-d, then nonlin(z)
-  float* XC = X0 + TL::TILE_F;                   // t (A operand and residual)
-  float* X1 = XC + TL::TILE_F;                   // t+d
-  float* Wr = X1 + TL::TILE_F;                   // [2][KC][LDW] weight ring
+  float* X0 = smem;               // t-d, then nonlin(z)
+  float* XC = X0 + TL::TILE_F;    // t (A operand and residual)
+  float* X1 = XC + TL::TILE_F;    // t+d
+  float* Wr = X1 + TL::TILE_F;    // [2][KC][LDW] weight ring
 
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TM;
   const int len = lengths[b] >> len_shift;
   if (t0 >= len) {  // all padding: zeros, nothing staged or multiplied
     if (pool) store_zeros(y, b, t0 / 2, TM / 2, T / 2);
@@ -298,16 +340,7 @@ __global__ void __launch_bounds__(NT, Tile<TM>::MIN_BLOCKS) wavenet_layer_kernel
   });
 
   // y = mask (m * (acc + b1) + x): the t tile is only read
-  for_each_pair(acc, row0, col0, lane, [&](float& v0, float& v1, int row, int col) {
-    const int t = t0 + row;
-    if (t >= lim) {
-      v0 = v1 = 0.f;
-      return;
-    }
-    const float2 m = drop ? ld2(drop + ((size_t)b * T + t) * C + col) : make_float2(1.f, 1.f);
-    v0 = (v0 + __ldg(b1 + col)) * m.x + XC[row * LDA + col];
-    v1 = (v1 + __ldg(b1 + col + 1)) * m.y + XC[row * LDA + col + 1];
-  });
+  residual(acc, XC, b1, drop, b, T, t0, lim, row0, col0, lane);
   if (!pool) {
     for_each_pair(acc, row0, col0, lane, [&](float& v0, float& v1, int row, int col) {
       if (t0 + row < T) st2(y + ((size_t)b * T + t0 + row) * C + col, v0, v1);
@@ -319,6 +352,59 @@ __global__ void __launch_bounds__(NT, Tile<TM>::MIN_BLOCKS) wavenet_layer_kernel
       if (t0 + row < lim) st2(u_out + ((size_t)b * T + t0 + row) * C + col, v0, v1);
     });
   store_pooled(y, acc, b, t0, T, len, row0, col0, lane, pool_mean);
+}
+
+// z = mask(nonlin(x) Wl + bl) for rows [t0, t0 + TM) of video b: the
+// out-projection (Tile<TM>::ONE_SMEM bytes: one row tile, nonlin applied in
+// place once it has landed, and the weight ring)
+template <int TM>
+__device__ __forceinline__ void proj_tile(const float* __restrict__ x, float* __restrict__ z,
+                                          const int* __restrict__ lengths,
+                                          const float* __restrict__ w_last,
+                                          const float* __restrict__ b_last, int b, int t0,
+                                          int T, int len_shift, int leaky, float* smem) {
+  using TL = Tile<TM>;
+  float* XC = smem;                // [TM][LDA]
+  float* Wr = XC + TL::TILE_F;     // [2][KC][LDW]
+
+  const int len = lengths[b] >> len_shift;
+  if (t0 >= len) {
+    store_zeros(z, b, t0, TM, T);
+    return;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = (warp / TL::WN) * (16 * TL::MT), col0 = (warp % TL::WN) * (8 * TL::NTL);
+
+  stage_rows<TM>(XC, x + (size_t)b * T * C, t0, min(T, len));
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < TM * C; i += NT) {  // nonlin in place
+    float* p = XC + (i / C) * LDA + i % C;
+    *p = nonlin(*p, leaky);
+  }
+  float acc[TL::MT][TL::NTL][4] = {};
+  float* const tiles[3] = {XC, XC, XC};
+  const float* const ws[4] = {nullptr, w_last, nullptr, nullptr};  // one block, as a centre tap
+  tap_loop<TM>(acc, tiles, ws, false, false, Wr, row0, col0, lane, [](auto&) {});
+  for_each_pair(acc, row0, col0, lane, [&](float& v0, float& v1, int row, int col) {
+    const int t = t0 + row;
+    if (t < T)
+      st2(z + ((size_t)b * T + t) * C + col, t < len ? v0 + __ldg(b_last + col) : 0.f,
+          t < len ? v1 + __ldg(b_last + col + 1) : 0.f);
+  });
+}
+
+template <int TM>
+__global__ void __launch_bounds__(NT, Tile<TM>::MIN_BLOCKS) wavenet_layer_kernel(
+    const float* __restrict__ x, float* __restrict__ y, float* __restrict__ u_out,
+    float* __restrict__ hs, const int* __restrict__ lengths, const float* __restrict__ w3,
+    const float* __restrict__ b3, const float* __restrict__ w1, const float* __restrict__ b1,
+    const float* __restrict__ drop, int T, int d, int len_shift, int pool, int pool_mean,
+    int leaky) {
+  extern __shared__ float4 smem4[];
+  layer_tile<TM>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, blockIdx.y, blockIdx.x * TM,
+                 T, d, len_shift, pool, pool_mean, leaky, reinterpret_cast<float*>(smem4));
 }
 
 // one layer of B videos x T frames on TM-row tiles

@@ -15,8 +15,8 @@
 // two round a layer alike (the design is described there).
 //
 // The out-projection launch (final_proj = 1) computes nonlin(x) Wl + bl,
-// masked, on the same tile: one row tile (nonlin applied in place once it
-// has landed) and the weight ring (101 KiB).
+// masked, on the same tile (`proj_tile`): one row tile (nonlin applied in
+// place once it has landed) and the weight ring (101 KiB).
 //
 // Bound: the tensor cores at three TF32 products per f32 product (8 C^2 f32
 // operations per valid row and layer, fewer where a tap's rows do not
@@ -37,37 +37,8 @@ __global__ void __launch_bounds__(NT, 1) wavenet_proj_kernel(
     const float* __restrict__ w_last, const float* __restrict__ b_last, int T, int len_shift,
     int leaky) {
   extern __shared__ float4 smem4[];
-  float* XC = reinterpret_cast<float*>(smem4);  // [TM][LDA]
-  float* Wr = XC + TL::TILE_F;                   // [2][KC][LDW]
-
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TM;
-  const int len = lengths[b] >> len_shift;
-  if (t0 >= len) {
-    store_zeros(z, b, t0, TM, T);
-    return;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = (warp / TL::WN) * (16 * TL::MT), col0 = (warp % TL::WN) * (8 * TL::NTL);
-
-  stage_rows<TM>(XC, x + (size_t)b * T * C, t0, min(T, len));
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int i = threadIdx.x; i < TM * C; i += NT) {  // nonlin in place
-    float* p = XC + (i / C) * LDA + i % C;
-    *p = nonlin(*p, leaky);
-  }
-  float acc[TL::MT][TL::NTL][4] = {};
-  float* const tiles[3] = {XC, XC, XC};
-  const float* const ws[4] = {nullptr, w_last, nullptr, nullptr};  // one block, as a centre tap
-  tap_loop<TM>(acc, tiles, ws, false, false, Wr, row0, col0, lane, [](auto&) {});
-  for_each_pair(acc, row0, col0, lane, [&](float& v0, float& v1, int row, int col) {
-    const int t = t0 + row;
-    if (t < T)
-      st2(z + ((size_t)b * T + t) * C + col, t < len ? v0 + __ldg(b_last + col) : 0.f,
-          t < len ? v1 + __ldg(b_last + col + 1) : 0.f);
-  });
+  proj_tile<TM>(x, z, lengths, w_last, b_last, blockIdx.y, blockIdx.x * TM, T, len_shift,
+                leaky, reinterpret_cast<float*>(smem4));
 }
 
 }  // namespace

@@ -163,8 +163,11 @@ def load() -> ctypes.CDLL:
             # per-layer pointer and int tables are host arrays
             PP, IP = ctypes.POINTER(P), ctypes.POINTER(I)
             lib.mucon_wavenet_train_v2_fwd.argtypes = [PP, IP, I] + [P] * 8 + [I] * 5 + [P]
-            lib.mucon_wavenet_train_v2_sweep.argtypes = [PP, IP, I] + [P] * 16 + [I] * 5 + [P]
-            lib.mucon_wavenet_train_v2_work_floats.argtypes = [I]
+            L = ctypes.c_long
+            lib.mucon_wavenet_train_v2_sweep.argtypes = ([PP, IP, I] + [P] * 14 + [L, P, L, P]
+                                                         + [I] * 5 + [P])
+            lib.mucon_wavenet_train_v2_grid.argtypes = [IP]
+            lib.mucon_wavenet_train_v2_plan.argtypes = [I, I, I, IP]
             for fn in (lib.mucon_wavenet_layer, lib.mucon_wavenet_tile_rows,
                        lib.mucon_bilstm_recurrence,
                        lib.mucon_dense_viterbi, lib.mucon_wavenet_train_fwd,
@@ -177,7 +180,7 @@ def load() -> ctypes.CDLL:
                        lib.mucon_decoder_chain_width, lib.mucon_decoder_chain_fwd_launch,
                        lib.mucon_flint, lib.mucon_mstcnpp_layer, lib.mucon_mstcnpp_proj,
                        lib.mucon_wavenet_train_v2_fwd, lib.mucon_wavenet_train_v2_sweep,
-                       lib.mucon_wavenet_train_v2_work_floats):
+                       lib.mucon_wavenet_train_v2_grid, lib.mucon_wavenet_train_v2_plan):
                 fn.restype = I
             lib.mucon_cuda_error_string.argtypes = [I]
             lib.mucon_cuda_error_string.restype = ctypes.c_char_p
@@ -305,6 +308,13 @@ def wavenet_train_plan(B: int, T: int, jobs: int = 4) -> dict:
     return dict(fwd_tile_rows=out[0], tile_rows=out[1], span_rows=out[2], spans=out[3])
 
 
+def _work_floats(plan, B: int, layers) -> int:
+    """Floats of the sweep's weight-gradient partials: B x spans x jobs
+    partials of (C + 1) x C (C = 128), for the largest of `layers` ((T,
+    jobs) pairs)."""
+    return max(B * plan(B, t, jobs)["spans"] * jobs for t, jobs in layers) * (128 + 1) * 128
+
+
 def wavenet_train_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks, *,
                           stages, pooling_layers, pooling_type, leaky):
     """Forward of the trainable stack on the card: one `wavenet_train_fwd`
@@ -378,10 +388,9 @@ def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
     n_pools = len(us)
     t_fin = x_fin.shape[1]
     dy = torch.empty(B, T, C, **f32)  # scratch, sized for the longest layer
-    # weight-gradient partials: B x spans x products of (C + 1) x C, the largest sweep's
-    parts = max(B * wavenet_train_plan(B, t, jobs)["spans"] * jobs
-                for t, jobs in ((x_fin.shape[1], 1), *((x.shape[1], 4) for x in xs)))
-    work = torch.empty(parts * (C + 1) * C, **f32)
+    work = torch.empty(_work_floats(wavenet_train_plan, B, ((x_fin.shape[1], 1),
+                                                         *((x.shape[1], 4) for x in xs))),
+                       **f32)
 
     def sweep(g, u, x, h, m, w1t_i, w3t_i, dz, g_in, dw1_i, db1_i, dw3_i, db3_i,
               t, d, shift, pooled, proj):
@@ -988,18 +997,60 @@ def _tables(ptrs, ints):
     return (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints)
 
 
+# the layers one v2 launch takes at most (`MAX_LAYERS` of csrc/wavenet_train_v2.cu)
+V2_CHUNK_LAYERS = 32
+V2_GRID_KEYS = ("fwd_max_tile_rows", "sweep_max_tile_rows", "fwd_ctas_per_sm",
+                "sweep_ctas_per_sm", "sms", "fwd_smem_bytes", "sweep_smem_bytes", "chunk_layers")
+V2_PLAN_KEYS = ("fwd_tile_rows", "fwd_chunk_rows", "sweep_tile_rows", "sweep_chunk_rows",
+                "span_rows", "spans")
+
+
+def wavenet_train_v2_grid() -> dict:
+    """The v2 kernels' cooperative grids (`mucon_wavenet_train_v2_grid`):
+    the forward's and the sweep's largest row tiles, the CTAs an SM that
+    each kernel keeps resident (its grid is that times the SMs), the SMs,
+    each kernel's shared memory a CTA and the most layers a chunk holds."""
+    lib = load()
+    out = (ctypes.c_int * 8)()
+    err = lib.mucon_wavenet_train_v2_grid(out)
+    if err:
+        raise RuntimeError(f"wavenet_train_v2 grid: {lib.mucon_cuda_error_string(err).decode()}")
+    return dict(zip(V2_GRID_KEYS, out))
+
+
+def wavenet_train_v2_plan(B: int, T: int, jobs: int = 4) -> dict:
+    """The grid of a v2 layer of B videos x T frames
+    (`mucon_wavenet_train_v2_plan`): v3's (`wavenet_train_plan`), the
+    forward's row tile and its weight chunk, the sweep's row tile on v3's
+    weight chunk (cut in rows to fit two CTAs an SM), and the
+    weight-gradient span (`spans` a video).  An output's sum depends on
+    the chunk, not on the rows: on v3's chunks v2 adds as v3 does."""
+    out = (ctypes.c_int * 6)()
+    if load().mucon_wavenet_train_v2_plan(B, T, jobs, out):
+        raise ValueError(f"no wavenet_train_v2 grid for B={B}, T={T}, jobs={jobs}")
+    return dict(zip(V2_PLAN_KEYS, out))
+
+
+def _check_chunks(bounds) -> None:
+    for lo, hi in bounds:
+        if hi - lo > V2_CHUNK_LAYERS:
+            raise ValueError(f"a v2 chunk of {hi - lo} layers: one cooperative launch takes "
+                             f"at most {V2_CHUNK_LAYERS}")
+
+
 def wavenet_train_v2_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks, *,
-                             stages, pooling_layers, leaky, bounds):
+                             stages, pooling_layers, leaky, bounds, u_out=None):
     """Forward of the v2 trainable stack (max pooling): one cooperative
     `wavenet_train_v2_fwd` launch per chunk [lo, hi) of `bounds`.  x
     [B x T x 128] (masked), drop_masks one [B x t_i x 128] mask per layer or
     None -> (z, stash) with stash = (xs, hs): the L + 1 layer inputs (xs[L]
-    the out-projection's input) and the L nonlin(z)."""
+    the out-projection's input) and the L nonlin(z).  Given a dict
+    `u_out`, each pooled layer's pre-pool output is written to u_out[i]
+    too (rows t < length; the others undefined), for a check."""
     dev = _check_packed(x, stages, w3, b3, w1, b1, w_last, b_last)
     B, T, C = x.shape
     L = len(stages)
-    if L > 32:
-        raise ValueError(f"the v2 kernels take at most 32 layers, got {L}")
+    _check_chunks(bounds)
     lens = _lengths_i32(lengths, B, dev, "lengths")
     lib, stream = load(), _stream(dev)
     t_ins, pooled, shifts, t_fin = stack_plan(stages, pooling_layers, T)
@@ -1018,7 +1069,10 @@ def wavenet_train_v2_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_ma
                 _require(dev, torch.float32, mask=m)
             hs.append(torch.empty(B, t, C, **f32))
             xs.append(torch.empty(B, t // 2 if pool else t, C, **f32))
-            ptrs += [xs[i].data_ptr(), xs[i + 1].data_ptr(), hs[i].data_ptr(), _ptr(m)]
+            u = None
+            if u_out is not None and pool:
+                u = u_out[i] = torch.empty(B, t, C, **f32)
+            ptrs += [xs[i].data_ptr(), xs[i + 1].data_ptr(), hs[i].data_ptr(), _ptr(m), _ptr(u)]
             ints += [t, int(stages[i]), shift, int(pool)]
         last = hi == L
         if last:
@@ -1034,17 +1088,20 @@ def wavenet_train_v2_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_ma
 
 
 def wavenet_train_v2_backward(gz, stash, lengths, w3, w1, b1, w_last, drop_masks, *,
-                              stages, pooling_layers, leaky, bounds):
+                              stages, pooling_layers, leaky, bounds, u_out=None):
     """Backward of the v2 trainable stack: one cooperative
     `wavenet_train_v2_sweep` launch per chunk, last chunk first (it also
     sweeps the out-projection).  gz [B x t_fin x 128] -> (gx, dw3, db3, dw1,
-    db1, dw_last, db_last)."""
+    db1, dw_last, db_last).  Given a dict `u_out`, each pooled layer's
+    pre-pool output as the sweep recomputed it is written to u_out[i] (rows
+    t < length), for a check."""
     xs, hs = stash
     dev = _cuda_device(gz)
     B, T, C = xs[0].shape
     L = len(stages)
     if gz.shape != xs[L].shape:
         raise ValueError(f"gz {tuple(gz.shape)} does not match z {tuple(xs[L].shape)}")
+    _check_chunks(bounds)
     gz = gz.contiguous()
     _require(dev, torch.float32, gz=gz)
     lens = _lengths_i32(lengths, B, dev, "lengths")
@@ -1059,8 +1116,9 @@ def wavenet_train_v2_backward(gz, stash, lengths, w3, w1, b1, w_last, drop_masks
     dw3, dw1 = torch.empty(L, 3, C, C, **f32), torch.empty(L, C, C, **f32)
     db3, db1 = torch.empty(L, C, **f32), torch.empty(L, C, **f32)
     dwl, dbl = torch.empty(C, C, **f32), torch.empty(C, **f32)
-    scratch = torch.empty(2 * B * T * C, **f32)  # gm and dz of the longest layer
-    work = torch.empty(lib.mucon_wavenet_train_v2_work_floats(B * T), **f32)
+    scratch = torch.empty(3 * B * T * C, **f32)  # gm, dy and dz of the longest layer
+    work = torch.empty(_work_floats(wavenet_train_v2_plan, B,
+                                    ((t_fin, 1), *((t, 4) for t in t_ins))), **f32)
     g_in = [torch.empty(B, t, C, **f32) for t in t_ins]
     g_proj = torch.empty(B, t_fin, C, **f32)  # the gradient at x_fin
     for lo, hi in reversed(bounds):
@@ -1070,8 +1128,11 @@ def wavenet_train_v2_backward(gz, stash, lengths, w3, w1, b1, w_last, drop_masks
             t, shift, pool = t_ins[i], shifts[i], pooled[i]
             g = g_proj if i == L - 1 else g_in[i + 1]
             m = None if drop_masks is None else drop_masks[i]
+            u = None
+            if u_out is not None and pool:
+                u = u_out[i] = torch.empty(B, t, C, **f32)
             ptrs += [xs[i].data_ptr(), hs[i].data_ptr(), _ptr(m), g.data_ptr(),
-                     g_in[i].data_ptr()]
+                     g_in[i].data_ptr(), _ptr(u)]
             ints += [t, int(stages[i]), shift, int(pool)]
         err = lib.mucon_wavenet_train_v2_sweep(
             *_tables(ptrs, ints), hi - lo, w3t[lo].data_ptr(), w1[lo].data_ptr(),
@@ -1079,7 +1140,8 @@ def wavenet_train_v2_backward(gz, stash, lengths, w3, w1, b1, w_last, drop_masks
             dw1[lo].data_ptr(), db1[lo].data_ptr(), _ptr(gz if proj else None),
             _ptr(xs[L] if proj else None), _ptr(wlt if proj else None),
             _ptr(dwl if proj else None), _ptr(dbl if proj else None), scratch.data_ptr(),
-            work.data_ptr(), lens.data_ptr(), B, C, t_fin, n_pools, int(leaky), stream,
+            B * T, work.data_ptr(), work.numel(), lens.data_ptr(), B, C, t_fin, n_pools,
+            int(leaky), stream,
         )
         _check_launch(lib, err, "wavenet_train_v2_sweep")
     return g_in[0], dw3, db3, dw1, db1, dwl, dbl

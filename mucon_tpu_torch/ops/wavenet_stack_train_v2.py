@@ -11,7 +11,8 @@ pool's gradient to the first maximum of each pair.
   program without dropout, otherwise as many as the sweep.
 * `WaveNetStackTrainV2` — a `torch.autograd.Function` over the two
   hand-written kernels of `csrc/wavenet_train_v2.cu` (one cooperative
-  launch per chunk each).
+  launch per chunk each), which run the v3 kernels' tile bodies on their
+  weight chunks: z and every gradient equal v3's bit for bit.
 * `wavenet_stack_train_v2` — dispatch by device: a CPU tensor takes the
   plain twin `wavenet_stack_train_plain` with max pooling, a CUDA tensor the
   Function (which raises on what the kernels do not take).

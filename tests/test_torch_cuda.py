@@ -8,7 +8,9 @@ an MS-TCN++ stage at odd lengths and lengths on a tile edge, the BiLSTM
 recurrence and its reverse chain on clusters of 1, 2 and 8 CTAs, the
 decoder chain's replay pass and cluster chain, the trainable stack at each
 of its row tiles and at B = 1 and 8, the v2 stack in 1, 3 and 11 chunks
-with tied pool pairs), and the bit-for-bit statements: two calls agree,
+with tied pool pairs and at B = 1 and 8 on T = 2560, a v2 chunk too large
+for one launch), and the bit-for-bit statements: two calls agree, v2 on
+v3's grid equals v3 and its sweep's recomputed u the u its forward pooled,
 the eval stack's layer is the trainable forward's, the DP's pointer walk
 is `traceback_positions`, the flint kernel's clusters sum in a fixed
 order, the BiLSTM coefficient
@@ -712,19 +714,25 @@ def test_mstcnpp_model_forward_kernels_match_plain(dev):
 
 # 11 layers (d up to 1024), pools after 0, 2, 5 and 8: T = 96 -> 48 -> 24 -> 12
 # -> 6; one chunk, three, or one a layer; a fully masked video; B = 1; exact
-# ties in layer 0's pool (its 1x1 conv zeroed over pairs of equal frames)
-@pytest.mark.parametrize("chunks,lengths,leaky,drop,tie", [
-    (1, (96, 50, 0), False, 0.25, False),
-    (3, (96,), True, 0.0, False),
-    (11, (96, 71), False, 0.25, True),
-])
-def test_wavenet_train_v2_kernels_edges(dev, chunks, lengths, leaky, drop, tie):
+# ties in layer 0's pool (its 1x1 conv zeroed over pairs of equal frames);
+# and T = 2560 at B = 1 and B = 8, where the tile plan changes from layer to
+# layer (`cuda.wavenet_train_v2_plan`: at B = 8 the forward takes 64-row
+# tiles down to T = 640 and the sweep 64, 32 and 16; a pooled layer's u is
+# then recomputed in the forward's 64-row chunks on a 32- or 16-row tile)
+@pytest.mark.parametrize("chunks,T,lengths,leaky,drop,tie", [
+    (1, 96, (96, 50, 0), False, 0.25, False),
+    (3, 96, (96,), True, 0.0, False),
+    (11, 96, (96, 71), False, 0.25, True),
+    (3, 2560, (2100,), True, 0.25, False),
+    (3, 2560, (2100, 1536, 1500, 2048, 1777, 1600, 1920, 2560), False, 0.25, False),
+], ids=["one_chunk", "leaky_nodrop", "a_chunk_a_layer_ties", "B1_T2560", "B8_T2560"])
+def test_wavenet_train_v2_kernels_edges(dev, chunks, T, lengths, leaky, drop, tie):
     stages, pools = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024), (0, 2, 5, 8)
     block = WaveNetBlock(16, stages, 128, pools, "max", leaky)
     g = _init(block, 9)
-    B, T = len(lengths), 96
+    B = len(lengths)
     lengths = torch.tensor(lengths, device=dev)
-    t_ins, _, _, t_fin = stack_plan(stages, pools, T)
+    t_ins, _, shifts, t_fin = stack_plan(stages, pools, T)
     mgen = torch.Generator(device=dev).manual_seed(1)
     masks = None if drop == 0.0 else [dropout_mask(mgen, drop, (B, t, 128), dev) for t in t_ins]
     x = torch.relu(torch.randn(B, T, 128, generator=g))
@@ -751,22 +759,28 @@ def test_wavenet_train_v2_kernels_edges(dev, chunks, lengths, leaky, drop, tie):
     assert cuda.launch_counts["wavenet_train_v2_sweep"] == before["wavenet_train_v2_sweep"] + n
     _, _, gk_again = run(wavenet_stack_train_v2, sweep_chunks=chunks)
     assert all(torch.equal(a, b) for a, b in zip(gk, gk_again))
-    zp, tp, gp = run(wavenet_stack_train_plain, pooling_type="max")
+    # held to the plain twin in float64, the function itself: at B = 8, T =
+    # 2560 the f32 twin takes a ReLU kink or pool pair on the other side
+    # (relative L2 8e-4 to 1.1e-3 from float64 in dx, dW3 and db3 on an H100,
+    # the kernels 1.4e-6: scripts/probe_wavenet_train_v2_tiles.py --float64)
+    xs64 = [t.double().requires_grad_() for t in (x, *weights)]
+    zp, tp = wavenet_stack_train_plain(
+        xs64[0], lengths, *xs64[1:], pooling_type="max", **kw,
+        drop_masks=None if masks is None else [m.double() for m in masks])
+    zp.backward(gz.double())
+    zp, gp = zp.detach().float(), [t.grad.float() for t in xs64]
     assert torch.equal(tk, tp) and zk.shape == (B, t_fin, 128)
     _close([zk], [zp], 1e-4)
     _grads_close(gk, gp)
-    # v3 runs every product on the tensor cores in 3xTF32, v2 in f32 FMA: the
-    # two are held to each other as each is to the plain twin (chip_smoke.py's
-    # bounds); exact are v3 run twice and v3's z against the eval kernel's
-    # out-projection of v3's own last layer output
+    # v2 runs v3's bodies on v3's weight chunks: every output equals v3's
+    # bit for bit.  Also exact: v3 run twice and v3's z against the eval
+    # kernel's out-projection of v3's own last layer output
     z3, _, g3 = run(wavenet_stack_train, pooling_type="max")
     z3_again, _, g3_again = run(wavenet_stack_train, pooling_type="max")
     assert torch.equal(z3, z3_again) and all(torch.equal(a, b) for a, b in zip(g3, g3_again))
-    _close([zk], [z3], 1e-4)
-    _grads_close(gk, g3)
-    _close(gk, g3, 1e-2)
+    assert torch.equal(zk, z3) and all(torch.equal(a, b) for a, b in zip(gk, g3))
     with torch.no_grad():
-        _, (_, _, _, x_fin3) = cuda.wavenet_train_forward(
+        _, (_, _, us3, x_fin3) = cuda.wavenet_train_forward(
             mask_time(x, lengths), lengths, *weights, masks, **kw, pooling_type="max")
         none = [torch.empty(0, *w.shape[1:], device=dev) for w in weights[:4]]
         proj, _ = wavenet_stack(x_fin3, lengths >> len(pools), *none, *weights[4:],
@@ -775,3 +789,56 @@ def test_wavenet_train_v2_kernels_edges(dev, chunks, lengths, leaky, drop, tie):
     assert torch.equal(z3, proj)
     if lengths[-1] == 0:
         assert torch.all(gk[0][-1] == 0) and torch.all(zk[-1] == 0)
+    # the sweep's recomputed u is the u the forward pooled, and v3's, bit for bit
+    u_fwd, u_sweep = {}, {}
+    bounds = chunk_bounds(len(stages), chunks)
+    with torch.no_grad():
+        _, stash = cuda.wavenet_train_v2_forward(mask_time(x, lengths), lengths, *weights, masks,
+                                                 **kw, bounds=bounds, u_out=u_fwd)
+        cuda.wavenet_train_v2_backward(gz, stash, lengths, weights[0], weights[2], weights[3],
+                                       weights[4], masks, **kw, bounds=bounds, u_out=u_sweep)
+    assert sorted(u_fwd) == sorted(u_sweep) == list(pools)
+    for i in pools:
+        valid = torch.arange(t_ins[i], device=dev)[None, :] < (lengths >> shifts[i])[:, None]
+        assert torch.equal(u_fwd[i][valid], u_sweep[i][valid]), i
+        assert torch.equal(u_fwd[i][valid], us3[i][valid]), i
+
+
+def test_wavenet_train_v2_refuses_a_chunk_too_large(dev):
+    """A chunk of more layers than one cooperative launch takes raises, in
+    the forward and in the sweep, and runs nothing; the same stack in two
+    chunks runs and holds to the plain twin."""
+    L = cuda.V2_CHUNK_LAYERS + 1
+    stages = (1,) * L
+    block = WaveNetBlock(16, stages, 128, (), "max", False)
+    g = _init(block, 3)
+    lengths = torch.tensor([40, 17], device=dev)
+    x = torch.relu(torch.randn(2, 40, 128, generator=g)).to(dev)
+    weights = [w.detach().to(dev) for w in pack_wavenet_params(block)]
+    gz = torch.randn(2, 40, 128, generator=g).to(dev)
+    kw = dict(stages=stages, pooling_layers=(), leaky=False)
+    before = dict(cuda.launch_counts)
+    with pytest.raises(ValueError, match="chunk of 33 layers"):
+        wavenet_stack_train_v2(x, lengths, *weights, None, sweep_chunks=1, **kw)
+    with pytest.raises(ValueError, match="chunk of 33 layers"):
+        cuda.wavenet_train_v2_forward(mask_time(x, lengths), lengths, *weights, None, **kw,
+                                      bounds=[(0, L)])
+    _, stash = cuda.wavenet_train_v2_forward(mask_time(x, lengths), lengths, *weights, None,
+                                             **kw, bounds=chunk_bounds(L, 2))
+    with pytest.raises(ValueError, match="chunk of 33 layers"):
+        cuda.wavenet_train_v2_backward(gz, stash, lengths, weights[0], weights[2], weights[3],
+                                       weights[4], None, **kw, bounds=[(0, L)])
+    assert cuda.launch_counts["wavenet_train_v2_fwd"] == before["wavenet_train_v2_fwd"] + 2
+    assert cuda.launch_counts["wavenet_train_v2_sweep"] == before["wavenet_train_v2_sweep"]
+    masks = [torch.ones(2, 40, 128, device=dev)] * L  # dropout on: two forward chunks
+
+    def run(fn, **extra):
+        xs = [t.clone().requires_grad_() for t in (x, *weights)]
+        z, _ = fn(xs[0], lengths, *xs[1:], drop_masks=masks, **kw, **extra)
+        z.backward(gz)
+        return z.detach(), [t.grad for t in xs]
+
+    zk, gk = run(wavenet_stack_train_v2, sweep_chunks=2)
+    zp, gp = run(wavenet_stack_train_plain, pooling_type="max")
+    _close([zk], [zp], 1e-4)
+    _grads_close(gk, gp)
