@@ -56,7 +56,17 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    then the same three steps for the MS-TCN++ model (its stage's dropout
    0.5, the others 0.25), whose stage trains as plain PyTorch: the BiLSTM,
    decoder-chain and flint kernels must launch and no stack kernel;
-6. prints the kernel report JSON (each kernel's launches, error, time, the
+6. runs the experiment entry point, `python -m
+   mucon_tpu_torch.cli.train_test_mucon`, at full width (`cli_phase`: the
+   default model, B=8, the flint loss kernel, 2 epochs of 18 synthetic
+   videos of 1500-2100 frames written to a temp dir, an eval and a
+   checkpoint after each, the final Viterbi eval of 6 videos) and checks the
+   run folder and its 24 finite fields, each kernel's launches against the
+   count the train steps and eval batches imply, `test_mucon`'s read-only
+   re-evaluation (within 1e-6), a fresh trainer's `resume_latest` and the
+   checkpoint's plain-path eval against the kernel eval's pickle (by
+   `compare_request`'s near-tie rules), and prints its phases' seconds;
+7. prints the kernel report JSON (each kernel's launches, error, time, the
    plain twin's time, the least time the card could take for the same work
    and, where one PyTorch call computes the same function, that call's
    time), then `{"ok": true, "device": {...}}` as the last line.
@@ -73,6 +83,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 from unittest import mock
@@ -1468,7 +1479,7 @@ def stage_ms(trainer, arrays, reps: int = 3) -> dict:
             trainer.optimizer.zero_grad(set_to_none=True)
             loss.main.backward()
             mark("in-projection backward")
-            clip_grad_norm_partitioned(trainer.partition, trainer.config.clip_grad_norm_value)
+            clip_grad_norm_partitioned(trainer.partition, trainer.cfg.trainer.clip_grad_norm_value)
             mark("partitioned clip")
             trainer.optimizer.step()
             mark("SGD update")
@@ -1484,7 +1495,7 @@ def stage_ms(trainer, arrays, reps: int = 3) -> dict:
     return totals
 
 
-def train(dev, rng, card: str):
+def train(dev, rng, card: str, root: str):
     """The train kernels' checks, then three train steps of the WaveNet
     model with the kernels (twice: the second run must repeat the first bit
     for bit), and before each of them one plain step from the kernel path's
@@ -1512,7 +1523,7 @@ def train(dev, rng, card: str):
     import torch
 
     arrays = train_batch(rng, dev)
-    trainers = make_trainers(dev, "wavenet")
+    trainers = make_trainers(dev, "wavenet", root)
     results = {}
     gen = torch.Generator().manual_seed(3)
     model = trainers["k"].model
@@ -1533,18 +1544,39 @@ def train(dev, rng, card: str):
     return results, launches, arrays
 
 
-def make_trainers(dev, ft_type: str) -> dict:
+def smoke_cfg(root: str, kernels: bool = True, sets=()):
+    """The port's default config with the (dotted key, value string)
+    overrides `sets`, its run folders under `root`, and every kernel on
+    (and the flint loss kernel) or every kernel off."""
+    from mucon_tpu_torch.config import get_cfg_defaults
+    from mucon_tpu_torch.config.support import KERNEL_FLAGS
+
+    cfg = get_cfg_defaults()
+    cfg.merge_from_list([x for kv in sets for x in kv])
+    cfg.trainer.root = root
+    cfg.tpu.use_pallas_loss = kernels
+    for key in KERNEL_FLAGS:
+        cfg.tpu[key.split(".")[1]] = "auto" if kernels else False
+    return cfg
+
+
+def make_trainers(dev, ft_type: str, root: str) -> dict:
     """Three trainers of the default model with the backbone `ft_type`, from
-    one seed: "k" and "k2" with the kernels and the loss kernel (the JAX
-    tpu.use_pallas_loss), "p" plain."""
-    from mucon_tpu_torch.harness.trainer import SimpleTrainer, TrainConfig
+    one seed, their run folders under `root`: "k" and "k2" with the kernels
+    and the loss kernel (tpu.use_pallas_loss), "p" plain (every
+    tpu.use_pallas* False)."""
+    from mucon_tpu_torch.harness.trainer import SimpleTrainer
+    from mucon_tpu_torch.models.losses import loss_config_from_cfg
     from mucon_tpu_torch.models.model import create_model
 
-    config = TrainConfig(batch_size=TRAIN_B)
-    return {k: SimpleTrainer(None, create_model(
-        M, N_MAX + 1, D, device=dev, seed=0, ft_type=ft_type,
-        loss_cfg=None if k == "p" else {"use_loss_kernel": True}),
-        config, seed=1, use_kernels=(k != "p")) for k in ("k", "k2", "p")}
+    out = {}
+    for k in ("k", "k2", "p"):
+        cfg = smoke_cfg(root, kernels=k != "p",
+                        sets=[("tpu.batch_size", str(TRAIN_B)), ("model.ft.type", ft_type)])
+        model = create_model(M, N_MAX + 1, D, device=dev, seed=0, ft_type=ft_type,
+                             loss_cfg=loss_config_from_cfg(cfg))
+        out[k] = SimpleTrainer(cfg, f"train_{ft_type}_{k}", None, model, seed=1)
+    return out
 
 
 def compare_steps(tag, trainers, arrays, n_steps: int, required, absent, card: str,
@@ -1636,6 +1668,186 @@ def compare_steps(tag, trainers, arrays, n_steps: int, required, absent, card: s
     return launches
 
 
+# -- phase 6: the experiment entry point -------------------------------------
+
+# the CLI phase's data: request-A lengths, 18 train and 6 test videos
+CLI_SETS = [("dataset.name", "synthetic"), ("dataset.synthetic.num_videos", "24"),
+            ("dataset.synthetic.num_classes", str(M)), ("dataset.synthetic.feat_dim", str(D)),
+            ("dataset.synthetic.min_len", "1500"), ("dataset.synthetic.max_len", "2100"),
+            ("dataset.synthetic.train_fraction", "0.75"), ("trainer.num_epochs", "2"),
+            ("trainer.save_every", "1"), ("trainer.eval_every", "1"),
+            ("tpu.batch_size", str(TRAIN_B))]
+# launches a train step and an eval batch of the default model imply (11
+# layers): the trainable stack a layer forward, a layer + the out-projection
+# in its sweep, its out-projection as a `wavenet_layer`; the eval stack a
+# layer + the out-projection; one launch of each other kernel
+N_LAYERS = 11
+PER_TRAIN_STEP = dict(wavenet_train_fwd=N_LAYERS, wavenet_train_sweep=N_LAYERS + 1,
+                      wavenet_layer=1, bilstm_train_fwd=1, bilstm_train_bwd=1,
+                      decoder_chain_fwd=1, decoder_chain_bwd=1, mucon_flint=1)
+PER_EVAL_BATCH = dict(wavenet_layer=N_LAYERS + 1, bilstm_recurrence=1, dense_viterbi=1)
+
+
+def cli_argv(sets) -> list:
+    argv = ["--exp-name", "chip_cli"]
+    for k, v in sets:
+        argv += ["--set", k, v]
+    return argv
+
+
+def tree_state(root):
+    from pathlib import Path
+
+    return sorted((str(p), p.stat().st_mtime_ns) for p in Path(root).rglob("*"))
+
+
+def cli_phase(dev, card: str, tmp: str) -> None:
+    """`python -m mucon_tpu_torch.cli.train_test_mucon` at full width: the
+    default model, B=8, the flint loss kernel, 2 epochs of 18 videos with an
+    eval and a checkpoint after each, then the final Viterbi eval.  Checks
+    (1) the run folder contract and 24 finite fields, (2) each kernel's
+    launches against the count the steps and eval batches imply, (3)
+    `test_mucon` reproducing the result read-only, (4) a fresh trainer's
+    `resume_latest`, and (5) the same checkpoint evaluated on the plain
+    path against the kernel eval's pickle, by `compare_request`'s rules."""
+    import contextlib
+    import dataclasses
+    import pickle
+    from pathlib import Path
+
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.cli import test_mucon, train_test_mucon
+    from mucon_tpu_torch.cli.common import create_model_from_cfg
+    from mucon_tpu_torch.data import handel_dataset
+    from mucon_tpu_torch.harness.evaluator import MuConEvaluator, pad_rows
+    from mucon_tpu_torch.harness.trainer import SimpleTrainer
+    from mucon_tpu_torch.models.model import batch_to_tensors
+    from mucon_tpu_torch.ops.eval_fused import build_fused_eval
+
+    runs, data = str(Path(tmp) / "runs"), str(Path(tmp) / "data")
+    sets = CLI_SETS + [("dataset.root", data), ("trainer.root", runs),
+                       ("tpu.use_pallas_loss", "True")]
+    t0 = time.perf_counter()
+    handel_dataset(smoke_cfg(runs, sets=sets), train=True)  # writes the .npy files
+    write_s = time.perf_counter() - t0
+    log = Path(tmp) / "cli.log"
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        result = train_test_mucon.main(cli_argv(sets))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(cuda.launch_counts)
+
+    # (1) the run folder contract
+    run = Path(runs) / "chip_cli" / "0"
+    fields = dataclasses.asdict(result)
+    expect(len(fields) == 24 and all(np.all(np.isfinite(v)) for v in fields.values()),
+           f"cli: the result is not 24 finite fields: {fields}")
+    ckpt = run / "checkpoints" / "epoch_1"
+    for path in (run / "config.yaml", run / "events.jsonl", ckpt / "model.pt",
+                 ckpt / "optimizer.pt", ckpt / "trainer_state.json",
+                 ckpt / "data_test_eval.pkl", run / "metrics" / "eval_metric_1.pkl"):
+        expect(path.exists(), f"cli: {path} missing")
+    events = [json.loads(line) for line in open(run / "events.jsonl")]
+    kinds = [e["kind"] for e in events]
+    for kind in ("train", "epoch", "eval_0", "train_phases", "final_eval", "run_phases"):
+        expect(kind in kinds, f"cli: no {kind} event")
+    state = json.loads((ckpt / "trainer_state.json").read_text())
+
+    # (2) every kernel launched as often as the steps and eval batches imply
+    steps = state["iter_num"]
+    evals = kinds.count("eval_0") + kinds.count("final_eval")
+    test_db = handel_dataset(smoke_cfg(runs, sets=sets), train=False)
+    eval_batches = evals * -(-len(test_db) // TRAIN_B)
+    want = {k: 0 for k in cuda.KERNELS}
+    for k, n in PER_TRAIN_STEP.items():
+        want[k] += steps * n
+    for k, n in PER_EVAL_BATCH.items():
+        want[k] += eval_batches * n
+    expect(launches == want, f"cli: launches {launches} != {want} implied by {steps} train "
+                             f"steps and {eval_batches} eval batches")
+    say(f"cli: {steps} train steps and {eval_batches} eval batches launched each kernel as "
+        f"often as they imply: {json.dumps({k: v for k, v in launches.items() if v})}")
+
+    # (3) test_mucon reproduces the result from the checkpoint, read-only
+    before = tree_state(runs)
+    t0 = time.perf_counter()
+    with open(log, "a") as f, contextlib.redirect_stdout(f):
+        again = test_mucon.single_main("chip_cli/0/1", root=runs)
+    reeval_s = time.perf_counter() - t0
+    expect(tree_state(runs) == before, "cli: test_mucon changed files under the run root")
+    diff = max(float(np.max(np.abs(np.subtract(v, fields[k]))))
+               for k, v in dataclasses.asdict(again).items())
+    expect(diff <= 1e-6, f"cli: test_mucon differs from the run's result by {diff}")
+
+    # (4) a fresh trainer resumes from the newest checkpoint
+    cfg = smoke_cfg(runs, sets=sets)
+    train_db = handel_dataset(cfg, train=True)
+    fresh = SimpleTrainer(cfg, "chip_cli", train_db, create_model_from_cfg(cfg, train_db),
+                          run_number=0)
+    expect(fresh.resume_latest() and fresh.epoch_num == 2 and fresh.iter_num == steps,
+           f"cli: resume_latest gave epoch {fresh.epoch_num}, iteration {fresh.iter_num}")
+    saved = torch.load(ckpt / "model.pt", map_location=dev, weights_only=True)
+    expect(all(torch.equal(v, saved[k]) for k, v in fresh.model.net.state_dict().items()),
+           "cli: the resumed parameters differ from the checkpoint's")
+
+    # (5) the checkpoint on the plain path against the kernel eval's pickle
+    plain_cfg = smoke_cfg(runs, kernels=False, sets=sets)
+    model = fresh.model
+    plain = MuConEvaluator(plain_cfg, test_db, model)
+    plain.viterbi_mode(True)
+    cuda.reset_launch_counts()
+    plain.evaluate()
+    torch.cuda.synchronize()
+    stray = {k: n for k, n in cuda.launch_counts.items() if n}
+    expect(not stray, f"cli: the plain evaluator launched kernels: {stray}")
+    plain.set_name("plain_eval")
+    plain.set_checkpointing_folder(Path(tmp) / "plain")
+    plain.save_stuff()
+    pk = pickle.load(open(ckpt / "data_test_eval.pkl", "rb"))
+    pp = pickle.load(open(Path(tmp) / "plain" / "data_plain_eval.pkl", "rb"))
+    run_k = build_fused_eval(model, frame_sampling=FRAME_SAMPLING, use_kernels=True)
+    run_p = build_fused_eval(model, frame_sampling=FRAME_SAMPLING, use_kernels=False)
+
+    def preds(d, lo, hi):
+        return [dict(y_labels=d["y_segs"][i], vit_labels=d["vit_segs"][i],
+                     transcript=d["s_transcript"][i]) for i in range(lo, hi)]
+
+    lo, mism = 0, []
+    with torch.inference_mode():
+        for batch in plain.create_dataloader():
+            B = batch.batch_size
+            arrays = pad_rows(batch_to_tensors(batch, dev), TRAIN_B)
+            outk = {k: v[:B] for k, v in run_k(arrays).items()}
+            outp = {k: v[:B] for k, v in run_p(arrays).items()}
+            mism += compare_request("cli", model, arrays, outk, outp, preds(pk, lo, lo + B),
+                                    preds(pp, lo, lo + B))
+            lo += B
+    expect(lo == len(pk["y_segs"]) == len(pp["y_segs"]), "cli: pickles do not cover the test set")
+    for line in mism:
+        say(f"near-tie mismatch (allowed): {line}")
+    say(f"cli: the checkpoint's plain-path eval equals the kernel eval on {lo} videos "
+        f"({len(mism)} near-tie mismatches)")
+
+    # the times, beside the card's name and power limit
+    epochs = [round(e["epoch_seconds"], 3) for e in events if e["kind"] == "epoch"]
+    evs = [(round(e["eval_seconds"], 3), e["eval_phases"]) for e in events
+           if e["kind"] in ("eval_0", "final_eval")]
+    (tp,) = [e for e in events if e["kind"] == "train_phases"]
+    (rp,) = [e for e in events if e["kind"] == "run_phases"]
+    say(f"cli: dataset write {write_s:.3f} s; run {run_s:.3f} s: setup "
+        f"{rp['setup_seconds']} s, epoch_seconds {epochs}, final save "
+        f"{rp['final_save_seconds']} s, train {len(train_db)} videos x {len(epochs)} epochs in "
+        f"{tp['train_seconds']} s = {len(train_db) * len(epochs) / tp['train_seconds']:.2f} "
+        f"videos/s; re-eval (test_mucon) {reeval_s:.3f} s [{card}]")
+    for i, (sec, ph) in enumerate(evs):
+        say(f"cli: eval {i} ({'final, Viterbi' if i == len(evs) - 1 else 'periodic'}) "
+            f"{sec} s, last_eval_phases {ph} [{card}]")
+    say(f"cli: {result}")
+
+
 def ptxas_summary(log: str) -> list:
     """One line a kernel from nvcc's `-Xptxas -v` log: its name (demangled
     where c++filt exists), its registers and its stack and spill bytes."""
@@ -1706,11 +1918,18 @@ def main() -> int:
             "MS-TCN++", model_m, dev, np.random.default_rng(0), smi,
             MSTCNPP_SERVING_KERNELS, absent=("wavenet_layer",))["mstcnpp_stack"]
     del model, model_m
-    train_results, train_launches, arrays = train(dev, np.random.default_rng(1), smi)
-    results.update(train_results)
-    launches.update({k: train_launches[k] for k in train_results})
-    compare_steps("MS-TCN++", make_trainers(dev, "mstcnpp"), arrays, MSTCNPP_STEPS,
-                  MSTCNPP_TRAIN_KERNELS, STACK_KERNELS, smi, stages=True)
+    tmp = tempfile.mkdtemp(prefix="mucon_chip_smoke_")
+    try:
+        train_results, train_launches, arrays = train(dev, np.random.default_rng(1), smi,
+                                                      tmp)
+        results.update(train_results)
+        launches.update({k: train_launches[k] for k in train_results})
+        compare_steps("MS-TCN++", make_trainers(dev, "mstcnpp", tmp), arrays, MSTCNPP_STEPS,
+                      MSTCNPP_TRAIN_KERNELS, STACK_KERNELS, smi, stages=True)
+        del arrays
+        cli_phase(dev, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     kernels = []
     for name, line in results.items():

@@ -1,4 +1,5 @@
-"""Serving entry point: segment raw feature arrays (mucon_tpu/cli/predict.py:41).
+"""Serving entry point: segment raw feature files with a trained run
+(mucon_tpu/cli/predict.py).
 
 `predict_videos` pads the videos into batches, runs the fused eval
 (`ops/eval_fused.py`: free decode + dense Viterbi, through the CUDA
@@ -6,16 +7,41 @@ kernels when the model lives on the card) and returns one dict per video:
 transcript ids and names, relative lengths, framewise Viterbi labels and
 framewise y-head labels.
 
-The JAX CLI's `main()` (reading a flax `model.msgpack` run folder) is not
-ported yet: it waits for the checkpoint reader.  Load JAX weights with
-`MuConModel.load_jax_params`.
+`main()` points a trained `exp/run/epoch` of either package (`model.pt`, or
+a JAX run's `model.msgpack`) at a directory of `*.npy` feature files
+([T x D] float32) and writes, per video:
+
+    <out>/<video>.labels.npy        framewise Viterbi labels [T] int32
+    <out>/<video>.y_labels.npy      framewise y-head argmax  [T] int32
+    <out>/<video>.json              transcript ids / names + relative lengths
+
+Usage:
+    python -m mucon_tpu_torch.cli.predict my_exp/0/149 \
+        --features /path/to/features --out /tmp/preds [--root R]
+
+The JAX CLI's `--feats-wire` (a reduced-precision feature wire) is not
+ported: features travel as float32.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+from pathlib import Path
+
 import numpy as np
 
-from mucon_tpu_torch.data import Sample, collate_padded, create_tf_input, create_tf_target
+from mucon_tpu_torch.cli.common import create_model_from_cfg
+from mucon_tpu_torch.config import get_cfg_defaults
+from mucon_tpu_torch.config.support import check_supported, use_kernels_from_cfg
+from mucon_tpu_torch.data import (
+    Sample,
+    collate_padded,
+    create_tf_input,
+    create_tf_target,
+    handel_dataset,
+)
+from mucon_tpu_torch.harness.checkpoint import load_params
 from mucon_tpu_torch.models.model import batch_to_tensors
 from mucon_tpu_torch.ops.eval_fused import build_fused_eval
 from mucon_tpu_torch.ops.viterbi import positions_to_results
@@ -74,3 +100,56 @@ def predict_videos(model, feats_list, names, db, *, frame_sampling: int = 30,
                 )
             )
     return results
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("identifier", help="exp-name/run-number/epoch-number")
+    p.add_argument("--features", required=True,
+                   help="directory of <video>.npy [T x D] feature files")
+    p.add_argument("--out", required=True, help="output directory")
+    p.add_argument("--root", default="")
+    args = p.parse_args(argv)
+
+    cfg = get_cfg_defaults()
+    root = args.root or cfg.trainer.root
+    exp_name, run_number, epoch_number = args.identifier.split("/")
+    cfg.merge_from_file(str(Path(root) / exp_name / run_number / "config.yaml"))
+    cfg.trainer.root = root
+    cfg.freeze()
+    check_supported(cfg)
+
+    # the dataset supplies the label vocabulary and the feature width only
+    db = handel_dataset(cfg, train=False)
+    model = create_model_from_cfg(cfg, db)
+    model.net.load_state_dict(load_params(root, exp_name, run_number, int(epoch_number),
+                                          model.device), strict=True)
+
+    feat_files = sorted(Path(args.features).glob("*.npy"))
+    if not feat_files:
+        raise SystemExit(f"no .npy feature files in {args.features}")
+    feats = [np.load(f) for f in feat_files]
+    names = [f.stem for f in feat_files]
+    for f, name in zip(feats, names):
+        if f.ndim != 2 or f.shape[1] != db.feat_dim:
+            raise SystemExit(f"{name}: expected [T x {db.feat_dim}] features, got {f.shape}")
+
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    results = predict_videos(model, feats, names, db,
+                             frame_sampling=cfg.evaluator.viterbi.frame_sampling,
+                             batch_size=cfg.tpu.batch_size, pad_multiple=cfg.tpu.pad_multiple,
+                             use_kernels=use_kernels_from_cfg(cfg))
+    for r in results:
+        np.save(out_dir / f"{r['name']}.labels.npy", r["vit_labels"])
+        np.save(out_dir / f"{r['name']}.y_labels.npy", r["y_labels"])
+        with open(out_dir / f"{r['name']}.json", "w") as f:
+            json.dump({k: r[k] for k in ("name", "transcript", "transcript_names",
+                                         "rel_lengths")}, f, indent=2)
+        print(f"{r['name']}: {' '.join(r['transcript_names'])}")
+    print(f"wrote {len(results)} predictions to {out_dir}")
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,16 @@
 """Padded, length-bucketed, prefetched batching (mucon_tpu/data/batching.py).
 
 Videos are padded into [B x T_pad x D] batches, T_pad rounded up to a
-multiple, transcripts padded to the dataset's maximum length; the
-`num_frames` / `transcript_len` vectors say what is real.  Each epoch the
-loader shuffles, sorts by frame count inside a window of 16 batches and
-shuffles the batches, so a batch holds videos of similar length.  A
-background thread collates the next batches while the caller trains.
+multiple (or one fixed `pad_to` for every batch), transcripts padded to the
+dataset's maximum length; the `num_frames` / `transcript_len` vectors say
+what is real.  Each epoch the loader shuffles, sorts by frame count inside
+a window of 16 batches and shuffles the batches, so a batch holds videos of
+similar length.  For the same seed and epoch the plan is the JAX loader's
+with its defaults.  A background thread collates the next batches while
+the caller trains.
+
+The JAX loader's `fixed_batches` (the device batch cache) and
+`batch_divisor` (the mesh) are not ported with their callers.
 """
 
 from __future__ import annotations
@@ -13,21 +18,9 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
-
-
-@dataclass
-class Sample:
-    """One video (mucon_tpu/data/general_dataset.py:32)."""
-
-    feats: np.ndarray  # [T x D] float32
-    gt_label: np.ndarray  # [T] int64
-    transcript: np.ndarray  # [N] int64
-    transcript_tf_input: np.ndarray  # [N + 1] int64 (SOS + transcript)
-    transcript_tf_target: np.ndarray  # [N + 1] int64 (transcript + EOS)
-    video_name: str
 
 
 @dataclass
@@ -51,15 +44,17 @@ class PaddedBatch:
         return self.feats.shape[0]
 
 
-def collate_padded(samples: Sequence, n_max: int, pad_multiple: int = 512) -> PaddedBatch:
+def collate_padded(samples: Sequence, n_max: int, pad_multiple: int = 512,
+                   t_pad: Optional[int] = None) -> PaddedBatch:
     """Pad a list of per-video samples into one batch, T_pad the longest
-    video rounded up to `pad_multiple` (a multiple of 16: the encoder
-    pools 16x)."""
+    video rounded up to `pad_multiple`, or `t_pad` (a multiple of 16: the
+    encoder pools 16x)."""
     B = len(samples)
     max_t = max(s.feats.shape[0] for s in samples)
-    t_pad = -(-max_t // pad_multiple) * pad_multiple
-    if t_pad % 16:
-        raise ValueError(f"pad_multiple {pad_multiple} gives T_pad {t_pad}, not a multiple of 16")
+    if t_pad is None:
+        t_pad = -(-max_t // pad_multiple) * pad_multiple
+    if t_pad % 16 or t_pad < max_t:
+        raise ValueError(f"T_pad {t_pad} is not a multiple of 16 at least {max_t}")
     D = samples[0].feats.shape[1]
 
     feats = np.zeros((B, t_pad, D), np.float32)
@@ -101,13 +96,15 @@ class PaddedBatchLoader:
     gives the lengths without loading the features."""
 
     def __init__(self, dataset, batch_size: int, pad_multiple: int = 512,
-                 shuffle: bool = True, seed: int = 0, prefetch: int = 2):
+                 shuffle: bool = True, seed: int = 0, prefetch: int = 2,
+                 pad_to: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.pad_multiple = pad_multiple
         self.shuffle = shuffle
         self.seed = seed
         self.prefetch = prefetch
+        self.pad_to = pad_to  # one T_pad for every batch (single-shape eval)
         self.epoch = 0
         self.n_max = dataset.max_transcript_length
         frames = getattr(dataset, "num_frames", None)
@@ -134,7 +131,7 @@ class PaddedBatchLoader:
 
     def _make_batch(self, idxs: np.ndarray) -> PaddedBatch:
         return collate_padded([self.dataset[int(i)] for i in idxs], self.n_max,
-                              self.pad_multiple)
+                              self.pad_multiple, t_pad=self.pad_to)
 
     def __iter__(self) -> Iterator[PaddedBatch]:
         batches = self._batch_indices()

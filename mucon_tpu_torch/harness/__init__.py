@@ -1,2 +1,3 @@
-"""Training harness of the port (mucon_tpu/harness): optimizers, schedulers
-and the train loop."""
+"""Experiment harness of the port (mucon_tpu/harness): optimizers and
+schedulers, the trainer, the evaluator, checkpoints, the metric store and
+the run log."""

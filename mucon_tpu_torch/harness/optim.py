@@ -69,6 +69,12 @@ class Scheduler:
     def step(self, **kwargs) -> None:
         raise NotImplementedError
 
+    def state_dict(self) -> dict:
+        return {"lr": self.lr}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.lr = d["lr"]
+
 
 class MultiStepScheduler(Scheduler):
     """torch MultiStepLR: lr *= gamma at each milestone epoch."""
@@ -84,15 +90,23 @@ class MultiStepScheduler(Scheduler):
         if self.epoch in self.milestones:
             self.lr *= self.gamma
 
+    def state_dict(self) -> dict:
+        return {"lr": self.lr, "epoch": self.epoch}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.lr, self.epoch = d["lr"], d["epoch"]
+
 
 class PlateauScheduler(Scheduler):
-    """torch ReduceLROnPlateau (mode max/min, factor, patience)."""
+    """torch ReduceLROnPlateau (mode max/min, factor, patience), stepped on
+    the first evaluator's s_mof_nbg (mucon_tpu/harness/trainer.py:351-354)."""
 
-    def __init__(self, base_lr, mode="max", factor=0.1, patience=20):
+    def __init__(self, base_lr, mode="max", factor=0.1, patience=20, verbose=False):
         super().__init__(base_lr)
         self.mode = mode
         self.factor = factor
         self.patience = patience
+        self.verbose = verbose
         self.best: Optional[float] = None
         self.num_bad = 0
 
@@ -110,3 +124,27 @@ class PlateauScheduler(Scheduler):
             if self.num_bad > self.patience:
                 self.lr *= self.factor
                 self.num_bad = 0
+                if self.verbose:
+                    print(f"[plateau] reducing lr to {self.lr}")
+
+    def state_dict(self) -> dict:
+        return {"lr": self.lr, "best": self.best, "num_bad": self.num_bad}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.lr, self.best, self.num_bad = d["lr"], d["best"], d["num_bad"]
+
+
+def create_scheduler(cfg) -> Optional[Scheduler]:
+    """The scheduler that `trainer.scheduler` names (trainers.py:39-56)."""
+    name = cfg.trainer.scheduler.name
+    base_lr = cfg.trainer.learning_rate
+    if name == "none":
+        return None
+    if name == "plateau":
+        p = cfg.trainer.scheduler.plateau
+        return PlateauScheduler(base_lr, mode=p.mode, factor=p.factor, patience=p.patience,
+                                verbose=p.verbose)
+    if name == "step":
+        s = cfg.trainer.scheduler.step
+        return MultiStepScheduler(base_lr, s.milestones, s.gamma)
+    raise ValueError(f"Invalid scheduler name ({name})")

@@ -1,6 +1,7 @@
 """PyTorch port: the partitioned gradient clip, the optimizers and the
 schedulers against the JAX package's optax chain and schedulers
-(mucon_tpu/harness/optim.py) over three updates with the same gradients."""
+(mucon_tpu/harness/optim.py) over three updates with the same gradients,
+and each package's `create_scheduler` stepped on one s_mof_nbg series."""
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ from mucon_tpu_torch.harness.optim import (
     PlateauScheduler,
     clip_grad_norm_partitioned,
     create_optimizer,
+    create_scheduler,
 )
 
 torch.set_num_threads(1)
@@ -74,3 +76,32 @@ def test_schedulers_match_jax():
         assert plateaus[0].lr == pytest.approx(plateaus[1].lr)
         assert (plateaus[0].best, plateaus[0].num_bad) == (plateaus[1].best, plateaus[1].num_bad)
     assert steps[0].lr == pytest.approx(0.025) and plateaus[0].lr < 0.1
+
+
+# an s_mof_nbg series with rises, ties and falls
+SERIES = [0.3, 0.2, 0.2, 0.45, 0.45, 0.44, 0.5, 0.1, 0.1, 0.1, 0.6, 0.2]
+
+
+@pytest.mark.parametrize("name,mode,patience", [
+    ("none", "max", 0), ("step", "max", 0), ("plateau", "max", 0),
+    ("plateau", "max", 2), ("plateau", "min", 1),
+])
+def test_create_scheduler_matches_jax(name, mode, patience):
+    """The scheduler that trainer.scheduler names, built from the config by
+    each package and stepped as the trainers step it (on the first
+    evaluator's s_mof_nbg): the same state (lr, and best and num_bad or the
+    epoch) after every step."""
+    cfg = get_cfg_defaults()
+    cfg.trainer.scheduler.name = name
+    cfg.trainer.scheduler.step.milestones = [2, 5]
+    p = cfg.trainer.scheduler.plateau
+    p.mode, p.patience, p.verbose = mode, patience, False
+    port, ref = create_scheduler(cfg), jax_optim.create_scheduler(cfg)
+    if name == "none":
+        assert port is None and ref is None
+        return
+    for s in SERIES:
+        port.step(metrics=s)
+        ref.step(metrics=s)
+        assert port.state_dict() == ref.state_dict(), s
+    assert port.lr < cfg.trainer.learning_rate

@@ -11,8 +11,11 @@ included); JAX runs its XLA path, and in a second case the slice as a
 whole: its fused decoder chain and flint loss kernels in interpret mode
 (`tpu.use_pallas_decoder`, `tpu.use_pallas_loss`) against the port's
 `use_loss_kernel` route.  Also one epoch of `SimpleTrainer.train()` on a
-synthetic dataset.
+synthetic dataset, and the plateau scheduler stepped on the evaluator's
+s_mof_nbg.
 """
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -24,10 +27,14 @@ import torch
 from mucon_tpu.data import collate_padded
 from mucon_tpu.data.synthetic import create_synthetic_dataset
 from mucon_tpu.harness.optim import create_optimizer as create_jax_optimizer
+from mucon_tpu.harness.optim import create_scheduler as create_jax_scheduler
 from mucon_tpu.models import create_model as create_jax_model
 from mucon_tpu.models.model import batch_to_arrays
+from mucon_tpu_torch.config import ConfigNode
+from mucon_tpu_torch.config.support import check_supported
 from mucon_tpu_torch.convert import state_dict_to_params
-from mucon_tpu_torch.harness.trainer import SimpleTrainer, TrainConfig, train_config_from_cfg
+from mucon_tpu_torch.harness.evaluator import MuConEvaluator
+from mucon_tpu_torch.harness.trainer import SimpleTrainer
 from mucon_tpu_torch.models.losses import loss_config_from_cfg
 from mucon_tpu_torch.models.model import batch_to_tensors, create_model, model_fields_from_cfg
 from tests.test_model import D, M, NMAX, make_sample, small_cfg
@@ -96,17 +103,26 @@ def _jax_trajectory(cfg, jm, params, batch):
     return losses, params
 
 
-def _port_trainer(cfg, params, seed=1):
+def port_cfg(cfg, root):
+    """The port's config node of a JAX config node, on the CPU, its run
+    folders under `root`."""
+    out = ConfigNode(cfg.to_dict())
+    out.system.device = "cpu"
+    out.trainer.root = str(root)
+    return out
+
+
+def _port_trainer(cfg, params, tmp_path, seed=1):
     tm = create_model(M, NMAX + 1, D, device="cpu", **model_fields_from_cfg(cfg),
                       loss_cfg=loss_config_from_cfg(cfg))
     tm.load_jax_params(params)
-    return SimpleTrainer(None, tm, train_config_from_cfg(cfg), seed=seed)
+    return SimpleTrainer(port_cfg(cfg, tmp_path), "train", None, tm, seed=seed)
 
 
-def _check_trajectory(cfg, jm, params, batch):
+def _check_trajectory(cfg, jm, params, batch, tmp_path):
     ref_losses, ref_params = _jax_trajectory(cfg, jm, params, batch)
 
-    trainer = _port_trainer(cfg, params)
+    trainer = _port_trainer(cfg, params, tmp_path)
     assert trainer.model.draw_masks(trainer.step_generator(), 3, 64) is not None
     arrays = batch_to_tensors(batch, "cpu")
     for step in range(STEPS):
@@ -121,12 +137,12 @@ def _check_trajectory(cfg, jm, params, batch):
         np.testing.assert_allclose(b[k], a[k], **TOL, err_msg=k)
 
 
-def test_train_step_trajectory_matches_jax(setup):
+def test_train_step_trajectory_matches_jax(setup, tmp_path):
     cfg, jm, params, batch = setup
-    _check_trajectory(cfg, jm, params, batch)
+    _check_trajectory(cfg, jm, params, batch, tmp_path)
 
 
-def test_train_step_trajectory_matches_jax_kernel_route(setup):
+def test_train_step_trajectory_matches_jax_kernel_route(setup, tmp_path):
     """JAX with the fused decoder chain and flint loss (interpret mode);
     the port with `use_loss_kernel` (routed from `tpu.use_pallas_loss`)."""
     cfg, _, params, batch = setup
@@ -136,7 +152,7 @@ def test_train_step_trajectory_matches_jax_kernel_route(setup):
     assert loss_config_from_cfg(cfg)["use_loss_kernel"]
     jm = create_jax_model(cfg, num_classes=M, max_decoding_steps=NMAX + 1,
                           input_feature_size=D)
-    _check_trajectory(cfg, jm, params, batch)
+    _check_trajectory(cfg, jm, params, batch, tmp_path)
 
 
 def test_state_dict_tree_feeds_the_jax_optimizer(setup):
@@ -155,9 +171,9 @@ def test_state_dict_tree_feeds_the_jax_optimizer(setup):
         assert np.all(np.asarray(b) < np.asarray(a) + 1e-6)
 
 
-def test_param_partition_matches_jax(setup):
+def test_param_partition_matches_jax(setup, tmp_path):
     cfg, jm, params, _ = setup
-    trainer = _port_trainer(cfg, params)
+    trainer = _port_trainer(cfg, params, tmp_path)
     labels = _flatten(jm.param_partition(params))
     names = {id(p): n for n, p in trainer.model.net.named_parameters()}
     got = {names[id(p)].replace(".", "/"): lab
@@ -165,12 +181,12 @@ def test_param_partition_matches_jax(setup):
     assert got == {k: str(v) for k, v in labels.items()}
 
 
-def test_dropout_masks_are_shared_by_seed(setup):
+def test_dropout_masks_are_shared_by_seed(setup, tmp_path):
     """Two trainers with one seed draw the same masks at every step, and
     the masks have the rates' statistics."""
     cfg, _, params, _ = setup
     cfg = _cfg(0.25)
-    t1, t2 = _port_trainer(cfg, params), _port_trainer(cfg, params)
+    t1, t2 = _port_trainer(cfg, params, tmp_path), _port_trainer(cfg, params, tmp_path)
     m1 = t1.model.draw_masks(t1.step_generator(), 3, 64)
     m2 = t2.model.draw_masks(t2.step_generator(), 3, 64)
     assert len(m1.stack) == 4 and m1.stack[1].shape == (3, 32, 16)
@@ -193,7 +209,7 @@ def _set(cfg, path, value):
 # options that change the reference's run and that the port cannot follow
 # yet: each raises from the config node instead of running another model
 @pytest.mark.parametrize("path,value,reader", [
-    ("trainer.scheduler.name", "plateau", train_config_from_cfg),
+    ("trainer.accumulate_grad_every", 2, check_supported),
     ("tpu.compute_dtype", "bfloat16", model_fields_from_cfg),
     ("model.teacher_forcing", False, model_fields_from_cfg),
 ])
@@ -205,31 +221,70 @@ def test_unported_config_options_raise(path, value, reader):
         reader(cfg)
 
 
-def test_plateau_trainer_config_raises():
-    with pytest.raises(NotImplementedError, match="s_mof_nbg"):
-        SimpleTrainer(None, create_model(M, NMAX + 1, D, device="cpu",
-                                         **model_fields_from_cfg(_cfg(0.0))),
-                      TrainConfig(scheduler="plateau"))
+def test_plateau_trainer_config_raises(tmp_path):
+    """The plateau scheduler (once refused: nothing computed s_mof_nbg)
+    steps on the first evaluator's s_mof_nbg after each evaluation."""
+    cfg = _synthetic_cfg(tmp_path, num_epochs=3)
+    cfg.trainer.scheduler.name = "plateau"
+    cfg.trainer.scheduler.plateau.patience = 0
+    cfg.trainer.scheduler.plateau.verbose = False
+    db = create_synthetic_dataset(cfg, train=True)
+    tm = create_model(db.num_actions, db.max_transcript_length + 1, D, device="cpu",
+                      **model_fields_from_cfg(cfg), loss_cfg=loss_config_from_cfg(cfg))
+    pcfg = port_cfg(cfg, tmp_path / "runs")
+    seen = []
+    ev = MuConEvaluator(pcfg, create_synthetic_dataset(cfg, train=False), tm)
+    evaluate = ev.evaluate
+
+    def record(model=None):
+        result = evaluate(model)
+        seen.append(result.s_mof_nbg)
+        return result
+
+    ev.evaluate = record
+    trainer = SimpleTrainer(pcfg, "plateau", db, tm, evaluators=[ev], seed=0)
+    trainer.train()
+    assert len(seen) == 3 and trainer.scheduler.best == max(seen)
+    # mucon_tpu's plateau scheduler fed the same s_mof_nbg series ends where
+    # the trainer's did, and the optimizer runs at its rate
+    ref = create_jax_scheduler(cfg)
+    for s in seen:
+        ref.step(metrics=s)
+    assert trainer.scheduler.state_dict() == ref.state_dict()
+    assert trainer.optimizer.param_groups[0]["lr"] == ref.lr
+    state = json.loads((trainer.run_folder / "checkpoints" / "epoch_2" /
+                        "trainer_state.json").read_text())
+    assert state["scheduler"] == trainer.scheduler.state_dict()
 
 
-def test_train_one_epoch_on_synthetic_data(tmp_path):
+def _synthetic_cfg(tmp_path, num_epochs: int):
     cfg = _cfg(0.25)
     cfg.dataset.name = "synthetic"
     cfg.dataset.root = str(tmp_path / "data")
     syn = cfg.dataset.synthetic
     syn.num_videos, syn.num_classes, syn.feat_dim = 8, M, D
     syn.min_len, syn.max_len = 40, 90
+    cfg.trainer.num_epochs = num_epochs
+    cfg.trainer.save_every = 1
+    cfg.tpu.batch_size, cfg.tpu.pad_multiple = 3, 16
+    cfg.evaluator.viterbi.frame_sampling = 5
+    return cfg
+
+
+def test_train_one_epoch_on_synthetic_data(tmp_path):
+    cfg = _synthetic_cfg(tmp_path, num_epochs=1)
     db = create_synthetic_dataset(cfg, train=True)
     tm = create_model(db.num_actions, db.max_transcript_length + 1, D, device="cpu",
                       **model_fields_from_cfg(cfg), loss_cfg=loss_config_from_cfg(cfg))
-    config = TrainConfig(num_epochs=1, batch_size=3, pad_multiple=16, log_every=1)
-    trainer = SimpleTrainer(db, tm, config, seed=0)
+    trainer = SimpleTrainer(port_cfg(cfg, tmp_path / "runs"), "epoch", db, tm, seed=0)
+    trainer.log_every = 1
     before = {k: v.clone() for k, v in tm.net.state_dict().items()}
     trainer.train()
-    train_events = [e for e in trainer.events if e["event"] == "train"]
+    events = [json.loads(line) for line in open(trainer.run_folder / "events.jsonl")]
+    train_events = [e for e in events if e["kind"] == "train"]
     assert len(train_events) == trainer.iter_num >= 2
-    assert trainer.events[-1]["event"] == "epoch"
-    for e in trainer.events:
+    assert [e["kind"] for e in events][-2:] == ["epoch", "train_phases"]
+    for e in events[:-1]:
         assert all(np.isfinite(e[k]) for k in LOSS_KEYS), e
     assert trainer.scheduler.epoch == 1
     changed = [k for k, v in tm.net.state_dict().items() if not torch.equal(v, before[k])]
