@@ -66,7 +66,21 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    re-evaluation (within 1e-6), a fresh trainer's `resume_latest` and the
    checkpoint's plain-path eval against the kernel eval's pickle (by
    `compare_request`'s near-tie rules), and prints its phases' seconds;
-7. prints the kernel report JSON (each kernel's launches, error, time, the
+7. runs the other regimes and evaluation modes on that phase's data and
+   checkpoint (`variants_phase`): `train_test_mucon_full` and
+   `train_test_mucon_mixed` (50% supervised) for an epoch each, with their
+   24 finite fields, both supervised loss terms in the train events, the
+   mixed subset and each kernel's launches; three train steps of the fully
+   supervised model with the kernels (twice) against plain steps from the
+   same weights (`compare_steps`); `MuConAlignmentEvaluator` with and
+   without the kernels (the decoder chain's forward kernel once an eval
+   batch, s_mat_score 1, the two paths by `compare_request`'s rules); and
+   the per-batch eval path, the DP kernel on full-T tables
+   (`evaluator.viterbi.multi_length`) and the host oracle
+   (`evaluator.viterbi.backend="host"`), each against the fused path
+   within 2e-3 of the 24 fields, Viterbi labels equal but at near ties;
+   it prints each path's seconds;
+8. prints the kernel report JSON (each kernel's launches, error, time, the
    plain twin's time, the least time the card could take for the same work
    and, where one PyTorch call computes the same function, that call's
    time), then `{"ok": true, "device": {...}}` as the last line.
@@ -545,6 +559,15 @@ def path_score(W, pois, pos, kv: int, n_valid: int) -> float:
     return float(f(s + f(pois[n, run - 1])))
 
 
+def path_tie_bound(best: float) -> float:
+    """How far below the best score another Viterbi path may score and
+    still count as a near tie: TIE * |best|, and nothing when the DP found
+    no feasible path."""
+    from mucon_tpu_torch.ops.viterbi import NEG
+
+    return TIE * abs(best) if best > NEG / 2 else 0.0
+
+
 def normaliser_step_margin(lam) -> float:
     """Relative distance of the Poisson means to the steps of the
     reference's normaliser (`ops/viterbi.py _poisson_rows`: floor(lam)
@@ -555,25 +578,27 @@ def normaliser_step_margin(lam) -> float:
     return float((d / lam).min())
 
 
-def compare_request(tag, model, arrays, outk, outp, predk, predp):
+def compare_request(tag, model, arrays, outk, outp, predk, predp, teacher_forcing=False):
     """Kernel vs plain on one request: integer outputs equal, vit_score
     within rel 1e-4; a mismatch passes only at a plain-path near tie (top-two
     margin <= TIE for an argmax, a Viterbi path whose plain-table score is
     within TIE * |score| of the best, or a score whose Poisson means lie
-    within TIE (relative) of a step of the normaliser).  Returns the list
-    of mismatches."""
+    within TIE (relative) of a step of the normaliser).  With
+    `teacher_forcing` the outputs are the alignment eval's.  Returns the
+    list of mismatches."""
     from mucon_tpu_torch.ops.eval_fused import eval_tables
-    from mucon_tpu_torch.ops.viterbi import NEG
 
     cache = {}
 
     def plain_tables():
         if not cache:
-            fwd = model.forward(arrays, use_kernels=False)
+            fwd = model.forward(arrays, use_kernels=False, teacher_forcing=teacher_forcing)
+            gt = ((arrays["transcript"], arrays["transcript_len"]) if teacher_forcing
+                  else (None, None))
             cache["fwd"] = fwd
             cache["tb"] = eval_tables(
                 fwd, arrays["num_frames"], arrays["feats"].shape[1],
-                arrays["transcript"].shape[1], FRAME_SAMPLING, MAX_LEN,
+                arrays["transcript"].shape[1], FRAME_SAMPLING, MAX_LEN, *gt,
             )
         return cache["fwd"], cache["tb"]
 
@@ -599,7 +624,8 @@ def compare_request(tag, model, arrays, outk, outp, predk, predp):
             s = int(np.flatnonzero(tk != tp)[0])
             allow(f"token at step {s}", b,
                   top2_margin(plain_tables()[0].transcript[b, s].cpu()), TIE)
-            continue  # the transcript and everything after it follow
+            if not teacher_forcing:
+                continue  # the transcript and everything after it follow
         for key in ("n_steps", "n_dec", "transcripts", "vit_k_valid"):
             if not np.array_equal(outk[key][b], outp[key][b]):
                 raise AssertionError(f"{tag} video {b}: {key} differs with equal tokens")
@@ -617,9 +643,7 @@ def compare_request(tag, model, arrays, outk, outp, predk, predp):
             kv = int(outp["vit_k_valid"][b])
             alt = path_score(tb.W[b].cpu().numpy(), tb.pois[b].cpu().numpy(),
                              outk["vit_pos"][b], kv, int(outp["n_dec"][b]))
-            # no tie allowance when the plain DP found no feasible path
-            bound = TIE * abs(sp) if sp > NEG / 2 else 0.0
-            allow("Viterbi path", b, sp - alt, bound)
+            allow("Viterbi path", b, sp - alt, path_tie_bound(sp))
         elif not np.array_equal(predk[b]["vit_labels"], predp[b]["vit_labels"]):
             raise AssertionError(f"{tag} video {b}: Viterbi labels differ")
     return mismatches
@@ -1560,22 +1584,25 @@ def smoke_cfg(root: str, kernels: bool = True, sets=()):
     return cfg
 
 
-def make_trainers(dev, ft_type: str, root: str) -> dict:
-    """Three trainers of the default model with the backbone `ft_type`, from
-    one seed, their run folders under `root`: "k" and "k2" with the kernels
-    and the loss kernel (tpu.use_pallas_loss), "p" plain (every
-    tpu.use_pallas* False)."""
+def make_trainers(dev, ft_type: str, root: str, model_cls=None) -> dict:
+    """Three trainers of the default model with the backbone `ft_type`
+    (`model_cls`: `MuConModel` or a supervised variant), from one seed,
+    their run folders under `root`: "k" and "k2" with the kernels and the
+    loss kernel (tpu.use_pallas_loss), "p" plain (every tpu.use_pallas*
+    False)."""
     from mucon_tpu_torch.harness.trainer import SimpleTrainer
     from mucon_tpu_torch.models.losses import loss_config_from_cfg
-    from mucon_tpu_torch.models.model import create_model
+    from mucon_tpu_torch.models.model import MuConModel, create_model
 
+    model_cls = model_cls or MuConModel
     out = {}
     for k in ("k", "k2", "p"):
         cfg = smoke_cfg(root, kernels=k != "p",
                         sets=[("tpu.batch_size", str(TRAIN_B)), ("model.ft.type", ft_type)])
         model = create_model(M, N_MAX + 1, D, device=dev, seed=0, ft_type=ft_type,
-                             loss_cfg=loss_config_from_cfg(cfg))
-        out[k] = SimpleTrainer(cfg, f"train_{ft_type}_{k}", None, model, seed=1)
+                             loss_cfg=loss_config_from_cfg(cfg), model_cls=model_cls)
+        out[k] = SimpleTrainer(cfg, f"train_{ft_type}_{model_cls.__name__}_{k}", None, model,
+                               seed=1)
     return out
 
 
@@ -1650,7 +1677,8 @@ def compare_steps(tag, trainers, arrays, n_steps: int, required, absent, card: s
                    f"{tag} train step {at + 1}: {n} differs by {err} (update {upd})")
             worst = max(worst, (err / max(upd, 1e-30), n))
         say(f"{tag} train step {at + 1}: main loss {lk['main']:.6f} (kernels) vs "
-            f"{lp['main']:.6f} (plain, from the same weights), max rel diff over the 5 terms "
+            f"{lp['main']:.6f} (plain, from the same weights), max rel diff over the {len(lp)} "
+            f"terms "
             f"{rel:.2e} <= 1e-4; every parameter within 1e-2 * max|update| (worst "
             f"{worst[0]:.2e}, {worst[1]})")
 
@@ -1688,8 +1716,8 @@ PER_TRAIN_STEP = dict(wavenet_train_fwd=N_LAYERS, wavenet_train_sweep=N_LAYERS +
 PER_EVAL_BATCH = dict(wavenet_layer=N_LAYERS + 1, bilstm_recurrence=1, dense_viterbi=1)
 
 
-def cli_argv(sets) -> list:
-    argv = ["--exp-name", "chip_cli"]
+def cli_argv(sets, exp: str = "chip_cli") -> list:
+    argv = ["--exp-name", exp]
     for k, v in sets:
         argv += ["--set", k, v]
     return argv
@@ -1846,6 +1874,406 @@ def cli_phase(dev, card: str, tmp: str) -> None:
         say(f"cli: eval {i} ({'final, Viterbi' if i == len(evs) - 1 else 'periodic'}) "
             f"{sec} s, last_eval_phases {ph} [{card}]")
     say(f"cli: {result}")
+    return dict(sets=sets, runs=runs, log=log, model=model, test_db=test_db)
+
+
+# -- phase 7: the supervised regimes and the other evaluation modes ----------
+
+def eval_launches(batches: int, teacher_forcing: bool = False) -> dict:
+    """Each kernel's launches in `batches` eval batches of the default model
+    (the alignment eval adds the decoder chain's forward, once a batch)."""
+    from mucon_tpu_torch import cuda
+
+    want = {k: 0 for k in cuda.KERNELS}
+    for k, n in PER_EVAL_BATCH.items():
+        want[k] += batches * n
+    if teacher_forcing:
+        want["decoder_chain_fwd"] += batches
+    return want
+
+
+def finite_fields(tag, result) -> dict:
+    import dataclasses
+
+    fields = dataclasses.asdict(result)
+    expect(len(fields) == 24 and all(np.all(np.isfinite(v)) for v in fields.values()),
+           f"{tag}: the result is not 24 finite fields: {fields}")
+    return fields
+
+
+def supervised_entries(dev, card: str, cli: dict) -> None:
+    """`train_test_mucon_full` and `train_test_mucon_mixed` (50% of the
+    videos supervised) for 1 epoch at B=8 with the flint loss kernel, each
+    with its eval and final Viterbi eval: 24 finite fields, train events
+    with both supervised terms, the mixed subset, and each kernel's
+    launches as the steps and eval batches imply."""
+    import contextlib
+    import random
+    from pathlib import Path
+
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.cli import train_test_mucon_full, train_test_mucon_mixed
+    from mucon_tpu_torch.data import handel_mixed_supervision_dataset
+
+    pct = [("dataset.mixed.full_supervision_percentage", "50.0")]
+    first = {}
+    for regime, entry, extra in (("full", train_test_mucon_full, []),
+                                 ("mixed", train_test_mucon_mixed, pct)):
+        exp = f"chip_{regime}"
+        sets = cli["sets"] + [("trainer.num_epochs", "1")] + extra
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        with open(cli["log"], "a") as f, contextlib.redirect_stdout(f):
+            result = entry.main(cli_argv(sets, exp))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(cuda.launch_counts)
+        finite_fields(regime, result)
+        run = Path(cli["runs"]) / exp / "0"
+        events = [json.loads(line) for line in open(run / "events.jsonl")]
+        train = [e for e in events if e["kind"] == "train"]
+        expect(train and all(e["classification_loss"] > 0
+                             and np.isfinite(e["supervised_length_loss"]) for e in train),
+               f"{regime}: train events without both supervised terms: {train}")
+        state = json.loads((run / "checkpoints" / "epoch_0" / "trainer_state.json").read_text())
+        steps = state["iter_num"]
+        kinds = [e["kind"] for e in events]
+        batches = (kinds.count("eval_0") + kinds.count("final_eval")) * \
+            -(-len(cli["test_db"]) // TRAIN_B)
+        want = eval_launches(batches)
+        for k, n in PER_TRAIN_STEP.items():
+            want[k] += steps * n
+        expect(launches == want, f"{regime}: launches {launches} != {want} implied by {steps} "
+                                 f"train steps and {batches} eval batches")
+        subset = ""
+        if regime == "mixed":
+            db = handel_mixed_supervision_dataset(smoke_cfg(cli["runs"], sets=sets), train=True)
+            n, count = len(db), max(1, round(len(db) * 0.5))
+            ref = [True] * count + [False] * (n - count)
+            random.seed(f"{db.cfg.system.seed}-{count}")  # the reference's scheme
+            random.shuffle(ref)
+            expect(db.is_it_supervised == ref and sum(ref) == count,
+                   f"mixed: supervised subset {db.is_it_supervised} != {ref}")
+            subset = (f"; supervised subset {count}/{n}: "
+                      f"{[db.file_names[i] for i in range(n) if ref[i]]}")
+        (epoch,) = [e for e in events if e["kind"] == "epoch"]
+        evals = [round(e["eval_seconds"], 3) for e in events
+                 if e["kind"] in ("eval_0", "final_eval")]
+        say(f"{regime}: {steps} train steps (classification_loss {train[0]['classification_loss']:.4f}, "
+            f"supervised_length_loss {train[0]['supervised_length_loss']:.6f} at step 0) and "
+            f"{batches} eval batches launched each kernel as often as they imply{subset}; "
+            f"run {run_s:.3f} s, epoch {epoch['epoch_seconds']:.3f} s, evals {evals} s "
+            f"[{card}]")
+        say(f"{regime}: {result}")
+        first[regime] = train[0]
+    # the same weights, masks and first batch: the same terms, but the mixed
+    # gate adds the supervised ones for its supervised videos only
+    full, mixed = first["full"], first["mixed"]
+    same = [k for k in full if k.endswith("_loss")]
+    expect(all(full[k] == mixed[k] for k in same) and mixed["main"] < full["main"],
+           f"mixed vs full at step 0: {mixed} vs {full}")
+    say(f"step 0: main loss {full['main']:.6f} (full) > {mixed['main']:.6f} (mixed), the "
+        f"other {len(same)} terms equal")
+
+
+def supervised_batch(arrays, rng, dev) -> dict:
+    """The train batch with ground truth: each video's frames cut at random
+    points into its transcript's segments, their lengths and the framewise
+    labels they imply; every video supervised."""
+    import torch
+
+    nf, nl = arrays["num_frames"].tolist(), arrays["transcript_len"].tolist()
+    tr = arrays["transcript"].cpu().numpy()
+    gt = np.zeros(tuple(arrays["feats"].shape[:2]), np.int64)
+    lengths = np.zeros(tr.shape, np.float32)
+    for b, (t, n) in enumerate(zip(nf, nl)):
+        cuts = np.sort(rng.choice(np.arange(1, t), size=n - 1, replace=False))
+        seg = np.diff(np.concatenate(([0], cuts, [t])))
+        gt[b, :t] = np.repeat(tr[b, :n], seg)
+        lengths[b, :n] = seg
+    return dict(arrays, gt_label=torch.as_tensor(gt, device=dev),
+                absolute_lengths=torch.as_tensor(lengths, device=dev),
+                fully_supervised=torch.ones(len(nf), dtype=torch.bool, device=dev))
+
+
+def supervised_steps(dev, card: str, tmp: str) -> None:
+    """Three kernel train steps of the fully supervised model (twice, bit
+    for bit) and before each a plain step from the same weights, masks and
+    batch (`compare_steps`: 1e-4 relative on all seven loss terms, 1e-2 of
+    the update), each train kernel launched as often as three steps imply."""
+    from mucon_tpu_torch.models.model import MuConFullySupervisedModel
+
+    rng = np.random.default_rng(1)
+    arrays = supervised_batch(train_batch(rng, dev), rng, dev)
+    trainers = make_trainers(dev, "wavenet", tmp, model_cls=MuConFullySupervisedModel)
+    launches = compare_steps("fully supervised WaveNet", trainers, arrays, TRAIN_STEPS,
+                             TRAIN_KERNELS, ("mstcnpp_stack", "wavenet_train_v2_fwd",
+                                             "wavenet_train_v2_sweep"), card)
+    want = {k: TRAIN_STEPS * n for k, n in PER_TRAIN_STEP.items()}
+    got = {k: launches[k] for k in want}
+    expect(got == want, f"fully supervised steps launched {got} != {want}")
+
+
+def alignment_eval(dev, card: str, cli: dict) -> None:
+    """`MuConAlignmentEvaluator` on the cli phase's checkpoint, with the
+    kernels and plain: the decoder chain's forward kernel once an eval batch
+    on the kernel path and no kernel on the plain one, the ground truth's
+    transcript decoded (s_mat_score 1, s_len_diff 0), and the two paths'
+    outputs equal by `compare_request`'s near-tie rules."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.harness import MuConAlignmentEvaluator
+    from mucon_tpu_torch.harness.evaluator import pad_rows
+    from mucon_tpu_torch.models.model import batch_to_tensors
+    from mucon_tpu_torch.ops.eval_fused import build_fused_eval
+
+    model, test_db = cli["model"], cli["test_db"]
+    batches = -(-len(test_db) // TRAIN_B)
+    saved, secs = {}, {}
+    for kernels in (True, False):
+        ev = MuConAlignmentEvaluator(smoke_cfg(cli["runs"], kernels=kernels, sets=cli["sets"]),
+                                     test_db, model)
+        ev.viterbi_mode(True)
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = ev.evaluate()
+        torch.cuda.synchronize()
+        secs[kernels] = time.perf_counter() - t0
+        launches = dict(cuda.launch_counts)
+        want = eval_launches(batches, teacher_forcing=True) if kernels else \
+            {k: 0 for k in cuda.KERNELS}
+        expect(launches == want, f"alignment eval (kernels {kernels}): launches {launches} "
+                                 f"!= {want}")
+        fields = finite_fields("alignment eval", result)
+        expect(fields["s_mat_score"] == 1.0 and fields["s_len_diff"] == 0.0,
+               f"alignment eval: s_mat_score {fields['s_mat_score']}, s_len_diff "
+               f"{fields['s_len_diff']} (want 1.0, 0.0)")
+        expect(model.teacher_forcing, "alignment eval left teacher forcing off")
+        saved[kernels] = ev.to_save
+
+    run_k = build_fused_eval(model, teacher_forcing=True, frame_sampling=FRAME_SAMPLING)
+    run_p = build_fused_eval(model, teacher_forcing=True, frame_sampling=FRAME_SAMPLING,
+                             use_kernels=False)
+
+    def preds(d, lo, hi):
+        return [dict(y_labels=d["y_segs"][i], vit_labels=d["vit_segs"][i],
+                     transcript=d["s_transcript"][i]) for i in range(lo, hi)]
+
+    lo, mism = 0, []
+    with torch.inference_mode():
+        for batch in ev.create_dataloader():
+            B = batch.batch_size
+            arrays = pad_rows(batch_to_tensors(batch, dev), TRAIN_B)
+            outk = {k: v[:B] for k, v in run_k(arrays).items()}
+            outp = {k: v[:B] for k, v in run_p(arrays).items()}
+            mism += compare_request("alignment", model, arrays, outk, outp,
+                                    preds(saved[True], lo, lo + B),
+                                    preds(saved[False], lo, lo + B), teacher_forcing=True)
+            lo += B
+    expect(lo == len(test_db), "alignment eval: batches do not cover the test set")
+    for line in mism:
+        say(f"near-tie mismatch (allowed): {line}")
+    say(f"alignment eval of {lo} videos: decoder_chain_fwd launched {batches} times (once a "
+        f"batch) with the kernels, no kernel plain; s_mat_score 1.0, s_len_diff 0.0; kernel "
+        f"== plain ({len(mism)} near-tie mismatches); {secs[True]:.3f} s with the kernels, "
+        f"{secs[False]:.3f} s plain [{card}]")
+
+
+def segment_positions(segments, kv: int) -> np.ndarray:
+    """A decode's transcript position at each of its kv windows, from its
+    segments (one a position; the last one holds the remainder frames)."""
+    pos = []
+    for n, seg in enumerate(segments):
+        pos += [n] * (seg.length // FRAME_SAMPLING)
+    return np.asarray(pos[:kv])
+
+
+def per_batch_eval(dev, card: str, cli: dict) -> None:
+    """The evaluator's per-batch path on the cli phase's checkpoint, with
+    `evaluator.viterbi.multi_length=True` (the DP kernel on full-T tables,
+    once a batch, its pointer walk in the launch) and with the host oracle
+    (`backend="host"`), each against the fused path on the same batches
+    (`eval_single_shape` off: the same forward): every video's Viterbi
+    labels equal but at a near tie of the two paths under the full-T
+    tables, and the 24 fields within 2e-3, each over every video but those
+    that a near tie (vit_* fields) or an EOS-first decode (s_* fields)
+    sets apart (`fields_over`)."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.harness import evaluator as ev_mod
+    from mucon_tpu_torch.ops import viterbi, viterbi_dp
+    from mucon_tpu_torch.ops.viterbi import viterbi_precompute
+
+    model, test_db = cli["model"], cli["test_db"]
+    batches = -(-len(test_db) // TRAIN_B)
+    runs = {}
+
+    def evaluate(name, sets):
+        decoded, inputs, host_s = [], [], []
+        dense, decode = ev_mod.dense_viterbi_decode_batch, ev_mod.ViterbiDecoder.decode
+        to_results = ev_mod.positions_to_results
+
+        def dense_spy(*a, **k):
+            inputs.append(a)
+            out = dense(*a, **k)
+            decoded.extend(out)
+            return out
+
+        def host_spy(self, lp):
+            t0 = time.perf_counter()
+            score, labels, segments = decode(self, lp)
+            host_s.append(time.perf_counter() - t0)
+            decoded.append(SimpleNamespace(score=score, segments=segments))
+            return score, labels, segments
+
+        def fused_spy(*a):
+            out = to_results(*a)
+            decoded.extend(out)
+            return out
+
+        ev = ev_mod.MuConEvaluator(smoke_cfg(cli["runs"], sets=cli["sets"] + sets),
+                                   test_db, model)
+        ev.viterbi_mode(True)
+        with mock.patch.object(ev_mod, "dense_viterbi_decode_batch", dense_spy), \
+                mock.patch.object(ev_mod.ViterbiDecoder, "decode", host_spy), \
+                mock.patch.object(ev_mod, "positions_to_results", fused_spy), \
+                mock.patch.object(viterbi, "traceback_positions",
+                                  wraps=viterbi.traceback_positions) as walk, \
+                mock.patch.object(viterbi_dp, "traceback_positions",
+                                  wraps=viterbi_dp.traceback_positions) as walk_dp:
+            cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            fields = finite_fields(name, ev.evaluate())
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        expect(walk.call_count == walk_dp.call_count == 0,
+               f"{name}: the Python pointer walk ran on the kernel path")
+        want = eval_launches(batches)
+        want["dense_viterbi"] = 0 if name == "host" else batches
+        launches = dict(cuda.launch_counts)
+        expect(launches == want, f"{name}: launches {launches} != {want}")
+        expect(len(decoded) == len(test_db), f"{name}: {len(decoded)} decodes")
+        runs[name] = SimpleNamespace(fields=fields, saved=ev.to_save, decoded=decoded,
+                                     inputs=inputs, secs=secs, host_s=host_s)
+
+    evaluate("fused", [("tpu.eval_single_shape", "False")])
+    evaluate("multi_length", [("evaluator.viterbi.multi_length", "True")])
+    evaluate("host", [("evaluator.viterbi.backend", "host")])
+
+    # the full-T tables of every video, from the inputs of the device decode
+    tables = []
+    for log_probs, t_valid, transcripts, n_valid, lams in runs["multi_length"].inputs:
+        W, pois, k_valid = viterbi_precompute(
+            torch.as_tensor(log_probs), torch.as_tensor(np.asarray(t_valid, np.int64)),
+            torch.as_tensor(np.asarray(transcripts, np.int64)), torch.as_tensor(lams),
+            frame_sampling=FRAME_SAMPLING, max_len=MAX_LEN, l_max=MAX_LEN // FRAME_SAMPLING)
+        tables += [(W[b].numpy(), pois[b].numpy(), int(k_valid[b]), int(n_valid[b]),
+                    lams[b][np.asarray(transcripts)[b, :n_valid[b]]])
+                   for b in range(len(t_valid))]
+    # each feasible decode's path, rebuilt from its segments, scores its own
+    # score under the full-T tables (the host's float64 and the fused path's
+    # pre-upsample tables part from them by rounding only)
+    for name, r in runs.items():
+        for i, d in enumerate(r.decoded):
+            if not d.score > viterbi.NEG / 2:
+                continue
+            W, pois, kv, n, _ = tables[i]
+            own = path_score(W, pois, segment_positions(d.segments, kv), kv, n)
+            expect(abs(own - d.score) <= path_tie_bound(d.score),
+                   f"{name} video {i}: its path scores {own} under the full-T tables, its "
+                   f"decode {d.score}")
+    fused = runs["fused"]
+    for name in ("multi_length", "host"):
+        r, ties = runs[name], []
+        # a video whose decode emits EOS first: the per-batch path's
+        # transcript is empty, the fused path's [0] (its n_dec is at least
+        # 1); both decode it against background
+        eos_first = [i for i, (a, b) in enumerate(zip(r.saved["s_transcript"],
+                                                     fused.saved["s_transcript"])) if a != b]
+        expect(all(r.saved["s_transcript"][i] == [] and fused.saved["s_transcript"][i] == [0]
+                   for i in eos_first),
+               f"{name}: decoded transcripts differ from the fused path's")
+        for i, (a, b) in enumerate(zip(r.saved["vit_segs"], fused.saved["vit_segs"])):
+            if np.array_equal(a, b):
+                continue
+            W, pois, kv, n, lam = tables[i]
+            s_here, s_fused = (path_score(W, pois, segment_positions(d[i].segments, kv), kv, n)
+                               for d in (r.decoded, fused.decoded))
+            best = max(s_here, s_fused)
+            line = (f"{name} video {i}: Viterbi labels differ from the fused path's; full-T "
+                    f"scores {s_here} vs {s_fused} (bound {path_tie_bound(best):.3e}), "
+                    f"Poisson step margin {normaliser_step_margin(lam):.3e}")
+            expect(abs(s_here - s_fused) <= path_tie_bound(best)
+                   or normaliser_step_margin(lam) <= TIE, line)
+            ties.append((i, line))
+        # the fields again from both passes' saved outputs, each family over
+        # the videos that its exemption leaves; over all videos they must
+        # give each pass's own result
+        metrics = ev_mod.MuConEvaluator(smoke_cfg(cli["runs"], sets=cli["sets"]), test_db, model)
+        metrics.viterbi_mode(True)
+        videos = range(len(test_db))
+        for x in (r, fused):
+            again = fields_over(metrics, x.saved, videos)
+            expect(all(np.array_equal(again[k], v) for k, v in x.fields.items()),
+                   f"{name}: the fields from the saved outputs {again} != {x.fields}")
+        apart = {"s_": set(eos_first), "vit_": {i for i, _ in ties}, "y_": set()}
+        worst = {}
+        for prefix, skip in apart.items():
+            keep = [i for i in videos if i not in skip]
+            expect(keep, f"{name}: every video set apart from the {prefix}* fields")
+            here, there = (fields_over(metrics, x.saved, keep) for x in (r, fused))
+            for k in (k for k in here if k.startswith(prefix)):
+                worst[k] = float(np.max(np.abs(np.subtract(here[k], there[k]))))
+                expect(worst[k] <= 2e-3,
+                       f"{name}: {k} {here[k]} differs from the fused path's {there[k]} by "
+                       f"{worst[k]} over videos {keep}")
+        expect(len(worst) == 24, f"{name}: compared {sorted(worst)}")
+        for _, line in ties:
+            say(f"near-tie mismatch (allowed): {line}")
+        if eos_first:
+            say(f"{name}: videos {eos_first} emit EOS first: the s_* fields compared over "
+                f"the other videos")
+        extra = ""
+        if r.host_s:
+            extra = (f"; the host decoder {sum(r.host_s):.3f} s for {len(r.host_s)} videos "
+                     f"({min(r.host_s):.3f}-{max(r.host_s):.3f} s a video)")
+        say(f"per-batch eval, {name}: {len(test_db)} videos in {batches} batch(es), "
+            f"{r.secs:.3f} s{extra}; dense_viterbi launched "
+            f"{0 if name == 'host' else batches} times, no Python walk; largest field diff "
+            f"to the fused path {max(worst.values()):.2e} ({len(ties)} near-tie Viterbi "
+            f"mismatches) [{card}]")
+    say(f"per-batch eval: the fused path on the same batches {fused.secs:.3f} s [{card}]")
+
+
+def fields_over(ev, saved: dict, videos) -> dict:
+    """The 24 fields of one evaluation pass over `videos` alone: `ev`'s own
+    metric objects, emptied, fed that pass's saved per-video outputs (the
+    arrays `_feed_all_metrics` gives them), in order."""
+    import dataclasses
+
+    ev.on_start_eval()
+    metrics = {a: m for a, m in vars(ev).items() if a.endswith("_metric")}
+    transcript = ("s_mat_score_metric", "s_abs_len_diff_metric")
+    for i in videos:
+        for a in transcript:
+            metrics[a].add(target_transcript=saved["target_transcripts"][i],
+                           predicted_transcript=saved["s_transcript"][i])
+        for a, m in metrics.items():
+            if a not in transcript:
+                m(targets=saved["target_segs"][i],
+                  predictions=saved[a.split("_")[0] + "_segs"][i])
+    return dataclasses.asdict(ev.on_finish_eval())
+
+
+def variants_phase(dev, card: str, tmp: str, cli: dict) -> None:
+    """The fully and mixed supervised entry points, the supervised train
+    step against its plain twin, the alignment evaluator and the per-batch
+    evaluation path, at full width on the cli phase's data and checkpoint."""
+    supervised_entries(dev, card, cli)
+    supervised_steps(dev, card, tmp)
+    alignment_eval(dev, card, cli)
+    per_batch_eval(dev, card, cli)
 
 
 def ptxas_summary(log: str) -> list:
@@ -1927,7 +2355,8 @@ def main() -> int:
         compare_steps("MS-TCN++", make_trainers(dev, "mstcnpp", tmp), arrays, MSTCNPP_STEPS,
                       MSTCNPP_TRAIN_KERNELS, STACK_KERNELS, smi, stages=True)
         del arrays
-        cli_phase(dev, smi, tmp)
+        cli = cli_phase(dev, smi, tmp)
+        variants_phase(dev, smi, tmp, cli)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -40,10 +40,10 @@ def compose_config(args) -> ConfigNode:
     return cfg
 
 
-def create_model_from_cfg(cfg, db, device=None) -> MuConModel:
-    """The model `cfg` describes for dataset `db`'s vocabulary and feature
-    width, on `device` (default `system.device`), weights drawn from
-    `system.seed`."""
+def create_model_from_cfg(cfg, db, device=None, model_cls=MuConModel) -> MuConModel:
+    """The `model_cls` `cfg` describes for dataset `db`'s vocabulary and
+    feature width, on `device` (default `system.device`), weights drawn
+    from `system.seed`."""
     return create_model(
         db.get_num_classes(),
         db.max_transcript_length + 1,  # plus one for EOS (train_test_mucon.py:36-37)
@@ -51,5 +51,6 @@ def create_model_from_cfg(cfg, db, device=None) -> MuConModel:
         device=device_from_cfg(cfg) if device is None else device,
         seed=cfg.system.seed,
         loss_cfg=loss_config_from_cfg(cfg),
+        model_cls=model_cls,
         **model_fields_from_cfg(cfg),
     )

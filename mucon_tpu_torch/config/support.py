@@ -28,8 +28,6 @@ UNPORTED = {
     "trainer.clip_grad_norm": (True,),
     "trainer.clip_grad_norm_separate": (True,),
     "trainer.clip_grad_norm_every_param": (False,),
-    "evaluator.viterbi.backend": ("device",),
-    "evaluator.viterbi.multi_length": (False,),
     "model.name": ("mucon",),
     "model.teacher_forcing": (True,),
     "tpu.compute_dtype": ("float32",),

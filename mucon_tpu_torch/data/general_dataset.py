@@ -1,5 +1,7 @@
 """Dataset layer: the disk contract and per-video samples
-(mucon_tpu/data/general_dataset.py; the weakly supervised dataset only).
+(mucon_tpu/data/general_dataset.py): the weakly supervised dataset, the
+fully supervised one (ground-truth segment lengths too) and the mixed one
+(a seeded subset of its videos supervised).
 
 Disk contract (the reference's src/core/datasets/general_dataset.py:93-101
 and README.md:24-47): a dataset root containing
@@ -17,7 +19,8 @@ with length masks instead of the reference's batch-size-1 collate.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import random
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -38,6 +41,16 @@ class Sample:
     transcript_tf_input: np.ndarray  # [N + 1] int64 (SOS + transcript)
     transcript_tf_target: np.ndarray  # [N + 1] int64 (transcript + EOS)
     video_name: str
+
+
+@dataclass
+class FullySupervisedSample(Sample):
+    absolute_lengths: np.ndarray = field(default=None)  # [N] float32
+
+
+@dataclass
+class MixedSupervisionSample(FullySupervisedSample):
+    fully_supervised: bool = False
 
 
 class GeneralDataset:
@@ -151,3 +164,45 @@ class GeneralDataset:
             ),
             video_name=self.file_names[item],
         )
+
+
+class GeneralFullySupervisedDataset(GeneralDataset):
+    """Adds the per-action absolute lengths of lengths/<name>.npy
+    (general_dataset.py:167-200)."""
+
+    def __init__(self, cfg, root: Path, relative_path_to_list="split1.train",
+                 relative_path_to_mapping="mapping.txt", feat_dim: int = -1):
+        super().__init__(cfg, root, relative_path_to_list, relative_path_to_mapping, feat_dim)
+        self.len_file_paths = [self.root / "lengths" / f"{x}.npy" for x in self.file_names]
+
+    def __getitem__(self, item: int) -> FullySupervisedSample:
+        s = super().__getitem__(item)
+        return FullySupervisedSample(
+            **vars(s),
+            absolute_lengths=np.load(str(self.len_file_paths[item])).astype(np.float32),
+        )
+
+
+class GeneralMixedSupervisionDataset(GeneralFullySupervisedDataset):
+    """A seeded random subset of the videos is supervised
+    (general_dataset.py:203-245): round(n * percentage / 100) of them, at
+    least 1, chosen by `random.shuffle` after
+    `random.seed(f"{system.seed}-{count}")`, the reference's scheme."""
+
+    def __init__(self, cfg, root: Path, full_supervision_percentage: float,
+                 relative_path_to_list="split1.train",
+                 relative_path_to_mapping="mapping.txt", feat_dim: int = -1):
+        super().__init__(cfg, root, relative_path_to_list, relative_path_to_mapping, feat_dim)
+        assert 0.0 < full_supervision_percentage < 100.0
+        self.full_supervision_percentage = full_supervision_percentage
+        n = len(self.feat_file_paths)
+        count = min(n, max(1, int(round(n * full_supervision_percentage / 100.0))))
+        self.number_of_full_supervision_examples = count
+        self.is_it_supervised = [True] * count + [False] * (n - count)
+        random.seed(f"{self.cfg.system.seed}-{count}")
+        random.shuffle(self.is_it_supervised)
+
+    def __getitem__(self, item: int) -> MixedSupervisionSample:
+        s = super().__getitem__(item)
+        return MixedSupervisionSample(**vars(s),
+                                      fully_supervised=self.is_it_supervised[item])

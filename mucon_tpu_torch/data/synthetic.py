@@ -14,7 +14,11 @@ from pathlib import Path
 
 import numpy as np
 
-from mucon_tpu_torch.data.general_dataset import GeneralDataset
+from mucon_tpu_torch.data.general_dataset import (
+    GeneralDataset,
+    GeneralFullySupervisedDataset,
+    GeneralMixedSupervisionDataset,
+)
 
 
 def materialize_synthetic_dataset(
@@ -144,3 +148,33 @@ def create_synthetic_dataset(cfg, train: bool = True) -> GeneralDataset:
         relative_path_to_train_list="split1.train",
     )
     return _finalize(db, set_name)
+
+
+def create_fully_supervised_synthetic_dataset(cfg, train: bool = True
+                                              ) -> GeneralFullySupervisedDataset:
+    """The supervised dataset over the same root (lengths/*.npy are always
+    written)."""
+    set_name = "train" if train else "test"
+    db = GeneralFullySupervisedDataset(
+        cfg=cfg,
+        root=_synthetic_root(cfg),
+        relative_path_to_list=f"split1.{set_name}",
+        relative_path_to_mapping="mapping.txt",
+        feat_dim=cfg.dataset.synthetic.feat_dim,
+    )
+    return _finalize(db, set_name, "fully_supervised_")
+
+
+def create_mixed_supervision_synthetic_dataset(cfg, train: bool = True
+                                               ) -> GeneralMixedSupervisionDataset:
+    set_name = "train" if train else "test"
+    pct = cfg.dataset.mixed.full_supervision_percentage
+    db = GeneralMixedSupervisionDataset(
+        cfg=cfg,
+        root=_synthetic_root(cfg),
+        relative_path_to_list=f"split1.{set_name}",
+        relative_path_to_mapping="mapping.txt",
+        feat_dim=cfg.dataset.synthetic.feat_dim,
+        full_supervision_percentage=pct,
+    )
+    return _finalize(db, set_name, f"mixed_supervision_percentage_{pct}_")

@@ -1,9 +1,10 @@
 """Evaluation: the 24-field MuCon result with Viterbi decoding
-(mucon_tpu/harness/evaluator.py, its fused device path).
+(mucon_tpu/harness/evaluator.py).
 
 Reference semantics (src/mucon/evaluators.py):
 
-* free decoding;
+* free decoding (`MuConAlignmentEvaluator`: teacher forcing, the action
+  alignment task);
 * transcript metrics on the s-head transcript (EOS dropped);
 * Viterbi decode of the y-head log-softmax constrained to the s-head's own
   transcript, with a per-class Poisson length model whose means are the
@@ -14,14 +15,23 @@ Reference semantics (src/mucon/evaluators.py):
   18 segmentation + 2 transcript + 6 edit/F1 metric objects;
 * per-video raw outputs pickled for offline visualization (`save_stuff`).
 
-Each batch runs `ops/eval_fused.py build_fused_eval` on the model's device
-(with the CUDA kernels of the stack, the BiLSTM and the Viterbi DP + walk
-when the model is on the card and `use_kernels_from_cfg` says so), under
-`torch.inference_mode()`; the host turns the window positions into labels
-and updates the numpy metrics.  With `tpu.eval_single_shape` every batch
-has one (batch_size, T_max) shape: the remainder batch gets dummy rows,
-which are sliced off.  The host Viterbi backend, multi-length decoding and
-the alignment evaluator are not ported (`config/support.py` refuses them).
+Two paths, as in the JAX package, both under `torch.inference_mode()` on
+the model's device (with the CUDA kernels of the stack, the BiLSTM, the
+decoder chain under teacher forcing and the Viterbi DP + walk when the
+model is on the card and `use_kernels_from_cfg` says so):
+
+* fused (`evaluator.viterbi.backend="device"`, `multi_length=False`):
+  each batch runs `ops/eval_fused.py build_fused_eval`, whose Viterbi
+  tables come from the pre-upsample log-probs; the host turns the window
+  positions into labels and updates the numpy metrics.  With
+  `tpu.eval_single_shape` every batch has one (batch_size, T_max) shape:
+  the remainder batch gets dummy rows, which are sliced off.
+* per batch (`backend="host"` or `multi_length=True`; evaluator.py:324-341,
+  675-802): the forward, then `MuConModel.predict` on the host, and the
+  Viterbi decode of the full-T log-probs either on the device
+  (`ops/viterbi.py dense_viterbi_decode_batch`: the DP kernel with its
+  pointer walk) or, with `backend="host"`, by the numpy hypothesis DP
+  (`decode/viterbi_host.py`), one video at a time.
 """
 
 from __future__ import annotations
@@ -30,13 +40,16 @@ import pickle
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from mucon_tpu_torch.config.support import check_supported, use_kernels_from_cfg
 from mucon_tpu_torch.data.batching import PaddedBatch, PaddedBatchLoader
+from mucon_tpu_torch.decode.grammar import SingleTranscriptGrammar
+from mucon_tpu_torch.decode.length_model import PoissonModel
+from mucon_tpu_torch.decode.viterbi_host import ViterbiDecoder
 from mucon_tpu_torch.metrics import (
     AbsLenDiffMetric,
     Edit,
@@ -49,7 +62,7 @@ from mucon_tpu_torch.metrics import (
 )
 from mucon_tpu_torch.models.model import batch_to_tensors
 from mucon_tpu_torch.ops.eval_fused import build_fused_eval
-from mucon_tpu_torch.ops.viterbi import positions_to_results
+from mucon_tpu_torch.ops.viterbi import dense_viterbi_decode_batch, positions_to_results
 from mucon_tpu_torch.utils import make_same_size_interpolate
 
 
@@ -60,6 +73,10 @@ def create_segmentation_from_segments(actions: np.ndarray, lengths: np.ndarray,
     lengths = np.around(lengths).astype(int)
     lengths[lengths < 0] = 0
     return np.repeat(actions, lengths)
+
+
+def one_hot(a: np.ndarray, num_classes: int) -> np.ndarray:
+    return np.eye(num_classes)[a.reshape(-1)]
 
 
 @dataclass
@@ -120,7 +137,11 @@ class MuConEvaluator:
         self.name = "eval"
         self.checkpointing_folder: Optional[Path] = None
         self.enable_viterbi = False
+        self.viterbi_multi_length = cfg.evaluator.viterbi.multi_length
         self.frame_sampling = cfg.evaluator.viterbi.frame_sampling
+        self.viterbi_backend = cfg.evaluator.viterbi.backend
+        if self.viterbi_backend not in ("device", "host"):
+            raise ValueError(f"Invalid evaluator.viterbi.backend {self.viterbi_backend!r}")
         self.last_eval_phases: dict = {}
 
         bg = test_db.background_class_ids
@@ -165,10 +186,19 @@ class MuConEvaluator:
     def set_checkpointing_folder(self, folder: Path) -> None:
         self.checkpointing_folder = Path(folder)
 
+    def _fused_backend(self) -> bool:
+        """Does `evaluate` run the fused path (evaluator.py:171)?"""
+        return self.viterbi_backend == "device" and not self.viterbi_multi_length
+
+    def _single_shape(self) -> bool:
+        """tpu.eval_single_shape, which pads the fused path only
+        (evaluator.py:177)."""
+        return bool(self.cfg.tpu.eval_single_shape) and self._fused_backend()
+
     def _eval_pad_to(self) -> Optional[int]:
-        """tpu.eval_single_shape: one T_pad, the test set's longest video
+        """With `_single_shape`: one T_pad, the test set's longest video
         rounded up to pad_multiple (evaluator.py:192)."""
-        if not self.cfg.tpu.eval_single_shape:
+        if not self._single_shape():
             return None
         t_max = max(self.test_db.num_frames(i) for i in range(len(self.test_db)))
         pm = self.cfg.tpu.pad_multiple
@@ -181,7 +211,10 @@ class MuConEvaluator:
             pad_to=self._eval_pad_to(),
         )
 
-    def on_start_eval(self) -> None:
+    def on_start_eval(self, model=None) -> None:
+        """Free decoding (the alignment evaluator turns teacher forcing on),
+        and empty metrics."""
+        (self.model if model is None else model).set_teacher_forcing(False)
         self.y_segs, self.s_segs, self.vit_segs = [], [], []
         self.s_lens, self.s_transcript = [], []
         self.target_segs, self.target_transcripts = [], []
@@ -191,18 +224,31 @@ class MuConEvaluator:
 
     def evaluate(self, model=None) -> MuConEvaluatorResult:
         """One pass over the test set with `model` (default: the one given
-        at construction).  `last_eval_phases` splits its wall time: stream
-        (batch fetch, collate and the copy to the device), first_dispatch /
-        dispatch (the fused program of the first / the other batches, up to
-        its outputs on the host), consume (tracebacks and metric updates)
-        and finish (aggregation)."""
+        at construction), on the fused path or per batch (module
+        docstring).  `last_eval_phases` splits its wall time: stream (batch
+        fetch, collate and the copy to the device), first_dispatch /
+        dispatch (the first / the other batches' device work up to its
+        outputs on the host: the fused program, or the forward), consume
+        (tracebacks, the per-batch path's prediction and Viterbi decode, and
+        metric updates) and finish (aggregation)."""
         model = self.model if model is None else model
-        self.on_start_eval()
+        self.on_start_eval(model)
         ph = dict(stream=0.0, first_dispatch=0.0, dispatch=0.0, consume=0.0, finish=0.0)
         self.last_eval_phases = ph
-        run = build_fused_eval(model, teacher_forcing=False, frame_sampling=self.frame_sampling,
-                               use_kernels=self.use_kernels)
-        rows = max(1, self.cfg.tpu.batch_size) if self.cfg.tpu.eval_single_shape else 0
+        if self._fused_backend():
+            # the program is keyed on teacher forcing (evaluator.py:518-521)
+            run = build_fused_eval(model, teacher_forcing=model.teacher_forcing,
+                                   frame_sampling=self.frame_sampling,
+                                   use_kernels=self.use_kernels)
+            consume = self._consume_fused
+        else:
+            def run(arrays):
+                return model.forward(arrays, use_kernels=self.use_kernels,
+                                     teacher_forcing=model.teacher_forcing)
+
+            def consume(batch, fwd):
+                self.batch_eval_calculation(batch, fwd, model)
+        rows = max(1, self.cfg.tpu.batch_size) if self._single_shape() else 0
         first = True
         with torch.inference_mode():
             batches = iter(self.create_dataloader())
@@ -219,7 +265,7 @@ class MuConEvaluator:
                 t2 = time.perf_counter()
                 ph["first_dispatch" if first else "dispatch"] += t2 - t1
                 first = False
-                self._consume_fused(batch, out)
+                consume(batch, out)
                 ph["consume"] += time.perf_counter() - t2
         t0 = time.perf_counter()
         result = self.on_finish_eval()
@@ -295,6 +341,70 @@ class MuConEvaluator:
             self.target_segs.append(target_labels)
             self.target_transcripts.append(target_transcript)
 
+    def batch_eval_calculation(self, batch: PaddedBatch, fwd, model=None) -> None:
+        """The per-batch path's host half (evaluator.py:675-748): the
+        model's per-video predictions (EOS dropped from the transcript),
+        the Viterbi decode of the full-T log-probs, and metric updates."""
+        model = self.model if model is None else model
+        preds = model.predict(batch, fwd)
+        s_transcripts = [p.transcript[:-1] for p in preds]
+        s_rel_lengths = [np.asarray(p.lengths) for p in preds]
+        vit_labels = [None] * batch.batch_size
+        if self.enable_viterbi:
+            vit_labels = self._decode_viterbi_batch(
+                batch, preds, s_transcripts, s_rel_lengths, self.test_db.get_num_classes(),
+                model.device)
+        y_preds = [np.argmax(p.segmentation_logits, axis=1) for p in preds]
+        self._feed_all_metrics(batch, y_preds, s_transcripts, s_rel_lengths, vit_labels)
+
+    def _decode_viterbi_batch(self, batch, preds, s_transcripts, s_rel_lengths, M: int,
+                              device) -> List[np.ndarray]:
+        """Per-class Poisson means from the s-head (evaluators.py:152-168),
+        then the dense decode on `device`, or the host oracle when
+        `evaluator.viterbi.backend="host"` (evaluator.py:750-802)."""
+        B = batch.batch_size
+        all_lambdas = np.ones((B, M), np.float64)
+        transcripts, n_valid = [], []
+        n_max = max(1, max(len(t) for t in s_transcripts))
+        for i in range(B):
+            tr = [t for t in s_transcripts[i] if 0 <= t < M]
+            rel = s_rel_lengths[i][: len(tr)]
+            if not tr:
+                # degenerate (EOS first): decode against background only, one
+                # segment of the whole video, as the fused path does.  The
+                # JAX package raises here (np.dot of no lengths): ROADMAP
+                # queue 3, F6
+                tr, rel = [0], np.ones(1, np.float32)
+            t_i = int(batch.num_frames[i])
+            actions = one_hot(np.array(tr), M)
+            lam = np.dot(rel, actions) * t_i
+            k = actions.sum(0)
+            k[k == 0] = 1
+            lam /= k
+            lam[lam == 0] = 1
+            all_lambdas[i] = lam
+            transcripts.append(tr + [0] * (n_max - len(tr)))
+            n_valid.append(len(tr))
+
+        if self.viterbi_backend == "host":
+            out = []
+            for i in range(B):
+                decoder = ViterbiDecoder(SingleTranscriptGrammar(transcripts[i][: n_valid[i]], M),
+                                         PoissonModel(all_lambdas[i]), self.frame_sampling)
+                _, labels, _ = decoder.decode(preds[i].segmentation_logits.astype(np.float64))
+                out.append(np.asarray(labels))
+            return out
+
+        t_pad = int(batch.feats.shape[1])
+        log_probs = np.zeros((B, t_pad, M), np.float32)
+        for i in range(B):
+            log_probs[i, : int(batch.num_frames[i])] = preds[i].segmentation_logits
+        results = dense_viterbi_decode_batch(
+            log_probs, batch.num_frames, np.asarray(transcripts, np.int32),
+            np.asarray(n_valid, np.int32), all_lambdas.astype(np.float32),
+            frame_sampling=self.frame_sampling, device=device, use_kernels=self.use_kernels)
+        return [r.labels for r in results]
+
     def on_finish_eval(self) -> MuConEvaluatorResult:
         self.to_save = {
             "y_segs": self.y_segs,
@@ -340,3 +450,12 @@ class MuConEvaluator:
         self.checkpointing_folder.mkdir(parents=True, exist_ok=True)
         with open(self.checkpointing_folder / f"data_{self.name}.pkl", "wb") as f:
             pickle.dump(self.to_save, f)
+
+
+class MuConAlignmentEvaluator(MuConEvaluator):
+    """Action alignment: decode with the ground-truth transcript (teacher
+    forcing), the reference's evaluators.py:343-347 (evaluator.py:858)."""
+
+    def on_start_eval(self, model=None) -> None:
+        super().on_start_eval(model)
+        (self.model if model is None else model).set_teacher_forcing(True)

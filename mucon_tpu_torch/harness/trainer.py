@@ -13,8 +13,10 @@
   `trainer.async_checkpoint`.
 
 One train step: the teacher-forced forward under autograd with this step's
-dropout masks, the batch loss, backward, the encoder / decoder gradient
-clip, and the optimizer update.  When the model lives on the card and
+dropout masks, the batch loss (with the supervised models' two terms,
+which the step returns and the `train` events log beside the others, as
+the JAX trainer's `_loss_scalars` does), backward, the encoder / decoder
+gradient clip, and the optimizer update.  When the model lives on the card and
 `use_kernels_from_cfg` says so, the step runs every train kernel of the JAX
 package as a hand-written CUDA kernel: the residual stack and the BiLSTM
 recurrence (forward and backward), the teacher-forced decoder chain
@@ -229,7 +231,8 @@ class SimpleTrainer:
         t0 = time.perf_counter()
         last = None
         for batch in self.create_train_dataloader():
-            scalars = self.train_step(batch_to_tensors(batch, self.device))
+            scalars = self.train_step(
+                batch_to_tensors(batch, self.device, supervised=self.model.supervised))
             self.timer.tick(batch.batch_size)
             if self.iter_num % self.log_every == 0:
                 values = {k: float(v) for k, v in scalars.items()}

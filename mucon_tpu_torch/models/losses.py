@@ -1,15 +1,21 @@
-"""MuCon's weakly supervised objective on a padded batch
-(mucon_tpu/models/losses.py:51-294, the unsupervised terms):
+"""MuCon's objective on a padded batch (mucon_tpu/models/losses.py):
 
     main = mul_transcript * transcript + mul_length * length
          + mul_mucon * mucon + mul_smoothing * smoothing
+        [+ mean over videos of gate * (mul_classification * classification
+                                       + mul_supervised_length * supervised_length)]
 
 Each term is the reference's per-video value computed over the video's
 unpadded extent — the transcript NLL over N_i + 1 teacher-forced steps,
 the hinge length loss over N_i steps, the mutual-consistency NLL over N_i
-segments, the smoothing MSE over (T_i - 1) * M elements — then averaged
-over the videos.  Every term is written for the whole batch at once (no
-loop over videos).  The supervised variants' terms are not ported.
+segments, the smoothing MSE over (T_i - 1) * M elements; for the supervised models
+the framewise cross-entropy against the ground-truth labels over T_i
+frames and the MSE of the softmaxed lengths against the ground truth's
+relative lengths over N_i segments — then averaged over the videos.  The
+gate is 1 for the fully supervised model and each video's
+`fully_supervised` flag for the mixed one (losses.py:287-323), so a batch
+with no supervised video adds exactly 0.  Every term is written for the
+whole batch at once (no loop over videos).
 
 Routing by config, as in the JAX package (losses.py:241-266): with
 `use_loss_kernel` (the JAX `tpu.use_pallas_loss`) and the `flint` loss
@@ -27,7 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from mucon_tpu_torch.models.masks import create_masks_padded
-from mucon_tpu_torch.models.outputs import MuConForwardOut, MuConLoss
+from mucon_tpu_torch.models.outputs import (
+    MuConForwardOut,
+    MuConFullySupervisedLoss,
+    MuConLoss,
+)
 from mucon_tpu_torch.ops.mucon_loss import absolute_lengths, mucon_flint, mucon_flint_plain
 
 # the repo's default loss options (mucon_tpu/config/defaults.py:93-117),
@@ -53,6 +63,8 @@ LOSS_DEFAULTS = dict(
     smoothing_clamp_min=0,
     smoothing_clamp_max=16,
     use_loss_kernel=False,
+    mul_classification=1.0,
+    mul_supervised_length=1.0,
 )
 
 
@@ -80,6 +92,8 @@ def loss_config_from_cfg(cfg) -> dict:
         smoothing_clamp_min=L.smoothing.clamp_min,
         smoothing_clamp_max=L.smoothing.clamp_max,
         use_loss_kernel=bool(getattr(cfg.tpu, "use_pallas_loss", False)),
+        mul_classification=L.fully_supervised.mul_classification,
+        mul_supervised_length=L.fully_supervised.mul_supervised_length,
     )
 
 
@@ -168,10 +182,37 @@ def mucon_loss(cfg, lengths_raw, segmentation, target_transcript, n_len, t_valid
     raise ValueError(f"Invalid mucon type ({cfg['mucon_type']})")
 
 
+def classification_loss(segmentation, gt_label, t_valid):
+    """Framewise cross-entropy against the ground-truth labels, mean over
+    the T_i valid frames [B] (losses.py:151)."""
+    B, T, M = segmentation.shape
+    lp = F.log_softmax(segmentation, dim=2)
+    valid = (torch.arange(T, device=segmentation.device)[None, :] < t_valid[:, None]).float()
+    picked = -torch.gather(lp, 2, torch.clamp(gt_label, 0, M - 1)[..., None])[..., 0]
+    return torch.sum(picked * valid, dim=1) / torch.clamp(t_valid.float(), min=1.0)
+
+
+def supervised_length_loss(lengths_raw, absolute_lengths, n_len):
+    """MSE between the ground truth's relative lengths and the softmaxed
+    length predictions of the first N_i steps, mean over N_i [B]
+    (losses.py:160)."""
+    n_max = absolute_lengths.shape[1]
+    seg_valid = torch.arange(n_max, device=lengths_raw.device)[None, :] < n_len[:, None]
+    rel_gt = absolute_lengths / torch.clamp(absolute_lengths.sum(dim=1, keepdim=True),
+                                            min=1e-12)
+    logits = torch.where(seg_valid, lengths_raw[:, :n_max], float("-inf"))
+    d = (rel_gt - torch.softmax(logits, dim=1)) ** 2 * seg_valid
+    return torch.sum(d, dim=1) / torch.clamp(n_len.float(), min=1.0)
+
+
 def compute_loss(cfg: dict, fwd: MuConForwardOut, tf_target, transcript, transcript_len,
-                 num_frames) -> MuConLoss:
+                 num_frames, gt_label=None, absolute_lengths=None, fully_supervised=None,
+                 supervised: bool = False) -> MuConLoss:
     """Teacher-forced batch loss: per-video exact values, mean over videos.
-    `cfg` holds the `LOSS_DEFAULTS` keys."""
+    `cfg` holds the `LOSS_DEFAULTS` keys.  With `supervised`, the two
+    supervised terms from `gt_label` [B x T] and `absolute_lengths`
+    [B x N_max], gated by `fully_supervised` [B] where it is given (the
+    mixed model)."""
     t = transcript_loss(cfg, fwd.transcript, tf_target, fwd.n_steps).mean()
     ln = length_loss(cfg["length_width"], fwd.lengths, transcript_len).mean()
     if cfg["use_loss_kernel"] and cfg["mucon_type"] == "flint" \
@@ -188,5 +229,16 @@ def compute_loss(cfg: dict, fwd: MuConForwardOut, tf_target, transcript, transcr
     sm = smoothing_loss(cfg, fwd.segmentation, num_frames).mean()
     main = (cfg["mul_transcript"] * t + cfg["mul_length"] * ln
             + cfg["mul_mucon"] * mc + cfg["mul_smoothing"] * sm)
-    return MuConLoss(main=main, transcript_loss=t, mucon_loss=mc, length_loss=ln,
-                     smoothing_loss=sm)
+    if not supervised:
+        return MuConLoss(main=main, transcript_loss=t, mucon_loss=mc, length_loss=ln,
+                         smoothing_loss=sm)
+
+    v_cls = classification_loss(fwd.segmentation, gt_label, num_frames)
+    v_len = supervised_length_loss(fwd.lengths, absolute_lengths, transcript_len)
+    gate = (torch.ones_like(v_cls) if fully_supervised is None
+            else fully_supervised.to(v_cls.dtype))
+    main = main + torch.mean(gate * (cfg["mul_classification"] * v_cls
+                                     + cfg["mul_supervised_length"] * v_len))
+    return MuConFullySupervisedLoss(
+        main=main, transcript_loss=t, mucon_loss=mc, length_loss=ln, smoothing_loss=sm,
+        classification_loss=v_cls.mean(), supervised_length_loss=v_len.mean())

@@ -8,7 +8,9 @@ seeded `torch.Generator`, or loaded from a JAX parameter tree through
   it runs the in-projection as a plain matmul and the backbone's stack
   (WaveNet's residual stack or the MS-TCN++ stage; `noft` has none), the
   BiLSTM recurrence and (in `ops/eval_fused.py`) the Viterbi DP as
-  hand-written kernels.
+  hand-written kernels.  It decodes freely; with `teacher_forcing` (the
+  alignment evaluator) it decodes the ground-truth transcript through the
+  decoder chain's forward kernel.
 * `forward(arrays, train=True, generator=g)` is the teacher-forced train
   forward under autograd, with dropout masks drawn from `g`: on a CUDA
   device the WaveNet residual stack, the BiLSTM recurrence and the
@@ -18,15 +20,24 @@ seeded `torch.Generator`, or loaded from a JAX parameter tree through
   PyTorch).
 * `loss(fwd, arrays)` is the batch objective (`models/losses.py`); with
   `loss_cfg["use_loss_kernel"]` (the JAX `tpu.use_pallas_loss`) its flint
-  term runs as the fused kernel of `ops/mucon_loss.py` on the card.
+  term runs as the fused kernel of `ops/mucon_loss.py` on the card.  The
+  fully supervised model adds the framewise classification and the
+  supervised length terms, the mixed one only for its supervised videos
+  (model.py:582-586).
+* `predict(batch, fwd)` is the host-side per-video prediction of the
+  evaluator's per-batch path (model.py:548-580).
+* `teacher_forcing` is the reference's mutable flag: the evaluators set it
+  (free decoding, or teacher forcing for alignment) and pass it to
+  `forward`; `predict` follows the forward output's `teacher_forced`.
 
 `use_kernels=False` runs the plain PyTorch versions instead of the kernels.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from mucon_tpu_torch import resolve_device
@@ -39,19 +50,26 @@ from mucon_tpu_torch.models.mucon import (
     TrainMasks,
     build_model,
 )
-from mucon_tpu_torch.models.outputs import MuConForwardOut, MuConLoss
+from mucon_tpu_torch.models.outputs import MuConForwardOut, MuConLoss, MuConPredictOut
 from mucon_tpu_torch.ops.mstcnpp_stack import mstcnpp_stack, pack_mstcnpp_params
 from mucon_tpu_torch.ops.wavenet_stack import pack_wavenet_params, wavenet_stack
 from mucon_tpu_torch.ops.wavenet_stack_train import stack_plan, wavenet_stack_train
 
 
 class MuConModel:
+    supervised = False
+    mixed = False
+
     def __init__(self, net: MuConNet, device, loss_cfg: Optional[dict] = None):
         self.device = resolve_device(device)
         self.net = net.to(self.device).eval()
         self.num_classes = net.num_classes
         self.max_decoding_steps = net.max_decoding_steps
         self.loss_cfg = dict(LOSS_DEFAULTS, **(loss_cfg or {}))
+        self.teacher_forcing = True
+
+    def set_teacher_forcing(self, teacher_forcing: bool = True) -> None:
+        self.teacher_forcing = teacher_forcing
 
     def load_jax_params(self, params) -> None:
         """Load a JAX parameter tree (nested dicts of arrays, as
@@ -61,11 +79,13 @@ class MuConModel:
         self.net.load_state_dict(params_to_state_dict(params), strict=True)
 
     def forward(self, arrays: dict, use_kernels: bool = True, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> MuConForwardOut:
-        """Eval forward with free decoding (no autograd), or with `train`
-        the teacher-forced forward under autograd, its dropout masks drawn
-        from `generator` (a generator on this model's device; None draws
-        no masks).  `arrays` come from `batch_to_tensors`."""
+                generator: Optional[torch.Generator] = None,
+                teacher_forcing: bool = False) -> MuConForwardOut:
+        """Eval forward (no autograd) with free decoding, or with
+        `teacher_forcing` the ground truth's teacher-forced decode; or with
+        `train` the teacher-forced forward under autograd, its dropout masks
+        drawn from `generator` (a generator on this model's device; None
+        draws no masks).  `arrays` come from `batch_to_tensors`."""
         if train:
             return self._train_forward(arrays, use_kernels, generator)
         feats, num_frames = arrays["feats"], arrays["num_frames"]
@@ -76,6 +96,7 @@ class MuConModel:
             return self.net(
                 feats, num_frames, arrays["tf_input"],
                 z_precomputed=z, tz_precomputed=tz, use_kernels=use_kernels,
+                transcript_len=arrays["transcript_len"], teacher_forcing=teacher_forcing,
             )
 
     def draw_masks(self, generator: Optional[torch.Generator], B: int,
@@ -114,8 +135,43 @@ class MuConModel:
         )
 
     def loss(self, fwd: MuConForwardOut, arrays: dict) -> MuConLoss:
-        return compute_loss(self.loss_cfg, fwd, arrays["tf_target"], arrays["transcript"],
-                            arrays["transcript_len"], arrays["num_frames"])
+        """The batch objective; a supervised model reads the ground truth
+        (`batch_to_tensors(..., supervised=True)`)."""
+        sup = self.supervised
+        return compute_loss(
+            self.loss_cfg, fwd, arrays["tf_target"], arrays["transcript"],
+            arrays["transcript_len"], arrays["num_frames"],
+            gt_label=arrays["gt_label"] if sup else None,
+            absolute_lengths=arrays["absolute_lengths"] if sup else None,
+            fully_supervised=arrays["fully_supervised"] if self.mixed else None,
+            supervised=sup,
+        )
+
+    def predict(self, batch, fwd: MuConForwardOut) -> List[MuConPredictOut]:
+        """Per-video predictions on the host, in numpy (model.py:548-580):
+        the transcript with its EOS (the ground truth's when `fwd` was
+        teacher-forced), the softmaxed lengths and the framewise
+        log-softmax.  `fwd` says how it decoded; the reference reads the
+        model's flag here instead."""
+        lengths_raw = fwd.lengths.cpu().numpy()
+        seg = fwd.segmentation.cpu().numpy()
+        tokens = fwd.tokens.cpu().numpy()
+        n_steps = fwd.n_steps.cpu().numpy()
+        outs = []
+        for i in range(lengths_raw.shape[0]):
+            t_i = int(batch.num_frames[i])
+            if fwd.teacher_forced:
+                n_i = int(batch.transcript_len[i])
+                transcript = list(batch.tf_target[i, : n_i + 1])
+                raw = lengths_raw[i, :n_i]
+            else:
+                k = int(n_steps[i])
+                transcript = list(tokens[i, :k])
+                raw = lengths_raw[i, : max(k - 1, 0)]
+            outs.append(MuConPredictOut(transcript=[int(x) for x in transcript],
+                                        lengths=_softmax_np(raw),
+                                        segmentation_logits=_log_softmax_np(seg[i, :t_i])))
+        return outs
 
     def param_partition(self) -> Dict[str, list]:
         """{"encode": [...], "decode": [...]} parameter groups for the
@@ -168,6 +224,26 @@ class MuConModel:
         )
 
 
+class MuConFullySupervisedModel(MuConModel):
+    supervised = True
+
+
+class MuConMixedSupervisionModel(MuConFullySupervisedModel):
+    mixed = True
+
+
+def _softmax_np(x: np.ndarray) -> np.ndarray:
+    if x.size == 0:
+        return x
+    e = np.exp(x - x.max())
+    return e / e.sum()
+
+
+def _log_softmax_np(x: np.ndarray) -> np.ndarray:
+    m = x.max(axis=-1, keepdims=True)
+    return x - m - np.log(np.exp(x - m).sum(axis=-1, keepdims=True))
+
+
 def create_model(
     num_classes: int,
     max_decoding_steps: int,
@@ -176,9 +252,11 @@ def create_model(
     device="cuda",
     seed: int = 0,
     loss_cfg: Optional[dict] = None,
+    model_cls=MuConModel,
     **fields,
 ) -> MuConModel:
-    """Build a MuConModel on `device` (the card unless the caller asks
+    """Build a `model_cls` (`MuConModel` or a supervised variant,
+    model.py:715-732) on `device` (the card unless the caller asks
     for the CPU) with weights drawn from
     `torch.Generator().manual_seed(seed)`; `fields` go to `build_model`,
     `loss_cfg` overrides `LOSS_DEFAULTS`."""
@@ -188,7 +266,7 @@ def create_model(
     for module in net.modules():
         if hasattr(module, "reset_parameters"):
             module.reset_parameters(g)
-    return MuConModel(net, device, loss_cfg)
+    return model_cls(net, device, loss_cfg)
 
 
 def model_fields_from_cfg(cfg) -> dict:
@@ -227,12 +305,15 @@ def model_fields_from_cfg(cfg) -> dict:
     )
 
 
-def batch_to_tensors(batch, device) -> dict:
+def batch_to_tensors(batch, device, supervised: bool = False) -> dict:
     """Tensor view of a `data.PaddedBatch` on `device` (the
-    keys the forward and the loss read; lengths and ids as int64)."""
+    keys the forward and the loss read; lengths and ids as int64).  With
+    `supervised` it adds the supervised losses' `gt_label`,
+    `absolute_lengths` and `fully_supervised`, which nothing else reads
+    on the device."""
     device = resolve_device(device)
     ids = lambda a: torch.as_tensor(a).to(device, torch.int64)  # noqa: E731
-    return dict(
+    out = dict(
         feats=torch.as_tensor(batch.feats, dtype=torch.float32).to(device),
         num_frames=ids(batch.num_frames),
         tf_input=ids(batch.tf_input),
@@ -240,3 +321,11 @@ def batch_to_tensors(batch, device) -> dict:
         transcript=ids(batch.transcript),
         transcript_len=ids(batch.transcript_len),
     )
+    if supervised:
+        out.update(
+            gt_label=ids(batch.gt_label),
+            absolute_lengths=torch.as_tensor(batch.absolute_lengths,
+                                             dtype=torch.float32).to(device),
+            fully_supervised=torch.as_tensor(batch.fully_supervised).to(device, torch.bool),
+        )
+    return out

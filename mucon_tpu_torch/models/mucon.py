@@ -7,10 +7,11 @@
 * fs: BiLSTM encoder, its final (h, c) projected to the decoder init,
   additive attention tanh(z W1 + l2(h)) . V, and a loop of `DecoderCell`
   steps: eval decodes freely and stops once every video has emitted EOS;
-  train is teacher-forced over all S steps through the decoder chain
+  train, and eval with `teacher_forcing` (the alignment evaluator), are
+  teacher-forced over all S steps through the decoder chain
   (`ops/decoder_chain.py decoder_teacher_forced`, the JAX package's
-  `tpu.use_pallas_decoder` route), with the embedding dropout mask drawn
-  for the whole [S x B x H] trajectory;
+  `tpu.use_pallas_decoder` route), train with the embedding dropout mask
+  drawn for the whole [S x B x H] trajectory;
 * fc: 1x1 conv head at Tz, then the per-video nearest upsample to T.
 
 Submodule and parameter names are the flax ones, so a JAX parameter tree
@@ -206,8 +207,9 @@ class MuConNet(nn.Module):
         tz_precomputed=None,  # ... and its lengths
         use_kernels: bool = True,
         train: bool = False,
-        transcript_len=None,  # [B] true N_i (train)
+        transcript_len=None,  # [B] true N_i (train, teacher forcing)
         masks: Optional[TrainMasks] = None,  # dropout masks (train)
+        teacher_forcing: bool = False,  # eval: decode the ground truth's S steps
     ) -> MuConForwardOut:
         B, T, _ = feats.shape
         S, M = self.max_decoding_steps, self.num_classes
@@ -232,10 +234,13 @@ class MuConNet(nn.Module):
         seg_z = self.conv_classifier(z)
         segmentation = interpolate_nearest_time(seg_z, tz_len, T, num_frames)
 
-        if train:
+        if train or teacher_forcing:
             # teacher-forced decode over all S steps (model.py:251-269): the
             # embedding, ReLU and dropout upstream of the chain, the heads
-            # after it; the loss reads the first N_i + 1 steps (mucon.py:417-418)
+            # after it; the loss and the alignment eval read the first
+            # N_i + 1 steps (mucon.py:417-418).  In eval (no masks) this is
+            # the chain's forward alone (the JAX package's scan there,
+            # mucon.py:366-372: the same function)
             emb = torch.relu(self.decoder.embedding(tf_input[:, :S].t()))  # [S x B x H]
             if masks is not None and masks.embedding is not None:
                 emb = emb * masks.embedding
@@ -249,6 +254,7 @@ class MuConNet(nn.Module):
                 n_steps=transcript_len + 1,
                 tz_lengths=tz_len,
                 segmentation_z=seg_z,
+                teacher_forced=True,
             )
 
         # early-exit free decode (mucon.py:330-365): runs until every video

@@ -1,7 +1,10 @@
-"""Forward and loss containers (mucon_tpu/models/outputs.py:19-41), field for field."""
+"""Forward, loss and prediction containers (mucon_tpu/models/outputs.py),
+field for field."""
 
 from dataclasses import dataclass
+from typing import List
 
+import numpy as np
 import torch
 
 
@@ -15,6 +18,7 @@ class MuConForwardOut:
     tz_lengths: torch.Tensor  # [B] encoder output lengths (T_i >> pools)
     segmentation_z: torch.Tensor = None  # [B x Tz x M] pre-upsample logits:
     # segmentation == nearest-upsample(segmentation_z) row for row
+    teacher_forced: bool = False  # decoded the ground truth (train, alignment)
 
 
 @dataclass
@@ -24,3 +28,19 @@ class MuConLoss:
     mucon_loss: torch.Tensor
     length_loss: torch.Tensor
     smoothing_loss: torch.Tensor
+
+
+@dataclass
+class MuConFullySupervisedLoss(MuConLoss):
+    classification_loss: torch.Tensor
+    supervised_length_loss: torch.Tensor
+
+
+class MuConPredictOut:
+    """Host-side per-video predictions (the reference's models.py:112-131)."""
+
+    def __init__(self, transcript: List[int], lengths: np.ndarray,
+                 segmentation_logits: np.ndarray):
+        self.transcript = transcript  # includes EOS, length N + 1
+        self.lengths = lengths  # [N] softmaxed, sums to 1
+        self.segmentation_logits = segmentation_logits  # [T x M] log-softmax

@@ -1,9 +1,12 @@
 """Serving evaluation: forward + Viterbi tables + dense DP + pointer walk
 (mucon_tpu/ops/eval_fused.py:31-319).
 
-    forward (free decode)
+    forward (free decode; or with teacher forcing, the alignment
+             evaluator's, the ground-truth transcript through the decoder
+             chain)
     -> log-softmax and argmax of the framewise head at Tz
-    -> EOS-dropped transcript + masked-softmax relative lengths
+    -> EOS-dropped transcript (teacher forcing: the ground truth's)
+       + masked-softmax relative lengths
     -> per-class Poisson means by one-hot averaging (evaluators.py:152-168)
     -> window tables from the pre-upsample log-probs (viterbi_precompute_z)
     -> dense Viterbi DP -> pointer walk (one CUDA kernel for both on the
@@ -34,19 +37,24 @@ from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi_decode
 
 
 def eval_tables(fwd, num_frames, t_full: int, n_max: int, frame_sampling: int,
-                max_len: int = 2000) -> SimpleNamespace:
-    """Free-decode eval tensors from a forward output (eval_fused.py:51-115):
-    seg_lp_z, y_z, n_dec, trs, rel, the Poisson means lam [B x M], and the
-    DP tables W, pois, k_valid."""
+                max_len: int = 2000, transcript=None, transcript_len=None) -> SimpleNamespace:
+    """Eval tensors from a forward output (eval_fused.py:51-115): seg_lp_z,
+    y_z, n_dec, trs, rel, the Poisson means lam [B x M], and the DP tables
+    W, pois, k_valid.  The decoded transcript is the free decode's, EOS
+    dropped; given `transcript` [B x n_max] and `transcript_len` (teacher
+    forcing), the ground truth's."""
     M = fwd.segmentation_z.shape[2]
     seg_lp_z = F.log_softmax(fwd.segmentation_z, dim=-1)
     up_idx = nearest_upsample_indices(fwd.tz_lengths, t_full, num_frames)
     y_z = torch.argmax(seg_lp_z, dim=-1)  # [B x Tz]; upsampled on the host
 
     steps = torch.arange(fwd.lengths.shape[1], device=num_frames.device)
-    n_dec = torch.clamp(fwd.n_steps - 1, min=1)
-    toks = fwd.tokens[:, :n_max]
-    trs = torch.where(toks >= M, 0, toks)
+    if transcript is not None:
+        trs, n_dec = transcript, transcript_len
+    else:
+        n_dec = torch.clamp(fwd.n_steps - 1, min=1)
+        toks = fwd.tokens[:, :n_max]
+        trs = torch.where(toks >= M, 0, toks)
     trs = torch.where(steps[None, :n_max] < n_dec[:, None], trs, 0)
 
     len_valid = steps[None, :] < n_dec[:, None]
@@ -92,19 +100,21 @@ def build_fused_eval(model, teacher_forcing: bool = False, frame_sampling: int =
     JAX `unpack_eval_wire`: tokens, n_steps, rel_lengths, n_dec,
     transcripts, vit_score, vit_best_l, vit_pos, vit_k_valid, tz_len,
     y_argmax_z, y_argmax.  `arrays` come from `batch_to_tensors`.
-    `use_kernels=False` runs the plain twins of the three kernels (the
-    DP and the walk as two steps)."""
-    if teacher_forcing:
-        raise NotImplementedError("the port serves free decoding only")
+    `use_kernels=False` runs the plain twins of the kernels (the DP and the
+    walk as two steps).  `teacher_forcing` decodes the ground-truth
+    transcript (the decoder chain's forward kernel on the kernel path) and
+    takes it, not the decoded one, for the tables (eval_fused.py:82-86)."""
     S = frame_sampling
 
     @torch.no_grad()
     def run(arrays: dict) -> dict:
         num_frames = arrays["num_frames"]
         t_full = arrays["feats"].shape[1]
-        fwd = model.forward(arrays, use_kernels=use_kernels)
+        fwd = model.forward(arrays, use_kernels=use_kernels, teacher_forcing=teacher_forcing)
+        gt = ((arrays["transcript"], arrays["transcript_len"]) if teacher_forcing
+              else (None, None))
         tb = eval_tables(fwd, num_frames, t_full, arrays["transcript"].shape[1],
-                         S, max_len)
+                         S, max_len, *gt)
         if use_kernels:
             score, best_l, _, vit_pos = dense_viterbi_decode(
                 tb.W, tb.pois, tb.k_valid, tb.n_dec, S, max_len)

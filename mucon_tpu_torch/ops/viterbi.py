@@ -11,7 +11,9 @@ Poisson round/floor normaliser quirk, remainder frames placed first).
 Everything is batched over videos with an explicit leading B axis.
 `dense_viterbi_plain` is the twin of `_dense_viterbi_from_tables`
 (viterbi.py:170) and the reference of the CUDA kernel
-(`ops/viterbi_dp.py`).
+(`ops/viterbi_dp.py`).  The tables come from full-T log-probs
+(`viterbi_precompute`, the evaluator's per-batch path) or from the
+pre-upsample ones (`viterbi_precompute_z`, the fused eval).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from typing import List
 
 import numpy as np
 import torch
+
+from mucon_tpu_torch import resolve_device
 
 NEG = -1e30  # -inf stand-in that survives f32 arithmetic
 
@@ -57,6 +61,31 @@ def _poisson_rows(lam, lengths):
         - norms[..., None]
     )
     return torch.where(lengths > 0, out, NEG)
+
+
+def viterbi_precompute(
+    log_probs,  # [B x T_pad x M] framewise log-probs
+    t_valid,  # [B]
+    transcripts,  # [B x N]
+    class_lambdas,  # [B x M]
+    *,
+    frame_sampling: int,
+    max_len: int,
+    l_max: int,
+):
+    """DP tables from full-T log-probs (viterbi.py:65): W [B x K x N] the
+    window sums (each window's frames summed directly, not by cumsum
+    differences), pois [B x N x L], k_valid [B]."""
+    S = frame_sampling
+    B, T_pad, M = log_probs.shape
+    K = T_pad // S
+    wsum = log_probs[:, : K * S].reshape(B, K, S, M).sum(dim=2)  # [B x K x M]
+    tr = torch.clamp(transcripts, 0, M - 1)
+    W = torch.gather(wsum, 2, tr[:, None, :].expand(B, K, tr.shape[1]))
+    lens = (torch.arange(l_max, device=log_probs.device) + 1) * S
+    lam = torch.gather(class_lambdas, 1, tr)  # [B x N]
+    pois = torch.where(lens < max_len, _poisson_rows(lam, lens), NEG)
+    return W, pois, t_valid // S
 
 
 def viterbi_precompute_z(
@@ -200,3 +229,41 @@ def positions_to_results(
             DenseDecodeResult(score=float(scores[b]), labels=labels, segments=segments)
         )
     return results
+
+
+def dense_viterbi_decode_batch(
+    log_probs,  # [B x T x M] numpy framewise log-probs
+    t_valid,  # [B]
+    transcripts,  # [B x N]
+    n_valid,  # [B]
+    class_lambdas,  # [B x M]
+    frame_sampling: int = 30,
+    max_len: int = 2000,
+    device="cuda",
+    use_kernels: bool = True,
+) -> List[DenseDecodeResult]:
+    """Batched dense decode of host log-probs on `device` (viterbi.py:267):
+    the full-T tables, the DP and the pointer walk, then labels and
+    segments on the host.  With `use_kernels` the DP and the walk are
+    `ops/viterbi_dp.py dense_viterbi_decode` (one launch of
+    `csrc/viterbi.cu` on a CUDA device, its plain twins on the CPU);
+    without, the plain DP and `traceback_positions`."""
+    from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi_decode
+
+    S = frame_sampling
+    device = resolve_device(device)
+    ids = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)  # noqa: E731
+    W, pois, k_valid = viterbi_precompute(
+        torch.as_tensor(np.asarray(log_probs, np.float32), device=device), ids(t_valid),
+        ids(transcripts),
+        torch.as_tensor(np.asarray(class_lambdas, np.float32), device=device),
+        frame_sampling=S, max_len=max_len, l_max=max_len // S,
+    )
+    n = ids(n_valid)
+    if use_kernels:
+        score, _, _, pos = dense_viterbi_decode(W, pois, k_valid, n, S, max_len)
+    else:
+        score, best_l, bps = dense_viterbi_plain(W, pois, k_valid, n, S, max_len)
+        pos = traceback_positions(bps, k_valid, n, best_l)
+    return positions_to_results(t_valid, transcripts, n_valid, score.cpu().numpy(),
+                                pos.cpu().numpy(), k_valid.cpu().numpy(), S)

@@ -3,11 +3,14 @@
 The defaults, the `--set` coercion (the port parses scalars without yaml)
 and the `config.yaml` round trip in both directions are held to the JAX
 package's; the port composes, dumps and reloads with yaml blocked; options
-it does not run raise, and TPU-only options are logged once.
+it does not run raise (the host Viterbi backend and multi-length decoding
+run, on the evaluator's per-batch path), and TPU-only options are logged
+once.
 """
 
 import logging
 import sys
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -131,7 +134,6 @@ def test_compose_dump_reload_without_yaml(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("key,value", [
     ("tpu.cache_batches", True), ("trainer.accumulate_grad_every", 2),
-    ("evaluator.viterbi.backend", "host"), ("evaluator.viterbi.multi_length", True),
     ("tpu.compute_dtype", "bfloat16"), ("tpu.feats_transfer_dtype", "int8"),
     ("tpu.eval_feats_transfer_dtype", "bfloat16"), ("tpu.device_prefetch", 0),
     ("trainer.clip_grad_norm_every_param", True), ("tpu.mesh.multihost", True),
@@ -147,6 +149,28 @@ def test_unported_keys_raise(key, value):
     node_[leaf] = value
     with pytest.raises(NotImplementedError):
         support.check_supported(cfg)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("evaluator.viterbi.backend", "host"), ("evaluator.viterbi.multi_length", True),
+])
+def test_ported_eval_keys_accepted(key, value):
+    """Both keys pass `check_supported` and send the evaluator down the
+    per-batch path (the fused path's single-shape padding off with it)."""
+    from mucon_tpu_torch.harness.evaluator import MuConEvaluator
+
+    cfg = get_cfg_defaults()
+    db = SimpleNamespace(background_class_ids=[0])
+    assert MuConEvaluator(cfg, db, None)._fused_backend()
+    *parents, leaf = key.split(".")
+    node_ = cfg
+    for p in parents:
+        node_ = node_[p]
+    node_[leaf] = value
+    support.check_supported(cfg)
+    ev = MuConEvaluator(cfg, db, None)
+    assert not ev._fused_backend() and not ev._single_shape()
+    assert ev._eval_pad_to() is None
 
 
 def test_tpu_only_keys_are_logged_once(caplog):

@@ -88,7 +88,9 @@ def test_port_imports_no_jax_or_flax():
         "          'metrics.segmentation', 'metrics.transcript', 'metrics.fully_supervised',\n"
         "          'utils.sizing', 'harness.metrics_store', 'harness.logging',\n"
         "          'harness.checkpoint', 'harness.evaluator', 'cli.common',\n"
-        "          'cli.train_test_mucon', 'cli.test_mucon'):\n"
+        "          'cli.train_test_mucon', 'cli.test_mucon', 'cli.train_test_mucon_full',\n"
+        "          'cli.train_test_mucon_mixed', 'decode.length_model',\n"
+        "          'decode.viterbi_host'):\n"
         "    assert 'mucon_tpu_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
