@@ -80,7 +80,22 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    (`evaluator.viterbi.backend="host"`), each against the fused path
    within 2e-3 of the 24 fields, Viterbi labels equal but at near ties;
    it prints each path's seconds;
-8. prints the kernel report JSON (each kernel's launches, error, time, the
+8. exercises the trainer's options on that phase's data and run folder
+   (`trainer_options_phase`): `train_test_mucon` for 3 epochs with
+   `tpu.cache_batches` and `tpu.device_prefetch 2`, against the same fixed
+   batches streamed with no cache and no prefetch (no collate in epochs 2-3,
+   evals 2-3 and the final eval; every epoch loss and eval field equal bit
+   for bit) and against the defaults, with each run's epoch and eval
+   `stream` seconds and the cache's bytes; the int8 wire's eval forward and
+   train step equal bit for bit to float32 on the dequantized features, an
+   epoch on the float16 and bfloat16 wires, each wire's bytes a batch;
+   `trainer.accumulate_grad_every=2` at B=4 and one step of each clip mode
+   (joint, per-parameter, none), each against plain steps from the same
+   weights; three free-decoding (`model.teacher_forcing=False`) kernel
+   steps against plain steps, no decoder chain launched, and a
+   `TrainerForTFExperiments` run launching the chain in its first epoch
+   only; `inspect_run` and `write_report` on the cli run folder;
+9. prints the kernel report JSON (each kernel's launches, error, time, the
    plain twin's time, the least time the card could take for the same work
    and, where one PyTorch call computes the same function, that call's
    time), then `{"ok": true, "device": {...}}` as the last line.
@@ -1584,12 +1599,13 @@ def smoke_cfg(root: str, kernels: bool = True, sets=()):
     return cfg
 
 
-def make_trainers(dev, ft_type: str, root: str, model_cls=None) -> dict:
+def make_trainers(dev, ft_type: str, root: str, model_cls=None, sets=()) -> dict:
     """Three trainers of the default model with the backbone `ft_type`
     (`model_cls`: `MuConModel` or a supervised variant), from one seed,
     their run folders under `root`: "k" and "k2" with the kernels and the
     loss kernel (tpu.use_pallas_loss), "p" plain (every tpu.use_pallas*
-    False)."""
+    False); `sets` are more config overrides, and each trainer's model
+    takes its teacher forcing from them (`on_start_epoch`)."""
     from mucon_tpu_torch.harness.trainer import SimpleTrainer
     from mucon_tpu_torch.models.losses import loss_config_from_cfg
     from mucon_tpu_torch.models.model import MuConModel, create_model
@@ -1598,12 +1614,33 @@ def make_trainers(dev, ft_type: str, root: str, model_cls=None) -> dict:
     out = {}
     for k in ("k", "k2", "p"):
         cfg = smoke_cfg(root, kernels=k != "p",
-                        sets=[("tpu.batch_size", str(TRAIN_B)), ("model.ft.type", ft_type)])
+                        sets=[("tpu.batch_size", str(TRAIN_B)), ("model.ft.type", ft_type),
+                              *sets])
         model = create_model(M, N_MAX + 1, D, device=dev, seed=0, ft_type=ft_type,
                              loss_cfg=loss_config_from_cfg(cfg), model_cls=model_cls)
         out[k] = SimpleTrainer(cfg, f"train_{ft_type}_{model_cls.__name__}_{k}", None, model,
                                seed=1)
+        out[k].on_start_epoch(0)
     return out
+
+
+def check_step(tag, lk: dict, lp: dict, before: dict, after_k: dict, after_p: dict) -> None:
+    """A kernel step against a plain step from the same weights `before`:
+    every loss term within 1e-4 relative, every parameter within 1e-2 of
+    the plain step's largest update to it."""
+    expect(all(np.isfinite(v) for v in (*lk.values(), *lp.values())),
+           f"{tag}: non-finite loss")
+    rel = max(abs(lk[n] - lp[n]) / max(abs(lp[n]), 1e-12) for n in lp)
+    expect(rel <= 1e-4, f"{tag}: loss rel diff {rel} > 1e-4 ({lk} vs {lp})")
+    worst = (0.0, "")
+    for n, b in before.items():
+        upd = (after_p[n] - b).abs().max().item()
+        err = (after_k[n] - after_p[n]).abs().max().item()
+        expect(err <= 1e-2 * upd + 1e-7, f"{tag}: {n} differs by {err} (update {upd})")
+        worst = max(worst, (err / max(upd, 1e-30), n))
+    say(f"{tag}: main loss {lk['main']:.6f} (kernels) vs {lp['main']:.6f} (plain, from the "
+        f"same weights), max rel diff over the {len(lp)} terms {rel:.2e} <= 1e-4; every "
+        f"parameter within 1e-2 * max|update| (worst {worst[0]:.2e}, {worst[1]})")
 
 
 def compare_steps(tag, trainers, arrays, n_steps: int, required, absent, card: str,
@@ -1663,24 +1700,8 @@ def compare_steps(tag, trainers, arrays, n_steps: int, required, absent, card: s
         f"{n_steps} steps")
 
     for at, (lk, lp) in enumerate(zip(losses["k"], losses["p"])):
-        expect(all(np.isfinite(v) for v in (*lk.values(), *lp.values())),
-               f"{tag} train step {at + 1}: non-finite loss")
-        rel = max(abs(lk[n] - lp[n]) / max(abs(lp[n]), 1e-12) for n in lp)
-        expect(rel <= 1e-4,
-               f"{tag} train step {at + 1}: loss rel diff {rel} > 1e-4 ({lk} vs {lp})")
-        worst = (0.0, "")
-        for n, before in snaps["k"][at].items():
-            after = snaps["p"][at + 1][n]
-            upd = (after - before).abs().max().item()
-            err = (snaps["k"][at + 1][n] - after).abs().max().item()
-            expect(err <= 1e-2 * upd + 1e-7,
-                   f"{tag} train step {at + 1}: {n} differs by {err} (update {upd})")
-            worst = max(worst, (err / max(upd, 1e-30), n))
-        say(f"{tag} train step {at + 1}: main loss {lk['main']:.6f} (kernels) vs "
-            f"{lp['main']:.6f} (plain, from the same weights), max rel diff over the {len(lp)} "
-            f"terms "
-            f"{rel:.2e} <= 1e-4; every parameter within 1e-2 * max|update| (worst "
-            f"{worst[0]:.2e}, {worst[1]})")
+        check_step(f"{tag} train step {at + 1}", lk, lp, snaps["k"][at], snaps["k"][at + 1],
+                   snaps["p"][at + 1])
 
     ms = paired_ms(lambda: trainers["k"].train_step(arrays),
                    lambda: trainers["p"].train_step(arrays), reps=3)
@@ -2276,6 +2297,371 @@ def variants_phase(dev, card: str, tmp: str, cli: dict) -> None:
     per_batch_eval(dev, card, cli)
 
 
+# -- phase 8: the trainer's options and the run-folder report ------------------
+
+# a free-decoding train step launches no decoder chain kernel
+PER_FREE_STEP = dict(PER_TRAIN_STEP, decoder_chain_fwd=0, decoder_chain_bwd=0)
+WIRES = ("float32", "float16", "bfloat16", "int8")
+REPORT_SECTIONS = ("<h2>Config</h2>", "<h2>Training losses</h2>", "<h2>Eval metrics</h2>",
+                   "<h2>Segmentations</h2>")
+
+
+class Collates:
+    """Counts the collates (`PaddedBatchLoader._make_batch` calls) of each
+    train epoch ("train", epoch) and each evaluation ("eval", i) while
+    active, and keeps the trainers whose epochs it saw."""
+
+    def __init__(self):
+        self.counts, self.trainers, self.label = {}, [], None
+
+    def __enter__(self):
+        from mucon_tpu_torch.data.batching import PaddedBatchLoader
+        from mucon_tpu_torch.harness.evaluator import MuConEvaluator
+        from mucon_tpu_torch.harness.trainer import SimpleTrainer
+
+        make, epoch = PaddedBatchLoader._make_batch, SimpleTrainer._train_one_epoch
+        evaluate = MuConEvaluator.evaluate
+
+        def made(loader, idxs):
+            self.counts[self.label] += 1
+            return make(loader, idxs)
+
+        def one_epoch(trainer):
+            if trainer not in self.trainers:
+                self.trainers.append(trainer)
+            self.label = ("train", trainer.epoch_num)
+            self.counts[self.label] = 0
+            return epoch(trainer)
+
+        def evaluated(ev, *args, **kwargs):
+            self.label = ("eval", sum(1 for kind, _ in self.counts if kind == "eval"))
+            self.counts[self.label] = 0
+            return evaluate(ev, *args, **kwargs)
+
+        self._patches = [mock.patch.object(PaddedBatchLoader, "_make_batch", made),
+                         mock.patch.object(SimpleTrainer, "_train_one_epoch", one_epoch),
+                         mock.patch.object(MuConEvaluator, "evaluate", evaluated)]
+        for patch in self._patches:
+            patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        for patch in self._patches:
+            patch.stop()
+
+
+def cli_run(cli: dict, exp: str, sets) -> SimpleNamespace:
+    """`train_test_mucon.main` on the cli phase's data with `sets` more,
+    under `torch.use_deterministic_algorithms`: its collates, trainer,
+    events and eval_metric series, and its seconds."""
+    import ast
+    import contextlib
+    import pickle
+    from pathlib import Path
+
+    import torch
+    from mucon_tpu_torch.cli import train_test_mucon
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with Collates() as counted, open(cli["log"], "a") as f, \
+                contextlib.redirect_stdout(f):
+            t0 = time.perf_counter()
+            result = train_test_mucon.main(cli_argv(cli["sets"] + sets, exp))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    finite_fields(exp, result)
+    run = Path(cli["runs"]) / exp / "0"
+    events = [json.loads(line) for line in open(run / "events.jsonl")]
+    with open(run / "metrics" / "eval_metric_1.pkl", "rb") as f:
+        series = pickle.load(f)
+    evals = [e for e in events if e["kind"] in ("eval_0", "final_eval")]
+    return SimpleNamespace(
+        counts=counted.counts, trainer=counted.trainers[-1], secs=secs,
+        epochs=[e for e in events if e["kind"] == "epoch"], series=series,
+        stream=[round(ast.literal_eval(e["eval_phases"])["stream"], 4) for e in evals],
+        eval_s=[round(e["eval_seconds"], 4) for e in evals])
+
+
+def same_run(a, b) -> bool:
+    """Two runs' epoch losses and eval series equal bit for bit."""
+    import dataclasses
+
+    strip = lambda e: {k: v for k, v in e.items() if k not in ("time", "epoch_seconds")}  # noqa: E731
+    return ([strip(e) for e in a.epochs] == [strip(e) for e in b.epochs]
+            and len(a.series) == len(b.series)
+            and all(ea == eb and dataclasses.asdict(ra) == dataclasses.asdict(rb)
+                    for (ea, ra), (eb, rb) in zip(a.series, b.series)))
+
+
+def cache_and_prefetch(card: str, cli: dict) -> None:
+    """`train_test_mucon` for 3 epochs with an eval each: with
+    `tpu.cache_batches` and `tpu.device_prefetch 2` ("cache"); with the
+    same fixed batches and nothing cached (a budget of one byte) and no
+    prefetch ("stream"); and with the defaults.  The cached run collates
+    nothing in epochs 2-3 and evals 2-3 (nor in the final eval) and equals
+    the streamed run bit for bit; the defaults' run equals them only where
+    its batch plan does (the fixed batches are drawn in another order)."""
+    from mucon_tpu_torch.data import PaddedBatchLoader, handel_dataset
+    from mucon_tpu_torch.harness.cache import arrays_nbytes
+
+    epochs = [("trainer.num_epochs", "3")]
+    runs = {
+        "cache": cli_run(cli, "chip_cache", epochs + [("tpu.cache_batches", "True"),
+                                                      ("tpu.device_prefetch", "2")]),
+        "stream": cli_run(cli, "chip_stream", epochs + [
+            ("tpu.cache_batches", "True"), ("tpu.cache_budget_gb", "1.0e-9"),
+            ("tpu.device_prefetch", "0")]),
+        "defaults": cli_run(cli, "chip_defaults", epochs),
+    }
+    n = -(-len(runs["cache"].trainer.train_db) // TRAIN_B)
+    want = {("train", 0): n, ("train", 1): 0, ("train", 2): 0, ("eval", 0): 1, ("eval", 1): 0,
+            ("eval", 2): 0, ("eval", 3): 0}
+    expect(runs["cache"].counts == want,
+           f"cache: collates {runs['cache'].counts} != {want} (epochs 2-3, evals 2-3 none)")
+    streamed = {k: (n if k[0] == "train" else 1) for k in want}
+    expect(runs["stream"].counts == streamed,
+           f"stream: collates {runs['stream'].counts} != {streamed}")
+    expect(same_run(runs["cache"], runs["stream"]),
+           "cache vs stream: the epoch losses or the eval fields differ")
+    trainer = runs["cache"].trainer
+    cached = (sum(arrays_nbytes(a) for a in trainer._batch_cache.values()),
+              sum(arrays_nbytes(a) for a in trainer.evaluators[0]._array_cache.values()))
+    say(f"cache: {n} train batches collated in epoch 1 and none after, the eval batch once "
+        f"and replayed in evals 2-3 and the final eval; every epoch loss and the 24 fields "
+        f"of all 4 evals equal bit for bit to the same fixed batches streamed without a cache "
+        f"(device_prefetch 2 against 0)")
+
+    db = handel_dataset(smoke_cfg(cli["runs"], sets=cli["sets"]), train=True)
+    plans = {}
+    for fixed in (True, False):
+        loader = PaddedBatchLoader(db, batch_size=TRAIN_B, pad_multiple=512,
+                                   seed=runs["cache"].trainer.seed, fixed_batches=fixed)
+        plans[fixed] = []
+        for e in range(3):
+            loader.epoch = e
+            plans[fixed].append([tuple(int(i) for i in b) for b in loader._batch_indices()])
+    same = same_run(runs["cache"], runs["defaults"])
+    if plans[True] == plans[False]:
+        expect(same, "cache vs defaults: the same batch plan, but the runs differ")
+    compositions = all(sorted(map(sorted, a)) == sorted(map(sorted, b))
+                       for a, b in zip(plans[True], plans[False]))
+    say(f"defaults: the run {'equals' if same else 'differs from'} the cached one bit for bit; "
+        f"batch plans by epoch: fixed {plans[True]}, default {plans[False]} (the same "
+        f"compositions: {compositions})")
+    for name, r in runs.items():
+        say(f"{name}: run {r.secs:.3f} s, epoch_seconds "
+            f"{[round(e['epoch_seconds'], 4) for e in r.epochs]}, eval seconds {r.eval_s}, "
+            f"eval stream seconds {r.stream} [{card}]")
+    say(f"cache: {cached[0]} bytes of train batches ({len(trainer._batch_cache)}) and "
+        f"{cached[1]} of eval batches on the card [{card}]")
+
+
+def wire_checks(dev, card: str, tmp: str, cli: dict) -> None:
+    """The int8 wire's eval forward and train step equal, bit for bit, the
+    float32 path fed the dequantized features; an epoch on the float16 and
+    the bfloat16 wires gives finite losses; the bytes each wire copies a
+    batch."""
+    import torch
+    from mucon_tpu_torch.cli.common import create_model_from_cfg
+    from mucon_tpu_torch.cli.predict import collate_videos
+    from mucon_tpu_torch.data import handel_dataset
+    from mucon_tpu_torch.harness.trainer import SimpleTrainer
+    from mucon_tpu_torch.models.model import (FEATS_DTYPES, batch_to_host_tensors,
+                                              batch_to_tensors, dequantize_feats)
+
+    rng = np.random.default_rng(2)
+    feats, transcripts = [], []
+    for t in rng.integers(1500, 2101, size=TRAIN_B):
+        transcripts.append(rng.integers(0, M, size=int(rng.integers(1, N_MAX + 1))))
+        feats.append(rng.standard_normal((int(t), D), dtype=np.float32))
+    batch = collate_videos(feats, [f"wire_{i}" for i in range(TRAIN_B)], vocab(), 512,
+                           transcripts=transcripts)
+    sizes = {w: sum(v.nbytes for v in batch_to_host_tensors(batch, feats_dtype=FEATS_DTYPES[w])
+                    .values()) for w in WIRES}
+    a8 = batch_to_tensors(batch, dev, feats_dtype="int8")
+    a32 = dequantize_feats(a8)
+    expect(a32["feats"].dtype == torch.float32 and "feats_scale" not in a32, "dequantize")
+    model = cli["model"]
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.inference_mode():
+            f8, f32 = model.forward(a8), model.forward(a32)
+        expect(all(torch.equal(getattr(f8, k), getattr(f32, k)) for k in
+                   ("transcript", "lengths", "segmentation", "tokens", "n_steps")),
+               "int8 wire: the eval forward differs from the float32 one on the dequantized "
+               "features")
+        trainers = make_trainers(dev, "wavenet", tmp)
+        out = [trainers[k].train_step(a) for k, a in (("k", a8), ("k2", a32))]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    expect(all(torch.equal(out[0][k], out[1][k]) for k in out[0]) and all(
+        torch.equal(a, b) for a, b in zip(trainers["k"].model.net.parameters(),
+                                          trainers["k2"].model.net.parameters())),
+        "int8 wire: the train step differs from the float32 one on the dequantized features")
+    say("int8 wire: the eval forward and a train step (kernels) equal bit for bit to the "
+        "float32 path fed the dequantized features")
+    for wire in ("float16", "bfloat16"):
+        cfg = smoke_cfg(cli["runs"], sets=cli["sets"] + [
+            ("tpu.feats_transfer_dtype", wire), ("trainer.num_epochs", "1"),
+            ("trainer.eval_every", "100"), ("trainer.save_every", "100")])
+        db = handel_dataset(cfg, train=True)
+        trainer = SimpleTrainer(cfg, f"chip_wire_{wire}", db, create_model_from_cfg(cfg, db))
+        trainer.train()
+        (epoch,) = [json.loads(line) for line in open(trainer.run_folder / "events.jsonl")
+                    if '"kind": "epoch"' in line]
+        terms = {k: v for k, v in epoch.items() if k.endswith("loss") or k == "main"}
+        expect(len(terms) == 5 and all(np.isfinite(v) for v in terms.values()),
+               f"{wire} wire: epoch losses {terms}")
+        say(f"{wire} wire: an epoch of {len(db)} videos, main loss {epoch['main']:.6f}, "
+            f"{epoch['epoch_seconds']:.3f} s [{card}]")
+    say(f"bytes a train batch (B={TRAIN_B}, T_pad={batch.feats.shape[1]}) copies to the card: "
+        f"{json.dumps(sizes)}")
+
+
+def accumulation_and_clips(dev, card: str, tmp: str) -> None:
+    """`trainer.accumulate_grad_every=2` on two micro-batches of 4 videos:
+    the kernel path's two backward passes and the apply against the plain
+    path's from the same weights; then one kernel step against a plain
+    step (`compare_steps`) for each clip mode: joint, per-parameter, none."""
+    import torch
+    from mucon_tpu_torch import cuda
+
+    arrays = train_batch(np.random.default_rng(3), dev)
+    micro = [{k: v[:4] for k, v in arrays.items()}, {k: v[4:] for k, v in arrays.items()}]
+    trainers = make_trainers(dev, "wavenet", tmp, sets=[("trainer.accumulate_grad_every", "2")])
+    before = {n: p.detach().clone() for n, p in trainers["k"].model.net.named_parameters()}
+    losses, after = {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for k in ("k", "p"):
+            t = trainers[k]
+            cuda.reset_launch_counts()
+            losses[k] = []
+            for at, a in enumerate(micro):
+                t.iter_num = at
+                losses[k].append({n: float(v) for n, v in t._backward(a, 2).items()})
+            t._apply()
+            torch.cuda.synchronize()
+            if k == "k":
+                launches = dict(cuda.launch_counts)
+            after[k] = {n: p.detach().clone() for n, p in t.model.net.named_parameters()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want = {name: 0 for name in cuda.KERNELS}
+    want.update({name: 2 * n for name, n in PER_TRAIN_STEP.items()})
+    expect(launches == want, f"accumulation: launches {launches} != {want}")
+    for at in range(2):
+        lk, lp = losses["k"][at], losses["p"][at]
+        rel = max(abs(lk[n] - lp[n]) / max(abs(lp[n]), 1e-12) for n in lp)
+        expect(rel <= 1e-4, f"accumulation micro-step {at + 1}: loss rel diff {rel}")
+    check_step("accumulate_grad_every=2 at B=4, 2 micro-steps and the apply", losses["k"][-1],
+               losses["p"][-1], before, after["k"], after["p"])
+    absent = ("mstcnpp_stack", "wavenet_train_v2_fwd", "wavenet_train_v2_sweep")
+    for mode, sets in (("joint", [("trainer.clip_grad_norm_separate", "False")]),
+                       ("per-parameter", [("trainer.clip_grad_norm_separate", "False"),
+                                          ("trainer.clip_grad_norm_every_param", "True")]),
+                       ("none", [("trainer.clip_grad_norm", "False")])):
+        compare_steps(f"clip {mode}", make_trainers(dev, "wavenet", tmp, sets=sets), arrays, 1,
+                      TRAIN_KERNELS, absent, card)
+
+
+def free_decode_training(dev, card: str, tmp: str, cli: dict) -> None:
+    """`model.teacher_forcing=False`: three kernel steps against plain
+    steps (`compare_steps`), each launching every train kernel but the
+    decoder chain's; and a `TrainerForTFExperiments(turnoff_tf_after_epoch=1)`
+    run of 2 epochs on the cli phase's data, the chain launched in epoch 1
+    only."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.cli.common import create_model_from_cfg
+    from mucon_tpu_torch.data import handel_dataset
+    from mucon_tpu_torch.harness.trainer import SimpleTrainer, TrainerForTFExperiments
+
+    arrays = train_batch(np.random.default_rng(4), dev)
+    trainers = make_trainers(dev, "wavenet", tmp, sets=[("model.teacher_forcing", "False")])
+    expect(not any(t.model.teacher_forcing for t in trainers.values()), "teacher forcing on")
+    chain = ("decoder_chain_fwd", "decoder_chain_bwd")
+    launches = compare_steps("free-decoding", trainers, arrays, TRAIN_STEPS,
+                             [k for k in TRAIN_KERNELS if k not in chain],
+                             chain + ("mstcnpp_stack", "wavenet_train_v2_fwd",
+                                      "wavenet_train_v2_sweep"), card)
+    want = {name: 0 for name in cuda.KERNELS}
+    want.update({name: TRAIN_STEPS * n for name, n in PER_FREE_STEP.items()})
+    expect(launches == want, f"free-decoding steps launched {launches} != {want}")
+    say(f"free-decoding step: {json.dumps({k: v // TRAIN_STEPS for k, v in launches.items() if v})}"
+        f" launches a step, no decoder chain")
+
+    cfg = smoke_cfg(cli["runs"], sets=cli["sets"] + [
+        ("trainer.num_epochs", "2"), ("trainer.eval_every", "100"),
+        ("trainer.save_every", "100")])
+    db = handel_dataset(cfg, train=True)
+    trainer = TrainerForTFExperiments(cfg, "chip_tf", db, create_model_from_cfg(cfg, db),
+                                      turnoff_tf_after_epoch=1)
+    per_epoch = []
+    one_epoch = SimpleTrainer._train_one_epoch
+
+    def counted(self):
+        cuda.reset_launch_counts()
+        one_epoch(self)
+        torch.cuda.synchronize()
+        per_epoch.append((self.model.teacher_forcing, dict(cuda.launch_counts)))
+
+    with mock.patch.object(SimpleTrainer, "_train_one_epoch", counted):
+        trainer.train()
+    steps = -(-len(db) // TRAIN_B)
+    (tf0, l0), (tf1, l1) = per_epoch
+    expect(tf0 and not tf1, f"TrainerForTFExperiments: teacher forcing {tf0}, {tf1}")
+    for name in chain:
+        expect(l0[name] == steps and l1[name] == 0,
+               f"TrainerForTFExperiments: {name} launched {l0[name]}, {l1[name]} times")
+    expect(all(l1[name] == steps * n for name, n in PER_FREE_STEP.items()),
+           f"TrainerForTFExperiments: epoch 2 launches {l1}")
+    say(f"TrainerForTFExperiments(turnoff_tf_after_epoch=1): the decoder chain launched "
+        f"{l0['decoder_chain_fwd']} + {l0['decoder_chain_bwd']} times in epoch 1 "
+        f"(teacher-forced) and 0 in epoch 2 (free decoding), {steps} steps each")
+
+
+def run_report(tmp: str, cli: dict) -> None:
+    """`inspect_run` and `write_report` on the cli phase's run folder."""
+    import contextlib
+    import io
+    from pathlib import Path
+
+    from mucon_tpu_torch.cli import inspect_run
+    from mucon_tpu_torch.harness import write_report
+
+    run = Path(cli["runs"]) / "chip_cli" / "0"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        inspect_run.inspect_run(run, show_videos=True)
+    text = out.getvalue()
+    for line in ("== config", "== training (events.jsonl)", "== metric series",
+                 "== checkpoints", "== evaluator artifacts", "epochs logged: 2", "model.pt"):
+        expect(line in text, f"inspect_run: no {line!r} in its output")
+    html = write_report(run, Path(tmp) / "report.html").read_text()
+    missing = [s for s in REPORT_SECTIONS if s not in html]
+    expect(html and not missing, f"write_report: sections missing {missing}")
+    say(f"inspect_run: {len(text.splitlines())} lines; write_report: {len(html)} bytes of "
+        f"HTML with every section")
+
+
+def trainer_options_phase(dev, card: str, tmp: str, cli: dict) -> None:
+    """The device batch cache and prefetch, the feature wires, gradient
+    accumulation and the clip modes, free-decode training and the run
+    report, at full width on the cli phase's data and run folder."""
+    t0 = time.perf_counter()
+    cache_and_prefetch(card, cli)
+    wire_checks(dev, card, tmp, cli)
+    accumulation_and_clips(dev, card, tmp)
+    free_decode_training(dev, card, tmp, cli)
+    run_report(tmp, cli)
+    say(f"trainer_options phase: {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def ptxas_summary(log: str) -> list:
     """One line a kernel from nvcc's `-Xptxas -v` log: its name (demangled
     where c++filt exists), its registers and its stack and spill bytes."""
@@ -2357,6 +2743,7 @@ def main() -> int:
         del arrays
         cli = cli_phase(dev, smi, tmp)
         variants_phase(dev, smi, tmp, cli)
+        trainer_options_phase(dev, smi, tmp, cli)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

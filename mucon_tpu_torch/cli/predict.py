@@ -19,8 +19,9 @@ Usage:
     python -m mucon_tpu_torch.cli.predict my_exp/0/149 \
         --features /path/to/features --out /tmp/preds [--root R]
 
-The JAX CLI's `--feats-wire` (a reduced-precision feature wire) is not
-ported: features travel as float32.
+The features travel on the wire that the run's
+`tpu.eval_feats_transfer_dtype` names (mucon_tpu/cli/predict.py:83);
+"auto" is float32.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from mucon_tpu_torch.data import (
     handel_dataset,
 )
 from mucon_tpu_torch.harness.checkpoint import load_params
-from mucon_tpu_torch.models.model import batch_to_tensors
+from mucon_tpu_torch.models.model import batch_to_tensors, resolve_feats_dtype
 from mucon_tpu_torch.ops.eval_fused import build_fused_eval
 from mucon_tpu_torch.ops.viterbi import positions_to_results
 
@@ -70,10 +71,11 @@ def collate_videos(feats_list, names, db, pad_multiple: int = 512, transcripts=N
 
 def predict_videos(model, feats_list, names, db, *, frame_sampling: int = 30,
                    batch_size: int = 1, pad_multiple: int = 512,
-                   use_kernels: bool = True):
+                   use_kernels: bool = True, feats_dtype=None):
     """Free decode + Viterbi for raw [T x D] feature arrays.  `db` supplies
     the vocabulary: max_transcript_length, sos_token_id, eos_token_id and
-    action_id_to_name (a mucon_tpu dataset, or any object with those)."""
+    action_id_to_name (a mucon_tpu dataset, or any object with those).
+    `feats_dtype` is the feature wire (`resolve_feats_dtype`)."""
     run = build_fused_eval(model, teacher_forcing=False,
                            frame_sampling=frame_sampling, use_kernels=use_kernels)
     results = []
@@ -81,7 +83,7 @@ def predict_videos(model, feats_list, names, db, *, frame_sampling: int = 30,
     for lo in range(0, len(feats_list), bs):
         chunk_names = names[lo : lo + bs]
         batch = collate_videos(feats_list[lo : lo + bs], chunk_names, db, pad_multiple)
-        out = run(batch_to_tensors(batch, model.device))
+        out = run(batch_to_tensors(batch, model.device, feats_dtype=feats_dtype))
         traced = positions_to_results(
             batch.num_frames, out["transcripts"], out["n_dec"], out["vit_score"],
             out["vit_pos"], out["vit_k_valid"], frame_sampling,
@@ -139,7 +141,8 @@ def main(argv=None):
     results = predict_videos(model, feats, names, db,
                              frame_sampling=cfg.evaluator.viterbi.frame_sampling,
                              batch_size=cfg.tpu.batch_size, pad_multiple=cfg.tpu.pad_multiple,
-                             use_kernels=use_kernels_from_cfg(cfg))
+                             use_kernels=use_kernels_from_cfg(cfg),
+                             feats_dtype=resolve_feats_dtype(cfg, "eval_feats_transfer_dtype"))
     for r in results:
         np.save(out_dir / f"{r['name']}.labels.npy", r["vit_labels"])
         np.save(out_dir / f"{r['name']}.y_labels.npy", r["y_labels"])

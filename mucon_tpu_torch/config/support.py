@@ -24,21 +24,10 @@ from mucon_tpu_torch import resolve_device
 logger = logging.getLogger("mucon_tpu_torch.config")
 
 UNPORTED = {
-    "trainer.accumulate_grad_every": (1,),
-    "trainer.clip_grad_norm": (True,),
-    "trainer.clip_grad_norm_separate": (True,),
-    "trainer.clip_grad_norm_every_param": (False,),
     "model.name": ("mucon",),
-    "model.teacher_forcing": (True,),
     "tpu.compute_dtype": ("float32",),
-    "tpu.cache_batches": (False,),
-    "tpu.cache_budget_gb": (0.0,),
-    "tpu.cache_budget_eval_gb": (0.0,),
-    "tpu.feats_transfer_dtype": ("auto", "float32"),
-    "tpu.eval_feats_transfer_dtype": ("auto", "float32"),
     "tpu.kernel_mm_dtype": ("auto", "float32"),
     "tpu.in_proj_mm_dtype": ("auto", "float32"),
-    "tpu.device_prefetch": (1,),
     "tpu.mesh.multihost": (False,),
 }
 NOT_APPLICABLE = {

@@ -9,8 +9,12 @@ similar length.  For the same seed and epoch the plan is the JAX loader's
 with its defaults.  A background thread collates the next batches while
 the caller trains.
 
-The JAX loader's `fixed_batches` (the device batch cache) and
-`batch_divisor` (the mesh) are not ported with their callers.
+With `fixed_batches` (the device batch cache, `tpu.cache_batches`) the
+batches' composition is frozen (runs of the length-sorted videos) and only
+their order is shuffled each epoch, so a batch is a stable unit that a
+cache can key on; `iter_cached_keys` gives an epoch's plan without
+touching the features.  The JAX loader's `batch_divisor` (the mesh) is not
+ported.
 """
 
 from __future__ import annotations
@@ -97,13 +101,14 @@ class PaddedBatchLoader:
 
     def __init__(self, dataset, batch_size: int, pad_multiple: int = 512,
                  shuffle: bool = True, seed: int = 0, prefetch: int = 2,
-                 pad_to: Optional[int] = None):
+                 pad_to: Optional[int] = None, fixed_batches: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.pad_multiple = pad_multiple
         self.shuffle = shuffle
         self.seed = seed
         self.prefetch = prefetch
+        self.fixed_batches = fixed_batches
         self.pad_to = pad_to  # one T_pad for every batch (single-shape eval)
         self.epoch = 0
         self.n_max = dataset.max_transcript_length
@@ -119,6 +124,12 @@ class PaddedBatchLoader:
     def _batch_indices(self) -> List[np.ndarray]:
         n = len(self.dataset)
         rng = np.random.RandomState(self.seed + self.epoch)
+        if self.fixed_batches:
+            order = np.argsort(self._lengths, kind="stable")
+            batches = [order[i : i + self.batch_size] for i in range(0, n, self.batch_size)]
+            if self.shuffle:
+                rng.shuffle(batches)
+            return batches
         order = rng.permutation(n) if self.shuffle else np.arange(n)
         # stable sort by length inside windows of the shuffled order
         window = self.batch_size * 16
@@ -128,6 +139,18 @@ class PaddedBatchLoader:
         if self.shuffle:
             rng.shuffle(batches)
         return batches
+
+    def iter_cached_keys(self):
+        """One epoch's plan as (video-name tuple, size) pairs, the device
+        cache's keys, computed without reading a feature; advances the
+        epoch's shuffle state exactly as one `__iter__` pass does."""
+        if not self.fixed_batches:
+            raise ValueError("cache replay needs fixed_batches")
+        batches = self._batch_indices()
+        self.epoch += 1
+        names = self.dataset.file_names
+        for idxs in batches:
+            yield tuple(names[int(i)] for i in idxs), len(idxs)
 
     def _make_batch(self, idxs: np.ndarray) -> PaddedBatch:
         return collate_padded([self.dataset[int(i)] for i in idxs], self.n_max,

@@ -32,10 +32,20 @@ model is on the card and `use_kernels_from_cfg` says so):
   (`ops/viterbi.py dense_viterbi_decode_batch`: the DP kernel with its
   pointer walk) or, with `backend="host"`, by the numpy hypothesis DP
   (`decode/viterbi_host.py`), one video at a time.
+
+The data path (evaluator.py:375-417, 443-515): the features travel on the
+wire `tpu.eval_feats_transfer_dtype` names (`models/model.py
+resolve_feats_dtype`).  With `tpu.cache_batches` each (fixed) eval batch's
+device tensors stay cached in the `eval` pool of a `harness/cache.py`
+budget, the trainer's when a trainer holds the evaluator, else its own;
+after one pass in which every batch was cached, later evaluations replay
+(batch without its features, device tensors) pairs and read, collate and
+copy nothing.  A batch the budget refuses leaves the evaluator streaming.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import pickle
 import time
 from dataclasses import dataclass
@@ -50,6 +60,7 @@ from mucon_tpu_torch.data.batching import PaddedBatch, PaddedBatchLoader
 from mucon_tpu_torch.decode.grammar import SingleTranscriptGrammar
 from mucon_tpu_torch.decode.length_model import PoissonModel
 from mucon_tpu_torch.decode.viterbi_host import ViterbiDecoder
+from mucon_tpu_torch.harness.cache import CacheBudget, arrays_nbytes
 from mucon_tpu_torch.metrics import (
     AbsLenDiffMetric,
     Edit,
@@ -60,7 +71,7 @@ from mucon_tpu_torch.metrics import (
     Metric,
     MoFAccuracyMetric,
 )
-from mucon_tpu_torch.models.model import batch_to_tensors
+from mucon_tpu_torch.models.model import batch_to_tensors, resolve_feats_dtype
 from mucon_tpu_torch.ops.eval_fused import build_fused_eval
 from mucon_tpu_torch.ops.viterbi import dense_viterbi_decode_batch, positions_to_results
 from mucon_tpu_torch.utils import make_same_size_interpolate
@@ -143,6 +154,10 @@ class MuConEvaluator:
         if self.viterbi_backend not in ("device", "host"):
             raise ValueError(f"Invalid evaluator.viterbi.backend {self.viterbi_backend!r}")
         self.last_eval_phases: dict = {}
+        self._feats_dtype = resolve_feats_dtype(cfg, "eval_feats_transfer_dtype")
+        self.cache_budget: Optional[CacheBudget] = None  # a trainer shares its own
+        self._array_cache: dict = {}
+        self._replay: Optional[list] = None
 
         bg = test_db.background_class_ids
         self.y_mof_metric = MoFAccuracyMetric()
@@ -248,19 +263,17 @@ class MuConEvaluator:
 
             def consume(batch, fwd):
                 self.batch_eval_calculation(batch, fwd, model)
-        rows = max(1, self.cfg.tpu.batch_size) if self._single_shape() else 0
         first = True
         with torch.inference_mode():
-            batches = iter(self.create_dataloader())
+            batches = self._eval_batches(model.device)
             while True:
                 t0 = time.perf_counter()
-                batch = next(batches, None)
-                if batch is None:
-                    ph["stream"] += time.perf_counter() - t0
-                    break
-                arrays = pad_rows(batch_to_tensors(batch, model.device), rows)
+                nxt = next(batches, None)
                 t1 = time.perf_counter()
                 ph["stream"] += t1 - t0
+                if nxt is None:
+                    break
+                batch, arrays = nxt
                 out = run(arrays)
                 t2 = time.perf_counter()
                 ph["first_dispatch" if first else "dispatch"] += t2 - t1
@@ -271,6 +284,49 @@ class MuConEvaluator:
         result = self.on_finish_eval()
         ph["finish"] = time.perf_counter() - t0
         return result
+
+    def _make_arrays(self, batch: PaddedBatch, device) -> dict:
+        """Device tensors of `batch` on the eval wire; with `_single_shape`
+        the remainder batch padded with dummy rows (evaluator.py:383-401)."""
+        rows = max(1, self.cfg.tpu.batch_size) if self._single_shape() else 0
+        return pad_rows(batch_to_tensors(batch, device, feats_dtype=self._feats_dtype), rows)
+
+    def _batch_arrays(self, batch: PaddedBatch, device) -> dict:
+        """`_make_arrays`, kept across evaluations with `tpu.cache_batches`
+        where the budget's eval pool has room (evaluator.py:490-515)."""
+        if not self.cfg.tpu.cache_batches:
+            return self._make_arrays(batch, device)
+        key = tuple(batch.video_names)
+        arrays = self._array_cache.get(key)
+        if arrays is None:
+            arrays = self._make_arrays(batch, device)
+            if self.cache_budget is None:
+                self.cache_budget = CacheBudget.from_config(self.cfg)
+            if self.cache_budget.try_reserve(arrays_nbytes(arrays), "eval batch", pool="eval"):
+                self._array_cache[key] = arrays
+        return arrays
+
+    def _eval_batches(self, device):
+        """(batch, device tensors) pairs of one pass (evaluator.py:443-488).
+        After a pass in which every batch was cached, replay that pass: each
+        batch keeps its metadata and a `feats` of shape [B x T_pad x 0], so
+        `feats.shape[1]` stays valid; the loops read no feature values."""
+        if self._replay is not None:
+            yield from self._replay
+            return
+        recording = [] if self.cfg.tpu.cache_batches else None
+        for batch in self.create_dataloader():
+            arrays = self._batch_arrays(batch, device)
+            if recording is not None:
+                if self._array_cache.get(tuple(batch.video_names)) is arrays:
+                    B, T = batch.feats.shape[:2]
+                    recording.append((dataclasses.replace(
+                        batch, feats=np.empty((B, T, 0), np.float32)), arrays))
+                else:  # a budget miss: no replay, it would skip this batch
+                    recording = None
+            yield batch, arrays
+        if recording:
+            self._replay = recording
 
     def _consume_fused(self, batch: PaddedBatch, out: dict) -> None:
         """Host half of one fused program (evaluator.py:552): tracebacks and

@@ -4,7 +4,8 @@
 The reference trains with torch's optimizers (trainers.py:18-56, 133-146):
 
 * the encoder and decoder parameter groups are clipped apart, each to a
-  global norm of 100;
+  global norm of 100 (or, as `trainer.clip_*` say, all together, each
+  parameter alone, or not at all: `clip_gradients`);
 * SGD or Adam(amsgrad), weight decay coupled into the gradient after the
   clip (torch adds wd * p to the gradient before momentum / moments — the
   JAX package's optax chain clip -> add_decayed_weights -> sgd/amsgrad);
@@ -36,6 +37,49 @@ def clip_grad_norm_partitioned(params_by_label: Dict[str, List[torch.Tensor]],
             g.mul_(factor)
         norms[label] = norm
     return norms
+
+
+@torch.no_grad()
+def clip_grad_norm_global(params: Iterable[torch.Tensor], max_norm: float) -> None:
+    """optax's `clip_by_global_norm` over every gradient together: `g`
+    where the global norm is below `max_norm`, else `(g / norm) * max_norm`
+    (not `torch.nn.utils.clip_grad_norm_`, whose max_norm / (norm + 1e-6)
+    parts from it)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, (g / norm) * max_norm))
+
+
+@torch.no_grad()
+def clip_grad_norm_per_parameter(params: Iterable[torch.Tensor], max_norm: float) -> None:
+    """Each gradient scaled by min(1, max_norm / max(its norm, 1e-12))
+    (optim.py:61-75)."""
+    for p in params:
+        if p.grad is not None:
+            norm = torch.sqrt(torch.sum(p.grad.float() ** 2))
+            p.grad.mul_(torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0))
+
+
+def clip_gradients(trainer_cfg, params_by_label: Dict[str, List[torch.Tensor]]) -> None:
+    """The clip that `trainer.clip_grad_norm*` name, chosen in the order of
+    the JAX `create_optimizer` (optim.py:119-126): none without
+    `clip_grad_norm`; else the encoder and decoder groups apart with
+    `clip_grad_norm_separate`; else each parameter alone with
+    `clip_grad_norm_every_param`; else all together."""
+    if not trainer_cfg.clip_grad_norm:
+        return
+    max_norm = trainer_cfg.clip_grad_norm_value
+    params = [p for group in params_by_label.values() for p in group]
+    if trainer_cfg.clip_grad_norm_separate:
+        clip_grad_norm_partitioned(params_by_label, max_norm)
+    elif trainer_cfg.clip_grad_norm_every_param:
+        clip_grad_norm_per_parameter(params, max_norm)
+    else:
+        clip_grad_norm_global(params, max_norm)
 
 
 def create_optimizer(params: Iterable[torch.Tensor], name: str = "SGD",

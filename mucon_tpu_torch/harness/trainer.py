@@ -12,16 +12,23 @@
   `trainer.keep_last_checkpoints` and the async writer of
   `trainer.async_checkpoint`.
 
-One train step: the teacher-forced forward under autograd with this step's
-dropout masks, the batch loss (with the supervised models' two terms,
-which the step returns and the `train` events log beside the others, as
-the JAX trainer's `_loss_scalars` does), backward, the encoder / decoder
-gradient clip, and the optimizer update.  When the model lives on the card and
+One train step: the forward under autograd with this step's dropout masks,
+teacher-forced or, with `model.teacher_forcing=False` (set on the model at
+the start of each epoch, `on_start_epoch`), free decoding, the batch loss
+(with the supervised models' two terms, which the step returns and the
+`train` events log beside the others, as the JAX trainer's
+`_loss_scalars` does), backward, the gradient clip that `trainer.clip_*`
+name (`harness/optim.py clip_gradients`: the encoder and decoder groups
+apart by default), and the optimizer update.  With
+`trainer.accumulate_grad_every` k > 1, each iteration backpropagates
+loss / k into the summed gradients and every k-th applies them
+(trainer.py:413-445, 554-602); a partial accumulation at the end of an
+epoch is dropped.  When the model lives on the card and
 `use_kernels_from_cfg` says so, the step runs every train kernel of the JAX
 package as a hand-written CUDA kernel: the residual stack and the BiLSTM
 recurrence (forward and backward), the teacher-forced decoder chain
-(forward and backward), and, with `tpu.use_pallas_loss`, the fused flint
-loss.
+(forward and backward; not in a free-decoding step) and, with
+`tpu.use_pallas_loss`, the fused flint loss.
 
 Each step's masks come from a fresh `torch.Generator` on the model's
 device, seeded from (seed, iteration): two trainers with the same seed and
@@ -29,9 +36,25 @@ weights draw the same masks, so a kernel run and a plain run can be held
 against each other step by step, and a resumed run draws the masks the
 uninterrupted run would have.
 
-The device batch cache, device prefetch, gradient accumulation, the other
-clip modes, the mesh and free decoding in training are not ported
-(`config/support.py` refuses them).
+The data path (trainer.py:138-165, 288-349):
+* the features travel on the wire `tpu.feats_transfer_dtype` names
+  (`models/model.py resolve_feats_dtype`: float32, float16, bfloat16 or
+  int8 with a per-frame scale);
+* `tpu.device_prefetch` k > 0 issues each batch's copy k batches ahead of
+  the step that reads it; on the card from pinned host memory with
+  `non_blocking` copies on a side stream, an event the compute stream
+  waits on before the step, and `record_stream` on the tensors that cross
+  streams.  torch's pinned allocator reuses a host block only once the
+  copy's recorded event has completed.  On the CPU the same generator runs
+  without streams; every k gives the same trajectory bit for bit;
+* `tpu.cache_batches` freezes the batches' composition
+  (`PaddedBatchLoader(fixed_batches=True)`) and keeps each batch's device
+  tensors, within the byte budget that the trainer shares with its
+  evaluators (`harness/cache.py`).  Once every batch is cached, an epoch
+  replays them in the loader's own shuffled order without reading,
+  collating or copying anything.
+
+The mesh is not ported (`config/support.py` refuses it).
 """
 
 from __future__ import annotations
@@ -40,6 +63,7 @@ import contextlib
 import dataclasses
 import shutil
 import time
+from collections import deque
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -47,16 +71,26 @@ import torch
 
 from mucon_tpu_torch.config.support import check_supported, use_kernels_from_cfg
 from mucon_tpu_torch.data import PaddedBatchLoader
+from mucon_tpu_torch.harness.cache import CacheBudget, arrays_nbytes
 from mucon_tpu_torch.harness.checkpoint import has_checkpoint, load_checkpoint, save_checkpoint
 from mucon_tpu_torch.harness.logging import RunLogger, StepTimer
 from mucon_tpu_torch.harness.metrics_store import MetricStore
 from mucon_tpu_torch.harness.optim import (
-    clip_grad_norm_partitioned,
+    clip_gradients,
     create_optimizer,
     create_scheduler,
     set_learning_rate,
 )
-from mucon_tpu_torch.models.model import MuConModel, batch_to_tensors
+from mucon_tpu_torch.models.model import MuConModel, batch_to_host_tensors, resolve_feats_dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplayBatch:
+    """What a cache-replay epoch has of a batch in place of a
+    `PaddedBatch`: its identity and size (trainer.py:47-55)."""
+
+    video_names: tuple
+    batch_size: int
 
 
 def _next_run_number(exp_folder: Path) -> int:
@@ -116,8 +150,18 @@ class SimpleTrainer:
         self.optimizer = create_optimizer(model.net.parameters(), tr.optimizer,
                                           tr.learning_rate, tr.momentum, tr.weight_decay)
         self.scheduler = create_scheduler(cfg)
+        self.accumulate_grad_every = max(1, int(tr.accumulate_grad_every or 1))
         self._loader = None
         self._save_thread = None
+        self._copy_stream = None
+        # the device batch cache and its byte budget, which the evaluators
+        # share (trainer.py:138-147)
+        self._batch_cache: Dict[tuple, dict] = {}
+        self.cache_budget = CacheBudget.from_config(cfg)
+        for ev in self.evaluators:
+            if getattr(ev, "cache_budget", None) is None:
+                ev.cache_budget = self.cache_budget
+        self._feats_dtype = resolve_feats_dtype(cfg)
 
     def create_train_dataloader(self) -> PaddedBatchLoader:
         if self._loader is None:
@@ -125,8 +169,88 @@ class SimpleTrainer:
                 self.train_db, batch_size=max(1, self.cfg.tpu.batch_size),
                 pad_multiple=self.cfg.tpu.pad_multiple, shuffle=True, seed=self.seed,
                 prefetch=max(1, self.cfg.system.num_workers),
+                fixed_batches=bool(self.cfg.tpu.cache_batches),
             )
         return self._loader
+
+    # -- the data path -----------------------------------------------------
+    def _make_arrays(self, batch, stream=None):
+        """(device tensors of `batch` on the train wire, the event its copy
+        records or None).  With a side `stream` (the card): pinned host
+        tensors copied `non_blocking` on it."""
+        host = batch_to_host_tensors(batch, self.model.supervised, self._feats_dtype)
+        if stream is None:
+            return {k: v.to(self.device) for k, v in host.items()}, None
+        with torch.cuda.stream(stream):
+            arrays = {k: v.pin_memory().to(self.device, non_blocking=True)
+                      for k, v in host.items()}
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return arrays, ready
+
+    def _batch_arrays(self, batch, stream=None):
+        """`_make_arrays`, or with `tpu.cache_batches` the cached tensors of
+        the batch; a new batch is cached if the budget has room."""
+        if not self.cfg.tpu.cache_batches:
+            return self._make_arrays(batch, stream)
+        key = tuple(batch.video_names)
+        arrays = self._batch_cache.get(key)
+        if arrays is not None:
+            return arrays, None
+        arrays, ready = self._make_arrays(batch, stream)
+        if self.cache_budget.try_reserve(arrays_nbytes(arrays), "train batch"):
+            self._batch_cache[key] = arrays
+        return arrays, ready
+
+    def _prefetched(self, loader):
+        """(batch, tensors, event) with each copy issued
+        `tpu.device_prefetch` batches ahead of the step that reads it
+        (trainer.py:303-321)."""
+        ahead = max(0, int(self.cfg.tpu.device_prefetch))
+        stream = None
+        if ahead and self.device.type == "cuda":
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            stream = self._copy_stream
+        buf: deque = deque()
+        for batch in loader:
+            buf.append((batch, *self._batch_arrays(batch, stream)))
+            if len(buf) > ahead:
+                yield buf.popleft()
+        while buf:
+            yield buf.popleft()
+
+    def _epoch_batches(self, loader):
+        """One epoch's (batch, tensors, event) triples.  Once every fixed
+        batch is cached, replay the cache in the loader's own order for the
+        epoch, touching no dataset (trainer.py:323-349); if a batch of the
+        plan is missing the loader's epoch is rewound and it streams the
+        same order."""
+        if (self.cfg.tpu.cache_batches and loader.fixed_batches and len(loader) > 0
+                and len(self._batch_cache) >= len(loader)):
+            epoch_before = loader.epoch
+            replay = []
+            for key, size in loader.iter_cached_keys():
+                arrays = self._batch_cache.get(key)
+                if arrays is None:  # the composition changed: stream
+                    replay = None
+                    break
+                replay.append((ReplayBatch(key, size), arrays, None))
+            if replay is not None:
+                return iter(replay)
+            loader.epoch = epoch_before
+        return self._prefetched(loader)
+
+    def _wait_for(self, arrays: dict, ready) -> None:
+        """Make the compute stream wait for a batch copied on the side
+        stream, and tie its tensors to the compute stream for the caching
+        allocator."""
+        if ready is None:
+            return
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(ready)
+        for t in arrays.values():
+            t.record_stream(compute)
 
     def step_generator(self) -> torch.Generator:
         """This iteration's mask generator, seeded from (seed, iteration)."""
@@ -135,22 +259,46 @@ class SimpleTrainer:
         )
 
     def train_step(self, arrays: dict) -> Dict[str, torch.Tensor]:
-        """forward -> loss -> backward -> partitioned clip -> optimizer step
-        (trainer.py:397-409).  Returns the loss terms (detached, on the
-        device: reading them syncs)."""
-        fwd = self.model.forward(arrays, use_kernels=self.use_kernels, train=True,
-                                 generator=self.step_generator())
-        loss = self.model.loss(fwd, arrays)
+        """forward -> loss -> backward -> clip -> optimizer step
+        (trainer.py:397-409), teacher-forced as the model's flag says.
+        Returns the loss terms (detached, on the device: reading them
+        syncs)."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss.main.backward()
-        clip_grad_norm_partitioned(self.partition, self.cfg.trainer.clip_grad_norm_value)
-        self.optimizer.step()
+        scalars = self._backward(arrays, 1)
+        self._apply()
+        return scalars
+
+    def _backward(self, arrays: dict, k: int) -> Dict[str, torch.Tensor]:
+        """forward -> loss -> backward of loss / k into the parameters'
+        summed gradients (trainer.py:425-435); returns the loss terms."""
+        tf = self.model.teacher_forcing
+        fwd = self.model.forward(arrays, use_kernels=self.use_kernels, train=True,
+                                 generator=self.step_generator(), teacher_forcing=tf)
+        loss = self.model.loss(fwd, arrays, teacher_forcing=tf)
+        (loss.main / k).backward()
         return {f.name: getattr(loss, f.name).detach() for f in dataclasses.fields(loss)}
+
+    def _apply(self) -> None:
+        """Clip the (summed) gradients, step the optimizer, zero them.  A
+        parameter no loss reaches (the attention's unused `l3`) gets a zero
+        gradient first: the JAX optax chain decays it (and moves Adam's
+        moments) like any other, where torch's optimizers skip a
+        parameter without a gradient."""
+        for p in self.model.net.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        clip_gradients(self.cfg.trainer, self.partition)
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
 
     def figure_scheduler_input(self, eval_results) -> dict:
         if self.cfg.trainer.scheduler.name == "plateau" and eval_results:
             return {"metrics": eval_results[0].s_mof_nbg}
         return {}
+
+    def on_start_epoch(self, epoch_num: int) -> None:
+        """Teacher forcing as `model.teacher_forcing` says (trainer.py:357-358)."""
+        self.model.set_teacher_forcing(self.cfg.model.teacher_forcing)
 
     def on_finish_epoch(self, epoch_num: int) -> None:
         if (epoch_num + 1) % self.eval_every == 0:
@@ -179,6 +327,8 @@ class SimpleTrainer:
         train_s = evals_s = 0.0
         for epoch in range(self.epoch_num, self.cfg.trainer.num_epochs):
             self.epoch_num = epoch
+            with self._phase("callbacks"):
+                self.on_start_epoch(epoch)
             t0 = time.perf_counter()
             with self.logger.profile(enabled=epoch == self.cfg.trainer.profile_epoch):
                 self._train_one_epoch()
@@ -202,6 +352,8 @@ class SimpleTrainer:
                             **{k: v for k, v in dataclasses.asdict(result).items()
                                if isinstance(v, (int, float))},
                         )
+                # the evaluators switch teacher forcing; restore it for training
+                self.model.set_teacher_forcing(self.cfg.model.teacher_forcing)
 
             if self.scheduler is not None:
                 with self._phase("scheduler"):
@@ -230,9 +382,13 @@ class SimpleTrainer:
     def _train_one_epoch(self) -> None:
         t0 = time.perf_counter()
         last = None
-        for batch in self.create_train_dataloader():
-            scalars = self.train_step(
-                batch_to_tensors(batch, self.device, supervised=self.model.supervised))
+        every = self.accumulate_grad_every
+        batches = self._epoch_batches(self.create_train_dataloader())
+        for it, (batch, arrays, ready) in enumerate(batches):
+            self._wait_for(arrays, ready)
+            scalars = self._backward(arrays, every)
+            if it % every == every - 1:
+                self._apply()
             self.timer.tick(batch.batch_size)
             if self.iter_num % self.log_every == 0:
                 values = {k: float(v) for k, v in scalars.items()}
@@ -243,6 +399,9 @@ class SimpleTrainer:
                 self.logger.log("train", self.iter_num, **values)
             self.iter_num += 1
             last = scalars
+        # a partial accumulation is dropped, as the JAX trainer starts each
+        # epoch from zero gradients
+        self.optimizer.zero_grad(set_to_none=True)
         if last is not None:  # one sync: the epoch's last loss terms
             self.logger.log("epoch", self.epoch_num, **{k: float(v) for k, v in last.items()},
                             epoch_seconds=time.perf_counter() - t0)
@@ -315,3 +474,15 @@ class SimpleTrainer:
         if self.scheduler is not None and state.get("scheduler"):
             self.scheduler.load_state_dict(state["scheduler"])
             set_learning_rate(self.optimizer, self.scheduler.lr)
+
+
+class TrainerForTFExperiments(SimpleTrainer):
+    """Teacher forcing on up to `turnoff_tf_after_epoch`, then free decoding
+    (trainer.py:716-724, the reference's trainers.py:166-191)."""
+
+    def __init__(self, *args, turnoff_tf_after_epoch: int = 1000, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.turnoff_tf_after_epoch = turnoff_tf_after_epoch
+
+    def on_start_epoch(self, epoch_num: int) -> None:
+        self.model.set_teacher_forcing(epoch_num < self.turnoff_tf_after_epoch)

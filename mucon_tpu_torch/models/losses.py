@@ -207,12 +207,20 @@ def supervised_length_loss(lengths_raw, absolute_lengths, n_len):
 
 def compute_loss(cfg: dict, fwd: MuConForwardOut, tf_target, transcript, transcript_len,
                  num_frames, gt_label=None, absolute_lengths=None, fully_supervised=None,
-                 supervised: bool = False) -> MuConLoss:
-    """Teacher-forced batch loss: per-video exact values, mean over videos.
-    `cfg` holds the `LOSS_DEFAULTS` keys.  With `supervised`, the two
-    supervised terms from `gt_label` [B x T] and `absolute_lengths`
-    [B x N_max], gated by `fully_supervised` [B] where it is given (the
-    mixed model)."""
+                 supervised: bool = False, teacher_forcing: bool = True) -> MuConLoss:
+    """Batch loss: per-video exact values, mean over videos.  `cfg` holds
+    the `LOSS_DEFAULTS` keys.  The mucon term's target is the ground
+    truth's transcript under teacher forcing, else the decoder's own
+    argmax, tokens[:, :N_max] with tokens >= M set to 0 (losses.py:219-226;
+    on the flint kernel's route too, which takes the target as an input).
+    With `supervised`, the two supervised terms from `gt_label` [B x T]
+    and `absolute_lengths` [B x N_max], gated by `fully_supervised` [B]
+    where it is given (the mixed model)."""
+    target = transcript
+    if not teacher_forcing:
+        M = fwd.segmentation.shape[-1]
+        toks = fwd.tokens[:, :transcript.shape[1]]
+        target = torch.where(toks >= M, 0, toks)
     t = transcript_loss(cfg, fwd.transcript, tf_target, fwd.n_steps).mean()
     ln = length_loss(cfg["length_width"], fwd.lengths, transcript_len).mean()
     if cfg["use_loss_kernel"] and cfg["mucon_type"] == "flint" \
@@ -221,10 +229,10 @@ def compute_loss(cfg: dict, fwd: MuConForwardOut, tf_target, transcript, transcr
         weights = _class_weights(M, cfg["mucon_weight_background"],
                                  cfg["mucon_weight_background_index"],
                                  cfg["mucon_weight_background_value"], transcript.device)
-        mc = mucon_flint(fwd.lengths[:, :n_max], fwd.segmentation, transcript,
+        mc = mucon_flint(fwd.lengths[:, :n_max], fwd.segmentation, target,
                          transcript_len, num_frames, cfg["mucon_overlap"], weights).mean()
     else:
-        mc = mucon_loss(cfg, fwd.lengths, fwd.segmentation, transcript, transcript_len,
+        mc = mucon_loss(cfg, fwd.lengths, fwd.segmentation, target, transcript_len,
                         num_frames).mean()
     sm = smoothing_loss(cfg, fwd.segmentation, num_frames).mean()
     main = (cfg["mul_transcript"] * t + cfg["mul_length"] * ln

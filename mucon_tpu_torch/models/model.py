@@ -11,13 +11,16 @@ seeded `torch.Generator`, or loaded from a JAX parameter tree through
   hand-written kernels.  It decodes freely; with `teacher_forcing` (the
   alignment evaluator) it decodes the ground-truth transcript through the
   decoder chain's forward kernel.
-* `forward(arrays, train=True, generator=g)` is the teacher-forced train
-  forward under autograd, with dropout masks drawn from `g`: on a CUDA
-  device the WaveNet residual stack, the BiLSTM recurrence and the
-  teacher-forced decoder chain run forward and backward as hand-written
-  kernels (the JAX package with every `tpu.use_pallas*` train flag on,
-  which trains the MS-TCN++ and `noft` backbones on XLA: here, plain
-  PyTorch).
+* `forward(arrays, train=True, generator=g)` is the train forward under
+  autograd, with dropout masks drawn from `g`: on a CUDA device the
+  WaveNet residual stack and the BiLSTM recurrence run forward and
+  backward as hand-written kernels (the JAX package with every
+  `tpu.use_pallas*` train flag on, which trains the MS-TCN++ and `noft`
+  backbones on XLA: here, plain PyTorch).  Teacher-forced (the model's
+  flag unless asked), the decode is the decoder chain's kernels; without
+  teacher forcing (`model.teacher_forcing=False`, `TrainerForTFExperiments`)
+  it is S `DecoderCell` steps under autograd, each fed the previous step's
+  argmax (mucon.py:316-327, 366-380), and no chain kernel runs.
 * `loss(fwd, arrays)` is the batch objective (`models/losses.py`); with
   `loss_cfg["use_loss_kernel"]` (the JAX `tpu.use_pallas_loss`) its flint
   term runs as the fused kernel of `ops/mucon_loss.py` on the card.  The
@@ -26,9 +29,15 @@ seeded `torch.Generator`, or loaded from a JAX parameter tree through
   (model.py:582-586).
 * `predict(batch, fwd)` is the host-side per-video prediction of the
   evaluator's per-batch path (model.py:548-580).
-* `teacher_forcing` is the reference's mutable flag: the evaluators set it
-  (free decoding, or teacher forcing for alignment) and pass it to
-  `forward`; `predict` follows the forward output's `teacher_forced`.
+* `teacher_forcing` is the reference's mutable flag: the trainer sets it
+  from `model.teacher_forcing` each epoch, the evaluators set it (free
+  decoding, or teacher forcing for alignment) and pass it to `forward`;
+  `predict` follows the forward output's `teacher_forced`.
+
+The feature wire (model.py:603-707): `batch_to_tensors(..., feats_dtype=)`
+copies the features as float32, float16, bfloat16, or int8 with a
+per-frame scale (`quantize_feats_int8`); `forward` first turns them back
+into float32 on the device (`dequantize_feats`).
 
 `use_kernels=False` runs the plain PyTorch versions instead of the kernels.
 """
@@ -80,14 +89,19 @@ class MuConModel:
 
     def forward(self, arrays: dict, use_kernels: bool = True, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                teacher_forcing: bool = False) -> MuConForwardOut:
+                teacher_forcing: Optional[bool] = None) -> MuConForwardOut:
         """Eval forward (no autograd) with free decoding, or with
         `teacher_forcing` the ground truth's teacher-forced decode; or with
-        `train` the teacher-forced forward under autograd, its dropout masks
-        drawn from `generator` (a generator on this model's device; None
-        draws no masks).  `arrays` come from `batch_to_tensors`."""
+        `train` the forward under autograd, teacher-forced unless
+        `teacher_forcing` (by default the model's flag, model.py:153-156)
+        is False, its dropout masks drawn from `generator` (a generator on
+        this model's device; None draws no masks).  The eval forward
+        decodes freely unless asked, whatever the flag.  `arrays` come from
+        `batch_to_tensors`."""
+        arrays = dequantize_feats(arrays)
         if train:
-            return self._train_forward(arrays, use_kernels, generator)
+            tf = self.teacher_forcing if teacher_forcing is None else teacher_forcing
+            return self._train_forward(arrays, use_kernels, generator, tf)
         feats, num_frames = arrays["feats"], arrays["num_frames"]
         with torch.no_grad():
             z = tz = None
@@ -96,7 +110,8 @@ class MuConModel:
             return self.net(
                 feats, num_frames, arrays["tf_input"],
                 z_precomputed=z, tz_precomputed=tz, use_kernels=use_kernels,
-                transcript_len=arrays["transcript_len"], teacher_forcing=teacher_forcing,
+                transcript_len=arrays["transcript_len"],
+                teacher_forcing=bool(teacher_forcing),
             )
 
     def draw_masks(self, generator: Optional[torch.Generator], B: int,
@@ -122,7 +137,8 @@ class MuConModel:
                            net.decoder.attention_l2.kernel.shape[0]),
         )
 
-    def _train_forward(self, arrays, use_kernels, generator) -> MuConForwardOut:
+    def _train_forward(self, arrays, use_kernels, generator,
+                       teacher_forcing: bool) -> MuConForwardOut:
         feats, num_frames = arrays["feats"], arrays["num_frames"]
         masks = self.draw_masks(generator, feats.shape[0], feats.shape[1])
         z = tz = None
@@ -132,15 +148,20 @@ class MuConModel:
             feats, num_frames, arrays["tf_input"],
             z_precomputed=z, tz_precomputed=tz, use_kernels=use_kernels,
             train=True, transcript_len=arrays["transcript_len"], masks=masks,
+            teacher_forcing=teacher_forcing,
         )
 
-    def loss(self, fwd: MuConForwardOut, arrays: dict) -> MuConLoss:
-        """The batch objective; a supervised model reads the ground truth
+    def loss(self, fwd: MuConForwardOut, arrays: dict,
+             teacher_forcing: Optional[bool] = None) -> MuConLoss:
+        """The batch objective; without teacher forcing (by default the
+        model's flag, model.py:526-528) the mucon term's target is the
+        decoder's own argmax.  A supervised model reads the ground truth
         (`batch_to_tensors(..., supervised=True)`)."""
         sup = self.supervised
+        tf = self.teacher_forcing if teacher_forcing is None else teacher_forcing
         return compute_loss(
             self.loss_cfg, fwd, arrays["tf_target"], arrays["transcript"],
-            arrays["transcript_len"], arrays["num_frames"],
+            arrays["transcript_len"], arrays["num_frames"], teacher_forcing=tf,
             gt_label=arrays["gt_label"] if sup else None,
             absolute_lengths=arrays["absolute_lengths"] if sup else None,
             fully_supervised=arrays["fully_supervised"] if self.mixed else None,
@@ -285,9 +306,6 @@ def model_fields_from_cfg(cfg) -> dict:
         raise NotImplementedError(
             f"the port computes in float32 only, got tpu.compute_dtype="
             f"{cfg.tpu.compute_dtype!r}")
-    if not cfg.model.teacher_forcing:
-        raise NotImplementedError("the port trains teacher-forced only "
-                                  "(model.teacher_forcing=False)")
     return dict(
         stages=tuple(ft.stages),
         hidden_size=ft.hidden_size,
@@ -305,16 +323,74 @@ def model_fields_from_cfg(cfg) -> dict:
     )
 
 
-def batch_to_tensors(batch, device, supervised: bool = False) -> dict:
-    """Tensor view of a `data.PaddedBatch` on `device` (the
-    keys the forward and the loss read; lengths and ids as int64).  With
+FEATS_DTYPES = {"float32": None, "float16": torch.float16, "bfloat16": torch.bfloat16,
+                "int8": "int8"}
+
+
+def resolve_feats_dtype(cfg, key: str = "feats_transfer_dtype"):
+    """`tpu.feats_transfer_dtype` (the train wire) or, with
+    `key="eval_feats_transfer_dtype"`, the eval and serving wire, as the
+    `feats_dtype` of `batch_to_tensors`: None for float32, torch.float16 or
+    torch.bfloat16, or "int8" (trainer.py:148-165, model.py:669-692).
+
+    "auto" resolves to float32 here, on the card too.  The JAX package
+    picks bfloat16 on an accelerator only because its TPU in-projection
+    truncates its operands to bfloat16 anyway; the port's in-projection is
+    a cuBLAS float32 product with TF32 off, so a bfloat16 wire would change
+    its results there, which is the reason the JAX package gives for
+    float32 on the CPU."""
+    value = cfg.tpu[key]
+    if value in ("auto", None):
+        value = "float32"
+    if value not in FEATS_DTYPES:
+        raise ValueError(f"Invalid tpu.{key} {value!r} "
+                         "(use 'auto'|'float32'|'float16'|'bfloat16'|'int8')")
+    return FEATS_DTYPES[value]
+
+
+def quantize_feats_int8(feats: np.ndarray):
+    """Per-frame symmetric int8 quantization of [... x T x D] features
+    (model.py:603-616): scale[..., t] = max|feats[..., t, :]| / 127 (at
+    least 1e-12), q = rint(f / scale) clipped to +-127.  Returns (q int8,
+    scale float32 [... x T]); the error is at most scale / 2, and the wire
+    and the cache hold a quarter of the float32 bytes."""
+    scale = np.abs(feats).max(axis=-1) / 127.0
+    scale = np.maximum(scale, 1e-12).astype(np.float32)
+    q = np.rint(feats / scale[..., None])
+    q = np.clip(q, -127, 127).astype(np.int8)
+    return q, scale
+
+
+def dequantize_feats(arrays: dict) -> dict:
+    """The float32 features of a batch on its wire (model.py:619-631):
+    int8 times its per-frame scale, a half-width float cast up; a float32
+    wire is returned as it is."""
+    feats = arrays["feats"]
+    if "feats_scale" in arrays:
+        out = {k: v for k, v in arrays.items() if k != "feats_scale"}
+        out["feats"] = feats.to(torch.float32) * arrays["feats_scale"][..., None]
+        return out
+    if feats.dtype != torch.float32:
+        return dict(arrays, feats=feats.to(torch.float32))
+    return arrays
+
+
+def batch_to_host_tensors(batch, supervised: bool = False, feats_dtype=None) -> dict:
+    """CPU tensors of a `data.PaddedBatch` (the keys the forward and the
+    loss read; lengths and ids as int64), the features on the wire
+    `feats_dtype` (`resolve_feats_dtype`: int8 adds `feats_scale`).  With
     `supervised` it adds the supervised losses' `gt_label`,
     `absolute_lengths` and `fully_supervised`, which nothing else reads
     on the device."""
-    device = resolve_device(device)
-    ids = lambda a: torch.as_tensor(a).to(device, torch.int64)  # noqa: E731
-    out = dict(
-        feats=torch.as_tensor(batch.feats, dtype=torch.float32).to(device),
+    ids = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64)  # noqa: E731
+    out = {}
+    if feats_dtype == "int8":
+        q, scale = quantize_feats_int8(batch.feats)
+        out.update(feats=torch.from_numpy(q), feats_scale=torch.from_numpy(scale))
+    else:
+        feats = torch.as_tensor(np.asarray(batch.feats, np.float32))
+        out["feats"] = feats if feats_dtype is None else feats.to(feats_dtype)
+    out.update(
         num_frames=ids(batch.num_frames),
         tf_input=ids(batch.tf_input),
         tf_target=ids(batch.tf_target),
@@ -324,8 +400,14 @@ def batch_to_tensors(batch, device, supervised: bool = False) -> dict:
     if supervised:
         out.update(
             gt_label=ids(batch.gt_label),
-            absolute_lengths=torch.as_tensor(batch.absolute_lengths,
-                                             dtype=torch.float32).to(device),
-            fully_supervised=torch.as_tensor(batch.fully_supervised).to(device, torch.bool),
+            absolute_lengths=torch.as_tensor(np.asarray(batch.absolute_lengths, np.float32)),
+            fully_supervised=torch.as_tensor(np.asarray(batch.fully_supervised, bool)),
         )
     return out
+
+
+def batch_to_tensors(batch, device, supervised: bool = False, feats_dtype=None) -> dict:
+    """`batch_to_host_tensors` copied to `device`."""
+    device = resolve_device(device)
+    return {k: v.to(device) for k, v in
+            batch_to_host_tensors(batch, supervised, feats_dtype).items()}

@@ -5,13 +5,16 @@
   one-conv `NoFt` — then masked GroupNorm -> ReLU -> (train: dropout) ->
   mask;
 * fs: BiLSTM encoder, its final (h, c) projected to the decoder init,
-  additive attention tanh(z W1 + l2(h)) . V, and a loop of `DecoderCell`
-  steps: eval decodes freely and stops once every video has emitted EOS;
-  train, and eval with `teacher_forcing` (the alignment evaluator), are
+  additive attention tanh(z W1 + l2(h)) . V, then the decode.  With
+  `teacher_forcing` (train by default, and the alignment evaluator) it is
   teacher-forced over all S steps through the decoder chain
   (`ops/decoder_chain.py decoder_teacher_forced`, the JAX package's
-  `tpu.use_pallas_decoder` route), train with the embedding dropout mask
-  drawn for the whole [S x B x H] trajectory;
+  `tpu.use_pallas_decoder` route).  Without, it is a loop of
+  `DecoderCell` steps, each fed the previous step's argmax: eval stops
+  once every video has emitted EOS, train runs all S steps under autograd
+  (the JAX package exits early only when not training, mucon.py:330).
+  Train applies the embedding dropout mask drawn for the whole
+  [S x B x H] trajectory, a step's row to that step;
 * fc: 1x1 conv head at Tz, then the per-video nearest upsample to T.
 
 Submodule and parameter names are the flax ones, so a JAX parameter tree
@@ -119,8 +122,10 @@ class DecoderCell(nn.Module):
     def reset_parameters(self, generator: torch.Generator):
         scaled_normal_init_(self.attention_V, self.attention_V.shape[0], generator)
 
-    def forward(self, h, c, token, enc_out, attn_pre, tz_mask):
+    def forward(self, h, c, token, enc_out, attn_pre, tz_mask, emb_mask=None):
         emb = torch.relu(self.embedding(token))
+        if emb_mask is not None:  # this step's embedding dropout (train)
+            emb = emb * emb_mask
         q = self.attention_l2(h)
         u = torch.tanh(attn_pre + q[:, None, :])  # [B x Tz x H]
         scores = torch.where(tz_mask > 0, u @ self.attention_V, float("-inf"))
@@ -137,8 +142,8 @@ class DecoderCell(nn.Module):
 
 
 class MuConNet(nn.Module):
-    """Forward graph: eval with early-exit free decoding, or train with
-    teacher forcing."""
+    """Forward graph: eval with early-exit free decoding, or teacher
+    forcing over all S steps; train teacher-forced or free decoding."""
 
     def __init__(
         self,
@@ -209,9 +214,12 @@ class MuConNet(nn.Module):
         train: bool = False,
         transcript_len=None,  # [B] true N_i (train, teacher forcing)
         masks: Optional[TrainMasks] = None,  # dropout masks (train)
-        teacher_forcing: bool = False,  # eval: decode the ground truth's S steps
+        teacher_forcing: Optional[bool] = None,  # decode the ground truth's S
+        # steps; None: in train only
     ) -> MuConForwardOut:
         B, T, _ = feats.shape
+        if teacher_forcing is None:
+            teacher_forcing = train
         S, M = self.max_decoding_steps, self.num_classes
 
         if z_precomputed is not None:
@@ -234,7 +242,7 @@ class MuConNet(nn.Module):
         seg_z = self.conv_classifier(z)
         segmentation = interpolate_nearest_time(seg_z, tz_len, T, num_frames)
 
-        if train or teacher_forcing:
+        if teacher_forcing:
             # teacher-forced decode over all S steps (model.py:251-269): the
             # embedding, ReLU and dropout upstream of the chain, the heads
             # after it; the loss and the alignment eval read the first
@@ -257,26 +265,38 @@ class MuConNet(nn.Module):
                 teacher_forced=True,
             )
 
-        # early-exit free decode (mucon.py:330-365): runs until every video
-        # has emitted EOS; un-run steps keep zeros (the wire ships all S)
-        logprobs = feats.new_zeros(S, B, M + 1)
-        lengths = feats.new_zeros(S, B)
-        tokens = torch.zeros(S, B, dtype=torch.int64, device=feats.device)
+        # free decode from SOS, each step fed the previous step's argmax
+        # (first index on ties, mucon.py:109, 154).  Eval stops once every
+        # video has emitted EOS (mucon.py:330-365) and un-run steps keep
+        # zeros (the wire ships all S); train runs all S steps under
+        # autograd (mucon.py:366-380), step s with row s of the embedding
+        # dropout mask
+        emb_masks = masks.embedding if masks is not None else None
+        lps, lns, toks = [], [], []
         token = tf_input[:, 0].to(torch.int64)
         done = torch.zeros(B, dtype=torch.bool, device=feats.device)
         for step in range(S):
-            h, c, token, lp, ln = self.decoder(h, c, token, enc_out, attn_pre, tz_mask)
-            logprobs[step], lengths[step], tokens[step] = lp, ln, token
-            done |= token == M
-            if bool(done.all()):  # one host sync per step
-                break
-        logprobs = logprobs.transpose(0, 1)  # [B x S x (M+1)]
-        lengths = lengths.transpose(0, 1)
-        tokens = tokens.transpose(0, 1)
+            h, c, token, lp, ln = self.decoder(
+                h, c, token, enc_out, attn_pre, tz_mask,
+                None if emb_masks is None else emb_masks[step])
+            lps.append(lp)
+            lns.append(ln)
+            toks.append(token)
+            if not train:
+                done |= token == M
+                if bool(done.all()):  # one host sync per step
+                    break
+        pad = S - len(lps)
+        logprobs = torch.stack(lps + [torch.zeros_like(lps[0])] * pad, dim=1)  # [B x S x (M+1)]
+        lengths = torch.stack(lns + [torch.zeros_like(lns[0])] * pad, dim=1)
+        tokens = torch.stack(toks + [torch.zeros_like(toks[0])] * pad, dim=1)
 
-        is_eos = tokens == M
-        first_eos = torch.argmax(is_eos.to(torch.int32), dim=1)
-        n_steps = torch.where(is_eos.any(dim=1), first_eos + 1, S)
+        if train:  # the loss reads the first N_i + 1 steps, as in teacher forcing
+            n_steps = transcript_len + 1
+        else:
+            is_eos = tokens == M
+            first_eos = torch.argmax(is_eos.to(torch.int32), dim=1)
+            n_steps = torch.where(is_eos.any(dim=1), first_eos + 1, S)
 
         return MuConForwardOut(
             transcript=logprobs,

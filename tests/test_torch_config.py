@@ -3,9 +3,11 @@
 The defaults, the `--set` coercion (the port parses scalars without yaml)
 and the `config.yaml` round trip in both directions are held to the JAX
 package's; the port composes, dumps and reloads with yaml blocked; options
-it does not run raise (the host Viterbi backend and multi-length decoding
-run, on the evaluator's per-batch path), and TPU-only options are logged
-once.
+it does not run raise, and TPU-only options are logged once.  The options
+it runs are accepted and change what it computes: the host Viterbi backend
+and multi-length decoding (the evaluator's per-batch path), the device
+batch cache, device prefetch, the feature wires, gradient accumulation,
+every clip mode and free-decode training.
 """
 
 import logging
@@ -133,10 +135,8 @@ def test_compose_dump_reload_without_yaml(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("tpu.cache_batches", True), ("trainer.accumulate_grad_every", 2),
-    ("tpu.compute_dtype", "bfloat16"), ("tpu.feats_transfer_dtype", "int8"),
-    ("tpu.eval_feats_transfer_dtype", "bfloat16"), ("tpu.device_prefetch", 0),
-    ("trainer.clip_grad_norm_every_param", True), ("tpu.mesh.multihost", True),
+    ("tpu.compute_dtype", "bfloat16"), ("tpu.mesh.multihost", True),
+    ("tpu.kernel_mm_dtype", "bfloat16"), ("tpu.in_proj_mm_dtype", "bfloat16"),
     ("tpu.use_pallas_decoder", False),  # one kernel off, the others on
 ])
 def test_unported_keys_raise(key, value):
@@ -151,26 +151,112 @@ def test_unported_keys_raise(key, value):
         support.check_supported(cfg)
 
 
-@pytest.mark.parametrize("key,value", [
-    ("evaluator.viterbi.backend", "host"), ("evaluator.viterbi.multi_length", True),
-])
-def test_ported_eval_keys_accepted(key, value):
-    """Both keys pass `check_supported` and send the evaluator down the
-    per-batch path (the fused path's single-shape padding off with it)."""
+class _Videos(list):
+    """A stand-in train set of 16-frame videos for the trainer's loader."""
+
+    max_transcript_length = 3
+
+    def num_frames(self, i):
+        return 16
+
+
+def _trainer(cfg, root):
+    """A port trainer of a tiny CPU model, its run folder under `root`."""
+    from tests.test_model import D, M, NMAX
+
+    from mucon_tpu_torch.harness.trainer import SimpleTrainer
+    from mucon_tpu_torch.models.model import create_model
+
+    cfg.system.device = "cpu"
+    cfg.trainer.root = str(root)
+    model = create_model(M, NMAX + 1, D, device="cpu", stages=(1, 2), hidden_size=16,
+                         last_gn_num_groups=4, lstm_hidden_size=16)
+    return SimpleTrainer(cfg, "accepted", _Videos([None] * 4), model)
+
+
+def _batches_made_before_the_first_step(cfg, root):
+    trainer = _trainer(cfg, root)
+    made = []
+    trainer._batch_arrays = lambda batch, stream=None: (made.append(batch), ({}, None))[1]
+    next(trainer._prefetched([SimpleNamespace(video_names=(i,)) for i in range(4)]))
+    return len(made)
+
+
+def _clipped(cfg, root):
+    """The gradients after `clip_gradients` from gradients of norm 1e3."""
+    from mucon_tpu_torch.harness.optim import clip_gradients
+
+    trainer = _trainer(cfg, root)
+    g = torch.Generator().manual_seed(0)
+    for p in trainer.model.net.parameters():
+        p.grad = torch.randn(p.shape, generator=g) * 1e3 / p.numel() ** 0.5
+    clip_gradients(cfg.trainer, trainer.partition)
+    return [p.grad for p in trainer.model.net.parameters()]
+
+
+def _per_batch_path(cfg, root):
     from mucon_tpu_torch.harness.evaluator import MuConEvaluator
 
+    ev = MuConEvaluator(cfg, SimpleNamespace(background_class_ids=[0]), None)
+    if ev._single_shape():
+        return "fused, single shape"
+    assert not ev._fused_backend() and ev._eval_pad_to() is None
+    return "per batch"
+
+
+def _eval_wire(cfg, root):
+    from mucon_tpu_torch.harness.evaluator import MuConEvaluator
+
+    return MuConEvaluator(cfg, SimpleNamespace(background_class_ids=[0]), None)._feats_dtype
+
+
+def _teacher_forcing_in_training(cfg, root):
+    from mucon_tpu_torch.models.model import model_fields_from_cfg
+
+    model_fields_from_cfg(cfg)
+    trainer = _trainer(cfg, root)
+    trainer.on_start_epoch(0)
+    return trainer.model.teacher_forcing
+
+
+@pytest.mark.parametrize("key,value,read", [
+    ("evaluator.viterbi.backend", "host", _per_batch_path),
+    ("evaluator.viterbi.multi_length", True, _per_batch_path),
+    ("tpu.cache_batches", True,
+     lambda cfg, root: _trainer(cfg, root).create_train_dataloader().fixed_batches),
+    ("trainer.accumulate_grad_every", 2,
+     lambda cfg, root: _trainer(cfg, root).accumulate_grad_every),
+    ("tpu.feats_transfer_dtype", "int8", lambda cfg, root: _trainer(cfg, root)._feats_dtype),
+    ("tpu.eval_feats_transfer_dtype", "bfloat16", _eval_wire),
+    ("tpu.device_prefetch", 0, _batches_made_before_the_first_step),
+    ("trainer.clip_grad_norm_every_param", True, _clipped),
+    ("model.teacher_forcing", False, _teacher_forcing_in_training),
+])
+def test_ported_eval_keys_accepted(key, value, read, tmp_path):
+    """Each key passes `check_supported` and changes what the port
+    computes: the two eval keys send the evaluator down the per-batch path
+    (the fused path's single-shape padding off with it); the others change
+    what the trainer or evaluator reads from the config.  With the JAX
+    clip order, `clip_grad_norm_every_param` clips each parameter alone
+    only once `clip_grad_norm_separate` is off."""
+    before = read(get_cfg_defaults(), tmp_path / "default")
     cfg = get_cfg_defaults()
-    db = SimpleNamespace(background_class_ids=[0])
-    assert MuConEvaluator(cfg, db, None)._fused_backend()
     *parents, leaf = key.split(".")
     node_ = cfg
     for p in parents:
         node_ = node_[p]
     node_[leaf] = value
     support.check_supported(cfg)
-    ev = MuConEvaluator(cfg, db, None)
-    assert not ev._fused_backend() and not ev._single_shape()
-    assert ev._eval_pad_to() is None
+    after = read(cfg, tmp_path / "set")
+    if key == "trainer.clip_grad_norm_every_param":
+        # the separate clip comes first in the JAX order ...
+        assert all(torch.equal(a, b) for a, b in zip(after, before))
+        cfg.trainer.clip_grad_norm_separate = False
+        after = read(cfg, tmp_path / "per_param")
+        assert all(float(torch.linalg.vector_norm(g)) <= 100.0 * (1 + 1e-6) for g in after)
+        assert not all(torch.equal(a, b) for a, b in zip(after, before))
+    else:
+        assert after != before, (key, before, after)
 
 
 def test_tpu_only_keys_are_logged_once(caplog):

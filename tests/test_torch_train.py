@@ -31,7 +31,6 @@ from mucon_tpu.harness.optim import create_scheduler as create_jax_scheduler
 from mucon_tpu.models import create_model as create_jax_model
 from mucon_tpu.models.model import batch_to_arrays
 from mucon_tpu_torch.config import ConfigNode
-from mucon_tpu_torch.config.support import check_supported
 from mucon_tpu_torch.convert import state_dict_to_params
 from mucon_tpu_torch.harness.evaluator import MuConEvaluator
 from mucon_tpu_torch.harness.trainer import SimpleTrainer
@@ -208,10 +207,10 @@ def _set(cfg, path, value):
 
 # options that change the reference's run and that the port cannot follow
 # yet: each raises from the config node instead of running another model
+# (gradient accumulation and free-decode training run: see
+# tests/test_torch_config.py::test_ported_eval_keys_accepted)
 @pytest.mark.parametrize("path,value,reader", [
-    ("trainer.accumulate_grad_every", 2, check_supported),
     ("tpu.compute_dtype", "bfloat16", model_fields_from_cfg),
-    ("model.teacher_forcing", False, model_fields_from_cfg),
 ])
 def test_unported_config_options_raise(path, value, reader):
     cfg = _cfg(0.0)
