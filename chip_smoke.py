@@ -95,7 +95,21 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    steps against plain steps, no decoder chain launched, and a
    `TrainerForTFExperiments` run launching the chain in its first epoch
    only; `inspect_run` and `write_report` on the cli run folder;
-9. prints the kernel report JSON (each kernel's launches, error, time, the
+9. runs the bf16 compute path and the per-kernel routes (`precision_phase`):
+   the stack kernels' bf16-operand modes (`tpu.kernel_mm_dtype=bfloat16`:
+   the WaveNet eval stack and the MS-TCN++ stage at B=128, T=2560; the
+   trainable stack's forward and sweep at the train batch) against their
+   bf16 plain twins -- every layer of the forward from its own stash, the
+   first two layers with counted rounding flips, all 11 by the JAX
+   package's contract -- and against the 3xTF32 kernels, timed in turns
+   and by device time; `train_test_mucon --cfg configs/tpu_batched.yaml`
+   (bf16 compute, B=16, pad 512) on the cli data with its launches by
+   route (rows 9-10 none) and `test_mucon` within 1e-6; three bf16 kernel
+   steps against steps of the same routes on the plain twins; the four
+   modes through a train step, an eval and an MS-TCN++ request (the
+   report's launches); each `tpu.use_pallas*` flag off alone; and a
+   unidirectional encoder (no BiLSTM kernel);
+10. prints the kernel report JSON (each kernel's launches, error, time, the
    plain twin's time, the least time the card could take for the same work
    and, where one PyTorch call computes the same function, that call's
    time), then `{"ok": true, "device": {...}}` as the last line.
@@ -149,6 +163,15 @@ REPLACES = {
                              "mucon_tpu/ops/wavenet_train_pallas_v2.py:430"),
     "wavenet_train_v2_sweep": ("mucon_tpu_torch/csrc/wavenet_train_v2.cu",
                                "mucon_tpu/ops/wavenet_train_pallas_v2.py:557"),
+    # the bf16-operand modes (`tpu.kernel_mm_dtype=bfloat16`) of rows 1, 5, 6, 12
+    "wavenet_layer_bf16": ("mucon_tpu_torch/csrc/wavenet_stack.cu",
+                           "mucon_tpu/ops/wavenet_pallas_v2.py:151"),
+    "wavenet_train_fwd_bf16": ("mucon_tpu_torch/csrc/wavenet_train.cu",
+                               "mucon_tpu/ops/wavenet_train_pallas_v3.py:358"),
+    "wavenet_train_sweep_bf16": ("mucon_tpu_torch/csrc/wavenet_train.cu",
+                                 "mucon_tpu/ops/wavenet_train_pallas_v3.py:449"),
+    "mstcnpp_stack_bf16": ("mucon_tpu_torch/csrc/mstcnpp.cu",
+                           "mucon_tpu/ops/mstcnpp_pallas.py:151"),
 }
 SERVING_KERNELS = ("wavenet_layer", "bilstm_recurrence", "dense_viterbi")
 MSTCNPP_SERVING_KERNELS = ("mstcnpp_stack", "bilstm_recurrence", "dense_viterbi")
@@ -179,6 +202,35 @@ FWD_BOUND, GRAD_BOUND, GRAD_MAX_BOUND = 1e-4, 1e-3, 1e-2
 # operands, `mucon_tpu_torch/ops/tf32.py`): its least time is its f32
 # operations over a third of the TF32 peak, 165 TFLOP/s.
 HBM_BYTES_PER_S, F32_OPS_PER_S, TF32_OPS_PER_S = 3.35e12, 67e12, 495e12
+# the dense bf16 tensor-core peak: the bound of the stack kernels' bf16-operand
+# mode (one bf16 product per product)
+BF16_OPS_PER_S = 989e12
+# The bf16-operand mode against its plain twin: both take exact products of
+# the same bf16-rounded operands and sum them in f32, in another order, and
+# round the sums to bf16 where the next product reads them.  Where the two
+# sums round an activation to the two sides of a bf16 boundary (or of a
+# ReLU kink or a max-pool tie), that operand differs by a bf16 ulp, and the
+# outputs it feeds by more than the f32 noise.  So the check is in two
+# parts.  (1) Exact operands: a layer of the trainable forward, recomputed
+# by the twin from the kernel's own stash (its input, and its nonlin(z)
+# before the 1x1), is held to BF16_TWIN * max|twin| element by element --
+# nonlin(z) and the layer's output, every layer, at full width (the eval
+# stack runs the same layer body).  (2) Whole stacks: the first two layers
+# and the out-projection against the twin, each element within BF16_TWIN *
+# max|twin| but for a counted set (printed with its worst element; at most
+# BF16_FLIPS of the elements, the output's relative L2 err within
+# BF16_TWIN_L2, gradients by GRAD_BOUND and GRAD_MAX_BOUND as the f32
+# kernels); the 11 layers by the JAX package's own contract for the mode
+# (tests/test_pallas.py:296-297, tests/test_pallas_train.py:386-397),
+# against the twin and the 3xTF32 kernel: relative err < 0.02 and cosine >
+# 0.9995, gradients cosine > 0.995 and norms within 5%.  (On the H100 the
+# flips reach the bf16 noise level through 11 layers, rel L2 1.8e-3 (PERF.md
+# §6); through two, 5.3e-5 with 0.6% of the elements above 1e-5, and
+# 1.5e-4 with 4.2% for the MS-TCN++ stage, which rounds four times a layer.
+# A wrong rounding mode would move every element and give a rel L2 near
+# 2^-9: BF16_FLIPS = 10% and BF16_TWIN_L2 = 5e-4 stay clear of both.)
+BF16_TWIN, BF16_FLIPS, BF16_TWIN_L2, BF16_REL, BF16_COS, BF16_GCOS, BF16_GNORM = (
+    1e-5, 0.1, 5e-4, 0.02, 0.9995, 0.995, 0.05)
 
 
 def say(msg: str) -> None:
@@ -211,6 +263,22 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, calls: int = 10) -> float:
+    """Device milliseconds per call of `fn`: every CUDA kernel it launches,
+    summed (`torch.profiler`), after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3 / calls
+
+
 def paired_ms(kernel_fn, plain_fn, reps: int) -> tuple:
     """Kernel and plain timings taken in turns: plain, kernel, kernel, plain."""
     ms = {"k": [], "p": []}
@@ -225,22 +293,24 @@ def nbytes(*tensors) -> int:
 
 
 def report(err, ms, plain_ms, moved: float, ops: float, library_ms=None,
-           tf32x3: bool = False) -> dict:
+           tf32x3: bool = False, bf16: bool = False) -> dict:
     """A kernel's line of the report.  bound_ms, the least time the card
     could take for the same work, is the larger of the bytes the function
     must move (its inputs read once, its outputs written once, counting
     only the valid frames and steps of this run's data) over HBM's rate
     and its f32 operations on this data over the f32 peak; with `tf32x3`
     (a matrix-product kernel on the tensor cores) over a third of the TF32
-    peak (`ops_type` says which).  A kernel faster than its bound is a
-    fault of the bound: fails."""
-    ops_rate = TF32_OPS_PER_S / 3 if tf32x3 else F32_OPS_PER_S
+    peak, with `bf16` (the bf16-operand mode) over the dense bf16 peak
+    (`ops_type` says which).  A kernel faster than its bound is a fault of
+    the bound: fails."""
+    ops_rate = BF16_OPS_PER_S if bf16 else TF32_OPS_PER_S / 3 if tf32x3 else F32_OPS_PER_S
     bytes_ms, ops_ms = 1e3 * moved / HBM_BYTES_PER_S, 1e3 * ops / ops_rate
     bound_ms = max(bytes_ms, ops_ms)
     expect(ms >= bound_ms, f"a kernel's time {ms} ms is below its bound {bound_ms} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                library_ms=library_ms, ops_type="3xTF32" if tf32x3 else "f32")
+                library_ms=library_ms,
+                ops_type="bf16" if bf16 else "3xTF32" if tf32x3 else "f32")
 
 
 def stack_rows(stages, pooling_layers, lengths) -> tuple:
@@ -1624,27 +1694,34 @@ def make_trainers(dev, ft_type: str, root: str, model_cls=None, sets=()) -> dict
     return out
 
 
-def check_step(tag, lk: dict, lp: dict, before: dict, after_k: dict, after_p: dict) -> None:
+def check_step(tag, lk: dict, lp: dict, before: dict, after_k: dict, after_p: dict,
+               model_scale: bool = False) -> None:
     """A kernel step against a plain step from the same weights `before`:
     every loss term within 1e-4 relative, every parameter within 1e-2 of
-    the plain step's largest update to it."""
+    the plain step's largest update to it -- with `model_scale` (bf16
+    compute) of the largest update of any parameter: a gradient that passes
+    bf16 roundings is good to 2^-8 of the largest term that feeds it, and
+    a parameter whose terms cancel (the length head's bias) has an update
+    far below them."""
     expect(all(np.isfinite(v) for v in (*lk.values(), *lp.values())),
            f"{tag}: non-finite loss")
     rel = max(abs(lk[n] - lp[n]) / max(abs(lp[n]), 1e-12) for n in lp)
     expect(rel <= 1e-4, f"{tag}: loss rel diff {rel} > 1e-4 ({lk} vs {lp})")
     worst = (0.0, "")
+    top = max((after_p[n] - b).abs().max().item() for n, b in before.items())
     for n, b in before.items():
-        upd = (after_p[n] - b).abs().max().item()
+        upd = top if model_scale else (after_p[n] - b).abs().max().item()
         err = (after_k[n] - after_p[n]).abs().max().item()
         expect(err <= 1e-2 * upd + 1e-7, f"{tag}: {n} differs by {err} (update {upd})")
         worst = max(worst, (err / max(upd, 1e-30), n))
     say(f"{tag}: main loss {lk['main']:.6f} (kernels) vs {lp['main']:.6f} (plain, from the "
         f"same weights), max rel diff over the {len(lp)} terms {rel:.2e} <= 1e-4; every "
-        f"parameter within 1e-2 * max|update| (worst {worst[0]:.2e}, {worst[1]})")
+        f"parameter within 1e-2 * max|update{' of the model' if model_scale else ''}| "
+        f"(worst {worst[0]:.2e}, {worst[1]})")
 
 
 def compare_steps(tag, trainers, arrays, n_steps: int, required, absent, card: str,
-                  stages: bool = False) -> dict:
+                  stages: bool = False, model_scale: bool = False) -> dict:
     """`n_steps` kernel steps, twice, and before each of them one plain step
     from the kernel path's weights at that step with the same masks: the
     kernels in `required` must launch in the first kernel run, those in
@@ -1701,7 +1778,7 @@ def compare_steps(tag, trainers, arrays, n_steps: int, required, absent, card: s
 
     for at, (lk, lp) in enumerate(zip(losses["k"], losses["p"])):
         check_step(f"{tag} train step {at + 1}", lk, lp, snaps["k"][at], snaps["k"][at + 1],
-                   snaps["p"][at + 1])
+                   snaps["p"][at + 1], model_scale)
 
     ms = paired_ms(lambda: trainers["k"].train_step(arrays),
                    lambda: trainers["p"].train_step(arrays), reps=3)
@@ -2662,6 +2739,581 @@ def trainer_options_phase(dev, card: str, tmp: str, cli: dict) -> None:
     say(f"trainer_options phase: {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# -- phase 9: the bf16 compute path and the bf16-operand kernels ------------
+
+def held_tight(name, got, ref) -> float:
+    """A bf16-operand output against its bf16 twin: BF16_TWIN * max|twin| for
+    all but a counted set (printed with its worst element), relative L2
+    within BF16_TWIN_L2.  Returns the max abs err."""
+    import torch
+
+    diff = (got - ref).abs()
+    err, scale = diff.max().item(), ref.abs().max().item()
+    over = int((diff > BF16_TWIN * scale).sum())
+    l2 = (torch.linalg.vector_norm(got - ref) /
+          torch.linalg.vector_norm(ref).clamp_min(1e-30)).item()
+    i = int(diff.argmax())
+    expect(l2 <= BF16_TWIN_L2 and over <= BF16_FLIPS * ref.numel(),
+           f"{name}: rel L2 {l2} (<= {BF16_TWIN_L2}), {over} elements flipped "
+           f"(<= {BF16_FLIPS} of {ref.numel()}) against the bf16 twin")
+    say(f"kernel {name}, first two layers: max abs err {err:.3e} ({err / scale:.2e} of "
+        f"max|twin|); {over} of {ref.numel()} elements above {BF16_TWIN:g} * max|twin|"
+        + (f", the worst {got.flatten()[i].item():.7g} vs {ref.flatten()[i].item():.7g}"
+           if over else "") + f"; rel L2 {l2:.2e} <= {BF16_TWIN_L2:g}")
+    return err
+
+
+def held_contract(name, got, ref, what: str, grad: bool = False) -> str:
+    """The JAX package's contract for the bf16-operand mode: an output within
+    relative err < BF16_REL and cosine > BF16_COS of `ref`, a gradient
+    cosine > BF16_GCOS and its norm within BF16_GNORM."""
+    import torch
+
+    cos = torch.nn.functional.cosine_similarity(got.flatten().double(),
+                                                ref.flatten().double(), dim=0).item()
+    if grad:
+        na, nb = (torch.linalg.vector_norm(t.double()).item() for t in (got, ref))
+        ratio = na / nb if nb > 1e-6 else 1.0
+        expect(cos > BF16_GCOS and abs(ratio - 1.0) < BF16_GNORM,
+               f"{name}: cosine {cos} / norm ratio {ratio} against {what}")
+        return f"cos {cos:.5f}, norm ratio {ratio:.4f}"
+    rel = ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+    l2 = (torch.linalg.vector_norm(got - ref) /
+          torch.linalg.vector_norm(ref).clamp_min(1e-30)).item()
+    expect(rel < BF16_REL and cos > BF16_COS, f"{name}: rel {rel} / cosine {cos} against {what}")
+    return f"rel {rel:.2e}, rel L2 {l2:.2e}, cosine {cos:.7f}"
+
+
+def held_layers(ft, x, lengths, weights, masks, kw) -> float:
+    """Each layer of the trainable forward in its bf16-operand mode against
+    the twin's arithmetic on the kernel's own stash: nonlin(z) from the
+    layer's input, and the layer's output from that input and the stashed
+    nonlin(z) (rounded to bf16 as the kernel rounds it), both within
+    BF16_TWIN * max|twin| on the valid rows.  Returns the largest err."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.models.layers import mask_time, time_mask
+    from mucon_tpu_torch.models.temporal import nonlinearity, pool2_time, shift_time
+    from mucon_tpu_torch.ops.bf16 import matmul_bf16_plain as mm
+
+    w3, b3, w1, b1, _, _ = weights
+
+    def valid(t, ln):  # the stashes hold the rows t < length only
+        m = time_mask(t.shape[1], ln, torch.bool)[:, :, None]
+        return torch.where(m, t, torch.zeros((), device=t.device))
+
+    with torch.no_grad():
+        _, (xs, hs, us, x_fin) = cuda.wavenet_train_forward(
+            mask_time(x, lengths), lengths, *weights, masks, mm_dtype=torch.bfloat16, **kw)
+        outputs = [*xs[1:], x_fin]
+        worst = worst_abs = 0.0
+        ln = lengths
+        for i, d in enumerate(ft.stages):
+            xi = xs[i]
+            z = (mm(shift_time(xi, -d), w3[i, 0]) + mm(xi, w3[i, 1])
+                 + mm(shift_time(xi, d), w3[i, 2]) + b3[i])
+            want_h = valid(nonlinearity(z, ft.leaky), ln)
+            got_h = valid(hs[i], ln)
+            want_u = valid((mm(got_h, w1[i]) + b1[i]) * masks[i] + xi, ln)
+            pairs = [("nonlin(z)", got_h, want_h)]
+            if i in ft.pooling_layers:
+                got_u = valid(us[i], ln)
+                ln = ln // 2
+                pairs += [("u", got_u, want_u),
+                          ("output", outputs[i],
+                           valid(pool2_time(got_u, ft.pooling_type), ln))]
+            else:
+                pairs.append(("output", outputs[i], want_u))
+            for what, got, want in pairs:
+                err = (got - want).abs().max().item()
+                bound = BF16_TWIN * want.abs().max().item()
+                expect(err <= bound, f"wavenet_train_fwd_bf16 layer {i} {what}: max abs err "
+                                     f"{err} > {bound}")
+                worst = max(worst, err / max(want.abs().max().item(), 1e-30))
+                worst_abs = max(worst_abs, err)
+    say(f"kernel wavenet_train_fwd_bf16: every layer's nonlin(z) and output from its own "
+        f"stashed operands within {worst:.2e} <= {BF16_TWIN:g} of max|twin|, element by element")
+    return worst_abs
+
+
+def first_layers(name, args, kw, n: int = 2):
+    """The stack's first n layers and its out-projection: (args, kw)."""
+    if name.startswith("wavenet"):
+        x, lengths, w3, b3, w1, b1, wl, bl = args
+        return ((x, lengths, w3[:n], b3[:n], w1[:n], b1[:n], wl, bl),
+                dict(kw, stages=tuple(kw["stages"][:n]),
+                     pooling_layers=tuple(p for p in kw["pooling_layers"] if p < n)))
+    x, lengths, *w, wo, bo = args
+    return (x, lengths, *(t[:n] for t in w), wo, bo), dict(
+        kw, pooling_layers=tuple(p for p in kw["pooling_layers"] if p < n))
+
+
+def check_bf16_eval_stacks(model, model_m, gen, dev) -> dict:
+    """The eval stacks' bf16-operand mode (rows 1 and 12) at B=128, T=2560:
+    the first two layers against the bf16 plain twin (`held_tight`), the
+    whole stack against the twin and the 3xTF32 kernel (`held_contract`),
+    timed against the 3xTF32 kernel after warm-up (in turns)."""
+    import torch
+    from mucon_tpu_torch.models.layers import mask_time
+    from mucon_tpu_torch.ops.mstcnpp_stack import (
+        mstcnpp_stack, mstcnpp_stack_plain, pack_mstcnpp_params,
+    )
+    from mucon_tpu_torch.ops.wavenet_stack import (
+        pack_wavenet_params, wavenet_stack, wavenet_stack_plain,
+    )
+
+    bf = torch.bfloat16
+    out = {}
+    for name, m, stack, plain, pack in (
+            ("wavenet_layer_bf16", model, wavenet_stack, wavenet_stack_plain,
+             pack_wavenet_params),
+            ("mstcnpp_stack_bf16", model_m, mstcnpp_stack, mstcnpp_stack_plain,
+             pack_mstcnpp_params)):
+        ft = m.net.ft
+        B, T, C = 128, 2560, ft.Conv1x1_0.kernel.shape[1]
+        lengths = torch.randint(1500, 2101, (B,), generator=gen).to(dev)
+        x = torch.randn(B, T, C, generator=gen) * 0.6
+        x = (torch.relu(x) if name.startswith("wavenet") else x).to(dev)
+        args = (mask_time(x, lengths), lengths, *pack(ft))
+        if name.startswith("wavenet"):
+            kw = dict(stages=ft.stages, pooling_layers=ft.pooling_layers,
+                      pooling_type=ft.pooling_type, leaky=ft.leaky)
+            n_layers = len(ft.stages)
+            ops = stack_ops(C, ft.stages, ft.pooling_layers, lengths)[0]
+        else:
+            kw = dict(pooling_layers=ft.pooling_layers)
+            n_layers = ft.num_layers
+            rows, rows_fin = stack_rows(range(n_layers), ft.pooling_layers, lengths)
+            ops = 16 * C * C * sum(rows) + 2 * C * C * rows_fin
+        sh_args, sh_kw = first_layers(name, args, kw)
+        err = held_tight(name, stack(*sh_args, mm_dtype=bf, **sh_kw)[0],
+                         plain(*sh_args, mm_dtype=bf, **sh_kw)[0])
+        zk, tk = stack(*args, mm_dtype=bf, **kw)
+        zp, tp = plain(*args, mm_dtype=bf, **kw)
+        z32, _ = stack(*args, **kw)
+        expect(torch.equal(tk, tp), f"{name}: output lengths differ")
+        vs_twin = held_contract(name, zk, zp, "the bf16 twin")
+        vs_32 = held_contract(name, zk, z32, "the 3xTF32 kernel")
+        ms, ms32 = paired_ms(lambda: stack(*args, mm_dtype=bf, **kw),
+                             lambda: stack(*args, **kw), reps=5)
+        plain_ms = cuda_ms(lambda: plain(*args, mm_dtype=bf, **kw), reps=3)
+        dev_ms = device_ms(lambda: stack(*args, mm_dtype=bf, **kw))
+        dev32 = device_ms(lambda: stack(*args, **kw))
+        say(f"kernel {name} B={B} T={T} C={C} L={n_layers}: against the bf16 twin {vs_twin}; "
+            f"against the 3xTF32 kernel {vs_32}; {ms:.3f} ms vs the 3xTF32 kernel {ms32:.3f} "
+            f"ms (in turns) vs the bf16 twin {plain_ms:.3f} ms; device {dev_ms:.3f} ms vs "
+            f"{dev32:.3f} ms")
+        rows, rows_fin = stack_rows(range(n_layers), ft.pooling_layers, lengths)
+        out[name] = report(err, ms, plain_ms, 4 * C * (rows[0] + rows_fin) + nbytes(*args[1:]),
+                           ops, bf16=True)
+        out[name].update(tf32x3_ms=ms32, device_ms=dev_ms, tf32x3_device_ms=dev32)
+    return out
+
+
+def check_bf16_train_stack(model, arrays, gen, dev) -> dict:
+    """The trainable stack's bf16-operand mode (rows 5 and 6) at the train
+    batch (B=8, T 1500-2100 padded to 2560, dropout 0.25), same masks and
+    cotangent on every side: the first two layers' z and seven gradients
+    against the bf16 plain twin under autograd, the 11 layers' against the
+    twin and the 3xTF32 kernels, each kernel timed against its 3xTF32 one."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.models.layers import dropout_mask, mask_time
+    from mucon_tpu_torch.ops.wavenet_stack import pack_wavenet_params
+    from mucon_tpu_torch.ops.wavenet_stack_train import (
+        stack_plan, wavenet_stack_train, wavenet_stack_train_plain,
+    )
+
+    bf = torch.bfloat16
+    ft = model.net.ft
+    lengths = arrays["num_frames"]
+    with torch.no_grad():
+        x = ft.in_projection(arrays["feats"], lengths)
+    B, T, C = x.shape
+    kw = dict(stages=ft.stages, pooling_layers=ft.pooling_layers,
+              pooling_type=ft.pooling_type, leaky=ft.leaky)
+    t_ins, _, _, t_fin = stack_plan(ft.stages, ft.pooling_layers, T)
+    mgen = torch.Generator(device=dev).manual_seed(2)
+    masks = [dropout_mask(mgen, DROP, (B, t, C), dev) for t in t_ins]
+    weights = [w.detach().clone() for w in pack_wavenet_params(ft)]
+    names = ("dx", "dw3", "db3", "dw1", "db1", "dw_last", "db_last")
+
+    def fwd_bwd(fn, mm, n=None):
+        ws, k, ms = weights, kw, masks
+        if n is not None:
+            (_, _, *ws), k = first_layers("wavenet", (x, lengths, *weights), kw, n)
+            ms = masks[:n]
+        g = torch.randn(B, stack_plan(k["stages"], k["pooling_layers"], T)[3], C,
+                        generator=torch.Generator().manual_seed(n or 0)).to(dev)
+        xs = [t.clone().requires_grad_() for t in (x, *ws)]
+        z, _ = fn(xs[0], lengths, *xs[1:], drop_masks=ms, mm_dtype=mm, **k)
+        z.backward(g)
+        return z.detach(), [t.grad for t in xs]
+
+    fwd_err = held_layers(ft, x, lengths, weights, masks, kw)
+    zk, gk = fwd_bwd(wavenet_stack_train, bf, 2)
+    zp, gp = fwd_bwd(wavenet_stack_train_plain, bf, 2)
+    held_tight("wavenet_train_fwd_bf16", zk, zp)
+    bwd_err = held("wavenet_train_sweep_bf16 (first two layers)", list(zip(names, gk, gp)),
+                   grads=True)
+    over = [f"{n} {int(((a - b).abs() > BF16_TWIN * b.abs().max()).sum())}/{b.numel()}"
+            for n, a, b in zip(names, gk, gp)]
+    say("kernel wavenet_train_sweep_bf16, first two layers: elements above 1e-5 * max|twin|: "
+        + ", ".join(over))
+    zk, gk = fwd_bwd(wavenet_stack_train, bf)
+    zp, gp = fwd_bwd(wavenet_stack_train_plain, bf)
+    z32, g32 = fwd_bwd(wavenet_stack_train, None)
+    lines = [f"z: {held_contract('wavenet_train_fwd_bf16', zk, zp, 'the bf16 twin')} / "
+             f"{held_contract('wavenet_train_fwd_bf16', zk, z32, 'the 3xTF32 kernel')}"]
+    for n, a, b, c in zip(names, gk, gp, g32):
+        lines.append(f"{n}: {held_contract('wavenet_train_sweep_bf16 ' + n, a, b, 'the twin', True)}"
+                     f" / {held_contract('wavenet_train_sweep_bf16 ' + n, a, c, '3xTF32', True)}")
+    say(f"kernels wavenet_train_fwd_bf16 / wavenet_train_sweep_bf16, {len(ft.stages)} layers, "
+        "against the bf16 twin / the 3xTF32 kernels: " + "; ".join(lines))
+
+    g = torch.randn(B, t_fin, C, generator=gen).to(dev)
+    w3, b3, w1, b1, wl, bl = weights
+    xm = mask_time(x, lengths)
+    _, stash = cuda.wavenet_train_forward(xm, lengths, *weights, masks, mm_dtype=bf, **kw)
+    _, stash32 = cuda.wavenet_train_forward(xm, lengths, *weights, masks, **kw)
+    with torch.no_grad():
+        fwd_ms = paired_ms(
+            lambda: cuda.wavenet_train_forward(xm, lengths, *weights, masks, mm_dtype=bf, **kw),
+            lambda: cuda.wavenet_train_forward(xm, lengths, *weights, masks, **kw), reps=5)
+        fwd_plain = cuda_ms(lambda: wavenet_stack_train_plain(
+            x, lengths, *weights, drop_masks=masks, mm_dtype=bf, **kw), reps=3)
+    bwd_ms = paired_ms(
+        lambda: cuda.wavenet_train_backward(g, stash, lengths, w3, w1, wl, masks, mm_dtype=bf,
+                                            **kw),
+        lambda: cuda.wavenet_train_backward(g, stash32, lengths, w3, w1, wl, masks, **kw),
+        reps=5)
+    xs = [t.clone().requires_grad_() for t in (x, *weights)]
+    z_graph, _ = wavenet_stack_train_plain(xs[0], lengths, *xs[1:], drop_masks=masks,
+                                           mm_dtype=bf, **kw)
+    bwd_plain = cuda_ms(lambda: torch.autograd.grad(z_graph, xs, g, retain_graph=True), reps=3)
+    with torch.no_grad():
+        fwd_dev = [device_ms(lambda: cuda.wavenet_train_forward(xm, lengths, *weights, masks,
+                                                                mm_dtype=mm, **kw))
+                   for mm in (bf, None)]
+    bwd_dev = [device_ms(lambda: cuda.wavenet_train_backward(g, st, lengths, w3, w1, wl, masks,
+                                                             mm_dtype=mm, **kw))
+               for mm, st in ((bf, stash), (None, stash32))]
+    say(f"kernel wavenet_train_fwd_bf16 B={B} T={T} dropout {DROP}: {fwd_ms[0]:.3f} ms vs the "
+        f"3xTF32 kernel {fwd_ms[1]:.3f} ms (in turns) vs the bf16 twin {fwd_plain:.3f} ms, "
+        f"device {fwd_dev[0]:.3f} vs {fwd_dev[1]:.3f} ms; wavenet_train_sweep_bf16 "
+        f"{bwd_ms[0]:.3f} ms vs {bwd_ms[1]:.3f} ms vs the twin's autograd {bwd_plain:.3f} ms, "
+        f"device {bwd_dev[0]:.3f} vs {bwd_dev[1]:.3f} ms")
+    rows, rows_fin = stack_rows(ft.stages, ft.pooling_layers, lengths)
+    pooled = sum(r for i, r in enumerate(rows) if i in ft.pooling_layers)
+    fwd_moved = 4 * C * (3 * sum(rows) + 2 * rows_fin + pooled)
+    bwd_moved = 4 * C * (2 * rows_fin + 3 * sum(rows) + pooled + rows[0])
+    fwd_ops, bwd_ops = stack_ops(C, ft.stages, ft.pooling_layers, lengths)
+    out = {"wavenet_train_fwd_bf16": report(fwd_err, fwd_ms[0], fwd_plain,
+                                            fwd_moved + nbytes(*weights), fwd_ops, bf16=True),
+           "wavenet_train_sweep_bf16": report(bwd_err, bwd_ms[0], bwd_plain,
+                                              bwd_moved + 2 * nbytes(*weights), bwd_ops,
+                                              bf16=True)}
+    out["wavenet_train_fwd_bf16"].update(tf32x3_ms=fwd_ms[1], device_ms=fwd_dev[0],
+                                         tf32x3_device_ms=fwd_dev[1])
+    out["wavenet_train_sweep_bf16"].update(tf32x3_ms=bwd_ms[1], device_ms=bwd_dev[0],
+                                           tf32x3_device_ms=bwd_dev[1])
+    return out
+
+
+class TwinStacks:
+    """Inside: the model's stack, BiLSTM and flint kernels replaced by their
+    plain twins on the same (CUDA) tensors, the routes unchanged: a step of
+    the kernel path's arithmetic with no kernel (a comparison, not a path of
+    the port)."""
+
+    def __enter__(self):
+        from mucon_tpu_torch.models import losses, lstm
+        from mucon_tpu_torch.models import model as model_mod
+        from mucon_tpu_torch.ops.lstm_recurrence import bilstm_recurrence_plain
+        from mucon_tpu_torch.ops.mstcnpp_stack import mstcnpp_stack_plain
+        from mucon_tpu_torch.ops.mucon_loss import mucon_flint_plain
+        from mucon_tpu_torch.ops.wavenet_stack import wavenet_stack_plain
+        from mucon_tpu_torch.ops.wavenet_stack_train import wavenet_stack_train_plain
+
+        def train(x, lengths, *rest, **kw):
+            *w, masks = rest
+            return wavenet_stack_train_plain(x, lengths, *w, drop_masks=masks, **kw)
+
+        self._patches = [
+            mock.patch.object(model_mod, "wavenet_stack_train", train),
+            mock.patch.object(model_mod, "wavenet_stack", wavenet_stack_plain),
+            mock.patch.object(model_mod, "mstcnpp_stack", mstcnpp_stack_plain),
+            mock.patch.object(lstm, "bilstm_recurrence_train", bilstm_recurrence_plain),
+            mock.patch.object(lstm, "bilstm_recurrence", bilstm_recurrence_plain),
+            mock.patch.object(losses, "mucon_flint", mucon_flint_plain),
+        ]
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+
+def precision_trainers(dev, root: str, sets) -> dict:
+    """Three trainers of the default model under the config overrides
+    `sets`, from one seed, every kernel route on and the flint kernel: "k"
+    and "k2" launch the kernels, "p" runs the same routes on the kernels'
+    plain twins (`TwinStacks`)."""
+    from mucon_tpu_torch.harness.trainer import SimpleTrainer
+    from mucon_tpu_torch.models.losses import loss_config_from_cfg
+    from mucon_tpu_torch.models.model import create_model, model_fields_from_cfg
+
+    out = {}
+    for k in ("k", "k2", "p"):
+        cfg = smoke_cfg(root, sets=[("tpu.batch_size", str(TRAIN_B)), *sets])
+        cfg.tpu.use_pallas_loss = True
+        model = create_model(M, N_MAX + 1, D, device=dev, seed=0,
+                             loss_cfg=loss_config_from_cfg(cfg), **model_fields_from_cfg(cfg))
+        out[k] = SimpleTrainer(cfg, f"precision_{k}", None, model, seed=1)
+        out[k].on_start_epoch(0)
+    twin_step = out["p"].train_step
+
+    def step(arrays):
+        with TwinStacks():
+            return twin_step(arrays)
+
+    out["p"].train_step = step
+    return out
+
+
+def routed_launches(trainer, arrays, evaluator_cfg) -> tuple:
+    """One train step of `trainer` and one fused eval batch of its model
+    under `evaluator_cfg`'s routes: (the step's launches, the eval's)."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.models.routing import routes_from_cfg
+    from mucon_tpu_torch.ops.eval_fused import build_fused_eval
+
+    cuda.reset_launch_counts()
+    trainer.train_step(arrays)
+    torch.cuda.synchronize()
+    step = {k: v for k, v in cuda.launch_counts.items() if v}
+    run = build_fused_eval(trainer.model, frame_sampling=FRAME_SAMPLING,
+                           use_kernels=routes_from_cfg(evaluator_cfg))
+    cuda.reset_launch_counts()
+    with torch.inference_mode():
+        run(arrays)
+    torch.cuda.synchronize()
+    return step, {k: v for k, v in cuda.launch_counts.items() if v}
+
+
+def flag_routes(dev, root: str, arrays) -> None:
+    """Each `tpu.use_pallas*` flag off alone (the default f32 model, where
+    every kernel has a route): a train step and an eval batch, its kernels
+    launch no time and every other kernel as with every flag on."""
+    from mucon_tpu_torch.harness.trainer import SimpleTrainer
+    from mucon_tpu_torch.models.losses import loss_config_from_cfg
+    from mucon_tpu_torch.models.model import create_model, model_fields_from_cfg
+
+    off_kernels = {
+        None: (),
+        "tpu.use_pallas": ("wavenet_train_fwd", "wavenet_train_sweep", "wavenet_layer",
+                           "dense_viterbi"),
+        "tpu.use_pallas_train": ("wavenet_train_fwd", "wavenet_train_sweep",
+                                 "wavenet_layer:step"),
+        "tpu.use_pallas_lstm": ("bilstm_recurrence",),
+        "tpu.use_pallas_lstm_train": ("bilstm_train_fwd", "bilstm_train_bwd"),
+        "tpu.use_pallas_decoder": ("decoder_chain_fwd", "decoder_chain_bwd"),
+        "tpu.use_pallas_loss": ("mucon_flint",),
+    }
+    base = None
+    for flag, gone in off_kernels.items():
+        cfg = smoke_cfg(root, sets=[("tpu.batch_size", str(TRAIN_B))])
+        cfg.tpu.use_pallas_loss = True
+        if flag:  # after smoke_cfg, which sets every kernel flag
+            cfg.tpu[flag.split(".")[1]] = False
+        model = create_model(M, N_MAX + 1, D, device=dev, seed=0,
+                             loss_cfg=loss_config_from_cfg(cfg), **model_fields_from_cfg(cfg))
+        trainer = SimpleTrainer(cfg, "flags", None, model, seed=1)
+        trainer.on_start_epoch(0)
+        step, ev = routed_launches(trainer, arrays, cfg)
+        if base is None:
+            base = (step, ev)
+            say(f"precision: every kernel flag on: a step launches {step}, an eval batch {ev}")
+            continue
+        want_step, want_ev = dict(base[0]), dict(base[1])
+        for name in gone:
+            kernel, _, only = name.partition(":")
+            want_step.pop(kernel, None)
+            if only != "step":
+                want_ev.pop(kernel, None)
+        expect((step, ev) == (want_step, want_ev),
+               f"precision: {flag}=False launched {step} / {ev}, expected {want_step} / "
+               f"{want_ev}")
+        say(f"precision: {flag}=False alone: a step launches {step}, an eval batch {ev} "
+            f"({', '.join(k.partition(':')[0] for k in gone)} no time)")
+
+
+def precision_phase(dev, card: str, tmp: str, cli: dict) -> dict:
+    """The bf16 compute path (`configs/tpu_batched.yaml`), the stack kernels'
+    bf16-operand modes and the per-kernel routes: the four modes against
+    their bf16 twins and the 3xTF32 kernels at full width, timed;
+    `train_test_mucon` on the config (2 epochs with an eval each, the cli
+    phase's data) with its launches by route and `test_mucon` within 1e-6;
+    three bf16 kernel steps against steps of the same routes on the plain
+    twins; the bf16-operand modes through a train step and the evals of
+    both backbones (`tpu.kernel_mm_dtype=bfloat16`, their launches the
+    kernel report's); each `tpu.use_pallas*` flag off alone; and a
+    unidirectional encoder (no BiLSTM kernel).  Returns the report lines
+    and the launches of the four modes."""
+    import contextlib
+    import dataclasses
+    from pathlib import Path
+
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.cli import test_mucon, train_test_mucon
+    from mucon_tpu_torch.cli.predict import predict_videos
+    from mucon_tpu_torch.harness.evaluator import MuConEvaluator
+    from mucon_tpu_torch.harness.trainer import SimpleTrainer
+    from mucon_tpu_torch.models.losses import loss_config_from_cfg
+    from mucon_tpu_torch.models.model import create_model, model_fields_from_cfg
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(5)
+    model = create_model(M, N_MAX + 1, D, device=dev, seed=0)
+    model_m = create_model(M, N_MAX + 1, D, ft_type="mstcnpp", device=dev, seed=0)
+    with torch.inference_mode():
+        results = check_bf16_eval_stacks(model, model_m, gen, dev)
+    arrays = train_batch(np.random.default_rng(7), dev)
+    results.update(check_bf16_train_stack(model, arrays, gen, dev))
+    del model
+
+    # train_test_mucon on configs/tpu_batched.yaml (bf16 compute, B=16, pad 512)
+    config = Path(__file__).resolve().parent / "configs" / "tpu_batched.yaml"
+    sets = [kv for kv in cli["sets"] if kv[0] != "tpu.batch_size"]
+    argv = cli_argv(sets, "chip_bf16") + ["--cfg", str(config)]
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    with open(cli["log"], "a") as f, contextlib.redirect_stdout(f):
+        result = train_test_mucon.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.launch_counts.items() if v}
+    fields = finite_fields("bf16 cli", result)
+    run = Path(cli["runs"]) / "chip_bf16" / "0"
+    cfg_run = json.loads((run / "config.yaml").read_text())
+    expect(cfg_run["tpu"]["compute_dtype"] == "bfloat16" and cfg_run["tpu"]["batch_size"] == 16,
+           "bf16 cli: the run's config is not configs/tpu_batched.yaml's")
+    events = [json.loads(line) for line in open(run / "events.jsonl")]
+    kinds = [e["kind"] for e in events]
+    steps = json.loads((run / "checkpoints" / "epoch_1" / "trainer_state.json").read_text())[
+        "iter_num"]
+    eval_batches = (kinds.count("eval_0") + kinds.count("final_eval")) * -(-len(cli["test_db"]) // 16)
+    want = {}
+    for k, n in PER_TRAIN_STEP.items():
+        if not k.startswith("decoder_chain"):  # off under bf16 compute (model.py:222)
+            want[k] = want.get(k, 0) + steps * n
+    for k, n in PER_EVAL_BATCH.items():
+        want[k] = want.get(k, 0) + eval_batches * n
+    expect(launches == want, f"bf16 cli: launches {launches} != {want} implied by {steps} "
+                             f"steps and {eval_batches} eval batches")
+    say(f"precision: train_test_mucon --cfg configs/tpu_batched.yaml (B=16, pad 512, bf16 "
+        f"compute): {steps} steps and {eval_batches} eval batches launched {launches}: the "
+        f"stack kernels in 3xTF32 (kernel_mm_dtype auto), the BiLSTM kernels (f32 after the "
+        f"GN), the decoder chain no time; run {run_s:.3f} s, epoch_seconds "
+        f"{[round(e['epoch_seconds'], 3) for e in events if e['kind'] == 'epoch']} [{card}]")
+    with open(cli["log"], "a") as f, contextlib.redirect_stdout(f):
+        again = test_mucon.single_main("chip_bf16/0/1", root=cli["runs"])
+    diff = max(float(np.max(np.abs(np.subtract(v, fields[k]))))
+               for k, v in dataclasses.asdict(again).items())
+    expect(diff <= 1e-6, f"bf16 cli: test_mucon differs from the run's result by {diff}")
+    say(f"precision: test_mucon reproduces the bf16 run within {diff:.1e} <= 1e-6; {result}")
+
+    # bf16 kernel steps against the same routes on the plain twins
+    bf16 = [("tpu.compute_dtype", "bfloat16")]
+    compare_steps("bf16", precision_trainers(dev, tmp, bf16), arrays, TRAIN_STEPS,
+                  ("wavenet_layer", "wavenet_train_fwd", "wavenet_train_sweep",
+                   "bilstm_train_fwd", "bilstm_train_bwd", "mucon_flint"),
+                  ("decoder_chain_fwd", "decoder_chain_bwd", "wavenet_layer_bf16",
+                   "wavenet_train_fwd_bf16", "wavenet_train_sweep_bf16"), card,
+                  model_scale=True)
+
+    # the bf16-operand modes on their paths: a train step and an eval batch
+    # of the WaveNet model, a request of the MS-TCN++ model
+    kmm = bf16 + [("tpu.kernel_mm_dtype", "bfloat16")]
+    cfg = smoke_cfg(tmp, sets=[("tpu.batch_size", str(TRAIN_B)), *kmm])
+    trainers = []
+    for ft_type in ("wavenet", "mstcnpp"):
+        cfg_t = smoke_cfg(tmp, sets=[("tpu.batch_size", str(TRAIN_B)), ("model.ft.type", ft_type),
+                                     *kmm])
+        m = create_model(M, N_MAX + 1, D, device=dev, seed=0,
+                         loss_cfg=loss_config_from_cfg(cfg_t), **model_fields_from_cfg(cfg_t))
+        trainers.append(SimpleTrainer(cfg_t, f"kmm_{ft_type}", None, m, seed=1))
+    trainers[0].on_start_epoch(0)
+    cuda.reset_launch_counts()
+    trainers[0].train_step(arrays)
+    ev = MuConEvaluator(cfg, cli["test_db"], trainers[0].model)
+    ev.viterbi_mode(True)
+    finite_fields("kernel_mm_dtype=bfloat16 eval", ev.evaluate())
+    rng = np.random.default_rng(2)
+    feats = [rng.standard_normal((int(t), D), dtype=np.float32) for t in (517, 1203, 2100)]
+    with torch.inference_mode():
+        predict_videos(trainers[1].model, feats, ["a", "b", "c"], vocab(),
+                       frame_sampling=FRAME_SAMPLING, batch_size=3)
+    torch.cuda.synchronize()
+    modes = {k: v for k, v in cuda.launch_counts.items() if v}
+    n_eval = -(-len(cli["test_db"]) // TRAIN_B)
+    want = dict(wavenet_train_fwd_bf16=N_LAYERS, wavenet_train_sweep_bf16=N_LAYERS + 1,
+                wavenet_layer_bf16=1 + n_eval * (N_LAYERS + 1), bilstm_train_fwd=1,
+                bilstm_train_bwd=1, mucon_flint=1, bilstm_recurrence=n_eval + 1,
+                dense_viterbi=n_eval + 1, mstcnpp_stack_bf16=N_LAYERS + 1)
+    expect(modes == want, f"kernel_mm_dtype=bfloat16: launches {modes} != {want}")
+    say(f"precision: tpu.kernel_mm_dtype=bfloat16 (bf16 compute): a train step, an eval of "
+        f"{len(cli['test_db'])} videos and an MS-TCN++ request of 3 launched {modes}")
+
+    flag_routes(dev, tmp, arrays)
+
+    # a unidirectional encoder: no BiLSTM kernel, the rest on the kernels
+    uni = [("tpu.batch_size", str(TRAIN_B)), ("model.fs.encoder.bidirectional", "False")]
+    cfg_u = smoke_cfg(tmp, sets=uni)
+    cfg_u.tpu.use_pallas_loss = True
+    m = create_model(M, N_MAX + 1, D, device=dev, seed=0, loss_cfg=loss_config_from_cfg(cfg_u),
+                     **model_fields_from_cfg(cfg_u))
+    trainer = SimpleTrainer(cfg_u, "uni", None, m, seed=1)
+    trainer.on_start_epoch(0)
+    step, ev_l = routed_launches(trainer, arrays, cfg_u)
+    want_step = dict(wavenet_train_fwd=N_LAYERS, wavenet_train_sweep=N_LAYERS + 1,
+                     wavenet_layer=1, decoder_chain_fwd=1, decoder_chain_bwd=1, mucon_flint=1)
+    want_ev = dict(wavenet_layer=N_LAYERS + 1, dense_viterbi=1)
+    expect((step, ev_l) == (want_step, want_ev),
+           f"unidirectional encoder: launched {step} / {ev_l}, expected {want_step} / {want_ev}")
+    say(f"precision: fs.encoder.bidirectional=False: a step launches {step}, an eval batch "
+        f"{ev_l} (no BiLSTM kernel)")
+    say(f"precision phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return results, {k: modes[k] for k in results}
+
+def probe_precision() -> None:
+    """The `cli` phase, then the `precision` phase alone (a shorter call on
+    the card: `python3 -c 'import chip_smoke; chip_smoke.probe_precision()'`)."""
+    import torch
+    from mucon_tpu_torch import cuda
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    say(smi)
+    t0 = time.perf_counter()
+    cuda.load()
+    say(f"built {cuda.build().name} in {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="mucon_chip_precision_")
+    try:
+        cli = cli_phase(dev, smi, tmp)
+        results, launches = precision_phase(dev, smi, tmp, cli)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(json.dumps({k: dict(v, launches=launches[k]) for k, v in results.items()}))
+
+
 def ptxas_summary(log: str) -> list:
     """One line a kernel from nvcc's `-Xptxas -v` log: its name (demangled
     where c++filt exists), its registers and its stack and spill bytes."""
@@ -2744,6 +3396,9 @@ def main() -> int:
         cli = cli_phase(dev, smi, tmp)
         variants_phase(dev, smi, tmp, cli)
         trainer_options_phase(dev, smi, tmp, cli)
+        prec_results, prec_launches = precision_phase(dev, smi, tmp, cli)
+        results.update(prec_results)
+        launches.update(prec_launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -34,7 +34,7 @@ import numpy as np
 
 from mucon_tpu_torch.cli.common import create_model_from_cfg
 from mucon_tpu_torch.config import get_cfg_defaults
-from mucon_tpu_torch.config.support import check_supported, use_kernels_from_cfg
+from mucon_tpu_torch.config.support import check_supported
 from mucon_tpu_torch.data import (
     Sample,
     collate_padded,
@@ -43,7 +43,12 @@ from mucon_tpu_torch.data import (
     handel_dataset,
 )
 from mucon_tpu_torch.harness.checkpoint import load_params
-from mucon_tpu_torch.models.model import batch_to_tensors, resolve_feats_dtype
+from mucon_tpu_torch.models.model import (
+    batch_to_tensors,
+    eval_feats_round_to_bf16,
+    resolve_feats_dtype,
+)
+from mucon_tpu_torch.models.routing import routes_from_cfg
 from mucon_tpu_torch.ops.eval_fused import build_fused_eval
 from mucon_tpu_torch.ops.viterbi import positions_to_results
 
@@ -71,10 +76,11 @@ def collate_videos(feats_list, names, db, pad_multiple: int = 512, transcripts=N
 
 def predict_videos(model, feats_list, names, db, *, frame_sampling: int = 30,
                    batch_size: int = 1, pad_multiple: int = 512,
-                   use_kernels: bool = True, feats_dtype=None):
+                   use_kernels=True, feats_dtype=None):
     """Free decode + Viterbi for raw [T x D] feature arrays.  `db` supplies
     the vocabulary: max_transcript_length, sos_token_id, eos_token_id and
     action_id_to_name (a mucon_tpu dataset, or any object with those).
+    `use_kernels` is a `KernelRoutes` or a bool for every kernel;
     `feats_dtype` is the feature wire (`resolve_feats_dtype`)."""
     run = build_fused_eval(model, teacher_forcing=False,
                            frame_sampling=frame_sampling, use_kernels=use_kernels)
@@ -138,11 +144,13 @@ def main(argv=None):
 
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
+    routes = routes_from_cfg(cfg)
     results = predict_videos(model, feats, names, db,
                              frame_sampling=cfg.evaluator.viterbi.frame_sampling,
                              batch_size=cfg.tpu.batch_size, pad_multiple=cfg.tpu.pad_multiple,
-                             use_kernels=use_kernels_from_cfg(cfg),
-                             feats_dtype=resolve_feats_dtype(cfg, "eval_feats_transfer_dtype"))
+                             use_kernels=routes,
+                             feats_dtype=resolve_feats_dtype(cfg, "eval_feats_transfer_dtype",
+                                                             eval_feats_round_to_bf16(cfg, routes)))
     for r in results:
         np.save(out_dir / f"{r['name']}.labels.npy", r["vit_labels"])
         np.save(out_dir / f"{r['name']}.y_labels.npy", r["y_labels"])

@@ -8,8 +8,9 @@
   count, the async dispatch depth, the full-length decode scan, the mesh
   shape).  They are accepted, and each is logged once when set away from
   its default.
-* `use_kernels_from_cfg`: the `tpu.use_pallas*` flags onto the port's one
-  `use_kernels` switch.
+* `KERNEL_FLAGS`: the `tpu.use_pallas*` flags of the encoder, BiLSTM,
+  decoder and eval paths; `models/routing.py routes_from_cfg` reads them
+  into one switch a kernel (any mix runs, as in the JAX package).
 * `device_from_cfg`: `system.device` as a `torch.device`.
 """
 
@@ -20,14 +21,12 @@ import logging
 import torch
 
 from mucon_tpu_torch import resolve_device
+from mucon_tpu_torch.models.routing import routes_from_cfg
 
 logger = logging.getLogger("mucon_tpu_torch.config")
 
 UNPORTED = {
     "model.name": ("mucon",),
-    "tpu.compute_dtype": ("float32",),
-    "tpu.kernel_mm_dtype": ("auto", "float32"),
-    "tpu.in_proj_mm_dtype": ("auto", "float32"),
     "tpu.mesh.multihost": (False,),
 }
 NOT_APPLICABLE = {
@@ -75,27 +74,12 @@ def check_supported(cfg, device=None) -> None:
             _logged.add(key)
             logger.info("%s=%r only steers the JAX package on a TPU: not applicable "
                         "here", key, value)
-    use_kernels_from_cfg(cfg)
+    routes_from_cfg(cfg)  # an invalid flag raises here
     if device is not None and cfg.tpu.mesh.enable:
         device = torch.device(device)
         if device.type == "cuda" and torch.cuda.device_count() > 1:
             raise NotImplementedError("tpu.mesh.enable over more than one card is not "
                                       "ported to mucon_tpu_torch")
-
-
-def use_kernels_from_cfg(cfg) -> bool:
-    """True when every `tpu.use_pallas*` flag of the encoder, BiLSTM,
-    decoder and eval paths is "auto" or True (the kernels run wherever the
-    model lives on the card), False when every one is False (the plain
-    path, chosen explicitly); a mix raises.  `tpu.use_pallas_loss` has its
-    own switch (`models/losses.py loss_config_from_cfg`)."""
-    values = {k: _get(cfg, k) for k in KERNEL_FLAGS}
-    if all(_is(v, ("auto", True)) for v in values.values()):
-        return True
-    if all(_is(v, (False,)) for v in values.values()):
-        return False
-    raise NotImplementedError(
-        f"the port runs every kernel or none: {values} mixes them")
 
 
 def device_from_cfg(cfg) -> torch.device:

@@ -50,6 +50,12 @@
 // Bound: the tensor cores at three TF32 products per f32 product (16 C^2
 // f32 operations per valid row and layer).
 //
+// bf16 = 1 launches the bf16-operand mode (the JAX kernel's
+// `mm_dtype=bfloat16`, mstcnpp_pallas.py:60-96): the same kernels with every
+// product's operands rounded to bf16 as their fragments leave the f32 tiles
+// and one bf16 `mma.sync.m16n8k16` a 16-deep k-step (mma_tf32.cuh); sums,
+// biases, residual, mask and pool stay f32.  Bound by the dense bf16 rate.
+//
 // The #define knobs below are for `scripts/probe_mstcnpp_variants.py`, which
 // times other tilings; the defaults are what ships.
 
@@ -161,6 +167,7 @@ __device__ __forceinline__ void for_each_acc(float (&acc)[MT][NTL][4], int row0,
            col0 + 8 * nt + 2 * (lane & 3) + (e & 1));
 }
 
+template <bool BF>
 __global__ void __launch_bounds__(NT, 1) mstcnpp_layer_kernel(
     const float* __restrict__ f,        // [B, T, C] layer input (masked)
     float* __restrict__ y,              // [B, T or T/2, C] layer output
@@ -209,8 +216,8 @@ __global__ void __launch_bounds__(NT, 1) mstcnpp_layer_kernel(
     // block 0..7 of the weight rows: taps -d, 0, +d of each conv, then y1, y2
     const int blk = c / CPB;
     const float* A = (blk == 1 || blk == 4) ? XC : (blk % 3 == 0 ? X0 : X1);
-    warp_gemm<MT, NTL, KC>(acc, A, LDA, row0, (c % CPB) * KC, Wr + (c % STAGES) * WBUF_F, LDW,
-                           col0, lane);
+    warp_gemm<MT, NTL, KC, false, BF>(acc, A, LDA, row0, (c % CPB) * KC,
+                                      Wr + (c % STAGES) * WBUF_F, LDW, col0, lane);
 
     if (c == 3 * CPB - 1) {  // y1 complete: it waits in registers
       for_each_acc(acc, row0, col0, lane, [&](float& v, int, int col) { v += __ldg(b3a + col); });
@@ -246,6 +253,7 @@ __global__ void __launch_bounds__(NT, 1) mstcnpp_layer_kernel(
 }
 
 // z = mask(f Wout + bout): the out-projection, no nonlinearity
+template <bool BF>
 __global__ void __launch_bounds__(NT, 1) mstcnpp_proj_kernel(
     const float* __restrict__ f, float* __restrict__ z, const int* __restrict__ lengths,
     const float* __restrict__ w_out, const float* __restrict__ b_out, int T, int len_shift) {
@@ -275,8 +283,8 @@ __global__ void __launch_bounds__(NT, 1) mstcnpp_proj_kernel(
     const int nc = c + STAGES - 1;
     if (nc < PROJ_CHUNKS) stage_weights(Wr + (nc % STAGES) * WBUF_F, w_out + (size_t)nc * KC * C);
     cp_async_commit();
-    warp_gemm<MT, NTL, KC>(acc, XC, LDA, row0, c * KC, Wr + (c % STAGES) * WBUF_F, LDW, col0,
-                           lane);
+    warp_gemm<MT, NTL, KC, false, BF>(acc, XC, LDA, row0, c * KC, Wr + (c % STAGES) * WBUF_F,
+                                      LDW, col0, lane);
   }
   __syncthreads();  // every warp is done reading the input rows
   for_each_acc(acc, row0, col0, lane, [&](float& v, int row, int col) {
@@ -286,37 +294,57 @@ __global__ void __launch_bounds__(NT, 1) mstcnpp_proj_kernel(
   store_rows(z, XC, b, t0, T, len, 0);
 }
 
+template <bool BF>
+int mstcnpp_layer(const float* f, float* y, const int* lengths, const float* w,
+                  const float* b3a, const float* b3b, const float* b1, int B, int T, int d1,
+                  int d2, int len_shift, int pool, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mstcnpp_layer_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, LAYER_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + TM - 1) / TM, B);
+  mstcnpp_layer_kernel<BF><<<grid, NT, LAYER_SMEM, stream>>>(f, y, lengths, w, b3a, b3b, b1, T,
+                                                             d1, d2, len_shift, pool);
+  return cudaGetLastError();
+}
+
+template <bool BF>
+int mstcnpp_proj(const float* f, float* z, const int* lengths, const float* w_out,
+                 const float* b_out, int B, int T, int len_shift, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      mstcnpp_proj_kernel<BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, PROJ_SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + TM - 1) / TM, B);
+  mstcnpp_proj_kernel<BF><<<grid, NT, PROJ_SMEM, stream>>>(f, z, lengths, w_out, b_out, T,
+                                                           len_shift);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // rows a CTA of the stage's kernels owns (a tile past a video's length is skipped)
 extern "C" int mucon_mstcnpp_tile_rows() { return TM; }
 
 // One dual-dilation layer (d1, d2); `w` is the layer's [8C, C] weight matrix
-// (W3a, W3b, W1t, W1b stacked).  T must be even when pool = 1.
+// (W3a, W3b, W1t, W1b stacked).  T must be even when pool = 1.  bf16 = 1: the
+// bf16-operand mode.
 extern "C" int mucon_mstcnpp_layer(const float* f, float* y, const int* lengths,
                                    const float* w, const float* b3a, const float* b3b,
                                    const float* b1, int B, int T, int channels, int d1,
-                                   int d2, int len_shift, int pool, cudaStream_t stream) {
+                                   int d2, int len_shift, int pool, int bf16,
+                                   cudaStream_t stream) {
   if (channels != C || B <= 0 || T <= 0 || (pool && (T % 2))) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mstcnpp_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, LAYER_SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + TM - 1) / TM, B);
-  mstcnpp_layer_kernel<<<grid, NT, LAYER_SMEM, stream>>>(f, y, lengths, w, b3a, b3b, b1, T, d1,
-                                                         d2, len_shift, pool);
-  return cudaGetLastError();
+  if (bf16)
+    return mstcnpp_layer<true>(f, y, lengths, w, b3a, b3b, b1, B, T, d1, d2, len_shift, pool,
+                               stream);
+  return mstcnpp_layer<false>(f, y, lengths, w, b3a, b3b, b1, B, T, d1, d2, len_shift, pool,
+                              stream);
 }
 
-// The out-projection z = mask(f Wout + bout).
+// The out-projection z = mask(f Wout + bout).  bf16 = 1: the bf16-operand mode.
 extern "C" int mucon_mstcnpp_proj(const float* f, float* z, const int* lengths,
                                   const float* w_out, const float* b_out, int B, int T,
-                                  int channels, int len_shift, cudaStream_t stream) {
+                                  int channels, int len_shift, int bf16, cudaStream_t stream) {
   if (channels != C || B <= 0 || T <= 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      mstcnpp_proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PROJ_SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((T + TM - 1) / TM, B);
-  mstcnpp_proj_kernel<<<grid, NT, PROJ_SMEM, stream>>>(f, z, lengths, w_out, b_out, T,
-                                                       len_shift);
-  return cudaGetLastError();
+  if (bf16) return mstcnpp_proj<true>(f, z, lengths, w_out, b_out, B, T, len_shift, stream);
+  return mstcnpp_proj<false>(f, z, lengths, w_out, b_out, B, T, len_shift, stream);
 }

@@ -20,7 +20,11 @@
 //
 // * Every product is `mma.sync.m16n8k8` TF32 on hi/lo-split operands, three
 //   products per f32 product (mma_tf32.cuh); the tiles stay f32 in shared
-//   memory.  A CTA owns TM rows of one video x all C = 128 columns, 8 warps
+//   memory.  The bf16-operand mode (template BF = true, the JAX package's
+//   `kernel_mm_dtype=bfloat16`) instead rounds both operands of every
+//   product to bf16 as their fragments leave the same tiles and runs one
+//   `mma.sync.m16n8k16` bf16 product a 16-deep k-step; the sums, bias,
+//   residual, dropout, mask and pool stay f32 (`warp_gemm2<..., BF16>`).  A CTA owns TM rows of one video x all C = 128 columns, 8 warps
 //   as WM x WN of 16 MT x 8 NTL outputs.
 // * One k-loop (`tap_loop`): the layer's [3C x C] conv and its [C x C] 1x1
 //   are weight rows streamed in chunks of KC through a 2-deep `cp.async`
@@ -199,7 +203,7 @@ __device__ __forceinline__ void store_pooled(float* __restrict__ y, float (&acc)
 // barrier until the tensor cores drain.  A chunk may be staged as SUB ring
 // buffers of KS rows (Tile<TM, KC, KS>): the partials, and so the sums, are
 // the same, in less shared memory.
-template <int TM, int KC_ = Tile<TM>::KC, int KS_ = KC_, class Mid>
+template <int TM, int KC_ = Tile<TM>::KC, int KS_ = KC_, bool BF = false, class Mid>
 __device__ __forceinline__ void tap_loop(float (&acc)[Tile<TM>::MT][Tile<TM>::NTL][4],
                                          float* const (&A)[3], const float* const (&W)[4],
                                          bool first, bool last, float* Wr, int row0,
@@ -242,7 +246,7 @@ __device__ __forceinline__ void tap_loop(float (&acc)[Tile<TM>::MT][Tile<TM>::NT
       if (q + 1 < chunks * SUB)
         stage_weights<KS>(Wr + ((q + 1) & 1) * TL::WBUF_F, weights_of(q + 1));
       cp_async_commit();
-      warp_gemm2<MT, NTL, KS>(small, cur, k == 1 ? A[1] : (k == 2 ? A[2] : A[0]), LDA, row0,
+      warp_gemm2<MT, NTL, KS, false, BF>(small, cur, k == 1 ? A[1] : (k == 2 ? A[2] : A[0]), LDA, row0,
                               (c % CPB) * KC + s * KS, Wr + (q & 1) * TL::WBUF_F, LDW, col0,
                               lane);
       if (s == 0) fold(prev);  // chunk c - 1's partial
@@ -287,8 +291,8 @@ __device__ __forceinline__ void residual(float (&acc)[MT][NTL][4], const float* 
 // One row tile of a layer: rows [t0, t0 + TM) of video b (shared memory:
 // Tile<TM>::TAPS_SMEM bytes at smem).  The layer input x is read through
 // `cp.async` (L2) only, so a cooperative kernel may read rows that other CTAs
-// wrote earlier in the same launch.
-template <int TM>
+// wrote earlier in the same launch.  BF: the bf16-operand mode.
+template <int TM, bool BF = false>
 __device__ __forceinline__ void layer_tile(
     const float* __restrict__ x,      // [B, T, C] layer input (masked)
     float* __restrict__ y,            // [B, T or T/2, C] layer output
@@ -327,7 +331,7 @@ __device__ __forceinline__ void layer_tile(
   float acc[TL::MT][TL::NTL][4] = {};
   float* const taps[3] = {X0, XC, X1};
   const float* const ws[4] = {w3, w3 + C * C, w3 + 2 * C * C, w1};
-  tap_loop<TM>(acc, taps, ws, first, last, Wr, row0, col0, lane, [&](auto& a) {
+  tap_loop<TM, TL::KC, TL::KC, BF>(acc, taps, ws, first, last, Wr, row0, col0, lane, [&](auto& a) {
     // h = nonlin(z + b3): over the t-d tile as the 1x1's A, and to the stash
     for_each_pair(a, row0, col0, lane, [&](float& v0, float& v1, int row, int col) {
       const float h0 = nonlin(v0 + __ldg(b3 + col), leaky);
@@ -356,8 +360,8 @@ __device__ __forceinline__ void layer_tile(
 
 // z = mask(nonlin(x) Wl + bl) for rows [t0, t0 + TM) of video b: the
 // out-projection (Tile<TM>::ONE_SMEM bytes: one row tile, nonlin applied in
-// place once it has landed, and the weight ring)
-template <int TM>
+// place once it has landed, and the weight ring; BF: the bf16-operand mode)
+template <int TM, bool BF = false>
 __device__ __forceinline__ void proj_tile(const float* __restrict__ x, float* __restrict__ z,
                                           const int* __restrict__ lengths,
                                           const float* __restrict__ w_last,
@@ -386,7 +390,8 @@ __device__ __forceinline__ void proj_tile(const float* __restrict__ x, float* __
   float acc[TL::MT][TL::NTL][4] = {};
   float* const tiles[3] = {XC, XC, XC};
   const float* const ws[4] = {nullptr, w_last, nullptr, nullptr};  // one block, as a centre tap
-  tap_loop<TM>(acc, tiles, ws, false, false, Wr, row0, col0, lane, [](auto&) {});
+  tap_loop<TM, TL::KC, TL::KC, BF>(acc, tiles, ws, false, false, Wr, row0, col0, lane,
+                                    [](auto&) {});
   for_each_pair(acc, row0, col0, lane, [&](float& v0, float& v1, int row, int col) {
     const int t = t0 + row;
     if (t < T)
@@ -395,7 +400,7 @@ __device__ __forceinline__ void proj_tile(const float* __restrict__ x, float* __
   });
 }
 
-template <int TM>
+template <int TM, bool BF>
 __global__ void __launch_bounds__(NT, Tile<TM>::MIN_BLOCKS) wavenet_layer_kernel(
     const float* __restrict__ x, float* __restrict__ y, float* __restrict__ u_out,
     float* __restrict__ hs, const int* __restrict__ lengths, const float* __restrict__ w3,
@@ -403,21 +408,22 @@ __global__ void __launch_bounds__(NT, Tile<TM>::MIN_BLOCKS) wavenet_layer_kernel
     const float* __restrict__ drop, int T, int d, int len_shift, int pool, int pool_mean,
     int leaky) {
   extern __shared__ float4 smem4[];
-  layer_tile<TM>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, blockIdx.y, blockIdx.x * TM,
-                 T, d, len_shift, pool, pool_mean, leaky, reinterpret_cast<float*>(smem4));
+  layer_tile<TM, BF>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, blockIdx.y,
+                     blockIdx.x * TM, T, d, len_shift, pool, pool_mean, leaky,
+                     reinterpret_cast<float*>(smem4));
 }
 
-// one layer of B videos x T frames on TM-row tiles
-template <int TM>
+// one layer of B videos x T frames on TM-row tiles (BF: the bf16-operand mode)
+template <int TM, bool BF = false>
 cudaError_t launch_layer(const float* x, float* y, float* u_out, float* hs, const int* lengths,
                          const float* w3, const float* b3, const float* w1, const float* b1,
                          const float* drop, int B, int T, int d, int len_shift, int pool,
                          int pool_mean, int leaky, cudaStream_t stream) {
   constexpr int smem = Tile<TM>::TAPS_SMEM;
-  cudaError_t err = cudaFuncSetAttribute(wavenet_layer_kernel<TM>,
+  cudaError_t err = cudaFuncSetAttribute(wavenet_layer_kernel<TM, BF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  wavenet_layer_kernel<TM><<<dim3((T + TM - 1) / TM, B), NT, smem, stream>>>(
+  wavenet_layer_kernel<TM, BF><<<dim3((T + TM - 1) / TM, B), NT, smem, stream>>>(
       x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, T, d, len_shift, pool, pool_mean, leaky);
   return cudaGetLastError();
 }

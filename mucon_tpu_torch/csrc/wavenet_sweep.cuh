@@ -16,6 +16,11 @@
 // the routed gm, dy, dz, the partials) go through L2 (`cp.async.cg`,
 // `__ldcg`): the read-only path (`__ldg`) is not coherent within a kernel.
 //
+// Template BF selects the bf16-operand mode of every product (mma_tf32.cuh;
+// the JAX sweep's `mm_dtype=bfloat16`, wavenet_train_pallas_v3.py:241-270):
+// dy, dz, x, h and the weights rounded to bf16 as their fragments are
+// loaded, the sums, the bias sums and the routed gradients f32.
+//
 // Each source that includes this file gets its own copy of what it uses.
 
 #pragma once
@@ -70,7 +75,7 @@ __device__ __forceinline__ float2 grad_at(const float* g, const float* __restric
 // Ds the finished dy tile (rows at t >= lim zero), Wr the weight ring (of
 // KC-row chunks staged KS rows a buffer: the bodies take a chunk other than
 // their tile's default where they must repeat another tile's sums bit for bit)
-template <int TM, int KC = Tile<TM>::KC, int KS = KC>
+template <int TM, int KC = Tile<TM>::KC, int KS = KC, bool BF = false>
 __device__ __forceinline__ void dz_rows(float* Ds, float* Wr, const float* __restrict__ w1t,
                                         const float* __restrict__ h, float* __restrict__ dz,
                                         int b, int t0, int T, int lim, int leaky) {
@@ -80,7 +85,7 @@ __device__ __forceinline__ void dz_rows(float* Ds, float* Wr, const float* __res
   float acc[TL::MT][TL::NTL][4] = {};
   float* const tiles[3] = {Ds, Ds, Ds};
   const float* const ws[4] = {nullptr, w1t, nullptr, nullptr};  // one block, as a centre tap
-  tap_loop<TM, KC, KS>(acc, tiles, ws, false, false, Wr, row0, col0, lane, [](auto&) {});
+  tap_loop<TM, KC, KS, BF>(acc, tiles, ws, false, false, Wr, row0, col0, lane, [](auto&) {});
   // * nonlin'(h), masked: every load issued before the first store
   for_each_pair(acc, row0, col0, lane, [&](float& v0, float& v1, int row, int col) {
     const int t = t0 + row;
@@ -97,7 +102,7 @@ __device__ __forceinline__ void dz_rows(float* Ds, float* Wr, const float* __res
 // dy = gm * m, dz = (dy W1^T) * nonlin'(h), masked.  The out-projection's
 // (proj = 1: h = x_fin, W1^T = Wl^T, no dropout) writes the gradient at x_fin
 // to dz, zeros past the length included: the next layer reads it as its g.
-template <int TM, int KC = Tile<TM>::KC, int KS = KC>
+template <int TM, int KC = Tile<TM>::KC, int KS = KC, bool BF = false>
 __device__ __forceinline__ void dz_tile(const float* g, const float* __restrict__ u,
                                         const float* __restrict__ h,
                                         const float* __restrict__ drop,
@@ -137,12 +142,12 @@ __device__ __forceinline__ void dz_tile(const float* g, const float* __restrict_
     if (t0 + r < lim) st2(dy + ((size_t)b * T + t0 + r) * C + col, v[k].x, v[k].y);
     st2(Ds + r * LDA + col, v[k].x, v[k].y);
   }
-  dz_rows<TM, KC, KS>(Ds, Wr, w1t, h, dz, b, t0, T, lim, leaky);
+  dz_rows<TM, KC, KS, BF>(Ds, Wr, w1t, h, dz, b, t0, T, lim, leaky);
 }
 
 // The dx body, rows [t0, t0 + TM) of video b (Tile<TM, KC, KS>::TAPS_SMEM bytes):
 // g_in = mask (dz[t+d] W3[0]^T + dz[t] W3[1]^T + dz[t-d] W3[2]^T + gm)
-template <int TM, int KC = Tile<TM>::KC, int KS = KC>
+template <int TM, int KC = Tile<TM>::KC, int KS = KC, bool BF = false>
 __device__ __forceinline__ void dx_tile(const float* dz, const float* g,
                                         const float* __restrict__ u,
                                         const int* __restrict__ lengths,
@@ -173,7 +178,7 @@ __device__ __forceinline__ void dx_tile(const float* dz, const float* g,
   float acc[TL::MT][TL::NTL][4] = {};
   float* const taps[3] = {X0, XC, X1};
   const float* const ws[4] = {w3t, w3t + C * C, w3t + 2 * C * C, nullptr};
-  tap_loop<TM, KC, KS>(acc, taps, ws, first, last, Wr, row0, col0, lane, [](auto&) {});
+  tap_loop<TM, KC, KS, BF>(acc, taps, ws, first, last, Wr, row0, col0, lane, [](auto&) {});
   // + gm, masked: every load issued before the first store
   for_each_pair(acc, row0, col0, lane, [&](float& v0, float& v1, int row, int col) {
     const int t = t0 + row;
@@ -198,7 +203,7 @@ __device__ __forceinline__ void dx_tile(const float* dz, const float* g,
 // a band of output rows; part 0 also sums B's columns): 16 warps of one
 // block, or 8 warps of one (PARTS = 2) or two (each its own product).  Each
 // output's sum over rows runs in the same order whichever way it is cut.
-template <int NTH, int PARTS = 1>
+template <int NTH, int PARTS = 1, bool BF = false>
 __device__ __forceinline__ void wgrad_span(const float* __restrict__ h,
                                            const float* __restrict__ x, const float* dy,
                                            const float* dz, const int* __restrict__ lengths,
@@ -257,7 +262,7 @@ __device__ __forceinline__ void wgrad_span(const float* __restrict__ h,
       for (int rr = 0; rr < KR; ++rr) bsum += Bs[rr * LDW + threadIdx.x];
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb)
-      warp_gemm<2, 4, KR, true>(acc[mb], As, LDW, m0 + 32 * mb, 0, Bs, LDW, n0, lane);
+      warp_gemm<2, 4, KR, true, BF>(acc[mb], As, LDW, m0 + 32 * mb, 0, Bs, LDW, n0, lane);
   }
   float* out = work + ((size_t)(b * spans + s) * jobs + job) * PART_F;
 #pragma unroll

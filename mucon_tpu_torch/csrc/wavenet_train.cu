@@ -68,6 +68,13 @@
 // Bound: the tensor cores at three TF32 products per f32 product (495 / 3
 // TFLOP/s on the H100); per valid row and layer the forward does 8 C^2 f32
 // operations and the backward 16 C^2, fewer where a tap's rows do not exist.
+//
+// bf16 = 1 (the JAX package's `mm_dtype=bfloat16`,
+// wavenet_train_pallas_v3.py:170-191 forward, :241-270 and :383-386 sweep)
+// runs every kernel here in its bf16-operand mode (template BF): each
+// product's operands rounded to bf16 as their fragments leave the f32
+// tiles, one bf16 `mma` a 16-deep k-step, f32 sums; the stashes, dropout,
+// pool routing and bias sums stay f32.  Bound then by the dense bf16 rate.
 
 #include <cuda_runtime.h>
 
@@ -81,7 +88,7 @@ constexpr int WG_NT = 512;              // threads of kernel 3: 16 warps of 32 x
 // the sweep's four kernels, one CTA a body (wavenet_sweep.cuh)
 // ---------------------------------------------------------------------------
 
-template <int TM>
+template <int TM, bool BF>
 __global__ void __launch_bounds__(NT, Tile<TM>::MIN_BLOCKS) sweep_dz_kernel(
     const float* __restrict__ g, const float* __restrict__ u,
     const float* __restrict__ h,      // [B, T, C] nonlin(z) (proj: x_fin)
@@ -91,29 +98,30 @@ __global__ void __launch_bounds__(NT, Tile<TM>::MIN_BLOCKS) sweep_dz_kernel(
     float* __restrict__ dy, float* __restrict__ dz,
     int T, int len_shift, int pooled, int pool_mean, int leaky, int proj) {
   extern __shared__ float4 smem4[];
-  dz_tile<TM>(g, u, h, drop, lengths, w1t, dy, dz, blockIdx.y, blockIdx.x * TM, T, len_shift,
+  dz_tile<TM, Tile<TM>::KC, Tile<TM>::KC, BF>(g, u, h, drop, lengths, w1t, dy, dz, blockIdx.y, blockIdx.x * TM, T, len_shift,
               pooled, pool_mean, leaky, proj, reinterpret_cast<float*>(smem4));
 }
 
-template <int TM>
+template <int TM, bool BF>
 __global__ void __launch_bounds__(NT, Tile<TM>::MIN_BLOCKS) sweep_dx_kernel(
     const float* __restrict__ dz, const float* __restrict__ g,
     const float* __restrict__ u, const int* __restrict__ lengths,
     const float* __restrict__ w3t,    // [3, C, C]: W3[k]^T
     float* __restrict__ g_in, int T, int d, int len_shift, int pooled, int pool_mean) {
   extern __shared__ float4 smem4[];
-  dx_tile<TM>(dz, g, u, lengths, w3t, g_in, blockIdx.y, blockIdx.x * TM, T, d, len_shift, pooled,
+  dx_tile<TM, Tile<TM>::KC, Tile<TM>::KC, BF>(dz, g, u, lengths, w3t, g_in, blockIdx.y, blockIdx.x * TM, T, d, len_shift, pooled,
               pool_mean, reinterpret_cast<float*>(smem4));
 }
 
 // CTA (span s, video b, job)
+template <bool BF>
 __global__ void __launch_bounds__(WG_NT, 1) sweep_wgrad_kernel(
     const float* __restrict__ h, const float* __restrict__ x,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const int* __restrict__ lengths, float* __restrict__ work, int T, int span, int d,
     int len_shift, int proj, int leaky) {
   extern __shared__ float4 smem4[];
-  wgrad_span<WG_NT>(h, x, dy, dz, lengths, work, T, span, gridDim.x, gridDim.z, d, len_shift,
+  wgrad_span<WG_NT, 1, BF>(h, x, dy, dz, lengths, work, T, span, gridDim.x, gridDim.z, d, len_shift,
                     proj, leaky, blockIdx.x, blockIdx.y, blockIdx.z, 0,
                     reinterpret_cast<float*>(smem4));
 }
@@ -129,25 +137,79 @@ __global__ void sweep_reduce_kernel(const float* __restrict__ work,
 }
 
 // sweep kernels 1 and 2 (kernel 2 not for the out-projection)
-template <int TM>
+template <int TM, bool BF>
 cudaError_t launch_rows(const float* g, const float* u, const float* h, const float* drop,
                         const int* lengths, const float* w1t, const float* w3t, float* dy,
                         float* dz, float* g_in, int B, int T, int d, int len_shift, int pooled,
                         int pool_mean, int leaky, int proj, cudaStream_t stream) {
   using TL = Tile<TM>;
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_dz_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::ONE_SMEM);
+      sweep_dz_kernel<TM, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::ONE_SMEM);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sweep_dx_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               TL::TAPS_SMEM);
+    err = cudaFuncSetAttribute(sweep_dx_kernel<TM, BF>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, TL::TAPS_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 tiles((T + TM - 1) / TM, B);
-  sweep_dz_kernel<TM><<<tiles, NT, TL::ONE_SMEM, stream>>>(
+  sweep_dz_kernel<TM, BF><<<tiles, NT, TL::ONE_SMEM, stream>>>(
       g, u, h, drop, lengths, w1t, dy, dz, T, len_shift, pooled, pool_mean, leaky, proj);
   err = cudaGetLastError();
   if (err != cudaSuccess || proj) return err;
-  sweep_dx_kernel<TM><<<tiles, NT, TL::TAPS_SMEM, stream>>>(dz, g, u, lengths, w3t, g_in, T, d,
+  sweep_dx_kernel<TM, BF><<<tiles, NT, TL::TAPS_SMEM, stream>>>(dz, g, u, lengths, w3t, g_in, T, d,
                                                            len_shift, pooled, pool_mean);
+  return cudaGetLastError();
+}
+
+template <bool BF>
+int train_fwd(const float* x, float* y, float* u_out, float* hs, const int* lengths,
+              const float* w3, const float* b3, const float* w1, const float* b1,
+              const float* drop, int B, int T, int d, int len_shift, int pool, int pool_mean,
+              int leaky, cudaStream_t stream) {
+  switch (plan_for(B, T, 4).fwd_tm) {
+    case 64:
+      return launch_layer<64, BF>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d,
+                                  len_shift, pool, pool_mean, leaky, stream);
+    case 32:
+      return launch_layer<32, BF>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d,
+                                  len_shift, pool, pool_mean, leaky, stream);
+    default:
+      return launch_layer<16, BF>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d,
+                                  len_shift, pool, pool_mean, leaky, stream);
+  }
+}
+
+template <bool BF>
+int train_sweep(const float* g, const float* u, const float* x, const float* h,
+                const float* drop, const int* lengths, const float* w1t, const float* w3t,
+                float* dy, float* dz, float* g_in, float* work, float* dw1, float* db1,
+                float* dw3, float* db3, int B, int T, int d, int len_shift, int pooled,
+                int pool_mean, int leaky, int proj, cudaStream_t stream) {
+  const int jobs = proj ? 1 : 4;
+  const Plan p = plan_for(B, T, jobs);
+  cudaError_t err;
+  switch (p.tm) {
+    case 64:
+      err = launch_rows<64, BF>(g, u, h, drop, lengths, w1t, w3t, dy, dz, g_in, B, T, d,
+                                len_shift, pooled, pool_mean, leaky, proj, stream);
+      break;
+    case 32:
+      err = launch_rows<32, BF>(g, u, h, drop, lengths, w1t, w3t, dy, dz, g_in, B, T, d,
+                                len_shift, pooled, pool_mean, leaky, proj, stream);
+      break;
+    default:
+      err = launch_rows<16, BF>(g, u, h, drop, lengths, w1t, w3t, dy, dz, g_in, B, T, d,
+                                len_shift, pooled, pool_mean, leaky, proj, stream);
+  }
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(sweep_wgrad_kernel<BF>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+  if (err != cudaSuccess) return err;
+  sweep_wgrad_kernel<BF><<<dim3(p.spans, B, jobs), WG_NT, WG_SMEM, stream>>>(
+      h, x, dy, dz, lengths, work, T, p.span, d, len_shift, proj, leaky);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = jobs * PART_F;
+  sweep_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(work, lengths, B, T, p.span, p.spans,
+                                                          len_shift, jobs, dw1, db1, dw3, db3);
   return cudaGetLastError();
 }
 
@@ -170,67 +232,38 @@ extern "C" int mucon_wavenet_train_plan(int B, int T, int jobs, int* out) {
 
 // One layer of the stack's forward (see the top of the file).  `u_out` is
 // written only when pool = 1; `drop` may be null (no dropout).  An odd T
-// pools to T / 2 (the last frame is dropped).
+// pools to T / 2 (the last frame is dropped).  bf16 = 1: the bf16-operand mode.
 extern "C" int mucon_wavenet_train_fwd(const float* x, float* y, float* u_out,
                                        float* hs, const int* lengths,
                                        const float* w3, const float* b3,
                                        const float* w1, const float* b1,
                                        const float* drop, int B, int T, int channels,
                                        int d, int len_shift, int pool, int pool_mean,
-                                       int leaky, cudaStream_t stream) {
+                                       int leaky, int bf16, cudaStream_t stream) {
   if (channels != C || B <= 0 || T <= 0 || (pool && !u_out)) return cudaErrorInvalidValue;
-  switch (plan_for(B, T, 4).fwd_tm) {
-    case 64:
-      return launch_layer<64>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d,
-                              len_shift, pool, pool_mean, leaky, stream);
-    case 32:
-      return launch_layer<32>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d,
-                              len_shift, pool, pool_mean, leaky, stream);
-    default:
-      return launch_layer<16>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d,
-                              len_shift, pool, pool_mean, leaky, stream);
-  }
+  if (bf16)
+    return train_fwd<true>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d, len_shift,
+                           pool, pool_mean, leaky, stream);
+  return train_fwd<false>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d, len_shift,
+                          pool, pool_mean, leaky, stream);
 }
 
 // One layer of the backward sweep (proj = 0) or the out-projection's
 // (proj = 1: h = x = x_fin, w1t = Wl^T, drop = null, w3t / g_in / dw3 / db3
 // unused, and dz receives the gradient at x_fin).  g is [B, T/2, C] when
 // pooled = 1 (the layer pooled; u is its pre-pool output), else [B, T, C].
-// `work` is sized by `mucon_wavenet_train_plan`.
+// `work` is sized by `mucon_wavenet_train_plan`.  bf16 = 1: the bf16-operand mode.
 extern "C" int mucon_wavenet_train_sweep(
     const float* g, const float* u, const float* x, const float* h,
     const float* drop, const int* lengths, const float* w1t, const float* w3t,
     float* dy, float* dz, float* g_in, float* work, float* dw1, float* db1,
     float* dw3, float* db3, int B, int T, int channels, int d, int len_shift,
-    int pooled, int pool_mean, int leaky, int proj, cudaStream_t stream) {
+    int pooled, int pool_mean, int leaky, int proj, int bf16, cudaStream_t stream) {
   if (channels != C || B <= 0 || T <= 0 || (pooled && !u) || (proj && pooled))
     return cudaErrorInvalidValue;
-  const int jobs = proj ? 1 : 4;
-  const Plan p = plan_for(B, T, jobs);
-  cudaError_t err;
-  switch (p.tm) {
-    case 64:
-      err = launch_rows<64>(g, u, h, drop, lengths, w1t, w3t, dy, dz, g_in, B, T, d, len_shift,
-                            pooled, pool_mean, leaky, proj, stream);
-      break;
-    case 32:
-      err = launch_rows<32>(g, u, h, drop, lengths, w1t, w3t, dy, dz, g_in, B, T, d, len_shift,
-                            pooled, pool_mean, leaky, proj, stream);
-      break;
-    default:
-      err = launch_rows<16>(g, u, h, drop, lengths, w1t, w3t, dy, dz, g_in, B, T, d, len_shift,
-                            pooled, pool_mean, leaky, proj, stream);
-  }
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(sweep_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             WG_SMEM);
-  if (err != cudaSuccess) return err;
-  sweep_wgrad_kernel<<<dim3(p.spans, B, jobs), WG_NT, WG_SMEM, stream>>>(
-      h, x, dy, dz, lengths, work, T, p.span, d, len_shift, proj, leaky);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n = jobs * PART_F;
-  sweep_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(work, lengths, B, T, p.span, p.spans,
-                                                          len_shift, jobs, dw1, db1, dw3, db3);
-  return cudaGetLastError();
+  if (bf16)
+    return train_sweep<true>(g, u, x, h, drop, lengths, w1t, w3t, dy, dz, g_in, work, dw1, db1,
+                             dw3, db3, B, T, d, len_shift, pooled, pool_mean, leaky, proj, stream);
+  return train_sweep<false>(g, u, x, h, drop, lengths, w1t, w3t, dy, dz, g_in, work, dw1, db1,
+                            dw3, db3, B, T, d, len_shift, pooled, pool_mean, leaky, proj, stream);
 }

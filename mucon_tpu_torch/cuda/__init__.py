@@ -32,7 +32,12 @@ and `dense_viterbi` (serving; the DP and its pointer walk in one launch);
 `bilstm_train_bwd`, `decoder_chain_fwd`, `decoder_chain_bwd` and
 `mucon_flint` (the train step);
 `wavenet_train_v2_fwd` and `wavenet_train_v2_sweep` (the v2 trainable
-stack, `ops/wavenet_stack_train_v2.py`).
+stack, `ops/wavenet_stack_train_v2.py`).  The stack kernels' bf16-operand
+mode (`mm_dtype=torch.bfloat16`, the JAX package's
+`tpu.kernel_mm_dtype=bfloat16`: every product's operands rounded to bf16,
+one bf16 tensor-core product a 16-deep k-step, f32 sums and state) counts
+under its own name: `wavenet_layer_bf16`, `wavenet_train_fwd_bf16`,
+`wavenet_train_sweep_bf16`, `mstcnpp_stack_bf16`.
 """
 
 from __future__ import annotations
@@ -62,6 +67,8 @@ KERNELS = (
     "wavenet_train_fwd", "wavenet_train_sweep", "bilstm_train_fwd", "bilstm_train_bwd",
     "decoder_chain_fwd", "decoder_chain_bwd", "mucon_flint", "mstcnpp_stack",
     "wavenet_train_v2_fwd", "wavenet_train_v2_sweep",
+    "wavenet_layer_bf16", "wavenet_train_fwd_bf16", "wavenet_train_sweep_bf16",
+    "mstcnpp_stack_bf16",
 )
 # the decoder chain's weights a CTA keeps, its [Tz / CL] score rows and the
 # reverse chain's [Tz x H / CL] slices live in shared memory: a kernel's need
@@ -137,14 +144,14 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             P, I = ctypes.c_void_p, ctypes.c_int
-            lib.mucon_wavenet_layer.argtypes = [P] * 7 + [I] * 9 + [P]
+            lib.mucon_wavenet_layer.argtypes = [P] * 7 + [I] * 10 + [P]
             lib.mucon_wavenet_tile_rows.argtypes = []
             lib.mucon_bilstm_recurrence.argtypes = [P] * 7 + [I] * 3 + [P]
             lib.mucon_dense_viterbi.argtypes = [P] * 8 + [I] * 8 + [P]
             lib.mucon_viterbi_smem.argtypes = [I] * 5
             lib.mucon_viterbi_smem.restype = ctypes.c_size_t
-            lib.mucon_wavenet_train_fwd.argtypes = [P] * 10 + [I] * 8 + [P]
-            lib.mucon_wavenet_train_sweep.argtypes = [P] * 16 + [I] * 9 + [P]
+            lib.mucon_wavenet_train_fwd.argtypes = [P] * 10 + [I] * 9 + [P]
+            lib.mucon_wavenet_train_sweep.argtypes = [P] * 16 + [I] * 10 + [P]
             lib.mucon_wavenet_train_plan.argtypes = [I, I, I, ctypes.POINTER(I)]
             lib.mucon_bilstm_fwd_plan.argtypes = [I, I, ctypes.POINTER(I)]
             lib.mucon_bilstm_bwd_coefs.argtypes = [P] * 7 + [I] * 3 + [P]
@@ -157,9 +164,9 @@ def load() -> ctypes.CDLL:
             lib.mucon_decoder_chain_width.argtypes = [I]
             lib.mucon_decoder_chain_fwd_launch.argtypes = [I] * 4 + [ctypes.POINTER(I)]
             lib.mucon_flint.argtypes = [P] * 9 + [I] * 5 + [P]
-            lib.mucon_mstcnpp_layer.argtypes = [P] * 7 + [I] * 7 + [P]
+            lib.mucon_mstcnpp_layer.argtypes = [P] * 7 + [I] * 8 + [P]
             lib.mucon_mstcnpp_tile_rows.argtypes = []
-            lib.mucon_mstcnpp_proj.argtypes = [P] * 5 + [I] * 4 + [P]
+            lib.mucon_mstcnpp_proj.argtypes = [P] * 5 + [I] * 5 + [P]
             # per-layer pointer and int tables are host arrays
             PP, IP = ctypes.POINTER(P), ctypes.POINTER(I)
             lib.mucon_wavenet_train_v2_fwd.argtypes = [PP, IP, I] + [P] * 8 + [I] * 5 + [P]
@@ -241,6 +248,22 @@ def _check_packed(x, stages, w3, b3, w1, b1, w_last, b_last) -> torch.device:
     return dev
 
 
+def bf16_mode(mm_dtype) -> bool:
+    """True for the stack kernels' bf16-operand mode (`mm_dtype` is
+    torch.bfloat16), False for their 3xTF32 f32 mode (None); raises on any
+    other operand dtype."""
+    if mm_dtype is None:
+        return False
+    if mm_dtype == torch.bfloat16:
+        return True
+    raise ValueError(f"the stack kernels take mm_dtype None or torch.bfloat16, got {mm_dtype}")
+
+
+def _mode(name: str, bf16: bool) -> str:
+    """The launch-count name of kernel `name` in the mode `bf16`."""
+    return f"{name}_bf16" if bf16 else name
+
+
 def _ptr(t) -> int:
     """data_ptr of an optional tensor (0, a null pointer, for None)."""
     return 0 if t is None else t.data_ptr()
@@ -252,24 +275,26 @@ def wavenet_tile_rows() -> int:
     return load().mucon_wavenet_tile_rows()
 
 
-def _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky) -> torch.Tensor:
+def _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16) -> torch.Tensor:
     """z = mask(nonlin(h) Wl + bl): the eval kernel's final_proj launch."""
     B, t, C = h.shape
     out = torch.empty(B, t, C, device=h.device, dtype=torch.float32)
     err = lib.mucon_wavenet_layer(
         h.data_ptr(), out.data_ptr(), lens.data_ptr(), w_last.data_ptr(),
         b_last.data_ptr(), w_last.data_ptr(), b_last.data_ptr(),
-        B, t, C, 0, shift, 0, 0, int(leaky), 1, stream,
+        B, t, C, 0, shift, 0, 0, int(leaky), 1, int(bf16), stream,
     )
-    _check_launch(lib, err, "wavenet_layer")
+    _check_launch(lib, err, _mode("wavenet_layer", bf16))
     return out
 
 
 def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
-                  pooling_layers, pooling_type, leaky):
+                  pooling_layers, pooling_type, leaky, mm_dtype=None):
     """The eval stack of `ops/wavenet_stack.py` on the card: one
-    `wavenet_layer` launch per layer and one for the out-projection.
+    `wavenet_layer` launch per layer and one for the out-projection
+    (`mm_dtype=torch.bfloat16`: the bf16-operand mode, `wavenet_layer_bf16`).
     x [B x T x 128] f32 -> (z [B x T/2^p x 128], lengths >> p)."""
+    bf16 = bf16_mode(mm_dtype)
     dev = _check_packed(x, stages, w3, b3, w1, b1, w_last, b_last)
     B, T, C = x.shape
     lens = _lengths_i32(lengths, B, dev, "lengths")
@@ -284,13 +309,14 @@ def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
         err = lib.mucon_wavenet_layer(
             h.data_ptr(), out.data_ptr(), lens.data_ptr(), w3[i].data_ptr(),
             b3[i].data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
-            B, t, C, int(d), shift, int(pool), pool_mean, int(leaky), 0, stream,
+            B, t, C, int(d), shift, int(pool), pool_mean, int(leaky), 0, int(bf16), stream,
         )
-        _check_launch(lib, err, "wavenet_layer")
+        _check_launch(lib, err, _mode("wavenet_layer", bf16))
         if pool:
             t, shift = t // 2, shift + 1
         h = out
-    return _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky), lengths >> shift
+    return (_out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16),
+            lengths >> shift)
 
 
 def wavenet_train_plan(B: int, T: int, jobs: int = 4) -> dict:
@@ -316,14 +342,17 @@ def _work_floats(plan, B: int, layers) -> int:
 
 
 def wavenet_train_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks, *,
-                          stages, pooling_layers, pooling_type, leaky):
+                          stages, pooling_layers, pooling_type, leaky, mm_dtype=None):
     """Forward of the trainable stack on the card: one `wavenet_train_fwd`
-    launch per layer and one `wavenet_layer` out-projection launch.
+    launch per layer and one `wavenet_layer` out-projection launch (in the
+    bf16-operand mode with `mm_dtype=torch.bfloat16`: `wavenet_train_fwd_bf16`
+    and `wavenet_layer_bf16`).
     x [B x T x 128] (masked), drop_masks one [B x t_i x 128] mask per layer
     or None -> (z, stash) with stash = (xs, hs, us, x_fin): each layer's
     input, nonlin(z) and (pooled layers, by index) pre-pool output.  hs and
     us hold the rows t < length only (the sweep reads no other); their rows
     at t >= length are undefined."""
+    bf16 = bf16_mode(mm_dtype)
     dev = _check_packed(x, stages, w3, b3, w1, b1, w_last, b_last)
     B, T, C = x.shape
     lens = _lengths_i32(lengths, B, dev, "lengths")
@@ -345,24 +374,30 @@ def wavenet_train_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks
         err = lib.mucon_wavenet_train_fwd(
             h.data_ptr(), out.data_ptr(), _ptr(u), hs_i.data_ptr(), lens.data_ptr(),
             w3[i].data_ptr(), b3[i].data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
-            _ptr(m), B, t, C, int(d), shift, int(pool), pool_mean, int(leaky), stream,
+            _ptr(m), B, t, C, int(d), shift, int(pool), pool_mean, int(leaky), int(bf16), stream,
         )
-        _check_launch(lib, err, "wavenet_train_fwd")
+        _check_launch(lib, err, _mode("wavenet_train_fwd", bf16))
         xs.append(h)
         hs.append(hs_i)
         if pool:
             us[i] = u
             t, shift = t // 2, shift + 1
         h = out
-    z = _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky)
+    z = _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16)
     return z, (xs, hs, us, h)
 
 
 def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
-                           stages, pooling_layers, pooling_type, leaky):
+                           stages, pooling_layers, pooling_type, leaky, mm_dtype=None):
     """Backward sweep of the trainable stack on the card: the
     out-projection's sweep, then one `wavenet_train_sweep` per layer, last
-    first.  gz [B x t_fin x 128] -> (gx, dw3, db3, dw1, db1, dw_last, db_last)."""
+    first.  gz [B x t_fin x 128] -> (gx, dw3, db3, dw1, db1, dw_last, db_last).
+    `mm_dtype=torch.bfloat16` runs the bf16-operand mode
+    (`wavenet_train_sweep_bf16`), except for the out-projection's sweep when
+    the last layer pools: the JAX package then takes that projection's
+    gradient in f32 outside its kernel (wavenet_train_pallas_v3.py:504-515),
+    and so does this sweep."""
+    bf16 = bf16_mode(mm_dtype)
     xs, hs, us, x_fin = stash
     dev = _cuda_device(gz)
     B, T, C = xs[0].shape
@@ -393,19 +428,19 @@ def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
                        **f32)
 
     def sweep(g, u, x, h, m, w1t_i, w3t_i, dz, g_in, dw1_i, db1_i, dw3_i, db3_i,
-              t, d, shift, pooled, proj):
+              t, d, shift, pooled, proj, bf16):
         err = lib.mucon_wavenet_train_sweep(
             g.data_ptr(), _ptr(u), x.data_ptr(), h.data_ptr(), _ptr(m),
             lens.data_ptr(), w1t_i.data_ptr(), _ptr(w3t_i), dy.data_ptr(),
             dz.data_ptr(), _ptr(g_in), work.data_ptr(), dw1_i.data_ptr(),
             db1_i.data_ptr(), _ptr(dw3_i), _ptr(db3_i), B, t, C, int(d), shift,
-            int(pooled), pool_mean, int(leaky), int(proj), stream,
+            int(pooled), pool_mean, int(leaky), int(proj), int(bf16), stream,
         )
-        _check_launch(lib, err, "wavenet_train_sweep")
+        _check_launch(lib, err, _mode("wavenet_train_sweep", bf16))
 
     g = torch.empty(B, t_fin, C, **f32)  # gradient at x_fin
     sweep(gz, None, x_fin, x_fin, None, wlt, None, g, None, dwl, dbl, None, None,
-          t_fin, 0, n_pools, False, True)
+          t_fin, 0, n_pools, False, True, bf16 and (L - 1) not in us)
     shift = n_pools
     for i in reversed(range(L)):
         x_i = xs[i]
@@ -417,7 +452,7 @@ def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
         dz = torch.empty(B, t, C, **f32)
         g_in = torch.empty(B, t, C, **f32)
         sweep(g, us.get(i), x_i, hs[i], m, w1t[i], w3t[i], dz, g_in, dw1[i], db1[i],
-              dw3[i], db3[i], t, stages[i], shift, pooled, False)
+              dw3[i], db3[i], t, stages[i], shift, pooled, False, bf16)
         g = g_in
     return g, dw3, db3, dw1, db1, dwl, dbl
 
@@ -944,12 +979,14 @@ def mstcnpp_tile_rows() -> int:
 
 
 def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
-                  pooling_layers):
+                  pooling_layers, mm_dtype=None):
     """The eval MS-TCN++ stage of `ops/mstcnpp_stack.py` on the card: one
     `mstcnpp_stack` launch per layer (d1 = 2^(L-1-i), d2 = 2^i) and one for
     the out-projection, each on the tensor cores in error-compensated TF32
-    (`ops/tf32.py`).  x [B x T x 128] f32 -> (z [B x T/2^p x 128],
+    (`ops/tf32.py`), or with `mm_dtype=torch.bfloat16` in the bf16-operand
+    mode (`mstcnpp_stack_bf16`).  x [B x T x 128] f32 -> (z [B x T/2^p x 128],
     lengths >> p)."""
+    bf16 = bf16_mode(mm_dtype)
     dev = _cuda_device(x)
     if x.dim() != 3:
         raise ValueError(f"x must be [B x T x C], got {tuple(x.shape)}")
@@ -979,16 +1016,17 @@ def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
         err = lib.mucon_mstcnpp_layer(
             h.data_ptr(), out.data_ptr(), lens.data_ptr(), w[i].data_ptr(),
             b3a[i].data_ptr(), b3b[i].data_ptr(), b1[i].data_ptr(), B, t, C,
-            2 ** (L - 1 - i), 2 ** i, shift, int(pool), stream,
+            2 ** (L - 1 - i), 2 ** i, shift, int(pool), int(bf16), stream,
         )
-        _check_launch(lib, err, "mstcnpp_stack")
+        _check_launch(lib, err, _mode("mstcnpp_stack", bf16))
         if pool:
             t, shift = t // 2, shift + 1
         h = out
     z = torch.empty(B, t, C, device=dev, dtype=torch.float32)
     err = lib.mucon_mstcnpp_proj(h.data_ptr(), z.data_ptr(), lens.data_ptr(),
-                                 w_out.data_ptr(), b_out.data_ptr(), B, t, C, shift, stream)
-    _check_launch(lib, err, "mstcnpp_stack")
+                                 w_out.data_ptr(), b_out.data_ptr(), B, t, C, shift, int(bf16),
+                                 stream)
+    _check_launch(lib, err, _mode("mstcnpp_stack", bf16))
     return z, lengths >> shift
 
 

@@ -18,7 +18,8 @@ Reference semantics (src/mucon/evaluators.py):
 Two paths, as in the JAX package, both under `torch.inference_mode()` on
 the model's device (with the CUDA kernels of the stack, the BiLSTM, the
 decoder chain under teacher forcing and the Viterbi DP + walk when the
-model is on the card and `use_kernels_from_cfg` says so):
+model is on the card, each as its route says: `models/routing.py
+routes_from_cfg`, from the `tpu.use_pallas*` flags):
 
 * fused (`evaluator.viterbi.backend="device"`, `multi_length=False`):
   each batch runs `ops/eval_fused.py build_fused_eval`, whose Viterbi
@@ -55,7 +56,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from mucon_tpu_torch.config.support import check_supported, use_kernels_from_cfg
+from mucon_tpu_torch.config.support import check_supported
 from mucon_tpu_torch.data.batching import PaddedBatch, PaddedBatchLoader
 from mucon_tpu_torch.decode.grammar import SingleTranscriptGrammar
 from mucon_tpu_torch.decode.length_model import PoissonModel
@@ -71,7 +72,12 @@ from mucon_tpu_torch.metrics import (
     Metric,
     MoFAccuracyMetric,
 )
-from mucon_tpu_torch.models.model import batch_to_tensors, resolve_feats_dtype
+from mucon_tpu_torch.models.model import (
+    batch_to_tensors,
+    eval_feats_round_to_bf16,
+    resolve_feats_dtype,
+)
+from mucon_tpu_torch.models.routing import routes_from_cfg
 from mucon_tpu_torch.ops.eval_fused import build_fused_eval
 from mucon_tpu_torch.ops.viterbi import dense_viterbi_decode_batch, positions_to_results
 from mucon_tpu_torch.utils import make_same_size_interpolate
@@ -144,7 +150,7 @@ class MuConEvaluator:
         self.cfg = cfg
         self.test_db = test_db
         self.model = model
-        self.use_kernels = use_kernels_from_cfg(cfg)
+        self.use_kernels = routes_from_cfg(cfg)
         self.name = "eval"
         self.checkpointing_folder: Optional[Path] = None
         self.enable_viterbi = False
@@ -154,7 +160,9 @@ class MuConEvaluator:
         if self.viterbi_backend not in ("device", "host"):
             raise ValueError(f"Invalid evaluator.viterbi.backend {self.viterbi_backend!r}")
         self.last_eval_phases: dict = {}
-        self._feats_dtype = resolve_feats_dtype(cfg, "eval_feats_transfer_dtype")
+        # "auto": bf16 when the forward rounds the features to bf16 first
+        self._feats_dtype = resolve_feats_dtype(
+            cfg, "eval_feats_transfer_dtype", eval_feats_round_to_bf16(cfg, self.use_kernels))
         self.cache_budget: Optional[CacheBudget] = None  # a trainer shares its own
         self._array_cache: dict = {}
         self._replay: Optional[list] = None
@@ -458,7 +466,8 @@ class MuConEvaluator:
         results = dense_viterbi_decode_batch(
             log_probs, batch.num_frames, np.asarray(transcripts, np.int32),
             np.asarray(n_valid, np.int32), all_lambdas.astype(np.float32),
-            frame_sampling=self.frame_sampling, device=device, use_kernels=self.use_kernels)
+            frame_sampling=self.frame_sampling, device=device,
+            use_kernels=self.use_kernels.viterbi)
         return [r.labels for r in results]
 
     def on_finish_eval(self) -> MuConEvaluatorResult:

@@ -23,11 +23,12 @@ apart by default), and the optimizer update.  With
 `trainer.accumulate_grad_every` k > 1, each iteration backpropagates
 loss / k into the summed gradients and every k-th applies them
 (trainer.py:413-445, 554-602); a partial accumulation at the end of an
-epoch is dropped.  When the model lives on the card and
-`use_kernels_from_cfg` says so, the step runs every train kernel of the JAX
-package as a hand-written CUDA kernel: the residual stack and the BiLSTM
-recurrence (forward and backward), the teacher-forced decoder chain
-(forward and backward; not in a free-decoding step) and, with
+epoch is dropped.  When the model lives on the card, the step runs each
+train kernel of the JAX package whose route is on (`models/routing.py
+routes_from_cfg`, from the `tpu.use_pallas*` flags) as a hand-written CUDA
+kernel: the residual stack and the BiLSTM recurrence (forward and
+backward), the teacher-forced decoder chain (forward and backward; not in
+a free-decoding step, and not under bf16 compute) and, with
 `tpu.use_pallas_loss`, the fused flint loss.
 
 Each step's masks come from a fresh `torch.Generator` on the model's
@@ -39,7 +40,7 @@ uninterrupted run would have.
 The data path (trainer.py:138-165, 288-349):
 * the features travel on the wire `tpu.feats_transfer_dtype` names
   (`models/model.py resolve_feats_dtype`: float32, float16, bfloat16 or
-  int8 with a per-frame scale);
+  int8 with a per-frame scale; "auto" is bfloat16 under bf16 compute);
 * `tpu.device_prefetch` k > 0 issues each batch's copy k batches ahead of
   the step that reads it; on the card from pinned host memory with
   `non_blocking` copies on a side stream, an event the compute stream
@@ -69,7 +70,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from mucon_tpu_torch.config.support import check_supported, use_kernels_from_cfg
+from mucon_tpu_torch.config.support import check_supported
 from mucon_tpu_torch.data import PaddedBatchLoader
 from mucon_tpu_torch.harness.cache import CacheBudget, arrays_nbytes
 from mucon_tpu_torch.harness.checkpoint import has_checkpoint, load_checkpoint, save_checkpoint
@@ -82,6 +83,7 @@ from mucon_tpu_torch.harness.optim import (
     set_learning_rate,
 )
 from mucon_tpu_torch.models.model import MuConModel, batch_to_host_tensors, resolve_feats_dtype
+from mucon_tpu_torch.models.routing import routes_from_cfg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +126,7 @@ class SimpleTrainer:
         self.model = model
         self.device = model.device
         self.evaluators = list(evaluators) if evaluators else []
-        self.use_kernels = use_kernels_from_cfg(cfg)
+        self.use_kernels = routes_from_cfg(cfg)
         self.save_every = cfg.trainer.save_every
         self.eval_every = cfg.trainer.eval_every
 
@@ -161,7 +163,8 @@ class SimpleTrainer:
         for ev in self.evaluators:
             if getattr(ev, "cache_budget", None) is None:
                 ev.cache_budget = self.cache_budget
-        self._feats_dtype = resolve_feats_dtype(cfg)
+        # "auto": bf16 when the model computes in bf16 (trainer.py:148-152)
+        self._feats_dtype = resolve_feats_dtype(cfg, auto_bf16=cfg.tpu.compute_dtype == "bfloat16")
 
     def create_train_dataloader(self) -> PaddedBatchLoader:
         if self._loader is None:

@@ -39,7 +39,19 @@ copies the features as float32, float16, bfloat16, or int8 with a
 per-frame scale (`quantize_feats_int8`); `forward` first turns them back
 into float32 on the device (`dequantize_feats`).
 
-`use_kernels=False` runs the plain PyTorch versions instead of the kernels.
+`use_kernels` picks the routes (`models/routing.py KernelRoutes`, from
+the `tpu.use_pallas*` flags by `routes_from_cfg`; a bool turns every
+kernel on or off): a route that is off runs the JAX package's XLA path in
+plain PyTorch.  Each decision is logged once on
+`mucon_tpu_torch.kernel_routing`.
+
+The compute dtype and the kernel path's operand knobs (model.py:358-415):
+under `tpu.compute_dtype=bfloat16` the plain paths compute in bf16 where
+the flax modules do (`models/mucon.py`); the kernel path's in-projection
+takes bf16 operands with an f32 result (`_in_proj_mm_dtype`, also
+`tpu.in_proj_mm_dtype`); the stack kernels keep f32 operands unless
+`tpu.kernel_mm_dtype=bfloat16` (`_kernel_mm_dtype`: "auto" stays f32, as
+in the JAX package).
 """
 
 from __future__ import annotations
@@ -50,7 +62,7 @@ import numpy as np
 import torch
 
 from mucon_tpu_torch import resolve_device
-from mucon_tpu_torch.models.layers import dropout_mask
+from mucon_tpu_torch.models.layers import dropout_mask, mask_time
 from mucon_tpu_torch.models.losses import LOSS_DEFAULTS, compute_loss
 from mucon_tpu_torch.models.mucon import (
     DECODE_MODULES,
@@ -60,6 +72,9 @@ from mucon_tpu_torch.models.mucon import (
     build_model,
 )
 from mucon_tpu_torch.models.outputs import MuConForwardOut, MuConLoss, MuConPredictOut
+from mucon_tpu_torch.models.routing import KernelRoutes, as_routes, log_route
+from mucon_tpu_torch.models.temporal import nonlinearity
+from mucon_tpu_torch.ops.bf16 import DotBF16
 from mucon_tpu_torch.ops.mstcnpp_stack import mstcnpp_stack, pack_mstcnpp_params
 from mucon_tpu_torch.ops.wavenet_stack import pack_wavenet_params, wavenet_stack
 from mucon_tpu_torch.ops.wavenet_stack_train import stack_plan, wavenet_stack_train
@@ -76,6 +91,45 @@ class MuConModel:
         self.max_decoding_steps = net.max_decoding_steps
         self.loss_cfg = dict(LOSS_DEFAULTS, **(loss_cfg or {}))
         self.teacher_forcing = True
+        self._in_proj_mm_dtype()  # an invalid knob raises here
+        self._kernel_mm_dtype()
+
+    def _in_proj_mm_dtype(self):
+        """The in-projection's operand dtype on the kernel path
+        (model.py:374-393): torch.bfloat16 (operands rounded, f32 result) or
+        None (f32).  `tpu.in_proj_mm_dtype` "auto" follows the compute dtype."""
+        knob = self.net.in_proj_mm_dtype
+        if knob == "bfloat16":
+            return torch.bfloat16
+        if knob == "float32":
+            return None
+        if knob != "auto":
+            raise ValueError("tpu.in_proj_mm_dtype must be one of 'auto'/'float32'/"
+                             f"'bfloat16', got {knob!r}")
+        return torch.bfloat16 if self.net.dtype == torch.bfloat16 else None
+
+    def _kernel_mm_dtype(self):
+        """The stack kernels' operand dtype (model.py:395-415): torch.bfloat16
+        (the bf16-operand mode) only for an explicit
+        `tpu.kernel_mm_dtype=bfloat16`; "auto" keeps f32 under any compute
+        dtype, as in the JAX package."""
+        knob = self.net.kernel_mm_dtype
+        if knob == "bfloat16":
+            return torch.bfloat16
+        if knob not in ("auto", "float32"):
+            raise ValueError("tpu.kernel_mm_dtype must be one of 'auto'/'float32'/"
+                             f"'bfloat16', got {knob!r}")
+        return None
+
+    def kernels_active(self, train: bool, use_kernels=True) -> bool:
+        """Does the forward route the backbone to its stack kernel
+        (model.py:125-144)?  The MS-TCN++ stage in eval only; `noft` never."""
+        routes = as_routes(use_kernels)
+        if self.net.ft_type == "mstcnpp":
+            return not train and routes.stack
+        if self.net.ft_type != "wavenet":
+            return False
+        return routes.stack_train if train else routes.stack
 
     def set_teacher_forcing(self, teacher_forcing: bool = True) -> None:
         self.teacher_forcing = teacher_forcing
@@ -87,7 +141,7 @@ class MuConModel:
 
         self.net.load_state_dict(params_to_state_dict(params), strict=True)
 
-    def forward(self, arrays: dict, use_kernels: bool = True, train: bool = False,
+    def forward(self, arrays: dict, use_kernels=True, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 teacher_forcing: Optional[bool] = None) -> MuConForwardOut:
         """Eval forward (no autograd) with free decoding, or with
@@ -97,19 +151,20 @@ class MuConModel:
         is False, its dropout masks drawn from `generator` (a generator on
         this model's device; None draws no masks).  The eval forward
         decodes freely unless asked, whatever the flag.  `arrays` come from
-        `batch_to_tensors`."""
+        `batch_to_tensors`; `use_kernels` is a `KernelRoutes` or a bool."""
         arrays = dequantize_feats(arrays)
+        routes = as_routes(use_kernels)
         if train:
             tf = self.teacher_forcing if teacher_forcing is None else teacher_forcing
-            return self._train_forward(arrays, use_kernels, generator, tf)
+            return self._train_forward(arrays, routes, generator, tf)
         feats, num_frames = arrays["feats"], arrays["num_frames"]
         with torch.no_grad():
             z = tz = None
-            if use_kernels:
+            if self._stack_route(routes, feats, train=False):
                 z, tz = self._encode_kernels(feats, num_frames)
             return self.net(
                 feats, num_frames, arrays["tf_input"],
-                z_precomputed=z, tz_precomputed=tz, use_kernels=use_kernels,
+                z_precomputed=z, tz_precomputed=tz, use_kernels=routes,
                 transcript_len=arrays["transcript_len"],
                 teacher_forcing=bool(teacher_forcing),
             )
@@ -137,16 +192,31 @@ class MuConModel:
                            net.decoder.attention_l2.kernel.shape[0]),
         )
 
-    def _train_forward(self, arrays, use_kernels, generator,
+    def _stack_route(self, routes: KernelRoutes, feats, train: bool) -> bool:
+        """The backbone's route, logged once: its stack kernel (with the
+        operand dtypes) or the plain backbone."""
+        on = self.kernels_active(train, routes)
+        B, T = feats.shape[0], feats.shape[1]
+        where = f"{'train' if train else 'eval'} {self.net.ft_type} encoder B={B} T={T}"
+        if on:
+            kmm, imm = self._kernel_mm_dtype(), self._in_proj_mm_dtype()
+            log_route(f"{where}: stack kernel (mm_dtype="
+                      f"{'bfloat16' if kmm else 'float32'}, in-projection "
+                      f"{'bfloat16' if imm and self.net.ft_type == 'wavenet' else 'float32'})")
+        elif self.net.ft_type != "noft":
+            log_route(f"{where}: plain backbone in {str(self.net.dtype).split('.')[-1]}")
+        return on
+
+    def _train_forward(self, arrays, routes: KernelRoutes, generator,
                        teacher_forcing: bool) -> MuConForwardOut:
         feats, num_frames = arrays["feats"], arrays["num_frames"]
         masks = self.draw_masks(generator, feats.shape[0], feats.shape[1])
         z = tz = None
-        if use_kernels:
+        if self._stack_route(routes, feats, train=True):
             z, tz = self._encode_kernels_train(feats, num_frames, masks)
         return self.net(
             feats, num_frames, arrays["tf_input"],
-            z_precomputed=z, tz_precomputed=tz, use_kernels=use_kernels,
+            z_precomputed=z, tz_precomputed=tz, use_kernels=routes,
             train=True, transcript_len=arrays["transcript_len"], masks=masks,
             teacher_forcing=teacher_forcing,
         )
@@ -208,40 +278,49 @@ class MuConModel:
                 raise KeyError(f"Unpartitioned parameter group: {top}")
         return groups
 
+    def _in_projection(self, feats, num_frames):
+        """The kernel path's WaveNet in-projection, masked (model.py:358-372,
+        outside the kernel as in JAX): nonlin(feats W + b) in f32, or with
+        bf16 operands (`_in_proj_mm_dtype`) exact products summed in f32
+        and not rounded (`ops/bf16.py DotBF16`), whatever the compute
+        dtype."""
+        conv, ft = self.net.ft.Conv1x1_0, self.net.ft
+        if self._in_proj_mm_dtype() is None:
+            y = feats @ conv.kernel + conv.bias
+        else:
+            y = DotBF16.apply(feats, conv.kernel) + conv.bias
+        return mask_time(nonlinearity(y, ft.leaky), num_frames)
+
     def _encode_kernels(self, feats, num_frames):
-        """The backbone's eval kernel (model.py:169-176), or (None, None)
-        where the JAX package has none (`noft`).  WaveNet: the D -> C
-        in-projection as a plain matmul (JAX also runs it outside the
-        kernel, model.py:450-453), then the fused residual stack
-        (model.py:416).  MS-TCN++: the in-projection as a plain masked
-        matmul with no ReLU (model.py:500-504), then the fused stage."""
-        ft = self.net.ft
+        """The backbone's eval kernel (model.py:169-176).  WaveNet: the
+        D -> C in-projection (`_in_projection`), then the fused residual
+        stack (model.py:416) with `_kernel_mm_dtype` operands.  MS-TCN++:
+        the in-projection as an f32 masked matmul with no ReLU
+        (model.py:500-504), then the fused stage."""
+        ft, mm = self.net.ft, self._kernel_mm_dtype()
         if self.net.ft_type == "wavenet":
             return wavenet_stack(
-                ft.in_projection(feats, num_frames), num_frames, *pack_wavenet_params(ft),
+                self._in_projection(feats, num_frames), num_frames, *pack_wavenet_params(ft),
                 stages=ft.stages, pooling_layers=ft.pooling_layers,
-                pooling_type=ft.pooling_type, leaky=ft.leaky,
+                pooling_type=ft.pooling_type, leaky=ft.leaky, mm_dtype=mm,
             )
-        if self.net.ft_type == "mstcnpp":
-            return mstcnpp_stack(ft.in_projection(feats, num_frames), num_frames,
-                                 *pack_mstcnpp_params(ft), pooling_layers=ft.pooling_layers)
-        return None, None
+        conv = ft.Conv1x1_0
+        x = mask_time(feats @ conv.kernel + conv.bias, num_frames)
+        return mstcnpp_stack(x, num_frames, *pack_mstcnpp_params(ft),
+                             pooling_layers=ft.pooling_layers, mm_dtype=mm)
 
     def _encode_kernels_train(self, feats, num_frames, masks: Optional[TrainMasks]):
-        """WaveNet: the in-projection as plain torch (model.py:326-329),
-        then the differentiable stack (`wavenet_stack_train`) with the
-        step's masks.  The other backbones have no train kernel (the JAX
-        package trains MS-TCN++ on XLA, model.py:132-134): (None, None),
-        and the backbone runs as plain PyTorch under autograd."""
+        """WaveNet: the in-projection (model.py:326-329), then the
+        differentiable stack (`wavenet_stack_train`) with the step's masks
+        and `_kernel_mm_dtype` operands.  The other backbones have no train
+        kernel (the JAX package trains MS-TCN++ on XLA, model.py:132-134):
+        they run as plain PyTorch under autograd."""
         ft = self.net.ft
-        if self.net.ft_type != "wavenet":
-            return None, None
-        x = ft.in_projection(feats, num_frames)
         return wavenet_stack_train(
-            x, num_frames, *pack_wavenet_params(ft),
+            self._in_projection(feats, num_frames), num_frames, *pack_wavenet_params(ft),
             masks.stack if masks is not None else None,
             stages=ft.stages, pooling_layers=ft.pooling_layers,
-            pooling_type=ft.pooling_type, leaky=ft.leaky,
+            pooling_type=ft.pooling_type, leaky=ft.leaky, mm_dtype=self._kernel_mm_dtype(),
         )
 
 
@@ -296,16 +375,10 @@ def model_fields_from_cfg(cfg) -> dict:
     ft = cfg.model.ft
     if ft.type not in ("wavenet", "mstcnpp", "noft"):
         raise ValueError(f"Invalid ft type ({ft.type})")
-    if not cfg.model.fs.encoder.bidirectional:
-        raise NotImplementedError("the port runs a bidirectional LSTM encoder only")
     if cfg.model.fs.encoder.hidden_size != cfg.model.fs.decoder.hidden_size:
+        # the JAX model fails at init too: DecoderCell's attention_l2
+        # (mucon.py:122) reads h0, which has the encoder's width (:302)
         raise ValueError("encoder and decoder hidden sizes must be equal")
-    if not (ft.last_gn and ft.last_relu):
-        raise NotImplementedError("the port always applies the last GN + ReLU")
-    if cfg.tpu.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"the port computes in float32 only, got tpu.compute_dtype="
-            f"{cfg.tpu.compute_dtype!r}")
     return dict(
         stages=tuple(ft.stages),
         hidden_size=ft.hidden_size,
@@ -320,6 +393,12 @@ def model_fields_from_cfg(cfg) -> dict:
         last_dropout_rate=ft.last_dropout_rate,
         embedding_dropout=cfg.model.fs.decoder.embedding_dropout,
         ft_type=ft.type,
+        last_gn=ft.last_gn,
+        last_relu=ft.last_relu,
+        bidirectional=cfg.model.fs.encoder.bidirectional,
+        compute_dtype=cfg.tpu.compute_dtype,
+        kernel_mm_dtype=cfg.tpu.kernel_mm_dtype,
+        in_proj_mm_dtype=cfg.tpu.in_proj_mm_dtype,
     )
 
 
@@ -327,21 +406,39 @@ FEATS_DTYPES = {"float32": None, "float16": torch.float16, "bfloat16": torch.bfl
                 "int8": "int8"}
 
 
-def resolve_feats_dtype(cfg, key: str = "feats_transfer_dtype"):
+def eval_feats_round_to_bf16(cfg, routes) -> bool:
+    """Does the eval forward of `cfg`'s model on `routes` round the
+    features to bf16 before anything else reads them?  Then a bfloat16 wire
+    gives the same result bit for bit (the eval wire's "auto").  The kernel
+    path's WaveNet in-projection does with bf16 operands (model.py:358-393);
+    MS-TCN++'s kernel path reads them in f32 (model.py:500-504); a plain
+    backbone does under bf16 compute (mucon.py:276)."""
+    ft_type, bf16 = cfg.model.ft.type, cfg.tpu.compute_dtype == "bfloat16"
+    if ft_type == "wavenet" and routes.stack:
+        knob = cfg.tpu.in_proj_mm_dtype
+        return knob == "bfloat16" or (knob == "auto" and bf16)
+    if ft_type == "mstcnpp" and routes.stack:
+        return False
+    return bf16
+
+
+def resolve_feats_dtype(cfg, key: str = "feats_transfer_dtype", auto_bf16: bool = False):
     """`tpu.feats_transfer_dtype` (the train wire) or, with
     `key="eval_feats_transfer_dtype"`, the eval and serving wire, as the
     `feats_dtype` of `batch_to_tensors`: None for float32, torch.float16 or
     torch.bfloat16, or "int8" (trainer.py:148-165, model.py:669-692).
 
-    "auto" resolves to float32 here, on the card too.  The JAX package
-    picks bfloat16 on an accelerator only because its TPU in-projection
-    truncates its operands to bfloat16 anyway; the port's in-projection is
-    a cuBLAS float32 product with TF32 off, so a bfloat16 wire would change
-    its results there, which is the reason the JAX package gives for
-    float32 on the CPU."""
+    "auto" resolves to bfloat16 when `auto_bf16`, else float32.  The train
+    wire passes whether the model computes in bf16 (trainer.py:148-152);
+    the eval wire whether the eval forward rounds the features to bf16
+    first (`eval_feats_round_to_bf16`), so that the wire changes no
+    result bit.  The JAX package picks bfloat16 for the eval wire on any
+    accelerator because its TPU truncates the in-projection's operands
+    anyway; the port's f32 in-projection is a cuBLAS f32 product with TF32
+    off, where a bfloat16 wire would change its results."""
     value = cfg.tpu[key]
     if value in ("auto", None):
-        value = "float32"
+        value = "bfloat16" if auto_bf16 else "float32"
     if value not in FEATS_DTYPES:
         raise ValueError(f"Invalid tpu.{key} {value!r} "
                          "(use 'auto'|'float32'|'float16'|'bfloat16'|'int8')")

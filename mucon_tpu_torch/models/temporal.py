@@ -15,6 +15,11 @@ checks; the MS-TCN++ stage's eval kernel is `ops/mstcnpp_stack.py` (it
 trains as plain PyTorch, as the JAX package trains it on XLA).  Dropout is a per-layer mask tensor ([B x t x C], from
 `layers.dropout_mask`) multiplied into the 1x1 conv's output before the
 residual; without masks the block is the eval forward.
+
+`dtype` is the compute dtype (the JAX package's `tpu.compute_dtype`,
+temporal.py:53-90): a conv casts its input, kernel and bias to it, so under
+bfloat16 every product and sum of the block rounds to bf16 where the flax
+modules round; the parameters stay f32.
 """
 
 from __future__ import annotations
@@ -50,11 +55,19 @@ def nonlinearity(x: torch.Tensor, leaky: bool) -> torch.Tensor:
     return torch.where(x > 0, x, 0.01 * x) if leaky else torch.relu(x)
 
 
-class Conv1x1(nn.Module):
-    """Pointwise conv == dense over channels; kernel [in, out]."""
+def dropped(y: torch.Tensor, mask) -> torch.Tensor:
+    """y times its dropout mask (f32: 0 or 1 / (1 - rate)) in y's dtype, as
+    flax's Dropout keeps it."""
+    return y if mask is None else (y * mask).to(y.dtype)
 
-    def __init__(self, in_features: int, out_features: int):
+
+class Conv1x1(nn.Module):
+    """Pointwise conv == dense over channels; kernel [in, out]; input,
+    kernel and bias cast to `dtype` (temporal.py:52-61)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
         self.bias = nn.Parameter(torch.empty(out_features))
 
@@ -63,15 +76,19 @@ class Conv1x1(nn.Module):
             torch_linear_init_(p, self.kernel.shape[0], generator)
 
     def forward(self, x):
-        return x @ self.kernel + self.bias
+        dt = self.dtype
+        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
 
 
 class DilatedConv3(nn.Module):
-    """Kernel-3 dilated conv with SAME zero padding; kernel [3, in, out]."""
+    """Kernel-3 dilated conv with SAME zero padding; kernel [3, in, out];
+    input, kernel and bias cast to `dtype` (temporal.py:64-90)."""
 
-    def __init__(self, channels_in: int, channels_out: int, dilation: int):
+    def __init__(self, channels_in: int, channels_out: int, dilation: int,
+                 dtype=torch.float32):
         super().__init__()
         self.dilation = dilation
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(3, channels_in, channels_out))
         self.bias = nn.Parameter(torch.empty(channels_out))
 
@@ -80,25 +97,25 @@ class DilatedConv3(nn.Module):
             torch_linear_init_(p, 3 * self.kernel.shape[1], generator)
 
     def forward(self, x):
-        d, w = self.dilation, self.kernel
+        d, dt = self.dilation, self.dtype
+        w, x = self.kernel.to(dt), x.to(dt)
         y = shift_time(x, -d) @ w[0] + x @ w[1] + shift_time(x, d) @ w[2]
-        return y + self.bias
+        return y + self.bias.to(dt)
 
 
 class WaveNetLayer(nn.Module):
     """Dilated conv3 -> nonlin -> 1x1 -> residual -> mask."""
 
-    def __init__(self, channels: int, dilation: int, leaky: bool = False):
+    def __init__(self, channels: int, dilation: int, leaky: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.leaky = leaky
-        self.DilatedConv3_0 = DilatedConv3(channels, channels, dilation)
-        self.Conv1x1_0 = Conv1x1(channels, channels)
+        self.DilatedConv3_0 = DilatedConv3(channels, channels, dilation, dtype)
+        self.Conv1x1_0 = Conv1x1(channels, channels, dtype)
 
     def forward(self, x, lengths, drop_mask=None):
         y = self.Conv1x1_0(nonlinearity(self.DilatedConv3_0(x), self.leaky))
-        if drop_mask is not None:
-            y = y * drop_mask
-        return mask_time(y + x, lengths)
+        return mask_time(dropped(y, drop_mask) + x, lengths)
 
 
 def pool2_time(x: torch.Tensor, pooling_type: str) -> torch.Tensor:
@@ -126,16 +143,17 @@ class WaveNetBlock(nn.Module):
         pooling_layers: Sequence[int],
         pooling_type: str = "max",
         leaky: bool = False,
+        dtype=torch.float32,
     ):
         super().__init__()
         self.stages = tuple(stages)
         self.pooling_layers = tuple(int(p) for p in pooling_layers)
         self.pooling_type = pooling_type
         self.leaky = leaky
-        self.Conv1x1_0 = Conv1x1(in_channels, out_dims)
+        self.Conv1x1_0 = Conv1x1(in_channels, out_dims, dtype)
         for i, d in enumerate(self.stages):
-            self.add_module(f"WaveNetLayer_{i}", WaveNetLayer(out_dims, d, leaky))
-        self.Conv1x1_1 = Conv1x1(out_dims, out_dims)
+            self.add_module(f"WaveNetLayer_{i}", WaveNetLayer(out_dims, d, leaky, dtype))
+        self.Conv1x1_1 = Conv1x1(out_dims, out_dims, dtype)
 
     def in_projection(self, x, lengths):
         """nonlin(x @ W_in + b_in), masked — the D -> C projection."""
@@ -169,17 +187,18 @@ class MSTCNPPFirstStage(nn.Module):
     dropout_rate = 0.5  # mucon.py never passes ft.dropout_rate to the stage
 
     def __init__(self, input_dim: int, num_layers: int, num_f_maps: int, output_dim: int,
-                 pooling_layers: Sequence[int] = (1, 2, 4, 8)):
+                 pooling_layers: Sequence[int] = (1, 2, 4, 8), dtype=torch.float32):
         super().__init__()
         self.num_layers = num_layers
         self.pooling_layers = tuple(int(p) for p in pooling_layers)
         C = num_f_maps
-        self.Conv1x1_0 = Conv1x1(input_dim, C)
+        self.Conv1x1_0 = Conv1x1(input_dim, C, dtype)
         for i in range(num_layers):
-            self.add_module(f"DilatedConv3_{2 * i}", DilatedConv3(C, C, 2 ** (num_layers - 1 - i)))
-            self.add_module(f"DilatedConv3_{2 * i + 1}", DilatedConv3(C, C, 2 ** i))
-            self.add_module(f"Conv1x1_{i + 1}", Conv1x1(2 * C, C))
-        self.add_module(f"Conv1x1_{num_layers + 1}", Conv1x1(C, output_dim))
+            self.add_module(f"DilatedConv3_{2 * i}",
+                            DilatedConv3(C, C, 2 ** (num_layers - 1 - i), dtype))
+            self.add_module(f"DilatedConv3_{2 * i + 1}", DilatedConv3(C, C, 2 ** i, dtype))
+            self.add_module(f"Conv1x1_{i + 1}", Conv1x1(2 * C, C, dtype))
+        self.add_module(f"Conv1x1_{num_layers + 1}", Conv1x1(C, output_dim, dtype))
 
     def in_projection(self, x, lengths):
         """x @ W_in + b_in, masked — no nonlinearity."""
@@ -193,8 +212,7 @@ class MSTCNPPFirstStage(nn.Module):
             y1 = getattr(self, f"DilatedConv3_{2 * i}")(f)
             y2 = getattr(self, f"DilatedConv3_{2 * i + 1}")(f)
             y = torch.relu(getattr(self, f"Conv1x1_{i + 1}")(torch.cat([y1, y2], dim=-1)))
-            if drop_masks is not None:
-                y = y * drop_masks[i]
+            y = dropped(y, None if drop_masks is None else drop_masks[i])
             f = mask_time(y + f, lengths)
             if i in self.pooling_layers:
                 f = pool2_time(f, "max")
@@ -207,9 +225,9 @@ class MSTCNPPFirstStage(nn.Module):
 class NoFt(nn.Module):
     """One masked 1x1 conv, no pooling (mucon_tpu/models/temporal.py:200)."""
 
-    def __init__(self, in_channels: int, out_dims: int):
+    def __init__(self, in_channels: int, out_dims: int, dtype=torch.float32):
         super().__init__()
-        self.Conv1x1_0 = Conv1x1(in_channels, out_dims)
+        self.Conv1x1_0 = Conv1x1(in_channels, out_dims, dtype)
 
     in_projection = MSTCNPPFirstStage.in_projection
 

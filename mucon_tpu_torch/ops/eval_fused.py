@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from mucon_tpu_torch.models.layers import nearest_upsample_indices
+from mucon_tpu_torch.models.routing import as_routes
 from mucon_tpu_torch.ops.viterbi import (
     dense_viterbi_plain,
     traceback_positions,
@@ -95,27 +96,29 @@ def upsample_labels_host(y_z, tz_len, num_frames, t_full: int):
 
 
 def build_fused_eval(model, teacher_forcing: bool = False, frame_sampling: int = 30,
-                     max_len: int = 2000, use_kernels: bool = True):
+                     max_len: int = 2000, use_kernels=True):
     """Returns run(arrays) -> dict of host numpy arrays with the keys of the
     JAX `unpack_eval_wire`: tokens, n_steps, rel_lengths, n_dec,
     transcripts, vit_score, vit_best_l, vit_pos, vit_k_valid, tz_len,
     y_argmax_z, y_argmax.  `arrays` come from `batch_to_tensors`.
-    `use_kernels=False` runs the plain twins of the kernels (the DP and the
-    walk as two steps).  `teacher_forcing` decodes the ground-truth
+    `use_kernels` (a `KernelRoutes`, or a bool for every kernel) routes the
+    forward; with its `viterbi` route off the DP and the walk run as two
+    plain steps.  `teacher_forcing` decodes the ground-truth
     transcript (the decoder chain's forward kernel on the kernel path) and
     takes it, not the decoded one, for the tables (eval_fused.py:82-86)."""
     S = frame_sampling
+    routes = as_routes(use_kernels)
 
     @torch.no_grad()
     def run(arrays: dict) -> dict:
         num_frames = arrays["num_frames"]
         t_full = arrays["feats"].shape[1]
-        fwd = model.forward(arrays, use_kernels=use_kernels, teacher_forcing=teacher_forcing)
+        fwd = model.forward(arrays, use_kernels=routes, teacher_forcing=teacher_forcing)
         gt = ((arrays["transcript"], arrays["transcript_len"]) if teacher_forcing
               else (None, None))
         tb = eval_tables(fwd, num_frames, t_full, arrays["transcript"].shape[1],
                          S, max_len, *gt)
-        if use_kernels:
+        if routes.viterbi:
             score, best_l, _, vit_pos = dense_viterbi_decode(
                 tb.W, tb.pois, tb.k_valid, tb.n_dec, S, max_len)
         else:

@@ -20,6 +20,10 @@ The TPU version's batch slicing (`plan_mstcnpp_slices`,
 `mstcnpp_stack_pallas_sliced`) exists for the TPU's VMEM only and is not
 ported: the kernel here holds one tile of rows per CTA at any batch.
 Eval only, as in the JAX package: the stage trains as plain PyTorch.
+
+`mm_dtype=torch.bfloat16` is the JAX kernel's `mm_dtype=jnp.bfloat16`
+(mstcnpp_pallas.py:60-96): every product on bf16-rounded operands with f32
+sums (`ops/bf16.py`), in the twin and in the kernel's bf16 mode.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from mucon_tpu_torch.models.layers import mask_time
 from mucon_tpu_torch.models.temporal import pool2_time, shift_time
+from mucon_tpu_torch.ops.bf16 import matmul_bf16_plain
 
 
 def pack_mstcnpp_params(stage) -> tuple:
@@ -59,10 +64,21 @@ def _mm(a, b):
     return a @ b
 
 
-def _conv3(x, d: int, w, b):
+def _product(a, b, mm_dtype):
+    """A product of the stage: `_mm` in f32 (mm_dtype None), or on
+    bf16-rounded operands (mm_dtype torch.bfloat16)."""
+    if mm_dtype is None:
+        return _mm(a, b)
+    if mm_dtype != torch.bfloat16:
+        raise ValueError(f"mm_dtype must be None or torch.bfloat16, got {mm_dtype}")
+    return matmul_bf16_plain(a, b)
+
+
+def _conv3(x, d: int, w, b, mm_dtype=None):
     """shift(-d) @ w[0] + x @ w[1] + shift(+d) @ w[2] + b (models.temporal
     DilatedConv3's tap order)."""
-    return _mm(shift_time(x, -d), w[0]) + _mm(x, w[1]) + _mm(shift_time(x, d), w[2]) + b
+    return (_product(shift_time(x, -d), w[0], mm_dtype) + _product(x, w[1], mm_dtype)
+            + _product(shift_time(x, d), w[2], mm_dtype) + b)
 
 
 def mstcnpp_stack_plain(
@@ -70,32 +86,33 @@ def mstcnpp_stack_plain(
     lengths,  # [B] int
     w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out,
     pooling_layers: Sequence[int],
+    mm_dtype=None,
 ):
     """Plain PyTorch stage. Returns (z [B x T/2^p x C], lengths >> p)."""
     L = w3a.shape[0]
     f = mask_time(x, lengths)
     ln = lengths
     for i in range(L):
-        y1 = _conv3(f, 2 ** (L - 1 - i), w3a[i], b3a[i])
-        y2 = _conv3(f, 2 ** i, w3b[i], b3b[i])
-        y = _mm(y1, w1t[i]) + _mm(y2, w1b[i]) + b1[i]
+        y1 = _conv3(f, 2 ** (L - 1 - i), w3a[i], b3a[i], mm_dtype)
+        y2 = _conv3(f, 2 ** i, w3b[i], b3b[i], mm_dtype)
+        y = _product(y1, w1t[i], mm_dtype) + _product(y2, w1b[i], mm_dtype) + b1[i]
         f = mask_time(torch.relu(y) + f, ln)
         if i in pooling_layers:
             f = pool2_time(f, "max")
             ln = ln // 2
             f = mask_time(f, ln)
-    return mask_time(_mm(f, w_out) + b_out, ln), ln
+    return mask_time(_product(f, w_out, mm_dtype) + b_out, ln), ln
 
 
 def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out,
-                  pooling_layers: Sequence[int]):
+                  pooling_layers: Sequence[int], mm_dtype=None):
     """`mstcnpp_stack_plain` on a CPU tensor; the CUDA kernel on a CUDA
     tensor (raises for C != 128, an odd length at a pooling layer or
     packed weights that do not match x)."""
     args = (x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out)
     pools = tuple(int(p) for p in pooling_layers)
     if x.device.type == "cpu":
-        return mstcnpp_stack_plain(*args, pooling_layers=pools)
+        return mstcnpp_stack_plain(*args, pooling_layers=pools, mm_dtype=mm_dtype)
     from mucon_tpu_torch import cuda
 
-    return cuda.mstcnpp_stack(*args, pooling_layers=pools)
+    return cuda.mstcnpp_stack(*args, pooling_layers=pools, mm_dtype=mm_dtype)

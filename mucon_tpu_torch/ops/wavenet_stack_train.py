@@ -20,6 +20,10 @@ The dropout masks are inputs (one [B x t_i x C] tensor per layer, from
 `layers.dropout_mask`, or None for no dropout); nothing random happens in
 the kernels.  The TPU version's batch slicing and VMEM layer groups exist
 for the TPU's memory and compiler only and are not ported.
+
+`mm_dtype=torch.bfloat16` is the bf16-operand mode (`ops/bf16.py`): the twin
+rounds every product's operands, its gradient products' too, and the
+Function launches the kernels' bf16 mode.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ class WaveNetStackTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks, statics):
+        """`statics`: stages, pooling_layers, pooling_type, leaky and mm_dtype."""
         from mucon_tpu_torch import cuda
 
         x = mask_time(x, lengths).contiguous()
@@ -81,12 +86,13 @@ def wavenet_stack_train(
     pooling_layers: Sequence[int],
     pooling_type: str = "max",
     leaky: bool = False,
+    mm_dtype=None,
 ):
     """Differentiable stack: (z [B x T/2^p x C], lengths >> p).  The plain
     twin on a CPU tensor; the CUDA kernels on a CUDA tensor."""
     statics = dict(stages=tuple(int(d) for d in stages),
                    pooling_layers=tuple(int(p) for p in pooling_layers),
-                   pooling_type=pooling_type, leaky=bool(leaky))
+                   pooling_type=pooling_type, leaky=bool(leaky), mm_dtype=mm_dtype)
     if x.device.type == "cpu":
         return wavenet_stack_train_plain(
             x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks=drop_masks,

@@ -80,13 +80,13 @@ def main() -> int:
         work = torch.empty(B * cuda.wavenet_train_plan(B, t)["spans"] * 4 * (C + 1) * C, **f32)
         args = [xs[i].data_ptr(), out.data_ptr(), u.data_ptr(), h.data_ptr(), lens.data_ptr(),
                 w3[i].data_ptr(), b3[i].data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
-                masks[i].data_ptr(), B, t, C, d, shifts[i], int(p), 0, 0, stream]
+                masks[i].data_ptr(), B, t, C, d, shifts[i], int(p), 0, 0, 0, stream]
         fwd.append(timed(lambda: lib.mucon_wavenet_train_fwd(*args)))
         sargs = [g.data_ptr(), us[i].data_ptr() if p else 0, xs[i].data_ptr(), hs[i].data_ptr(),
                  masks[i].data_ptr(), lens.data_ptr(), w1t[i].data_ptr(), w3t[i].data_ptr(),
                  dy.data_ptr(), dz.data_ptr(), g_in.data_ptr(), work.data_ptr(),
                  dw1.data_ptr(), db.data_ptr(), dw3.data_ptr(), db.data_ptr(), B, t, C, d,
-                 shifts[i], int(p), 0, 0, 0, stream]
+                 shifts[i], int(p), 0, 0, 0, 0, stream]
         sweep.append(timed(lambda: lib.mucon_wavenet_train_sweep(*sargs)))
         plan = cuda.wavenet_train_plan(B, t)
         tiles.append((plan["fwd_tile_rows"], plan["tile_rows"]))

@@ -7,7 +7,9 @@ it does not run raise, and TPU-only options are logged once.  The options
 it runs are accepted and change what it computes: the host Viterbi backend
 and multi-length decoding (the evaluator's per-batch path), the device
 batch cache, device prefetch, the feature wires, gradient accumulation,
-every clip mode and free-decode training.
+every clip mode and free-decode training; the compute dtype, the two
+matmul-operand knobs and any mix of the kernel flags resolve as the JAX
+package resolves them.
 """
 
 import logging
@@ -134,21 +136,75 @@ def test_compose_dump_reload_without_yaml(tmp_path, monkeypatch):
         get_cfg_defaults().merge_from_file(str(tmp_path / "block.yaml"))
 
 
-@pytest.mark.parametrize("key,value", [
-    ("tpu.compute_dtype", "bfloat16"), ("tpu.mesh.multihost", True),
-    ("tpu.kernel_mm_dtype", "bfloat16"), ("tpu.in_proj_mm_dtype", "bfloat16"),
-    ("tpu.use_pallas_decoder", False),  # one kernel off, the others on
-])
-def test_unported_keys_raise(key, value):
-    cfg = get_cfg_defaults()
-    support.check_supported(cfg)
+def _set_key(cfg, key, value):
     *parents, leaf = key.split(".")
     node_ = cfg
     for p in parents:
         node_ = node_[p]
     node_[leaf] = value
+
+
+@pytest.mark.parametrize("key,value", [
+    ("tpu.mesh.multihost", True),  # multi-device runs are not ported
+    ("model.name", "mucon_v2"),  # nor another model
+])
+def test_unported_keys_raise(key, value):
+    cfg = get_cfg_defaults()
+    support.check_supported(cfg)
+    _set_key(cfg, key, value)
     with pytest.raises(NotImplementedError):
         support.check_supported(cfg)
+
+
+def _jax_resolution(key, cfg):
+    """What the JAX package reads `key` as: the model's compute dtype, the
+    two operand knobs (None for f32), or the decoder chain's flag."""
+    import jax.numpy as jnp
+
+    from mucon_tpu.models import create_model as create_jax_model
+    from mucon_tpu.models.routing import resolve_pallas_flag
+
+    if key == "tpu.use_pallas_decoder":
+        return resolve_pallas_flag(cfg.tpu.use_pallas_decoder)
+    jm = create_jax_model(cfg, num_classes=6, max_decoding_steps=9, input_feature_size=12)
+    got = {"tpu.compute_dtype": jm.net.dtype, "tpu.kernel_mm_dtype": jm._kernel_mm_dtype(),
+           "tpu.in_proj_mm_dtype": jm._in_proj_mm_dtype()}[key]
+    return None if got is None else str(jnp.dtype(got))
+
+
+def _port_resolution(key, cfg):
+    from mucon_tpu_torch.models.model import create_model, model_fields_from_cfg
+    from mucon_tpu_torch.models.routing import routes_from_cfg
+
+    if key == "tpu.use_pallas_decoder":
+        return routes_from_cfg(cfg).decoder
+    m = create_model(6, 9, 12, device="cpu", **model_fields_from_cfg(cfg))
+    got = {"tpu.compute_dtype": m.net.dtype, "tpu.kernel_mm_dtype": m._kernel_mm_dtype(),
+           "tpu.in_proj_mm_dtype": m._in_proj_mm_dtype()}[key]
+    return None if got is None else str(got).split(".")[-1]
+
+
+# each key passes `check_supported` and resolves as the JAX package resolves
+# it (a kernel flag off alone leaves the other kernels on)
+@pytest.mark.parametrize("key,value", [
+    ("tpu.compute_dtype", "bfloat16"),
+    ("tpu.kernel_mm_dtype", "bfloat16"), ("tpu.in_proj_mm_dtype", "bfloat16"),
+    ("tpu.use_pallas_decoder", False),  # one kernel off, the others on
+])
+def test_ported_keys_accepted(key, value):
+    cfg, jcfg = get_cfg_defaults(), jax_defaults()
+    for c in (cfg, jcfg):
+        c.model.ft.stages = [1, 2]
+        c.model.ft.hidden_size = c.model.fs.encoder.hidden_size = 16
+        c.model.fs.decoder.hidden_size = 16
+        c.model.ft.last_gn_num_groups = 4
+    before = _port_resolution(key, cfg)
+    for c in (cfg, jcfg):
+        _set_key(c, key, value)
+    support.check_supported(cfg)
+    after = _port_resolution(key, cfg)
+    assert after != before, (key, before, after)
+    assert after == _jax_resolution(key, jcfg), key
 
 
 class _Videos(list):
@@ -274,14 +330,34 @@ def test_tpu_only_keys_are_logged_once(caplog):
 
 
 def test_kernel_flags_and_device():
+    """One route a kernel, each flag read as the JAX package reads it
+    (model.py:134-169, mucon.py:207-213, evaluator.py:536): the eval stacks
+    and the Viterbi DP follow `use_pallas`, the train stack needs it and
+    `use_pallas_train`; any mix is accepted."""
+    from mucon_tpu_torch.models.routing import KernelRoutes, routes_from_cfg
+
     cfg = get_cfg_defaults()
-    assert support.use_kernels_from_cfg(cfg) is True
+    assert routes_from_cfg(cfg) == KernelRoutes.every(True)  # "auto" everywhere
+    off = {
+        "tpu.use_pallas": dict(stack=False, stack_train=False, viterbi=False),
+        "tpu.use_pallas_train": dict(stack_train=False),
+        "tpu.use_pallas_lstm": dict(lstm=False),
+        "tpu.use_pallas_lstm_train": dict(lstm_train=False),
+        "tpu.use_pallas_decoder": dict(decoder=False),
+    }
+    assert set(off) == set(support.KERNEL_FLAGS)
+    for key, want in off.items():
+        cfg = get_cfg_defaults()
+        _set_key(cfg, key, False)
+        support.check_supported(cfg)
+        assert routes_from_cfg(cfg) == KernelRoutes(**want), key
+    cfg = get_cfg_defaults()
     for k in support.KERNEL_FLAGS:
         cfg.tpu[k.split(".")[1]] = False
-    assert support.use_kernels_from_cfg(cfg) is False
-    cfg.tpu.use_pallas = True
-    with pytest.raises(NotImplementedError):
-        support.use_kernels_from_cfg(cfg)
+    assert routes_from_cfg(cfg) == KernelRoutes.every(False)
+    cfg.tpu.use_pallas = "sometimes"
+    with pytest.raises(ValueError):
+        support.check_supported(cfg)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             support.device_from_cfg(get_cfg_defaults())

@@ -91,7 +91,7 @@ def test_port_imports_no_jax_or_flax():
         "          'cli.train_test_mucon', 'cli.test_mucon', 'cli.train_test_mucon_full',\n"
         "          'cli.train_test_mucon_mixed', 'decode.length_model',\n"
         "          'decode.viterbi_host', 'harness.cache', 'harness.report',\n"
-        "          'cli.inspect_run'):\n"
+        "          'cli.inspect_run', 'models.routing', 'ops.bf16'):\n"
         "    assert 'mucon_tpu_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

@@ -9,7 +9,8 @@ recurrence and its reverse chain on clusters of 1, 2 and 8 CTAs, the
 decoder chain's replay pass and cluster chain, the trainable stack at each
 of its row tiles and at B = 1 and 8, the v2 stack in 1, 3 and 11 chunks
 with tied pool pairs and at B = 1 and 8 on T = 2560, a v2 chunk too large
-for one launch), and the bit-for-bit statements: two calls agree, v2 on
+for one launch, the stack kernels' bf16-operand mode at ragged shapes), and
+the bit-for-bit statements: two calls agree, v2 on
 v3's grid equals v3 and its sweep's recomputed u the u its forward pooled,
 the eval stack's layer is the trainable forward's, the DP's pointer walk
 is `traceback_positions`, the flint kernel's clusters sum in a fixed
@@ -842,3 +843,143 @@ def test_wavenet_train_v2_refuses_a_chunk_too_large(dev):
     zp, gp = run(wavenet_stack_train_plain, pooling_type="max")
     _close([zk], [zp], 1e-4)
     _grads_close(gk, gp)
+
+
+# The stack kernels' bf16-operand mode (`mm_dtype=torch.bfloat16`) at the
+# ragged shapes above, held as chip_smoke.py holds it at full width.  Every
+# layer of the trainable forward, recomputed by the twin from the kernel's
+# own stash, holds 1e-5 of max|twin| element by element.  Through two
+# layers each element lies within 1e-5 but where the two f32 sums, in
+# another order, round an activation to the two sides of a bf16 boundary:
+# that operand then differs by a bf16 ulp (a counted set, at most 10% of
+# the elements, rel L2 <= 5e-4).  Through more layers the flips compound
+# to the bf16 noise level (six MS-TCN++ layers at T = 160: rel L2 5.8e-4;
+# five and eleven WaveNet layers: 73-80% of the elements), and a whole
+# stack is held by the JAX package's contract for the mode
+# (tests/test_pallas_train.py:386-397): rel < 0.02, cosine > 0.9995;
+# gradients cosine > 0.995, norms within 5%.
+BF = torch.bfloat16
+
+
+def _held_bf16(got, want):
+    diff = (got - want).abs()
+    scale = max(want.abs().max().item(), 1e-6)
+    assert (diff > 1e-5 * scale).float().mean().item() <= 0.1
+    assert torch.linalg.vector_norm(got - want) <= 5e-4 * torch.linalg.vector_norm(want) + 1e-12
+
+
+def _held_contract(got, want, grad: bool = False):
+    for a, b in zip(got, want):
+        a, b = a.double().flatten(), b.double().flatten()
+        nb = torch.linalg.vector_norm(b).item()
+        if nb == 0.0:
+            assert not a.any()
+            continue
+        cos = (a @ b).item() / (torch.linalg.vector_norm(a).item() * nb)
+        if grad:
+            assert cos > 0.995 and abs(torch.linalg.vector_norm(a).item() / nb - 1) < 0.05
+        else:
+            assert cos > 0.9995 and (a - b).abs().max() < 0.02 * b.abs().max()
+
+
+@pytest.mark.parametrize("kind,T,lengths", [
+    ("wavenet", 200, (200, 0, 131)), ("wavenet", 80, (80, 57, 1)),
+    ("mstcnpp", 84, (84, 3)), ("mstcnpp", 160, (129, 63, 1)),
+])
+def test_bf16_eval_stacks_edges(dev, kind, T, lengths):
+    lens = torch.tensor(lengths, device=dev)
+    if kind == "wavenet":  # two layers: d = 256 reaches past T = 200
+        stages, pools = ((1, 256), (0,)) if T == 200 else ((1, 2), (0, 1))
+        block = WaveNetBlock(16, stages, 128, pools, "max", False)
+        _init(block, 12)
+        args = [w.detach().to(dev) for w in pack_wavenet_params(block)]
+        kw = dict(stages=stages, pooling_layers=pools, pooling_type="max", leaky=False)
+        stack, plain, name = wavenet_stack, wavenet_stack_plain, "wavenet_layer_bf16"
+        launches = len(stages) + 1
+    else:  # two layers: the stage rounds four times a layer, and the flips compound
+        stage = MSTCNPPFirstStage(16, 2, 128, 128, (0, 1))
+        _init(stage, 13)
+        args = [w.detach().to(dev) for w in pack_mstcnpp_params(stage)]
+        kw = dict(pooling_layers=(0, 1))
+        stack, plain, name = mstcnpp_stack, mstcnpp_stack_plain, "mstcnpp_stack_bf16"
+        launches = 3
+    g = torch.Generator().manual_seed(4)
+    x = mask_time(torch.relu(torch.randn(len(lengths), T, 128, generator=g)).to(dev), lens)
+    before = dict(cuda.launch_counts)
+    with torch.no_grad():
+        zk, tk = stack(x, lens, *args, mm_dtype=BF, **kw)
+        zp, tp = plain(x, lens, *args, mm_dtype=BF, **kw)
+        assert torch.equal(zk, stack(x, lens, *args, mm_dtype=BF, **kw)[0])
+    assert cuda.launch_counts[name] == before[name] + 2 * launches
+    assert cuda.launch_counts[name[:-5]] == before[name[:-5]]  # no 3xTF32 launch
+    assert torch.equal(tk, tp)
+    _held_bf16(zk, zp)
+    for b, n in enumerate(tk.tolist()):
+        assert not zk[b, n:].any()
+
+
+@pytest.mark.parametrize("pooling_type,leaky,T,lengths,drop,plan", [
+    ("max", False, 80, (80, 57, 0), 0.25, SHORT),
+    ("sum", True, 51, (51,), 0.0, SHORT),
+    ("max", False, 2560, (2100,), 0.25, DEFAULT),
+    ("max", True, 200, (200, 64, 0, 113), 0.25, ((1, 2, 4), (0, 2))),  # the last layer pools
+], ids=["T80", "T51_sum_leaky", "B1_T2560", "T200_last_pool"])
+def test_bf16_train_kernels_ragged(dev, pooling_type, leaky, T, lengths, drop, plan):
+    from mucon_tpu_torch.models.temporal import nonlinearity, pool2_time, shift_time
+    from mucon_tpu_torch.ops.bf16 import matmul_bf16_plain as mm
+
+    stages, pools = plan
+    block = WaveNetBlock(16, stages, 128, pools, pooling_type, leaky)
+    g = _init(block, 5)
+    B = len(lengths)
+    lengths = torch.tensor(lengths, device=dev)
+    t_ins, _, _, t_fin = stack_plan(stages, pools, T)
+    mgen = torch.Generator(device=dev).manual_seed(1)
+    masks = [dropout_mask(mgen, drop, (B, t, 128), dev) for t in t_ins] if drop else None
+    x = mask_time(torch.relu(torch.randn(B, T, 128, generator=g)).to(dev), lengths)
+    gz = torch.randn(B, t_fin, 128, generator=g).to(dev)
+    weights = [w.detach().to(dev) for w in pack_wavenet_params(block)]
+    kw = dict(stages=stages, pooling_layers=pools, pooling_type=pooling_type, leaky=leaky)
+
+    # each layer from its own stashed operands, element by element
+    w3, b3, w1, b1, _, _ = weights
+    with torch.no_grad():
+        _, (xs, hs, us, x_fin) = cuda.wavenet_train_forward(x, lengths, *weights, masks,
+                                                            mm_dtype=BF, **kw)
+    outs, ln = [*xs[1:], x_fin], lengths
+    for i, d in enumerate(stages):
+        valid = (torch.arange(xs[i].shape[1], device=dev)[None, :] < ln[:, None])[..., None]
+        z = (mm(shift_time(xs[i], -d), w3[i, 0]) + mm(xs[i], w3[i, 1])
+             + mm(shift_time(xs[i], d), w3[i, 2]) + b3[i])
+        h = torch.where(valid, hs[i], 0.0)
+        _close([h], [torch.where(valid, nonlinearity(z, leaky), 0.0)], 1e-5)
+        u = (mm(h, w1[i]) + b1[i]) * (masks[i] if masks else 1.0) + xs[i]
+        u = torch.where(valid, u, 0.0)
+        if i in pools:
+            _close([torch.where(valid, us[i], 0.0)], [u], 1e-5)
+            ln = ln // 2
+            u = mask_time(pool2_time(torch.where(valid, us[i], 0.0), pooling_type), ln)
+        _close([outs[i]], [u], 1e-5)
+
+    def run(fn):
+        xs_ = [t.clone().requires_grad_() for t in (x, *weights)]
+        z, tz = fn(xs_[0], lengths, *xs_[1:], drop_masks=masks, mm_dtype=BF, **kw)
+        z.backward(gz)
+        return z.detach(), tz, [t.grad for t in xs_]
+
+    before = dict(cuda.launch_counts)
+    zk, tk, gk = run(wavenet_stack_train)
+    assert cuda.launch_counts["wavenet_train_fwd_bf16"] == \
+        before["wavenet_train_fwd_bf16"] + len(stages)
+    # the out-projection's sweep stays f32 when the last layer pools (as the
+    # JAX package takes that gradient outside its kernel)
+    last_pool = len(stages) - 1 in pools
+    assert cuda.launch_counts["wavenet_train_sweep_bf16"] == \
+        before["wavenet_train_sweep_bf16"] + len(stages) + (not last_pool)
+    assert cuda.launch_counts["wavenet_train_sweep"] == before["wavenet_train_sweep"] + last_pool
+    _, _, gk_again = run(wavenet_stack_train)
+    assert all(torch.equal(a, b) for a, b in zip(gk, gk_again))
+    zp, tp, gp = run(wavenet_stack_train_plain)
+    assert torch.equal(tk, tp)
+    _held_contract([zk], [zp])
+    _held_contract(gk, gp, grad=True)

@@ -31,6 +31,7 @@ from mucon_tpu.harness.optim import create_scheduler as create_jax_scheduler
 from mucon_tpu.models import create_model as create_jax_model
 from mucon_tpu.models.model import batch_to_arrays
 from mucon_tpu_torch.config import ConfigNode
+from mucon_tpu_torch.config.support import check_supported
 from mucon_tpu_torch.convert import state_dict_to_params
 from mucon_tpu_torch.harness.evaluator import MuConEvaluator
 from mucon_tpu_torch.harness.trainer import SimpleTrainer
@@ -207,10 +208,11 @@ def _set(cfg, path, value):
 
 # options that change the reference's run and that the port cannot follow
 # yet: each raises from the config node instead of running another model
-# (gradient accumulation and free-decode training run: see
-# tests/test_torch_config.py::test_ported_eval_keys_accepted)
+# (gradient accumulation, free-decode training and the bf16 compute path
+# run: see tests/test_torch_config.py::test_ported_eval_keys_accepted and
+# test_ported_config_options_accepted below)
 @pytest.mark.parametrize("path,value,reader", [
-    ("tpu.compute_dtype", "bfloat16", model_fields_from_cfg),
+    ("model.name", "mucon_v2", check_supported),
 ])
 def test_unported_config_options_raise(path, value, reader):
     cfg = _cfg(0.0)
@@ -218,6 +220,22 @@ def test_unported_config_options_raise(path, value, reader):
     _set(cfg, path, value)
     with pytest.raises(NotImplementedError):
         reader(cfg)
+
+
+# the model's fields carry the compute dtype as the JAX package's build_model
+# reads it (mucon.py:565); the parameters stay f32
+@pytest.mark.parametrize("path,value,reader", [
+    ("tpu.compute_dtype", "bfloat16", model_fields_from_cfg),
+])
+def test_ported_config_options_accepted(path, value, reader):
+    cfg = _cfg(0.0)
+    assert reader(cfg)["compute_dtype"] == "float32"
+    _set(cfg, path, value)
+    fields = reader(cfg)
+    assert fields["compute_dtype"] == value
+    net = create_model(M, NMAX + 1, D, device="cpu", **fields).net
+    assert net.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in net.parameters())
 
 
 def test_plateau_trainer_config_raises(tmp_path):
