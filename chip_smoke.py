@@ -109,10 +109,20 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    modes through a train step, an eval and an MS-TCN++ request (the
    report's launches); each `tpu.use_pallas*` flag off alone; and a
    unidirectional encoder (no BiLSTM kernel);
-10. prints the kernel report JSON (each kernel's launches, error, time, the
+10. runs every kernel at the other widths the JAX kernels take
+   (`widths_phase`): rows 1, 5, 6, 12, 13 and 14 at C = 48 (zero-padded to
+   the 128 instance), 256 and 512 in 3xTF32 and in the bf16-operand mode
+   (v2's new), rows 2, 7-10 at H = 100, 127, 256 and 512 (even, ragged and
+   L2-weight splits), each against its twin under the C = 128 / H = 128
+   bounds and timed; the MS-TCN++ model at C = 256 through `predict_videos`;
+   and `train_test_mucon` at the wide (C = H = 256) and ragged (C = 48,
+   H = 100) configurations with their launches, `test_mucon` within 1e-6
+   and a kernel step against a plain step;
+11. prints the kernel report JSON (each kernel's launches, error, time, the
    plain twin's time, the least time the card could take for the same work
    and, where one PyTorch call computes the same function, that call's
-   time), then `{"ok": true, "device": {...}}` as the last line.
+   time, and its `widths`: the same for each width the `widths` phase
+   ran), then `{"ok": true, "device": {...}}` as the last line.
 
 Weights are random from a seeded torch.Generator and features from a seeded
 numpy generator.  Any failure raises and exits non-zero; without a visible
@@ -172,6 +182,11 @@ REPLACES = {
                                  "mucon_tpu/ops/wavenet_train_pallas_v3.py:449"),
     "mstcnpp_stack_bf16": ("mucon_tpu_torch/csrc/mstcnpp.cu",
                            "mucon_tpu/ops/mstcnpp_pallas.py:151"),
+    # and of rows 13, 14 (the v2 stack's `mm_dtype=bfloat16`)
+    "wavenet_train_v2_fwd_bf16": ("mucon_tpu_torch/csrc/wavenet_train_v2.cu",
+                                  "mucon_tpu/ops/wavenet_train_pallas_v2.py:430"),
+    "wavenet_train_v2_sweep_bf16": ("mucon_tpu_torch/csrc/wavenet_train_v2.cu",
+                                    "mucon_tpu/ops/wavenet_train_pallas_v2.py:557"),
 }
 SERVING_KERNELS = ("wavenet_layer", "bilstm_recurrence", "dense_viterbi")
 MSTCNPP_SERVING_KERNELS = ("mstcnpp_stack", "bilstm_recurrence", "dense_viterbi")
@@ -771,10 +786,11 @@ def viterbi_span(model, arrays, card: str) -> str:
     return f"kernel {ms:.4f} ms, plain DP + walk {plain_ms:.3f} ms [{card}]"
 
 
-def serve(tag, model, dev, rng, card: str, required, absent=()):
+def serve(tag, model, dev, rng, card: str, required, absent=(), timed: bool = True):
     """Requests A and B through `predict_videos` and the fused eval, with
     the kernels and plain: the kernels in `required` must launch on the
-    kernel path, those in `absent` must not.  Returns the launch counts."""
+    kernel path, those in `absent` must not; `timed`: time both paths.
+    Returns the launch counts."""
     from mucon_tpu_torch import cuda
     from mucon_tpu_torch.cli.predict import collate_videos, predict_videos
     from mucon_tpu_torch.models.model import batch_to_tensors
@@ -832,6 +848,9 @@ def serve(tag, model, dev, rng, card: str, required, absent=()):
         say(f"{tag} request {k}: B={B} T_pad={arrays['feats'].shape[1]} kernel == plain "
             f"({len(mism)} near-tie mismatches); {no_eos}/{B} videos decoded all "
             f"{N_MAX + 1} steps without EOS")
+        if not timed:
+            del arrays
+            continue
         if k == "A":  # the backbone's spans on the kernel path
             import torch
 
@@ -1669,13 +1688,14 @@ def smoke_cfg(root: str, kernels: bool = True, sets=()):
     return cfg
 
 
-def make_trainers(dev, ft_type: str, root: str, model_cls=None, sets=()) -> dict:
+def make_trainers(dev, ft_type: str, root: str, model_cls=None, sets=(), fields=None) -> dict:
     """Three trainers of the default model with the backbone `ft_type`
-    (`model_cls`: `MuConModel` or a supervised variant), from one seed,
-    their run folders under `root`: "k" and "k2" with the kernels and the
-    loss kernel (tpu.use_pallas_loss), "p" plain (every tpu.use_pallas*
-    False); `sets` are more config overrides, and each trainer's model
-    takes its teacher forcing from them (`on_start_epoch`)."""
+    (`model_cls`: `MuConModel` or a supervised variant; `fields`, more
+    `build_model` fields such as the widths), from one seed, their run
+    folders under `root`: "k" and "k2" with the kernels and the loss kernel
+    (tpu.use_pallas_loss), "p" plain (every tpu.use_pallas* False); `sets`
+    are more config overrides, and each trainer's model takes its teacher
+    forcing from them (`on_start_epoch`)."""
     from mucon_tpu_torch.harness.trainer import SimpleTrainer
     from mucon_tpu_torch.models.losses import loss_config_from_cfg
     from mucon_tpu_torch.models.model import MuConModel, create_model
@@ -1687,7 +1707,8 @@ def make_trainers(dev, ft_type: str, root: str, model_cls=None, sets=()) -> dict
                         sets=[("tpu.batch_size", str(TRAIN_B)), ("model.ft.type", ft_type),
                               *sets])
         model = create_model(M, N_MAX + 1, D, device=dev, seed=0, ft_type=ft_type,
-                             loss_cfg=loss_config_from_cfg(cfg), model_cls=model_cls)
+                             loss_cfg=loss_config_from_cfg(cfg), model_cls=model_cls,
+                             **(fields or {}))
         out[k] = SimpleTrainer(cfg, f"train_{ft_type}_{model_cls.__name__}_{k}", None, model,
                                seed=1)
         out[k].on_start_epoch(0)
@@ -3290,6 +3311,568 @@ def precision_phase(dev, card: str, tmp: str, cli: dict) -> dict:
     say(f"precision phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
     return results, {k: modes[k] for k in results}
 
+# -- phase 10: the kernels at other widths ------------------------------------
+
+# The widths the `widths` phase holds every kernel to its twin at: the stack
+# kernels' channels (48 runs zero-padded to the 128 instance; 256 and 512
+# have their own tiles) and the recurrences' hidden sizes (100 and 127 split
+# unevenly over a cluster; 256 and 512 read some weights from L2 where
+# registers and shared memory do not hold them).
+WIDTH_CS, WIDTH_HS = (48, 256, 512), (100, 127, 256, 512)
+# the default model's stack: 11 layers, pools after layers 1, 2, 4, 8 (max)
+WIDTH_STAGES, WIDTH_POOLS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024), (1, 2, 4, 8)
+# the two models the phase trains through train_test_mucon: config overrides
+# and the same widths as `build_model` fields
+WIDTH_CFGS = {
+    "wide": ([("model.ft.hidden_size", "256"), ("model.fs.encoder.hidden_size", "256"),
+              ("model.fs.decoder.hidden_size", "256")],
+             dict(hidden_size=256, lstm_hidden_size=256)),
+    "ragged": ([("model.ft.hidden_size", "48"), ("model.ft.last_gn_num_groups", "16"),
+                ("model.fs.encoder.hidden_size", "100"), ("model.fs.decoder.hidden_size", "100")],
+               dict(hidden_size=48, last_gn_num_groups=16, lstm_hidden_size=100)),
+}
+
+
+def seeded(gen, dev, *shapes, scale: float = 1.0):
+    """Seeded f32 tensors of `shapes` ((shape, fan_in) pairs) at scale /
+    sqrt(fan_in), on dev: a model's weights at its init scale."""
+    import torch
+
+    return [(scale * torch.randn(*shape, generator=gen) / fan ** 0.5).to(dev)
+            for shape, fan in shapes]
+
+
+def wavenet_weights(C: int, gen, dev) -> list:
+    """Packed WaveNet stack weights (w3, b3, w1, b1, w_last, b_last) at C."""
+    L = len(WIDTH_STAGES)
+    return seeded(gen, dev, ((L, 3, C, C), 3 * C), ((L, C), 100), ((L, C, C), 2 * C),
+                  ((L, C), 100), ((C, C), C), ((C,), 100))
+
+
+def mstcnpp_weights(C: int, gen, dev) -> list:
+    """Packed MS-TCN++ stage weights (w3a, b3a, w3b, b3b, w1t, w1b, b1,
+    w_out, b_out) at C."""
+    L = len(WIDTH_STAGES)
+    return seeded(gen, dev, ((L, 3, C, C), 3 * C), ((L, C), 100), ((L, 3, C, C), 3 * C),
+                  ((L, C), 100), ((L, C, C), 4 * C), ((L, C, C), 4 * C), ((L, C), 100),
+                  ((C, C), C), ((C,), 100))
+
+
+def width_line(key: str, width: str, line: dict, lines: dict) -> None:
+    """A kernel's line at one width; its launches (0 until the phase's main
+    path, `width_runs`, adds its own at this width) unless given."""
+    lines.setdefault(key, []).append(dict({"width": width, "launches": 0}, **line))
+
+
+def width_eval_stacks(gen, dev, card: str, lines: dict) -> None:
+    """Rows 1 and 12 (the WaveNet eval stack, the MS-TCN++ stage) at each of
+    WIDTH_CS, in 3xTF32 and in the bf16-operand mode, at the serving batch
+    (B = 128, T_pad = 2560): against the plain twin at C = 128's bounds
+    (FWD_BOUND; the bf16 mode by the JAX package's contract for 11 layers)."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.models.layers import mask_time
+    from mucon_tpu_torch.ops.mstcnpp_stack import mstcnpp_stack, mstcnpp_stack_plain
+    from mucon_tpu_torch.ops.wavenet_stack import wavenet_stack, wavenet_stack_plain
+
+    B, T, L = 128, 2560, len(WIDTH_STAGES)
+    lengths = torch.randint(1500, 2101, (B,), generator=gen).to(dev)
+    rows, rows_fin = stack_rows(WIDTH_STAGES, WIDTH_POOLS, lengths)
+    for C in WIDTH_CS:
+        x = mask_time(torch.relu(torch.randn(B, T, C, generator=gen) * 0.6).to(dev), lengths)
+        wn, wm = wavenet_weights(C, gen, dev), mstcnpp_weights(C, gen, dev)
+        kw_w = dict(stages=WIDTH_STAGES, pooling_layers=WIDTH_POOLS, pooling_type="max",
+                    leaky=False)
+        kw_m = dict(pooling_layers=WIDTH_POOLS)
+        stacks = (("wavenet_layer", wavenet_stack, wavenet_stack_plain, wn, kw_w,
+                   stack_ops(C, WIDTH_STAGES, WIDTH_POOLS, lengths)[0]),
+                  ("mstcnpp_stack", mstcnpp_stack, mstcnpp_stack_plain, wm, kw_m,
+                   16 * C * C * sum(rows) + 2 * C * C * rows_fin))
+        for name, stack, plain, weights, kw, ops in stacks:
+            for mm in (None, torch.bfloat16):
+                key = name if mm is None else f"{name}_bf16"
+                args = (x, lengths, *weights)
+                zk, tk = stack(*args, **kw, mm_dtype=mm)
+                zp, tp = plain(*args, **kw, mm_dtype=mm)
+                expect(torch.equal(tk, tp) and zk.shape == zp.shape,
+                       f"{key} C={C}: lengths or shape differ from the twin's")
+                err = (zk - zp).abs().max().item()
+                if mm is None:
+                    bound = FWD_BOUND * zp.abs().max().item()
+                    expect(err <= bound, f"{key} C={C}: max abs err {err} > {bound}")
+                    detail = f"max abs err {err:.3e} <= {bound:.3e} ({FWD_BOUND:g} * max|plain|)"
+                else:
+                    detail = held_contract(f"{key} C={C}", zk, zp, "its bf16 twin")
+                ms, plain_ms = paired_ms(lambda: stack(*args, **kw, mm_dtype=mm),
+                                         lambda: plain(*args, **kw, mm_dtype=mm), reps=2)
+                say(f"widths: kernel {key} B={B} T={T} C={C} (run at "
+                    f"{cuda.stack_width(C)}) L={L}: {detail}; {ms:.3f} ms vs plain "
+                    f"{plain_ms:.3f} ms [{card}]")
+                moved = 4 * C * (rows[0] + rows_fin) + nbytes(lengths, *weights)
+                width_line(key, f"C={C}", report(err, ms, plain_ms, moved, ops,
+                                                 tf32x3=mm is None, bf16=mm is not None), lines)
+                del zk, zp
+        del x
+
+
+# The trainable stack's gradients through 11 layers at C = 256 and 512: on the
+# H100 the f32 twin lay up to 1.2e-3 (relative L2; max abs up to 10%
+# of max|dx|) from a float64 twin in dx and the weight gradients, and the
+# 3xTF32 kernels as far on other data, where at C <= 128 both stay within
+# 2e-6: the two f32 paths take the two sides of max-pool near-ties (the whole
+# gradient of a pair sent to the other frame) and of ReLU kinks, more of
+# them at a wider C.  Against the twin that compares the kernel's own
+# pre-pool values in its max pools (`wavenet_stack_plain(pool_inputs=...)`)
+# the kernel's dx still lay 9.3e-2 (max abs, 1.1x the C = 128 bound) and
+# 5.8e-4 (relative L2) away.  So the sweep's gradients are held, at every
+# width, against the float64 twin on the kernel's pool decisions: the
+# kernel's relative L2 error within GRAD_BOUND, or within F64_FACTOR times
+# the error of the f32 twin on the same decisions (f32 PyTorch's own
+# accuracy on this data); the max abs errors of both are printed.
+F64_FACTOR = 2.0
+
+
+def rel_l2(got, ref) -> float:
+    import torch
+
+    return (torch.linalg.vector_norm((got - ref).double()) /
+            torch.linalg.vector_norm(ref.double()).clamp_min(1e-30)).item()
+
+
+def width_train_stacks(gen, dev, card: str, lines: dict) -> dict:
+    """Rows 5, 6 (v3) and 13, 14 (v2) at 128 and each of WIDTH_CS, in 3xTF32
+    and in the bf16-operand mode, at the train batch (B = 8, T 1500-2100
+    padded to 2560, dropout DROP): z against the plain twin (FWD_BOUND), the
+    seven gradients against the float64 twin on the kernel's pool decisions
+    (the note above) -- the bf16 mode: z and the gradients by the JAX
+    package's contract --, v2 equal to v3 bit for bit,
+    each kernel timed beside the twin.  v2's path is one differentiable call,
+    its counts reset just before.  Returns the report lines of the v2 bf16
+    mode at C = 128 and its launches (rows "13 bf16" and "14 bf16")."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.models.layers import dropout_mask, mask_time
+    from mucon_tpu_torch.ops.wavenet_stack_train import (
+        stack_plan, wavenet_stack_train, wavenet_stack_train_plain,
+    )
+    from mucon_tpu_torch.ops.wavenet_stack_train_v2 import (
+        chunk_bounds, wavenet_stack_train_v2,
+    )
+
+    B, T, L = TRAIN_B, 2560, len(WIDTH_STAGES)
+    lengths = torch.randint(1500, 2101, (B,), generator=gen).to(dev)
+    t_ins, _, _, t_fin = stack_plan(WIDTH_STAGES, WIDTH_POOLS, T)
+    rows, rows_fin = stack_rows(WIDTH_STAGES, WIDTH_POOLS, lengths)
+    pooled = sum(r for i, r in enumerate(rows) if i in WIDTH_POOLS)
+    names = ("dx", "dw3", "db3", "dw1", "db1", "dw_last", "db_last")
+    kw = dict(stages=WIDTH_STAGES, pooling_layers=WIDTH_POOLS, leaky=False)
+    v3_kw = dict(kw, pooling_type="max")
+    v2_kw = dict(kw, bounds=chunk_bounds(L, 3))
+    mgen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for C in (128, *WIDTH_CS):
+        x = torch.relu(torch.randn(B, T, C, generator=gen) * 0.6).to(dev)
+        xm = mask_time(x, lengths)
+        weights = wavenet_weights(C, gen, dev)
+        w3, b3, w1, b1, wl, bl = weights
+        masks = [dropout_mask(mgen, DROP, (B, t, C), dev) for t in t_ins]
+        g = torch.randn(B, t_fin, C, generator=gen).to(dev)
+        fwd_ops, bwd_ops = stack_ops(C, WIDTH_STAGES, WIDTH_POOLS, lengths)
+        recompute_ops = 2 * C * C * pooled
+        for mm in (None, torch.bfloat16):
+            bf = mm is not None
+            sfx = "_bf16" if bf else ""
+
+            def fwd_bwd(fn, dtype=torch.float32, **extra):
+                xs = [t.to(dtype).clone().requires_grad_() for t in (x, *weights)]
+                z, _ = fn(xs[0], lengths, *xs[1:], drop_masks=[m.to(dtype) for m in masks],
+                          **kw, **extra)
+                z.backward(g.to(dtype))
+                return [z.detach(), *(t.grad for t in xs)]
+
+            cuda.reset_launch_counts()
+            got2 = fwd_bwd(wavenet_stack_train_v2, mm_dtype=mm)
+            torch.cuda.synchronize()
+            v2_launches = {k: cuda.launch_counts[k + sfx] for k in
+                           ("wavenet_train_v2_fwd", "wavenet_train_v2_sweep")}
+            expect(tuple(v2_launches.values()) == (3, 3),
+                   f"v2{sfx} C={C}: launches {v2_launches}, expected 3 and 3")
+            got3 = fwd_bwd(wavenet_stack_train, pooling_type="max", mm_dtype=mm)
+            # the v2 twin rounds the out-projection's gradient products in the
+            # bf16 mode; v3's does where the last layer does not pool (here)
+            ref = fwd_bwd(wavenet_stack_train_plain, pooling_type="max", mm_dtype=mm,
+                          round_proj_grads=True if bf else None)
+            differ = [n for n, a, b in zip(("z", *names), got2, got3) if not torch.equal(a, b)]
+            expect(not differ, f"v2{sfx} C={C}: {differ} differ from v3's")
+            tag = f"B={B} T={T} C={C} (run at {cuda.stack_width(C)}) L={L}"
+            if bf:
+                parts = [f"z {held_contract(f'v3/v2{sfx} z C={C}', got3[0], ref[0], 'twin')}"]
+                parts += [f"{n} {held_contract(f'v3/v2{sfx} {n} C={C}', a, b, 'twin', grad=True)}"
+                          for n, a, b in zip(names, got3[1:], ref[1:])]
+                say(f"widths: kernels wavenet_train_fwd{sfx} / sweep{sfx} and v2 {tag}: "
+                    + "; ".join(parts))
+                fwd_err = (got3[0] - ref[0]).abs().max().item()
+                bwd_err = max((a - b).abs().max().item() for a, b in zip(got3[1:], ref[1:]))
+            else:
+                fwd_err = held(f"wavenet_train_fwd/v2 {tag}", [("z", got3[0], ref[0])],
+                               grads=False)
+                _, stash = cuda.wavenet_train_forward(xm, lengths, *weights, masks, **v3_kw)
+                shifts = stack_plan(WIDTH_STAGES, WIDTH_POOLS, T)[2]
+                pool_in = {i: mask_time(u[..., :C], lengths >> shifts[i])
+                           for i, u in stash[2].items()}
+                del stash
+                shared = fwd_bwd(wavenet_stack_train_plain, pooling_type="max",
+                                 pool_inputs=pool_in)
+                shared64 = fwd_bwd(wavenet_stack_train_plain, torch.float64, pooling_type="max",
+                                   pool_inputs={i: u.double() for i, u in pool_in.items()})
+                parts = []
+                for n, a, b, r64 in zip(names, got3[1:], shared[1:], shared64[1:]):
+                    k64, p64 = rel_l2(a, r64), rel_l2(b, r64)
+                    expect(k64 <= max(GRAD_BOUND, F64_FACTOR * p64),
+                           f"wavenet_train_sweep {tag} {n}: rel L2 {k64} from the float64 twin "
+                           f"(the f32 twin's {p64})")
+                    parts.append(f"{n} {k64:.2e} (f32 twin {p64:.2e}; max abs "
+                                 f"{(a - r64).abs().max().item():.2e} / "
+                                 f"{(b - r64).abs().max().item():.2e} of "
+                                 f"{r64.abs().max().item():.2e})")
+                say(f"widths: kernel wavenet_train_sweep {tag}: rel L2 from the float64 twin on "
+                    f"the kernel's pool decisions within max({GRAD_BOUND:g}, {F64_FACTOR:g} x the "
+                    f"f32 twin's): " + "; ".join(parts))
+                bwd_err = max((a - r64).abs().max().item()
+                              for a, r64 in zip(got3[1:], shared64[1:]))
+                del shared, shared64, pool_in
+            say(f"widths: v2{sfx} {tag}: z and the seven gradients equal v3's bit for bit")
+            _, stash3 = cuda.wavenet_train_forward(xm, lengths, *weights, masks, **v3_kw,
+                                                   mm_dtype=mm)
+            _, stash2 = cuda.wavenet_train_v2_forward(xm, lengths, *weights, masks, **v2_kw,
+                                                      mm_dtype=mm)
+            xs = [t.clone().requires_grad_() for t in (x, *weights)]
+            z_graph, _ = wavenet_stack_train_plain(xs[0], lengths, *xs[1:], drop_masks=masks,
+                                                   **v3_kw, mm_dtype=mm)
+            plain_fwd = lambda: wavenet_stack_train_plain(  # noqa: E731
+                x, lengths, *weights, drop_masks=masks, **v3_kw, mm_dtype=mm)
+            plain_bwd = lambda: torch.autograd.grad(z_graph, xs, g, retain_graph=True)  # noqa: E731
+            with torch.no_grad():
+                f3 = paired_ms(lambda: cuda.wavenet_train_forward(
+                    xm, lengths, *weights, masks, **v3_kw, mm_dtype=mm), plain_fwd, reps=2)
+                f2 = paired_ms(lambda: cuda.wavenet_train_v2_forward(
+                    xm, lengths, *weights, masks, **v2_kw, mm_dtype=mm), plain_fwd, reps=2)
+            s3 = paired_ms(lambda: cuda.wavenet_train_backward(
+                g, stash3, lengths, w3, w1, wl, masks, **v3_kw, mm_dtype=mm), plain_bwd, reps=2)
+            s2 = paired_ms(lambda: cuda.wavenet_train_v2_backward(
+                g, stash2, lengths, w3, w1, b1, wl, masks, **v2_kw, mm_dtype=mm), plain_bwd,
+                reps=2)
+            say(f"widths: {tag}{' bf16' if bf else ''}: wavenet_train_fwd {f3[0]:.3f} ms, "
+                f"v2 {f2[0]:.3f} ms vs plain {f3[1]:.3f} ms; wavenet_train_sweep "
+                f"{s3[0]:.3f} ms, v2 {s2[0]:.3f} ms vs plain autograd {s3[1]:.3f} ms [{card}]")
+            del xs, z_graph, stash3, stash2
+            fwd_moved = 4 * C * (3 * sum(rows) + 2 * rows_fin + pooled) + nbytes(*weights)
+            bwd_moved = 4 * C * (2 * rows_fin + 3 * sum(rows) + pooled + rows[0]) \
+                + 2 * nbytes(*weights)
+            fwd2_moved = 4 * C * (3 * sum(rows) + 2 * rows_fin) + nbytes(*weights)
+            bwd2_moved = 4 * C * (2 * rows_fin + 3 * sum(rows) + rows[0]) + 2 * nbytes(*weights)
+            rep = dict(tf32x3=not bf, bf16=bf)
+            found = {
+                f"wavenet_train_fwd{sfx}": report(fwd_err, *f3, fwd_moved, fwd_ops, **rep),
+                f"wavenet_train_sweep{sfx}": report(bwd_err, *s3, bwd_moved, bwd_ops, **rep),
+                f"wavenet_train_v2_fwd{sfx}": report(fwd_err, *f2, fwd2_moved, fwd_ops, **rep),
+                f"wavenet_train_v2_sweep{sfx}": report(bwd_err, *s2, bwd2_moved,
+                                                       bwd_ops + recompute_ops, **rep),
+            }
+            if C == 128:
+                if bf:  # rows "13 bf16" and "14 bf16": the default width is their own line
+                    for k in ("wavenet_train_v2_fwd", "wavenet_train_v2_sweep"):
+                        out[k + sfx] = (found[k + sfx], v2_launches[k])
+                continue
+            for k, line in found.items():
+                width_line(k, f"C={C}", dict(line, launches=v2_launches.get(
+                    k.removesuffix("_bf16"), 0)) if "v2" in k else line, lines)
+        del x, xm, masks, g, weights
+    return out
+
+
+def width_recurrences(gen, dev, card: str, lines: dict) -> None:
+    """Rows 2, 7, 8 (the BiLSTM) and 9, 10 (the decoder chain) at each of
+    WIDTH_HS: the eval recurrence at the serving batch (B = 128, Tz = 160)
+    within 1e-5, as at H = 128; the train recurrence, its reverse chain and
+    the decoder chain at the train batch (B = 8, Tz = 160, S = 31, E = 2H)
+    against their twins under autograd (`held`), each kernel twice bit for
+    bit, the replayed cells equal to the stashes bit for bit."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.ops.decoder_chain import DecoderChain, decoder_chain_plain
+    from mucon_tpu_torch.ops.lstm_recurrence import (
+        BiLSTMRecurrenceTrain, bilstm_recurrence, bilstm_recurrence_plain,
+    )
+
+    T, S = 160, N_MAX + 1
+    for H in WIDTH_HS:
+        # w_hh at nn.LSTM's init scale, uniform in +-1/sqrt(H)
+        w_hh = ((2 * torch.rand(2, H, 4 * H, generator=gen) - 1) / H ** 0.5).to(dev)
+        fwd_plan, chain_plan = cuda.bilstm_fwd_plan(H), cuda.bilstm_chain_plan(H)
+        plans = (f"forward CL {fwd_plan[0]}, {fwd_plan[2]} threads, KC {fwd_plan[4]} "
+                 f"({'registers' if fwd_plan[4] <= 64 else 'L2'}); chain CL {chain_plan[0]}, "
+                 f"HS {chain_plan[1]}, GPQ {chain_plan[3]}")
+        # eval: the serving batch
+        B = 128
+        xp = torch.randn(T, 2, B, 4 * H, generator=gen).to(dev)
+        tz = torch.randint(1500 // 16, 2100 // 16 + 1, (B,), generator=gen)
+        m = (torch.arange(T)[:, None] < tz[None, :]).to(torch.float32).to(dev)
+        with torch.no_grad():
+            outk = bilstm_recurrence(xp, m, w_hh)
+            outp = bilstm_recurrence_plain(xp, m, w_hh)
+            err = max((a - b).abs().max().item() for a, b in zip(outk, outp))
+            expect(err <= 1e-5, f"bilstm_recurrence H={H}: max abs err {err} > 1e-5")
+            expect(all(torch.equal(a, b) for a, b in zip(outk, bilstm_recurrence(xp, m, w_hh))),
+                   f"bilstm_recurrence H={H}: two calls differ")
+            ms = paired_ms(lambda: bilstm_recurrence(xp, m, w_hh),
+                           lambda: bilstm_recurrence_plain(xp, m, w_hh), reps=2)
+        nv = int(m.sum())
+        say(f"widths: kernel bilstm_recurrence Tz={T} B={B} H={H}: max abs err {err:.3e} <= "
+            f"1e-5, two calls bit for bit; {ms[0]:.3f} ms vs plain {ms[1]:.3f} ms; {plans} "
+            f"[{card}]")
+        width_line("bilstm_recurrence", f"H={H}", report(
+            err, *ms, 4 * 2 * nv * 4 * H + nbytes(m, w_hh, *outk), 2 * 2 * nv * H * 4 * H), lines)
+        del xp, outk, outp
+        # train: the train batch
+        B = TRAIN_B
+        xp = torch.randn(T, 2, B, 4 * H, generator=gen).to(dev)
+        tz = torch.randint(1500 // 16, 2100 // 16 + 1, (B,), generator=gen)
+        m = (torch.arange(T)[:, None] < tz[None, :]).to(torch.float32).to(dev)
+        cts = [torch.randn(*s_, generator=gen).to(dev) for s_ in ((T, 2, B, H), (2, B, H),
+                                                                 (2, B, H))]
+        with torch.no_grad():
+            outk = cuda.bilstm_train_forward(xp, m, w_hh)
+            outp = bilstm_recurrence_plain(xp, m, w_hh, stash=True)
+            expect(all(torch.equal(a, b) for a, b in
+                       zip(outk, cuda.bilstm_train_forward(xp, m, w_hh))),
+                   f"bilstm_train_fwd H={H}: two calls differ")
+            _, cell = cuda.bilstm_bwd_coefs(xp, m, w_hh, outk[0], outk[3], cell=True)
+            valid = m[:, None, :, None].expand_as(cell) > 0
+            expect(torch.equal(cell[valid], outk[3][valid]),
+                   f"bilstm_train_bwd H={H}: the coefficient pass's cell differs from the stash")
+            outs, _, _, cs = outk
+            twice = [cuda.bilstm_train_backward(xp, m, w_hh, outs, cs, *cts) for _ in range(2)]
+            expect(torch.equal(*twice), f"bilstm_train_bwd H={H}: two calls differ")
+        fwd_err = held(f"bilstm_train_fwd H={H}", list(zip(("outs", "h", "c", "cs"), outk, outp)),
+                       grads=False)
+
+        def fwd_bwd(fn):
+            a, w = xp.clone().requires_grad_(), w_hh.clone().requires_grad_()
+            torch.autograd.backward(fn(a, m, w)[:3], cts)
+            return a.grad, w.grad
+
+        bwd_err = held(f"bilstm_train_bwd H={H}", list(zip(
+            ("dxp", "dw_hh"), fwd_bwd(BiLSTMRecurrenceTrain.apply),
+            fwd_bwd(bilstm_recurrence_plain))), grads=True)
+        h_prev = torch.cat([torch.zeros_like(outs[:1]), outs[:-1]])
+        a, w = xp.clone().requires_grad_(), w_hh.clone().requires_grad_()
+        graph = bilstm_recurrence_plain(a, m, w)
+        with torch.no_grad():
+            fms = paired_ms(lambda: cuda.bilstm_train_forward(xp, m, w_hh),
+                            lambda: bilstm_recurrence_plain(xp, m, w_hh, stash=True), reps=2)
+        bms = paired_ms(lambda: torch.einsum("tdbh,tdbg->dhg", h_prev, cuda.bilstm_train_backward(
+            xp, m, w_hh, outs, cs, *cts)),
+            lambda: torch.autograd.grad(graph, (a, w), cts, retain_graph=True), reps=2)
+        say(f"widths: kernels bilstm_train_fwd / bilstm_train_bwd Tz={T} B={B} H={H}: "
+            f"{fms[0]:.3f} ms vs plain {fms[1]:.3f} ms; {bms[0]:.3f} ms vs plain autograd "
+            f"{bms[1]:.3f} ms; the replayed cell equals the stash bit for bit [{card}]")
+        nv = int(m.sum())
+        step_ops = 2 * nv * 2 * H * 4 * H
+        width_line("bilstm_train_fwd", f"H={H}", report(
+            fwd_err, *fms, 4 * 2 * nv * 4 * H + nbytes(m, w_hh, *outk), step_ops), lines)
+        width_line("bilstm_train_bwd", f"H={H}", report(
+            bwd_err, *bms, 4 * 2 * nv * 7 * H + nbytes(m, w_hh, *cts[1:], xp, w_hh),
+            3 * step_ops), lines)
+        del a, w, graph, xp, outk, outp
+        # the decoder chain: E = 2H (the bidirectional encoder's states)
+        E = 2 * H
+        maskf = (torch.arange(T)[None, :] < tz[:, None]).float()
+        r = lambda *shape: 0.4 * torch.randn(*shape, generator=gen)  # noqa: E731
+        wt = lambda k, *shape: torch.randn(*shape, generator=gen) / k ** 0.5  # noqa: E731
+        args = [t.to(dev) for t in (
+            torch.relu(r(S, B, H)), r(B, T, E) * maskf[:, :, None], r(B, T, H), maskf,
+            r(B, H), r(B, H), wt(H, H, H), r(H), r(H), wt(H + E, H, H), wt(H + E, E, H), r(H),
+            wt(2 * H, H, 4 * H), wt(2 * H, H, 4 * H), r(4 * H))]
+        dcts = [torch.randn(S, B, H, generator=gen).to(dev) for _ in range(3)]
+        with torch.no_grad():
+            outk = cuda.decoder_chain_forward(*args)
+            expect(all(torch.equal(a_, b_) for a_, b_ in
+                       zip(outk, cuda.decoder_chain_forward(*args))),
+                   f"decoder_chain_fwd H={H}: two calls differ")
+            outp = decoder_chain_plain(*args)
+            h_in = torch.cat([args[4][None], outk[0][:-1]])
+            c_in = torch.cat([args[5][None], outk[1][:-1]])
+            bargs = (*args[:4], h_in, c_in, *args[6:], *dcts)
+            *replay, cell = cuda.decoder_chain_replay(*bargs[:15], count=False, cell=True)
+            expect(torch.equal(torch.relu(replay[1]), outk[2]) and torch.equal(cell, outk[1]),
+                   f"decoder_chain_bwd H={H}: the replay's relu(cpre) or cell differs from the "
+                   f"stash")
+            expect(all(torch.equal(a_, b_) for a_, b_ in zip(
+                cuda.decoder_chain_backward(*bargs), cuda.decoder_chain_backward(*bargs))),
+                f"decoder_chain_bwd H={H}: two calls differ")
+        tag = f"B={B} S={S} Tz={T} H={H} E={E}"
+        dfwd_err = held(f"decoder_chain_fwd {tag}", list(zip(("hs", "cs", "comb"), outk, outp)),
+                        grads=False)
+
+        def grads(fn):
+            xs = [t.clone().requires_grad_(i != 3) for i, t in enumerate(args)]  # not maskf
+            torch.autograd.backward(fn(*xs), dcts)
+            return [t.grad for i, t in enumerate(xs) if i != 3]
+
+        gnames = ("emb", "enc", "pre", "h0", "c0", "wl2", "bl2", "v", "wc1", "wc2", "bc",
+                  "wih", "whh", "bl")
+        dbwd_err = held(f"DecoderChain {tag} (input gradients)", list(zip(
+            gnames, grads(DecoderChain.apply), grads(decoder_chain_plain))), grads=True)
+        xs = [t.clone().requires_grad_(i != 3) for i, t in enumerate(args)]
+        graph = decoder_chain_plain(*xs)
+        with torch.no_grad():
+            dfms = paired_ms(lambda: cuda.decoder_chain_forward(*args),
+                             lambda: decoder_chain_plain(*args), reps=2)
+            dbk = cuda_ms(lambda: cuda.decoder_chain_backward(*bargs), reps=4)
+        dbp = cuda_ms(lambda: torch.autograd.grad(
+            graph, [t for i, t in enumerate(xs) if i != 3], dcts, retain_graph=True), reps=2)
+        launch = cuda.decoder_chain_fwd_launch(B, H, E, T)
+        say(f"widths: kernels decoder_chain_fwd / decoder_chain_bwd {tag}: {dfms[0]:.3f} ms vs "
+            f"plain {dfms[1]:.3f} ms; reverse chain {dbk:.3f} ms vs plain autograd {dbp:.3f} ms "
+            f"(forward CL {launch['cl']}, weights "
+            f"{'in shared memory' if launch['weights'] else 'from L2'}; reverse CL "
+            f"{cuda.decoder_chain_plan(H)[0]}, HS {cuda.decoder_chain_plan(H)[1]}); two calls "
+            f"bit for bit, the replay's cell and relu(cpre) equal the stash [{card}]")
+        tzs = int(tz.sum())
+        d_ops = S * (B * (18 * H * H + 2 * (H + E) * H + 10 * H) + tzs * (3 * H + 2 * E))
+        d_bwd_ops = d_ops + S * (B * (18 * H * H + 2 * H * E + 20 * H)
+                                 + tzs * (2 * E + 4 * H + 3))
+        tables = 4 * tzs * (E + H) + nbytes(maskf)
+        width_line("decoder_chain_fwd", f"H={H}", report(
+            dfwd_err, *dfms, tables + nbytes(*args[6:]) + nbytes(args[0], *args[4:6], *outk),
+            d_ops), lines)
+        width_line("decoder_chain_bwd", f"H={H}", report(
+            dbwd_err, dbk, dbp, tables + nbytes(*args[6:]) + nbytes(args[0], h_in, c_in, *dcts),
+            d_bwd_ops), lines)
+        del xs, graph, args, outk, outp
+
+
+def width_runs(dev, card: str, cli: dict, lines: dict) -> None:
+    """`train_test_mucon` for each of WIDTH_CFGS on the cli phase's data,
+    with the launches of its rows 1-3 and 5-11 as its steps and eval
+    batches imply (the phase's main path: the launch counts of the width
+    lines), `test_mucon` within 1e-6, and one kernel train step against a
+    plain step from the same weights (`compare_steps`, the losses within
+    1e-4, every parameter within 1e-2 of the model's largest update)."""
+    import contextlib
+    import dataclasses
+
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.cli import test_mucon, train_test_mucon
+    from mucon_tpu_torch.data import handel_dataset
+
+    test_db = handel_dataset(smoke_cfg(cli["runs"], sets=cli["sets"]), train=False)
+    for tag, (sets, fields) in WIDTH_CFGS.items():
+        exp = f"chip_widths_{tag}"
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        with open(cli["log"], "a") as f, contextlib.redirect_stdout(f):
+            result = train_test_mucon.main(cli_argv(cli["sets"] + sets, exp))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(cuda.launch_counts)
+        got = finite_fields(exp, result)
+        run = os.path.join(cli["runs"], exp, "0")
+        events = [json.loads(line) for line in open(os.path.join(run, "events.jsonl"))]
+        kinds = [e["kind"] for e in events]
+        steps = json.load(open(os.path.join(run, "checkpoints", "epoch_1",
+                                            "trainer_state.json")))["iter_num"]
+        batches = (kinds.count("eval_0") + kinds.count("final_eval")) * -(-len(test_db) // TRAIN_B)
+        want = {k: 0 for k in cuda.KERNELS}
+        for k, n in PER_TRAIN_STEP.items():
+            want[k] += steps * n
+        for k, n in PER_EVAL_BATCH.items():
+            want[k] += batches * n
+        expect(launches == want, f"widths {tag}: launches {launches} != {want} implied by "
+                                 f"{steps} steps and {batches} eval batches")
+        with open(cli["log"], "a") as f, contextlib.redirect_stdout(f):
+            again = test_mucon.single_main(f"{exp}/0/1", root=cli["runs"])
+        diff = max(float(np.max(np.abs(np.subtract(v, got[k]))))
+                   for k, v in dataclasses.asdict(again).items())
+        expect(diff <= 1e-6, f"widths {tag}: test_mucon differs from the run by {diff}")
+        say(f"widths: train_test_mucon {tag} ({', '.join(f'{k}={v}' for k, v in sets)}): "
+            f"24 finite fields in {run_s:.1f} s, {steps} steps and {batches} eval batches "
+            f"launched each kernel as often as they imply; test_mucon within {diff:.1e} "
+            f"[{card}]; {result}")
+        C, H = fields["hidden_size"], fields["lstm_hidden_size"]
+        for key, entries in lines.items():
+            for entry in entries:
+                if entry["width"] in (f"C={C}", f"H={H}") and "v2" not in key:
+                    entry["launches"] = entry.get("launches", 0) + launches.get(key, 0)
+        # model scale: on this batch the ragged model's kernel step takes the
+        # other side of one ReLU kink of relu(cpre) (unit 59: column 59 of
+        # attn_combine and its bias move by 14% of that tensor's largest
+        # update, 4.5e-3 of the model's, on an H100), where batches
+        # of four other seeds keep every tensor within 1e-2 of its own
+        arrays = train_batch(np.random.default_rng(7), dev)
+        compare_steps(f"widths {tag}", make_trainers(dev, "wavenet", cli["runs"], sets=sets,
+                                                     fields=fields),
+                      arrays, 1, TRAIN_KERNELS, STACK_KERNELS[3:], card, model_scale=True)
+        del arrays
+
+
+def widths_phase(dev, card: str, tmp: str, cli: dict) -> dict:
+    """Every kernel at the widths the JAX kernels take beyond the default
+    model's: the stack kernels at WIDTH_CS channels in both modes, the
+    recurrences at WIDTH_HS, MS-TCN++ at C = 256 on the serving path, and
+    `train_test_mucon` at the wide and ragged configurations.  Returns
+    (the width lines of each kernel, the v2 bf16 mode's report lines and
+    launches at the default width)."""
+    import torch
+    from mucon_tpu_torch.models.model import create_model
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(11)
+    lines = {}
+    with torch.no_grad():
+        width_eval_stacks(gen, dev, card, lines)
+    v2_bf16 = width_train_stacks(gen, dev, card, lines)
+    width_recurrences(gen, dev, card, lines)
+    model_m = create_model(M, N_MAX + 1, D, ft_type="mstcnpp", device=dev, seed=0,
+                           hidden_size=256, lstm_hidden_size=256)
+    with torch.inference_mode():
+        served = serve("MS-TCN++ C=256 H=256", model_m, dev, np.random.default_rng(2), card,
+                       MSTCNPP_SERVING_KERNELS, absent=("wavenet_layer",), timed=False)
+    del model_m
+    for entry in lines["mstcnpp_stack"]:  # the serving path's launches at its width
+        if entry["width"] == "C=256":
+            entry["launches"] += served["mstcnpp_stack"]
+    width_runs(dev, card, cli, lines)
+    say(f"widths phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return lines, v2_bf16
+
+
+def probe_widths() -> None:
+    """The `cli` phase, then the `widths` phase alone (a shorter call on the
+    card: `python3 -c 'import chip_smoke; chip_smoke.probe_widths()'`)."""
+    import torch
+    from mucon_tpu_torch import cuda
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    say(smi)
+    t0 = time.perf_counter()
+    cuda.load()
+    say(f"built {cuda.build().name} in {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="mucon_chip_widths_")
+    try:
+        cli = cli_phase(dev, smi, tmp)
+        lines, v2_bf16 = widths_phase(dev, smi, tmp, cli)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(json.dumps({"widths": lines, "v2_bf16": v2_bf16}))
+
+
 def probe_precision() -> None:
     """The `cli` phase, then the `precision` phase alone (a shorter call on
     the card: `python3 -c 'import chip_smoke; chip_smoke.probe_precision()'`)."""
@@ -3399,6 +3982,9 @@ def main() -> int:
         prec_results, prec_launches = precision_phase(dev, smi, tmp, cli)
         results.update(prec_results)
         launches.update(prec_launches)
+        width_lines, v2_bf16 = widths_phase(dev, smi, tmp, cli)
+        for name, (line, n) in v2_bf16.items():
+            results[name], launches[name] = line, n
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3406,7 +3992,7 @@ def main() -> int:
     for name, line in results.items():
         source, replaces = REPLACES[name]
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=launches[name], **line))
+                            launches=launches[name], **line, widths=width_lines.get(name, [])))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

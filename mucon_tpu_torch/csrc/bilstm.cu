@@ -33,6 +33,13 @@
 // thread, so three CTAs share an SM and the 32 clusters of the serving
 // batch (B = 128) run in one wave (`mucon_bilstm_fwd_plan` reports the
 // clusters the card holds at once).
+// Every H from 1 to 512: where CL does not divide H into CTAs of at least
+// 16 units that fit the threads (an odd H above 64, H = 300), the split is
+// ragged: CL = 8 CTAs (fewer below H = 64), CTA r taking units
+// [r H / CL, (r + 1) H / CL), ceil(H / CL) or floor(H / CL) of them.  Where a
+// thread's KC rows are more than its 64 registers hold (H above 256, or a
+// ragged split of few k-groups), the kernel reads its w_hh column from L2
+// every step instead (`GW`): the same rows, the same FMA order.
 //
 // Training (replaces `_bilstm_train_fwd_kernel` / `_bilstm_train_call` and
 // `_bilstm_bwd_kernel` / `_bilstm_train_bwd_rule`, lstm_pallas.py:137, :249,
@@ -69,7 +76,10 @@
 //    one cluster barrier and one `__syncthreads` in a step.  The next step's
 //    coefficients are loaded before the barrier.  CL follows from H
 //    (`chain_plan`): 8 at H = 128 (HS = 16, 32 weights a thread), 1 where H
-//    is too small to split.
+//    is too small to split.  Where that even split leaves more than 32
+//    columns a CTA (an odd H above 32, H above 256), the split is ragged as
+//    the forward's, the CTA takes 512 threads (a thread per video and
+//    column up to 64 columns) and reads its w_hh rows from L2 every step.
 //
 // The w_hh gradient (a sum over T of h_prev^T dgate) is left to the caller,
 // as the JAX package leaves it to XLA.
@@ -91,33 +101,50 @@ __device__ __forceinline__ float cell(float f, float c, float i, float g) {
   return __fmaf_rn(f, c, __fmul_rn(i, g));
 }
 
-// How the forward splits a hidden size H: CL CTAs of HS units, NT threads
-// each; NK groups of KC k-rows (a multiple of 4, at most 64: the weights a
-// thread keeps in registers) for each of the 4 HS gate columns.  NT is the
-// least of 256, 512 that holds the columns, one thread per (video,
-// unit) for BT = 8 videos, and KC <= 64 (the kernel's launch bound is 512).
+constexpr int MAX_H = 512;  // the widest hidden size the kernels take
+
+// How the forward splits a hidden size H: CL CTAs of at most HS units, NT
+// threads each; NK groups of KC k-rows (a multiple of 4) for each of the
+// 4 HS gate columns.  NT is the least of 256, 512 that holds the columns,
+// one thread per (video, unit) for BT = 8 videos, and KC <= 64 (the weights
+// a thread keeps in registers; the kernel's launch bound is 512).  The even
+// split (cluster::width_for) first; where no NT holds it, the ragged split
+// (cluster::ragged_width), its weights in registers where KC <= 64, else read from
+// L2 (gw).
 struct FwdPlan {
   int cl, hs, nt, nk, kc;
+  bool gw;
 };
 
-bool fwd_plan(int H, FwdPlan& p) {
-  if (H <= 0) return false;
-  p.cl = cluster::width_for(H);
-  p.hs = H / p.cl;
+bool fwd_split(int H, int cl, int hs, bool any_kc, FwdPlan& p) {
+  p.cl = cl;
+  p.hs = hs;
   const int cols = 4 * p.hs;
   for (p.nt = 256; p.nt <= 512; p.nt *= 2) {
     if (cols > p.nt || 8 * p.hs > p.nt) continue;
     p.nk = p.nt / cols;
     p.kc = ((H + p.nk - 1) / p.nk + 3) & ~3;
-    if (p.kc <= 64) return true;
+    p.gw = p.kc > 64;
+    if (!p.gw || (any_kc && p.nt == 512)) return true;
   }
   return false;
 }
 
+bool fwd_plan(int H, FwdPlan& p) {
+  if (H <= 0 || H > MAX_H) return false;
+  const int cl = cluster::width_for(H);
+  if (fwd_split(H, cl, H / cl, false, p)) return true;
+  const int rl = cluster::ragged_width(H);
+  return fwd_split(H, rl, (H + rl - 1) / rl, true, p);
+}
+
 // One cluster per (direction, tile of BT videos); grid (CL, tiles, 2),
 // cluster (CL, 1, 1).  KC: the register array, >= the plan's kc; at KC = 32
-// (256 threads) three CTAs fit an SM, at most 80 registers a thread.
-template <int KC>
+// (256 threads) three CTAs fit an SM, at most 80 registers a thread.  GW:
+// no register array, each step reads the thread's kc rows from L2.  RAGGED:
+// the CTA's units from `cluster::units_of` (hs is the most a CTA takes);
+// else the even split's hs units a CTA.
+template <int KC, bool GW = false, bool RAGGED = false>
 __global__ void __launch_bounds__(KC <= 32 ? 256 : 512, KC <= 32 ? 3 : 1) bilstm_fwd_kernel(
     const float* __restrict__ xp,    // [T, 2, B, 4H]
     const float* __restrict__ m,     // [T, B]
@@ -128,12 +155,13 @@ __global__ void __launch_bounds__(KC <= 32 ? 256 : 512, KC <= 32 ? 3 : 1) bilstm
     float* __restrict__ cs_out,      // [T, 2, B, H] or null
     int T, int B, int H, int hs, int nk, int kc) {
   extern __shared__ float4 smf4[];
+  int j0 = cluster::cluster_rank() * hs;  // this CTA's units
+  if constexpr (RAGGED) cluster::units_of(cluster::cluster_rank(), gridDim.x, H, j0, hs);
   const int G = 4 * H, cols = 4 * hs, hp = nk * kc;  // hp: h row stride, 0 past H
   float* hb = reinterpret_cast<float*>(smf4);  // [2][BT][hp] h of the step, all units
   float* red = hb + 2 * BT * hp;               // [nk][BT][cols] partial sums
 
   const int cl = gridDim.x;
-  const int j0 = cluster::cluster_rank() * hs;
   const int b0 = blockIdx.y * BT;
   const int dir = blockIdx.z;
   const int tid = threadIdx.x;
@@ -144,10 +172,12 @@ __global__ void __launch_bounds__(KC <= 32 ? 256 : 512, KC <= 32 ? 3 : 1) bilstm
   const int gcol = (pc / hs) * H + j0 + pc % hs;
   const int k0 = kq * kc;
   const int kn = prod ? max(0, min(kc, H - k0)) : 0;
-  float w[KC];
+  float w[GW ? 1 : KC];
+  if constexpr (!GW) {
 #pragma unroll
-  for (int i = 0; i < KC; ++i)
-    w[i] = i < kn ? w_hh[((size_t)dir * H + k0 + i) * G + gcol] : 0.f;
+    for (int i = 0; i < KC; ++i)
+      w[i] = i < kn ? w_hh[((size_t)dir * H + k0 + i) * G + gcol] : 0.f;
+  }
 
   // element role: (h, c) of video b0 + eb, unit j0 + ej
   const int eb = tid / hs, ej = tid - eb * hs;
@@ -173,16 +203,33 @@ __global__ void __launch_bounds__(KC <= 32 ? 256 : 512, KC <= 32 ? 3 : 1) bilstm
 #pragma unroll
       for (int r = 0; r < BT; ++r) acc[r] = 0.f;
       const float* hr = hb + buf * BT * hp + k0;
+      if constexpr (GW) {
+        const float* wcol = w_hh + ((size_t)dir * H + k0) * G + gcol;  // row k0 + i at i G
+        for (int i = 0; i < kn; i += 4) {
+          float wv[4];
 #pragma unroll
-      for (int i = 0; i < KC; i += 4) {
-        if (i < kn) {
+          for (int q = 0; q < 4; ++q) wv[q] = i + q < kn ? __ldg(wcol + (size_t)(i + q) * G) : 0.f;
 #pragma unroll
           for (int r = 0; r < BT; ++r) {
             const float4 v = *reinterpret_cast<const float4*>(hr + r * hp + i);
-            acc[r] = fmaf(v.x, w[i], acc[r]);
-            if (i + 1 < kn) acc[r] = fmaf(v.y, w[i + 1], acc[r]);
-            if (i + 2 < kn) acc[r] = fmaf(v.z, w[i + 2], acc[r]);
-            if (i + 3 < kn) acc[r] = fmaf(v.w, w[i + 3], acc[r]);
+            acc[r] = fmaf(v.x, wv[0], acc[r]);
+            if (i + 1 < kn) acc[r] = fmaf(v.y, wv[1], acc[r]);
+            if (i + 2 < kn) acc[r] = fmaf(v.z, wv[2], acc[r]);
+            if (i + 3 < kn) acc[r] = fmaf(v.w, wv[3], acc[r]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < KC; i += 4) {
+          if (i < kn) {
+#pragma unroll
+            for (int r = 0; r < BT; ++r) {
+              const float4 v = *reinterpret_cast<const float4*>(hr + r * hp + i);
+              acc[r] = fmaf(v.x, w[i], acc[r]);
+              if (i + 1 < kn) acc[r] = fmaf(v.y, w[i + 1], acc[r]);
+              if (i + 2 < kn) acc[r] = fmaf(v.z, w[i + 2], acc[r]);
+              if (i + 3 < kn) acc[r] = fmaf(v.w, w[i + 3], acc[r]);
+            }
           }
         }
       }
@@ -222,7 +269,11 @@ using FwdKernel = void (*)(const float*, const float*, const float*, float*, flo
                            float*, int, int, int, int, int, int);
 
 // KC = 32 takes 256 threads only (its launch bound)
-FwdKernel fwd_kernel(const FwdPlan& p) {
+FwdKernel fwd_kernel(const FwdPlan& p, int H) {
+  if (p.gw) return bilstm_fwd_kernel<64, true, true>;
+  if (p.cl * p.hs != H)
+    return p.kc <= 32 && p.nt == 256 ? bilstm_fwd_kernel<32, false, true>
+                                     : bilstm_fwd_kernel<64, false, true>;
   return p.kc <= 32 && p.nt == 256 ? bilstm_fwd_kernel<32> : bilstm_fwd_kernel<64>;
 }
 
@@ -236,7 +287,7 @@ size_t fwd_smem(const FwdPlan& p) {
 cudaError_t fwd_launch_plan(int B, int H, FwdPlan& p, int& clusters, int& active) {
   if (B <= 0 || !fwd_plan(H, p)) return cudaErrorInvalidValue;
   clusters = 2 * ((B + BT - 1) / BT);
-  return cluster::max_active_clusters(fwd_kernel(p), dim3(p.cl, clusters / 2, 2), dim3(p.nt),
+  return cluster::max_active_clusters(fwd_kernel(p, H), dim3(p.cl, clusters / 2, 2), dim3(p.nt),
                                       p.cl, fwd_smem(p), &active);
 }
 
@@ -325,25 +376,40 @@ __global__ void bilstm_coefs_kernel(const float* __restrict__ xp,    // [T, 2, B
   }
 }
 
-// How the chain splits a hidden size H over a cluster: CL CTAs of HS = H / CL
-// columns; NQ = NTC / HS thread groups of GPQ gate rows each (a multiple of
-// 4, at most 128: the weights a thread keeps in registers).
+constexpr int NTW = 512;  // threads per CTA of the chain on a ragged split
+
+// How the chain splits a hidden size H over a cluster: CL CTAs of at most HS
+// columns; NQ = NT / HS thread groups of GPQ gate rows each (a multiple of
+// 4).  The even split (cluster::width_for) on NTC threads, GPQ <= 128 the
+// weights a thread keeps in registers; where it leaves more than 32 columns
+// a CTA, the ragged split (cluster::ragged_width) on NTW threads, its w_hh rows read
+// from L2 (gw).  One thread per (video, column) either way.
 struct ChainPlan {
-  int cl, hs, nq, gpq;
+  int cl, hs, nq, gpq, nt;
+  bool gw;
 };
 
 bool chain_plan(int H, ChainPlan& p) {
+  if (H <= 0 || H > MAX_H) return false;
   p.cl = cluster::width_for(H);
   p.hs = H / p.cl;
-  if (H <= 0 || BT * p.hs > NTC) return false;  // one thread per (video, column)
-  p.nq = NTC / p.hs;
+  p.nt = NTC;
+  p.gw = BT * p.hs > NTC;
+  if (p.gw) {
+    p.cl = cluster::ragged_width(H);
+    p.hs = (H + p.cl - 1) / p.cl;
+    p.nt = NTW;
+  }
+  p.nq = p.nt / p.hs;
   p.gpq = ((4 * H + p.nq - 1) / p.nq + 3) & ~3;
-  return p.gpq <= 128;
+  return p.gw || p.gpq <= 128;
 }
 
 // One cluster per (direction, batch tile); grid (CL, tiles, 2), cluster (CL, 1, 1).
-template <int WPT>  // weights per thread: >= gpq
-__global__ void __launch_bounds__(NTC) bilstm_chain_kernel(
+// WPT: weights per thread, >= gpq (registers, NTC threads); GW: none, the
+// rows read from L2 each step (NTW threads).
+template <int WPT, bool GW = false>
+__global__ void __launch_bounds__(GW ? NTW : NTC) bilstm_chain_kernel(
     const float* __restrict__ coefs,   // [6, T, 2, B, H]
     const float* __restrict__ m,       // [T, B]
     const float* __restrict__ w_hh,    // [2, H, 4H]
@@ -352,25 +418,30 @@ __global__ void __launch_bounds__(NTC) bilstm_chain_kernel(
     const float* __restrict__ dc_fin,  // [2, B, H]
     float* __restrict__ dxp,           // [T, 2, B, 4H]
     int T, int B, int H, int hs, int nq, int gpq) {
+  constexpr int NT = GW ? NTW : NTC;
   extern __shared__ float4 sm4[];
   const int G = 4 * H;
   float* dg = reinterpret_cast<float*>(sm4);  // [2][BT][G] dgate of a step, all columns
   float* red = dg + 2 * BT * G;                // [nq][BT][hs] partial sums
 
   const int cl = gridDim.x;
-  const int j0 = cluster::cluster_rank() * hs;
+  int j0 = cluster::cluster_rank() * hs;  // this CTA's columns (GW: of a ragged split)
+  if constexpr (GW) cluster::units_of(cluster::cluster_rank(), cl, H, j0, hs);
   const int b0 = blockIdx.y * BT;
   const int dir = blockIdx.z;
   const int tid = threadIdx.x;
 
   // product role: gate rows [g0, g1) of column j0 + pj, weights in registers
+  // (GW: read from the row, contiguous in w_hh, every step)
   const bool prod = tid < nq * hs;
   const int pj = tid % hs, kq = tid / hs;
   const int g0 = kq * gpq, g1 = min(G, g0 + gpq);
-  float wreg[WPT];
+  float wreg[GW ? 1 : WPT];
+  if constexpr (!GW) {
 #pragma unroll
-  for (int i = 0; i < WPT; ++i)
-    wreg[i] = (prod && g0 + i < g1) ? w_hh[((size_t)dir * H + j0 + pj) * G + g0 + i] : 0.f;
+    for (int i = 0; i < WPT; ++i)
+      wreg[i] = (prod && g0 + i < g1) ? w_hh[((size_t)dir * H + j0 + pj) * G + g0 + i] : 0.f;
+  }
 
   // element role: (dh, dc) of video b0 + eb, column j0 + ej
   const int eb = tid / hs, ej = tid - eb * hs;
@@ -381,7 +452,7 @@ __global__ void __launch_bounds__(NTC) bilstm_chain_kernel(
     dh = dh_fin[((size_t)dir * B + bb) * H + j];
     dc = dc_fin[((size_t)dir * B + bb) * H + j];
   }
-  for (int i = tid; i < 2 * BT * G; i += NTC) dg[i] = 0.f;  // rows of absent videos stay 0
+  for (int i = tid; i < 2 * BT * G; i += NT) dg[i] = 0.f;  // rows of absent videos stay 0
   cluster::cluster_sync();  // before any peer writes here
 
   const size_t plane = (size_t)T * 2 * B * H;
@@ -421,16 +492,31 @@ __global__ void __launch_bounds__(NTC) bilstm_chain_kernel(
 #pragma unroll
       for (int r = 0; r < BT; ++r) acc[r] = 0.f;
       const float* dgb = dg + buf * BT * G + g0;
-#pragma unroll
-      for (int i = 0; i < WPT; i += 4) {
-        if (g0 + i < g1) {
+      if constexpr (GW) {
+        const float* wrow = w_hh + ((size_t)dir * H + j0 + pj) * G + g0;
+        for (int i = 0; g0 + i < g1; i += 4) {  // g1 - g0 is a multiple of 4
+          const float4 w = __ldg(reinterpret_cast<const float4*>(wrow + i));
 #pragma unroll
           for (int r = 0; r < BT; ++r) {
             const float4 d = *reinterpret_cast<const float4*>(dgb + r * G + i);
-            acc[r] = fmaf(d.x, wreg[i], acc[r]);
-            acc[r] = fmaf(d.y, wreg[i + 1], acc[r]);
-            acc[r] = fmaf(d.z, wreg[i + 2], acc[r]);
-            acc[r] = fmaf(d.w, wreg[i + 3], acc[r]);
+            acc[r] = fmaf(d.x, w.x, acc[r]);
+            acc[r] = fmaf(d.y, w.y, acc[r]);
+            acc[r] = fmaf(d.z, w.z, acc[r]);
+            acc[r] = fmaf(d.w, w.w, acc[r]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < WPT; i += 4) {
+          if (g0 + i < g1) {
+#pragma unroll
+            for (int r = 0; r < BT; ++r) {
+              const float4 d = *reinterpret_cast<const float4*>(dgb + r * G + i);
+              acc[r] = fmaf(d.x, wreg[i], acc[r]);
+              acc[r] = fmaf(d.y, wreg[i + 1], acc[r]);
+              acc[r] = fmaf(d.z, wreg[i + 2], acc[r]);
+              acc[r] = fmaf(d.w, wreg[i + 3], acc[r]);
+            }
           }
         }
       }
@@ -461,13 +547,14 @@ extern "C" int mucon_bilstm_recurrence(const float* xp, const float* m,
                                        cudaStream_t stream) {
   FwdPlan p;
   if (T < 0 || B <= 0 || !fwd_plan(H, p)) return cudaErrorInvalidValue;
-  return cluster::launch_cluster(fwd_kernel(p), dim3(p.cl, (B + BT - 1) / BT, 2), dim3(p.nt),
+  return cluster::launch_cluster(fwd_kernel(p, H), dim3(p.cl, (B + BT - 1) / BT, 2), dim3(p.nt),
                                  p.cl, fwd_smem(p), stream, xp, m, w_hh, outs, h_fin, c_fin,
                                  cs, T, B, H, p.hs, p.nk, p.kc);
 }
 
 // The forward's launch for (B, H): out = {CL, NT, NK, KC, clusters, clusters
-// the card holds at once}.  Returns a cudaError (H refused:
+// the card holds at once} (KC above 64: the weights are read from L2).
+// Returns a cudaError (H refused:
 // cudaErrorInvalidValue).
 extern "C" int mucon_bilstm_fwd_plan(int B, int H, int* out) {
   FwdPlan p;
@@ -515,11 +602,8 @@ extern "C" int mucon_bilstm_bwd_chain(const float* coefs, const float* m, const 
   if (T < 0 || B <= 0 || !chain_plan(H, p)) return cudaErrorInvalidValue;
   const size_t smem = (size_t)(2 * BT * 4 * H + p.nq * BT * p.hs) * sizeof(float);
   const dim3 grid(p.cl, (B + BT - 1) / BT, 2);
-  if (p.gpq <= 32)
-    return cluster::launch_cluster(bilstm_chain_kernel<32>, grid, dim3(NTC), p.cl, smem, stream,
-                                   coefs, m, w_hh, douts, dh_fin, dc_fin, dxp, T, B, H, p.hs,
-                                   p.nq, p.gpq);
-  return cluster::launch_cluster(bilstm_chain_kernel<128>, grid, dim3(NTC), p.cl, smem, stream,
-                                 coefs, m, w_hh, douts, dh_fin, dc_fin, dxp, T, B, H, p.hs,
-                                 p.nq, p.gpq);
+  auto kernel = p.gw ? bilstm_chain_kernel<4, true>
+                     : (p.gpq <= 32 ? bilstm_chain_kernel<32> : bilstm_chain_kernel<128>);
+  return cluster::launch_cluster(kernel, grid, dim3(p.nt), p.cl, smem, stream, coefs, m, w_hh,
+                                 douts, dh_fin, dc_fin, dxp, T, B, H, p.hs, p.nq, p.gpq);
 }

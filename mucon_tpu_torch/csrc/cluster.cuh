@@ -12,7 +12,12 @@
 //                             at once (a grid of more runs in waves)
 //   width_for(H)              the widest of 8, 4, 2 CTAs that leaves each at
 //                             least 16 of H units, else 1 (the recurrences'
-//                             split of a hidden size)
+//                             even split of a hidden size)
+//   ragged_width(H)           8 CTAs from H = 64, 4 from 32, 2 from 16, else
+//                             1 (a ragged split, where the even one does not
+//                             fit a kernel)
+//   units_of(rank, cl, H, ..) the units [j0, j0 + n) of CTA `rank` of a
+//                             ragged split: ceil or floor of H / cl
 //
 // Rules a caller keeps: a remote write is read only after a cluster_sync();
 // no CTA exits while a peer may still write to it (sync once after the last
@@ -64,6 +69,13 @@ inline int width_for(int H) {
   for (int c = 8; c > 1; c /= 2)
     if (H % c == 0 && H / c >= 16) return c;
   return 1;
+}
+
+inline int ragged_width(int H) { return H >= 64 ? 8 : (H >= 32 ? 4 : (H >= 16 ? 2 : 1)); }
+
+__host__ __device__ inline void units_of(int rank, int cl, int H, int& j0, int& n) {
+  j0 = rank * H / cl;
+  n = (rank + 1) * H / cl - j0;
 }
 
 // grid.x must be a multiple of `width`; returns the launch's error

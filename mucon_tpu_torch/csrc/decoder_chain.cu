@@ -78,6 +78,15 @@
 // The weight gradients are left to the caller, as the JAX package leaves
 // them to XLA.
 //
+// Widths: every H from 1 to 512.  The forward keeps its split (CL =
+// cluster::width_for(H); a CTA's threads stride over its units, so an odd H
+// runs on one CTA of up to 511 units, its passes of 32 columns); the replay
+// copies its next item's e in only after the passes that read this one's.
+// The reverse chain takes the split above where its registers hold it, else
+// a ragged one (`bwd_plan`, gw): CL = cluster::ragged_width(H) CTAs of uneven shares,
+// 512 threads (a thread a unit), the [Wih; Whh] rows and Wl2's columns read
+// from L2 every step, u's columns copied 4 bytes at a time.
+//
 // Bound on this card: 31 dependent steps a video, each a few short products
 // from shared memory, the tanh table of the rank's frames and four
 // exchanges (forward), or two cluster barriers (reverse).  Accurate expf /
@@ -163,17 +172,19 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
+constexpr int MAX_H = 512;   // the widest hidden size the chains take
+
 // How the forward splits H over a cluster: CL = cluster::width_for(H) CTAs
-// of HS units, NTF threads (8 warps) each.  H <= NTF: a thread a unit where
-// a CTA writes its units' state.  A pass of the combine layer takes 4 of its
-// columns a warp, a pass of the gates 8 a warp; an HS above 32 takes more
-// passes.
+// of HS units, NTF threads (8 warps) each; every H from 1 to MAX_H (a CTA's
+// threads stride over its units where it writes their state).  A pass of
+// the combine layer takes 4 of its columns a warp, a pass of the gates 8 a
+// warp; an HS above 32 takes more passes.
 struct FwdPlan {
   int cl, hs;
 };
 
 inline bool fwd_plan(int H, FwdPlan& p) {
-  if (H < 1 || H > NTF) return false;
+  if (H < 1 || H > MAX_H) return false;
   p.cl = cluster::width_for(H);
   p.hs = H / p.cl;
   return true;
@@ -342,6 +353,13 @@ __device__ void prefetch_item(const Chain& ch, const Rank& rk, const Next& nx, c
     cp_async4(sm.xe + j, nx.h + j);
   }
   if (tid < ch.hs) cp_async4(sm.xe + H + tid, nx.c + tid);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// The c_in units of a replay item past the first NTF (HS above a thread a
+// unit: an odd H on one CTA), as `prefetch_item` copies the first ones.
+__device__ void prefetch_rest(const Next& nx, int H, int hs, const FwdSmem& sm) {
+  for (int j = threadIdx.x + NTF; j < hs; j += NTF) cp_async4(sm.xe + H + j, nx.c + j);
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
@@ -575,8 +593,12 @@ __device__ __noinline__ void cluster_step(const Chain ch, const Rank rk, int b, 
       for (int i = tid; i < n; i += NTF) a_out[i] = (sm.sc[i] * w_own) / tot;
     }
   }
-  __syncthreads();  // x1[:H], pre, enc and maskf are read for the last time above
-  if (nx.b >= 0) prefetch_item(ch, rk, nx, sm);
+  __syncthreads();  // pre, enc and maskf are read for the last time above
+  // the replay's next item overwrites x1[:H] (e): now where the first cpre
+  // pass took every column (HS <= 32), else after the passes that read it
+  const bool late = hs > 4 * NW;
+  if (nx.b >= 0 && !late) prefetch_item(ch, rk, nx, sm);
+  if (nx.b >= 0 && hs > NTF) prefetch_rest(nx, H, hs, sm);
 
   // exchange 2: the ctx half of cpre; relu(cpre) to every rank.  A pass
   // after the first (HS above 32) takes both halves now, in the same order.
@@ -597,6 +619,10 @@ __device__ __noinline__ void cluster_step(const Chain ch, const Rank rk, int b, 
     float acc[4] = {};
     warp_gemv<4>(acc, sm.x1, wc, ldc, col0, hs, 0, H, lane);
     cpre_pass(acc, col0);
+  }
+  if (nx.b >= 0 && late) {
+    __syncthreads();  // every pass has read e
+    prefetch_item(ch, rk, nx, sm);
   }
   // gates = comb Wih + h Whh + bl: pass t, warp w the columns 64 t + 8 w .. + 7
   // (units 16 t + 2 w and 16 t + 2 w + 1, gates i, f, g, o each); the first
@@ -679,7 +705,7 @@ __global__ void __launch_bounds__(NTF, 1) chain_fwd_kernel(
   load_weights(ch, rk, sm);
   load_tables(ch, rk, b, sm);
   for (int j = tid; j < H; j += NTF) sm.hb[j] = h0[(size_t)b * H + j];
-  if (tid < ch.hs) sm.c[tid] = c0[(size_t)b * H + rk.j0 + tid];
+  for (int j = tid; j < ch.hs; j += NTF) sm.c[j] = c0[(size_t)b * H + rk.j0 + j];
   for (int j = tid; j < H; j += NTF) sm.x1[j] = emb[(size_t)b * H + j];
   init_exchanges(sm);
   cluster::cluster_sync();  // every CTA has started, and armed nothing yet, before any peer sends
@@ -692,10 +718,10 @@ __global__ void __launch_bounds__(NTF, 1) chain_fwd_kernel(
     }
     step(ch, rk, b, s & 1, s & 1, s + 1 < S, nullptr, nullptr,
          Next{-1, nullptr, nullptr, nullptr});
-    if (tid < ch.hs) {
-      const int j = rk.j0 + tid;
-      hs[o + j] = sm.act[5 * ch.hs + tid];
-      cs[o + j] = sm.c[tid];
+    for (int jj = tid; jj < ch.hs; jj += NTF) {
+      const int j = rk.j0 + jj;
+      hs[o + j] = sm.act[5 * ch.hs + jj];
+      cs[o + j] = sm.c[jj];
       comb[o + j] = sm.comb[j];
     }
     if (s + 1 < S) {  // x1 is read before the step's second exchange
@@ -730,7 +756,10 @@ __global__ void __launch_bounds__(NTF, 1) chain_replay_kernel(
     const size_t o = (size_t)item * H;
     return Next{item % B, emb + o, h_in + o, c_in + o + rk.j0};
   };
-  if ((int)blockIdx.y < items) prefetch_item(ch, rk, next(blockIdx.y), sm);
+  if ((int)blockIdx.y < items) {
+    prefetch_item(ch, rk, next(blockIdx.y), sm);
+    if (hs > NTF) prefetch_rest(next(blockIdx.y), H, hs, sm);
+  }
   cluster::cluster_sync();  // every CTA has started before any peer sends
   const size_t plane = (size_t)S * B * H;
   int ph = 0;
@@ -739,43 +768,63 @@ __global__ void __launch_bounds__(NTF, 1) chain_replay_kernel(
     asm volatile("cp.async.wait_group 0;" ::: "memory");
     for (int j = tid; j < H; j += NTF) sm.hb[j] = sm.xe[j];  // this thread's own copies
     if (tid < hs) sm.c[tid] = sm.xe[H + tid];
+    for (int jj = tid + NTF; jj < hs; jj += NTF) sm.c[jj] = sm.xe[H + jj];  // own copies too
     __syncthreads();
     send_q_partials(ch, rk, sm.hb + rk.j0);  // the item's q, from h_in as the forward's
     float* ar = a_out + (size_t)item * Tzp;
     const int nxt = item + step_items;
     step(ch, rk, item % B, 0, ph, false, ar + rk.t0, u_out + ((size_t)item * Tz + rk.t0) * H,
          nxt < items ? next(nxt) : Next{-1, nullptr, nullptr, nullptr});
-    if (tid < hs) {
-      const size_t j = o + rk.j0 + tid;
+    auto store = [&](int jj) {
+      const size_t j = o + rk.j0 + jj;
 #pragma unroll
-      for (int q = 0; q < 5; ++q) acts[q * plane + j] = sm.act[q * hs + tid];
-      cpre[j] = sm.cp[tid];
-      if (cell_out) cell_out[j] = sm.c[tid];
-    }
+      for (int q = 0; q < 5; ++q) acts[q * plane + j] = sm.act[q * hs + jj];
+      cpre[j] = sm.cp[jj];
+      if (cell_out) cell_out[j] = sm.c[jj];
+    };
+    if (tid < hs) store(tid);
+    for (int jj = tid + NTF; jj < hs; jj += NTF) store(jj);  // HS above a thread a unit
     if (rk.rank == ch.cl - 1)
       for (int t = Tz + tid; t < Tzp; t += NTF) ar[t] = 0.f;
   }
 }
 
-constexpr int NTB = 256;  // threads per CTA of the chain
+constexpr int NTB = 256;  // threads per CTA of the chain (the even split)
+constexpr int NTW = 512;  // threads per CTA of the chain (the ragged split)
 
-// How the chain splits H over a cluster: CL = cluster::width_for(H) CTAs
-// of HS units, HS a
-// multiple of 4 (16-byte copies of u's columns); [dgate] x [Wih; Whh]^T for
-// the CTA's 2 HS output columns (its units' dcomb and dh parts) over NQ
-// groups of RQ dgate rows (a multiple of 4, at most 64: the weights a
-// thread keeps in registers); one thread per unit (H <= NTB).
+// How the chain splits H over a cluster.  The even split: CL =
+// cluster::width_for(H) CTAs of HS units, HS a multiple of 4 (16-byte copies
+// of u's columns); [dgate] x [Wih; Whh]^T for the CTA's 2 HS output columns
+// (its units' dcomb and dh parts) over NQ groups of RQ dgate rows (a
+// multiple of 4, at most 64: the weights a thread keeps in registers); one
+// thread per unit (H <= NTB).  Where that does not hold (H = 96, 100, an odd
+// H, H above 128), the ragged split (gw): CL = cluster::ragged_width(H) CTAs, CTA r
+// taking units [r H / CL, (r + 1) H / CL) (HS the most), on NTW threads (a
+// thread a unit up to MAX_H), u's columns copied 4 bytes at a time, and the
+// [Wih; Whh] rows and Wl2's columns read from L2 every step.
 struct BwdPlan {
-  int cl, hs, nq, rq;
+  int cl, hs, nq, rq, nt;
+  bool gw;
 };
 
 bool bwd_plan(int H, BwdPlan& p) {
+  if (H < 1 || H > MAX_H) return false;
   p.cl = cluster::width_for(H);
   p.hs = H / p.cl;
-  if (H < 4 || H > NTB || p.hs % 4) return false;
-  p.nq = NTB / (2 * p.hs);
+  p.nt = NTB;
+  p.gw = false;
+  if (H >= 4 && H <= NTB && p.hs % 4 == 0 && p.hs <= 32) {
+    p.nq = NTB / (2 * p.hs);
+    p.rq = ((4 * H + p.nq - 1) / p.nq + 3) & ~3;
+    if (p.rq <= 64) return true;
+  }
+  p.cl = cluster::ragged_width(H);
+  p.hs = (H + p.cl - 1) / p.cl;
+  p.nt = NTW;
+  p.gw = true;
+  p.nq = NTW / (2 * p.hs);
   p.rq = ((4 * H + p.nq - 1) / p.nq + 3) & ~3;
-  return p.rq <= 64 && p.hs <= 32;
+  return true;
 }
 
 __host__ __device__ inline int up4(int n) { return (n + 3) & ~3; }
@@ -788,7 +837,7 @@ struct BwdSmem {
 __host__ __device__ inline size_t bwd_carve(float* base, const BwdPlan& p, int H, int Tz,
                                             BwdSmem* sm) {
   const int Tzp = up4(Tz);
-  const int sizes[13] = {p.nq * p.rq, NTB, 2 * p.hs, p.hs, p.hs, 32, Tz * p.hs,
+  const int sizes[13] = {p.nq * p.rq, p.nt, 2 * p.hs, p.hs, p.hs, 32, Tz * p.hs,
                          up4(p.cl * Tz), Tzp, Tzp, Tz * p.hs, p.cl * H, H};
   float** slots[13] = {&sm->dg, &sm->red, &sm->dhp, &sm->dcp, &sm->dq, &sm->rd, &sm->K,
                        &sm->X1, &sm->ds, &sm->a, &sm->u, &sm->X2, &sm->DH};
@@ -826,9 +875,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 //   dhp for J -> every peer;  cluster barrier 2;
 // then the next step's dh = dhh + sum of the partials.  Two cluster
 // barriers a step; every sum in a fixed order, no atomics.  The next
-// step's factors are loaded a step ahead.
-template <int RQ, int WL>
-__global__ void __launch_bounds__(NTB) chain_bwd_kernel(
+// step's factors are loaded a step ahead.  GW (the ragged split, NTW
+// threads): the CTA's units are [r H / CL, (r + 1) H / CL), its dgate rows
+// and Wl2's columns are read from L2 every step, u's columns copied 4 bytes
+// at a time.
+template <int RQ, int WL, bool GW = false>
+__global__ void __launch_bounds__(GW ? NTW : NTB) chain_bwd_kernel(
     const float* __restrict__ acts,       // [5, S, B, H]: i, f, g, o, tanh c_out
     const float* __restrict__ cpre,       // [S, B, H]
     const float* __restrict__ a_in,       // [S, B, Tzp]
@@ -847,12 +899,14 @@ __global__ void __launch_bounds__(NTB) chain_bwd_kernel(
     float* __restrict__ dsc_out,          // [S, B, Tz]
     float* __restrict__ dh0, float* __restrict__ dc0,  // [B, H]
     int S, int B, int Tz, int H, int E, int hs, int nq, int rq) {
+  constexpr int NT = GW ? NTW : NTB;
   extern __shared__ float4 smb4[];
-  const BwdPlan p{(int)gridDim.x, hs, nq, rq};
+  const BwdPlan p{(int)gridDim.x, hs, nq, rq, NT, GW};
   BwdSmem sm;
   bwd_carve(reinterpret_cast<float*>(smb4), p, H, Tz, &sm);
   const int cl = p.cl, Tzp = up4(Tz), G = 4 * H;
-  const int rank = cluster::cluster_rank(), j0 = rank * hs;
+  int rank = cluster::cluster_rank(), j0 = rank * hs;  // this CTA's units
+  if constexpr (GW) cluster::units_of(rank, cl, H, j0, hs);  // (of a ragged split)
   const int b = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
 
@@ -862,26 +916,32 @@ __global__ void __launch_bounds__(NTB) chain_bwd_kernel(
   const int n = pc < hs ? j0 + pc : H + j0 + pc - hs;
   const int k0 = kq * rq;
   const int kn = kq < nq ? max(0, min(rq, G - k0)) : 0;
-  float wr[RQ];
+  const float* wrow = wg + (size_t)n * G + k0;      // (GW: read every step)
+  const float* wlrow = wl2 + (size_t)tid * H + j0;  // (GW: read every step)
+  float wr[GW ? 1 : RQ];
+  if constexpr (!GW) {
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) wr[i] = i < kn ? wg[(size_t)n * G + k0 + i] : 0.f;
+    for (int i = 0; i < RQ; ++i) wr[i] = i < kn ? wg[(size_t)n * G + k0 + i] : 0.f;
+  }
   // unit role (tid < H): Wl2[tid, J] for the partial dq Wl2^T
-  float wl[WL];
+  float wl[GW ? 1 : WL];
+  if constexpr (!GW) {
 #pragma unroll
-  for (int i = 0; i < WL; ++i) wl[i] = (tid < H && i < hs) ? wl2[(size_t)tid * H + j0 + i] : 0.f;
+    for (int i = 0; i < WL; ++i) wl[i] = (tid < H && i < hs) ? wl2[(size_t)tid * H + j0 + i] : 0.f;
+  }
   const float v_own = tid < hs ? v[j0 + tid] : 0.f;
 
   // K[t][jj] = sum_e enc[b, t, e] Wc2[e, j0 + jj]
   const float* eb = enc + (size_t)b * Tz * E;
-  for (int i = tid; i < Tz * hs; i += NTB) {
+  for (int i = tid; i < Tz * hs; i += NT) {
     const int t = i / hs, jj = i - t * hs;
     float acc = 0.f;
     for (int e = 0; e < E; ++e) acc = fmaf(eb[(size_t)t * E + e], wc2[(size_t)e * H + j0 + jj], acc);
     sm.K[i] = acc;
   }
-  for (int i = tid; i < p.nq * rq; i += NTB) sm.dg[i] = 0.f;  // rows past 4H stay 0
-  for (int i = tid; i < cl * H; i += NTB) sm.X2[i] = 0.f;
-  for (int i = tid; i < H; i += NTB) sm.DH[i] = 0.f;
+  for (int i = tid; i < p.nq * rq; i += NT) sm.dg[i] = 0.f;  // rows past 4H stay 0
+  for (int i = tid; i < cl * H; i += NT) sm.X2[i] = 0.f;
+  for (int i = tid; i < H; i += NT) sm.DH[i] = 0.f;
   cluster::cluster_sync();  // before any peer writes here
 
   // the step's factors and cotangents (unit tid), loaded a step ahead
@@ -912,12 +972,19 @@ __global__ void __launch_bounds__(NTB) chain_bwd_kernel(
     const size_t o = ((size_t)s * B + b) * H;
     {  // this step's a and u[:, J], for the dsc and dq phases
       const float* ar = a_in + ((size_t)s * B + b) * Tzp;
-      for (int i = tid; i < Tzp / 4; i += NTB) cp_async16(sm.a + 4 * i, ar + 4 * i);
+      for (int i = tid; i < Tzp / 4; i += NT) cp_async16(sm.a + 4 * i, ar + 4 * i);
       const float* ur = u_in + ((size_t)s * B + b) * Tz * H + j0;
-      const int q4 = hs / 4;
-      for (int i = tid; i < Tz * q4; i += NTB) {
-        const int t = i / q4, c = i - t * q4;
-        cp_async16(sm.u + t * hs + 4 * c, ur + (size_t)t * H + 4 * c);
+      if constexpr (GW) {  // j0 and hs need not be multiples of 4
+        for (int i = tid; i < Tz * hs; i += NT) {
+          const int t = i / hs, c = i - t * hs;
+          cp_async4(sm.u + i, ur + (size_t)t * H + c);
+        }
+      } else {
+        const int q4 = hs / 4;
+        for (int i = tid; i < Tz * q4; i += NT) {
+          const int t = i / q4, c = i - t * q4;
+          cp_async16(sm.u + t * hs + 4 * c, ur + (size_t)t * H + 4 * c);
+        }
       }
     }
     if (tid < H) {  // dh and dc of unit tid, then its four dgate rows
@@ -942,14 +1009,25 @@ __global__ void __launch_bounds__(NTB) chain_bwd_kernel(
     if (kq < nq) {  // partial dhp of column n over the group's rows
       float acc = 0.f;
       const float* dr = sm.dg + k0;
-#pragma unroll
-      for (int i = 0; i < RQ; i += 4) {
-        if (i < kn) {
+      if constexpr (GW) {
+        for (int i = 0; i < kn; i += 4) {  // kn is a multiple of 4
           const float4 d = *reinterpret_cast<const float4*>(dr + i);
-          acc = fmaf(d.x, wr[i], acc);
-          acc = fmaf(d.y, wr[i + 1], acc);
-          acc = fmaf(d.z, wr[i + 2], acc);
-          acc = fmaf(d.w, wr[i + 3], acc);
+          const float4 w = __ldg(reinterpret_cast<const float4*>(wrow + i));
+          acc = fmaf(d.x, w.x, acc);
+          acc = fmaf(d.y, w.y, acc);
+          acc = fmaf(d.z, w.z, acc);
+          acc = fmaf(d.w, w.w, acc);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < RQ; i += 4) {
+          if (i < kn) {
+            const float4 d = *reinterpret_cast<const float4*>(dr + i);
+            acc = fmaf(d.x, wr[i], acc);
+            acc = fmaf(d.y, wr[i + 1], acc);
+            acc = fmaf(d.z, wr[i + 2], acc);
+            acc = fmaf(d.w, wr[i + 3], acc);
+          }
         }
       }
       sm.red[kq * ncol + pc] = acc;
@@ -967,7 +1045,7 @@ __global__ void __launch_bounds__(NTB) chain_bwd_kernel(
       }
     }
     __syncthreads();
-    for (int t = tid; t < Tz; t += NTB) {  // partial da over J, to every peer
+    for (int t = tid; t < Tz; t += NT) {  // partial da over J, to every peer
       const float* kr = sm.K + t * hs;
       float acc = 0.f;
       for (int jj = 0; jj < hs; ++jj) acc = fmaf(sm.dcp[jj], kr[jj], acc);
@@ -977,7 +1055,7 @@ __global__ void __launch_bounds__(NTB) chain_bwd_kernel(
     cluster::cluster_sync();  // barrier 1: every partial da, and a and u, are here
 
     float ad = 0.f;
-    for (int t = tid; t < Tz; t += NTB) {
+    for (int t = tid; t < Tz; t += NT) {
       float da = sm.X1[t];
       for (int r = 1; r < cl; ++r) da += sm.X1[r * Tz + t];
       sm.ds[t] = da;
@@ -987,16 +1065,16 @@ __global__ void __launch_bounds__(NTB) chain_bwd_kernel(
     if (lane == 0) sm.rd[warp] = ad;
     __syncthreads();
     ad = sm.rd[0];
-    for (int w = 1; w < NTB / 32; ++w) ad += sm.rd[w];
+    for (int w = 1; w < NT / 32; ++w) ad += sm.rd[w];
     const int tz0 = rank * ((Tz + cl - 1) / cl), tz1 = min(Tz, tz0 + (Tz + cl - 1) / cl);
-    for (int t = tid; t < Tz; t += NTB) {
+    for (int t = tid; t < Tz; t += NT) {
       const float d = sm.a[t] * (sm.ds[t] - ad);
       sm.ds[t] = d;
       if (t >= tz0 && t < tz1) dsc_out[((size_t)s * B + b) * Tz + t] = d;
     }
     __syncthreads();
     {  // dq[jj] = v[j] sum_t dsc[t] (1 - u[t, j]^2): the t terms over NTB / hs groups
-      const int ng = NTB / hs, jj = tid % hs, gi = tid / hs;
+      const int ng = NT / hs, jj = tid % hs, gi = tid / hs;
       const int chunk = (Tz + ng - 1) / ng;
       const int t1 = min(Tz, (gi + 1) * chunk);
       float acc = 0.f;
@@ -1015,9 +1093,13 @@ __global__ void __launch_bounds__(NTB) chain_bwd_kernel(
     }
     if (tid < H) {  // partial dq Wl2^T over J for unit tid, to every peer
       float acc = 0.f;
+      if constexpr (GW) {
+        for (int i = 0; i < hs; ++i) acc = fmaf(sm.dq[i], __ldg(wlrow + i), acc);
+      } else {
 #pragma unroll
-      for (int i = 0; i < WL; ++i)
-        if (i < hs) acc = fmaf(sm.dq[i], wl[i], acc);
+        for (int i = 0; i < WL; ++i)
+          if (i < hs) acc = fmaf(sm.dq[i], wl[i], acc);
+      }
       for (int r = 0; r < cl; ++r) cluster::cluster_peer(sm.X2, r)[rank * H + tid] = acc;
     }
     if (tid >= hs && tid < ncol)
@@ -1199,8 +1281,9 @@ extern "C" int mucon_decoder_chain_bwd(const float* acts, const float* cpre, con
   const size_t smem = chain_smem(p, H, Tz);
   const cudaError_t err = check_smem(smem);
   if (err != cudaSuccess) return err;
-  auto kernel = p.rq <= 16 ? chain_bwd_kernel<16, 32> : chain_bwd_kernel<64, 32>;
-  return cluster::launch_cluster(kernel, dim3(p.cl, B), dim3(NTB), p.cl, smem, stream, acts,
+  auto kernel = p.gw ? chain_bwd_kernel<4, 1, true>
+                     : (p.rq <= 16 ? chain_bwd_kernel<16, 32> : chain_bwd_kernel<64, 32>);
+  return cluster::launch_cluster(kernel, dim3(p.cl, B), dim3(p.nt), p.cl, smem, stream, acts,
                                  cpre, a, u, c_in, enc, v, wc2, wg, wl2, dh_ext, dc_ext,
                                  dcomb_ext, dgate, dcpre, dsc, dh0, dc0, S, B, Tz, H, E, p.hs,
                                  p.nq, p.rq);

@@ -37,8 +37,12 @@ namespace {
 // partials than that.
 constexpr int ROW_CTAS = 2 * 132, FWD_CTAS = 80, SPAN_CTAS = 132;
 constexpr int KR = 32;                          // rows a chunk of the weight gradients
-constexpr int WG_SMEM = 2 * 2 * KR * LDW * 4;   // ring of two (A, B) chunk pairs
-constexpr int PART_F = (C + 1) * C;             // one partial: C x C, then the bias row
+constexpr int WB = 128;                         // a weight-gradient block: WB x WB outputs
+constexpr int WG_LD = ldw(WB);                  // its staged A and B bands' stride
+constexpr int WG_SMEM = 2 * 2 * KR * WG_LD * 4; // ring of two (A, B) chunk pairs
+
+// one partial of a C x C weight gradient: C x C, then the bias row
+__host__ __device__ constexpr int part_f(int C) { return (C + 1) * C; }
 
 // nonlin'(z) from h = nonlin(z): both keep the sign of z
 __device__ __forceinline__ float nonlin_grad(float h, int leaky) {
@@ -56,6 +60,7 @@ __device__ __forceinline__ float2 ld2_l2(const float* p) {
 // stashed pre-pool u (torch max_pool1d), sum ("mean * 2") to both; an odd
 // trailing frame, and a pair the forward masked (t/2 >= len/2), get 0.
 // Zero at t >= len.
+template <int C>
 __device__ __forceinline__ float2 grad_at(const float* g, const float* __restrict__ u, int b,
                                           int t, int T, int len, int col, int pooled,
                                           int pool_mean) {
@@ -75,17 +80,17 @@ __device__ __forceinline__ float2 grad_at(const float* g, const float* __restric
 // Ds the finished dy tile (rows at t >= lim zero), Wr the weight ring (of
 // KC-row chunks staged KS rows a buffer: the bodies take a chunk other than
 // their tile's default where they must repeat another tile's sums bit for bit)
-template <int TM, int KC = Tile<TM>::KC, int KS = KC, bool BF = false>
+template <int C, int TM, int KC = Tile<C, TM>::KC, int KS = KC, bool BF = false>
 __device__ __forceinline__ void dz_rows(float* Ds, float* Wr, const float* __restrict__ w1t,
                                         const float* __restrict__ h, float* __restrict__ dz,
                                         int b, int t0, int T, int lim, int leaky) {
-  using TL = Tile<TM, KC, KS>;
+  using TL = Tile<C, TM, KC, KS>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = (warp / TL::WN) * (16 * TL::MT), col0 = (warp % TL::WN) * (8 * TL::NTL);
   float acc[TL::MT][TL::NTL][4] = {};
   float* const tiles[3] = {Ds, Ds, Ds};
   const float* const ws[4] = {nullptr, w1t, nullptr, nullptr};  // one block, as a centre tap
-  tap_loop<TM, KC, KS, BF>(acc, tiles, ws, false, false, Wr, row0, col0, lane, [](auto&) {});
+  tap_loop<C, TM, KC, KS, BF>(acc, tiles, ws, false, false, Wr, row0, col0, lane, [](auto&) {});
   // * nonlin'(h), masked: every load issued before the first store
   for_each_pair(acc, row0, col0, lane, [&](float& v0, float& v1, int row, int col) {
     const int t = t0 + row;
@@ -98,11 +103,11 @@ __device__ __forceinline__ void dz_rows(float* Ds, float* Wr, const float* __res
   });
 }
 
-// The dz body, rows [t0, t0 + TM) of video b (Tile<TM, KC, KS>::ONE_SMEM bytes):
+// The dz body, rows [t0, t0 + TM) of video b (Tile<C, TM, KC, KS>::ONE_SMEM bytes):
 // dy = gm * m, dz = (dy W1^T) * nonlin'(h), masked.  The out-projection's
 // (proj = 1: h = x_fin, W1^T = Wl^T, no dropout) writes the gradient at x_fin
 // to dz, zeros past the length included: the next layer reads it as its g.
-template <int TM, int KC = Tile<TM>::KC, int KS = KC, bool BF = false>
+template <int C, int TM, int KC = Tile<C, TM>::KC, int KS = KC, bool BF = false>
 __device__ __forceinline__ void dz_tile(const float* g, const float* __restrict__ u,
                                         const float* __restrict__ h,
                                         const float* __restrict__ drop,
@@ -110,13 +115,14 @@ __device__ __forceinline__ void dz_tile(const float* g, const float* __restrict_
                                         const float* __restrict__ w1t, float* dy, float* dz,
                                         int b, int t0, int T, int len_shift, int pooled,
                                         int pool_mean, int leaky, int proj, float* smem) {
-  using TL = Tile<TM, KC, KS>;
+  using TL = Tile<C, TM, KC, KS>;
+  constexpr int LDA = TL::LDA;
   float* Ds = smem;               // [TM][LDA] dy tile
   float* Wr = Ds + TL::TILE_F;
 
   const int len = lengths[b] >> len_shift;
   if (t0 >= len) {  // the out-projection's dz is the next sweep's g: zeros
-    if (proj) store_zeros(dz, b, t0, TM, T);
+    if (proj) store_zeros<C>(dz, b, t0, TM, T);
     return;
   }
   const int lim = min(T, len);
@@ -129,7 +135,7 @@ __device__ __forceinline__ void dz_tile(const float* g, const float* __restrict_
     const int i = threadIdx.x + k * NT, t = t0 + i / (C / 2), col = 2 * (i % (C / 2));
     v[k] = make_float2(0.f, 0.f);
     if (t < lim) {
-      v[k] = grad_at(g, u, b, t, T, len, col, pooled, pool_mean);
+      v[k] = grad_at<C>(g, u, b, t, T, len, col, pooled, pool_mean);
       if (drop) {
         const float2 m = ld2(drop + ((size_t)b * T + t) * C + col);
         v[k] = make_float2(v[k].x * m.x, v[k].y * m.y);
@@ -142,19 +148,19 @@ __device__ __forceinline__ void dz_tile(const float* g, const float* __restrict_
     if (t0 + r < lim) st2(dy + ((size_t)b * T + t0 + r) * C + col, v[k].x, v[k].y);
     st2(Ds + r * LDA + col, v[k].x, v[k].y);
   }
-  dz_rows<TM, KC, KS, BF>(Ds, Wr, w1t, h, dz, b, t0, T, lim, leaky);
+  dz_rows<C, TM, KC, KS, BF>(Ds, Wr, w1t, h, dz, b, t0, T, lim, leaky);
 }
 
-// The dx body, rows [t0, t0 + TM) of video b (Tile<TM, KC, KS>::TAPS_SMEM bytes):
+// The dx body, rows [t0, t0 + TM) of video b (Tile<C, TM, KC, KS>::TAPS_SMEM bytes):
 // g_in = mask (dz[t+d] W3[0]^T + dz[t] W3[1]^T + dz[t-d] W3[2]^T + gm)
-template <int TM, int KC = Tile<TM>::KC, int KS = KC, bool BF = false>
+template <int C, int TM, int KC = Tile<C, TM>::KC, int KS = KC, bool BF = false>
 __device__ __forceinline__ void dx_tile(const float* dz, const float* g,
                                         const float* __restrict__ u,
                                         const int* __restrict__ lengths,
                                         const float* __restrict__ w3t,  // [3, C, C]: W3[k]^T
                                         float* __restrict__ g_in, int b, int t0, int T, int d,
                                         int len_shift, int pooled, int pool_mean, float* smem) {
-  using TL = Tile<TM, KC, KS>;
+  using TL = Tile<C, TM, KC, KS>;
   float* X0 = smem;               // dz[t+d]
   float* XC = X0 + TL::TILE_F;    // dz[t]
   float* X1 = XC + TL::TILE_F;    // dz[t-d]
@@ -162,7 +168,7 @@ __device__ __forceinline__ void dx_tile(const float* dz, const float* g,
 
   const int len = lengths[b] >> len_shift;
   if (t0 >= len) {
-    store_zeros(g_in, b, t0, TM, T);
+    store_zeros<C>(g_in, b, t0, TM, T);
     return;
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -171,18 +177,18 @@ __device__ __forceinline__ void dx_tile(const float* dz, const float* g,
   const int lim = min(T, len);
   const bool first = t0 + d < lim, last = t0 + TM > d;  // some row has dz[t+d], dz[t-d]
 
-  if (first) stage_rows<TM>(X0, zb, t0 + d, lim);
-  stage_rows<TM>(XC, zb, t0, lim);
-  if (last) stage_rows<TM>(X1, zb, t0 - d, lim);
+  if (first) stage_rows<C, TM>(X0, zb, t0 + d, lim);
+  stage_rows<C, TM>(XC, zb, t0, lim);
+  if (last) stage_rows<C, TM>(X1, zb, t0 - d, lim);
 
   float acc[TL::MT][TL::NTL][4] = {};
   float* const taps[3] = {X0, XC, X1};
   const float* const ws[4] = {w3t, w3t + C * C, w3t + 2 * C * C, nullptr};
-  tap_loop<TM, KC, KS, BF>(acc, taps, ws, first, last, Wr, row0, col0, lane, [](auto&) {});
+  tap_loop<C, TM, KC, KS, BF>(acc, taps, ws, first, last, Wr, row0, col0, lane, [](auto&) {});
   // + gm, masked: every load issued before the first store
   for_each_pair(acc, row0, col0, lane, [&](float& v0, float& v1, int row, int col) {
     const int t = t0 + row;
-    const float2 gm = t < lim ? grad_at(g, u, b, t, T, len, col, pooled, pool_mean)
+    const float2 gm = t < lim ? grad_at<C>(g, u, b, t, T, len, col, pooled, pool_mean)
                               : make_float2(0.f, 0.f);
     v0 = t < lim ? v0 + gm.x : 0.f;
     v1 = t < lim ? v1 + gm.y : 0.f;
@@ -199,26 +205,32 @@ __device__ __forceinline__ void dx_tile(const float* dz, const float* g,
 // proj (one job): (nonlin(x_fin), 0, dy) -> dWl, dbl.
 // Span s of video b: rows [s span, (s + 1) span) below its length;
 // work[b][s][job] = [C + 1][C], row C the column sums of B.  The C x C
-// output is 4 x 4 blocks of 32 x 32, a CTA's PARTS-th of them (its `part`,
-// a band of output rows; part 0 also sums B's columns): 16 warps of one
-// block, or 8 warps of one (PARTS = 2) or two (each its own product).  Each
-// output's sum over rows runs in the same order whichever way it is cut.
-template <int NTH, int PARTS = 1, bool BF = false>
+// output is (C / WB)^2 blocks of WB x WB (one at C = 128): block `blk` =
+// (bm, bn) takes A's columns bm WB .. and B's columns bn WB .., staged
+// WB wide.  A block is 4 x 4 tiles of 32 x 32, a CTA's PARTS-th of them
+// (its `part`, a band of output rows; part 0 of a bm = 0 block also sums
+// B's columns): 16 warps of one tile, or 8 warps of one (PARTS = 2) or two
+// (each its own product).  Each output's sum over rows runs in the same
+// order whichever way it is cut.
+template <int C, int NTH, int PARTS = 1, bool BF = false>
 __device__ __forceinline__ void wgrad_span(const float* __restrict__ h,
                                            const float* __restrict__ x, const float* dy,
                                            const float* dz, const int* __restrict__ lengths,
                                            float* __restrict__ work, int T, int span,
                                            int spans, int jobs, int d, int len_shift, int proj,
                                            int leaky, int s, int b, int job, int part,
-                                           float* ring) {
+                                           int blk, float* ring) {
   constexpr int WARPS = NTH / 32, MB = 16 / (WARPS * PARTS);  // 32-row blocks a warp
+  constexpr int LDW = WG_LD;
+  const int bm = blk / (C / WB), bn = blk % (C / WB);
   static_assert(WARPS * MB * PARTS == 16, "4 x 4 blocks of 32 x 32 outputs");
   const int len = min(T, lengths[b] >> len_shift);
   const int r_lo = s * span;
   if (r_lo >= len) return;  // padding: no partial, the sum skips this span
   const int r_hi = min(r_lo + span, len);
-  const float* A = (job == 0 ? h : x) + (size_t)b * T * C;  // proj: h = x_fin, A = nonlin(x_fin)
-  const float* Bm = (job == 0 ? dy : dz) + (size_t)b * T * C;
+  // proj: h = x_fin, A = nonlin(x_fin); the block's column bands
+  const float* A = (job == 0 ? h : x) + (size_t)b * T * C + bm * WB;
+  const float* Bm = (job == 0 ? dy : dz) + (size_t)b * T * C + bn * WB;
   const int off = (job == 1) ? -d : (job == 3 ? d : 0);
   // the rows whose shifted row exists (the others add products of zeros;
   // jobs 1 and 3 keep no bias sum)
@@ -228,8 +240,8 @@ __device__ __forceinline__ void wgrad_span(const float* __restrict__ h,
   auto stage = [&](int buf, int r0) {
     float* As = ring + buf * 2 * KR * LDW;
     float* Bs = As + KR * LDW;
-    for (int i = threadIdx.x; i < KR * (C / 4); i += NTH) {
-      const int rr = i / (C / 4), c4 = i % (C / 4);
+    for (int i = threadIdx.x; i < KR * (WB / 4); i += NTH) {
+      const int rr = i / (WB / 4), c4 = i % (WB / 4);
       const int t = r0 + rr;
       const bool ok = t < a_hi;
       cp_async16(Bs + rr * LDW + 4 * c4, Bm + (size_t)(ok ? t : 0) * C + 4 * c4, ok);
@@ -246,7 +258,8 @@ __device__ __forceinline__ void wgrad_span(const float* __restrict__ h,
   };
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int m0 = part * (C / PARTS) + (warp >> 2) * 32 * MB, n0 = (warp & 3) * 32;
+  const int m0 = part * (WB / PARTS) + (warp >> 2) * 32 * MB, n0 = (warp & 3) * 32;
+  const bool bias = part == 0 && bm == 0 && threadIdx.x < WB;  // sums B's band's columns
   float acc[MB][2][4][4] = {};
   float bsum = 0.f;
   if (chunks) stage(0, a_lo);
@@ -258,30 +271,32 @@ __device__ __forceinline__ void wgrad_span(const float* __restrict__ h,
     cp_async_commit();
     const float* As = ring + (i & 1) * 2 * KR * LDW;
     const float* Bs = As + KR * LDW;
-    if (part == 0 && threadIdx.x < C)
+    if (bias)
       for (int rr = 0; rr < KR; ++rr) bsum += Bs[rr * LDW + threadIdx.x];
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb)
       warp_gemm<2, 4, KR, true, BF>(acc[mb], As, LDW, m0 + 32 * mb, 0, Bs, LDW, n0, lane);
   }
-  float* out = work + ((size_t)(b * spans + s) * jobs + job) * PART_F;
+  float* out = work + ((size_t)(b * spans + s) * jobs + job) * part_f(C);
 #pragma unroll
   for (int mb = 0; mb < MB; ++mb)
     for_each_pair(acc[mb], m0 + 32 * mb, n0, lane, [&](float& v0, float& v1, int row, int col) {
-      st2(out + (size_t)row * C + col, v0, v1);
+      st2(out + (size_t)(bm * WB + row) * C + bn * WB + col, v0, v1);
     });
-  if (part == 0 && threadIdx.x < C) out[(size_t)C * C + threadIdx.x] = bsum;
+  if (bias) out[(size_t)C * C + bn * WB + threadIdx.x] = bsum;
 }
 
 // Entry e < jobs * PART_F of a layer's gradients: the spans' partials
 // (those with rows) added in (video, span) order.  jobs = 4: dW1 / db1,
 // dW3[0..2], db3; jobs = 1 (the out-projection): dw1 = dWl, db1 = dbl.
+template <int C>
 __device__ __forceinline__ void reduce_entry(const float* work,
                                              const int* __restrict__ lengths, int B, int T,
                                              int span, int spans, int len_shift, int jobs,
                                              int e, float* __restrict__ dw1,
                                              float* __restrict__ db1, float* __restrict__ dw3,
                                              float* __restrict__ db3) {
+  constexpr int PART_F = part_f(C);
   const int job = e / PART_F, k = e % PART_F;
   const size_t stride = (size_t)jobs * PART_F;  // from one span's partial to the next
   float s = 0.f;
@@ -312,20 +327,22 @@ struct Plan {
   int fwd_tm, tm, span, spans;
 };
 
-// the largest of 64 and 32 rows a tile that still gives `ctas` tiles, else 16
-inline int tile_for(int B, int T, int ctas) {
+// the largest of 64 and 32 rows a tile that fits an SM at C channels
+// (`tile_ok`) and still gives `ctas` tiles, else 16
+inline int tile_for(int B, int T, int C, int ctas) {
   for (int tm = 64; tm >= 32; tm /= 2)
-    if ((long)B * ((T + tm - 1) / tm) >= ctas) return tm;
+    if (tile_ok(C, tm) && (long)B * ((T + tm - 1) / tm) >= ctas) return tm;
   return 16;
 }
 
-// The grid of a layer of B videos x T frames, from the shape alone: the row
-// tile of the forward (FWD_CTAS) and of the dz and dx bodies (ROW_CTAS),
+// The grid of a layer of B videos x T frames x C channels, from the shape
+// alone: the row tile of the forward (FWD_CTAS) and of the dz and dx bodies
+// (ROW_CTAS),
 // and the row span of the weight gradients: the largest power of two of at
 // least 32 rows with SPAN_CTAS CTAs over `jobs` products, and the spans a
 // video.
-inline Plan plan_for(int B, int T, int jobs) {
-  Plan p{tile_for(B, T, FWD_CTAS), tile_for(B, T, ROW_CTAS), 32, 0};
+inline Plan plan_for(int B, int T, int C, int jobs) {
+  Plan p{tile_for(B, T, C, FWD_CTAS), tile_for(B, T, C, ROW_CTAS), 32, 0};
   int top = 32;
   while (top < T) top *= 2;
   for (int s = top; s >= 32; s /= 2)

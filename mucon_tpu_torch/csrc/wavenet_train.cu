@@ -64,6 +64,12 @@
 // * The weight gradients are bitwise repeatable: each partial is one CTA's
 //   fixed-order sum over its span, and kernel 4 adds them in a fixed order
 //   with no atomics.
+// * Widths: every kernel is built for C = 128, 256 and 512 channels (the
+//   wrapper zero-pads another C up to 512).  The row tiles shrink as C
+//   grows (`tile_ok`: at most 32 rows at 256, 16 at 512, one CTA an SM),
+//   and kernel 3 cuts a C x C gradient into (C / 128)^2 blocks of 128 x 128,
+//   one CTA each (its A and B bands staged 128 columns wide), so that every
+//   width stages the tiles and sums the rows that C = 128 does.
 //
 // Bound: the tensor cores at three TF32 products per f32 product (495 / 3
 // TFLOP/s on the H100); per valid row and layer the forward does 8 C^2 f32
@@ -78,18 +84,33 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "wavenet_sweep.cuh"
 
 namespace {
 
 constexpr int WG_NT = 512;              // threads of kernel 3: 16 warps of 32 x 32
 
+template <int N>
+using ic = std::integral_constant<int, N>;
+
+// f(ic<TM>) for a row tile tm that fits an SM at C channels (`plan_for` picks no other)
+template <int C, class F>
+cudaError_t with_tile(int tm, F f) {
+  if constexpr (tile_ok(C, 64))
+    if (tm == 64) return f(ic<64>{});
+  if constexpr (tile_ok(C, 32))
+    if (tm == 32) return f(ic<32>{});
+  return f(ic<16>{});
+}
+
 // ---------------------------------------------------------------------------
 // the sweep's four kernels, one CTA a body (wavenet_sweep.cuh)
 // ---------------------------------------------------------------------------
 
-template <int TM, bool BF>
-__global__ void __launch_bounds__(NT, Tile<TM>::MIN_BLOCKS) sweep_dz_kernel(
+template <int C, int TM, bool BF>
+__global__ void __launch_bounds__(NT, Tile<C, TM>::MIN_BLOCKS) sweep_dz_kernel(
     const float* __restrict__ g, const float* __restrict__ u,
     const float* __restrict__ h,      // [B, T, C] nonlin(z) (proj: x_fin)
     const float* __restrict__ drop,   // [B, T, C] or null
@@ -98,131 +119,122 @@ __global__ void __launch_bounds__(NT, Tile<TM>::MIN_BLOCKS) sweep_dz_kernel(
     float* __restrict__ dy, float* __restrict__ dz,
     int T, int len_shift, int pooled, int pool_mean, int leaky, int proj) {
   extern __shared__ float4 smem4[];
-  dz_tile<TM, Tile<TM>::KC, Tile<TM>::KC, BF>(g, u, h, drop, lengths, w1t, dy, dz, blockIdx.y, blockIdx.x * TM, T, len_shift,
-              pooled, pool_mean, leaky, proj, reinterpret_cast<float*>(smem4));
+  constexpr int KC = Tile<C, TM>::KC;
+  dz_tile<C, TM, KC, KC, BF>(g, u, h, drop, lengths, w1t, dy, dz, blockIdx.y, blockIdx.x * TM,
+                             T, len_shift, pooled, pool_mean, leaky, proj,
+                             reinterpret_cast<float*>(smem4));
 }
 
-template <int TM, bool BF>
-__global__ void __launch_bounds__(NT, Tile<TM>::MIN_BLOCKS) sweep_dx_kernel(
+template <int C, int TM, bool BF>
+__global__ void __launch_bounds__(NT, Tile<C, TM>::MIN_BLOCKS) sweep_dx_kernel(
     const float* __restrict__ dz, const float* __restrict__ g,
     const float* __restrict__ u, const int* __restrict__ lengths,
     const float* __restrict__ w3t,    // [3, C, C]: W3[k]^T
     float* __restrict__ g_in, int T, int d, int len_shift, int pooled, int pool_mean) {
   extern __shared__ float4 smem4[];
-  dx_tile<TM, Tile<TM>::KC, Tile<TM>::KC, BF>(dz, g, u, lengths, w3t, g_in, blockIdx.y, blockIdx.x * TM, T, d, len_shift, pooled,
-              pool_mean, reinterpret_cast<float*>(smem4));
+  constexpr int KC = Tile<C, TM>::KC;
+  dx_tile<C, TM, KC, KC, BF>(dz, g, u, lengths, w3t, g_in, blockIdx.y, blockIdx.x * TM, T, d,
+                             len_shift, pooled, pool_mean, reinterpret_cast<float*>(smem4));
 }
 
-// CTA (span s, video b, job)
-template <bool BF>
+// CTA (span s, video b, job x (C / WB)^2 output blocks + block)
+template <int C, bool BF>
 __global__ void __launch_bounds__(WG_NT, 1) sweep_wgrad_kernel(
     const float* __restrict__ h, const float* __restrict__ x,
     const float* __restrict__ dy, const float* __restrict__ dz,
     const int* __restrict__ lengths, float* __restrict__ work, int T, int span, int d,
     int len_shift, int proj, int leaky) {
   extern __shared__ float4 smem4[];
-  wgrad_span<WG_NT, 1, BF>(h, x, dy, dz, lengths, work, T, span, gridDim.x, gridDim.z, d, len_shift,
-                    proj, leaky, blockIdx.x, blockIdx.y, blockIdx.z, 0,
-                    reinterpret_cast<float*>(smem4));
+  constexpr int NB = (C / WB) * (C / WB);
+  wgrad_span<C, WG_NT, 1, BF>(h, x, dy, dz, lengths, work, T, span, gridDim.x, gridDim.z / NB,
+                              d, len_shift, proj, leaky, blockIdx.x, blockIdx.y,
+                              blockIdx.z / NB, 0, blockIdx.z % NB,
+                              reinterpret_cast<float*>(smem4));
 }
 
+template <int C>
 __global__ void sweep_reduce_kernel(const float* __restrict__ work,
                                     const int* __restrict__ lengths, int B, int T, int span,
                                     int spans, int len_shift, int jobs,
                                     float* __restrict__ dw1, float* __restrict__ db1,
                                     float* __restrict__ dw3, float* __restrict__ db3) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < jobs * PART_F)
-    reduce_entry(work, lengths, B, T, span, spans, len_shift, jobs, e, dw1, db1, dw3, db3);
+  if (e < jobs * part_f(C))
+    reduce_entry<C>(work, lengths, B, T, span, spans, len_shift, jobs, e, dw1, db1, dw3, db3);
 }
 
 // sweep kernels 1 and 2 (kernel 2 not for the out-projection)
-template <int TM, bool BF>
+template <int C, int TM, bool BF>
 cudaError_t launch_rows(const float* g, const float* u, const float* h, const float* drop,
                         const int* lengths, const float* w1t, const float* w3t, float* dy,
                         float* dz, float* g_in, int B, int T, int d, int len_shift, int pooled,
                         int pool_mean, int leaky, int proj, cudaStream_t stream) {
-  using TL = Tile<TM>;
+  using TL = Tile<C, TM>;
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_dz_kernel<TM, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::ONE_SMEM);
+      sweep_dz_kernel<C, TM, BF>, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::ONE_SMEM);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sweep_dx_kernel<TM, BF>,
+    err = cudaFuncSetAttribute(sweep_dx_kernel<C, TM, BF>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, TL::TAPS_SMEM);
   if (err != cudaSuccess) return err;
   const dim3 tiles((T + TM - 1) / TM, B);
-  sweep_dz_kernel<TM, BF><<<tiles, NT, TL::ONE_SMEM, stream>>>(
+  sweep_dz_kernel<C, TM, BF><<<tiles, NT, TL::ONE_SMEM, stream>>>(
       g, u, h, drop, lengths, w1t, dy, dz, T, len_shift, pooled, pool_mean, leaky, proj);
   err = cudaGetLastError();
   if (err != cudaSuccess || proj) return err;
-  sweep_dx_kernel<TM, BF><<<tiles, NT, TL::TAPS_SMEM, stream>>>(dz, g, u, lengths, w3t, g_in, T, d,
-                                                           len_shift, pooled, pool_mean);
+  sweep_dx_kernel<C, TM, BF><<<tiles, NT, TL::TAPS_SMEM, stream>>>(
+      dz, g, u, lengths, w3t, g_in, T, d, len_shift, pooled, pool_mean);
   return cudaGetLastError();
 }
 
-template <bool BF>
+template <int C, bool BF>
 int train_fwd(const float* x, float* y, float* u_out, float* hs, const int* lengths,
               const float* w3, const float* b3, const float* w1, const float* b1,
               const float* drop, int B, int T, int d, int len_shift, int pool, int pool_mean,
               int leaky, cudaStream_t stream) {
-  switch (plan_for(B, T, 4).fwd_tm) {
-    case 64:
-      return launch_layer<64, BF>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d,
-                                  len_shift, pool, pool_mean, leaky, stream);
-    case 32:
-      return launch_layer<32, BF>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d,
-                                  len_shift, pool, pool_mean, leaky, stream);
-    default:
-      return launch_layer<16, BF>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d,
-                                  len_shift, pool, pool_mean, leaky, stream);
-  }
+  return with_tile<C>(plan_for(B, T, C, 4).fwd_tm, [&](auto tm) {
+    return launch_layer<C, decltype(tm)::value, BF>(x, y, u_out, hs, lengths, w3, b3, w1, b1,
+                                                    drop, B, T, d, len_shift, pool, pool_mean,
+                                                    leaky, stream);
+  });
 }
 
-template <bool BF>
+template <int C, bool BF>
 int train_sweep(const float* g, const float* u, const float* x, const float* h,
                 const float* drop, const int* lengths, const float* w1t, const float* w3t,
                 float* dy, float* dz, float* g_in, float* work, float* dw1, float* db1,
                 float* dw3, float* db3, int B, int T, int d, int len_shift, int pooled,
                 int pool_mean, int leaky, int proj, cudaStream_t stream) {
   const int jobs = proj ? 1 : 4;
-  const Plan p = plan_for(B, T, jobs);
-  cudaError_t err;
-  switch (p.tm) {
-    case 64:
-      err = launch_rows<64, BF>(g, u, h, drop, lengths, w1t, w3t, dy, dz, g_in, B, T, d,
-                                len_shift, pooled, pool_mean, leaky, proj, stream);
-      break;
-    case 32:
-      err = launch_rows<32, BF>(g, u, h, drop, lengths, w1t, w3t, dy, dz, g_in, B, T, d,
-                                len_shift, pooled, pool_mean, leaky, proj, stream);
-      break;
-    default:
-      err = launch_rows<16, BF>(g, u, h, drop, lengths, w1t, w3t, dy, dz, g_in, B, T, d,
-                                len_shift, pooled, pool_mean, leaky, proj, stream);
-  }
+  const Plan p = plan_for(B, T, C, jobs);
+  cudaError_t err = with_tile<C>(p.tm, [&](auto tm) {
+    return launch_rows<C, decltype(tm)::value, BF>(g, u, h, drop, lengths, w1t, w3t, dy, dz,
+                                                   g_in, B, T, d, len_shift, pooled, pool_mean,
+                                                   leaky, proj, stream);
+  });
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(sweep_wgrad_kernel<BF>,
+  err = cudaFuncSetAttribute(sweep_wgrad_kernel<C, BF>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
   if (err != cudaSuccess) return err;
-  sweep_wgrad_kernel<BF><<<dim3(p.spans, B, jobs), WG_NT, WG_SMEM, stream>>>(
+  constexpr int NB = (C / WB) * (C / WB);
+  sweep_wgrad_kernel<C, BF><<<dim3(p.spans, B, jobs * NB), WG_NT, WG_SMEM, stream>>>(
       h, x, dy, dz, lengths, work, T, p.span, d, len_shift, proj, leaky);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n = jobs * PART_F;
-  sweep_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(work, lengths, B, T, p.span, p.spans,
-                                                          len_shift, jobs, dw1, db1, dw3, db3);
+  const int n = jobs * part_f(C);
+  sweep_reduce_kernel<C><<<(n + 255) / 256, 256, 0, stream>>>(
+      work, lengths, B, T, p.span, p.spans, len_shift, jobs, dw1, db1, dw3, db3);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The grid a layer of B videos x T frames takes (see `plan_for`):
-// out = {forward row tile, sweep row tile, weight-gradient span, spans a
-// video}.  The sweep's `work`
-// holds B * spans * jobs * (C + 1) * C floats (jobs = 4, or 1 for the
-// out-projection).
-extern "C" int mucon_wavenet_train_plan(int B, int T, int jobs, int* out) {
-  if (B <= 0 || T <= 0 || jobs <= 0) return cudaErrorInvalidValue;
-  const Plan p = plan_for(B, T, jobs);
+// The grid a layer of B videos x T frames x C channels takes (see
+// `plan_for`): out = {forward row tile, sweep row tile, weight-gradient
+// span, spans a video}.  The sweep's `work` holds B * spans * jobs *
+// (C + 1) * C floats (jobs = 4, or 1 for the out-projection).
+extern "C" int mucon_wavenet_train_plan(int B, int T, int channels, int jobs, int* out) {
+  if (B <= 0 || T <= 0 || jobs <= 0 || channels <= 0) return cudaErrorInvalidValue;
+  const Plan p = plan_for(B, T, channels, jobs);
   out[0] = p.fwd_tm;
   out[1] = p.tm;
   out[2] = p.span;
@@ -230,9 +242,10 @@ extern "C" int mucon_wavenet_train_plan(int B, int T, int jobs, int* out) {
   return cudaSuccess;
 }
 
-// One layer of the stack's forward (see the top of the file).  `u_out` is
-// written only when pool = 1; `drop` may be null (no dropout).  An odd T
-// pools to T / 2 (the last frame is dropped).  bf16 = 1: the bf16-operand mode.
+// One layer of the stack's forward (see the top of the file) at C = 128, 256
+// or 512 channels.  `u_out` is written only when pool = 1; `drop` may be null
+// (no dropout).  An odd T pools to T / 2 (the last frame is dropped).
+// bf16 = 1: the bf16-operand mode.
 extern "C" int mucon_wavenet_train_fwd(const float* x, float* y, float* u_out,
                                        float* hs, const int* lengths,
                                        const float* w3, const float* b3,
@@ -240,12 +253,17 @@ extern "C" int mucon_wavenet_train_fwd(const float* x, float* y, float* u_out,
                                        const float* drop, int B, int T, int channels,
                                        int d, int len_shift, int pool, int pool_mean,
                                        int leaky, int bf16, cudaStream_t stream) {
-  if (channels != C || B <= 0 || T <= 0 || (pool && !u_out)) return cudaErrorInvalidValue;
-  if (bf16)
-    return train_fwd<true>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d, len_shift,
-                           pool, pool_mean, leaky, stream);
-  return train_fwd<false>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d, len_shift,
-                          pool, pool_mean, leaky, stream);
+  if (B <= 0 || T <= 0 || (pool && !u_out)) return cudaErrorInvalidValue;
+#define FWD(C, BF)                                                                          \
+  train_fwd<C, BF>(x, y, u_out, hs, lengths, w3, b3, w1, b1, drop, B, T, d, len_shift, pool, \
+                   pool_mean, leaky, stream)
+  switch (channels) {
+    case 128: return bf16 ? FWD(128, true) : FWD(128, false);
+    case 256: return bf16 ? FWD(256, true) : FWD(256, false);
+    case 512: return bf16 ? FWD(512, true) : FWD(512, false);
+    default: return cudaErrorInvalidValue;  // the wrapper pads another width to one of these
+  }
+#undef FWD
 }
 
 // One layer of the backward sweep (proj = 0) or the out-projection's
@@ -259,11 +277,15 @@ extern "C" int mucon_wavenet_train_sweep(
     float* dy, float* dz, float* g_in, float* work, float* dw1, float* db1,
     float* dw3, float* db3, int B, int T, int channels, int d, int len_shift,
     int pooled, int pool_mean, int leaky, int proj, int bf16, cudaStream_t stream) {
-  if (channels != C || B <= 0 || T <= 0 || (pooled && !u) || (proj && pooled))
-    return cudaErrorInvalidValue;
-  if (bf16)
-    return train_sweep<true>(g, u, x, h, drop, lengths, w1t, w3t, dy, dz, g_in, work, dw1, db1,
-                             dw3, db3, B, T, d, len_shift, pooled, pool_mean, leaky, proj, stream);
-  return train_sweep<false>(g, u, x, h, drop, lengths, w1t, w3t, dy, dz, g_in, work, dw1, db1,
-                            dw3, db3, B, T, d, len_shift, pooled, pool_mean, leaky, proj, stream);
+  if (B <= 0 || T <= 0 || (pooled && !u) || (proj && pooled)) return cudaErrorInvalidValue;
+#define SWEEP(C, BF)                                                                         \
+  train_sweep<C, BF>(g, u, x, h, drop, lengths, w1t, w3t, dy, dz, g_in, work, dw1, db1, dw3, \
+                     db3, B, T, d, len_shift, pooled, pool_mean, leaky, proj, stream)
+  switch (channels) {
+    case 128: return bf16 ? SWEEP(128, true) : SWEEP(128, false);
+    case 256: return bf16 ? SWEEP(256, true) : SWEEP(256, false);
+    case 512: return bf16 ? SWEEP(512, true) : SWEEP(512, false);
+    default: return cudaErrorInvalidValue;
+  }
+#undef SWEEP
 }

@@ -69,6 +69,14 @@
 // grid-stride walk over tiles in video order would give some CTAs three
 // live tiles where the hardware's scheduler gives v3 two.
 //
+// Widths and modes: both kernels are built for C = 128, 256 and 512 (the
+// wrapper zero-pads another C) and in both of v3's modes, 3xTF32 and the
+// bf16-operand mode (BF: the JAX v2 kernel's `mm_dtype=bfloat16`,
+// wavenet_train_pallas_v2.py:82-97, :444-467, every product on bf16-rounded
+// operands, the out-projection's sweep included).  The grids are sized
+// from each instance's occupancy (`V2Cfg<C>`): above C = 128 a tile fills
+// an SM's shared memory, and both kernels run one CTA an SM on v3's tiles.
+//
 // Bound: the tensor cores at three TF32 products per f32 product (495 / 3
 // TFLOP/s on the H100), as v3; the sweep adds one [rows x C] x [C x C]
 // product per pooled layer to recompute u.
@@ -88,21 +96,32 @@ namespace {
 template <int N>
 using ic = std::integral_constant<int, N>;
 
-constexpr int FWD_MAX_TM = 64;    // the forward: v3's tiles, one CTA an SM
-constexpr int SWEEP_CTAS = 2;     // the sweep: two CTAs an SM,
-constexpr int SWEEP_MAX_TM = 32;  // on tiles of at most 32 rows,
-constexpr int SWEEP_KS = 32;      // each chunk staged 32 rows a buffer,
-constexpr int WG_PARTS = 2;       // a weight-gradient item half a span's outputs
+constexpr int WG_PARTS = 2;       // a weight-gradient item half a block's outputs
 constexpr int MAX_LAYERS = 32;
-// the forward: its largest tile's three row tiles and weight ring
-constexpr int FWD_SMEM = Tile<FWD_MAX_TM>::TAPS_SMEM;
-// the sweep: its largest tile's three row tiles and ring (the dx body; the
-// pooled dz body's dy, h and x tiles and its ring of 32-row buffers)
-constexpr int SWEEP_SMEM = Tile<SWEEP_MAX_TM>::TAPS_SMEM;
-static_assert(WG_SMEM <= SWEEP_SMEM && Tile<FWD_MAX_TM>::ONE_SMEM <= FWD_SMEM &&
-                  Tile<SWEEP_MAX_TM, 64, SWEEP_KS>::TAPS_SMEM <= SWEEP_SMEM &&
-                  SWEEP_CTAS * (SWEEP_SMEM + 1024) <= 233472,
-              "every body fits its kernel's shared memory, SWEEP_CTAS times an SM");
+
+// The grids at C channels.  C = 128: the forward on v3's tiles (up to 64
+// rows), one CTA an SM; the sweep two CTAs an SM on tiles of at most 32
+// rows, each chunk staged 32 rows a buffer.  Above C = 128 a tile of 32
+// rows (C = 256) or 16 (C = 512) fills an SM's shared memory: both kernels
+// run one CTA an SM, the sweep on v3's tiles.
+template <int C>
+struct V2Cfg {
+  static constexpr int FWD_MAX_TM = C >= 512 ? 16 : (C >= 256 ? 32 : 64);
+  static constexpr int SWEEP_CTAS = C > 128 ? 1 : 2;
+  static constexpr int SWEEP_MAX_TM = C >= 512 ? 16 : 32;
+  static constexpr int SWEEP_KS = C >= 512 ? 16 : 32;
+  // the forward: its largest tile's three row tiles and weight ring
+  static constexpr int FWD_SMEM = Tile<C, FWD_MAX_TM>::TAPS_SMEM;
+  // the sweep: its largest tile's three row tiles and ring (the dx body; the
+  // pooled dz body's dy, h and x tiles and its ring of SWEEP_KS-row buffers)
+  static constexpr int SWEEP_SMEM =
+      Tile<C, SWEEP_MAX_TM, default_kc(C, SWEEP_MAX_TM), SWEEP_KS>::TAPS_SMEM;
+  static_assert(WG_SMEM <= SWEEP_SMEM && Tile<C, FWD_MAX_TM>::ONE_SMEM <= FWD_SMEM &&
+                    Tile<C, SWEEP_MAX_TM, default_kc(C, FWD_MAX_TM), SWEEP_KS>::TAPS_SMEM <=
+                        SWEEP_SMEM &&
+                    SWEEP_CTAS * (SWEEP_SMEM + 1024) <= 233472,
+                "every body fits its kernel's shared memory, SWEEP_CTAS times an SM");
+};
 
 struct FwdLayer {
   const float* x;      // [B, T, C] layer input (masked): the stash x_i
@@ -147,20 +166,25 @@ struct SweepArgs {
   int tm_fin, kc_fin, span_fin, spans_fin;  // the out-projection's sweep grid
 };
 
-// f(ic<TM>) for the forward's row tile tm (64, 32 or 16)
-template <class F>
+// f(ic<TM>) for the forward's row tile tm (64, 32 or 16, as C allows)
+template <int C, class F>
 __device__ __forceinline__ void with_fwd_tile(int tm, F f) {
-  if (tm == 64) return f(ic<64>{});
-  if (tm == 32) return f(ic<32>{});
+  if constexpr (tile_ok(C, 64))
+    if (tm == 64) return f(ic<64>{});
+  if constexpr (tile_ok(C, 32))
+    if (tm == 32) return f(ic<32>{});
   f(ic<16>{});
 }
 
 // f(ic<TM>, ic<KC>) for a sweep body of row tile tm on v3's chunk kc
-template <class F>
+template <int C, class F>
 __device__ __forceinline__ void with_sweep_tile(int tm, int kc, F f) {
-  if (kc == 64) return f(ic<SWEEP_MAX_TM>{}, ic<64>{});  // v3's 64-row tile (cut in rows)
-  if (tm == 32) return f(ic<32>{}, ic<32>{});
-  f(ic<16>{}, ic<32>{});
+  constexpr int MAX_TM = V2Cfg<C>::SWEEP_MAX_TM;
+  if constexpr (C == 128)
+    if (kc == 64) return f(ic<MAX_TM>{}, ic<64>{});  // v3's 64-row tile (cut in rows)
+  if constexpr (MAX_TM >= 32)
+    if (tm == 32) return f(ic<32>{}, ic<default_kc(C, 32)>{});
+  f(ic<16>{}, ic<default_kc(C, 16)>{});
 }
 
 // items [0, n) in grid-stride order, the shared memory free at each start
@@ -194,31 +218,34 @@ __device__ __forceinline__ int2 live_first(int k, int B, int T, int rows, int sh
 // forward
 // ---------------------------------------------------------------------------
 
-template <int TM>
+template <int C, int TM, bool BF>
 __device__ void fwd_layer(const FwdArgs& a, int j, float* smem) {
   const FwdLayer& L = a.layer[j];
   grid_items(a.B * ((L.T + TM - 1) / TM), [&](int item) {
     const int2 bt = live_first(item, a.B, L.T, TM, L.shift, a.lengths);
-    layer_tile<TM>(L.x, L.y, L.u, L.hs, a.lengths, a.w3 + (size_t)j * 3 * C * C,
+    layer_tile<C, TM, BF>(L.x, L.y, L.u, L.hs, a.lengths, a.w3 + (size_t)j * 3 * C * C,
                    a.b3 + (size_t)j * C, a.w1 + (size_t)j * C * C, a.b1 + (size_t)j * C,
                    L.drop, bt.x, bt.y, L.T, L.d, L.shift, L.pool, 0, a.leaky, smem);
   });
 }
 
-__global__ void __launch_bounds__(NT, Tile<FWD_MAX_TM>::MIN_BLOCKS)
+template <int C, bool BF>
+__global__ void __launch_bounds__(NT, Tile<C, V2Cfg<C>::FWD_MAX_TM>::MIN_BLOCKS)
     v2_fwd_kernel(const __grid_constant__ FwdArgs a) {
+  constexpr int FWD_MAX_TM = V2Cfg<C>::FWD_MAX_TM;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
   for (int j = 0; j < a.n; ++j) {
-    with_fwd_tile(a.layer[j].tm, [&](auto tm) { fwd_layer<decltype(tm)::value>(a, j, smem); });
+    with_fwd_tile<C>(a.layer[j].tm,
+                     [&](auto tm) { fwd_layer<C, decltype(tm)::value, BF>(a, j, smem); });
     // layer j's output is read at t +- d by the next layer's other CTAs
     if (j + 1 < a.n || a.z) grid.sync();
   }
   if (a.z) {
     grid_items(a.B * ((a.t_fin + FWD_MAX_TM - 1) / FWD_MAX_TM), [&](int item) {
       const int2 bt = live_first(item, a.B, a.t_fin, FWD_MAX_TM, a.shift_fin, a.lengths);
-      proj_tile<FWD_MAX_TM>(a.layer[a.n - 1].y, a.z, a.lengths, a.wl, a.bl, bt.x, bt.y,
+      proj_tile<C, FWD_MAX_TM, BF>(a.layer[a.n - 1].y, a.z, a.lengths, a.wl, a.bl, bt.x, bt.y,
                             a.t_fin, a.shift_fin, a.leaky, smem);
     });
   }
@@ -232,10 +259,12 @@ __global__ void __launch_bounds__(NT, Tile<FWD_MAX_TM>::MIN_BLOCKS)
 // the forward's weight chunk KCF, g routed to the first max of each pair
 // (0 at an odd trailing frame and past len / 2), gm and dy = gm m to
 // scratch, then the dz body's product on the dy tile in v3's chunk KC.
-// Both products stage 32-row ring buffers (Tile<TM, KCF, SWEEP_KS>::TAPS_SMEM).
-template <int TM, int KC, int KCF>
+// Both products stage SWEEP_KS-row ring buffers (Tile<C, TM, KCF, SWEEP_KS>::TAPS_SMEM).
+template <int C, int TM, int KC, int KCF, bool BF>
 __device__ void dz_pooled_tile(const SweepArgs& a, int j, int b, int t0, float* smem) {
-  using TU = Tile<TM, KCF, SWEEP_KS>;
+  constexpr int SWEEP_KS = V2Cfg<C>::SWEEP_KS;
+  using TU = Tile<C, TM, KCF, SWEEP_KS>;
+  constexpr int LDA = TU::LDA;
   const SweepLayer& L = a.layer[j];
   float* Ds = smem;               // [TM][LDA] dy
   float* Hs = Ds + TU::TILE_F;    // [TM][LDA] h
@@ -248,13 +277,14 @@ __device__ void dz_pooled_tile(const SweepArgs& a, int j, int b, int t0, float* 
   const int row0 = (warp / TU::WN) * (16 * TU::MT), col0 = (warp % TU::WN) * (8 * TU::NTL);
   const size_t base = (size_t)b * T * C;
 
-  stage_rows<TM>(Hs, L.h + base, t0, lim);
-  stage_rows<TM>(Xs, L.x + base, t0, lim);
+  stage_rows<C, TM>(Hs, L.h + base, t0, lim);
+  stage_rows<C, TM>(Xs, L.x + base, t0, lim);
   float acc[TU::MT][TU::NTL][4] = {};
   float* const tiles[3] = {Hs, Hs, Hs};
   const float* const ws[4] = {nullptr, a.w1 + (size_t)j * C * C, nullptr, nullptr};
-  tap_loop<TM, KCF, SWEEP_KS>(acc, tiles, ws, false, false, Wr, row0, col0, lane, [](auto&) {});
-  residual(acc, Xs, a.b1 + (size_t)j * C, L.drop, b, T, t0, lim, row0, col0, lane);
+  tap_loop<C, TM, KCF, SWEEP_KS, BF>(acc, tiles, ws, false, false, Wr, row0, col0, lane,
+                                      [](auto&) {});
+  residual<C>(acc, Xs, a.b1 + (size_t)j * C, L.drop, b, T, t0, lim, row0, col0, lane);
   if (L.u)
     for_each_pair(acc, row0, col0, lane, [&](float& v0, float& v1, int row, int col) {
       if (t0 + row < lim) st2(L.u + base + (size_t)(t0 + row) * C + col, v0, v1);
@@ -296,137 +326,149 @@ __device__ void dz_pooled_tile(const SweepArgs& a, int j, int b, int t0, float* 
     }
   // (the product's first chunk waits at a barrier for every warp's dy rows;
   // its ring's first buffer held a chunk every warp has consumed)
-  dz_rows<TM, KC, SWEEP_KS>(Ds, Wr, a.w1t + (size_t)j * C * C, L.h, a.dz, b, t0, T, lim, a.leaky);
+  dz_rows<C, TM, KC, SWEEP_KS, BF>(Ds, Wr, a.w1t + (size_t)j * C * C, L.h, a.dz, b, t0, T, lim,
+                                   a.leaky);
 }
 
 // a dz tile of layer j
-template <int TM, int KC>
+template <int C, int TM, int KC, bool BF>
 __device__ __noinline__ void dz_item(const SweepArgs& a, int j, int b, int t0, float* smem) {
   const SweepLayer& L = a.layer[j];
   if (!L.pool) {
-    dz_tile<TM, KC, SWEEP_KS>(L.g, nullptr, L.h, L.drop, a.lengths,
-                                  a.w1t + (size_t)j * C * C, a.dy, a.dz, b, t0, L.T, L.shift,
-                                  0, 0, a.leaky, 0, smem);
+    dz_tile<C, TM, KC, V2Cfg<C>::SWEEP_KS, BF>(L.g, nullptr, L.h, L.drop, a.lengths,
+                                               a.w1t + (size_t)j * C * C, a.dy, a.dz, b, t0,
+                                               L.T, L.shift, 0, 0, a.leaky, 0, smem);
   } else if (L.kc_f == 64) {
-    dz_pooled_tile<TM, KC, 64>(a, j, b, t0, smem);
-  } else if constexpr (KC == 32) {  // (v3's 64-row sweep tile
-    dz_pooled_tile<TM, KC, 32>(a, j, b, t0, smem);  // follows a 64-row forward tile)
+    if constexpr (C == 128) dz_pooled_tile<C, TM, KC, 64, BF>(a, j, b, t0, smem);
+  } else if constexpr (KC <= 32) {  // (v3's 64-row sweep tile follows a 64-row
+    dz_pooled_tile<C, TM, KC, KC, BF>(a, j, b, t0, smem);  // forward tile; else kc_f = KC)
   }
 }
 
 // step A of layer j: its dz tiles
-template <int TM, int KC>
+template <int C, int TM, int KC, bool BF>
 __device__ void dz_layer(const SweepArgs& a, int j, float* smem) {
   const SweepLayer& L = a.layer[j];
   grid_items(a.B * ((L.T + TM - 1) / TM), [&](int item) {
     const int2 bt = live_first(item, a.B, L.T, TM, L.shift, a.lengths);
-    dz_item<TM, KC>(a, j, bt.x, bt.y, smem);
+    dz_item<C, TM, KC, BF>(a, j, bt.x, bt.y, smem);
   });
 }
 
+// the weight-gradient items of a span: the (C / WB)^2 output blocks, each in WG_PARTS
+template <int C>
+__host__ __device__ constexpr int span_items() { return (C / WB) * (C / WB) * WG_PARTS; }
+
 // weight-gradient item w of layer j (j < 0: of the out-projection, one job):
-// (span, video) pairs live first, then the job, then the part
+// (span, video) pairs live first, then the job, then the block and part
+template <int C, bool BF>
 __device__ __noinline__ void wgrad_item(const SweepArgs& a, int j, int w, float* smem) {
-  const int part = w % WG_PARTS, jobs = j < 0 ? 1 : 4, job = (w / WG_PARTS) % jobs;
-  w /= WG_PARTS * jobs;
+  constexpr int PER = span_items<C>();
+  const int part = w % WG_PARTS, blk = (w % PER) / WG_PARTS, jobs = j < 0 ? 1 : 4,
+            job = (w / PER) % jobs;
+  w /= PER * jobs;
   if (j < 0) {
     const int2 bs = live_first(w, a.B, a.t_fin, a.span_fin, a.shift_fin, a.lengths);
-    wgrad_span<NT, WG_PARTS>(a.x_fin, a.x_fin, a.gz, nullptr, a.lengths, a.work, a.t_fin,
-                             a.span_fin, a.spans_fin, 1, 0, a.shift_fin, 1, a.leaky,
-                             bs.y / a.span_fin, bs.x, 0, part, smem);
+    wgrad_span<C, NT, WG_PARTS, BF>(a.x_fin, a.x_fin, a.gz, nullptr, a.lengths, a.work,
+                                    a.t_fin, a.span_fin, a.spans_fin, 1, 0, a.shift_fin, 1,
+                                    a.leaky, bs.y / a.span_fin, bs.x, 0, part, blk, smem);
     return;
   }
   const SweepLayer& L = a.layer[j];
   const int2 bs = live_first(w, a.B, L.T, L.span, L.shift, a.lengths);
-  wgrad_span<NT, WG_PARTS>(L.h, L.x, a.dy, a.dz, a.lengths, a.work, L.T, L.span, L.spans, 4,
-                           L.d, L.shift, 0, a.leaky, bs.y / L.span, bs.x, job, part, smem);
+  wgrad_span<C, NT, WG_PARTS, BF>(L.h, L.x, a.dy, a.dz, a.lengths, a.work, L.T, L.span,
+                                  L.spans, 4, L.d, L.shift, 0, a.leaky, bs.y / L.span, bs.x,
+                                  job, part, blk, smem);
 }
 
 // a dx tile of layer j
-template <int TM, int KC>
+template <int C, int TM, int KC, bool BF>
 __device__ __noinline__ void dx_item(const SweepArgs& a, int j, int b, int t0, float* smem) {
   const SweepLayer& L = a.layer[j];
-  dx_tile<TM, KC, SWEEP_KS>(a.dz, L.pool ? a.gm : L.g, nullptr, a.lengths,
-                                a.w3t + (size_t)j * 3 * C * C, L.g_in, b, t0, L.T, L.d, L.shift,
-                                0, 0, smem);
+  dx_tile<C, TM, KC, V2Cfg<C>::SWEEP_KS, BF>(a.dz, L.pool ? a.gm : L.g, nullptr, a.lengths,
+                                             a.w3t + (size_t)j * 3 * C * C, L.g_in, b, t0, L.T,
+                                             L.d, L.shift, 0, 0, smem);
 }
 
 // step B of layer j: the dx tiles, then the weight-gradient spans
-template <int TM, int KC>
+template <int C, int TM, int KC, bool BF>
 __device__ void dx_wgrad_layer(const SweepArgs& a, int j, float* smem) {
   const SweepLayer& L = a.layer[j];
   const int n_tiles = a.B * ((L.T + TM - 1) / TM);
-  grid_items(n_tiles + a.B * L.spans * 4 * WG_PARTS, [&](int item) {
+  grid_items(n_tiles + a.B * L.spans * 4 * span_items<C>(), [&](int item) {
     if (item < n_tiles) {
       const int2 bt = live_first(item, a.B, L.T, TM, L.shift, a.lengths);
-      dx_item<TM, KC>(a, j, bt.x, bt.y, smem);
+      dx_item<C, TM, KC, BF>(a, j, bt.x, bt.y, smem);
     } else {
-      wgrad_item(a, j, item - n_tiles, smem);
+      wgrad_item<C, BF>(a, j, item - n_tiles, smem);
     }
   });
 }
 
 // the out-projection: its dz body (the gradient at x_fin) and its spans
-template <int TM, int KC>
+template <int C, int TM, int KC, bool BF>
 __device__ __noinline__ void proj_dz_item(const SweepArgs& a, int b, int t0, float* smem) {
-  dz_tile<TM, KC, SWEEP_KS>(a.gz, nullptr, a.x_fin, nullptr, a.lengths, a.wlt, a.dy,
-                                a.g_proj, b, t0, a.t_fin, a.shift_fin, 0, 0, a.leaky, 1, smem);
+  dz_tile<C, TM, KC, V2Cfg<C>::SWEEP_KS, BF>(a.gz, nullptr, a.x_fin, nullptr, a.lengths, a.wlt,
+                                             a.dy, a.g_proj, b, t0, a.t_fin, a.shift_fin, 0, 0,
+                                             a.leaky, 1, smem);
 }
 
-template <int TM, int KC>
+template <int C, int TM, int KC, bool BF>
 __device__ void proj_sweep(const SweepArgs& a, float* smem) {
   const int n_tiles = a.B * ((a.t_fin + TM - 1) / TM);
-  grid_items(n_tiles + a.B * a.spans_fin * WG_PARTS, [&](int item) {
+  grid_items(n_tiles + a.B * a.spans_fin * span_items<C>(), [&](int item) {
     if (item < n_tiles) {
       const int2 bt = live_first(item, a.B, a.t_fin, TM, a.shift_fin, a.lengths);
-      proj_dz_item<TM, KC>(a, bt.x, bt.y, smem);
+      proj_dz_item<C, TM, KC, BF>(a, bt.x, bt.y, smem);
     } else {
-      wgrad_item(a, -1, item - n_tiles, smem);
+      wgrad_item<C, BF>(a, -1, item - n_tiles, smem);
     }
   });
 }
 
 // layer j's partials (j < 0: the out-projection's) summed into its gradients
+template <int C>
 __device__ void reduce_layer(const SweepArgs& a, int j) {
   const int jobs = j < 0 ? 1 : 4;
-  for (int e = blockIdx.x * NT + threadIdx.x; e < jobs * PART_F; e += gridDim.x * NT) {
+  for (int e = blockIdx.x * NT + threadIdx.x; e < jobs * part_f(C); e += gridDim.x * NT) {
     if (j < 0) {
-      reduce_entry(a.work, a.lengths, a.B, a.t_fin, a.span_fin, a.spans_fin, a.shift_fin, 1, e,
+      reduce_entry<C>(a.work, a.lengths, a.B, a.t_fin, a.span_fin, a.spans_fin, a.shift_fin, 1, e,
                    a.dwl, a.dbl, nullptr, nullptr);
     } else {
       const SweepLayer& L = a.layer[j];
-      reduce_entry(a.work, a.lengths, a.B, L.T, L.span, L.spans, L.shift, 4, e,
+      reduce_entry<C>(a.work, a.lengths, a.B, L.T, L.span, L.spans, L.shift, 4, e,
                    a.dw1 + (size_t)j * C * C, a.db1 + (size_t)j * C,
                    a.dw3 + (size_t)j * 3 * C * C, a.db3 + (size_t)j * C);
     }
   }
 }
 
-#define TILE_ARGS decltype(tm)::value, decltype(kc)::value
+#define TILE_ARGS C, decltype(tm)::value, decltype(kc)::value, BF
 
-__global__ void __launch_bounds__(NT, SWEEP_CTAS)
+template <int C, bool BF>
+__global__ void __launch_bounds__(NT, V2Cfg<C>::SWEEP_CTAS)
     v2_sweep_kernel(const __grid_constant__ SweepArgs a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
   int pending = a.n;  // the layer just swept (-1: the out-projection) awaits its sum; n: none
   if (a.gz) {
-    with_sweep_tile(a.tm_fin, a.kc_fin,
+    with_sweep_tile<C>(a.tm_fin, a.kc_fin,
                     [&](auto tm, auto kc) { proj_sweep<TILE_ARGS>(a, smem); });
     grid.sync();  // g_proj is read by the last layer
     pending = -1;
   }
   for (int j = a.n - 1; j >= 0; --j) {
     const SweepLayer& L = a.layer[j];
-    with_sweep_tile(L.tm, L.kc, [&](auto tm, auto kc) { dz_layer<TILE_ARGS>(a, j, smem); });
-    if (pending < a.n) reduce_layer(a, pending);
+    with_sweep_tile<C>(L.tm, L.kc, [&](auto tm, auto kc) { dz_layer<TILE_ARGS>(a, j, smem); });
+    if (pending < a.n) reduce_layer<C>(a, pending);
     grid.sync();  // dz is read at t +- d; gm, dy, dz by the weight gradients
-    with_sweep_tile(L.tm, L.kc,
-                    [&](auto tm, auto kc) { dx_wgrad_layer<TILE_ARGS>(a, j, smem); });
+    with_sweep_tile<C>(L.tm, L.kc,
+                       [&](auto tm, auto kc) { dx_wgrad_layer<TILE_ARGS>(a, j, smem); });
     grid.sync();  // g_in feeds the layer below; the partials their sum
     pending = j;
   }
-  reduce_layer(a, 0);
+  reduce_layer<C>(a, 0);
 }
 
 #undef TILE_ARGS
@@ -460,67 +502,44 @@ cudaError_t launch_cooperative(Kernel kernel, int smem, void* arg, cudaStream_t 
   return cudaGetLastError();
 }
 
-// A v2 layer's grid: v3's (`plan_for`), the sweep's tile cut to
-// SWEEP_MAX_TM rows on v3's chunk
+// A v2 layer's grid at C channels: v3's (`plan_for`), the sweep's tile cut
+// to SWEEP_MAX_TM rows on v3's chunk
 struct V2Plan {
   int fwd_tm, kc_f, tm, kc, span, spans;
 };
 
+template <int C>
 V2Plan v2_plan(int B, int T, int jobs) {
-  const Plan p = plan_for(B, T, jobs);
+  const Plan p = plan_for(B, T, C, jobs);
   V2Plan v;
   v.fwd_tm = p.fwd_tm;
-  v.kc_f = v.fwd_tm == 64 ? 64 : 32;  // Tile<fwd_tm>::KC
-  v.kc = p.tm == 64 ? 64 : 32;        // Tile<v3's sweep tile>::KC
-  v.tm = std::min(p.tm, SWEEP_MAX_TM);
+  v.kc_f = default_kc(C, v.fwd_tm);  // Tile<C, fwd_tm>::KC
+  v.kc = default_kc(C, p.tm);        // Tile<C, v3's sweep tile>::KC
+  v.tm = std::min(p.tm, V2Cfg<C>::SWEEP_MAX_TM);
   v.span = p.span;
   v.spans = p.spans;
   return v;
 }
 
-}  // namespace
-
-// The cooperative grids: out = {the forward's largest row tile, the sweep's,
-// CTAs an SM of the forward kernel, of the sweep kernel, SMs, shared memory
-// a CTA of the forward and of the sweep (bytes), layers a chunk at most}.
-extern "C" int mucon_wavenet_train_v2_grid(int* out) {
+template <int C, bool BF>
+int v2_grid(int* out) {
+  using K = V2Cfg<C>;
   int sms = 0;
-  cudaError_t err = coop_grid(v2_fwd_kernel, FWD_SMEM, &out[2], &sms);
-  if (err == cudaSuccess) err = coop_grid(v2_sweep_kernel, SWEEP_SMEM, &out[3], &sms);
-  out[0] = FWD_MAX_TM;
-  out[1] = SWEEP_MAX_TM;
+  cudaError_t err = coop_grid(v2_fwd_kernel<C, BF>, K::FWD_SMEM, &out[2], &sms);
+  if (err == cudaSuccess) err = coop_grid(v2_sweep_kernel<C, BF>, K::SWEEP_SMEM, &out[3], &sms);
+  out[0] = K::FWD_MAX_TM;
+  out[1] = K::SWEEP_MAX_TM;
   out[4] = sms;
-  out[5] = FWD_SMEM;
-  out[6] = SWEEP_SMEM;
+  out[5] = K::FWD_SMEM;
+  out[6] = K::SWEEP_SMEM;
   out[7] = MAX_LAYERS;
   return err;
 }
 
-// The grid of a v2 layer of B videos x T frames: out = {forward row tile,
-// its weight chunk, the sweep's row tile, its weight chunk (v3's),
-// weight-gradient span, spans a video}.  The sweep's `work` holds B * spans *
-// jobs * (C + 1) * C floats for its largest layer (jobs = 4, or 1 for the
-// out-projection).
-extern "C" int mucon_wavenet_train_v2_plan(int B, int T, int jobs, int* out) {
-  if (B <= 0 || T <= 0 || jobs <= 0) return cudaErrorInvalidValue;
-  const V2Plan p = v2_plan(B, T, jobs);
-  const int v[6] = {p.fwd_tm, p.kc_f, p.tm, p.kc, p.span, p.spans};
-  for (int i = 0; i < 6; ++i) out[i] = v[i];
-  return cudaSuccess;
-}
-
-// One forward chunk (see the top of the file).  Host tables, per layer of
-// the chunk in order: ptrs[5 j ..] = x, y, hs, drop, u (drop and u may be
-// null; u is written only on a pooled layer), ints[4 j ..] = T, d, pools
-// before it, pooled.  w3 / b3 / w1 / b1 point at the chunk's first layer; z
-// (with wl, bl) is null except on the last chunk.
-extern "C" int mucon_wavenet_train_v2_fwd(void* const* ptrs, const int* ints, int n,
-                                          const float* w3, const float* b3, const float* w1,
-                                          const float* b1, const float* wl, const float* bl,
-                                          float* z, const int* lengths, int B, int channels,
-                                          int t_fin, int shift_fin, int leaky,
-                                          cudaStream_t stream) {
-  if (channels != C || B <= 0 || n < 1 || n > MAX_LAYERS) return cudaErrorInvalidValue;
+template <int C, bool BF>
+int v2_fwd(void* const* ptrs, const int* ints, int n, const float* w3, const float* b3,
+           const float* w1, const float* b1, const float* wl, const float* bl, float* z,
+           const int* lengths, int B, int t_fin, int shift_fin, int leaky, cudaStream_t stream) {
   FwdArgs a = {};
   for (int j = 0; j < n; ++j) {
     const int T = ints[4 * j];
@@ -531,35 +550,26 @@ extern "C" int mucon_wavenet_train_v2_fwd(void* const* ptrs, const int* ints, in
                           static_cast<const float*>(ptrs[5 * j + 3]),
                           static_cast<float*>(ptrs[5 * j + 4]),
                           T, ints[4 * j + 1], ints[4 * j + 2], ints[4 * j + 3],
-                          v2_plan(B, T, 4).fwd_tm};
+                          v2_plan<C>(B, T, 4).fwd_tm};
   }
   a.w3 = w3; a.b3 = b3; a.w1 = w1; a.b1 = b1; a.wl = wl; a.bl = bl; a.z = z;
   a.lengths = lengths; a.n = n; a.B = B; a.t_fin = t_fin; a.shift_fin = shift_fin;
   a.leaky = leaky;
-  return launch_cooperative(v2_fwd_kernel, FWD_SMEM, &a, stream);
+  return launch_cooperative(v2_fwd_kernel<C, BF>, V2Cfg<C>::FWD_SMEM, &a, stream);
 }
 
-// One sweep chunk.  Host tables, per layer of the chunk in layer order:
-// ptrs[6 j ..] = x, h, drop (or null), g, g_in, u (a copy of the recomputed
-// pre-pool output, or null); ints[4 j ..] = T, d, pools before it, pooled.
-// On the last chunk gz (with x_fin, wlt = Wl^T, dwl, dbl) is given and the
-// kernel writes the last layer's g itself; otherwise gz is null.  scratch
-// holds three buffers of `rows` x C floats (gm, dy, dz; rows >= B x the
-// longest T), work `work_floats` (`mucon_wavenet_train_v2_plan`).
-extern "C" int mucon_wavenet_train_v2_sweep(
-    void* const* ptrs, const int* ints, int n, const float* w3t, const float* w1,
-    const float* w1t, const float* b1, float* dw3, float* db3, float* dw1, float* db1,
-    const float* gz, const float* x_fin, const float* wlt, float* dwl, float* dbl,
-    float* scratch, long rows, float* work, long work_floats, const int* lengths, int B,
-    int channels, int t_fin, int shift_fin, int leaky, cudaStream_t stream) {
-  if (channels != C || B <= 0 || n < 1 || n > MAX_LAYERS || t_fin <= 0)
-    return cudaErrorInvalidValue;
+template <int C, bool BF>
+int v2_sweep(void* const* ptrs, const int* ints, int n, const float* w3t, const float* w1,
+             const float* w1t, const float* b1, float* dw3, float* db3, float* dw1, float* db1,
+             const float* gz, const float* x_fin, const float* wlt, float* dwl, float* dbl,
+             float* scratch, long rows, float* work, long work_floats, const int* lengths,
+             int B, int t_fin, int shift_fin, int leaky, cudaStream_t stream) {
   SweepArgs a = {};
   long need = 0;
   for (int j = 0; j < n; ++j) {
     const int T = ints[4 * j];
     if (T <= 0 || (long)B * T > rows) return cudaErrorInvalidValue;
-    const V2Plan p = v2_plan(B, T, 4);
+    const V2Plan p = v2_plan<C>(B, T, 4);
     a.layer[j] = SweepLayer{static_cast<const float*>(ptrs[6 * j]),
                             static_cast<const float*>(ptrs[6 * j + 1]),
                             static_cast<const float*>(ptrs[6 * j + 2]),
@@ -568,12 +578,12 @@ extern "C" int mucon_wavenet_train_v2_sweep(
                             static_cast<float*>(ptrs[6 * j + 5]),
                             T, ints[4 * j + 1], ints[4 * j + 2], ints[4 * j + 3],
                             p.tm, p.kc, p.kc_f, p.span, p.spans};
-    need = std::max(need, (long)B * p.spans * 4 * PART_F);
+    need = std::max(need, (long)B * p.spans * 4 * part_f(C));
   }
-  const V2Plan pf = v2_plan(B, t_fin, 1);
+  const V2Plan pf = v2_plan<C>(B, t_fin, 1);
   if (gz) {
     if ((long)B * t_fin > rows) return cudaErrorInvalidValue;
-    need = std::max(need, (long)B * pf.spans * PART_F);
+    need = std::max(need, (long)B * pf.spans * part_f(C));
   }
   if (need > work_floats) return cudaErrorInvalidValue;
   a.w3t = w3t; a.w1 = w1; a.w1t = w1t; a.b1 = b1;
@@ -586,5 +596,85 @@ extern "C" int mucon_wavenet_train_v2_sweep(
   a.work = work; a.lengths = lengths;
   a.n = n; a.B = B; a.t_fin = t_fin; a.shift_fin = shift_fin; a.leaky = leaky;
   a.tm_fin = pf.tm; a.kc_fin = pf.kc; a.span_fin = pf.span; a.spans_fin = pf.spans;
-  return launch_cooperative(v2_sweep_kernel, SWEEP_SMEM, &a, stream);
+  return launch_cooperative(v2_sweep_kernel<C, BF>, V2Cfg<C>::SWEEP_SMEM, &a, stream);
+}
+
+// f(ic<C>, bool) for channels 128, 256, 512 and the mode; another width is refused
+template <class F>
+int with_width(int channels, int bf16, F f) {
+  switch (channels) {
+    case 128: return bf16 ? f(ic<128>{}, std::true_type{}) : f(ic<128>{}, std::false_type{});
+    case 256: return bf16 ? f(ic<256>{}, std::true_type{}) : f(ic<256>{}, std::false_type{});
+    case 512: return bf16 ? f(ic<512>{}, std::true_type{}) : f(ic<512>{}, std::false_type{});
+    default: return cudaErrorInvalidValue;  // the wrapper pads another width to one of these
+  }
+}
+
+}  // namespace
+
+// The cooperative grids at C channels in the mode bf16: out = {the
+// forward's largest row tile, the sweep's, CTAs an SM of the forward kernel,
+// of the sweep kernel, SMs, shared memory a CTA of the forward and of the
+// sweep (bytes), layers a chunk at most}.
+extern "C" int mucon_wavenet_train_v2_grid(int channels, int bf16, int* out) {
+  return with_width(channels, bf16, [&](auto c, auto bf) {
+    return v2_grid<decltype(c)::value, decltype(bf)::value>(out);
+  });
+}
+
+// The grid of a v2 layer of B videos x T frames x C channels: out = {forward
+// row tile, its weight chunk, the sweep's row tile, its weight chunk (v3's),
+// weight-gradient span, spans a video}.  The sweep's `work` holds B * spans
+// * jobs * (C + 1) * C floats for its largest layer (jobs = 4, or 1 for the
+// out-projection).
+extern "C" int mucon_wavenet_train_v2_plan(int B, int T, int channels, int jobs, int* out) {
+  if (B <= 0 || T <= 0 || jobs <= 0) return cudaErrorInvalidValue;
+  return with_width(channels, 0, [&](auto c, auto) {
+    const V2Plan p = v2_plan<decltype(c)::value>(B, T, jobs);
+    const int v[6] = {p.fwd_tm, p.kc_f, p.tm, p.kc, p.span, p.spans};
+    for (int i = 0; i < 6; ++i) out[i] = v[i];
+    return (int)cudaSuccess;
+  });
+}
+
+// One forward chunk (see the top of the file) at C = 128, 256 or 512
+// channels; bf16 = 1: the bf16-operand mode.  Host tables, per layer of the
+// chunk in order: ptrs[5 j ..] = x, y, hs, drop, u (drop and u may be null; u
+// is written only on a pooled layer), ints[4 j ..] = T, d, pools before it,
+// pooled.  w3 / b3 / w1 / b1 point at the chunk's first layer; z (with wl,
+// bl) is null except on the last chunk.
+extern "C" int mucon_wavenet_train_v2_fwd(void* const* ptrs, const int* ints, int n,
+                                          const float* w3, const float* b3, const float* w1,
+                                          const float* b1, const float* wl, const float* bl,
+                                          float* z, const int* lengths, int B, int channels,
+                                          int t_fin, int shift_fin, int leaky, int bf16,
+                                          cudaStream_t stream) {
+  if (B <= 0 || n < 1 || n > MAX_LAYERS) return cudaErrorInvalidValue;
+  return with_width(channels, bf16, [&](auto c, auto bf) {
+    return v2_fwd<decltype(c)::value, decltype(bf)::value>(ptrs, ints, n, w3, b3, w1, b1, wl,
+                                                           bl, z, lengths, B, t_fin, shift_fin,
+                                                           leaky, stream);
+  });
+}
+
+// One sweep chunk (bf16 = 1: the bf16-operand mode, the out-projection's
+// sweep included, as the JAX v2 kernel).  Host tables, per layer of the chunk
+// in layer order: ptrs[6 j ..] = x, h, drop (or null), g, g_in, u (a copy of
+// the recomputed pre-pool output, or null); ints[4 j ..] = T, d, pools
+// before it, pooled.  On the last chunk gz (with x_fin, wlt = Wl^T, dwl, dbl)
+// is given and the kernel writes the last layer's g itself; otherwise gz is
+// null.  scratch holds three buffers of `rows` x C floats (gm, dy, dz; rows
+// >= B x the longest T), work `work_floats` (`mucon_wavenet_train_v2_plan`).
+extern "C" int mucon_wavenet_train_v2_sweep(
+    void* const* ptrs, const int* ints, int n, const float* w3t, const float* w1,
+    const float* w1t, const float* b1, float* dw3, float* db3, float* dw1, float* db1,
+    const float* gz, const float* x_fin, const float* wlt, float* dwl, float* dbl,
+    float* scratch, long rows, float* work, long work_floats, const int* lengths, int B,
+    int channels, int t_fin, int shift_fin, int leaky, int bf16, cudaStream_t stream) {
+  if (B <= 0 || n < 1 || n > MAX_LAYERS || t_fin <= 0) return cudaErrorInvalidValue;
+  return with_width(channels, bf16, [&](auto c, auto bf) {
+    return v2_sweep<decltype(c)::value, decltype(bf)::value>(
+        ptrs, ints, n, w3t, w1, w1t, b1, dw3, db3, dw1, db1, gz, x_fin, wlt, dwl, dbl, scratch,
+        rows, work, work_floats, lengths, B, t_fin, shift_fin, leaky, stream);
+  });
 }

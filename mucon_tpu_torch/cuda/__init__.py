@@ -37,7 +37,19 @@ mode (`mm_dtype=torch.bfloat16`, the JAX package's
 `tpu.kernel_mm_dtype=bfloat16`: every product's operands rounded to bf16,
 one bf16 tensor-core product a 16-deep k-step, f32 sums and state) counts
 under its own name: `wavenet_layer_bf16`, `wavenet_train_fwd_bf16`,
-`wavenet_train_sweep_bf16`, `mstcnpp_stack_bf16`.
+`wavenet_train_sweep_bf16`, `mstcnpp_stack_bf16`, `wavenet_train_v2_fwd_bf16`,
+`wavenet_train_v2_sweep_bf16`.
+
+Widths.  The stack kernels are built for C = 128, 256 and 512 channels
+(`STACK_WIDTHS`; the row tile shrinks as C grows, so that a tile still fits
+an SM); a wrapper given another C up to 512 zero-pads x, the weights, the
+biases and the dropout masks to the next built width (`stack_width`) and
+slices the outputs and gradients back.  That is exact: a padded channel is
+0 through the conv, the (leaky) ReLU, the residual and the pool, its
+weights' rows and columns are 0, and a +0 product changes no f32 partial.
+The recurrences (BiLSTM, decoder chain) take every H from 1 to 512 as it
+is, on an even or a ragged split of the units over a cluster.  Above 512 a
+wrapper raises a ValueError that names the limit.
 """
 
 from __future__ import annotations
@@ -68,7 +80,7 @@ KERNELS = (
     "decoder_chain_fwd", "decoder_chain_bwd", "mucon_flint", "mstcnpp_stack",
     "wavenet_train_v2_fwd", "wavenet_train_v2_sweep",
     "wavenet_layer_bf16", "wavenet_train_fwd_bf16", "wavenet_train_sweep_bf16",
-    "mstcnpp_stack_bf16",
+    "mstcnpp_stack_bf16", "wavenet_train_v2_fwd_bf16", "wavenet_train_v2_sweep_bf16",
 )
 # the decoder chain's weights a CTA keeps, its [Tz / CL] score rows and the
 # reverse chain's [Tz x H / CL] slices live in shared memory: a kernel's need
@@ -145,14 +157,14 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             P, I = ctypes.c_void_p, ctypes.c_int
             lib.mucon_wavenet_layer.argtypes = [P] * 7 + [I] * 10 + [P]
-            lib.mucon_wavenet_tile_rows.argtypes = []
+            lib.mucon_wavenet_tile_rows.argtypes = [I]
             lib.mucon_bilstm_recurrence.argtypes = [P] * 7 + [I] * 3 + [P]
             lib.mucon_dense_viterbi.argtypes = [P] * 8 + [I] * 8 + [P]
             lib.mucon_viterbi_smem.argtypes = [I] * 5
             lib.mucon_viterbi_smem.restype = ctypes.c_size_t
             lib.mucon_wavenet_train_fwd.argtypes = [P] * 10 + [I] * 9 + [P]
             lib.mucon_wavenet_train_sweep.argtypes = [P] * 16 + [I] * 10 + [P]
-            lib.mucon_wavenet_train_plan.argtypes = [I, I, I, ctypes.POINTER(I)]
+            lib.mucon_wavenet_train_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
             lib.mucon_bilstm_fwd_plan.argtypes = [I, I, ctypes.POINTER(I)]
             lib.mucon_bilstm_bwd_coefs.argtypes = [P] * 7 + [I] * 3 + [P]
             lib.mucon_bilstm_bwd_chain.argtypes = [P] * 7 + [I] * 3 + [P]
@@ -165,16 +177,16 @@ def load() -> ctypes.CDLL:
             lib.mucon_decoder_chain_fwd_launch.argtypes = [I] * 4 + [ctypes.POINTER(I)]
             lib.mucon_flint.argtypes = [P] * 9 + [I] * 5 + [P]
             lib.mucon_mstcnpp_layer.argtypes = [P] * 7 + [I] * 8 + [P]
-            lib.mucon_mstcnpp_tile_rows.argtypes = []
+            lib.mucon_mstcnpp_tile_rows.argtypes = [I]
             lib.mucon_mstcnpp_proj.argtypes = [P] * 5 + [I] * 5 + [P]
             # per-layer pointer and int tables are host arrays
             PP, IP = ctypes.POINTER(P), ctypes.POINTER(I)
-            lib.mucon_wavenet_train_v2_fwd.argtypes = [PP, IP, I] + [P] * 8 + [I] * 5 + [P]
+            lib.mucon_wavenet_train_v2_fwd.argtypes = [PP, IP, I] + [P] * 8 + [I] * 6 + [P]
             L = ctypes.c_long
             lib.mucon_wavenet_train_v2_sweep.argtypes = ([PP, IP, I] + [P] * 14 + [L, P, L, P]
-                                                         + [I] * 5 + [P])
-            lib.mucon_wavenet_train_v2_grid.argtypes = [IP]
-            lib.mucon_wavenet_train_v2_plan.argtypes = [I, I, I, IP]
+                                                         + [I] * 6 + [P])
+            lib.mucon_wavenet_train_v2_grid.argtypes = [I, I, IP]
+            lib.mucon_wavenet_train_v2_plan.argtypes = [I, I, I, I, IP]
             for fn in (lib.mucon_wavenet_layer, lib.mucon_wavenet_tile_rows,
                        lib.mucon_bilstm_recurrence,
                        lib.mucon_dense_viterbi, lib.mucon_wavenet_train_fwd,
@@ -234,12 +246,50 @@ def _lengths_i32(lengths, B, device, name) -> torch.Tensor:
     return lengths.to(torch.int32).contiguous()
 
 
+# the channel widths the stack kernels are built for (csrc/wavenet_layer.cuh,
+# mstcnpp.cu); another C up to the last is zero-padded to the next of them
+STACK_WIDTHS = (128, 256, 512)
+
+
+def stack_width(C: int) -> int:
+    """The built width a stack kernel runs C channels at: the least of
+    `STACK_WIDTHS` not below C (C itself at 128, 256, 512).  Raises for C
+    above 512 (no kernel is built for it) or below 1."""
+    if not 1 <= C <= STACK_WIDTHS[-1]:
+        raise ValueError(f"the stack kernels take 1 to {STACK_WIDTHS[-1]} channels, got C={C} "
+                         f"(a width above {STACK_WIDTHS[-1]} is not built)")
+    return next(w for w in STACK_WIDTHS if w >= C)
+
+
+def pad_channels(t, Cp: int, dims):
+    """t with each dimension in `dims` zero-padded at its end to Cp (t
+    itself where none is short; None stays None)."""
+    if t is None or all(t.shape[d] == Cp for d in dims):
+        return t
+    shape = list(t.shape)
+    for d in dims:
+        shape[d] = Cp
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
+def _pad_stack(Cp, x, w3, b3, w1, b1, w_last, b_last):
+    """A WaveNet stack's input and packed weights zero-padded to Cp channels."""
+    return (pad_channels(x, Cp, (2,)), pad_channels(w3, Cp, (2, 3)), pad_channels(b3, Cp, (1,)),
+            pad_channels(w1, Cp, (1, 2)), pad_channels(b1, Cp, (1,)),
+            pad_channels(w_last, Cp, (0, 1)), pad_channels(b_last, Cp, (0,)))
+
+
+def _pad_masks(drop_masks, Cp):
+    return None if drop_masks is None else [pad_channels(m, Cp, (2,)) for m in drop_masks]
+
+
 def _check_packed(x, stages, w3, b3, w1, b1, w_last, b_last) -> torch.device:
     dev = _cuda_device(x)
     B, T, C = x.shape
     L = len(stages)
-    if C != 128:
-        raise ValueError(f"the wavenet kernels take C=128, got {C}")
+    stack_width(C)
     if w3.shape != (L, 3, C, C) or w1.shape != (L, C, C) or b3.shape != (L, C) \
             or b1.shape != (L, C) or w_last.shape != (C, C) or b_last.shape != (C,):
         raise ValueError("packed wavenet weights do not match x / stages")
@@ -269,10 +319,11 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def wavenet_tile_rows() -> int:
-    """Rows a CTA of `wavenet_layer` owns (csrc/wavenet_stack.cu TM); a
-    tile at or past its video's length is skipped."""
-    return load().mucon_wavenet_tile_rows()
+def wavenet_tile_rows(C: int = 128) -> int:
+    """Rows a CTA of `wavenet_layer` owns at C channels (csrc/wavenet_stack.cu
+    `eval_tm` of `stack_width(C)`: 64, 32 at 256, 16 at 512); a tile at or
+    past its video's length is skipped."""
+    return load().mucon_wavenet_tile_rows(stack_width(C))
 
 
 def _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16) -> torch.Tensor:
@@ -293,9 +344,13 @@ def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
     """The eval stack of `ops/wavenet_stack.py` on the card: one
     `wavenet_layer` launch per layer and one for the out-projection
     (`mm_dtype=torch.bfloat16`: the bf16-operand mode, `wavenet_layer_bf16`).
-    x [B x T x 128] f32 -> (z [B x T/2^p x 128], lengths >> p)."""
+    x [B x T x C] f32, C <= 512 (zero-padded to `stack_width(C)`) ->
+    (z [B x T/2^p x C], lengths >> p)."""
     bf16 = bf16_mode(mm_dtype)
     dev = _check_packed(x, stages, w3, b3, w1, b1, w_last, b_last)
+    C0 = x.shape[2]
+    x, w3, b3, w1, b1, w_last, b_last = _pad_stack(stack_width(C0), x, w3, b3, w1, b1, w_last,
+                                                   b_last)
     B, T, C = x.shape
     lens = _lengths_i32(lengths, B, dev, "lengths")
     lib, stream = load(), _stream(dev)
@@ -315,30 +370,30 @@ def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
         if pool:
             t, shift = t // 2, shift + 1
         h = out
-    return (_out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16),
-            lengths >> shift)
+    z = _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16)
+    return (z if C == C0 else z[..., :C0].contiguous()), lengths >> shift
 
 
-def wavenet_train_plan(B: int, T: int, jobs: int = 4) -> dict:
-    """The grid of a `wavenet_train.cu` layer of B videos x T frames
-    (`plan_for`, chosen from the shape alone): the rows a CTA of the
-    forward (`fwd_tile_rows`) and of the sweep's dz and dx kernels
-    (`tile_rows`) owns (64, 32 or 16), and the rows a weight-gradient CTA
-    sums (`span_rows`, `spans` a video) with `jobs` products a layer (4;
-    1 for the out-projection)."""
+def wavenet_train_plan(B: int, T: int, jobs: int = 4, C: int = 128) -> dict:
+    """The grid of a `wavenet_train.cu` layer of B videos x T frames x C
+    channels (`plan_for`, chosen from the shape alone, at `stack_width(C)`):
+    the rows a CTA of the forward (`fwd_tile_rows`) and of the sweep's dz
+    and dx kernels (`tile_rows`) owns (64, 32 or 16, as many as fit an SM
+    at that width), and the rows a weight-gradient CTA sums (`span_rows`,
+    `spans` a video) with `jobs` products a layer (4; 1 for the
+    out-projection)."""
     out = (ctypes.c_int * 4)()
     lib = load()
-    err = lib.mucon_wavenet_train_plan(B, T, jobs, out)
+    err = lib.mucon_wavenet_train_plan(B, T, stack_width(C), jobs, out)
     if err:
         raise ValueError(f"no wavenet_train grid for B={B}, T={T}, jobs={jobs}")
     return dict(fwd_tile_rows=out[0], tile_rows=out[1], span_rows=out[2], spans=out[3])
 
 
-def _work_floats(plan, B: int, layers) -> int:
+def _work_floats(plan, B: int, C: int, layers) -> int:
     """Floats of the sweep's weight-gradient partials: B x spans x jobs
-    partials of (C + 1) x C (C = 128), for the largest of `layers` ((T,
-    jobs) pairs)."""
-    return max(B * plan(B, t, jobs)["spans"] * jobs for t, jobs in layers) * (128 + 1) * 128
+    partials of (C + 1) x C, for the largest of `layers` ((T, jobs) pairs)."""
+    return max(B * plan(B, t, jobs, C)["spans"] * jobs for t, jobs in layers) * (C + 1) * C
 
 
 def wavenet_train_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks, *,
@@ -347,13 +402,17 @@ def wavenet_train_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks
     launch per layer and one `wavenet_layer` out-projection launch (in the
     bf16-operand mode with `mm_dtype=torch.bfloat16`: `wavenet_train_fwd_bf16`
     and `wavenet_layer_bf16`).
-    x [B x T x 128] (masked), drop_masks one [B x t_i x 128] mask per layer
+    x [B x T x C] (masked), drop_masks one [B x t_i x C] mask per layer
     or None -> (z, stash) with stash = (xs, hs, us, x_fin): each layer's
-    input, nonlin(z) and (pooled layers, by index) pre-pool output.  hs and
-    us hold the rows t < length only (the sweep reads no other); their rows
-    at t >= length are undefined."""
+    input, nonlin(z) and (pooled layers, by index) pre-pool output, at
+    `stack_width(C)` channels (zero-padded).  hs and us hold the rows
+    t < length only (the sweep reads no other); their rows at t >= length
+    are undefined."""
     bf16 = bf16_mode(mm_dtype)
     dev = _check_packed(x, stages, w3, b3, w1, b1, w_last, b_last)
+    C0 = x.shape[2]
+    Cp = stack_width(C0)
+    x, w3, b3, w1, b1, w_last, b_last = _pad_stack(Cp, x, w3, b3, w1, b1, w_last, b_last)
     B, T, C = x.shape
     lens = _lengths_i32(lengths, B, dev, "lengths")
     lib, stream = load(), _stream(dev)
@@ -364,9 +423,10 @@ def wavenet_train_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks
         pool = i in pooling_layers
         m = None if drop_masks is None else drop_masks[i]
         if m is not None:
-            if m.shape != (B, t, C):
+            if m.shape != (B, t, C0):
                 raise ValueError(f"dropout mask {i} has shape {tuple(m.shape)}, "
-                                 f"expected {(B, t, C)}")
+                                 f"expected {(B, t, C0)}")
+            m = pad_channels(m, C, (2,))
             _require(dev, torch.float32, mask=m)
         hs_i = torch.empty(B, t, C, device=dev, dtype=torch.float32)
         out = torch.empty(B, t // 2 if pool else t, C, device=dev, dtype=torch.float32)
@@ -384,14 +444,15 @@ def wavenet_train_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks
             t, shift = t // 2, shift + 1
         h = out
     z = _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16)
-    return z, (xs, hs, us, h)
+    return (z if C == C0 else z[..., :C0].contiguous()), (xs, hs, us, h)
 
 
 def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
                            stages, pooling_layers, pooling_type, leaky, mm_dtype=None):
     """Backward sweep of the trainable stack on the card: the
     out-projection's sweep, then one `wavenet_train_sweep` per layer, last
-    first.  gz [B x t_fin x 128] -> (gx, dw3, db3, dw1, db1, dw_last, db_last).
+    first.  gz [B x t_fin x C] -> (gx, dw3, db3, dw1, db1, dw_last, db_last),
+    at C channels (the stash's are `stack_width(C)`, sliced back here).
     `mm_dtype=torch.bfloat16` runs the bf16-operand mode
     (`wavenet_train_sweep_bf16`), except for the out-projection's sweep when
     the last layer pools: the JAX package then takes that projection's
@@ -402,6 +463,11 @@ def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
     dev = _cuda_device(gz)
     B, T, C = xs[0].shape
     L = len(stages)
+    C0 = w_last.shape[0]
+    gz = pad_channels(gz, C, (2,))
+    w3, w1, w_last = (pad_channels(w3, C, (2, 3)), pad_channels(w1, C, (1, 2)),
+                      pad_channels(w_last, C, (0, 1)))
+    drop_masks = _pad_masks(drop_masks, C)
     if gz.shape != x_fin.shape:
         raise ValueError(f"gz {tuple(gz.shape)} does not match z {tuple(x_fin.shape)}")
     gz = gz.contiguous()
@@ -423,8 +489,8 @@ def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
     n_pools = len(us)
     t_fin = x_fin.shape[1]
     dy = torch.empty(B, T, C, **f32)  # scratch, sized for the longest layer
-    work = torch.empty(_work_floats(wavenet_train_plan, B, ((x_fin.shape[1], 1),
-                                                         *((x.shape[1], 4) for x in xs))),
+    work = torch.empty(_work_floats(wavenet_train_plan, B, C, ((x_fin.shape[1], 1),
+                                                            *((x.shape[1], 4) for x in xs))),
                        **f32)
 
     def sweep(g, u, x, h, m, w1t_i, w3t_i, dz, g_in, dw1_i, db1_i, dw3_i, db3_i,
@@ -454,7 +520,27 @@ def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
         sweep(g, us.get(i), x_i, hs[i], m, w1t[i], w3t[i], dz, g_in, dw1[i], db1[i],
               dw3[i], db3[i], t, stages[i], shift, pooled, False, bf16)
         g = g_in
-    return g, dw3, db3, dw1, db1, dwl, dbl
+    return _unpad_grads(C0, g, dw3, db3, dw1, db1, dwl, dbl)
+
+
+def _unpad_grads(C0, gx, dw3, db3, dw1, db1, dwl, dbl):
+    """A stack's gradients at C0 channels, from those at its padded width."""
+    if gx.shape[2] == C0:
+        return gx, dw3, db3, dw1, db1, dwl, dbl
+    c = slice(0, C0)
+    return (gx[..., c].contiguous(), dw3[..., c, c].contiguous(), db3[:, c].contiguous(),
+            dw1[:, c, c].contiguous(), db1[:, c].contiguous(), dwl[c, c].contiguous(),
+            dbl[c].contiguous())
+
+
+# the widest hidden size the recurrences take (csrc/bilstm.cu, decoder_chain.cu MAX_H)
+MAX_H = 512
+
+
+def _check_width(H: int, what: str) -> None:
+    if not 1 <= H <= MAX_H:
+        raise ValueError(f"{what} takes a hidden size from 1 to {MAX_H}, got H={H} "
+                         f"(a width above {MAX_H} is not built)")
 
 
 def _cluster_width(H: int) -> int:
@@ -463,26 +549,45 @@ def _cluster_width(H: int) -> int:
     return next((c for c in (8, 4, 2) if H % c == 0 and H // c >= 16), 1)
 
 
+def _ragged_width(H: int) -> int:
+    """The cluster of a ragged split (`ragged_width` in csrc/bilstm.cu and
+    decoder_chain.cu): 8 CTAs from H = 64, 4 from 32, 2 from 16, else 1;
+    CTA r takes units [r H / CL, (r + 1) H / CL)."""
+    return 8 if H >= 64 else 4 if H >= 32 else 2 if H >= 16 else 1
+
+
+def units_of(rank: int, cl: int, H: int) -> range:
+    """The hidden units CTA `rank` of a cluster of `cl` takes (`units_of`):
+    the even split where cl divides H, else ceil or floor of H / cl."""
+    return range(rank * H // cl, (rank + 1) * H // cl)
+
+
+def _fwd_split(H: int, cl: int, hs: int, any_kc: bool):
+    for nt in (256, 512):
+        if 4 * hs > nt or 8 * hs > nt:
+            continue
+        nk = nt // (4 * hs)
+        kc = (-(-H // nk) + 3) // 4 * 4
+        if kc <= 64 or (any_kc and nt == 512):
+            return cl, hs, nt, nk, kc
+    return None
+
+
 def bilstm_fwd_plan(H: int) -> tuple:
     """How the forward recurrence splits a hidden size H (`fwd_plan` in
-    csrc/bilstm.cu): (cluster width CL, hidden units per CTA HS, threads
+    csrc/bilstm.cu): (cluster width CL, most hidden units a CTA HS, threads
     per CTA NT, k-groups NK, k-rows per group KC).  Each CTA's 4 HS gate
     columns times NK groups of KC rows (a multiple of 4) cover the
-    [H x 4H] w_hh slice, KC weights a thread in registers.  NT is the least
-    of 256, 512 that holds the columns, a thread per unit for 8
-    videos, and KC <= 64; raises for an H that no NT fits."""
-    if H >= 1:
-        cl = _cluster_width(H)
-        hs = H // cl
-        for nt in (256, 512):
-            if 4 * hs > nt or 8 * hs > nt:
-                continue
-            nk = nt // (4 * hs)
-            kc = (-(-H // nk) + 3) // 4 * 4
-            if kc <= 64:
-                return cl, hs, nt, nk, kc
-    raise ValueError(f"the forward recurrence cannot split H={H} over a cluster "
-                     f"(at most 64 weights a thread)")
+    [H x 4H] w_hh slice.  NT is the least of 256, 512 that holds the
+    columns and a thread per unit for 8 videos.  The even split
+    (`_cluster_width`, CL | H) where KC <= 64 (the weights a thread keeps in
+    registers); else the ragged split (`_ragged_width`, `units_of`), its
+    weights in registers where KC <= 64 and read from L2 where KC is above.
+    Every H from 1 to 512; raises above."""
+    _check_width(H, "the forward recurrence")
+    cl = _cluster_width(H)
+    rl = _ragged_width(H)
+    return _fwd_split(H, cl, H // cl, False) or _fwd_split(H, rl, -(-H // rl), True)
 
 
 BILSTM_FWD_PLAN_KEYS = ("cl", "threads", "nk", "kc", "clusters", "active")
@@ -533,7 +638,7 @@ def bilstm_recurrence(xp, m, w_hh):
     """xp [T x 2 x B x 4H], m [T x B], w_hh [2 x H x 4H] (f32) ->
     (outs [T x 2 x B x H], h [2 x B x H], c [2 x B x H]): one
     thread-block cluster per direction and 8 videos, w_hh resident in its
-    registers (`bilstm_fwd_plan`)."""
+    registers, or read from L2 where they do not hold it (`bilstm_fwd_plan`)."""
     return _bilstm_forward(xp, m, w_hh, False, "bilstm_recurrence")[:3]
 
 
@@ -543,35 +648,33 @@ def bilstm_train_forward(xp, m, w_hh):
     return _bilstm_forward(xp, m, w_hh, True, "bilstm_train_fwd")
 
 
-# the chain kernel's tiling (csrc/bilstm.cu): videos per cluster, threads per CTA
-BILSTM_CHAIN_BT, BILSTM_CHAIN_THREADS = 8, 256
+# the chain kernel's tiling (csrc/bilstm.cu): videos per cluster, threads per
+# CTA of the even split (NTC) and of the ragged one (NTW)
+BILSTM_CHAIN_BT, BILSTM_CHAIN_THREADS, BILSTM_CHAIN_WIDE_THREADS = 8, 256, 512
 
 
 def bilstm_chain_plan(H: int) -> tuple:
     """How the reverse chain splits a hidden size H (`chain_plan` in
-    csrc/bilstm.cu): (cluster width CL, columns per CTA HS, thread groups
-    NQ, gate rows per group GPQ).  CL is `_cluster_width(H)`.  Raises for
-    an H the kernel does not take: more than 32 columns a CTA (one thread
-    per video and column) or more than 128 weights a thread."""
+    csrc/bilstm.cu): (cluster width CL, most columns a CTA HS, thread groups
+    NQ, gate rows per group GPQ).  The even split (`_cluster_width`) on 256
+    threads, GPQ <= 128 weights a thread in registers, where it leaves at
+    most 32 columns a CTA (a thread per video and column); else the ragged
+    split (`_ragged_width`, `units_of`) on 512 threads, each reading its GPQ
+    rows of w_hh from L2 every step.  Every H from 1 to 512; raises above."""
+    _check_width(H, "the reverse chain")
     cl = _cluster_width(H)
-    hs = H // cl
-    if H < 1 or BILSTM_CHAIN_BT * hs > BILSTM_CHAIN_THREADS:
-        raise ValueError(f"the reverse chain cannot split H={H}: {hs} columns a CTA, "
-                         f"at most {BILSTM_CHAIN_THREADS // BILSTM_CHAIN_BT}")
-    nq = BILSTM_CHAIN_THREADS // hs
-    gpq = (-(-4 * H // nq) + 3) // 4 * 4
-    if gpq > 128:
-        raise ValueError(f"the reverse chain takes at most 128 weights a thread, "
-                         f"H={H} needs {gpq}")
-    return cl, hs, nq, gpq
+    hs, nt = H // cl, BILSTM_CHAIN_THREADS
+    if BILSTM_CHAIN_BT * hs > nt:
+        cl = _ragged_width(H)
+        hs, nt = -(-H // cl), BILSTM_CHAIN_WIDE_THREADS
+    nq = nt // hs
+    return cl, hs, nq, (-(-4 * H // nq) + 3) // 4 * 4
 
 
 def _check_bilstm_bwd(dev, T, B, H, **tensors):
-    """The reverse chain's H limits and the shapes of its inputs:
+    """The reverse chain's H limit and the shapes of its inputs:
     [T x 2 x B x H] each, but dh and dc [2 x B x H] and coefs
     [6 x T x 2 x B x H]."""
-    if 4 * H > 1024:
-        raise ValueError(f"the reverse chain takes 4H <= 1024, got H={H}")
     bilstm_chain_plan(H)
     for name, t in tensors.items():
         shape = {"dh": (2, B, H), "dc": (2, B, H), "coefs": (6, T, 2, B, H)}.get(
@@ -750,12 +853,11 @@ def decoder_chain_fwd_plan(H: int) -> tuple:
     combine layer and the gates are warp GEMVs (a warp's lanes split k):
     in pass p, warp w takes the combine layer's columns 32 p + 4 w .. + 3
     of the CTA's HS and the gate columns 64 p + 8 w .. + 7 of its 4 HS.
-    Raises for an H the kernel does not take: H above 256 (a thread a
-    unit where a CTA writes its units' state)."""
-    if 1 <= H <= DECODER_CHAIN_FWD_THREADS:
-        cl = _cluster_width(H)
-        return cl, H // cl, DECODER_CHAIN_FWD_THREADS
-    raise ValueError(f"the forward decoder chain cannot split H={H} over a cluster")
+    Every H from 1 to 512 (a CTA's threads stride over its units where it
+    writes their state); raises above."""
+    _check_width(H, "the forward decoder chain")
+    cl = _cluster_width(H)
+    return cl, H // cl, DECODER_CHAIN_FWD_THREADS
 
 
 DECODER_CHAIN_FWD_LAUNCH_KEYS = ("cl", "hs", "threads", "clusters", "active", "weights",
@@ -808,18 +910,23 @@ def decoder_chain_forward(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, b
     return hs, cs, comb
 
 
-# the reverse chain's threads per CTA (csrc/decoder_chain.cu NTB)
-DECODER_CHAIN_THREADS = 256
+# the reverse chain's threads per CTA (csrc/decoder_chain.cu NTB, and NTW
+# on a ragged split)
+DECODER_CHAIN_THREADS, DECODER_CHAIN_WIDE_THREADS = 256, 512
 
 
 def decoder_chain_plan(H: int) -> tuple:
     """How the reverse chain splits a hidden size H over a cluster
-    (`bwd_plan` in csrc/decoder_chain.cu): (cluster width CL, units per CTA
-    HS, dgate row groups NQ, rows per group RQ).  CL is `_cluster_width(H)`;
-    a CTA's 2 HS output columns of dgate [Wih; Whh]^T take NQ = 256 / (2 HS)
-    groups of RQ rows (a multiple of 4).  Raises for an H the kernel does
-    not take: HS not a multiple of 4 or above 32, H above 256 (a thread a
-    unit), or RQ above 64 (the weights a thread keeps in registers)."""
+    (`bwd_plan` in csrc/decoder_chain.cu): (cluster width CL, most units a
+    CTA HS, dgate row groups NQ, rows per group RQ).  A CTA's 2 HS output
+    columns of dgate [Wih; Whh]^T take NQ groups of RQ rows (a multiple of
+    4).  The even split: CL = `_cluster_width(H)`, HS a multiple of 4 of at
+    most 32, 256 threads (a thread a unit), NQ = 256 / (2 HS), RQ <= 64 (the
+    weights a thread keeps in registers).  Where that does not hold, the
+    ragged split: CL = `_ragged_width(H)` CTAs of `units_of`, 512 threads,
+    NQ = 512 / (2 HS), the weights read from L2 every step.  Every H from 1
+    to 512; raises above."""
+    _check_width(H, "the reverse decoder chain")
     cl = _cluster_width(H)
     hs = H // cl
     if 4 <= H <= DECODER_CHAIN_THREADS and hs % 4 == 0 and hs <= 32:
@@ -827,7 +934,10 @@ def decoder_chain_plan(H: int) -> tuple:
         rq = (-(-4 * H // nq) + 3) // 4 * 4
         if rq <= 64:
             return cl, hs, nq, rq
-    raise ValueError(f"the reverse decoder chain cannot split H={H} over a cluster")
+    cl = _ragged_width(H)
+    hs = -(-H // cl)
+    nq = DECODER_CHAIN_WIDE_THREADS // (2 * hs)
+    return cl, hs, nq, (-(-4 * H // nq) + 3) // 4 * 4
 
 
 def decoder_chain_replay(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2, bc, wih,
@@ -972,10 +1082,11 @@ def mucon_flint(scale, xloc, sdiv, seg, target, n_len, t_valid, class_weights=No
     return out
 
 
-def mstcnpp_tile_rows() -> int:
-    """Rows of a video that one CTA of the MS-TCN++ kernels owns; a tile whose
-    first row is at or past the video's length is skipped."""
-    return load().mucon_mstcnpp_tile_rows()
+def mstcnpp_tile_rows(C: int = 128) -> int:
+    """Rows of a video that one CTA of the MS-TCN++ kernels owns at C
+    channels (`Ms<stack_width(C)>::TM`: 64, 32 at 256, 16 at 512); a tile
+    whose first row is at or past the video's length is skipped."""
+    return load().mucon_mstcnpp_tile_rows(stack_width(C))
 
 
 def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
@@ -984,16 +1095,15 @@ def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
     `mstcnpp_stack` launch per layer (d1 = 2^(L-1-i), d2 = 2^i) and one for
     the out-projection, each on the tensor cores in error-compensated TF32
     (`ops/tf32.py`), or with `mm_dtype=torch.bfloat16` in the bf16-operand
-    mode (`mstcnpp_stack_bf16`).  x [B x T x 128] f32 -> (z [B x T/2^p x 128],
-    lengths >> p)."""
+    mode (`mstcnpp_stack_bf16`).  x [B x T x C] f32, C <= 512 (zero-padded
+    to `stack_width(C)`) -> (z [B x T/2^p x C], lengths >> p)."""
     bf16 = bf16_mode(mm_dtype)
     dev = _cuda_device(x)
     if x.dim() != 3:
         raise ValueError(f"x must be [B x T x C], got {tuple(x.shape)}")
     B, T, C = x.shape
     L = w3a.shape[0]
-    if C != 128:
-        raise ValueError(f"the MS-TCN++ kernel takes C=128, got {C}")
+    Cp = stack_width(C)
     for name, t, shape in (("w3a", w3a, (L, 3, C, C)), ("b3a", b3a, (L, C)),
                            ("w3b", w3b, (L, 3, C, C)), ("b3b", b3b, (L, C)),
                            ("w1t", w1t, (L, C, C)), ("w1b", w1b, (L, C, C)), ("b1", b1, (L, C)),
@@ -1002,10 +1112,14 @@ def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     _require(dev, torch.float32, x=x, w3a=w3a, b3a=b3a, w3b=w3b, b3b=b3b, w1t=w1t, w1b=w1b,
              b1=b1, w_out=w_out, b_out=b_out)
+    C0, C = C, Cp
+    x, w3a, w3b, w1t, w1b, w_out = (pad_channels(t, C, dims) for t, dims in (
+        (x, (2,)), (w3a, (2, 3)), (w3b, (2, 3)), (w1t, (1, 2)), (w1b, (1, 2)), (w_out, (0, 1))))
+    b3a, b3b, b1, b_out = (pad_channels(t, C, (t.dim() - 1,)) for t in (b3a, b3b, b1, b_out))
     lens = _lengths_i32(lengths, B, dev, "lengths")
     lib, stream = load(), _stream(dev)
     # a layer's eight [C x C] blocks as one [8C x C] matrix: the kernel's k-loop
-    # streams its rows in order (once per call; 4 MiB at 11 layers)
+    # streams its rows in order (once per call; 4 MiB at 11 layers and C = 128)
     w = torch.cat([w3a.reshape(L, 3 * C, C), w3b.reshape(L, 3 * C, C), w1t, w1b], dim=1)
     h, t, shift = x, T, 0
     for i in range(L):
@@ -1027,7 +1141,7 @@ def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
                                  w_out.data_ptr(), b_out.data_ptr(), B, t, C, shift, int(bf16),
                                  stream)
     _check_launch(lib, err, _mode("mstcnpp_stack", bf16))
-    return z, lengths >> shift
+    return (z if C == C0 else z[..., :C0].contiguous()), lengths >> shift
 
 
 def _tables(ptrs, ints):
@@ -1043,28 +1157,30 @@ V2_PLAN_KEYS = ("fwd_tile_rows", "fwd_chunk_rows", "sweep_tile_rows", "sweep_chu
                 "span_rows", "spans")
 
 
-def wavenet_train_v2_grid() -> dict:
-    """The v2 kernels' cooperative grids (`mucon_wavenet_train_v2_grid`):
-    the forward's and the sweep's largest row tiles, the CTAs an SM that
-    each kernel keeps resident (its grid is that times the SMs), the SMs,
-    each kernel's shared memory a CTA and the most layers a chunk holds."""
+def wavenet_train_v2_grid(C: int = 128, mm_dtype=None) -> dict:
+    """The v2 kernels' cooperative grids at C channels in the mode `mm_dtype`
+    (`mucon_wavenet_train_v2_grid`, sized from the occupancy of the kernels
+    built for `stack_width(C)`): the forward's and the sweep's largest row
+    tiles, the CTAs an SM that each kernel keeps resident (its grid is that
+    times the SMs), the SMs, each kernel's shared memory a CTA and the most
+    layers a chunk holds."""
     lib = load()
     out = (ctypes.c_int * 8)()
-    err = lib.mucon_wavenet_train_v2_grid(out)
+    err = lib.mucon_wavenet_train_v2_grid(stack_width(C), int(bf16_mode(mm_dtype)), out)
     if err:
         raise RuntimeError(f"wavenet_train_v2 grid: {lib.mucon_cuda_error_string(err).decode()}")
     return dict(zip(V2_GRID_KEYS, out))
 
 
-def wavenet_train_v2_plan(B: int, T: int, jobs: int = 4) -> dict:
-    """The grid of a v2 layer of B videos x T frames
+def wavenet_train_v2_plan(B: int, T: int, jobs: int = 4, C: int = 128) -> dict:
+    """The grid of a v2 layer of B videos x T frames x C channels
     (`mucon_wavenet_train_v2_plan`): v3's (`wavenet_train_plan`), the
     forward's row tile and its weight chunk, the sweep's row tile on v3's
-    weight chunk (cut in rows to fit two CTAs an SM), and the
+    weight chunk (at C = 128 cut in rows to fit two CTAs an SM), and the
     weight-gradient span (`spans` a video).  An output's sum depends on
     the chunk, not on the rows: on v3's chunks v2 adds as v3 does."""
     out = (ctypes.c_int * 6)()
-    if load().mucon_wavenet_train_v2_plan(B, T, jobs, out):
+    if load().mucon_wavenet_train_v2_plan(B, T, stack_width(C), jobs, out):
         raise ValueError(f"no wavenet_train_v2 grid for B={B}, T={T}, jobs={jobs}")
     return dict(zip(V2_PLAN_KEYS, out))
 
@@ -1077,15 +1193,22 @@ def _check_chunks(bounds) -> None:
 
 
 def wavenet_train_v2_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks, *,
-                             stages, pooling_layers, leaky, bounds, u_out=None):
+                             stages, pooling_layers, leaky, bounds, u_out=None, mm_dtype=None):
     """Forward of the v2 trainable stack (max pooling): one cooperative
-    `wavenet_train_v2_fwd` launch per chunk [lo, hi) of `bounds`.  x
-    [B x T x 128] (masked), drop_masks one [B x t_i x 128] mask per layer or
+    `wavenet_train_v2_fwd` launch per chunk [lo, hi) of `bounds`
+    (`mm_dtype=torch.bfloat16`: the bf16-operand mode,
+    `wavenet_train_v2_fwd_bf16`, the JAX v2 kernel's `mm_dtype`).  x
+    [B x T x C] (masked), drop_masks one [B x t_i x C] mask per layer or
     None -> (z, stash) with stash = (xs, hs): the L + 1 layer inputs (xs[L]
-    the out-projection's input) and the L nonlin(z).  Given a dict
-    `u_out`, each pooled layer's pre-pool output is written to u_out[i]
-    too (rows t < length; the others undefined), for a check."""
+    the out-projection's input) and the L nonlin(z), at `stack_width(C)`
+    channels (zero-padded).  Given a dict `u_out`, each pooled layer's
+    pre-pool output is written to u_out[i] too (rows t < length; the others
+    undefined; padded channels), for a check."""
+    bf16 = bf16_mode(mm_dtype)
     dev = _check_packed(x, stages, w3, b3, w1, b1, w_last, b_last)
+    C0 = x.shape[2]
+    x, w3, b3, w1, b1, w_last, b_last = _pad_stack(stack_width(C0), x, w3, b3, w1, b1, w_last,
+                                                   b_last)
     B, T, C = x.shape
     L = len(stages)
     _check_chunks(bounds)
@@ -1095,16 +1218,20 @@ def wavenet_train_v2_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_ma
     n_pools = sum(pooled)
     f32 = dict(device=dev, dtype=torch.float32)
     xs, hs, z = [x], [], None
+    padded = {}
     for lo, hi in bounds:
         ptrs, ints = [], []
         for i in range(lo, hi):
             t, shift, pool = t_ins[i], shifts[i], pooled[i]
             m = None if drop_masks is None else drop_masks[i]
             if m is not None:
-                if m.shape != (B, t, C):
+                if m.shape != (B, t, C0):
                     raise ValueError(f"dropout mask {i} has shape {tuple(m.shape)}, "
-                                     f"expected {(B, t, C)}")
+                                     f"expected {(B, t, C0)}")
+                m = pad_channels(m, C, (2,))
                 _require(dev, torch.float32, mask=m)
+                if i not in padded:  # kept alive until the launch
+                    padded[i] = m
             hs.append(torch.empty(B, t, C, **f32))
             xs.append(torch.empty(B, t // 2 if pool else t, C, **f32))
             u = None
@@ -1119,24 +1246,32 @@ def wavenet_train_v2_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_ma
             *_tables(ptrs, ints), hi - lo, w3[lo].data_ptr(), b3[lo].data_ptr(),
             w1[lo].data_ptr(), b1[lo].data_ptr(), _ptr(w_last if last else None),
             _ptr(b_last if last else None), _ptr(z if last else None), lens.data_ptr(),
-            B, C, t_fin, n_pools, int(leaky), stream,
+            B, C, t_fin, n_pools, int(leaky), int(bf16), stream,
         )
-        _check_launch(lib, err, "wavenet_train_v2_fwd")
-    return z, (xs, hs)
+        _check_launch(lib, err, _mode("wavenet_train_v2_fwd", bf16))
+    return (z if C == C0 else z[..., :C0].contiguous()), (xs, hs)
 
 
 def wavenet_train_v2_backward(gz, stash, lengths, w3, w1, b1, w_last, drop_masks, *,
-                              stages, pooling_layers, leaky, bounds, u_out=None):
+                              stages, pooling_layers, leaky, bounds, u_out=None, mm_dtype=None):
     """Backward of the v2 trainable stack: one cooperative
     `wavenet_train_v2_sweep` launch per chunk, last chunk first (it also
-    sweeps the out-projection).  gz [B x t_fin x 128] -> (gx, dw3, db3, dw1,
+    sweeps the out-projection; `mm_dtype=torch.bfloat16`: the bf16-operand
+    mode, `wavenet_train_v2_sweep_bf16`, the out-projection's sweep in it
+    too, as the JAX v2 kernel).  gz [B x t_fin x C] -> (gx, dw3, db3, dw1,
     db1, dw_last, db_last).  Given a dict `u_out`, each pooled layer's
     pre-pool output as the sweep recomputed it is written to u_out[i] (rows
     t < length), for a check."""
+    bf16 = bf16_mode(mm_dtype)
     xs, hs = stash
     dev = _cuda_device(gz)
     B, T, C = xs[0].shape
     L = len(stages)
+    C0 = w_last.shape[0]
+    gz = pad_channels(gz, C, (2,))
+    w3, w1, b1, w_last = (pad_channels(w3, C, (2, 3)), pad_channels(w1, C, (1, 2)),
+                          pad_channels(b1, C, (1,)), pad_channels(w_last, C, (0, 1)))
+    drop_masks = _pad_masks(drop_masks, C)
     if gz.shape != xs[L].shape:
         raise ValueError(f"gz {tuple(gz.shape)} does not match z {tuple(xs[L].shape)}")
     _check_chunks(bounds)
@@ -1155,7 +1290,7 @@ def wavenet_train_v2_backward(gz, stash, lengths, w3, w1, b1, w_last, drop_masks
     db3, db1 = torch.empty(L, C, **f32), torch.empty(L, C, **f32)
     dwl, dbl = torch.empty(C, C, **f32), torch.empty(C, **f32)
     scratch = torch.empty(3 * B * T * C, **f32)  # gm, dy and dz of the longest layer
-    work = torch.empty(_work_floats(wavenet_train_v2_plan, B,
+    work = torch.empty(_work_floats(wavenet_train_v2_plan, B, C,
                                     ((t_fin, 1), *((t, 4) for t in t_ins))), **f32)
     g_in = [torch.empty(B, t, C, **f32) for t in t_ins]
     g_proj = torch.empty(B, t_fin, C, **f32)  # the gradient at x_fin
@@ -1179,7 +1314,7 @@ def wavenet_train_v2_backward(gz, stash, lengths, w3, w1, b1, w_last, drop_masks
             _ptr(xs[L] if proj else None), _ptr(wlt if proj else None),
             _ptr(dwl if proj else None), _ptr(dbl if proj else None), scratch.data_ptr(),
             B * T, work.data_ptr(), work.numel(), lens.data_ptr(), B, C, t_fin, n_pools,
-            int(leaky), stream,
+            int(leaky), int(bf16), stream,
         )
-        _check_launch(lib, err, "wavenet_train_v2_sweep")
-    return g_in[0], dw3, db3, dw1, db1, dwl, dbl
+        _check_launch(lib, err, _mode("wavenet_train_v2_sweep", bf16))
+    return _unpad_grads(C0, g_in[0], dw3, db3, dw1, db1, dwl, dbl)

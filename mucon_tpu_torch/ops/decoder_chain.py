@@ -154,12 +154,37 @@ def decoder_chain_replay_plain(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc
     return torch.stack(acts, dim=1), torch.stack(cpres), torch.stack(atts), torch.stack(us)
 
 
+def _rows_grouped(a, w, size: int):
+    """a @ w as partial products over w's rows in groups of `size`, added
+    in group order."""
+    out = a[:, :size] @ w[:size]
+    for k0 in range(size, w.shape[0], size):
+        out = out + a[:, k0:k0 + size] @ w[k0:k0 + size]
+    return out
+
+
 def decoder_chain_bwd_chain_plain(acts, cpre, a, u, c_in, enc, v, wc2, wih, whh, wl2, dhs,
-                                  dcs, dcomb_ext):
+                                  dcs, dcomb_ext, plan=None):
     """The sequential part of the reverse chain (`_chain_bwd_kernel`,
     decoder_pallas.py:139) from the replayed steps -> (dgate [S x B x 4H],
-    dcpre [S x B x H], dsc [S x B x Tz], dh0, dc0)."""
+    dcpre [S x B x H], dsc [S x B x Tz], dh0, dc0).  With `plan` (CL, HS,
+    NQ, RQ, `cuda.decoder_chain_plan`), in the cluster kernel's sum order:
+    dgate [Wih; Whh]^T as partial products over RQ dgate rows a group,
+    added in group order; da = enc Wc2 dcpre and dq Wl2^T as partials over
+    each CTA's units (`cuda.units_of`: the even or the ragged split), added
+    in rank order."""
     S = c_in.shape[0]
+    if plan is not None:
+        cl, _, _, rq = plan
+        H = c_in.shape[2]
+        ranks = [slice(r * H // cl, (r + 1) * H // cl) for r in range(cl)]
+        K = torch.bmm(enc, wc2[None].expand(enc.shape[0], -1, -1))  # [B x Tz x H]
+
+        def by_ranks(x, w):  # x [B x H], w [H x N]: sum_r x[:, J_r] w[J_r]
+            out = x[:, ranks[0]] @ w[ranks[0]]
+            for j in ranks[1:]:
+                out = out + x[:, j] @ w[j]
+            return out
     dh_c = torch.zeros_like(c_in[0])
     dc_c = torch.zeros_like(c_in[0])
     dgate, dcpre, dsc = [None] * S, [None] * S, [None] * S
@@ -172,26 +197,36 @@ def decoder_chain_bwd_chain_plain(acts, cpre, a, u, c_in, enc, v, wc2, wih, whh,
         dc_c = dct * f
         dg = torch.cat([dct * g * i * (1.0 - i), dct * c * f * (1.0 - f),
                         dct * i * (1.0 - g * g), dh * tc * o * (1.0 - o)], dim=-1)
-        dcomb = dg @ wih.t() + dcomb_ext[s]
+        if plan is None:
+            dcomb = dg @ wih.t() + dcomb_ext[s]
+        else:
+            dcomb = _rows_grouped(dg, wih.t(), rq) + dcomb_ext[s]
         dcp = dcomb * (cpre[s] > 0.0).to(dcomb.dtype)
-        da = torch.bmm(enc, (dcp @ wc2.t())[:, :, None])[:, :, 0]
+        if plan is None:
+            da = torch.bmm(enc, (dcp @ wc2.t())[:, :, None])[:, :, 0]
+        else:  # the ranks' partials of K dcpre over their units
+            da = torch.stack([by_ranks(dcp[b][None], K[b].t())[0]
+                              for b in range(K.shape[0])])
         ds = a[s] * (da - torch.sum(a[s] * da, dim=-1, keepdim=True))
         dq = torch.sum(ds[:, :, None] * v * (1.0 - u[s] * u[s]), dim=1)
-        dh_c = dg @ whh.t() + dq @ wl2.t()
+        if plan is None:
+            dh_c = dg @ whh.t() + dq @ wl2.t()
+        else:
+            dh_c = _rows_grouped(dg, whh.t(), rq) + by_ranks(dq, wl2.t())
         dgate[s], dcpre[s], dsc[s] = dg, dcp, ds
     return torch.stack(dgate), torch.stack(dcpre), torch.stack(dsc), dh_c, dc_c
 
 
 def decoder_chain_bwd_plain(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2,
-                            bc, wih, whh, bl, dhs, dcs, dcomb_ext):
+                            bc, wih, whh, bl, dhs, dcs, dcomb_ext, plan=None):
     """Reverse (dh, dc) chain from the step inputs h_in / c_in [S x B x H]
     and the cotangents of (hs, cs, comb) -> (dgate [S x B x 4H],
     dcpre [S x B x H], dsc [S x B x Tz], dh0, dc0): the replay of every
-    step, then the chain."""
+    step, then the chain (`plan`: in the cluster kernel's sum order)."""
     acts, cpre, a, u = decoder_chain_replay_plain(emb, enc, pre, maskf, h_in, c_in, wl2, bl2,
                                                   v, wc1, wc2, bc, wih, whh, bl)
     return decoder_chain_bwd_chain_plain(acts, cpre, a, u, c_in, enc, v, wc2, wih, whh, wl2,
-                                         dhs, dcs, dcomb_ext)
+                                         dhs, dcs, dcomb_ext, plan)
 
 
 def _chain_forward(*args):

@@ -21,6 +21,14 @@ final h, c [2, B, H].  Gate order i, f, g, o (torch nn.LSTM).
   twins below.
 * `bilstm_bwd_coefs_plain`, `bilstm_bwd_chain_plain` — the plain twins of
   the backward's two kernels.
+
+The twins take the kernels' split order as an option: `k_groups=(NK, KC)`
+sums each step's h w_hh as NK partial products over k-rows [g KC,
+(g + 1) KC), added in group order, then xp (the forward and the
+coefficient pass, `cuda.bilstm_fwd_plan`); `row_groups=GPQ` sums the
+chain's dgate w_hh^T as partial products over gate rows [q GPQ,
+(q + 1) GPQ) in group order (`cuda.bilstm_chain_plan`).  Which CTA of a
+cluster holds a unit changes no sum.
 * `bilstm_recurrence_train` — train dispatch: autograd of the plain
   recurrence on CPU tensors, the Function on CUDA tensors.
 """
@@ -30,16 +38,31 @@ from __future__ import annotations
 import torch
 
 
-def bilstm_recurrence_plain(xp, m, w_hh, stash: bool = False):
+def _grouped(a, w, size: int):
+    """a @ w (batched) as partial products over the contracted dimension in
+    groups of `size`, added in group order."""
+    K = w.shape[-2]
+    out = torch.bmm(a[..., :size], w[:, :size])
+    for k0 in range(size, K, size):
+        out = out + torch.bmm(a[..., k0:k0 + size], w[:, k0:k0 + size])
+    return out
+
+
+def _gate_product(h, w_hh, k_groups):
+    return torch.bmm(h, w_hh) if k_groups is None else _grouped(h, w_hh, k_groups[1])
+
+
+def bilstm_recurrence_plain(xp, m, w_hh, stash: bool = False, k_groups=None):
     """-> (outs, h, c), and the cell trajectory cs [T, 2, B, H] last when
-    `stash` (the twin of the train kernel's extra output)."""
+    `stash` (the twin of the train kernel's extra output); `k_groups` (NK,
+    KC): the forward kernel's sum order."""
     T, _, B, H4 = xp.shape
     H = H4 // 4
     h = xp.new_zeros(2, B, H)
     c = xp.new_zeros(2, B, H)
     outs, cs = [], []
     for t in range(T):
-        gates = xp[t] + torch.bmm(h, w_hh)
+        gates = xp[t] + _gate_product(h, w_hh, k_groups)
         i, f, g, o = gates.split(H, dim=-1)
         c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_new = torch.sigmoid(o) * torch.tanh(c_new)
@@ -65,17 +88,23 @@ def bilstm_recurrence(xp, m, w_hh):
     return cuda.bilstm_recurrence(xp, m, w_hh)
 
 
-def bilstm_bwd_coefs_plain(xp, m, w_hh, outs, cs):
+def bilstm_bwd_coefs_plain(xp, m, w_hh, outs, cs, k_groups=None):
     """The six factors of the reverse chain for every step at once,
     coefs [6, T, 2, B, H] = (A, Ci, Cf, Cg, Co, F), from the stash: step t
     consumed h_prev = outs[t - 1] and c_prev = cs[t - 1] (zeros at t = 0), so
     its gates are one batched product.  With tc = tanh(f c_prev + i g):
     A = m o (1 - tc^2), Ci = g i (1 - i), Cf = c_prev f (1 - f),
-    Cg = i (1 - g^2), Co = m tc o (1 - o), F = f."""
-    H = w_hh.shape[1]
+    Cg = i (1 - g^2), Co = m tc o (1 - o), F = f.  `k_groups`: the forward
+    kernel's sum order, which the coefficient pass keeps."""
+    T, _, B, H = outs.shape
     h_prev = torch.cat([torch.zeros_like(outs[:1]), outs[:-1]])
     c_prev = torch.cat([torch.zeros_like(cs[:1]), cs[:-1]])
-    gates = xp + torch.einsum("tdbh,dhg->tdbg", h_prev, w_hh)
+    if k_groups is None:
+        gates = xp + torch.einsum("tdbh,dhg->tdbg", h_prev, w_hh)
+    else:  # the directions as the batch, the steps and videos as rows
+        rows = h_prev.permute(1, 0, 2, 3).reshape(2, T * B, H)
+        prod = _grouped(rows, w_hh, k_groups[1]).reshape(2, T, B, 4 * H).permute(1, 0, 2, 3)
+        gates = xp + prod
     i, f, g, o = gates.split(H, dim=-1)
     i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
     tc = torch.tanh(f * c_prev + i * g)
@@ -84,12 +113,12 @@ def bilstm_bwd_coefs_plain(xp, m, w_hh, outs, cs):
                         i * (1 - g * g), mm * tc * o * (1 - o), f])
 
 
-def bilstm_bwd_chain_plain(coefs, m, w_hh, douts, dh, dc):
+def bilstm_bwd_chain_plain(coefs, m, w_hh, douts, dh, dc, row_groups=None):
     """The sequential pass: dxp [T, 2, B, 4H] from the factors and the
     cotangents of (outs, h_fin, c_fin) — the arithmetic of the JAX reverse
     kernel (lstm_pallas.py:212-233), regrouped around the factors.  A padded
     step (m = 0) emits dgate = 0 and passes dh + douts[t] and dc on
-    unchanged."""
+    unchanged.  `row_groups` (GPQ): the chain kernel's sum order."""
     T = douts.shape[0]
     w_t = w_hh.transpose(1, 2)  # [2, 4H, H]
     dxp = [None] * T
@@ -101,7 +130,8 @@ def bilstm_bwd_chain_plain(coefs, m, w_hh, douts, dh, dc):
         dgate = torch.cat([dct * ci, dct * cf, dct * cg, dht * co], dim=-1)
         dxp[t] = dgate
         dc = dct * f + (1 - mm) * dc
-        dh = torch.bmm(dgate, w_t) + (1 - mm) * dht
+        prod = torch.bmm(dgate, w_t) if row_groups is None else _grouped(dgate, w_t, row_groups)
+        dh = prod + (1 - mm) * dht
     return torch.stack(dxp) if T else douts.new_zeros(0, 2, douts.shape[2], w_hh.shape[2])
 
 

@@ -69,13 +69,20 @@ def wavenet_stack_plain(
     leaky: bool = False,
     drop_masks=None,
     mm_dtype=None,
+    round_proj_grads=None,
+    pool_inputs=None,
 ):
     """Plain PyTorch stack. Returns (z [B x T/2^p x C], lengths >> p).
     `drop_masks` (train): one dropout mask [B x t_i x C] per layer,
     multiplied into the 1x1 conv's output before the residual.  With
     `mm_dtype=torch.bfloat16` every product rounds its operands to bf16; the
     out-projection's gradient does not when the last layer pools (the JAX
-    package takes it in f32 outside its kernel then)."""
+    package's v3 takes it in f32 outside its kernel then) unless
+    `round_proj_grads` is True (its v2, which takes it in the kernel).
+    `pool_inputs` (a check's): {pooled layer: the pre-pool values} that
+    the max pool compares in place of the twin's own (the gradient still
+    flows through the twin's), so that a pair within rounding of a tie
+    routes its gradient as the kernel that produced them routes it."""
     x = mask_time(x, lengths)
     ln = lengths
     for i, d in enumerate(stages):
@@ -90,11 +97,14 @@ def wavenet_stack_plain(
             y = y * drop_masks[i]
         x = mask_time(y + x, ln)
         if i in pooling_layers:
+            if pool_inputs is not None:
+                x = pool_inputs[i] + (x - x.detach())
             x = pool2_time(x, pooling_type)
             ln = ln // 2
             x = mask_time(x, ln)
-    last_pooled = len(stages) - 1 in pooling_layers
-    x = _product(nonlinearity(x, leaky), w_last, mm_dtype, not last_pooled) + b_last
+    if round_proj_grads is None:
+        round_proj_grads = len(stages) - 1 not in pooling_layers
+    x = _product(nonlinearity(x, leaky), w_last, mm_dtype, round_proj_grads) + b_last
     return mask_time(x, ln), ln
 
 

@@ -17,6 +17,12 @@ pool's gradient to the first maximum of each pair.
   plain twin `wavenet_stack_train_plain` with max pooling, a CUDA tensor the
   Function (which raises on what the kernels do not take).
 
+`mm_dtype=torch.bfloat16` is the JAX v2 kernel's `mm_dtype=jnp.bfloat16`
+(wavenet_train_pallas_v2.py:82-97, :444-467): every product on bf16-rounded
+operands with f32 sums, the out-projection's gradient products too (v3
+takes those in f32 when the last layer pools; v2 does not): the twin with
+`round_proj_grads=True`, the kernels' bf16 mode.
+
 The dropout masks are inputs (one [B x t_i x C] tensor per layer, or None);
 the JAX version draws them by threefry from a seed, which the port has no
 counterpart of.  The TPU version's VMEM byte-budget split of the chunks
@@ -62,7 +68,7 @@ class WaveNetStackTrainV2(torch.autograd.Function):
 
         x = mask_time(x, lengths).contiguous()
         kw = dict(stages=statics["stages"], pooling_layers=statics["pooling_layers"],
-                  leaky=statics["leaky"])
+                  leaky=statics["leaky"], mm_dtype=statics["mm_dtype"])
         z, stash = cuda.wavenet_train_v2_forward(
             x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks,
             bounds=statics["fwd_bounds"], **kw,
@@ -92,23 +98,25 @@ def wavenet_stack_train_v2(
     leaky: bool = False,
     sweep_chunks: int = 3,
     fwd_chunks: int = 0,
+    mm_dtype=None,
 ):
     """Differentiable stack with max pooling: (z [B x T/2^p x C],
     lengths >> p).  The plain twin on a CPU tensor; the CUDA kernels on a
     CUDA tensor, the forward in `fwd_chunks(...)` launches and the sweep in
-    `sweep_chunks`."""
+    `sweep_chunks` (`mm_dtype=torch.bfloat16`: the bf16-operand mode)."""
     stages = tuple(int(d) for d in stages)
     pools = tuple(int(p) for p in pooling_layers)
     if x.device.type == "cpu":
         return wavenet_stack_train_plain(
             x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks=drop_masks,
             stages=stages, pooling_layers=pools, pooling_type="max", leaky=bool(leaky),
+            mm_dtype=mm_dtype, round_proj_grads=True if mm_dtype is not None else None,
         )
     L = len(stages)
     masks = None if drop_masks is None else tuple(drop_masks)
     # any positive rate: the masks are given, not drawn
     n_fwd = _fwd_chunk_count(0.0 if masks is None else 1.0, sweep_chunks, fwd_chunks)
-    statics = dict(stages=stages, pooling_layers=pools, leaky=bool(leaky),
+    statics = dict(stages=stages, pooling_layers=pools, leaky=bool(leaky), mm_dtype=mm_dtype,
                    fwd_bounds=chunk_bounds(L, n_fwd),
                    sweep_bounds=chunk_bounds(L, sweep_chunks))
     z = WaveNetStackTrainV2.apply(x, lengths, w3, b3, w1, b1, w_last, b_last, masks, statics)

@@ -256,9 +256,9 @@ def test_model_forward_kernels_match_plain(dev):
 
 
 def test_kernel_wrappers_refuse_bad_input(dev):
-    x = torch.zeros(2, 32, 64, device=dev)  # the stack kernel takes C = 128
-    w = torch.zeros(1, 3, 64, 64, device=dev)
-    with pytest.raises(ValueError, match="C=128"):
+    x = torch.zeros(2, 32, 513, device=dev)  # the stack kernels take C <= 512
+    w = torch.zeros(1, 3, 513, 513, device=dev)
+    with pytest.raises(ValueError, match="above 512"):
         wavenet_stack(x, torch.tensor([32, 32], device=dev), w, w[:, 0, 0], w[:, 0],
                       w[:, 0, 0], w[0, 0], w[0, 0, 0], stages=(1,), pooling_layers=(),
                       pooling_type="max", leaky=False)

@@ -1,0 +1,447 @@
+"""PyTorch port: the kernels at every width the JAX kernels take, on the CPU.
+
+* The Python plans of `mucon_tpu_torch.cuda` (each the mirror of its C++
+  plan) take every hidden size H and channel count C from 1 to 512: the
+  recurrences' cluster splits (even where CL divides H, else ragged) cover
+  each product of their weight matrices exactly once, the stack kernels run
+  C at the next built width (128, 256, 512, zero-padded), the H = 128 and
+  C = 128 plans are unchanged, and 513 raises a ValueError naming the limit.
+* The twins in the kernels' split order (the BiLSTM's k-groups and gate-row
+  groups, the decoder reverse chain's row groups and ragged ranks) against
+  the JAX Pallas kernels in interpret mode at H = 100 and 127.
+* The WaveNet and MS-TCN++ twins on channels zero-padded 48 -> 128 (what the
+  CUDA wrappers run) against the JAX kernels at C = 48, the trainable
+  stack's gradients too.
+* Three SGD steps of the port at C = 48, H = 100 against the JAX trainer on
+  its kernel route (decoder chain and flint loss in interpret mode).
+* `convert.py` carrying JAX parameters across at those widths and at 256.
+
+Tolerances: the twins against the JAX kernels rtol 1e-5 / atol 2e-5 (two
+frameworks summing in different orders, as tests/test_torch_lstm_train.py
+and test_torch_wavenet_train.py), the decoder gradients rtol 2e-4 / atol
+2e-5 (test_torch_decoder_chain.py), the eval stacks 1e-4 of max|ref|
+(test_torch_wavenet_tf32.py), the train steps rtol 1e-4 / atol 1e-5
+(test_torch_train.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mucon_tpu.models import create_model as create_jax_model
+from mucon_tpu.ops.decoder_pallas import decoder_chain
+from mucon_tpu.ops.lstm_pallas import bilstm_recurrence_pallas
+from mucon_tpu.ops.lstm_pallas import bilstm_recurrence_train as jax_lstm_train
+from mucon_tpu.ops.mstcnpp_pallas import mstcnpp_stack_pallas
+from mucon_tpu.ops.wavenet_pallas_v2 import wavenet_stack_pallas_v2
+from mucon_tpu.ops.wavenet_train_pallas_v3 import _make_masks, wavenet_stack_train_v3
+from mucon_tpu_torch import cuda
+from mucon_tpu_torch.convert import params_to_state_dict, state_dict_to_params
+from mucon_tpu_torch.models.model import create_model, model_fields_from_cfg
+from mucon_tpu_torch.ops import decoder_chain as chain_mod
+from mucon_tpu_torch.ops.decoder_chain import (
+    DecoderChain, decoder_chain_bwd_plain, decoder_chain_cluster_plain,
+)
+from mucon_tpu_torch.ops.lstm_recurrence import (
+    bilstm_bwd_chain_plain, bilstm_bwd_coefs_plain, bilstm_recurrence_plain,
+)
+from mucon_tpu_torch.ops.mstcnpp_stack import mstcnpp_stack_plain
+from mucon_tpu_torch.ops.wavenet_stack import wavenet_stack_plain
+from mucon_tpu_torch.ops.wavenet_stack_train import stack_plan, wavenet_stack_train_plain
+from tests.test_model import D, M, NMAX, small_cfg
+from tests.test_torch_train import _cfg as train_cfg
+from tests.test_torch_train import _check_trajectory, collate_padded, make_sample
+
+torch.set_num_threads(1)
+
+WIDTHS = range(1, 513)
+TOL = dict(rtol=1e-5, atol=2e-5)
+
+
+# -- the plans ---------------------------------------------------------------
+
+def test_bilstm_fwd_plan_covers_every_product_once():
+    """Every H: the forward's CTAs (`units_of` of the plan's CL) partition
+    the units, each takes all four gates of its units, a thread per (video,
+    unit) of an 8-video tile, and the threads' (k-row, gate column) pairs
+    cover w_hh [H x 4H] once each: each of the 4H gate columns is one
+    thread column of one CTA, whose NK groups of KC rows cover the H rows
+    once; KC above 64 (weights read from L2) only on 512 threads.  H = 128
+    keeps its plan."""
+    assert cuda.bilstm_fwd_plan(128) == (8, 16, 256, 4, 32)
+    for H in WIDTHS:
+        cl, hs, nt, nk, kc = cuda.bilstm_fwd_plan(H)
+        assert kc % 4 == 0 and (kc <= 64 or nt == 512), H
+        rows = [k for kq in range(nk) for k in range(kq * kc, min(H, (kq + 1) * kc))]
+        assert rows == list(range(H)), H
+        gcols, units = [], []
+        for r in range(cl):
+            u = cuda.units_of(r, cl, H)
+            n = len(u)
+            assert 1 <= n <= hs and 8 * n <= nt and nk * 4 * n <= nt, H
+            units += list(u)
+            gcols += [(pc // n) * H + u.start + pc % n for pc in range(4 * n)]
+        assert units == list(range(H)), H
+        assert sorted(gcols) == list(range(4 * H)), H
+
+
+def test_bilstm_chain_plan_covers_every_product_once():
+    """Every H: the reverse chain's CTAs partition the columns of dh, a
+    thread per (video, column), and each column's NQ groups of GPQ gate rows
+    cover all 4H rows once; more than 32 columns a CTA only on a ragged
+    split of 512 threads.  H = 128 keeps its plan."""
+    assert cuda.bilstm_chain_plan(128) == (8, 16, 16, 32)
+    for H in WIDTHS:
+        cl, hs, nq, gpq = cuda.bilstm_chain_plan(H)
+        nt = 256 if 8 * (H // cuda._cluster_width(H)) <= 256 else 512  # even, else ragged
+        assert gpq % 4 == 0 and nq * hs <= nt and (nt == 512 or gpq <= 128), H
+        rows = [g for q in range(nq) for g in range(q * gpq, min(4 * H, (q + 1) * gpq))]
+        assert rows == list(range(4 * H)), H  # every column's groups, each CTA alike
+        cols = []
+        for r in range(cl):
+            u = cuda.units_of(r, cl, H)
+            assert 1 <= len(u) <= hs, H
+            cols += list(u)
+        assert cols == list(range(H)), H
+
+
+def test_decoder_chain_plans_cover_every_product_once():
+    """Every H: the forward chain's CTAs partition the units (CL divides
+    H); the reverse chain's (even or ragged) CTAs partition them too, and
+    each of a CTA's 2 HS output columns of dgate [Wih; Whh]^T takes NQ
+    groups of RQ rows that cover the 4H dgate rows once, 2 HS NQ threads at
+    most 256 (even, RQ <= 64 in registers) or 512 (ragged).  H = 128 keeps
+    its plans."""
+    assert cuda.decoder_chain_fwd_plan(128) == (8, 16, 256)
+    assert cuda.decoder_chain_plan(128) == (8, 16, 8, 64)
+    for H in WIDTHS:
+        cl, hs, nt = cuda.decoder_chain_fwd_plan(H)
+        assert cl * hs == H and nt == 256, H
+        cl, hs, nq, rq = cuda.decoder_chain_plan(H)
+        even = (cl == cuda._cluster_width(H) and hs == H // cl and 4 <= H <= 256
+                and hs % 4 == 0 and hs <= 32 and nq == 256 // (2 * hs) and rq <= 64)
+        assert rq % 4 == 0 and 2 * hs * nq <= (256 if even else 512), H
+        rows = [k for q in range(nq) for k in range(q * rq, min(4 * H, (q + 1) * rq))]
+        assert sorted(rows) == list(range(4 * H)), H
+        units = [j for r in range(cl) for j in cuda.units_of(r, cl, H)]
+        assert units == list(range(H)) and max(
+            len(cuda.units_of(r, cl, H)) for r in range(cl)) == hs, H
+
+
+def test_stack_width_covers_every_c():
+    """Every C runs at the least built width not below it; the built ones
+    run as they are."""
+    for C in WIDTHS:
+        w = cuda.stack_width(C)
+        assert w in cuda.STACK_WIDTHS and w >= C and (w == 128 or w // 2 < C), C
+    assert [cuda.stack_width(c) for c in (128, 256, 512)] == [128, 256, 512]
+
+
+@pytest.mark.parametrize("plan", [cuda.bilstm_fwd_plan, cuda.bilstm_chain_plan,
+                                  cuda.decoder_chain_fwd_plan, cuda.decoder_chain_plan,
+                                  cuda.stack_width])
+def test_width_above_512_raises_naming_the_limit(plan):
+    for bad in (0, 513, 1024):
+        with pytest.raises(ValueError, match="512"):
+            plan(bad)
+
+
+def test_pad_channels_pads_at_the_end_only():
+    t = torch.arange(6.0).reshape(1, 2, 3)
+    p = cuda.pad_channels(t, 5, (2,))
+    assert p.shape == (1, 2, 5) and torch.equal(p[..., :3], t) and not p[..., 3:].any()
+    assert cuda.pad_channels(t, 3, (2,)) is t and cuda.pad_channels(None, 5, (0,)) is None
+
+
+# -- the split-order twins against the JAX kernels ----------------------------
+
+def _lstm_inputs(T, B, H, valid, seed):
+    rng = np.random.RandomState(seed)
+    xp = rng.randn(T, 2, B, 4 * H).astype(np.float32)
+    w_hh = (rng.randn(2, H, 4 * H) / np.sqrt(H)).astype(np.float32)
+    m = (np.arange(T)[:, None] < np.asarray(valid)[None, :]).astype(np.float32)
+    cts = [rng.randn(*s).astype(np.float32) for s in ((T, 2, B, H), (2, B, H), (2, B, H))]
+    return xp, m, w_hh, cts
+
+
+@pytest.mark.interpret
+@pytest.mark.parametrize("H", [100, 127])
+def test_bilstm_split_order_twins_match_jax(H):
+    """The forward in its k-group order (`bilstm_fwd_plan`), the coefficient
+    pass in the same order and the chain in its gate-row order
+    (`bilstm_chain_plan`), composed into dxp and dw_hh, against the JAX eval
+    kernel and `jax.vjp` of its train kernel; the grouped twins also match
+    the ungrouped ones."""
+    T, B, valid = 6, 3, (6, 4, 0)
+    xp, m, w_hh, cts = _lstm_inputs(T, B, H, valid, seed=H)
+    _, _, _, nk, kc = cuda.bilstm_fwd_plan(H)
+    gpq = cuda.bilstm_chain_plan(H)[3]
+    ref_eval = bilstm_recurrence_pallas(*map(jnp.asarray, (xp, m, w_hh)), interpret=True)
+    ref, vjp = jax.vjp(lambda a, w: jax_lstm_train(True, a, jnp.asarray(m), w),
+                       jnp.asarray(xp), jnp.asarray(w_hh))
+    dxp_ref, dw_ref = vjp(tuple(map(jnp.asarray, cts)))
+
+    xt, mt, wt = map(torch.from_numpy, (xp, m, w_hh))
+    ct = [torch.from_numpy(c) for c in cts]
+    outs, h, c, cs = bilstm_recurrence_plain(xt, mt, wt, stash=True, k_groups=(nk, kc))
+    for got, want, want_eval in zip((outs, h, c), ref, ref_eval):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want_eval), **TOL)
+    coefs = bilstm_bwd_coefs_plain(xt, mt, wt, outs, cs, k_groups=(nk, kc))
+    np.testing.assert_allclose(coefs.numpy(),
+                               bilstm_bwd_coefs_plain(xt, mt, wt, outs, cs).numpy(), **TOL)
+    dxp = bilstm_bwd_chain_plain(coefs, mt, wt, *ct, row_groups=gpq)
+    h_prev = torch.cat([torch.zeros_like(outs[:1]), outs[:-1]])
+    dw = torch.einsum("tdbh,tdbg->dhg", h_prev, dxp)
+    np.testing.assert_allclose(dxp.numpy(), np.asarray(dxp_ref), **TOL)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(dw_ref), **TOL)
+    np.testing.assert_allclose(dxp.numpy(), bilstm_bwd_chain_plain(coefs, mt, wt, *ct).numpy(),
+                               **TOL)
+
+
+def _chain_inputs(H, seed, S=5, Tz=9, valid=(9, 6, 2)):
+    rng = np.random.RandomState(seed)
+    E = 2 * H
+    r = lambda *sh: (rng.randn(*sh) * 0.4).astype(np.float32)  # noqa: E731
+    w = lambda k, *sh: (rng.randn(*sh) / np.sqrt(k)).astype(np.float32)  # noqa: E731
+    b = len(valid)
+    maskf = (np.arange(Tz)[None, :] < np.array(valid)[:, None]).astype(np.float32)
+    return [np.maximum(r(S, b, H), 0.0), r(b, Tz, E) * maskf[:, :, None], r(b, Tz, H), maskf,
+            r(b, H), r(b, H), w(H, H, H), r(H), r(H), w(H + E, H, H), w(H + E, E, H), r(H),
+            w(2 * H, H, 4 * H), w(2 * H, H, 4 * H), r(4 * H)]
+
+
+@pytest.mark.interpret
+@pytest.mark.parametrize("H", [100, 127])
+def test_decoder_chain_split_order_twins_match_jax(H, monkeypatch):
+    """The forward by the cluster's ranks of frames (`decoder_chain_fwd_plan`'s
+    CL) and `DecoderChain`'s every input gradient with its reverse chain in
+    the kernel's order (`decoder_chain_plan`: row groups, ragged ranks)
+    against the JAX kernel in interpret mode and `jax.grad` through it."""
+    args = _chain_inputs(H, seed=H)
+    S, B = args[0].shape[:2]
+    cl = cuda.decoder_chain_fwd_plan(H)[0]
+    plan = cuda.decoder_chain_plan(H)
+    rng = np.random.RandomState(1)
+    cts = [rng.randn(S, B, H).astype(np.float32) for _ in range(3)]
+    jargs = list(map(jnp.asarray, args))
+    got = decoder_chain_cluster_plain(*map(torch.from_numpy, args), cl=cl)
+    for name, a, b in zip(("hs", "cs", "comb"), got, decoder_chain(True, *jargs)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, err_msg=name)
+
+    def loss_kernel(*a):
+        return sum(jnp.sum(o * w) for o, w in zip(decoder_chain(True, *a), cts))
+
+    argnums = tuple(i for i in range(15) if i != 3)
+    ref = jax.grad(loss_kernel, argnums=argnums)(*jargs)
+
+    def ordered(*a):
+        with torch.no_grad():
+            return decoder_chain_bwd_plain(*a, plan=plan)
+
+    monkeypatch.setattr(chain_mod, "_chain_backward", ordered)
+    xs = [torch.from_numpy(a).requires_grad_(i != 3) for i, a in enumerate(args)]
+    outs = DecoderChain.apply(*xs)
+    sum(torch.sum(o * torch.from_numpy(w)) for o, w in zip(outs, cts)).backward()
+    for i, want in zip(argnums, ref):
+        np.testing.assert_allclose(xs[i].grad.numpy(), np.asarray(want), rtol=2e-4, atol=2e-5,
+                                   err_msg=str(i))
+
+
+# -- the stacks on zero-padded channels ---------------------------------------
+
+C48, STAGES, POOLS = 48, (1, 2, 4), (0, 2)
+LENGTHS = np.array([64, 45, 17], np.int32)
+
+
+def _stack_weights(rng, C, mstcnpp=False):
+    L = len(STAGES)
+    r = lambda k, *sh: (rng.randn(*sh) / np.sqrt(k)).astype(np.float32)  # noqa: E731
+    b = lambda *sh: (0.1 * rng.randn(*sh)).astype(np.float32)  # noqa: E731
+    if mstcnpp:
+        return [r(3 * C, L, 3, C, C), b(L, C), r(3 * C, L, 3, C, C), b(L, C), r(2 * C, L, C, C),
+                r(2 * C, L, C, C), b(L, C), r(C, C, C), b(C)]
+    return [r(3 * C, L, 3, C, C), b(L, C), r(C, L, C, C), b(L, C), r(C, C, C), b(C)]
+
+
+def _x(rng, C, T=64):
+    x = np.maximum(rng.randn(len(LENGTHS), T, C), 0).astype(np.float32)
+    return x * (np.arange(T)[None, :, None] < LENGTHS[:, None, None])
+
+
+def _padded(C, t, dims):
+    return cuda.pad_channels(t, cuda.stack_width(C), dims)
+
+
+@pytest.mark.interpret
+@pytest.mark.parametrize("mstcnpp", [False, True], ids=["wavenet", "mstcnpp"])
+def test_padded_eval_stacks_match_jax_at_c48(mstcnpp):
+    """The eval stack's twin at C = 48 zero-padded to 128 (x, the weights
+    and the biases, as `cuda.wavenet_stack` / `cuda.mstcnpp_stack` pad) and
+    sliced back equals the JAX kernel at 48 within 1e-4 of max|ref|, and the
+    padded channels come out exactly 0."""
+    rng = np.random.RandomState(3)
+    x, ws = _x(rng, C48), _stack_weights(rng, C48, mstcnpp)
+    lens = jnp.asarray(LENGTHS)
+    if mstcnpp:
+        ref, t_ref = mstcnpp_stack_pallas(jnp.asarray(x), lens, *map(jnp.asarray, ws),
+                                          num_layers=len(STAGES), pooling_layers=POOLS,
+                                          interpret=True)
+        dims = ((2, 3), (1,), (2, 3), (1,), (1, 2), (1, 2), (1,), (0, 1), (0,))
+    else:
+        ref, t_ref = wavenet_stack_pallas_v2(jnp.asarray(x), lens, *map(jnp.asarray, ws),
+                                             stages=STAGES, pooling_layers=POOLS,
+                                             interpret=True)
+        dims = ((2, 3), (1,), (1, 2), (1,), (0, 1), (0,))
+    xp = _padded(C48, torch.from_numpy(x), (2,))
+    wp = [_padded(C48, torch.from_numpy(w), d) for w, d in zip(ws, dims)]
+    assert xp.shape[2] == 128
+    with torch.no_grad():
+        if mstcnpp:
+            got, t_got = mstcnpp_stack_plain(xp, torch.from_numpy(LENGTHS).long(), *wp,
+                                             pooling_layers=POOLS)
+        else:
+            got, t_got = wavenet_stack_plain(xp, torch.from_numpy(LENGTHS).long(), *wp,
+                                             stages=STAGES, pooling_layers=POOLS)
+    assert not got[..., C48:].any()
+    ref = np.asarray(ref)
+    np.testing.assert_array_equal(t_got.numpy(), np.asarray(t_ref))
+    assert np.abs(got[..., :C48].numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.interpret
+def test_padded_train_stack_gradients_match_jax_at_c48():
+    """The trainable stack's twin on channels padded 48 -> 128 (x, weights,
+    biases and dropout masks, as `cuda.wavenet_train_forward` / `_backward`
+    pad) with the gradients sliced back equals `jax.vjp` of the JAX v3
+    kernel at 48, dropout on; the padded channels' gradients are 0."""
+    rng = np.random.RandomState(4)
+    T, C, drop, seed = 64, C48, 0.25, jnp.asarray(7, jnp.int32)
+    x, ws = _x(rng, C, T), _stack_weights(rng, C)
+    t_ins, _, _, t_fin = stack_plan(STAGES, POOLS, T)
+    g = rng.randn(len(LENGTHS), t_fin, C).astype(np.float32)
+
+    def f(x, *w):
+        return wavenet_stack_train_v3(x, jnp.asarray(LENGTHS), seed, *w, STAGES, POOLS, "max",
+                                      drop, False, True, None)
+
+    z_ref, vjp = jax.vjp(f, jnp.asarray(x), *map(jnp.asarray, ws))
+    grads_ref = vjp(jnp.asarray(g))
+    masks = [_padded(C, torch.from_numpy(np.array(m)), (2,))
+             for m in _make_masks(seed, drop, t_ins, len(LENGTHS), C)]
+    dims = ((2,), (2, 3), (1,), (1, 2), (1,), (0, 1), (0,))
+    xs = [_padded(C, torch.from_numpy(a), d).requires_grad_()
+          for a, d in zip([x, *ws], dims)]
+    z, _ = wavenet_stack_train_plain(xs[0], torch.from_numpy(LENGTHS).long(), *xs[1:],
+                                     stages=STAGES, pooling_layers=POOLS, drop_masks=masks)
+    z.backward(_padded(C, torch.from_numpy(g), (2,)))
+    np.testing.assert_allclose(z[..., :C].detach().numpy(), np.asarray(z_ref), **TOL)
+    c = slice(0, C)
+    for a, d, want in zip(xs, dims, grads_ref):
+        idx = tuple(c if i in d else slice(None) for i in range(a.dim()))
+        np.testing.assert_allclose(a.grad[idx].numpy(), np.asarray(want), **TOL)
+        rest = a.grad.clone()
+        rest[idx] = 0
+        assert not rest.any()
+
+
+# -- a train trajectory and the weight bridge at the widths --------------------
+
+def _width_cfg(C, H, groups):
+    cfg = train_cfg(0.0)
+    cfg.model.ft.hidden_size = C
+    cfg.model.ft.last_gn_num_groups = groups
+    cfg.model.fs.encoder.hidden_size = H
+    cfg.model.fs.decoder.hidden_size = H
+    return cfg
+
+
+@pytest.mark.interpret
+def test_train_trajectory_matches_jax_kernel_route_at_c48_h100(tmp_path):
+    """Three SGD steps of the port at C = 48, H = 100 (the ragged widths)
+    against the JAX trainer with its decoder chain and flint loss kernels in
+    interpret mode, from the same weights and batch."""
+    cfg = _width_cfg(48, 100, 16)
+    cfg.tpu.use_pallas_decoder = True
+    cfg.tpu.use_pallas_loss = True
+    rng = np.random.RandomState(0)
+    samples = [make_sample(rng, 61, 3, "a"), make_sample(rng, 44, 5, "b"),
+               make_sample(rng, 30, 2, "c")]
+    batch = collate_padded(samples, n_max=NMAX, pad_multiple=16)
+    jm = create_jax_model(cfg, num_classes=M, max_decoding_steps=NMAX + 1,
+                          input_feature_size=D)
+    params = jax.device_get(jm.init_params(jax.random.PRNGKey(0), batch))
+    _check_trajectory(cfg, jm, params, batch, tmp_path)
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(_flatten(v, key) if hasattr(v, "items") else {key: np.asarray(v)})
+    return out
+
+
+@pytest.mark.parametrize("ft_type", ["wavenet", "mstcnpp"])
+@pytest.mark.parametrize("C,H,groups", [(48, 100, 16), (48, 127, 16), (256, 256, 32)])
+def test_convert_round_trips_at_the_widths(ft_type, C, H, groups):
+    """`convert.py` carries the JAX parameters across, and back, exactly at
+    the widths the kernels now take."""
+    cfg = small_cfg()
+    cfg.model.ft.type = ft_type
+    cfg.model.ft.hidden_size = C
+    cfg.model.ft.last_gn_num_groups = groups
+    cfg.model.fs.encoder.hidden_size = H
+    cfg.model.fs.decoder.hidden_size = H
+    jm = create_jax_model(cfg, num_classes=M, max_decoding_steps=NMAX + 1,
+                          input_feature_size=D)
+    params = jax.device_get(jm.init_params(jax.random.PRNGKey(2)))
+    tm = create_model(M, NMAX + 1, D, device="cpu", **model_fields_from_cfg(cfg))
+    tm.load_jax_params(params)
+    sd = tm.net.state_dict()
+    assert sd["fs_encoder_lstm.fwd.w_hh"].shape == (H, 4 * H)
+    assert set(sd) == set(params_to_state_dict(params))
+    a, b = _flatten(params), _flatten(state_dict_to_params(sd))
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_twin_pool_inputs_route_like_the_given_values():
+    """`wavenet_stack_plain(pool_inputs=...)`: given its own pre-pool values
+    the twin is unchanged (values and gradients); given values whose pair
+    order differs, its max pool routes the gradient by the given values
+    while the gradient still flows through its own."""
+    rng = np.random.RandomState(5)
+    C = 8
+    x, ws = _x(rng, C), _stack_weights(rng, C)
+    lens = torch.from_numpy(LENGTHS).long()
+    kw = dict(stages=STAGES, pooling_layers=POOLS)
+    captured = {}
+
+    def run(pool_inputs=None):
+        xs = [torch.from_numpy(a).requires_grad_() for a in [x, *ws]]
+        z, _ = wavenet_stack_plain(xs[0], lens, *xs[1:], **kw, pool_inputs=pool_inputs)
+        z.sum().backward()
+        return z.detach(), [t.grad for t in xs]
+
+    import mucon_tpu_torch.ops.wavenet_stack as ws_mod
+    pool = ws_mod.pool2_time
+
+    def spy(u, kind):
+        captured[len(captured)] = u.detach().clone()
+        return pool(u, kind)
+
+    ws_mod.pool2_time = spy
+    try:
+        z0, g0 = run()
+    finally:
+        ws_mod.pool2_time = pool
+    own = {p: captured[k] for k, p in enumerate(POOLS)}
+    z1, g1 = run(own)
+    assert torch.equal(z0, z1) and all(torch.equal(a, b) for a, b in zip(g0, g1))
+    swapped = {p: u.flip(1) for p, u in own.items()}  # every pair's order reversed
+    z2, g2 = run(swapped)
+    assert not torch.equal(z2, z0) and all(torch.isfinite(t).all() for t in g2)
