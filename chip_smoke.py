@@ -27,7 +27,14 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    MS-TCN++ model, checks that each path launched its kernels (and not the
    other backbone's), that the kernel path's fused eval launches the DP
    once a batch and runs no Python pointer walk, and that both paths agree,
-   and times both (and the Viterbi DP + walk span of each);
+   and times both (and the Viterbi DP + walk span of each); then exports the
+   WaveNet model's serving program (`serving_export_phase`, B=4 at 2560
+   frames, the float32 and int8 wires), loads it and serves request B
+   through it: bit for bit equal to the live plain program with no kernel
+   launched, per-video results agreeing with the kernel path, an artifact
+   of weights that emit EOS at step 0 equal to the live decode loop, the
+   one-video Viterbi decode's kernel equal to its plain DP; export, save
+   and load seconds and ms a request printed;
 5. trains: checks the seven train kernels (the WaveNet stack's forward and
    backward sweep — on the tensor cores in 3xTF32, their grid a layer and
    the shares of row tiles and rows skipped printed — the BiLSTM recurrence with its cell stash — on
@@ -871,6 +878,205 @@ def serve(tag, model, dev, rng, card: str, required, absent=(), timed: bool = Tr
             f"ms/batch = {1000 * B / pp:.1f} videos/s [{card}]")
         del arrays
     return launches
+
+
+# -- phase 4b: the serving export --------------------------------------------
+
+EXPORT_B, EXPORT_PAD, EOS_PAD, EXPORT_WIRES = 4, 2560, 512, ("float32", "int8")
+
+
+def event_and_host_ms(fn, reps: int) -> tuple:
+    """(CUDA-event ms, host-clock ms) a call of `fn` over `reps` calls after
+    one warm-up call; the host clock stops after a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, 1e3 * (time.perf_counter() - t0) / reps
+
+
+def serving_export_phase(dev, card: str, tmp: str) -> None:
+    """The serving export (`mucon_tpu_torch/serving.py`) of the default
+    WaveNet model on the card at B=4, pad_to=2560, for the float32 and int8
+    wires: export, save and load it, and serve request B through
+    `ExportedMuCon.predict`.  The artifact's raw outputs must equal the live
+    plain program's (`build_serving_fn`, run eagerly on the same wire
+    arrays) bit for bit under deterministic algorithms, with no kernel
+    launched while it runs; its per-video results must agree with
+    `predict_videos` with the kernels on the same wire by
+    `compare_request`'s near-tie rules.  An artifact of weights whose EOS
+    logit is raised (every video emits EOS at step 0; B=4 at 512 frames)
+    must equal the live plain program and the live decode loop bit for
+    bit, and the one-video `dense_viterbi_decode` with the kernel must
+    equal it without.  Prints the export, save and load seconds and the ms
+    a request of the artifact and of `predict_videos` with and without the
+    kernels."""
+    import torch
+    import torch.nn.functional as F
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.cli.predict import collate_videos, predict_videos
+    from mucon_tpu_torch.config import get_cfg_defaults
+    from mucon_tpu_torch.models.model import FEATS_DTYPES, batch_to_tensors, create_model
+    from mucon_tpu_torch.ops.eval_fused import (
+        EVAL_OUTPUTS,
+        build_eval_device,
+        build_fused_eval,
+        eval_tables,
+        eval_to_host,
+    )
+    from mucon_tpu_torch.ops.viterbi import dense_viterbi_decode
+    from mucon_tpu_torch.serving import (
+        TEMPLATE_KEYS,
+        build_serving_fn,
+        export_serving,
+        load_exported,
+        same_bits,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = get_cfg_defaults()  # frame_sampling 30, pad_multiple 512
+    db = vocab()
+    db.feat_dim, db.get_num_classes = D, lambda: M
+    lengths = [517, 1203, 2100]  # request B
+    rng = np.random.default_rng(3)
+    feats = [rng.standard_normal((t, D), dtype=np.float32) for t in lengths]
+    names = [f"B_{i}" for i in range(len(lengths))]
+
+    def export(model, wire: str, tag: str, pad_to: int = EXPORT_PAD):
+        out = os.path.join(tmp, f"serving_{tag}")
+        t0 = time.perf_counter()
+        program = export_serving(model, cfg, db, EXPORT_B, pad_to, out, MAX_LEN, wire,
+                                 device=dev)
+        export_s = time.perf_counter() - t0
+        save = ""
+        if tag == EXPORT_WIRES[0]:  # the save alone, once
+            t0 = time.perf_counter()
+            torch.export.save(program, os.path.join(tmp, f"serving_{tag}_again.pt2"))
+            save = f"; the save alone {time.perf_counter() - t0:.2f} s"
+        t0 = time.perf_counter()
+        served = load_exported(out)
+        load_s = time.perf_counter() - t0
+        mib = os.path.getsize(os.path.join(out, "model.pt2")) / 2**20
+        say(f"serving export {tag}: export_serving {export_s:.2f} s (export + save{save}), "
+            f"load_exported {load_s:.2f} s, model.pt2 {mib:.1f} MiB [{card}]")
+        return served
+
+    def bitwise(tag: str, served, model, wire: str, videos):
+        """The artifact against the live plain program on the same wire
+        arrays (`videos` padded as `predict` pads them), bit for bit; no
+        kernel may launch while the artifact runs."""
+        m = served.meta
+        live = build_serving_fn(model, cfg, db, m["batch_size"], m["pad_to"], MAX_LEN, wire)
+        padded, nf = served.pad_batch(videos)
+        wire_arrays = served.to_wire(padded)
+        torch.use_deterministic_algorithms(True)
+        try:
+            cuda.reset_launch_counts()
+            got = served(wire_arrays, nf, raw_wire=True)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in cuda.launch_counts.items() if v}
+            expect(not launched, f"serving {tag}: kernels launched in the artifact: {launched}")
+            with torch.no_grad():
+                want = live(*(t.to(dev) for t in wire_arrays), torch.from_numpy(nf).to(dev))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        for k, w in zip(m["outputs"], want):
+            expect(same_bits(got[k], w), f"serving {tag}: {k} differs from the live plain "
+                                         "program")
+        return got, live, padded, nf
+
+    model = create_model(M, N_MAX + 1, D, device=dev, seed=0)
+    request_ms = {}
+    for wire in EXPORT_WIRES:
+        served = export(model, wire, wire)
+        got, _, _, nf = bitwise(wire, served, model, wire, feats)
+        fdt = FEATS_DTYPES[wire]
+        arrays = batch_to_tensors(collate_videos(feats, names, db), dev, feats_dtype=fdt)
+        with torch.no_grad():
+            outk = build_fused_eval(model, frame_sampling=FRAME_SAMPLING)(arrays)
+
+        def live_predict(use_kernels):
+            return predict_videos(model, feats, names, db, frame_sampling=FRAME_SAMPLING,
+                                  batch_size=len(feats), use_kernels=use_kernels,
+                                  feats_dtype=fdt)
+
+        predk = live_predict(True)
+        outp = {k: v[:len(feats)] for k, v in
+                eval_to_host(got, torch.from_numpy(nf), EXPORT_PAD).items()}
+        predp = served.predict(feats, names)
+        check_outputs(f"serving {wire}", outp, predp, lengths)
+        mism = compare_request(f"serving {wire}", model, arrays, outk, outp, predk, predp)
+        for line in mism:
+            say(f"near-tie mismatch (allowed): {line}")
+        say(f"serving {wire}: artifact == live plain program bit for bit (n_steps "
+            f"{got['n_steps'].tolist()}), no kernel launched; per-video results == "
+            f"predict_videos with the kernels ({len(mism)} near-tie mismatches)")
+        request_ms[wire] = (event_and_host_ms(lambda: served.predict(feats, names), 3),
+                            event_and_host_ms(lambda: live_predict(True), 3),
+                            event_and_host_ms(lambda: live_predict(False), 3))
+        del served, arrays
+    for wire, ((ae, ah), (ke, kh), (pe, ph)) in request_ms.items():
+        say(f"serving {wire} request B (3 videos, host features in, labels out), ms a "
+            f"request by CUDA events / host clock: artifact {ae:.1f} / {ah:.1f}; "
+            f"predict_videos with the kernels {ke:.1f} / {kh:.1f}, plain {pe:.1f} / "
+            f"{ph:.1f} [{card}]")
+
+    # every video emits EOS at step 0, so the live loop stops after one step;
+    # 4 videos of at most 512 frames (a smaller program to export)
+    model_e = create_model(M, N_MAX + 1, D, device=dev, seed=0)
+    with torch.no_grad():
+        model_e.net.decoder.transcript_out.bias[M] += 1e3
+    served = export(model_e, "float32", "eos_first", pad_to=EOS_PAD)
+    videos = [rng.standard_normal((t, D), dtype=np.float32) for t in (512, 401, 230, 77)]
+    got, live, padded, nf = bitwise("EOS-first", served, model_e, "float32", videos)
+    expect(got["n_steps"].tolist() == [1] * EXPORT_B,
+           f"serving EOS-first: n_steps {got['n_steps'].tolist()}, want all 1")
+    loop_arrays = {k: getattr(live, k) for k in TEMPLATE_KEYS}
+    loop_arrays.update(feats=torch.from_numpy(padded).to(dev),
+                       num_frames=torch.from_numpy(nf).to(dev))
+    torch.use_deterministic_algorithms(True)
+    try:
+        with torch.no_grad():
+            loop = build_eval_device(model_e, frame_sampling=FRAME_SAMPLING, max_len=MAX_LEN,
+                                     use_kernels=False)(loop_arrays)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k in EVAL_OUTPUTS:
+        expect(same_bits(got[k], loop[k]), f"serving EOS-first: {k} differs from the live "
+                                           "decode loop")
+    say("serving EOS-first: artifact == live plain program == live decode loop bit for bit "
+        f"(n_steps {got['n_steps'].tolist()})")
+    del served, model_e
+
+    # the one-video decode, with the kernel and without, on request B's second video
+    arrays = batch_to_tensors(collate_videos(feats, names, db), dev)
+    with torch.no_grad():
+        fwd = model.forward(arrays, use_kernels=False)
+        tb = eval_tables(fwd, arrays["num_frames"], EXPORT_PAD, N_MAX, FRAME_SAMPLING, MAX_LEN)
+    b, t = 1, lengths[1]
+    n = int(tb.n_dec[b])
+    args = (F.log_softmax(fwd.segmentation[b, :t], dim=-1).cpu().numpy(),
+            tb.trs[b, :n].cpu().tolist(), tb.lam[b].cpu().numpy(), FRAME_SAMPLING, MAX_LEN)
+    cuda.reset_launch_counts()
+    rk = dense_viterbi_decode(*args, device=dev, use_kernels=True)
+    dp = cuda.launch_counts["dense_viterbi"]
+    rp = dense_viterbi_decode(*args, device=dev, use_kernels=False)
+    expect(dp == 1, f"one-video dense_viterbi_decode launched dense_viterbi {dp} times")
+    expect(rk.score == rp.score and np.array_equal(rk.labels, rp.labels)
+           and rk.segments == rp.segments,
+           f"one-video dense_viterbi_decode: the kernel ({rk.score}, {len(rk.segments)} "
+           f"segments) differs from the plain DP ({rp.score}, {len(rp.segments)})")
+    say(f"one-video dense_viterbi_decode (T={t}, N={n}): kernel == plain (score {rk.score}, "
+        f"{len(rk.segments)} segments)")
+    say(f"serving export phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
 # -- phase 5: the train path -------------------------------------------------
@@ -3873,6 +4079,28 @@ def probe_widths() -> None:
     say(json.dumps({"widths": lines, "v2_bf16": v2_bf16}))
 
 
+def probe_serving() -> None:
+    """The `serving export` phase alone (a shorter call on the card:
+    `python3 -c 'import chip_smoke; chip_smoke.probe_serving()'`)."""
+    import torch
+    from mucon_tpu_torch import cuda
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    say(smi)
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    cuda.load()
+    say(f"built {cuda.build().name} in {time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="mucon_chip_serving_")
+    try:
+        serving_export_phase(torch.device("cuda"), smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def probe_precision() -> None:
     """The `cli` phase, then the `precision` phase alone (a shorter call on
     the card: `python3 -c 'import chip_smoke; chip_smoke.probe_precision()'`)."""
@@ -3969,6 +4197,7 @@ def main() -> int:
     del model, model_m
     tmp = tempfile.mkdtemp(prefix="mucon_chip_smoke_")
     try:
+        serving_export_phase(dev, smi, tmp)
         train_results, train_launches, arrays = train(dev, np.random.default_rng(1), smi,
                                                       tmp)
         results.update(train_results)

@@ -20,8 +20,8 @@ Usage:
         --features /path/to/features --out /tmp/preds [--root R]
 
 The features travel on the wire that the run's
-`tpu.eval_feats_transfer_dtype` names (mucon_tpu/cli/predict.py:83);
-"auto" is float32.
+`tpu.eval_feats_transfer_dtype` names (mucon_tpu/cli/predict.py:83), or
+`--feats-wire` (float32, float16, bfloat16 or int8); "auto" is float32.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from mucon_tpu_torch.data import (
 )
 from mucon_tpu_torch.harness.checkpoint import load_params
 from mucon_tpu_torch.models.model import (
+    FEATS_DTYPES,
     batch_to_tensors,
     eval_feats_round_to_bf16,
     resolve_feats_dtype,
@@ -110,6 +111,29 @@ def predict_videos(model, feats_list, names, db, *, frame_sampling: int = 30,
     return results
 
 
+def model_from_run(identifier: str, root: str = "", feats_wire=None):
+    """(cfg, db, model) of a trained `exp/run/epoch` of either package,
+    read only: its config.yaml (with `feats_wire`, if given, as
+    `tpu.eval_feats_transfer_dtype`, mucon_tpu/cli/predict.py:140-141), the
+    dataset for the label vocabulary and the feature width, and the
+    checkpoint's weights on `system.device`."""
+    cfg = get_cfg_defaults()
+    root = root or cfg.trainer.root
+    exp_name, run_number, epoch_number = identifier.split("/")
+    cfg.merge_from_file(str(Path(root) / exp_name / run_number / "config.yaml"))
+    cfg.trainer.root = root
+    if feats_wire is not None:
+        cfg.tpu.eval_feats_transfer_dtype = feats_wire
+    cfg.freeze()
+    check_supported(cfg)
+
+    db = handel_dataset(cfg, train=False)
+    model = create_model_from_cfg(cfg, db)
+    model.net.load_state_dict(load_params(root, exp_name, run_number, int(epoch_number),
+                                          model.device), strict=True)
+    return cfg, db, model
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("identifier", help="exp-name/run-number/epoch-number")
@@ -117,21 +141,12 @@ def main(argv=None):
                    help="directory of <video>.npy [T x D] feature files")
     p.add_argument("--out", required=True, help="output directory")
     p.add_argument("--root", default="")
+    p.add_argument("--feats-wire", default=None, choices=list(FEATS_DTYPES),
+                   help="override tpu.eval_feats_transfer_dtype for this prediction run "
+                        "(the host-to-device feature wire)")
     args = p.parse_args(argv)
 
-    cfg = get_cfg_defaults()
-    root = args.root or cfg.trainer.root
-    exp_name, run_number, epoch_number = args.identifier.split("/")
-    cfg.merge_from_file(str(Path(root) / exp_name / run_number / "config.yaml"))
-    cfg.trainer.root = root
-    cfg.freeze()
-    check_supported(cfg)
-
-    # the dataset supplies the label vocabulary and the feature width only
-    db = handel_dataset(cfg, train=False)
-    model = create_model_from_cfg(cfg, db)
-    model.net.load_state_dict(load_params(root, exp_name, run_number, int(epoch_number),
-                                          model.device), strict=True)
+    cfg, db, model = model_from_run(args.identifier, args.root, args.feats_wire)
 
     feat_files = sorted(Path(args.features).glob("*.npy"))
     if not feat_files:

@@ -28,7 +28,13 @@ from mucon_tpu_torch.data.synthetic import (
     create_synthetic_dataset,
     materialize_synthetic_dataset,
 )
-from mucon_tpu_torch.data.utils import create_tf_input, create_tf_target
+from mucon_tpu_torch.data.utils import (
+    create_tf_input,
+    create_tf_target,
+    segment_to_labels,
+    summarize_list,
+    unsummarize_list,
+)
 
 
 def handel_dataset(cfg, train: bool) -> GeneralDataset:
@@ -70,4 +76,5 @@ __all__ = ["FullySupervisedSample", "GeneralDataset", "GeneralFullySupervisedDat
            "create_mixed_supervision_synthetic_dataset", "create_synthetic_dataset",
            "create_tf_input", "create_tf_target", "handel_dataset",
            "handel_fully_supervised_dataset", "handel_mixed_supervision_dataset",
-           "handle_dataset", "materialize_synthetic_dataset"]
+           "handle_dataset", "materialize_synthetic_dataset", "segment_to_labels",
+           "summarize_list", "unsummarize_list"]

@@ -4,6 +4,8 @@ segment-length models and the host Viterbi decoder."""
 from mucon_tpu_torch.decode.grammar import (
     Grammar,
     ModifiedPathGrammar,
+    NGram,
+    PathGrammar,
     SingleTranscriptGrammar,
 )
 from mucon_tpu_torch.decode.length_model import (
@@ -16,5 +18,5 @@ from mucon_tpu_torch.decode.length_model import (
 from mucon_tpu_torch.decode.viterbi_host import Segment, ViterbiDecoder
 
 __all__ = ["Grammar", "LengthModel", "MeanLengthModel", "ModifiedPathGrammar",
-           "MultiPoissonModel", "PoissonModel", "Segment", "SingleTranscriptGrammar",
-           "ViterbiDecoder", "poisson_log_table"]
+           "MultiPoissonModel", "NGram", "PathGrammar", "PoissonModel", "Segment",
+           "SingleTranscriptGrammar", "ViterbiDecoder", "poisson_log_table"]

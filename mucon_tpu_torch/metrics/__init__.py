@@ -5,6 +5,7 @@ from mucon_tpu_torch.metrics.fully_supervised import Edit, F1Score, edit_score, 
 from mucon_tpu_torch.metrics.segmentation import (
     IoDMetric,
     IoUMetric,
+    MoFAccuracyFromLogitsMetric,
     MoFAccuracyMetric,
     careful_divide,
     iod,
@@ -20,6 +21,7 @@ from mucon_tpu_torch.metrics.transcript import (
 __all__ = [
     "Metric",
     "MoFAccuracyMetric",
+    "MoFAccuracyFromLogitsMetric",
     "IoDMetric",
     "IoUMetric",
     "Edit",

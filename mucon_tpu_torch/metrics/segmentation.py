@@ -95,6 +95,26 @@ class MoFAccuracyMetric(Metric):
         return careful_divide(self.correct, self.total)
 
 
+def _host(a) -> np.ndarray:
+    """numpy of an array, or of a torch tensor on any device (in float32
+    when it is a float of another width)."""
+    if hasattr(a, "detach"):  # a torch tensor: to the host, without importing torch
+        a = a.detach()
+        if a.is_floating_point():
+            a = a.float()
+        return a.cpu().numpy()
+    return np.asarray(a)
+
+
+class MoFAccuracyFromLogitsMetric(MoFAccuracyMetric):
+    """MoF of the argmax of framewise logits [T x M] (segmentation.py:105):
+    ties go to the first index.  Targets and logits may be numpy arrays or
+    torch tensors on any device."""
+
+    def add(self, targets, logits) -> float:
+        return super().add(_host(targets), _host(logits).argmax(-1))
+
+
 class IoDMetric(Metric):
     _fn = staticmethod(iod)
 

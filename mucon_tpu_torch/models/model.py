@@ -143,15 +143,18 @@ class MuConModel:
 
     def forward(self, arrays: dict, use_kernels=True, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                teacher_forcing: Optional[bool] = None) -> MuConForwardOut:
+                teacher_forcing: Optional[bool] = None,
+                sync_free: bool = False) -> MuConForwardOut:
         """Eval forward (no autograd) with free decoding, or with
         `teacher_forcing` the ground truth's teacher-forced decode; or with
         `train` the forward under autograd, teacher-forced unless
         `teacher_forcing` (by default the model's flag, model.py:153-156)
         is False, its dropout masks drawn from `generator` (a generator on
         this model's device; None draws no masks).  The eval forward
-        decodes freely unless asked, whatever the flag.  `arrays` come from
-        `batch_to_tensors`; `use_kernels` is a `KernelRoutes` or a bool."""
+        decodes freely unless asked, whatever the flag; with `sync_free` the
+        free decode runs all S steps with the loop's exit as a mask
+        (`MuConNet.forward`: the same outputs, no host sync).  `arrays` come
+        from `batch_to_tensors`; `use_kernels` is a `KernelRoutes` or a bool."""
         arrays = dequantize_feats(arrays)
         routes = as_routes(use_kernels)
         if train:
@@ -166,7 +169,7 @@ class MuConModel:
                 feats, num_frames, arrays["tf_input"],
                 z_precomputed=z, tz_precomputed=tz, use_kernels=routes,
                 transcript_len=arrays["transcript_len"],
-                teacher_forcing=bool(teacher_forcing),
+                teacher_forcing=bool(teacher_forcing), sync_free=sync_free,
             )
 
     def draw_masks(self, generator: Optional[torch.Generator], B: int,
@@ -472,21 +475,27 @@ def dequantize_feats(arrays: dict) -> dict:
     return arrays
 
 
+def feats_to_wire(feats, feats_dtype=None) -> dict:
+    """CPU tensors of host [... x T x D] features on the wire `feats_dtype`
+    (`resolve_feats_dtype`): {"feats"}, and for int8 {"feats",
+    "feats_scale"} (`quantize_feats_int8`)."""
+    feats = np.asarray(feats, np.float32)
+    if feats_dtype == "int8":
+        q, scale = quantize_feats_int8(feats)
+        return dict(feats=torch.from_numpy(q), feats_scale=torch.from_numpy(scale))
+    out = torch.as_tensor(feats)
+    return dict(feats=out if feats_dtype is None else out.to(feats_dtype))
+
+
 def batch_to_host_tensors(batch, supervised: bool = False, feats_dtype=None) -> dict:
     """CPU tensors of a `data.PaddedBatch` (the keys the forward and the
     loss read; lengths and ids as int64), the features on the wire
-    `feats_dtype` (`resolve_feats_dtype`: int8 adds `feats_scale`).  With
+    `feats_dtype` (`feats_to_wire`: int8 adds `feats_scale`).  With
     `supervised` it adds the supervised losses' `gt_label`,
     `absolute_lengths` and `fully_supervised`, which nothing else reads
     on the device."""
     ids = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64)  # noqa: E731
-    out = {}
-    if feats_dtype == "int8":
-        q, scale = quantize_feats_int8(batch.feats)
-        out.update(feats=torch.from_numpy(q), feats_scale=torch.from_numpy(scale))
-    else:
-        feats = torch.as_tensor(np.asarray(batch.feats, np.float32))
-        out["feats"] = feats if feats_dtype is None else feats.to(feats_dtype)
+    out = feats_to_wire(batch.feats, feats_dtype)
     out.update(
         num_frames=ids(batch.num_frames),
         tf_input=ids(batch.tf_input),

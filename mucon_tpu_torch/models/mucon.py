@@ -256,6 +256,7 @@ class MuConNet(nn.Module):
         masks: Optional[TrainMasks] = None,  # dropout masks (train)
         teacher_forcing: Optional[bool] = None,  # decode the ground truth's S
         # steps; None: in train only
+        sync_free: bool = False,  # free eval: all S steps, masked, no host sync
     ) -> MuConForwardOut:
         B, T, _ = feats.shape
         if teacher_forcing is None:
@@ -320,7 +321,12 @@ class MuConNet(nn.Module):
         # 154).  A free eval stops once every video has emitted EOS
         # (mucon.py:330-365) and un-run steps keep zeros (the wire ships all
         # S); train runs all S steps under autograd (mucon.py:366-380), step
-        # s with row s of the embedding dropout mask
+        # s with row s of the embedding dropout mask.  With `sync_free` the
+        # free eval runs all S steps and writes zeros for each step that
+        # the loop would not have run (every video had emitted EOS before
+        # it): the same outputs without a host sync, so the program has no
+        # data-dependent control flow (`torch.export`, `serving.py`)
+        free_eval = not train and not teacher_forcing
         emb_masks = masks.embedding if masks is not None else None
         lps, lns, toks = [], [], []
         token = tf_input[:, 0].to(torch.int64)
@@ -331,12 +337,18 @@ class MuConNet(nn.Module):
             h, c, token, lp, ln = self.decoder(
                 h, c, token, enc_out, attn_pre, tz_mask,
                 None if emb_masks is None else emb_masks[step])
-            lps.append(lp)
-            lns.append(ln)
-            toks.append(token)
-            if not train and not teacher_forcing:
+            if free_eval and sync_free:
+                ran = ~done.all()  # the loop runs this step
+                lps.append(torch.where(ran, lp, 0.0))
+                lns.append(torch.where(ran, ln, 0.0))
+                toks.append(torch.where(ran, token, 0))
+            else:
+                lps.append(lp)
+                lns.append(ln)
+                toks.append(token)
+            if free_eval:
                 done |= token == M
-                if bool(done.all()):  # one host sync per step
+                if not sync_free and bool(done.all()):  # one host sync per step
                     break
         pad = S - len(lps)
         logprobs = torch.stack(lps + [torch.zeros_like(lps[0])] * pad, dim=1)  # [B x S x (M+1)]

@@ -14,12 +14,13 @@ Everything is batched over videos with an explicit leading B axis.
 (`ops/viterbi_dp.py`).  The tables come from full-T log-probs
 (`viterbi_precompute`, the evaluator's per-batch path) or from the
 pre-upsample ones (`viterbi_precompute_z`, the fused eval).
+`dense_viterbi_decode` decodes one video through the batched path.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -248,7 +249,7 @@ def dense_viterbi_decode_batch(
     `ops/viterbi_dp.py dense_viterbi_decode` (one launch of
     `csrc/viterbi.cu` on a CUDA device, its plain twins on the CPU);
     without, the plain DP and `traceback_positions`."""
-    from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi_decode
+    from mucon_tpu_torch.ops import viterbi_dp
 
     S = frame_sampling
     device = resolve_device(device)
@@ -261,9 +262,38 @@ def dense_viterbi_decode_batch(
     )
     n = ids(n_valid)
     if use_kernels:
-        score, _, _, pos = dense_viterbi_decode(W, pois, k_valid, n, S, max_len)
+        score, _, _, pos = viterbi_dp.dense_viterbi_decode(W, pois, k_valid, n, S, max_len)
     else:
         score, best_l, bps = dense_viterbi_plain(W, pois, k_valid, n, S, max_len)
         pos = traceback_positions(bps, k_valid, n, best_l)
     return positions_to_results(t_valid, transcripts, n_valid, score.cpu().numpy(),
                                 pos.cpu().numpy(), k_valid.cpu().numpy(), S)
+
+
+def dense_viterbi_decode(
+    log_probs,  # [T x M] numpy framewise log-probs of one video
+    transcript,  # its N action ids
+    class_lambdas,  # [M]
+    frame_sampling: int = 30,
+    max_len: int = 2000,
+    n_max: Optional[int] = None,
+    t_pad: Optional[int] = None,
+    device="cuda",
+    use_kernels: bool = True,
+) -> DenseDecodeResult:
+    """Decode one video (viterbi.py:241-264): `dense_viterbi_decode_batch`
+    on a batch of one, the transcript zero-padded to `n_max` and the
+    log-probs to `t_pad` frames (neither changes the result).  Not the
+    batched DP of `ops/viterbi_dp.py`, which has the same name there, as in
+    the JAX package."""
+    n = len(transcript)
+    n_max = n_max or n
+    log_probs = np.asarray(log_probs, np.float32)
+    T = log_probs.shape[0]
+    if t_pad is not None and t_pad > T:
+        log_probs = np.pad(log_probs, ((0, t_pad - T), (0, 0)))
+    return dense_viterbi_decode_batch(
+        log_probs[None], np.array([T]), np.array([list(transcript) + [0] * (n_max - n)]),
+        np.array([n]), np.asarray(class_lambdas)[None], frame_sampling=frame_sampling,
+        max_len=max_len, device=device, use_kernels=use_kernels,
+    )[0]

@@ -30,6 +30,7 @@ from mucon_tpu.data import handel_dataset as jax_dataset
 from mucon_tpu.harness.checkpoint import save_checkpoint as jax_save_checkpoint
 from mucon_tpu.harness.evaluator import MuConEvaluator as JaxEvaluator
 from mucon_tpu.harness.trainer import SimpleTrainer as JaxTrainer
+from mucon_tpu.cli import predict as jax_predict_cli
 from mucon_tpu.models import create_model as create_jax_model
 from mucon_tpu_torch.cli import predict as predict_cli
 from mucon_tpu_torch.cli import test_mucon as test_mucon_cli
@@ -299,15 +300,14 @@ def test_predict_main_on_a_port_run_folder(tiny, tmp_path):
         assert abs(sum(meta["rel_lengths"]) - 1.0) < 1e-5
 
 
-def test_predict_main_on_a_jax_run_folder(tiny, tmp_path):
-    """A JAX run folder (its block-style config.yaml and flax model.msgpack)
-    read by the port's predict, against the port's own predict_videos with
-    the same weights through `load_jax_params`."""
+def _jax_run_folder(tiny, root):
+    """A JAX run folder `jax_exp/0` under `root` (its block-style config.yaml
+    and flax model.msgpack) with one checkpoint, epoch 3; returns its params."""
     _, cfg, _, _, pairs = tiny
     jcfg = jax_defaults()
     jcfg.merge_from_list([x for kv in pairs for x in kv])
-    jcfg.trainer.root = str(tmp_path / "runs")
-    run = tmp_path / "runs" / "jax_exp" / "0"
+    jcfg.trainer.root = str(root)
+    run = root / "jax_exp" / "0"
     run.mkdir(parents=True)
     jcfg.dump_to_file(str(run / "config.yaml"))
     assert "device: cpu" in (run / "config.yaml").read_text()
@@ -317,6 +317,16 @@ def test_predict_main_on_a_jax_run_folder(tiny, tmp_path):
                           input_feature_size=db.feat_dim)
     params = jax.device_get(jm.init_params(jax.random.PRNGKey(7)))
     jax_save_checkpoint(run / "checkpoints" / "epoch_3", params, None, {"epoch_num": 3})
+    return params
+
+
+def test_predict_main_on_a_jax_run_folder(tiny, tmp_path):
+    """A JAX run folder (its block-style config.yaml and flax model.msgpack)
+    read by the port's predict, against the port's own predict_videos with
+    the same weights through `load_jax_params`."""
+    _, cfg, _, _, _ = tiny
+    params = _jax_run_folder(tiny, tmp_path / "runs")
+    db = handel_dataset(cfg, train=False)
 
     _write_features(tmp_path / "feats", np.random.default_rng(1), (150, 333), 16)
     results = predict_cli.main(["jax_exp/0/3", "--root", str(tmp_path / "runs"),
@@ -333,8 +343,31 @@ def test_predict_main_on_a_jax_run_folder(tiny, tmp_path):
         np.testing.assert_array_equal(r["y_labels"], w["y_labels"])
 
 
+def test_predict_main_feats_wire_matches_the_jax_cli(tiny, tmp_path):
+    """`predict --feats-wire int8` of both packages on one JAX run folder
+    (mucon_tpu/cli/predict.py:127-141): the port's CLI takes the JAX command
+    line and writes the same predictions."""
+    _jax_run_folder(tiny, tmp_path / "runs")
+    _write_features(tmp_path / "feats", np.random.default_rng(2), (150, 333, 64), 16)
+    outs = {}
+    for name, cli in (("port", predict_cli.main), ("jax", jax_predict_cli.main)):
+        outs[name] = tmp_path / f"out_{name}"
+        cli(["jax_exp/0/3", "--root", str(tmp_path / "runs"), "--features",
+             str(tmp_path / "feats"), "--out", str(outs[name]), "--feats-wire", "int8"])
+    for i in range(3):
+        for suffix in ("labels.npy", "y_labels.npy"):
+            np.testing.assert_array_equal(np.load(outs["port"] / f"video_{i}.{suffix}"),
+                                          np.load(outs["jax"] / f"video_{i}.{suffix}"))
+        got, want = (json.loads((outs[k] / f"video_{i}.json").read_text())
+                     for k in ("port", "jax"))
+        for k in ("name", "transcript", "transcript_names"):
+            assert got[k] == want[k], k
+        np.testing.assert_allclose(got["rel_lengths"], want["rel_lengths"], rtol=1e-5,
+                                   atol=1e-4)
+
+
 def test_entry_points_run_as_modules():
-    for entry in ("train_test_mucon", "test_mucon", "predict"):
+    for entry in ("train_test_mucon", "test_mucon", "predict", "export_model"):
         out = subprocess.run([sys.executable, "-m", f"mucon_tpu_torch.cli.{entry}", "--help"],
                              cwd=REPO, capture_output=True, text=True, timeout=120)
         assert out.returncode == 0 and "usage" in out.stdout, (entry, out.stderr)
