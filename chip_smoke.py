@@ -73,6 +73,19 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    re-evaluation (within 1e-6), a fresh trainer's `resume_latest` and the
    checkpoint's plain-path eval against the kernel eval's pickle (by
    `compare_request`'s near-tie rules), and prints its phases' seconds;
+   then the data-parallel mesh on that phase's data (`mesh_phase`): the
+   same entry point under `python -m torch.distributed.run
+   --nproc-per-node 1` with `tpu.mesh.enable` and `tpu.mesh.multihost` (a
+   mesh of one rank over NCCL: the all-reduce a step and the eval's
+   all-gather on the card), its launches equal the cli run's, the regime
+   line logged, one checkpoint folder a save, and its results equal bit
+   for bit to a plain run of the same flags, both under deterministic
+   algorithms (and within 1e-4 / 2e-3 of the cli run's, which used the
+   default ones); and two gloo ranks on the one card, each with 4 of the
+   train batch's 8 videos, three `make_sharded_train_step` kernel steps
+   against single-process steps at B=8 (`check_step`, the update at the
+   model's scale), the ranks' weights equal bit for bit, with the DP
+   step's and its gradient all-reduce's ms and the phase's seconds;
 7. runs the other regimes and evaluation modes on that phase's data and
    checkpoint (`variants_phase`): `train_test_mucon_full` and
    `train_test_mucon_mixed` (50% supervised) for an epoch each, with their
@@ -2073,7 +2086,8 @@ def cli_phase(dev, card: str, tmp: str) -> None:
     from mucon_tpu_torch.cli import test_mucon, train_test_mucon
     from mucon_tpu_torch.cli.common import create_model_from_cfg
     from mucon_tpu_torch.data import handel_dataset
-    from mucon_tpu_torch.harness.evaluator import MuConEvaluator, pad_rows
+    from mucon_tpu_torch.harness.evaluator import MuConEvaluator
+    from mucon_tpu_torch.parallel.mesh import pad_rows
     from mucon_tpu_torch.harness.trainer import SimpleTrainer
     from mucon_tpu_torch.models.model import batch_to_tensors
     from mucon_tpu_torch.ops.eval_fused import build_fused_eval
@@ -2199,7 +2213,8 @@ def cli_phase(dev, card: str, tmp: str) -> None:
         say(f"cli: eval {i} ({'final, Viterbi' if i == len(evs) - 1 else 'periodic'}) "
             f"{sec} s, last_eval_phases {ph} [{card}]")
     say(f"cli: {result}")
-    return dict(sets=sets, runs=runs, log=log, model=model, test_db=test_db)
+    return dict(sets=sets, runs=runs, log=log, model=model, test_db=test_db, fields=fields,
+                launches=launches)
 
 
 # -- phase 7: the supervised regimes and the other evaluation modes ----------
@@ -2349,7 +2364,7 @@ def alignment_eval(dev, card: str, cli: dict) -> None:
     import torch
     from mucon_tpu_torch import cuda
     from mucon_tpu_torch.harness import MuConAlignmentEvaluator
-    from mucon_tpu_torch.harness.evaluator import pad_rows
+    from mucon_tpu_torch.parallel.mesh import pad_rows
     from mucon_tpu_torch.models.model import batch_to_tensors
     from mucon_tpu_torch.ops.eval_fused import build_fused_eval
 
@@ -4055,6 +4070,305 @@ def widths_phase(dev, card: str, tmp: str, cli: dict) -> dict:
     return lines, v2_bf16
 
 
+# -- phase 11: the mesh (data parallelism over torch.distributed) -------------
+
+MESH_STEPS = 3
+LAUNCHER_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+                "MASTER_PORT")
+# the events' keys that are clocks, not results
+CLOCK_KEYS = ("time", "epoch_seconds", "eval_seconds", "eval_phases", "videos_per_sec")
+
+
+def run_logged(cmd, log, timeout: float) -> int:
+    """Run `cmd` from the checkout's root in a session of its own, output to
+    `log`, without the env of an enclosing launch; on a timeout kill the
+    whole session and raise.  Returns the exit code."""
+    import signal
+    from pathlib import Path
+
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, env=env, stdout=f,
+                                stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            return proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise
+
+
+def mesh_cli_rank(out: str, argv: list) -> None:
+    """One run of `train_test_mucon` for the `mesh` phase (under
+    `torch.distributed.run` or alone): the entry point with `argv` under
+    deterministic algorithms (an op without a deterministic version warns),
+    then its 24 fields and the process's kernel launches as JSON in
+    `out`."""
+    import dataclasses
+
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.cli import train_test_mucon
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cuda.reset_launch_counts()
+    result = train_test_mucon.main(argv)
+    torch.cuda.synchronize()
+    with open(out, "w") as f:
+        json.dump(dict(fields=dataclasses.asdict(result), launches=dict(cuda.launch_counts)), f)
+
+
+def run_events(run) -> dict:
+    """The results in a run folder's `epoch` and `eval_0` events, clocks
+    dropped."""
+    events = [json.loads(line) for line in open(run / "events.jsonl")]
+    return {kind: [{k: v for k, v in e.items() if k not in CLOCK_KEYS}
+                   for e in events if e["kind"] == kind] for kind in ("epoch", "eval_0")}
+
+
+def max_diff(a, b) -> float:
+    """The largest absolute difference of two nests of numbers (inf where
+    their structure differs)."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return float("inf")
+        return max([max_diff(a[k], b[k]) for k in a] or [0.0])
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return float("inf")
+        return max([max_diff(x, y) for x, y in zip(a, b)] or [0.0])
+    if isinstance(a, str) or isinstance(b, str):
+        return 0.0 if a == b else float("inf")
+    return abs(float(a) - float(b))
+
+
+def mesh_world_one(card: str, tmp: str, cli: dict) -> None:
+    """`python -m torch.distributed.run --nproc-per-node 1 -m
+    mucon_tpu_torch.cli.train_test_mucon` with the `cli` cell's flags and
+    `tpu.mesh.enable`, `tpu.mesh.multihost`: a mesh of one rank over NCCL
+    (its all-reduce a step and the eval's all-gather a batch run on the
+    card).  Its kernel launches equal the `cli` run's, the regime line is
+    logged, and the coordinator writes one checkpoint folder a save.  The
+    `cli` run used PyTorch's default CUDA algorithms, which vary from run
+    to run, so this run and a plain run of the same flags (no launcher, no
+    mesh) both take deterministic algorithms: their epoch losses, evals
+    and 24 fields must be equal bit for bit, and each within 1e-4
+    (losses, relative) and 2e-3 (fields) of the `cli` run's."""
+    from pathlib import Path
+
+    def run(name: str, sets, launcher: bool) -> tuple:
+        out, log = Path(tmp) / f"{name}.json", Path(tmp) / f"{name}.log"
+        code = f"import chip_smoke; chip_smoke.mesh_cli_rank({str(out)!r}, " \
+               f"{cli_argv(sets, name)!r})"
+        cmd = [sys.executable, "-c", code]
+        if launcher:
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc-per-node", "1", "--no-python", *cmd]
+        t0 = time.perf_counter()
+        rc = run_logged(cmd, log, timeout=300)
+        seconds = time.perf_counter() - t0
+        text = log.read_text()
+        expect(rc == 0, f"mesh: the {name} run exited {rc}:\n{text[-4000:]}")
+        got = json.loads(out.read_text())
+        got["events"] = run_events(Path(runs) / name / "0")
+        return got, text, seconds
+
+    runs = str(Path(tmp) / "mesh_runs")
+    base = [kv for kv in cli["sets"] if kv[0] != "trainer.root"] + [("trainer.root", runs)]
+    mesh_sets = base + [("tpu.mesh.enable", "True"), ("tpu.mesh.multihost", "True")]
+    mesh, log, seconds = run("chip_mesh", mesh_sets, launcher=True)
+    for line in ("torch.distributed initialized: rank 0 / 1 on nccl",
+                 "sharded train step: data-parallel over the data axis (n_data=1, one "
+                 "all-reduce a step on nccl), per-rank kernels active"):
+        expect(line in log, f"mesh: {line!r} not logged")
+    expect(mesh["launches"] == cli["launches"],
+           f"mesh: launches {mesh['launches']} != the cli run's {cli['launches']}")
+    ckpts = Path(runs) / "chip_mesh" / "0" / "checkpoints"
+    saved = sorted(p.parent.name for p in ckpts.glob("epoch_*/model.pt"))
+    expect(saved == ["epoch_0", "epoch_1"], f"mesh: checkpoints {saved}")
+    say(f"mesh: torchrun world 1 over NCCL: {seconds:.3f} s (launcher, rank, NCCL init, "
+        f"the run); launches equal the cli run's: "
+        f"{json.dumps({k: v for k, v in mesh['launches'].items() if v})} [{card}]")
+    ops = sorted({line.split("UserWarning: ")[-1].split(" does not have")[0]
+                  for line in log.splitlines() if "does not have a deterministic" in line})
+    say(f"mesh: ops without a deterministic CUDA version on the path: {ops or 'none'}")
+
+    plain, _, plain_s = run("chip_plain", base, launcher=False)
+    diff = max(max_diff(mesh["events"], plain["events"]),
+               max_diff(mesh["fields"], plain["fields"]))
+    expect(diff == 0.0, f"mesh: world 1 over NCCL differs from a plain run of the same flags "
+                        f"by {diff:.3e}")
+    say(f"mesh: world 1 over NCCL = a plain run of the same flags ({plain_s:.3f} s) bit for "
+        f"bit, both under deterministic algorithms: epoch losses, per-epoch evals, the final "
+        f"24 fields [{card}]")
+    ref = run_events(Path(cli["runs"]) / "chip_cli" / "0")
+    loss_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                   for a, b in zip(mesh["events"]["epoch"], ref["epoch"]) for k in b
+                   if isinstance(b[k], float))
+    fields = max(max_diff(mesh["events"]["eval_0"], ref["eval_0"]),
+                 max_diff(mesh["fields"], cli["fields"]))
+    expect(loss_rel <= 1e-4 and fields <= 2e-3,
+           f"mesh: against the cli run: losses {loss_rel:.3e} relative, fields {fields:.3e}")
+    say(f"mesh: against the cli run (default algorithms): epoch losses within {loss_rel:.3e} "
+        f"relative, eval fields within {fields:.3e}")
+
+
+def dp_parts(dev):
+    """The default model with every dropout rate 0 and the flint loss
+    kernel, its SGD and its partitioned clip, as the `mesh` phase's two
+    ranks and its single-process reference build them."""
+    from mucon_tpu_torch.harness.optim import clip_gradients, create_optimizer
+    from mucon_tpu_torch.models.losses import loss_config_from_cfg
+    from mucon_tpu_torch.models.model import create_model
+
+    cfg = smoke_cfg(tempfile.gettempdir())
+    model = create_model(M, N_MAX + 1, D, device=dev, seed=0, dropout_rate=0.0,
+                         last_dropout_rate=0.0, embedding_dropout=0.0,
+                         loss_cfg=loss_config_from_cfg(cfg))
+    tr = cfg.trainer
+    opt = create_optimizer(model.net.parameters(), tr.optimizer, tr.learning_rate, tr.momentum,
+                           tr.weight_decay)
+    partition = model.param_partition()
+    return model, opt, lambda: clip_gradients(tr, partition)
+
+
+def mesh_dp_rank(rank: int, world: int, rdzv: str, out: str) -> None:
+    """One of the `mesh` phase's gloo ranks on the one card: MESH_STEPS
+    `make_sharded_train_step` kernel steps on its rows of the train batch,
+    its launches, its weights before and after each step, then the ms of
+    a step and of the gradient all-reduce alone (CUDA events)."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.parallel.mesh import (
+        all_reduce_mean_,
+        make_mesh,
+        make_sharded_train_step,
+        shard_batch_arrays,
+    )
+    from mucon_tpu_torch.parallel.multihost import init_distributed
+
+    init_distributed(rdzv, num_processes=world, process_id=rank, backend="gloo")
+    dev = torch.device("cuda", 0)
+    cuda.load()
+    mesh = make_mesh()
+    model, opt, clip = dp_parts(dev)
+    step = make_sharded_train_step(model, opt, mesh, use_kernels=True, clip=clip)
+    arrays = shard_batch_arrays(mesh, train_batch(np.random.default_rng(1), dev), dev)
+
+    def params():
+        return {n: p.detach().cpu().clone() for n, p in model.net.named_parameters()}
+
+    snaps, losses = [params()], []
+    torch.use_deterministic_algorithms(True)
+    try:
+        cuda.reset_launch_counts()
+        for _ in range(MESH_STEPS):
+            losses.append({k: float(v) for k, v in step(arrays).items()})
+            snaps.append(params())
+        torch.cuda.synchronize()
+        launches = dict(cuda.launch_counts)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    step_ms = cuda_ms(lambda: step(arrays), reps=5)
+    opt.zero_grad(set_to_none=True)
+    model.loss(model.forward(arrays, train=True), arrays).main.backward()
+    grads = [p.grad for p in model.net.parameters() if p.grad is not None]
+    ar_ms = cuda_ms(lambda: all_reduce_mean_(grads, mesh), reps=5)
+    torch.save(dict(losses=losses, snaps=snaps, launches=launches, step_ms=step_ms,
+                    all_reduce_ms=ar_ms, rows=int(arrays["num_frames"].shape[0]),
+                    grad_bytes=sum(g.numel() * g.element_size() for g in grads)), out)
+    torch.distributed.destroy_process_group()
+
+
+def mesh_two_ranks(dev, card: str, tmp: str) -> None:
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one
+    device), each with 4 of the train batch's 8 videos, against single-
+    process kernel steps at B=8 from the same weights, by `check_step`'s
+    rules (the update at the model's scale: the two halves' mean gradient
+    sums in another order); the ranks' weights equal bit for bit.  gloo
+    all-reduces and broadcasts CUDA tensors but gathers CPU tensors only,
+    so the gathered eval runs on the card in `mesh_world_one` (NCCL)."""
+    from pathlib import Path
+
+    import torch
+    from mucon_tpu_torch.parallel.mesh import make_sharded_train_step
+
+    rdzv = Path(tmp) / "mesh_rdzv"
+    outs = [Path(tmp) / f"mesh_rank{r}.pt" for r in range(2)]
+    logs = [Path(tmp) / f"mesh_rank{r}.log" for r in range(2)]
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
+    procs, files = [], []
+    try:
+        for r in range(2):
+            code = f"import chip_smoke; chip_smoke.mesh_dp_rank({r}, 2, " \
+                   f"{('file://' + str(rdzv))!r}, {str(outs[r])!r})"
+            files.append(open(logs[r], "w"))
+            procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
+                                          cwd=Path(__file__).resolve().parent,
+                                          stdout=files[-1], stderr=subprocess.STDOUT))
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    seconds = time.perf_counter() - t0
+    for r, rc in enumerate(rcs):
+        expect(rc == 0, f"mesh: gloo rank {r} exited {rc}:\n{logs[r].read_text()[-4000:]}")
+    res = [torch.load(o, weights_only=True) for o in outs]
+    expect(all(all(torch.equal(a[n], b[n]) for n in a)
+               for a, b in zip(res[0]["snaps"], res[1]["snaps"])),
+           "mesh: the two ranks' weights differ")
+    expect(res[0]["losses"] == res[1]["losses"], "mesh: the ranks logged different losses")
+    want = {name: MESH_STEPS * n for name, n in PER_TRAIN_STEP.items()}
+    for r in res:
+        got = {k: v for k, v in r["launches"].items() if v}
+        expect(got == want, f"mesh: a rank's launches {got} != {want}")
+
+    model, opt, clip = dp_parts(dev)
+    step = make_sharded_train_step(model, opt, None, use_kernels=True, clip=clip)
+    arrays = train_batch(np.random.default_rng(1), dev)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for at in range(MESH_STEPS):
+            with torch.no_grad():
+                for n, p in model.net.named_parameters():
+                    p.copy_(res[0]["snaps"][at][n])
+            lp = {k: float(v) for k, v in step(arrays).items()}
+            after_p = {n: p.detach().cpu() for n, p in model.net.named_parameters()}
+            check_step(f"mesh 2 gloo ranks x {res[0]['rows']} rows, step {at + 1}",
+                       res[0]["losses"][at], lp, res[0]["snaps"][at], res[0]["snaps"][at + 1],
+                       after_p, model_scale=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    single_ms = cuda_ms(lambda: step(arrays), reps=5)
+    r0 = res[0]
+    say(f"mesh: 2 gloo ranks on one card, {MESH_STEPS} kernel steps each: the ranks' weights "
+        f"equal bit for bit, launches {json.dumps(want)} a rank; collectives on the card: "
+        f"all_reduce (gradients, {r0['grad_bytes']} bytes a step, and the loss terms); the "
+        f"eval's all_gather needs NCCL (world 1 above)")
+    say(f"mesh: a DP step at {r0['rows']} rows a rank {r0['step_ms']:.3f} ms, of it the gloo "
+        f"gradient all-reduce {r0['all_reduce_ms']:.3f} ms "
+        f"({100 * r0['all_reduce_ms'] / r0['step_ms']:.1f}%); the single-process step at "
+        f"B={TRAIN_B} {single_ms:.3f} ms; the two ranks' wall {seconds:.3f} s (start, build "
+        f"load, steps, timing) [{card}]")
+    say(f"mesh: BiLSTM forward plan at {r0['rows']} videos a rank: "
+        f"{bilstm_launch(r0['rows'], 128)}; at B={TRAIN_B}: {bilstm_launch(TRAIN_B, 128)}")
+
+
+def mesh_phase(dev, card: str, tmp: str, cli: dict) -> None:
+    """The mesh (parallel/): the entry point at world size 1 over NCCL
+    against the `cli` run, then two gloo ranks' train steps on the card
+    against single-process steps; the phase's wall seconds."""
+    t0 = time.perf_counter()
+    mesh_world_one(card, tmp, cli)
+    mesh_two_ranks(dev, card, tmp)
+    say(f"mesh phase: {time.perf_counter() - t0:.3f} s [{card}]")
+
+
 def probe_widths() -> None:
     """The `cli` phase, then the `widths` phase alone (a shorter call on the
     card: `python3 -c 'import chip_smoke; chip_smoke.probe_widths()'`)."""
@@ -4123,6 +4437,30 @@ def probe_precision() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     say(json.dumps({k: dict(v, launches=launches[k]) for k, v in results.items()}))
+
+
+def probe_mesh() -> None:
+    """The `cli` phase, then the `mesh` phase alone (a shorter call on the
+    card: `python3 -c 'import chip_smoke; chip_smoke.probe_mesh()'`)."""
+    import torch
+    from mucon_tpu_torch import cuda
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    say(smi)
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    cuda.load()
+    say(f"built {cuda.build().name} in {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="mucon_chip_mesh_")
+    try:
+        cli = cli_phase(dev, smi, tmp)
+        mesh_phase(dev, smi, tmp, cli)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def ptxas_summary(log: str) -> list:
@@ -4206,6 +4544,7 @@ def main() -> int:
                       MSTCNPP_TRAIN_KERNELS, STACK_KERNELS, smi, stages=True)
         del arrays
         cli = cli_phase(dev, smi, tmp)
+        mesh_phase(dev, smi, tmp, cli)
         variants_phase(dev, smi, tmp, cli)
         trainer_options_phase(dev, smi, tmp, cli)
         prec_results, prec_launches = precision_phase(dev, smi, tmp, cli)

@@ -1,16 +1,19 @@
 """Shared CLI plumbing (mucon_tpu/cli/common.py): --cfg / --set / --exp-name
-composition, and the model a config describes."""
+composition, the process group of a launch of several processes, and the
+model a config describes."""
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 from typing import List
 
 from mucon_tpu_torch.config import ConfigNode, get_cfg_defaults, update_config
 from mucon_tpu_torch.config.support import check_supported, device_from_cfg
 from mucon_tpu_torch.models.losses import loss_config_from_cfg
 from mucon_tpu_torch.models.model import MuConModel, create_model, model_fields_from_cfg
+from mucon_tpu_torch.parallel.multihost import distributed_env_configured, init_distributed
 
 
 def config_arg_parser(description: str) -> argparse.ArgumentParser:
@@ -36,8 +39,25 @@ def compose_config(args) -> ConfigNode:
         cfg.defrost()
         cfg.experiment_name = args.exp_name
         cfg.freeze()
+    init_run_processes(cfg)
     check_supported(cfg)
     return cfg
+
+
+def init_run_processes(cfg) -> None:
+    """Join the process group of a launch (torchrun) before any model or
+    card is touched (cli/common.py:55-64): NCCL when `system.device` is the
+    card, gloo otherwise.  A launch of several processes without
+    `tpu.mesh.enable` or `tpu.mesh.multihost` raises: each process would
+    run the whole job alone over one run folder."""
+    mesh = cfg.tpu.mesh
+    if distributed_env_configured() and not (mesh.enable or mesh.multihost):
+        raise ValueError("the environment declares a launch of several processes "
+                         f"(WORLD_SIZE={os.environ['WORLD_SIZE']}) but neither "
+                         "tpu.mesh.enable nor tpu.mesh.multihost is set")
+    name = str(cfg.system.device)
+    backend = "gloo" if name == "cpu" else "nccl"
+    init_distributed(auto=bool(mesh.multihost), backend=backend)
 
 
 def create_model_from_cfg(cfg, db, device=None, model_cls=MuConModel) -> MuConModel:

@@ -12,7 +12,7 @@ Usage:
 import argparse
 from pathlib import Path
 
-from mucon_tpu_torch.cli.common import create_model_from_cfg
+from mucon_tpu_torch.cli.common import create_model_from_cfg, init_run_processes
 from mucon_tpu_torch.config import get_cfg_defaults
 from mucon_tpu_torch.data import handel_dataset
 from mucon_tpu_torch.harness.checkpoint import load_params
@@ -31,6 +31,7 @@ def single_main(identifier: str, root: str = "", data_root: str = ""):
     cfg.trainer.root = root
     cfg.dataset.root = data_root or cfg.dataset.root
     cfg.freeze()
+    init_run_processes(cfg)
 
     test_db = handel_dataset(cfg, train=False)
     model = create_model_from_cfg(cfg, test_db)

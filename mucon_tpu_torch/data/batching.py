@@ -13,14 +13,16 @@ With `fixed_batches` (the device batch cache, `tpu.cache_batches`) the
 batches' composition is frozen (runs of the length-sorted videos) and only
 their order is shuffled each epoch, so a batch is a stable unit that a
 cache can key on; `iter_cached_keys` gives an epoch's plan without
-touching the features.  The JAX loader's `batch_divisor` (the mesh) is not
-ported.
+touching the features.  With `batch_divisor` (the mesh's data axis) a batch
+whose size it does not divide, the remainder, is dropped with a one-time
+warning, and a divisible remainder is kept (batching.py:132, 170-195).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import warnings
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence
 
@@ -101,7 +103,8 @@ class PaddedBatchLoader:
 
     def __init__(self, dataset, batch_size: int, pad_multiple: int = 512,
                  shuffle: bool = True, seed: int = 0, prefetch: int = 2,
-                 pad_to: Optional[int] = None, fixed_batches: bool = False):
+                 pad_to: Optional[int] = None, fixed_batches: bool = False,
+                 batch_divisor: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.pad_multiple = pad_multiple
@@ -110,6 +113,11 @@ class PaddedBatchLoader:
         self.prefetch = prefetch
         self.fixed_batches = fixed_batches
         self.pad_to = pad_to  # one T_pad for every batch (single-shape eval)
+        # a sharded batch splits evenly over the mesh's data axis; dummy
+        # videos would dilute the loss, so a remainder it does not divide
+        # is dropped (the same videos every epoch under fixed_batches)
+        self.batch_divisor = max(1, batch_divisor)
+        self._warned_drop = False
         self.epoch = 0
         self.n_max = dataset.max_transcript_length
         frames = getattr(dataset, "num_frames", None)
@@ -119,7 +127,24 @@ class PaddedBatchLoader:
         ])
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n, b = len(self.dataset), self.batch_size
+        sizes = [b] * (n // b) + ([n % b] if n % b else [])
+        return sum(s % self.batch_divisor == 0 for s in sizes)
+
+    def _filter_batches(self, batches: List[np.ndarray]) -> List[np.ndarray]:
+        """The batches whose size `batch_divisor` divides; the first drop
+        warns."""
+        kept = [b for b in batches if len(b) % self.batch_divisor == 0]
+        if len(kept) < len(batches) and not self._warned_drop:
+            lost = sum(map(len, batches)) - sum(map(len, kept))
+            warnings.warn(
+                f"PaddedBatchLoader: dropping {lost} video(s) whose remainder batch is not "
+                f"divisible by the mesh data axis ({self.batch_divisor}); with fixed_batches "
+                f"these are the SAME videos every epoch -- pick a batch size so that "
+                f"len(dataset) % batch_size % {self.batch_divisor} == 0 to train on "
+                f"everything", stacklevel=3)
+            self._warned_drop = True
+        return kept
 
     def _batch_indices(self) -> List[np.ndarray]:
         n = len(self.dataset)
@@ -127,6 +152,7 @@ class PaddedBatchLoader:
         if self.fixed_batches:
             order = np.argsort(self._lengths, kind="stable")
             batches = [order[i : i + self.batch_size] for i in range(0, n, self.batch_size)]
+            batches = self._filter_batches(batches)
             if self.shuffle:
                 rng.shuffle(batches)
             return batches
@@ -136,6 +162,7 @@ class PaddedBatchLoader:
         chunks = [order[i : i + window] for i in range(0, n, window)]
         order = np.concatenate([c[np.argsort(self._lengths[c], kind="stable")] for c in chunks])
         batches = [order[i : i + self.batch_size] for i in range(0, n, self.batch_size)]
+        batches = self._filter_batches(batches)
         if self.shuffle:
             rng.shuffle(batches)
         return batches

@@ -42,6 +42,17 @@ budget, the trainer's when a trainer holds the evaluator, else its own;
 after one pass in which every batch was cached, later evaluations replay
 (batch without its features, device tensors) pairs and read, collate and
 copy nothing.  A batch the budget refuses leaves the evaluator streaming.
+
+Under a mesh (evaluator.py:255-441, the trainer's rule: `tpu.mesh.enable`
+and either `tpu.mesh.multihost` or more than one rank) the fused path runs
+data-parallel: each batch is padded to a multiple of the data axis (to
+`tpu.batch_size` under `tpu.eval_single_shape`), each rank runs the fused
+program, kernels included, on its own rows, and the fixed-shape outputs
+are gathered from every rank in rank order before they go to the host.
+Every rank then consumes every video and computes the same 24 fields (the
+JAX package's replicated consume), and only the coordinator writes the
+pickle.  A run of several processes without the mesh, or on the per-batch
+path, raises.
 """
 
 from __future__ import annotations
@@ -73,13 +84,15 @@ from mucon_tpu_torch.metrics import (
     MoFAccuracyMetric,
 )
 from mucon_tpu_torch.models.model import (
-    batch_to_tensors,
+    batch_to_host_tensors,
     eval_feats_round_to_bf16,
     resolve_feats_dtype,
 )
 from mucon_tpu_torch.models.routing import routes_from_cfg
 from mucon_tpu_torch.ops.eval_fused import build_fused_eval
 from mucon_tpu_torch.ops.viterbi import dense_viterbi_decode_batch, positions_to_results
+from mucon_tpu_torch.parallel.mesh import mesh_shape, pad_rows, shard_batch_arrays
+from mucon_tpu_torch.parallel.multihost import is_coordinator, run_mesh, world_size
 from mucon_tpu_torch.utils import make_same_size_interpolate
 
 
@@ -130,18 +143,6 @@ class MuConEvaluatorResult:
     s_f1_score: Tuple[float, float, float]
 
 
-def pad_rows(arrays: dict, rows: int) -> dict:
-    """Pad the batch axis to `rows` with dummy videos of 16 frames and a
-    transcript of one (mucon_tpu/parallel/mesh.py pad_batch_to_multiple)."""
-    b = arrays["num_frames"].shape[0]
-    if b >= rows:
-        return arrays
-    out = {k: torch.cat([v, v.new_zeros((rows - b, *v.shape[1:]))]) for k, v in arrays.items()}
-    out["num_frames"][b:] = 16
-    out["transcript_len"][b:] = 1
-    return out
-
-
 class MuConEvaluator:
     def __init__(self, cfg, test_db, model, device=None):
         check_supported(cfg)
@@ -166,6 +167,8 @@ class MuConEvaluator:
         self.cache_budget: Optional[CacheBudget] = None  # a trainer shares its own
         self._array_cache: dict = {}
         self._replay: Optional[list] = None
+        self._mesh = None
+        self._mesh_built = False
 
         bg = test_db.background_class_ids
         self.y_mof_metric = MoFAccuracyMetric()
@@ -255,6 +258,14 @@ class MuConEvaluator:
         (tracebacks, the per-batch path's prediction and Viterbi decode, and
         metric updates) and finish (aggregation)."""
         model = self.model if model is None else model
+        mesh = self._eval_mesh(model.device)
+        if world_size() > 1 and not self._fused_backend():
+            raise RuntimeError("a multi-process evaluation needs the fused device backend "
+                               "(evaluator.viterbi.backend='device', multi_length=False): "
+                               "the per-batch path decodes whole batches on one card")
+        if world_size() > 1 and mesh is None:
+            raise RuntimeError("a multi-process evaluation needs the mesh "
+                               "(tpu.mesh.enable=True): each rank holds only its own rows")
         self.on_start_eval(model)
         ph = dict(stream=0.0, first_dispatch=0.0, dispatch=0.0, consume=0.0, finish=0.0)
         self.last_eval_phases = ph
@@ -262,7 +273,7 @@ class MuConEvaluator:
             # the program is keyed on teacher forcing (evaluator.py:518-521)
             run = build_fused_eval(model, teacher_forcing=model.teacher_forcing,
                                    frame_sampling=self.frame_sampling,
-                                   use_kernels=self.use_kernels)
+                                   use_kernels=self.use_kernels, mesh=mesh)
             consume = self._consume_fused
         else:
             def run(arrays):
@@ -293,11 +304,30 @@ class MuConEvaluator:
         ph["finish"] = time.perf_counter() - t0
         return result
 
+    def _eval_mesh(self, device):
+        """The mesh of a data-parallel fused eval, or None (evaluator.py:
+        376-397); built once, on first use."""
+        if not self._fused_backend():
+            return None
+        if not self._mesh_built:
+            self._mesh = run_mesh(self.cfg, torch.device(device).type)
+            self._mesh_built = True
+        return self._mesh
+
     def _make_arrays(self, batch: PaddedBatch, device) -> dict:
         """Device tensors of `batch` on the eval wire; with `_single_shape`
-        the remainder batch padded with dummy rows (evaluator.py:383-401)."""
+        the remainder batch padded with dummy rows (evaluator.py:383-401).
+        Under a mesh the batch is padded to a multiple of the data axis
+        (or to `tpu.batch_size` with `_single_shape`) and only this rank's
+        rows are moved (evaluator.py:403-441)."""
+        host = batch_to_host_tensors(batch, feats_dtype=self._feats_dtype)
+        mesh = self._eval_mesh(device)
         rows = max(1, self.cfg.tpu.batch_size) if self._single_shape() else 0
-        return pad_rows(batch_to_tensors(batch, device, feats_dtype=self._feats_dtype), rows)
+        if mesh is None:
+            return pad_rows({k: v.to(device) for k, v in host.items()}, rows)
+        n_data = mesh_shape(mesh)["data"]
+        rows = rows or -(-batch.batch_size // n_data) * n_data
+        return shard_batch_arrays(mesh, pad_rows(host, rows), device)
 
     def _batch_arrays(self, batch: PaddedBatch, device) -> dict:
         """`_make_arrays`, kept across evaluations with `tpu.cache_batches`
@@ -509,9 +539,12 @@ class MuConEvaluator:
 
     def save_stuff(self) -> None:
         """Pickle the last pass's per-video outputs to
-        <checkpointing folder>/data_<name>.pkl."""
+        <checkpointing folder>/data_<name>.pkl; in a run of several
+        processes, on the coordinator only (evaluator.py:841-852)."""
         if self.checkpointing_folder is None:
             raise RuntimeError("save_stuff needs set_checkpointing_folder first")
+        if not is_coordinator():  # every rank holds the same outputs
+            return
         self.checkpointing_folder.mkdir(parents=True, exist_ok=True)
         with open(self.checkpointing_folder / f"data_{self.name}.pkl", "wb") as f:
             pickle.dump(self.to_save, f)

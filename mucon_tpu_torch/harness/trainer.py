@@ -55,7 +55,18 @@ The data path (trainer.py:138-165, 288-349):
   replays them in the loader's own shuffled order without reading,
   collating or copying anything.
 
-The mesh is not ported (`config/support.py` refuses it).
+The mesh (trainer.py:167-221, `parallel/`): with `tpu.mesh.enable` and
+either `tpu.mesh.multihost` or more than one rank, the trainer runs
+data-parallel.  The replicas start from data rank 0's weights
+(broadcast), the loader keeps only batches the data axis divides
+(`batch_divisor`), each rank moves only its own rows of a batch to its
+card, and the step (`parallel/mesh.py make_sharded_train_step`; with
+accumulation `make_sharded_grad_step` then `apply_gradients`) averages the
+gradients over the ranks with one all-reduce an apply, before the clip.
+The loss terms are averaged too, so every rank logs the same numbers;
+each rank folds its data coordinate into its mask seed (rank 0 keeps the
+single-card seed).  Every rank keeps its own run folder, logger and
+metric store; only the coordinator (rank 0) writes checkpoints.
 """
 
 from __future__ import annotations
@@ -84,6 +95,16 @@ from mucon_tpu_torch.harness.optim import (
 )
 from mucon_tpu_torch.models.model import MuConModel, batch_to_host_tensors, resolve_feats_dtype
 from mucon_tpu_torch.models.routing import routes_from_cfg
+from mucon_tpu_torch.parallel.mesh import (
+    apply_gradients,
+    broadcast_module,
+    data_rank,
+    make_sharded_grad_step,
+    make_sharded_train_step,
+    mesh_shape,
+    rank_rows,
+)
+from mucon_tpu_torch.parallel.multihost import is_coordinator, run_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,7 +138,7 @@ class SimpleTrainer:
     def __init__(self, cfg, exp_name: str, train_db, model: MuConModel, device=None,
                  evaluators: Optional[List] = None, run_number: Optional[int] = None,
                  seed: Optional[int] = None):
-        check_supported(cfg, model.device)
+        check_supported(cfg)
         if device is not None and torch.device(device).type != model.device.type:
             raise ValueError(f"the model lives on {model.device}, not on {device}")
         self.cfg = cfg
@@ -166,6 +187,20 @@ class SimpleTrainer:
         # "auto": bf16 when the model computes in bf16 (trainer.py:148-152)
         self._feats_dtype = resolve_feats_dtype(cfg, auto_bf16=cfg.tpu.compute_dtype == "bfloat16")
 
+        # data parallelism over the mesh's "data" axis (trainer.py:167-221)
+        self.mesh = run_mesh(cfg, self.device.type)
+        self.n_data = 1
+        if self.mesh is not None:
+            self.n_data = mesh_shape(self.mesh)["data"]
+            if cfg.tpu.batch_size % self.n_data:
+                raise ValueError(f"tpu.batch_size ({cfg.tpu.batch_size}) must be a multiple "
+                                 f"of the mesh data axis ({self.n_data})")
+            broadcast_module(model.net, self.mesh)
+        self._clip = lambda: clip_gradients(self.cfg.trainer, self.partition)
+        self._train_step = make_sharded_train_step(model, self.optimizer, self.mesh,
+                                                   use_kernels=self.use_kernels, clip=self._clip)
+        self._grad_steps: Dict[int, object] = {}  # make_sharded_grad_step by k
+
     def create_train_dataloader(self) -> PaddedBatchLoader:
         if self._loader is None:
             self._loader = PaddedBatchLoader(
@@ -173,15 +208,19 @@ class SimpleTrainer:
                 pad_multiple=self.cfg.tpu.pad_multiple, shuffle=True, seed=self.seed,
                 prefetch=max(1, self.cfg.system.num_workers),
                 fixed_batches=bool(self.cfg.tpu.cache_batches),
+                batch_divisor=self.n_data,
             )
         return self._loader
 
     # -- the data path -----------------------------------------------------
     def _make_arrays(self, batch, stream=None):
         """(device tensors of `batch` on the train wire, the event its copy
-        records or None).  With a side `stream` (the card): pinned host
+        records or None); under a mesh, of this rank's rows only
+        (trainer.py:271-286).  With a side `stream` (the card): pinned host
         tensors copied `non_blocking` on it."""
         host = batch_to_host_tensors(batch, self.model.supervised, self._feats_dtype)
+        if self.mesh is not None:
+            host = rank_rows(self.mesh, host)
         if stream is None:
             return {k: v.to(self.device) for k, v in host.items()}, None
         with torch.cuda.stream(stream):
@@ -256,43 +295,33 @@ class SimpleTrainer:
             t.record_stream(compute)
 
     def step_generator(self) -> torch.Generator:
-        """This iteration's mask generator, seeded from (seed, iteration)."""
-        return torch.Generator(device=self.device).manual_seed(
-            self.seed * 1_000_003 + self.iter_num
-        )
+        """This iteration's mask generator, seeded from (seed, iteration)
+        and, on data rank r > 0, r (mesh.py:164 folds the data index into
+        the step's key): the replicas draw different masks, and rank 0 the
+        single-card run's."""
+        seed = self.seed * 1_000_003 + self.iter_num + data_rank(self.mesh) * 0x9E3779B97F4A7C15
+        return torch.Generator(device=self.device).manual_seed(seed % 2**64)
 
     def train_step(self, arrays: dict) -> Dict[str, torch.Tensor]:
-        """forward -> loss -> backward -> clip -> optimizer step
-        (trainer.py:397-409), teacher-forced as the model's flag says.
+        """forward -> loss -> backward -> (all-reduce) -> clip -> optimizer
+        step (trainer.py:397-409), teacher-forced as the model's flag says.
         Returns the loss terms (detached, on the device: reading them
         syncs)."""
-        self.optimizer.zero_grad(set_to_none=True)
-        scalars = self._backward(arrays, 1)
-        self._apply()
-        return scalars
+        return self._train_step(arrays, self.step_generator())
 
     def _backward(self, arrays: dict, k: int) -> Dict[str, torch.Tensor]:
         """forward -> loss -> backward of loss / k into the parameters'
         summed gradients (trainer.py:425-435); returns the loss terms."""
-        tf = self.model.teacher_forcing
-        fwd = self.model.forward(arrays, use_kernels=self.use_kernels, train=True,
-                                 generator=self.step_generator(), teacher_forcing=tf)
-        loss = self.model.loss(fwd, arrays, teacher_forcing=tf)
-        (loss.main / k).backward()
-        return {f.name: getattr(loss, f.name).detach() for f in dataclasses.fields(loss)}
+        if k not in self._grad_steps:
+            self._grad_steps[k] = make_sharded_grad_step(
+                self.model, self.mesh, accumulate_grad_every=k, use_kernels=self.use_kernels)
+        return self._grad_steps[k](arrays, self.step_generator())
 
     def _apply(self) -> None:
-        """Clip the (summed) gradients, step the optimizer, zero them.  A
-        parameter no loss reaches (the attention's unused `l3`) gets a zero
-        gradient first: the JAX optax chain decays it (and moves Adam's
-        moments) like any other, where torch's optimizers skip a
-        parameter without a gradient."""
-        for p in self.model.net.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        clip_gradients(self.cfg.trainer, self.partition)
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        """Apply the summed gradients (`parallel/mesh.py apply_gradients`:
+        zero fill, the all-reduce under a mesh, the clip, the optimizer
+        step) and zero them."""
+        apply_gradients(self.model.net, self.optimizer, self.mesh, self._clip)
 
     def figure_scheduler_input(self, eval_results) -> dict:
         if self.cfg.trainer.scheduler.name == "plateau" and eval_results:
@@ -411,11 +440,17 @@ class SimpleTrainer:
 
     # -- checkpointing -----------------------------------------------------
     def _get_checkpointing_folder(self) -> Path:
+        """This epoch's checkpoint folder, made on the coordinator only."""
         folder = self.run_folder / "checkpoints" / f"epoch_{self.epoch_num}"
-        folder.mkdir(parents=True, exist_ok=True)
+        if is_coordinator():
+            folder.mkdir(parents=True, exist_ok=True)
         return folder
 
     def save_training(self) -> None:
+        """Checkpoint the run; only the coordinator writes (trainer.py:
+        609-619): the replicas' weights are equal."""
+        if not is_coordinator():
+            return
         state = {
             "epoch_num": self.epoch_num,
             "iter_num": self.iter_num,
@@ -466,10 +501,15 @@ class SimpleTrainer:
 
     def load_training(self, run, epoch: int) -> None:
         """Restore parameters, optimizer state, counters and the scheduler
-        from <root>/<exp>/<run>/checkpoints/epoch_<epoch>/."""
+        from <root>/<exp>/<run>/checkpoints/epoch_<epoch>/.  Under a mesh
+        every rank reads that folder (the coordinator's, which
+        `trainer.root` names), and the weights are then broadcast from data
+        rank 0, so the replicas stay equal."""
         folder = self.root / self.exp_name / str(run) / "checkpoints" / f"epoch_{epoch}"
         model_state, opt_state, state = load_checkpoint(folder, self.device)
         self.model.net.load_state_dict(model_state, strict=True)
+        if self.mesh is not None:
+            broadcast_module(self.model.net, self.mesh)
         if opt_state is not None:
             self.optimizer.load_state_dict(opt_state)
         self.epoch_num = state.get("epoch_num", epoch)

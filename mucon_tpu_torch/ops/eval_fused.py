@@ -38,6 +38,7 @@ from mucon_tpu_torch.ops.viterbi import (
     viterbi_precompute_z,
 )
 from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi_decode
+from mucon_tpu_torch.parallel.mesh import gather_rows
 
 
 def eval_tables(fwd, num_frames, t_full: int, n_max: int, frame_sampling: int,
@@ -149,7 +150,7 @@ def eval_to_host(out: dict, num_frames, t_full: int) -> dict:
 
 
 def build_fused_eval(model, teacher_forcing: bool = False, frame_sampling: int = 30,
-                     max_len: int = 2000, use_kernels=True):
+                     max_len: int = 2000, use_kernels=True, mesh=None):
     """Returns run(arrays) -> dict of host numpy arrays with the keys of the
     JAX `unpack_eval_wire`: tokens, n_steps, rel_lengths, n_dec,
     transcripts, vit_score, vit_best_l, vit_pos, vit_k_valid, tz_len,
@@ -159,11 +160,19 @@ def build_fused_eval(model, teacher_forcing: bool = False, frame_sampling: int =
     plain steps.  `teacher_forcing` decodes the ground-truth
     transcript (the decoder chain's forward kernel on the kernel path) and
     takes it, not the decoded one, for the tables (eval_fused.py:82-86).
-    It is `build_eval_device` then `eval_to_host`."""
+    It is `build_eval_device` then `eval_to_host`.  With a data-parallel
+    `mesh` (`parallel/mesh.py`; eval_fused.py:196-230) `arrays` are this
+    rank's rows, and the device outputs (with `num_frames`) are gathered
+    from every rank in rank order before the copy: every rank gets the
+    global batch's outputs."""
     device = build_eval_device(model, teacher_forcing, frame_sampling, max_len, use_kernels)
 
     @torch.no_grad()
     def run(arrays: dict) -> dict:
-        return eval_to_host(device(arrays), arrays["num_frames"], arrays["feats"].shape[1])
+        out, num_frames = device(arrays), arrays["num_frames"]
+        if mesh is not None:
+            out = gather_rows(dict(out, num_frames=num_frames), mesh)
+            num_frames = out.pop("num_frames")
+        return eval_to_host(out, num_frames, arrays["feats"].shape[1])
 
     return run

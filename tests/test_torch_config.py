@@ -145,15 +145,21 @@ def _set_key(cfg, key, value):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("tpu.mesh.multihost", True),  # multi-device runs are not ported
-    ("model.name", "mucon_v2"),  # nor another model
+    # multihost runs data-parallel; with a model axis over 2 ranks it raises
+    ("tpu.mesh.multihost", True),
+    ("model.name", "mucon_v2"),  # another model is not ported
 ])
 def test_unported_keys_raise(key, value):
     cfg = get_cfg_defaults()
     support.check_supported(cfg)
     _set_key(cfg, key, value)
+    world = 1
+    if key == "tpu.mesh.multihost":
+        support.check_supported(cfg, world_size=2)
+        cfg.tpu.mesh.enable, cfg.tpu.mesh.model, world = True, 2, 2
+        support.check_supported(cfg, world_size=1)
     with pytest.raises(NotImplementedError):
-        support.check_supported(cfg)
+        support.check_supported(cfg, world_size=world)
 
 
 def _jax_resolution(key, cfg):

@@ -92,7 +92,8 @@ def test_port_imports_no_jax_or_flax():
         "          'cli.train_test_mucon_mixed', 'decode.length_model',\n"
         "          'decode.viterbi_host', 'harness.cache', 'harness.report',\n"
         "          'cli.inspect_run', 'models.routing', 'ops.bf16', 'serving',\n"
-        "          'cli.export_model', 'ops.viterbi', 'ops.eval_fused', 'data.utils'):\n"
+        "          'cli.export_model', 'ops.viterbi', 'ops.eval_fused', 'data.utils',\n"
+        "          'parallel', 'parallel.mesh', 'parallel.multihost', 'parallel.halo'):\n"
         "    assert 'mucon_tpu_torch.' + m in sys.modules, m\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
