@@ -85,7 +85,18 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    train batch's 8 videos, three `make_sharded_train_step` kernel steps
    against single-process steps at B=8 (`check_step`, the update at the
    model's scale), the ranks' weights equal bit for bit, with the DP
-   step's and its gradient all-reduce's ms and the phase's seconds;
+   step's and its gradient all-reduce's ms; then the mesh's seq and model
+   axes (`mesh_seq_model`): 2, 4 and 8 gloo ranks sharing the card, a
+   step each on (data, seq, model) = (1,2,1), (1,1,2) and (1,2,2) at the
+   default model on the train batch, on (1,2,1) for a 12,288-frame video,
+   and on (2,2,2) at small_cfg's widths, each held to a one-rank step on
+   the same routes (`check_step`), the ranks equal bit for bit, the
+   kernels after the backbone's gather launched once and no stack kernel,
+   with each step's ms, its collectives' ms and the bytes staged through
+   the host, and the phase's seconds.  Before it the native host kernels
+   (`native_check`): the library loaded, the cli phase's collates and
+   metrics counted on it, request A's collate native against numpy (equal
+   bytes, both times);
 7. runs the other regimes and evaluation modes on that phase's data and
    checkpoint (`variants_phase`): `train_test_mucon_full` and
    `train_test_mucon_mixed` (50% supervised) for an epoch each, with their
@@ -159,6 +170,7 @@ import sys
 import tempfile
 import time
 from types import SimpleNamespace
+from typing import Optional
 from unittest import mock
 
 import numpy as np
@@ -4070,7 +4082,7 @@ def widths_phase(dev, card: str, tmp: str, cli: dict) -> dict:
     return lines, v2_bf16
 
 
-# -- phase 11: the mesh (data parallelism over torch.distributed) -------------
+# -- phase 11: the mesh (data, seq and model axes over torch.distributed) -----
 
 MESH_STEPS = 3
 LAUNCHER_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
@@ -4361,12 +4373,335 @@ def mesh_two_ranks(dev, card: str, tmp: str) -> None:
 
 def mesh_phase(dev, card: str, tmp: str, cli: dict) -> None:
     """The mesh (parallel/): the entry point at world size 1 over NCCL
-    against the `cli` run, then two gloo ranks' train steps on the card
-    against single-process steps; the phase's wall seconds."""
+    against the `cli` run, two gloo ranks' data-parallel train steps on
+    the card against single-process steps, then the seq and model axes
+    (`mesh_seq_model`); the phase's wall seconds."""
     t0 = time.perf_counter()
     mesh_world_one(card, tmp, cli)
     mesh_two_ranks(dev, card, tmp)
-    say(f"mesh phase: {time.perf_counter() - t0:.3f} s [{card}]")
+    t1 = time.perf_counter()
+    mesh_seq_model(dev, card, tmp)
+    say(f"mesh phase: {time.perf_counter() - t0:.3f} s, of it the seq / model meshes "
+        f"{time.perf_counter() - t1:.3f} s [{card}]")
+
+
+# the seq / model meshes of the `mesh` phase: (name, shape, batch) a world size
+SP_RUNS = {2: (("1x2x1", (1, 2, 1), "train"), ("1x1x2", (1, 1, 2), "train"),
+               ("long 1x2x1", (1, 2, 1), "long")),
+           4: (("1x2x2", (1, 2, 2), "train"),),
+           8: (("2x2x2 small", (2, 2, 2), "small"),)}
+SP_LONG = 12288  # frames, the JAX package's long-video case (tests/test_parallel.py:534)
+SMALL = dict(stages=(1, 2, 4), pooling_layers=(0, 1), hidden_size=16, last_gn_num_groups=4,
+             lstm_hidden_size=16)  # tests/test_model.py small_cfg's widths
+SP_FREE_STEPS = 6  # a rank's steps after the checked one: cuda_ms's 1 + 3, host, collectives
+SP_KERNELS = ("bilstm_train_fwd", "bilstm_train_bwd", "decoder_chain_fwd", "decoder_chain_bwd",
+              "mucon_flint")
+
+
+def sp_routes():
+    """The routes of a seq / model step: the stack kernels give way to the
+    plain sharded stack; the kernels after the gather keep theirs."""
+    from mucon_tpu_torch.models.routing import KernelRoutes
+
+    return KernelRoutes(stack=False, stack_train=False)
+
+
+def sp_parts(dev, small: bool):
+    """`dp_parts`' model (every dropout 0, the flint loss kernel) at the
+    default widths or, `small`, at small_cfg's; its optimizer config and
+    clip groups."""
+    from mucon_tpu_torch.models.losses import loss_config_from_cfg
+    from mucon_tpu_torch.models.model import create_model
+
+    cfg = smoke_cfg(tempfile.gettempdir())
+    model = create_model(M, N_MAX + 1, D, device=dev, seed=0, dropout_rate=0.0,
+                         last_dropout_rate=0.0, embedding_dropout=0.0,
+                         loss_cfg=loss_config_from_cfg(cfg), **(SMALL if small else {}))
+    return model, cfg.trainer, model.param_partition()
+
+
+def sp_batch(what: str):
+    """Host tensors of a seq / model step's batch: the train batch, or one
+    video of SP_LONG - 100 frames padded to SP_LONG."""
+    from mucon_tpu_torch.cli.predict import collate_videos
+    from mucon_tpu_torch.models.model import batch_to_tensors
+
+    if what != "long":
+        return train_batch(np.random.default_rng(1), "cpu")
+    rng = np.random.default_rng(2)
+    feats = [rng.standard_normal((SP_LONG - 100, D), dtype=np.float32)]
+    return batch_to_tensors(collate_videos(feats, ["long"], vocab(), 2048,
+                                           transcripts=[rng.integers(0, M, size=12)]), "cpu")
+
+
+class CollectiveClock:
+    """Host milliseconds spent in the collectives of the sharded step while
+    it is entered, each call bracketed by a device sync: the all-gathers
+    and point-to-point shifts (`parallel/transport.py`) and the
+    all-reduces."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+        from mucon_tpu_torch.parallel import transport
+
+        self.ms = {"all_gather": 0.0, "p2p": 0.0, "all_reduce": 0.0}
+        self._saved = [(transport, "all_gather"), (transport, "send_recv"),
+                       (dist, "all_reduce")]
+        self._orig = [getattr(m, n) for m, n in self._saved]
+
+        def clocked(fn, kind):
+            def run(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.ms[kind] += 1e3 * (time.perf_counter() - t0)
+                return out
+            return run
+
+        for (m, n), fn, kind in zip(self._saved, self._orig, ("all_gather", "p2p", "all_reduce")):
+            setattr(m, n, clocked(fn, kind))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self._saved, self._orig):
+            setattr(m, n, fn)
+
+
+def mesh_sp_rank(rank: int, world: int, rdzv: str, out: str) -> None:
+    """One gloo rank on the one card for the seq / model meshes of
+    SP_RUNS[world]: per mesh, the one-rank init split over "model" and
+    broadcast, one step under deterministic algorithms (its loss terms,
+    launches, bytes staged through the host, and the whole weights before
+    and after, gathered over "model"), then the step's ms by CUDA events
+    and by the host clock, and the collectives' ms within a step.  Those
+    SP_FREE_STEPS timing steps run without deterministic algorithms (the
+    card's gather / index backward adds with atomics, as a user's run
+    does); after them the rank's coordinate and a digest of each of its
+    own leaves."""
+    import hashlib
+
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.harness.optim import clip_gradients, create_optimizer, local_norm_sq
+    from mucon_tpu_torch.parallel import transport
+    from mucon_tpu_torch.parallel.mesh import (
+        broadcast_module,
+        full_state,
+        make_mesh,
+        make_sharded_train_step,
+        mesh_shape,
+        model_norm_sq,
+        shard_batch_arrays,
+        shard_params,
+    )
+    from mucon_tpu_torch.parallel.multihost import init_distributed
+
+    init_distributed(rdzv, num_processes=world, process_id=rank, backend="gloo")
+    dev = torch.device("cuda", 0)
+    cuda.load()
+    results = {}
+    for name, shape, what in SP_RUNS[world]:
+        mesh = make_mesh(*shape)
+        model, tr, partition = sp_parts(dev, what == "small")
+        before = {n: p.detach().cpu().clone() for n, p in model.net.named_parameters()}
+        norm_sq = local_norm_sq
+        if mesh_shape(mesh)["model"] > 1:
+            shard_params(mesh, model.net)
+            norm_sq = model_norm_sq(model.net, mesh)
+        broadcast_module(model.net, mesh)
+        opt = create_optimizer(model.net.parameters(), tr.optimizer, tr.learning_rate,
+                               tr.momentum, tr.weight_decay)
+        step = make_sharded_train_step(model, opt, mesh, use_kernels=sp_routes(),
+                                       clip=lambda: clip_gradients(tr, partition, norm_sq))
+        arrays = shard_batch_arrays(mesh, sp_batch(what), dev)
+        torch.use_deterministic_algorithms(True)
+        try:
+            cuda.reset_launch_counts()
+            transport.reset_staged_bytes()
+            losses = {k: float(v) for k, v in step(arrays).items()}
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in cuda.launch_counts.items() if v}
+            staged = dict(transport.staged_bytes)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        after = {k: v.detach().cpu() for k, v in full_state(model.net, opt, mesh)[0].items()}
+        step_ms = cuda_ms(lambda: step(arrays), reps=3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(arrays)
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        with CollectiveClock() as clock:
+            step(arrays)
+        digests = {n: hashlib.sha256(p.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                                     .tobytes()).hexdigest()
+                   for n, p in model.net.named_parameters()}
+        results[name] = dict(losses=losses, launches=launches, staged=staged, before=before,
+                             after=after, step_ms=step_ms, host_ms=host_ms, coll=clock.ms,
+                             coord=tuple(mesh.get_coordinate()), digests=digests,
+                             rows=int(arrays["num_frames"].shape[0]),
+                             t_local=int(arrays["feats"].shape[1]))
+    torch.save(results, out)
+    torch.distributed.destroy_process_group()
+
+
+def spawn_smoke_ranks(fn: str, world: int, tmp: str, timeout: float = 300) -> list:
+    """`world` processes of `chip_smoke.<fn>(rank, world, rdzv, out)`, one
+    gloo group through a file under `tmp`; their saved results in rank
+    order, and the wall seconds."""
+    from pathlib import Path
+
+    import torch
+
+    rdzv = Path(tmp) / f"{fn}_{world}_rdzv"
+    outs = [Path(tmp) / f"{fn}_{world}_rank{r}.pt" for r in range(world)]
+    logs = [Path(tmp) / f"{fn}_{world}_rank{r}.log" for r in range(world)]
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
+    procs, files = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            code = f"import chip_smoke; chip_smoke.{fn}({r}, {world}, " \
+                   f"{('file://' + str(rdzv))!r}, {str(outs[r])!r})"
+            files.append(open(logs[r], "w"))
+            procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
+                                          cwd=Path(__file__).resolve().parent,
+                                          stdout=files[-1], stderr=subprocess.STDOUT))
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    for r, rc in enumerate(rcs):
+        expect(rc == 0, f"mesh: gloo rank {r} of {world} exited {rc}:\n"
+                        f"{logs[r].read_text()[-4000:]}")
+    return [torch.load(o, weights_only=True) for o in outs], time.perf_counter() - t0
+
+
+def mesh_seq_model(dev, card: str, tmp: str) -> None:
+    """The seq and model axes: gloo ranks sharing the card run a step on
+    the meshes of SP_RUNS (the default model on the train batch, on the
+    long video, and small_cfg's widths on (2,2,2)); each step is held by
+    `check_step` (model scale) to a one-rank step on the card from the same
+    weights on the same routes (the stack plain, the kernels after the
+    gather on), both under deterministic algorithms.  The replicated
+    leaves and the gathered weights are equal on every rank; each rank
+    launches SP_KERNELS once and no stack kernel.  After SP_FREE_STEPS more
+    steps without deterministic algorithms every replicated leaf is still
+    equal bit for bit on every rank, and every backbone leaf on every rank
+    of its model column (`reduce_gradients` hands each replica the same
+    mean).  Prints each step's ms, its collectives' ms and the bytes staged
+    through the host."""
+    import torch
+    from mucon_tpu_torch.harness.optim import clip_gradients, create_optimizer
+    from mucon_tpu_torch.parallel.mesh import is_sharded_leaf, make_sharded_train_step
+
+    for world in sorted(SP_RUNS):
+        res, seconds = spawn_smoke_ranks("mesh_sp_rank", world, tmp)
+        say(f"mesh: {world} gloo ranks on one card: {seconds:.3f} s wall (start, load, "
+            f"steps, timing) [{card}]")
+        for name, shape, what in SP_RUNS[world]:
+            r0 = res[0][name]
+            for r in res[1:]:
+                expect(r[name]["losses"] == r0["losses"],
+                       f"mesh {name}: the ranks logged different losses")
+                expect(all(torch.equal(r[name]["after"][n], v) for n, v in r0["after"].items()),
+                       f"mesh {name}: the ranks' gathered weights differ")
+            cols = {}
+            for r in res:
+                col = cols.setdefault(r[name]["coord"][2], r[name]["digests"])
+                for n, h in r[name]["digests"].items():
+                    want_h = col[n] if is_sharded_leaf(n) else r0["digests"][n]
+                    expect(h == want_h, f"mesh {name}: after {SP_FREE_STEPS} steps without "
+                           f"deterministic algorithms rank {r[name]['coord']}'s {n} differs "
+                           "from its replicas'")
+            say(f"mesh {name}: after {SP_FREE_STEPS} steps without deterministic algorithms "
+                f"the {sum(not is_sharded_leaf(n) for n in r0['digests'])} replicated leaves "
+                f"are equal bit for bit on all {len(res)} ranks, the "
+                f"{sum(map(is_sharded_leaf, r0['digests']))} backbone leaves on every rank "
+                f"of their model column")
+            for r in res:
+                want = {k: 1 for k in SP_KERNELS}
+                expect(r[name]["launches"] == want,
+                       f"mesh {name}: a rank's launches {r[name]['launches']} != {want}")
+            model, tr, partition = sp_parts(dev, what == "small")
+            opt = create_optimizer(model.net.parameters(), tr.optimizer, tr.learning_rate,
+                                   tr.momentum, tr.weight_decay)
+            step = make_sharded_train_step(model, opt, None, use_kernels=sp_routes(),
+                                           clip=lambda: clip_gradients(tr, partition))
+            with torch.no_grad():
+                for n, p in model.net.named_parameters():
+                    p.copy_(r0["before"][n])
+            arrays = {k: v.to(dev) for k, v in sp_batch(what).items()}
+            torch.use_deterministic_algorithms(True)
+            try:
+                lp = {k: float(v) for k, v in step(arrays).items()}
+            finally:
+                torch.use_deterministic_algorithms(False)
+            after_p = {n: p.detach().cpu() for n, p in model.net.named_parameters()}
+            check_step(f"mesh {name} (data, seq, model) = {shape}, {r0['rows']} rows x "
+                       f"{r0['t_local']} frames a rank", r0["losses"], lp, r0["before"],
+                       r0["after"], after_p, model_scale=True)
+            one_ms = cuda_ms(lambda: step(arrays), reps=3)
+            coll = ", ".join(f"{k} {v:.3f}" for k, v in r0["coll"].items())
+            say(f"mesh {name}: a step {r0['step_ms']:.3f} ms by events, {r0['host_ms']:.3f} ms "
+                f"by the host clock; its collectives (synced) {coll} ms; staged through the "
+                f"host {json.dumps(r0['staged'])} bytes a step a rank; the one-rank step "
+                f"{one_ms:.3f} ms [{card}]")
+            del model, opt, step, arrays
+            torch.cuda.empty_cache()
+
+
+def native_check(card: str, calls: Optional[dict]) -> dict:
+    """The native host kernels (mucon_tpu_torch/native): the library built
+    and loaded, the `cli` phase's collates and metrics took it (`calls`,
+    counted over that phase; None where no cli phase ran), and request A's collate of 128 videos of
+    1500-2100 frames with the native pad-copies against numpy's: equal
+    bytes, and both times."""
+    from mucon_tpu_torch import native
+    from mucon_tpu_torch.cli.predict import collate_videos
+
+    expect(native.available(), f"native: the library did not load ({native._failed})")
+    for name in ("pad_copy_f32", "pad_copy_i64_to_i32", "overlap_score", "levenshtein_matches",
+                 "f_scores_multi", "edit_score_norm") if calls is not None else ():
+        expect(calls.get(name, 0) > 0, f"native: the cli phase never called {name} ({calls})")
+    rng = np.random.default_rng(0)
+    pool = rng.standard_normal((2100, D), dtype=np.float32)  # each video a leading slice
+    feats = [pool[:int(t)] for t in rng.integers(1500, 2101, size=128)]
+    names = [f"A_{i}" for i in range(128)]
+    db = vocab()
+    times = {}
+    batches = {}
+    for mode in ("native", "numpy"):
+        if mode == "numpy":
+            os.environ["MUCON_TPU_NO_NATIVE"] = "1"
+        try:
+            before = native.calls["pad_copy_f32"]
+            t0 = time.perf_counter()
+            batches[mode] = collate_videos(feats, names, db, 512)
+            times[mode] = time.perf_counter() - t0
+            expect((native.calls["pad_copy_f32"] > before) == (mode == "native"),
+                   f"native: the {mode} collate took the wrong path")
+        finally:
+            os.environ.pop("MUCON_TPU_NO_NATIVE", None)
+    a, b = batches["native"], batches["numpy"]
+    for key in ("feats", "gt_label", "num_frames", "transcript", "tf_input", "tf_target"):
+        x, y = getattr(a, key), getattr(b, key)
+        expect(x.dtype == y.dtype and np.array_equal(x.view(np.uint8), y.view(np.uint8)),
+               f"native: request A's collate differs from numpy's in {key}")
+    counted = "" if calls is None else \
+        f"the cli phase's native calls {json.dumps({k: v for k, v in calls.items() if v})}; "
+    say(f"native: library {native.library_path().name} built (if not found) and loaded in "
+        f"{native.load_seconds:.3f} s at its first use; {counted}request "
+        f"A's collate (128 x {a.feats.shape[1]} x {D}, {a.feats.nbytes} bytes) native "
+        f"{1e3 * times['native']:.3f} ms, numpy {1e3 * times['numpy']:.3f} ms, equal bytes "
+        f"[{card}]")
+    return dict(calls=calls, native_ms=1e3 * times["native"], numpy_ms=1e3 * times["numpy"])
 
 
 def probe_widths() -> None:
@@ -4439,6 +4774,32 @@ def probe_precision() -> None:
     say(json.dumps({k: dict(v, launches=launches[k]) for k, v in results.items()}))
 
 
+def probe_seq_model() -> None:
+    """The seq / model meshes of the `mesh` phase and the native request A
+    collate alone (a short call on the card: `python3 -c 'import
+    chip_smoke; chip_smoke.probe_seq_model()'`)."""
+    import torch
+    from mucon_tpu_torch import cuda
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    say(smi)
+    say(f"g++: {shutil.which('g++')}")
+    t0 = time.perf_counter()
+    cuda.load()
+    say(f"built {cuda.build().name} in {time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="mucon_chip_sp_")
+    try:
+        t0 = time.perf_counter()
+        mesh_seq_model(torch.device("cuda"), smi, tmp)
+        say(f"seq / model meshes: {time.perf_counter() - t0:.3f} s [{smi}]")
+        native_check(smi, None)  # no cli phase ran: no counts to check
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def probe_mesh() -> None:
     """The `cli` phase, then the `mesh` phase alone (a shorter call on the
     card: `python3 -c 'import chip_smoke; chip_smoke.probe_mesh()'`)."""
@@ -4506,7 +4867,7 @@ def main() -> int:
     say(smi)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch import cuda, native
     from mucon_tpu_torch.models.model import create_model
 
     t0 = time.perf_counter()
@@ -4543,7 +4904,9 @@ def main() -> int:
         compare_steps("MS-TCN++", make_trainers(dev, "mstcnpp", tmp), arrays, MSTCNPP_STEPS,
                       MSTCNPP_TRAIN_KERNELS, STACK_KERNELS, smi, stages=True)
         del arrays
+        native.reset_calls()
         cli = cli_phase(dev, smi, tmp)
+        native_check(smi, dict(native.calls))
         mesh_phase(dev, smi, tmp, cli)
         variants_phase(dev, smi, tmp, cli)
         trainer_options_phase(dev, smi, tmp, cli)

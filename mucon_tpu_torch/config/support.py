@@ -5,13 +5,14 @@
   never quietly computes something other than what its config says.
 * `NOT_APPLICABLE`: options that only steer the JAX package on a TPU (its
   compile cache, scan unrolling, rematerialisation, the v2 sweep's program
-  count, the async dispatch depth, the full-length decode scan) and the
-  mesh's "seq" and "model" axes on one rank, where the JAX package builds
-  no mesh either.  They are accepted, and each is logged once when set
-  away from its default.
-* The mesh (`tpu.mesh.enable`, `tpu.mesh.multihost`, `tpu.mesh.data`) runs
-  data-parallel over any number of ranks (`parallel/`); a "seq" or
-  "model" axis above 1 on more than one rank raises `NotImplementedError`.
+  count, the async dispatch depth, the full-length decode scan).  They are
+  accepted, and each is logged once when set away from its default.  So
+  are the mesh's "seq" and "model" axes on one rank, where the JAX package
+  builds no mesh either (`MESH_AXES`).
+* The mesh (`tpu.mesh.enable`, `tpu.mesh.multihost`, `tpu.mesh.{data,seq,
+  model}`) runs over any number of ranks (`parallel/`).  As in the JAX
+  package (trainer.py:186-196), `tpu.mesh.multihost` with "model" above 1
+  over several processes raises: there every rank is a process.
 * `KERNEL_FLAGS`: the `tpu.use_pallas*` flags of the encoder, BiLSTM,
   decoder and eval paths; `models/routing.py routes_from_cfg` reads them
   into one switch a kernel (any mix runs, as in the JAX package).
@@ -42,9 +43,8 @@ NOT_APPLICABLE = {
     "tpu.train_sweep_chunks": 3,
     "tpu.eval_pipeline_depth": 8,
     "tpu.early_exit_decode": True,  # the port's free decode always stops at EOS
-    "tpu.mesh.seq": 1,
-    "tpu.mesh.model": 1,
 }
+MESH_AXES = ("tpu.mesh.seq", "tpu.mesh.model")
 KERNEL_FLAGS = ("tpu.use_pallas", "tpu.use_pallas_train", "tpu.use_pallas_lstm",
                 "tpu.use_pallas_lstm_train", "tpu.use_pallas_decoder")
 _logged = set()
@@ -83,13 +83,19 @@ def check_supported(cfg, world_size: Optional[int] = None) -> None:
     mesh = cfg.tpu.mesh
     if world_size is None:
         world_size = multihost.world_size()
-    if mesh.enable and world_size > 1 and (int(mesh.seq) > 1 or int(mesh.model) > 1):
-        # this also covers the JAX package's refusal of multihost with
-        # model > 1 (trainer.py:186-196)
+    for key in MESH_AXES:
+        value = _get(cfg, key)
+        if world_size == 1 and int(value) != 1 and key not in _logged:
+            _logged.add(key)
+            logger.info("%s=%r on one rank: not applicable (no mesh splits one rank)",
+                        key, value)
+    if mesh.enable and mesh.multihost and world_size > 1 and int(mesh.model) > 1:
         raise NotImplementedError(
-            f"tpu.mesh.seq={mesh.seq} / tpu.mesh.model={mesh.model} over {world_size} ranks "
-            "is not ported to mucon_tpu_torch: only the data axis is (the seq and model "
-            "axes are the next slice, on parallel/halo.py)")
+            f"tpu.mesh.multihost with model-sharded params (tpu.mesh.model={mesh.model}) "
+            f"over {world_size} processes is not supported: the JAX package refuses it "
+            "(its single-writer checkpoint needs every leaf whole on the coordinator, "
+            "trainer.py:186-196). Use tpu.mesh.model=1 across processes, or launch on one "
+            "node without tpu.mesh.multihost")
 
 
 def device_from_cfg(cfg) -> torch.device:

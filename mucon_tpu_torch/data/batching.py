@@ -28,6 +28,8 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from mucon_tpu_torch import native
+
 
 @dataclass
 class PaddedBatch:
@@ -54,7 +56,9 @@ def collate_padded(samples: Sequence, n_max: int, pad_multiple: int = 512,
                    t_pad: Optional[int] = None) -> PaddedBatch:
     """Pad a list of per-video samples into one batch, T_pad the longest
     video rounded up to `pad_multiple`, or `t_pad` (a multiple of 16: the
-    encoder pools 16x)."""
+    encoder pools 16x).  The features and labels go through the native
+    pad-copies when the library is loaded (`mucon_tpu_torch/native`), else
+    numpy; the bytes are the same."""
     B = len(samples)
     max_t = max(s.feats.shape[0] for s in samples)
     if t_pad is None:
@@ -72,12 +76,18 @@ def collate_padded(samples: Sequence, n_max: int, pad_multiple: int = 512,
     tf_tg = np.zeros((B, n_max + 1), np.int32)
     abs_len = np.zeros((B, n_max), np.float32)
     full_sup = np.zeros(B, bool)
+    # the bulk pad-copies in one native call each where the layouts match
+    # (the GIL released for the B x T_pad x D x 4-byte copy; native/collate.cpp)
+    feats_done = native.pad_copy_feats_native(feats, [s.feats for s in samples])
+    gt_done = native.pad_copy_labels_native(gt, [s.gt_label for s in samples])
     for i, s in enumerate(samples):
         t, n = s.feats.shape[0], s.transcript.shape[0]
         if n > n_max:
             raise ValueError(f"transcript length {n} exceeds n_max {n_max}")
-        feats[i, :t] = s.feats
-        gt[i, :t] = s.gt_label
+        if not feats_done:
+            feats[i, :t] = s.feats
+        if not gt_done:
+            gt[i, :t] = s.gt_label
         num_frames[i] = t
         transcript[i, :n] = s.transcript
         n_len[i] = n

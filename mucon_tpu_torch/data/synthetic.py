@@ -10,6 +10,8 @@ real dataset on disk.  Used by the tests and `chip_smoke.py`.
 
 from __future__ import annotations
 
+import os
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -19,6 +21,21 @@ from mucon_tpu_torch.data.general_dataset import (
     GeneralFullySupervisedDataset,
     GeneralMixedSupervisionDataset,
 )
+
+
+def _write_atomic(path: Path, write) -> None:
+    """`write(f)` into a temporary file of its own, renamed over `path`:
+    ranks that materialize the same dataset at once never read a file that
+    another is still writing (the bytes are the same)."""
+    with tempfile.NamedTemporaryFile(dir=path.parent, prefix=f".{path.name}.", suffix=".tmp",
+                                     delete=False) as f:
+        write(f)
+    os.chmod(f.name, 0o644)  # a temporary file is made 0600
+    os.replace(f.name, path)
+
+
+def _write_text(path: Path, text: str) -> None:
+    _write_atomic(path, lambda f: f.write(text.encode()))
 
 
 def materialize_synthetic_dataset(
@@ -47,10 +64,8 @@ def materialize_synthetic_dataset(
     for sub in ("features", "labels", "transcripts", "lengths"):
         (root / sub).mkdir(parents=True, exist_ok=True)
 
-    with open(root / "mapping.txt", "w") as f:
-        f.write("0 background\n")
-        for c in range(1, num_classes):
-            f.write(f"{c} action_{c}\n")
+    _write_text(root / "mapping.txt", "0 background\n" + "".join(
+        f"{c} action_{c}\n" for c in range(1, num_classes)))
 
     prototypes = rng.randn(num_classes, feat_dim).astype(np.float32)
 
@@ -81,26 +96,21 @@ def materialize_synthetic_dataset(
             np.float32
         )
 
-        np.save(root / "features" / f"{name}.npy", feats.astype(np.float32))
-        np.save(root / "labels" / f"{name}.npy", labels)
-        np.save(root / "transcripts" / f"{name}.npy", transcript)
-        np.save(root / "lengths" / f"{name}.npy", lengths.astype(np.float32))
+        for sub, arr in (("features", feats.astype(np.float32)), ("labels", labels),
+                         ("transcripts", transcript), ("lengths", lengths.astype(np.float32))):
+            _write_atomic(root / sub / f"{name}.npy", lambda f, a=arr: np.save(f, a))
 
     if n_splits <= 1:
         n_train = max(1, int(round(train_fraction * num_videos)))
-        with open(root / "split1.train", "w") as f:
-            f.write("\n".join(names[:n_train]) + "\n")
-        with open(root / "split1.test", "w") as f:
-            f.write("\n".join(names[n_train:] or names[:1]) + "\n")
+        _write_text(root / "split1.train", "\n".join(names[:n_train]) + "\n")
+        _write_text(root / "split1.test", "\n".join(names[n_train:] or names[:1]) + "\n")
     else:
         fold = max(1, num_videos // n_splits)
         for s in range(1, n_splits + 1):
             test = names[(s - 1) * fold : s * fold] or names[:1]
             train = [n for n in names if n not in test] or names[:1]
-            with open(root / f"split{s}.train", "w") as f:
-                f.write("\n".join(train) + "\n")
-            with open(root / f"split{s}.test", "w") as f:
-                f.write("\n".join(test) + "\n")
+            _write_text(root / f"split{s}.train", "\n".join(train) + "\n")
+            _write_text(root / f"split{s}.test", "\n".join(test) + "\n")
     done_marker.touch()
     return root
 

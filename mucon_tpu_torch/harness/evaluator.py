@@ -49,6 +49,10 @@ data-parallel: each batch is padded to a multiple of the data axis (to
 `tpu.batch_size` under `tpu.eval_single_shape`), each rank runs the fused
 program, kernels included, on its own rows, and the fixed-shape outputs
 are gathered from every rank in rank order before they go to the host.
+With "seq" or "model" above 1 (evaluator.py:520-545) each rank also holds
+its time block, the backbone runs sharded and is gathered to the data
+rank's rows (`MuConModel.forward`), and the BiLSTM and Viterbi kernels run
+on those rows as on one card.
 Every rank then consumes every video and computes the same 24 fields (the
 JAX package's replicated consume), and only the coordinator writes the
 pickle.  A run of several processes without the mesh, or on the per-batch
@@ -91,7 +95,7 @@ from mucon_tpu_torch.models.model import (
 from mucon_tpu_torch.models.routing import routes_from_cfg
 from mucon_tpu_torch.ops.eval_fused import build_fused_eval
 from mucon_tpu_torch.ops.viterbi import dense_viterbi_decode_batch, positions_to_results
-from mucon_tpu_torch.parallel.mesh import mesh_shape, pad_rows, shard_batch_arrays
+from mucon_tpu_torch.parallel.mesh import mesh_shape, pad_rows, shard_batch_arrays, shard_params
 from mucon_tpu_torch.parallel.multihost import is_coordinator, run_mesh, world_size
 from mucon_tpu_torch.utils import make_same_size_interpolate
 
@@ -266,6 +270,10 @@ class MuConEvaluator:
         if world_size() > 1 and mesh is None:
             raise RuntimeError("a multi-process evaluation needs the mesh "
                                "(tpu.mesh.enable=True): each rank holds only its own rows")
+        if mesh is not None and mesh_shape(mesh)["model"] > 1:
+            # a net the trainer did not split keeps its columns from here on,
+            # as the trainer's does (a net split alike is left as it is)
+            shard_params(mesh, model.net)
         self.on_start_eval(model)
         ph = dict(stream=0.0, first_dispatch=0.0, dispatch=0.0, consume=0.0, finish=0.0)
         self.last_eval_phases = ph

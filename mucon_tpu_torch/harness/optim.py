@@ -16,70 +16,85 @@ No Pallas kernel sits on this path, so `torch.optim` runs the updates.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
+
+# the squared gradient norm of each group of parameters
+NormSq = Callable[[List[List[torch.Tensor]]], List[torch.Tensor]]
+
+
+def local_norm_sq(groups: List[List[torch.Tensor]]) -> List[torch.Tensor]:
+    """Each group's squared global gradient norm, in f32, on this rank."""
+    return [sum(torch.sum(p.grad.float() ** 2) for p in ps) for ps in groups]
 
 
 @torch.no_grad()
 def clip_grad_norm_partitioned(params_by_label: Dict[str, List[torch.Tensor]],
-                               max_norm: float) -> Dict[str, torch.Tensor]:
+                               max_norm: float, norm_sq: NormSq = local_norm_sq
+                               ) -> Dict[str, torch.Tensor]:
     """Scale each group's gradients so that the group's global norm is at
-    most `max_norm`; returns the norms before clipping."""
+    most `max_norm`; returns the norms before clipping.  `norm_sq` gives
+    the groups' squared norms (under a "model" mesh, of whole leaves:
+    `parallel/mesh.py model_norm_sq`)."""
+    groups = {label: [p for p in params if p.grad is not None]
+              for label, params in params_by_label.items()}
+    groups = {label: ps for label, ps in groups.items() if ps}
     norms = {}
-    for label, params in params_by_label.items():
-        grads = [p.grad for p in params if p.grad is not None]
-        if not grads:
-            continue
-        norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    for (label, params), sq in zip(groups.items(), norm_sq(list(groups.values()))):
+        norm = torch.sqrt(sq)
         factor = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-        for g in grads:
-            g.mul_(factor)
+        for p in params:
+            p.grad.mul_(factor)
         norms[label] = norm
     return norms
 
 
 @torch.no_grad()
-def clip_grad_norm_global(params: Iterable[torch.Tensor], max_norm: float) -> None:
+def clip_grad_norm_global(params: Iterable[torch.Tensor], max_norm: float,
+                          norm_sq: NormSq = local_norm_sq) -> None:
     """optax's `clip_by_global_norm` over every gradient together: `g`
     where the global norm is below `max_norm`, else `(g / norm) * max_norm`
     (not `torch.nn.utils.clip_grad_norm_`, whose max_norm / (norm + 1e-6)
     parts from it)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
+    params = [p for p in params if p.grad is not None]
+    if not params:
         return
-    norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    norm = torch.sqrt(norm_sq([params])[0])
     keep = norm < max_norm
-    for g in grads:
-        g.copy_(torch.where(keep, g, (g / norm) * max_norm))
+    for p in params:
+        p.grad.copy_(torch.where(keep, p.grad, (p.grad / norm) * max_norm))
 
 
 @torch.no_grad()
-def clip_grad_norm_per_parameter(params: Iterable[torch.Tensor], max_norm: float) -> None:
+def clip_grad_norm_per_parameter(params: Iterable[torch.Tensor], max_norm: float,
+                                 norm_sq: NormSq = local_norm_sq) -> None:
     """Each gradient scaled by min(1, max_norm / max(its norm, 1e-12))
     (optim.py:61-75)."""
-    for p in params:
-        if p.grad is not None:
-            norm = torch.sqrt(torch.sum(p.grad.float() ** 2))
-            p.grad.mul_(torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0))
+    params = [p for p in params if p.grad is not None]
+    for p, sq in zip(params, norm_sq([[p] for p in params])):
+        norm = torch.sqrt(sq)
+        p.grad.mul_(torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0))
 
 
-def clip_gradients(trainer_cfg, params_by_label: Dict[str, List[torch.Tensor]]) -> None:
+def clip_gradients(trainer_cfg, params_by_label: Dict[str, List[torch.Tensor]],
+                   norm_sq: NormSq = local_norm_sq) -> None:
     """The clip that `trainer.clip_grad_norm*` name, chosen in the order of
     the JAX `create_optimizer` (optim.py:119-126): none without
     `clip_grad_norm`; else the encoder and decoder groups apart with
     `clip_grad_norm_separate`; else each parameter alone with
-    `clip_grad_norm_every_param`; else all together."""
+    `clip_grad_norm_every_param`; else all together.  Every mode takes its
+    squared norms from `norm_sq`."""
     if not trainer_cfg.clip_grad_norm:
         return
     max_norm = trainer_cfg.clip_grad_norm_value
     params = [p for group in params_by_label.values() for p in group]
     if trainer_cfg.clip_grad_norm_separate:
-        clip_grad_norm_partitioned(params_by_label, max_norm)
+        clip_grad_norm_partitioned(params_by_label, max_norm, norm_sq)
     elif trainer_cfg.clip_grad_norm_every_param:
-        clip_grad_norm_per_parameter(params, max_norm)
+        clip_grad_norm_per_parameter(params, max_norm, norm_sq)
     else:
-        clip_grad_norm_global(params, max_norm)
+        clip_grad_norm_global(params, max_norm, norm_sq)
 
 
 def create_optimizer(params: Iterable[torch.Tensor], name: str = "SGD",

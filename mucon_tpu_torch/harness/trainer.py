@@ -56,17 +56,23 @@ The data path (trainer.py:138-165, 288-349):
   collating or copying anything.
 
 The mesh (trainer.py:167-221, `parallel/`): with `tpu.mesh.enable` and
-either `tpu.mesh.multihost` or more than one rank, the trainer runs
-data-parallel.  The replicas start from data rank 0's weights
-(broadcast), the loader keeps only batches the data axis divides
-(`batch_divisor`), each rank moves only its own rows of a batch to its
-card, and the step (`parallel/mesh.py make_sharded_train_step`; with
-accumulation `make_sharded_grad_step` then `apply_gradients`) averages the
-gradients over the ranks with one all-reduce an apply, before the clip.
-The loss terms are averaged too, so every rank logs the same numbers;
-each rank folds its data coordinate into its mask seed (rank 0 keeps the
-single-card seed).  Every rank keeps its own run folder, logger and
-metric store; only the coordinator (rank 0) writes checkpoints.
+either `tpu.mesh.multihost` or more than one rank, the trainer runs on the
+mesh of `tpu.mesh.{data,seq,model}`.  The weights start as the one-rank
+init; with "model" above 1 each rank keeps its columns of the backbone's
+leaves (`shard_params`).  The replicas start from data rank 0's weights
+(broadcast: the backbone's columns over the ("data", "seq") group, the
+rest over the whole mesh), the loader keeps only batches the data axis divides
+(`batch_divisor`), each rank moves only its own rows (and, with "seq"
+above 1, its time block) of a batch to its card, and the step
+(`parallel/mesh.py make_sharded_train_step`; with accumulation
+`make_sharded_grad_step` then `apply_gradients`) reduces the gradients
+before the clip, whose norms are of whole leaves (`model_norm_sq`).  The
+loss terms are averaged too, so every rank logs the same numbers; each
+rank folds its data coordinate, and only that, into its mask seed (data
+rank 0 keeps the single-card seed).  Every rank keeps its own run folder,
+logger and metric store; only the coordinator (rank 0) writes
+checkpoints, after every rank has joined the all-gather of the backbone's
+columns (`full_state`): the files are a one-rank run's.
 """
 
 from __future__ import annotations
@@ -91,6 +97,7 @@ from mucon_tpu_torch.harness.optim import (
     clip_gradients,
     create_optimizer,
     create_scheduler,
+    local_norm_sq,
     set_learning_rate,
 )
 from mucon_tpu_torch.models.model import MuConModel, batch_to_host_tensors, resolve_feats_dtype
@@ -99,10 +106,14 @@ from mucon_tpu_torch.parallel.mesh import (
     apply_gradients,
     broadcast_module,
     data_rank,
+    full_state,
+    local_state,
     make_sharded_grad_step,
     make_sharded_train_step,
     mesh_shape,
+    model_norm_sq,
     rank_rows,
+    shard_params,
 )
 from mucon_tpu_torch.parallel.multihost import is_coordinator, run_mesh
 
@@ -169,6 +180,20 @@ class SimpleTrainer:
         # scheduler, checkpoint starts / waits, callbacks): "train_phases"
         self.phase_seconds: Dict[str, float] = {}
         self.partition = model.param_partition()
+        # the mesh (trainer.py:167-221): its "model" axis splits the
+        # backbone's leaves before the optimizer sees them
+        self.mesh = run_mesh(cfg, self.device.type)
+        self.n_data = 1
+        norm_sq = local_norm_sq
+        if self.mesh is not None:
+            self.n_data = mesh_shape(self.mesh)["data"]
+            if cfg.tpu.batch_size % self.n_data:
+                raise ValueError(f"tpu.batch_size ({cfg.tpu.batch_size}) must be a multiple "
+                                 f"of the mesh data axis ({self.n_data})")
+            if mesh_shape(self.mesh)["model"] > 1:
+                shard_params(self.mesh, model.net)
+                norm_sq = model_norm_sq(model.net, self.mesh)
+            broadcast_module(model.net, self.mesh)
         tr = cfg.trainer
         self.optimizer = create_optimizer(model.net.parameters(), tr.optimizer,
                                           tr.learning_rate, tr.momentum, tr.weight_decay)
@@ -187,16 +212,7 @@ class SimpleTrainer:
         # "auto": bf16 when the model computes in bf16 (trainer.py:148-152)
         self._feats_dtype = resolve_feats_dtype(cfg, auto_bf16=cfg.tpu.compute_dtype == "bfloat16")
 
-        # data parallelism over the mesh's "data" axis (trainer.py:167-221)
-        self.mesh = run_mesh(cfg, self.device.type)
-        self.n_data = 1
-        if self.mesh is not None:
-            self.n_data = mesh_shape(self.mesh)["data"]
-            if cfg.tpu.batch_size % self.n_data:
-                raise ValueError(f"tpu.batch_size ({cfg.tpu.batch_size}) must be a multiple "
-                                 f"of the mesh data axis ({self.n_data})")
-            broadcast_module(model.net, self.mesh)
-        self._clip = lambda: clip_gradients(self.cfg.trainer, self.partition)
+        self._clip = lambda: clip_gradients(self.cfg.trainer, self.partition, norm_sq)
         self._train_step = make_sharded_train_step(model, self.optimizer, self.mesh,
                                                    use_kernels=self.use_kernels, clip=self._clip)
         self._grad_steps: Dict[int, object] = {}  # make_sharded_grad_step by k
@@ -297,8 +313,9 @@ class SimpleTrainer:
     def step_generator(self) -> torch.Generator:
         """This iteration's mask generator, seeded from (seed, iteration)
         and, on data rank r > 0, r (mesh.py:164 folds the data index into
-        the step's key): the replicas draw different masks, and rank 0 the
-        single-card run's."""
+        the step's key): the replicas draw different masks, and data rank 0
+        the single-card run's.  The "seq" and "model" ranks of a data row
+        draw the same masks (each slices its block and columns)."""
         seed = self.seed * 1_000_003 + self.iter_num + data_rank(self.mesh) * 0x9E3779B97F4A7C15
         return torch.Generator(device=self.device).manual_seed(seed % 2**64)
 
@@ -448,7 +465,11 @@ class SimpleTrainer:
 
     def save_training(self) -> None:
         """Checkpoint the run; only the coordinator writes (trainer.py:
-        609-619): the replicas' weights are equal."""
+        609-619): the replicas' weights are equal.  With the backbone split
+        over "model", every rank first joins the all-gather of its columns
+        of the parameters and the optimizer state (`full_state`), so the
+        files hold whole leaves, as a one-rank run's do."""
+        model_state, opt_state = full_state(self.model.net, self.optimizer, self.mesh)
         if not is_coordinator():
             return
         state = {
@@ -458,8 +479,7 @@ class SimpleTrainer:
         }
         self.wait_for_save()  # one writer at a time
         self._save_thread = save_checkpoint(
-            self._get_checkpointing_folder(), self.model.net.state_dict(),
-            self.optimizer.state_dict(), state,
+            self._get_checkpointing_folder(), model_state, opt_state, state,
             async_write=bool(self.cfg.trainer.async_checkpoint),
         )
         self._prune_checkpoints()
@@ -503,10 +523,12 @@ class SimpleTrainer:
         """Restore parameters, optimizer state, counters and the scheduler
         from <root>/<exp>/<run>/checkpoints/epoch_<epoch>/.  Under a mesh
         every rank reads that folder (the coordinator's, which
-        `trainer.root` names), and the weights are then broadcast from data
-        rank 0, so the replicas stay equal."""
+        `trainer.root` names), each keeps its columns of the backbone's
+        leaves (`local_state`, bit for bit), and the weights are then
+        broadcast from data rank 0, so the replicas stay equal."""
         folder = self.root / self.exp_name / str(run) / "checkpoints" / f"epoch_{epoch}"
         model_state, opt_state, state = load_checkpoint(folder, self.device)
+        model_state, opt_state = local_state(self.model.net, model_state, opt_state, self.mesh)
         self.model.net.load_state_dict(model_state, strict=True)
         if self.mesh is not None:
             broadcast_module(self.model.net, self.mesh)

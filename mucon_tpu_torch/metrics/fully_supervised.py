@@ -1,5 +1,7 @@
 """Edit score and segmental F1@k — MS-TCN evaluation semantics
-(mucon_tpu/metrics/fully_supervised.py, its numpy path).
+(mucon_tpu/metrics/fully_supervised.py).  The distances, edit scores and
+F1 counts run in the native kernels where they load
+(`mucon_tpu_torch/native`), else in the numpy path below.
 
 Pinned to the behavior of the MS-TCN eval protocol as used by the reference
 (src/core/metrics/{fully_supervised,mstcn_code}.py): segments are extracted
@@ -13,6 +15,7 @@ from typing import Iterable, List, Sequence, Tuple
 
 import numpy as np
 
+from mucon_tpu_torch import native
 from mucon_tpu_torch.metrics.base import Metric
 
 
@@ -37,8 +40,14 @@ def labels_and_spans(
 
 
 def levenshtein(a: Sequence, b: Sequence, norm: bool = False) -> float:
-    """Unit-cost edit distance; norm -> (1 - d/max_len) * 100."""
+    """Unit-cost edit distance; norm -> (1 - d/max_len) * 100.  The native
+    kernel computes d when it is loaded."""
     la, lb = len(a), len(b)
+    d = native.levenshtein_native(a, b)
+    if d is not None:
+        if norm:
+            return (1.0 - d / max(la, lb)) * 100.0 if max(la, lb) > 0 else 100.0
+        return float(d)
     prev = np.arange(lb + 1, dtype=np.float64)
     for i in range(1, la + 1):
         cur = np.empty(lb + 1)
@@ -95,9 +104,11 @@ class Edit(Metric):
         self.values: List[float] = []
 
     def add(self, targets, predictions) -> float:
-        score = edit_score(
-            recognized=predictions, ground_truth=targets, bg_class=self.ignore_ids,
-        )
+        score = native.edit_score_norm_native(predictions, targets, self.ignore_ids)
+        if score is None:
+            score = edit_score(
+                recognized=predictions, ground_truth=targets, bg_class=self.ignore_ids,
+            )
         self.values.append(score)
         return score
 
@@ -121,9 +132,12 @@ class F1Score(Metric):
         self.fn = [0.0] * len(self.overlaps)
 
     def add(self, targets, predictions) -> List[float]:
-        counts = [
-            f_score(predictions, targets, ov, self.ignore_ids) for ov in self.overlaps
-        ]
+        counts = native.f_scores_multi_native(predictions, targets, self.overlaps,
+                                              self.ignore_ids)
+        if counts is None:
+            counts = [
+                f_score(predictions, targets, ov, self.ignore_ids) for ov in self.overlaps
+            ]
         out = []
         for s, (tp1, fp1, fn1) in enumerate(counts):
             self.tp[s] += tp1

@@ -1,5 +1,6 @@
-"""Framewise segmentation metrics: MoF, IoD, IoU (mucon_tpu/metrics/segmentation.py,
-its numpy path).
+"""Framewise segmentation metrics: MoF, IoD, IoU (mucon_tpu/metrics/segmentation.py).
+The overlap scores run in the native kernel where it loads
+(`mucon_tpu_torch/native`), else in the numpy path below.
 
 Semantics pinned to the reference (src/core/metrics/segmentation.py and the
 ISBA-derived overlap scores in isba_code.py, un-scaled — no x100):
@@ -14,6 +15,7 @@ from typing import Iterable, List, Tuple
 
 import numpy as np
 
+from mucon_tpu_torch import native
 from mucon_tpu_torch.metrics.base import Metric
 
 
@@ -39,7 +41,12 @@ def _overlap_score(
     union_denominator: bool,
 ) -> float:
     """Best per-GT-segment overlap, averaged. union_denominator selects IoU
-    vs IoD (denominator = union vs predicted-segment length)."""
+    vs IoD (denominator = union vs predicted-segment length); the native
+    kernel computes it when it is loaded."""
+    score = native.overlap_score_native(prediction, target, list(ignore_ids),
+                                        union_denominator)
+    if score is not None:
+        return float(score)
     ignore = set(int(i) for i in ignore_ids)
     t_iv, t_lb = segment_intervals_and_labels(target)
     p_iv, p_lb = segment_intervals_and_labels(prediction)

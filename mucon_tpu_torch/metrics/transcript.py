@@ -1,5 +1,6 @@
 """Transcript-quality metrics: matching score and length difference
-(mucon_tpu/metrics/transcript.py, its numpy path).
+(mucon_tpu/metrics/transcript.py; the native kernel where it loads,
+`mucon_tpu_torch/native`, else the numpy path below).
 
 The reference scores predicted transcripts with
 `edit_distance.SequenceMatcher.ratio()` (src/core/metrics/transcript.py):
@@ -14,11 +15,16 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from mucon_tpu_torch import native
 from mucon_tpu_torch.metrics.base import Metric
 
 
 def levenshtein_matches(a: Sequence, b: Sequence) -> Tuple[int, int]:
-    """(edit_distance, matches) for a max-match minimal alignment."""
+    """(edit_distance, matches) for a max-match minimal alignment; the
+    native kernel computes them when it is loaded."""
+    found = native.levenshtein_matches_native(a, b)
+    if found is not None:
+        return found
     la, lb = len(a), len(b)
     # dp over (cost, -matches) lexicographic minimum
     INF = la + lb + 1

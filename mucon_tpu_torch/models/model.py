@@ -78,6 +78,8 @@ from mucon_tpu_torch.ops.bf16 import DotBF16
 from mucon_tpu_torch.ops.mstcnpp_stack import mstcnpp_stack, pack_mstcnpp_params
 from mucon_tpu_torch.ops.wavenet_stack import pack_wavenet_params, wavenet_stack
 from mucon_tpu_torch.ops.wavenet_stack_train import stack_plan, wavenet_stack_train
+from mucon_tpu_torch.parallel.mesh import mesh_is_data_only, mesh_shape
+from mucon_tpu_torch.parallel.sharded_ft import sharded_ft_forward
 
 
 class MuConModel:
@@ -144,7 +146,7 @@ class MuConModel:
     def forward(self, arrays: dict, use_kernels=True, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 teacher_forcing: Optional[bool] = None,
-                sync_free: bool = False) -> MuConForwardOut:
+                sync_free: bool = False, mesh=None) -> MuConForwardOut:
         """Eval forward (no autograd) with free decoding, or with
         `teacher_forcing` the ground truth's teacher-forced decode; or with
         `train` the forward under autograd, teacher-forced unless
@@ -154,23 +156,50 @@ class MuConModel:
         decodes freely unless asked, whatever the flag; with `sync_free` the
         free decode runs all S steps with the loop's exit as a mask
         (`MuConNet.forward`: the same outputs, no host sync).  `arrays` come
-        from `batch_to_tensors`; `use_kernels` is a `KernelRoutes` or a bool."""
+        from `batch_to_tensors`; `use_kernels` is a `KernelRoutes` or a bool.
+
+        With a `mesh` (`parallel/mesh.py`) whose "seq" or "model" axis is
+        above 1, `arrays` hold this rank's rows and time block: the
+        backbone runs sequence- and channel-parallel
+        (`parallel/sharded_ft.py`) and is gathered to the data rank's
+        [B_r x Tz x C], and the rest runs on its routes as on one card
+        (`_mesh_split`)."""
         arrays = dequantize_feats(arrays)
         routes = as_routes(use_kernels)
         if train:
             tf = self.teacher_forcing if teacher_forcing is None else teacher_forcing
-            return self._train_forward(arrays, routes, generator, tf)
+            return self._train_forward(arrays, routes, generator, tf, mesh)
         feats, num_frames = arrays["feats"], arrays["num_frames"]
+        n_seq = self._mesh_split(mesh, feats, train=False)
         with torch.no_grad():
             z = tz = None
-            if self._stack_route(routes, feats, train=False):
+            if n_seq:
+                z, tz = sharded_ft_forward(self.net, feats, num_frames, mesh)
+            elif self._stack_route(routes, feats, train=False):
                 z, tz = self._encode_kernels(feats, num_frames)
             return self.net(
                 feats, num_frames, arrays["tf_input"],
                 z_precomputed=z, tz_precomputed=tz, use_kernels=routes,
                 transcript_len=arrays["transcript_len"],
                 teacher_forcing=bool(teacher_forcing), sync_free=sync_free,
+                t_full=feats.shape[1] * (n_seq or 1),
             )
+
+    def _mesh_split(self, mesh, feats, train: bool) -> int:
+        """The mesh's "seq" size when the backbone runs sharded (a mesh
+        with "seq" or "model" above 1), else 0; that route is logged once:
+        the stack kernels give way to the plain sharded stack (they cannot
+        exchange rows or columns between layers), and the kernels after the
+        gather keep their routes."""
+        if mesh is None or mesh_is_data_only(mesh):
+            return 0
+        shape = mesh_shape(mesh)
+        log_route(f"{'train' if train else 'eval'} {self.net.ft_type} encoder on mesh "
+                  f"(seq={shape['seq']}, model={shape['model']}) B={feats.shape[0]} "
+                  f"T_local={feats.shape[1]}: plain sharded backbone (no stack kernel "
+                  f"exchanges rows or columns between layers); the kernels after the "
+                  f"gather keep their routes")
+        return shape["seq"]
 
     def draw_masks(self, generator: Optional[torch.Generator], B: int,
                    T: int) -> Optional[TrainMasks]:
@@ -179,11 +208,12 @@ class MuConModel:
         generators seeded alike give two paths the same masks.  The
         backbone's masks are at each layer's input length, at its rate
         (WaveNet's `dropout_rate`, the MS-TCN++ stage's 0.5; `noft` has
-        none)."""
+        none).  A backbone split over a mesh's "model" axis draws them at its
+        whole width (`parallel/mesh.py shard_params`)."""
         if generator is None:
             return None
         net, ft = self.net, self.net.ft
-        C = ft.Conv1x1_0.kernel.shape[1]
+        C = ft.Conv1x1_0.kernel.shape[1] * getattr(net, "model_shards", 1)
         draw = lambda rate, *shape: dropout_mask(generator, rate, shape, self.device)  # noqa: E731
         n_layers = ft.num_layers if net.ft_type == "mstcnpp" else len(getattr(ft, "stages", ()))
         t_ins, _, _, tz = stack_plan(range(n_layers), getattr(ft, "pooling_layers", ()), T)
@@ -211,17 +241,23 @@ class MuConModel:
         return on
 
     def _train_forward(self, arrays, routes: KernelRoutes, generator,
-                       teacher_forcing: bool) -> MuConForwardOut:
+                       teacher_forcing: bool, mesh=None) -> MuConForwardOut:
         feats, num_frames = arrays["feats"], arrays["num_frames"]
-        masks = self.draw_masks(generator, feats.shape[0], feats.shape[1])
+        n_seq = self._mesh_split(mesh, feats, train=True)
+        t_full = feats.shape[1] * (n_seq or 1)
+        # a sharded backbone slices the masks a one-rank run draws
+        masks = self.draw_masks(generator, feats.shape[0], t_full)
         z = tz = None
-        if self._stack_route(routes, feats, train=True):
+        if n_seq:
+            z, tz = sharded_ft_forward(self.net, feats, num_frames, mesh,
+                                       masks.stack if masks is not None else None)
+        elif self._stack_route(routes, feats, train=True):
             z, tz = self._encode_kernels_train(feats, num_frames, masks)
         return self.net(
             feats, num_frames, arrays["tf_input"],
             z_precomputed=z, tz_precomputed=tz, use_kernels=routes,
             train=True, transcript_len=arrays["transcript_len"], masks=masks,
-            teacher_forcing=teacher_forcing,
+            teacher_forcing=teacher_forcing, t_full=t_full,
         )
 
     def loss(self, fwd: MuConForwardOut, arrays: dict,

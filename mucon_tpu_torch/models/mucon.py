@@ -257,8 +257,11 @@ class MuConNet(nn.Module):
         teacher_forcing: Optional[bool] = None,  # decode the ground truth's S
         # steps; None: in train only
         sync_free: bool = False,  # free eval: all S steps, masked, no host sync
+        t_full: Optional[int] = None,  # T of the whole sequence when `feats` is a
+        # time block and z comes precomputed (a sequence-parallel mesh)
     ) -> MuConForwardOut:
         B, T, _ = feats.shape
+        T = T if t_full is None else t_full
         if teacher_forcing is None:
             teacher_forcing = train
         routes = as_routes(use_kernels)

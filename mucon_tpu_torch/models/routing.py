@@ -21,6 +21,14 @@ package's XLA path, here plain PyTorch.
   package also routes on its TPU's VMEM budgets (model.py:234-241,
   lstm.py:149-157, `plan_eval_slices`); those are not copied: a kernel
   here takes the shape or raises.
+* On a mesh whose "seq" or "model" axis is above 1 (`parallel/`), the
+  stack kernels (`stack`, `stack_train`, both operand modes) give way to
+  the plain sharded backbone (`parallel/sharded_ft.py`): they cannot
+  exchange rows or columns between layers.  The kernels after the
+  backbone's gather keep their routes: they see the tensors a one-rank run
+  gives them.  (The JAX package runs the whole forward on XLA there,
+  because GSPMD cannot partition a `pallas_call`.)  `MuConModel` logs that
+  decision once like the others.
 """
 
 from __future__ import annotations

@@ -38,7 +38,7 @@ from mucon_tpu_torch.ops.viterbi import (
     viterbi_precompute_z,
 )
 from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi_decode
-from mucon_tpu_torch.parallel.mesh import gather_rows
+from mucon_tpu_torch.parallel.mesh import gather_rows, mesh_shape
 
 
 def eval_tables(fwd, num_frames, t_full: int, n_max: int, frame_sampling: int,
@@ -106,22 +106,30 @@ EVAL_OUTPUTS = ("tokens", "n_steps", "rel_lengths", "n_dec", "transcripts", "vit
 FLOAT_OUTPUTS = ("rel_lengths", "vit_score")
 
 
+def full_length(arrays: dict, mesh=None) -> int:
+    """The batch's T_pad: its `feats` hold one time block of it on each
+    "seq" rank of a mesh."""
+    return arrays["feats"].shape[1] * (1 if mesh is None else mesh_shape(mesh)["seq"])
+
+
 def build_eval_device(model, teacher_forcing: bool = False, frame_sampling: int = 30,
-                      max_len: int = 2000, use_kernels=True, sync_free: bool = False):
+                      max_len: int = 2000, use_kernels=True, sync_free: bool = False,
+                      mesh=None):
     """Returns device(arrays) -> {name: tensor} for the names of EVAL_OUTPUTS,
     on the arrays' device: the forward, the tables, the DP and the pointer
     walk, with no copy to the host and no host sync but the free decode's
     exit test (none with `sync_free`, `MuConModel.forward`).  Arguments as
-    `build_fused_eval`'s."""
+    `build_fused_eval`'s; with a "seq" / "model" `mesh` the forward's
+    backbone runs sharded, and the rest on this data rank's rows."""
     S = frame_sampling
     routes = as_routes(use_kernels)
 
     def device(arrays: dict) -> dict:
         fwd = model.forward(arrays, use_kernels=routes, teacher_forcing=teacher_forcing,
-                            sync_free=sync_free)
+                            sync_free=sync_free, mesh=mesh)
         gt = ((arrays["transcript"], arrays["transcript_len"]) if teacher_forcing
               else (None, None))
-        tb = eval_tables(fwd, arrays["num_frames"], arrays["feats"].shape[1],
+        tb = eval_tables(fwd, arrays["num_frames"], full_length(arrays, mesh),
                          arrays["transcript"].shape[1], S, max_len, *gt)
         if routes.viterbi:
             score, best_l, _, vit_pos = dense_viterbi_decode(
@@ -160,12 +168,14 @@ def build_fused_eval(model, teacher_forcing: bool = False, frame_sampling: int =
     plain steps.  `teacher_forcing` decodes the ground-truth
     transcript (the decoder chain's forward kernel on the kernel path) and
     takes it, not the decoded one, for the tables (eval_fused.py:82-86).
-    It is `build_eval_device` then `eval_to_host`.  With a data-parallel
-    `mesh` (`parallel/mesh.py`; eval_fused.py:196-230) `arrays` are this
-    rank's rows, and the device outputs (with `num_frames`) are gathered
-    from every rank in rank order before the copy: every rank gets the
-    global batch's outputs."""
-    device = build_eval_device(model, teacher_forcing, frame_sampling, max_len, use_kernels)
+    It is `build_eval_device` then `eval_to_host`.  With a `mesh`
+    (`parallel/mesh.py`; eval_fused.py:153-230) `arrays` are this rank's
+    rows (and, on a "seq" mesh, its time block; the backbone runs sharded
+    and is gathered, `MuConModel.forward`), and the device outputs (with
+    `num_frames`) are gathered over the "data" group in rank order before
+    the copy: every rank gets the global batch's outputs."""
+    device = build_eval_device(model, teacher_forcing, frame_sampling, max_len, use_kernels,
+                               mesh=mesh)
 
     @torch.no_grad()
     def run(arrays: dict) -> dict:
@@ -173,6 +183,6 @@ def build_fused_eval(model, teacher_forcing: bool = False, frame_sampling: int =
         if mesh is not None:
             out = gather_rows(dict(out, num_frames=num_frames), mesh)
             num_frames = out.pop("num_frames")
-        return eval_to_host(out, num_frames, arrays["feats"].shape[1])
+        return eval_to_host(out, num_frames, full_length(arrays, mesh))
 
     return run

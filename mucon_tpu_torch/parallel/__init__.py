@@ -1,17 +1,23 @@
-"""Multi-card data parallelism on torch.distributed (mucon_tpu/parallel):
-the mesh and the data-parallel steps (`mesh.py`), multi-process runs
-(`multihost.py`) and the sequence axis's halo exchange (`halo.py`).  The
-"model" axis (`param_specs`, `shard_params`) is not ported."""
+"""Multi-card runs on torch.distributed (mucon_tpu/parallel): the mesh of
+("data", "seq", "model"), the backbone's column layout and the sharded
+steps (`mesh.py`), multi-process runs (`multihost.py`), the sequence
+axis's shifts (`halo.py`), the sequence- and channel-parallel backbone
+(`sharded_ft.py`) and the collectives staged through the host on a gloo
+group of CUDA tensors (`transport.py`)."""
 
 from mucon_tpu_torch.parallel.mesh import (
     batch_specs,
+    full_state,
+    local_state,
     make_mesh,
     make_sharded_forward,
     make_sharded_train_step,
     mesh_from_config,
     mesh_is_data_only,
     pad_batch_to_multiple,
+    param_specs,
     shard_batch_arrays,
+    shard_params,
 )
 from mucon_tpu_torch.parallel.multihost import (
     init_distributed,
@@ -30,6 +36,10 @@ __all__ = [
     "pad_batch_to_multiple",
     "make_sharded_train_step",
     "make_sharded_forward",
+    "param_specs",
+    "shard_params",
+    "full_state",
+    "local_state",
     "init_distributed",
     "is_coordinator",
     "make_multihost_mesh",

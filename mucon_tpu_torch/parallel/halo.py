@@ -1,19 +1,26 @@
-"""Sequence-parallel halo exchange for dilated temporal convs
+"""Sequence-parallel shifts for dilated temporal convs
 (mucon_tpu/parallel/halo.py).
 
 Each rank of the mesh's "seq" group holds one contiguous block of the time
-axis, [B x T_local x C], in rank order.  A kernel-3 dilated conv needs only
-`dilation` frames of each neighbour, so each layer exchanges one halo with
-the previous rank and one with the next (non-cyclic: a rank at either end
-of the sequence gets zeros, the zero padding of a SAME conv), never an
-all-gather.  The exchange is one `batch_isend_irecv` a shift, and its
-backward sends the gradient's halo the other way, so a sequence-parallel
-conv trains (the JAX package gets that from `ppermute`'s transpose).
+axis, [B x T_local x C], in rank order.  A kernel-3 dilated conv reads the
+sequence shifted by -d and +d, so each shift fetches only the rows that lie
+in other blocks, never an all-gather.  A shift by `offset` (out[t] =
+x[t + offset] over the global sequence, zeros past either end, the zero
+padding of a SAME conv) takes any offset:
 
-Weights are replicated: each rank's gradient of `w` and `b` is its blocks'
-share, which the caller sums over the "seq" group as the data-parallel
-step averages over "data".  A halo must fit in one block:
-|offset| <= T_local.
+* |offset| <= T_local: the rows of one neighbour;
+* T_local < |offset| < T_global: the rows of rank +- k, at most two source
+  ranks (the full-depth stack's dilations 128-1024 on pooled blocks);
+* |offset| >= T_global: zeros, with no exchange.
+
+The exchange is one batch of sends and receives a shift
+(`transport.send_recv`: staged through the host on a gloo group of CUDA
+tensors), and its backward sends the gradient back the way the rows came
+(the shift by -offset), so a sequence-parallel conv trains (the JAX package
+gets that from `ppermute`'s transpose).
+
+Weights are replicated over "seq": each rank's gradient of `w` and `b` is
+its block's share, which the caller sums over the "seq" group.
 """
 
 from __future__ import annotations
@@ -21,29 +28,45 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from mucon_tpu_torch.parallel import transport
+
+
+def shift_plan(offset: int, t_local: int, me: int, n: int):
+    """Where the rows of a shift by `offset` come from and go to, for rank
+    `me` of `n` blocks of `t_local` rows.  Returns (recvs, sends): recvs
+    [(source rank, src_lo, src_hi, out_lo)], sends [(destination rank, lo,
+    hi)], ranks outside [0, n) dropped (their rows are zeros).  With q, r
+    = divmod(offset, t_local), out rows [0, t_local - r) are the source
+    rank me + q's rows [r, t_local), and out rows [t_local - r, t_local)
+    the rank me + q + 1's rows [0, r)."""
+    q, r = divmod(offset, t_local)
+    L = t_local
+    recvs = [(me + q, r, L, 0)] + ([(me + q + 1, 0, r, L - r)] if r else [])
+    sends = [(me - q, r, L)] + ([(me - q - 1, 0, r)] if r else [])
+    return ([p for p in recvs if 0 <= p[0] < n], [p for p in sends if 0 <= p[0] < n])
+
 
 def _exchange(x_local: torch.Tensor, offset: int, group) -> torch.Tensor:
     """out[:, t] = x[:, t + offset] of the global sequence, on this rank's
     block; zeros past either end."""
-    d = abs(offset)
+    L = x_local.shape[1]
     me, n = dist.get_rank(group), dist.get_world_size(group)
-    # offset > 0: every rank sends its first d rows back to rank - 1 and
-    # appends the next rank's; offset < 0: its last d rows on to rank + 1
-    send, to, frm = ((x_local[:, :d], me - 1, me + 1) if offset > 0
-                     else (x_local[:, -d:], me + 1, me - 1))
-    halo = torch.zeros_like(send)
-    ops = []
-    if 0 <= to < n:
-        ops.append(dist.P2POp(dist.isend, send.contiguous(), dist.get_global_rank(group, to),
-                              group))
-    if 0 <= frm < n:
-        ops.append(dist.P2POp(dist.irecv, halo, dist.get_global_rank(group, frm), group))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    if offset > 0:
-        return torch.cat([x_local[:, d:], halo], dim=1)
-    return torch.cat([halo, x_local[:, :-d]], dim=1)
+    out = torch.zeros_like(x_local)
+    if abs(offset) >= n * L:
+        return out
+    recvs, sends = shift_plan(offset, L, me, n)
+    incoming = []
+    for src, lo, hi, at in recvs:
+        if src == me:
+            out[:, at:at + hi - lo] = x_local[:, lo:hi]
+        else:
+            incoming.append((x_local.new_empty((x_local.shape[0], hi - lo,
+                                                *x_local.shape[2:])), src, at))
+    transport.send_recv([(x_local[:, lo:hi], dst) for dst, lo, hi in sends if dst != me],
+                        [(buf, src) for buf, src, _ in incoming], group)
+    for buf, _, at in incoming:
+        out[:, at:at + buf.shape[1]] = buf
+    return out
 
 
 class _HaloShift(torch.autograd.Function):
@@ -55,18 +78,15 @@ class _HaloShift(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         # the adjoint of a zero-filled shift by +offset is the shift by -offset
-        return _exchange(grad, -ctx.offset, ctx.group), None, None
+        return _exchange(grad.contiguous(), -ctx.offset, ctx.group), None, None
 
 
 def halo_shift(x_local: torch.Tensor, offset: int, group=None) -> torch.Tensor:
     """The per-block `shift_time` (out[t] = x[t + offset]) of a time-sharded
-    [B x T_local x C] block, boundary rows fetched from the neighbours in
-    `group` (halo.py:30-61); differentiable."""
+    [B x T_local x C] block, rows fetched from the ranks of `group` that
+    hold them (halo.py:30-61, for any offset); differentiable."""
     if offset == 0:
         return x_local
-    if abs(offset) > x_local.shape[1]:
-        raise ValueError(f"halo {abs(offset)} exceeds the local block of "
-                         f"{x_local.shape[1]} frames")
     return _HaloShift.apply(x_local, offset, group)
 
 

@@ -42,6 +42,47 @@ def test_synthetic_dataset_same_bytes(tmp_path, kw):
     assert fa == fb
 
 
+def test_synthetic_dataset_written_by_two_ranks_at_once(tmp_path):
+    """Two writers materialize the same dataset at once (the ranks of a
+    multi-process run each do) while a reader loads whatever file exists:
+    no read sees a file half written, no temporary file is left, and the
+    bytes are one writer's."""
+    import threading
+
+    args = dict(num_videos=6, num_classes=5, feat_dim=4096, min_len=300, max_len=400, seed=3)
+    root = tmp_path / "shared"
+    (root / "features").mkdir(parents=True)
+    errors, reads = [], [0]
+
+    def write():
+        try:
+            materialize_synthetic_dataset(root, **args)
+        except Exception as e:  # noqa: BLE001 - a failed write is the finding
+            errors.append(f"writer: {e!r}")
+
+    writers = [threading.Thread(target=write) for _ in range(2)]
+
+    def read():
+        while any(w.is_alive() for w in writers):
+            for f in sorted((root / "features").glob("*.npy")):
+                try:
+                    np.load(f)
+                    reads[0] += 1
+                except Exception as e:  # noqa: BLE001 - any failed read is the finding
+                    errors.append(f"{f.name}: {e!r}")
+
+    reader = threading.Thread(target=read)
+    for w in writers:
+        w.start()
+    reader.start()
+    for t in (*writers, reader):
+        t.join()
+    assert not errors, errors[:3]
+    assert reads[0] > 0
+    assert not [p for p in root.rglob("*") if p.name.endswith(".tmp")]
+    assert _files(root) == _files(materialize_synthetic_dataset(tmp_path / "alone", **args))
+
+
 def _cfgs(name, root):
     out = []
     for cfg in (get_cfg_defaults(), jax_defaults()):

@@ -67,11 +67,22 @@ def test_sp_dilated_conv_matches_jax_and_autograd(halo_run, d):
 
 
 def test_halo_longer_than_the_block_raises():
-    """|offset| <= T_local (halo.py:43): the check comes before any
-    exchange; a shift of 0 is the block itself."""
-    x = torch.zeros(1, 4, 2)
-    with pytest.raises(ValueError, match="exceeds the local block of 4"):
-        halo_shift(x, 5)
-    with pytest.raises(ValueError):
-        dilated_conv3_sp(x, torch.zeros(3, 2, 2), torch.zeros(2), dilation=-5)
+    """A halo longer than the local block no longer raises: the shift
+    fetches its rows from the ranks that hold them (halo.py's general
+    shift, `tests/test_torch_shift.py`).  On a group of one rank a shift
+    by 5 of a 4-frame block, and a conv of dilation 5, see the zeros past
+    the sequence's ends; a shift of 0 is the block itself."""
+    import torch.distributed as dist
+
+    x = torch.arange(8.0).reshape(1, 4, 2)
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        assert torch.equal(halo_shift(x, 5), torch.zeros_like(x))
+        assert torch.equal(halo_shift(x, -2), _shift(x, -2))
+        w = torch.randn(3, 2, 2)
+        y = dilated_conv3_sp(x, w, torch.zeros(2), dilation=5)
+        assert torch.allclose(y, x @ w[1])
+    finally:
+        dist.destroy_process_group()
     assert halo_shift(x, 0) is x

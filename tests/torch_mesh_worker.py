@@ -17,7 +17,19 @@ Modes:
   epochs, the gathered eval of a fresh model, and a resume from the
   coordinator's checkpoint;
 * ``halo`` -- `make_sp_dilated_conv` forward and backward on the rank's
-  time block.
+  time block;
+* ``shift`` -- `halo_shift` forward and backward on the rank's time block
+  for each offset of the job;
+* ``sp_step`` -- on a mesh of the job's shape, for each case: the weights
+  split over "model" (`shard_params`) and broadcast, then train steps (or,
+  with ``k`` > 1, grad steps + `apply_gradients`; with ``jitter``, grad
+  steps whose gradients each rank scales by its own factor, then
+  `apply_gradients`) on the rank's rows and time block, the clip's group norms of whole leaves, the gathered state
+  (`full_state`) and the rank's own leaves; optionally the fused eval of
+  a batch;
+* ``sp_trainer`` -- `SimpleTrainer` and `MuConEvaluator` on a "seq" /
+  "model" mesh: an epoch and the gathered eval, or the checkpoint round
+  trip of the backbone's columns.
 """
 
 import json
@@ -51,15 +63,23 @@ def spawn_ranks(mode: str, world: int, tmp_path, payload, timeout: float = 240.0
     finally:
         for p in procs:
             p.kill()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
+    failed = [(r, log) for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+    # the rank that failed first, not the ones its crash took down
+    failed.sort(key=lambda rl: "Connection closed by peer" in rl[1])
+    assert not failed, f"rank {failed[0][0]} failed:\n{failed[0][1][-4000:]}"
     return [pickle.loads(o.read_bytes()) for o in outs]
 
 
 def _model(job):
-    from mucon_tpu_torch.models.model import create_model
+    from mucon_tpu_torch.models.model import (
+        MuConFullySupervisedModel,
+        MuConModel,
+        create_model,
+    )
 
-    model = create_model(*job["dims"], device="cpu", **job["fields"], loss_cfg=job["loss_cfg"])
+    model = create_model(*job["dims"], device="cpu", **job["fields"], loss_cfg=job["loss_cfg"],
+                         model_cls=MuConFullySupervisedModel if job.get("supervised")
+                         else MuConModel)
     model.net.load_state_dict(job["state_dict"])
     return model
 
@@ -238,6 +258,211 @@ def run_halo(job) -> dict:
     return out
 
 
+def run_shift(job) -> dict:
+    import torch
+
+    from mucon_tpu_torch.parallel import transport
+    from mucon_tpu_torch.parallel.halo import halo_shift
+    from mucon_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, job["seq"])
+    me = mesh.get_local_rank("seq")
+    x, dy = torch.as_tensor(job["x"]), torch.as_tensor(job["dy"])
+    t_local = x.shape[1] // job["seq"]
+    out = {}
+    for offset in job["offsets"]:
+        x_local = x[:, me * t_local:(me + 1) * t_local].clone().requires_grad_(True)
+        transport.reset_staged_bytes()
+        y = halo_shift(x_local, offset, mesh.get_group("seq"))
+        y.backward(dy[:, me * t_local:(me + 1) * t_local])
+        out[offset] = dict(y=y.detach(), dx=x_local.grad, staged=dict(transport.staged_bytes))
+    return out
+
+
+def run_case(case, mesh) -> dict:
+    """One case of ``sp_step`` on `mesh`, or with `mesh=None` the same
+    steps on one rank (the reference the tests hold the mesh to)."""
+    import torch
+
+    from mucon_tpu_torch.config import ConfigNode
+    from mucon_tpu_torch.harness.optim import (
+        clip_grad_norm_partitioned,
+        clip_gradients,
+        create_optimizer,
+        local_norm_sq,
+    )
+    from mucon_tpu_torch.ops.eval_fused import build_fused_eval
+    from mucon_tpu_torch.parallel.mesh import (
+        apply_gradients,
+        broadcast_module,
+        full_state,
+        make_sharded_grad_step,
+        make_sharded_train_step,
+        mesh_shape,
+        model_norm_sq,
+        reduce_gradients,
+        shard_batch_arrays,
+        shard_params,
+    )
+
+    cfg = ConfigNode(case["cfg"])
+    model = _model(case)
+    norm_sq = local_norm_sq
+    if mesh is not None:
+        if mesh_shape(mesh)["model"] > 1:
+            shard_params(mesh, model.net)
+            norm_sq = model_norm_sq(model.net, mesh)
+        broadcast_module(model.net, mesh)
+    tr = cfg.trainer
+    opt = create_optimizer(model.net.parameters(), tr.optimizer, tr.learning_rate,
+                           tr.momentum, tr.weight_decay)
+    partition = model.param_partition()
+
+    def clip():
+        clip_gradients(tr, partition, norm_sq)
+
+    def gen():
+        seed = case.get("mask_seed")
+        return None if seed is None else torch.Generator().manual_seed(seed)
+
+    def local(arrays):
+        return arrays if mesh is None else shard_batch_arrays(mesh, arrays, "cpu")
+
+    losses, norms = [], None
+    k = case.get("k", 1)
+    if case.get("jitter"):
+        # a card's gather / index backward adds with atomics, so the ranks
+        # of a data row need not compute the replicated gradients bit for
+        # bit alike: each rank scales its gradients by its own 1 + jitter * r
+        grad_step = make_sharded_grad_step(model, mesh)
+        scale = 1.0 + case["jitter"] * torch.distributed.get_rank()
+        for _ in range(case["steps"]):
+            opt.zero_grad(set_to_none=True)
+            terms = grad_step(local(case["arrays"]), gen())
+            losses.append({n: float(v) for n, v in terms.items()})
+            for p in model.net.parameters():
+                if p.grad is not None:
+                    p.grad.mul_(scale)
+            apply_gradients(model.net, opt, mesh, clip)
+    elif k == 1:
+        step = make_sharded_train_step(model, opt, mesh, clip=clip)
+        for _ in range(case["steps"]):
+            losses.append({n: float(v) for n, v in step(local(case["arrays"]), gen()).items()})
+    else:
+        grad_step = make_sharded_grad_step(model, mesh, accumulate_grad_every=k)
+        for _ in range(case["steps"]):
+            for micro in case["micro"]:
+                terms = grad_step(local(micro), gen())
+                losses.append({n: float(v) for n, v in terms.items()})
+            apply_gradients(model.net, opt, mesh, clip)
+    if case.get("norms"):
+        # the clip's group norms of one more step's reduced gradients
+        make_sharded_grad_step(model, mesh)(local(case["arrays"]), gen())
+        for p in model.net.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            reduce_gradients(model.net, mesh)
+        norms = {n: float(v) for n, v in clip_grad_norm_partitioned(
+            partition, float("inf"), norm_sq).items()}
+        opt.zero_grad(set_to_none=True)
+    model_sd, opt_sd = full_state(model.net, opt, mesh)
+    result = dict(losses=losses, state_dict=model_sd, opt_state=opt_sd, norms=norms,
+                  local={n: v.clone() for n, v in model.net.state_dict().items()})
+    if case.get("eval"):
+        run = build_fused_eval(model, frame_sampling=case["eval"]["frame_sampling"], mesh=mesh)
+        result["eval"] = run(local(case["eval"]["arrays"]))
+    return result
+
+
+def run_sp_step(job) -> dict:
+    from mucon_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(*job["shape"])
+    out = dict(coord=tuple(mesh.get_coordinate()))
+    for case in job["cases"]:
+        out[case["name"]] = run_case(case, mesh)
+    return out
+
+
+def run_sp_trainer(job, rank: int) -> dict:
+    """`SimpleTrainer` and `MuConEvaluator` on a mesh of the config's
+    shape: with ``what`` "eval", one epoch of training then the gathered
+    fused eval of a fresh model; with "checkpoint", an epoch and a save,
+    then a fresh trainer on another init restored from the coordinator's
+    checkpoint (its local and whole state against the saved), one more
+    epoch, and the gathered fused eval of a fresh whole model."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from mucon_tpu_torch.config import ConfigNode
+    from mucon_tpu_torch.data import handel_dataset
+    from mucon_tpu_torch.harness.evaluator import MuConEvaluator
+    from mucon_tpu_torch.harness.trainer import SimpleTrainer
+    from mucon_tpu_torch.models.losses import loss_config_from_cfg
+    from mucon_tpu_torch.models.model import create_model, model_fields_from_cfg
+    from mucon_tpu_torch.parallel.mesh import full_state
+
+    def model_for(cfg, db, seed):
+        return create_model(db.get_num_classes(), db.max_transcript_length + 1, db.feat_dim,
+                            device="cpu", seed=seed, loss_cfg=loss_config_from_cfg(cfg),
+                            **model_fields_from_cfg(cfg))
+
+    def epoch_losses(t):
+        return [json.loads(line)["main"] for line in open(t.run_folder / "events.jsonl")
+                if json.loads(line)["kind"] == "epoch"]
+
+    def equal(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(equal(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(equal(x, y) for x, y in zip(a, b))
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        return a == b
+
+    cfg = ConfigNode(job["cfg"])
+    cfg.trainer.root = job["roots"][rank]
+    train_db, test_db = handel_dataset(cfg, train=True), handel_dataset(cfg, train=False)
+    model = model_for(cfg, train_db, cfg.system.seed)
+    t1 = SimpleTrainer(cfg, "sp", train_db, model)
+    t1.train()
+    t1.wait_for_save()
+    out = dict(losses=epoch_losses(t1), shard=model.net.ft.Conv1x1_0.kernel.shape[-1])
+    if job["what"] == "eval":
+        ev_model = model_for(cfg, test_db, cfg.system.seed + 1)
+        ev = MuConEvaluator(cfg, test_db, ev_model)
+        ev.viterbi_mode(True)
+        out["eval"] = dataclasses.asdict(ev.evaluate(ev_model))
+        return out
+    saved = full_state(model.net, t1.optimizer, t1.mesh)
+    local = ({k: v.clone() for k, v in model.net.state_dict().items()},
+             t1.optimizer.state_dict())
+    dist.barrier()  # the coordinator's files are in place
+    cfg.trainer.root = job["roots"][0]
+    model2 = model_for(cfg, train_db, cfg.system.seed + 7)
+    t2 = SimpleTrainer(cfg, "sp", train_db, model2, run_number=50 + rank)
+    t2.load_training("0", 0)
+    out["local_equal"] = equal(local[0], model2.net.state_dict())
+    out["opt_local_equal"] = equal(local[1]["state"], t2.optimizer.state_dict()["state"])
+    again = full_state(model2.net, t2.optimizer, t2.mesh)
+    out["full_equal"] = equal(saved[0], again[0]) and equal(saved[1]["state"],
+                                                           again[1]["state"])
+    out["opt_state_keys"] = sorted({k for st in saved[1]["state"].values() for k in st})
+    t2.epoch_num = 1
+    t2._train_one_epoch()
+    out["more"] = epoch_losses(t2)
+    # an evaluator handed a whole net on this mesh splits it as the trainer does
+    ev_model = model_for(cfg, test_db, cfg.system.seed + 1)
+    ev = MuConEvaluator(cfg, test_db, ev_model)
+    ev.viterbi_mode(True)
+    out["eval"] = dataclasses.asdict(ev.evaluate(ev_model))
+    out["eval_shard"] = ev_model.net.ft.Conv1x1_0.kernel.shape[-1]
+    return out
+
+
 def main() -> None:
     mode, rank, world, rdzv, job_path, out_path = sys.argv[1:7]
     rank, world = int(rank), int(world)
@@ -258,6 +483,12 @@ def main() -> None:
         out = run_trainer(job, rank)
     elif mode == "halo":
         out = run_halo(job)
+    elif mode == "shift":
+        out = run_shift(job)
+    elif mode == "sp_step":
+        out = run_sp_step(job)
+    elif mode == "sp_trainer":
+        out = run_sp_trainer(job, rank)
     else:
         raise SystemExit(f"unknown mode {mode!r}")
     Path(out_path).write_bytes(pickle.dumps(out))
