@@ -140,15 +140,23 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    modes through a train step, an eval and an MS-TCN++ request (the
    report's launches); each `tpu.use_pallas*` flag off alone; and a
    unidirectional encoder (no BiLSTM kernel);
-10. runs every kernel at the other widths the JAX kernels take
+10. runs every kernel at the other shapes the JAX kernels take
    (`widths_phase`): rows 1, 5, 6, 12, 13 and 14 at C = 48 (zero-padded to
-   the 128 instance), 256 and 512 in 3xTF32 and in the bf16-operand mode
-   (v2's new), rows 2, 7-10 at H = 100, 127, 256 and 512 (even, ragged and
-   L2-weight splits), each against its twin under the C = 128 / H = 128
-   bounds and timed; the MS-TCN++ model at C = 256 through `predict_videos`;
-   and `train_test_mucon` at the wide (C = H = 256) and ragged (C = 48,
-   H = 100) configurations with their launches, `test_mucon` within 1e-6
-   and a kernel step against a plain step;
+   the 128 instance), 256, 512 and, on the wide bodies, 600, 768 and 1024
+   in 3xTF32 and in the bf16-operand mode (rows 1 and 12 at B = 128,
+   T_pad = 1280), rows 2, 7-10 at H = 100, 127,
+   256, 512 (even, ragged and L2-weight splits), 768 and 1024 (the wide
+   kernels), each against its twin under the C = 128 / H = 128 bounds (the
+   sweep's gradients against the float64 twin) and timed; the BiLSTM at
+   H = 1447 and the decoder chain at H = 1181 (B = 2, Tz = 40), the reverse
+   chain at Tz = 2048 (H = 128) and 1536 (H = 768), B = 1 (its tables in
+   device memory), the DP at frame_sampling 1 and 3 (L = 2000, 666: its
+   state in device memory) and at N = 300; the MS-TCN++ model at C = 256
+   and both backbones at C = H = 768 through `predict_videos` (request A
+   among them); and `train_test_mucon` at the wide (C = H = 256), ragged
+   (C = 48, H = 100) and wide768 (C = H = 768) configurations with their
+   launches, `test_mucon` within 1e-6 and a kernel step against a plain
+   step;
 11. prints the kernel report JSON (each kernel's launches, error, time, the
    plain twin's time, the least time the card could take for the same work
    and, where one PyTorch call computes the same function, that call's
@@ -547,10 +555,11 @@ def check_bilstm(model, gen, dev):
                   2 * 2 * nv * H * 4 * H, lib_ms)
 
 
-def viterbi_tables(gen, nf, T_pad: int, dev):
+def viterbi_tables(gen, nf, T_pad: int, dev, frame_sampling: int = FRAME_SAMPLING):
     """DP tables of random log-probs at Tz = T_pad / 16 for videos of nf
-    frames with random transcripts of 1-30 actions: (W, pois, k_valid,
-    n_valid)."""
+    frames with random transcripts of 1-30 actions, windows of
+    `frame_sampling` frames (L = MAX_LEN // frame_sampling cells): (W, pois,
+    k_valid, n_valid)."""
     import torch
     import torch.nn.functional as F
     from mucon_tpu_torch.models.layers import nearest_upsample_indices
@@ -566,7 +575,7 @@ def viterbi_tables(gen, nf, T_pad: int, dev):
     up_idx = nearest_upsample_indices(nf // 16, T_pad, nf)
     W, pois, kv = viterbi_precompute_z(
         seg_lp_z, up_idx, nf, trs, lam,
-        frame_sampling=FRAME_SAMPLING, max_len=MAX_LEN, l_max=MAX_LEN // FRAME_SAMPLING,
+        frame_sampling=frame_sampling, max_len=MAX_LEN, l_max=MAX_LEN // frame_sampling,
     )
     return W, pois, kv, n_valid
 
@@ -653,10 +662,15 @@ def check_viterbi(gen, dev):
     for K, N, L, S, max_len in VITERBI_EDGES:
         check_decode(f"edge S={S} max_len={max_len}",
                      viterbi_edge_args(K, N, L, S, max_len, gen, dev), reps=2)
+    return dp_report(args, (sk, lk, bk, pk), ms, plain_ms)
+
+
+def dp_report(args, got, ms: float, plain_ms: float) -> dict:
+    """A DP launch's report line from its inputs and its four outputs."""
     W, pois, kv, n_valid = args[:4]
     L = pois.shape[2]
     cells = int((kv.cpu() * n_valid.cpu()).sum())  # valid (window, position) pairs
-    moved = 4 * cells + 4 * int(n_valid.sum()) * L + nbytes(sk, lk, bk, pk)
+    moved = 4 * cells + 4 * int(n_valid.sum()) * L + nbytes(*got)
     return report(0.0, ms, plain_ms, moved, 2 * cells * L)
 
 
@@ -821,8 +835,8 @@ def viterbi_span(model, arrays, card: str) -> str:
 def serve(tag, model, dev, rng, card: str, required, absent=(), timed: bool = True):
     """Requests A and B through `predict_videos` and the fused eval, with
     the kernels and plain: the kernels in `required` must launch on the
-    kernel path, those in `absent` must not; `timed`: time both paths.
-    Returns the launch counts."""
+    kernel path, those in `absent` must not; `timed`: time both paths
+    ("A": request A's fused eval alone).  Returns the launch counts."""
     from mucon_tpu_torch import cuda
     from mucon_tpu_torch.cli.predict import collate_videos, predict_videos
     from mucon_tpu_torch.models.model import batch_to_tensors
@@ -880,10 +894,10 @@ def serve(tag, model, dev, rng, card: str, required, absent=(), timed: bool = Tr
         say(f"{tag} request {k}: B={B} T_pad={arrays['feats'].shape[1]} kernel == plain "
             f"({len(mism)} near-tie mismatches); {no_eos}/{B} videos decoded all "
             f"{N_MAX + 1} steps without EOS")
-        if not timed:
+        if not timed or (timed == "A" and k != "A"):
             del arrays
             continue
-        if k == "A":  # the backbone's spans on the kernel path
+        if timed is True and k == "A":  # the backbone's spans on the kernel path
             import torch
 
             feats_a, frames_a = arrays["feats"], arrays["num_frames"]
@@ -892,11 +906,16 @@ def serve(tag, model, dev, rng, card: str, required, absent=(), timed: bool = Tr
                 enc_ms = cuda_ms(lambda: model._encode_kernels(feats_a, frames_a), reps=3)
             say(f"{tag} request A spans: in-projection {proj_ms:.3f} ms, in-projection + "
                 f"stack kernel {enc_ms:.3f} ms: the stack {enc_ms - proj_ms:.3f} ms [{card}]")
-        say(f"{tag} request {k} Viterbi DP + walk: " + viterbi_span(model, arrays, card))
-        ms, plain_ms = paired_ms(lambda: run_k(arrays), lambda: run_p(arrays), reps=3)
+        if timed is True:
+            say(f"{tag} request {k} Viterbi DP + walk: " + viterbi_span(model, arrays, card))
+        ms, plain_ms = paired_ms(lambda: run_k(arrays), lambda: run_p(arrays),
+                                 reps=3 if timed is True else 1)
         say(f"{tag} request {k} fused eval (device-resident features): kernels {ms:.2f} "
             f"ms/batch = {1000 * B / ms:.1f} videos/s; plain {plain_ms:.2f} ms/batch "
             f"= {1000 * B / plain_ms:.1f} videos/s [{card}]")
+        if timed is not True:
+            del arrays
+            continue
         pk, pp = paired_ms(lambda: predict(k, True), lambda: predict(k, False), reps=1)
         say(f"{tag} request {k} predict_videos (host features in, labels out): kernels "
             f"{pk:.1f} ms/batch = {1000 * B / pk:.1f} videos/s; plain {pp:.1f} "
@@ -3548,10 +3567,12 @@ def precision_phase(dev, card: str, tmp: str, cli: dict) -> dict:
 
 # The widths the `widths` phase holds every kernel to its twin at: the stack
 # kernels' channels (48 runs zero-padded to the 128 instance; 256 and 512
-# have their own tiles) and the recurrences' hidden sizes (100 and 127 split
+# have their own tiles; 600, 768 and 1024 run on the wide bodies, 600
+# zero-padded to 640) and the recurrences' hidden sizes (100 and 127 split
 # unevenly over a cluster; 256 and 512 read some weights from L2 where
-# registers and shared memory do not hold them).
-WIDTH_CS, WIDTH_HS = (48, 256, 512), (100, 127, 256, 512)
+# registers and shared memory do not hold them; 768 and 1024 run on the
+# wide kernels).
+WIDTH_CS, WIDTH_HS = (48, 256, 512, 600, 768, 1024), (100, 127, 256, 512, 768, 1024)
 # the default model's stack: 11 layers, pools after layers 1, 2, 4, 8 (max)
 WIDTH_STAGES, WIDTH_POOLS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024), (1, 2, 4, 8)
 # the two models the phase trains through train_test_mucon: config overrides
@@ -3563,7 +3584,18 @@ WIDTH_CFGS = {
     "ragged": ([("model.ft.hidden_size", "48"), ("model.ft.last_gn_num_groups", "16"),
                 ("model.fs.encoder.hidden_size", "100"), ("model.fs.decoder.hidden_size", "100")],
                dict(hidden_size=48, last_gn_num_groups=16, lstm_hidden_size=100)),
+    "wide768": ([("model.ft.hidden_size", "768"), ("model.ft.last_gn_num_groups", "32"),
+                 ("model.fs.encoder.hidden_size", "768"),
+                 ("model.fs.decoder.hidden_size", "768")],
+                dict(hidden_size=768, last_gn_num_groups=32, lstm_hidden_size=768)),
 }
+# the longest shapes, (H, B, Tz) at S = N_MAX + 1: the BiLSTM and the decoder
+# chain at the JAX package's widest H, the reverse chain at long Tz (its
+# tables in device memory)
+LONG_BILSTM, LONG_CHAINS = (1447, 2, 40), ((1181, 2, 40), (128, 1, 2048), (768, 1, 1536))
+# the DP past its shared-memory state: frame_sampling 1 and 3 (L = 2000, 666)
+# at request A's batch, and N = 300 positions ((K, N, L) at 6 videos)
+LONG_DP_SAMPLINGS, LONG_DP_N = (1, 3), (85, 300, 66)
 
 
 def seeded(gen, dev, *shapes, scale: float = 1.0):
@@ -3599,17 +3631,19 @@ def width_line(key: str, width: str, line: dict, lines: dict) -> None:
 
 def width_eval_stacks(gen, dev, card: str, lines: dict) -> None:
     """Rows 1 and 12 (the WaveNet eval stack, the MS-TCN++ stage) at each of
-    WIDTH_CS, in 3xTF32 and in the bf16-operand mode, at the serving batch
-    (B = 128, T_pad = 2560): against the plain twin at C = 128's bounds
-    (FWD_BOUND; the bf16 mode by the JAX package's contract for 11 layers)."""
+    WIDTH_CS, in 3xTF32 and in the bf16-operand mode, at the serving batch's
+    B = 128 and half its length (T_pad = 1280, 750-1050 frames, so that the
+    phase keeps to the smoke's time with the wide widths): against the
+    plain twin at C = 128's bounds (FWD_BOUND; the bf16 mode by the JAX
+    package's contract for 11 layers)."""
     import torch
     from mucon_tpu_torch import cuda
     from mucon_tpu_torch.models.layers import mask_time
     from mucon_tpu_torch.ops.mstcnpp_stack import mstcnpp_stack, mstcnpp_stack_plain
     from mucon_tpu_torch.ops.wavenet_stack import wavenet_stack, wavenet_stack_plain
 
-    B, T, L = 128, 2560, len(WIDTH_STAGES)
-    lengths = torch.randint(1500, 2101, (B,), generator=gen).to(dev)
+    B, T, L = 128, 1280, len(WIDTH_STAGES)
+    lengths = torch.randint(750, 1051, (B,), generator=gen).to(dev)
     rows, rows_fin = stack_rows(WIDTH_STAGES, WIDTH_POOLS, lengths)
     for C in WIDTH_CS:
         x = mask_time(torch.relu(torch.randn(B, T, C, generator=gen) * 0.6).to(dev), lengths)
@@ -3831,159 +3865,215 @@ def width_recurrences(gen, dev, card: str, lines: dict) -> None:
     the decoder chain at the train batch (B = 8, Tz = 160, S = 31, E = 2H)
     against their twins under autograd (`held`), each kernel twice bit for
     bit, the replayed cells equal to the stashes bit for bit."""
+    T = 160
+    for H in WIDTH_HS:
+        tz = bilstm_shape(gen, dev, card, lines, H, T, 128, TRAIN_B, f"H={H}")
+        chain_shape(gen, dev, card, lines, H, TRAIN_B, T, tz, f"H={H}")
+
+
+def bilstm_shape(gen, dev, card: str, lines: dict, H: int, T: int, B_eval: int, B: int,
+                 width: str):
+    """Rows 2, 7, 8 at hidden size H: the eval recurrence at B_eval videos
+    of T steps within 1e-5 and twice bit for bit; the train recurrence and
+    its reverse chain at B videos against their twins under autograd, the
+    coefficient pass's cell equal to the stash.  Each a `width` line;
+    returns the train batch's valid steps [B]."""
     import torch
     from mucon_tpu_torch import cuda
-    from mucon_tpu_torch.ops.decoder_chain import DecoderChain, decoder_chain_plain
     from mucon_tpu_torch.ops.lstm_recurrence import (
         BiLSTMRecurrenceTrain, bilstm_recurrence, bilstm_recurrence_plain,
     )
 
-    T, S = 160, N_MAX + 1
-    for H in WIDTH_HS:
-        # w_hh at nn.LSTM's init scale, uniform in +-1/sqrt(H)
-        w_hh = ((2 * torch.rand(2, H, 4 * H, generator=gen) - 1) / H ** 0.5).to(dev)
-        fwd_plan, chain_plan = cuda.bilstm_fwd_plan(H), cuda.bilstm_chain_plan(H)
-        plans = (f"forward CL {fwd_plan[0]}, {fwd_plan[2]} threads, KC {fwd_plan[4]} "
-                 f"({'registers' if fwd_plan[4] <= 64 else 'L2'}); chain CL {chain_plan[0]}, "
-                 f"HS {chain_plan[1]}, GPQ {chain_plan[3]}")
-        # eval: the serving batch
-        B = 128
-        xp = torch.randn(T, 2, B, 4 * H, generator=gen).to(dev)
-        tz = torch.randint(1500 // 16, 2100 // 16 + 1, (B,), generator=gen)
-        m = (torch.arange(T)[:, None] < tz[None, :]).to(torch.float32).to(dev)
-        with torch.no_grad():
-            outk = bilstm_recurrence(xp, m, w_hh)
-            outp = bilstm_recurrence_plain(xp, m, w_hh)
-            err = max((a - b).abs().max().item() for a, b in zip(outk, outp))
-            expect(err <= 1e-5, f"bilstm_recurrence H={H}: max abs err {err} > 1e-5")
-            expect(all(torch.equal(a, b) for a, b in zip(outk, bilstm_recurrence(xp, m, w_hh))),
-                   f"bilstm_recurrence H={H}: two calls differ")
-            ms = paired_ms(lambda: bilstm_recurrence(xp, m, w_hh),
-                           lambda: bilstm_recurrence_plain(xp, m, w_hh), reps=2)
-        nv = int(m.sum())
-        say(f"widths: kernel bilstm_recurrence Tz={T} B={B} H={H}: max abs err {err:.3e} <= "
-            f"1e-5, two calls bit for bit; {ms[0]:.3f} ms vs plain {ms[1]:.3f} ms; {plans} "
-            f"[{card}]")
-        width_line("bilstm_recurrence", f"H={H}", report(
-            err, *ms, 4 * 2 * nv * 4 * H + nbytes(m, w_hh, *outk), 2 * 2 * nv * H * 4 * H), lines)
-        del xp, outk, outp
-        # train: the train batch
-        B = TRAIN_B
-        xp = torch.randn(T, 2, B, 4 * H, generator=gen).to(dev)
-        tz = torch.randint(1500 // 16, 2100 // 16 + 1, (B,), generator=gen)
-        m = (torch.arange(T)[:, None] < tz[None, :]).to(torch.float32).to(dev)
-        cts = [torch.randn(*s_, generator=gen).to(dev) for s_ in ((T, 2, B, H), (2, B, H),
-                                                                 (2, B, H))]
-        with torch.no_grad():
-            outk = cuda.bilstm_train_forward(xp, m, w_hh)
-            outp = bilstm_recurrence_plain(xp, m, w_hh, stash=True)
-            expect(all(torch.equal(a, b) for a, b in
-                       zip(outk, cuda.bilstm_train_forward(xp, m, w_hh))),
-                   f"bilstm_train_fwd H={H}: two calls differ")
-            _, cell = cuda.bilstm_bwd_coefs(xp, m, w_hh, outk[0], outk[3], cell=True)
-            valid = m[:, None, :, None].expand_as(cell) > 0
-            expect(torch.equal(cell[valid], outk[3][valid]),
-                   f"bilstm_train_bwd H={H}: the coefficient pass's cell differs from the stash")
-            outs, _, _, cs = outk
-            twice = [cuda.bilstm_train_backward(xp, m, w_hh, outs, cs, *cts) for _ in range(2)]
-            expect(torch.equal(*twice), f"bilstm_train_bwd H={H}: two calls differ")
-        fwd_err = held(f"bilstm_train_fwd H={H}", list(zip(("outs", "h", "c", "cs"), outk, outp)),
-                       grads=False)
+    # w_hh at nn.LSTM's init scale, uniform in +-1/sqrt(H)
+    w_hh = ((2 * torch.rand(2, H, 4 * H, generator=gen) - 1) / H ** 0.5).to(dev)
+    fwd_plan, chain_plan = cuda.bilstm_fwd_plan(H), cuda.bilstm_chain_plan(H)
+    plans = (f"forward CL {fwd_plan[0]}, {fwd_plan[2]} threads, KC {fwd_plan[4]} "
+             f"({'registers' if fwd_plan[4] <= 64 else 'L2'}); chain CL {chain_plan[0]}, "
+             f"HS {chain_plan[1]}, GPQ {chain_plan[3]}")
+    lo, hi = max(1, T * 1500 // 2560), max(1, T * 2100 // 2560)  # 1500-2100 of 2560 frames
+    # eval
+    xp = torch.randn(T, 2, B_eval, 4 * H, generator=gen).to(dev)
+    tz = torch.randint(lo, hi + 1, (B_eval,), generator=gen)
+    m = (torch.arange(T)[:, None] < tz[None, :]).to(torch.float32).to(dev)
+    with torch.no_grad():
+        outk = bilstm_recurrence(xp, m, w_hh)
+        outp = bilstm_recurrence_plain(xp, m, w_hh)
+        err = max((a - b).abs().max().item() for a, b in zip(outk, outp))
+        expect(err <= 1e-5, f"bilstm_recurrence H={H}: max abs err {err} > 1e-5")
+        expect(all(torch.equal(a, b) for a, b in zip(outk, bilstm_recurrence(xp, m, w_hh))),
+               f"bilstm_recurrence H={H}: two calls differ")
+        ms = paired_ms(lambda: bilstm_recurrence(xp, m, w_hh),
+                       lambda: bilstm_recurrence_plain(xp, m, w_hh), reps=2)
+    nv = int(m.sum())
+    say(f"widths: kernel bilstm_recurrence Tz={T} B={B_eval} H={H}: max abs err {err:.3e} <= "
+        f"1e-5, two calls bit for bit; {ms[0]:.3f} ms vs plain {ms[1]:.3f} ms; {plans} "
+        f"[{card}]")
+    width_line("bilstm_recurrence", width, report(
+        err, *ms, 4 * 2 * nv * 4 * H + nbytes(m, w_hh, *outk), 2 * 2 * nv * H * 4 * H), lines)
+    del xp, outk, outp
+    # train
+    xp = torch.randn(T, 2, B, 4 * H, generator=gen).to(dev)
+    tz = torch.randint(lo, hi + 1, (B,), generator=gen)
+    m = (torch.arange(T)[:, None] < tz[None, :]).to(torch.float32).to(dev)
+    cts = [torch.randn(*s_, generator=gen).to(dev) for s_ in ((T, 2, B, H), (2, B, H),
+                                                             (2, B, H))]
+    with torch.no_grad():
+        outk = cuda.bilstm_train_forward(xp, m, w_hh)
+        outp = bilstm_recurrence_plain(xp, m, w_hh, stash=True)
+        expect(all(torch.equal(a, b) for a, b in
+                   zip(outk, cuda.bilstm_train_forward(xp, m, w_hh))),
+               f"bilstm_train_fwd H={H}: two calls differ")
+        _, cell = cuda.bilstm_bwd_coefs(xp, m, w_hh, outk[0], outk[3], cell=True)
+        valid = m[:, None, :, None].expand_as(cell) > 0
+        expect(torch.equal(cell[valid], outk[3][valid]),
+               f"bilstm_train_bwd H={H}: the coefficient pass's cell differs from the stash")
+        outs, _, _, cs = outk
+        twice = [cuda.bilstm_train_backward(xp, m, w_hh, outs, cs, *cts) for _ in range(2)]
+        expect(torch.equal(*twice), f"bilstm_train_bwd H={H}: two calls differ")
+    fwd_err = held(f"bilstm_train_fwd H={H}", list(zip(("outs", "h", "c", "cs"), outk, outp)),
+                   grads=False)
 
-        def fwd_bwd(fn):
-            a, w = xp.clone().requires_grad_(), w_hh.clone().requires_grad_()
-            torch.autograd.backward(fn(a, m, w)[:3], cts)
-            return a.grad, w.grad
-
-        bwd_err = held(f"bilstm_train_bwd H={H}", list(zip(
-            ("dxp", "dw_hh"), fwd_bwd(BiLSTMRecurrenceTrain.apply),
-            fwd_bwd(bilstm_recurrence_plain))), grads=True)
-        h_prev = torch.cat([torch.zeros_like(outs[:1]), outs[:-1]])
+    def fwd_bwd(fn):
         a, w = xp.clone().requires_grad_(), w_hh.clone().requires_grad_()
-        graph = bilstm_recurrence_plain(a, m, w)
-        with torch.no_grad():
-            fms = paired_ms(lambda: cuda.bilstm_train_forward(xp, m, w_hh),
-                            lambda: bilstm_recurrence_plain(xp, m, w_hh, stash=True), reps=2)
-        bms = paired_ms(lambda: torch.einsum("tdbh,tdbg->dhg", h_prev, cuda.bilstm_train_backward(
-            xp, m, w_hh, outs, cs, *cts)),
-            lambda: torch.autograd.grad(graph, (a, w), cts, retain_graph=True), reps=2)
-        say(f"widths: kernels bilstm_train_fwd / bilstm_train_bwd Tz={T} B={B} H={H}: "
-            f"{fms[0]:.3f} ms vs plain {fms[1]:.3f} ms; {bms[0]:.3f} ms vs plain autograd "
-            f"{bms[1]:.3f} ms; the replayed cell equals the stash bit for bit [{card}]")
-        nv = int(m.sum())
-        step_ops = 2 * nv * 2 * H * 4 * H
-        width_line("bilstm_train_fwd", f"H={H}", report(
-            fwd_err, *fms, 4 * 2 * nv * 4 * H + nbytes(m, w_hh, *outk), step_ops), lines)
-        width_line("bilstm_train_bwd", f"H={H}", report(
-            bwd_err, *bms, 4 * 2 * nv * 7 * H + nbytes(m, w_hh, *cts[1:], xp, w_hh),
-            3 * step_ops), lines)
-        del a, w, graph, xp, outk, outp
-        # the decoder chain: E = 2H (the bidirectional encoder's states)
-        E = 2 * H
-        maskf = (torch.arange(T)[None, :] < tz[:, None]).float()
-        r = lambda *shape: 0.4 * torch.randn(*shape, generator=gen)  # noqa: E731
-        wt = lambda k, *shape: torch.randn(*shape, generator=gen) / k ** 0.5  # noqa: E731
-        args = [t.to(dev) for t in (
-            torch.relu(r(S, B, H)), r(B, T, E) * maskf[:, :, None], r(B, T, H), maskf,
-            r(B, H), r(B, H), wt(H, H, H), r(H), r(H), wt(H + E, H, H), wt(H + E, E, H), r(H),
-            wt(2 * H, H, 4 * H), wt(2 * H, H, 4 * H), r(4 * H))]
-        dcts = [torch.randn(S, B, H, generator=gen).to(dev) for _ in range(3)]
-        with torch.no_grad():
-            outk = cuda.decoder_chain_forward(*args)
-            expect(all(torch.equal(a_, b_) for a_, b_ in
-                       zip(outk, cuda.decoder_chain_forward(*args))),
-                   f"decoder_chain_fwd H={H}: two calls differ")
-            outp = decoder_chain_plain(*args)
-            h_in = torch.cat([args[4][None], outk[0][:-1]])
-            c_in = torch.cat([args[5][None], outk[1][:-1]])
-            bargs = (*args[:4], h_in, c_in, *args[6:], *dcts)
-            *replay, cell = cuda.decoder_chain_replay(*bargs[:15], count=False, cell=True)
-            expect(torch.equal(torch.relu(replay[1]), outk[2]) and torch.equal(cell, outk[1]),
-                   f"decoder_chain_bwd H={H}: the replay's relu(cpre) or cell differs from the "
-                   f"stash")
-            expect(all(torch.equal(a_, b_) for a_, b_ in zip(
-                cuda.decoder_chain_backward(*bargs), cuda.decoder_chain_backward(*bargs))),
-                f"decoder_chain_bwd H={H}: two calls differ")
-        tag = f"B={B} S={S} Tz={T} H={H} E={E}"
-        dfwd_err = held(f"decoder_chain_fwd {tag}", list(zip(("hs", "cs", "comb"), outk, outp)),
-                        grads=False)
+        torch.autograd.backward(fn(a, m, w)[:3], cts)
+        return a.grad, w.grad
 
-        def grads(fn):
-            xs = [t.clone().requires_grad_(i != 3) for i, t in enumerate(args)]  # not maskf
-            torch.autograd.backward(fn(*xs), dcts)
-            return [t.grad for i, t in enumerate(xs) if i != 3]
+    bwd_err = held(f"bilstm_train_bwd H={H}", list(zip(
+        ("dxp", "dw_hh"), fwd_bwd(BiLSTMRecurrenceTrain.apply),
+        fwd_bwd(bilstm_recurrence_plain))), grads=True)
+    h_prev = torch.cat([torch.zeros_like(outs[:1]), outs[:-1]])
+    a, w = xp.clone().requires_grad_(), w_hh.clone().requires_grad_()
+    graph = bilstm_recurrence_plain(a, m, w)
+    with torch.no_grad():
+        fms = paired_ms(lambda: cuda.bilstm_train_forward(xp, m, w_hh),
+                        lambda: bilstm_recurrence_plain(xp, m, w_hh, stash=True), reps=2)
+    bms = paired_ms(lambda: torch.einsum("tdbh,tdbg->dhg", h_prev, cuda.bilstm_train_backward(
+        xp, m, w_hh, outs, cs, *cts)),
+        lambda: torch.autograd.grad(graph, (a, w), cts, retain_graph=True), reps=2)
+    say(f"widths: kernels bilstm_train_fwd / bilstm_train_bwd Tz={T} B={B} H={H}: "
+        f"{fms[0]:.3f} ms vs plain {fms[1]:.3f} ms; {bms[0]:.3f} ms vs plain autograd "
+        f"{bms[1]:.3f} ms; the replayed cell equals the stash bit for bit [{card}]")
+    nv = int(m.sum())
+    step_ops = 2 * nv * 2 * H * 4 * H
+    width_line("bilstm_train_fwd", width, report(
+        fwd_err, *fms, 4 * 2 * nv * 4 * H + nbytes(m, w_hh, *outk), step_ops), lines)
+    width_line("bilstm_train_bwd", width, report(
+        bwd_err, *bms, 4 * 2 * nv * 7 * H + nbytes(m, w_hh, *cts[1:], xp, w_hh),
+        3 * step_ops), lines)
+    del a, w, graph, xp, outk, outp
+    return tz
 
-        gnames = ("emb", "enc", "pre", "h0", "c0", "wl2", "bl2", "v", "wc1", "wc2", "bc",
-                  "wih", "whh", "bl")
-        dbwd_err = held(f"DecoderChain {tag} (input gradients)", list(zip(
-            gnames, grads(DecoderChain.apply), grads(decoder_chain_plain))), grads=True)
-        xs = [t.clone().requires_grad_(i != 3) for i, t in enumerate(args)]
-        graph = decoder_chain_plain(*xs)
-        with torch.no_grad():
-            dfms = paired_ms(lambda: cuda.decoder_chain_forward(*args),
-                             lambda: decoder_chain_plain(*args), reps=2)
-            dbk = cuda_ms(lambda: cuda.decoder_chain_backward(*bargs), reps=4)
-        dbp = cuda_ms(lambda: torch.autograd.grad(
-            graph, [t for i, t in enumerate(xs) if i != 3], dcts, retain_graph=True), reps=2)
-        launch = cuda.decoder_chain_fwd_launch(B, H, E, T)
-        say(f"widths: kernels decoder_chain_fwd / decoder_chain_bwd {tag}: {dfms[0]:.3f} ms vs "
-            f"plain {dfms[1]:.3f} ms; reverse chain {dbk:.3f} ms vs plain autograd {dbp:.3f} ms "
-            f"(forward CL {launch['cl']}, weights "
-            f"{'in shared memory' if launch['weights'] else 'from L2'}; reverse CL "
-            f"{cuda.decoder_chain_plan(H)[0]}, HS {cuda.decoder_chain_plan(H)[1]}); two calls "
-            f"bit for bit, the replay's cell and relu(cpre) equal the stash [{card}]")
-        tzs = int(tz.sum())
-        d_ops = S * (B * (18 * H * H + 2 * (H + E) * H + 10 * H) + tzs * (3 * H + 2 * E))
-        d_bwd_ops = d_ops + S * (B * (18 * H * H + 2 * H * E + 20 * H)
-                                 + tzs * (2 * E + 4 * H + 3))
-        tables = 4 * tzs * (E + H) + nbytes(maskf)
-        width_line("decoder_chain_fwd", f"H={H}", report(
-            dfwd_err, *dfms, tables + nbytes(*args[6:]) + nbytes(args[0], *args[4:6], *outk),
-            d_ops), lines)
-        width_line("decoder_chain_bwd", f"H={H}", report(
-            dbwd_err, dbk, dbp, tables + nbytes(*args[6:]) + nbytes(args[0], h_in, c_in, *dcts),
-            d_bwd_ops), lines)
-        del xs, graph, args, outk, outp
+
+def chain_shape(gen, dev, card: str, lines: dict, H: int, B: int, T: int, tz, width: str):
+    """Rows 9, 10 at hidden size H, B videos of T frames (tz valid), S = 31,
+    E = 2H (the bidirectional encoder's states): the forward chain and the
+    reverse chain (its replay's cell and relu(cpre) equal to the forward's
+    stash) each twice bit for bit, `DecoderChain`'s input gradients against
+    autograd of the plain twin, each a `width` line."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.ops.decoder_chain import DecoderChain, decoder_chain_plain
+
+    S, E = N_MAX + 1, 2 * H
+    maskf = (torch.arange(T)[None, :] < tz[:, None]).float()
+    r = lambda *shape: 0.4 * torch.randn(*shape, generator=gen)  # noqa: E731
+    wt = lambda k, *shape: torch.randn(*shape, generator=gen) / k ** 0.5  # noqa: E731
+    args = [t.to(dev) for t in (
+        torch.relu(r(S, B, H)), r(B, T, E) * maskf[:, :, None], r(B, T, H), maskf,
+        r(B, H), r(B, H), wt(H, H, H), r(H), r(H), wt(H + E, H, H), wt(H + E, E, H), r(H),
+        wt(2 * H, H, 4 * H), wt(2 * H, H, 4 * H), r(4 * H))]
+    dcts = [torch.randn(S, B, H, generator=gen).to(dev) for _ in range(3)]
+    with torch.no_grad():
+        outk = cuda.decoder_chain_forward(*args)
+        expect(all(torch.equal(a_, b_) for a_, b_ in
+                   zip(outk, cuda.decoder_chain_forward(*args))),
+               f"decoder_chain_fwd H={H}: two calls differ")
+        outp = decoder_chain_plain(*args)
+        h_in = torch.cat([args[4][None], outk[0][:-1]])
+        c_in = torch.cat([args[5][None], outk[1][:-1]])
+        bargs = (*args[:4], h_in, c_in, *args[6:], *dcts)
+        *replay, cell = cuda.decoder_chain_replay(*bargs[:15], count=False, cell=True)
+        expect(torch.equal(torch.relu(replay[1]), outk[2]) and torch.equal(cell, outk[1]),
+               f"decoder_chain_bwd H={H}: the replay's relu(cpre) or cell differs from the "
+               f"stash")
+        expect(all(torch.equal(a_, b_) for a_, b_ in zip(
+            cuda.decoder_chain_backward(*bargs), cuda.decoder_chain_backward(*bargs))),
+            f"decoder_chain_bwd H={H}: two calls differ")
+    tag = f"B={B} S={S} Tz={T} H={H} E={E}"
+    dfwd_err = held(f"decoder_chain_fwd {tag}", list(zip(("hs", "cs", "comb"), outk, outp)),
+                    grads=False)
+
+    def grads(fn):
+        xs = [t.clone().requires_grad_(i != 3) for i, t in enumerate(args)]  # not maskf
+        torch.autograd.backward(fn(*xs), dcts)
+        return [t.grad for i, t in enumerate(xs) if i != 3]
+
+    gnames = ("emb", "enc", "pre", "h0", "c0", "wl2", "bl2", "v", "wc1", "wc2", "bc",
+              "wih", "whh", "bl")
+    dbwd_err = held(f"DecoderChain {tag} (input gradients)", list(zip(
+        gnames, grads(DecoderChain.apply), grads(decoder_chain_plain))), grads=True)
+    xs = [t.clone().requires_grad_(i != 3) for i, t in enumerate(args)]
+    graph = decoder_chain_plain(*xs)
+    with torch.no_grad():
+        dfms = paired_ms(lambda: cuda.decoder_chain_forward(*args),
+                         lambda: decoder_chain_plain(*args), reps=2)
+        dbk = cuda_ms(lambda: cuda.decoder_chain_backward(*bargs), reps=4)
+    dbp = cuda_ms(lambda: torch.autograd.grad(
+        graph, [t for i, t in enumerate(xs) if i != 3], dcts, retain_graph=True), reps=2)
+    launch = cuda.decoder_chain_fwd_launch(B, H, E, T)
+    bplan = cuda.decoder_chain_plan(H)
+    say(f"widths: kernels decoder_chain_fwd / decoder_chain_bwd {tag}: {dfms[0]:.3f} ms vs "
+        f"plain {dfms[1]:.3f} ms; reverse chain {dbk:.3f} ms vs plain autograd {dbp:.3f} ms "
+        f"(forward CL {launch['cl']}, weights "
+        f"{'in shared memory' if launch['weights'] else 'from L2'}; reverse CL {bplan[0]}, HS "
+        f"{bplan[1]}, tables in "
+        f"{'device' if cuda.decoder_chain_bwd_wide(H, T) else 'shared'} memory); two calls "
+        f"bit for bit, the replay's cell and relu(cpre) equal the stash [{card}]")
+    tzs = int(tz.sum())
+    d_ops = S * (B * (18 * H * H + 2 * (H + E) * H + 10 * H) + tzs * (3 * H + 2 * E))
+    d_bwd_ops = d_ops + S * (B * (18 * H * H + 2 * H * E + 20 * H)
+                             + tzs * (2 * E + 4 * H + 3))
+    tables = 4 * tzs * (E + H) + nbytes(maskf)
+    width_line("decoder_chain_fwd", width, report(
+        dfwd_err, *dfms, tables + nbytes(*args[6:]) + nbytes(args[0], *args[4:6], *outk),
+        d_ops), lines)
+    width_line("decoder_chain_bwd", width, report(
+        dbwd_err, dbk, dbp, tables + nbytes(*args[6:]) + nbytes(args[0], h_in, c_in, *dcts),
+        d_bwd_ops), lines)
+    del xs, graph, args, outk, outp
+
+
+def width_long_shapes(gen, dev, card: str, lines: dict) -> None:
+    """The shapes past the narrow kernels' limits that the JAX kernels take:
+    the BiLSTM at H = 1447 and the decoder chain at H = 1181 (LONG_BILSTM,
+    LONG_CHAINS: a small B and Tz), the reverse chain at Tz = 2048 and 1536
+    (B = 1: its tables in device memory), each held as at WIDTH_HS; the DP
+    and walk at frame_sampling 1 and 3 (L = 2000, 666; request A's 128
+    videos) and at N = 300, equal to the plain DP + walk bit for bit."""
+    import torch
+    from mucon_tpu_torch import cuda
+
+    H, B, T = LONG_BILSTM
+    bilstm_shape(gen, dev, card, lines, H, T, B, B, f"H={H} B={B} Tz={T}")
+    for H, B, T in LONG_CHAINS:
+        tz = torch.randint(max(1, T * 1500 // 2560), T * 2100 // 2560 + 1, (B,), generator=gen)
+        chain_shape(gen, dev, card, lines, H, B, T, tz, f"H={H} B={B} Tz={T}")
+    for fs in LONG_DP_SAMPLINGS:
+        args = (*viterbi_tables(gen, torch.randint(1500, 2101, (128,), generator=gen), 2560,
+                                dev, fs), fs, MAX_LEN)
+        dp_line(f"frame_sampling={fs}", args, f"L={MAX_LEN // fs} (frame_sampling {fs})",
+                lines)
+    K, N, L = LONG_DP_N
+    dp_line(f"N={N}", viterbi_edge_args(K, N, L, FRAME_SAMPLING, MAX_LEN, gen, dev),
+            f"N={N} L={L}", lines)
+    say(f"widths: the DP's plans {[cuda.viterbi_plan(128, N_MAX, MAX_LEN // fs) for fs in LONG_DP_SAMPLINGS]}, "
+        f"{cuda.viterbi_plan(6, N, L)} [{card}]")
+
+
+def dp_line(tag: str, args, width: str, lines: dict) -> None:
+    """`check_decode` at a DP shape, and its `width` line."""
+    got, ms, plain_ms = check_decode(tag, args, reps=1)
+    width_line("dense_viterbi", width, dp_report(args, got, ms, plain_ms), lines)
 
 
 def width_runs(dev, card: str, cli: dict, lines: dict) -> None:
@@ -4068,6 +4158,7 @@ def widths_phase(dev, card: str, tmp: str, cli: dict) -> dict:
         width_eval_stacks(gen, dev, card, lines)
     v2_bf16 = width_train_stacks(gen, dev, card, lines)
     width_recurrences(gen, dev, card, lines)
+    width_long_shapes(gen, dev, card, lines)
     model_m = create_model(M, N_MAX + 1, D, ft_type="mstcnpp", device=dev, seed=0,
                            hidden_size=256, lstm_hidden_size=256)
     with torch.inference_mode():
@@ -4077,6 +4168,21 @@ def widths_phase(dev, card: str, tmp: str, cli: dict) -> dict:
     for entry in lines["mstcnpp_stack"]:  # the serving path's launches at its width
         if entry["width"] == "C=256":
             entry["launches"] += served["mstcnpp_stack"]
+    # requests A and B through both backbones at C = H = 768 (the wide bodies
+    # and the wide BiLSTM), kernel against plain
+    for name, ft, required, absent in (("WaveNet", "wavenet", SERVING_KERNELS, "mstcnpp_stack"),
+                                       ("MS-TCN++", "mstcnpp", MSTCNPP_SERVING_KERNELS,
+                                        "wavenet_layer")):
+        model_w = create_model(M, N_MAX + 1, D, ft_type=ft, device=dev, seed=0,
+                               hidden_size=768, last_gn_num_groups=32, lstm_hidden_size=768)
+        with torch.inference_mode():
+            served = serve(f"{name} C=768 H=768", model_w, dev, np.random.default_rng(3), card,
+                           required, absent=(absent,), timed="A" if ft == "wavenet" else False)
+        del model_w
+        for key, width in ((required[0], "C=768"), ("bilstm_recurrence", "H=768")):
+            for entry in lines[key]:  # the serving path's launches at its width
+                if entry["width"] == width:
+                    entry["launches"] += served[key]
     width_runs(dev, card, cli, lines)
     say(f"widths phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
     return lines, v2_bf16

@@ -33,7 +33,8 @@
 // thread, so three CTAs share an SM and the 32 clusters of the serving
 // batch (B = 128) run in one wave (`mucon_bilstm_fwd_plan` reports the
 // clusters the card holds at once).
-// Every H from 1 to 512: where CL does not divide H into CTAs of at least
+// Every H from 1 to 512 on this kernel (above: `bilstm_fwd_wide_kernel`,
+// below): where CL does not divide H into CTAs of at least
 // 16 units that fit the threads (an odd H above 64, H = 300), the split is
 // ragged: CL = 8 CTAs (fewer below H = 64), CTA r taking units
 // [r H / CL, (r + 1) H / CL), ceil(H / CL) or floor(H / CL) of them.  Where a
@@ -81,10 +82,26 @@
 //    the forward's, the CTA takes 512 threads (a thread per video and
 //    column up to 64 columns) and reads its w_hh rows from L2 every step.
 //
+// Above H = 512 (up to MAX_H_WIDE = 2048; the JAX package's byte gates stop
+// its kernels at H = 1447) both recurrences take a ragged split of CL = 8
+// CTAs on NTW = 512 threads that stride over the CTA's (k-group, gate
+// column) products and its (video, unit) elements, the state in shared
+// memory and the weights read from L2 / device memory every step:
+// `bilstm_fwd_wide_kernel` keeps the forward's exchange of h (distributed
+// shared memory, two buffers); `bilstm_chain_wide_kernel` exchanges dgate
+// through dxp itself (written by the owners, a fence and a cluster barrier,
+// then staged GC gate rows at a time into shared memory), so that no
+// [BT x 4H] buffer bounds H.  The sums run in the narrow kernels' orders:
+// the forward's NK groups of KC rows, the chain's NQ groups of GPQ rows
+// (its FMA chain carried across staged chunks through shared memory, which
+// rounds nothing), so the twins' split orders hold as they are.
+//
 // The w_hh gradient (a sum over T of h_prev^T dgate) is left to the caller,
 // as the JAX package leaves it to XLA.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "cluster.cuh"
 
@@ -101,7 +118,11 @@ __device__ __forceinline__ float cell(float f, float c, float i, float g) {
   return __fmaf_rn(f, c, __fmul_rn(i, g));
 }
 
-constexpr int MAX_H = 512;  // the widest hidden size the kernels take
+constexpr int MAX_H = 512;        // the widest hidden size of the narrow kernels
+constexpr int MAX_H_WIDE = 2048;  // the widest hidden size the kernels take
+constexpr int WIDE_CL = 8;        // the wide kernels' cluster (a ragged split)
+constexpr int NTW = 512;          // threads per CTA of the chain on a ragged split, and
+                                  // of both wide kernels
 
 // How the forward splits a hidden size H: CL CTAs of at most HS units, NT
 // threads each; NK groups of KC k-rows (a multiple of 4) for each of the
@@ -113,7 +134,7 @@ constexpr int MAX_H = 512;  // the widest hidden size the kernels take
 // L2 (gw).
 struct FwdPlan {
   int cl, hs, nt, nk, kc;
-  bool gw;
+  bool gw, wide;
 };
 
 bool fwd_split(int H, int cl, int hs, bool any_kc, FwdPlan& p) {
@@ -131,7 +152,17 @@ bool fwd_split(int H, int cl, int hs, bool any_kc, FwdPlan& p) {
 }
 
 bool fwd_plan(int H, FwdPlan& p) {
-  if (H <= 0 || H > MAX_H) return false;
+  if (H <= 0 || H > MAX_H_WIDE) return false;
+  p.wide = H > MAX_H;
+  if (p.wide) {  // NK groups so that the products are about two passes of the threads
+    p.cl = WIDE_CL;
+    p.hs = (H + WIDE_CL - 1) / WIDE_CL;
+    p.nt = NTW;
+    p.nk = std::max(1, 2 * NTW / (4 * p.hs));
+    p.kc = ((H + p.nk - 1) / p.nk + 3) & ~3;
+    p.gw = true;
+    return true;
+  }
   const int cl = cluster::width_for(H);
   if (fwd_split(H, cl, H / cl, false, p)) return true;
   const int rl = cluster::ragged_width(H);
@@ -265,11 +296,95 @@ __global__ void __launch_bounds__(KC <= 32 ? 256 : 512, KC <= 32 ? 3 : 1) bilstm
   }
 }
 
+// H above 512: CTA r of CL = 8 takes units_of(r) (hs of them); its threads
+// stride over the nk x 4 hs (k-group, gate column) products and the BT x hs
+// (video, unit) elements; h of the step in two buffers as above, the cell
+// of its elements in shared memory; w_hh read from L2 every step.  The same
+// FMA order and group order as `bilstm_fwd_kernel` (GW).
+__global__ void __launch_bounds__(NTW, 1) bilstm_fwd_wide_kernel(
+    const float* __restrict__ xp, const float* __restrict__ m, const float* __restrict__ w_hh,
+    float* __restrict__ outs, float* __restrict__ h_fin, float* __restrict__ c_fin,
+    float* __restrict__ cs_out, int T, int B, int H, int, int nk, int kc) {
+  extern __shared__ float4 smf4[];
+  int j0, hs;
+  cluster::units_of(cluster::cluster_rank(), gridDim.x, H, j0, hs);
+  const int G = 4 * H, cols = 4 * hs, hp = nk * kc;
+  float* hb = reinterpret_cast<float*>(smf4);  // [2][BT][hp] h of the step, all units
+  float* red = hb + 2 * BT * hp;               // [nk][BT][cols] partial sums
+  float* cst = red + nk * BT * cols;           // [BT][hs] the cell of the CTA's elements
+  const int cl = gridDim.x, b0 = blockIdx.y * BT, dir = blockIdx.z, tid = threadIdx.x;
+  for (int i = tid; i < 2 * BT * hp; i += NTW) hb[i] = 0.f;  // absent videos stay 0
+  for (int i = tid; i < BT * hs; i += NTW) cst[i] = 0.f;
+  cluster::cluster_sync();  // before any peer writes here
+
+  for (int t = 0; t < T; ++t) {
+    const int buf = t & 1;
+    for (int v = tid; v < nk * cols; v += NTW) {
+      const int pc = v % cols, kq = v / cols;
+      const int gcol = (pc / hs) * H + j0 + pc % hs, k0 = kq * kc;
+      const int kn = max(0, min(kc, H - k0));
+      float acc[BT];
+#pragma unroll
+      for (int r = 0; r < BT; ++r) acc[r] = 0.f;
+      const float* hr = hb + buf * BT * hp + k0;
+      const float* wcol = w_hh + ((size_t)dir * H + k0) * G + gcol;
+      for (int i = 0; i < kn; i += 4) {
+        float wv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) wv[q] = i + q < kn ? __ldg(wcol + (size_t)(i + q) * G) : 0.f;
+#pragma unroll
+        for (int r = 0; r < BT; ++r) {
+          const float4 hv = *reinterpret_cast<const float4*>(hr + r * hp + i);
+          acc[r] = fmaf(hv.x, wv[0], acc[r]);
+          if (i + 1 < kn) acc[r] = fmaf(hv.y, wv[1], acc[r]);
+          if (i + 2 < kn) acc[r] = fmaf(hv.z, wv[2], acc[r]);
+          if (i + 3 < kn) acc[r] = fmaf(hv.w, wv[3], acc[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < BT; ++r) red[(kq * BT + r) * cols + pc] = acc[r];
+    }
+    __syncthreads();
+    for (int e = tid; e < BT * hs; e += NTW) {
+      const int eb = e / hs, ej = e - eb * hs, bb = b0 + eb, j = j0 + ej;
+      if (bb >= B) break;
+      const float* xr = xp + (((size_t)t * 2 + dir) * B + bb) * G + j;
+      const float mt = __ldg(m + (size_t)t * B + bb);
+      float gt[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float* rp = red + eb * cols + q * hs + ej;
+        float s = rp[0];
+        for (int k = 1; k < nk; ++k) s += rp[k * BT * cols];
+        gt[q] = __fadd_rn(__ldg(xr + q * H), s);
+      }
+      const float h = hb[(buf * BT + eb) * hp + j], c = cst[e];
+      const float c_new = cell(sigmoidf(gt[1]), c, sigmoidf(gt[0]), tanhf(gt[2]));
+      const float h_new = sigmoidf(gt[3]) * tanhf(c_new);
+      const float h2 = mt * h_new + (1.f - mt) * h, c2 = mt * c_new + (1.f - mt) * c;
+      const size_t o = (((size_t)t * 2 + dir) * B + bb) * H + j;
+      outs[o] = h2;
+      if (cs_out) cs_out[o] = c2;
+      cst[e] = c2;
+      const int at = ((buf ^ 1) * BT + eb) * hp + j;
+      for (int p = 0; p < cl; ++p) cluster::cluster_peer(hb, p)[at] = h2;
+    }
+    cluster::cluster_sync();  // every unit of h[t] is in every CTA's buffer
+  }
+  for (int e = tid; e < BT * hs; e += NTW) {
+    const int eb = e / hs, ej = e - eb * hs, bb = b0 + eb, j = j0 + ej;
+    if (bb >= B) break;
+    h_fin[((size_t)dir * B + bb) * H + j] = hb[((T & 1) * BT + eb) * hp + j];
+    c_fin[((size_t)dir * B + bb) * H + j] = cst[e];
+  }
+}
+
 using FwdKernel = void (*)(const float*, const float*, const float*, float*, float*, float*,
                            float*, int, int, int, int, int, int);
 
 // KC = 32 takes 256 threads only (its launch bound)
 FwdKernel fwd_kernel(const FwdPlan& p, int H) {
+  if (p.wide) return bilstm_fwd_wide_kernel;
   if (p.gw) return bilstm_fwd_kernel<64, true, true>;
   if (p.cl * p.hs != H)
     return p.kc <= 32 && p.nt == 256 ? bilstm_fwd_kernel<32, false, true>
@@ -278,7 +393,8 @@ FwdKernel fwd_kernel(const FwdPlan& p, int H) {
 }
 
 size_t fwd_smem(const FwdPlan& p) {
-  return (size_t)(2 * BT * p.nk * p.kc + p.nk * BT * 4 * p.hs) * sizeof(float);
+  return (size_t)(2 * BT * p.nk * p.kc + p.nk * BT * 4 * p.hs + (p.wide ? BT * p.hs : 0)) *
+         sizeof(float);
 }
 
 // The forward's launch for B videos: the plan of H, the clusters of the
@@ -376,8 +492,6 @@ __global__ void bilstm_coefs_kernel(const float* __restrict__ xp,    // [T, 2, B
   }
 }
 
-constexpr int NTW = 512;  // threads per CTA of the chain on a ragged split
-
 // How the chain splits a hidden size H over a cluster: CL CTAs of at most HS
 // columns; NQ = NT / HS thread groups of GPQ gate rows each (a multiple of
 // 4).  The even split (cluster::width_for) on NTC threads, GPQ <= 128 the
@@ -386,11 +500,23 @@ constexpr int NTW = 512;  // threads per CTA of the chain on a ragged split
 // from L2 (gw).  One thread per (video, column) either way.
 struct ChainPlan {
   int cl, hs, nq, gpq, nt;
-  bool gw;
+  bool gw, wide;
 };
 
+constexpr int GC = 1024;  // gate rows of dgate the wide chain stages at a time
+
 bool chain_plan(int H, ChainPlan& p) {
-  if (H <= 0 || H > MAX_H) return false;
+  if (H <= 0 || H > MAX_H_WIDE) return false;
+  p.wide = H > MAX_H;
+  if (p.wide) {  // NQ groups so that the products are about two passes of the threads
+    p.cl = WIDE_CL;
+    p.hs = (H + WIDE_CL - 1) / WIDE_CL;
+    p.nt = NTW;
+    p.gw = true;
+    p.nq = std::max(1, 2 * NTW / p.hs);
+    p.gpq = ((4 * H + p.nq - 1) / p.nq + 3) & ~3;
+    return true;
+  }
   p.cl = cluster::width_for(H);
   p.hs = H / p.cl;
   p.nt = NTC;
@@ -533,6 +659,104 @@ __global__ void __launch_bounds__(GW ? NTW : NTC) bilstm_chain_kernel(
   cluster::cluster_sync();  // no CTA leaves while a peer may still write to it
 }
 
+// H above 512: CTA r of CL = 8 owns the columns units_of(r) (hs of them); its
+// threads stride over the BT x hs (video, column) elements (dh, dc and the
+// masked dh part in shared memory) and the nq x hs (row group, column)
+// products.  A step: the owners write dgate[t] to dxp; a fence and a cluster
+// barrier; then every CTA stages dxp[t]'s rows of its videos GC gate rows at
+// a time and each product carries its FMA chain over its rows through the
+// chunks (red holds it between them); the groups added in order.  The
+// narrow GW kernel's FMA and group orders.
+__global__ void __launch_bounds__(NTW, 1) bilstm_chain_wide_kernel(
+    const float* __restrict__ coefs, const float* __restrict__ m,
+    const float* __restrict__ w_hh, const float* __restrict__ douts,
+    const float* __restrict__ dh_fin, const float* __restrict__ dc_fin, float* dxp, int T, int B,
+    int H, int, int nq, int gpq) {
+  extern __shared__ float4 sm4[];
+  int j0, hs;
+  cluster::units_of(cluster::cluster_rank(), gridDim.x, H, j0, hs);
+  const int G = 4 * H, b0 = blockIdx.y * BT, dir = blockIdx.z, tid = threadIdx.x;
+  const int nb = min(BT, B - b0);
+  float* dgs = reinterpret_cast<float*>(sm4);  // [BT][GC] a chunk of dgate rows
+  float* red = dgs + BT * GC;                  // [nq][BT][hs] the products' sums
+  float* dhs = red + nq * BT * hs;             // [BT][hs] dh
+  float* dcs = dhs + BT * hs;                  // [BT][hs] dc
+  float* dhp = dcs + BT * hs;                  // [BT][hs] dh's masked part
+  for (int e = tid; e < BT * hs; e += NTW) {
+    const int eb = e / hs, j = j0 + e - eb * hs;
+    const bool ok = eb < nb;
+    dhs[e] = ok ? dh_fin[((size_t)dir * B + b0 + eb) * H + j] : 0.f;
+    dcs[e] = ok ? dc_fin[((size_t)dir * B + b0 + eb) * H + j] : 0.f;
+  }
+  const size_t plane = (size_t)T * 2 * B * H;
+  for (int t = T - 1; t >= 0; --t) {
+    __syncthreads();  // dhs of the last step, from every thread
+    for (int e = tid; e < BT * hs; e += NTW) {
+      const int eb = e / hs, ej = e - eb * hs, bb = b0 + eb, j = j0 + ej;
+      if (eb >= nb) break;
+      const size_t o = (((size_t)t * 2 + dir) * B + bb) * H + j;
+      float cf[6];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) cf[k] = __ldg(coefs + k * plane + o);
+      const float mt = __ldg(m + (size_t)t * B + bb);
+      const float dht = dhs[e] + __ldg(douts + o);
+      const float dct = dht * cf[0] + mt * dcs[e];
+      const float dq[4] = {dct * cf[1], dct * cf[2], dct * cf[3], dht * cf[4]};
+      dcs[e] = dct * cf[5] + (1.f - mt) * dcs[e];
+      dhp[e] = (1.f - mt) * dht;
+      float* dxr = dxp + (((size_t)t * 2 + dir) * B + bb) * G + j;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dxr[q * H] = dq[q];
+    }
+    for (int i = tid; i < nq * BT * hs; i += NTW) red[i] = 0.f;
+    __threadfence();          // dgate[t] in device memory before the barrier's release
+    cluster::cluster_sync();  // every column of dgate[t] is written
+    const float* dgt = dxp + (((size_t)t * 2 + dir) * B + b0) * G;
+    for (int c0 = 0; c0 < G; c0 += GC) {
+      const int cn = min(GC, G - c0);
+      for (int i = tid; i < BT * cn; i += NTW) {
+        const int r = i / cn, g = i - r * cn;
+        dgs[r * GC + g] = r < nb ? __ldcg(dgt + (size_t)r * G + c0 + g) : 0.f;
+      }
+      __syncthreads();
+      for (int v = tid; v < nq * hs; v += NTW) {
+        const int pj = v % hs, kq = v / hs;
+        const int lo = max(kq * gpq, c0), hi = min(min(G, kq * gpq + gpq), c0 + cn);
+        if (lo >= hi) continue;
+        float acc[BT];
+#pragma unroll
+        for (int r = 0; r < BT; ++r) acc[r] = red[(kq * BT + r) * hs + pj];
+        const float* wrow = w_hh + ((size_t)dir * H + j0 + pj) * G;
+        for (int g = lo; g < hi; g += 4) {  // lo, hi are multiples of 4
+          const float4 w = __ldg(reinterpret_cast<const float4*>(wrow + g));
+#pragma unroll
+          for (int r = 0; r < BT; ++r) {
+            const float4 d = *reinterpret_cast<const float4*>(dgs + r * GC + g - c0);
+            acc[r] = fmaf(d.x, w.x, acc[r]);
+            acc[r] = fmaf(d.y, w.y, acc[r]);
+            acc[r] = fmaf(d.z, w.z, acc[r]);
+            acc[r] = fmaf(d.w, w.w, acc[r]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < BT; ++r) red[(kq * BT + r) * hs + pj] = acc[r];
+      }
+      __syncthreads();  // the chunk is consumed
+    }
+    for (int e = tid; e < BT * hs; e += NTW) {
+      const int eb = e / hs, ej = e - eb * hs;
+      if (eb >= nb) break;
+      float s = red[eb * hs + ej];
+      for (int q = 1; q < nq; ++q) s += red[(q * BT + eb) * hs + ej];
+      dhs[e] = dhp[e] + s;
+    }
+  }
+}
+
+size_t chain_wide_smem(const ChainPlan& p) {
+  return (size_t)(BT * GC + p.nq * BT * p.hs + 3 * BT * p.hs) * sizeof(float);
+}
+
 int set_smem(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
@@ -600,8 +824,12 @@ extern "C" int mucon_bilstm_bwd_chain(const float* coefs, const float* m, const 
                                       cudaStream_t stream) {
   ChainPlan p;
   if (T < 0 || B <= 0 || !chain_plan(H, p)) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)(2 * BT * 4 * H + p.nq * BT * p.hs) * sizeof(float);
   const dim3 grid(p.cl, (B + BT - 1) / BT, 2);
+  if (p.wide)
+    return cluster::launch_cluster(bilstm_chain_wide_kernel, grid, dim3(p.nt), p.cl,
+                                   chain_wide_smem(p), stream, coefs, m, w_hh, douts, dh_fin,
+                                   dc_fin, dxp, T, B, H, p.hs, p.nq, p.gpq);
+  const size_t smem = (size_t)(2 * BT * 4 * H + p.nq * BT * p.hs) * sizeof(float);
   auto kernel = p.gw ? bilstm_chain_kernel<4, true>
                      : (p.gpq <= 32 ? bilstm_chain_kernel<32> : bilstm_chain_kernel<128>);
   return cluster::launch_cluster(kernel, grid, dim3(p.nt), p.cl, smem, stream, coefs, m, w_hh,

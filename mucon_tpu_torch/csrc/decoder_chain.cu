@@ -78,7 +78,8 @@
 // The weight gradients are left to the caller, as the JAX package leaves
 // them to XLA.
 //
-// Widths: every H from 1 to 512.  The forward keeps its split (CL =
+// Widths: every H from 1 to 512 on the kernels above (and past 512, see
+// below).  The forward keeps its split (CL =
 // cluster::width_for(H); a CTA's threads stride over its units, so an odd H
 // runs on one CTA of up to 511 units, its passes of 32 columns); the replay
 // copies its next item's e in only after the passes that read this one's.
@@ -86,6 +87,18 @@
 // a ragged one (`bwd_plan`, gw): CL = cluster::ragged_width(H) CTAs of uneven shares,
 // 512 threads (a thread a unit), the [Wih; Whh] rows and Wl2's columns read
 // from L2 every step, u's columns copied 4 bytes at a time.
+//
+// Above H = 512 (up to MAX_H_WIDE = 2048, where the forward's shared memory
+// allows; the JAX package's byte gates stop its kernel at H = 1181), and
+// wherever the reverse chain's [Tz x HS] tables K and u and its [CL x Tz]
+// partials would not fit a block's shared memory (long Tz, at any H), the
+// reverse chain runs `chain_bwd_wide_kernel`: the ragged split's sums on 512
+// threads that stride over the units and the (column, row group) products,
+// dc of every unit in shared memory, K = enc Wc2 and the ranks' partials of
+// da and dsc in device memory (scratch the wrapper allocates; the partials
+// exchanged with a fence and the cluster barrier), a and u read where the
+// replay pass wrote them.  The forward and the replay pass take any H as
+// they are.
 //
 // Bound on this card: 31 dependent steps a video, each a few short products
 // from shared memory, the tanh table of the rank's frames and four
@@ -172,7 +185,8 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
-constexpr int MAX_H = 512;   // the widest hidden size the chains take
+constexpr int MAX_H = 512;         // the widest hidden size of the narrow reverse chain
+constexpr int MAX_H_WIDE = 2048;   // the widest hidden size the chains take
 
 // How the forward splits H over a cluster: CL = cluster::width_for(H) CTAs
 // of HS units, NTF threads (8 warps) each; every H from 1 to MAX_H (a CTA's
@@ -184,7 +198,7 @@ struct FwdPlan {
 };
 
 inline bool fwd_plan(int H, FwdPlan& p) {
-  if (H < 1 || H > MAX_H) return false;
+  if (H < 1 || H > MAX_H_WIDE) return false;
   p.cl = cluster::width_for(H);
   p.hs = H / p.cl;
   return true;
@@ -808,7 +822,16 @@ struct BwdPlan {
 };
 
 bool bwd_plan(int H, BwdPlan& p) {
-  if (H < 1 || H > MAX_H) return false;
+  if (H < 1 || H > MAX_H_WIDE) return false;
+  if (H > MAX_H) {  // the wide kernel: NQ groups so that the products make about two passes
+    p.cl = cluster::ragged_width(H);
+    p.hs = (H + p.cl - 1) / p.cl;
+    p.nt = NTW;
+    p.gw = true;
+    p.nq = NTW / p.hs > 1 ? NTW / p.hs : 1;
+    p.rq = ((4 * H + p.nq - 1) / p.nq + 3) & ~3;
+    return true;
+  }
   p.cl = cluster::width_for(H);
   p.hs = H / p.cl;
   p.nt = NTB;
@@ -1115,6 +1138,197 @@ __global__ void __launch_bounds__(GW ? NTW : NTB) chain_bwd_kernel(
   }
 }
 
+// The wide reverse chain (see the top of the file): one cluster of CL CTAs
+// per video, grid (CL, B), NTW threads; the sums of `chain_bwd_kernel` (GW)
+// in its orders, with the units and the products strided over the threads
+// and the Tz-long tables in device memory: Kg [B, Tz, H] (K of every unit),
+// Xg [B, CL, Tz] (each rank's partial of da), Dg [B, CL, Tzp] (each CTA's
+// dsc).
+struct WideSmem {
+  float *dg, *red, *dhp, *dcp, *dq, *rd, *X2, *DH, *DC;
+};
+
+__host__ __device__ inline int wide_red(const BwdPlan& p) {
+  const int a = p.nq * 2 * p.hs, b = (p.nt / p.hs > 1 ? p.nt / p.hs : 1) * p.hs;
+  return up4(a > b ? (a > p.nt ? a : p.nt) : (b > p.nt ? b : p.nt));
+}
+
+__host__ __device__ inline size_t wide_carve(float* base, const BwdPlan& p, int H,
+                                             WideSmem* sm) {
+  const int sizes[9] = {p.nq * p.rq, wide_red(p), 2 * p.hs, p.hs, p.hs, 32, p.cl * H, H, H};
+  float** slots[9] = {&sm->dg, &sm->red, &sm->dhp, &sm->dcp, &sm->dq, &sm->rd, &sm->X2,
+                      &sm->DH, &sm->DC};
+  size_t off = 0;
+  for (int i = 0; i < 9; ++i) {
+    *slots[i] = base + off;
+    off += up4(sizes[i]);
+  }
+  return off;
+}
+
+__global__ void __launch_bounds__(NTW, 1) chain_bwd_wide_kernel(
+    const float* __restrict__ acts, const float* __restrict__ cpre,
+    const float* __restrict__ a_in, const float* __restrict__ u_in,
+    const float* __restrict__ c_in, const float* __restrict__ enc, const float* __restrict__ v,
+    const float* __restrict__ wc2, const float* __restrict__ wg, const float* __restrict__ wl2,
+    const float* __restrict__ dh_ext, const float* __restrict__ dc_ext,
+    const float* __restrict__ dcomb_ext, float* __restrict__ dgate_out,
+    float* __restrict__ dcpre_out, float* __restrict__ dsc_out, float* __restrict__ dh0,
+    float* __restrict__ dc0, float* Kg, float* Xg, float* Dg, int S, int B, int Tz, int H,
+    int E, int hs_max, int nq, int rq) {
+  constexpr int NT = NTW;
+  extern __shared__ float4 smb4[];
+  const BwdPlan p{(int)gridDim.x, hs_max, nq, rq, NT, true};
+  WideSmem sm;
+  wide_carve(reinterpret_cast<float*>(smb4), p, H, &sm);
+  const int cl = p.cl, Tzp = up4(Tz), G = 4 * H;
+  const int rank = cluster::cluster_rank();
+  int j0, hs;
+  cluster::units_of(rank, cl, H, j0, hs);
+  const int b = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ncol = 2 * hs;
+  float* Kb = Kg + (size_t)b * Tz * H;
+  float* Xb = Xg + (size_t)b * cl * Tz;
+  float* Dr = Dg + ((size_t)b * cl + rank) * Tzp;
+
+  // K[t][j] = sum_e enc[b, t, e] Wc2[e, j] for the CTA's units
+  const float* eb = enc + (size_t)b * Tz * E;
+  for (int i = tid; i < Tz * hs; i += NT) {
+    const int t = i / hs, jj = i - t * hs;
+    float acc = 0.f;
+    for (int e = 0; e < E; ++e) acc = fmaf(eb[(size_t)t * E + e], wc2[(size_t)e * H + j0 + jj], acc);
+    Kb[(size_t)t * H + j0 + jj] = acc;
+  }
+  for (int i = tid; i < p.nq * rq; i += NT) sm.dg[i] = 0.f;  // rows past 4H stay 0
+  for (int i = tid; i < cl * H; i += NT) sm.X2[i] = 0.f;
+  for (int i = tid; i < H; i += NT) {
+    sm.DH[i] = 0.f;
+    sm.DC[i] = 0.f;
+  }
+  cluster::cluster_sync();  // before any peer writes here
+
+  const size_t plane = (size_t)S * B * H;
+  for (int s = S - 1; s >= 0; --s) {
+    const size_t o = ((size_t)s * B + b) * H;
+    for (int n = tid; n < H; n += NT) {  // dh and dc of unit n, then its four dgate rows
+      float dql = sm.X2[n];
+      for (int r = 1; r < cl; ++r) dql += sm.X2[r * H + n];
+      const float dh = (sm.DH[n] + dql) + __ldg(dh_ext + o + n);
+      const float dc = sm.DC[n] + __ldg(dc_ext + o + n);
+      const float f_i = __ldg(acts + o + n), f_f = __ldg(acts + plane + o + n);
+      const float f_g = __ldg(acts + 2 * plane + o + n), f_o = __ldg(acts + 3 * plane + o + n);
+      const float f_tc = __ldg(acts + 4 * plane + o + n), f_c = __ldg(c_in + o + n);
+      const float dct = dh * f_o * (1.f - f_tc * f_tc) + dc;
+      sm.DC[n] = dct * f_f;
+      const float dq4[4] = {dct * f_g * f_i * (1.f - f_i), dct * f_c * f_f * (1.f - f_f),
+                            dct * f_i * (1.f - f_g * f_g), dh * f_tc * f_o * (1.f - f_o)};
+      const bool own = n >= j0 && n < j0 + hs;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        sm.dg[q * H + n] = dq4[q];
+        if (own) dgate_out[o * 4 + q * H + n] = dq4[q];
+      }
+    }
+    __syncthreads();
+    for (int vi = tid; vi < nq * ncol; vi += NT) {  // partial dhp of column n over a row group
+      const int pc = vi % ncol, kq = vi / ncol;
+      const int n = pc < hs ? j0 + pc : H + j0 + pc - hs;
+      const int k0 = kq * rq, kn = max(0, min(rq, G - k0));
+      const float* wrow = wg + (size_t)n * G + k0;
+      const float* dr = sm.dg + k0;
+      float acc = 0.f;
+      for (int i = 0; i < kn; i += 4) {  // kn is a multiple of 4
+        const float4 d = *reinterpret_cast<const float4*>(dr + i);
+        const float4 w = __ldg(reinterpret_cast<const float4*>(wrow + i));
+        acc = fmaf(d.x, w.x, acc);
+        acc = fmaf(d.y, w.y, acc);
+        acc = fmaf(d.z, w.z, acc);
+        acc = fmaf(d.w, w.w, acc);
+      }
+      sm.red[kq * ncol + pc] = acc;
+    }
+    __syncthreads();
+    for (int pc = tid; pc < ncol; pc += NT) {
+      float d = sm.red[pc];
+      for (int q = 1; q < nq; ++q) d += sm.red[q * ncol + pc];
+      if (pc < hs) {
+        d = __ldg(cpre + o + j0 + pc) > 0.f ? d + __ldg(dcomb_ext + o + j0 + pc) : 0.f;
+        sm.dcp[pc] = d;
+        dcpre_out[o + j0 + pc] = d;
+      } else {
+        sm.dhp[pc] = d;  // dh's part of unit j0 + pc - hs
+      }
+    }
+    __syncthreads();
+    for (int t = tid; t < Tz; t += NT) {  // partial da over J, to device memory
+      const float* kr = Kb + (size_t)t * H + j0;
+      float acc = 0.f;
+      for (int jj = 0; jj < hs; ++jj) acc = fmaf(sm.dcp[jj], __ldcg(kr + jj), acc);
+      Xb[(size_t)rank * Tz + t] = acc;
+    }
+    __threadfence();          // the partials in device memory before the barrier's release
+    cluster::cluster_sync();  // barrier 1: every partial da is written
+
+    const float* ar = a_in + ((size_t)s * B + b) * Tzp;
+    float ad = 0.f;
+    for (int t = tid; t < Tz; t += NT) {
+      float da = __ldcg(Xb + t);
+      for (int r = 1; r < cl; ++r) da += __ldcg(Xb + (size_t)r * Tz + t);
+      Dr[t] = da;
+      ad = fmaf(__ldg(ar + t), da, ad);
+    }
+    ad = warp_sum(ad);
+    if (lane == 0) sm.rd[warp] = ad;
+    __syncthreads();
+    ad = sm.rd[0];
+    for (int w = 1; w < NT / 32; ++w) ad += sm.rd[w];
+    const int tz0 = rank * ((Tz + cl - 1) / cl), tz1 = min(Tz, tz0 + (Tz + cl - 1) / cl);
+    for (int t = tid; t < Tz; t += NT) {
+      const float d = __ldg(ar + t) * (__ldcg(Dr + t) - ad);
+      Dr[t] = d;
+      if (t >= tz0 && t < tz1) dsc_out[((size_t)s * B + b) * Tz + t] = d;
+    }
+    __syncthreads();
+    {  // dq[jj] = v[j] sum_t dsc[t] (1 - u[t, j]^2): the t terms over NT / hs groups
+      const int ng = NT / hs > 1 ? NT / hs : 1;
+      const int chunk = (Tz + ng - 1) / ng;
+      const float* ur = u_in + ((size_t)s * B + b) * Tz * H + j0;
+      for (int vi = tid; vi < ng * hs; vi += NT) {
+        const int jj = vi % hs, gi = vi / hs;
+        const int t1 = min(Tz, (gi + 1) * chunk);
+        float acc = 0.f;
+        for (int t = gi * chunk; t < t1; ++t) {
+          const float u = __ldg(ur + (size_t)t * H + jj);
+          acc = fmaf(__ldcg(Dr + t), 1.f - u * u, acc);
+        }
+        sm.red[gi * hs + jj] = acc;
+      }
+      __syncthreads();
+      for (int jj = tid; jj < hs; jj += NT) {
+        float q = sm.red[jj];
+        for (int g = 1; g < ng; ++g) q += sm.red[g * hs + jj];
+        sm.dq[jj] = __ldg(v + j0 + jj) * q;
+      }
+      __syncthreads();
+    }
+    for (int n = tid; n < H; n += NT) {  // partial dq Wl2^T over J for unit n, to every peer
+      const float* wlrow = wl2 + (size_t)n * H + j0;
+      float acc = 0.f;
+      for (int i = 0; i < hs; ++i) acc = fmaf(sm.dq[i], __ldg(wlrow + i), acc);
+      for (int r = 0; r < cl; ++r) cluster::cluster_peer(sm.X2, r)[rank * H + n] = acc;
+    }
+    for (int pc = hs + tid; pc < ncol; pc += NT)
+      for (int r = 0; r < cl; ++r) cluster::cluster_peer(sm.DH, r)[j0 + pc - hs] = sm.dhp[pc];
+    cluster::cluster_sync();  // barrier 2: every partial of dh is here
+  }
+  if (rank == 0)
+    for (int n = tid; n < H; n += NT) {
+      float dql = sm.X2[n];
+      for (int r = 1; r < cl; ++r) dql += sm.X2[r * H + n];
+      dh0[(size_t)b * H + n] = sm.DH[n] + dql;
+      dc0[(size_t)b * H + n] = sm.DC[n];
+    }
+}
 
 int max_smem() {
   int dev = 0, n = 0;
@@ -1148,6 +1362,24 @@ FwdLayout fwd_smem(const FwdPlan& p, int H, int E, int Tz, size_t limit) {
 size_t chain_smem(const BwdPlan& p, int H, int Tz) {
   BwdSmem sm;
   return bwd_carve(nullptr, p, H, Tz, &sm) * sizeof(float);
+}
+
+// The wide reverse chain runs where H is above the narrow kernels' or their
+// shared memory for (H, Tz) does not fit this card's limit.
+bool wide_chain(const BwdPlan& p, int H, int Tz) {
+  return H > MAX_H || chain_smem(p, H, Tz) > (size_t)max_smem();
+}
+
+size_t wide_chain_smem(const BwdPlan& p, int H) {
+  WideSmem sm;
+  BwdPlan q = p;
+  q.nt = NTW;
+  return wide_carve(nullptr, q, H, &sm) * sizeof(float);
+}
+
+// the reverse chain's shared memory for (H, Tz): the narrow kernel's or the wide one's
+size_t reverse_smem(const BwdPlan& p, int H, int Tz) {
+  return wide_chain(p, H, Tz) ? wide_chain_smem(p, H) : chain_smem(p, H, Tz);
 }
 
 cudaError_t check_smem(size_t smem) {
@@ -1187,8 +1419,17 @@ extern "C" int mucon_decoder_chain_smem(int H, int E, int Tz, int reverse) {
   if (!reverse) return (int)fwd;
   BwdPlan p;
   if (!bwd_plan(H, p)) return -1;
-  const size_t chain = chain_smem(p, H, Tz);
+  const size_t chain = reverse_smem(p, H, Tz);
   return (int)(fwd > chain ? fwd : chain);
+}
+
+// 1 where the reverse chain for (H, Tz) runs the wide kernel (which takes
+// device-memory scratch: K [B, Tz, H], the partials of da [B, CL, Tz] and
+// dsc [B, CL, Tzp]), 0 for the narrow one, -1 where H is refused.
+extern "C" int mucon_decoder_chain_bwd_wide(int H, int Tz) {
+  BwdPlan p;
+  if (Tz < 1 || !bwd_plan(H, p)) return -1;
+  return wide_chain(p, H, Tz) ? 1 : 0;
 }
 
 // The cluster width the reverse chain takes for a hidden size H (0: refused).
@@ -1273,11 +1514,21 @@ extern "C" int mucon_decoder_chain_bwd(const float* acts, const float* cpre, con
                                        const float* wl2, const float* dh_ext,
                                        const float* dc_ext, const float* dcomb_ext,
                                        float* dgate, float* dcpre, float* dsc, float* dh0,
-                                       float* dc0, int S, int B, int Tz, int H, int E,
-                                       cudaStream_t stream) {
+                                       float* dc0, float* Kg, float* Xg, float* Dg, int S,
+                                       int B, int Tz, int H, int E, cudaStream_t stream) {
   BwdPlan p;
   FwdPlan fp;
   if (bad_shape(S, B, Tz, H, E, fp) || !bwd_plan(H, p)) return cudaErrorInvalidValue;
+  if (wide_chain(p, H, Tz)) {
+    if (!Kg || !Xg || !Dg) return cudaErrorInvalidValue;
+    const size_t smem = wide_chain_smem(p, H);
+    const cudaError_t err = check_smem(smem);
+    if (err != cudaSuccess) return err;
+    return cluster::launch_cluster(chain_bwd_wide_kernel, dim3(p.cl, B), dim3(NTW), p.cl, smem,
+                                   stream, acts, cpre, a, u, c_in, enc, v, wc2, wg, wl2, dh_ext,
+                                   dc_ext, dcomb_ext, dgate, dcpre, dsc, dh0, dc0, Kg, Xg, Dg,
+                                   S, B, Tz, H, E, p.hs, p.nq, p.rq);
+  }
   const size_t smem = chain_smem(p, H, Tz);
   const cudaError_t err = check_smem(smem);
   if (err != cudaSuccess) return err;

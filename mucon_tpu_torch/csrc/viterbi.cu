@@ -34,17 +34,25 @@
 //   max_len / S = L): no block barrier, no shared-memory round trip of the
 //   state, no integer divide.  Windows past k_valid keep the state, so their
 //   backpointers are one argmax, written once a window.
-// * block body (any other N <= 256, L that fits): one 256-thread CTA a
+// * block body (any other N, L whose state fits): one 256-thread CTA a
 //   video with the [N x L] state double-buffered in shared memory (the
-//   port's first design, which the chain forward's generic body also kept).
+//   port's first design, which the chain forward's generic body also kept);
+//   its threads stride over the N rows (N above 256 too).
+// * global body (the state does not fit a block's shared memory: L = 2000 /
+//   frame_sampling at frame_sampling <= 3 and N = 30, or a large N): the
+//   block body with its two [N x L] state buffers in device memory (scratch
+//   the wrapper allocates, [B, 2, N, L]) and pois read where it lies; the
+//   same f32 adds and argmaxes in the same order, so the same bits.
 //
-// Both stage W[b] in shared memory KC windows at a time before the windows
-// that read it (the whole [K, N] block at the default shape), so no global
-// load sits inside a window, and keep each window's argmaxes in a uint16
-// table in shared memory for the walk, which reads at most N of them; where
-// the table does not fit (K N above ~100k) the walk reads the int32
-// backpointers it wrote to device memory instead.  The host chooses the
-// body and the table's place (`cuda.viterbi_plan`) and this file checks it.
+// All three stage W[b] in shared memory `staged` windows at a time (at most
+// KC; fewer where the block body's state leaves less room) before the
+// windows that read it (the whole [K, N] block at the default shape), so no
+// global load of W sits inside a window, and keep each window's argmaxes in
+// a uint16 table in shared memory for the walk, which reads at most N of
+// them; where the table does not fit (K N above ~100k) the walk reads the
+// int32 backpointers it wrote to device memory instead.  The host chooses
+// the body, the staged windows and the table's place (`cuda.viterbi_plan`)
+// and this file checks them.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,14 +66,12 @@ constexpr int KC = 128;  // windows of W staged at a time
 constexpr int LANE_CELLS = 72;  // cells a lane of the warp body holds (LC)
 constexpr unsigned FULL = 0xffffffffu;
 
-__host__ __device__ inline int staged_windows(int K) {
-  return K - 1 < 1 ? 1 : K - 1 < KC ? K - 1 : KC;
-}
-
-// Shared-memory bytes of a launch (lc = 0: block body); `table` puts the
+// Shared-memory bytes of a launch (lc = 0: block body; glob: its state in
+// device memory) staging `staged` windows of W at a time; `table` puts the
 // walk's [K-1 x N] uint16 table there too.
-size_t viterbi_smem(int K, int N, int L, int lc, int table) {
-  const size_t floats = (size_t)staged_windows(K) * N + (lc ? 0 : (size_t)3 * N * L + 2 * N);
+size_t viterbi_smem(int K, int N, int L, int lc, int table, int glob, int staged) {
+  const size_t state = lc ? 0 : (glob ? (size_t)2 * N : (size_t)3 * N * L + 2 * N);
+  const size_t floats = (size_t)staged * N + state;
   return floats * sizeof(float) + (table ? (size_t)(K - 1) * N * sizeof(uint16_t) : 0);
 }
 
@@ -137,10 +143,10 @@ __global__ void __launch_bounds__(32) viterbi_warp_kernel(
     int* __restrict__ best_l_out,       // [B]
     int* __restrict__ bps,              // [B, K-1, N]
     long long* __restrict__ pos,        // [B, K]
-    int K, int N, int L, int S, int max_len, int table) {
+    float*, int K, int N, int L, int S, int max_len, int table, int staged) {
   extern __shared__ float sm[];
-  float* wsm = sm;  // [staged_windows(K), N]
-  uint16_t* tab = table ? reinterpret_cast<uint16_t*>(wsm + staged_windows(K) * N) : nullptr;
+  float* wsm = sm;  // [staged, N]
+  uint16_t* tab = table ? reinterpret_cast<uint16_t*>(wsm + staged * N) : nullptr;
 
   const int b = blockIdx.x, n = threadIdx.x;
   const int kv = k_valid[b], nv = n_valid[b];
@@ -162,8 +168,8 @@ __global__ void __launch_bounds__(32) viterbi_warp_kernel(
   if (n == 0) s[0] = Wb[0];  // window 0 puts (n=0, l=1) at W[0][0]
 
   const int kend = min(max(kv, 1), K);  // live windows: 1 .. kend - 1
-  for (int k0 = 1; k0 < kend; k0 += KC) {
-    const int cnt = min(KC, kend - k0);
+  for (int k0 = 1; k0 < kend; k0 += staged) {
+    const int cnt = min(staged, kend - k0);
     __syncwarp();
     for (int i = n; i < cnt * N; i += 32) wsm[i] = Wb[(size_t)k0 * N + i];
     __syncwarp();
@@ -229,20 +235,24 @@ __device__ __forceinline__ void row_argmax(const float* s, const float* p, int L
   }
 }
 
+// gstate null: the block body (state in shared memory); else the global
+// body, video b's two state buffers at gstate + 2 N L b
 __global__ void __launch_bounds__(NT) viterbi_block_kernel(
     const float* __restrict__ W, const float* __restrict__ pois,
     const int* __restrict__ k_valid, const int* __restrict__ n_valid,
     float* __restrict__ score_out, int* __restrict__ best_l_out, int* __restrict__ bps,
-    long long* __restrict__ pos, int K, int N, int L, int S, int max_len, int table) {
+    long long* __restrict__ pos, float* gstate, int K, int N, int L, int S, int max_len,
+    int table, int staged) {
   extern __shared__ float sm[];
   const int NL = N * L;
-  float* cur = sm;
+  const bool glob = gstate != nullptr;
+  float* cur = glob ? gstate + (size_t)2 * NL * blockIdx.x : sm;
   float* nxt = cur + NL;
-  float* ps = nxt + NL;
-  float* ex_best = ps + NL;                           // [N]
+  const float* ps = glob ? pois + (size_t)blockIdx.x * NL : nxt + NL;
+  float* ex_best = glob ? sm : sm + 3 * NL;           // [N]
   int* ex_arg = reinterpret_cast<int*>(ex_best + N);  // [N]
-  float* wsm = reinterpret_cast<float*>(ex_arg + N);  // [staged_windows(K), N]
-  uint16_t* tab = table ? reinterpret_cast<uint16_t*>(wsm + staged_windows(K) * N) : nullptr;
+  float* wsm = reinterpret_cast<float*>(ex_arg + N);  // [staged, N]
+  uint16_t* tab = table ? reinterpret_cast<uint16_t*>(wsm + staged * N) : nullptr;
 
   const int b = blockIdx.x;
   const int kv = k_valid[b];
@@ -252,13 +262,13 @@ __global__ void __launch_bounds__(NT) viterbi_block_kernel(
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   for (int i = threadIdx.x; i < NL; i += NT) {
-    ps[i] = pois[(size_t)b * NL + i];
+    if (!glob) sm[2 * NL + i] = pois[(size_t)b * NL + i];
     cur[i] = i == 0 ? Wb[0] : NEG;
   }
 
   const int kend = min(max(kv, 1), K);
-  for (int k0 = 1; k0 < kend; k0 += KC) {
-    const int cnt = min(KC, kend - k0);
+  for (int k0 = 1; k0 < kend; k0 += staged) {
+    const int cnt = min(staged, kend - k0);
     __syncthreads();  // the previous chunk is consumed
     for (int i = threadIdx.x; i < cnt * N; i += NT) wsm[i] = Wb[(size_t)k0 * N + i];
     __syncthreads();
@@ -286,8 +296,8 @@ __global__ void __launch_bounds__(NT) viterbi_block_kernel(
         }
         nxt[i] = v;
       }
-      if (threadIdx.x < N)
-        put_bp(bps_b, tab, k, N, threadIdx.x, threadIdx.x == 0 ? 0 : ex_arg[threadIdx.x - 1]);
+      for (int c = threadIdx.x; c < N; c += NT)
+        put_bp(bps_b, tab, k, N, c, c == 0 ? 0 : ex_arg[c - 1]);
       __syncthreads();
       float* tmp = cur;
       cur = nxt;
@@ -327,38 +337,45 @@ template <typename Kernel>
 cudaError_t launch(Kernel kernel, int B, int threads, size_t smem, cudaStream_t stream,
                    const float* W, const float* pois, const int* k_valid,
                    const int* n_valid, float* score, int* best_l, int* bps, long long* pos,
-                   int K, int N, int L, int S, int max_len, int table) {
+                   float* gstate, int K, int N, int L, int S, int max_len, int table,
+                   int staged) {
   if (smem > 48 * 1024) {  // above the default limit: opt in
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<B, threads, smem, stream>>>(W, pois, k_valid, n_valid, score, best_l, bps, pos, K,
-                                       N, L, S, max_len, table);
+  kernel<<<B, threads, smem, stream>>>(W, pois, k_valid, n_valid, score, best_l, bps, pos,
+                                       gstate, K, N, L, S, max_len, table, staged);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" size_t mucon_viterbi_smem(int K, int N, int L, int lc, int table) {
-  return viterbi_smem(K, N, L, lc, table);
+extern "C" size_t mucon_viterbi_smem(int K, int N, int L, int lc, int table, int glob,
+                                     int staged) {
+  return viterbi_smem(K, N, L, lc, table, glob, staged);
 }
 
 // lc: cells a lane of the warp body holds (72), 0 for the block body;
-// table: 1 keeps the walk's table in shared memory (`cuda.viterbi_plan`)
+// gstate: the global body's [B, 2, N, L] state (null: the state in shared
+// memory); table: 1 keeps the walk's table in shared memory; staged: windows
+// of W staged at a time, 1 to KC (`cuda.viterbi_plan`)
 extern "C" int mucon_dense_viterbi(const float* W, const float* pois,
                                    const int* k_valid, const int* n_valid,
                                    float* score, int* best_l, int* bps, long long* pos,
-                                   int B, int K, int N, int L, int S, int max_len, int lc,
-                                   int table, cudaStream_t stream) {
-  if (B <= 0 || K < 1 || N < 1 || N > NT || L < 1 || S < 1) return cudaErrorInvalidValue;
-  const size_t smem = viterbi_smem(K, N, L, lc, table);
+                                   float* gstate, int B, int K, int N, int L, int S,
+                                   int max_len, int lc, int table, int staged,
+                                   cudaStream_t stream) {
+  if (B <= 0 || K < 1 || N < 1 || L < 1 || S < 1 || staged < 1 || staged > KC ||
+      (table && L > 65536))
+    return cudaErrorInvalidValue;
+  const size_t smem = viterbi_smem(K, N, L, lc, table, gstate != nullptr, staged);
   if (lc == 0)
     return launch(viterbi_block_kernel, B, NT, smem, stream, W, pois, k_valid, n_valid,
-                  score, best_l, bps, pos, K, N, L, S, max_len, table);
-  if (lc != LANE_CELLS || N > 32 || L > LANE_CELLS) return cudaErrorInvalidValue;
+                  score, best_l, bps, pos, gstate, K, N, L, S, max_len, table, staged);
+  if (lc != LANE_CELLS || N > 32 || L > LANE_CELLS || gstate) return cudaErrorInvalidValue;
   return launch(viterbi_warp_kernel<LANE_CELLS>, B, 32, smem, stream, W, pois, k_valid,
-                n_valid, score, best_l, bps, pos, K, N, L, S, max_len, table);
+                n_valid, score, best_l, bps, pos, gstate, K, N, L, S, max_len, table, staged);
 }
 
 extern "C" const char* mucon_cuda_error_string(int err) {

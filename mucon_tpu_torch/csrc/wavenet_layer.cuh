@@ -181,11 +181,13 @@ __device__ __forceinline__ void for_each_pair(float (&acc)[MT][NTL][4], int row0
 
 // the finished rows (bias, residual and mask in) pooled in pairs (2k, 2k + 1)
 // by one shuffle into y [B, T/2, C], zeroed at t/2 >= len/2; an odd T's last
-// row has no pair and is dropped
-template <int C, int MT, int NTL>
+// row has no pair and is dropped.  CT: the width C as a template, or 0 for a
+// runtime width c_rt (the wide bodies of wavenet_wide.cu).
+template <int CT, int MT, int NTL>
 __device__ __forceinline__ void store_pooled(float* __restrict__ y, float (&acc)[MT][NTL][4],
                                              int b, int t0, int T, int len, int row0,
-                                             int col0, int lane, int pool_mean) {
+                                             int col0, int lane, int pool_mean, int c_rt = 0) {
+  const int C = CT ? CT : c_rt;
   const int g = lane >> 2, T2 = T / 2, len2 = len >> 1;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)

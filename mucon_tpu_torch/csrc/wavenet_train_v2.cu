@@ -97,7 +97,6 @@ template <int N>
 using ic = std::integral_constant<int, N>;
 
 constexpr int WG_PARTS = 2;       // a weight-gradient item half a block's outputs
-constexpr int MAX_LAYERS = 32;
 
 // The grids at C channels.  C = 128: the forward on v3's tiles (up to 64
 // rows), one CTA an SM; the sweep two CTAs an SM on tiles of at most 32
@@ -185,15 +184,6 @@ __device__ __forceinline__ void with_sweep_tile(int tm, int kc, F f) {
   if constexpr (MAX_TM >= 32)
     if (tm == 32) return f(ic<32>{}, ic<default_kc(C, 32)>{});
   f(ic<16>{}, ic<default_kc(C, 16)>{});
-}
-
-// items [0, n) in grid-stride order, the shared memory free at each start
-template <class F>
-__device__ __forceinline__ void grid_items(int n, F f) {
-  for (int item = blockIdx.x; item < n; item += gridDim.x) {
-    __syncthreads();
-    f(item);
-  }
 }
 
 // Block k of B videos x ceil(T / rows) blocks of `rows` rows: the blocks
@@ -472,35 +462,6 @@ __global__ void __launch_bounds__(NT, V2Cfg<C>::SWEEP_CTAS)
 }
 
 #undef TILE_ARGS
-
-// CTAs an SM of a cooperative kernel at `smem` bytes, and the SMs
-template <typename Kernel>
-cudaError_t coop_grid(Kernel kernel, int smem, int* per_sm, int* sms) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int dev = 0, coop = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, NT, smem);
-  return err;
-}
-
-template <typename Kernel>
-cudaError_t launch_cooperative(Kernel kernel, int smem, void* arg, cudaStream_t stream) {
-  int per_sm = 0, sms = 0;
-  cudaError_t err = coop_grid(kernel, smem, &per_sm, &sms);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {arg};
-  err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(per_sm * sms), dim3(NT), args,
-                                    smem, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
 
 // A v2 layer's grid at C channels: v3's (`plan_for`), the sweep's tile cut
 // to SWEEP_MAX_TM rows on v3's chunk

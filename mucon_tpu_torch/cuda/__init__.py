@@ -47,9 +47,18 @@ biases and the dropout masks to the next built width (`stack_width`) and
 slices the outputs and gradients back.  That is exact: a padded channel is
 0 through the conv, the (leaky) ReLU, the residual and the pool, its
 weights' rows and columns are 0, and a +0 product changes no f32 partial.
-The recurrences (BiLSTM, decoder chain) take every H from 1 to 512 as it
-is, on an even or a ragged split of the units over a cluster.  Above 512 a
-wrapper raises a ValueError that names the limit.
+Above 512 the stacks run on the wide bodies (csrc/wavenet_wide.cu: C a
+runtime argument, padded to a multiple of WIDE_SLAB = 128; a layer is two
+GEMM-shaped passes, counted as one launch of its kernel's name).  The
+recurrences (BiLSTM, decoder chain) take every H from 1 to 512 as it is,
+on an even or a ragged split of the units over a cluster, and every H up
+to MAX_H_WIDE = 2048 on their wide kernels (threads striding over a ragged
+split of 8 CTAs; the decoder chain's forward where its shared memory holds
+(H, E), `_check_chain`); the reverse decoder chain keeps its Tz-long tables
+in device memory where they do not fit shared memory
+(`decoder_chain_bwd_wide`), so it takes any Tz.  The DP takes any N and L
+(`viterbi_plan`: its state in device memory where shared memory does not
+hold it).  A width outside these raises a ValueError that names the limit.
 """
 
 from __future__ import annotations
@@ -68,7 +77,8 @@ from mucon_tpu_torch.ops.wavenet_stack_train import stack_plan
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("wavenet_stack.cu", "bilstm.cu", "viterbi.cu", "wavenet_train.cu",
-           "decoder_chain.cu", "mucon_loss.cu", "mstcnpp.cu", "wavenet_train_v2.cu")
+           "decoder_chain.cu", "mucon_loss.cu", "mstcnpp.cu", "wavenet_train_v2.cu",
+           "wavenet_wide.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mucon_tpu_torch"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "-I", str(CSRC),
@@ -159,8 +169,8 @@ def load() -> ctypes.CDLL:
             lib.mucon_wavenet_layer.argtypes = [P] * 7 + [I] * 10 + [P]
             lib.mucon_wavenet_tile_rows.argtypes = [I]
             lib.mucon_bilstm_recurrence.argtypes = [P] * 7 + [I] * 3 + [P]
-            lib.mucon_dense_viterbi.argtypes = [P] * 8 + [I] * 8 + [P]
-            lib.mucon_viterbi_smem.argtypes = [I] * 5
+            lib.mucon_dense_viterbi.argtypes = [P] * 9 + [I] * 9 + [P]
+            lib.mucon_viterbi_smem.argtypes = [I] * 7
             lib.mucon_viterbi_smem.restype = ctypes.c_size_t
             lib.mucon_wavenet_train_fwd.argtypes = [P] * 10 + [I] * 9 + [P]
             lib.mucon_wavenet_train_sweep.argtypes = [P] * 16 + [I] * 10 + [P]
@@ -171,7 +181,8 @@ def load() -> ctypes.CDLL:
             lib.mucon_bilstm_chain_width.argtypes = [I]
             lib.mucon_decoder_chain_fwd.argtypes = [P] * 16 + [I] * 5 + [P]
             lib.mucon_decoder_chain_replay.argtypes = [P] * 18 + [I] * 5 + [P]
-            lib.mucon_decoder_chain_bwd.argtypes = [P] * 18 + [I] * 5 + [P]
+            lib.mucon_decoder_chain_bwd.argtypes = [P] * 21 + [I] * 5 + [P]
+            lib.mucon_decoder_chain_bwd_wide.argtypes = [I, I]
             lib.mucon_decoder_chain_smem.argtypes = [I] * 4
             lib.mucon_decoder_chain_width.argtypes = [I]
             lib.mucon_decoder_chain_fwd_launch.argtypes = [I] * 4 + [ctypes.POINTER(I)]
@@ -187,6 +198,14 @@ def load() -> ctypes.CDLL:
                                                          + [I] * 6 + [P])
             lib.mucon_wavenet_train_v2_grid.argtypes = [I, I, IP]
             lib.mucon_wavenet_train_v2_plan.argtypes = [I, I, I, I, IP]
+            lib.mucon_wide_plan.argtypes = [I, I, I, I, IP]
+            lib.mucon_wide_layer.argtypes = [P] * 10 + [I] * 9 + [P]
+            lib.mucon_wide_proj.argtypes = [P] * 5 + [I] * 7 + [P]
+            lib.mucon_wide_mstcnpp_layer.argtypes = [P] * 8 + [I] * 8 + [P]
+            lib.mucon_wide_sweep.argtypes = [P] * 16 + [I] * 10 + [P]
+            lib.mucon_wide_v2_fwd.argtypes = lib.mucon_wavenet_train_v2_fwd.argtypes
+            lib.mucon_wide_v2_sweep.argtypes = lib.mucon_wavenet_train_v2_sweep.argtypes
+            lib.mucon_wide_v2_grid.argtypes = [I, IP]
             for fn in (lib.mucon_wavenet_layer, lib.mucon_wavenet_tile_rows,
                        lib.mucon_bilstm_recurrence,
                        lib.mucon_dense_viterbi, lib.mucon_wavenet_train_fwd,
@@ -197,9 +216,13 @@ def load() -> ctypes.CDLL:
                        lib.mucon_decoder_chain_fwd, lib.mucon_decoder_chain_replay,
                        lib.mucon_decoder_chain_bwd, lib.mucon_decoder_chain_smem,
                        lib.mucon_decoder_chain_width, lib.mucon_decoder_chain_fwd_launch,
+                       lib.mucon_decoder_chain_bwd_wide,
                        lib.mucon_flint, lib.mucon_mstcnpp_layer, lib.mucon_mstcnpp_proj,
                        lib.mucon_wavenet_train_v2_fwd, lib.mucon_wavenet_train_v2_sweep,
-                       lib.mucon_wavenet_train_v2_grid, lib.mucon_wavenet_train_v2_plan):
+                       lib.mucon_wavenet_train_v2_grid, lib.mucon_wavenet_train_v2_plan,
+                       lib.mucon_wide_plan, lib.mucon_wide_layer, lib.mucon_wide_proj,
+                       lib.mucon_wide_mstcnpp_layer, lib.mucon_wide_sweep,
+                       lib.mucon_wide_v2_fwd, lib.mucon_wide_v2_sweep, lib.mucon_wide_v2_grid):
                 fn.restype = I
             lib.mucon_cuda_error_string.argtypes = [I]
             lib.mucon_cuda_error_string.restype = ctypes.c_char_p
@@ -247,18 +270,28 @@ def _lengths_i32(lengths, B, device, name) -> torch.Tensor:
 
 
 # the channel widths the stack kernels are built for (csrc/wavenet_layer.cuh,
-# mstcnpp.cu); another C up to the last is zero-padded to the next of them
+# mstcnpp.cu); another C up to the last is zero-padded to the next of them.
+# Above the last, the wide bodies (csrc/wavenet_wide.cu) take C as a runtime
+# argument, a multiple of the WIDE_SLAB-column slab their tiles cover.
 STACK_WIDTHS = (128, 256, 512)
+WIDE_SLAB = 128
 
 
 def stack_width(C: int) -> int:
-    """The built width a stack kernel runs C channels at: the least of
-    `STACK_WIDTHS` not below C (C itself at 128, 256, 512).  Raises for C
-    above 512 (no kernel is built for it) or below 1."""
-    if not 1 <= C <= STACK_WIDTHS[-1]:
-        raise ValueError(f"the stack kernels take 1 to {STACK_WIDTHS[-1]} channels, got C={C} "
-                         f"(a width above {STACK_WIDTHS[-1]} is not built)")
+    """The width a stack kernel runs C channels at: the least of
+    `STACK_WIDTHS` not below C (C itself at 128, 256, 512); above 512, C
+    rounded up to a multiple of WIDE_SLAB (the wide bodies; 768 and 1024 as
+    they are).  Raises below 1."""
+    if C < 1:
+        raise ValueError(f"the stack kernels take C >= 1 channels, got C={C}")
+    if C > STACK_WIDTHS[-1]:
+        return -(-C // WIDE_SLAB) * WIDE_SLAB
     return next(w for w in STACK_WIDTHS if w >= C)
+
+
+def is_wide(C: int) -> bool:
+    """True where a stack kernel runs C (padded) channels on the wide bodies."""
+    return C > STACK_WIDTHS[-1]
 
 
 def pad_channels(t, Cp: int, dims):
@@ -319,32 +352,55 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+# rows a tile of the wide bodies takes and weight rows a chunk (csrc/wavenet_wide.cu
+# WTM, WKC: an element's sum depends on the chunk)
+WIDE_TILE_ROWS, WIDE_CHUNK_ROWS = 64, 32
+
+
 def wavenet_tile_rows(C: int = 128) -> int:
     """Rows a CTA of `wavenet_layer` owns at C channels (csrc/wavenet_stack.cu
-    `eval_tm` of `stack_width(C)`: 64, 32 at 256, 16 at 512); a tile at or
-    past its video's length is skipped."""
-    return load().mucon_wavenet_tile_rows(stack_width(C))
+    `eval_tm` of `stack_width(C)`: 64, 32 at 256, 16 at 512; 64 on the wide
+    bodies, a tile of 128 columns); a tile at or past its video's length is
+    skipped."""
+    Cp = stack_width(C)
+    return WIDE_TILE_ROWS if is_wide(Cp) else load().mucon_wavenet_tile_rows(Cp)
 
 
 def _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16) -> torch.Tensor:
-    """z = mask(nonlin(h) Wl + bl): the eval kernel's final_proj launch."""
+    """z = mask(nonlin(h) Wl + bl): the eval kernel's final_proj launch (the
+    wide body's projection above 512 channels)."""
     B, t, C = h.shape
     out = torch.empty(B, t, C, device=h.device, dtype=torch.float32)
-    err = lib.mucon_wavenet_layer(
-        h.data_ptr(), out.data_ptr(), lens.data_ptr(), w_last.data_ptr(),
-        b_last.data_ptr(), w_last.data_ptr(), b_last.data_ptr(),
-        B, t, C, 0, shift, 0, 0, int(leaky), 1, int(bf16), stream,
-    )
+    if is_wide(C):
+        err = lib.mucon_wide_proj(h.data_ptr(), out.data_ptr(), lens.data_ptr(),
+                                  w_last.data_ptr(), b_last.data_ptr(), B, t, C, shift, 1,
+                                  int(leaky), int(bf16), stream)
+    else:
+        err = lib.mucon_wavenet_layer(
+            h.data_ptr(), out.data_ptr(), lens.data_ptr(), w_last.data_ptr(),
+            b_last.data_ptr(), w_last.data_ptr(), b_last.data_ptr(),
+            B, t, C, 0, shift, 0, 0, int(leaky), 1, int(bf16), stream,
+        )
     _check_launch(lib, err, _mode("wavenet_layer", bf16))
     return out
+
+
+def _wide_layer(lib, stream, x, out, u, h, lens, w3, b3, w1, b1, m, t, C, d, shift, pool,
+                pool_mean, leaky, bf16) -> int:
+    """One residual layer on the wide bodies (pass 1 into h, pass 2 into out)."""
+    return lib.mucon_wide_layer(
+        x.data_ptr(), out.data_ptr(), _ptr(u), h.data_ptr(), lens.data_ptr(), w3.data_ptr(),
+        b3.data_ptr(), w1.data_ptr(), b1.data_ptr(), _ptr(m), x.shape[0], t, C, int(d), shift,
+        int(pool), pool_mean, int(leaky), int(bf16), stream)
 
 
 def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
                   pooling_layers, pooling_type, leaky, mm_dtype=None):
     """The eval stack of `ops/wavenet_stack.py` on the card: one
     `wavenet_layer` launch per layer and one for the out-projection
-    (`mm_dtype=torch.bfloat16`: the bf16-operand mode, `wavenet_layer_bf16`).
-    x [B x T x C] f32, C <= 512 (zero-padded to `stack_width(C)`) ->
+    (`mm_dtype=torch.bfloat16`: the bf16-operand mode, `wavenet_layer_bf16`;
+    above 512 channels a layer is the wide bodies' two passes, counted as one
+    launch).  x [B x T x C] f32, any C (zero-padded to `stack_width(C)`) ->
     (z [B x T/2^p x C], lengths >> p)."""
     bf16 = bf16_mode(mm_dtype)
     dev = _check_packed(x, stages, w3, b3, w1, b1, w_last, b_last)
@@ -355,17 +411,23 @@ def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
     lens = _lengths_i32(lengths, B, dev, "lengths")
     lib, stream = load(), _stream(dev)
     pool_mean = int(pooling_type != "max")
+    wide = is_wide(C)
+    hbuf = torch.empty(B, T, C, device=dev, dtype=torch.float32) if wide else None
     h, t, shift = x, T, 0
     for i, d in enumerate(stages):
         pool = i in pooling_layers
         if pool and t % 2:
             raise ValueError(f"pooling layer {i} needs an even length, got {t}")
         out = torch.empty(B, t // 2 if pool else t, C, device=dev, dtype=torch.float32)
-        err = lib.mucon_wavenet_layer(
-            h.data_ptr(), out.data_ptr(), lens.data_ptr(), w3[i].data_ptr(),
-            b3[i].data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
-            B, t, C, int(d), shift, int(pool), pool_mean, int(leaky), 0, int(bf16), stream,
-        )
+        if wide:
+            err = _wide_layer(lib, stream, h, out, None, hbuf, lens, w3[i], b3[i], w1[i], b1[i],
+                              None, t, C, d, shift, pool, pool_mean, leaky, bf16)
+        else:
+            err = lib.mucon_wavenet_layer(
+                h.data_ptr(), out.data_ptr(), lens.data_ptr(), w3[i].data_ptr(),
+                b3[i].data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
+                B, t, C, int(d), shift, int(pool), pool_mean, int(leaky), 0, int(bf16), stream,
+            )
         _check_launch(lib, err, _mode("wavenet_layer", bf16))
         if pool:
             t, shift = t // 2, shift + 1
@@ -374,14 +436,27 @@ def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
     return (z if C == C0 else z[..., :C0].contiguous()), lengths >> shift
 
 
+def wide_plan(B: int, T: int, jobs: int, C: int) -> tuple:
+    """(row tile, weight-gradient span, spans a video) of a wide-body layer at
+    `stack_width(C)` (`mucon_wide_plan`: the span counts the (C / 128)^2
+    output blocks of a weight gradient toward a wave of CTAs)."""
+    out = (ctypes.c_int * 3)()
+    if load().mucon_wide_plan(B, T, stack_width(C), jobs, out):
+        raise ValueError(f"no wide grid for B={B}, T={T}, jobs={jobs}, C={C}")
+    return tuple(out)
+
+
 def wavenet_train_plan(B: int, T: int, jobs: int = 4, C: int = 128) -> dict:
     """The grid of a `wavenet_train.cu` layer of B videos x T frames x C
     channels (`plan_for`, chosen from the shape alone, at `stack_width(C)`):
     the rows a CTA of the forward (`fwd_tile_rows`) and of the sweep's dz
     and dx kernels (`tile_rows`) owns (64, 32 or 16, as many as fit an SM
-    at that width), and the rows a weight-gradient CTA sums (`span_rows`,
-    `spans` a video) with `jobs` products a layer (4; 1 for the
-    out-projection)."""
+    at that width; 64 on the wide bodies), and the rows a weight-gradient
+    CTA sums (`span_rows`, `spans` a video) with `jobs` products a layer (4;
+    1 for the out-projection)."""
+    if is_wide(stack_width(C)):
+        tm, span, spans = wide_plan(B, T, jobs, C)
+        return dict(fwd_tile_rows=tm, tile_rows=tm, span_rows=span, spans=spans)
     out = (ctypes.c_int * 4)()
     lib = load()
     err = lib.mucon_wavenet_train_plan(B, T, stack_width(C), jobs, out)
@@ -431,11 +506,16 @@ def wavenet_train_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks
         hs_i = torch.empty(B, t, C, device=dev, dtype=torch.float32)
         out = torch.empty(B, t // 2 if pool else t, C, device=dev, dtype=torch.float32)
         u = torch.empty(B, t, C, device=dev, dtype=torch.float32) if pool else None
-        err = lib.mucon_wavenet_train_fwd(
-            h.data_ptr(), out.data_ptr(), _ptr(u), hs_i.data_ptr(), lens.data_ptr(),
-            w3[i].data_ptr(), b3[i].data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
-            _ptr(m), B, t, C, int(d), shift, int(pool), pool_mean, int(leaky), int(bf16), stream,
-        )
+        if is_wide(C):
+            err = _wide_layer(lib, stream, h, out, u, hs_i, lens, w3[i], b3[i], w1[i], b1[i], m,
+                              t, C, d, shift, pool, pool_mean, leaky, bf16)
+        else:
+            err = lib.mucon_wavenet_train_fwd(
+                h.data_ptr(), out.data_ptr(), _ptr(u), hs_i.data_ptr(), lens.data_ptr(),
+                w3[i].data_ptr(), b3[i].data_ptr(), w1[i].data_ptr(), b1[i].data_ptr(),
+                _ptr(m), B, t, C, int(d), shift, int(pool), pool_mean, int(leaky), int(bf16),
+                stream,
+            )
         _check_launch(lib, err, _mode("wavenet_train_fwd", bf16))
         xs.append(h)
         hs.append(hs_i)
@@ -493,9 +573,11 @@ def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
                                                             *((x.shape[1], 4) for x in xs))),
                        **f32)
 
+    launch = lib.mucon_wide_sweep if is_wide(C) else lib.mucon_wavenet_train_sweep
+
     def sweep(g, u, x, h, m, w1t_i, w3t_i, dz, g_in, dw1_i, db1_i, dw3_i, db3_i,
               t, d, shift, pooled, proj, bf16):
-        err = lib.mucon_wavenet_train_sweep(
+        err = launch(
             g.data_ptr(), _ptr(u), x.data_ptr(), h.data_ptr(), _ptr(m),
             lens.data_ptr(), w1t_i.data_ptr(), _ptr(w3t_i), dy.data_ptr(),
             dz.data_ptr(), _ptr(g_in), work.data_ptr(), dw1_i.data_ptr(),
@@ -533,14 +615,18 @@ def _unpad_grads(C0, gx, dw3, db3, dw1, db1, dwl, dbl):
             dbl[c].contiguous())
 
 
-# the widest hidden size the recurrences take (csrc/bilstm.cu, decoder_chain.cu MAX_H)
-MAX_H = 512
+# the widest hidden size of the recurrences' narrow kernels, and the widest
+# they take (csrc/bilstm.cu, decoder_chain.cu MAX_H, MAX_H_WIDE; the JAX
+# package's byte gates admit its kernels up to H = 1447)
+MAX_H, MAX_H_WIDE = 512, 2048
+# the wide kernels' cluster (a ragged split) and threads a CTA
+WIDE_CL, WIDE_THREADS = 8, 512
 
 
 def _check_width(H: int, what: str) -> None:
-    if not 1 <= H <= MAX_H:
-        raise ValueError(f"{what} takes a hidden size from 1 to {MAX_H}, got H={H} "
-                         f"(a width above {MAX_H} is not built)")
+    if not 1 <= H <= MAX_H_WIDE:
+        raise ValueError(f"{what} takes a hidden size from 1 to {MAX_H_WIDE} (MAX_H_WIDE), "
+                         f"got H={H}")
 
 
 def _cluster_width(H: int) -> int:
@@ -573,6 +659,14 @@ def _fwd_split(H: int, cl: int, hs: int, any_kc: bool):
     return None
 
 
+def _wide_groups(per_group: int, total: int) -> tuple:
+    """(groups, rows a group) of a wide plan: groups of `total` rows, a
+    multiple of 4 each, so that `per_group` products a group make about two
+    passes of WIDE_THREADS threads."""
+    n = max(1, 2 * WIDE_THREADS // per_group)
+    return n, (-(-total // n) + 3) // 4 * 4
+
+
 def bilstm_fwd_plan(H: int) -> tuple:
     """How the forward recurrence splits a hidden size H (`fwd_plan` in
     csrc/bilstm.cu): (cluster width CL, most hidden units a CTA HS, threads
@@ -583,8 +677,14 @@ def bilstm_fwd_plan(H: int) -> tuple:
     (`_cluster_width`, CL | H) where KC <= 64 (the weights a thread keeps in
     registers); else the ragged split (`_ragged_width`, `units_of`), its
     weights in registers where KC <= 64 and read from L2 where KC is above.
-    Every H from 1 to 512; raises above."""
+    Above H = 512 the wide kernel: CL = 8 CTAs of `units_of`, 512 threads
+    that stride over the NK x 4 HS products (NK so that they make about two
+    passes) and the (video, unit) elements, the weights read every step.
+    Every H from 1 to MAX_H_WIDE; raises above."""
     _check_width(H, "the forward recurrence")
+    if H > MAX_H:
+        hs = -(-H // WIDE_CL)
+        return (WIDE_CL, hs, WIDE_THREADS, *_wide_groups(4 * hs, H))
     cl = _cluster_width(H)
     rl = _ragged_width(H)
     return _fwd_split(H, cl, H // cl, False) or _fwd_split(H, rl, -(-H // rl), True)
@@ -660,8 +760,15 @@ def bilstm_chain_plan(H: int) -> tuple:
     threads, GPQ <= 128 weights a thread in registers, where it leaves at
     most 32 columns a CTA (a thread per video and column); else the ragged
     split (`_ragged_width`, `units_of`) on 512 threads, each reading its GPQ
-    rows of w_hh from L2 every step.  Every H from 1 to 512; raises above."""
+    rows of w_hh from L2 every step.  Above H = 512 the wide kernel: CL = 8
+    CTAs of `units_of`, 512 threads that stride over the NQ x HS products
+    (NQ so that they make about two passes) and the (video, column)
+    elements, dgate staged from dxp.  Every H from 1 to MAX_H_WIDE; raises
+    above."""
     _check_width(H, "the reverse chain")
+    if H > MAX_H:
+        hs = -(-H // WIDE_CL)
+        return (WIDE_CL, hs, *_wide_groups(hs, 4 * H))
     cl = _cluster_width(H)
     hs, nt = H // cl, BILSTM_CHAIN_THREADS
     if BILSTM_CHAIN_BT * hs > nt:
@@ -741,39 +848,42 @@ VITERBI_KC, VITERBI_BLOCK_THREADS, VITERBI_LANE_CELLS = 128, 256, 72
 def viterbi_plan(B: int, N: int, L: int, K=None) -> dict:
     """The DP's launch (`csrc/viterbi.cu`): the warp body (one warp a
     video, lane n holding row n's cells in registers: `lc` = 72 of them)
-    where N <= 32 and L <= 72, else the block body (one 256-thread CTA
-    a video, the state in shared memory); `ctas` = B either way.  With K,
-    also the dynamic shared memory a CTA takes (`smem`: W staged
-    VITERBI_KC windows at a time, the block body's state) and where the
-    walk's [K-1 x N] uint16 table lives: "shared" where it fits beside the
-    rest under MAX_SMEM_BYTES, else "global" (the walk reads the int32
-    bps).  Raises for N above 256, or a block body whose state does not
-    fit."""
-    if min(B, N, L) < 1 or N > VITERBI_BLOCK_THREADS:
-        raise ValueError(f"the DP takes B, L >= 1 and 1 <= N <= "
-                         f"{VITERBI_BLOCK_THREADS}; got B={B} N={N} L={L}")
+    where N <= 32 and L <= 72; else the block body (one 256-thread CTA a
+    video, the state in shared memory) where its [N x L] state, its
+    argmaxes and one staged window fit MAX_SMEM_BYTES; else the global body
+    (the block body with its two state buffers in device memory: scratch of
+    [B x 2 x N x L] floats).  `ctas` = B always.  With K, also the windows
+    of W staged at a time (`staged`: VITERBI_KC, fewer where the K - 1
+    windows are fewer or the block body's state leaves less room), the
+    dynamic shared memory a CTA takes (`smem`) and where the walk's
+    [K-1 x N] uint16 table lives: "shared" where it fits beside the rest,
+    else "global" (the walk reads the int32 bps).  Every N, L >= 1."""
+    if min(B, N, L) < 1:
+        raise ValueError(f"the DP takes B, N, L >= 1; got B={B} N={N} L={L}")
     lc = VITERBI_LANE_CELLS if N <= 32 and L <= VITERBI_LANE_CELLS else 0
+    state = 0 if lc else 3 * N * L + 2 * N
+    body = "warp" if lc else "block"
+    if not lc and 4 * (state + N) > MAX_SMEM_BYTES:
+        body, state = "global", 2 * N
     threads = 32 if lc else VITERBI_BLOCK_THREADS
-    plan = dict(body="warp" if lc else "block", lc=lc, threads=threads, warps=threads // 32,
-                ctas=B)
+    plan = dict(body=body, lc=lc, threads=threads, warps=threads // 32, ctas=B)
     if K is not None:
         if K < 1:
             raise ValueError("the DP needs at least one window")
-        staged = min(VITERBI_KC, max(K - 1, 1))
-        base = 4 * (staged * N + (0 if lc else 3 * N * L + 2 * N))
-        if base > MAX_SMEM_BYTES:
-            raise ValueError(f"the DP's state for N={N} L={L} needs {base} bytes of shared "
-                             f"memory; the limit is {MAX_SMEM_BYTES}")
-        table = base + 2 * (K - 1) * N <= MAX_SMEM_BYTES
-        plan.update(smem=base + (2 * (K - 1) * N if table else 0),
+        staged = min(VITERBI_KC, max(K - 1, 1), (MAX_SMEM_BYTES // 4 - state) // N)
+        base = 4 * (staged * N + state)
+        table = base + 2 * (K - 1) * N <= MAX_SMEM_BYTES and L <= 65536
+        plan.update(staged=staged, smem=base + (2 * (K - 1) * N if table else 0),
                     table="shared" if table else "global")
     return plan
 
 
-def viterbi_smem(K: int, N: int, L: int, lc: int, table: bool) -> int:
+def viterbi_smem(K: int, N: int, L: int, lc: int, table: bool, glob: bool = False,
+                 staged=None) -> int:
     """The kernel file's own count of a launch's shared memory (a check of
-    `viterbi_plan`)."""
-    return load().mucon_viterbi_smem(K, N, L, lc, int(table))
+    `viterbi_plan`; `staged` defaults to min(VITERBI_KC, K - 1))."""
+    staged = min(VITERBI_KC, max(K - 1, 1)) if staged is None else staged
+    return load().mucon_viterbi_smem(K, N, L, lc, int(table), int(glob), staged)
 
 
 def dense_viterbi_decode(W, pois, k_valid, n_valid, frame_sampling: int, max_len: int):
@@ -795,12 +905,15 @@ def dense_viterbi_decode(W, pois, k_valid, n_valid, frame_sampling: int, max_len
     best_l = torch.empty(B, device=dev, dtype=torch.int32)
     bps = torch.empty(B, K - 1, N, device=dev, dtype=torch.int32)
     pos = torch.empty(B, K, device=dev, dtype=torch.int64)
+    # the global body's two [N x L] state buffers a video
+    gstate = (torch.empty(B, 2, N, L, device=dev, dtype=torch.float32)
+              if plan["body"] == "global" else None)
     lib = load()
     err = lib.mucon_dense_viterbi(
         W.data_ptr(), pois.data_ptr(), kv.data_ptr(), nv.data_ptr(),
-        score.data_ptr(), best_l.data_ptr(), bps.data_ptr(), pos.data_ptr(),
+        score.data_ptr(), best_l.data_ptr(), bps.data_ptr(), pos.data_ptr(), _ptr(gstate),
         B, K, N, L, int(frame_sampling), int(max_len), plan["lc"],
-        int(plan["table"] == "shared"), _stream(dev),
+        int(plan["table"] == "shared"), plan["staged"], _stream(dev),
     )
     _check_launch(lib, err, "dense_viterbi")
     return score, best_l, bps, pos
@@ -853,8 +966,9 @@ def decoder_chain_fwd_plan(H: int) -> tuple:
     combine layer and the gates are warp GEMVs (a warp's lanes split k):
     in pass p, warp w takes the combine layer's columns 32 p + 4 w .. + 3
     of the CTA's HS and the gate columns 64 p + 8 w .. + 7 of its 4 HS.
-    Every H from 1 to 512 (a CTA's threads stride over its units where it
-    writes their state); raises above."""
+    Every H from 1 to MAX_H_WIDE (a CTA's threads stride over its units
+    where it writes their state; its shared memory bounds the widest H at
+    a given E, `_check_chain`); raises above."""
     _check_width(H, "the forward decoder chain")
     cl = _cluster_width(H)
     return cl, H // cl, DECODER_CHAIN_FWD_THREADS
@@ -924,9 +1038,16 @@ def decoder_chain_plan(H: int) -> tuple:
     most 32, 256 threads (a thread a unit), NQ = 256 / (2 HS), RQ <= 64 (the
     weights a thread keeps in registers).  Where that does not hold, the
     ragged split: CL = `_ragged_width(H)` CTAs of `units_of`, 512 threads,
-    NQ = 512 / (2 HS), the weights read from L2 every step.  Every H from 1
-    to 512; raises above."""
+    NQ = 512 / (2 HS), the weights read from L2 every step.  Above H = 512
+    the wide kernel (`decoder_chain_bwd_wide`) on the ragged split, NQ =
+    512 / HS (its threads stride over the 2 HS NQ products).  Every H from 1
+    to MAX_H_WIDE; raises above."""
     _check_width(H, "the reverse decoder chain")
+    if H > MAX_H:
+        cl = _ragged_width(H)
+        hs = -(-H // cl)
+        nq = max(1, DECODER_CHAIN_WIDE_THREADS // hs)
+        return cl, hs, nq, (-(-4 * H // nq) + 3) // 4 * 4
     cl = _cluster_width(H)
     hs = H // cl
     if 4 <= H <= DECODER_CHAIN_THREADS and hs % 4 == 0 and hs <= 32:
@@ -938,6 +1059,16 @@ def decoder_chain_plan(H: int) -> tuple:
     hs = -(-H // cl)
     nq = DECODER_CHAIN_WIDE_THREADS // (2 * hs)
     return cl, hs, nq, (-(-4 * H // nq) + 3) // 4 * 4
+
+
+def decoder_chain_bwd_wide(H: int, Tz: int) -> bool:
+    """True where the reverse chain at (H, Tz) runs its wide kernel
+    (`chain_bwd_wide_kernel`): H above 512, or the narrow kernel's [Tz x HS]
+    tables and [CL x Tz] partials above the card's shared memory.  It keeps
+    those tables in device memory (scratch the wrapper allocates), so no Tz
+    is refused."""
+    decoder_chain_plan(H)
+    return load().mucon_decoder_chain_bwd_wide(H, Tz) == 1
 
 
 def decoder_chain_replay(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2, bc, wih,
@@ -997,10 +1128,15 @@ def decoder_chain_bwd_chain(acts, cpre, a, u, c_in, enc, v, wc2, wih, whh, wl2, 
         raise ValueError("a must be decoder_chain_replay's (f32 rows padded to 4 frames)")
     _require(dev, torch.float32, c_in=c_in, **{k: t for k, t in got.items() if k != "a"})
     lib = load()
-    if lib.mucon_decoder_chain_smem(H, E, Tz, 1) > MAX_SMEM_BYTES:
-        raise ValueError(f"Tz={Tz} needs more shared memory than {MAX_SMEM_BYTES} bytes")
     wg = torch.cat([wih, whh])  # [2H, 4H]: row n is column n of [Wih; Whh]^T
     f32 = dict(device=dev, dtype=torch.float32)
+    # the wide kernel's device-memory tables: K = enc Wc2, the ranks' partials of
+    # da and each CTA's dsc
+    cl = decoder_chain_plan(H)[0]
+    wide = decoder_chain_bwd_wide(H, Tz)
+    Kg = torch.empty(B, Tz, H, **f32) if wide else None
+    Xg = torch.empty(B, cl, Tz, **f32) if wide else None
+    Dg = torch.empty(B, cl, Tzp, **f32) if wide else None
     dgate = torch.empty(S, B, 4 * H, **f32)
     dcpre = torch.empty(S, B, H, **f32)
     dsc = torch.empty(S, B, Tz, **f32)
@@ -1010,7 +1146,8 @@ def decoder_chain_bwd_chain(acts, cpre, a, u, c_in, enc, v, wc2, wih, whh, wl2, 
         acts.data_ptr(), cpre.data_ptr(), a.data_ptr(), u.data_ptr(), c_in.data_ptr(),
         enc.data_ptr(), v.data_ptr(), wc2.data_ptr(), wg.data_ptr(), wl2.data_ptr(),
         dhs.data_ptr(), dcs.data_ptr(), dcomb.data_ptr(), dgate.data_ptr(), dcpre.data_ptr(),
-        dsc.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), S, B, Tz, H, E, _stream(dev))
+        dsc.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), _ptr(Kg), _ptr(Xg), _ptr(Dg), S, B, Tz,
+        H, E, _stream(dev))
     _check_launch(lib, err, "decoder_chain_bwd")
     return dgate, dcpre, dsc, dh0, dc0
 
@@ -1084,9 +1221,11 @@ def mucon_flint(scale, xloc, sdiv, seg, target, n_len, t_valid, class_weights=No
 
 def mstcnpp_tile_rows(C: int = 128) -> int:
     """Rows of a video that one CTA of the MS-TCN++ kernels owns at C
-    channels (`Ms<stack_width(C)>::TM`: 64, 32 at 256, 16 at 512); a tile
-    whose first row is at or past the video's length is skipped."""
-    return load().mucon_mstcnpp_tile_rows(stack_width(C))
+    channels (`Ms<stack_width(C)>::TM`: 64, 32 at 256, 16 at 512; 64 on the
+    wide bodies); a tile whose first row is at or past the video's length is
+    skipped."""
+    Cp = stack_width(C)
+    return WIDE_TILE_ROWS if is_wide(Cp) else load().mucon_mstcnpp_tile_rows(Cp)
 
 
 def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
@@ -1095,8 +1234,9 @@ def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
     `mstcnpp_stack` launch per layer (d1 = 2^(L-1-i), d2 = 2^i) and one for
     the out-projection, each on the tensor cores in error-compensated TF32
     (`ops/tf32.py`), or with `mm_dtype=torch.bfloat16` in the bf16-operand
-    mode (`mstcnpp_stack_bf16`).  x [B x T x C] f32, C <= 512 (zero-padded
-    to `stack_width(C)`) -> (z [B x T/2^p x C], lengths >> p)."""
+    mode (`mstcnpp_stack_bf16`; above 512 channels a layer is the wide
+    bodies' two passes, counted as one launch).  x [B x T x C] f32, any C
+    (zero-padded to `stack_width(C)`) -> (z [B x T/2^p x C], lengths >> p)."""
     bf16 = bf16_mode(mm_dtype)
     dev = _cuda_device(x)
     if x.dim() != 3:
@@ -1121,25 +1261,38 @@ def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
     # a layer's eight [C x C] blocks as one [8C x C] matrix: the kernel's k-loop
     # streams its rows in order (once per call; 4 MiB at 11 layers and C = 128)
     w = torch.cat([w3a.reshape(L, 3 * C, C), w3b.reshape(L, 3 * C, C), w1t, w1b], dim=1)
+    wide = is_wide(C)
+    # the wide bodies' [B x T x 2C] buffer of both dilated convs between the passes
+    ybuf = torch.empty(B, T, 2 * C, device=dev, dtype=torch.float32) if wide else None
     h, t, shift = x, T, 0
     for i in range(L):
         pool = i in pooling_layers
         if pool and t % 2:
             raise ValueError(f"pooling layer {i} needs an even length, got {t}")
         out = torch.empty(B, t // 2 if pool else t, C, device=dev, dtype=torch.float32)
-        err = lib.mucon_mstcnpp_layer(
-            h.data_ptr(), out.data_ptr(), lens.data_ptr(), w[i].data_ptr(),
-            b3a[i].data_ptr(), b3b[i].data_ptr(), b1[i].data_ptr(), B, t, C,
-            2 ** (L - 1 - i), 2 ** i, shift, int(pool), int(bf16), stream,
-        )
+        if wide:
+            err = lib.mucon_wide_mstcnpp_layer(
+                h.data_ptr(), out.data_ptr(), ybuf.data_ptr(), lens.data_ptr(), w[i].data_ptr(),
+                b3a[i].data_ptr(), b3b[i].data_ptr(), b1[i].data_ptr(), B, t, C,
+                2 ** (L - 1 - i), 2 ** i, shift, int(pool), int(bf16), stream)
+        else:
+            err = lib.mucon_mstcnpp_layer(
+                h.data_ptr(), out.data_ptr(), lens.data_ptr(), w[i].data_ptr(),
+                b3a[i].data_ptr(), b3b[i].data_ptr(), b1[i].data_ptr(), B, t, C,
+                2 ** (L - 1 - i), 2 ** i, shift, int(pool), int(bf16), stream,
+            )
         _check_launch(lib, err, _mode("mstcnpp_stack", bf16))
         if pool:
             t, shift = t // 2, shift + 1
         h = out
     z = torch.empty(B, t, C, device=dev, dtype=torch.float32)
-    err = lib.mucon_mstcnpp_proj(h.data_ptr(), z.data_ptr(), lens.data_ptr(),
-                                 w_out.data_ptr(), b_out.data_ptr(), B, t, C, shift, int(bf16),
-                                 stream)
+    if wide:
+        err = lib.mucon_wide_proj(h.data_ptr(), z.data_ptr(), lens.data_ptr(), w_out.data_ptr(),
+                                  b_out.data_ptr(), B, t, C, shift, 0, 0, int(bf16), stream)
+    else:
+        err = lib.mucon_mstcnpp_proj(h.data_ptr(), z.data_ptr(), lens.data_ptr(),
+                                     w_out.data_ptr(), b_out.data_ptr(), B, t, C, shift,
+                                     int(bf16), stream)
     _check_launch(lib, err, _mode("mstcnpp_stack", bf16))
     return (z if C == C0 else z[..., :C0].contiguous()), lengths >> shift
 
@@ -1165,8 +1318,14 @@ def wavenet_train_v2_grid(C: int = 128, mm_dtype=None) -> dict:
     times the SMs), the SMs, each kernel's shared memory a CTA and the most
     layers a chunk holds."""
     lib = load()
-    out = (ctypes.c_int * 8)()
-    err = lib.mucon_wavenet_train_v2_grid(stack_width(C), int(bf16_mode(mm_dtype)), out)
+    Cp, bf16 = stack_width(C), int(bf16_mode(mm_dtype))
+    if is_wide(Cp):  # the wide bodies: one grid for both kernels' tiles
+        w = (ctypes.c_int * 4)()
+        err = lib.mucon_wide_v2_grid(bf16, w)
+        out = (WIDE_TILE_ROWS, WIDE_TILE_ROWS, w[0], w[1], w[2], w[3], w[3], V2_CHUNK_LAYERS)
+    else:
+        out = (ctypes.c_int * 8)()
+        err = lib.mucon_wavenet_train_v2_grid(Cp, bf16, out)
     if err:
         raise RuntimeError(f"wavenet_train_v2 grid: {lib.mucon_cuda_error_string(err).decode()}")
     return dict(zip(V2_GRID_KEYS, out))
@@ -1179,6 +1338,9 @@ def wavenet_train_v2_plan(B: int, T: int, jobs: int = 4, C: int = 128) -> dict:
     weight chunk (at C = 128 cut in rows to fit two CTAs an SM), and the
     weight-gradient span (`spans` a video).  An output's sum depends on
     the chunk, not on the rows: on v3's chunks v2 adds as v3 does."""
+    if is_wide(stack_width(C)):  # v3's wide grid, on its 32-row chunks
+        tm, span, spans = wide_plan(B, T, jobs, C)
+        return dict(zip(V2_PLAN_KEYS, (tm, WIDE_CHUNK_ROWS, tm, WIDE_CHUNK_ROWS, span, spans)))
     out = (ctypes.c_int * 6)()
     if load().mucon_wavenet_train_v2_plan(B, T, stack_width(C), jobs, out):
         raise ValueError(f"no wavenet_train_v2 grid for B={B}, T={T}, jobs={jobs}")
@@ -1242,7 +1404,8 @@ def wavenet_train_v2_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_ma
         last = hi == L
         if last:
             z = torch.empty(B, t_fin, C, **f32)
-        err = lib.mucon_wavenet_train_v2_fwd(
+        launch = lib.mucon_wide_v2_fwd if is_wide(C) else lib.mucon_wavenet_train_v2_fwd
+        err = launch(
             *_tables(ptrs, ints), hi - lo, w3[lo].data_ptr(), b3[lo].data_ptr(),
             w1[lo].data_ptr(), b1[lo].data_ptr(), _ptr(w_last if last else None),
             _ptr(b_last if last else None), _ptr(z if last else None), lens.data_ptr(),
@@ -1289,7 +1452,8 @@ def wavenet_train_v2_backward(gz, stash, lengths, w3, w1, b1, w_last, drop_masks
     dw3, dw1 = torch.empty(L, 3, C, C, **f32), torch.empty(L, C, C, **f32)
     db3, db1 = torch.empty(L, C, **f32), torch.empty(L, C, **f32)
     dwl, dbl = torch.empty(C, C, **f32), torch.empty(C, **f32)
-    scratch = torch.empty(3 * B * T * C, **f32)  # gm, dy and dz of the longest layer
+    # gm (the wide bodies: the recomputed u), dy and dz of the longest layer
+    scratch = torch.empty(3 * B * T * C, **f32)
     work = torch.empty(_work_floats(wavenet_train_v2_plan, B, C,
                                     ((t_fin, 1), *((t, 4) for t in t_ins))), **f32)
     g_in = [torch.empty(B, t, C, **f32) for t in t_ins]
@@ -1307,7 +1471,8 @@ def wavenet_train_v2_backward(gz, stash, lengths, w3, w1, b1, w_last, drop_masks
             ptrs += [xs[i].data_ptr(), hs[i].data_ptr(), _ptr(m), g.data_ptr(),
                      g_in[i].data_ptr(), _ptr(u)]
             ints += [t, int(stages[i]), shift, int(pool)]
-        err = lib.mucon_wavenet_train_v2_sweep(
+        launch = lib.mucon_wide_v2_sweep if is_wide(C) else lib.mucon_wavenet_train_v2_sweep
+        err = launch(
             *_tables(ptrs, ints), hi - lo, w3t[lo].data_ptr(), w1[lo].data_ptr(),
             w1t[lo].data_ptr(), b1[lo].data_ptr(), dw3[lo].data_ptr(), db3[lo].data_ptr(),
             dw1[lo].data_ptr(), db1[lo].data_ptr(), _ptr(gz if proj else None),

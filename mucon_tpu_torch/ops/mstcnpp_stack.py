@@ -107,8 +107,8 @@ def mstcnpp_stack_plain(
 def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out,
                   pooling_layers: Sequence[int], mm_dtype=None):
     """`mstcnpp_stack_plain` on a CPU tensor; the CUDA kernel on a CUDA
-    tensor (raises for C above 512, an odd length at a pooling layer or
-    packed weights that do not match x)."""
+    tensor, any C (raises for an odd length at a pooling layer or packed
+    weights that do not match x)."""
     args = (x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out)
     pools = tuple(int(p) for p in pooling_layers)
     if x.device.type == "cpu":

@@ -256,15 +256,92 @@ def test_model_forward_kernels_match_plain(dev):
 
 
 def test_kernel_wrappers_refuse_bad_input(dev):
-    x = torch.zeros(2, 32, 513, device=dev)  # the stack kernels take C <= 512
-    w = torch.zeros(1, 3, 513, 513, device=dev)
-    with pytest.raises(ValueError, match="above 512"):
-        wavenet_stack(x, torch.tensor([32, 32], device=dev), w, w[:, 0, 0], w[:, 0],
-                      w[:, 0, 0], w[0, 0], w[0, 0, 0], stages=(1,), pooling_layers=(),
-                      pooling_type="max", leaky=False)
+    """C = 513, one past the narrow instances, runs on the wide bodies (padded
+    to 640) within 1e-4 of max|plain| of the twin; a non-contiguous input
+    raises."""
+    gen = torch.Generator().manual_seed(0)
+    C, lengths = 513, torch.tensor([32, 21], device=dev)
+    x = mask_time(torch.relu(torch.randn(2, 32, C, generator=gen)).to(dev), lengths)
+    shapes = (((2, 3, C, C), 3 * C), ((2, C), 100), ((2, C, C), C), ((2, C), 100),
+              ((C, C), C), ((C,), 100))
+    ws = [(torch.randn(*s, generator=gen) / f ** 0.5).to(dev) for s, f in shapes]
+    kw = dict(stages=(1, 2), pooling_layers=(0,), pooling_type="max", leaky=False)
+    got, t_got = wavenet_stack(x, lengths, *ws, **kw)
+    want, t_want = wavenet_stack_plain(x, lengths, *ws, **kw)
+    assert torch.equal(t_got, t_want) and got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
     with pytest.raises(ValueError, match="contiguous"):
         xp = torch.zeros(4, 2, 2, 32, device=dev).transpose(0, 2)
         bilstm_recurrence(xp, torch.ones(2, 4, device=dev), torch.zeros(2, 8, 32, device=dev))
+
+
+@pytest.mark.parametrize("H", [600, 1447])
+def test_wide_bilstm_kernels_match_plain(dev, H):
+    """Above H = 512 the BiLSTM's wide kernels (a ragged split of 8 CTAs,
+    threads striding over the products): the eval recurrence within 1e-5
+    of the plain twin, the train pair's gradients by `_grads_close`."""
+    gen = torch.Generator().manual_seed(H)
+    T, B = 9, 3
+    xp = torch.randn(T, 2, B, 4 * H, generator=gen).to(dev)
+    w_hh = ((2 * torch.rand(2, H, 4 * H, generator=gen) - 1) / H ** 0.5).to(dev)
+    m = (torch.arange(T)[:, None] < torch.tensor([9, 4, 0])[None, :]).float().to(dev)
+    _close(bilstm_recurrence(xp, m, w_hh), bilstm_recurrence_plain(xp, m, w_hh), 1e-5)
+    cts = [torch.randn(*s, generator=gen).to(dev) for s in ((T, 2, B, H), (2, B, H), (2, B, H))]
+
+    def grads(fn):
+        a, w = xp.clone().requires_grad_(), w_hh.clone().requires_grad_()
+        torch.autograd.backward(fn(a, m, w)[:3], cts)
+        return a.grad, w.grad
+
+    _grads_close(grads(BiLSTMRecurrenceTrain.apply), grads(bilstm_recurrence_plain))
+
+
+@pytest.mark.parametrize("H,B,Tz", [(600, 2, 12), (128, 1, 2048)])
+def test_wide_decoder_chain_matches_plain(dev, H, B, Tz):
+    """The decoder chain above H = 512 and at a Tz whose reverse tables do
+    not fit shared memory (`cuda.decoder_chain_bwd_wide`): the forward
+    within 1e-4 and `DecoderChain`'s input gradients by `_grads_close`."""
+    gen = torch.Generator().manual_seed(Tz)
+    S, E = 7, 2 * H
+    tz = torch.tensor([Tz, max(1, Tz // 2)])[:B]
+    maskf = (torch.arange(Tz)[None, :] < tz[:, None]).float()
+    r = lambda *shape: 0.4 * torch.randn(*shape, generator=gen)  # noqa: E731
+    wt = lambda k, *shape: torch.randn(*shape, generator=gen) / k ** 0.5  # noqa: E731
+    args = [t.to(dev) for t in (
+        torch.relu(r(S, B, H)), r(B, Tz, E) * maskf[:, :, None], r(B, Tz, H), maskf, r(B, H),
+        r(B, H), wt(H, H, H), r(H), r(H), wt(H + E, H, H), wt(H + E, E, H), r(H),
+        wt(2 * H, H, 4 * H), wt(2 * H, H, 4 * H), r(4 * H))]
+    assert cuda.decoder_chain_bwd_wide(H, Tz)
+    with torch.no_grad():
+        _close(cuda.decoder_chain_forward(*args), decoder_chain_plain(*args), 1e-4)
+    cts = [torch.randn(S, B, H, generator=gen).to(dev) for _ in range(3)]
+
+    def grads(fn):
+        xs = [t.clone().requires_grad_(i != 3) for i, t in enumerate(args)]
+        torch.autograd.backward(fn(*xs), cts)
+        return [t.grad for i, t in enumerate(xs) if i != 3]
+
+    _grads_close(grads(DecoderChain.apply), grads(decoder_chain_plain))
+
+
+@pytest.mark.parametrize("N,L,body", [(30, 2000, "global"), (300, 20, "block"),
+                                      (300, 66, "global")])
+def test_viterbi_global_body_bit_exact(dev, N, L, body):
+    """The DP past its shared-memory state (L = 2000 at frame_sampling 1)
+    and at N = 300, equal to the plain DP and walk in all four outputs."""
+    gen = torch.Generator().manual_seed(N + L)
+    B, K = 4, 40
+    labels = torch.randint(0, 3, (B, N), generator=gen)
+    W = (-torch.rand(K, 3, generator=gen) * 60.0)[:, labels].permute(1, 0, 2).contiguous()
+    pois = -torch.rand(B, N, L, generator=gen) * 20.0
+    kv = torch.randint(0, K + 1, (B,), generator=gen)
+    nv = torch.randint(1, N + 1, (B,), generator=gen)
+    assert cuda.viterbi_plan(B, N, L, K)["body"] == body
+    got = dense_viterbi_decode(*(t.to(dev) for t in (W, pois, kv, nv)), 1, 2000)
+    score, best_l, bps = dense_viterbi_plain(W, pois, kv, nv, 1, 2000)
+    want = (score, best_l, bps, traceback_positions(bps, kv, nv, best_l))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 def _close(got, want, factor):

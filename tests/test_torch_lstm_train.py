@@ -156,7 +156,7 @@ def test_chain_plan_covers_every_gate_row(H, want):
     assert cl == want and cl * hs == H and 8 * hs <= 256 and nq * hs <= 256
     assert gpq % 4 == 0 and gpq <= 128 and nq * gpq >= 4 * H
     with pytest.raises(ValueError):
-        bilstm_chain_plan(513)
+        bilstm_chain_plan(2049)
 
 
 @pytest.mark.parametrize("H,want", [(8, (1, 256)), (16, (1, 256)), (32, (2, 256)),
@@ -180,6 +180,6 @@ def test_fwd_plan_covers_every_gate_row_and_unit(H, want):
             covered += [(k, gcol) for k in range(kq * kc, min(H, (kq + 1) * kc))]
         assert units == set(range(r * hs, (r + 1) * hs))
     assert sorted(covered) == [(k, g) for k in range(H) for g in range(4 * H)]
-    for bad in (0, 513):
+    for bad in (0, 2049):
         with pytest.raises(ValueError):
             bilstm_fwd_plan(bad)

@@ -127,12 +127,11 @@ def test_viterbi_plan_covers_shapes(B, N, L, K, body, lc, table):
     if table == "global":
         assert 4 * (staged * N + state) + 2 * (K - 1) * N > cuda.MAX_SMEM_BYTES
     assert cuda.viterbi_plan(B, N, L) == {k: v for k, v in plan.items()
-                                          if k not in ("smem", "table")}
+                                          if k not in ("smem", "table", "staged")}
 
 
 def test_viterbi_plan_refuses():
-    for B, N, L, K in ((1, 257, 66, 85), (1, 0, 66, 85), (1, 30, 0, 85), (0, 30, 66, 85),
-                       (1, 30, 66, 0), (1, 200, 100, 85)):  # the last: state too large
+    for B, N, L, K in ((1, 0, 66, 85), (1, 30, 0, 85), (0, 30, 66, 85), (1, 30, 66, 0)):
         with pytest.raises(ValueError):
             cuda.viterbi_plan(B, N, L, K)
 

@@ -1,20 +1,26 @@
 """PyTorch port: the kernels at every width the JAX kernels take, on the CPU.
 
 * The Python plans of `mucon_tpu_torch.cuda` (each the mirror of its C++
-  plan) take every hidden size H and channel count C from 1 to 512: the
+  plan) take every hidden size H from 1 to 512 and, on the wide kernels,
+  at 513, 600, 768, 1024, 1181 and 1447 (the JAX package's widest): the
   recurrences' cluster splits (even where CL divides H, else ragged) cover
-  each product of their weight matrices exactly once, the stack kernels run
-  C at the next built width (128, 256, 512, zero-padded), the H = 128 and
-  C = 128 plans are unchanged, and 513 raises a ValueError naming the limit.
+  each product of their weight matrices exactly once; the stack kernels run
+  C up to 512 at the next built width (128, 256, 512, zero-padded) and
+  above it at a multiple of 128 (the wide bodies' slabs, padded at the end);
+  the H = 128 and C = 128 plans are unchanged, and a width above the
+  widest (MAX_H_WIDE = 2048) or below 1 raises a ValueError naming the limit.
+  The DP's plan takes L = 2000 / frame_sampling at frame_sampling 1-3 and
+  N = 300 (its global body where the state does not fit shared memory).
 * The twins in the kernels' split order (the BiLSTM's k-groups and gate-row
   groups, the decoder reverse chain's row groups and ragged ranks) against
-  the JAX Pallas kernels in interpret mode at H = 100 and 127.
+  the JAX Pallas kernels in interpret mode at H = 100, 127 and 600.
 * The WaveNet and MS-TCN++ twins on channels zero-padded 48 -> 128 (what the
   CUDA wrappers run) against the JAX kernels at C = 48, the trainable
   stack's gradients too.
 * Three SGD steps of the port at C = 48, H = 100 against the JAX trainer on
   its kernel route (decoder chain and flint loss in interpret mode).
-* `convert.py` carrying JAX parameters across at those widths and at 256.
+* `convert.py` carrying JAX parameters across at those widths, at 256 and
+  at 768.
 
 Tolerances: the twins against the JAX kernels rtol 1e-5 / atol 2e-5 (two
 frameworks summing in different orders, as tests/test_torch_lstm_train.py
@@ -139,13 +145,100 @@ def test_stack_width_covers_every_c():
     assert [cuda.stack_width(c) for c in (128, 256, 512)] == [128, 256, 512]
 
 
+WIDE_HS = (513, 600, 768, 1024, 1181, 1447)
+
+
+@pytest.mark.parametrize("H", WIDE_HS)
+def test_wide_plans_cover_every_product_once(H):
+    """Above H = 512 every recurrence plan is a split of CL = 8 CTAs of
+    `units_of` (the forward decoder chain: `_cluster_width`, one CTA at an
+    odd H) whose (unit, gate column, k) products are covered exactly once:
+    the BiLSTM forward's NK groups of KC rows cover w_hh's H rows for each
+    of a CTA's 4 n gate columns, which cover all 4H columns; the reverse
+    chain's NQ groups of GPQ gate rows cover 4H for each of its n columns;
+    the decoder reverse chain's NQ groups of RQ rows cover 4H for each of
+    its 2 n output columns (dcomb and dh parts).  The wide kernels' threads
+    stride over those products, so no thread count bounds H."""
+    cl, hs, nt, nk, kc = cuda.bilstm_fwd_plan(H)
+    assert (cl, hs, nt) == (8, -(-H // 8), 512) and kc % 4 == 0, H
+    rows = [k for kq in range(nk) for k in range(kq * kc, min(H, (kq + 1) * kc))]
+    assert rows == list(range(H)) and (nk - 1) * kc < H
+    gcols, units = [], []
+    for r in range(cl):
+        u = cuda.units_of(r, cl, H)
+        assert 1 <= len(u) <= hs
+        units += list(u)
+        gcols += [(pc // len(u)) * H + u.start + pc % len(u) for pc in range(4 * len(u))]
+    assert units == list(range(H)) and sorted(gcols) == list(range(4 * H))
+
+    cl, hs, nq, gpq = cuda.bilstm_chain_plan(H)
+    assert (cl, hs) == (8, -(-H // 8)) and gpq % 4 == 0
+    rows = [g for q in range(nq) for g in range(q * gpq, min(4 * H, (q + 1) * gpq))]
+    assert rows == list(range(4 * H)) and (nq - 1) * gpq < 4 * H
+
+    cl, hs, nt = cuda.decoder_chain_fwd_plan(H)
+    assert cl * hs == H and cl == cuda._cluster_width(H) and nt == 256
+
+    cl, hs, nq, rq = cuda.decoder_chain_plan(H)
+    assert (cl, hs) == (8, -(-H // 8)) and rq % 4 == 0 and nq == max(1, 512 // hs)
+    rows = [k for q in range(nq) for k in range(q * rq, min(4 * H, (q + 1) * rq))]
+    assert rows == list(range(4 * H))
+    cols = []
+    for r in range(cl):
+        u = cuda.units_of(r, cl, H)
+        cols += [j for j in u] + [H + j for j in u]
+    assert sorted(cols) == list(range(2 * H))
+
+
 @pytest.mark.parametrize("plan", [cuda.bilstm_fwd_plan, cuda.bilstm_chain_plan,
                                   cuda.decoder_chain_fwd_plan, cuda.decoder_chain_plan,
                                   cuda.stack_width])
-def test_width_above_512_raises_naming_the_limit(plan):
-    for bad in (0, 513, 1024):
-        with pytest.raises(ValueError, match="512"):
-            plan(bad)
+def test_width_outside_the_kernels_raises_naming_the_limit(plan):
+    """Below 1, and (the recurrences) above MAX_H_WIDE = 2048 (above the JAX
+    package's widest, 1447), a plan raises a ValueError that names the
+    limit."""
+    bad = (0, 2049) if plan is not cuda.stack_width else (0, -3)
+    for b in bad:
+        with pytest.raises(ValueError, match="2048" if b > 0 else ">= 1|from 1"):
+            plan(b)
+    assert cuda.MAX_H_WIDE == 2048
+
+
+@pytest.mark.parametrize("C", [513, 600, 768, 1000, 2048])
+def test_wide_stack_width_covers_every_c(C):
+    """Above 512 a stack runs on the wide bodies at C rounded up to a
+    multiple of 128: each output column lies in exactly one 128-column slab,
+    and `pad_channels` pads at the end only."""
+    w = cuda.stack_width(C)
+    assert cuda.is_wide(w) and w % cuda.WIDE_SLAB == 0 and C <= w < C + cuda.WIDE_SLAB
+    slabs = [range(n0, n0 + cuda.WIDE_SLAB) for n0 in range(0, w, cuda.WIDE_SLAB)]
+    assert sorted(c for s in slabs for c in s) == list(range(w))
+    t = torch.arange(2.0 * C).reshape(1, 2, C) + 1
+    p = cuda.pad_channels(t, w, (2,))
+    assert p.shape == (1, 2, w) and torch.equal(p[..., :C], t) and not p[..., C:].any()
+
+
+# (N, L) -> the DP's body: N = 31 at frame_sampling 1, 2, 3 (L = 2000 //
+# frame_sampling), and N = 300 with a state that fits and one that does not
+@pytest.mark.parametrize("N,L,K,body", [(31, 2000, 2560, "global"), (31, 1000, 1280, "global"),
+                                        (31, 666, 853, "global"), (300, 20, 40, "block"),
+                                        (300, 66, 40, "global")])
+def test_viterbi_plan_takes_every_state(N, L, K, body):
+    """The DP takes any N and L: the block body where its [N x L] state,
+    its argmaxes and a staged window fit a block's shared memory, else the
+    global body (the state in device memory); the windows staged at a time
+    fit what is left, and the walk's table is in shared memory where it
+    fits too."""
+    plan = cuda.viterbi_plan(4, N, L, K)
+    assert plan["body"] == body and plan["lc"] == 0 and plan["threads"] == 256
+    state = 3 * N * L + 2 * N if body == "block" else 2 * N
+    assert 1 <= plan["staged"] <= min(cuda.VITERBI_KC, K - 1)
+    assert 4 * (plan["staged"] * N + state) <= plan["smem"] <= cuda.MAX_SMEM_BYTES
+    if body == "global":
+        assert 4 * (3 * N * L + 3 * N) > cuda.MAX_SMEM_BYTES
+    tab = 2 * (K - 1) * N
+    assert plan["table"] == ("shared" if plan["smem"] == 4 * (plan["staged"] * N + state) + tab
+                             else "global")
 
 
 def test_pad_channels_pads_at_the_end_only():
@@ -167,7 +260,7 @@ def _lstm_inputs(T, B, H, valid, seed):
 
 
 @pytest.mark.interpret
-@pytest.mark.parametrize("H", [100, 127])
+@pytest.mark.parametrize("H", [100, 127, 600])
 def test_bilstm_split_order_twins_match_jax(H):
     """The forward in its k-group order (`bilstm_fwd_plan`), the coefficient
     pass in the same order and the chain in its gate-row order
@@ -214,7 +307,7 @@ def _chain_inputs(H, seed, S=5, Tz=9, valid=(9, 6, 2)):
 
 
 @pytest.mark.interpret
-@pytest.mark.parametrize("H", [100, 127])
+@pytest.mark.parametrize("H", [100, 127, 600])
 def test_decoder_chain_split_order_twins_match_jax(H, monkeypatch):
     """The forward by the cluster's ranks of frames (`decoder_chain_fwd_plan`'s
     CL) and `DecoderChain`'s every input gradient with its reverse chain in
@@ -385,7 +478,8 @@ def _flatten(tree, prefix=""):
 
 
 @pytest.mark.parametrize("ft_type", ["wavenet", "mstcnpp"])
-@pytest.mark.parametrize("C,H,groups", [(48, 100, 16), (48, 127, 16), (256, 256, 32)])
+@pytest.mark.parametrize("C,H,groups", [(48, 100, 16), (48, 127, 16), (256, 256, 32),
+                                         (768, 768, 32)])
 def test_convert_round_trips_at_the_widths(ft_type, C, H, groups):
     """`convert.py` carries the JAX parameters across, and back, exactly at
     the widths the kernels now take."""
