@@ -145,9 +145,10 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    the 128 instance), 256, 512 and, on the wide bodies, 600, 768 and 1024
    in 3xTF32 and in the bf16-operand mode (rows 1 and 12 at B = 128,
    T_pad = 1280), rows 2, 7-10 at H = 100, 127,
-   256, 512 (even, ragged and L2-weight splits), 768 and 1024 (the wide
-   kernels), each against its twin under the C = 128 / H = 128 bounds (the
-   sweep's gradients against the float64 twin) and timed; the BiLSTM at
+   256, 512 (even, ragged and L2-weight splits; the BiLSTM's persistent
+   kernels from 512), 768 and 1024 (the wide kernels), each against its twin
+   under the C = 128 / H = 128 bounds (the sweep's gradients against the
+   float64 twin) and timed, the BiLSTM rows beside cuDNN's `nn.LSTM`; the BiLSTM at
    H = 1447 and the decoder chain at H = 1181 (B = 2, Tz = 40), the reverse
    chain at Tz = 2048 (H = 128) and 1536 (H = 768), B = 1 (its tables in
    device memory), the DP at frame_sampling 1 and 3 (L = 2000, 666: its
@@ -399,15 +400,25 @@ def lstm_library_ms(x, lengths, H: int, backward: bool) -> float:
     return cuda_ms(lambda: torch.autograd.grad(out, params, g, retain_graph=True), reps=5)
 
 
-def bilstm_launch(B: int, H: int) -> str:
-    """The forward recurrence's cluster launch at B videos, as printed."""
+def bilstm_launch(B: int, H: int, chain: bool = False) -> str:
+    """The BiLSTM forward's (or reverse chain's) launch at B videos, as
+    printed: up to H = 256 its clusters and waves; above, the persistent
+    kernel's cooperative grid, its units a CTA, where w_hh lives and the
+    CTAs the card holds at once."""
     from mucon_tpu_torch import cuda
 
-    p = cuda.bilstm_fwd_launch(B, H)
-    waves = -(-p["clusters"] // p["active"])
-    return (f"clusters of {p['cl']} CTAs x {p['threads']} threads, 8 videos a cluster: "
-            f"{p['clusters']} clusters, the card holds {p['active']} at once: "
-            f"{waves} wave{'s' if waves > 1 else ''}")
+    p = (cuda.bilstm_chain_launch if chain else cuda.bilstm_fwd_launch)(B, H)
+    if p["kind"] == "cluster":
+        waves = -(-p["clusters"] // p["active"])
+        return (f"clusters of {p['cl']} CTAs x {p['threads']} threads, 8 videos a cluster: "
+                f"{p['clusters']} clusters, the card holds {p['active']} at once: "
+                f"{waves} wave{'s' if waves > 1 else ''}")
+    return (f"persistent: one cooperative grid of 2 x {p['ctas']} CTAs x {p['threads']} "
+            f"threads (the card holds {p['co_resident']} at once), at most {p['units']} "
+            f"units a CTA for all {B} videos ({p['tiles']} tile{'s' if p['tiles'] > 1 else ''} "
+            f"of {p['bv']}, {p['rv']}x{p['rc']} a thread), w_hh in {p['w_hh']} "
+            f"({p['resident']} of {p['chunks']} chunks of {p['kch']} rows a group resident, "
+            f"{p['stages']} ring slots), {p['smem']} bytes of shared memory a CTA")
 
 
 # -- phase 3: each kernel against its plain twin at full width ---------------
@@ -1573,8 +1584,8 @@ def check_bilstm_train(model, gen, dev):
         f"{1000 * fwd_ms[0] / T:.2f} us/step vs plain {fwd_ms[1]:.3f} ms "
         f"({bilstm_launch(B, H)}); bilstm_train_bwd (coefficient pass + chain + dw_hh einsum) "
         f"{bwd_ms[0]:.3f} ms = {1000 * bwd_ms[0] / T:.2f} us/step vs plain autograd "
-        f"{bwd_ms[1]:.3f} ms; alone, the coefficient pass {coefs_ms:.3f} ms and the cluster "
-        f"chain (width {cuda.load().mucon_bilstm_chain_width(H)}) {chain_ms:.3f} ms = "
+        f"{bwd_ms[1]:.3f} ms; alone, the coefficient pass {coefs_ms:.3f} ms and the chain "
+        f"({bilstm_launch(B, H, chain=True)}) {chain_ms:.3f} ms = "
         f"{1000 * chain_ms / T:.2f} us/step; "
         f"cuDNN nn.LSTM (with the input projection) forward {lib_ms[0]:.3f} ms, "
         f"backward {lib_ms[1]:.3f} ms")
@@ -3571,7 +3582,7 @@ def precision_phase(dev, card: str, tmp: str, cli: dict) -> dict:
 # zero-padded to 640) and the recurrences' hidden sizes (100 and 127 split
 # unevenly over a cluster; 256 and 512 read some weights from L2 where
 # registers and shared memory do not hold them; 768 and 1024 run on the
-# wide kernels).
+# wide kernels; the BiLSTM above 256 on its persistent kernels).
 WIDTH_CS, WIDTH_HS = (48, 256, 512, 600, 768, 1024), (100, 127, 256, 512, 768, 1024)
 # the default model's stack: 11 layers, pools after layers 1, 2, 4, 8 (max)
 WIDTH_STAGES, WIDTH_POOLS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024), (1, 2, 4, 8)
@@ -3887,9 +3898,8 @@ def bilstm_shape(gen, dev, card: str, lines: dict, H: int, T: int, B_eval: int, 
     # w_hh at nn.LSTM's init scale, uniform in +-1/sqrt(H)
     w_hh = ((2 * torch.rand(2, H, 4 * H, generator=gen) - 1) / H ** 0.5).to(dev)
     fwd_plan, chain_plan = cuda.bilstm_fwd_plan(H), cuda.bilstm_chain_plan(H)
-    plans = (f"forward CL {fwd_plan[0]}, {fwd_plan[2]} threads, KC {fwd_plan[4]} "
-             f"({'registers' if fwd_plan[4] <= 64 else 'L2'}); chain CL {chain_plan[0]}, "
-             f"HS {chain_plan[1]}, GPQ {chain_plan[3]}")
+    order = (f"forward NK {fwd_plan[3]} x KC {fwd_plan[4]}, chain NQ {chain_plan[2]} x GPQ "
+             f"{chain_plan[3]}")
     lo, hi = max(1, T * 1500 // 2560), max(1, T * 2100 // 2560)  # 1500-2100 of 2560 frames
     # eval
     xp = torch.randn(T, 2, B_eval, 4 * H, generator=gen).to(dev)
@@ -3904,12 +3914,15 @@ def bilstm_shape(gen, dev, card: str, lines: dict, H: int, T: int, B_eval: int, 
                f"bilstm_recurrence H={H}: two calls differ")
         ms = paired_ms(lambda: bilstm_recurrence(xp, m, w_hh),
                        lambda: bilstm_recurrence_plain(xp, m, w_hh), reps=2)
+    lib_ms = lstm_library_ms(torch.randn(B_eval, T, H, generator=gen).to(dev), tz, H, False)
     nv = int(m.sum())
     say(f"widths: kernel bilstm_recurrence Tz={T} B={B_eval} H={H}: max abs err {err:.3e} <= "
-        f"1e-5, two calls bit for bit; {ms[0]:.3f} ms vs plain {ms[1]:.3f} ms; {plans} "
-        f"[{card}]")
+        f"1e-5, two calls bit for bit; {ms[0]:.3f} ms = {1000 * ms[0] / T:.2f} us/step vs "
+        f"plain {ms[1]:.3f} ms, cuDNN nn.LSTM (with the input projection) {lib_ms:.3f} ms; "
+        f"{order}; {bilstm_launch(B_eval, H)} [{card}]")
     width_line("bilstm_recurrence", width, report(
-        err, *ms, 4 * 2 * nv * 4 * H + nbytes(m, w_hh, *outk), 2 * 2 * nv * H * 4 * H), lines)
+        err, *ms, 4 * 2 * nv * 4 * H + nbytes(m, w_hh, *outk), 2 * 2 * nv * H * 4 * H,
+        lib_ms), lines)
     del xp, outk, outp
     # train
     xp = torch.randn(T, 2, B, 4 * H, generator=gen).to(dev)
@@ -3950,16 +3963,21 @@ def bilstm_shape(gen, dev, card: str, lines: dict, H: int, T: int, B_eval: int, 
     bms = paired_ms(lambda: torch.einsum("tdbh,tdbg->dhg", h_prev, cuda.bilstm_train_backward(
         xp, m, w_hh, outs, cs, *cts)),
         lambda: torch.autograd.grad(graph, (a, w), cts, retain_graph=True), reps=2)
+    x = torch.randn(B, T, H, generator=gen).to(dev)
+    lib_ms = [lstm_library_ms(x, tz, H, backward) for backward in (False, True)]
     say(f"widths: kernels bilstm_train_fwd / bilstm_train_bwd Tz={T} B={B} H={H}: "
-        f"{fms[0]:.3f} ms vs plain {fms[1]:.3f} ms; {bms[0]:.3f} ms vs plain autograd "
-        f"{bms[1]:.3f} ms; the replayed cell equals the stash bit for bit [{card}]")
+        f"{fms[0]:.3f} ms = {1000 * fms[0] / T:.2f} us/step vs plain {fms[1]:.3f} ms, cuDNN "
+        f"forward {lib_ms[0]:.3f} ms; {bms[0]:.3f} ms vs plain autograd {bms[1]:.3f} ms, "
+        f"cuDNN backward {lib_ms[1]:.3f} ms; the replayed cell equals the stash bit for bit; "
+        f"forward {bilstm_launch(B, H)}; chain {bilstm_launch(B, H, chain=True)} [{card}]")
     nv = int(m.sum())
     step_ops = 2 * nv * 2 * H * 4 * H
     width_line("bilstm_train_fwd", width, report(
-        fwd_err, *fms, 4 * 2 * nv * 4 * H + nbytes(m, w_hh, *outk), step_ops), lines)
+        fwd_err, *fms, 4 * 2 * nv * 4 * H + nbytes(m, w_hh, *outk), step_ops, lib_ms[0]),
+        lines)
     width_line("bilstm_train_bwd", width, report(
         bwd_err, *bms, 4 * 2 * nv * 7 * H + nbytes(m, w_hh, *cts[1:], xp, w_hh),
-        3 * step_ops), lines)
+        3 * step_ops, lib_ms[1]), lines)
     del a, w, graph, xp, outk, outp
     return tz
 

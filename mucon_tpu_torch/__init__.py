@@ -18,10 +18,12 @@ collate, the batch loader, `Segment`) it keeps as its own copy.
 
 import torch
 
+from mucon_tpu_torch.version import __version__
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["resolve_device"]
+__all__ = ["__version__", "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:

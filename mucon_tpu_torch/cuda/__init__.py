@@ -20,7 +20,7 @@ kernels (dz, dx, weight-gradient partials, their fixed-order sum; the
 out-projection's sweep runs three, no dx).
 `bilstm_train_bwd` counts one per `bilstm_train_backward` call: that call
 launches the reverse chain's two kernels (the parallel coefficient pass,
-then the cluster chain); `decoder_chain_bwd` likewise one per
+then the cluster or persistent chain); `decoder_chain_bwd` likewise one per
 `decoder_chain_backward` call (the parallel replay pass, then the cluster
 chain).
 `wavenet_train_v2_fwd` and `wavenet_train_v2_sweep` count one per chunk:
@@ -50,11 +50,13 @@ weights' rows and columns are 0, and a +0 product changes no f32 partial.
 Above 512 the stacks run on the wide bodies (csrc/wavenet_wide.cu: C a
 runtime argument, padded to a multiple of WIDE_SLAB = 128; a layer is two
 GEMM-shaped passes, counted as one launch of its kernel's name).  The
-recurrences (BiLSTM, decoder chain) take every H from 1 to 512 as it is,
-on an even or a ragged split of the units over a cluster, and every H up
-to MAX_H_WIDE = 2048 on their wide kernels (threads striding over a ragged
-split of 8 CTAs; the decoder chain's forward where its shared memory holds
-(H, E), `_check_chain`); the reverse decoder chain keeps its Tz-long tables
+recurrences take every H up to MAX_H_WIDE = 2048 as it is: the BiLSTM up
+to 256 on an even or a ragged split of the units over a cluster, above on
+its persistent kernels (one cooperative launch over the whole card, w_hh
+resident in shared memory as far as it fits, `bilstm_fwd_launch`); the
+decoder chain up to 512 on a cluster split, above on its wide kernels
+(threads striding over a ragged split of 8 CTAs; the forward where its
+shared memory holds (H, E), `_check_chain`); the reverse decoder chain keeps its Tz-long tables
 in device memory where they do not fit shared memory
 (`decoder_chain_bwd_wide`), so it takes any Tz.  The DP takes any N and L
 (`viterbi_plan`: its state in device memory where shared memory does not
@@ -168,7 +170,8 @@ def load() -> ctypes.CDLL:
             P, I = ctypes.c_void_p, ctypes.c_int
             lib.mucon_wavenet_layer.argtypes = [P] * 7 + [I] * 10 + [P]
             lib.mucon_wavenet_tile_rows.argtypes = [I]
-            lib.mucon_bilstm_recurrence.argtypes = [P] * 7 + [I] * 3 + [P]
+            L = ctypes.c_long
+            lib.mucon_bilstm_recurrence.argtypes = [P] * 8 + [L] + [I] * 3 + [P]
             lib.mucon_dense_viterbi.argtypes = [P] * 9 + [I] * 9 + [P]
             lib.mucon_viterbi_smem.argtypes = [I] * 7
             lib.mucon_viterbi_smem.restype = ctypes.c_size_t
@@ -177,8 +180,10 @@ def load() -> ctypes.CDLL:
             lib.mucon_wavenet_train_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
             lib.mucon_bilstm_fwd_plan.argtypes = [I, I, ctypes.POINTER(I)]
             lib.mucon_bilstm_bwd_coefs.argtypes = [P] * 7 + [I] * 3 + [P]
-            lib.mucon_bilstm_bwd_chain.argtypes = [P] * 7 + [I] * 3 + [P]
-            lib.mucon_bilstm_chain_width.argtypes = [I]
+            lib.mucon_bilstm_bwd_chain.argtypes = [P] * 8 + [L] + [I] * 3 + [P]
+            lib.mucon_bilstm_chain_plan.argtypes = [I, I, ctypes.POINTER(I)]
+            lib.mucon_bilstm_scratch_floats.argtypes = [I, I, I]
+            lib.mucon_bilstm_scratch_floats.restype = L
             lib.mucon_decoder_chain_fwd.argtypes = [P] * 16 + [I] * 5 + [P]
             lib.mucon_decoder_chain_replay.argtypes = [P] * 18 + [I] * 5 + [P]
             lib.mucon_decoder_chain_bwd.argtypes = [P] * 21 + [I] * 5 + [P]
@@ -193,7 +198,6 @@ def load() -> ctypes.CDLL:
             # per-layer pointer and int tables are host arrays
             PP, IP = ctypes.POINTER(P), ctypes.POINTER(I)
             lib.mucon_wavenet_train_v2_fwd.argtypes = [PP, IP, I] + [P] * 8 + [I] * 6 + [P]
-            L = ctypes.c_long
             lib.mucon_wavenet_train_v2_sweep.argtypes = ([PP, IP, I] + [P] * 14 + [L, P, L, P]
                                                          + [I] * 6 + [P])
             lib.mucon_wavenet_train_v2_grid.argtypes = [I, I, IP]
@@ -212,7 +216,7 @@ def load() -> ctypes.CDLL:
                        lib.mucon_wavenet_train_sweep, lib.mucon_wavenet_train_plan,
                        lib.mucon_bilstm_fwd_plan,
                        lib.mucon_bilstm_bwd_coefs, lib.mucon_bilstm_bwd_chain,
-                       lib.mucon_bilstm_chain_width, lib.mucon_mstcnpp_tile_rows,
+                       lib.mucon_bilstm_chain_plan, lib.mucon_mstcnpp_tile_rows,
                        lib.mucon_decoder_chain_fwd, lib.mucon_decoder_chain_replay,
                        lib.mucon_decoder_chain_bwd, lib.mucon_decoder_chain_smem,
                        lib.mucon_decoder_chain_width, lib.mucon_decoder_chain_fwd_launch,
@@ -619,8 +623,10 @@ def _unpad_grads(C0, gx, dw3, db3, dw1, db1, dwl, dbl):
 # they take (csrc/bilstm.cu, decoder_chain.cu MAX_H, MAX_H_WIDE; the JAX
 # package's byte gates admit its kernels up to H = 1447)
 MAX_H, MAX_H_WIDE = 512, 2048
-# the wide kernels' cluster (a ragged split) and threads a CTA
-WIDE_CL, WIDE_THREADS = 8, 512
+# the BiLSTM's cluster kernels take H up to BILSTM_NARROW_H; above it the
+# persistent kernels (csrc/bilstm.cu NARROW_H, NTP): PERSISTENT is the cluster
+# width a plan reports for them (no cluster: the whole card)
+BILSTM_NARROW_H, PERSISTENT, PERSISTENT_THREADS = 256, 0, 512
 
 
 def _check_width(H: int, what: str) -> None:
@@ -648,62 +654,105 @@ def units_of(rank: int, cl: int, H: int) -> range:
     return range(rank * H // cl, (rank + 1) * H // cl)
 
 
-def _fwd_split(H: int, cl: int, hs: int, any_kc: bool):
+def _fwd_split(H: int, cl: int, hs: int):
     for nt in (256, 512):
         if 4 * hs > nt or 8 * hs > nt:
             continue
         nk = nt // (4 * hs)
         kc = (-(-H // nk) + 3) // 4 * 4
-        if kc <= 64 or (any_kc and nt == 512):
+        if kc <= 64:
             return cl, hs, nt, nk, kc
     return None
 
 
-def _wide_groups(per_group: int, total: int) -> tuple:
-    """(groups, rows a group) of a wide plan: groups of `total` rows, a
-    multiple of 4 each, so that `per_group` products a group make about two
-    passes of WIDE_THREADS threads."""
-    n = max(1, 2 * WIDE_THREADS // per_group)
-    return n, (-(-total // n) + 3) // 4 * 4
+def bilstm_persistent_order(H: int, chain: bool) -> tuple:
+    """The sum order above BILSTM_NARROW_H (`persist_order` in
+    csrc/bilstm.cu), a function of H alone: (groups, rows a group) of the
+    contraction over K = H (the forward: NK groups of KC k-rows) or 4H (the
+    reverse chain: NQ groups of GPQ gate rows), each a multiple of 4.  With
+    hs = ceil(H / 8) and R = 512 up to H = 512, 1024 above: NK = max(1, R /
+    (4 hs)), NQ = max(1, R / hs); the orders of the cluster kernels the
+    persistent ones replaced."""
+    hs, r, K = -(-H // 8), 512 if H <= MAX_H else 1024, 4 * H if chain else H
+    n = max(1, r // (hs if chain else 4 * hs))
+    return n, (-(-K // n) + 3) // 4 * 4
 
 
 def bilstm_fwd_plan(H: int) -> tuple:
     """How the forward recurrence splits a hidden size H (`fwd_plan` in
     csrc/bilstm.cu): (cluster width CL, most hidden units a CTA HS, threads
-    per CTA NT, k-groups NK, k-rows per group KC).  Each CTA's 4 HS gate
-    columns times NK groups of KC rows (a multiple of 4) cover the
-    [H x 4H] w_hh slice.  NT is the least of 256, 512 that holds the
-    columns and a thread per unit for 8 videos.  The even split
-    (`_cluster_width`, CL | H) where KC <= 64 (the weights a thread keeps in
-    registers); else the ragged split (`_ragged_width`, `units_of`), its
-    weights in registers where KC <= 64 and read from L2 where KC is above.
-    Above H = 512 the wide kernel: CL = 8 CTAs of `units_of`, 512 threads
-    that stride over the NK x 4 HS products (NK so that they make about two
-    passes) and the (video, unit) elements, the weights read every step.
-    Every H from 1 to MAX_H_WIDE; raises above."""
+    per CTA NT, k-groups NK, k-rows per group KC).  Up to H = 256 a cluster:
+    each CTA's 4 HS gate columns times NK groups of KC rows (a multiple of 4)
+    cover the [H x 4H] w_hh slice, KC <= 64 the weights a thread keeps in
+    registers; NT is the least of 256, 512 that holds the columns and a
+    thread per unit for 8 videos; the even split (`_cluster_width`, CL | H)
+    where it holds, else the ragged split (`_ragged_width`, `units_of`).
+    Above H = 256 the persistent kernel: CL = PERSISTENT, HS = 0 (the units
+    are split over the whole card's CTAs, `bilstm_fwd_launch`), 512
+    threads, the order of `bilstm_persistent_order`.  Every H from 1 to
+    MAX_H_WIDE; raises above."""
     _check_width(H, "the forward recurrence")
-    if H > MAX_H:
-        hs = -(-H // WIDE_CL)
-        return (WIDE_CL, hs, WIDE_THREADS, *_wide_groups(4 * hs, H))
+    if H > BILSTM_NARROW_H:
+        return (PERSISTENT, 0, PERSISTENT_THREADS, *bilstm_persistent_order(H, False))
     cl = _cluster_width(H)
     rl = _ragged_width(H)
-    return _fwd_split(H, cl, H // cl, False) or _fwd_split(H, rl, -(-H // rl), True)
+    return _fwd_split(H, cl, H // cl) or _fwd_split(H, rl, -(-H // rl))
 
 
-BILSTM_FWD_PLAN_KEYS = ("cl", "threads", "nk", "kc", "clusters", "active")
+BILSTM_CLUSTER_LAUNCH_KEYS = ("cl", "threads", "nk", "kc", "clusters", "active")
+BILSTM_PERSISTENT_LAUNCH_KEYS = ("ctas", "threads", "nk", "kc", "units", "co_resident",
+                                 "rv", "rc", "bv", "tiles", "kch", "chunks", "resident",
+                                 "stages", "smem")
+
+
+def _bilstm_launch(B: int, H: int, chain: bool) -> dict:
+    lib = load()
+    out = (ctypes.c_int * 16)()
+    err = (lib.mucon_bilstm_chain_plan if chain else lib.mucon_bilstm_fwd_plan)(B, H, out)
+    if err != 0:
+        raise RuntimeError(f"bilstm {'chain' if chain else 'forward'} plan failed: "
+                           f"{lib.mucon_cuda_error_string(err).decode()}")
+    if not out[0]:
+        return dict(kind="cluster", **dict(zip(BILSTM_CLUSTER_LAUNCH_KEYS, out[1:7])),
+                    smem=out[15])
+    launch = dict(kind="persistent", **dict(zip(BILSTM_PERSISTENT_LAUNCH_KEYS, out[1:16])))
+    launch["w_hh"] = ("shared memory" if launch["resident"] == launch["chunks"] else
+                      "streamed" if launch["resident"] == 0 else "shared memory + streamed")
+    return launch
 
 
 def bilstm_fwd_launch(B: int, H: int) -> dict:
-    """The forward's launch at B videos (`mucon_bilstm_fwd_plan`): the
-    plan's CL, NT, NK, KC, the clusters of the grid (one per direction and
-    8 videos) and how many the card holds at once (more run in waves)."""
-    lib = load()
-    out = (ctypes.c_int * 6)()
-    err = lib.mucon_bilstm_fwd_plan(B, H, out)
-    if err != 0:
-        raise RuntimeError(f"bilstm forward plan failed: "
-                           f"{lib.mucon_cuda_error_string(err).decode()}")
-    return dict(zip(BILSTM_FWD_PLAN_KEYS, out))
+    """The forward's launch at B videos (`mucon_bilstm_fwd_plan`).  Up to H
+    = 256 (`kind` "cluster"): the plan's CL, NT, NK, KC, the clusters of
+    the grid (one per direction and 8 videos) and how many the card holds
+    at once (more run in waves).  Above (`kind` "persistent"): `ctas` a
+    direction (the grid is twice that, one cooperative launch), the plan's
+    fields (`persist_plan` in csrc/bilstm.cu: `units` a CTA at most; a
+    thread's tile of `rv` videos x `rc` columns of one of `nk` groups of
+    `kc` rows, `bv` videos a pass and `tiles` passes; each group's rows
+    staged `kch` at a time in `chunks` chunks, of which `resident` stay in
+    shared memory and the rest stream through a ring of `stages` slots;
+    `smem` the bytes a CTA takes), `co_resident` the
+    CTAs the card holds at once (at one an SM: its SMs) and `w_hh`: where
+    the weights live ("shared memory", "shared memory + streamed",
+    "streamed")."""
+    return _bilstm_launch(B, H, False)
+
+
+def bilstm_chain_launch(B: int, H: int) -> dict:
+    """The reverse chain's launch at B videos (`mucon_bilstm_chain_plan`),
+    as `bilstm_fwd_launch` (NK, KC: the chain's NQ, GPQ)."""
+    return _bilstm_launch(B, H, True)
+
+
+def _scratch(B: int, H: int, chain: bool, dev):
+    """The scratch of a persistent launch (`mucon_bilstm_scratch_floats`: its
+    step counters, exchange rows and state, which the launch zeroes, and the
+    forward's packed w_hh rows where it streams); none up to H = 256."""
+    n = load().mucon_bilstm_scratch_floats(int(chain), B, H)
+    if n < 0:
+        raise RuntimeError(f"no persistent BiLSTM plan on this card at B={B}, H={H}")
+    return (torch.empty(n, device=dev, dtype=torch.float32), n) if n else (None, 0)
 
 
 def _check_bilstm(xp, m, w_hh):
@@ -725,10 +774,11 @@ def _bilstm_forward(xp, m, w_hh, stash: bool, name: str):
     h = torch.empty(2, B, H, **f32)
     c = torch.empty(2, B, H, **f32)
     cs = torch.empty(T, 2, B, H, **f32) if stash else None
+    scratch, n = _scratch(B, H, False, dev)
     lib = load()
     err = lib.mucon_bilstm_recurrence(
         xp.data_ptr(), m.data_ptr(), w_hh.data_ptr(), outs.data_ptr(),
-        h.data_ptr(), c.data_ptr(), _ptr(cs), T, B, H, _stream(dev),
+        h.data_ptr(), c.data_ptr(), _ptr(cs), _ptr(scratch), n, T, B, H, _stream(dev),
     )
     _check_launch(lib, err, name)
     return outs, h, c, cs
@@ -736,9 +786,11 @@ def _bilstm_forward(xp, m, w_hh, stash: bool, name: str):
 
 def bilstm_recurrence(xp, m, w_hh):
     """xp [T x 2 x B x 4H], m [T x B], w_hh [2 x H x 4H] (f32) ->
-    (outs [T x 2 x B x H], h [2 x B x H], c [2 x B x H]): one
+    (outs [T x 2 x B x H], h [2 x B x H], c [2 x B x H]): up to H = 256 one
     thread-block cluster per direction and 8 videos, w_hh resident in its
-    registers, or read from L2 where they do not hold it (`bilstm_fwd_plan`)."""
+    registers; above, one cooperative launch of the persistent kernel over
+    the whole card, w_hh resident in its CTAs' shared memory as far as it
+    holds and streamed for the rest (`bilstm_fwd_launch`)."""
     return _bilstm_forward(xp, m, w_hh, False, "bilstm_recurrence")[:3]
 
 
@@ -756,19 +808,17 @@ BILSTM_CHAIN_BT, BILSTM_CHAIN_THREADS, BILSTM_CHAIN_WIDE_THREADS = 8, 256, 512
 def bilstm_chain_plan(H: int) -> tuple:
     """How the reverse chain splits a hidden size H (`chain_plan` in
     csrc/bilstm.cu): (cluster width CL, most columns a CTA HS, thread groups
-    NQ, gate rows per group GPQ).  The even split (`_cluster_width`) on 256
-    threads, GPQ <= 128 weights a thread in registers, where it leaves at
-    most 32 columns a CTA (a thread per video and column); else the ragged
-    split (`_ragged_width`, `units_of`) on 512 threads, each reading its GPQ
-    rows of w_hh from L2 every step.  Above H = 512 the wide kernel: CL = 8
-    CTAs of `units_of`, 512 threads that stride over the NQ x HS products
-    (NQ so that they make about two passes) and the (video, column)
-    elements, dgate staged from dxp.  Every H from 1 to MAX_H_WIDE; raises
+    NQ, gate rows per group GPQ).  Up to H = 256 a cluster: the even split
+    (`_cluster_width`) on 256 threads, GPQ <= 128 weights a thread in
+    registers, where it leaves at most 32 columns a CTA (a thread per video
+    and column); else the ragged split (`_ragged_width`, `units_of`) on 512
+    threads, each reading its GPQ rows of w_hh from L2 every step.  Above H =
+    256 the persistent kernel: CL = PERSISTENT, HS = 0 and the order of
+    `bilstm_persistent_order`.  Every H from 1 to MAX_H_WIDE; raises
     above."""
     _check_width(H, "the reverse chain")
-    if H > MAX_H:
-        hs = -(-H // WIDE_CL)
-        return (WIDE_CL, hs, *_wide_groups(hs, 4 * H))
+    if H > BILSTM_NARROW_H:
+        return (PERSISTENT, 0, *bilstm_persistent_order(H, True))
     cl = _cluster_width(H)
     hs, nt = H // cl, BILSTM_CHAIN_THREADS
     if BILSTM_CHAIN_BT * hs > nt:
@@ -810,8 +860,10 @@ def bilstm_bwd_coefs(xp, m, w_hh, outs, cs, *, count: bool = True, cell: bool = 
 
 
 def bilstm_bwd_chain(coefs, m, w_hh, douts, dh, dc):
-    """The sequential pass (`bilstm_bwd_chain_plain`) on a thread-block
-    cluster per direction and 8 videos: dxp [T x 2 x B x 4H]."""
+    """The sequential pass (`bilstm_bwd_chain_plain`): dxp [T x 2 x B x 4H],
+    on a thread-block cluster per direction and 8 videos up to H = 256, on
+    one cooperative launch of the persistent kernel above
+    (`bilstm_chain_launch`)."""
     dev = _cuda_device(douts)
     if douts.dim() != 4 or douts.shape[1] != 2:
         raise ValueError(f"douts must be [T x 2 x B x H], got {tuple(douts.shape)}")
@@ -822,10 +874,11 @@ def bilstm_bwd_chain(coefs, m, w_hh, douts, dh, dc):
     _require(dev, torch.float32, m=m, w_hh=w_hh)
     _check_bilstm_bwd(dev, T, B, H, coefs=coefs, douts=douts, dh=dh, dc=dc)
     dxp = torch.empty(T, 2, B, 4 * H, device=dev, dtype=torch.float32)
+    scratch, n = _scratch(B, H, True, dev)
     lib = load()
     err = lib.mucon_bilstm_bwd_chain(
         coefs.data_ptr(), m.data_ptr(), w_hh.data_ptr(), douts.data_ptr(), dh.data_ptr(),
-        dc.data_ptr(), dxp.data_ptr(), T, B, H, _stream(dev))
+        dc.data_ptr(), dxp.data_ptr(), _ptr(scratch), n, T, B, H, _stream(dev))
     _check_launch(lib, err, "bilstm_train_bwd")
     return dxp
 
@@ -834,8 +887,8 @@ def bilstm_train_backward(xp, m, w_hh, outs, cs, douts, dh, dc):
     """Reverse (dh, dc) chain: dxp [T x 2 x B x 4H] from the stash and the
     cotangents of (outs, h_fin, c_fin).  Two kernels, counted as one
     `bilstm_train_bwd` launch: the coefficient pass over all steps at once
-    (`bilstm_bwd_coefs`, into scratch allocated here), then the cluster
-    chain (`bilstm_bwd_chain`)."""
+    (`bilstm_bwd_coefs`, into scratch allocated here), then the chain
+    (`bilstm_bwd_chain`)."""
     coefs = bilstm_bwd_coefs(xp, m, w_hh, outs, cs, count=False)
     return bilstm_bwd_chain(coefs, m, w_hh, douts, dh, dc)
 

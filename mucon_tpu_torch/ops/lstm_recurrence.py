@@ -27,8 +27,10 @@ sums each step's h w_hh as NK partial products over k-rows [g KC,
 (g + 1) KC), added in group order, then xp (the forward and the
 coefficient pass, `cuda.bilstm_fwd_plan`); `row_groups=GPQ` sums the
 chain's dgate w_hh^T as partial products over gate rows [q GPQ,
-(q + 1) GPQ) in group order (`cuda.bilstm_chain_plan`).  Which CTA of a
-cluster holds a unit changes no sum.
+(q + 1) GPQ) in group order (`cuda.bilstm_chain_plan`).  Above H = 256
+these orders are the persistent kernels' (`cuda.bilstm_persistent_order`, a
+function of H alone).  Which CTA holds a unit (of a cluster, or of the
+persistent kernels' grid over the whole card) changes no sum.
 * `bilstm_recurrence_train` — train dispatch: autograd of the plain
   recurrence on CPU tensors, the Function on CUDA tensors.
 """
@@ -166,8 +168,9 @@ class BiLSTMRecurrenceTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, douts, dh, dc):
         xp, m, w_hh, outs, cs = ctx.saved_tensors
+        state = outs.new_zeros(outs.shape[1:])  # h_fin's and c_fin's shape, also at T = 0
         douts, dh, dc = (torch.zeros_like(ref) if g is None else g.contiguous()
-                         for g, ref in ((douts, outs), (dh, cs[0]), (dc, cs[0])))
+                         for g, ref in ((douts, outs), (dh, state), (dc, state)))
         dxp = _train_backward(xp, m, w_hh, outs, cs, douts, dh, dc)
         # the gates of step t consumed h_prev = outs[t - 1] (zeros at t = 0)
         h_prev = torch.cat([torch.zeros_like(outs[:1]), outs[:-1]])

@@ -66,6 +66,19 @@ def test_jax_params_round_trip_exactly_other_backbones(ft_type, key):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
+def test_version_is_the_jax_package_version():
+    """The port keeps its own `__version__` (mucon_tpu_torch/version.py, a
+    copy, not an import), exported from the package as `mucon_tpu` does,
+    and equal to the JAX package's."""
+    import mucon_tpu
+    import mucon_tpu_torch
+    from mucon_tpu_torch import version
+
+    assert mucon_tpu_torch.__version__ == version.__version__ == mucon_tpu.__version__
+    assert "__version__" in mucon_tpu_torch.__all__
+    assert "mucon_tpu" not in (REPO / "mucon_tpu_torch" / "version.py").read_text()
+
+
 def test_port_imports_no_jax_or_flax():
     """Importing every module of the port (and chip_smoke.py) in a fresh
     process pulls in no jax, flax or mucon_tpu, and no yaml or msgpack:

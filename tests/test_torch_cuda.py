@@ -5,7 +5,8 @@ T = 1, fully masked videos, K = 1, infeasible DPs, the DP's two bodies and a
 walk table in device memory, a decoder chain of one
 step, one video, one frame or a thousand, one segment of the flint loss,
 an MS-TCN++ stage at odd lengths and lengths on a tile edge, the BiLSTM
-recurrence and its reverse chain on clusters of 1, 2 and 8 CTAs, the
+recurrence and its reverse chain on clusters of 1, 2 and 8 CTAs and on the
+persistent kernels above H = 256 (H = 300, 512, 768, 1447), the
 decoder chain's replay pass and cluster chain, the trainable stack at each
 of its row tiles and at B = 1 and 8, the v2 stack in 1, 3 and 11 chunks
 with tied pool pairs and at B = 1 and 8 on T = 2560, a v2 chunk too large
@@ -160,8 +161,12 @@ def test_wavenet_eval_layer_is_train_forward(dev, pooling_type, leaky):
 
 
 # B not a multiple of the cluster's 8-video tile; H = 8 (a cluster of one
-# CTA); the serving batch, B = 128 at Tz = 160 (32 clusters of 8 CTAs)
-@pytest.mark.parametrize("T,B,H", [(13, 11, 128), (13, 3, 8), (160, 128, 128)])
+# CTA); the serving batch, B = 128 at Tz = 160 (32 clusters of 8 CTAs); above
+# H = 256 the persistent kernel: H = 300 at B = 11 (a ragged unit split, a
+# video tile of 11), the widths phase's eval shape (H = 512, B = 128) and
+# the longest (H = 1447, B = 2, Tz = 40: most of w_hh streamed every step)
+@pytest.mark.parametrize("T,B,H", [(13, 11, 128), (13, 3, 8), (160, 128, 128), (13, 11, 300),
+                                   (160, 128, 512), (40, 2, 1447)])
 def test_bilstm_kernel_tile_remainder(dev, T, B, H):
     g = torch.Generator().manual_seed(1)
     xp = torch.randn(T, 2, B, 4 * H, generator=g).to(dev)
@@ -175,8 +180,44 @@ def test_bilstm_kernel_tile_remainder(dev, T, B, H):
     assert all(torch.equal(a, b) for a, b in zip(got, bilstm_recurrence(xp, m, w_hh)))
     launch = cuda.bilstm_fwd_launch(B, H)
     cl, _, nt, nk, kc = cuda.bilstm_fwd_plan(H)
-    assert (launch["cl"], launch["threads"], launch["nk"], launch["kc"]) == (cl, nt, nk, kc)
-    assert launch["clusters"] == 2 * -(-B // 8) and launch["active"] >= 1
+    assert (launch["threads"], launch["nk"], launch["kc"]) == (nt, nk, kc)
+    if H <= cuda.BILSTM_NARROW_H:
+        assert launch["kind"] == "cluster" and launch["cl"] == cl
+        assert launch["clusters"] == 2 * -(-B // 8) and launch["active"] >= 1
+    else:  # one cooperative grid the card holds at once, the plan of its SMs
+        assert launch["kind"] == "persistent" and cl == cuda.PERSISTENT
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert launch["ctas"] == sms // 2 and 2 * launch["ctas"] <= launch["co_resident"]
+        persistent_launch_covers(launch, B, H, False)
+        chain = cuda.bilstm_chain_launch(B, H)
+        assert chain["kind"] == "persistent" and chain["ctas"] == launch["ctas"]
+        persistent_launch_covers(chain, B, H, True)
+
+
+def persistent_launch_covers(launch, B, H, chain):
+    """A persistent launch report covers every product once and fits the
+    card: CTAs of at most `units` units and their 4 gate columns (the
+    chain's: columns of dh), each CTA's columns split into NCG thread
+    columns of RC and its BV videos into NVG thread rows of RV, NVG NCG NK
+    threads at most 512, TILES passes of BV videos covering B; each of the
+    NK groups' KC rows (the order of `bilstm_persistent_order`) staged in
+    CHUNKS chunks of KCH, of which RESIDENT stay in shared memory, within
+    the card's shared memory."""
+    nk, kc, kch, rv, rc, bv = (launch[k] for k in ("nk", "kc", "kch", "rv", "rc", "bv"))
+    assert (nk, kc) == cuda.bilstm_persistent_order(H, chain)
+    assert launch["units"] == -(-H // launch["ctas"])
+    nc = launch["units"] if chain else 4 * launch["units"]
+    ncg, nvg = -(-nc // rc), bv // rv
+    assert nvg * rv == bv and nvg * ncg * nk <= launch["threads"] == cuda.PERSISTENT_THREADS
+    assert bv * launch["tiles"] >= B > bv * (launch["tiles"] - 1)
+    assert kch % 8 == 0 and launch["chunks"] == -(-kc // kch)
+    rows = sorted(g * kc + i * kch + r for g in range(nk) for i in range(launch["chunks"])
+                  for r in range(kch) if i * kch + r < kc and g * kc + i * kch + r < (
+                      4 * H if chain else H))
+    assert rows == list(range(4 * H if chain else H))
+    assert 0 <= launch["resident"] <= launch["chunks"]
+    assert 1 <= launch["stages"] <= min(launch["chunks"], 8)
+    assert launch["smem"] <= cuda.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("K,N", [(1, 4), (2, 1), (40, 9)])
@@ -277,9 +318,9 @@ def test_kernel_wrappers_refuse_bad_input(dev):
 
 @pytest.mark.parametrize("H", [600, 1447])
 def test_wide_bilstm_kernels_match_plain(dev, H):
-    """Above H = 512 the BiLSTM's wide kernels (a ragged split of 8 CTAs,
-    threads striding over the products): the eval recurrence within 1e-5
-    of the plain twin, the train pair's gradients by `_grads_close`."""
+    """Above H = 512 the BiLSTM's persistent kernels at a small batch: the
+    eval recurrence within 1e-5 of the plain twin, the train pair's
+    gradients by `_grads_close`."""
     gen = torch.Generator().manual_seed(H)
     T, B = 9, 3
     xp = torch.randn(T, 2, B, 4 * H, generator=gen).to(dev)
@@ -460,7 +501,42 @@ def test_bilstm_train_kernels_edges(dev, T, B, H):
         _close(coefs, bilstm_bwd_coefs_plain(xp, m, w_hh, outs, cs), 1e-5)
         _close([cuda.bilstm_bwd_chain(coefs, m, w_hh, *cts)],
                [bilstm_bwd_chain_plain(coefs, m, w_hh, *cts)], 1e-5)
-    assert cuda.load().mucon_bilstm_chain_width(H) == cuda.bilstm_chain_plan(H)[0]
+    launch = cuda.bilstm_chain_launch(B, H)
+    assert launch["kind"] == "cluster" and launch["cl"] == cuda.bilstm_chain_plan(H)[0]
+    assert launch["clusters"] == 2 * -(-B // 8) and launch["active"] >= 1
+
+
+def test_bilstm_persistent_train_h768(dev):
+    """The persistent train pair at H = 768, B = 8 (the wide768 run's
+    shape): the forward twice bit for bit and within 1e-5 of its twin in
+    the plan's order, the coefficient pass's cell equal to the stash bit for
+    bit, and the chain's dxp, twice bit for bit, against its twin in the
+    bounds `chip_smoke.py held` holds gradients to (max abs within 1e-2
+    max|ref|, relative L2 within 1e-3)."""
+    g = torch.Generator().manual_seed(6)
+    T, B, H = 160, 8, 768
+    xp = torch.randn(T, 2, B, 4 * H, generator=g).to(dev)
+    lengths = torch.randint(94, 132, (B,), generator=g)
+    lengths[-1] = 0
+    m = (torch.arange(T)[:, None] < lengths[None, :]).float().to(dev)
+    w_hh = ((2 * torch.rand(2, H, 4 * H, generator=g) - 1) / H ** 0.5).to(dev)
+    cts = [torch.randn(*s, generator=g).to(dev) for s in ((T, 2, B, H), (2, B, H), (2, B, H))]
+    nk, kc = cuda.bilstm_fwd_plan(H)[3:]
+    gpq = cuda.bilstm_chain_plan(H)[3]
+    with torch.no_grad():
+        fwd = cuda.bilstm_train_forward(xp, m, w_hh)
+        assert all(torch.equal(a, b) for a, b in zip(fwd, cuda.bilstm_train_forward(xp, m, w_hh)))
+        _close(fwd, bilstm_recurrence_plain(xp, m, w_hh, stash=True, k_groups=(nk, kc)), 1e-5)
+        coefs, cell = cuda.bilstm_bwd_coefs(xp, m, w_hh, fwd[0], fwd[3], cell=True)
+        valid = m[:, None, :, None].expand_as(cell) > 0
+        assert torch.equal(cell[valid], fwd[3][valid])
+        dxp = cuda.bilstm_bwd_chain(coefs, m, w_hh, *cts)
+        assert torch.equal(dxp, cuda.bilstm_bwd_chain(coefs, m, w_hh, *cts))
+        ref = bilstm_bwd_chain_plain(coefs, m, w_hh, *cts, row_groups=gpq)
+    assert (dxp - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    _grads_close([dxp], [ref])
+    assert cuda.bilstm_fwd_launch(B, H)["kind"] == "persistent"
+    assert cuda.bilstm_chain_launch(B, H)["kind"] == "persistent"
 
 
 def test_bilstm_chain_padded_steps_pass_state_through(dev):

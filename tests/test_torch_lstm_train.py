@@ -15,7 +15,9 @@ import torch
 
 from mucon_tpu.ops.lstm_pallas import _bilstm_train_call, bilstm_recurrence_train as jax_train
 from mucon_tpu_torch.models.lstm import MaskedBiLSTM
-from mucon_tpu_torch.cuda import bilstm_chain_plan, bilstm_fwd_plan
+from mucon_tpu_torch.cuda import (
+    BILSTM_NARROW_H, PERSISTENT, bilstm_chain_plan, bilstm_fwd_plan,
+)
 from mucon_tpu_torch.ops.lstm_recurrence import (
     BiLSTMRecurrenceTrain,
     bilstm_bwd_chain_plain,
@@ -126,6 +128,20 @@ def test_function_twins_match_jax_kernel_and_autograd(T, B, H, valid):
     assert not dxp[:, :, [i for i, v in enumerate(valid) if v == 0]].any()
 
 
+def test_function_takes_an_empty_sequence():
+    """T = 0: the Function returns empty outs and zero final states, and its
+    backward (the two kernels' twins on CPU tensors) an empty dxp and a zero
+    w_hh gradient, as autograd of the recurrence has none."""
+    B, H = 2, 8
+    xp = torch.zeros(0, 2, B, 4 * H, requires_grad=True)
+    w_hh = torch.randn(2, H, 4 * H, generator=torch.Generator().manual_seed(0)).requires_grad_()
+    outs, h, c = BiLSTMRecurrenceTrain.apply(xp, torch.zeros(0, B), w_hh)
+    assert outs.shape == (0, 2, B, H) and not h.any() and not c.any()
+    torch.autograd.backward((outs, h, c), (torch.zeros_like(outs), torch.ones(2, B, H),
+                                           torch.ones(2, B, H)))
+    assert xp.grad.shape == (0, 2, B, 4 * H) and not w_hh.grad.any()
+
+
 def test_padded_step_passes_state_through_exactly():
     """At m = 0 the chain emits dgate = 0 and carries (dh + douts[t], dc)
     on bit for bit: after padded steps with zero douts the state that
@@ -149,12 +165,18 @@ def test_padded_step_passes_state_through_exactly():
 
 @pytest.mark.parametrize("H,want", [(8, 1), (16, 1), (32, 2), (64, 4), (128, 8), (256, 8)])
 def test_chain_plan_covers_every_gate_row(H, want):
-    """The cluster split of the reverse chain: the width follows from H,
-    every CTA's columns have a thread per video, and the thread groups'
-    gate-row ranges (multiples of 4, at most 128 rows) cover all 4H rows."""
+    """Up to H = 256 the reverse chain stays on its cluster kernels (above,
+    the persistent kernel): the width follows from H, every CTA's columns
+    have a thread per video, and the thread groups' gate-row ranges
+    (multiples of 4, at most 128 rows) cover all 4H rows once, in an order
+    that depends on H alone (the same plan at every call)."""
     cl, hs, nq, gpq = bilstm_chain_plan(H)
-    assert cl == want and cl * hs == H and 8 * hs <= 256 and nq * hs <= 256
+    assert cl == want != PERSISTENT and H <= BILSTM_NARROW_H
+    assert cl * hs == H and 8 * hs <= 256 and nq * hs <= 256
     assert gpq % 4 == 0 and gpq <= 128 and nq * gpq >= 4 * H
+    rows = [g for q in range(nq) for g in range(q * gpq, min(4 * H, (q + 1) * gpq))]
+    assert rows == list(range(4 * H))
+    assert bilstm_chain_plan(H) == (cl, hs, nq, gpq)
     with pytest.raises(ValueError):
         bilstm_chain_plan(2049)
 
@@ -162,12 +184,14 @@ def test_chain_plan_covers_every_gate_row(H, want):
 @pytest.mark.parametrize("H,want", [(8, (1, 256)), (16, (1, 256)), (32, (2, 256)),
                                     (64, (4, 256)), (128, (8, 256)), (256, (8, 512))])
 def test_fwd_plan_covers_every_gate_row_and_unit(H, want):
-    """The cluster split of the forward recurrence: over the CL CTAs, the
-    threads' (k-row, gate column) pairs cover w_hh [H x 4H] once each,
-    every CTA owns all four gates of its units, and each (video, unit) of
-    an 8-video tile has a thread."""
+    """Up to H = 256 the forward stays on its cluster kernels, w_hh in
+    registers (KC <= 64): over the CL CTAs, the threads' (k-row, gate
+    column) pairs cover w_hh [H x 4H] once each, every CTA owns all four
+    gates of its units, each (video, unit) of an 8-video tile has a thread,
+    and the k-groups (the order the coefficient pass replays) depend on H
+    alone."""
     cl, hs, nt, nk, kc = bilstm_fwd_plan(H)
-    assert (cl, nt) == want and cl * hs == H
+    assert (cl, nt) == want and cl != PERSISTENT and cl * hs == H
     assert kc % 4 == 0 and kc <= 64 and 8 * hs <= nt and nk * 4 * hs <= nt
     cols = 4 * hs
     covered = []
@@ -179,7 +203,10 @@ def test_fwd_plan_covers_every_gate_row_and_unit(H, want):
             units.add(gcol % H)
             covered += [(k, gcol) for k in range(kq * kc, min(H, (kq + 1) * kc))]
         assert units == set(range(r * hs, (r + 1) * hs))
+        assert {q * H + j for q in range(4) for j in units} == {
+            (pc // hs) * H + r * hs + pc % hs for pc in range(cols)}
     assert sorted(covered) == [(k, g) for k in range(H) for g in range(4 * H)]
+    assert bilstm_fwd_plan(H) == (cl, hs, nt, nk, kc)
     for bad in (0, 2049):
         with pytest.raises(ValueError):
             bilstm_fwd_plan(bad)

@@ -3,8 +3,11 @@
 * The Python plans of `mucon_tpu_torch.cuda` (each the mirror of its C++
   plan) take every hidden size H from 1 to 512 and, on the wide kernels,
   at 513, 600, 768, 1024, 1181 and 1447 (the JAX package's widest): the
-  recurrences' cluster splits (even where CL divides H, else ragged) cover
-  each product of their weight matrices exactly once; the stack kernels run
+  recurrences' cluster splits (even where CL divides H, else ragged) and,
+  above H = 256, the BiLSTM's persistent plans (the units over the whole
+  card's CTAs at the train and eval batches and two card sizes, the sum
+  order a function of H alone) cover each product of their weight matrices
+  exactly once; the stack kernels run
   C up to 512 at the next built width (128, 256, 512, zero-padded) and
   above it at a multiple of 128 (the wide bodies' slabs, padded at the end);
   the H = 128 and C = 128 plans are unchanged, and a width above the
@@ -13,7 +16,8 @@
   N = 300 (its global body where the state does not fit shared memory).
 * The twins in the kernels' split order (the BiLSTM's k-groups and gate-row
   groups, the decoder reverse chain's row groups and ragged ranks) against
-  the JAX Pallas kernels in interpret mode at H = 100, 127 and 600.
+  the JAX Pallas kernels in interpret mode at H = 100, 127 and 600, the
+  BiLSTM's also at 257 and 512 (the persistent kernels' orders).
 * The WaveNet and MS-TCN++ twins on channels zero-padded 48 -> 128 (what the
   CUDA wrappers run) against the JAX kernels at C = 48, the trainable
   stack's gradients too.
@@ -68,18 +72,59 @@ TOL = dict(rtol=1e-5, atol=2e-5)
 
 # -- the plans ---------------------------------------------------------------
 
+# the persistent kernels' CTAs a direction on an H100 SXM (132 SMs) and PCIe (114)
+PERSISTENT_CTAS = (66, 57)
+
+
+def persistent_order_covers(H, chain, ctas):
+    """The persistent kernels' split at H on `ctas` CTAs a direction covers
+    every (k-row, column) product of a direction once and each owner holds
+    all four gates of its units: the CTAs' `units_of` partition H and their
+    gate columns (the forward's {q H + j}, the chain's columns j of dh)
+    partition the columns, at most 512 a CTA; the NK groups of KC rows (a
+    multiple of 4) partition the K rows, so each group's FMA chain runs
+    over its rows in order.  The order (NK, KC) is
+    `bilstm_persistent_order(H)`, a function of H alone.  How a CTA tiles
+    its columns and stages the rows depends on B and the card; the card
+    tests check the launch report's tiles (`test_bilstm_kernel_tile_remainder`)."""
+    K = 4 * H if chain else H
+    nk, kc = cuda.bilstm_persistent_order(H, chain)
+    assert kc % 4 == 0 and (nk - 1) * kc < K <= nk * kc, (H, chain)
+    rows = [g * kc + r for g in range(nk) for r in range(kc) if g * kc + r < K]
+    assert rows == list(range(K)), (H, chain)
+    ctas = min(ctas, H)
+    most = -(-H // ctas)
+    assert (most if chain else 4 * most) <= cuda.PERSISTENT_THREADS, H
+    units, cols = [], []
+    for r in range(ctas):
+        u = cuda.units_of(r, ctas, H)
+        assert 1 <= len(u) <= most, (H, r)
+        units += list(u)
+        cols += list(u) if chain else [q * H + j for q in range(4) for j in u]
+    assert units == list(range(H)) and sorted(cols) == list(range(len(cols)))
+    assert len(cols) == (H if chain else 4 * H)
+    return nk, kc
+
+
 def test_bilstm_fwd_plan_covers_every_product_once():
-    """Every H: the forward's CTAs (`units_of` of the plan's CL) partition
-    the units, each takes all four gates of its units, a thread per (video,
-    unit) of an 8-video tile, and the threads' (k-row, gate column) pairs
-    cover w_hh [H x 4H] once each: each of the 4H gate columns is one
-    thread column of one CTA, whose NK groups of KC rows cover the H rows
-    once; KC above 64 (weights read from L2) only on 512 threads.  H = 128
-    keeps its plan."""
+    """Every H: up to 256 the cluster split, its CTAs (`units_of` of the
+    plan's CL) partitioning the units, each taking all four gates of its
+    units, a thread per (video, unit) of an 8-video tile, and the threads'
+    (k-row, gate column) pairs covering w_hh [H x 4H] once each: each of
+    the 4H gate columns is one thread column of one CTA, whose NK groups of
+    KC <= 64 rows (registers) cover the H rows once.  Above 256 the
+    persistent split (`persistent_order_covers`) on two card sizes, the
+    order a function of H alone.  H = 128 keeps its plan."""
     assert cuda.bilstm_fwd_plan(128) == (8, 16, 256, 4, 32)
     for H in WIDTHS:
         cl, hs, nt, nk, kc = cuda.bilstm_fwd_plan(H)
-        assert kc % 4 == 0 and (kc <= 64 or nt == 512), H
+        if H > cuda.BILSTM_NARROW_H:
+            assert (cl, hs, nt) == (cuda.PERSISTENT, 0, 512), H
+            assert (nk, kc) == cuda.bilstm_persistent_order(H, False)
+            for ctas in PERSISTENT_CTAS:
+                assert persistent_order_covers(H, False, ctas) == (nk, kc), H
+            continue
+        assert cl >= 1 and kc % 4 == 0 and kc <= 64, H
         rows = [k for kq in range(nk) for k in range(kq * kc, min(H, (kq + 1) * kc))]
         assert rows == list(range(H)), H
         gcols, units = [], []
@@ -94,13 +139,21 @@ def test_bilstm_fwd_plan_covers_every_product_once():
 
 
 def test_bilstm_chain_plan_covers_every_product_once():
-    """Every H: the reverse chain's CTAs partition the columns of dh, a
-    thread per (video, column), and each column's NQ groups of GPQ gate rows
-    cover all 4H rows once; more than 32 columns a CTA only on a ragged
-    split of 512 threads.  H = 128 keeps its plan."""
+    """Every H: up to 256 the reverse chain's CTAs partition the columns of
+    dh, a thread per (video, column), and each column's NQ groups of GPQ
+    gate rows cover all 4H rows once; more than 32 columns a CTA only on a
+    ragged split of 512 threads.  Above 256 the persistent split
+    (`persistent_order_covers`: the 4H gate rows of each column of dh once,
+    the order a function of H alone).  H = 128 keeps its plan."""
     assert cuda.bilstm_chain_plan(128) == (8, 16, 16, 32)
     for H in WIDTHS:
         cl, hs, nq, gpq = cuda.bilstm_chain_plan(H)
+        if H > cuda.BILSTM_NARROW_H:
+            assert (cl, hs, nq, gpq) == (cuda.PERSISTENT, 0,
+                                         *cuda.bilstm_persistent_order(H, True)), H
+            for ctas in PERSISTENT_CTAS:
+                assert persistent_order_covers(H, True, ctas) == (nq, gpq), H
+            continue
         nt = 256 if 8 * (H // cuda._cluster_width(H)) <= 256 else 512  # even, else ragged
         assert gpq % 4 == 0 and nq * hs <= nt and (nt == 512 or gpq <= 128), H
         rows = [g for q in range(nq) for g in range(q * gpq, min(4 * H, (q + 1) * gpq))]
@@ -158,23 +211,17 @@ def test_wide_plans_cover_every_product_once(H):
     chain's NQ groups of GPQ gate rows cover 4H for each of its n columns;
     the decoder reverse chain's NQ groups of RQ rows cover 4H for each of
     its 2 n output columns (dcomb and dh parts).  The wide kernels' threads
-    stride over those products, so no thread count bounds H."""
-    cl, hs, nt, nk, kc = cuda.bilstm_fwd_plan(H)
-    assert (cl, hs, nt) == (8, -(-H // 8), 512) and kc % 4 == 0, H
-    rows = [k for kq in range(nk) for k in range(kq * kc, min(H, (kq + 1) * kc))]
-    assert rows == list(range(H)) and (nk - 1) * kc < H
-    gcols, units = [], []
-    for r in range(cl):
-        u = cuda.units_of(r, cl, H)
-        assert 1 <= len(u) <= hs
-        units += list(u)
-        gcols += [(pc // len(u)) * H + u.start + pc % len(u) for pc in range(4 * len(u))]
-    assert units == list(range(H)) and sorted(gcols) == list(range(4 * H))
-
-    cl, hs, nq, gpq = cuda.bilstm_chain_plan(H)
-    assert (cl, hs) == (8, -(-H // 8)) and gpq % 4 == 0
-    rows = [g for q in range(nq) for g in range(q * gpq, min(4 * H, (q + 1) * gpq))]
-    assert rows == list(range(4 * H)) and (nq - 1) * gpq < 4 * H
+    stride over those products, so no thread count bounds H.  The BiLSTM's
+    are the persistent splits (`persistent_order_covers`), the order the
+    same on every card size, equal to the cluster kernels' they replaced:
+    NK = max(1, 1024 / (4 ceil(H / 8))) groups, NQ = max(1, 1024 /
+    ceil(H / 8))."""
+    hs8 = -(-H // 8)
+    for chain, n in ((False, max(1, 1024 // (4 * hs8))), (True, max(1, 1024 // hs8))):
+        orders = {persistent_order_covers(H, chain, ctas) for ctas in PERSISTENT_CTAS}
+        assert orders == {(n, (-(-(4 * H if chain else H) // n) + 3) // 4 * 4)}, (H, chain)
+    assert cuda.bilstm_fwd_plan(H)[:3] == (cuda.PERSISTENT, 0, 512)
+    assert cuda.bilstm_chain_plan(H)[:2] == (cuda.PERSISTENT, 0)
 
     cl, hs, nt = cuda.decoder_chain_fwd_plan(H)
     assert cl * hs == H and cl == cuda._cluster_width(H) and nt == 256
@@ -260,7 +307,7 @@ def _lstm_inputs(T, B, H, valid, seed):
 
 
 @pytest.mark.interpret
-@pytest.mark.parametrize("H", [100, 127, 600])
+@pytest.mark.parametrize("H", [100, 127, 257, 512, 600])
 def test_bilstm_split_order_twins_match_jax(H):
     """The forward in its k-group order (`bilstm_fwd_plan`), the coefficient
     pass in the same order and the chain in its gate-row order
