@@ -18,7 +18,7 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    Viterbi DP and its pointer walk (one launch) equal to the plain DP +
    `traceback_positions` in all four outputs, and repeating bit for bit, at
    B=128, at request B's three videos and at edge shapes (K = 1, N = 1,
-   k_valid < K, infeasible videos, the block body at N = 40 and L = 133, a
+   k_valid < K, infeasible videos, the cluster body at N = 40 and L = 133, a
    walk table in device memory at K = 4000), each timed beside the plain
    pair with its plan printed;
 4. serves two requests through `predict_videos` (the bench eval batch of 128
@@ -152,7 +152,9 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    H = 1447 and the decoder chain at H = 1181 (B = 2, Tz = 40), the reverse
    chain at Tz = 2048 (H = 128) and 1536 (H = 768), B = 1 (its tables in
    device memory), the DP at frame_sampling 1 and 3 (L = 2000, 666: its
-   state in device memory) and at N = 300; the MS-TCN++ model at C = 256
+   cluster body), at N = 300 and at N = 300, L = 2000 (its global body),
+   the flint loss at M = 600 and 778 (its window in chunks of classes) and
+   at N = 482 (in chunks of segments); the MS-TCN++ model at C = 256
    and both backbones at C = H = 768 through `predict_videos` (request A
    among them); and `train_test_mucon` at the wide (C = H = 256), ragged
    (C = 48, H = 100) and wide768 (C = H = 768) configurations with their
@@ -632,7 +634,7 @@ def check_decode(tag: str, args, reps: int = 5) -> tuple:
 # DP shapes off the serving path, (K, N, L, S, max_len): K = 1; N = 1;
 # k_valid < K with more positions than windows (infeasible videos); cells
 # l > 8 that may not grow (max_len 300: the warp body's gated shift); the
-# block body (N > 32, and L > 72 at frame sampling 15); a walk table too
+# cluster body (N > 32, and L > 72 at frame sampling 15); a walk table too
 # large for shared memory
 VITERBI_EDGES = ((1, 4, 66, 30, MAX_LEN), (2, 1, 66, 30, MAX_LEN), (40, 9, 66, 30, MAX_LEN),
                  (40, 9, 66, 30, 300), (85, 40, 66, 30, MAX_LEN), (85, 30, 133, 15, MAX_LEN),
@@ -1715,8 +1717,8 @@ def check_decoder_chain(model, tz_lengths, Tz: int, gen, dev, timed: bool):
 
 # the forward chain off the model's shape, through its step's generic body:
 # the model's width with one context column fewer; H = 256, whose weights
-# do not fit a CTA (read from L2); an odd H (a cluster of one CTA, HS = 33
-# above a pass's 32 units)
+# do not fit a CTA (read from L2); an odd H (the ragged split: 4 CTAs of 8
+# or 9 units)
 CHAIN_SHAPES = ((128, 255), (256, 512), (33, 66))
 
 
@@ -1802,7 +1804,7 @@ def check_flint(arrays, gen, dev):
                        reps=10)
         again = [cuda.mucon_flint(*prep, seg, target, n_len, t_valid, cw) for _ in range(2)]
     expect(torch.equal(*again), "mucon_flint: two calls of the same inputs differ")
-    plan = cuda.flint_plan(B, T)
+    plan = cuda.flint_plan(B, T, N, M)
     say(f"kernel mucon_flint B={B} T={T} N={N} M={M}: {ms[0]:.4f} ms vs plain {ms[1]:.3f} ms; "
         f"clusters of {plan['width']} CTAs a video, {plan['ctas']} CTAs, at most "
         f"{plan['frames']} frames a CTA; two calls bit for bit")
@@ -3604,9 +3606,14 @@ WIDTH_CFGS = {
 # chain at the JAX package's widest H, the reverse chain at long Tz (its
 # tables in device memory)
 LONG_BILSTM, LONG_CHAINS = (1447, 2, 40), ((1181, 2, 40), (128, 1, 2048), (768, 1, 1536))
-# the DP past its shared-memory state: frame_sampling 1 and 3 (L = 2000, 666)
-# at request A's batch, and N = 300 positions ((K, N, L) at 6 videos)
-LONG_DP_SAMPLINGS, LONG_DP_N = (1, 3), (85, 300, 66)
+# the DP past its warp body: frame_sampling 1 and 3 (L = 2000, 666) at
+# request A's batch, and N = 300 positions ((K, N, L) at 6 videos); past a
+# 16-CTA cluster (the global body), N = 300 at L = 2000 (frame_sampling 1)
+LONG_DP_SAMPLINGS, LONG_DP_N, LONG_DP_GLOBAL = (1, 3), (85, 300, 66), (40, 300, 2000)
+# the flint loss past a CTA's shared memory, (B, M, N) at T = 2560: M = 600
+# classes at one video, COIN's 778 step classes at the train batch, and N =
+# 482 segments (chunks of segments as well as of classes)
+LONG_FLINT = ((1, 600, 31), (8, 778, 31), (2, 48, 482))
 
 
 def seeded(gen, dev, *shapes, scale: float = 1.0):
@@ -4067,7 +4074,8 @@ def width_long_shapes(gen, dev, card: str, lines: dict) -> None:
     LONG_CHAINS: a small B and Tz), the reverse chain at Tz = 2048 and 1536
     (B = 1: its tables in device memory), each held as at WIDTH_HS; the DP
     and walk at frame_sampling 1 and 3 (L = 2000, 666; request A's 128
-    videos) and at N = 300, equal to the plain DP + walk bit for bit."""
+    videos), at N = 300 and, on the global body, at LONG_DP_GLOBAL, equal to
+    the plain DP + walk bit for bit."""
     import torch
     from mucon_tpu_torch import cuda
 
@@ -4084,8 +4092,61 @@ def width_long_shapes(gen, dev, card: str, lines: dict) -> None:
     K, N, L = LONG_DP_N
     dp_line(f"N={N}", viterbi_edge_args(K, N, L, FRAME_SAMPLING, MAX_LEN, gen, dev),
             f"N={N} L={L}", lines)
+    K, N, L = LONG_DP_GLOBAL
+    body = cuda.viterbi_plan(6, N, L, K)["body"]
+    expect(body == "global", f"dense_viterbi N={N} L={L}: planned on the {body} body, not the "
+           "global one")
+    dp_line(f"N={N} L={L}", viterbi_edge_args(K, N, L, 1, MAX_LEN, gen, dev),
+            f"N={N} L={L} (global body)", lines)
     say(f"widths: the DP's plans {[cuda.viterbi_plan(128, N_MAX, MAX_LEN // fs) for fs in LONG_DP_SAMPLINGS]}, "
         f"{cuda.viterbi_plan(6, N, L)} [{card}]")
+
+
+def width_flint(gen, dev, card: str, lines: dict) -> None:
+    """The flint kernel at LONG_FLINT, its window in chunks of classes and,
+    at N = 482, of segments (`cuda.flint_plan`, the plan's bytes the kernel
+    file's count; a line's chunks as planned): against
+    `mucon_flint_plain` within FWD_BOUND, two calls bit for bit, timed
+    beside the plain loss; a `width` line each."""
+    import torch
+    from mucon_tpu_torch import cuda
+    from mucon_tpu_torch.ops.mucon_loss import flint_prep, mucon_flint_plain
+
+    T = 2560
+    for B, Mf, N in LONG_FLINT:
+        lengths_raw = (1.5 * torch.randn(B, N, generator=gen)).to(dev)
+        seg = (2.0 * torch.randn(B, T, Mf, generator=gen)).to(dev)
+        target = torch.randint(0, Mf, (B, N), generator=gen).to(dev)
+        n_len = torch.randint(1, N + 1, (B,), generator=gen)
+        n_len[0] = N
+        t_valid = torch.randint(1500, T + 1, (B,), generator=gen)
+        n_len, t_valid = n_len.to(dev), t_valid.to(dev)
+        cw = torch.ones(Mf, device=dev)
+        cw[0] = 0.5  # the background class weight of the default config
+        tag = f"B={B} T={T} N={N} M={Mf}"
+        with torch.no_grad():
+            prep = flint_prep(lengths_raw, n_len, t_valid, 0.0)
+            run = lambda: cuda.mucon_flint(*prep, seg, target, n_len, t_valid, cw)  # noqa: E731
+            got = run()
+            expect(torch.equal(got, run()), f"mucon_flint {tag}: two calls differ")
+            want = mucon_flint_plain(lengths_raw, seg, target, n_len, t_valid, 0.0, cw)
+            err = held(f"mucon_flint {tag}", [("loss", got, want)], grads=False)
+            ms = paired_ms(run, lambda: mucon_flint_plain(lengths_raw, seg, target, n_len,
+                                                          t_valid, 0.0, cw), reps=5)
+        plan = cuda.flint_plan(B, T, N, Mf)
+        expect(plan["smem"] == cuda.flint_smem(plan["nc"], plan["mc"]),
+               f"mucon_flint {tag}: the plan's {plan['smem']} bytes are not the kernel's")
+        expect(plan["chunks"] > 1 and (plan["nc"] < N) == (N > 31),
+               f"mucon_flint {tag}: planned {plan['chunks']} chunks of {plan['nc']} segments")
+        say(f"widths: kernel mucon_flint {tag}: {ms[0]:.4f} ms vs plain {ms[1]:.3f} ms; "
+            f"{plan['chunks']} chunks of {plan['nc']} segments x {plan['mc']} classes, "
+            f"{plan['smem']} B shared a CTA, clusters of {plan['width']}; two calls bit for "
+            f"bit [{card}]")
+        nl, tv = n_len.cpu().long(), t_valid.cpu().long()
+        moved = 4 * int(tv.sum()) * Mf + nbytes(*prep, target, n_len, t_valid, cw) + 4 * B
+        width_line("mucon_flint", f"M={Mf} N={N} B={B}",
+                   dict(report(err, *ms, moved, int((nl * tv).sum()) * (10 + 2 * Mf)),
+                        **{k: plan[k] for k in ("nc", "mc", "chunks")}), lines)
 
 
 def dp_line(tag: str, args, width: str, lines: dict) -> None:
@@ -4177,6 +4238,7 @@ def widths_phase(dev, card: str, tmp: str, cli: dict) -> dict:
     v2_bf16 = width_train_stacks(gen, dev, card, lines)
     width_recurrences(gen, dev, card, lines)
     width_long_shapes(gen, dev, card, lines)
+    width_flint(gen, dev, card, lines)
     model_m = create_model(M, N_MAX + 1, D, ft_type="mstcnpp", device=dev, seed=0,
                            hidden_size=256, lstm_hidden_size=256)
     with torch.inference_mode():

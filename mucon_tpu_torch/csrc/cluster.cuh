@@ -7,6 +7,9 @@
 //   cluster_sync()            barrier over all threads of the cluster; remote
 //                             writes made before it are visible after it
 //                             (arrive.release + wait.acquire)
+//   cluster_arrive(), cluster_wait()
+//                             the same barrier split in two: work between
+//                             them overlaps the peers' arrival
 //   launch_cluster(...)       launch with a cluster of `width` CTAs along x
 //   max_active_clusters(...)  how many clusters of that launch the card holds
 //                             at once (a grid of more runs in waves)
@@ -42,6 +45,14 @@ __device__ __forceinline__ T* cluster_peer(T* smem, unsigned rank) {
 }
 
 __device__ __forceinline__ void cluster_sync() { cooperative_groups::this_cluster().sync(); }
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
 
 // A launch configuration with a cluster of `width` CTAs along x; `attr`
 // must outlive it.  Raises the kernel's dynamic shared memory limit where

@@ -17,9 +17,11 @@
 //   gates = [comb; h] [Wih; Whh] + bl;  c = f c + i g;  h = o tanh(c)
 // It stashes hs, cs and comb [S, B, H].
 //
-// Forward design (`chain_fwd_kernel`): one cluster of CL = cluster::width_for(H)
-// CTAs per video (8 at H = 128), CTA r owning HS = H / CL hidden units and
-// frames [r Tz / CL, (r + 1) Tz / CL).  Resident in each CTA's shared memory
+// Forward design (`chain_fwd_kernel`): one cluster of CL = cluster::ragged_width(H)
+// CTAs per video (8 from H = 64), CTA r owning the hidden units
+// cluster::units_of(r, CL, H) (H / CL each where CL divides H, as at H =
+// 128; else ceil or floor of H / CL, the regions sized by the largest share
+// HS) and frames [r Tz / CL, (r + 1) Tz / CL).  Resident in each CTA's shared memory
 // for all S steps, loaded from L2 once a call where they fit (at H = 128,
 // E = 256 they do): its units' rows of Wl2 (HS x H), the [Wih; Whh] columns
 // of its units' four gates (2H x 4 HS, 64 KiB at H = 128) and the [Wc1; Wc2]
@@ -51,8 +53,8 @@
 // cpre, h Whh of the gates) run while an exchange is in flight.  The
 // combine layer and the gates are warp GEMVs: a warp's lanes split k, and a
 // fixed shuffle reduce-scatter adds them; 8 warps take 32 combine columns
-// and 128 gate columns (32 units) a pass, and an HS above 32 (a cluster of
-// one CTA at an odd H) takes more passes.  Every sum is in a fixed order,
+// and 128 gate columns (32 units) a pass, and a share above 32 units (H
+// above 256) takes more passes.  Every sum is in a fixed order,
 // no atomics: two calls agree bit for bit.  The step is compiled for the
 // model's shape (H = 128, E = 256, CL = 8: every loop bound a constant) and
 // for any other.
@@ -79,10 +81,10 @@
 // them to XLA.
 //
 // Widths: every H from 1 to 512 on the kernels above (and past 512, see
-// below).  The forward keeps its split (CL =
-// cluster::width_for(H); a CTA's threads stride over its units, so an odd H
-// runs on one CTA of up to 511 units, its passes of 32 columns); the replay
-// copies its next item's e in only after the passes that read this one's.
+// below).  The forward takes its ragged split at every H (a CTA's threads
+// stride over its share of units, its passes of 32 columns), so no H runs
+// on fewer than 8 CTAs from H = 64 on; the replay copies its next item's e
+// in only after the passes that read this one's.
 // The reverse chain takes the split above where its registers hold it, else
 // a ragged one (`bwd_plan`, gw): CL = cluster::ragged_width(H) CTAs of uneven shares,
 // 512 threads (a thread a unit), the [Wih; Whh] rows and Wl2's columns read
@@ -115,7 +117,7 @@ namespace {
 
 constexpr float NEG = -1e30f;
 constexpr int NTF = 256;     // threads per CTA of the forward chain and the replay pass
-constexpr int MAX_CL = 8;    // the widest cluster::width_for
+constexpr int MAX_CL = 8;    // the forward's cluster above H = MAX_H
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -188,23 +190,26 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 constexpr int MAX_H = 512;         // the widest hidden size of the narrow reverse chain
 constexpr int MAX_H_WIDE = 2048;   // the widest hidden size the chains take
 
-// How the forward splits H over a cluster: CL = cluster::width_for(H) CTAs
-// of HS units, NTF threads (8 warps) each; every H from 1 to MAX_H (a CTA's
-// threads stride over its units where it writes their state).  A pass of
-// the combine layer takes 4 of its columns a warp, a pass of the gates 8 a
-// warp; an HS above 32 takes more passes.
+// How the forward splits H over a cluster: CL = cluster::ragged_width(H)
+// CTAs (8 from H = 64), CTA r taking the units cluster::units_of(r, CL, H)
+// (the even split where CL divides H), NTF threads (8 warps) each; HS the
+// largest share, which sizes the shared-memory regions.  Every H from 1 to
+// MAX_H_WIDE (a CTA's threads stride over its units where it writes their
+// state).  A pass of the combine layer takes 4 of its columns a warp, a
+// pass of the gates 8 a warp; a share above 32 units takes more passes.
 struct FwdPlan {
   int cl, hs;
 };
 
 inline bool fwd_plan(int H, FwdPlan& p) {
   if (H < 1 || H > MAX_H_WIDE) return false;
-  p.cl = cluster::width_for(H);
-  p.hs = H / p.cl;
+  p.cl = H > MAX_H ? MAX_CL : cluster::ragged_width(H);
+  p.hs = (H + p.cl - 1) / p.cl;
   return true;
 }
 
 static_assert(NTF == 256, "8 warps: 4 columns of cpre and 8 gate columns a warp a pass");
+static_assert((MAX_H_WIDE + 7) / 8 <= NTF, "a thread a unit of a CTA's share, 8 CTAs or more");
 
 // frames of rank r: [r Tz / CL, (r + 1) Tz / CL); at most ceil(Tz / CL)
 __host__ __device__ inline int rank_rows(int Tz, int cl) { return (Tz + cl - 1) / cl; }
@@ -257,7 +262,7 @@ __host__ __device__ inline size_t fwd_carve(float* base, int cl, int hs, int H, 
   return off;
 }
 
-struct Chain {  // the shared weights and the sizes
+struct Chain {  // the shared weights and the sizes (hs: the largest share of units)
   const float* enc;    // [B, Tz, E]
   const float* pre;    // [B, Tz, H]
   const float* maskf;  // [B, Tz]
@@ -273,14 +278,14 @@ struct Chain {  // the shared weights and the sizes
   int weights, tables;  // the rank's weights / rows of maskf, pre, enc in shared memory
 };
 
-struct Rank {  // this CTA's place in its cluster
-  int rank, j0, t0, t1;
+struct Rank {  // this CTA's place in its cluster: its units [j0, j0 + hs), its frames
+  int rank, j0, hs, t0, t1;
 };
 
 __device__ inline Rank this_rank(const Chain& ch) {
   Rank r;
   r.rank = cluster::cluster_rank();
-  r.j0 = r.rank * ch.hs;
+  cluster::units_of(r.rank, ch.cl, ch.H, r.j0, r.hs);
   r.t0 = r.rank * ch.Tz / ch.cl;
   r.t1 = (r.rank + 1) * ch.Tz / ch.cl;
   return r;
@@ -311,7 +316,7 @@ __device__ __forceinline__ Weights weights_of(const Chain& ch, const Rank& rk,
 // transposed copies is contiguous, so the copy is coalesced, into rows of
 // K + 1 (the odd stride keeps a warp's column reads conflict-free).
 __device__ void load_weights(const Chain& ch, const Rank& rk, const FwdSmem& sm) {
-  const int H = ch.H, E = ch.E, hs = ch.hs, K1 = H + E;
+  const int H = ch.H, E = ch.E, hs = rk.hs, K1 = H + E;
   if (sm.wg) {
     for (int i = threadIdx.x; i < hs * H; i += NTF)
       sm.wl2[i] = __ldg(ch.wl2 + (size_t)rk.j0 * H + i);
@@ -366,14 +371,7 @@ __device__ void prefetch_item(const Chain& ch, const Rank& rk, const Next& nx, c
     cp_async4(sm.x1 + j, nx.emb + j);
     cp_async4(sm.xe + j, nx.h + j);
   }
-  if (tid < ch.hs) cp_async4(sm.xe + H + tid, nx.c + tid);
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// The c_in units of a replay item past the first NTF (HS above a thread a
-// unit: an odd H on one CTA), as `prefetch_item` copies the first ones.
-__device__ void prefetch_rest(const Next& nx, int H, int hs, const FwdSmem& sm) {
-  for (int j = threadIdx.x + NTF; j < hs; j += NTF) cp_async4(sm.xe + H + j, nx.c + j);
+  if (tid < rk.hs) cp_async4(sm.xe + H + tid, nx.c + tid);
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
@@ -395,13 +393,16 @@ __device__ __forceinline__ float dot_strided(const float* x, const float* w, int
 
 // acc[c] += sum over k = k0 + lane, k0 + lane + 32, ... < k1 of x[k] wT[(col0 + c) ldk + k]
 // for the C columns col0 .. col0 + C - 1 below ncol: a warp's lanes split k.
-template <int C>
+// U k-steps are unrolled together, their loads in flight at once (the sums
+// keep their order): 4 at the model's shape, 8 at any other (where the
+// weights may stream from L2).
+template <int C, int U>
 __device__ __forceinline__ void warp_gemv(float (&acc)[C], const float* x, const float* wT,
                                           int ldk, int col0, int ncol, int k0, int k1,
                                           int lane) {
   if (col0 >= ncol) return;
   if (col0 + C <= ncol) {  // a full block of columns: no guard
-#pragma unroll 4
+#pragma unroll U
     for (int k = k0 + lane; k < k1; k += 32) {
       const float xk = x[k];
 #pragma unroll
@@ -445,7 +446,7 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&acc)[C], int lane) 
 __device__ __noinline__ void send_q_partials(const Chain ch, const Rank rk, const float* h_own) {
   extern __shared__ float smem[];
   const FwdSmem sm = carve(smem, ch);
-  const int H = ch.H, hs = ch.hs;
+  const int H = ch.H, hs = rk.hs;
   const float* wl2 = weights_of(ch, rk, sm).wl2;
   const uint32_t mb4 = smem_addr(sm.mbar) + 24, slot = smem_addr(sm.qp + rk.rank * H);
   for (int n = threadIdx.x; n < H; n += NTF) {
@@ -477,7 +478,10 @@ __device__ __noinline__ void cluster_step(const Chain ch, const Rank rk, int b, 
   extern __shared__ float smem[];
   const FwdSmem sm = carve(smem, ch);
   const int H = HT ? HT : ch.H, E = ET ? ET : ch.E, cl = CLT ? CLT : ch.cl;
-  const int hs = H / cl, j0 = rk.j0, K1 = H + E;
+  constexpr int U = HT ? 4 : 8;  // a GEMV's k-steps in flight (`warp_gemv`)
+  int hs = rk.hs;  // the rank's units (the model's shape: H / CL, a constant)
+  if constexpr (CLT > 0) hs = HT / CLT;
+  const int j0 = rk.j0, K1 = H + E;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const uint32_t mb1 = smem_addr(sm.mbar), mb2 = mb1 + 8, mb3 = mb1 + 16, mb4 = mb1 + 24;
   if (tid == 32) {  // this step's bytes: every rank's (m_r, s_r, ctx_r), comb, h and q slices
@@ -579,7 +583,7 @@ __device__ __noinline__ void cluster_step(const Chain ch, const Rank rk, int b, 
   // cpre = e Wc1 + ctx Wc2 + bc: pass p, warp w the columns 32 p + 4 w .. + 3;
   // the first pass's e half now
   float cacc[4] = {};
-  warp_gemv<4>(cacc, sm.x1, wc, ldc, 4 * warp, hs, 0, H, lane);
+  warp_gemv<4, U>(cacc, sm.x1, wc, ldc, 4 * warp, hs, 0, H, lane);
   mbar_wait(mb1, ph);
 
   // ctx from the ranks' partials, in rank order; a rank with s_r = 0 weighs
@@ -612,12 +616,11 @@ __device__ __noinline__ void cluster_step(const Chain ch, const Rank rk, int b, 
   // pass took every column (HS <= 32), else after the passes that read it
   const bool late = hs > 4 * NW;
   if (nx.b >= 0 && !late) prefetch_item(ch, rk, nx, sm);
-  if (nx.b >= 0 && hs > NTF) prefetch_rest(nx, H, hs, sm);
 
   // exchange 2: the ctx half of cpre; relu(cpre) to every rank.  A pass
   // after the first (HS above 32) takes both halves now, in the same order.
   auto cpre_pass = [&](float(&acc)[4], int col0) {
-    warp_gemv<4>(acc, sm.x1, wc, ldc, col0, hs, H, K1, lane);
+    warp_gemv<4, U>(acc, sm.x1, wc, ldc, col0, hs, H, K1, lane);
     const float cp = warp_reduce_scatter<4>(acc, lane);
     const int jj = col0 + (lane >> 3);
     if (!(lane & 7) && jj < hs) {
@@ -631,7 +634,7 @@ __device__ __noinline__ void cluster_step(const Chain ch, const Rank rk, int b, 
   cpre_pass(cacc, 4 * warp);
   for (int col0 = 4 * warp + 4 * NW; col0 < hs; col0 += 4 * NW) {
     float acc[4] = {};
-    warp_gemv<4>(acc, sm.x1, wc, ldc, col0, hs, 0, H, lane);
+    warp_gemv<4, U>(acc, sm.x1, wc, ldc, col0, hs, 0, H, lane);
     cpre_pass(acc, col0);
   }
   if (nx.b >= 0 && late) {
@@ -645,7 +648,7 @@ __device__ __noinline__ void cluster_step(const Chain ch, const Rank rk, int b, 
   float gacc[2][8] = {};
 #pragma unroll
   for (int t = 0; t < 2; ++t)
-    if (64 * t < ncol) warp_gemv<8>(gacc[t], h - H, wg, ldg, 64 * t + 8 * warp, ncol, H, 2 * H,
+    if (64 * t < ncol) warp_gemv<8, U>(gacc[t], h - H, wg, ldg, 64 * t + 8 * warp, ncol, H, 2 * H,
                                     lane);
   mbar_wait(mb2, ph);
 
@@ -653,7 +656,7 @@ __device__ __noinline__ void cluster_step(const Chain ch, const Rank rk, int b, 
   // A pass after the second (HS above 32) takes both halves now, in the
   // same order.
   auto gate_pass = [&](float(&acc)[8], int t) {
-    warp_gemv<8>(acc, sm.comb, wg, ldg, 64 * t + 8 * warp, ncol, 0, H, lane);
+    warp_gemv<8, U>(acc, sm.comb, wg, ldg, 64 * t + 8 * warp, ncol, 0, H, lane);
     const float g = warp_reduce_scatter<8>(acc, lane);  // column 64 t + 8 w + lane / 4
     const float gf = __shfl_down_sync(0xffffffffu, g, 4);
     const float gg = __shfl_down_sync(0xffffffffu, g, 8);
@@ -678,7 +681,7 @@ __device__ __noinline__ void cluster_step(const Chain ch, const Rank rk, int b, 
   if (ncol > 64) gate_pass(gacc[1], 1);
   for (int t = 2; 64 * t < ncol; ++t) {
     float acc[8] = {};
-    warp_gemv<8>(acc, h - H, wg, ldg, 64 * t + 8 * warp, ncol, H, 2 * H, lane);
+    warp_gemv<8, U>(acc, h - H, wg, ldg, 64 * t + 8 * warp, ncol, H, 2 * H, lane);
     gate_pass(acc, t);
   }
   if (tail_q) {  // the next step's partial q, from the units' new h
@@ -719,7 +722,7 @@ __global__ void __launch_bounds__(NTF, 1) chain_fwd_kernel(
   load_weights(ch, rk, sm);
   load_tables(ch, rk, b, sm);
   for (int j = tid; j < H; j += NTF) sm.hb[j] = h0[(size_t)b * H + j];
-  for (int j = tid; j < ch.hs; j += NTF) sm.c[j] = c0[(size_t)b * H + rk.j0 + j];
+  for (int j = tid; j < rk.hs; j += NTF) sm.c[j] = c0[(size_t)b * H + rk.j0 + j];
   for (int j = tid; j < H; j += NTF) sm.x1[j] = emb[(size_t)b * H + j];
   init_exchanges(sm);
   cluster::cluster_sync();  // every CTA has started, and armed nothing yet, before any peer sends
@@ -732,9 +735,9 @@ __global__ void __launch_bounds__(NTF, 1) chain_fwd_kernel(
     }
     step(ch, rk, b, s & 1, s & 1, s + 1 < S, nullptr, nullptr,
          Next{-1, nullptr, nullptr, nullptr});
-    for (int jj = tid; jj < ch.hs; jj += NTF) {
+    for (int jj = tid; jj < rk.hs; jj += NTF) {
       const int j = rk.j0 + jj;
-      hs[o + j] = sm.act[5 * ch.hs + jj];
+      hs[o + j] = sm.act[5 * rk.hs + jj];
       cs[o + j] = sm.c[jj];
       comb[o + j] = sm.comb[j];
     }
@@ -760,8 +763,9 @@ __global__ void __launch_bounds__(NTF, 1) chain_replay_kernel(
     float* __restrict__ acts, float* __restrict__ cpre, float* __restrict__ a_out,
     float* __restrict__ u_out, float* __restrict__ cell_out, int S, int B, int Tzp) {
   extern __shared__ float smem[];
-  const int H = ch.H, Tz = ch.Tz, hs = ch.hs, tid = threadIdx.x;
+  const int H = ch.H, Tz = ch.Tz, tid = threadIdx.x;
   const Rank rk = this_rank(ch);
+  const int hs = rk.hs;
   const FwdSmem sm = carve(smem, ch);
   load_weights(ch, rk, sm);
   init_exchanges(sm);
@@ -770,10 +774,7 @@ __global__ void __launch_bounds__(NTF, 1) chain_replay_kernel(
     const size_t o = (size_t)item * H;
     return Next{item % B, emb + o, h_in + o, c_in + o + rk.j0};
   };
-  if ((int)blockIdx.y < items) {
-    prefetch_item(ch, rk, next(blockIdx.y), sm);
-    if (hs > NTF) prefetch_rest(next(blockIdx.y), H, hs, sm);
-  }
+  if ((int)blockIdx.y < items) prefetch_item(ch, rk, next(blockIdx.y), sm);
   cluster::cluster_sync();  // every CTA has started before any peer sends
   const size_t plane = (size_t)S * B * H;
   int ph = 0;
@@ -782,7 +783,6 @@ __global__ void __launch_bounds__(NTF, 1) chain_replay_kernel(
     asm volatile("cp.async.wait_group 0;" ::: "memory");
     for (int j = tid; j < H; j += NTF) sm.hb[j] = sm.xe[j];  // this thread's own copies
     if (tid < hs) sm.c[tid] = sm.xe[H + tid];
-    for (int jj = tid + NTF; jj < hs; jj += NTF) sm.c[jj] = sm.xe[H + jj];  // own copies too
     __syncthreads();
     send_q_partials(ch, rk, sm.hb + rk.j0);  // the item's q, from h_in as the forward's
     float* ar = a_out + (size_t)item * Tzp;
@@ -797,7 +797,6 @@ __global__ void __launch_bounds__(NTF, 1) chain_replay_kernel(
       if (cell_out) cell_out[j] = sm.c[jj];
     };
     if (tid < hs) store(tid);
-    for (int jj = tid + NTF; jj < hs; jj += NTF) store(jj);  // HS above a thread a unit
     if (rk.rank == ch.cl - 1)
       for (int t = Tz + tid; t < Tzp; t += NTF) ar[t] = 0.f;
   }

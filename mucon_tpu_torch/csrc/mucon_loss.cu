@@ -23,8 +23,19 @@
 // cluster barrier, CTA r sums the r-th slice of the (n, m) entries over the
 // CL partials in rank order, through distributed shared memory, into rank
 // 0's partial; after a second barrier rank 0 takes the log-softmax NLL.  The
-// masks never touch device memory and seg is read once.  Fixed-order sums
-// and no atomics: the kernel repeats bit for bit.
+// masks never touch device memory.  Fixed-order sums and no atomics: the
+// kernel repeats bit for bit.
+//
+// Where the [N, M] partial, seg's [TT, M] tile and the [N, TT] mask rows
+// do not fit a CTA's shared memory (M above ~590 classes at N = 31, or N
+// above ~480 segments), the kernel walks the window in chunks of mc classes
+// (and, where N alone is too large, of nc segments), `cuda.flint_plan`:
+// each chunk is the pass above on its [nc, mc] columns, seg's chunk read
+// once a chunk.  Rank 0 carries each row's log-softmax across the class
+// chunks as a running max and a sum of exp(logit - max), rescaled where the
+// max grows, and the target's logit from the chunk that holds it.  One
+// chunk (the default shape) is the same adds in the same order as the
+// single pass.
 //
 // Bound on this card: the N M T_b multiply-adds from shared memory (4.9
 // MFLOP a video at N = 30, M = 48, T_b = 1700) on B CL SMs, against a bytes
@@ -54,6 +65,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Shared-memory floats of a CTA at chunks of nc segments and mc classes:
+// the [nc, mc] window partial, seg's [TT, mc] tile, the [nc, TT] mask rows
+// and five [nc] vectors (running max, running sum, target logit, NLL term,
+// weight)
+size_t flint_floats(int nc, int mc) {
+  return (size_t)nc * mc + (size_t)TT * mc + (size_t)nc * TT + (size_t)5 * nc;
+}
+
 __global__ void __launch_bounds__(NTF) flint_kernel(
     const float* __restrict__ scale,  // [B, N]
     const float* __restrict__ xloc,   // [B, N]
@@ -64,13 +83,16 @@ __global__ void __launch_bounds__(NTF) flint_kernel(
     const int* __restrict__ t_valid,  // [B]
     const float* __restrict__ cw,     // [M] or null
     float* __restrict__ out,          // [B]
-    int N, int T, int M, int cl) {
+    int N, int T, int M, int cl, int nc, int mc) {
   extern __shared__ float sm[];
-  float* acc = sm;              // [N, M] this CTA's window sums
-  float* segt = acc + N * M;    // [TT, M]
-  float* mk = segt + TT * M;    // [N, TT]
-  float* num = mk + N * TT;     // [N]
-  float* den = num + N;         // [N]
+  float* acc = sm;               // [nc, mc] this CTA's window sums of the chunk
+  float* segt = acc + nc * mc;   // [TT, mc]
+  float* mk = segt + TT * mc;    // [nc, TT]
+  float* rmx = mk + nc * TT;     // [nc] running max of the rows' logits
+  float* rse = rmx + nc;         // [nc] running sum of exp(logit - max)
+  float* rxt = rse + nc;         // [nc] the target's logit
+  float* num = rxt + nc;         // [nc]
+  float* den = num + nc;         // [nc]
 
   const int b = blockIdx.x / cl;
   const int rank = (int)cluster::cluster_rank();
@@ -81,83 +103,118 @@ __global__ void __launch_bounds__(NTF) flint_kernel(
   const float* sb = seg + (size_t)b * T * M;
   const int run = (max(tv, 0) + cl - 1) / cl;
   const int t_lo = rank * run, t_hi = min(tv, t_lo + run);
-
-  for (int i = threadIdx.x; i < N * M; i += NTF) acc[i] = 0.f;
-  for (int t0 = t_lo; t0 < t_hi; t0 += TT) {
-    const int nt = min(TT, t_hi - t0);
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < nt * M; i += NTF) segt[i] = sb[(size_t)t0 * M + i];
-    for (int i = threadIdx.x; i < N * TT; i += NTF) {
-      const int n = i / TT, tt = i - n * TT;
-      float m = 0.f;
-      if (n < nv && tt < nt) {
-        const float g = -1.f + 2.f * (float)(t0 + tt) / gden;
-        const float c = (scale[b * N + n] * g + xloc[b * N + n] + 1.f) * 0.5f * (TW - 1.f);
-        m = (c <= -1.f || c >= TW) ? 0.f : fminf(fmaxf(fminf(c + 1.f, TW - c), 0.f), 1.f);
-      }
-      mk[i] = m;
-    }
-    __syncthreads();
-    for (int p = threadIdx.x; p < nv * M; p += NTF) {
-      const int n = p / M, m = p - n * M;
-      const float* mr = mk + n * TT;
-      float a = acc[p];
-      for (int tt = 0; tt < nt; ++tt) a = fmaf(mr[tt], segt[tt * M + m], a);
-      acc[p] = a;
-    }
-  }
-
-  // rank r sums slice r of the entries over the ranks' partials, in rank
-  // order, into rank 0's partial
-  cluster::cluster_sync();
-  const int P = nv * M, slice = (P + cl - 1) / cl;
-  float* acc0 = cluster::cluster_peer(acc, 0);
-  for (int p = rank * slice + threadIdx.x; p < min(P, (rank + 1) * slice); p += NTF) {
-    float a = acc0[p];
-    for (int r = 1; r < cl; ++r) a += cluster::cluster_peer(acc, r)[p];
-    acc0[p] = a;
-  }
-  cluster::cluster_sync();
-  if (rank != 0) return;
-
-  // one warp per segment row: log-softmax over M, the target's NLL term
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int n = warp; n < N; n += NTF / 32) {
-    const float d = sdiv[b * N + n];
-    float mx = -INFINITY;
-    for (int m = lane; m < M; m += 32) mx = fmaxf(mx, acc[n * M + m] / d);
-    mx = warp_max(mx);
-    float se = 0.f;
-    for (int m = lane; m < M; m += 32) se += expf(acc[n * M + m] / d - mx);
-    se = warp_sum(se);
-    if (lane == 0) {
-      const int t = min(max(tgt[b * N + n], 0), M - 1);
-      const float w = n < nv ? (cw ? cw[t] : 1.f) : 0.f;
-      num[n] = w * (acc[n * M + t] / d - mx - logf(se));
-      den[n] = w;
+  float s_all = 0.f, w_all = 0.f;  // thread 0 of rank 0: the NLL sums, in segment order
+
+  for (int n0 = 0; n0 < N; n0 += nc) {
+    const int ncn = min(nc, N - n0);                // the chunk's segments
+    const int ncv = max(0, min(ncn, nv - n0));      // of them valid
+    for (int m0 = 0; m0 < M; m0 += mc) {
+      const int mcn = min(mc, M - m0);              // the chunk's classes
+      __syncthreads();  // rank 0 has read the previous chunk's sums
+      for (int i = threadIdx.x; i < ncn * mcn; i += NTF) acc[i] = 0.f;
+      for (int t0 = t_lo; t0 < t_hi; t0 += TT) {
+        const int nt = min(TT, t_hi - t0);
+        __syncthreads();  // the previous tile is consumed
+        if (mcn == M) {
+          for (int i = threadIdx.x; i < nt * M; i += NTF) segt[i] = sb[(size_t)t0 * M + i];
+        } else {
+          for (int i = threadIdx.x; i < nt * mcn; i += NTF) {
+            const int tt = i / mcn, m = i - tt * mcn;
+            segt[i] = sb[(size_t)(t0 + tt) * M + m0 + m];
+          }
+        }
+        for (int i = threadIdx.x; i < ncn * TT; i += NTF) {
+          const int n = i / TT, tt = i - n * TT;
+          float m = 0.f;
+          if (n < ncv && tt < nt) {
+            const int bn = b * N + n0 + n;
+            const float g = -1.f + 2.f * (float)(t0 + tt) / gden;
+            const float c = (scale[bn] * g + xloc[bn] + 1.f) * 0.5f * (TW - 1.f);
+            m = (c <= -1.f || c >= TW) ? 0.f : fminf(fmaxf(fminf(c + 1.f, TW - c), 0.f), 1.f);
+          }
+          mk[i] = m;
+        }
+        __syncthreads();
+        for (int p = threadIdx.x; p < ncv * mcn; p += NTF) {
+          const int n = p / mcn, m = p - n * mcn;
+          const float* mr = mk + n * TT;
+          float a = acc[p];
+          for (int tt = 0; tt < nt; ++tt) a = fmaf(mr[tt], segt[tt * mcn + m], a);
+          acc[p] = a;
+        }
+      }
+
+      // rank r sums slice r of the entries over the ranks' partials, in rank
+      // order, into rank 0's partial
+      cluster::cluster_sync();
+      const int P = ncv * mcn, slice = (P + cl - 1) / cl;
+      float* acc0 = cluster::cluster_peer(acc, 0);
+      for (int p = rank * slice + threadIdx.x; p < min(P, (rank + 1) * slice); p += NTF) {
+        float a = acc0[p];
+        for (int r = 1; r < cl; ++r) a += cluster::cluster_peer(acc, r)[p];
+        acc0[p] = a;
+      }
+      cluster::cluster_sync();
+      if (rank != 0) continue;
+
+      // one warp per segment row: the log-softmax's max and sum over M,
+      // carried from chunk to chunk of classes (one chunk: the row's own)
+      const bool first = m0 == 0, last = m0 + mcn == M;
+      for (int n = warp; n < ncn; n += NTF / 32) {
+        const int bn = b * N + n0 + n;
+        const float d = sdiv[bn];
+        const float* row = acc + n * mcn;
+        float cmx = -INFINITY;
+        for (int m = lane; m < mcn; m += 32) cmx = fmaxf(cmx, row[m] / d);
+        cmx = warp_max(cmx);
+        const float mx = first ? cmx : fmaxf(rmx[n], cmx);
+        float se = 0.f;
+        for (int m = lane; m < mcn; m += 32) se += expf(row[m] / d - mx);
+        se = warp_sum(se);
+        if (lane == 0) {
+          if (!first) se += rse[n] * expf(rmx[n] - mx);
+          rmx[n] = mx;
+          rse[n] = se;
+          const int t = min(max(tgt[bn], 0), M - 1);
+          if (t >= m0 && t < m0 + mcn) rxt[n] = row[t - m0] / d;
+          if (last) {
+            const float w = n0 + n < nv ? (cw ? cw[t] : 1.f) : 0.f;
+            num[n] = w * (rxt[n] - mx - logf(se));
+            den[n] = w;
+          }
+        }
+      }
+      if (last) {
+        __syncthreads();
+        if (threadIdx.x == 0)
+          for (int n = 0; n < ncn; ++n) {
+            s_all += num[n];
+            w_all += den[n];
+          }
+      }
     }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f, w = 0.f;
-    for (int n = 0; n < N; ++n) {
-      s += num[n];
-      w += den[n];
-    }
-    out[b] = -s / fmaxf(w, 1e-12f);
-  }
+  if (rank == 0 && threadIdx.x == 0) out[b] = -s_all / fmaxf(w_all, 1e-12f);
 }
 
 }  // namespace
 
-// cl: the cluster width, a power of two <= 16 (`cuda.flint_plan`)
+extern "C" size_t mucon_flint_smem(int nc, int mc) {
+  return flint_floats(nc, mc) * sizeof(float);
+}
+
+// cl: the cluster width, a power of two <= 16; nc, mc: the segments and
+// classes of a chunk (`cuda.flint_plan`)
 extern "C" int mucon_flint(const float* scale, const float* xloc, const float* sdiv,
                            const float* seg, const int* tgt, const int* n_len,
                            const int* t_valid, const float* class_weights, float* out,
-                           int B, int N, int T, int M, int cl, cudaStream_t stream) {
-  if (B < 1 || N < 1 || T < 1 || M < 1 || cl < 1 || cl > MAX_CL || (cl & (cl - 1)))
+                           int B, int N, int T, int M, int cl, int nc, int mc,
+                           cudaStream_t stream) {
+  if (B < 1 || N < 1 || T < 1 || M < 1 || cl < 1 || cl > MAX_CL || (cl & (cl - 1)) ||
+      nc < 1 || nc > N || mc < 1 || mc > M)
     return cudaErrorInvalidValue;
-  const size_t smem = (size_t)(N * M + TT * M + N * TT + 2 * N) * sizeof(float);
+  const size_t smem = flint_floats(nc, mc) * sizeof(float);  // `cuda.flint_plan` checks the limit
   static bool wide = false;  // clusters above 8 CTAs allowed (once a process)
   if (cl > 8 && !wide) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -167,5 +224,5 @@ extern "C" int mucon_flint(const float* scale, const float* xloc, const float* s
   }
   return cluster::launch_cluster(flint_kernel, dim3(B * cl), dim3(NTF), cl, smem, stream,
                                  scale, xloc, sdiv, seg, tgt, n_len, t_valid, class_weights,
-                                 out, N, T, M, cl);
+                                 out, N, T, M, cl, nc, mc);
 }

@@ -23,7 +23,7 @@
 // `ops/viterbi.py traceback_positions`.
 //
 // Bound: the K-step chain's latency; the work is ~4 N L operations a
-// window and the bytes a few tens of kB a video.  Two bodies:
+// window and the bytes a few tens of kB a video.  Three bodies:
 //
 // * warp body (N <= 32, L <= 72; the default shape N = 30, L = 66): one
 //   warp a video, lane n holding row n's L cells and its pois row in
@@ -34,43 +34,69 @@
 //   max_len / S = L): no block barrier, no shared-memory round trip of the
 //   state, no integer divide.  Windows past k_valid keep the state, so their
 //   backpointers are one argmax, written once a window.
-// * block body (any other N, L whose state fits): one 256-thread CTA a
-//   video with the [N x L] state double-buffered in shared memory (the
-//   port's first design, which the chain forward's generic body also kept);
-//   its threads stride over the N rows (N above 256 too).
-// * global body (the state does not fit a block's shared memory: L = 2000 /
-//   frame_sampling at frame_sampling <= 3 and N = 30, or a large N): the
-//   block body with its two [N x L] state buffers in device memory (scratch
-//   the wrapper allocates, [B, 2, N, L]) and pois read where it lies; the
-//   same f32 adds and argmaxes in the same order, so the same bits.
+// * cluster body (any other N, L whose cells a cluster of up to 16 CTAs
+//   holds in registers; frame_sampling 1-3 at N = 30, N = 300 at L = 66):
+//   a thread-block cluster of CL CTAs a video splits L into CL slices of
+//   WC = TPR x 16 columns; in a CTA, TPR threads (lanes of one warp) share
+//   a row's slice, each holding 16 consecutive cells of RPT rows (and their
+//   pois) in registers.  A window: each thread's argmax tree over its
+//   cells, a butterfly over the row's TPR lanes (the lower index wins a
+//   tie); lane 0 of the row stores the slice's (max, argmax) into rank 0's
+//   slot for this rank, the row's last lane its last cell into the next
+//   rank's edge slot (distributed shared memory); one cluster barrier,
+//   split: the stays within a thread and from its left lane
+//   (__shfl_up_sync) run between its arrive and its wait; after the wait a
+//   row's first thread takes its first cell from the edge slot, or, at
+//   rank 0, the advance: row n - 1's partials merged in rank order (strict
+//   >, so the lower rank wins a tie) give the exit and the backpointer.
+//   The slots are double-buffered by window parity, so one barrier a
+//   window orders every exchange.  No state leaves the registers, no
+//   integer divide a cell, no __syncthreads between windows.  The host
+//   picks (CL, TPR, RPT) (`cuda.viterbi_plan`): the fewest rows a thread,
+//   then the narrowest cluster, 8 CTAs or fewer before 16.
+// * global body (no cluster of 16 holds the cells: N = 300 at L = 2000):
+//   one 256-thread CTA a video with its two [N x L] state buffers in
+//   device memory (scratch the wrapper allocates, [B, 2, N, L]) and pois
+//   read where it lies; its threads stride over the N rows.
+// Every body makes the same f32 adds and first-index argmaxes as the plain
+// DP, so the same bits.
 //
 // All three stage W[b] in shared memory `staged` windows at a time (at most
-// KC; fewer where the block body's state leaves less room) before the
+// KC; fewer where the rest of shared memory leaves less room) before the
 // windows that read it (the whole [K, N] block at the default shape), so no
 // global load of W sits inside a window, and keep each window's argmaxes in
 // a uint16 table in shared memory for the walk, which reads at most N of
-// them; where the table does not fit (K N above ~100k) the walk reads the
-// int32 backpointers it wrote to device memory instead.  The host chooses
-// the body, the staged windows and the table's place (`cuda.viterbi_plan`)
-// and this file checks them.
+// them; where the table does not fit (K N above ~100k), and in the cluster
+// body (whose every CTA would carry rank 0's table), the walk reads the
+// int32 backpointers it wrote to device memory instead.  The host chooses the body, the staged windows and the
+// table's place (`cuda.viterbi_plan`) and this file checks them.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
+
 namespace {
 
 constexpr float NEG = -1e30f;
-constexpr int NT = 256;  // threads of the block body
+constexpr int NT = 256;  // threads of the cluster and global bodies
 constexpr int KC = 128;  // windows of W staged at a time
 constexpr int LANE_CELLS = 72;  // cells a lane of the warp body holds (LC)
+constexpr int CELLS = 16;       // cells of a row a thread of the cluster body holds
+constexpr int MAX_CL = 16;      // the widest cluster (above 8: non-portable size)
 constexpr unsigned FULL = 0xffffffffu;
 
-// Shared-memory bytes of a launch (lc = 0: block body; glob: its state in
-// device memory) staging `staged` windows of W at a time; `table` puts the
-// walk's [K-1 x N] uint16 table there too.
-size_t viterbi_smem(int K, int N, int L, int lc, int table, int glob, int staged) {
-  const size_t state = lc ? 0 : (glob ? (size_t)2 * N : (size_t)3 * N * L + 2 * N);
+enum Body { WARP = 0, CLUSTER = 1, GLOBAL = 2 };
+
+// Shared-memory bytes of a launch staging `staged` windows of W at a time:
+// the warp body nothing more; the cluster body the ranks' [2][cl][N] row
+// maxima and argmaxes and the [2][N] edge column; the global body its [N]
+// exits and argmaxes.  `table` puts the walk's [K-1 x N] uint16 table there
+// too.
+size_t viterbi_smem(int K, int N, int body, int cl, int table, int staged) {
+  const size_t state = body == CLUSTER ? (size_t)4 * cl * N + 2 * N
+                                       : (body == GLOBAL ? (size_t)2 * N : 0);
   const size_t floats = (size_t)staged * N + state;
   return floats * sizeof(float) + (table ? (size_t)(K - 1) * N * sizeof(uint16_t) : 0);
 }
@@ -235,9 +261,186 @@ __device__ __forceinline__ void row_argmax(const float* s, const float* p, int L
   }
 }
 
-// gstate null: the block body (state in shared memory); else the global
-// body, video b's two state buffers at gstate + 2 N L b
-__global__ void __launch_bounds__(NT) viterbi_block_kernel(
+// (max, first argmax) of a row over the TPR lanes that share it (a
+// butterfly; every lane ends with the result; ties keep the lower index)
+__device__ __forceinline__ void lanes_best(float& best, int& arg, int tpr) {
+  for (int o = 1; o < tpr; o <<= 1) {
+    const float ob = __shfl_xor_sync(FULL, best, o);
+    const int oa = __shfl_xor_sync(FULL, arg, o);
+    if (ob > best || (ob == best && oa < arg)) {
+      best = ob;
+      arg = oa;
+    }
+  }
+}
+
+// row n's (max, first argmax) over the ranks' slices, merged in rank
+// order: strict >, so the lower rank (the lower columns) wins a tie
+__device__ __forceinline__ void ranks_best(const float* pbest, const int* parg, int cl,
+                                           int N, int n, float& best, int& arg) {
+  best = pbest[n];
+  arg = parg[n];
+  for (int r = 1; r < cl; ++r) {
+    const float v = pbest[r * N + n];
+    if (v > best) {
+      best = v;
+      arg = parg[r * N + n];
+    }
+  }
+}
+
+// The cluster body (see the head of the file): grid B CL CTAs, a cluster of
+// CL a video; thread t holds rows g + i NT / TPR (i < RPT, g = t / TPR) at
+// columns rank WC + (t % TPR) CELLS .. + CELLS - 1, WC = TPR CELLS.
+template <int RPT>
+__global__ void __launch_bounds__(NT) viterbi_cluster_kernel(
+    const float* __restrict__ W, const float* __restrict__ pois,
+    const int* __restrict__ k_valid, const int* __restrict__ n_valid,
+    float* __restrict__ score_out, int* __restrict__ best_l_out, int* __restrict__ bps,
+    long long* __restrict__ pos, int K, int N, int L, int S, int max_len, int table,
+    int staged, int cl, int tpr) {
+  extern __shared__ float sm[];
+  float* wsm = sm;                                             // [staged, N]
+  float* pbest = wsm + staged * N;                             // [2][cl][N] (rank 0's)
+  int* parg = reinterpret_cast<int*>(pbest + 2 * cl * N);      // [2][cl][N] (rank 0's)
+  float* edge = reinterpret_cast<float*>(parg + 2 * cl * N);   // [2][N] left rank's column
+  uint16_t* tab = table ? reinterpret_cast<uint16_t*>(edge + 2 * N) : nullptr;
+
+  const int rank = (int)cluster::cluster_rank();
+  const int b = blockIdx.x / cl, tid = threadIdx.x;
+  const int c = tid & (tpr - 1), g = tid / tpr, G = NT / tpr;
+  const int l0 = rank * tpr * CELLS + c * CELLS;  // this thread's first column
+  const int kv = k_valid[b], nv = n_valid[b];
+  const int ls = max_len / S - 1;  // cells l <= ls may grow from l - 1: (l + 1) S <= max_len
+  const float* Wb = W + (size_t)b * K * N;
+  int* bps_b = bps + (size_t)b * (K - 1) * N;
+  float* pbest0 = cluster::cluster_peer(pbest, 0);
+  int* parg0 = cluster::cluster_peer(parg, 0);
+  float* edge1 = cluster::cluster_peer(edge, rank + 1 < cl ? rank + 1 : rank);
+
+  float s[RPT][CELLS], p[RPT][CELLS];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int n = g + i * G;
+    const float* pb = pois + ((size_t)b * N + min(n, N - 1)) * L;
+#pragma unroll
+    for (int j = 0; j < CELLS; ++j) {
+      p[i][j] = n < N && l0 + j < L ? pb[l0 + j] : -INFINITY;
+      s[i][j] = NEG;
+    }
+  }
+  if (l0 == 0 && g == 0) s[0][0] = Wb[0];  // window 0 puts (n=0, l=1) at W[0][0]
+  cluster::cluster_sync();  // every CTA runs before a peer stores into it
+
+  // a row's slice: (max, first argmax) over the row's TPR lanes; lane 0 of
+  // the row stores it into rank 0's slot `rank` of parity `par`
+  auto publish = [&](int par) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int n = g + i * G;
+      float best;
+      int arg;
+      row_best<CELLS>(s[i], p[i], best, arg);
+      arg += l0;
+      lanes_best(best, arg, tpr);
+      if (c == 0 && n < N) {
+        pbest0[(par * cl + rank) * N + n] = best;
+        parg0[(par * cl + rank) * N + n] = arg;
+      }
+    }
+  };
+
+  const int kend = min(max(kv, 1), K);  // live windows: 1 .. kend - 1
+  int par = 0;
+  for (int k0 = 1; k0 < kend; k0 += staged) {
+    const int cnt = min(staged, kend - k0);
+    __syncthreads();  // the previous chunk is consumed
+    for (int i = tid; i < cnt * N; i += NT) wsm[i] = Wb[(size_t)k0 * N + i];
+    __syncthreads();
+    for (int k = k0; k < k0 + cnt; ++k, par ^= 1) {
+      const float* wk = wsm + (k - k0) * N;
+      publish(par);
+      float up[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int n = g + i * G;
+        up[i] = __shfl_up_sync(FULL, s[i][CELLS - 1], 1);  // the left lane's last cell
+        if (c == tpr - 1 && rank + 1 < cl && n < N) edge1[par * N + n] = s[i][CELLS - 1];
+      }
+      cluster::cluster_arrive();
+      // the stays that need no peer: every cell but a row slice's first
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int n = g + i * G;
+        if (n < nv) {
+          const float w = wk[min(n, N - 1)];
+#pragma unroll
+          for (int j = CELLS - 1; j >= 1; --j) s[i][j] = (l0 + j <= ls ? s[i][j - 1] : NEG) + w;
+          if (c > 0) s[i][0] = (l0 <= ls ? up[i] : NEG) + w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < CELLS; ++j) s[i][j] = NEG;
+        }
+      }
+      cluster::cluster_wait();
+      if (c == 0) {  // a slice's first cell: the left rank's edge, or the advance
+        const float* pb = pbest + par * cl * N;
+        const int* pa = parg + par * cl * N;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const int n = g + i * G;
+          if (n >= N) continue;
+          if (rank == 0) {  // column n of the window's backpointers: row n - 1's argmax
+            float v = NEG;
+            int a = 0;
+            if (n > 0) {
+              ranks_best(pb, pa, cl, N, n - 1, v, a);
+              v += wk[n - 1];
+            }
+            put_bp(bps_b, tab, k, N, n, a);
+            if (n < nv) s[i][0] = n > 0 ? v : NEG;
+          } else if (n < nv) {
+            s[i][0] = (l0 <= ls ? edge[par * N + n] : NEG) + wk[n];
+          }
+        }
+      }
+    }
+  }
+
+  // the final state's argmaxes: the frozen windows' backpointers, the score
+  publish(par);
+  cluster::cluster_sync();  // the last exchange; no peer stores after it
+  if (rank != 0) return;
+  int* fa = reinterpret_cast<int*>(edge);  // [N] the rows' argmaxes
+  const int last = min(max(nv - 1, 0), N - 1);
+  int walk_arg = -1;
+  if (c == 0) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int n = g + i * G;
+      if (n >= N) continue;
+      float best;
+      int arg;
+      ranks_best(pbest + par * cl * N, parg + par * cl * N, cl, N, n, best, arg);
+      fa[n] = arg;
+      if (n == last) {
+        score_out[b] = best;
+        best_l_out[b] = arg;
+        walk_arg = arg;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < (K - kend) * N; i += NT) {
+    const int k = kend + i / N, col = i - (k - kend) * N;
+    put_bp(bps_b, tab, k, N, col, col == 0 ? 0 : fa[col - 1]);
+  }
+  __syncthreads();  // orders the table's and bps' writes before the walk's reads
+  if (walk_arg >= 0) walk(tab, bps_b, K, N, kv, nv, walk_arg, pos + (size_t)b * K);
+}
+
+// The global body: video b's two state buffers at gstate + 2 N L b
+__global__ void __launch_bounds__(NT) viterbi_global_kernel(
     const float* __restrict__ W, const float* __restrict__ pois,
     const int* __restrict__ k_valid, const int* __restrict__ n_valid,
     float* __restrict__ score_out, int* __restrict__ best_l_out, int* __restrict__ bps,
@@ -245,11 +448,10 @@ __global__ void __launch_bounds__(NT) viterbi_block_kernel(
     int table, int staged) {
   extern __shared__ float sm[];
   const int NL = N * L;
-  const bool glob = gstate != nullptr;
-  float* cur = glob ? gstate + (size_t)2 * NL * blockIdx.x : sm;
+  float* cur = gstate + (size_t)2 * NL * blockIdx.x;
   float* nxt = cur + NL;
-  const float* ps = glob ? pois + (size_t)blockIdx.x * NL : nxt + NL;
-  float* ex_best = glob ? sm : sm + 3 * NL;           // [N]
+  const float* ps = pois + (size_t)blockIdx.x * NL;
+  float* ex_best = sm;                                // [N]
   int* ex_arg = reinterpret_cast<int*>(ex_best + N);  // [N]
   float* wsm = reinterpret_cast<float*>(ex_arg + N);  // [staged, N]
   uint16_t* tab = table ? reinterpret_cast<uint16_t*>(wsm + staged * N) : nullptr;
@@ -261,10 +463,7 @@ __global__ void __launch_bounds__(NT) viterbi_block_kernel(
   int* bps_b = bps + (size_t)b * (K - 1) * N;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  for (int i = threadIdx.x; i < NL; i += NT) {
-    if (!glob) sm[2 * NL + i] = pois[(size_t)b * NL + i];
-    cur[i] = i == 0 ? Wb[0] : NEG;
-  }
+  for (int i = threadIdx.x; i < NL; i += NT) cur[i] = i == 0 ? Wb[0] : NEG;
 
   const int kend = min(max(kv, 1), K);
   for (int k0 = 1; k0 < kend; k0 += staged) {
@@ -349,33 +548,72 @@ cudaError_t launch(Kernel kernel, int B, int threads, size_t smem, cudaStream_t 
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" size_t mucon_viterbi_smem(int K, int N, int L, int lc, int table, int glob,
-                                     int staged) {
-  return viterbi_smem(K, N, L, lc, table, glob, staged);
+template <int RPT>
+cudaError_t launch_cluster_body(int B, size_t smem, cudaStream_t stream, const float* W,
+                                const float* pois, const int* k_valid, const int* n_valid,
+                                float* score, int* best_l, int* bps, long long* pos, int K,
+                                int N, int L, int S, int max_len, int table, int staged,
+                                int cl, int tpr) {
+  static bool wide = false;  // clusters above 8 CTAs allowed (once a process)
+  if (cl > 8 && !wide) {
+    cudaError_t err = cudaFuncSetAttribute(
+        viterbi_cluster_kernel<RPT>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    wide = true;
+  }
+  return cluster::launch_cluster(viterbi_cluster_kernel<RPT>, dim3(B * cl), dim3(NT), cl, smem,
+                                 stream, W, pois, k_valid, n_valid, score, best_l, bps, pos, K,
+                                 N, L, S, max_len, table, staged, cl, tpr);
 }
 
-// lc: cells a lane of the warp body holds (72), 0 for the block body;
-// gstate: the global body's [B, 2, N, L] state (null: the state in shared
-// memory); table: 1 keeps the walk's table in shared memory; staged: windows
-// of W staged at a time, 1 to KC (`cuda.viterbi_plan`)
+}  // namespace
+
+extern "C" size_t mucon_viterbi_smem(int K, int N, int body, int cl, int table, int staged) {
+  return viterbi_smem(K, N, body, cl, table, staged);
+}
+
+// body: 0 the warp body (N <= 32, L <= 72), 1 the cluster body (a cluster of
+// cl CTAs a video, tpr threads a row slice, rpt rows a thread), 2 the global
+// body (gstate: its [B, 2, N, L] state); table: 1 keeps the walk's table in
+// shared memory; staged: windows of W staged at a time, 1 to KC
+// (`cuda.viterbi_plan`)
 extern "C" int mucon_dense_viterbi(const float* W, const float* pois,
                                    const int* k_valid, const int* n_valid,
                                    float* score, int* best_l, int* bps, long long* pos,
                                    float* gstate, int B, int K, int N, int L, int S,
-                                   int max_len, int lc, int table, int staged,
-                                   cudaStream_t stream) {
+                                   int max_len, int body, int cl, int tpr, int rpt, int table,
+                                   int staged, cudaStream_t stream) {
   if (B <= 0 || K < 1 || N < 1 || L < 1 || S < 1 || staged < 1 || staged > KC ||
       (table && L > 65536))
     return cudaErrorInvalidValue;
-  const size_t smem = viterbi_smem(K, N, L, lc, table, gstate != nullptr, staged);
-  if (lc == 0)
-    return launch(viterbi_block_kernel, B, NT, smem, stream, W, pois, k_valid, n_valid,
+  const size_t smem = viterbi_smem(K, N, body, cl, table, staged);
+  if (body == WARP) {
+    if (N > 32 || L > LANE_CELLS || gstate) return cudaErrorInvalidValue;
+    return launch(viterbi_warp_kernel<LANE_CELLS>, B, 32, smem, stream, W, pois, k_valid,
+                  n_valid, score, best_l, bps, pos, gstate, K, N, L, S, max_len, table, staged);
+  }
+  if (body == GLOBAL) {
+    if (!gstate) return cudaErrorInvalidValue;
+    return launch(viterbi_global_kernel, B, NT, smem, stream, W, pois, k_valid, n_valid,
                   score, best_l, bps, pos, gstate, K, N, L, S, max_len, table, staged);
-  if (lc != LANE_CELLS || N > 32 || L > LANE_CELLS || gstate) return cudaErrorInvalidValue;
-  return launch(viterbi_warp_kernel<LANE_CELLS>, B, 32, smem, stream, W, pois, k_valid,
-                n_valid, score, best_l, bps, pos, gstate, K, N, L, S, max_len, table, staged);
+  }
+  // the cluster body: rows and columns covered, a power-of-two row slice
+  if (body != CLUSTER || cl < 1 || cl > MAX_CL || tpr < 1 || tpr > 32 || (tpr & (tpr - 1)) ||
+      (long long)(NT / tpr) * rpt < N || (long long)cl * tpr * CELLS < L)
+    return cudaErrorInvalidValue;
+  switch (rpt) {
+    case 1:
+      return launch_cluster_body<1>(B, smem, stream, W, pois, k_valid, n_valid, score, best_l,
+                                    bps, pos, K, N, L, S, max_len, table, staged, cl, tpr);
+    case 2:
+      return launch_cluster_body<2>(B, smem, stream, W, pois, k_valid, n_valid, score, best_l,
+                                    bps, pos, K, N, L, S, max_len, table, staged, cl, tpr);
+    case 4:
+      return launch_cluster_body<4>(B, smem, stream, W, pois, k_valid, n_valid, score, best_l,
+                                    bps, pos, K, N, L, S, max_len, table, staged, cl, tpr);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* mucon_cuda_error_string(int err) {

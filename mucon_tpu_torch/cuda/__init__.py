@@ -54,13 +54,14 @@ recurrences take every H up to MAX_H_WIDE = 2048 as it is: the BiLSTM up
 to 256 on an even or a ragged split of the units over a cluster, above on
 its persistent kernels (one cooperative launch over the whole card, w_hh
 resident in shared memory as far as it fits, `bilstm_fwd_launch`); the
-decoder chain up to 512 on a cluster split, above on its wide kernels
-(threads striding over a ragged split of 8 CTAs; the forward where its
-shared memory holds (H, E), `_check_chain`); the reverse decoder chain keeps its Tz-long tables
+decoder chain's forward on a ragged split of 8 CTAs from H = 64 (where its
+shared memory holds (H, E), `_check_chain`), its reverse chain up to 512
+on a cluster split, above on its wide kernel (threads striding over a
+ragged split of 8 CTAs); the reverse decoder chain keeps its Tz-long tables
 in device memory where they do not fit shared memory
 (`decoder_chain_bwd_wide`), so it takes any Tz.  The DP takes any N and L
-(`viterbi_plan`: its state in device memory where shared memory does not
-hold it).  A width outside these raises a ValueError that names the limit.
+(`viterbi_plan`: its cells in registers across a cluster of up to 16 CTAs,
+and in device memory past that).  A width outside these raises a ValueError that names the limit.
 """
 
 from __future__ import annotations
@@ -172,8 +173,8 @@ def load() -> ctypes.CDLL:
             lib.mucon_wavenet_tile_rows.argtypes = [I]
             L = ctypes.c_long
             lib.mucon_bilstm_recurrence.argtypes = [P] * 8 + [L] + [I] * 3 + [P]
-            lib.mucon_dense_viterbi.argtypes = [P] * 9 + [I] * 9 + [P]
-            lib.mucon_viterbi_smem.argtypes = [I] * 7
+            lib.mucon_dense_viterbi.argtypes = [P] * 9 + [I] * 12 + [P]
+            lib.mucon_viterbi_smem.argtypes = [I] * 6
             lib.mucon_viterbi_smem.restype = ctypes.c_size_t
             lib.mucon_wavenet_train_fwd.argtypes = [P] * 10 + [I] * 9 + [P]
             lib.mucon_wavenet_train_sweep.argtypes = [P] * 16 + [I] * 10 + [P]
@@ -191,7 +192,9 @@ def load() -> ctypes.CDLL:
             lib.mucon_decoder_chain_smem.argtypes = [I] * 4
             lib.mucon_decoder_chain_width.argtypes = [I]
             lib.mucon_decoder_chain_fwd_launch.argtypes = [I] * 4 + [ctypes.POINTER(I)]
-            lib.mucon_flint.argtypes = [P] * 9 + [I] * 5 + [P]
+            lib.mucon_flint.argtypes = [P] * 9 + [I] * 7 + [P]
+            lib.mucon_flint_smem.argtypes = [I, I]
+            lib.mucon_flint_smem.restype = ctypes.c_size_t
             lib.mucon_mstcnpp_layer.argtypes = [P] * 7 + [I] * 8 + [P]
             lib.mucon_mstcnpp_tile_rows.argtypes = [I]
             lib.mucon_mstcnpp_proj.argtypes = [P] * 5 + [I] * 5 + [P]
@@ -894,49 +897,90 @@ def bilstm_train_backward(xp, m, w_hh, outs, cs, douts, dh, dc):
 
 
 # csrc/viterbi.cu: windows of W staged in shared memory at a time, threads
-# of the block body, cells a lane of the warp body holds
+# of the cluster and global bodies, cells a lane of the warp body holds,
+# cells of a row a thread of the cluster body holds, its widest cluster and
+# the rows a thread may hold (its instances)
 VITERBI_KC, VITERBI_BLOCK_THREADS, VITERBI_LANE_CELLS = 128, 256, 72
+VITERBI_CELLS, VITERBI_MAX_CL, VITERBI_ROWS = 16, 16, (1, 2, 4)
+VITERBI_BODIES = {"warp": 0, "cluster": 1, "global": 2}
+
+
+def _viterbi_state(body: str, N: int, cl: int) -> int:
+    """Floats of shared memory a DP body takes beside W's staged windows
+    (`viterbi_smem` in csrc/viterbi.cu)."""
+    return {"warp": 0, "cluster": 4 * cl * N + 2 * N, "global": 2 * N}[body]
+
+
+def _viterbi_cluster(N: int, L: int):
+    """The cluster body's split of a video's [N x L] cells, (CL, TPR, RPT):
+    TPR threads a row slice (a power of two up to a warp), RPT rows a thread
+    (VITERBI_ROWS), 16 cells of each, CL = ceil(L / (16 TPR)) CTAs; the
+    fewest rows a thread, then the narrowest cluster, 8 CTAs or fewer (a
+    portable cluster) before 16; one where its slots and a staged window
+    fit MAX_SMEM_BYTES.  None where no cluster of 16 holds the cells."""
+    for widest in (8, VITERBI_MAX_CL):
+        for rpt in VITERBI_ROWS:
+            best = None
+            for tpr in (1, 2, 4, 8, 16, 32):
+                if VITERBI_BLOCK_THREADS // tpr * rpt < N:
+                    break
+                cl = -(-L // (tpr * VITERBI_CELLS))
+                fits = 4 * (N + _viterbi_state("cluster", N, cl)) <= MAX_SMEM_BYTES
+                if cl <= widest and fits and (best is None or cl < best[0]):
+                    best = (cl, tpr, rpt)
+            if best:
+                return best
+    return None
 
 
 def viterbi_plan(B: int, N: int, L: int, K=None) -> dict:
     """The DP's launch (`csrc/viterbi.cu`): the warp body (one warp a
     video, lane n holding row n's cells in registers: `lc` = 72 of them)
-    where N <= 32 and L <= 72; else the block body (one 256-thread CTA a
-    video, the state in shared memory) where its [N x L] state, its
-    argmaxes and one staged window fit MAX_SMEM_BYTES; else the global body
-    (the block body with its two state buffers in device memory: scratch of
-    [B x 2 x N x L] floats).  `ctas` = B always.  With K, also the windows
-    of W staged at a time (`staged`: VITERBI_KC, fewer where the K - 1
-    windows are fewer or the block body's state leaves less room), the
-    dynamic shared memory a CTA takes (`smem`) and where the walk's
-    [K-1 x N] uint16 table lives: "shared" where it fits beside the rest,
-    else "global" (the walk reads the int32 bps).  Every N, L >= 1."""
+    where N <= 32 and L <= 72; else the cluster body (a cluster of `cl`
+    CTAs of 256 threads a video, `tpr` threads a row slice of 16 `tpr`
+    columns, `rpt` rows a thread, `lc` = 16 cells of each in registers,
+    `_viterbi_cluster`) where a cluster of at most 16 CTAs holds the cells;
+    else the global body (one 256-thread CTA a video, its two state
+    buffers in device memory: scratch of [B x 2 x N x L] floats).  `ctas`
+    = B cl.  With K, also the windows of W staged at a time (`staged`:
+    VITERBI_KC, fewer where the K - 1 windows are fewer or the body's slots
+    leave less room), the dynamic shared memory a CTA takes (`smem`) and
+    where the walk's [K-1 x N] uint16 table lives: "shared" where it fits
+    beside the rest (the warp and global bodies), else "global" (the walk
+    reads the int32 bps; the cluster body always, so that its CTAs stay
+    small enough to share an SM).  Every N, L >= 1."""
     if min(B, N, L) < 1:
         raise ValueError(f"the DP takes B, N, L >= 1; got B={B} N={N} L={L}")
-    lc = VITERBI_LANE_CELLS if N <= 32 and L <= VITERBI_LANE_CELLS else 0
-    state = 0 if lc else 3 * N * L + 2 * N
-    body = "warp" if lc else "block"
-    if not lc and 4 * (state + N) > MAX_SMEM_BYTES:
-        body, state = "global", 2 * N
-    threads = 32 if lc else VITERBI_BLOCK_THREADS
-    plan = dict(body=body, lc=lc, threads=threads, warps=threads // 32, ctas=B)
+    split = None
+    if N <= 32 and L <= VITERBI_LANE_CELLS:
+        body, lc, threads, cl, tpr, rpt = "warp", VITERBI_LANE_CELLS, 32, 1, 0, 0
+    elif (split := _viterbi_cluster(N, L)) is not None:
+        body, lc, threads = "cluster", VITERBI_CELLS, VITERBI_BLOCK_THREADS
+        cl, tpr, rpt = split
+    else:
+        body, lc, threads, cl, tpr, rpt = "global", 0, VITERBI_BLOCK_THREADS, 1, 0, 0
+    plan = dict(body=body, lc=lc, threads=threads, warps=threads // 32, ctas=B * cl, cl=cl,
+                tpr=tpr, rpt=rpt)
     if K is not None:
         if K < 1:
             raise ValueError("the DP needs at least one window")
+        state = _viterbi_state(body, N, cl)
         staged = min(VITERBI_KC, max(K - 1, 1), (MAX_SMEM_BYTES // 4 - state) // N)
         base = 4 * (staged * N + state)
-        table = base + 2 * (K - 1) * N <= MAX_SMEM_BYTES and L <= 65536
+        # the cluster body's CTAs would each hold rank 0's table: its walk
+        # reads the int32 bps (at most N of them, from L2)
+        table = (body != "cluster" and base + 2 * (K - 1) * N <= MAX_SMEM_BYTES
+                 and L <= 65536)
         plan.update(staged=staged, smem=base + (2 * (K - 1) * N if table else 0),
                     table="shared" if table else "global")
     return plan
 
 
-def viterbi_smem(K: int, N: int, L: int, lc: int, table: bool, glob: bool = False,
-                 staged=None) -> int:
+def viterbi_smem(K: int, N: int, body: str, cl: int, table: bool, staged=None) -> int:
     """The kernel file's own count of a launch's shared memory (a check of
     `viterbi_plan`; `staged` defaults to min(VITERBI_KC, K - 1))."""
     staged = min(VITERBI_KC, max(K - 1, 1)) if staged is None else staged
-    return load().mucon_viterbi_smem(K, N, L, lc, int(table), int(glob), staged)
+    return load().mucon_viterbi_smem(K, N, VITERBI_BODIES[body], cl, int(table), staged)
 
 
 def dense_viterbi_decode(W, pois, k_valid, n_valid, frame_sampling: int, max_len: int):
@@ -965,8 +1009,9 @@ def dense_viterbi_decode(W, pois, k_valid, n_valid, frame_sampling: int, max_len
     err = lib.mucon_dense_viterbi(
         W.data_ptr(), pois.data_ptr(), kv.data_ptr(), nv.data_ptr(),
         score.data_ptr(), best_l.data_ptr(), bps.data_ptr(), pos.data_ptr(), _ptr(gstate),
-        B, K, N, L, int(frame_sampling), int(max_len), plan["lc"],
-        int(plan["table"] == "shared"), plan["staged"], _stream(dev),
+        B, K, N, L, int(frame_sampling), int(max_len), VITERBI_BODIES[plan["body"]],
+        plan["cl"], plan["tpr"], plan["rpt"], int(plan["table"] == "shared"), plan["staged"],
+        _stream(dev),
     )
     _check_launch(lib, err, "dense_viterbi")
     return score, best_l, bps, pos
@@ -1013,18 +1058,21 @@ DECODER_CHAIN_FWD_THREADS = 256
 
 def decoder_chain_fwd_plan(H: int) -> tuple:
     """How the forward chain splits a hidden size H over a cluster
-    (`fwd_plan` in csrc/decoder_chain.cu): (cluster width CL, units per CTA
-    HS, threads per CTA).  CL is `_cluster_width(H)`.  A CTA sends every
-    rank its units' rows of h Wl2 (q is their sum, in rank order); the
-    combine layer and the gates are warp GEMVs (a warp's lanes split k):
-    in pass p, warp w takes the combine layer's columns 32 p + 4 w .. + 3
-    of the CTA's HS and the gate columns 64 p + 8 w .. + 7 of its 4 HS.
-    Every H from 1 to MAX_H_WIDE (a CTA's threads stride over its units
-    where it writes their state; its shared memory bounds the widest H at
-    a given E, `_check_chain`); raises above."""
+    (`fwd_plan` in csrc/decoder_chain.cu): (cluster width CL, most units a
+    CTA HS, threads per CTA).  The ragged split: CL = `_ragged_width(H)`
+    (8 from H = 64), CTA r taking the units `units_of(r, CL, H)` (the even split where CL
+    divides H, as at H = 128), HS = ceil(H / CL) sizing its shared-memory
+    regions.  A CTA sends every rank its units' rows of h Wl2
+    (q is their sum, in rank order); the combine layer and the gates are
+    warp GEMVs (a warp's lanes split k): in pass p, warp w takes the
+    combine layer's columns 32 p + 4 w .. + 3 of the CTA's units and the
+    gate columns 64 p + 8 w .. + 7 of its 4 units' gates.  Every H from 1
+    to MAX_H_WIDE (a CTA's threads stride over its units where it writes
+    their state; its shared memory bounds the widest H at a given E,
+    `_check_chain`); raises above."""
     _check_width(H, "the forward decoder chain")
-    cl = _cluster_width(H)
-    return cl, H // cl, DECODER_CHAIN_FWD_THREADS
+    cl = _ragged_width(H)
+    return cl, -(-H // cl), DECODER_CHAIN_FWD_THREADS
 
 
 DECODER_CHAIN_FWD_LAUNCH_KEYS = ("cl", "hs", "threads", "clusters", "active", "weights",
@@ -1060,7 +1108,7 @@ def _chain_columns(wc1, wc2, wih, whh):
 def decoder_chain_forward(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih,
                           whh, bl):
     """The teacher-forced chain's forward (one thread-block cluster per
-    video, `decoder_chain_fwd_plan`) -> (hs, cs, comb), each [S x B x H].
+    video on the ragged split, `decoder_chain_fwd_plan`) -> (hs, cs, comb), each [S x B x H].
     Arguments as `ops/decoder_chain.py`."""
     dev, S, B, Tz, H, E = _check_chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1,
                                        wc2, bc, wih, whh, bl)
@@ -1221,30 +1269,65 @@ def decoder_chain_backward(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, w
 
 # csrc/mucon_loss.cu: frames a tile, the widest cluster, the card's SMs
 FLINT_TILE, FLINT_MAX_CL, SMS = 64, 16, 132
+# the fewest classes a chunk takes before the segments are chunked too
+FLINT_MIN_CLASSES = 32
 
 
-def flint_plan(B: int, T: int) -> dict:
-    """The flint kernel's launch at B videos of T padded frames: a cluster
-    of `width` CTAs a video, the widest power of two <= 16 with B width <=
-    132 (the card's SMs) and no more CTAs than T has 64-frame tiles (at
-    least 1); `ctas` = B width; a CTA takes at most `frames` = ceil(T /
-    width) of its video's frames (the kernel splits a video's valid frames
-    T_b into runs of ceil(T_b / width))."""
-    if B < 1 or T < 1:
-        raise ValueError(f"the flint kernel takes B, T >= 1; got B={B} T={T}")
+def flint_floats(nc: int, mc: int) -> int:
+    """Shared-memory floats of a flint CTA at chunks of nc segments and mc
+    classes (`flint_floats` in csrc/mucon_loss.cu): the [nc x mc] partial,
+    seg's [64 x mc] tile, the [nc x 64] mask rows and five [nc] vectors."""
+    return nc * mc + FLINT_TILE * mc + nc * FLINT_TILE + 5 * nc
+
+
+def flint_plan(B: int, T: int, N: int, M: int) -> dict:
+    """The flint kernel's launch at B videos of T padded frames, N segments
+    and M classes: a cluster of `width` CTAs a video, the widest power of
+    two <= 16 with B width <= 132 (the card's SMs) and no more CTAs than T
+    has 64-frame tiles (at least 1); `ctas` = B width; a CTA takes at most
+    `frames` = ceil(T / width) of its video's frames (the kernel splits a
+    video's valid frames T_b into runs of ceil(T_b / width)).  The window
+    is taken in chunks of `nc` segments by `mc` classes (`chunks` of them):
+    the whole [N x M] where it fits MAX_SMEM_BYTES, else M cut into the
+    fewest even chunks that fit, and where even FLINT_MIN_CLASSES classes
+    do not (N above ~480), N cut the same way too; `smem` the bytes a CTA
+    takes.  Raises a ValueError that names the limit where no chunk fits."""
+    if min(B, T, N, M) < 1:
+        raise ValueError(f"the flint kernel takes B, T, N, M >= 1; got B={B} T={T} N={N} M={M}")
     cap = min(FLINT_MAX_CL, SMS // B, -(-T // FLINT_TILE))
     width = 1
     while 2 * width <= cap:
         width *= 2
-    return dict(width=width, ctas=B * width, frames=-(-T // width))
+    plan = dict(width=width, ctas=B * width, frames=-(-T // width))
+    # the fewest classes an even chunk of M takes: M itself up to
+    # FLINT_MIN_CLASSES, else the smallest ceil(M / k) >= FLINT_MIN_CLASSES
+    fewest = M if M <= FLINT_MIN_CLASSES else -(-M // ((M - 1) // (FLINT_MIN_CLASSES - 1)))
+    room = MAX_SMEM_BYTES // 4
+    # the most segments a chunk of `fewest` classes leaves room for
+    most = (room - FLINT_TILE * fewest) // (fewest + FLINT_TILE + 5)
+    if most >= 1:
+        nc = -(-N // -(-N // min(N, most)))  # the fewest even chunks of N that fit
+        widest = (room - (FLINT_TILE + 5) * nc) // (nc + FLINT_TILE)
+        mc = -(-M // -(-M // min(M, widest)))  # then the fewest even chunks of M
+        return dict(plan, nc=nc, mc=mc, chunks=-(-N // nc) * -(-M // mc),
+                    smem=4 * flint_floats(nc, mc))
+    raise ValueError(f"N={N} M={M}: no chunk of the flint window fits a block's "
+                     f"{MAX_SMEM_BYTES} bytes of shared memory (MAX_SMEM_BYTES)")
+
+
+def flint_smem(nc: int, mc: int) -> int:
+    """The kernel file's own count of a CTA's shared memory at chunks of nc
+    segments by mc classes (a check of `flint_plan`)."""
+    return load().mucon_flint_smem(nc, mc)
 
 
 def mucon_flint(scale, xloc, sdiv, seg, target, n_len, t_valid, class_weights=None):
     """Per-video flint losses [B] of the box template from the segment
     placement scale / xloc / sdiv [B x N] (`ops/mucon_loss.py flint_prep`),
     the frame logits seg [B x T x M], the targets [B x N] and the lengths;
-    `class_weights` [M] or None.  A thread-block cluster a video
-    (`flint_plan`)."""
+    `class_weights` [M] or None.  A thread-block cluster a video, the
+    window in chunks of segments and classes where it does not fit
+    (`flint_plan`): every N and M."""
     dev = _cuda_device(seg)
     B, T, M = seg.shape
     N = scale.shape[1]
@@ -1261,12 +1344,13 @@ def mucon_flint(scale, xloc, sdiv, seg, target, n_len, t_valid, class_weights=No
     tgt = target.to(torch.int32).contiguous()
     nl = _lengths_i32(n_len, B, dev, "n_len")
     tv = _lengths_i32(t_valid, B, dev, "t_valid")
+    plan = flint_plan(B, T, N, M)
     out = torch.empty(B, device=dev, dtype=torch.float32)
     lib = load()
     err = lib.mucon_flint(
         scale.data_ptr(), xloc.data_ptr(), sdiv.data_ptr(), seg.data_ptr(), tgt.data_ptr(),
         nl.data_ptr(), tv.data_ptr(), _ptr(class_weights), out.data_ptr(), B, N, T, M,
-        flint_plan(B, T)["width"], _stream(dev),
+        plan["width"], plan["nc"], plan["mc"], _stream(dev),
     )
     _check_launch(lib, err, "mucon_flint")
     return out

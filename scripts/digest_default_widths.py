@@ -11,7 +11,7 @@ trainable stack's forward and sweep and v2's (both modes), at C = 128, 256
 and 512 (B = 4, T = 512, 11 layers); the BiLSTM (eval, train forward and
 reverse chain) and the decoder chain (forward and reverse) at H = 128,
 256, 512 (B = 8, Tz = 160, S = 31); the DP and walk at the serving shape
-(K = 85, N = 30, L = 66) and the block body (N = 40); the flint loss.
+(K = 85, N = 30, L = 66) and the cluster body (N = 40); the flint loss.
 Writes {name: sha256 of the output's bytes} to OUT.json and prints it.
 Copy the script into another checkout's `scripts/` to digest that tree
 with the same inputs: equal digests are equal outputs, bit for bit.

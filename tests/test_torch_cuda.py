@@ -251,7 +251,7 @@ def _decode_exact(args, S, max_len):
 
 
 # the warp body at L = 20, and with max_len 300 (cells l > 8 may not grow:
-# the gated shift); the block body (N = 40; L = 133 at frame sampling 15,
+# the gated shift); the cluster body (N = 40; L = 133 at frame sampling 15,
 # and gated); a walk table too large for shared memory (K = 4000), on both
 # bodies; k_valid past K and n_valid 0 or past N
 @pytest.mark.parametrize("K,N,L,S,max_len", [
@@ -267,9 +267,11 @@ def test_viterbi_decode_bodies(dev, K, N, L, S, max_len):
     k_valid = torch.tensor([K, K + 3, K // 2, 0, 1])
     n_valid = torch.tensor([N, 1, N + 2, 0, N // 2 + 1])
     plan = cuda.viterbi_plan(B, N, L, K)
-    assert plan["body"] == ("warp" if N <= 32 and L <= 72 else "block")
-    assert plan["table"] == ("global" if K == 4000 else "shared")
-    assert plan["smem"] == cuda.viterbi_smem(K, N, L, plan["lc"], plan["table"] == "shared")
+    warp = N <= 32 and L <= 72
+    assert plan["body"] == ("warp" if warp else "cluster")
+    assert plan["table"] == ("global" if K == 4000 or not warp else "shared")
+    assert plan["smem"] == cuda.viterbi_smem(K, N, plan["body"], plan["cl"],
+                                             plan["table"] == "shared")
     _decode_exact([t.to(dev) for t in (W, pois, k_valid, n_valid)], S, max_len)
 
 
@@ -365,21 +367,35 @@ def test_wide_decoder_chain_matches_plain(dev, H, B, Tz):
     _grads_close(grads(DecoderChain.apply), grads(decoder_chain_plain))
 
 
-@pytest.mark.parametrize("N,L,body", [(30, 2000, "global"), (300, 20, "block"),
-                                      (300, 66, "global")])
-def test_viterbi_global_body_bit_exact(dev, N, L, body):
-    """The DP past its shared-memory state (L = 2000 at frame_sampling 1)
-    and at N = 300, equal to the plain DP and walk in all four outputs."""
+# the cluster body at frame_sampling 1 and 3 (L = 2000: 8 CTAs, two rows a
+# thread; L = 666: 6 CTAs), at N = 300 (one or five CTAs of 256 rows, two a
+# thread), at N = 100 and L = 2000 (16 CTAs, four rows a thread); with
+# max_len 1000 (cells past l = 999 may not grow); and the global body at N
+# = 300, L = 2000, which no cluster of 16 CTAs holds
+@pytest.mark.parametrize("N,L,max_len,body", [
+    (30, 2000, 2000, "cluster"), (30, 666, 2000, "cluster"), (300, 20, 2000, "cluster"),
+    (300, 66, 2000, "cluster"), (100, 2000, 2000, "cluster"), (30, 2000, 1000, "cluster"),
+    (300, 2000, 2000, "global")])
+def test_viterbi_global_body_bit_exact(dev, N, L, max_len, body):
+    """The DP past its warp body (the cluster body, and the global body
+    past a cluster of 16 CTAs), equal to the plain DP and walk in all four
+    outputs; the plan's shared memory is the kernel file's count."""
     gen = torch.Generator().manual_seed(N + L)
     B, K = 4, 40
     labels = torch.randint(0, 3, (B, N), generator=gen)
     W = (-torch.rand(K, 3, generator=gen) * 60.0)[:, labels].permute(1, 0, 2).contiguous()
     pois = -torch.rand(B, N, L, generator=gen) * 20.0
     kv = torch.randint(0, K + 1, (B,), generator=gen)
+    kv[0] = K
     nv = torch.randint(1, N + 1, (B,), generator=gen)
-    assert cuda.viterbi_plan(B, N, L, K)["body"] == body
-    got = dense_viterbi_decode(*(t.to(dev) for t in (W, pois, kv, nv)), 1, 2000)
-    score, best_l, bps = dense_viterbi_plain(W, pois, kv, nv, 1, 2000)
+    plan = cuda.viterbi_plan(B, N, L, K)
+    assert plan["body"] == body
+    assert plan["smem"] == cuda.viterbi_smem(K, N, body, plan["cl"], plan["table"] == "shared",
+                                             plan["staged"])
+    got = dense_viterbi_decode(*(t.to(dev) for t in (W, pois, kv, nv)), 1, max_len)
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, dense_viterbi_decode(*(t.to(dev) for t in (W, pois, kv, nv)), 1, max_len)))
+    score, best_l, bps = dense_viterbi_plain(W, pois, kv, nv, 1, max_len)
     want = (score, best_l, bps, traceback_positions(bps, kv, nv, best_l))
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
@@ -707,12 +723,13 @@ def test_decoder_chain_forward_on_clusters(dev, B, Tz, S):
 
 # the forward off the model's shape, through its step's generic body: the
 # model's width with E = 255; E = 1536, whose weights do not fit a CTA (read
-# from L2) while the reverse chain takes H; H = 256 (weights from L2) and an
-# odd H = 33 (a cluster of one CTA, HS above a pass's 32 units), which the
-# one-CTA forward took and the reverse chain does not (HS above 32, or not a
-# multiple of 4)
+# from L2) while the reverse chain takes H; H = 256 (weights from L2); the
+# ragged split at an odd H = 33 (4 CTAs of 8 or 9 units), H = 127 (8 CTAs of
+# 15 or 16), the prime H = 1021 and H = 1181 (8 CTAs of 127-148 units, the
+# weights from L2)
 @pytest.mark.parametrize("H,E,resident", [(128, 255, 1), (128, 1536, 0), (256, 512, 0),
-                                          (33, 66, 1)])
+                                          (33, 66, 1), (127, 254, 1), (1021, 2042, 0),
+                                          (1181, 2362, 0)])
 def test_decoder_chain_forward_every_h(dev, H, E, resident):
     S, Tz, tz = 5, 37, (37, 20, 1)
     B = len(tz)
@@ -764,6 +781,32 @@ def _grow(args, Tz):
     return out
 
 
+# the window past a CTA's shared memory: M = 600 and 778 classes (COIN's
+# step classes) in two chunks of classes, and N = 482 segments in two chunks
+# of segments; each within 1e-4 of the plain loss, two calls bit for bit,
+# the plan's bytes the kernel file's count
+@pytest.mark.parametrize("B,T,N,M", [(1, 2560, 31, 600), (8, 2560, 31, 778),
+                                     (2, 640, 482, 48)])
+def test_flint_kernel_chunks(dev, B, T, N, M):
+    g = torch.Generator().manual_seed(M + N)
+    plan = cuda.flint_plan(B, T, N, M)
+    assert plan["chunks"] == 2 and plan["smem"] == cuda.flint_smem(plan["nc"], plan["mc"])
+    lr = (1.5 * torch.randn(B, N, generator=g)).to(dev)
+    seg = (2.0 * torch.randn(B, T, M, generator=g)).to(dev)
+    tgt = torch.randint(0, M, (B, N), generator=g).to(dev)
+    nl = torch.randint(1, N + 1, (B,), generator=g)
+    nl[0] = N
+    tv = torch.randint(1, T + 1, (B,), generator=g)
+    tv[0] = T
+    nl, tv = nl.to(dev), tv.to(dev)
+    cw = torch.rand(M, generator=g).to(dev) + 0.5
+    for w in (None, cw):
+        prep = flint_prep(lr, nl, tv, 0.25)
+        got = cuda.mucon_flint(*prep, seg, tgt, nl, tv, w)
+        assert torch.equal(got, cuda.mucon_flint(*prep, seg, tgt, nl, tv, w))
+        _close([got], [mucon_flint_plain(lr, seg, tgt, nl, tv, 0.25, w)], 1e-4)
+
+
 # one segment; a video of one frame; T = 200, not a multiple of the 64-frame tile
 @pytest.mark.parametrize("N,T,n_len,t_valid", [(1, 64, (1, 1), (64, 1)),
                                                (12, 200, (12, 3, 1), (200, 65, 2))])
@@ -795,7 +838,7 @@ def test_flint_kernel_clusters_repeat(dev, B, T):
     tv = torch.randint(1, T + 1, (B,), generator=g)
     tv[0], tv[-1] = 0, 1
     tv = tv.to(dev)
-    plan = cuda.flint_plan(B, T)
+    plan = cuda.flint_plan(B, T, N, M)
     assert plan["width"] == (16 if B == 8 else 4) and plan["ctas"] == B * plan["width"]
     prep = flint_prep(lr, nl, tv, 0.25)
     got = cuda.mucon_flint(*prep, seg, tgt, nl, tv)

@@ -17,6 +17,7 @@ import torch
 from mucon_tpu.models import create_model as create_jax_model
 from mucon_tpu.ops.decoder_pallas import decoder_chain, decoder_chain_xla
 from mucon_tpu.ops.decoder_pallas import decoder_teacher_forced as jax_teacher_forced
+from mucon_tpu_torch import cuda
 from mucon_tpu_torch.cuda import decoder_chain_fwd_plan
 from mucon_tpu_torch.models.model import create_model, model_fields_from_cfg
 from mucon_tpu_torch.ops.decoder_chain import (
@@ -219,8 +220,8 @@ def test_cluster_twin_matches_plain_and_jax(tz, valid, cl):
             np.testing.assert_allclose(x.numpy(), np.asarray(y), atol=1e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("H,want", [(1, 1), (8, 1), (32, 2), (33, 1), (100, 4), (128, 8),
-                                    (129, 1), (256, 8)])
+@pytest.mark.parametrize("H,want", [(1, 1), (8, 1), (32, 4), (33, 4), (100, 8), (128, 8),
+                                    (129, 8), (256, 8)])
 def test_fwd_plan_covers_every_product_once(H, want):
     """The cluster split of the forward chain (csrc/decoder_chain.cu
     `cluster_step`): over the CL CTAs of 8 warps, the (k, column) pairs of
@@ -228,32 +229,33 @@ def test_fwd_plan_covers_every_product_once(H, want):
     order), of the combine layer (E = 2H; the e rows, then the context's;
     passes of 4 columns a warp) and of the gates (the h rows, then comb's;
     passes of 8 columns a warp, column 4 jj + q the gate q of unit jj)
-    cover each matrix once, also where HS is above a pass's 32 units (an
-    odd H, a cluster of one CTA); the last two are warp GEMVs, lane l of a
-    warp taking k = l, l + 32, ...  The CTAs' units partition H, and their
-    frames partition [0, Tz), also where Tz < CL.  Every H the one-CTA
-    forward took (up to 256) is taken."""
+    cover each matrix once, on the ragged split (`units_of`: CTA r's share
+    of ceil or floor of H / CL units, HS the largest) as on the even one;
+    the last two are warp GEMVs, lane l of a warp taking k = l, l + 32, ...
+    The CTAs' units partition H, and their frames partition [0, Tz), also
+    where Tz < CL.  Every H from 1 is taken, on 8 CTAs from H = 64."""
     cl, hs, nt = decoder_chain_fwd_plan(H)
-    assert cl == want and cl * hs == H and nt == 256
+    shares = [cuda.units_of(r, cl, H) for r in range(cl)]
+    assert cl == want and max(map(len, shares)) == hs and nt == 256
     E, warps = 2 * H, nt // 32
 
     def gemv(col0, C, ncol, k0, k1):
         return [(k, col0 + c) for lane in range(32) for k in range(k0 + lane, k1, 32)
                 for c in range(C) if col0 + c < ncol]
 
-    q = [(r * hs + jj, n) for r in range(cl) for n in range(H) for jj in range(hs)]
+    q = [(j, n) for u in shares for n in range(H) for j in u]
     assert sorted(q) == [(k, n) for k in range(H) for n in range(H)]
     comb, gates, units = [], [], []
-    for r in range(cl):
-        j0 = r * hs
+    for u in shares:
+        j0, n_r = u.start, len(u)
         for w in range(warps):
-            comb += [(k, j0 + jj) for col0 in range(4 * w, hs, 4 * warps)
+            comb += [(k, j0 + jj) for col0 in range(4 * w, n_r, 4 * warps)
                      for k0, k1 in ((0, H), (H, H + E))
-                     for k, jj in gemv(col0, 4, hs, k0, k1)]
-            gates += [(k, (col & 3) * H + j0 + (col >> 2)) for t in range(-(-4 * hs // 64))
+                     for k, jj in gemv(col0, 4, n_r, k0, k1)]
+            gates += [(k, (col & 3) * H + j0 + (col >> 2)) for t in range(-(-4 * n_r // 64))
                       for k0, k1 in ((H, 2 * H), (0, H))
-                      for k, col in gemv(64 * t + 8 * w, 8, 4 * hs, k0, k1)]
-        units += range(j0, j0 + hs)
+                      for k, col in gemv(64 * t + 8 * w, 8, 4 * n_r, k0, k1)]
+        units += u
     assert sorted(comb) == [(k, n) for k in range(H + E) for n in range(H)]
     assert sorted(gates) == [(k, n) for k in range(2 * H) for n in range(4 * H)]
     assert units == list(range(H))

@@ -108,3 +108,26 @@ def test_kernel_closed_form_from_prep_matches_plain(overlap):
     closed = -(wn * picked).sum(1) / wn.sum(1)
     want = mucon_flint_plain(lr, seg, tgt.long(), n_len, t_valid, overlap, w)
     np.testing.assert_allclose(closed.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_flint_plain_matches_jax_past_shared_memory(weighted):
+    """The plain flint (the CPU route of `mucon_flint`) at M = 600 classes
+    and N = 31 segments, a window the card's kernel takes in two chunks of
+    classes (`cuda.flint_plan`), against the JAX kernel in interpret mode."""
+    rng = np.random.RandomState(11)
+    b, n, t, m = 2, 31, 80, 600
+    lr = (1.5 * rng.randn(b, n)).astype(np.float32)
+    seg = (2.0 * rng.randn(b, t, m)).astype(np.float32)
+    tgt = rng.randint(0, m, (b, n)).astype(np.int32)
+    n_len, t_valid = np.array([31, 12], np.int32), np.array([80, 47], np.int32)
+    w = np.ones(m, np.float32)
+    if weighted:
+        w = (0.5 + rng.rand(m)).astype(np.float32)
+    ref = mucon_flint_fused(jnp.asarray(lr), jnp.asarray(seg), jnp.asarray(tgt),
+                            jnp.asarray(n_len), jnp.asarray(t_valid), 0.25, weighted, True,
+                            jnp.asarray(w))
+    got = mucon_flint(torch.from_numpy(lr), torch.from_numpy(seg),
+                      *(torch.from_numpy(a).long() for a in (tgt, n_len, t_valid)), 0.25,
+                      torch.from_numpy(w) if weighted else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)

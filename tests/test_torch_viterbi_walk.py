@@ -24,9 +24,11 @@ torch.set_num_threads(1)
 
 S = 30
 # (K, N, L, max_len): the default L with ties; K = 1; N = 1; a small L with
-# max_len 300, where only cells l <= 8 may grow (the kernel's gated shift)
-CASES = [(24, 6, 66, 2000), (1, 4, 66, 2000), (12, 1, 66, 2000), (16, 5, 20, 300)]
-IDS = ["ties", "K1", "N1", "gated"]
+# max_len 300, where only cells l <= 8 may grow (the kernel's gated shift);
+# L = 700, past the cells a warp holds (the card's cluster body)
+CASES = [(24, 6, 66, 2000), (1, 4, 66, 2000), (12, 1, 66, 2000), (16, 5, 20, 300),
+         (6, 4, 700, 2000)]
+IDS = ["ties", "K1", "N1", "gated", "long_L"]
 
 
 def _tables(K, N, L, seed):
@@ -107,24 +109,26 @@ def test_decode_is_dp_then_walk_on_cpu():
     (3, 30, 66, 85, "warp", 72, "shared"),
     (6, 4, 20, 40, "warp", 72, "shared"),
     (6, 32, 72, 40, "warp", 72, "shared"),
-    (6, 32, 73, 40, "block", 0, "shared"),
-    (6, 33, 66, 85, "block", 0, "shared"),
-    (6, 256, 20, 85, "block", 0, "shared"),
+    (6, 32, 73, 40, "cluster", 16, "global"),
+    (6, 33, 66, 85, "cluster", 16, "global"),
+    (6, 256, 20, 85, "cluster", 16, "global"),
     (6, 30, 66, 4000, "warp", 72, "global"),
     (6, 30, 66, 1, "warp", 72, "shared"),
 ])
 def test_viterbi_plan_covers_shapes(B, N, L, K, body, lc, table):
     plan = cuda.viterbi_plan(B, N, L, K)
     assert (plan["body"], plan["lc"], plan["table"]) == (body, lc, table)
-    assert plan["ctas"] == B and plan["threads"] == plan["warps"] * 32
+    assert plan["ctas"] == B * plan["cl"] and plan["threads"] == plan["warps"] * 32
     assert plan["threads"] == (32 if body == "warp" else cuda.VITERBI_BLOCK_THREADS)
     if body == "warp":
-        assert N <= 32 and L <= lc
+        assert N <= 32 and L <= lc and plan["cl"] == 1
+    else:
+        assert (plan["cl"], plan["tpr"], plan["rpt"]) == cuda._viterbi_cluster(N, L)
     staged = min(cuda.VITERBI_KC, max(K - 1, 1))
-    state = 0 if body == "warp" else 3 * N * L + 2 * N
+    state = 0 if body == "warp" else 4 * plan["cl"] * N + 2 * N
     tab = 2 * (K - 1) * N if table == "shared" else 0
     assert plan["smem"] == 4 * (staged * N + state) + tab <= cuda.MAX_SMEM_BYTES
-    if table == "global":
+    if table == "global" and body == "warp":
         assert 4 * (staged * N + state) + 2 * (K - 1) * N > cuda.MAX_SMEM_BYTES
     assert cuda.viterbi_plan(B, N, L) == {k: v for k, v in plan.items()
                                           if k not in ("smem", "table", "staged")}
@@ -139,7 +143,7 @@ def test_viterbi_plan_refuses():
 @pytest.mark.parametrize("B", [1, 3, 8, 9, 16, 33, 128, 200])
 @pytest.mark.parametrize("T", [1, 64, 200, 2560])
 def test_flint_plan_fills_the_card(B, T):
-    plan = cuda.flint_plan(B, T)
+    plan = cuda.flint_plan(B, T, 30, 48)
     w = plan["width"]
     tiles = -(-T // cuda.FLINT_TILE)
     assert w & (w - 1) == 0 and 1 <= w <= cuda.FLINT_MAX_CL
@@ -149,3 +153,5 @@ def test_flint_plan_fills_the_card(B, T):
     assert 2 * w > min(cuda.FLINT_MAX_CL, cuda.SMS // B, tiles)
     if (B, T) == (8, 2560):  # the train batch: 128 CTAs of 132 SMs
         assert (w, plan["ctas"]) == (16, 128)
+    # the default shape's window fits one chunk
+    assert (plan["nc"], plan["mc"], plan["chunks"]) == (30, 48, 1)

@@ -13,7 +13,9 @@
   the H = 128 and C = 128 plans are unchanged, and a width above the
   widest (MAX_H_WIDE = 2048) or below 1 raises a ValueError naming the limit.
   The DP's plan takes L = 2000 / frame_sampling at frame_sampling 1-3 and
-  N = 300 (its global body where the state does not fit shared memory).
+  N = 300 (its cluster body, the cells in registers across up to 16 CTAs,
+  and its global body where no such cluster holds them); the flint plan
+  takes every N and M in chunks of segments and classes.
 * The twins in the kernels' split order (the BiLSTM's k-groups and gate-row
   groups, the decoder reverse chain's row groups and ragged ranks) against
   the JAX Pallas kernels in interpret mode at H = 100, 127 and 600, the
@@ -167,8 +169,8 @@ def test_bilstm_chain_plan_covers_every_product_once():
 
 
 def test_decoder_chain_plans_cover_every_product_once():
-    """Every H: the forward chain's CTAs partition the units (CL divides
-    H); the reverse chain's (even or ragged) CTAs partition them too, and
+    """Every H: the forward chain's CTAs partition the units (the ragged
+    split: `units_of`, HS the largest share); the reverse chain's (even or ragged) CTAs partition them too, and
     each of a CTA's 2 HS output columns of dgate [Wih; Whh]^T takes NQ
     groups of RQ rows that cover the 4H dgate rows once, 2 HS NQ threads at
     most 256 (even, RQ <= 64 in registers) or 512 (ragged).  H = 128 keeps
@@ -177,7 +179,8 @@ def test_decoder_chain_plans_cover_every_product_once():
     assert cuda.decoder_chain_plan(128) == (8, 16, 8, 64)
     for H in WIDTHS:
         cl, hs, nt = cuda.decoder_chain_fwd_plan(H)
-        assert cl * hs == H and nt == 256, H
+        units = [j for r in range(cl) for j in cuda.units_of(r, cl, H)]
+        assert units == list(range(H)) and hs == -(-H // cl) and nt == 256, H
         cl, hs, nq, rq = cuda.decoder_chain_plan(H)
         even = (cl == cuda._cluster_width(H) and hs == H // cl and 4 <= H <= 256
                 and hs % 4 == 0 and hs <= 32 and nq == 256 // (2 * hs) and rq <= 64)
@@ -187,6 +190,19 @@ def test_decoder_chain_plans_cover_every_product_once():
         units = [j for r in range(cl) for j in cuda.units_of(r, cl, H)]
         assert units == list(range(H)) and max(
             len(cuda.units_of(r, cl, H)) for r in range(cl)) == hs, H
+
+
+def test_decoder_chain_fwd_plan_eight_ctas_from_64():
+    """No H from 64 to 2048 runs the forward chain on fewer than 8 CTAs:
+    the ragged split's shares cover H once, each of ceil or floor of H / 8
+    units; H = 128 keeps its even split."""
+    assert cuda.decoder_chain_fwd_plan(128) == (8, 16, 256)
+    for H in range(64, cuda.MAX_H_WIDE + 1):
+        cl, hs, nt = cuda.decoder_chain_fwd_plan(H)
+        shares = [cuda.units_of(r, cl, H) for r in range(cl)]
+        assert cl >= 8 and nt == 256, H
+        assert [j for u in shares for j in u] == list(range(H)), H
+        assert {len(u) for u in shares} <= {H // cl, -(-H // cl)} and hs == -(-H // cl), H
 
 
 def test_stack_width_covers_every_c():
@@ -204,8 +220,8 @@ WIDE_HS = (513, 600, 768, 1024, 1181, 1447)
 @pytest.mark.parametrize("H", WIDE_HS)
 def test_wide_plans_cover_every_product_once(H):
     """Above H = 512 every recurrence plan is a split of CL = 8 CTAs of
-    `units_of` (the forward decoder chain: `_cluster_width`, one CTA at an
-    odd H) whose (unit, gate column, k) products are covered exactly once:
+    `units_of` (the forward decoder chain too, at an odd H as at an even
+    one) whose (unit, gate column, k) products are covered exactly once:
     the BiLSTM forward's NK groups of KC rows cover w_hh's H rows for each
     of a CTA's 4 n gate columns, which cover all 4H columns; the reverse
     chain's NQ groups of GPQ gate rows cover 4H for each of its n columns;
@@ -224,7 +240,8 @@ def test_wide_plans_cover_every_product_once(H):
     assert cuda.bilstm_chain_plan(H)[:2] == (cuda.PERSISTENT, 0)
 
     cl, hs, nt = cuda.decoder_chain_fwd_plan(H)
-    assert cl * hs == H and cl == cuda._cluster_width(H) and nt == 256
+    units = [j for r in range(cl) for j in cuda.units_of(r, cl, H)]
+    assert (cl, hs, nt) == (8, -(-H // 8), 256) and units == list(range(H))
 
     cl, hs, nq, rq = cuda.decoder_chain_plan(H)
     assert (cl, hs) == (8, -(-H // 8)) and rq % 4 == 0 and nq == max(1, 512 // hs)
@@ -266,26 +283,126 @@ def test_wide_stack_width_covers_every_c(C):
 
 
 # (N, L) -> the DP's body: N = 31 at frame_sampling 1, 2, 3 (L = 2000 //
-# frame_sampling), and N = 300 with a state that fits and one that does not
-@pytest.mark.parametrize("N,L,K,body", [(31, 2000, 2560, "global"), (31, 1000, 1280, "global"),
-                                        (31, 666, 853, "global"), (300, 20, 40, "block"),
-                                        (300, 66, 40, "global")])
+# frame_sampling), N = 300 at two L a cluster holds, and N = 300 at L =
+# 2000, which no cluster of 16 CTAs holds
+@pytest.mark.parametrize("N,L,K,body", [(31, 2000, 2560, "cluster"), (31, 1000, 1280, "cluster"),
+                                        (31, 666, 853, "cluster"), (300, 20, 40, "cluster"),
+                                        (300, 66, 40, "cluster"), (300, 2000, 40, "global")])
 def test_viterbi_plan_takes_every_state(N, L, K, body):
-    """The DP takes any N and L: the block body where its [N x L] state,
-    its argmaxes and a staged window fit a block's shared memory, else the
-    global body (the state in device memory); the windows staged at a time
-    fit what is left, and the walk's table is in shared memory where it
-    fits too."""
+    """The DP takes any N and L: the cluster body where a cluster of at
+    most 16 CTAs holds the [N x L] cells in registers (its threads' rows
+    and 16-cell slices cover every cell, its slots and a staged window fit
+    shared memory), else the global body (the state in device memory); the
+    windows staged at a time fit what is left, and the walk's table is in
+    shared memory where it fits beside the global body's."""
     plan = cuda.viterbi_plan(4, N, L, K)
-    assert plan["body"] == body and plan["lc"] == 0 and plan["threads"] == 256
-    state = 3 * N * L + 2 * N if body == "block" else 2 * N
+    assert plan["body"] == body and plan["threads"] == 256
     assert 1 <= plan["staged"] <= min(cuda.VITERBI_KC, K - 1)
+    if body == "cluster":
+        cl, tpr, rpt = plan["cl"], plan["tpr"], plan["rpt"]
+        assert plan["lc"] == cuda.VITERBI_CELLS and plan["ctas"] == 4 * cl
+        assert 1 <= cl <= cuda.VITERBI_MAX_CL and tpr & (tpr - 1) == 0 and rpt in (1, 2, 4)
+        assert 256 // tpr * rpt >= N and cl * tpr * cuda.VITERBI_CELLS >= L
+        assert (cl - 1) * tpr * cuda.VITERBI_CELLS < L  # every CTA holds a column
+        state = 4 * cl * N + 2 * N
+        assert plan["table"] == "global" and plan["smem"] == 4 * (plan["staged"] * N + state)
+    else:
+        assert cuda._viterbi_cluster(N, L) is None and plan["ctas"] == 4
+        state = 2 * N
+        tab = 2 * (K - 1) * N
+        assert plan["table"] == ("shared" if plan["smem"] == 4 * (plan["staged"] * N + state)
+                                 + tab else "global")
     assert 4 * (plan["staged"] * N + state) <= plan["smem"] <= cuda.MAX_SMEM_BYTES
-    if body == "global":
-        assert 4 * (3 * N * L + 3 * N) > cuda.MAX_SMEM_BYTES
-    tab = 2 * (K - 1) * N
-    assert plan["table"] == ("shared" if plan["smem"] == 4 * (plan["staged"] * N + state) + tab
-                             else "global")
+
+
+def test_viterbi_cluster_split_covers_every_cell_once():
+    """For every N up to 1024 and L at frame_sampling 1-30 (and a few
+    others), the cluster body's threads cover each (row, column) cell of a
+    video once: rank r, thread t takes rows t // TPR + i 256 // TPR and the
+    16 columns from r 16 TPR + (t % TPR) 16; where no split of at most 16
+    CTAs exists the global body takes the shape."""
+    for N in (1, 2, 7, 31, 33, 64, 100, 255, 257, 300, 513, 1024, 1025):
+        for L in (1, 16, 17, 66, 67, 133, 200, 400, 666, 1000, 2000, 4000):
+            split = cuda._viterbi_cluster(N, L)
+            if split is None:
+                continue
+            cl, tpr, rpt = split
+            G = 256 // tpr
+            cells = set()
+            for r in range(cl):
+                for t in range(256):
+                    for i in range(rpt):
+                        n = t // tpr + i * G
+                        l0 = r * tpr * 16 + (t % tpr) * 16
+                        cells.update((n, l) for l in range(l0, l0 + 16) if n < N and l < L)
+            assert len(cells) == N * L, (N, L)
+
+
+@pytest.mark.parametrize("N,M,chunks", [(30, 48, 1), (31, 48, 1), (31, 600, 2), (31, 778, 2),
+                                        (482, 48, 2), (482, 778, 18)])
+def test_flint_plan_chunks_cover_every_class_once(N, M, chunks):
+    """The flint kernel's window in chunks (`cuda.flint_plan`): one where
+    [N x M] fits a CTA's shared memory (the default shape), else chunks of
+    at least 32 classes, and of segments where N alone is too large; the
+    chunks cover every (segment, class) entry once, and a CTA's bytes are
+    within the card's limit."""
+    plan = cuda.flint_plan(8, 2560, N, M)
+    nc, mc = plan["nc"], plan["mc"]
+    assert plan["chunks"] == chunks and plan["smem"] == 4 * cuda.flint_floats(nc, mc)
+    assert plan["smem"] <= cuda.MAX_SMEM_BYTES
+    assert (nc, mc) == (N, M) or mc >= 32
+    if chunks == 1:
+        assert 4 * cuda.flint_floats(N, M) <= cuda.MAX_SMEM_BYTES
+    else:
+        assert 4 * cuda.flint_floats(N, M) > cuda.MAX_SMEM_BYTES
+    entries = [(n, m) for n0 in range(0, N, nc) for m0 in range(0, M, mc)
+               for n in range(n0, min(N, n0 + nc)) for m in range(m0, min(M, m0 + mc))]
+    assert sorted(entries) == [(n, m) for n in range(N) for m in range(M)]
+    assert len(entries) == N * M
+
+
+def _fewest_flint_chunks(N, M, limit):
+    """(nc, mc) by search: of the even chunks of N (the fewest first), the
+    first that takes some even chunk of M of at least min(M, 32) classes
+    within `limit` bytes, with the fewest chunks of M; None where none does."""
+    for kn in range(1, N + 1):
+        nc = -(-N // kn)
+        for km in range(1, M + 1):
+            mc = -(-M // km)
+            if mc < min(M, cuda.FLINT_MIN_CLASSES):
+                break
+            if 4 * cuda.flint_floats(nc, mc) <= limit:
+                return nc, mc
+    return None
+
+
+@pytest.mark.parametrize("limit", [232448, 50000, 20000, 8000])
+def test_flint_plan_takes_the_fewest_chunks(monkeypatch, limit):
+    """`cuda.flint_plan`'s closed form gives the search's chunks, and raises
+    exactly where the search finds none, at the card's limit and three
+    smaller ones (the smallest leaves no room for M = 600's chunks)."""
+    monkeypatch.setattr(cuda, "MAX_SMEM_BYTES", limit)
+    shapes = [(N, M) for N in (*range(1, 41, 3), 241, 480, 482, 777, 1500)
+              for M in (*range(1, 100, 7), 300, 600, 778, 2000)]
+    for N, M in shapes:
+        want = _fewest_flint_chunks(N, M, limit)
+        if want is None:
+            with pytest.raises(ValueError, match="MAX_SMEM_BYTES"):
+                cuda.flint_plan(8, 2560, N, M)
+        else:
+            plan = cuda.flint_plan(8, 2560, N, M)
+            assert (plan["nc"], plan["mc"]) == want, (N, M)
+
+
+def test_flint_plan_past_every_chunk_raises_naming_the_limit(monkeypatch):
+    """Where even a chunk of one segment by the fewest classes does not fit
+    (a card with less shared memory than a chunk needs), the plan raises a
+    ValueError that names the limit, not a launch error."""
+    monkeypatch.setattr(cuda, "MAX_SMEM_BYTES", 4 * cuda.flint_floats(1, 32) - 4)
+    with pytest.raises(ValueError, match="MAX_SMEM_BYTES"):
+        cuda.flint_plan(8, 2560, 31, 600)
+    with pytest.raises(ValueError, match=">= 1"):
+        cuda.flint_plan(8, 2560, 0, 48)
 
 
 def test_pad_channels_pads_at_the_end_only():
