@@ -29,12 +29,14 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    once a batch and runs no Python pointer walk, and that both paths agree,
    and times both (and the Viterbi DP + walk span of each); then exports the
    WaveNet model's serving program (`serving_export_phase`, B=4 at 2560
-   frames, the float32 and int8 wires), loads it and serves request B
+   frames, the float32 wire; a smaller WaveNet program, 5 layers and 8
+   decoding steps, on the int8 wire), loads it and serves request B
    through it: bit for bit equal to the live plain program with no kernel
    launched, per-video results agreeing with the kernel path, an artifact
-   of weights that emit EOS at step 0 equal to the live decode loop, the
+   of the smaller program's weights that emit EOS at step 0 equal to the
+   live decode loop, the
    one-video Viterbi decode's kernel equal to its plain DP; export, save
-   and load seconds and ms a request printed;
+   and load seconds, ms a request and the phase's seconds printed;
 5. trains: checks the seven train kernels (the WaveNet stack's forward and
    backward sweep — on the tensor cores in 3xTF32, their grid a layer and
    the shares of row tiles and rows skipped printed — the BiLSTM recurrence with its cell stash — on
@@ -146,25 +148,31 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    in 3xTF32 and in the bf16-operand mode (rows 1 and 12 at B = 128,
    T_pad = 1280), rows 2, 7-10 at H = 100, 127,
    256, 512 (even, ragged and L2-weight splits; the BiLSTM's persistent
-   kernels from 512), 768 and 1024 (the wide kernels), each against its twin
+   kernels from 512), 768 and 1024 (the wide kernels; the decoder chain's
+   persistent kernels, each line with its plan: CTAs, the weight columns
+   resident in shared memory and those read from L2, and the forward equal
+   to the cluster forward bit for bit), each against its twin
    under the C = 128 / H = 128 bounds (the sweep's gradients against the
    float64 twin) and timed, the BiLSTM rows beside cuDNN's `nn.LSTM`; the BiLSTM at
-   H = 1447 and the decoder chain at H = 1181 (B = 2, Tz = 40), the reverse
-   chain at Tz = 2048 (H = 128) and 1536 (H = 768), B = 1 (its tables in
-   device memory), the DP at frame_sampling 1 and 3 (L = 2000, 666: its
+   H = 1447 and the decoder chain at H = 1181 (B = 2, Tz = 40), the chain
+   at Tz = 2048 (H = 128) and 1536 (H = 768), B = 1 (on its persistent
+   kernels: its frames' rows and tables past a cluster's shared memory),
+   the DP at frame_sampling 1 and 3 (L = 2000, 666: its
    cluster body), at N = 300 and at N = 300, L = 2000 (its global body),
    the flint loss at M = 600 and 778 (its window in chunks of classes) and
    at N = 482 (in chunks of segments); the MS-TCN++ model at C = 256
    and both backbones at C = H = 768 through `predict_videos` (request A
    among them); and `train_test_mucon` at the wide (C = H = 256), ragged
    (C = 48, H = 100) and wide768 (C = H = 768) configurations with their
-   launches, `test_mucon` within 1e-6 and a kernel step against a plain
-   step;
+   launches (the decoder chain's CUDA kernels by name: the cluster kernels
+   at H = 100 and 256, the persistent ones at 768), `test_mucon` within
+   1e-6 and a kernel step against a plain step;
 11. prints the kernel report JSON (each kernel's launches, error, time, the
    plain twin's time, the least time the card could take for the same work
    and, where one PyTorch call computes the same function, that call's
    time, and its `widths`: the same for each width the `widths` phase
-   ran), then `{"ok": true, "device": {...}}` as the last line.
+   ran, the decoder chain's with the CUDA kernels and source of its
+   route), then `{"ok": true, "device": {...}}` as the last line.
 
 Weights are random from a seeded torch.Generator and features from a seeded
 numpy generator.  Any failure raises and exits non-zero; without a visible
@@ -813,16 +821,17 @@ def expect(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def check_outputs(tag, out, preds, lengths):
-    """The serving output is well formed: finite, right shapes, relative
-    lengths a distribution over the decoded transcript."""
+def check_outputs(tag, out, preds, lengths, steps: int = N_MAX + 1):
+    """The serving output of a model of `steps` decoding steps is well
+    formed: finite, right shapes, relative lengths a distribution over the
+    decoded transcript."""
     B = len(lengths)
-    expect(out["tokens"].shape == (B, N_MAX + 1), f"{tag}: tokens {out['tokens'].shape}")
+    expect(out["tokens"].shape == (B, steps), f"{tag}: tokens {out['tokens'].shape}")
     expect(np.isfinite(out["vit_score"]).all() and np.isfinite(out["rel_lengths"]).all(),
            f"{tag}: non-finite scores or lengths")
     for b, (p, t) in enumerate(zip(preds, lengths)):
         n = int(out["n_dec"][b])
-        expect(1 <= n <= N_MAX and len(p["transcript"]) == n, f"{tag} {b}: n_dec {n}")
+        expect(1 <= n <= steps - 1 and len(p["transcript"]) == n, f"{tag} {b}: n_dec {n}")
         expect(abs(sum(p["rel_lengths"]) - 1.0) < 1e-4, f"{tag} {b}: rel_lengths sum")
         expect(p["vit_labels"].shape == (t,) and p["y_labels"].shape == (t,),
                f"{tag} {b}: label shapes")
@@ -940,6 +949,11 @@ def serve(tag, model, dev, rng, card: str, required, absent=(), timed: bool = Tr
 # -- phase 4b: the serving export --------------------------------------------
 
 EXPORT_B, EXPORT_PAD, EOS_PAD, EXPORT_WIRES = 4, 2560, 512, ("float32", "int8")
+# the int8 wire's and the EOS-first artifact's model: the default widths on 5
+# stack layers (pools after layers 1-4, the default's 16x) and 8 decoding
+# steps, a fraction of the default's graph: `torch.export` is host-bound in
+# the graph's nodes (the float32 artifact keeps the default model)
+SMALL_EXPORT, SMALL_EXPORT_S = dict(stages=(1, 2, 4, 8, 16), pooling_layers=(1, 2, 3, 4)), 8
 
 
 def event_and_host_ms(fn, reps: int) -> tuple:
@@ -961,16 +975,18 @@ def event_and_host_ms(fn, reps: int) -> tuple:
 
 
 def serving_export_phase(dev, card: str, tmp: str) -> None:
-    """The serving export (`mucon_tpu_torch/serving.py`) of the default
-    WaveNet model on the card at B=4, pad_to=2560, for the float32 and int8
-    wires: export, save and load it, and serve request B through
+    """The serving export (`mucon_tpu_torch/serving.py`) on the card at B=4,
+    pad_to=2560, of the default WaveNet model on the float32 wire and of a
+    smaller one (SMALL_EXPORT) on the int8 wire: export, save and load it,
+    and serve request B through
     `ExportedMuCon.predict`.  The artifact's raw outputs must equal the live
     plain program's (`build_serving_fn`, run eagerly on the same wire
     arrays) bit for bit under deterministic algorithms, with no kernel
     launched while it runs; its per-video results must agree with
     `predict_videos` with the kernels on the same wire by
     `compare_request`'s near-tie rules.  An artifact of weights whose EOS
-    logit is raised (every video emits EOS at step 0; B=4 at 512 frames)
+    logit is raised (every video emits EOS at step 0; B=4 at 512 frames;
+    the smaller model)
     must equal the live plain program and the live decode loop bit for
     bit, and the one-video `dense_viterbi_decode` with the kernel must
     equal it without.  Prints the export, save and load seconds and the ms
@@ -1051,17 +1067,20 @@ def serving_export_phase(dev, card: str, tmp: str) -> None:
         return got, live, padded, nf
 
     model = create_model(M, N_MAX + 1, D, device=dev, seed=0)
+    small = lambda: create_model(M, SMALL_EXPORT_S, D, device=dev, seed=0,  # noqa: E731
+                                 **SMALL_EXPORT)
     request_ms = {}
     for wire in EXPORT_WIRES:
-        served = export(model, wire, wire)
-        got, _, _, nf = bitwise(wire, served, model, wire, feats)
+        m = model if wire == "float32" else small()
+        served = export(m, wire, wire)
+        got, _, _, nf = bitwise(wire, served, m, wire, feats)
         fdt = FEATS_DTYPES[wire]
         arrays = batch_to_tensors(collate_videos(feats, names, db), dev, feats_dtype=fdt)
         with torch.no_grad():
-            outk = build_fused_eval(model, frame_sampling=FRAME_SAMPLING)(arrays)
+            outk = build_fused_eval(m, frame_sampling=FRAME_SAMPLING)(arrays)
 
         def live_predict(use_kernels):
-            return predict_videos(model, feats, names, db, frame_sampling=FRAME_SAMPLING,
+            return predict_videos(m, feats, names, db, frame_sampling=FRAME_SAMPLING,
                                   batch_size=len(feats), use_kernels=use_kernels,
                                   feats_dtype=fdt)
 
@@ -1069,8 +1088,8 @@ def serving_export_phase(dev, card: str, tmp: str) -> None:
         outp = {k: v[:len(feats)] for k, v in
                 eval_to_host(got, torch.from_numpy(nf), EXPORT_PAD).items()}
         predp = served.predict(feats, names)
-        check_outputs(f"serving {wire}", outp, predp, lengths)
-        mism = compare_request(f"serving {wire}", model, arrays, outk, outp, predk, predp)
+        check_outputs(f"serving {wire}", outp, predp, lengths, m.max_decoding_steps)
+        mism = compare_request(f"serving {wire}", m, arrays, outk, outp, predk, predp)
         for line in mism:
             say(f"near-tie mismatch (allowed): {line}")
         say(f"serving {wire}: artifact == live plain program bit for bit (n_steps "
@@ -1079,7 +1098,7 @@ def serving_export_phase(dev, card: str, tmp: str) -> None:
         request_ms[wire] = (event_and_host_ms(lambda: served.predict(feats, names), 3),
                             event_and_host_ms(lambda: live_predict(True), 3),
                             event_and_host_ms(lambda: live_predict(False), 3))
-        del served, arrays
+        del served, arrays, m
     for wire, ((ae, ah), (ke, kh), (pe, ph)) in request_ms.items():
         say(f"serving {wire} request B (3 videos, host features in, labels out), ms a "
             f"request by CUDA events / host clock: artifact {ae:.1f} / {ah:.1f}; "
@@ -1088,7 +1107,7 @@ def serving_export_phase(dev, card: str, tmp: str) -> None:
 
     # every video emits EOS at step 0, so the live loop stops after one step;
     # 4 videos of at most 512 frames (a smaller program to export)
-    model_e = create_model(M, N_MAX + 1, D, device=dev, seed=0)
+    model_e = small()
     with torch.no_grad():
         model_e.net.decoder.transcript_out.bias[M] += 1e3
     served = export(model_e, "float32", "eos_first", pad_to=EOS_PAD)
@@ -1676,15 +1695,23 @@ def check_decoder_chain(model, tz_lengths, Tz: int, gen, dev, timed: bool):
     say(f"kernels decoder_chain_fwd and decoder_chain_bwd {tag}: two runs of each "
         f"agree bit for bit; the replay pass's relu(cpre) and cell equal the stashed comb "
         f"and cs bit for bit")
+    route = cuda.decoder_chain_route(B, H, E, Tz)
     launch = cuda.decoder_chain_fwd_launch(B, H, E, Tz)
     waves = -(-launch["clusters"] // launch["active"])
-    say(f"kernel decoder_chain_fwd {tag}: clusters of {launch['cl']} CTAs x "
-        f"{launch['threads']} threads, one a video: {launch['clusters']} clusters, the card "
-        f"holds {launch['active']} at once: {waves} wave{'s' if waves > 1 else ''}; each "
-        f"CTA's weights {'in shared memory' if launch['weights'] else 'from L2'}, its rows "
-        f"of maskf, pre and enc {'in shared memory' if launch['tables'] else 'from L2'}")
+    if route["fwd"] == "cluster":
+        say(f"kernel decoder_chain_fwd {tag}: clusters of {launch['cl']} CTAs x "
+            f"{launch['threads']} threads, one a video: {launch['clusters']} clusters, the card "
+            f"holds {launch['active']} at once: {waves} wave{'s' if waves > 1 else ''}; each "
+            f"CTA's weights {'in shared memory' if launch['weights'] else 'from L2'}, its rows "
+            f"of maskf, pre and enc in shared memory")
+    else:  # its frames' rows pass a cluster's shared memory
+        say(f"kernel decoder_chain_fwd {tag}: {chain_plan(B, H, E, Tz, 'persistent', False)}")
+    say(f"kernel decoder_chain_bwd {tag}: the reverse chain on the {route['bwd']} route: "
+        f"{chain_plan(B, H, E, Tz, route['bwd'], True)}")
     if not timed:
         return {}
+    expect(route == {"fwd": "cluster", "bwd": "cluster"},
+           f"the default shape {tag} is routed to {route}, not the cluster kernels")
     chain_args = (c_in, args[1], args[8], args[10], args[12], args[13], args[6], *cts)
     with torch.no_grad():
         fwd_ms = paired_ms(lambda: cuda.decoder_chain_forward(*args),
@@ -3989,12 +4016,62 @@ def bilstm_shape(gen, dev, card: str, lines: dict, H: int, T: int, B_eval: int, 
     return tz
 
 
+# the decoder chain's CUDA kernels on each route (`cuda.decoder_chain_route`)
+# and their sources
+CHAIN_KERNEL_OF = {"cluster": "chain_fwd_kernel", "persistent": "chain_persistent_fwd_kernel"}
+CHAIN_REPLAY_OF = {"cluster": "chain_replay_kernel", "persistent": "chain_persistent_fwd_kernel"}
+CHAIN_BWD_OF = {"cluster": "chain_bwd_kernel", "persistent": "chain_persistent_bwd_kernel"}
+CHAIN_SOURCE = {"cluster": "mucon_tpu_torch/csrc/decoder_chain.cu",
+                "persistent": "mucon_tpu_torch/csrc/decoder_persistent.cu"}
+
+
+def chain_kernels_of(fn):
+    """`fn()` and the decoder chain's CUDA kernels it launched, each with its
+    launches (`cuda.chain_launches`, set to 0 just before)."""
+    from mucon_tpu_torch import cuda
+
+    for k in cuda.chain_launches:
+        cuda.chain_launches[k] = 0
+    out = fn()
+    return out, {k: n for k, n in cuda.chain_launches.items() if n}
+
+
+def chain_plan(B: int, H: int, E: int, T: int, route: str, reverse: bool) -> str:
+    """A decoder chain launch's plan in a line: the cluster kernels' split,
+    or the persistent kernel's grid, what its CTAs keep resident in shared
+    memory and what they read from L2 every step."""
+    from mucon_tpu_torch import cuda
+
+    if route == "cluster":
+        if reverse:
+            cl, hs, nq, rq = cuda.decoder_chain_plan(H)
+            return f"cluster chain of {cl} CTAs a video, HS {hs}, {nq} x {rq} dgate rows"
+        launch = cuda.decoder_chain_fwd_launch(B, H, E, T)
+        return (f"clusters of {launch['cl']} CTAs a video, weights "
+                f"{'in shared memory' if launch['weights'] else 'from L2'}")
+    p = cuda.decoder_chain_persistent_launch(B, H, E, T, reverse=reverse)
+    if reverse:
+        return (f"persistent chain, {p['ctas']} CTAs of {p['units']} units (co-resident "
+                f"{p['co_resident']}), [Wih; Whh] rows {p['resident_wg']} of {2 * p['units']} "
+                f"and Wl2 rows {p['resident_wl2']} of {p['units']} resident, the rest from L2 "
+                f"each step; {p['nq']} x {p['rq']} dgate rows, {p['smem']} B shared")
+    rp = cuda.decoder_chain_persistent_launch(31 * B, H, E, T)
+    return (f"persistent, {p['ctas']} CTAs of {p['units']} units (co-resident "
+            f"{p['co_resident']}), resident columns q {p['resident_q']}/{p['cols_q']}, cpre "
+            f"{p['resident_cpre']}/{p['cols_cpre']}, gates {p['resident_gates']}/"
+            f"{p['cols_gates']}, the rest from L2 each step; tiles of {p['tile']} items "
+            f"({rp['tile']} for the replay's {31 * B}), {p['smem']} B shared; scores in blocks "
+            f"of {p['frames_block']} frames, softmax partials in chunks of "
+            f"{p['pair_channels']} channels ({rp['pair_channels']} for the replay)")
+
+
 def chain_shape(gen, dev, card: str, lines: dict, H: int, B: int, T: int, tz, width: str):
     """Rows 9, 10 at hidden size H, B videos of T frames (tz valid), S = 31,
     E = 2H (the bidirectional encoder's states): the forward chain and the
     reverse chain (its replay's cell and relu(cpre) equal to the forward's
     stash) each twice bit for bit, `DecoderChain`'s input gradients against
-    autograd of the plain twin, each a `width` line."""
+    autograd of the plain twin, each a `width` line naming the kernels its
+    first calls launched (the route's, by `cuda.chain_launches`)."""
     import torch
     from mucon_tpu_torch import cuda
     from mucon_tpu_torch.ops.decoder_chain import DecoderChain, decoder_chain_plain
@@ -4008,8 +4085,11 @@ def chain_shape(gen, dev, card: str, lines: dict, H: int, B: int, T: int, tz, wi
         r(B, H), r(B, H), wt(H, H, H), r(H), r(H), wt(H + E, H, H), wt(H + E, E, H), r(H),
         wt(2 * H, H, 4 * H), wt(2 * H, H, 4 * H), r(4 * H))]
     dcts = [torch.randn(S, B, H, generator=gen).to(dev) for _ in range(3)]
+    route = cuda.decoder_chain_route(B, H, E, T)
     with torch.no_grad():
-        outk = cuda.decoder_chain_forward(*args)
+        outk, fwd_kernels = chain_kernels_of(lambda: cuda.decoder_chain_forward(*args))
+        expect(fwd_kernels == {CHAIN_KERNEL_OF[route["fwd"]]: 1},
+               f"decoder_chain_fwd H={H}: launched {fwd_kernels} on the {route['fwd']} route")
         expect(all(torch.equal(a_, b_) for a_, b_ in
                    zip(outk, cuda.decoder_chain_forward(*args))),
                f"decoder_chain_fwd H={H}: two calls differ")
@@ -4021,9 +4101,19 @@ def chain_shape(gen, dev, card: str, lines: dict, H: int, B: int, T: int, tz, wi
         expect(torch.equal(torch.relu(replay[1]), outk[2]) and torch.equal(cell, outk[1]),
                f"decoder_chain_bwd H={H}: the replay's relu(cpre) or cell differs from the "
                f"stash")
-        expect(all(torch.equal(a_, b_) for a_, b_ in zip(
-            cuda.decoder_chain_backward(*bargs), cuda.decoder_chain_backward(*bargs))),
-            f"decoder_chain_bwd H={H}: two calls differ")
+        if route["fwd"] == "persistent":
+            expect(all(torch.equal(a_, b_) for a_, b_ in zip(
+                outk, cuda.decoder_chain_forward(*args, route="cluster"))),
+                f"decoder_chain_fwd H={H}: the persistent kernel differs from the cluster one")
+        (b1, b2), bwd_kernels = chain_kernels_of(lambda: (cuda.decoder_chain_backward(*bargs),
+                                                          cuda.decoder_chain_backward(*bargs)))
+        want = {CHAIN_REPLAY_OF[route["fwd"]]: 2}
+        want[CHAIN_BWD_OF[route["bwd"]]] = want.get(CHAIN_BWD_OF[route["bwd"]], 0) + 2
+        expect(bwd_kernels == want, f"decoder_chain_bwd H={H}: two calls launched "
+                                    f"{bwd_kernels} on the route {route}")
+        expect(all(torch.equal(a_, b_) for a_, b_ in zip(b1, b2)),
+               f"decoder_chain_bwd H={H}: two calls differ")
+        del b1, b2
     tag = f"B={B} S={S} Tz={T} H={H} E={E}"
     dfwd_err = held(f"decoder_chain_fwd {tag}", list(zip(("hs", "cs", "comb"), outk, outp)),
                     grads=False)
@@ -4045,26 +4135,22 @@ def chain_shape(gen, dev, card: str, lines: dict, H: int, B: int, T: int, tz, wi
         dbk = cuda_ms(lambda: cuda.decoder_chain_backward(*bargs), reps=4)
     dbp = cuda_ms(lambda: torch.autograd.grad(
         graph, [t for i, t in enumerate(xs) if i != 3], dcts, retain_graph=True), reps=2)
-    launch = cuda.decoder_chain_fwd_launch(B, H, E, T)
-    bplan = cuda.decoder_chain_plan(H)
     say(f"widths: kernels decoder_chain_fwd / decoder_chain_bwd {tag}: {dfms[0]:.3f} ms vs "
         f"plain {dfms[1]:.3f} ms; reverse chain {dbk:.3f} ms vs plain autograd {dbp:.3f} ms "
-        f"(forward CL {launch['cl']}, weights "
-        f"{'in shared memory' if launch['weights'] else 'from L2'}; reverse CL {bplan[0]}, HS "
-        f"{bplan[1]}, tables in "
-        f"{'device' if cuda.decoder_chain_bwd_wide(H, T) else 'shared'} memory); two calls "
-        f"bit for bit, the replay's cell and relu(cpre) equal the stash [{card}]")
+        f"(forward and replay: {chain_plan(B, H, E, T, route['fwd'], False)}; reverse chain: "
+        f"{chain_plan(B, H, E, T, route['bwd'], True)}); two calls bit for bit, the replay's "
+        f"cell and relu(cpre) equal the stash [{card}]")
     tzs = int(tz.sum())
     d_ops = S * (B * (18 * H * H + 2 * (H + E) * H + 10 * H) + tzs * (3 * H + 2 * E))
     d_bwd_ops = d_ops + S * (B * (18 * H * H + 2 * H * E + 20 * H)
                              + tzs * (2 * E + 4 * H + 3))
     tables = 4 * tzs * (E + H) + nbytes(maskf)
-    width_line("decoder_chain_fwd", width, report(
+    width_line("decoder_chain_fwd", width, dict(report(
         dfwd_err, *dfms, tables + nbytes(*args[6:]) + nbytes(args[0], *args[4:6], *outk),
-        d_ops), lines)
-    width_line("decoder_chain_bwd", width, report(
+        d_ops), kernels=sorted(fwd_kernels), source=CHAIN_SOURCE[route["fwd"]]), lines)
+    width_line("decoder_chain_bwd", width, dict(report(
         dbwd_err, dbk, dbp, tables + nbytes(*args[6:]) + nbytes(args[0], h_in, c_in, *dcts),
-        d_bwd_ops), lines)
+        d_bwd_ops), kernels=sorted(bwd_kernels), source=CHAIN_SOURCE[route["bwd"]]), lines)
     del xs, graph, args, outk, outp
 
 
@@ -4179,7 +4265,7 @@ def width_runs(dev, card: str, cli: dict, lines: dict) -> None:
             result = train_test_mucon.main(cli_argv(cli["sets"] + sets, exp))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = dict(cuda.launch_counts)
+        launches, chain_kernels = dict(cuda.launch_counts), dict(cuda.chain_launches)
         got = finite_fields(exp, result)
         run = os.path.join(cli["runs"], exp, "0")
         events = [json.loads(line) for line in open(os.path.join(run, "events.jsonl"))]
@@ -4194,6 +4280,16 @@ def width_runs(dev, card: str, cli: dict, lines: dict) -> None:
             want[k] += batches * n
         expect(launches == want, f"widths {tag}: launches {launches} != {want} implied by "
                                  f"{steps} steps and {batches} eval batches")
+        # each step's chain on its route (the cli batches' Tz = 160 at most):
+        # the forward kernel, the replay pass on the forward's route, the chain
+        H = fields["lstm_hidden_size"]
+        route = cuda.decoder_chain_route(TRAIN_B, H, 2 * H, 160)
+        want_chain = {k: 0 for k in cuda.CHAIN_KERNELS}
+        for k in (CHAIN_KERNEL_OF[route["fwd"]], CHAIN_REPLAY_OF[route["fwd"]],
+                  CHAIN_BWD_OF[route["bwd"]]):
+            want_chain[k] += steps
+        expect(chain_kernels == want_chain, f"widths {tag}: the decoder chain's kernels "
+                                            f"{chain_kernels} != {want_chain}")
         with open(cli["log"], "a") as f, contextlib.redirect_stdout(f):
             again = test_mucon.single_main(f"{exp}/0/1", root=cli["runs"])
         diff = max(float(np.max(np.abs(np.subtract(v, got[k]))))
@@ -4201,7 +4297,8 @@ def width_runs(dev, card: str, cli: dict, lines: dict) -> None:
         expect(diff <= 1e-6, f"widths {tag}: test_mucon differs from the run by {diff}")
         say(f"widths: train_test_mucon {tag} ({', '.join(f'{k}={v}' for k, v in sets)}): "
             f"24 finite fields in {run_s:.1f} s, {steps} steps and {batches} eval batches "
-            f"launched each kernel as often as they imply; test_mucon within {diff:.1e} "
+            f"launched each kernel as often as they imply (the decoder chain's: "
+            f"{ {k: v for k, v in chain_kernels.items() if v} }); test_mucon within {diff:.1e} "
             f"[{card}]; {result}")
         C, H = fields["hidden_size"], fields["lstm_hidden_size"]
         for key, entries in lines.items():

@@ -80,7 +80,7 @@
 // The weight gradients are left to the caller, as the JAX package leaves
 // them to XLA.
 //
-// Widths: every H from 1 to 512 on the kernels above (and past 512, see
+// Widths: every H from 1 to 512 on the kernels above (past 512, see
 // below).  The forward takes its ragged split at every H (a CTA's threads
 // stride over its share of units, its passes of 32 columns), so no H runs
 // on fewer than 8 CTAs from H = 64 on; the replay copies its next item's e
@@ -90,17 +90,15 @@
 // 512 threads (a thread a unit), the [Wih; Whh] rows and Wl2's columns read
 // from L2 every step, u's columns copied 4 bytes at a time.
 //
-// Above H = 512 (up to MAX_H_WIDE = 2048, where the forward's shared memory
-// allows; the JAX package's byte gates stop its kernel at H = 1181), and
-// wherever the reverse chain's [Tz x HS] tables K and u and its [CL x Tz]
+// Above a width that depends on B (`CROSSINGS`: at B = 8, H = 432 for the
+// forward and the replay pass and 256 for the reverse chain), up to
+// MAX_H_WIDE = 2048 (the JAX package's byte gates stop its
+// kernel at H = 1181), and wherever the forward's rows of maskf, pre and
+// enc or the reverse chain's [Tz x HS] tables K and u and its [CL x Tz]
 // partials would not fit a block's shared memory (long Tz, at any H), the
-// reverse chain runs `chain_bwd_wide_kernel`: the ragged split's sums on 512
-// threads that stride over the units and the (column, row group) products,
-// dc of every unit in shared memory, K = enc Wc2 and the ranks' partials of
-// da and dsc in device memory (scratch the wrapper allocates; the partials
-// exchanged with a fence and the cluster barrier), a and u read where the
-// replay pass wrote them.  The forward and the replay pass take any H as
-// they are.
+// chain runs on the persistent kernels of csrc/decoder_persistent.cu
+// (`mucon_decoder_chain_route`), which sum in these kernels' orders.  The
+// cluster forward and replay pass take any H their shared memory holds.
 //
 // Bound on this card: 31 dependent steps a video, each a few short products
 // from shared memory, the tanh table of the rank's frames and four
@@ -112,31 +110,13 @@
 #include <stdint.h>
 
 #include "cluster.cuh"
+#include "decoder_chain.cuh"
 
 namespace {
 
-constexpr float NEG = -1e30f;
+using namespace dchain;
+
 constexpr int NTF = 256;     // threads per CTA of the forward chain and the replay pass
-constexpr int MAX_CL = 8;    // the forward's cluster above H = MAX_H
-
-__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
-
-// f c + i g, rounded as one fused product-add of f c onto the rounded i g
-__device__ __forceinline__ float cell(float f, float c, float i, float g) {
-  return __fmaf_rn(f, c, __fmul_rn(i, g));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // The forward's exchanges: `st.async` stores into a peer's shared memory
 // that complete transaction bytes on the peer's mbarrier, which the peer
@@ -185,27 +165,6 @@ __device__ __forceinline__ void mbar_wait(uint32_t mbar, uint32_t parity) {
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
-}
-
-constexpr int MAX_H = 512;         // the widest hidden size of the narrow reverse chain
-constexpr int MAX_H_WIDE = 2048;   // the widest hidden size the chains take
-
-// How the forward splits H over a cluster: CL = cluster::ragged_width(H)
-// CTAs (8 from H = 64), CTA r taking the units cluster::units_of(r, CL, H)
-// (the even split where CL divides H), NTF threads (8 warps) each; HS the
-// largest share, which sizes the shared-memory regions.  Every H from 1 to
-// MAX_H_WIDE (a CTA's threads stride over its units where it writes their
-// state).  A pass of the combine layer takes 4 of its columns a warp, a
-// pass of the gates 8 a warp; a share above 32 units takes more passes.
-struct FwdPlan {
-  int cl, hs;
-};
-
-inline bool fwd_plan(int H, FwdPlan& p) {
-  if (H < 1 || H > MAX_H_WIDE) return false;
-  p.cl = H > MAX_H ? MAX_CL : cluster::ragged_width(H);
-  p.hs = (H + p.cl - 1) / p.cl;
-  return true;
 }
 
 static_assert(NTF == 256, "8 warps: 4 columns of cpre and 8 gate columns a warp a pass");
@@ -373,22 +332,6 @@ __device__ void prefetch_item(const Chain& ch, const Rank& rk, const Next& nx, c
   }
   if (tid < rk.hs) cp_async4(sm.xe + H + tid, nx.c + tid);
   asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-// sum over k = k0, k0 + G, ... < K of x[k] w[k ldw], in four interleaved
-// chains added in a fixed order
-__device__ __forceinline__ float dot_strided(const float* x, const float* w, int ldw, int k0,
-                                             int K, int G) {
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-  int k = k0;
-  for (; k + 3 * G < K; k += 4 * G) {
-    a0 = fmaf(x[k], w[k * ldw], a0);
-    a1 = fmaf(x[k + G], w[(k + G) * ldw], a1);
-    a2 = fmaf(x[k + 2 * G], w[(k + 2 * G) * ldw], a2);
-    a3 = fmaf(x[k + 3 * G], w[(k + 3 * G) * ldw], a3);
-  }
-  for (; k < K; k += G) a0 = fmaf(x[k], w[k * ldw], a0);
-  return (a0 + a1) + (a2 + a3);
 }
 
 // acc[c] += sum over k = k0 + lane, k0 + lane + 32, ... < k1 of x[k] wT[(col0 + c) ldk + k]
@@ -802,55 +745,6 @@ __global__ void __launch_bounds__(NTF, 1) chain_replay_kernel(
   }
 }
 
-constexpr int NTB = 256;  // threads per CTA of the chain (the even split)
-constexpr int NTW = 512;  // threads per CTA of the chain (the ragged split)
-
-// How the chain splits H over a cluster.  The even split: CL =
-// cluster::width_for(H) CTAs of HS units, HS a multiple of 4 (16-byte copies
-// of u's columns); [dgate] x [Wih; Whh]^T for the CTA's 2 HS output columns
-// (its units' dcomb and dh parts) over NQ groups of RQ dgate rows (a
-// multiple of 4, at most 64: the weights a thread keeps in registers); one
-// thread per unit (H <= NTB).  Where that does not hold (H = 96, 100, an odd
-// H, H above 128), the ragged split (gw): CL = cluster::ragged_width(H) CTAs, CTA r
-// taking units [r H / CL, (r + 1) H / CL) (HS the most), on NTW threads (a
-// thread a unit up to MAX_H), u's columns copied 4 bytes at a time, and the
-// [Wih; Whh] rows and Wl2's columns read from L2 every step.
-struct BwdPlan {
-  int cl, hs, nq, rq, nt;
-  bool gw;
-};
-
-bool bwd_plan(int H, BwdPlan& p) {
-  if (H < 1 || H > MAX_H_WIDE) return false;
-  if (H > MAX_H) {  // the wide kernel: NQ groups so that the products make about two passes
-    p.cl = cluster::ragged_width(H);
-    p.hs = (H + p.cl - 1) / p.cl;
-    p.nt = NTW;
-    p.gw = true;
-    p.nq = NTW / p.hs > 1 ? NTW / p.hs : 1;
-    p.rq = ((4 * H + p.nq - 1) / p.nq + 3) & ~3;
-    return true;
-  }
-  p.cl = cluster::width_for(H);
-  p.hs = H / p.cl;
-  p.nt = NTB;
-  p.gw = false;
-  if (H >= 4 && H <= NTB && p.hs % 4 == 0 && p.hs <= 32) {
-    p.nq = NTB / (2 * p.hs);
-    p.rq = ((4 * H + p.nq - 1) / p.nq + 3) & ~3;
-    if (p.rq <= 64) return true;
-  }
-  p.cl = cluster::ragged_width(H);
-  p.hs = (H + p.cl - 1) / p.cl;
-  p.nt = NTW;
-  p.gw = true;
-  p.nq = NTW / (2 * p.hs);
-  p.rq = ((4 * H + p.nq - 1) / p.nq + 3) & ~3;
-  return true;
-}
-
-__host__ __device__ inline int up4(int n) { return (n + 3) & ~3; }
-
 // the chain's shared memory, in floats (each region a multiple of 4)
 struct BwdSmem {
   float *dg, *red, *dhp, *dcp, *dq, *rd, *K, *X1, *ds, *a, *u, *X2, *DH;
@@ -1137,198 +1031,6 @@ __global__ void __launch_bounds__(GW ? NTW : NTB) chain_bwd_kernel(
   }
 }
 
-// The wide reverse chain (see the top of the file): one cluster of CL CTAs
-// per video, grid (CL, B), NTW threads; the sums of `chain_bwd_kernel` (GW)
-// in its orders, with the units and the products strided over the threads
-// and the Tz-long tables in device memory: Kg [B, Tz, H] (K of every unit),
-// Xg [B, CL, Tz] (each rank's partial of da), Dg [B, CL, Tzp] (each CTA's
-// dsc).
-struct WideSmem {
-  float *dg, *red, *dhp, *dcp, *dq, *rd, *X2, *DH, *DC;
-};
-
-__host__ __device__ inline int wide_red(const BwdPlan& p) {
-  const int a = p.nq * 2 * p.hs, b = (p.nt / p.hs > 1 ? p.nt / p.hs : 1) * p.hs;
-  return up4(a > b ? (a > p.nt ? a : p.nt) : (b > p.nt ? b : p.nt));
-}
-
-__host__ __device__ inline size_t wide_carve(float* base, const BwdPlan& p, int H,
-                                             WideSmem* sm) {
-  const int sizes[9] = {p.nq * p.rq, wide_red(p), 2 * p.hs, p.hs, p.hs, 32, p.cl * H, H, H};
-  float** slots[9] = {&sm->dg, &sm->red, &sm->dhp, &sm->dcp, &sm->dq, &sm->rd, &sm->X2,
-                      &sm->DH, &sm->DC};
-  size_t off = 0;
-  for (int i = 0; i < 9; ++i) {
-    *slots[i] = base + off;
-    off += up4(sizes[i]);
-  }
-  return off;
-}
-
-__global__ void __launch_bounds__(NTW, 1) chain_bwd_wide_kernel(
-    const float* __restrict__ acts, const float* __restrict__ cpre,
-    const float* __restrict__ a_in, const float* __restrict__ u_in,
-    const float* __restrict__ c_in, const float* __restrict__ enc, const float* __restrict__ v,
-    const float* __restrict__ wc2, const float* __restrict__ wg, const float* __restrict__ wl2,
-    const float* __restrict__ dh_ext, const float* __restrict__ dc_ext,
-    const float* __restrict__ dcomb_ext, float* __restrict__ dgate_out,
-    float* __restrict__ dcpre_out, float* __restrict__ dsc_out, float* __restrict__ dh0,
-    float* __restrict__ dc0, float* Kg, float* Xg, float* Dg, int S, int B, int Tz, int H,
-    int E, int hs_max, int nq, int rq) {
-  constexpr int NT = NTW;
-  extern __shared__ float4 smb4[];
-  const BwdPlan p{(int)gridDim.x, hs_max, nq, rq, NT, true};
-  WideSmem sm;
-  wide_carve(reinterpret_cast<float*>(smb4), p, H, &sm);
-  const int cl = p.cl, Tzp = up4(Tz), G = 4 * H;
-  const int rank = cluster::cluster_rank();
-  int j0, hs;
-  cluster::units_of(rank, cl, H, j0, hs);
-  const int b = blockIdx.y, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ncol = 2 * hs;
-  float* Kb = Kg + (size_t)b * Tz * H;
-  float* Xb = Xg + (size_t)b * cl * Tz;
-  float* Dr = Dg + ((size_t)b * cl + rank) * Tzp;
-
-  // K[t][j] = sum_e enc[b, t, e] Wc2[e, j] for the CTA's units
-  const float* eb = enc + (size_t)b * Tz * E;
-  for (int i = tid; i < Tz * hs; i += NT) {
-    const int t = i / hs, jj = i - t * hs;
-    float acc = 0.f;
-    for (int e = 0; e < E; ++e) acc = fmaf(eb[(size_t)t * E + e], wc2[(size_t)e * H + j0 + jj], acc);
-    Kb[(size_t)t * H + j0 + jj] = acc;
-  }
-  for (int i = tid; i < p.nq * rq; i += NT) sm.dg[i] = 0.f;  // rows past 4H stay 0
-  for (int i = tid; i < cl * H; i += NT) sm.X2[i] = 0.f;
-  for (int i = tid; i < H; i += NT) {
-    sm.DH[i] = 0.f;
-    sm.DC[i] = 0.f;
-  }
-  cluster::cluster_sync();  // before any peer writes here
-
-  const size_t plane = (size_t)S * B * H;
-  for (int s = S - 1; s >= 0; --s) {
-    const size_t o = ((size_t)s * B + b) * H;
-    for (int n = tid; n < H; n += NT) {  // dh and dc of unit n, then its four dgate rows
-      float dql = sm.X2[n];
-      for (int r = 1; r < cl; ++r) dql += sm.X2[r * H + n];
-      const float dh = (sm.DH[n] + dql) + __ldg(dh_ext + o + n);
-      const float dc = sm.DC[n] + __ldg(dc_ext + o + n);
-      const float f_i = __ldg(acts + o + n), f_f = __ldg(acts + plane + o + n);
-      const float f_g = __ldg(acts + 2 * plane + o + n), f_o = __ldg(acts + 3 * plane + o + n);
-      const float f_tc = __ldg(acts + 4 * plane + o + n), f_c = __ldg(c_in + o + n);
-      const float dct = dh * f_o * (1.f - f_tc * f_tc) + dc;
-      sm.DC[n] = dct * f_f;
-      const float dq4[4] = {dct * f_g * f_i * (1.f - f_i), dct * f_c * f_f * (1.f - f_f),
-                            dct * f_i * (1.f - f_g * f_g), dh * f_tc * f_o * (1.f - f_o)};
-      const bool own = n >= j0 && n < j0 + hs;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        sm.dg[q * H + n] = dq4[q];
-        if (own) dgate_out[o * 4 + q * H + n] = dq4[q];
-      }
-    }
-    __syncthreads();
-    for (int vi = tid; vi < nq * ncol; vi += NT) {  // partial dhp of column n over a row group
-      const int pc = vi % ncol, kq = vi / ncol;
-      const int n = pc < hs ? j0 + pc : H + j0 + pc - hs;
-      const int k0 = kq * rq, kn = max(0, min(rq, G - k0));
-      const float* wrow = wg + (size_t)n * G + k0;
-      const float* dr = sm.dg + k0;
-      float acc = 0.f;
-      for (int i = 0; i < kn; i += 4) {  // kn is a multiple of 4
-        const float4 d = *reinterpret_cast<const float4*>(dr + i);
-        const float4 w = __ldg(reinterpret_cast<const float4*>(wrow + i));
-        acc = fmaf(d.x, w.x, acc);
-        acc = fmaf(d.y, w.y, acc);
-        acc = fmaf(d.z, w.z, acc);
-        acc = fmaf(d.w, w.w, acc);
-      }
-      sm.red[kq * ncol + pc] = acc;
-    }
-    __syncthreads();
-    for (int pc = tid; pc < ncol; pc += NT) {
-      float d = sm.red[pc];
-      for (int q = 1; q < nq; ++q) d += sm.red[q * ncol + pc];
-      if (pc < hs) {
-        d = __ldg(cpre + o + j0 + pc) > 0.f ? d + __ldg(dcomb_ext + o + j0 + pc) : 0.f;
-        sm.dcp[pc] = d;
-        dcpre_out[o + j0 + pc] = d;
-      } else {
-        sm.dhp[pc] = d;  // dh's part of unit j0 + pc - hs
-      }
-    }
-    __syncthreads();
-    for (int t = tid; t < Tz; t += NT) {  // partial da over J, to device memory
-      const float* kr = Kb + (size_t)t * H + j0;
-      float acc = 0.f;
-      for (int jj = 0; jj < hs; ++jj) acc = fmaf(sm.dcp[jj], __ldcg(kr + jj), acc);
-      Xb[(size_t)rank * Tz + t] = acc;
-    }
-    __threadfence();          // the partials in device memory before the barrier's release
-    cluster::cluster_sync();  // barrier 1: every partial da is written
-
-    const float* ar = a_in + ((size_t)s * B + b) * Tzp;
-    float ad = 0.f;
-    for (int t = tid; t < Tz; t += NT) {
-      float da = __ldcg(Xb + t);
-      for (int r = 1; r < cl; ++r) da += __ldcg(Xb + (size_t)r * Tz + t);
-      Dr[t] = da;
-      ad = fmaf(__ldg(ar + t), da, ad);
-    }
-    ad = warp_sum(ad);
-    if (lane == 0) sm.rd[warp] = ad;
-    __syncthreads();
-    ad = sm.rd[0];
-    for (int w = 1; w < NT / 32; ++w) ad += sm.rd[w];
-    const int tz0 = rank * ((Tz + cl - 1) / cl), tz1 = min(Tz, tz0 + (Tz + cl - 1) / cl);
-    for (int t = tid; t < Tz; t += NT) {
-      const float d = __ldg(ar + t) * (__ldcg(Dr + t) - ad);
-      Dr[t] = d;
-      if (t >= tz0 && t < tz1) dsc_out[((size_t)s * B + b) * Tz + t] = d;
-    }
-    __syncthreads();
-    {  // dq[jj] = v[j] sum_t dsc[t] (1 - u[t, j]^2): the t terms over NT / hs groups
-      const int ng = NT / hs > 1 ? NT / hs : 1;
-      const int chunk = (Tz + ng - 1) / ng;
-      const float* ur = u_in + ((size_t)s * B + b) * Tz * H + j0;
-      for (int vi = tid; vi < ng * hs; vi += NT) {
-        const int jj = vi % hs, gi = vi / hs;
-        const int t1 = min(Tz, (gi + 1) * chunk);
-        float acc = 0.f;
-        for (int t = gi * chunk; t < t1; ++t) {
-          const float u = __ldg(ur + (size_t)t * H + jj);
-          acc = fmaf(__ldcg(Dr + t), 1.f - u * u, acc);
-        }
-        sm.red[gi * hs + jj] = acc;
-      }
-      __syncthreads();
-      for (int jj = tid; jj < hs; jj += NT) {
-        float q = sm.red[jj];
-        for (int g = 1; g < ng; ++g) q += sm.red[g * hs + jj];
-        sm.dq[jj] = __ldg(v + j0 + jj) * q;
-      }
-      __syncthreads();
-    }
-    for (int n = tid; n < H; n += NT) {  // partial dq Wl2^T over J for unit n, to every peer
-      const float* wlrow = wl2 + (size_t)n * H + j0;
-      float acc = 0.f;
-      for (int i = 0; i < hs; ++i) acc = fmaf(sm.dq[i], __ldg(wlrow + i), acc);
-      for (int r = 0; r < cl; ++r) cluster::cluster_peer(sm.X2, r)[rank * H + n] = acc;
-    }
-    for (int pc = hs + tid; pc < ncol; pc += NT)
-      for (int r = 0; r < cl; ++r) cluster::cluster_peer(sm.DH, r)[j0 + pc - hs] = sm.dhp[pc];
-    cluster::cluster_sync();  // barrier 2: every partial of dh is here
-  }
-  if (rank == 0)
-    for (int n = tid; n < H; n += NT) {
-      float dql = sm.X2[n];
-      for (int r = 1; r < cl; ++r) dql += sm.X2[r * H + n];
-      dh0[(size_t)b * H + n] = sm.DH[n] + dql;
-      dc0[(size_t)b * H + n] = sm.DC[n];
-    }
-}
-
 int max_smem() {
   int dev = 0, n = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -1361,24 +1063,6 @@ FwdLayout fwd_smem(const FwdPlan& p, int H, int E, int Tz, size_t limit) {
 size_t chain_smem(const BwdPlan& p, int H, int Tz) {
   BwdSmem sm;
   return bwd_carve(nullptr, p, H, Tz, &sm) * sizeof(float);
-}
-
-// The wide reverse chain runs where H is above the narrow kernels' or their
-// shared memory for (H, Tz) does not fit this card's limit.
-bool wide_chain(const BwdPlan& p, int H, int Tz) {
-  return H > MAX_H || chain_smem(p, H, Tz) > (size_t)max_smem();
-}
-
-size_t wide_chain_smem(const BwdPlan& p, int H) {
-  WideSmem sm;
-  BwdPlan q = p;
-  q.nt = NTW;
-  return wide_carve(nullptr, q, H, &sm) * sizeof(float);
-}
-
-// the reverse chain's shared memory for (H, Tz): the narrow kernel's or the wide one's
-size_t reverse_smem(const BwdPlan& p, int H, int Tz) {
-  return wide_chain(p, H, Tz) ? wide_chain_smem(p, H) : chain_smem(p, H, Tz);
 }
 
 cudaError_t check_smem(size_t smem) {
@@ -1418,17 +1102,48 @@ extern "C" int mucon_decoder_chain_smem(int H, int E, int Tz, int reverse) {
   if (!reverse) return (int)fwd;
   BwdPlan p;
   if (!bwd_plan(H, p)) return -1;
-  const size_t chain = reverse_smem(p, H, Tz);
+  const size_t chain = chain_smem(p, H, Tz);
   return (int)(fwd > chain ? fwd : chain);
 }
 
-// 1 where the reverse chain for (H, Tz) runs the wide kernel (which takes
-// device-memory scratch: K [B, Tz, H], the partials of da [B, CL, Tz] and
-// dsc [B, CL, Tzp]), 0 for the narrow one, -1 where H is refused.
-extern "C" int mucon_decoder_chain_bwd_wide(int H, int Tz) {
-  BwdPlan p;
-  if (Tz < 1 || !bwd_plan(H, p)) return -1;
-  return wide_chain(p, H, Tz) ? 1 : 0;
+// The widest H of each direction's cluster route at B videos, at a Tz its
+// shared memory holds; above it the persistent kernels, which sum in the
+// same orders (the same bits), take it.  Timed in turns on an H100 with
+// each route forced (`scripts/probe_decoder_persistent.py`, Tz = 160, E =
+// 2H, S = 31) at H = 256, 384 and 512 and B = 1, 8, 32 and 128; a B in
+// between takes the band of the measured B nearest by ratio.  The forward
+// with its replay pass: the lines cross near H = 335 at B = 1, 430 at 8,
+// 384 at 32, and at 512 at 128 (there the forward alone is faster on the
+// clusters).  The reverse chain: faster on the persistent kernel from H =
+// 256 up at B <= 32 (a tie at 8); at 128 on the clusters at 256 and
+// persistent at 384, crossing near 296.  Above 512 both directions run
+// the persistent kernels at every B (unmeasured on the clusters at B > 8).
+struct Crossing {
+  int b, fwd, bwd;  // up to b videos: the widest cluster H of each direction
+};
+constexpr Crossing CROSSINGS[] = {{2, 335, 256}, {16, 432, 256}, {64, 384, 256},
+                                  {1 << 30, 512, 296}};
+
+// Which kernels take the chain at (B, H, E, Tz), decided before the launch
+// from the shape alone: out[0] = 1 where the forward and the replay pass
+// run the persistent kernel (csrc/decoder_persistent.cu): H above B's
+// CROSSINGS fwd, or the cluster forward's rows of maskf, pre and enc (or
+// its whole layout) past this card's shared memory; out[1] = 1 where the
+// reverse chain does: H above B's CROSSINGS bwd, or the cluster chain's
+// [Tz x HS] tables past shared memory.  0: the cluster kernels.
+extern "C" int mucon_decoder_chain_route(int B, int H, int E, int Tz, int* out) {
+  FwdPlan fp;
+  BwdPlan bp;
+  if (B < 1 || Tz < 1 || E < 1 || !fwd_plan(H, fp) || !bwd_plan(H, bp))
+    return cudaErrorInvalidValue;
+  const size_t limit = (size_t)max_smem();
+  if (!limit) return cudaErrorInvalidDevice;
+  const FwdLayout l = fwd_smem(fp, H, E, Tz, limit);
+  const Crossing* c = CROSSINGS;
+  while (B > c->b) ++c;
+  out[0] = H > c->fwd || !l.tables || l.bytes > limit;
+  out[1] = H > c->bwd || chain_smem(bp, H, Tz) > limit;
+  return cudaSuccess;
 }
 
 // The cluster width the reverse chain takes for a hidden size H (0: refused).
@@ -1506,28 +1221,21 @@ extern "C" int mucon_decoder_chain_replay(const float* emb, const float* enc, co
 }
 
 // Pass 2: the sequential chain on one cluster per video (see
-// `chain_bwd_kernel`) -> dgate, dcpre, dsc, dh0, dc0.
+// `chain_bwd_kernel`) -> dgate, dcpre, dsc, dh0, dc0.  Refuses (H, Tz) where
+// its tables pass shared memory, or H above MAX_H: the persistent reverse
+// chain takes those (`mucon_decoder_chain_route`).
 extern "C" int mucon_decoder_chain_bwd(const float* acts, const float* cpre, const float* a,
                                        const float* u, const float* c_in, const float* enc,
                                        const float* v, const float* wc2, const float* wg,
                                        const float* wl2, const float* dh_ext,
                                        const float* dc_ext, const float* dcomb_ext,
                                        float* dgate, float* dcpre, float* dsc, float* dh0,
-                                       float* dc0, float* Kg, float* Xg, float* Dg, int S,
-                                       int B, int Tz, int H, int E, cudaStream_t stream) {
+                                       float* dc0, int S, int B, int Tz, int H, int E,
+                                       cudaStream_t stream) {
   BwdPlan p;
   FwdPlan fp;
-  if (bad_shape(S, B, Tz, H, E, fp) || !bwd_plan(H, p)) return cudaErrorInvalidValue;
-  if (wide_chain(p, H, Tz)) {
-    if (!Kg || !Xg || !Dg) return cudaErrorInvalidValue;
-    const size_t smem = wide_chain_smem(p, H);
-    const cudaError_t err = check_smem(smem);
-    if (err != cudaSuccess) return err;
-    return cluster::launch_cluster(chain_bwd_wide_kernel, dim3(p.cl, B), dim3(NTW), p.cl, smem,
-                                   stream, acts, cpre, a, u, c_in, enc, v, wc2, wg, wl2, dh_ext,
-                                   dc_ext, dcomb_ext, dgate, dcpre, dsc, dh0, dc0, Kg, Xg, Dg,
-                                   S, B, Tz, H, E, p.hs, p.nq, p.rq);
-  }
+  if (bad_shape(S, B, Tz, H, E, fp) || !bwd_plan(H, p) || H > MAX_H)
+    return cudaErrorInvalidValue;
   const size_t smem = chain_smem(p, H, Tz);
   const cudaError_t err = check_smem(smem);
   if (err != cudaSuccess) return err;

@@ -21,8 +21,10 @@ out-projection's sweep runs three, no dx).
 `bilstm_train_bwd` counts one per `bilstm_train_backward` call: that call
 launches the reverse chain's two kernels (the parallel coefficient pass,
 then the cluster or persistent chain); `decoder_chain_bwd` likewise one per
-`decoder_chain_backward` call (the parallel replay pass, then the cluster
-chain).
+`decoder_chain_backward` call (the parallel replay pass, then the chain,
+each on the cluster or the persistent route).  `chain_launches` counts
+each of the decoder chain's CUDA kernels by name where it is launched (a
+wrapper's `count=False` keeps the call out of `launch_counts` only).
 `wavenet_train_v2_fwd` and `wavenet_train_v2_sweep` count one per chunk:
 each is one cooperative launch over a chunk of layers.
 
@@ -54,12 +56,12 @@ recurrences take every H up to MAX_H_WIDE = 2048 as it is: the BiLSTM up
 to 256 on an even or a ragged split of the units over a cluster, above on
 its persistent kernels (one cooperative launch over the whole card, w_hh
 resident in shared memory as far as it fits, `bilstm_fwd_launch`); the
-decoder chain's forward on a ragged split of 8 CTAs from H = 64 (where its
-shared memory holds (H, E), `_check_chain`), its reverse chain up to 512
-on a cluster split, above on its wide kernel (threads striding over a
-ragged split of 8 CTAs); the reverse decoder chain keeps its Tz-long tables
-in device memory where they do not fit shared memory
-(`decoder_chain_bwd_wide`), so it takes any Tz.  The DP takes any N and L
+decoder chain on a cluster a video (its forward on a ragged split of 8
+CTAs from H = 64, its reverse chain on a cluster split) up to a width
+that depends on B (at B = 8, H = 432 forward and 256 reverse chain; above
+512 at every B), above on its persistent kernels (one
+cooperative launch over the card, `decoder_chain_route`), which also take
+any Tz whose rows pass a cluster's shared memory.  The DP takes any N and L
 (`viterbi_plan`: its cells in registers across a cluster of up to 16 CTAs,
 and in device memory past that).  A width outside these raises a ValueError that names the limit.
 """
@@ -80,8 +82,8 @@ from mucon_tpu_torch.ops.wavenet_stack_train import stack_plan
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("wavenet_stack.cu", "bilstm.cu", "viterbi.cu", "wavenet_train.cu",
-           "decoder_chain.cu", "mucon_loss.cu", "mstcnpp.cu", "wavenet_train_v2.cu",
-           "wavenet_wide.cu")
+           "decoder_chain.cu", "decoder_persistent.cu", "mucon_loss.cu", "mstcnpp.cu",
+           "wavenet_train_v2.cu", "wavenet_wide.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mucon_tpu_torch"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "-I", str(CSRC),
@@ -109,6 +111,8 @@ _lock = threading.Lock()
 def reset_launch_counts() -> None:
     for name in KERNELS:
         launch_counts[name] = 0
+    for name in CHAIN_KERNELS:
+        chain_launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -155,9 +159,10 @@ def build() -> Path:
     for o in objs:
         o.unlink(missing_ok=True)
     lib.with_suffix(".log").write_text(log)
-    bad = [rc for _, rc in results if rc != 0]
-    if bad:
-        raise RuntimeError(f"nvcc failed with code {bad[0]}:\n{log[-6000:]}")
+    bad = [(out, rc) for out, rc in results if rc != 0]
+    if bad:  # the failing commands' output, not the others'
+        raise RuntimeError(f"nvcc failed with code {bad[0][1]}:\n"
+                           f"{''.join(out for out, _ in bad)[-6000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent build races benignly
     return lib
 
@@ -187,8 +192,13 @@ def load() -> ctypes.CDLL:
             lib.mucon_bilstm_scratch_floats.restype = L
             lib.mucon_decoder_chain_fwd.argtypes = [P] * 16 + [I] * 5 + [P]
             lib.mucon_decoder_chain_replay.argtypes = [P] * 18 + [I] * 5 + [P]
-            lib.mucon_decoder_chain_bwd.argtypes = [P] * 21 + [I] * 5 + [P]
-            lib.mucon_decoder_chain_bwd_wide.argtypes = [I, I]
+            lib.mucon_decoder_chain_bwd.argtypes = [P] * 18 + [I] * 5 + [P]
+            lib.mucon_decoder_chain_route.argtypes = [I] * 4 + [ctypes.POINTER(I)]
+            lib.mucon_decoder_chain_persistent_scratch.argtypes = [I] * 6
+            lib.mucon_decoder_chain_persistent_scratch.restype = L
+            lib.mucon_decoder_chain_persistent_plan.argtypes = [I] * 6 + [ctypes.POINTER(I)]
+            lib.mucon_decoder_chain_persistent_fwd.argtypes = [P] * 22 + [L] + [I] * 7 + [P]
+            lib.mucon_decoder_chain_persistent_bwd.argtypes = [P] * 19 + [L] + [I] * 6 + [P]
             lib.mucon_decoder_chain_smem.argtypes = [I] * 4
             lib.mucon_decoder_chain_width.argtypes = [I]
             lib.mucon_decoder_chain_fwd_launch.argtypes = [I] * 4 + [ctypes.POINTER(I)]
@@ -223,7 +233,9 @@ def load() -> ctypes.CDLL:
                        lib.mucon_decoder_chain_fwd, lib.mucon_decoder_chain_replay,
                        lib.mucon_decoder_chain_bwd, lib.mucon_decoder_chain_smem,
                        lib.mucon_decoder_chain_width, lib.mucon_decoder_chain_fwd_launch,
-                       lib.mucon_decoder_chain_bwd_wide,
+                       lib.mucon_decoder_chain_route, lib.mucon_decoder_chain_persistent_plan,
+                       lib.mucon_decoder_chain_persistent_fwd,
+                       lib.mucon_decoder_chain_persistent_bwd,
                        lib.mucon_flint, lib.mucon_mstcnpp_layer, lib.mucon_mstcnpp_proj,
                        lib.mucon_wavenet_train_v2_fwd, lib.mucon_wavenet_train_v2_sweep,
                        lib.mucon_wavenet_train_v2_grid, lib.mucon_wavenet_train_v2_plan,
@@ -1044,12 +1056,17 @@ def _check_chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih, w
     if reverse:
         decoder_chain_plan(H)
     _require(dev, torch.float32, emb=emb, **got)
-    lib = load()
-    need = lib.mucon_decoder_chain_smem(H, E, Tz, int(reverse))
-    if need > MAX_SMEM_BYTES:
-        raise ValueError(f"H={H} E={E} Tz={Tz} needs {need} bytes of shared memory a block; "
-                         f"the limit is {MAX_SMEM_BYTES}")
     return dev, S, B, Tz, H, E
+
+
+def _check_cluster_smem(H: int, E: int, Tz: int, reverse: bool) -> None:
+    """The cluster kernels keep the CTA's weights, its [Tz / CL] score rows
+    and the reverse chain's [Tz x H / CL] slices in shared memory: their
+    need for (H, E, Tz) must fit the H100's per-block opt-in limit."""
+    need = load().mucon_decoder_chain_smem(H, E, Tz, int(reverse))
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"H={H} E={E} Tz={Tz} needs {need} bytes of shared memory a block on "
+                         f"the cluster kernels; the limit is {MAX_SMEM_BYTES}")
 
 
 # the forward chain's and the replay pass's threads per CTA (csrc/decoder_chain.cu NTF)
@@ -1058,7 +1075,7 @@ DECODER_CHAIN_FWD_THREADS = 256
 
 def decoder_chain_fwd_plan(H: int) -> tuple:
     """How the forward chain splits a hidden size H over a cluster
-    (`fwd_plan` in csrc/decoder_chain.cu): (cluster width CL, most units a
+    (`fwd_plan` in csrc/decoder_chain.cuh): (cluster width CL, most units a
     CTA HS, threads per CTA).  The ragged split: CL = `_ragged_width(H)`
     (8 from H = 64), CTA r taking the units `units_of(r, CL, H)` (the even split where CL
     divides H, as at H = 128), HS = ceil(H / CL) sizing its shared-memory
@@ -1069,7 +1086,8 @@ def decoder_chain_fwd_plan(H: int) -> tuple:
     gate columns 64 p + 8 w .. + 7 of its 4 units' gates.  Every H from 1
     to MAX_H_WIDE (a CTA's threads stride over its units where it writes
     their state; its shared memory bounds the widest H at a given E,
-    `_check_chain`); raises above."""
+    `_check_cluster_smem`); raises above.  The persistent forward keeps CL
+    as the ranks of its sums (`decoder_chain_persistent_split`)."""
     _check_width(H, "the forward decoder chain")
     cl = _ragged_width(H)
     return cl, -(-H // cl), DECODER_CHAIN_FWD_THREADS
@@ -1080,11 +1098,13 @@ DECODER_CHAIN_FWD_LAUNCH_KEYS = ("cl", "hs", "threads", "clusters", "active", "w
 
 
 def decoder_chain_fwd_launch(B: int, H: int, E: int, Tz: int) -> dict:
-    """The forward chain's launch at B videos (`mucon_decoder_chain_fwd_launch`):
+    """The cluster forward's launch at B videos (`mucon_decoder_chain_fwd_launch`):
     its CL, HS and threads, the clusters of the grid (one a video), how many
     the card holds at once (more run in waves), whether each CTA's weights
     sit in shared memory (1) or are read from L2 (0), and its rows of
-    maskf, pre and enc the same."""
+    maskf, pre and enc the same.  Where `decoder_chain_route` sends the
+    forward to the persistent kernel, `decoder_chain_persistent_launch`
+    reports that launch."""
     decoder_chain_fwd_plan(H)
     lib = load()
     out = (ctypes.c_int * len(DECODER_CHAIN_FWD_LAUNCH_KEYS))()
@@ -1105,16 +1125,229 @@ def _chain_columns(wc1, wc2, wih, whh):
     return wcT, wgT
 
 
+# the decoder chain's two routes (`decoder_chain_route`) and the CUDA kernels
+# behind its two launch counts, each counted by name in `chain_launches`
+DECODER_CHAIN_ROUTES = ("cluster", "persistent")
+CHAIN_KERNELS = ("chain_fwd_kernel", "chain_replay_kernel", "chain_bwd_kernel",
+                 "chain_persistent_fwd_kernel", "chain_persistent_bwd_kernel")
+chain_launches = {name: 0 for name in CHAIN_KERNELS}
+# threads a CTA of the persistent kernels (csrc/decoder_persistent.cu NTP)
+DECODER_PERSISTENT_THREADS = 512
+
+
+def decoder_chain_route(B: int, H: int, E: int, Tz: int) -> dict:
+    """Which kernels take the decoder chain at B videos of Tz frames, hidden
+    size H and E encoder channels (`mucon_decoder_chain_route`), decided
+    before the launch from the shape alone: {"fwd": the forward's and the
+    replay pass's, "bwd": the reverse chain's}, each "cluster" (a cluster of
+    CTAs a video, csrc/decoder_chain.cu) or "persistent" (one cooperative
+    launch over the card, csrc/decoder_persistent.cu).  The persistent
+    kernels take each direction above the H where they were faster in turns
+    on an H100 at the nearest measured B (`CROSSINGS` in
+    csrc/decoder_chain.cu, PERF.md: the forward and the replay pass above
+    335, 432, 384 and 512 at B <= 2, <= 16, <= 64 and above; the reverse
+    chain above 256, and 296 above B = 64), and the
+    shapes whose Tz-long rows pass the cluster kernels' shared memory (the
+    forward's frames' rows of maskf, pre and enc; the reverse chain's
+    [Tz x HS] tables).  Both routes sum in the same order, so they give the
+    same bits.  Each decision is logged once on
+    `mucon_tpu_torch.kernel_routing`."""
+    decoder_chain_fwd_plan(H)
+    decoder_chain_plan(H)
+    lib = load()
+    out = (ctypes.c_int * 2)()
+    err = lib.mucon_decoder_chain_route(B, H, E, Tz, out)
+    if err != 0:
+        raise ValueError(f"no decoder chain route at B={B} H={H} E={E} Tz={Tz}: "
+                         f"{lib.mucon_cuda_error_string(err).decode()}")
+    route = {"fwd": DECODER_CHAIN_ROUTES[out[0]], "bwd": DECODER_CHAIN_ROUTES[out[1]]}
+    from mucon_tpu_torch.models.routing import log_route
+
+    log_route(f"decoder chain at B={B} H={H} E={E} Tz={Tz}: the forward and the replay pass on the "
+              f"{route['fwd']} kernel, the reverse chain on the {route['bwd']} kernel")
+    return route
+
+
+def _route(route, kind: str, B: int, H: int, E: int, Tz: int) -> str:
+    """The given route, or `decoder_chain_route`'s for the shape."""
+    if route is None:
+        return decoder_chain_route(B, H, E, Tz)[kind]
+    if route not in DECODER_CHAIN_ROUTES:
+        raise ValueError(f"route must be one of {DECODER_CHAIN_ROUTES}, got {route!r}")
+    return route
+
+
+# csrc/decoder_persistent.cu: frames of a scores block (FB), channels of a
+# pair's chunk split four ways (PC), the side of K = enc Wc2's tiles (KT)
+DECODER_PERSISTENT_FB, DECODER_PERSISTENT_PC, DECODER_PERSISTENT_KT = 32, 128, 64
+
+
+def decoder_chain_persistent_chunks(NI: int, H: int, E: int, ctas: int = 132) -> dict:
+    """How a persistent forward launch of `ctas` CTAs over NI items deals
+    its attention (`pf_plan` in csrc/decoder_persistent.cu; the launch
+    reports the same, `decoder_chain_persistent_launch`): frames of a scores
+    block, channels of an (item, rank) pair's chunk of the softmax partials
+    (DECODER_PERSISTENT_PC, four threads a channel, where the pairs' chunks
+    of that many are at most two a CTA, else one thread a channel, 512) and
+    channels of a ctx chunk."""
+    cl = decoder_chain_fwd_plan(H)[0]
+    pc = DECODER_PERSISTENT_PC
+    few = NI * cl * -(-E // pc) <= 2 * ctas
+    return dict(frames_block=DECODER_PERSISTENT_FB,
+                pair_channels=pc if few else DECODER_PERSISTENT_THREADS,
+                ctx_channels=DECODER_PERSISTENT_THREADS)
+
+
+def _dealt(r: int, n: int, ctas: int):
+    """The work units r, r + ctas, ... < n: CTA r's of n dealt round-robin."""
+    return range(r, n, ctas)
+
+
+def decoder_chain_persistent_split(NI: int, H: int, E: int, Tz: int, ctas: int = 132,
+                                   reverse: bool = False) -> list:
+    """What each CTA of a persistent launch of `ctas` takes, phase by phase
+    as csrc/decoder_persistent.cu deals it, one dict a CTA.  Forward (NI
+    items): its units `units_of(r, ctas, H)` of every item, so their gate
+    columns 4 j + q ("gates"), cpre and q columns; the scores' blocks
+    (item, frames) of `frames_block` frames (`phase_s`), the softmax
+    partials' (item, rank, frames, channels) units (`phase_p`: rank the
+    frames [rank Tz / CL, (rank + 1) Tz / CL) of the cluster forward's CL
+    ranks, `decoder_chain_fwd_plan`, its channels in chunks of
+    `pair_channels`) and ctx's (item, channels) chunks (`phase_x`), each
+    dealt round-robin over the CTAs in that order
+    (`decoder_chain_persistent_chunks`).  Reverse (NI = B videos): its
+    units (their [Wih; Whh] rows j and H + j, their dq), its tiles (rows,
+    columns) of K = enc Wc2 [B Tz x H] dealt round-robin, its even range of
+    the (video, frame) pairs of da and the videos whose dsc it writes
+    (b mod ctas)."""
+    out = []
+    if reverse:
+        kt, R = DECODER_PERSISTENT_KT, NI * Tz
+        nct = -(-H // kt)
+        for r in range(ctas):
+            units = units_of(r, ctas, H)
+            tiles = [(range(t // nct * kt, min(R, (t // nct + 1) * kt)),
+                      range(t % nct * kt, min(H, (t % nct + 1) * kt)))
+                     for t in _dealt(r, -(-R // kt) * nct, ctas)]
+            out.append(dict(units=units, rows=[*units, *(H + j for j in units)], k=tiles,
+                            da=range(r * R // ctas, (r + 1) * R // ctas),
+                            dsc=list(range(r, NI, ctas))))
+        return out
+    cl = decoder_chain_fwd_plan(H)[0]
+    chunks = decoder_chain_persistent_chunks(NI, H, E, ctas)
+    fb, pch, xch = chunks["frames_block"], chunks["pair_channels"], chunks["ctx_channels"]
+    nfb, npc, nxc = -(-Tz // fb), -(-E // pch), -(-E // xch)
+    for r in range(ctas):
+        units = units_of(r, ctas, H)
+        blocks = [(w // nfb, range(w % nfb * fb, min(Tz, (w % nfb + 1) * fb)))
+                  for w in _dealt(r, NI * nfb, ctas)]
+        pairs = [(w // npc // cl, w // npc % cl,
+                  range(w // npc % cl * Tz // cl, (w // npc % cl + 1) * Tz // cl),
+                  range(w % npc * pch, min(E, (w % npc + 1) * pch)))
+                 for w in _dealt(r, NI * cl * npc, ctas)]
+        ctx = [(w // nxc, range(w % nxc * xch, min(E, (w % nxc + 1) * xch)))
+               for w in _dealt(r, NI * nxc, ctas)]
+        out.append(dict(units=units, gates=range(4 * units.start, 4 * units.stop),
+                        cpre=units, q=units, scores=blocks, pairs=pairs, ctx=ctx))
+    return out
+
+
+DECODER_PERSISTENT_FWD_KEYS = ("ctas", "units", "ranks", "co_resident", "smem", "tile",
+                               "resident_q", "resident_cpre", "resident_gates", "cols_q",
+                               "cols_cpre", "cols_gates", "frames_block", "pair_channels",
+                               "ctx_channels")
+DECODER_PERSISTENT_BWD_KEYS = ("ctas", "units", "ranks", "co_resident", "smem", "nq", "rq",
+                               "tile_dgate", "tile_dq", "resident_wg", "resident_wl2",
+                               "k_tile")
+
+
+def decoder_chain_persistent_launch(NI: int, H: int, E: int, Tz: int, reverse: bool = False,
+                                    ctas=None) -> dict:
+    """A persistent launch's plan on this card
+    (`mucon_decoder_chain_persistent_plan`; `ctas` None: one CTA an SM):
+    its CTAs, the most units a CTA, the cluster route's ranks (CL), the CTAs
+    the card holds at once and the shared memory bytes a CTA; forward (NI
+    items: B videos, or S B steps for the replay pass): the items a tile,
+    the columns of Wl2, [Wc1; Wc2] and the gates a CTA keeps resident in
+    shared memory against the columns it owns (the rest are read from L2 a
+    tile a step); reverse (NI = B videos): NQ, RQ, the videos a tile of
+    dgate and of dq, and the resident rows of [Wih; Whh] (of 2 U) and of
+    Wl2 (of U), the side of K's tiles; the forward also how it deals the
+    attention (`decoder_chain_persistent_chunks`).  `co_resident` below
+    `ctas` means the cooperative launch is refused."""
+    lib = load()
+    out = (ctypes.c_int * 15)()
+    err = lib.mucon_decoder_chain_persistent_plan(int(reverse), NI, H, E, Tz, ctas or 0, out)
+    if err not in (0, COOPERATIVE_TOO_LARGE):
+        raise RuntimeError(f"decoder chain persistent plan failed: "
+                           f"{lib.mucon_cuda_error_string(err).decode()}")
+    keys = DECODER_PERSISTENT_BWD_KEYS if reverse else DECODER_PERSISTENT_FWD_KEYS
+    return dict(zip(keys, out))
+
+
+# cudaErrorCooperativeLaunchTooLarge: the card cannot hold the grid at once
+COOPERATIVE_TOO_LARGE = 720
+
+
+def _check_persistent(lib, err: int, name: str, count: bool, ctas) -> None:
+    """`_check_launch` for a persistent launch, naming what it needs where
+    the card refuses the cooperative grid."""
+    if err == COOPERATIVE_TOO_LARGE:
+        raise RuntimeError(f"{name} launch refused: the persistent decoder chain needs all "
+                           f"{ctas or 'its'} CTAs resident at once (one an SM, a cooperative "
+                           f"launch) and this card cannot hold them "
+                           f"({lib.mucon_cuda_error_string(err).decode()})")
+    _check_launch(lib, err, name, count)
+
+
+def _persistent_scratch(reverse: bool, n: int, H: int, E: int, Tz: int, replay: bool, dev):
+    k = load().mucon_decoder_chain_persistent_scratch(int(reverse), n, H, E, Tz, int(replay))
+    if k < 0:
+        raise ValueError(f"no persistent decoder chain plan fits shared memory at H={H} E={E} "
+                         f"Tz={Tz}")
+    return torch.empty(k, device=dev, dtype=torch.float32), k
+
+
+def _persistent_fwd(dev, emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih, whh,
+                    bl, NI: int, S: int, B: int, outs, replay, ctas) -> int:
+    """One persistent forward launch over NI items of S steps: the forward
+    (`outs` = hs, cs, comb) or the replay pass (`replay` = acts, cpre, a, u,
+    cell)."""
+    Tz, H, E = enc.shape[1], wl2.shape[0], enc.shape[2]
+    wcT, wgT = _chain_columns(wc1, wc2, wih, whh)
+    wl2T = wl2.t().contiguous()
+    scratch, n = _persistent_scratch(False, NI, H, E, Tz, replay is not None, dev)
+    hs, cs, comb = outs or (None,) * 3
+    acts, cpre, a, u, cell = replay or (None,) * 5
+    return load().mucon_decoder_chain_persistent_fwd(
+        emb.data_ptr(), enc.data_ptr(), pre.data_ptr(), maskf.data_ptr(), h0.data_ptr(),
+        c0.data_ptr(), wl2T.data_ptr(), bl2.data_ptr(), v.data_ptr(), wcT.data_ptr(),
+        bc.data_ptr(), wgT.data_ptr(), bl.data_ptr(), _ptr(hs), _ptr(cs), _ptr(comb),
+        _ptr(acts), _ptr(cpre), _ptr(a), _ptr(u), _ptr(cell), scratch.data_ptr(), n, NI, S, B,
+        Tz, H, E, ctas or 0, _stream(dev))
+
+
 def decoder_chain_forward(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc, wih,
-                          whh, bl):
-    """The teacher-forced chain's forward (one thread-block cluster per
-    video on the ragged split, `decoder_chain_fwd_plan`) -> (hs, cs, comb), each [S x B x H].
-    Arguments as `ops/decoder_chain.py`."""
+                          whh, bl, *, route=None, ctas=None):
+    """The teacher-forced chain's forward -> (hs, cs, comb), each [S x B x H]:
+    on `decoder_chain_route`'s kernel (`route` forces one): one
+    thread-block cluster per video on the ragged split
+    (`decoder_chain_fwd_plan`), or one persistent launch over the card
+    (`ctas` CTAs, one an SM by default).  Arguments as
+    `ops/decoder_chain.py`."""
     dev, S, B, Tz, H, E = _check_chain(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1,
                                        wc2, bc, wih, whh, bl)
-    wcT, wgT = _chain_columns(wc1, wc2, wih, whh)
+    route = _route(route, "fwd", B, H, E, Tz)
     hs, cs, comb = (torch.empty(S, B, H, device=dev, dtype=torch.float32) for _ in range(3))
     lib = load()
+    if route == "persistent":
+        err = _persistent_fwd(dev, emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, bc,
+                              wih, whh, bl, B, S, B, (hs, cs, comb), None, ctas)
+        _check_persistent(lib, err, "decoder_chain_fwd", True, ctas)
+        chain_launches["chain_persistent_fwd_kernel"] += 1
+        return hs, cs, comb
+    _check_cluster_smem(H, E, Tz, False)
+    wcT, wgT = _chain_columns(wc1, wc2, wih, whh)
     err = lib.mucon_decoder_chain_fwd(
         emb.data_ptr(), enc.data_ptr(), pre.data_ptr(), maskf.data_ptr(), h0.data_ptr(),
         c0.data_ptr(), wl2.data_ptr(), bl2.data_ptr(), v.data_ptr(), wcT.data_ptr(),
@@ -1122,17 +1355,18 @@ def decoder_chain_forward(emb, enc, pre, maskf, h0, c0, wl2, bl2, v, wc1, wc2, b
         comb.data_ptr(), S, B, Tz, H, E, _stream(dev),
     )
     _check_launch(lib, err, "decoder_chain_fwd")
+    chain_launches["chain_fwd_kernel"] += 1
     return hs, cs, comb
 
 
-# the reverse chain's threads per CTA (csrc/decoder_chain.cu NTB, and NTW
+# the reverse chain's threads per CTA (csrc/decoder_chain.cuh NTB, and NTW
 # on a ragged split)
 DECODER_CHAIN_THREADS, DECODER_CHAIN_WIDE_THREADS = 256, 512
 
 
 def decoder_chain_plan(H: int) -> tuple:
     """How the reverse chain splits a hidden size H over a cluster
-    (`bwd_plan` in csrc/decoder_chain.cu): (cluster width CL, most units a
+    (`bwd_plan` in csrc/decoder_chain.cuh): (cluster width CL, most units a
     CTA HS, dgate row groups NQ, rows per group RQ).  A CTA's 2 HS output
     columns of dgate [Wih; Whh]^T take NQ groups of RQ rows (a multiple of
     4).  The even split: CL = `_cluster_width(H)`, HS a multiple of 4 of at
@@ -1140,9 +1374,9 @@ def decoder_chain_plan(H: int) -> tuple:
     weights a thread keeps in registers).  Where that does not hold, the
     ragged split: CL = `_ragged_width(H)` CTAs of `units_of`, 512 threads,
     NQ = 512 / (2 HS), the weights read from L2 every step.  Above H = 512
-    the wide kernel (`decoder_chain_bwd_wide`) on the ragged split, NQ =
-    512 / HS (its threads stride over the 2 HS NQ products).  Every H from 1
-    to MAX_H_WIDE; raises above."""
+    the ragged split with NQ = 512 / HS.  The persistent reverse chain sums
+    in these ranks and row groups (and, as the ragged split, over 512
+    threads).  Every H from 1 to MAX_H_WIDE; raises above."""
     _check_width(H, "the reverse decoder chain")
     if H > MAX_H:
         cl = _ragged_width(H)
@@ -1162,33 +1396,26 @@ def decoder_chain_plan(H: int) -> tuple:
     return cl, hs, nq, (-(-4 * H // nq) + 3) // 4 * 4
 
 
-def decoder_chain_bwd_wide(H: int, Tz: int) -> bool:
-    """True where the reverse chain at (H, Tz) runs its wide kernel
-    (`chain_bwd_wide_kernel`): H above 512, or the narrow kernel's [Tz x HS]
-    tables and [CL x Tz] partials above the card's shared memory.  It keeps
-    those tables in device memory (scratch the wrapper allocates), so no Tz
-    is refused."""
-    decoder_chain_plan(H)
-    return load().mucon_decoder_chain_bwd_wide(H, Tz) == 1
-
-
 def decoder_chain_replay(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2, bc, wih,
-                         whh, bl, *, count: bool = True, cell: bool = False):
+                         whh, bl, *, count: bool = True, cell: bool = False, route=None,
+                         ctas=None):
     """Pass 1 of the reverse chain (`ops/decoder_chain.py
-    decoder_chain_replay_plain`): every step and video at once, on clusters
-    of the forward's shape through its step function
+    decoder_chain_replay_plain`): every step and video at once, on the
+    forward's route (`decoder_chain_route`; `route` forces one): clusters
+    of the forward's shape through its step function, or the persistent
+    forward kernel on S B items of one step
     -> (acts [5 x S x B x H], cpre [S x B x H], a [S x B x Tz],
     u [S x B x Tz x H]); with `cell` also the replayed cell [S x B x H].
     cpre and the cell equal the forward kernel's (relu(cpre) its comb, the
-    cell its cs) bit for bit.  `a` is a view of rows padded to a multiple
-    of 4 frames."""
+    cell its cs) bit for bit, on either route.  `a` is a view of rows
+    padded to a multiple of 4 frames."""
     dev, S, B, Tz, H, E = _check_chain(emb, enc, pre, maskf, h_in[0], c_in[0], wl2, bl2, v,
                                        wc1, wc2, bc, wih, whh, bl, reverse=True)
     for name, t in (("h_in", h_in), ("c_in", c_in)):
         if tuple(t.shape) != (S, B, H):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {(S, B, H)}")
     _require(dev, torch.float32, h_in=h_in, c_in=c_in)
-    wcT, wgT = _chain_columns(wc1, wc2, wih, whh)
+    route = _route(route, "fwd", B, H, E, Tz)
     f32 = dict(device=dev, dtype=torch.float32)
     acts = torch.empty(5, S, B, H, **f32)
     cpre = torch.empty(S, B, H, **f32)
@@ -1196,22 +1423,33 @@ def decoder_chain_replay(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2
     u = torch.empty(S, B, Tz, H, **f32)
     replay = torch.empty(S, B, H, **f32) if cell else None
     lib = load()
-    err = lib.mucon_decoder_chain_replay(
-        emb.data_ptr(), enc.data_ptr(), pre.data_ptr(), maskf.data_ptr(), h_in.data_ptr(),
-        c_in.data_ptr(), wl2.data_ptr(), bl2.data_ptr(), v.data_ptr(), wcT.data_ptr(),
-        bc.data_ptr(), wgT.data_ptr(), bl.data_ptr(), acts.data_ptr(), cpre.data_ptr(),
-        a.data_ptr(), u.data_ptr(), _ptr(replay), S, B, Tz, H, E, _stream(dev))
-    _check_launch(lib, err, "decoder_chain_bwd", count)
+    if route == "persistent":
+        err = _persistent_fwd(dev, emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2, bc,
+                              wih, whh, bl, S * B, 1, B, None, (acts, cpre, a, u, replay), ctas)
+        _check_persistent(lib, err, "decoder_chain_bwd", count, ctas)
+        chain_launches["chain_persistent_fwd_kernel"] += 1
+    else:  # the replay pass runs on the forward's clusters
+        _check_cluster_smem(H, E, Tz, False)
+        wcT, wgT = _chain_columns(wc1, wc2, wih, whh)
+        err = lib.mucon_decoder_chain_replay(
+            emb.data_ptr(), enc.data_ptr(), pre.data_ptr(), maskf.data_ptr(), h_in.data_ptr(),
+            c_in.data_ptr(), wl2.data_ptr(), bl2.data_ptr(), v.data_ptr(), wcT.data_ptr(),
+            bc.data_ptr(), wgT.data_ptr(), bl.data_ptr(), acts.data_ptr(), cpre.data_ptr(),
+            a.data_ptr(), u.data_ptr(), _ptr(replay), S, B, Tz, H, E, _stream(dev))
+        _check_launch(lib, err, "decoder_chain_bwd", count)
+        chain_launches["chain_replay_kernel"] += 1
     out = (acts, cpre, a[..., :Tz], u)
     return (*out, replay) if cell else out
 
 
 def decoder_chain_bwd_chain(acts, cpre, a, u, c_in, enc, v, wc2, wih, whh, wl2, dhs, dcs,
-                            dcomb):
-    """Pass 2 of the reverse chain (`decoder_chain_bwd_chain_plain`) on one
-    thread-block cluster per video -> (dgate [S x B x 4H], dcpre [S x B x H],
-    dsc [S x B x Tz], dh0 [B x H], dc0 [B x H]).  `a` as
-    `decoder_chain_replay` returns it (rows padded to a multiple of 4)."""
+                            dcomb, *, route=None, ctas=None, count: bool = True):
+    """Pass 2 of the reverse chain (`decoder_chain_bwd_chain_plain`) on
+    `decoder_chain_route`'s kernel (`route` forces one): one thread-block
+    cluster per video, or one persistent launch over the card
+    -> (dgate [S x B x 4H], dcpre [S x B x H], dsc [S x B x Tz], dh0 [B x H],
+    dc0 [B x H]).  `a` as `decoder_chain_replay` returns it (rows padded to
+    a multiple of 4)."""
     dev = _cuda_device(c_in)
     S, B, H = c_in.shape
     Tz, E = enc.shape[1], enc.shape[2]
@@ -1228,43 +1466,55 @@ def decoder_chain_bwd_chain(acts, cpre, a, u, c_in, enc, v, wc2, wih, whh, wl2, 
     if a.stride() != (B * Tzp, Tzp, 1) or a.device != dev or a.dtype != torch.float32:
         raise ValueError("a must be decoder_chain_replay's (f32 rows padded to 4 frames)")
     _require(dev, torch.float32, c_in=c_in, **{k: t for k, t in got.items() if k != "a"})
+    route = _route(route, "bwd", B, H, E, Tz)
     lib = load()
     wg = torch.cat([wih, whh])  # [2H, 4H]: row n is column n of [Wih; Whh]^T
     f32 = dict(device=dev, dtype=torch.float32)
-    # the wide kernel's device-memory tables: K = enc Wc2, the ranks' partials of
-    # da and each CTA's dsc
-    cl = decoder_chain_plan(H)[0]
-    wide = decoder_chain_bwd_wide(H, Tz)
-    Kg = torch.empty(B, Tz, H, **f32) if wide else None
-    Xg = torch.empty(B, cl, Tz, **f32) if wide else None
-    Dg = torch.empty(B, cl, Tzp, **f32) if wide else None
     dgate = torch.empty(S, B, 4 * H, **f32)
     dcpre = torch.empty(S, B, H, **f32)
     dsc = torch.empty(S, B, Tz, **f32)
     dh0 = torch.empty(B, H, **f32)
     dc0 = torch.empty(B, H, **f32)
+    if route == "persistent":
+        scratch, n = _persistent_scratch(True, B, H, E, Tz, False, dev)
+        err = lib.mucon_decoder_chain_persistent_bwd(
+            acts.data_ptr(), cpre.data_ptr(), a.data_ptr(), u.data_ptr(), c_in.data_ptr(),
+            enc.data_ptr(), v.data_ptr(), wc2.data_ptr(), wg.data_ptr(), wl2.data_ptr(),
+            dhs.data_ptr(), dcs.data_ptr(), dcomb.data_ptr(), dgate.data_ptr(),
+            dcpre.data_ptr(), dsc.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            scratch.data_ptr(), n, S, B, Tz, H, E, ctas or 0, _stream(dev))
+        _check_persistent(lib, err, "decoder_chain_bwd", count, ctas)
+        chain_launches["chain_persistent_bwd_kernel"] += 1
+        return dgate, dcpre, dsc, dh0, dc0
+    if H > MAX_H:
+        raise ValueError(f"the cluster reverse chain takes H up to {MAX_H}; H={H} runs on the "
+                         f"persistent kernel")
+    _check_cluster_smem(H, E, Tz, True)
     err = lib.mucon_decoder_chain_bwd(
         acts.data_ptr(), cpre.data_ptr(), a.data_ptr(), u.data_ptr(), c_in.data_ptr(),
         enc.data_ptr(), v.data_ptr(), wc2.data_ptr(), wg.data_ptr(), wl2.data_ptr(),
         dhs.data_ptr(), dcs.data_ptr(), dcomb.data_ptr(), dgate.data_ptr(), dcpre.data_ptr(),
-        dsc.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), _ptr(Kg), _ptr(Xg), _ptr(Dg), S, B, Tz,
-        H, E, _stream(dev))
-    _check_launch(lib, err, "decoder_chain_bwd")
+        dsc.data_ptr(), dh0.data_ptr(), dc0.data_ptr(), S, B, Tz, H, E, _stream(dev))
+    _check_launch(lib, err, "decoder_chain_bwd", count)
+    chain_launches["chain_bwd_kernel"] += 1
     return dgate, dcpre, dsc, dh0, dc0
 
 
 def decoder_chain_backward(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v, wc1, wc2, bc,
-                           wih, whh, bl, dhs, dcs, dcomb):
+                           wih, whh, bl, dhs, dcs, dcomb, *, route=None, ctas=None):
     """The reverse (dh, dc) chain from the step inputs h_in / c_in and the
     cotangents of (hs, cs, comb) -> (dgate [S x B x 4H], dcpre [S x B x H],
     dsc [S x B x Tz], dh0 [B x H], dc0 [B x H]).  Two kernels, counted as one
-    `decoder_chain_bwd` launch: the replay of every step at once
-    (`decoder_chain_replay`, into scratch allocated here), then the cluster
-    chain (`decoder_chain_bwd_chain`)."""
+    `decoder_chain_bwd` launch (and each under its name in
+    `chain_launches`): the replay of every step at once
+    (`decoder_chain_replay`, into scratch allocated here), then the chain
+    (`decoder_chain_bwd_chain`), each on `decoder_chain_route`'s kernel
+    (`route` forces both)."""
     acts, cpre, a, u = decoder_chain_replay(emb, enc, pre, maskf, h_in, c_in, wl2, bl2, v,
-                                            wc1, wc2, bc, wih, whh, bl, count=False)
+                                            wc1, wc2, bc, wih, whh, bl, count=False,
+                                            route=route, ctas=ctas)
     return decoder_chain_bwd_chain(acts, cpre, a, u, c_in, enc, v, wc2, wih, whh, wl2, dhs,
-                                   dcs, dcomb)
+                                   dcs, dcomb, route=route, ctas=ctas)
 
 
 # csrc/mucon_loss.cu: frames a tile, the widest cluster, the card's SMs

@@ -158,7 +158,7 @@ def chain(H, dev, gen, B=2, S=5, Tz=20, E=None):
         r(B, H), wt(H, H, H), r(H), r(H), wt(H + E, H, H), wt(H + E, E, H), r(H),
         wt(2 * H, H, 4 * H), wt(2 * H, H, 4 * H), r(4 * H))]
     print(f"  plans fwd {cuda.decoder_chain_fwd_plan(H)} bwd {cuda.decoder_chain_plan(H)} "
-          f"wide reverse {cuda.decoder_chain_bwd_wide(H, Tz)}", flush=True)
+          f"routes {cuda.decoder_chain_route(B, H, E, Tz)}", flush=True)
     dcts = [torch.randn(S, B, H, generator=gen).to(dev) for _ in range(3)]
     with torch.no_grad():
         for n, a, b in zip(("hs", "cs", "comb"), cuda.decoder_chain_forward(*args),

@@ -7,7 +7,9 @@ step, one video, one frame or a thousand, one segment of the flint loss,
 an MS-TCN++ stage at odd lengths and lengths on a tile edge, the BiLSTM
 recurrence and its reverse chain on clusters of 1, 2 and 8 CTAs and on the
 persistent kernels above H = 256 (H = 300, 512, 768, 1447), the
-decoder chain's replay pass and cluster chain, the trainable stack at each
+decoder chain's replay pass and cluster chain and its persistent kernels
+(H = 600, 768, 1181 and Tz = 2048: equal to the cluster kernels bit for
+bit, a grid the card cannot hold refused), the trainable stack at each
 of its row tiles and at B = 1 and 8, the v2 stack in 1, 3 and 11 chunks
 with tied pool pairs and at B = 1 and 8 on T = 2560, a v2 chunk too large
 for one launch, the stack kernels' bf16-operand mode at ragged shapes), and
@@ -339,24 +341,39 @@ def test_wide_bilstm_kernels_match_plain(dev, H):
     _grads_close(grads(BiLSTMRecurrenceTrain.apply), grads(bilstm_recurrence_plain))
 
 
-@pytest.mark.parametrize("H,B,Tz", [(600, 2, 12), (128, 1, 2048)])
-def test_wide_decoder_chain_matches_plain(dev, H, B, Tz):
-    """The decoder chain above H = 512 and at a Tz whose reverse tables do
-    not fit shared memory (`cuda.decoder_chain_bwd_wide`): the forward
-    within 1e-4 and `DecoderChain`'s input gradients by `_grads_close`."""
-    gen = torch.Generator().manual_seed(Tz)
-    S, E = 7, 2 * H
-    tz = torch.tensor([Tz, max(1, Tz // 2)])[:B]
+def _chain_args(H, B, Tz, S, gen, dev):
+    """Seeded decoder chain inputs: B videos, the second of half the frames,
+    weights at the model's scale (1 / sqrt(fan-in)), E = 2H."""
+    E = 2 * H
+    tz = torch.tensor([Tz, max(1, Tz // 2)] * B)[:B]
     maskf = (torch.arange(Tz)[None, :] < tz[:, None]).float()
     r = lambda *shape: 0.4 * torch.randn(*shape, generator=gen)  # noqa: E731
     wt = lambda k, *shape: torch.randn(*shape, generator=gen) / k ** 0.5  # noqa: E731
-    args = [t.to(dev) for t in (
+    return [t.to(dev) for t in (
         torch.relu(r(S, B, H)), r(B, Tz, E) * maskf[:, :, None], r(B, Tz, H), maskf, r(B, H),
         r(B, H), wt(H, H, H), r(H), r(H), wt(H + E, H, H), wt(H + E, E, H), r(H),
         wt(2 * H, H, 4 * H), wt(2 * H, H, 4 * H), r(4 * H))]
-    assert cuda.decoder_chain_bwd_wide(H, Tz)
+
+
+@pytest.mark.parametrize("H,B,Tz", [(600, 2, 12), (768, 3, 20), (1181, 2, 12), (128, 1, 2048)])
+def test_wide_decoder_chain_matches_plain(dev, H, B, Tz):
+    """The decoder chain above H = 512 and at a Tz whose reverse tables do
+    not fit shared memory, where `cuda.decoder_chain_route` sends both
+    directions to the persistent kernels (each launched once a call, by
+    `cuda.chain_launches`): the forward within 1e-4 and equal to the cluster
+    forward bit for bit (one order of every sum), `DecoderChain`'s input
+    gradients by `_grads_close`."""
+    gen = torch.Generator().manual_seed(Tz + H)
+    S = 7
+    args = _chain_args(H, B, Tz, S, gen, dev)
+    E = 2 * H
+    assert cuda.decoder_chain_route(B, H, E, Tz) == {"fwd": "persistent", "bwd": "persistent"}
+    before = dict(cuda.chain_launches)
     with torch.no_grad():
-        _close(cuda.decoder_chain_forward(*args), decoder_chain_plain(*args), 1e-4)
+        outk = cuda.decoder_chain_forward(*args)
+        _close(outk, decoder_chain_plain(*args), 1e-4)
+        assert all(torch.equal(a, b) for a, b in zip(
+            outk, cuda.decoder_chain_forward(*args, route="cluster")))
     cts = [torch.randn(S, B, H, generator=gen).to(dev) for _ in range(3)]
 
     def grads(fn):
@@ -365,6 +382,132 @@ def test_wide_decoder_chain_matches_plain(dev, H, B, Tz):
         return [t.grad for i, t in enumerate(xs) if i != 3]
 
     _grads_close(grads(DecoderChain.apply), grads(decoder_chain_plain))
+    got = {k: cuda.chain_launches[k] - before[k] for k in before}
+    assert got == {"chain_fwd_kernel": 1, "chain_replay_kernel": 0, "chain_bwd_kernel": 0,
+                   "chain_persistent_fwd_kernel": 3, "chain_persistent_bwd_kernel": 1}, got
+
+
+@pytest.mark.parametrize("H,B,Tz", [(384, 8, 40), (300, 2, 12)])
+def test_decoder_chain_mixed_route_matches_plain(dev, H, B, Tz):
+    """Between H = 257 and 432 `cuda.decoder_chain_route` keeps the forward
+    and the replay pass on the cluster kernels and sends the reverse chain
+    to the persistent kernel, which reads the cluster replay's padded a, u
+    and acts: `DecoderChain`'s input gradients by `_grads_close`, the
+    backward equal to the all-cluster backward bit for bit, and each kernel
+    launched as the route says (`cuda.chain_launches`)."""
+    gen = torch.Generator().manual_seed(H + B)
+    S = 6
+    args = _chain_args(H, B, Tz, S, gen, dev)
+    assert cuda.decoder_chain_route(B, H, 2 * H, Tz) == {"fwd": "cluster", "bwd": "persistent"}
+    cts = [torch.randn(S, B, H, generator=gen).to(dev) for _ in range(3)]
+
+    def grads(fn):
+        xs = [t.clone().requires_grad_(i != 3) for i, t in enumerate(args)]
+        torch.autograd.backward(fn(*xs), cts)
+        return [t.grad for i, t in enumerate(xs) if i != 3]
+
+    before = dict(cuda.chain_launches)
+    _grads_close(grads(DecoderChain.apply), grads(decoder_chain_plain))
+    got = {k: cuda.chain_launches[k] - before[k] for k in before}
+    assert got == {"chain_fwd_kernel": 1, "chain_replay_kernel": 1, "chain_bwd_kernel": 0,
+                   "chain_persistent_fwd_kernel": 0, "chain_persistent_bwd_kernel": 1}, got
+    with torch.no_grad():
+        hs, cs, _ = cuda.decoder_chain_forward(*args)
+        bargs = (*args[:4], torch.cat([args[4][None], hs[:-1]]),
+                 torch.cat([args[5][None], cs[:-1]]), *args[6:], *cts)
+        before = dict(cuda.chain_launches)
+        raw = cuda.decoder_chain_backward(*bargs)
+        cluster = cuda.decoder_chain_backward(*bargs, route="cluster")
+    got = {k: cuda.chain_launches[k] - before[k] for k in before}
+    assert got == {"chain_fwd_kernel": 0, "chain_replay_kernel": 2, "chain_bwd_kernel": 1,
+                   "chain_persistent_fwd_kernel": 0, "chain_persistent_bwd_kernel": 1}, got
+    assert all(torch.equal(a, b) for a, b in zip(raw, cluster))
+
+
+# (B, H, forward's route, reverse chain's route) at Tz = 160: the default
+# width on the clusters at every B, the crossings of each B's band
+# (`CROSSINGS` in csrc/decoder_chain.cu) on either side, 768 persistent
+@pytest.mark.parametrize("B,H,fwd,bwd", [
+    (1, 128, "cluster", "cluster"), (128, 128, "cluster", "cluster"),
+    (1, 256, "cluster", "cluster"), (1, 384, "persistent", "persistent"),
+    (8, 384, "cluster", "persistent"), (8, 512, "persistent", "persistent"),
+    (32, 384, "cluster", "persistent"), (32, 512, "persistent", "persistent"),
+    (128, 256, "cluster", "cluster"), (128, 384, "cluster", "persistent"),
+    (128, 512, "cluster", "persistent"), (128, 768, "persistent", "persistent")])
+def test_decoder_chain_route_by_batch(dev, B, H, fwd, bwd):
+    """`cuda.decoder_chain_route` takes B into account: each direction on
+    the route that was faster in turns at the nearest measured B."""
+    assert cuda.decoder_chain_route(B, H, 2 * H, 160) == {"fwd": fwd, "bwd": bwd}
+
+
+@pytest.mark.parametrize("NI,H,Tz", [(8, 768, 160), (248, 768, 160), (1, 128, 2048),
+                                     (2, 1181, 40), (62, 1181, 40)])
+def test_decoder_chain_persistent_plan_deals_as_split(dev, NI, H, Tz):
+    """The persistent launch reports the dealing that the CPU mirror
+    `cuda.decoder_chain_persistent_split` follows: frames of a scores block,
+    channels of a softmax pair's chunk (four threads a channel where the
+    chunks are few), of a ctx chunk, and K's tiles in the reverse chain."""
+    ctas = torch.cuda.get_device_properties(dev).multi_processor_count
+    launch = cuda.decoder_chain_persistent_launch(NI, H, 2 * H, Tz)
+    want = cuda.decoder_chain_persistent_chunks(NI, H, 2 * H, ctas)
+    assert {k: launch[k] for k in want} == want, (launch, want)
+    assert launch["ctas"] == ctas and launch["ranks"] == cuda.decoder_chain_fwd_plan(H)[0]
+    rev = cuda.decoder_chain_persistent_launch(min(NI, 8), H, 2 * H, Tz, reverse=True)
+    assert rev["k_tile"] == cuda.DECODER_PERSISTENT_KT
+
+
+# the persistent route's replay pass: H = 600 and 768 at the train's E = 2H,
+# H = 128 at Tz = 2048 (its frames' rows past the cluster forward's shared
+# memory)
+@pytest.mark.parametrize("H,B,Tz", [(600, 2, 12), (768, 8, 40), (128, 1, 2048)])
+def test_decoder_chain_persistent_replay_is_stash(dev, H, B, Tz):
+    """The persistent replay pass (one step of S B items) replays the
+    persistent forward's stash bit for bit (its cell is cs, its relu(cpre)
+    comb), its four outputs equal the cluster replay pass's bit for bit,
+    and the whole reverse chain repeats bit for bit and holds to its twin
+    within 1e-4."""
+    gen = torch.Generator().manual_seed(H + Tz)
+    S = 5
+    args = _chain_args(H, B, Tz, S, gen, dev)
+    assert cuda.decoder_chain_route(B, H, 2 * H, Tz)["fwd"] == "persistent"
+    cts = [torch.randn(S, B, H, generator=gen).to(dev) for _ in range(3)]
+    with torch.no_grad():
+        hs, cs, comb = cuda.decoder_chain_forward(*args)
+        h_in = torch.cat([args[4][None], hs[:-1]])
+        c_in = torch.cat([args[5][None], cs[:-1]])
+        bargs = (*args[:4], h_in, c_in, *args[6:], *cts)
+        *replay, cell = cuda.decoder_chain_replay(*bargs[:15], count=False, cell=True)
+        assert torch.equal(cell, cs) and torch.equal(torch.relu(replay[1]), comb)
+        *cluster, _ = cuda.decoder_chain_replay(*bargs[:15], count=False, cell=True,
+                                                route="cluster")
+        assert all(torch.equal(a, b) for a, b in zip(replay, cluster))
+        _close(replay, decoder_chain_replay_plain(*bargs[:15]), 1e-4)
+        raw = cuda.decoder_chain_backward(*bargs)
+        assert all(torch.equal(a, b) for a, b in zip(raw, cuda.decoder_chain_backward(*bargs)))
+        _close(raw, decoder_chain_bwd_plain(*bargs), 1e-4)
+
+
+def test_decoder_chain_persistent_refuses_grid(dev):
+    """A persistent launch the card cannot hold at once (more CTAs than it
+    has SMs) is refused before it runs: each wrapper raises, naming what the
+    launch needs, and counts nothing; the plan reports the shortfall."""
+    gen = torch.Generator().manual_seed(5)
+    H, B, Tz, S = 600, 2, 12, 3
+    args = _chain_args(H, B, Tz, S, gen, dev)
+    big = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
+    launch = cuda.decoder_chain_persistent_launch(B, H, 2 * H, Tz, ctas=big)
+    assert launch["ctas"] == big and launch["co_resident"] < big
+    before = dict(cuda.launch_counts), dict(cuda.chain_launches)
+    cts = [torch.randn(S, B, H, generator=gen).to(dev) for _ in range(3)]
+    h_in, c_in = args[4].expand(S, B, H).contiguous(), args[5].expand(S, B, H).contiguous()
+    bargs = (*args[:4], h_in, c_in, *args[6:], *cts)
+    with torch.no_grad():
+        for call in (lambda: cuda.decoder_chain_forward(*args, ctas=big),
+                     lambda: cuda.decoder_chain_replay(*bargs[:15], ctas=big),
+                     lambda: cuda.decoder_chain_backward(*bargs, ctas=big)):
+            with pytest.raises(RuntimeError, match="resident at once"):
+                call()
+    assert (dict(cuda.launch_counts), dict(cuda.chain_launches)) == before
 
 
 # the cluster body at frame_sampling 1 and 3 (L = 2000: 8 CTAs, two rows a
@@ -703,21 +846,22 @@ def test_decoder_chain_forward_on_clusters(dev, B, Tz, S):
     assert (launch["cl"], launch["clusters"], launch["tables"]) == (cl, B, int(not largest))
     before = cuda.launch_counts["decoder_chain_fwd"]
     with torch.no_grad():
-        outk = cuda.decoder_chain_forward(*args)
-        again = cuda.decoder_chain_forward(*args)
+        outk = cuda.decoder_chain_forward(*args, route="cluster")
+        again = cuda.decoder_chain_forward(*args, route="cluster")
         assert all(torch.equal(a, b) for a, b in zip(outk, again))  # no atomics
         _close(outk, decoder_chain_plain(*args), 1e-4)
         _close(outk, decoder_chain_cluster_plain(*args, cl=cl), 1e-4)
     assert cuda.launch_counts["decoder_chain_fwd"] == before + 2
     if largest:
         with pytest.raises(ValueError):
-            cuda.decoder_chain_forward(*_grow(args, Tz + 1))
+            cuda.decoder_chain_forward(*_grow(args, Tz + 1), route="cluster")
         return
     h_in = torch.cat([args[4][None], outk[0][:-1]])
     c_in = torch.cat([args[5][None], outk[1][:-1]])
     with torch.no_grad():
         *_, cpre, _, _, cell = cuda.decoder_chain_replay(*args[:4], h_in, c_in, *args[6:],
-                                                         count=False, cell=True)
+                                                         count=False, cell=True,
+                                                         route="cluster")
     assert torch.equal(torch.relu(cpre), outk[2]) and torch.equal(cell, outk[1])
 
 
@@ -748,6 +892,11 @@ def test_decoder_chain_forward_every_h(dev, H, E, resident):
         assert all(torch.equal(a, b) for a, b in zip(outk, cuda.decoder_chain_forward(*args)))
         _close(outk, decoder_chain_plain(*args), 1e-4)
         _close(outk, decoder_chain_cluster_plain(*args, cl=launch["cl"]), 1e-4)
+        # above H = 512 the route is the persistent kernel: the cluster one's bits
+        other = "cluster" if cuda.decoder_chain_route(B, H, E, Tz)["fwd"] == "persistent" \
+            else "persistent"
+        assert all(torch.equal(a, b) for a, b in zip(
+            outk, cuda.decoder_chain_forward(*args, route=other)))
     cts = [r(S, B, H) for _ in range(3)]
     h_in = torch.cat([args[4][None], outk[0][:-1]])
     c_in = torch.cat([args[5][None], outk[1][:-1]])
