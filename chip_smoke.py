@@ -146,7 +146,9 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    (`widths_phase`): rows 1, 5, 6, 12, 13 and 14 at C = 48 (zero-padded to
    the 128 instance), 256, 512 and, on the wide bodies, 600, 768 and 1024
    in 3xTF32 and in the bf16-operand mode (rows 1 and 12 at B = 128,
-   T_pad = 1280), rows 2, 7-10 at H = 100, 127,
+   T_pad = 1280; above 512 on the `wgmma` body of csrc/wavenet_wgmma.cu,
+   each line naming the C entry points it launched, the trainable stack's
+   rows on `wide_gemm`), rows 2, 7-10 at H = 100, 127,
    256, 512 (even, ragged and L2-weight splits; the BiLSTM's persistent
    kernels from 512), 768 and 1024 (the wide kernels; the decoder chain's
    persistent kernels, each line with its plan: CTAs, the weight columns
@@ -162,10 +164,13 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    the flint loss at M = 600 and 778 (its window in chunks of classes) and
    at N = 482 (in chunks of segments); the MS-TCN++ model at C = 256
    and both backbones at C = H = 768 through `predict_videos` (request A
-   among them); and `train_test_mucon` at the wide (C = H = 256), ragged
+   among them; the stacks' `wgmma` entry points by name); and
+   `train_test_mucon` at the wide (C = H = 256), ragged
    (C = 48, H = 100) and wide768 (C = H = 768) configurations with their
    launches (the decoder chain's CUDA kernels by name: the cluster kernels
-   at H = 100 and 256, the persistent ones at 768), `test_mucon` within
+   at H = 100 and 256, the persistent ones at 768; at 768 the eval
+   batches' `wgmma` and the train steps' `wide_gemm` entry points by
+   name), `test_mucon` within
    1e-6 and a kernel step against a plain step;
 11. prints the kernel report JSON (each kernel's launches, error, time, the
    plain twin's time, the least time the card could take for the same work
@@ -883,6 +888,15 @@ def serve(tag, model, dev, rng, card: str, required, absent=(), timed: bool = Tr
     pred_k = {k: predict(k, True) for k in requests}
     launches = dict(cuda.launch_counts)
     say(f"launches on the {tag} serving path: {launches}")
+    # the stacks' C entry points above 512 channels: the eval path's `wgmma`
+    # body only, never the trainable stack's `wide_gemm` entries
+    entries = {k: v for k, v in cuda.wide_launches.items() if v}
+    if entries:
+        say(f"the stack's entry points above 512 channels on the {tag} serving path: "
+            f"{entries}")
+    expect(all(k.startswith("mucon_wgmma") for k in entries),
+           f"{tag}: the eval stack launched a trainable stack's wide entry: {entries}")
+    launches.update(entries)
     missing = [name for name in required if launches[name] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {tag} serving path: {missing}")
@@ -3704,7 +3718,15 @@ def width_eval_stacks(gen, dev, card: str, lines: dict) -> None:
             for mm in (None, torch.bfloat16):
                 key = name if mm is None else f"{name}_bf16"
                 args = (x, lengths, *weights)
+                before = dict(cuda.wide_launches)
                 zk, tk = stack(*args, **kw, mm_dtype=mm)
+                entries = {k: v - before[k] for k, v in cuda.wide_launches.items()
+                           if v > before[k]}
+                want = {"wavenet_layer": {"mucon_wgmma_layer": L, "mucon_wgmma_proj": 1},
+                        "mstcnpp_stack": {"mucon_wgmma_mstcnpp_layer": L,
+                                          "mucon_wgmma_proj": 1}}[name]
+                expect(entries == (want if cuda.is_wide(cuda.stack_width(C)) else {}),
+                       f"{key} C={C}: launched the entry points {entries}")
                 zp, tp = plain(*args, **kw, mm_dtype=mm)
                 expect(torch.equal(tk, tp) and zk.shape == zp.shape,
                        f"{key} C={C}: lengths or shape differ from the twin's")
@@ -3719,10 +3741,14 @@ def width_eval_stacks(gen, dev, card: str, lines: dict) -> None:
                                          lambda: plain(*args, **kw, mm_dtype=mm), reps=2)
                 say(f"widths: kernel {key} B={B} T={T} C={C} (run at "
                     f"{cuda.stack_width(C)}) L={L}: {detail}; {ms:.3f} ms vs plain "
-                    f"{plain_ms:.3f} ms [{card}]")
+                    f"{plain_ms:.3f} ms; entry points {entries or 'narrow'} [{card}]")
                 moved = 4 * C * (rows[0] + rows_fin) + nbytes(lengths, *weights)
-                width_line(key, f"C={C}", report(err, ms, plain_ms, moved, ops,
-                                                 tf32x3=mm is None, bf16=mm is not None), lines)
+                line = report(err, ms, plain_ms, moved, ops, tf32x3=mm is None,
+                              bf16=mm is not None)
+                if entries:  # the body and its C entry points' launches in one call
+                    line.update(body="wgmma", source="mucon_tpu_torch/csrc/wavenet_wgmma.cu",
+                                entry_launches=entries)
+                width_line(key, f"C={C}", line, lines)
                 del zk, zp
         del x
 
@@ -4266,6 +4292,7 @@ def width_runs(dev, card: str, cli: dict, lines: dict) -> None:
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches, chain_kernels = dict(cuda.launch_counts), dict(cuda.chain_launches)
+        wide_entries = {k: v for k, v in cuda.wide_launches.items() if v}
         got = finite_fields(exp, result)
         run = os.path.join(cli["runs"], exp, "0")
         events = [json.loads(line) for line in open(os.path.join(run, "events.jsonl"))]
@@ -4290,6 +4317,15 @@ def width_runs(dev, card: str, cli: dict, lines: dict) -> None:
             want_chain[k] += steps
         expect(chain_kernels == want_chain, f"widths {tag}: the decoder chain's kernels "
                                             f"{chain_kernels} != {want_chain}")
+        # above 512 channels the eval batches' stacks on the `wgmma` body, the
+        # train steps' on `wide_gemm` (its out-projection a `mucon_wide_proj`)
+        n = N_LAYERS
+        want_entries = {} if not cuda.is_wide(cuda.stack_width(fields["hidden_size"])) else {
+            "mucon_wgmma_layer": batches * n, "mucon_wgmma_proj": batches,
+            "mucon_wide_layer": steps * n, "mucon_wide_proj": steps,
+            "mucon_wide_sweep": steps * (n + 1)}
+        expect(wide_entries == want_entries, f"widths {tag}: the stacks' wide entry points "
+                                             f"{wide_entries} != {want_entries}")
         with open(cli["log"], "a") as f, contextlib.redirect_stdout(f):
             again = test_mucon.single_main(f"{exp}/0/1", root=cli["runs"])
         diff = max(float(np.max(np.abs(np.subtract(v, got[k]))))
@@ -4298,7 +4334,8 @@ def width_runs(dev, card: str, cli: dict, lines: dict) -> None:
         say(f"widths: train_test_mucon {tag} ({', '.join(f'{k}={v}' for k, v in sets)}): "
             f"24 finite fields in {run_s:.1f} s, {steps} steps and {batches} eval batches "
             f"launched each kernel as often as they imply (the decoder chain's: "
-            f"{ {k: v for k, v in chain_kernels.items() if v} }); test_mucon within {diff:.1e} "
+            f"{ {k: v for k, v in chain_kernels.items() if v} }; the stacks' entry points "
+            f"above 512 channels: {wide_entries or 'none'}); test_mucon within {diff:.1e} "
             f"[{card}]; {result}")
         C, H = fields["hidden_size"], fields["lstm_hidden_size"]
         for key, entries in lines.items():
@@ -4356,6 +4393,10 @@ def widths_phase(dev, card: str, tmp: str, cli: dict) -> dict:
             served = serve(f"{name} C=768 H=768", model_w, dev, np.random.default_rng(3), card,
                            required, absent=(absent,), timed="A" if ft == "wavenet" else False)
         del model_w
+        body = ("mucon_wgmma_layer" if ft == "wavenet" else "mucon_wgmma_mstcnpp_layer",
+                "mucon_wgmma_proj")
+        expect(all(served.get(k, 0) for k in body),
+               f"{name} C=768: the eval stack's wgmma entry points {body} did not launch")
         for key, width in ((required[0], "C=768"), ("bilstm_recurrence", "H=768")):
             for entry in lines[key]:  # the serving path's launches at its width
                 if entry["width"] == width:

@@ -43,8 +43,9 @@
 //   C [16 x 8]:              as m16n8k8's (c0 (g, 2t) ... c3 (g + 8, 2t + 1))
 // An A fragment takes two neighbouring columns of a row (a B fragment two
 // neighbouring rows of a column), so its loads meet 2-way bank conflicts on
-// the strides above: the mode is simple first (a bf16 tile in shared memory
-// and `wgmma` are later work).
+// the strides above: the mode is simple first.  Hopper's `wgmma` runs the
+// eval stacks above C = 512 (wavenet_wgmma.cu: weights pre-split into TF32
+// planes, or one bf16 plane, fed by TMA); the bodies here keep `mma.sync`.
 //
 // Also here: the `cp.async` wrappers that fill such tiles (16-byte copies,
 // zero-filled where the source row does not exist).

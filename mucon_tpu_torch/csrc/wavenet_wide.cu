@@ -1,13 +1,15 @@
-// The stack kernels above C = 512 channels ("wide bodies"), for NVIDIA
-// Hopper (sm_90a): the WaveNet eval stack and the trainable stack's forward
-// and sweep (v3, one launch a layer; v2, one cooperative launch a chunk of
-// layers) and the MS-TCN++ stage, each in 3xTF32 and in the bf16-operand
-// mode.  C is a runtime argument, a multiple of the 128-column slab (the
-// wrappers zero-pad another C to it, `cuda.stack_width`): one instance a
-// mode, whatever the width.
+// The trainable stack's kernels above C = 512 channels ("wide bodies"),
+// for NVIDIA Hopper (sm_90a): its forward and sweep (v3, one launch a layer;
+// v2, one cooperative launch a chunk of layers) and its out-projection, each
+// in 3xTF32 and in the bf16-operand mode.  C is a runtime argument, a
+// multiple of the 128-column slab (the wrappers zero-pad another C to it,
+// `cuda.stack_width`): one instance a mode, whatever the width.  The eval
+// stacks above 512 (WaveNet and MS-TCN++) run on wavenet_wgmma.cu's `wgmma`
+// body; these keep `wide_gemm`, because the v2 sweep recomputes a pooled
+// layer's u with pass 2 and must repeat the forward's bits.
 //
 // Replaces the same TPU kernels as the 128 / 256 / 512 instances
-// (wavenet_stack.cu, wavenet_train.cu, wavenet_train_v2.cu, mstcnpp.cu): the
+// (wavenet_train.cu, wavenet_train_v2.cu): the
 // JAX kernels check no C, only bytes a video, so at a short T they take any
 // width.  Those instances hold all C columns of three row tiles in shared
 // memory, which at C = 1024 is 64 KiB a 16-row tile; here a residual layer
@@ -16,7 +18,7 @@
 //
 //   pass 1:  h = nonlin(x[t-d] W3[0] + x[t] W3[1] + x[t+d] W3[2] + b3)  -> h
 //   pass 2:  u = mask(m (h W1 + b1) + x);  y = u, or its pool (u -> u_out)
-//   proj:    z = mask(nonlin(x) Wl + bl)   (MS-TCN++: no nonlinearity)
+//   proj:    z = mask(nonlin(x) Wl + bl)
 //
 // and the sweep, one layer:
 //
@@ -24,9 +26,6 @@
 //   dz:   dz = (dy W1^T) nonlin'(h)
 //   dx:   g_in = mask(dz[t+d] W3[0]^T + dz[t] W3[1]^T + dz[t-d] W3[2]^T + gm)
 //   wgrad, reduce: wavenet_sweep.cuh's bodies at the runtime width
-//
-// MS-TCN++ (d1, d2): pass 1 writes both dilated convs + biases into a
-// [rows x 2C] buffer, pass 2 is its [2C x C] 1x1, relu, residual and pool.
 //
 // Design.  `wide_gemm` streams KC = WKC = 32 k-rows of A (the tile's rows of
 // each tap, at the tap's row offset, zero outside [0, min(T, len))) and of
@@ -53,9 +52,8 @@
 //
 // Bound: the tensor cores, at three TF32 products per f32 product (495 / 3
 // TFLOP/s) or the dense bf16 rate; 8 C^2 f32 operations per valid row and
-// layer forward, 16 C^2 backward.  The h (and MS-TCN++ 2C-wide) buffer
-// between the passes adds 8 C (16 C) bytes a row of traffic, small beside
-// the products at these widths.
+// layer forward, 16 C^2 backward.  The h buffer between the passes adds
+// 8 C bytes a row of traffic, small beside the products at these widths.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -282,11 +280,11 @@ __device__ void res_body(const float* x, const float* h, float* y, float* u_out,
                     C);
 }
 
-// the out-projection z = mask(act(x) Wl + bl): a_nonlin, nonlin (WaveNet), or none (MS-TCN++)
+// the out-projection z = mask(nonlin(x) Wl + bl)
 template <bool BF>
 __device__ void proj_body(const float* x, float* z, const int* __restrict__ lengths,
                           const float* __restrict__ wl, const float* __restrict__ bl, int b,
-                          int t0, int n0, int T, int C, int len_shift, bool a_nonlin, int leaky,
+                          int t0, int n0, int T, int C, int len_shift, int leaky,
                           float* smem) {
   const int len = lengths[b] >> len_shift;
   if (t0 >= len) {
@@ -295,76 +293,13 @@ __device__ void proj_body(const float* x, float* z, const int* __restrict__ leng
   }
   const WTap taps[3] = {WTap{x + (size_t)b * T * C, wl, 0}, WTap{}, WTap{}};
   Acc acc = {};
-  wide_gemm<BF>(acc, taps, 1, C, C, C, n0, t0, min(T, len), a_nonlin, leaky, smem);
+  wide_gemm<BF>(acc, taps, 1, C, C, C, n0, t0, min(T, len), true, leaky, smem);
   wpairs(acc, [&](float& v0, float& v1, int row, int col) {
     const int t = t0 + row;
     if (t < T)
       st2(z + ((size_t)b * T + t) * C + n0 + col, t < len ? v0 + __ldg(bl + n0 + col) : 0.f,
           t < len ? v1 + __ldg(bl + n0 + col + 1) : 0.f);
   });
-}
-
-// MS-TCN++ pass 1: slab n0 of [conv_d1(f) W3a + b3a, conv_d2(f) W3b + b3b]
-// ([rows x 2C], w the layer's [8C x C]: W3a, W3b, W1t, W1b) for t < lim
-template <bool BF>
-__device__ void ms_conv_body(const float* f, float* ybuf, const int* __restrict__ lengths,
-                             const float* __restrict__ w, const float* __restrict__ b3a,
-                             const float* __restrict__ b3b, int b, int t0, int n0, int T, int C,
-                             int d1, int d2, int len_shift, float* smem) {
-  const int len = lengths[b] >> len_shift;
-  if (t0 >= len) return;
-  const int lim = min(T, len);
-  const bool second = n0 >= C;
-  const int nc = second ? n0 - C : n0;
-  const float* bias = second ? b3b : b3a;
-  WTap taps[3] = {};
-  const int n = conv_taps(taps, f + (size_t)b * T * C, w + (second ? (size_t)3 * C * C : 0),
-                          (size_t)C * C, t0, second ? d2 : d1, lim, 1);
-  Acc acc = {};
-  wide_gemm<BF>(acc, taps, n, C, C, C, nc, t0, lim, false, 0, smem);
-  wpairs(acc, [&](float& v0, float& v1, int row, int col) {
-    const int t = t0 + row;
-    if (t < lim)
-      st2(ybuf + ((size_t)b * T + t) * 2 * C + n0 + col, v0 + __ldg(bias + nc + col),
-          v1 + __ldg(bias + nc + col + 1));
-  });
-}
-
-// MS-TCN++ pass 2: f' = relu(ybuf [W1t; W1b] + b1) + f, masked; max pool
-template <bool BF>
-__device__ void ms_res_body(const float* f, const float* ybuf, float* y,
-                            const int* __restrict__ lengths, const float* __restrict__ w,
-                            const float* __restrict__ b1, int b, int t0, int n0, int T, int C,
-                            int len_shift, int pool, float* smem) {
-  const int len = lengths[b] >> len_shift;
-  if (t0 >= len) {
-    if (pool) wide_zeros(y, b, t0 / 2, WTM / 2, T / 2, C, n0);
-    else wide_zeros(y, b, t0, WTM, T, C, n0);
-    return;
-  }
-  const int lim = min(T, len);
-  const WTap taps[3] = {WTap{ybuf + (size_t)b * T * 2 * C, w + (size_t)6 * C * C, 0}, WTap{},
-                        WTap{}};
-  Acc acc = {};
-  wide_gemm<BF>(acc, taps, 1, 2 * C, 2 * C, C, n0, t0, lim, false, 0, smem);
-  wpairs(acc, [&](float& v0, float& v1, int row, int col) {
-    const int t = t0 + row;
-    if (t >= len) {
-      v0 = v1 = 0.f;
-      return;
-    }
-    const float2 fv = t < lim ? ld2_l2(f + ((size_t)b * T + t) * C + n0 + col)
-                              : make_float2(0.f, 0.f);
-    v0 = fmaxf(v0 + __ldg(b1 + n0 + col), 0.f) + fv.x;
-    v1 = fmaxf(v1 + __ldg(b1 + n0 + col + 1), 0.f) + fv.y;
-  });
-  if (!pool) {
-    wpairs(acc, [&](float& v0, float& v1, int row, int col) {
-      if (t0 + row < T) st2(y + ((size_t)b * T + t0 + row) * C + n0 + col, v0, v1);
-    });
-    return;
-  }
-  store_pooled<0>(y, acc, b, t0, T, len, wrow0(), n0 + wcol0(), threadIdx.x & 31, 0, C);
 }
 
 // sweep dy: dy = (g, or g routed by u) m for the tile's rows t < lim, all C columns
@@ -467,30 +402,10 @@ __global__ void __launch_bounds__(NT, 1) wide_res_kernel(
 template <bool BF>
 __global__ void __launch_bounds__(NT, 1) wide_proj_kernel(
     const float* x, float* z, const int* __restrict__ lengths, const float* __restrict__ wl,
-    const float* __restrict__ bl, int T, int C, int len_shift, int a_nonlin, int leaky) {
+    const float* __restrict__ bl, int T, int C, int len_shift, int leaky) {
   extern __shared__ float4 smem4[];
   proj_body<BF>(x, z, lengths, wl, bl, blockIdx.z, blockIdx.x * WTM, blockIdx.y * WNC, T, C,
-                len_shift, a_nonlin != 0, leaky, reinterpret_cast<float*>(smem4));
-}
-
-template <bool BF>
-__global__ void __launch_bounds__(NT, 1) wide_ms_conv_kernel(
-    const float* f, float* ybuf, const int* __restrict__ lengths, const float* __restrict__ w,
-    const float* __restrict__ b3a, const float* __restrict__ b3b, int T, int C, int d1, int d2,
-    int len_shift) {
-  extern __shared__ float4 smem4[];
-  ms_conv_body<BF>(f, ybuf, lengths, w, b3a, b3b, blockIdx.z, blockIdx.x * WTM,
-                   blockIdx.y * WNC, T, C, d1, d2, len_shift, reinterpret_cast<float*>(smem4));
-}
-
-template <bool BF>
-__global__ void __launch_bounds__(NT, 1) wide_ms_res_kernel(
-    const float* f, const float* ybuf, float* y, const int* __restrict__ lengths,
-    const float* __restrict__ w, const float* __restrict__ b1, int T, int C, int len_shift,
-    int pool) {
-  extern __shared__ float4 smem4[];
-  ms_res_body<BF>(f, ybuf, y, lengths, w, b1, blockIdx.z, blockIdx.x * WTM, blockIdx.y * WNC, T,
-                  C, len_shift, pool, reinterpret_cast<float*>(smem4));
+                len_shift, leaky, reinterpret_cast<float*>(smem4));
 }
 
 __global__ void __launch_bounds__(NT) wide_dy_kernel(const float* g, const float* u,
@@ -595,29 +510,12 @@ cudaError_t layer_launch(const float* x, float* y, float* u_out, float* h, const
 
 template <bool BF>
 cudaError_t proj_launch(const float* x, float* z, const int* lengths, const float* wl,
-                        const float* bl, int B, int T, int C, int len_shift, int a_nonlin,
-                        int leaky, cudaStream_t stream) {
+                        const float* bl, int B, int T, int C, int len_shift, int leaky,
+                        cudaStream_t stream) {
   cudaError_t err = prepare(wide_proj_kernel<BF>, WIDE_SMEM);
   if (err != cudaSuccess) return err;
   wide_proj_kernel<BF><<<tiles(T, C / WNC, B), NT, WIDE_SMEM, stream>>>(
-      x, z, lengths, wl, bl, T, C, len_shift, a_nonlin, leaky);
-  return cudaGetLastError();
-}
-
-template <bool BF>
-cudaError_t ms_layer_launch(const float* f, float* y, float* ybuf, const int* lengths,
-                            const float* w, const float* b3a, const float* b3b, const float* b1,
-                            int B, int T, int C, int d1, int d2, int len_shift, int pool,
-                            cudaStream_t stream) {
-  cudaError_t err = prepare(wide_ms_conv_kernel<BF>, WIDE_SMEM);
-  if (err == cudaSuccess) err = prepare(wide_ms_res_kernel<BF>, WIDE_SMEM);
-  if (err != cudaSuccess) return err;
-  wide_ms_conv_kernel<BF><<<tiles(T, 2 * C / WNC, B), NT, WIDE_SMEM, stream>>>(
-      f, ybuf, lengths, w, b3a, b3b, T, C, d1, d2, len_shift);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  wide_ms_res_kernel<BF><<<tiles(T, C / WNC, B), NT, WIDE_SMEM, stream>>>(
-      f, ybuf, y, lengths, w, b1, T, C, len_shift, pool);
+      x, z, lengths, wl, bl, T, C, len_shift, leaky);
   return cudaGetLastError();
 }
 
@@ -739,7 +637,7 @@ __global__ void __launch_bounds__(NT, 1) wide_v2_fwd_kernel(const __grid_constan
     grid_items(n_tiles(a.B, a.t_fin, slabs), [&](int k) {
       const int3 t = tile_of(k, a.t_fin, slabs);
       proj_body<BF>(a.layer[a.n - 1].y, a.z, a.lengths, a.wl, a.bl, t.x, t.y, t.z, a.t_fin, C,
-                    a.shift_fin, true, a.leaky, smem);
+                    a.shift_fin, a.leaky, smem);
     });
 }
 
@@ -926,30 +824,15 @@ extern "C" int mucon_wide_layer(const float* x, float* y, float* u_out, float* h
                                     channels, d, len_shift, pool, pool_mean, leaky, stream);
 }
 
-// The out-projection z = mask(act(x) Wl + bl) at C > 512: a_nonlin = 1 takes
-// nonlin(x) (WaveNet, `leaky`), 0 x itself (MS-TCN++).
+// The trainable stack's out-projection z = mask(nonlin(x) Wl + bl) at C > 512.
 extern "C" int mucon_wide_proj(const float* x, float* z, const int* lengths, const float* wl,
                                const float* bl, int B, int T, int channels, int len_shift,
-                               int a_nonlin, int leaky, int bf16, cudaStream_t stream) {
+                               int leaky, int bf16, cudaStream_t stream) {
   if (B <= 0 || T <= 0 || bad_width(channels)) return cudaErrorInvalidValue;
-  return bf16 ? proj_launch<true>(x, z, lengths, wl, bl, B, T, channels, len_shift, a_nonlin,
-                                  leaky, stream)
-              : proj_launch<false>(x, z, lengths, wl, bl, B, T, channels, len_shift, a_nonlin,
-                                   leaky, stream);
-}
-
-// One MS-TCN++ layer (d1, d2) at C > 512: w the [8C, C] matrix (W3a, W3b,
-// W1t, W1b), ybuf [B, T, 2C] scratch between the passes.
-extern "C" int mucon_wide_mstcnpp_layer(const float* f, float* y, float* ybuf,
-                                        const int* lengths, const float* w, const float* b3a,
-                                        const float* b3b, const float* b1, int B, int T,
-                                        int channels, int d1, int d2, int len_shift, int pool,
-                                        int bf16, cudaStream_t stream) {
-  if (B <= 0 || T <= 0 || (pool && T % 2) || bad_width(channels)) return cudaErrorInvalidValue;
-  return bf16 ? ms_layer_launch<true>(f, y, ybuf, lengths, w, b3a, b3b, b1, B, T, channels, d1,
-                                      d2, len_shift, pool, stream)
-              : ms_layer_launch<false>(f, y, ybuf, lengths, w, b3a, b3b, b1, B, T, channels, d1,
-                                       d2, len_shift, pool, stream);
+  return bf16 ? proj_launch<true>(x, z, lengths, wl, bl, B, T, channels, len_shift, leaky,
+                                  stream)
+              : proj_launch<false>(x, z, lengths, wl, bl, B, T, channels, len_shift, leaky,
+                                   stream);
 }
 
 // One layer of the v3 sweep (or the out-projection's, proj = 1) at C > 512;

@@ -49,9 +49,13 @@ biases and the dropout masks to the next built width (`stack_width`) and
 slices the outputs and gradients back.  That is exact: a padded channel is
 0 through the conv, the (leaky) ReLU, the residual and the pool, its
 weights' rows and columns are 0, and a +0 product changes no f32 partial.
-Above 512 the stacks run on the wide bodies (csrc/wavenet_wide.cu: C a
-runtime argument, padded to a multiple of WIDE_SLAB = 128; a layer is two
-GEMM-shaped passes, counted as one launch of its kernel's name).  The
+Above 512 the stacks run on the wide bodies (C a runtime argument, padded
+to a multiple of WIDE_SLAB = 128; a layer is two GEMM-shaped passes,
+counted as one launch of its kernel's name): the eval stacks on the
+`wgmma` body of csrc/wavenet_wgmma.cu (TMA ring, weights split into TF32
+planes once a call, `wgmma_planes`), the trainable stack on `wide_gemm`
+(csrc/wavenet_wide.cu).  `wide_launches` counts each of their C entry
+points where it launches.  The
 recurrences take every H up to MAX_H_WIDE = 2048 as it is: the BiLSTM up
 to 256 on an even or a ragged split of the units over a cluster, above on
 its persistent kernels (one cooperative launch over the whole card, w_hh
@@ -68,7 +72,9 @@ and in device memory past that).  A width outside these raises a ValueError that
 
 from __future__ import annotations
 
+import bisect
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -78,12 +84,13 @@ from pathlib import Path
 
 import torch
 
+from mucon_tpu_torch.ops.tf32 import tf32_split
 from mucon_tpu_torch.ops.wavenet_stack_train import stack_plan
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("wavenet_stack.cu", "bilstm.cu", "viterbi.cu", "wavenet_train.cu",
            "decoder_chain.cu", "decoder_persistent.cu", "mucon_loss.cu", "mstcnpp.cu",
-           "wavenet_train_v2.cu", "wavenet_wide.cu")
+           "wavenet_train_v2.cu", "wavenet_wide.cu", "wavenet_wgmma.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mucon_tpu_torch"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "-I", str(CSRC),
@@ -103,6 +110,13 @@ KERNELS = (
 MAX_SMEM_BYTES = 232448
 
 launch_counts = {name: 0 for name in KERNELS}
+# the stack kernels' C entry points above 512 channels, each counted where it
+# launches: the eval stacks' `wgmma` body (csrc/wavenet_wgmma.cu) and the
+# trainable stack's `wide_gemm` body (csrc/wavenet_wide.cu)
+WIDE_ENTRIES = ("mucon_wgmma_layer", "mucon_wgmma_proj", "mucon_wgmma_mstcnpp_layer",
+                "mucon_wide_layer", "mucon_wide_proj", "mucon_wide_sweep", "mucon_wide_v2_fwd",
+                "mucon_wide_v2_sweep")
+wide_launches = {name: 0 for name in WIDE_ENTRIES}
 
 _lib = None
 _lock = threading.Lock()
@@ -113,6 +127,8 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
     for name in CHAIN_KERNELS:
         chain_launches[name] = 0
+    for name in WIDE_ENTRIES:
+        wide_launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -217,12 +233,16 @@ def load() -> ctypes.CDLL:
             lib.mucon_wavenet_train_v2_plan.argtypes = [I, I, I, I, IP]
             lib.mucon_wide_plan.argtypes = [I, I, I, I, IP]
             lib.mucon_wide_layer.argtypes = [P] * 10 + [I] * 9 + [P]
-            lib.mucon_wide_proj.argtypes = [P] * 5 + [I] * 7 + [P]
-            lib.mucon_wide_mstcnpp_layer.argtypes = [P] * 8 + [I] * 8 + [P]
+            lib.mucon_wide_proj.argtypes = [P] * 5 + [I] * 6 + [P]
             lib.mucon_wide_sweep.argtypes = [P] * 16 + [I] * 10 + [P]
             lib.mucon_wide_v2_fwd.argtypes = lib.mucon_wavenet_train_v2_fwd.argtypes
             lib.mucon_wide_v2_sweep.argtypes = lib.mucon_wavenet_train_v2_sweep.argtypes
             lib.mucon_wide_v2_grid.argtypes = [I, IP]
+            lib.mucon_wgmma_layer.argtypes = [P] * 5 + [I] * 2 + [P] * 2 + [I] * 9 + [P]
+            lib.mucon_wgmma_proj.argtypes = [P] * 4 + [I] * 2 + [P] + [I] * 7 + [P]
+            lib.mucon_wgmma_mstcnpp_layer.argtypes = [P] * 5 + [I] * 2 + [P] * 3 + [I] * 8 + [P]
+            lib.mucon_wgmma_max_videos.argtypes = [I]
+            lib.mucon_wgmma_attrs.argtypes = [I, IP]
             for fn in (lib.mucon_wavenet_layer, lib.mucon_wavenet_tile_rows,
                        lib.mucon_bilstm_recurrence,
                        lib.mucon_dense_viterbi, lib.mucon_wavenet_train_fwd,
@@ -240,8 +260,10 @@ def load() -> ctypes.CDLL:
                        lib.mucon_wavenet_train_v2_fwd, lib.mucon_wavenet_train_v2_sweep,
                        lib.mucon_wavenet_train_v2_grid, lib.mucon_wavenet_train_v2_plan,
                        lib.mucon_wide_plan, lib.mucon_wide_layer, lib.mucon_wide_proj,
-                       lib.mucon_wide_mstcnpp_layer, lib.mucon_wide_sweep,
-                       lib.mucon_wide_v2_fwd, lib.mucon_wide_v2_sweep, lib.mucon_wide_v2_grid):
+                       lib.mucon_wide_sweep, lib.mucon_wide_v2_fwd, lib.mucon_wide_v2_sweep,
+                       lib.mucon_wide_v2_grid, lib.mucon_wgmma_layer, lib.mucon_wgmma_proj,
+                       lib.mucon_wgmma_mstcnpp_layer, lib.mucon_wgmma_max_videos,
+                       lib.mucon_wgmma_attrs):
                 fn.restype = I
             lib.mucon_cuda_error_string.argtypes = [I]
             lib.mucon_cuda_error_string.restype = ctypes.c_char_p
@@ -385,15 +407,84 @@ def wavenet_tile_rows(C: int = 128) -> int:
     return WIDE_TILE_ROWS if is_wide(Cp) else load().mucon_wavenet_tile_rows(Cp)
 
 
+def _wide_call(lib, name: str, *args) -> int:
+    """Call the wide entry point `name` (one of WIDE_ENTRIES) of lib; counted
+    in `wide_launches` where it launched (returned 0)."""
+    err = getattr(lib, name)(*args)
+    wide_launches[name] += err == 0
+    return err
+
+
+def wgmma_planes(blocks, bf16: bool) -> torch.Tensor:
+    """A stack's weights as the eval stacks' `wgmma` body reads them above 512
+    channels (csrc/wavenet_wgmma.cu): blocks [NB x K x N] (each [C x C]
+    product's input rows by output columns) transposed to [NB x N x K], K
+    contiguous (`wgmma` takes TF32 operands K-major only); then the TF32 hi
+    and lo planes of `ops/tf32.py tf32_split`, [2 x NB x N x K], or in the
+    bf16-operand mode one plane rounded to bf16, [1 x NB x N x K].  Once a
+    call, for every layer."""
+    wt = blocks.transpose(-1, -2).contiguous()
+    if bf16:
+        return wt.to(torch.bfloat16)[None]
+    return torch.stack(tf32_split(wt))
+
+
+def wavenet_wgmma_blocks(w3, w1, w_last) -> torch.Tensor:
+    """The WaveNet eval stack's [C x C] blocks in the `wgmma` body's order:
+    layer i's conv taps at 4i .. 4i + 2 and its 1x1 at 4i + 3, then the
+    out-projection (4L)."""
+    L, C = w3.shape[0], w_last.shape[0]
+    return torch.cat([torch.cat([w3, w1[:, None]], dim=1).reshape(4 * L, C, C), w_last[None]])
+
+
+def mstcnpp_wgmma_blocks(w, w_out) -> torch.Tensor:
+    """The MS-TCN++ stage's [C x C] blocks in the `wgmma` body's order: layer
+    i's [8C x C] matrix (W3a's taps, W3b's, W1t, W1b) at 8i .. 8i + 7, then
+    the projection (8L)."""
+    C = w_out.shape[0]
+    return torch.cat([w.reshape(-1, C, C), w_out[None]])
+
+
+def wgmma_items(lengths, T: int, shift: int, slabs: int) -> list:
+    """The items of one `wgmma` pass over len(lengths) videos x T rows, in the
+    order its persistent CTAs walk them (csrc/wavenet_wgmma.cu `decode`):
+    item k is pair k // slabs of the live WIDE_TILE_ROWS-row tiles (video by
+    video; a tile whose first row is at or past min(T, length >> shift) is
+    left out) at slab k % slabs.  Each entry (slab, (b, t0), (b, t0) or None:
+    the pair's second tile, missing after an odd count)."""
+    B = len(lengths)
+    pre = [0]  # live tiles before video b, as the kernel's prefix in shared memory
+    for n in lengths:
+        pre.append(pre[-1] + -(-min(T, int(n) >> shift) // WIDE_TILE_ROWS))
+
+    def tile(i):
+        if i >= pre[-1]:
+            return None
+        b = bisect.bisect_right(pre, i, 0, B) - 1  # the last video with pre[b] <= i
+        return b, (i - pre[b]) * WIDE_TILE_ROWS
+
+    return [(k % slabs, tile(2 * (k // slabs)), tile(2 * (k // slabs) + 1))
+            for k in range((pre[-1] + 1) // 2 * slabs)]
+
+
+def _check_wgmma_batch(B: int, bf16: bool) -> None:
+    """Raise where B videos pass the `wgmma` body's shared memory."""
+    most = load().mucon_wgmma_max_videos(int(bf16))
+    if B > most:
+        raise ValueError(f"the eval stacks take at most {most} videos above 512 channels, "
+                         f"got B={B}")
+
+
 def _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16) -> torch.Tensor:
-    """z = mask(nonlin(h) Wl + bl): the eval kernel's final_proj launch (the
-    wide body's projection above 512 channels)."""
+    """z = mask(nonlin(h) Wl + bl): the eval kernel's final_proj launch, a
+    `wavenet_layer` count (above 512 channels only the trainable stack's, on
+    the `wide_gemm` body's projection)."""
     B, t, C = h.shape
     out = torch.empty(B, t, C, device=h.device, dtype=torch.float32)
     if is_wide(C):
-        err = lib.mucon_wide_proj(h.data_ptr(), out.data_ptr(), lens.data_ptr(),
-                                  w_last.data_ptr(), b_last.data_ptr(), B, t, C, shift, 1,
-                                  int(leaky), int(bf16), stream)
+        err = _wide_call(lib, "mucon_wide_proj", h.data_ptr(), out.data_ptr(), lens.data_ptr(),
+                         w_last.data_ptr(), b_last.data_ptr(), B, t, C, shift, int(leaky),
+                         int(bf16), stream)
     else:
         err = lib.mucon_wavenet_layer(
             h.data_ptr(), out.data_ptr(), lens.data_ptr(), w_last.data_ptr(),
@@ -406,11 +497,12 @@ def _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16) -> torch
 
 def _wide_layer(lib, stream, x, out, u, h, lens, w3, b3, w1, b1, m, t, C, d, shift, pool,
                 pool_mean, leaky, bf16) -> int:
-    """One residual layer on the wide bodies (pass 1 into h, pass 2 into out)."""
-    return lib.mucon_wide_layer(
-        x.data_ptr(), out.data_ptr(), _ptr(u), h.data_ptr(), lens.data_ptr(), w3.data_ptr(),
-        b3.data_ptr(), w1.data_ptr(), b1.data_ptr(), _ptr(m), x.shape[0], t, C, int(d), shift,
-        int(pool), pool_mean, int(leaky), int(bf16), stream)
+    """One trainable residual layer on the wide bodies (pass 1 into h, pass 2
+    into out)."""
+    return _wide_call(
+        lib, "mucon_wide_layer", x.data_ptr(), out.data_ptr(), _ptr(u), h.data_ptr(),
+        lens.data_ptr(), w3.data_ptr(), b3.data_ptr(), w1.data_ptr(), b1.data_ptr(), _ptr(m),
+        x.shape[0], t, C, int(d), shift, int(pool), pool_mean, int(leaky), int(bf16), stream)
 
 
 def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
@@ -418,9 +510,9 @@ def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
     """The eval stack of `ops/wavenet_stack.py` on the card: one
     `wavenet_layer` launch per layer and one for the out-projection
     (`mm_dtype=torch.bfloat16`: the bf16-operand mode, `wavenet_layer_bf16`;
-    above 512 channels a layer is the wide bodies' two passes, counted as one
-    launch).  x [B x T x C] f32, any C (zero-padded to `stack_width(C)`) ->
-    (z [B x T/2^p x C], lengths >> p)."""
+    above 512 channels a layer is the `wgmma` body's two passes,
+    `mucon_wgmma_layer`, counted as one launch).  x [B x T x C] f32, any C
+    (zero-padded to `stack_width(C)`) -> (z [B x T/2^p x C], lengths >> p)."""
     bf16 = bf16_mode(mm_dtype)
     dev = _check_packed(x, stages, w3, b3, w1, b1, w_last, b_last)
     C0 = x.shape[2]
@@ -431,7 +523,11 @@ def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
     lib, stream = load(), _stream(dev)
     pool_mean = int(pooling_type != "max")
     wide = is_wide(C)
-    hbuf = torch.empty(B, T, C, device=dev, dtype=torch.float32) if wide else None
+    if wide:
+        _check_wgmma_batch(B, bf16)
+        hbuf = torch.empty(B, T, C, device=dev, dtype=torch.float32)
+        planes = wgmma_planes(wavenet_wgmma_blocks(w3, w1, w_last), bf16)
+        nblk = planes.shape[1]
     h, t, shift = x, T, 0
     for i, d in enumerate(stages):
         pool = i in pooling_layers
@@ -439,8 +535,10 @@ def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
             raise ValueError(f"pooling layer {i} needs an even length, got {t}")
         out = torch.empty(B, t // 2 if pool else t, C, device=dev, dtype=torch.float32)
         if wide:
-            err = _wide_layer(lib, stream, h, out, None, hbuf, lens, w3[i], b3[i], w1[i], b1[i],
-                              None, t, C, d, shift, pool, pool_mean, leaky, bf16)
+            err = _wide_call(lib, "mucon_wgmma_layer", h.data_ptr(), out.data_ptr(),
+                             hbuf.data_ptr(), lens.data_ptr(), planes.data_ptr(), nblk, 4 * i,
+                             b3[i].data_ptr(), b1[i].data_ptr(), B, t, C, int(d), shift,
+                             int(pool), pool_mean, int(leaky), int(bf16), stream)
         else:
             err = lib.mucon_wavenet_layer(
                 h.data_ptr(), out.data_ptr(), lens.data_ptr(), w3[i].data_ptr(),
@@ -451,7 +549,14 @@ def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
         if pool:
             t, shift = t // 2, shift + 1
         h = out
-    z = _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16)
+    if wide:
+        z = torch.empty(B, t, C, device=dev, dtype=torch.float32)
+        err = _wide_call(lib, "mucon_wgmma_proj", h.data_ptr(), z.data_ptr(), lens.data_ptr(),
+                         planes.data_ptr(), nblk, nblk - 1, b_last.data_ptr(), B, t, C, shift, 1,
+                         int(leaky), int(bf16), stream)
+        _check_launch(lib, err, _mode("wavenet_layer", bf16))
+    else:
+        z = _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16)
     return (z if C == C0 else z[..., :C0].contiguous()), lengths >> shift
 
 
@@ -592,7 +697,8 @@ def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
                                                             *((x.shape[1], 4) for x in xs))),
                        **f32)
 
-    launch = lib.mucon_wide_sweep if is_wide(C) else lib.mucon_wavenet_train_sweep
+    launch = (functools.partial(_wide_call, lib, "mucon_wide_sweep") if is_wide(C)
+              else lib.mucon_wavenet_train_sweep)
 
     def sweep(g, u, x, h, m, w1t_i, w3t_i, dz, g_in, dw1_i, db1_i, dw3_i, db3_i,
               t, d, shift, pooled, proj, bf16):
@@ -1649,8 +1755,12 @@ def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
     # streams its rows in order (once per call; 4 MiB at 11 layers and C = 128)
     w = torch.cat([w3a.reshape(L, 3 * C, C), w3b.reshape(L, 3 * C, C), w1t, w1b], dim=1)
     wide = is_wide(C)
-    # the wide bodies' [B x T x 2C] buffer of both dilated convs between the passes
-    ybuf = torch.empty(B, T, 2 * C, device=dev, dtype=torch.float32) if wide else None
+    if wide:
+        _check_wgmma_batch(B, bf16)
+        # the [B x T x 2C] buffer of both dilated convs between the passes
+        ybuf = torch.empty(B, T, 2 * C, device=dev, dtype=torch.float32)
+        planes = wgmma_planes(mstcnpp_wgmma_blocks(w, w_out), bf16)
+        nblk = planes.shape[1]
     h, t, shift = x, T, 0
     for i in range(L):
         pool = i in pooling_layers
@@ -1658,10 +1768,10 @@ def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
             raise ValueError(f"pooling layer {i} needs an even length, got {t}")
         out = torch.empty(B, t // 2 if pool else t, C, device=dev, dtype=torch.float32)
         if wide:
-            err = lib.mucon_wide_mstcnpp_layer(
-                h.data_ptr(), out.data_ptr(), ybuf.data_ptr(), lens.data_ptr(), w[i].data_ptr(),
-                b3a[i].data_ptr(), b3b[i].data_ptr(), b1[i].data_ptr(), B, t, C,
-                2 ** (L - 1 - i), 2 ** i, shift, int(pool), int(bf16), stream)
+            err = _wide_call(lib, "mucon_wgmma_mstcnpp_layer", h.data_ptr(), out.data_ptr(),
+                             ybuf.data_ptr(), lens.data_ptr(), planes.data_ptr(), nblk, 8 * i,
+                             b3a[i].data_ptr(), b3b[i].data_ptr(), b1[i].data_ptr(), B, t, C,
+                             2 ** (L - 1 - i), 2 ** i, shift, int(pool), int(bf16), stream)
         else:
             err = lib.mucon_mstcnpp_layer(
                 h.data_ptr(), out.data_ptr(), lens.data_ptr(), w[i].data_ptr(),
@@ -1674,8 +1784,9 @@ def mstcnpp_stack(x, lengths, w3a, b3a, w3b, b3b, w1t, w1b, b1, w_out, b_out, *,
         h = out
     z = torch.empty(B, t, C, device=dev, dtype=torch.float32)
     if wide:
-        err = lib.mucon_wide_proj(h.data_ptr(), z.data_ptr(), lens.data_ptr(), w_out.data_ptr(),
-                                  b_out.data_ptr(), B, t, C, shift, 0, 0, int(bf16), stream)
+        err = _wide_call(lib, "mucon_wgmma_proj", h.data_ptr(), z.data_ptr(), lens.data_ptr(),
+                         planes.data_ptr(), nblk, nblk - 1, b_out.data_ptr(), B, t, C, shift, 0,
+                         0, int(bf16), stream)
     else:
         err = lib.mucon_mstcnpp_proj(h.data_ptr(), z.data_ptr(), lens.data_ptr(),
                                      w_out.data_ptr(), b_out.data_ptr(), B, t, C, shift,
@@ -1791,7 +1902,8 @@ def wavenet_train_v2_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_ma
         last = hi == L
         if last:
             z = torch.empty(B, t_fin, C, **f32)
-        launch = lib.mucon_wide_v2_fwd if is_wide(C) else lib.mucon_wavenet_train_v2_fwd
+        launch = (functools.partial(_wide_call, lib, "mucon_wide_v2_fwd") if is_wide(C)
+                  else lib.mucon_wavenet_train_v2_fwd)
         err = launch(
             *_tables(ptrs, ints), hi - lo, w3[lo].data_ptr(), b3[lo].data_ptr(),
             w1[lo].data_ptr(), b1[lo].data_ptr(), _ptr(w_last if last else None),
@@ -1858,7 +1970,8 @@ def wavenet_train_v2_backward(gz, stash, lengths, w3, w1, b1, w_last, drop_masks
             ptrs += [xs[i].data_ptr(), hs[i].data_ptr(), _ptr(m), g.data_ptr(),
                      g_in[i].data_ptr(), _ptr(u)]
             ints += [t, int(stages[i]), shift, int(pool)]
-        launch = lib.mucon_wide_v2_sweep if is_wide(C) else lib.mucon_wavenet_train_v2_sweep
+        launch = (functools.partial(_wide_call, lib, "mucon_wide_v2_sweep") if is_wide(C)
+                  else lib.mucon_wavenet_train_v2_sweep)
         err = launch(
             *_tables(ptrs, ints), hi - lo, w3t[lo].data_ptr(), w1[lo].data_ptr(),
             w1t[lo].data_ptr(), b1[lo].data_ptr(), dw3[lo].data_ptr(), db3[lo].data_ptr(),

@@ -2,7 +2,7 @@
 """SHA-256 digests of every kernel's outputs at the narrow instances' widths,
 on one CUDA card, to compare two trees bit for bit.
 
-    python3 scripts/digest_default_widths.py OUT.json
+    python3 scripts/digest_default_widths.py OUT.json [--wide]
 
 From the root of a checkout.  Seeded inputs (torch.Generator, seed 0) go
 through each kernel wrapper of `mucon_tpu_torch.cuda` at the shapes its
@@ -12,6 +12,9 @@ and 512 (B = 4, T = 512, 11 layers); the BiLSTM (eval, train forward and
 reverse chain) and the decoder chain (forward and reverse) at H = 128,
 256, 512 (B = 8, Tz = 160, S = 31); the DP and walk at the serving shape
 (K = 85, N = 30, L = 66) and the cluster body (N = 40); the flint loss.
+`--wide` adds the trainable stack's rows on the wide bodies (v3's forward
+and sweep, v2's, both modes) at C = 600 (run at 640) and 768, after the
+rest, whose inputs it leaves as they are.
 Writes {name: sha256 of the output's bytes} to OUT.json and prints it.
 Copy the script into another checkout's `scripts/` to digest that tree
 with the same inputs: equal digests are equal outputs, bit for bit.
@@ -49,7 +52,8 @@ def main() -> int:
     stages, pools = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024), (1, 2, 4, 8)
     B, T, L = 4, 512, len(stages)
     lengths = torch.tensor([512, 400, 257, 96], device=dev)
-    for C in (128, 256, 512):
+
+    def run(C, eval_stacks=True):
         x = torch.relu(rn(B, T, C)) * (torch.arange(T, device=dev)[None, :, None]
                                        < lengths[:, None, None])
         w = [rn(L, 3, C, C, scale=(3 * C) ** -0.5), rn(L, C, scale=0.1),
@@ -67,11 +71,12 @@ def main() -> int:
         for mm in (None, torch.bfloat16):
             tag = f"C={C} {'bf16' if mm else 'f32'}"
             kw = dict(stages=stages, pooling_layers=pools, leaky=False, mm_dtype=mm)
-            put(f"wavenet_layer {tag}", cuda.wavenet_stack(x, lengths, *w, pooling_type="max",
-                                                           **kw)[:1])
-            put(f"mstcnpp_stack {tag}", cuda.mstcnpp_stack(x, lengths, *wm,
-                                                           pooling_layers=pools,
-                                                           mm_dtype=mm)[:1])
+            if eval_stacks:
+                put(f"wavenet_layer {tag}", cuda.wavenet_stack(x, lengths, *w,
+                                                               pooling_type="max", **kw)[:1])
+                put(f"mstcnpp_stack {tag}", cuda.mstcnpp_stack(x, lengths, *wm,
+                                                               pooling_layers=pools,
+                                                               mm_dtype=mm)[:1])
             z, stash = cuda.wavenet_train_forward(x, lengths, *w, masks, pooling_type="max",
                                                   **kw)
             g = rn(*z.shape)
@@ -84,6 +89,9 @@ def main() -> int:
             put(f"wavenet_train_v2_fwd {tag}", [z2])
             put(f"wavenet_train_v2_sweep {tag}", cuda.wavenet_train_v2_backward(
                 g, stash2, lengths, w[0], w[2], w[3], w[4], masks, bounds=bounds, **kw))
+
+    for C in (128, 256, 512):
+        run(C)
     Tz, Bt, S = 160, 8, 31
     tz = torch.tensor([160, 151, 140, 120, 99, 93, 131, 160])
     m = (torch.arange(Tz)[:, None] < tz[None, :]).float().to(dev)
@@ -127,6 +135,9 @@ def main() -> int:
     seg = rn(Bf, Tf, Mf)
     scale, xloc, sdiv = flint_prep(lens, n_len, t_valid, 0.0)
     put("mucon_flint", [cuda.mucon_flint(scale, xloc, sdiv, seg, target, n_len, t_valid)])
+    if "--wide" in sys.argv:
+        for C in (600, 768):
+            run(C, eval_stacks=False)
     torch.cuda.synchronize()
     with open(sys.argv[1], "w") as f:
         json.dump(out, f, indent=0, sort_keys=True)
