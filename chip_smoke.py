@@ -29,8 +29,8 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    once a batch and runs no Python pointer walk, and that both paths agree,
    and times both (and the Viterbi DP + walk span of each); then exports the
    WaveNet model's serving program (`serving_export_phase`, B=4 at 2560
-   frames, the float32 wire; a smaller WaveNet program, 5 layers and 8
-   decoding steps, on the int8 wire), loads it and serves request B
+   frames, the default widths at 5 layers and 8 decoding steps, on the
+   float32 and the int8 wire), loads it and serves request B
    through it: bit for bit equal to the live plain program with no kernel
    launched, per-video results agreeing with the kernel path, an artifact
    of the smaller program's weights that emit EOS at step 0 equal to the
@@ -146,9 +146,10 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    (`widths_phase`): rows 1, 5, 6, 12, 13 and 14 at C = 48 (zero-padded to
    the 128 instance), 256, 512 and, on the wide bodies, 600, 768 and 1024
    in 3xTF32 and in the bf16-operand mode (rows 1 and 12 at B = 128,
-   T_pad = 1280; above 512 on the `wgmma` body of csrc/wavenet_wgmma.cu,
-   each line naming the C entry points it launched, the trainable stack's
-   rows on `wide_gemm`), rows 2, 7-10 at H = 100, 127,
+   T_pad = 1280; above 512 on the `wgmma` bodies, csrc/wavenet_wgmma.cu
+   (row 5 too) and for rows 6, 13, 14 csrc/wavenet_wgmma_train.cu, each line
+   naming the C entry points it launched; at C = 768 the eval stack equal
+   to the trainable forward without dropout), rows 2, 7-10 at H = 100, 127,
    256, 512 (even, ragged and L2-weight splits; the BiLSTM's persistent
    kernels from 512), 768 and 1024 (the wide kernels; the decoder chain's
    persistent kernels, each line with its plan: CTAs, the weight columns
@@ -169,7 +170,7 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    (C = 48, H = 100) and wide768 (C = H = 768) configurations with their
    launches (the decoder chain's CUDA kernels by name: the cluster kernels
    at H = 100 and 256, the persistent ones at 768; at 768 the eval
-   batches' `wgmma` and the train steps' `wide_gemm` entry points by
+   batches' and the train steps' `wgmma` entry points by
    name), `test_mucon` within
    1e-6 and a kernel step against a plain step;
 11. prints the kernel report JSON (each kernel's launches, error, time, the
@@ -889,7 +890,7 @@ def serve(tag, model, dev, rng, card: str, required, absent=(), timed: bool = Tr
     launches = dict(cuda.launch_counts)
     say(f"launches on the {tag} serving path: {launches}")
     # the stacks' C entry points above 512 channels: the eval path's `wgmma`
-    # body only, never the trainable stack's `wide_gemm` entries
+    # entries only, never the trainable stack's (`mucon_wgt_*`)
     entries = {k: v for k, v in cuda.wide_launches.items() if v}
     if entries:
         say(f"the stack's entry points above 512 channels on the {tag} serving path: "
@@ -963,10 +964,10 @@ def serve(tag, model, dev, rng, card: str, required, absent=(), timed: bool = Tr
 # -- phase 4b: the serving export --------------------------------------------
 
 EXPORT_B, EXPORT_PAD, EOS_PAD, EXPORT_WIRES = 4, 2560, 512, ("float32", "int8")
-# the int8 wire's and the EOS-first artifact's model: the default widths on 5
+# every artifact's model: the default widths (D = 2048, C = H = 128) on 5
 # stack layers (pools after layers 1-4, the default's 16x) and 8 decoding
 # steps, a fraction of the default's graph: `torch.export` is host-bound in
-# the graph's nodes (the float32 artifact keeps the default model)
+# the graph's nodes
 SMALL_EXPORT, SMALL_EXPORT_S = dict(stages=(1, 2, 4, 8, 16), pooling_layers=(1, 2, 3, 4)), 8
 
 
@@ -990,8 +991,8 @@ def event_and_host_ms(fn, reps: int) -> tuple:
 
 def serving_export_phase(dev, card: str, tmp: str) -> None:
     """The serving export (`mucon_tpu_torch/serving.py`) on the card at B=4,
-    pad_to=2560, of the default WaveNet model on the float32 wire and of a
-    smaller one (SMALL_EXPORT) on the int8 wire: export, save and load it,
+    pad_to=2560, of the default WaveNet model's widths at SMALL_EXPORT's
+    depth on the float32 and the int8 wire: export, save and load it,
     and serve request B through
     `ExportedMuCon.predict`.  The artifact's raw outputs must equal the live
     plain program's (`build_serving_fn`, run eagerly on the same wire
@@ -1085,7 +1086,7 @@ def serving_export_phase(dev, card: str, tmp: str) -> None:
                                  **SMALL_EXPORT)
     request_ms = {}
     for wire in EXPORT_WIRES:
-        m = model if wire == "float32" else small()
+        m = small()
         served = export(m, wire, wire)
         got, _, _, nf = bitwise(wire, served, m, wire, feats)
         fdt = FEATS_DTYPES[wire]
@@ -3789,10 +3790,11 @@ def width_train_stacks(gen, dev, card: str, lines: dict) -> dict:
     mode at C = 128 and its launches (rows "13 bf16" and "14 bf16")."""
     import torch
     from mucon_tpu_torch import cuda
-    from mucon_tpu_torch.models.layers import dropout_mask, mask_time
+    from mucon_tpu_torch.models.layers import dropout_mask, mask_time, time_mask
     from mucon_tpu_torch.ops.wavenet_stack_train import (
         stack_plan, wavenet_stack_train, wavenet_stack_train_plain,
     )
+    from mucon_tpu_torch.ops.wavenet_stack import wavenet_stack
     from mucon_tpu_torch.ops.wavenet_stack_train_v2 import (
         chunk_bounds, wavenet_stack_train_v2,
     )
@@ -3835,7 +3837,18 @@ def width_train_stacks(gen, dev, card: str, lines: dict) -> dict:
                            ("wavenet_train_v2_fwd", "wavenet_train_v2_sweep")}
             expect(tuple(v2_launches.values()) == (3, 3),
                    f"v2{sfx} C={C}: launches {v2_launches}, expected 3 and 3")
+            v2_entries = {k: v for k, v in cuda.wide_launches.items() if v}
+            before = dict(cuda.wide_launches)
             got3 = fwd_bwd(wavenet_stack_train, pooling_type="max", mm_dtype=mm)
+            v3_entries = {k: v - before[k] for k, v in cuda.wide_launches.items()
+                          if v > before[k]}
+            # above 512 channels every row on the `wgmma` entry points
+            wide = cuda.is_wide(cuda.stack_width(C))
+            want_v2 = {"mucon_wgt_v2_fwd": 3, "mucon_wgt_v2_sweep": 3} if wide else {}
+            want_v3 = {"mucon_wgmma_layer": L, "mucon_wgmma_proj": 1,
+                       "mucon_wgt_sweep": L + 1} if wide else {}
+            expect(v2_entries == want_v2 and v3_entries == want_v3,
+                   f"v3/v2{sfx} C={C}: launched the entry points {v3_entries} / {v2_entries}")
             # the v2 twin rounds the out-projection's gradient products in the
             # bf16 mode; v3's does where the last layer does not pool (here)
             ref = fwd_bwd(wavenet_stack_train_plain, pooling_type="max", mm_dtype=mm,
@@ -3856,8 +3869,10 @@ def width_train_stacks(gen, dev, card: str, lines: dict) -> dict:
                                grads=False)
                 _, stash = cuda.wavenet_train_forward(xm, lengths, *weights, masks, **v3_kw)
                 shifts = stack_plan(WIDTH_STAGES, WIDTH_POOLS, T)[2]
-                pool_in = {i: mask_time(u[..., :C], lengths >> shifts[i])
-                           for i, u in stash[2].items()}
+                # the stash's rows past a length are undefined (they may hold
+                # a nan): selected away, not multiplied by 0
+                pool_in = {i: torch.where(time_mask(u.shape[1], lengths >> shifts[i]).bool()[
+                    ..., None], u[..., :C], 0.0) for i, u in stash[2].items()}
                 del stash
                 shared = fwd_bwd(wavenet_stack_train_plain, pooling_type="max",
                                  pool_inputs=pool_in)
@@ -3879,7 +3894,19 @@ def width_train_stacks(gen, dev, card: str, lines: dict) -> dict:
                 bwd_err = max((a - r64).abs().max().item()
                               for a, r64 in zip(got3[1:], shared64[1:]))
                 del shared, shared64, pool_in
-            say(f"widths: v2{sfx} {tag}: z and the seven gradients equal v3's bit for bit")
+            say(f"widths: v2{sfx} {tag}: z and the seven gradients equal v3's bit for bit; "
+                f"entry points v3 {v3_entries or 'narrow'}, v2 {v2_entries or 'narrow'}")
+            if C == 768:  # row 1 is row 5's forward without dropout, bit for bit
+                with torch.no_grad():
+                    z_eval, _ = wavenet_stack(xm, lengths, *weights, **v3_kw, mm_dtype=mm)
+                    z_train, _ = cuda.wavenet_train_forward(xm, lengths, *weights, None,
+                                                            **v3_kw, mm_dtype=mm)
+                expect(torch.equal(z_eval, z_train),
+                       f"C={C}{sfx}: the eval stack differs from the trainable forward "
+                       "without dropout")
+                say(f"widths: {tag}{' bf16' if bf else ''}: the eval stack (row 1) equals the "
+                    f"trainable forward without dropout (row 5) bit for bit")
+                del z_eval, z_train
             _, stash3 = cuda.wavenet_train_forward(xm, lengths, *weights, masks, **v3_kw,
                                                    mm_dtype=mm)
             _, stash2 = cuda.wavenet_train_v2_forward(xm, lengths, *weights, masks, **v2_kw,
@@ -3917,6 +3944,19 @@ def width_train_stacks(gen, dev, card: str, lines: dict) -> dict:
                 f"wavenet_train_v2_sweep{sfx}": report(bwd_err, *s2, bwd2_moved,
                                                        bwd_ops + recompute_ops, **rep),
             }
+            if wide:  # the body and its C entry points' launches in one call (v3's
+                # forward on the eval stacks' entry points)
+                src = "mucon_tpu_torch/csrc/wavenet_wgmma{}.cu".format
+                split = {f"wavenet_train_fwd{sfx}": (("mucon_wgmma_layer", "mucon_wgmma_proj"),
+                                                     src("")),
+                         f"wavenet_train_sweep{sfx}": (("mucon_wgt_sweep",), src("_train")),
+                         f"wavenet_train_v2_fwd{sfx}": (("mucon_wgt_v2_fwd",), src("_train")),
+                         f"wavenet_train_v2_sweep{sfx}": (("mucon_wgt_v2_sweep",),
+                                                          src("_train"))}
+                for k, (names_k, source) in split.items():
+                    entries = v2_entries if "v2" in k else v3_entries
+                    found[k].update(body="wgmma", source=source,
+                                    entry_launches={n: entries[n] for n in names_k})
             if C == 128:
                 if bf:  # rows "13 bf16" and "14 bf16": the default width is their own line
                     for k in ("wavenet_train_v2_fwd", "wavenet_train_v2_sweep"):
@@ -4317,13 +4357,12 @@ def width_runs(dev, card: str, cli: dict, lines: dict) -> None:
             want_chain[k] += steps
         expect(chain_kernels == want_chain, f"widths {tag}: the decoder chain's kernels "
                                             f"{chain_kernels} != {want_chain}")
-        # above 512 channels the eval batches' stacks on the `wgmma` body, the
-        # train steps' on `wide_gemm` (its out-projection a `mucon_wide_proj`)
+        # above 512 channels the eval batches' stacks and the train steps' on
+        # the `wgmma` entry points (a step's out-projection a `mucon_wgmma_proj`)
         n = N_LAYERS
         want_entries = {} if not cuda.is_wide(cuda.stack_width(fields["hidden_size"])) else {
-            "mucon_wgmma_layer": batches * n, "mucon_wgmma_proj": batches,
-            "mucon_wide_layer": steps * n, "mucon_wide_proj": steps,
-            "mucon_wide_sweep": steps * (n + 1)}
+            "mucon_wgmma_layer": (batches + steps) * n, "mucon_wgmma_proj": batches + steps,
+            "mucon_wgt_sweep": steps * (n + 1)}
         expect(wide_entries == want_entries, f"widths {tag}: the stacks' wide entry points "
                                              f"{wide_entries} != {want_entries}")
         with open(cli["log"], "a") as f, contextlib.redirect_stdout(f):

@@ -182,7 +182,7 @@ __device__ __forceinline__ void for_each_pair(float (&acc)[MT][NTL][4], int row0
 // the finished rows (bias, residual and mask in) pooled in pairs (2k, 2k + 1)
 // by one shuffle into y [B, T/2, C], zeroed at t/2 >= len/2; an odd T's last
 // row has no pair and is dropped.  CT: the width C as a template, or 0 for a
-// runtime width c_rt (the wide bodies of wavenet_wide.cu).
+// runtime width c_rt (the `wgmma` bodies of wavenet_wgmma.cuh).
 template <int CT, int MT, int NTL>
 __device__ __forceinline__ void store_pooled(float* __restrict__ y, float (&acc)[MT][NTL][4],
                                              int b, int t0, int T, int len, int row0,

@@ -212,8 +212,7 @@ __device__ __forceinline__ void dx_tile(const float* dz, const float* g,
 // B's columns): 16 warps of one tile, or 8 warps of one (PARTS = 2) or two
 // (each its own product).  Each output's sum over rows runs in the same
 // order whichever way it is cut.
-// CT: the width C as a template (128, 256, 512), or 0 for a runtime width c_rt
-// (a multiple of WB, the wide bodies of wavenet_wide.cu).
+// CT: the width C (128, 256, 512).
 template <int CT, int NTH, int PARTS = 1, bool BF = false>
 __device__ __forceinline__ void wgrad_span(const float* __restrict__ h,
                                            const float* __restrict__ x, const float* dy,
@@ -221,8 +220,8 @@ __device__ __forceinline__ void wgrad_span(const float* __restrict__ h,
                                            float* __restrict__ work, int T, int span,
                                            int spans, int jobs, int d, int len_shift, int proj,
                                            int leaky, int s, int b, int job, int part,
-                                           int blk, float* ring, int c_rt = 0) {
-  const int C = CT ? CT : c_rt;
+                                           int blk, float* ring) {
+  const int C = CT;
   constexpr int WARPS = NTH / 32, MB = 16 / (WARPS * PARTS);  // 32-row blocks a warp
   constexpr int LDW = WG_LD;
   const int bm = blk / (C / WB), bn = blk % (C / WB);
@@ -292,15 +291,14 @@ __device__ __forceinline__ void wgrad_span(const float* __restrict__ h,
 // Entry e < jobs * PART_F of a layer's gradients: the spans' partials
 // (those with rows) added in (video, span) order.  jobs = 4: dW1 / db1,
 // dW3[0..2], db3; jobs = 1 (the out-projection): dw1 = dWl, db1 = dbl.
-// (CT as `wgrad_span`'s: 0 takes the runtime width c_rt)
 template <int CT>
 __device__ __forceinline__ void reduce_entry(const float* work,
                                              const int* __restrict__ lengths, int B, int T,
                                              int span, int spans, int len_shift, int jobs,
                                              int e, float* __restrict__ dw1,
                                              float* __restrict__ db1, float* __restrict__ dw3,
-                                             float* __restrict__ db3, int c_rt = 0) {
-  const int C = CT ? CT : c_rt;
+                                             float* __restrict__ db3) {
+  const int C = CT;
   const int PART_F = part_f(C);
   const int job = e / PART_F, k = e % PART_F;
   const size_t stride = (size_t)jobs * PART_F;  // from one span's partial to the next
@@ -359,9 +357,10 @@ inline Plan plan_for(int B, int T, int C, int jobs) {
   return p;
 }
 
-// The cooperative kernels' shared parts (wavenet_train_v2.cu and the wide
-// bodies' v2 kernels in wavenet_wide.cu): the layers a chunk's argument table
-// holds, the grid-stride walk over a pass's items, the grid and the launch.
+// The cooperative kernels' shared parts (wavenet_train_v2.cu; the layers a
+// chunk holds also wavenet_wgmma_train.cu's): the layers a chunk's argument
+// table holds, the grid-stride walk over a pass's items, the grid and the
+// launch.
 constexpr int MAX_LAYERS = 32;
 
 // items [0, n) in grid-stride order, the shared memory free at each start

@@ -65,8 +65,8 @@
 //   fixed-order sum over its span, and kernel 4 adds them in a fixed order
 //   with no atomics.
 // * Widths: every kernel is built for C = 128, 256 and 512 channels (the
-//   wrapper zero-pads another C up to 512; above it, wavenet_wide.cu's
-//   bodies run).  The row tiles shrink as C
+//   wrapper zero-pads another C up to 512; above it, the `wgmma` bodies of
+//   wavenet_wgmma_train.cu run).  The row tiles shrink as C
 //   grows (`tile_ok`: at most 32 rows at 256, 16 at 512, one CTA an SM),
 //   and kernel 3 cuts a C x C gradient into (C / 128)^2 blocks of 128 x 128,
 //   one CTA each (its A and B bands staged 128 columns wide), so that every

@@ -51,11 +51,13 @@ slices the outputs and gradients back.  That is exact: a padded channel is
 weights' rows and columns are 0, and a +0 product changes no f32 partial.
 Above 512 the stacks run on the wide bodies (C a runtime argument, padded
 to a multiple of WIDE_SLAB = 128; a layer is two GEMM-shaped passes,
-counted as one launch of its kernel's name): the eval stacks on the
-`wgmma` body of csrc/wavenet_wgmma.cu (TMA ring, weights split into TF32
-planes once a call, `wgmma_planes`), the trainable stack on `wide_gemm`
-(csrc/wavenet_wide.cu).  `wide_launches` counts each of their C entry
-points where it launches.  The
+counted as one launch of its kernel's name), the `wgmma` passes of
+csrc/wavenet_wgmma.cuh (TMA ring, weights split into TF32 planes once a
+call, `wgmma_planes`): the eval stacks a kernel a pass
+(csrc/wavenet_wgmma.cu), the trainable stack a cooperative kernel a call
+that runs its passes with a grid barrier between them
+(csrc/wavenet_wgmma_train.cu; the sweep on `wgmma_sweep_planes`).
+`wide_launches` counts each of their C entry points where it launches.  The
 recurrences take every H up to MAX_H_WIDE = 2048 as it is: the BiLSTM up
 to 256 on an even or a ragged split of the units over a cluster, above on
 its persistent kernels (one cooperative launch over the whole card, w_hh
@@ -74,7 +76,6 @@ from __future__ import annotations
 
 import bisect
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
@@ -90,7 +91,7 @@ from mucon_tpu_torch.ops.wavenet_stack_train import stack_plan
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("wavenet_stack.cu", "bilstm.cu", "viterbi.cu", "wavenet_train.cu",
            "decoder_chain.cu", "decoder_persistent.cu", "mucon_loss.cu", "mstcnpp.cu",
-           "wavenet_train_v2.cu", "wavenet_wide.cu", "wavenet_wgmma.cu")
+           "wavenet_train_v2.cu", "wavenet_wgmma.cu", "wavenet_wgmma_train.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mucon_tpu_torch"
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a", "-I", str(CSRC),
@@ -111,11 +112,11 @@ MAX_SMEM_BYTES = 232448
 
 launch_counts = {name: 0 for name in KERNELS}
 # the stack kernels' C entry points above 512 channels, each counted where it
-# launches: the eval stacks' `wgmma` body (csrc/wavenet_wgmma.cu) and the
-# trainable stack's `wide_gemm` body (csrc/wavenet_wide.cu)
+# launches: the eval stacks' (csrc/wavenet_wgmma.cu; the trainable stack's
+# v3 forward runs on them too) and the trainable stack's sweep and v2
+# chunks (csrc/wavenet_wgmma_train.cu)
 WIDE_ENTRIES = ("mucon_wgmma_layer", "mucon_wgmma_proj", "mucon_wgmma_mstcnpp_layer",
-                "mucon_wide_layer", "mucon_wide_proj", "mucon_wide_sweep", "mucon_wide_v2_fwd",
-                "mucon_wide_v2_sweep")
+                "mucon_wgt_sweep", "mucon_wgt_v2_fwd", "mucon_wgt_v2_sweep")
 wide_launches = {name: 0 for name in WIDE_ENTRIES}
 
 _lib = None
@@ -231,14 +232,17 @@ def load() -> ctypes.CDLL:
                                                          + [I] * 6 + [P])
             lib.mucon_wavenet_train_v2_grid.argtypes = [I, I, IP]
             lib.mucon_wavenet_train_v2_plan.argtypes = [I, I, I, I, IP]
-            lib.mucon_wide_plan.argtypes = [I, I, I, I, IP]
-            lib.mucon_wide_layer.argtypes = [P] * 10 + [I] * 9 + [P]
-            lib.mucon_wide_proj.argtypes = [P] * 5 + [I] * 6 + [P]
-            lib.mucon_wide_sweep.argtypes = [P] * 16 + [I] * 10 + [P]
-            lib.mucon_wide_v2_fwd.argtypes = lib.mucon_wavenet_train_v2_fwd.argtypes
-            lib.mucon_wide_v2_sweep.argtypes = lib.mucon_wavenet_train_v2_sweep.argtypes
-            lib.mucon_wide_v2_grid.argtypes = [I, IP]
-            lib.mucon_wgmma_layer.argtypes = [P] * 5 + [I] * 2 + [P] * 2 + [I] * 9 + [P]
+            lib.mucon_wgt_sweep.argtypes = ([P] * 7 + [I] * 2 + [P] * 4 + [L] + [P] * 5
+                                            + [I] * 10 + [P])
+            lib.mucon_wgt_v2_fwd.argtypes = [PP, IP, I, P, I, I] + [P] * 6 + [I] * 6 + [P]
+            lib.mucon_wgt_v2_sweep.argtypes = ([PP, IP, I, P, P, I, I] + [P] * 10 + [L, P, L]
+                                               + [P] * 2 + [I] * 6 + [P])
+            lib.mucon_wgt_parts.argtypes = [I, I]
+            lib.mucon_wgt_work_floats.argtypes = [I, I, I, I]
+            lib.mucon_wgt_work_floats.restype = L
+            lib.mucon_wgt_v2_sweep_layers.argtypes = []
+            lib.mucon_wgt_grid.argtypes = [I, IP]
+            lib.mucon_wgmma_layer.argtypes = [P] * 6 + [I] * 2 + [P] * 3 + [I] * 9 + [P]
             lib.mucon_wgmma_proj.argtypes = [P] * 4 + [I] * 2 + [P] + [I] * 7 + [P]
             lib.mucon_wgmma_mstcnpp_layer.argtypes = [P] * 5 + [I] * 2 + [P] * 3 + [I] * 8 + [P]
             lib.mucon_wgmma_max_videos.argtypes = [I]
@@ -259,9 +263,9 @@ def load() -> ctypes.CDLL:
                        lib.mucon_flint, lib.mucon_mstcnpp_layer, lib.mucon_mstcnpp_proj,
                        lib.mucon_wavenet_train_v2_fwd, lib.mucon_wavenet_train_v2_sweep,
                        lib.mucon_wavenet_train_v2_grid, lib.mucon_wavenet_train_v2_plan,
-                       lib.mucon_wide_plan, lib.mucon_wide_layer, lib.mucon_wide_proj,
-                       lib.mucon_wide_sweep, lib.mucon_wide_v2_fwd, lib.mucon_wide_v2_sweep,
-                       lib.mucon_wide_v2_grid, lib.mucon_wgmma_layer, lib.mucon_wgmma_proj,
+                       lib.mucon_wgt_sweep, lib.mucon_wgt_v2_fwd, lib.mucon_wgt_v2_sweep,
+                       lib.mucon_wgt_parts, lib.mucon_wgt_grid, lib.mucon_wgt_v2_sweep_layers,
+                       lib.mucon_wgmma_layer, lib.mucon_wgmma_proj,
                        lib.mucon_wgmma_mstcnpp_layer, lib.mucon_wgmma_max_videos,
                        lib.mucon_wgmma_attrs):
                 fn.restype = I
@@ -312,7 +316,7 @@ def _lengths_i32(lengths, B, device, name) -> torch.Tensor:
 
 # the channel widths the stack kernels are built for (csrc/wavenet_layer.cuh,
 # mstcnpp.cu); another C up to the last is zero-padded to the next of them.
-# Above the last, the wide bodies (csrc/wavenet_wide.cu) take C as a runtime
+# Above the last, the wide bodies (csrc/wavenet_wgmma.cuh) take C as a runtime
 # argument, a multiple of the WIDE_SLAB-column slab their tiles cover.
 STACK_WIDTHS = (128, 256, 512)
 WIDE_SLAB = 128
@@ -393,8 +397,9 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-# rows a tile of the wide bodies takes and weight rows a chunk (csrc/wavenet_wide.cu
-# WTM, WKC: an element's sum depends on the chunk)
+# rows a tile of the wide bodies takes and k a chunk (csrc/wavenet_wgmma.cuh
+# GM, GK: an element's sum depends on the chunk; the weight gradients sum
+# their rows in chunks of GK)
 WIDE_TILE_ROWS, WIDE_CHUNK_ROWS = 64, 32
 
 
@@ -416,17 +421,27 @@ def _wide_call(lib, name: str, *args) -> int:
 
 
 def wgmma_planes(blocks, bf16: bool) -> torch.Tensor:
-    """A stack's weights as the eval stacks' `wgmma` body reads them above 512
-    channels (csrc/wavenet_wgmma.cu): blocks [NB x K x N] (each [C x C]
-    product's input rows by output columns) transposed to [NB x N x K], K
-    contiguous (`wgmma` takes TF32 operands K-major only); then the TF32 hi
-    and lo planes of `ops/tf32.py tf32_split`, [2 x NB x N x K], or in the
+    """A stack's weights as the `wgmma` bodies read them above 512 channels
+    (csrc/wavenet_wgmma.cuh): blocks [NB x K x N] (each [C x C] product's
+    input rows by output columns) transposed to [NB x N x K], K contiguous
+    (`wgmma` takes TF32 operands K-major only); then the TF32 hi and lo
+    planes of `ops/tf32.py tf32_split`, [2 x NB x N x K], or in the
     bf16-operand mode one plane rounded to bf16, [1 x NB x N x K].  Once a
     call, for every layer."""
     wt = blocks.transpose(-1, -2).contiguous()
     if bf16:
         return wt.to(torch.bfloat16)[None]
     return torch.stack(tf32_split(wt))
+
+
+def wgmma_sweep_planes(w3, w1, w_last, bf16: bool) -> torch.Tensor:
+    """The trainable stack's weights as its sweep reads them above 512
+    channels (csrc/wavenet_wgmma_train.cu): dz = dy W1^T and dx = sum_k
+    dz[t - (k-1) d] W3[k]^T multiply by the transposed blocks, so each [N x
+    K] plane is a block as it is: `wgmma_planes` of the transposed blocks of
+    `wavenet_wgmma_blocks` (layer i's taps at 4i .. 4i + 2, its W1 at
+    4i + 3, Wl last)."""
+    return wgmma_planes(wavenet_wgmma_blocks(w3, w1, w_last).transpose(-1, -2), bf16)
 
 
 def wavenet_wgmma_blocks(w3, w1, w_last) -> torch.Tensor:
@@ -468,23 +483,40 @@ def wgmma_items(lengths, T: int, shift: int, slabs: int) -> list:
 
 
 def _check_wgmma_batch(B: int, bf16: bool) -> None:
-    """Raise where B videos pass the `wgmma` body's shared memory."""
+    """Raise where B videos pass the `wgmma` bodies' shared memory (every
+    pass kind's, the eval and the trainable stacks')."""
     most = load().mucon_wgmma_max_videos(int(bf16))
     if B > most:
-        raise ValueError(f"the eval stacks take at most {most} videos above 512 channels, "
+        raise ValueError(f"the `wgmma` stacks take at most {most} videos above 512 channels, "
                          f"got B={B}")
 
 
-def _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16) -> torch.Tensor:
+_grid_words = {}
+
+
+def _grid_word(dev) -> torch.Tensor:
+    """A device word for the grid barrier of the trainable stack's
+    cooperative launches above 512 channels on the current stream of dev:
+    each launch zeroes it on that stream first, so that a launch queued on
+    another stream cannot reset a running launch's barrier."""
+    key = (dev, _stream(dev))
+    if key not in _grid_words:
+        _grid_words[key] = torch.zeros(4, device=dev, dtype=torch.int32)
+    return _grid_words[key]
+
+
+def _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16,
+              planes=None) -> torch.Tensor:
     """z = mask(nonlin(h) Wl + bl): the eval kernel's final_proj launch, a
-    `wavenet_layer` count (above 512 channels only the trainable stack's, on
-    the `wide_gemm` body's projection)."""
+    `wavenet_layer` count (above 512 channels the `wgmma` body's projection
+    on the stack's forward `planes`, its last block)."""
     B, t, C = h.shape
     out = torch.empty(B, t, C, device=h.device, dtype=torch.float32)
     if is_wide(C):
-        err = _wide_call(lib, "mucon_wide_proj", h.data_ptr(), out.data_ptr(), lens.data_ptr(),
-                         w_last.data_ptr(), b_last.data_ptr(), B, t, C, shift, int(leaky),
-                         int(bf16), stream)
+        nblk = planes.shape[1]
+        err = _wide_call(lib, "mucon_wgmma_proj", h.data_ptr(), out.data_ptr(), lens.data_ptr(),
+                         planes.data_ptr(), nblk, nblk - 1, b_last.data_ptr(), B, t, C, shift, 1,
+                         int(leaky), int(bf16), stream)
     else:
         err = lib.mucon_wavenet_layer(
             h.data_ptr(), out.data_ptr(), lens.data_ptr(), w_last.data_ptr(),
@@ -493,16 +525,6 @@ def _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16) -> torch
         )
     _check_launch(lib, err, _mode("wavenet_layer", bf16))
     return out
-
-
-def _wide_layer(lib, stream, x, out, u, h, lens, w3, b3, w1, b1, m, t, C, d, shift, pool,
-                pool_mean, leaky, bf16) -> int:
-    """One trainable residual layer on the wide bodies (pass 1 into h, pass 2
-    into out)."""
-    return _wide_call(
-        lib, "mucon_wide_layer", x.data_ptr(), out.data_ptr(), _ptr(u), h.data_ptr(),
-        lens.data_ptr(), w3.data_ptr(), b3.data_ptr(), w1.data_ptr(), b1.data_ptr(), _ptr(m),
-        x.shape[0], t, C, int(d), shift, int(pool), pool_mean, int(leaky), int(bf16), stream)
 
 
 def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
@@ -535,9 +557,9 @@ def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
             raise ValueError(f"pooling layer {i} needs an even length, got {t}")
         out = torch.empty(B, t // 2 if pool else t, C, device=dev, dtype=torch.float32)
         if wide:
-            err = _wide_call(lib, "mucon_wgmma_layer", h.data_ptr(), out.data_ptr(),
+            err = _wide_call(lib, "mucon_wgmma_layer", h.data_ptr(), out.data_ptr(), 0,
                              hbuf.data_ptr(), lens.data_ptr(), planes.data_ptr(), nblk, 4 * i,
-                             b3[i].data_ptr(), b1[i].data_ptr(), B, t, C, int(d), shift,
+                             b3[i].data_ptr(), b1[i].data_ptr(), 0, B, t, C, int(d), shift,
                              int(pool), pool_mean, int(leaky), int(bf16), stream)
         else:
             err = lib.mucon_wavenet_layer(
@@ -560,14 +582,43 @@ def wavenet_stack(x, lengths, w3, b3, w1, b1, w_last, b_last, *, stages,
     return (z if C == C0 else z[..., :C0].contiguous()), lengths >> shift
 
 
-def wide_plan(B: int, T: int, jobs: int, C: int) -> tuple:
-    """(row tile, weight-gradient span, spans a video) of a wide-body layer at
-    `stack_width(C)` (`mucon_wide_plan`: the span counts the (C / 128)^2
-    output blocks of a weight gradient toward a wave of CTAs)."""
-    out = (ctypes.c_int * 3)()
-    if load().mucon_wide_plan(B, T, stack_width(C), jobs, out):
-        raise ValueError(f"no wide grid for B={B}, T={T}, jobs={jobs}, C={C}")
-    return tuple(out)
+def wide_parts(C: int, jobs: int = 4) -> int:
+    """The parts the trainable stack's weight gradients cut the rows into
+    above 512 channels (`mucon_wgt_parts`: items x parts fill 132 SMs, the
+    items of a part jobs x (C / 128)^2 output blocks; a
+    function of C alone, so that the gradients' bits do not depend on the
+    card), at `stack_width(C)`."""
+    parts = load().mucon_wgt_parts(stack_width(C), jobs)
+    if parts < 1:
+        raise ValueError(f"no wide weight-gradient parts for C={C}, jobs={jobs}")
+    return parts
+
+
+def wgrad_chunks(lengths, T: int, shift: int, parts: int) -> list:
+    """The rows of each part of a weight-gradient pass above 512 channels, in
+    the order its items sum them (csrc/wavenet_wgmma.cuh `wdecode`): every
+    video's rows t < min(T, length >> shift) in WIDE_CHUNK_ROWS-row chunks,
+    video by video, cut into `parts` runs of chunks [g N / parts, (g + 1) N
+    / parts).  Entry g: the (video, first row) of part g's chunks."""
+    chunks = [(b, t0) for b, n in enumerate(lengths)
+              for t0 in range(0, min(T, int(n) >> shift), WIDE_CHUNK_ROWS)]
+    N = len(chunks)
+    return [chunks[g * N // parts:(g + 1) * N // parts] for g in range(parts)]
+
+
+# the output rows of a weight-gradient item above 512 channels (csrc/wavenet_wgmma.cuh WA)
+WGRAD_BAND = 128
+
+
+def wgrad_items(C: int, jobs: int, parts: int) -> list:
+    """The items of a weight-gradient pass above 512 channels in the order
+    its persistent CTAs walk them (csrc/wavenet_wgmma.cuh `wdecode`): item k
+    is (part g, job, bm, bn), part-major, then the job, B's 128-column band
+    bn (the output columns), A's WGRAD_BAND-column band bm (the output rows,
+    the last cut at C), at `stack_width(C)`."""
+    Cp = stack_width(C)
+    return [(g, job, bm, bn) for g in range(parts) for job in range(jobs)
+            for bn in range(Cp // WIDE_SLAB) for bm in range(-(-Cp // WGRAD_BAND))]
 
 
 def wavenet_train_plan(B: int, T: int, jobs: int = 4, C: int = 128) -> dict:
@@ -575,12 +626,14 @@ def wavenet_train_plan(B: int, T: int, jobs: int = 4, C: int = 128) -> dict:
     channels (`plan_for`, chosen from the shape alone, at `stack_width(C)`):
     the rows a CTA of the forward (`fwd_tile_rows`) and of the sweep's dz
     and dx kernels (`tile_rows`) owns (64, 32 or 16, as many as fit an SM
-    at that width; 64 on the wide bodies), and the rows a weight-gradient
-    CTA sums (`span_rows`, `spans` a video) with `jobs` products a layer (4;
-    1 for the out-projection)."""
+    at that width), and the rows a weight-gradient CTA sums (`span_rows`,
+    `spans` a video) with `jobs` products a layer (4; 1 for the
+    out-projection).  Above 512 channels (the `wgmma` bodies): 64-row tiles,
+    and the weight gradients' WIDE_CHUNK_ROWS-row chunks cut into `spans` =
+    `wide_parts` parts of all the rows."""
     if is_wide(stack_width(C)):
-        tm, span, spans = wide_plan(B, T, jobs, C)
-        return dict(fwd_tile_rows=tm, tile_rows=tm, span_rows=span, spans=spans)
+        return dict(fwd_tile_rows=WIDE_TILE_ROWS, tile_rows=WIDE_TILE_ROWS,
+                    span_rows=WIDE_CHUNK_ROWS, spans=wide_parts(C, jobs))
     out = (ctypes.c_int * 4)()
     lib = load()
     err = lib.mucon_wavenet_train_plan(B, T, stack_width(C), jobs, out)
@@ -600,7 +653,9 @@ def wavenet_train_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks
     """Forward of the trainable stack on the card: one `wavenet_train_fwd`
     launch per layer and one `wavenet_layer` out-projection launch (in the
     bf16-operand mode with `mm_dtype=torch.bfloat16`: `wavenet_train_fwd_bf16`
-    and `wavenet_layer_bf16`).
+    and `wavenet_layer_bf16`; above 512 channels the eval stacks' `wgmma`
+    entry points, `mucon_wgmma_layer` with the mask and the stash, and
+    `mucon_wgmma_proj`).
     x [B x T x C] (masked), drop_masks one [B x t_i x C] mask per layer
     or None -> (z, stash) with stash = (xs, hs, us, x_fin): each layer's
     input, nonlin(z) and (pooled layers, by index) pre-pool output, at
@@ -616,6 +671,10 @@ def wavenet_train_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks
     lens = _lengths_i32(lengths, B, dev, "lengths")
     lib, stream = load(), _stream(dev)
     pool_mean = int(pooling_type != "max")
+    planes = None
+    if is_wide(C):  # the `wgmma` bodies: the stack's planes once a call
+        _check_wgmma_batch(B, bf16)
+        planes = wgmma_planes(wavenet_wgmma_blocks(w3, w1, w_last), bf16)
     xs, hs, us = [], [], {}
     h, t, shift = x, T, 0
     for i, d in enumerate(stages):
@@ -631,8 +690,11 @@ def wavenet_train_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks
         out = torch.empty(B, t // 2 if pool else t, C, device=dev, dtype=torch.float32)
         u = torch.empty(B, t, C, device=dev, dtype=torch.float32) if pool else None
         if is_wide(C):
-            err = _wide_layer(lib, stream, h, out, u, hs_i, lens, w3[i], b3[i], w1[i], b1[i], m,
-                              t, C, d, shift, pool, pool_mean, leaky, bf16)
+            err = _wide_call(lib, "mucon_wgmma_layer", h.data_ptr(), out.data_ptr(), _ptr(u),
+                             hs_i.data_ptr(), lens.data_ptr(), planes.data_ptr(),
+                             planes.shape[1], 4 * i, b3[i].data_ptr(), b1[i].data_ptr(), _ptr(m),
+                             B, t, C, int(d), shift, int(pool), pool_mean, int(leaky), int(bf16),
+                             stream)
         else:
             err = lib.mucon_wavenet_train_fwd(
                 h.data_ptr(), out.data_ptr(), _ptr(u), hs_i.data_ptr(), lens.data_ptr(),
@@ -647,7 +709,7 @@ def wavenet_train_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks
             us[i] = u
             t, shift = t // 2, shift + 1
         h = out
-    z = _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16)
+    z = _out_proj(lib, stream, h, lens, w_last, b_last, shift, leaky, bf16, planes)
     return (z if C == C0 else z[..., :C0].contiguous()), (xs, hs, us, h)
 
 
@@ -679,11 +741,28 @@ def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
     lens = _lengths_i32(lengths, B, dev, "lengths")
     lib, stream = load(), _stream(dev)
     pool_mean = int(pooling_type != "max")
-    # W^T copies (once per call) so that the kernels read them row-major
-    w3t = w3.transpose(-1, -2).contiguous()
-    w1t = w1.transpose(-1, -2).contiguous()
-    wlt = w_last.t().contiguous()
     f32 = dict(device=dev, dtype=torch.float32)
+    wide = is_wide(C)
+    proj_bf16 = bf16 and (L - 1) not in us
+    if wide:  # the `wgmma` bodies: the blocks as they are, split once a call
+        _check_wgmma_batch(B, bf16)
+        planes = wgmma_sweep_planes(w3, w1, w_last, bf16)
+        # the out-projection's sweep in f32 where the last layer pools (above)
+        proj_w = ((planes, planes.shape[1] - 1) if proj_bf16 == bf16
+                  else (wgmma_planes(w_last.t()[None], False), 0))
+        layer_w = [(planes, 4 * i) for i in range(L)]
+        cnt = _grid_word(dev)
+        # the partials, the chunks' column sums and dy's and dz's K-major
+        # planes, at the longest layer (f32 planes: the larger)
+        work = torch.empty(lib.mucon_wgt_work_floats(C, B, T, 0), **f32)
+    else:  # W^T copies (once per call) so that the kernels read them row-major
+        w3t = w3.transpose(-1, -2).contiguous()
+        w1t = w1.transpose(-1, -2).contiguous()
+        proj_w = (w_last.t().contiguous(), None)
+        layer_w = list(zip(w1t, w3t))
+        work = torch.empty(_work_floats(wavenet_train_plan, B, C, ((x_fin.shape[1], 1),
+                                                                *((x.shape[1], 4) for x in xs))),
+                           **f32)
     dw3 = torch.empty(L, 3, C, C, **f32)
     db3 = torch.empty(L, C, **f32)
     dw1 = torch.empty(L, C, C, **f32)
@@ -693,27 +772,29 @@ def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
     n_pools = len(us)
     t_fin = x_fin.shape[1]
     dy = torch.empty(B, T, C, **f32)  # scratch, sized for the longest layer
-    work = torch.empty(_work_floats(wavenet_train_plan, B, C, ((x_fin.shape[1], 1),
-                                                            *((x.shape[1], 4) for x in xs))),
-                       **f32)
 
-    launch = (functools.partial(_wide_call, lib, "mucon_wide_sweep") if is_wide(C)
-              else lib.mucon_wavenet_train_sweep)
-
-    def sweep(g, u, x, h, m, w1t_i, w3t_i, dz, g_in, dw1_i, db1_i, dw3_i, db3_i,
+    def sweep(g, u, x, h, m, w, dz, g_in, dw1_i, db1_i, dw3_i, db3_i,
               t, d, shift, pooled, proj, bf16):
-        err = launch(
-            g.data_ptr(), _ptr(u), x.data_ptr(), h.data_ptr(), _ptr(m),
-            lens.data_ptr(), w1t_i.data_ptr(), _ptr(w3t_i), dy.data_ptr(),
-            dz.data_ptr(), _ptr(g_in), work.data_ptr(), dw1_i.data_ptr(),
-            db1_i.data_ptr(), _ptr(dw3_i), _ptr(db3_i), B, t, C, int(d), shift,
-            int(pooled), pool_mean, int(leaky), int(proj), int(bf16), stream,
-        )
+        if wide:  # w: the planes and the layer's first block
+            err = _wide_call(
+                lib, "mucon_wgt_sweep", g.data_ptr(), _ptr(u), x.data_ptr(), h.data_ptr(),
+                _ptr(m), lens.data_ptr(), w[0].data_ptr(), w[0].shape[1], w[1], dy.data_ptr(),
+                dz.data_ptr(), _ptr(g_in), work.data_ptr(), work.numel(), dw1_i.data_ptr(),
+                db1_i.data_ptr(), _ptr(dw3_i), _ptr(db3_i), cnt.data_ptr(), B, t, C, int(d),
+                shift, int(pooled), pool_mean, int(leaky), int(proj), int(bf16), stream)
+        else:  # w: W1^T and W3^T (Wl^T for the out-projection)
+            err = lib.mucon_wavenet_train_sweep(
+                g.data_ptr(), _ptr(u), x.data_ptr(), h.data_ptr(), _ptr(m),
+                lens.data_ptr(), w[0].data_ptr(), _ptr(w[1]), dy.data_ptr(),
+                dz.data_ptr(), _ptr(g_in), work.data_ptr(), dw1_i.data_ptr(),
+                db1_i.data_ptr(), _ptr(dw3_i), _ptr(db3_i), B, t, C, int(d), shift,
+                int(pooled), pool_mean, int(leaky), int(proj), int(bf16), stream,
+            )
         _check_launch(lib, err, _mode("wavenet_train_sweep", bf16))
 
     g = torch.empty(B, t_fin, C, **f32)  # gradient at x_fin
-    sweep(gz, None, x_fin, x_fin, None, wlt, None, g, None, dwl, dbl, None, None,
-          t_fin, 0, n_pools, False, True, bf16 and (L - 1) not in us)
+    sweep(gz, None, x_fin, x_fin, None, proj_w, g, None, dwl, dbl, None, None,
+          t_fin, 0, n_pools, False, True, proj_bf16)
     shift = n_pools
     for i in reversed(range(L)):
         x_i = xs[i]
@@ -724,7 +805,7 @@ def wavenet_train_backward(gz, stash, lengths, w3, w1, w_last, drop_masks, *,
         m = None if drop_masks is None else drop_masks[i]
         dz = torch.empty(B, t, C, **f32)
         g_in = torch.empty(B, t, C, **f32)
-        sweep(g, us.get(i), x_i, hs[i], m, w1t[i], w3t[i], dz, g_in, dw1[i], db1[i],
+        sweep(g, us.get(i), x_i, hs[i], m, layer_w[i], dz, g_in, dw1[i], db1[i],
               dw3[i], db3[i], t, stages[i], shift, pooled, False, bf16)
         g = g_in
     return _unpad_grads(C0, g, dw3, db3, dw1, db1, dwl, dbl)
@@ -1817,10 +1898,11 @@ def wavenet_train_v2_grid(C: int = 128, mm_dtype=None) -> dict:
     layers a chunk holds."""
     lib = load()
     Cp, bf16 = stack_width(C), int(bf16_mode(mm_dtype))
-    if is_wide(Cp):  # the wide bodies: one grid for both kernels' tiles
-        w = (ctypes.c_int * 4)()
-        err = lib.mucon_wide_v2_grid(bf16, w)
-        out = (WIDE_TILE_ROWS, WIDE_TILE_ROWS, w[0], w[1], w[2], w[3], w[3], V2_CHUNK_LAYERS)
+    if is_wide(Cp):  # the `wgmma` bodies: one persistent kernel, shared memory at B = 128
+        w = (ctypes.c_int * 5)()
+        err = lib.mucon_wgt_grid(bf16, w)
+        out = (WIDE_TILE_ROWS, WIDE_TILE_ROWS, w[0], w[0], w[1], w[2], w[2],
+               lib.mucon_wgt_v2_sweep_layers())
     else:
         out = (ctypes.c_int * 8)()
         err = lib.mucon_wavenet_train_v2_grid(Cp, bf16, out)
@@ -1836,20 +1918,21 @@ def wavenet_train_v2_plan(B: int, T: int, jobs: int = 4, C: int = 128) -> dict:
     weight chunk (at C = 128 cut in rows to fit two CTAs an SM), and the
     weight-gradient span (`spans` a video).  An output's sum depends on
     the chunk, not on the rows: on v3's chunks v2 adds as v3 does."""
-    if is_wide(stack_width(C)):  # v3's wide grid, on its 32-row chunks
-        tm, span, spans = wide_plan(B, T, jobs, C)
-        return dict(zip(V2_PLAN_KEYS, (tm, WIDE_CHUNK_ROWS, tm, WIDE_CHUNK_ROWS, span, spans)))
+    if is_wide(stack_width(C)):  # v3's wide grid, on its 32-deep chunks
+        p = wavenet_train_plan(B, T, jobs, C)
+        return dict(zip(V2_PLAN_KEYS, (WIDE_TILE_ROWS, WIDE_CHUNK_ROWS, WIDE_TILE_ROWS,
+                                       WIDE_CHUNK_ROWS, p["span_rows"], p["spans"])))
     out = (ctypes.c_int * 6)()
     if load().mucon_wavenet_train_v2_plan(B, T, stack_width(C), jobs, out):
         raise ValueError(f"no wavenet_train_v2 grid for B={B}, T={T}, jobs={jobs}")
     return dict(zip(V2_PLAN_KEYS, out))
 
 
-def _check_chunks(bounds) -> None:
+def _check_chunks(bounds, most: int = V2_CHUNK_LAYERS) -> None:
     for lo, hi in bounds:
-        if hi - lo > V2_CHUNK_LAYERS:
+        if hi - lo > most:
             raise ValueError(f"a v2 chunk of {hi - lo} layers: one cooperative launch takes "
-                             f"at most {V2_CHUNK_LAYERS}")
+                             f"at most {most}")
 
 
 def wavenet_train_v2_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_masks, *,
@@ -1877,6 +1960,11 @@ def wavenet_train_v2_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_ma
     t_ins, pooled, shifts, t_fin = stack_plan(stages, pooling_layers, T)
     n_pools = sum(pooled)
     f32 = dict(device=dev, dtype=torch.float32)
+    wide = is_wide(C)
+    if wide:  # the `wgmma` bodies: the stack's planes once a call
+        _check_wgmma_batch(B, bf16)
+        planes = wgmma_planes(wavenet_wgmma_blocks(w3, w1, w_last), bf16)
+        cnt = _grid_word(dev)
     xs, hs, z = [x], [], None
     padded = {}
     for lo, hi in bounds:
@@ -1902,14 +1990,19 @@ def wavenet_train_v2_forward(x, lengths, w3, b3, w1, b1, w_last, b_last, drop_ma
         last = hi == L
         if last:
             z = torch.empty(B, t_fin, C, **f32)
-        launch = (functools.partial(_wide_call, lib, "mucon_wide_v2_fwd") if is_wide(C)
-                  else lib.mucon_wavenet_train_v2_fwd)
-        err = launch(
-            *_tables(ptrs, ints), hi - lo, w3[lo].data_ptr(), b3[lo].data_ptr(),
-            w1[lo].data_ptr(), b1[lo].data_ptr(), _ptr(w_last if last else None),
-            _ptr(b_last if last else None), _ptr(z if last else None), lens.data_ptr(),
-            B, C, t_fin, n_pools, int(leaky), int(bf16), stream,
-        )
+        if wide:
+            err = _wide_call(
+                lib, "mucon_wgt_v2_fwd", *_tables(ptrs, ints), hi - lo, planes.data_ptr(),
+                planes.shape[1], 4 * lo, b3[lo].data_ptr(), b1[lo].data_ptr(),
+                _ptr(b_last if last else None), _ptr(z if last else None), lens.data_ptr(),
+                cnt.data_ptr(), B, C, t_fin, n_pools, int(leaky), int(bf16), stream)
+        else:
+            err = lib.mucon_wavenet_train_v2_fwd(
+                *_tables(ptrs, ints), hi - lo, w3[lo].data_ptr(), b3[lo].data_ptr(),
+                w1[lo].data_ptr(), b1[lo].data_ptr(), _ptr(w_last if last else None),
+                _ptr(b_last if last else None), _ptr(z if last else None), lens.data_ptr(),
+                B, C, t_fin, n_pools, int(leaky), int(bf16), stream,
+            )
         _check_launch(lib, err, _mode("wavenet_train_v2_fwd", bf16))
     return (z if C == C0 else z[..., :C0].contiguous()), (xs, hs)
 
@@ -1936,24 +2029,32 @@ def wavenet_train_v2_backward(gz, stash, lengths, w3, w1, b1, w_last, drop_masks
     drop_masks = _pad_masks(drop_masks, C)
     if gz.shape != xs[L].shape:
         raise ValueError(f"gz {tuple(gz.shape)} does not match z {tuple(xs[L].shape)}")
-    _check_chunks(bounds)
+    # above 512 channels a sweep chunk's program lives in the kernel's parameters
+    _check_chunks(bounds, load().mucon_wgt_v2_sweep_layers() if is_wide(C) else V2_CHUNK_LAYERS)
     gz = gz.contiguous()
     _require(dev, torch.float32, gz=gz)
     lens = _lengths_i32(lengths, B, dev, "lengths")
     lib, stream = load(), _stream(dev)
     t_ins, pooled, shifts, t_fin = stack_plan(stages, pooling_layers, T)
     n_pools = sum(pooled)
-    # W^T copies (once per call) so that the kernels read them row-major
-    w3t = w3.transpose(-1, -2).contiguous()
-    w1t = w1.transpose(-1, -2).contiguous()
-    wlt = w_last.t().contiguous()
     f32 = dict(device=dev, dtype=torch.float32)
+    wide = is_wide(C)
+    if wide:  # the `wgmma` bodies: the forward's planes (u recomputed) and the sweep's
+        _check_wgmma_batch(B, bf16)
+        fplanes = wgmma_planes(wavenet_wgmma_blocks(w3, w1, w_last), bf16)
+        splanes = wgmma_sweep_planes(w3, w1, w_last, bf16)
+        cnt = _grid_word(dev)
+    else:  # W^T copies (once per call) so that the kernels read them row-major
+        w3t = w3.transpose(-1, -2).contiguous()
+        w1t = w1.transpose(-1, -2).contiguous()
+        wlt = w_last.t().contiguous()
     dw3, dw1 = torch.empty(L, 3, C, C, **f32), torch.empty(L, C, C, **f32)
     db3, db1 = torch.empty(L, C, **f32), torch.empty(L, C, **f32)
     dwl, dbl = torch.empty(C, C, **f32), torch.empty(C, **f32)
     # gm (the wide bodies: the recomputed u), dy and dz of the longest layer
     scratch = torch.empty(3 * B * T * C, **f32)
-    work = torch.empty(_work_floats(wavenet_train_v2_plan, B, C,
+    work = torch.empty(lib.mucon_wgt_work_floats(C, B, T, 0) if wide else
+                       _work_floats(wavenet_train_v2_plan, B, C,
                                     ((t_fin, 1), *((t, 4) for t in t_ins))), **f32)
     g_in = [torch.empty(B, t, C, **f32) for t in t_ins]
     g_proj = torch.empty(B, t_fin, C, **f32)  # the gradient at x_fin
@@ -1970,16 +2071,24 @@ def wavenet_train_v2_backward(gz, stash, lengths, w3, w1, b1, w_last, drop_masks
             ptrs += [xs[i].data_ptr(), hs[i].data_ptr(), _ptr(m), g.data_ptr(),
                      g_in[i].data_ptr(), _ptr(u)]
             ints += [t, int(stages[i]), shift, int(pool)]
-        launch = (functools.partial(_wide_call, lib, "mucon_wide_v2_sweep") if is_wide(C)
-                  else lib.mucon_wavenet_train_v2_sweep)
-        err = launch(
-            *_tables(ptrs, ints), hi - lo, w3t[lo].data_ptr(), w1[lo].data_ptr(),
-            w1t[lo].data_ptr(), b1[lo].data_ptr(), dw3[lo].data_ptr(), db3[lo].data_ptr(),
-            dw1[lo].data_ptr(), db1[lo].data_ptr(), _ptr(gz if proj else None),
-            _ptr(xs[L] if proj else None), _ptr(wlt if proj else None),
-            _ptr(dwl if proj else None), _ptr(dbl if proj else None), scratch.data_ptr(),
-            B * T, work.data_ptr(), work.numel(), lens.data_ptr(), B, C, t_fin, n_pools,
-            int(leaky), int(bf16), stream,
-        )
+        if wide:
+            err = _wide_call(
+                lib, "mucon_wgt_v2_sweep", *_tables(ptrs, ints), hi - lo, fplanes.data_ptr(),
+                splanes.data_ptr(), splanes.shape[1], 4 * lo, b1[lo].data_ptr(),
+                dw3[lo].data_ptr(), db3[lo].data_ptr(), dw1[lo].data_ptr(), db1[lo].data_ptr(),
+                _ptr(gz if proj else None), _ptr(xs[L] if proj else None),
+                _ptr(dwl if proj else None), _ptr(dbl if proj else None), scratch.data_ptr(),
+                B * T, work.data_ptr(), work.numel(), lens.data_ptr(), cnt.data_ptr(), B, C,
+                t_fin, n_pools, int(leaky), int(bf16), stream)
+        else:
+            err = lib.mucon_wavenet_train_v2_sweep(
+                *_tables(ptrs, ints), hi - lo, w3t[lo].data_ptr(), w1[lo].data_ptr(),
+                w1t[lo].data_ptr(), b1[lo].data_ptr(), dw3[lo].data_ptr(), db3[lo].data_ptr(),
+                dw1[lo].data_ptr(), db1[lo].data_ptr(), _ptr(gz if proj else None),
+                _ptr(xs[L] if proj else None), _ptr(wlt if proj else None),
+                _ptr(dwl if proj else None), _ptr(dbl if proj else None), scratch.data_ptr(),
+                B * T, work.data_ptr(), work.numel(), lens.data_ptr(), B, C, t_fin, n_pools,
+                int(leaky), int(bf16), stream,
+            )
         _check_launch(lib, err, _mode("wavenet_train_v2_sweep", bf16))
     return _unpad_grads(C0, g_in[0], dw3, db3, dw1, db1, dwl, dbl)

@@ -1,8 +1,9 @@
 """PyTorch port: the kernels' shapes above their narrow instances, on the CPU.
 
-* The stack kernels' wide bodies (`csrc/wavenet_wide.cu`: C above 512, run
-  at `cuda.stack_width(C)`, a multiple of 128) sum every product in
-  error-compensated TF32 on 32-row chunks, as `ops/tf32.py` states it.  At
+* The stack kernels' wide bodies (the `wgmma` passes of
+  `csrc/wavenet_wgmma.cuh`: C above 512, run at `cuda.stack_width(C)`, a
+  multiple of 128) sum every product in error-compensated TF32 on 32-deep
+  chunks, as `ops/tf32.py` states it.  At
   C = 600, padded to 640 as the wrappers pad it, the eval stack's and the
   MS-TCN++ stage's twins with that product, and the trainable stack's
   (forward and the seven gradients, dropout on), against the JAX v2, MS-TCN++

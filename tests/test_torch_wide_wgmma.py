@@ -18,7 +18,9 @@ phase and `scripts/probe_wide_wgmma.py`.  Here, on the CPU:
   ragged lengths.
 * Routing, through a stand-in kernel library: above 512 channels
   `wavenet_stack` and `mstcnpp_stack` call the `wgmma` entry points only,
-  and the trainable stack's forward keeps the `wide_gemm` ones.
+  and so does the trainable stack's forward (`mucon_wgmma_layer` with its
+  dropout mask and pre-pool u, then `mucon_wgmma_proj`); the sweep and v2:
+  tests/test_torch_wide_train_wgmma.py.
 """
 
 import numpy as np
@@ -133,10 +135,11 @@ def test_items_cover_every_live_tile_and_slab_once(C, lengths, shift, cols):
 
 class _Lib:
     """Stands in for the kernel library: records which entry points a
-    wrapper calls, each returning success."""
+    wrapper calls (`calls`) and with what (`args`), each returning success."""
 
     def __init__(self):
         self.calls = []
+        self.args = []
 
     def __getattr__(self, name):
         if not name.startswith("mucon_"):
@@ -144,7 +147,10 @@ class _Lib:
 
         def call(*args):
             self.calls.append(name)
-            return 1 << 13 if name == "mucon_wgmma_max_videos" else 0
+            self.args.append(args)
+            if name == "mucon_wgmma_max_videos":
+                return 1 << 13
+            return {"mucon_wgt_parts": 4, "mucon_wgt_work_floats": 1}.get(name, 0)
 
         return call
 
@@ -200,15 +206,29 @@ def test_wide_mstcnpp_stage_launches_the_wgmma_body(lib, mm_dtype):
     assert cuda.launch_counts[name] == 3
 
 
+# (the name is the test's first: the trainable forward kept the `wide_gemm`
+# body then; now it runs on the eval stacks' `wgmma` entry points, with its
+# dropout masks and its stash)
+@pytest.mark.parametrize("drop", [False, True], ids=["nodrop", "drop"])
 @pytest.mark.parametrize("mm_dtype", [None, torch.bfloat16], ids=["3xtf32", "bf16"])
-def test_wide_train_forward_keeps_the_wide_gemm_body(lib, mm_dtype):
+def test_wide_train_forward_keeps_the_wide_gemm_body(lib, mm_dtype, drop):
     rng, C = np.random.RandomState(7), 640
     x, lengths = torch.zeros(2, 16, C), torch.tensor([16, 9])
-    cuda.wavenet_train_forward(x, lengths, *_wavenet(C, 2, rng), None, stages=(1, 2),
-                               pooling_layers=(1,), pooling_type="max", leaky=False,
-                               mm_dtype=mm_dtype)
-    assert lib.calls == ["mucon_wide_layer"] * 2 + ["mucon_wide_proj"]
-    assert not any(cuda.wide_launches[k] for k in WGMMA)
+    masks = [torch.ones(2, 16, C), torch.ones(2, 16, C)] if drop else None
+    _, (_, hs, us, _) = cuda.wavenet_train_forward(
+        x, lengths, *_wavenet(C, 2, rng), masks, stages=(1, 2), pooling_layers=(1,),
+        pooling_type="max", leaky=False, mm_dtype=mm_dtype)
+    entries = [c for c in lib.calls if c != "mucon_wgmma_max_videos"]
+    assert entries == ["mucon_wgmma_layer"] * 2 + ["mucon_wgmma_proj"]
+    assert cuda.wide_launches == dict.fromkeys(cuda.WIDE_ENTRIES, 0) | {
+        "mucon_wgmma_layer": 2, "mucon_wgmma_proj": 1}
+    name = "wavenet_train_fwd" if mm_dtype is None else "wavenet_train_fwd_bf16"
+    assert cuda.launch_counts[name] == 2
+    # each layer's stash h, the pooled layer's pre-pool u and the masks reach the kernel
+    layers = [a for c, a in zip(lib.calls, lib.args) if c == "mucon_wgmma_layer"]
+    assert [a[3] for a in layers] == [h.data_ptr() for h in hs]
+    assert [a[2] for a in layers] == [0, us[1].data_ptr()]
+    assert all((a[10] != 0) == drop for a in layers)
 
 
 def test_narrow_eval_stack_calls_no_wide_entry(lib):
