@@ -18,9 +18,10 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    Viterbi DP and its pointer walk (one launch) equal to the plain DP +
    `traceback_positions` in all four outputs, and repeating bit for bit, at
    B=128, at request B's three videos and at edge shapes (K = 1, N = 1,
-   k_valid < K, infeasible videos, the cluster body at N = 40 and L = 133, a
-   walk table in device memory at K = 4000), each timed beside the plain
-   pair with its plan printed;
+   k_valid < K, infeasible videos, the cluster body at N = 40, the position
+   body at L = 133, a walk table in device memory at K = 4000), each timed
+   beside the plain pair with its plan and body printed, and the position
+   body forced at each shape the route gives another body;
 4. serves two requests through `predict_videos` (the bench eval batch of 128
    videos of 1500-2100 frames, and 3 videos of 517/1203/2100 frames) with
    the kernels and with the plain path, for the WaveNet model and for the
@@ -161,7 +162,8 @@ From the root of a checkout, on a machine with one CUDA card (sm_90a):
    at Tz = 2048 (H = 128) and 1536 (H = 768), B = 1 (on its persistent
    kernels: its frames' rows and tables past a cluster's shared memory),
    the DP at frame_sampling 1 and 3 (L = 2000, 666: its
-   cluster body), at N = 300 and at N = 300, L = 2000 (its global body),
+   position body), at N = 300 (its cluster body, and the position body
+   forced) and at N = 300, L = 2000 (the position body),
    the flint loss at M = 600 and 778 (its window in chunks of classes) and
    at N = 482 (in chunks of segments); the MS-TCN++ model at C = 256
    and both backbones at C = H = 768 through `predict_videos` (request A
@@ -615,41 +617,62 @@ def viterbi_plain_pair(W, pois, k_valid, n_valid, S: int, max_len: int):
     return score, best_l, bps, traceback_positions(bps, k_valid, n_valid, best_l)
 
 
-def check_decode(tag: str, args, reps: int = 5) -> tuple:
+def check_decode(tag: str, args, reps: int = 5, body=None) -> tuple:
     """`dense_viterbi_decode` against the plain pair: score, best_l, bps and
-    pos equal, and a second call equal to the first; timed beside the pair.
+    pos equal, and a second call equal to the first; timed beside the pair
+    (`body`: that body forced through `cuda.dense_viterbi_decode`).
     Returns (outputs, ms, plain ms)."""
+    from functools import partial
+
     import torch
     from mucon_tpu_torch import cuda
     from mucon_tpu_torch.ops.viterbi_dp import dense_viterbi_decode
 
-    got = dense_viterbi_decode(*args)
-    again = dense_viterbi_decode(*args)
+    run = dense_viterbi_decode
+    if body is not None:
+        tag = f"{tag}, the {body} body forced"
+        run = partial(cuda.dense_viterbi_decode, body=body)
+    got = run(*args)
+    again = run(*args)
     want = viterbi_plain_pair(*args)
     names = ("score", "best_l", "bps", "pos")
     differ = [n for n, a, b in zip(names, got, want) if not torch.equal(a, b)]
     expect(not differ, f"dense_viterbi {tag}: {differ} differ from the plain DP + walk")
     expect(all(torch.equal(a, b) for a, b in zip(got, again)),
            f"dense_viterbi {tag}: two calls of the same inputs differ")
-    ms, plain_ms = paired_ms(lambda: dense_viterbi_decode(*args),
+    ms, plain_ms = paired_ms(lambda: run(*args),
                              lambda: viterbi_plain_pair(*args), reps=reps)
     W, pois = args[0], args[1]
     B, K, N = W.shape
-    plan = cuda.viterbi_plan(B, N, pois.shape[2], K)
+    plan = cuda.viterbi_plan(B, N, pois.shape[2], K, body=body)
+    expect(body is None or plan["body"] == body, f"dense_viterbi {tag}: planned on the "
+           f"{plan['body']} body")
+    held = (f"{plan['entries']} entry windows a lane, rows in {plan['rows']} memory"
+            if plan["body"] == "position" else f"{plan['lc']} cells a lane")
     say(f"kernel dense_viterbi {tag} B={B} K={K} N={N} L={pois.shape[2]}: score, best_l, bps "
         f"and pos equal to the plain DP + walk, two calls bit for bit; {ms:.4f} ms = "
         f"{1000 * ms / max(K - 1, 1):.3f} us/window vs plain DP + walk {plain_ms:.3f} ms; "
         f"{plan['body']} body ({plan['warps']} warp(s) a CTA, {plan['ctas']} CTAs, "
-        f"{plan['lc'] or 'no'} cells a lane, {plan['smem']} B shared, walk table in "
-        f"{plan['table']} memory)")
+        f"{held}, {plan['smem']} B shared, walk table in {plan['table']} memory)")
     return got, ms, plain_ms
+
+
+def position_forced(tag: str, args, reps: int = 1) -> None:
+    """`check_decode` on the position body where the route gives the shape
+    another body (so that the card holds the position body at every shape
+    it may take)."""
+    from mucon_tpu_torch import cuda
+
+    B, K, N = args[0].shape
+    if cuda.viterbi_plan(B, N, args[1].shape[2], K)["body"] != "position":
+        check_decode(tag, args, reps=reps, body="position")
 
 
 # DP shapes off the serving path, (K, N, L, S, max_len): K = 1; N = 1;
 # k_valid < K with more positions than windows (infeasible videos); cells
-# l > 8 that may not grow (max_len 300: the warp body's gated shift); the
-# cluster body (N > 32, and L > 72 at frame sampling 15); a walk table too
-# large for shared memory
+# l > 8 that may not grow (max_len 300: the gated shift); the cluster body
+# (N > 32) and the position body (L > 72 at frame sampling 15); a walk table
+# too large for shared memory (the warp body)
 VITERBI_EDGES = ((1, 4, 66, 30, MAX_LEN), (2, 1, 66, 30, MAX_LEN), (40, 9, 66, 30, MAX_LEN),
                  (40, 9, 66, 30, 300), (85, 40, 66, 30, MAX_LEN), (85, 30, 133, 15, MAX_LEN),
                  (4000, 30, 66, 30, MAX_LEN))
@@ -683,12 +706,15 @@ def check_viterbi(gen, dev):
     args = (*viterbi_tables(gen, torch.randint(1500, 2101, (B,), generator=gen), T_pad, dev),
             FRAME_SAMPLING, MAX_LEN)
     (sk, lk, bk, pk), ms, plain_ms = check_decode("request A's shape", args)
-    check_decode("request B's shape",
-                 (*viterbi_tables(gen, torch.tensor([517, 1203, 2100]), T_pad, dev),
-                  FRAME_SAMPLING, MAX_LEN))
+    position_forced("request A's shape", args)
+    args_b = (*viterbi_tables(gen, torch.tensor([517, 1203, 2100]), T_pad, dev),
+              FRAME_SAMPLING, MAX_LEN)
+    check_decode("request B's shape", args_b)
+    position_forced("request B's shape", args_b)
     for K, N, L, S, max_len in VITERBI_EDGES:
-        check_decode(f"edge S={S} max_len={max_len}",
-                     viterbi_edge_args(K, N, L, S, max_len, gen, dev), reps=2)
+        edge = viterbi_edge_args(K, N, L, S, max_len, gen, dev)
+        check_decode(f"edge S={S} max_len={max_len}", edge, reps=2)
+        position_forced(f"edge S={S} max_len={max_len}", edge)
     return dp_report(args, (sk, lk, bk, pk), ms, plain_ms)
 
 
@@ -3650,7 +3676,8 @@ WIDTH_CFGS = {
 LONG_BILSTM, LONG_CHAINS = (1447, 2, 40), ((1181, 2, 40), (128, 1, 2048), (768, 1, 1536))
 # the DP past its warp body: frame_sampling 1 and 3 (L = 2000, 666) at
 # request A's batch, and N = 300 positions ((K, N, L) at 6 videos); past a
-# 16-CTA cluster (the global body), N = 300 at L = 2000 (frame_sampling 1)
+# 16-CTA cluster, N = 300 at L = 2000 (frame_sampling 1), the shape the
+# global body took before the position body replaced it
 LONG_DP_SAMPLINGS, LONG_DP_N, LONG_DP_GLOBAL = (1, 3), (85, 300, 66), (40, 300, 2000)
 # the flint loss past a CTA's shared memory, (B, M, N) at T = 2560: M = 600
 # classes at one video, COIN's 778 step classes at the train batch, and N =
@@ -4226,8 +4253,9 @@ def width_long_shapes(gen, dev, card: str, lines: dict) -> None:
     LONG_CHAINS: a small B and Tz), the reverse chain at Tz = 2048 and 1536
     (B = 1: its tables in device memory), each held as at WIDTH_HS; the DP
     and walk at frame_sampling 1 and 3 (L = 2000, 666; request A's 128
-    videos), at N = 300 and, on the global body, at LONG_DP_GLOBAL, equal to
-    the plain DP + walk bit for bit."""
+    videos), at N = 300 (and there the position body forced) and at
+    LONG_DP_GLOBAL (the position body), equal to the plain DP + walk bit for
+    bit, each line naming its body."""
     import torch
     from mucon_tpu_torch import cuda
 
@@ -4242,14 +4270,15 @@ def width_long_shapes(gen, dev, card: str, lines: dict) -> None:
         dp_line(f"frame_sampling={fs}", args, f"L={MAX_LEN // fs} (frame_sampling {fs})",
                 lines)
     K, N, L = LONG_DP_N
-    dp_line(f"N={N}", viterbi_edge_args(K, N, L, FRAME_SAMPLING, MAX_LEN, gen, dev),
-            f"N={N} L={L}", lines)
+    args = viterbi_edge_args(K, N, L, FRAME_SAMPLING, MAX_LEN, gen, dev)
+    dp_line(f"N={N}", args, f"N={N} L={L}", lines)
+    position_forced(f"N={N}", args)
     K, N, L = LONG_DP_GLOBAL
     body = cuda.viterbi_plan(6, N, L, K)["body"]
-    expect(body == "global", f"dense_viterbi N={N} L={L}: planned on the {body} body, not the "
-           "global one")
+    expect(body == "position", f"dense_viterbi N={N} L={L}: planned on the {body} body, not "
+           "the position one")
     dp_line(f"N={N} L={L}", viterbi_edge_args(K, N, L, 1, MAX_LEN, gen, dev),
-            f"N={N} L={L} (global body)", lines)
+            f"N={N} L={L} K={K}", lines)
     say(f"widths: the DP's plans {[cuda.viterbi_plan(128, N_MAX, MAX_LEN // fs) for fs in LONG_DP_SAMPLINGS]}, "
         f"{cuda.viterbi_plan(6, N, L)} [{card}]")
 
@@ -4302,9 +4331,14 @@ def width_flint(gen, dev, card: str, lines: dict) -> None:
 
 
 def dp_line(tag: str, args, width: str, lines: dict) -> None:
-    """`check_decode` at a DP shape, and its `width` line."""
+    """`check_decode` at a DP shape, and its `width` line (naming its body)."""
+    from mucon_tpu_torch import cuda
+
     got, ms, plain_ms = check_decode(tag, args, reps=1)
-    width_line("dense_viterbi", width, dp_report(args, got, ms, plain_ms), lines)
+    B, K, N = args[0].shape
+    body = cuda.viterbi_plan(B, N, args[1].shape[2], K)["body"]
+    width_line("dense_viterbi", f"{width} ({body} body)", dp_report(args, got, ms, plain_ms),
+               lines)
 
 
 def width_runs(dev, card: str, cli: dict, lines: dict) -> None:

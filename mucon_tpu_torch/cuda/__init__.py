@@ -67,9 +67,12 @@ CTAs from H = 64, its reverse chain on a cluster split) up to a width
 that depends on B (at B = 8, H = 432 forward and 256 reverse chain; above
 512 at every B), above on its persistent kernels (one
 cooperative launch over the card, `decoder_chain_route`), which also take
-any Tz whose rows pass a cluster's shared memory.  The DP takes any N and L
-(`viterbi_plan`: its cells in registers across a cluster of up to 16 CTAs,
-and in device memory past that).  A width outside these raises a ValueError that names the limit.
+any Tz whose rows pass a cluster's shared memory.  The DP takes any N, L
+and K (`viterbi_plan`: one warp a video at the default shape, its cells in
+registers across a cluster of up to 16 CTAs where many positions have few
+cells, else the transcript positions walked in sequence by one CTA a
+video, its row buffers in device memory past shared memory).  A width
+outside these raises a ValueError that names the limit.
 """
 
 from __future__ import annotations
@@ -195,9 +198,12 @@ def load() -> ctypes.CDLL:
             lib.mucon_wavenet_tile_rows.argtypes = [I]
             L = ctypes.c_long
             lib.mucon_bilstm_recurrence.argtypes = [P] * 8 + [L] + [I] * 3 + [P]
-            lib.mucon_dense_viterbi.argtypes = [P] * 9 + [I] * 12 + [P]
+            lib.mucon_dense_viterbi.argtypes = [P] * 8 + [I] * 12 + [P]
             lib.mucon_viterbi_smem.argtypes = [I] * 6
             lib.mucon_viterbi_smem.restype = ctypes.c_size_t
+            lib.mucon_viterbi_position.argtypes = [P] * 10 + [I] * 10 + [P]
+            lib.mucon_viterbi_position_smem.argtypes = [I] * 6 + [ctypes.POINTER(I)]
+            lib.mucon_viterbi_position_smem.restype = ctypes.c_size_t
             lib.mucon_wavenet_train_fwd.argtypes = [P] * 10 + [I] * 9 + [P]
             lib.mucon_wavenet_train_sweep.argtypes = [P] * 16 + [I] * 10 + [P]
             lib.mucon_wavenet_train_plan.argtypes = [I, I, I, I, ctypes.POINTER(I)]
@@ -249,7 +255,8 @@ def load() -> ctypes.CDLL:
             lib.mucon_wgmma_attrs.argtypes = [I, IP]
             for fn in (lib.mucon_wavenet_layer, lib.mucon_wavenet_tile_rows,
                        lib.mucon_bilstm_recurrence,
-                       lib.mucon_dense_viterbi, lib.mucon_wavenet_train_fwd,
+                       lib.mucon_dense_viterbi, lib.mucon_viterbi_position,
+                       lib.mucon_wavenet_train_fwd,
                        lib.mucon_wavenet_train_sweep, lib.mucon_wavenet_train_plan,
                        lib.mucon_bilstm_fwd_plan,
                        lib.mucon_bilstm_bwd_coefs, lib.mucon_bilstm_bwd_chain,
@@ -1096,18 +1103,21 @@ def bilstm_train_backward(xp, m, w_hh, outs, cs, douts, dh, dc):
 
 
 # csrc/viterbi.cu: windows of W staged in shared memory at a time, threads
-# of the cluster and global bodies, cells a lane of the warp body holds,
-# cells of a row a thread of the cluster body holds, its widest cluster and
-# the rows a thread may hold (its instances)
+# of the cluster body, cells a lane of the warp body holds, cells of a row a
+# thread of the cluster body holds, its widest cluster and the rows a thread
+# may hold (its instances); the position body's threads, its warps' rings of
+# 32 partials and its per-row scalars (8 bytes each), and the entry windows
+# a lane may own (its instances)
 VITERBI_KC, VITERBI_BLOCK_THREADS, VITERBI_LANE_CELLS = 128, 256, 72
 VITERBI_CELLS, VITERBI_MAX_CL, VITERBI_ROWS = 16, 16, (1, 2, 4)
-VITERBI_BODIES = {"warp": 0, "cluster": 1, "global": 2}
+VITERBI_POS_THREADS, VITERBI_POS_SCALARS, VITERBI_ENTRIES = 512, 8, (2, 4)
+VITERBI_BODIES = {"warp": 0, "cluster": 1}  # mucon_dense_viterbi's bodies
 
 
 def _viterbi_state(body: str, N: int, cl: int) -> int:
-    """Floats of shared memory a DP body takes beside W's staged windows
-    (`viterbi_smem` in csrc/viterbi.cu)."""
-    return {"warp": 0, "cluster": 4 * cl * N + 2 * N, "global": 2 * N}[body]
+    """Floats of shared memory the warp or cluster body takes beside W's
+    staged windows (`viterbi_smem` in csrc/viterbi.cu)."""
+    return {"warp": 0, "cluster": 4 * cl * N + 2 * N}[body]
 
 
 def _viterbi_cluster(N: int, L: int):
@@ -1132,60 +1142,190 @@ def _viterbi_cluster(N: int, L: int):
     return None
 
 
-def viterbi_plan(B: int, N: int, L: int, K=None) -> dict:
-    """The DP's launch (`csrc/viterbi.cu`): the warp body (one warp a
-    video, lane n holding row n's cells in registers: `lc` = 72 of them)
-    where N <= 32 and L <= 72; else the cluster body (a cluster of `cl`
-    CTAs of 256 threads a video, `tpr` threads a row slice of 16 `tpr`
-    columns, `rpt` rows a thread, `lc` = 16 cells of each in registers,
-    `_viterbi_cluster`) where a cluster of at most 16 CTAs holds the cells;
-    else the global body (one 256-thread CTA a video, its two state
-    buffers in device memory: scratch of [B x 2 x N x L] floats).  `ctas`
-    = B cl.  With K, also the windows of W staged at a time (`staged`:
-    VITERBI_KC, fewer where the K - 1 windows are fewer or the body's slots
-    leave less room), the dynamic shared memory a CTA takes (`smem`) and
-    where the walk's [K-1 x N] uint16 table lives: "shared" where it fits
-    beside the rest (the warp and global bodies), else "global" (the walk
-    reads the int32 bps; the cluster body always, so that its CTAs stay
-    small enough to share an SM).  Every N, L >= 1."""
+def _viterbi_position_layout(K: int, L: int, R: int) -> tuple:
+    """The position body's row buffers in floats (`pos_wb`, `pos_pb`,
+    `pos_eb`, `pos_kk` in csrc/viterbi.cu): (Kp, the transposed W's row
+    stride, its column padded past the last task's reads; Lp, a pois row's
+    where the rows are read in place; the entries; the 64-bit keys, K
+    rounded up to even)."""
+    r4 = lambda x: (x + 3) & ~3  # noqa: E731
+    return r4(K + 34 * R), r4(L + 2 * R), r4(K + 32 * R), K + (K & 1)
+
+
+def _viterbi_position_smem(K: int, N: int, L: int, R: int, rows: bool, table: bool) -> int:
+    """Shared-memory bytes of a position-body launch (`position_smem`): its
+    warps' rings and scalars; with `rows` its keys, two W columns, two pois
+    rows and entries; with `table` the walk's [K-1 x N] uint16 table."""
+    Kp, Lp, EB, KK = _viterbi_position_layout(K, L, R)
+    warps = VITERBI_POS_THREADS // 32
+    nbytes = warps * 32 * 8 + VITERBI_POS_SCALARS * 8
+    if rows:
+        nbytes += 8 * KK + 4 * (2 * Kp + 2 * Lp + EB)
+    return nbytes + (2 * (K - 1) * N if table else 0)
+
+
+def _viterbi_entries(K: int) -> int:
+    """Entry windows a lane of the position body owns (VITERBI_ENTRIES): 4
+    where K windows make at least five tasks of 128 entries (K >= 640),
+    else 2 (twice the tasks, so the row's longest chain shares its SM with
+    fewer idle schedulers).  Device ms, 2 / 4 entries (measured on one
+    NVIDIA H100 80GB HBM3, 700.00 W): 4.831 / 3.125 at frame_sampling
+    1 (K = 2560), 0.888 / 0.732 at frame_sampling 3 (K = 853); 1.014 / 1.206
+    at N = 300, L = 400, K = 512 (128 videos), 0.377 / 0.423 at N = 300, L
+    = 66, K = 85, 0.439 / 0.488 at N = 300, L = 2000, K = 40 (6 videos)."""
+    return 4 if K >= 640 else 2
+
+
+def viterbi_position_tasks(kend: int, js: int, lmax: int, entries: int) -> list:
+    """The position body's split of a row (its mirror; csrc/viterbi.cu):
+    for each of its 16 warps the tasks it takes, (j0, l_last) each.  A task
+    is 32 `entries` entry windows from j0 (lane t owns j0 + entries t ..
+    + entries - 1), walked for l = 0 .. l_last = min(lmax, kend - 1 - j0);
+    the tasks start at js rounded down to a task and end past kend - 1,
+    longest first, dealt in a snake over the SM's four schedulers (warp w
+    on w % 4), then round robin over each scheduler's warps.  None at a row
+    whose entries are all NEG (js = kend)."""
+    warps, span = VITERBI_POS_THREADS // 32, 32 * entries
+    out = [[] for _ in range(warps)]
+    if js >= kend:
+        return out
+    jb = js - js % span
+    ntask = -(-(kend - jb) // span)
+    for w in range(warps):
+        s, q = w % 4, w // 4
+        while 4 * q < ntask:
+            i = 4 * q + (3 - s if q % 2 else s)
+            if i < ntask:
+                j0 = jb + span * i
+                out[w].append((j0, min(lmax, kend - 1 - j0)))
+            q += warps // 4
+    return out
+
+
+# The DP's crossings (measured on one H100 with
+# `scripts/probe_viterbi_flint.py --grid`, device ms by torch.profiler,
+# each shape on each body, K = 1.28 L; NVIDIA H100 80GB HBM3, 700.00 W): by B (at most; None: any), by N (at
+# most), the L from which the position body beats the cluster body (None:
+# it never does where a cluster holds the cells).  E.g. at N = 33, 6 videos,
+# 0.143 against 0.187 ms at L = 133 and 0.132 against 0.084 at L = 66; at N
+# = 300, 128 videos, 0.488 against 0.536 at L = 66; at N = 300, 6 videos,
+# 1.528 against 1.460 at L = 400; at N = 16 0.057-0.095 against 0.153-0.649
+# from L = 133.
+VITERBI_CROSSINGS = ((8, ((16, 1), (33, 133), (64, 200), (128, 400), (None, None))),
+                     (None, ((16, 1), (33, 133), (64, 200), (128, 200), (None, 66))))
+# Within the warp body's shapes (N <= 32, L <= 72), by N (at most), the L
+# from which the position body beats it (the same probe): at N = 8 from L =
+# 20 (0.020 / 0.018 ms against 0.021 / 0.023 at 6 / 128 videos), at N = 16
+# from L = 66 (0.057 / 0.050 against 0.064 / 0.058; at L = 20 0.022 / 0.027
+# against 0.019 / 0.020); at N = 30 the warp body (requests A and B: 0.124 /
+# 0.063 against 0.060 / 0.061).
+VITERBI_WARP_CROSSINGS = ((8, 1), (16, 66))
+
+
+def viterbi_route(B: int, N: int, L: int) -> str:
+    """The DP's body for B videos of N transcript positions and L cells a
+    row, by the crossings measured on the card: the warp body where a warp
+    holds a video (N <= 32, L <= 72) and L lies below
+    VITERBI_WARP_CROSSINGS' L for N; the cluster body where a cluster of at
+    most 16 CTAs holds the cells and L lies below VITERBI_CROSSINGS' L for
+    (B, N); else the position body."""
+    if N <= 32 and L <= VITERBI_LANE_CELLS:
+        cross = next((c for n, c in VITERBI_WARP_CROSSINGS if N <= n), None)
+        return "warp" if cross is None or L < cross else "position"
+    if _viterbi_cluster(N, L) is None:
+        return "position"
+    rows = next(r for b, r in VITERBI_CROSSINGS if b is None or B <= b)
+    cross = next(c for n, c in rows if n is None or N <= n)
+    return "cluster" if cross is None or L < cross else "position"
+
+
+def viterbi_plan(B: int, N: int, L: int, K=None, body=None, entries=None) -> dict:
+    """The DP's launch (`csrc/viterbi.cu`), on the body `viterbi_route`
+    picks (or `body`, as tests and probes force it): the warp body (one
+    warp a video, lane n holding row n's cells in registers: `lc` = 72 of
+    them); the cluster body (a cluster of `cl` CTAs of 256 threads a video,
+    `tpr` threads a row slice of 16 `tpr` columns, `rpt` rows a thread, `lc`
+    = 16 cells of each in registers, `_viterbi_cluster`); the position body
+    (one CTA of 512 threads a video walking the rows in sequence).  `ctas` = B cl.  With K,
+    also the dynamic shared memory a CTA takes (`smem`) and where the walk's
+    [K-1 x N] uint16 table lives: "shared" where it fits beside the rest
+    (the warp and position bodies), else "global" (the walk reads the int32
+    bps; the cluster body always, so that its CTAs stay small enough to
+    share an SM); for the warp and cluster bodies the windows of W staged
+    at a time (`staged`: VITERBI_KC, fewer where the K - 1 windows are fewer
+    or the body's slots leave less room); for the position body the entry
+    windows a lane owns (`entries`, `_viterbi_entries`, or as given) and
+    where its row buffers, entries and keys live (`rows`: "shared", else
+    "device" where they pass shared memory: read in place, the entries and
+    keys in device scratch).  Every N, L, K >= 1."""
     if min(B, N, L) < 1:
         raise ValueError(f"the DP takes B, N, L >= 1; got B={B} N={N} L={L}")
-    split = None
-    if N <= 32 and L <= VITERBI_LANE_CELLS:
-        body, lc, threads, cl, tpr, rpt = "warp", VITERBI_LANE_CELLS, 32, 1, 0, 0
-    elif (split := _viterbi_cluster(N, L)) is not None:
-        body, lc, threads = "cluster", VITERBI_CELLS, VITERBI_BLOCK_THREADS
+    body = body or viterbi_route(B, N, L)
+    if body == "warp":
+        if N > 32 or L > VITERBI_LANE_CELLS:
+            raise ValueError(f"the warp body takes N <= 32, L <= 72; got N={N} L={L}")
+        lc, threads, cl, tpr, rpt = VITERBI_LANE_CELLS, 32, 1, 0, 0
+    elif body == "cluster":
+        split = _viterbi_cluster(N, L)
+        if split is None:
+            raise ValueError(f"no cluster of 16 CTAs holds N={N} x L={L} cells")
+        lc, threads = VITERBI_CELLS, VITERBI_BLOCK_THREADS
         cl, tpr, rpt = split
+    elif body == "position":
+        lc, threads, cl, tpr, rpt = 0, VITERBI_POS_THREADS, 1, 0, 0
     else:
-        body, lc, threads, cl, tpr, rpt = "global", 0, VITERBI_BLOCK_THREADS, 1, 0, 0
+        raise ValueError(f"unknown DP body {body!r}")
     plan = dict(body=body, lc=lc, threads=threads, warps=threads // 32, ctas=B * cl, cl=cl,
                 tpr=tpr, rpt=rpt)
-    if K is not None:
-        if K < 1:
-            raise ValueError("the DP needs at least one window")
-        state = _viterbi_state(body, N, cl)
-        staged = min(VITERBI_KC, max(K - 1, 1), (MAX_SMEM_BYTES // 4 - state) // N)
-        base = 4 * (staged * N + state)
-        # the cluster body's CTAs would each hold rank 0's table: its walk
-        # reads the int32 bps (at most N of them, from L2)
-        table = (body != "cluster" and base + 2 * (K - 1) * N <= MAX_SMEM_BYTES
-                 and L <= 65536)
-        plan.update(staged=staged, smem=base + (2 * (K - 1) * N if table else 0),
+    if K is None:
+        return plan
+    if K < 1:
+        raise ValueError("the DP needs at least one window")
+    if body == "position":
+        R = entries or _viterbi_entries(K)
+        if R not in VITERBI_ENTRIES:
+            raise ValueError(f"the position body takes entries in {VITERBI_ENTRIES}; got {R}")
+        rows = _viterbi_position_smem(K, N, L, R, True, False) <= MAX_SMEM_BYTES
+        with_table = _viterbi_position_smem(K, N, L, R, rows, True)
+        table = with_table <= MAX_SMEM_BYTES and L <= 65536
+        plan.update(entries=R, rows="shared" if rows else "device",
+                    smem=_viterbi_position_smem(K, N, L, R, rows, table),
                     table="shared" if table else "global")
+        return plan
+    state = _viterbi_state(body, N, cl)
+    staged = min(VITERBI_KC, max(K - 1, 1), (MAX_SMEM_BYTES // 4 - state) // N)
+    base = 4 * (staged * N + state)
+    # the cluster body's CTAs would each hold rank 0's table: its walk
+    # reads the int32 bps (at most N of them, from L2)
+    table = (body != "cluster" and base + 2 * (K - 1) * N <= MAX_SMEM_BYTES
+             and L <= 65536)
+    plan.update(staged=staged, smem=base + (2 * (K - 1) * N if table else 0),
+                table="shared" if table else "global")
     return plan
 
 
-def viterbi_smem(K: int, N: int, body: str, cl: int, table: bool, staged=None) -> int:
+def viterbi_smem(K: int, N: int, body: str, cl: int, table: bool, staged=None, L: int = 1,
+                 entries: int = 4, rows: bool = True) -> int:
     """The kernel file's own count of a launch's shared memory (a check of
-    `viterbi_plan`; `staged` defaults to min(VITERBI_KC, K - 1))."""
+    `viterbi_plan`): the warp and cluster bodies' (`staged` defaults to
+    min(VITERBI_KC, K - 1)), or the position body's at L cells, `entries`
+    a lane and `rows` in shared memory."""
+    if body == "position":
+        out = (ctypes.c_int * 4)()
+        return load().mucon_viterbi_position_smem(K, N, L, entries, int(rows), int(table), out)
     staged = min(VITERBI_KC, max(K - 1, 1)) if staged is None else staged
     return load().mucon_viterbi_smem(K, N, VITERBI_BODIES[body], cl, int(table), staged)
 
 
-def dense_viterbi_decode(W, pois, k_valid, n_valid, frame_sampling: int, max_len: int):
+def dense_viterbi_decode(W, pois, k_valid, n_valid, frame_sampling: int, max_len: int,
+                         body=None, entries=None):
     """W [B x K x N], pois [B x N x L] (f32), k_valid / n_valid [B] ->
     (score [B], best_l [B] int32, bps [B x K-1 x N] int32, pos [B x K]
-    int64): the DP and the pointer walk in one launch (`viterbi_plan`)."""
+    int64): the DP and the pointer walk in one launch (`viterbi_plan`;
+    `body` / `entries` force a body / the position body's entries a lane,
+    as the tests and probes do).  The position body takes W transposed
+    ([B x N x Kp], a copy a call) and, where its rows pass shared memory,
+    pois padded to Lp columns and scratch for its entries and keys."""
     dev = _cuda_device(W)
     B, K, N = W.shape
     L = pois.shape[2]
@@ -1193,7 +1333,7 @@ def dense_viterbi_decode(W, pois, k_valid, n_valid, frame_sampling: int, max_len
         raise ValueError(f"pois {tuple(pois.shape)} does not match W {tuple(W.shape)}")
     if frame_sampling < 1:
         raise ValueError(f"frame_sampling must be >= 1, got {frame_sampling}")
-    plan = viterbi_plan(B, N, L, K)
+    plan = viterbi_plan(B, N, L, K, body=body, entries=entries)
     _require(dev, torch.float32, W=W, pois=pois)
     kv = _lengths_i32(k_valid, B, dev, "k_valid")
     nv = _lengths_i32(n_valid, B, dev, "n_valid")
@@ -1201,17 +1341,32 @@ def dense_viterbi_decode(W, pois, k_valid, n_valid, frame_sampling: int, max_len
     best_l = torch.empty(B, device=dev, dtype=torch.int32)
     bps = torch.empty(B, K - 1, N, device=dev, dtype=torch.int32)
     pos = torch.empty(B, K, device=dev, dtype=torch.int64)
-    # the global body's two [N x L] state buffers a video
-    gstate = (torch.empty(B, 2, N, L, device=dev, dtype=torch.float32)
-              if plan["body"] == "global" else None)
     lib = load()
-    err = lib.mucon_dense_viterbi(
-        W.data_ptr(), pois.data_ptr(), kv.data_ptr(), nv.data_ptr(),
-        score.data_ptr(), best_l.data_ptr(), bps.data_ptr(), pos.data_ptr(), _ptr(gstate),
-        B, K, N, L, int(frame_sampling), int(max_len), VITERBI_BODIES[plan["body"]],
-        plan["cl"], plan["tpr"], plan["rpt"], int(plan["table"] == "shared"), plan["staged"],
-        _stream(dev),
-    )
+    table = int(plan["table"] == "shared")
+    if plan["body"] == "position":
+        R = plan["entries"]
+        Kp, Lp, EB, KK = _viterbi_position_layout(K, L, R)
+        Wt = torch.empty(B, N, Kp, device=dev, dtype=torch.float32)
+        Wt[:, :, :K].copy_(W.transpose(1, 2))
+        entry = keys = None
+        if plan["rows"] == "device":
+            padded = torch.empty(B, N, Lp, device=dev, dtype=torch.float32)
+            padded[:, :, :L].copy_(pois)
+            pois, pstride = padded, Lp
+            entry = torch.empty(B, EB, device=dev, dtype=torch.float32)
+            keys = torch.empty(B, KK, device=dev, dtype=torch.int64)
+        else:
+            pstride = L
+        err = lib.mucon_viterbi_position(
+            Wt.data_ptr(), pois.data_ptr(), kv.data_ptr(), nv.data_ptr(), score.data_ptr(),
+            best_l.data_ptr(), bps.data_ptr(), pos.data_ptr(), _ptr(entry), _ptr(keys),
+            B, K, N, L, Kp, pstride, int(frame_sampling), int(max_len), R, table, _stream(dev))
+    else:
+        err = lib.mucon_dense_viterbi(
+            W.data_ptr(), pois.data_ptr(), kv.data_ptr(), nv.data_ptr(),
+            score.data_ptr(), best_l.data_ptr(), bps.data_ptr(), pos.data_ptr(),
+            B, K, N, L, int(frame_sampling), int(max_len), VITERBI_BODIES[plan["body"]],
+            plan["cl"], plan["tpr"], plan["rpt"], table, plan["staged"], _stream(dev))
     _check_launch(lib, err, "dense_viterbi")
     return score, best_l, bps, pos
 

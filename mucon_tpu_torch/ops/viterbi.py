@@ -11,9 +11,10 @@ Poisson round/floor normaliser quirk, remainder frames placed first).
 Everything is batched over videos with an explicit leading B axis.
 `dense_viterbi_plain` is the twin of `_dense_viterbi_from_tables`
 (viterbi.py:170) and the reference of the CUDA kernel
-(`ops/viterbi_dp.py`).  The tables come from full-T log-probs
-(`viterbi_precompute`, the evaluator's per-batch path) or from the
-pre-upsample ones (`viterbi_precompute_z`, the fused eval).
+(`ops/viterbi_dp.py`); `dense_viterbi_by_position` walks the same DP in
+the order of the kernel's position body.  The tables come from full-T
+log-probs (`viterbi_precompute`, the evaluator's per-batch path) or from
+the pre-upsample ones (`viterbi_precompute_z`, the fused eval).
 `dense_viterbi_decode` decodes one video through the batched path.
 """
 
@@ -161,6 +162,66 @@ def dense_viterbi_plain(W, pois, k_valid, n_valid, frame_sampling: int, max_len:
     score = fin.amax(dim=1)
     best_l = torch.where(fin == score[:, None], l_ids, L).amin(dim=1)
     return score, best_l.to(torch.int32), bps
+
+
+def dense_viterbi_by_position(W, pois, k_valid, n_valid, frame_sampling: int,
+                              max_len: int = 2000):
+    """`dense_viterbi_plain` walked by transcript positions, in the order of
+    csrc/viterbi.cu's position body (its plain twin, for the tests; nothing
+    on the serving path calls it).  Row n's cell at window k and length l is
+    entry[n][k-l] + W[k-l+1][n] + ... + W[k][n], added left to right, with
+    entry[n][j] = exit[n-1](j-1) + W[j][n-1] (row 0: W[0][0] at j = 0, NEG
+    after), so the rows run in sequence and a row's entries independently.
+    A cell no entry reaches holds exactly NEG in the scan (NEG + W rounds to
+    NEG for |W| < 2^75), so its candidate is NEG + pois[n][l] at any window;
+    entries before the row's first that is not exactly NEG join those cells.
+    Rows n >= n_valid are NEG from window 1 on (row 0 keeps W[0][0] at
+    window 0); bp rows from kend - 1 on (kend = clip(k_valid, 1, K)) repeat
+    the argmaxes of the state at window kend - 1, which the final reads.
+    Same outputs as `dense_viterbi_plain`, bit for bit."""
+    S = frame_sampling
+    B, K, N = W.shape
+    L = pois.shape[2]
+    lmax = min(max(max_len // S - 1, 0), L - 1)  # the last cell that may grow
+    neg = torch.tensor(NEG, dtype=torch.float32)
+    l_ids = torch.arange(L)
+    score = torch.empty(B, dtype=torch.float32)
+    best_l = torch.empty(B, dtype=torch.int32)
+    bps = torch.zeros(B, max(K - 1, 0), N, dtype=torch.int32)
+    for b in range(B):
+        kv, nv = int(k_valid[b]), int(n_valid[b])
+        kend = min(max(kv, 1), K)
+        last = min(max(nv - 1, 0), N - 1)
+        entry = torch.full((kend,), NEG, dtype=torch.float32)
+        entry[0] = W[b, 0, 0]
+        for n in range(N):
+            p = pois[b, n].to(torch.float32)
+            val = (neg + p).expand(kend, L).clone()  # [target window, l]
+            if n < nv:
+                live = torch.nonzero(entry != neg)
+                js = int(live[0]) if len(live) else kend
+                v = entry[js:].clone()  # the running sums of entries js .. kend - 1
+                for l in range(min(lmax, kend - 1 - js) + 1):
+                    m = kend - js - l  # entries whose window js + i + l is live
+                    if l > 0:
+                        v = v[:m] + W[b, js + l:kend, n]
+                    val[js + l:kend, l] = v + p[l]
+            elif n == 0:  # n_valid <= 0: window 0's cell, masked from window 1 on
+                val[0, 0] = W[b, 0, 0] + p[0]
+            E = val.amax(dim=1)
+            arg = torch.where(val == E[:, None], l_ids, L).amin(dim=1)
+            E = val[torch.arange(kend), arg]  # the first maximum's own bits
+            if n + 1 < N:
+                bps[b, :min(kend, K - 1), n + 1] = arg[:K - 1].to(torch.int32)
+            if n + 1 < nv:
+                nxt = torch.full((kend,), NEG, dtype=torch.float32)
+                nxt[1:] = E[:-1] + W[b, 1:kend, n]
+                entry = nxt
+            if n == last:
+                score[b], best_l[b] = E[kend - 1], int(arg[kend - 1])
+        if kend < K - 1:  # frozen windows
+            bps[b, kend:, 1:] = bps[b, kend - 1, 1:]
+    return score, best_l, bps
 
 
 def traceback_positions(bps, k_valid, n_valid, best_l):

@@ -5,8 +5,9 @@ returns (score [B], best_l [B], bps [B x K-1 x N], pos [B x K]): the DP
 and the pointer walk to window positions that the JAX fused eval runs
 after it (`traceback_positions_device`, mucon_tpu/ops/viterbi.py:405).  A
 CPU tensor takes the plain twins `dense_viterbi_plain` and
-`traceback_positions`; a CUDA tensor launches `csrc/viterbi.cu` (the K
-window loop and the walk in one launch, `cuda.viterbi_plan`) or raises.
+`traceback_positions`; a CUDA tensor launches `csrc/viterbi.cu` (the DP
+and the walk in one launch, on the body `cuda.viterbi_plan` picks) or
+raises.
 The kernel covers both TPU formulations — the whole-batch program and the
 per-video grid — and writes bp = 0 at n = 0 like the scan, where the
 batched TPU kernel wrapped across videos.  `dense_viterbi` is the DP's

@@ -4,7 +4,7 @@ walk kernel (csrc/viterbi.cu), the flint-loss kernel (csrc/mucon_loss.cu)
 and the forward decoder chain (csrc/decoder_chain.cu chain_fwd_kernel), on
 one card.
 
-    python3 scripts/probe_viterbi_flint.py OUT.json [--only dp,flint,chain]
+    python3 scripts/probe_viterbi_flint.py OUT.json [--only dp,flint,chain] [--bodies] [--grid]
 
 From the root of a checkout, on a machine with one CUDA card (sm_90a) and
 nvcc.  It prints the card's name and power limit, then one JSON line a
@@ -16,8 +16,15 @@ call to compare their times on one card and their outputs bit for bit
 (`digest`: the sha256 of the outputs' bytes).
 
 The cases: the DP at request A's shape (B=128, K=85, N=30, L=66) and
-request B's (B=3), at frame_sampling 1 and 3 (L = 2000, 666; 128 videos)
-and at N = 300 (L = 66, 6 videos); the flint loss at the train batch (B=8,
+request B's (B=3), at frame_sampling 1 and 3 (L = 2000, 666; 128 videos),
+request B at frame_sampling 1, at N = 300 (L = 66, 6 videos) and at N =
+300, L = 2000, K = 40 (6 videos), each row naming the body its plan took;
+`--bodies` times each DP case again on every body that takes it (the
+position body at each of its entries a lane), `--grid` the DP at N = 8,
+16, 33, 64, 128, 300 and L = 20, 66, 133, 200, 400 (K = 1.28 L, 6 and 128
+videos) on each body (the position body at its planned entries): the
+crossings of `cuda.viterbi_route` (a checkout without forced bodies
+records an error for those rows); the flint loss at the train batch (B=8,
 T=2560, N=30, M=48) and past a CTA's shared memory (M = 600 at B = 1, M =
 778 at B = 8, N = 31; N = 482 at B = 2, M = 48); the forward chain (S = 31) at H = 128 (the model),
 100, 127, 768, 1024 and 1181 at the train's B = 8, Tz = 160 (E = 2H), and
@@ -107,6 +114,49 @@ def dp_cases(dev):
         yield tag, args
     gen = torch.Generator().manual_seed(300)
     yield "N=300", cs.viterbi_edge_args(85, 300, 66, cs.FRAME_SAMPLING, cs.MAX_LEN, gen, dev)
+    gen = torch.Generator().manual_seed(4)
+    yield "B frame_sampling=1", (*cs.viterbi_tables(gen, torch.tensor([517, 1203, 2100]), 2560,
+                                                    dev, 1), 1, cs.MAX_LEN)
+    gen = torch.Generator().manual_seed(2000)
+    yield "N=300 L=2000 K=40", cs.viterbi_edge_args(40, 300, 2000, 1, cs.MAX_LEN, gen, dev)
+
+
+# the crossings' grid: N transcript positions, L cells, B videos (K = 1.28 L,
+# the fused eval's T_pad / max_len)
+GRID_N, GRID_L, GRID_B = (8, 16, 33, 64, 128, 300), (20, 66, 133, 200, 400), (6, 128)
+
+
+def grid_cases(dev):
+    import torch
+
+    import chip_smoke as cs
+
+    for B in GRID_B:
+        for N in GRID_N:
+            for L in GRID_L:
+                gen = torch.Generator().manual_seed(B * 100000 + N * 1000 + L)
+                args = cs.viterbi_edge_args(-(-128 * L // 100), N, L, cs.FRAME_SAMPLING,
+                                            cs.MAX_LEN, gen, dev)
+                if B != 6:
+                    args = [torch.cat([a] * (B // 6 + 1))[:B] for a in args[:4]] + args[4:]
+                yield f"grid B={B} N={N} L={L}", args
+
+
+def forced(B, N, L, K, every_entries=True):
+    """(tag, body, entries) of every body that takes the shape (the position
+    body at each of its entries a lane, or at its planned ones)."""
+    from mucon_tpu_torch import cuda
+
+    out = []
+    for body in ("warp", "cluster", "position"):
+        for entries in (cuda.VITERBI_ENTRIES if body == "position" and every_entries
+                        else (None,)):
+            try:
+                cuda.viterbi_plan(B, N, L, K, body=body, entries=entries)
+            except ValueError:
+                continue
+            out.append((f"{body}{entries or ''}", body, entries))
+    return out
 
 
 def flint_cases(dev):
@@ -184,7 +234,7 @@ def main(argv) -> int:
         try:
             row = measure(fn, name)
             outs = fn()
-        except (RuntimeError, ValueError) as e:
+        except (RuntimeError, ValueError, TypeError) as e:
             emit(dict(kernel=kernel, case=tag, **info, error=str(e)[:200]))
             return None
         emit(dict(kernel=kernel, case=tag, **info, **row,
@@ -193,11 +243,21 @@ def main(argv) -> int:
 
     with torch.inference_mode():
         if "dp" in only:
-            for tag, args in dp_cases(dev):
+            cases = list(dp_cases(dev)) + (list(grid_cases(dev)) if "--grid" in argv else [])
+            for tag, args in cases:
                 B, K, N = args[0].shape
                 L = args[1].shape[2]
-                case("dense_viterbi", tag, lambda: cuda.dense_viterbi_decode(*args), "viterbi",
-                     B=B, K=K, N=N, L=L, plan=cuda.viterbi_plan(B, N, L, K))
+                if not tag.startswith("grid"):
+                    case("dense_viterbi", tag, lambda: cuda.dense_viterbi_decode(*args),
+                         "viterbi", B=B, K=K, N=N, L=L, plan=cuda.viterbi_plan(B, N, L, K))
+                if "--bodies" not in argv and not tag.startswith("grid"):
+                    continue
+                grid = tag.startswith("grid")
+                for name, body, entries in plan_of(forced, B, N, L, K, not grid) or []:
+                    case("dense_viterbi", f"{tag} [{name}]",
+                         lambda: cuda.dense_viterbi_decode(*args, body=body, entries=entries),
+                         "viterbi", B=B, K=K, N=N, L=L,
+                         plan=cuda.viterbi_plan(B, N, L, K, body=body, entries=entries))
         if "flint" in only:
             for tag, args in flint_cases(dev):
                 B, T, M = args[3].shape

@@ -1,8 +1,8 @@
 """PyTorch port: the CUDA kernels against their plain twins on the card, at
 small and ragged shapes the serving and train paths do not reach (tile
 remainders, dilations past the sequence, sum pooling, leaky ReLU, B = 1,
-T = 1, fully masked videos, K = 1, infeasible DPs, the DP's two bodies and a
-walk table in device memory, a decoder chain of one
+T = 1, fully masked videos, K = 1, infeasible DPs, the DP's three bodies, the
+position body's rows and a walk table in device memory, a decoder chain of one
 step, one video, one frame or a thousand, one segment of the flint loss,
 an MS-TCN++ stage at odd lengths and lengths on a tile edge, the BiLSTM
 recurrence and its reverse chain on clusters of 1, 2 and 8 CTAs and on the
@@ -242,20 +242,26 @@ def test_viterbi_kernel_bit_exact(dev, K, N):
     _decode_exact(args, S, 2000)
 
 
-def _decode_exact(args, S, max_len):
-    """`dense_viterbi_decode` (DP and walk in one launch) equal to the plain
-    DP + `traceback_positions`, and to itself on a second call."""
-    got = dense_viterbi_decode(*args, S, max_len)
+def _decode_exact(args, S, max_len, **forced):
+    """`dense_viterbi_decode` (DP and walk in one launch; `forced`: the
+    body or the position body's entries a lane, through `cuda`) equal to
+    the plain DP + `traceback_positions`, and to itself on a second call."""
+    run = (lambda: cuda.dense_viterbi_decode(*args, S, max_len, **forced)) if forced else (
+        lambda: dense_viterbi_decode(*args, S, max_len))
+    got = run()
     score, best_l, bps = dense_viterbi_plain(*args, S, max_len)
     want = (score, best_l, bps, traceback_positions(bps, args[2], args[3], best_l))
-    for a, b, c in zip(got, want, dense_viterbi_decode(*args, S, max_len)):
+    for a, b, c in zip(got, want, run()):
         assert torch.equal(a, b) and torch.equal(a, c)
 
 
-# the warp body at L = 20, and with max_len 300 (cells l > 8 may not grow:
-# the gated shift); the cluster body (N = 40; L = 133 at frame sampling 15,
-# and gated); a walk table too large for shared memory (K = 4000), on both
-# bodies; k_valid past K and n_valid 0 or past N
+# N = 7 at L = 20 and N = 9 at L = 66 (the position body: few positions;
+# the warp body forced), N = 9 with max_len 300 (cells l > 8 may not grow:
+# the warp body's gated shift); N = 40 at L = 66 (the cluster body); N = 12
+# and L = 133 at frame sampling 15 (the position body, and gated); a walk
+# table too large for shared memory (K = 4000), on the warp and cluster
+# bodies; k_valid past K and n_valid 0 or past N; each shape also on every
+# other body that takes it
 @pytest.mark.parametrize("K,N,L,S,max_len", [
     (30, 7, 20, 30, 2000), (40, 9, 66, 30, 300), (50, 40, 66, 30, 2000),
     (50, 12, 133, 15, 2000), (50, 12, 133, 15, 600), (4000, 30, 66, 30, 2000),
@@ -269,12 +275,27 @@ def test_viterbi_decode_bodies(dev, K, N, L, S, max_len):
     k_valid = torch.tensor([K, K + 3, K // 2, 0, 1])
     n_valid = torch.tensor([N, 1, N + 2, 0, N // 2 + 1])
     plan = cuda.viterbi_plan(B, N, L, K)
-    warp = N <= 32 and L <= 72
-    assert plan["body"] == ("warp" if warp else "cluster")
-    assert plan["table"] == ("global" if K == 4000 or not warp else "shared")
-    assert plan["smem"] == cuda.viterbi_smem(K, N, plan["body"], plan["cl"],
-                                             plan["table"] == "shared")
-    _decode_exact([t.to(dev) for t in (W, pois, k_valid, n_valid)], S, max_len)
+    assert plan["body"] == cuda.viterbi_route(B, N, L)
+    if plan["body"] == "warp":
+        assert plan["table"] == ("global" if K == 4000 else "shared")
+    args = [t.to(dev) for t in (W, pois, k_valid, n_valid)]
+    for body in ("warp", "cluster", "position"):
+        try:
+            forced = cuda.viterbi_plan(B, N, L, K, body=body)
+        except ValueError:
+            continue
+        assert forced["smem"] == _dp_smem(forced, K, N, L)
+        for entries in (cuda.VITERBI_ENTRIES if body == "position" else (None,)):
+            _decode_exact(args, S, max_len, body=body, entries=entries)
+
+
+def _dp_smem(plan, K, N, L):
+    """The kernel file's count of the plan's shared memory."""
+    if plan["body"] == "position":
+        return cuda.viterbi_smem(K, N, "position", 1, plan["table"] == "shared", L=L,
+                                 entries=plan["entries"], rows=plan["rows"] == "shared")
+    return cuda.viterbi_smem(K, N, plan["body"], plan["cl"], plan["table"] == "shared",
+                             plan["staged"])
 
 
 def test_model_forward_kernels_match_plain(dev):
@@ -510,19 +531,21 @@ def test_decoder_chain_persistent_refuses_grid(dev):
     assert (dict(cuda.launch_counts), dict(cuda.chain_launches)) == before
 
 
-# the cluster body at frame_sampling 1 and 3 (L = 2000: 8 CTAs, two rows a
-# thread; L = 666: 6 CTAs), at N = 300 (one or five CTAs of 256 rows, two a
-# thread), at N = 100 and L = 2000 (16 CTAs, four rows a thread); with
-# max_len 1000 (cells past l = 999 may not grow); and the global body at N
-# = 300, L = 2000, which no cluster of 16 CTAs holds
+# the DP past its warp body: frame_sampling 1 and 3 (L = 2000, 666), N = 100
+# at L = 2000 and max_len 1000 (cells past l = 999 may not grow) on the
+# position body; N = 300 at L = 20 and 66 on the cluster body (one or five
+# CTAs of 256 rows, two a thread); and N = 300 at L = 2000, which no
+# cluster holds and the global body took before the position body replaced
+# it; each shape also on the position body at every entries a lane, and on
+# the cluster body where a cluster holds it
 @pytest.mark.parametrize("N,L,max_len,body", [
-    (30, 2000, 2000, "cluster"), (30, 666, 2000, "cluster"), (300, 20, 2000, "cluster"),
-    (300, 66, 2000, "cluster"), (100, 2000, 2000, "cluster"), (30, 2000, 1000, "cluster"),
-    (300, 2000, 2000, "global")])
+    (30, 2000, 2000, "position"), (30, 666, 2000, "position"), (300, 20, 2000, "cluster"),
+    (300, 66, 2000, "cluster"), (100, 2000, 2000, "position"), (30, 2000, 1000, "position"),
+    (300, 2000, 2000, "position")])
 def test_viterbi_global_body_bit_exact(dev, N, L, max_len, body):
-    """The DP past its warp body (the cluster body, and the global body
-    past a cluster of 16 CTAs), equal to the plain DP and walk in all four
-    outputs; the plan's shared memory is the kernel file's count."""
+    """The DP past its warp body, equal to the plain DP and walk in all four
+    outputs on every body that takes the shape; the plan's shared memory is
+    the kernel file's count."""
     gen = torch.Generator().manual_seed(N + L)
     B, K = 4, 40
     labels = torch.randint(0, 3, (B, N), generator=gen)
@@ -533,15 +556,70 @@ def test_viterbi_global_body_bit_exact(dev, N, L, max_len, body):
     nv = torch.randint(1, N + 1, (B,), generator=gen)
     plan = cuda.viterbi_plan(B, N, L, K)
     assert plan["body"] == body
-    assert plan["smem"] == cuda.viterbi_smem(K, N, body, plan["cl"], plan["table"] == "shared",
-                                             plan["staged"])
-    got = dense_viterbi_decode(*(t.to(dev) for t in (W, pois, kv, nv)), 1, max_len)
-    assert all(torch.equal(a, b) for a, b in zip(
-        got, dense_viterbi_decode(*(t.to(dev) for t in (W, pois, kv, nv)), 1, max_len)))
-    score, best_l, bps = dense_viterbi_plain(W, pois, kv, nv, 1, max_len)
-    want = (score, best_l, bps, traceback_positions(bps, kv, nv, best_l))
-    for a, b in zip(got, want):
-        assert torch.equal(a.cpu(), b)
+    assert plan["smem"] == _dp_smem(plan, K, N, L)
+    args = [t.to(dev) for t in (W, pois, kv, nv)]
+    _decode_exact(args, 1, max_len)
+    for entries in cuda.VITERBI_ENTRIES:
+        _decode_exact(args, 1, max_len, body="position", entries=entries)
+    if cuda._viterbi_cluster(N, L) is not None:
+        _decode_exact(args, 1, max_len, body="cluster")
+
+
+def _dp_edge_tables(gen, B, K, N, L, S, max_len, ties):
+    """Tables as the fused eval builds them (pois NEG from (l + 1) S >=
+    max_len) or, with `ties`, rounded to integers; k_valid and n_valid at
+    their edges: 0, 1, K and past K; 0, 1, N and past N."""
+    W = -torch.rand(B, K, N, generator=gen) * 40.0
+    pois = -torch.rand(B, N, L, generator=gen) * 15.0
+    if ties:
+        W, pois = W.round(), pois.round()
+    pois[:, :, (torch.arange(L) + 1) * S >= max_len] = NEG
+    kv = torch.tensor([K, 0, 1, K + 2, max(K - 3, 0), K // 2])[:B]
+    nv = torch.tensor([N, 0, 1, N + 1, max(N - 1, 1), N // 2])[:B]
+    return W, pois, kv, nv
+
+
+# the position body at its edges: K = 1, N = 1, ties, n_valid 0 (row 0
+# masked from window 1 on), k_valid 0 / 1 / K (frozen windows), every
+# frame sampling of the CPU tests, L past max_len / S; its row buffers in
+# device memory (L = 30000, K = 30000); a walk table in device memory
+@pytest.mark.parametrize("K,N,L,S,max_len,ties", [
+    (1, 3, 20, 30, 2000, False), (12, 1, 20, 30, 2000, True), (85, 30, 66, 30, 2000, True),
+    (60, 5, 40, 1, 30, True), (60, 5, 14, 2, 25, False), (300, 7, 100, 3, 200, True),
+    (200, 4, 13, 5, 60, True), (50, 3, 30000, 1, 2000, False), (30000, 2, 20, 30, 2000, False),
+    (4000, 40, 66, 30, 2000, True)])
+def test_viterbi_position_body_edges(dev, K, N, L, S, max_len, ties):
+    gen = torch.Generator().manual_seed(K + 7 * N + L)
+    args = [t.to(dev) for t in _dp_edge_tables(gen, 6, K, N, L, S, max_len, ties)]
+    plan = cuda.viterbi_plan(6, N, L, K, body="position")
+    assert plan["smem"] == _dp_smem(plan, K, N, L) <= cuda.MAX_SMEM_BYTES
+    assert plan["rows"] == ("device" if max(K, L) == 30000 else "shared")
+    if K == 4000:
+        assert plan["table"] == "global"
+    for entries in cuda.VITERBI_ENTRIES:
+        _decode_exact(args, S, max_len, body="position", entries=entries)
+
+
+def test_viterbi_position_random_shapes(dev):
+    """The position body at 40 seeded shapes drawn as the CPU tests draw
+    them (K 1-300, N 1-8, frame sampling 1, 2, 3, 5, L up to past max_len /
+    S, a quarter on integer tables), at both entries a lane, equal to the
+    plain DP and walk and to itself on a second call."""
+    rng = np.random.RandomState(25)
+    for case in range(40):
+        K, N = int(rng.randint(1, 300)), int(rng.randint(1, 9))
+        S = int((1, 2, 3, 5)[rng.randint(4)])
+        max_len = int(rng.randint(12, 400))
+        L = int(rng.randint(1, max_len // S + 3))
+        W = (-rng.rand(4, K, N) * 20).astype(np.float32)
+        pois = (-rng.rand(4, N, L) * 10).astype(np.float32)
+        if case % 4 == 0:
+            W, pois = np.round(W), np.round(pois)
+        pois[:, :, (np.arange(L) + 1) * S >= max_len] = NEG
+        kv, nv = rng.randint(0, K + 2, 4), rng.randint(0, N + 2, 4)
+        args = [torch.from_numpy(a).to(dev) for a in (W, pois, kv, nv)]
+        for entries in cuda.VITERBI_ENTRIES:
+            _decode_exact(args, S, max_len, body="position", entries=entries)
 
 
 def _close(got, want, factor):

@@ -3,8 +3,9 @@
 CPU its plain twins) against the JAX DP — the batched Pallas kernel in
 interpret mode and the scan — followed by `traceback_positions_device`,
 on seeded tables with exact ties, K = 1, N = 1, k_valid < K, k_valid past
-K and infeasible videos; and the launch plans of the DP and of the flint
-kernel (`cuda.viterbi_plan`, `cuda.flint_plan`), which are pure Python."""
+K and infeasible videos; and the launch plans of the DP (its three bodies,
+forced or by the crossings) and of the flint kernel (`cuda.viterbi_plan`,
+`cuda.flint_plan`), which are pure Python."""
 
 from functools import partial
 
@@ -25,7 +26,7 @@ torch.set_num_threads(1)
 S = 30
 # (K, N, L, max_len): the default L with ties; K = 1; N = 1; a small L with
 # max_len 300, where only cells l <= 8 may grow (the kernel's gated shift);
-# L = 700, past the cells a warp holds (the card's cluster body)
+# L = 700, past the cells a warp holds (the card's position body)
 CASES = [(24, 6, 66, 2000), (1, 4, 66, 2000), (12, 1, 66, 2000), (16, 5, 20, 300),
          (6, 4, 700, 2000)]
 IDS = ["ties", "K1", "N1", "gated", "long_L"]
@@ -103,41 +104,64 @@ def test_decode_is_dp_then_walk_on_cpu():
 
 # (B, N, L, K) -> body and walk table: the default shape; L at a lane's 72
 # cells and one past; N = 32, 33 and 256; a K whose table leaves shared
-# memory; K = 1
+# memory; K = 1; few positions (N <= 8: the position body beats the warp
+# body); N = 300 at L = 2000 (the position body, where the global body ran
+# before it); the position body's rows in device memory at L = 30000 and K =
+# 30000
 @pytest.mark.parametrize("B,N,L,K,body,lc,table", [
     (128, 30, 66, 85, "warp", 72, "shared"),
     (3, 30, 66, 85, "warp", 72, "shared"),
-    (6, 4, 20, 40, "warp", 72, "shared"),
+    (6, 4, 20, 40, "position", 0, "shared"),
     (6, 32, 72, 40, "warp", 72, "shared"),
     (6, 32, 73, 40, "cluster", 16, "global"),
     (6, 33, 66, 85, "cluster", 16, "global"),
     (6, 256, 20, 85, "cluster", 16, "global"),
     (6, 30, 66, 4000, "warp", 72, "global"),
     (6, 30, 66, 1, "warp", 72, "shared"),
+    (6, 300, 2000, 40, "position", 0, "shared"),
+    (6, 3, 30000, 50, "position", 0, "shared"),
+    (6, 2, 20, 30000, "position", 0, "shared"),
 ])
 def test_viterbi_plan_covers_shapes(B, N, L, K, body, lc, table):
     plan = cuda.viterbi_plan(B, N, L, K)
     assert (plan["body"], plan["lc"], plan["table"]) == (body, lc, table)
     assert plan["ctas"] == B * plan["cl"] and plan["threads"] == plan["warps"] * 32
-    assert plan["threads"] == (32 if body == "warp" else cuda.VITERBI_BLOCK_THREADS)
+    assert plan["threads"] == {"warp": 32, "cluster": cuda.VITERBI_BLOCK_THREADS,
+                               "position": cuda.VITERBI_POS_THREADS}[body]
     if body == "warp":
         assert N <= 32 and L <= lc and plan["cl"] == 1
-    else:
+    elif body == "cluster":
         assert (plan["cl"], plan["tpr"], plan["rpt"]) == cuda._viterbi_cluster(N, L)
-    staged = min(cuda.VITERBI_KC, max(K - 1, 1))
-    state = 0 if body == "warp" else 4 * plan["cl"] * N + 2 * N
-    tab = 2 * (K - 1) * N if table == "shared" else 0
-    assert plan["smem"] == 4 * (staged * N + state) + tab <= cuda.MAX_SMEM_BYTES
-    if table == "global" and body == "warp":
-        assert 4 * (staged * N + state) + 2 * (K - 1) * N > cuda.MAX_SMEM_BYTES
+    if body == "position":
+        R = plan["entries"]
+        rows = plan["rows"] == "shared"
+        assert rows == (max(K, L) < 30000)
+        assert plan["smem"] == cuda._viterbi_position_smem(K, N, L, R, rows, table == "shared")
+        assert cuda._viterbi_position_smem(K, N, L, R, True, False) > cuda.MAX_SMEM_BYTES or rows
+    else:
+        staged = min(cuda.VITERBI_KC, max(K - 1, 1))
+        state = 0 if body == "warp" else 4 * plan["cl"] * N + 2 * N
+        tab = 2 * (K - 1) * N if table == "shared" else 0
+        assert plan["smem"] == 4 * (staged * N + state) + tab
+        if table == "global" and body == "warp":
+            assert 4 * (staged * N + state) + 2 * (K - 1) * N > cuda.MAX_SMEM_BYTES
+    assert plan["smem"] <= cuda.MAX_SMEM_BYTES
     assert cuda.viterbi_plan(B, N, L) == {k: v for k, v in plan.items()
-                                          if k not in ("smem", "table", "staged")}
+                                          if k not in ("smem", "table", "staged", "entries",
+                                                       "rows")}
 
 
 def test_viterbi_plan_refuses():
     for B, N, L, K in ((1, 0, 66, 85), (1, 30, 0, 85), (0, 30, 66, 85), (1, 30, 66, 0)):
         with pytest.raises(ValueError):
             cuda.viterbi_plan(B, N, L, K)
+    # a body that cannot take the shape, or an entries count it is not built for
+    for kw, shape in ((dict(body="warp"), (1, 33, 66, 85)),
+                      (dict(body="cluster"), (1, 300, 2000, 40)),
+                      (dict(body="global"), (1, 30, 66, 85)),
+                      (dict(body="position", entries=3), (1, 30, 66, 85))):
+        with pytest.raises(ValueError):
+            cuda.viterbi_plan(*shape, **kw)
 
 
 @pytest.mark.parametrize("B", [1, 3, 8, 9, 16, 33, 128, 200])

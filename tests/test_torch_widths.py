@@ -13,8 +13,9 @@
   the H = 128 and C = 128 plans are unchanged, and a width above the
   widest (MAX_H_WIDE = 2048) or below 1 raises a ValueError naming the limit.
   The DP's plan takes L = 2000 / frame_sampling at frame_sampling 1-3 and
-  N = 300 (its cluster body, the cells in registers across up to 16 CTAs,
-  and its global body where no such cluster holds them); the flint plan
+  N = 300 (its position body, and its cluster body, the cells in registers
+  across up to 16 CTAs, where one holds them and the crossings keep it; a
+  case each side of every crossing); the flint plan
   takes every N and M in chunks of segments and classes.
 * The twins in the kernels' split order (the BiLSTM's k-groups and gate-row
   groups, the decoder reverse chain's row groups and ragged ranks) against
@@ -283,36 +284,62 @@ def test_wide_stack_width_covers_every_c(C):
 
 
 # (N, L) -> the DP's body: N = 31 at frame_sampling 1, 2, 3 (L = 2000 //
-# frame_sampling), N = 300 at two L a cluster holds, and N = 300 at L =
-# 2000, which no cluster of 16 CTAs holds
-@pytest.mark.parametrize("N,L,K,body", [(31, 2000, 2560, "cluster"), (31, 1000, 1280, "cluster"),
-                                        (31, 666, 853, "cluster"), (300, 20, 40, "cluster"),
-                                        (300, 66, 40, "cluster"), (300, 2000, 40, "global")])
+# frame_sampling: the position body), N = 300 at two L a cluster holds, and
+# N = 300 at L = 2000, which no cluster of 16 CTAs holds (the position body,
+# where the global body ran before it)
+@pytest.mark.parametrize("N,L,K,body", [(31, 2000, 2560, "position"),
+                                        (31, 1000, 1280, "position"),
+                                        (31, 666, 853, "position"), (300, 20, 40, "cluster"),
+                                        (300, 66, 40, "cluster"), (300, 2000, 40, "position")])
 def test_viterbi_plan_takes_every_state(N, L, K, body):
     """The DP takes any N and L: the cluster body where a cluster of at
     most 16 CTAs holds the [N x L] cells in registers (its threads' rows
     and 16-cell slices cover every cell, its slots and a staged window fit
-    shared memory), else the global body (the state in device memory); the
-    windows staged at a time fit what is left, and the walk's table is in
-    shared memory where it fits beside the global body's."""
+    shared memory) and the crossings keep it, else the position body (one
+    CTA of 512 threads a video; its row buffers, entries and keys in shared
+    memory, and the walk's table where it fits beside them)."""
     plan = cuda.viterbi_plan(4, N, L, K)
-    assert plan["body"] == body and plan["threads"] == 256
-    assert 1 <= plan["staged"] <= min(cuda.VITERBI_KC, K - 1)
+    assert plan["body"] == body == cuda.viterbi_route(4, N, L)
     if body == "cluster":
         cl, tpr, rpt = plan["cl"], plan["tpr"], plan["rpt"]
+        assert plan["threads"] == 256 and 1 <= plan["staged"] <= min(cuda.VITERBI_KC, K - 1)
         assert plan["lc"] == cuda.VITERBI_CELLS and plan["ctas"] == 4 * cl
         assert 1 <= cl <= cuda.VITERBI_MAX_CL and tpr & (tpr - 1) == 0 and rpt in (1, 2, 4)
         assert 256 // tpr * rpt >= N and cl * tpr * cuda.VITERBI_CELLS >= L
         assert (cl - 1) * tpr * cuda.VITERBI_CELLS < L  # every CTA holds a column
         state = 4 * cl * N + 2 * N
         assert plan["table"] == "global" and plan["smem"] == 4 * (plan["staged"] * N + state)
+        assert plan["smem"] <= cuda.MAX_SMEM_BYTES
     else:
-        assert cuda._viterbi_cluster(N, L) is None and plan["ctas"] == 4
-        state = 2 * N
-        tab = 2 * (K - 1) * N
-        assert plan["table"] == ("shared" if plan["smem"] == 4 * (plan["staged"] * N + state)
-                                 + tab else "global")
-    assert 4 * (plan["staged"] * N + state) <= plan["smem"] <= cuda.MAX_SMEM_BYTES
+        R = plan["entries"]
+        assert plan["threads"] == cuda.VITERBI_POS_THREADS and plan["ctas"] == 4
+        assert R == (4 if K >= 640 else 2) and plan["rows"] == "shared"
+        Kp, Lp, EB, KK = cuda._viterbi_position_layout(K, L, R)
+        rows = 16 * 32 * 8 + 64 + 8 * KK + 4 * (2 * Kp + 2 * Lp + EB)
+        tab = 2 * (K - 1) * N if plan["table"] == "shared" else 0
+        assert plan["smem"] == rows + tab <= cuda.MAX_SMEM_BYTES
+        assert plan["table"] == ("shared" if rows + 2 * (K - 1) * N <= cuda.MAX_SMEM_BYTES
+                                 else "global")
+
+
+# each crossing of `cuda.viterbi_route` (VITERBI_CROSSINGS and the warp
+# body's, measured on the card): the body on either side of it
+@pytest.mark.parametrize("B,N,L,body", [
+    (6, 33, 132, "cluster"), (6, 33, 133, "position"), (6, 64, 199, "cluster"),
+    (6, 64, 200, "position"), (6, 128, 399, "cluster"), (6, 128, 400, "position"),
+    (6, 300, 512, "cluster"), (6, 300, 513, "position"), (128, 33, 132, "cluster"),
+    (128, 33, 133, "position"), (128, 64, 199, "cluster"), (128, 64, 200, "position"),
+    (128, 128, 199, "cluster"), (128, 128, 200, "position"), (128, 300, 65, "cluster"),
+    (128, 300, 66, "position"), (128, 8, 20, "position"), (128, 9, 65, "warp"),
+    (128, 16, 65, "warp"), (128, 16, 66, "position"), (3, 17, 72, "warp"),
+    (3, 30, 66, "warp"), (3, 30, 73, "cluster"), (3, 16, 73, "position"),
+    (3, 32, 133, "position")])
+def test_viterbi_route_crossings(B, N, L, body):
+    assert cuda.viterbi_route(B, N, L) == body == cuda.viterbi_plan(B, N, L, 85)["body"]
+    # a body the route does not pick still plans where it takes the shape
+    for other in ("cluster", "position"):
+        if other != body and (other == "position" or cuda._viterbi_cluster(N, L)):
+            assert cuda.viterbi_plan(B, N, L, 85, body=other)["body"] == other
 
 
 def test_viterbi_cluster_split_covers_every_cell_once():
@@ -320,7 +347,7 @@ def test_viterbi_cluster_split_covers_every_cell_once():
     others), the cluster body's threads cover each (row, column) cell of a
     video once: rank r, thread t takes rows t // TPR + i 256 // TPR and the
     16 columns from r 16 TPR + (t % TPR) 16; where no split of at most 16
-    CTAs exists the global body takes the shape."""
+    CTAs exists the position body takes the shape."""
     for N in (1, 2, 7, 31, 33, 64, 100, 255, 257, 300, 513, 1024, 1025):
         for L in (1, 16, 17, 66, 67, 133, 200, 400, 666, 1000, 2000, 4000):
             split = cuda._viterbi_cluster(N, L)
